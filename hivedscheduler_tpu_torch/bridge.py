@@ -15,9 +15,10 @@ import numpy as np
 import torch
 
 
-def _map(fn, node):
+def map_tree(fn, node):
+    """The tree with ``fn`` applied to every leaf."""
     if isinstance(node, dict):
-        return {k: _map(fn, v) for k, v in node.items()}
+        return {k: map_tree(fn, v) for k, v in node.items()}
     return fn(node)
 
 
@@ -34,7 +35,7 @@ def from_numpy_tree(tree: Any, device: str | torch.device = "cpu") -> Any:
             t = torch.from_numpy(np.array(arr))  # a writable copy
         return t.to(device)
 
-    return _map(leaf, tree)
+    return map_tree(leaf, tree)
 
 
 def to_numpy_tree(tree: Any) -> Any:
@@ -47,4 +48,4 @@ def to_numpy_tree(tree: Any) -> Any:
             t = t.float()
         return t.numpy()
 
-    return _map(leaf, tree)
+    return map_tree(leaf, tree)

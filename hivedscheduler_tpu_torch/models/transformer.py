@@ -9,18 +9,21 @@ with the JAX package's tree: ``embed``, ``final_norm``, ``lm_head`` and
 with the same numbers.
 
 Ported: the dense single-device forward with ``attn_impl`` ``xla`` or
-``flash``. MoE, LoRA, the ring/Ulysses family, pipelining and the
-overlapped tensor-parallel stack raise "not yet ported".
+``flash``, differentiable, with the ``remat`` policies of the layer loop.
+MoE, LoRA, the ring/Ulysses family, pipelining and the overlapped
+tensor-parallel stack raise "not yet ported".
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +47,8 @@ class TransformerConfig:
     moe_aux_weight: float = 0.01
     moe_zloss_weight: float = 0.0
     pipeline_microbatches: int = 0
-    # only changes what a backward pass recomputes; checked, unused by the
-    # forward-only path
+    # what a backward pass recomputes (the layer loop's checkpointing):
+    # "full" whole layers, "dots" all but the matmul outputs, "none" nothing
     remat: str = "full"
     # decide, as in the JAX package, which shapes take the flash kernel
     attn_block_q: int = 128
@@ -244,6 +247,39 @@ def _resolve_attn_fn(cfg: TransformerConfig):
     return attention.xla_attention
 
 
+# the matmul ops whose outputs "dots" keeps for the backward, like the JAX
+# package's dots_with_no_batch_dims_saveable policy; everything else in a
+# layer is recomputed
+_SAVED_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_MATMULS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: TransformerConfig):
+    """Apply ``cfg.remat`` to a layer body, as the JAX package's
+    ``_remat_wrap`` does to its layer scan: "none" saves everything, "full"
+    recomputes the whole layer in the backward, "dots" saves the matmul
+    outputs and recomputes the rest. Only changes what the backward
+    recomputes, so it applies only where autograd records. ``cfg.remat``
+    is checked by ``check_supported``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
 def forward_with_aux(
     params: Dict[str, Any],
     tokens: torch.Tensor,
@@ -264,10 +300,13 @@ def forward_with_aux(
     t = tokens.shape[1]
     x = F.embedding(tokens, params["embed"]).to(dtype)  # [B, T, D]
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)[None, :]
-    layers = params["layers"]
+    # one unbind per stacked leaf: indexing leaf[i] per layer would make
+    # each backward write a zero gradient of the whole stack per layer
+    per_layer = {name: torch.unbind(leaf) for name, leaf in params["layers"].items()}
+    layer = _remat_wrap(_apply_layer, cfg)
     for i in range(cfg.n_layers):
-        lp = {name: leaf[i] for name, leaf in layers.items()}
-        x = _apply_layer(x, lp, positions, cfg, attn_fn)
+        lp = {name: leaves[i] for name, leaves in per_layer.items()}
+        x = layer(x, lp, positions, cfg, attn_fn)
     x = _rms_norm(x, params["final_norm"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:

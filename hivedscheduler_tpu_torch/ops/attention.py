@@ -1,5 +1,5 @@
-"""Attention for the port: the plain reference and the flash-attention
-forward, a hand-written CUDA kernel for Hopper.
+"""Attention for the port: the plain reference and flash attention, whose
+forward and backward are hand-written CUDA kernels for Hopper.
 
 Counterpart of ``hivedscheduler_tpu/ops/attention.py``. Layouts are the JAX
 package's: q ``[B, T, H, D]``, k/v ``[B, T, H_kv, D]`` with ``H_kv``
@@ -8,22 +8,26 @@ head ``i // (H // H_kv)``).
 
 - :func:`xla_attention` is the plain reference; ``attn_impl="xla"``
   selects it, as in the JAX package.
-- :func:`flash_attention_plain` is the plain PyTorch version of the
-  flash forward kernel: the same o and lse, with the same masking constants.
-- :func:`flash_forward` runs the kernel ``csrc/flash_fwd.cu`` on a CUDA
-  tensor (or raises), and the plain version on a CPU tensor.
-- :func:`flash_attention` is what ``attn_impl="flash"`` calls: on a CUDA
-  tensor the kernel, for every shape (it tiles a ragged T itself), or an
-  error; on a CPU tensor the JAX package's shape rules choose between the
-  plain version and the reference.
+- :func:`flash_attention_plain` and :func:`flash_backward_plain` are the
+  plain PyTorch versions of the kernels: the same o and lse, and the same
+  dq, dk and dv, with the same masking constants.
+- :func:`flash_forward` runs ``csrc/flash_fwd.cu`` (K1) and
+  :func:`flash_backward` runs ``csrc/flash_bwd.cu`` (K2 for dq, then K3 for
+  dk and dv) on CUDA tensors, or raises; on CPU tensors they run the plain
+  versions.
+- :class:`FlashAttention` joins them as one differentiable op, the
+  counterpart of the JAX package's ``_flash_core`` custom_vjp, and
+  :func:`flash_attention` is what ``attn_impl="flash"`` calls: on a CUDA
+  tensor the kernels, for every shape (they tile a ragged T themselves), or
+  an error; on a CPU tensor the JAX package's shape rules choose between
+  the plain versions and the reference.
 
-The kernel replaces ``hivedscheduler_tpu/ops/attention.py::_fwd_kernel``
-(launched by ``_flash_forward``). On an H100 it is bound by the tensor
-cores: at the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128, causal) it
-does 137.5 GFLOP, 0.139 ms at 989 TFLOP/s, while its 202 MB of traffic
-would take 0.060 ms at 3.35 TB/s. Its measured time is in ``PERF.md``.
-The backward kernels are not ported yet, so the kernel refuses inputs that
-require grad.
+The kernels replace ``hivedscheduler_tpu/ops/attention.py::_fwd_kernel``,
+``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``. On an H100 the tensor cores
+bound all three: at the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128,
+causal) K1 does 137.5 GFLOP (0.139 ms at 989 TFLOP/s; its 202 MB would
+take 0.060 ms at 3.35 TB/s), K2 206.3 GFLOP (0.209 ms) and K3 275.0 GFLOP
+(0.278 ms). Their measured times are in ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -35,8 +39,11 @@ import torch
 NEG_INF = -1e30
 _CLAMP = -0.5 * abs(NEG_INF)  # the m_safe clamp: masked rows exp() to 0
 
-# launches of the CUDA flash-forward kernel, counted where it launches
+# launches of the CUDA kernels, each counted where it launches: the
+# forward (K1), the dq backward (K2) and the dk/dv backward (K3)
 FLASH_FWD_LAUNCHES = 0
+FLASH_BWD_DQ_LAUNCHES = 0
+FLASH_BWD_DKV_LAUNCHES = 0
 # calls of flash_attention on the CPU that took the reference (shapes that
 # don't tile, by the JAX package's rules)
 FLASH_REFERENCE_ROUTES = 0
@@ -105,23 +112,68 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, t, h, d).to(q.dtype), lse
 
 
-def _flash_fwd_fn():
+def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                         causal: bool = True):
+    """Plain PyTorch version of the flash backward kernels -> (dq, dk, dv)
+    in q's, k's and v's dtypes, from the forward's o and lse [B*H, T] f32
+    and the output gradient do [B, T, H, D].
+
+    Same arithmetic as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` taken
+    over whole rows: scores from q scaled by 1/sqrt(D) in f32, masked
+    scores at NEG_INF, p = exp(s - lse), delta = sum_d do * o in f32 from o
+    in its own dtype, ds = p (dp - delta), and the sum over a kv head's
+    q-head group in f32."""
+    b, t, h, d = q.shape
+    h_kv = k.shape[2]
+    _check_gqa(h, h_kv)
+    g = h // h_kv
+    scale = 1.0 / (d**0.5)
+    qs = q.float().reshape(b, t, h_kv, g, d) * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, k.float())
+    if causal:
+        s = s.masked_fill(~_causal_mask(t, k.shape[1], q.device), NEG_INF)
+    p = torch.exp(s - lse.reshape(b, h_kv, g, t, 1))
+    dof = do.float().reshape(b, t, h_kv, g, d)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    delta = (dof * o.float().reshape(b, t, h_kv, g, d)).sum(-1)  # [b,t,h_kv,g]
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dq.reshape(b, t, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# C entry points of the kernels: (library, pointer, int and stride argument
+# counts); every call ends with the stream
+_KERNELS = {
+    "hived_flash_fwd": ("flash_fwd", 5, 6, 12),
+    "hived_flash_bwd_dq": ("flash_bwd", 8, 6, 18),
+    "hived_flash_bwd_dkv": ("flash_bwd", 8, 6, 18),
+}
+
+
+def _launch(symbol: str, ptrs, dims, strided, stream) -> None:
+    """Launch a kernel on ``stream``: data pointers of ``ptrs``, the int
+    ``dims``, and the [B, T, H] element strides of each of ``strided``."""
     from hivedscheduler_tpu_torch.ops import _build
 
-    fn = _build.load("flash_fwd").hived_flash_fwd
+    lib, n_ptr, n_int, n_stride = _KERNELS[symbol]
+    fn = getattr(_build.load(lib), symbol)
     if fn.argtypes is None:
         # without argtypes ctypes passes Python ints as 32-bit C ints and
         # would cut every pointer
         fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-            + [ctypes.c_int64] * 12 + [ctypes.c_void_p]
-        )
-    return fn
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_int64] * n_stride + [ctypes.c_void_p])
+    err = fn(*(x.data_ptr() for x in ptrs), *dims,
+             *(s for x in strided for s in x.stride()[:3]), stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
 
 
 def _check_kernel_inputs(q, k, v) -> None:
-    """What the CUDA kernel takes; anything else raises."""
+    """What the CUDA kernels take; anything else raises."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -131,10 +183,10 @@ def _check_kernel_inputs(q, k, v) -> None:
             )
         if not x.is_contiguous():
             raise ValueError(f"flash kernel needs contiguous inputs; {name} is not")
-        if x.requires_grad:
+        if x.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"{name} requires grad: the flash backward kernels are not "
-                "ported yet"
+                f"{name} requires grad: a raw kernel call is not "
+                "differentiable; flash_attention (FlashAttention) is"
             )
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -147,21 +199,34 @@ def _check_kernel_inputs(q, k, v) -> None:
         raise ValueError(f"flash kernel head dims are {KERNEL_HEAD_DIMS}, got {d}")
 
 
+def _kernel_readable(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if the kernels can read it through its strides (D contiguous,
+    every row 16-byte aligned), else a contiguous copy: an output gradient
+    arrives in whatever layout autograd made."""
+    if (x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:-1])
+            and x.data_ptr() % 16 == 0):
+        return x
+    return x.contiguous()
+
+
+def _dims(q, k, causal: bool):
+    b, t, h, d = q.shape
+    return (b, t, h, k.shape[2], d, int(causal))
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _flash_forward_cuda(q, k, v, causal: bool):
     global FLASH_FWD_LAUNCHES
     _check_kernel_inputs(q, k, v)
-    b, t, h, d = q.shape
+    b, t, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    fn = _flash_fwd_fn()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, t, h, k.shape[2], d, int(causal),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *o.stride()[:3], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        _launch("hived_flash_fwd", (q, k, v, o, lse), _dims(q, k, causal),
+                (q, k, v, o), _stream(q))
     FLASH_FWD_LAUNCHES += 1
     return o, lse
 
@@ -178,35 +243,123 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
+def _check_backward_inputs(q, k, v, lse, **like_q) -> None:
+    """The kernel inputs, lse, and the named tensors shaped like q."""
+    _check_kernel_inputs(q, k, v)
+    b, t, h, _ = q.shape
+    for name, x in like_q.items():
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} on {x.device} "
+                             f"does not match q {tuple(q.shape)} {q.dtype}")
+    if (lse.shape != (b * h, t) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous [B*H, T] f32 tensor, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+
+
+def flash_backward_dq_cuda(q, k, v, o, lse, do, causal: bool = True):
+    """K2 alone on CUDA tensors -> (dq [B, T, H, D], delta [B*H, T] f32,
+    the rowsum(do * o) that K3 reads). :func:`flash_backward` runs it."""
+    global FLASH_BWD_DQ_LAUNCHES
+    _check_backward_inputs(q, k, v, lse, o=o, do=do)
+    o, do = _kernel_readable(o), _kernel_readable(do)
+    delta = torch.empty_like(lse)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("hived_flash_bwd_dq", (q, k, v, o, do, lse, delta, dq),
+                _dims(q, k, causal), (q, k, v, o, do, dq), _stream(q))
+    FLASH_BWD_DQ_LAUNCHES += 1
+    return dq, delta
+
+
+def flash_backward_dkv_cuda(q, k, v, lse, delta, do, causal: bool = True):
+    """K3 alone on CUDA tensors -> (dk, dv [B, T, H_kv, D]), with the GQA
+    group sum done inside the kernel. :func:`flash_backward` runs it."""
+    global FLASH_BWD_DKV_LAUNCHES
+    _check_backward_inputs(q, k, v, lse, do=do)
+    if delta.shape != lse.shape or delta.dtype != torch.float32:
+        raise ValueError(f"delta must match lse, got {tuple(delta.shape)}")
+    do = _kernel_readable(do)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        _launch("hived_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+                _dims(q, k, causal), (q, k, v, do, dk, dv), _stream(q))
+    FLASH_BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   causal: bool = True):
+    """-> (dq, dk, dv) from the forward's o and lse and the output gradient
+    do. CUDA tensors run K2 then K3 (or raise on what they do not take); CPU
+    tensors run the plain version."""
+    if q.device.type == "cuda":
+        dq, delta = flash_backward_dq_cuda(q, k, v, o, lse, do, causal)
+        return (dq, *flash_backward_dkv_cuda(q, k, v, lse, delta, do, causal))
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, o, lse, do, causal)
+    raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of the JAX package's
+    ``_flash_core`` custom_vjp: the forward runs :func:`flash_forward` and
+    keeps q, k, v, o and lse; the backward runs :func:`flash_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True):
+        o, lse = flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_backward(q, k, v, o, lse, do, ctx.causal), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
-    """Flash attention: q [B, T, H, D], k/v [B, T, H_kv, D] -> [B, T, H, D].
+    """Differentiable flash attention: q [B, T, H, D], k/v [B, T, H_kv, D]
+    -> [B, T, H, D], through :class:`FlashAttention`.
 
-    A CUDA tensor always goes to the kernel, which tiles any T by its own
-    64-row blocks and raises on what it does not take (dtype, head dim,
+    A CUDA tensor always goes to the kernels, which tile any T by their own
+    64-row blocks and raise on what they do not take (dtype, head dim,
     layout, a k length other than q's). A CPU tensor follows the JAX
     package's ``flash_attention``: :func:`xla_attention`, counted, where T
     is not divisible by ``block_q`` or ``block_k``, D is not a multiple of
     8, H is not divisible by H_kv, or k's length differs from q's; the
-    plain version of the kernel otherwise."""
+    plain versions of the kernels otherwise."""
     global FLASH_REFERENCE_ROUTES
-    if q.device.type != "cpu":
-        return flash_forward(q, k, v, causal)[0]
-    _, t, h, d = q.shape
-    h_kv = k.shape[2]
-    if (t % block_q or t % block_k or d % 8 or (h_kv and h % h_kv)
-            or k.shape[1] != t):
-        FLASH_REFERENCE_ROUTES += 1
-        return xla_attention(q, k, v, causal=causal)
-    return flash_forward(q, k, v, causal)[0]
+    if q.device.type == "cpu":
+        _, t, h, d = q.shape
+        h_kv = k.shape[2]
+        if (t % block_q or t % block_k or d % 8 or (h_kv and h % h_kv)
+                or k.shape[1] != t):
+            FLASH_REFERENCE_ROUTES += 1
+            return xla_attention(q, k, v, causal=causal)
+    return FlashAttention.apply(q, k, v, causal)
 
 
-def attention_flops(b: int, t: int, h: int, d: int, causal: bool) -> int:
-    """Multiply-add flops of both products over the (row, key) pairs the
-    mask leaves: the work the kernel must do on these shapes."""
+def attention_flops(b: int, t: int, h: int, d: int, causal: bool,
+                    products: int = 2) -> int:
+    """Multiply-add flops of ``products`` [row, D] x [D, key] products over
+    the (row, key) pairs the mask leaves: the work a kernel must do on these
+    shapes. The forward (K1) does 2 products."""
     pairs = t * (t + 1) // 2 if causal else t * t
-    return 4 * b * h * d * pairs
+    return 2 * products * b * h * d * pairs
+
+
+def attention_bwd_flops(b: int, t: int, h: int, d: int, causal: bool) -> dict:
+    """Flops of K2 (3 products: q k^T, do v^T, ds k), of K3 (4: q k^T and
+    do v^T again, p^T do, ds^T q) and the least a backward can do (5: each
+    product once)."""
+    return {name: attention_flops(b, t, h, d, causal, products=n)
+            for name, n in (("dq", 3), ("dkv", 4), ("least", 5))}
 
 
 def attention_bytes(b: int, t: int, h: int, h_kv: int, d: int) -> int:
@@ -214,3 +367,12 @@ def attention_bytes(b: int, t: int, h: int, h_kv: int, d: int) -> int:
     lse written once."""
     return (2 * b * t * h * d + 2 * b * t * h_kv * d) * 2 + b * h * t * 4
 
+
+def attention_bwd_bytes(b: int, t: int, h: int, h_kv: int, d: int) -> dict:
+    """Bytes each bf16 backward kernel must move, each input read once and
+    each output written once: K2 reads q, k, v, o, do and lse and writes dq
+    and the f32 delta; K3 reads q, k, v, do, lse and delta and writes dk
+    and dv."""
+    q_bytes, kv_bytes, row_bytes = 2 * b * t * h * d, 2 * b * t * h_kv * d, 4 * b * h * t
+    return {"dq": 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+            "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes}

@@ -32,90 +32,19 @@
 // Inputs are addressed through their [B, T, H, D] strides (D contiguous),
 // so the caller makes no [B*H, T, D] copy.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace hived;
 
-constexpr int kBlockM = 64;  // q rows per block (4 warps x 16)
-constexpr int kBlockN = 64;  // keys per k/v tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // bf16 elements of padding per shared-memory row
-constexpr float kNegInf = -1e30f;
-constexpr float kClamp = -0.5e30f;  // the m_safe clamp of the TPU kernel
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBlockM = kTile;  // q rows per block (4 warps x 16)
+constexpr int kBlockN = kTile;  // keys per k/v tile
 
 template <int D>
 constexpr int smem_bytes() {
   // q tile + two stages of k and v tiles
   return (kBlockM + 4 * kBlockN) * (D + kPad) * static_cast<int>(sizeof(bf16));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + 64) of a [T, D] slice with row stride `stride`
-// elements into a padded shared tile; rows at or past T are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t stride,
-                                          int row0, int T) {
-  constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
-  constexpr int kChunks = kBlockN * kChunksPerRow;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    const int gr = row0 + r;
-    const bool valid = gr < T;
-    const bf16* g = src + static_cast<int64_t>(valid ? gr : 0) * stride + col;
-    cp_async16(dst + r * (D + kPad) + col, g, valid);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// c[4] += a[4] (16x16, row major) * (b0, b1) (16x8, column major)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// max and sum over the 4 lanes of a quad (the lanes that share a row)
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 struct Args {
@@ -317,12 +246,8 @@ template <int D, bool kCausal>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<D>();
   static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, kCausal>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  const cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal>, kSmem, attr_set);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.T + kBlockM - 1) / kBlockM, B * a.H);
   flash_fwd_kernel<D, kCausal><<<grid, kThreads, kSmem, stream>>>(a);
   return cudaGetLastError();

@@ -1,17 +1,46 @@
-"""LM loss and the forward-only evaluation step.
+"""LM loss, the training step and the forward-only evaluation step.
 
-Counterpart of ``hivedscheduler_tpu/parallel/train.py``'s ``loss_fn`` and
-``make_sharded_eval_step`` on one device. The training step, the optimizer
-and the sharded factories are not yet ported.
+Counterpart of ``hivedscheduler_tpu/parallel/train.py`` on one device:
+``loss_fn``, ``make_optimizer``, ``train_step`` (with gradient
+accumulation), the remat-policy override, ``make_train_step`` (the
+one-device counterpart of ``make_sharded_train_step``) and
+``make_eval_step`` (of ``make_sharded_eval_step``). The sharded factories,
+LoRA and the mesh are not yet ported.
+
+The parameter tree is the JAX package's: a dict of f32 leaves. PyTorch
+updates in place, so a step returns the same tree and optimizer it was
+given, updated, where the JAX step returns new ones.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+from typing import Callable, List, Optional
+
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from hivedscheduler_tpu_torch import resolve_device
 from hivedscheduler_tpu_torch.models import transformer as tm
+
+
+def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.01) -> Callable:
+    """AdamW as the JAX package's ``optax.adamw(lr, b1=0.9, b2=0.95,
+    weight_decay=...)``: eps 1e-8, decay on every leaf. Returns the
+    constructor to call on the parameter leaves, since a torch optimizer is
+    built over the tensors it updates."""
+    return functools.partial(torch.optim.AdamW, lr=lr, betas=(0.9, 0.95),
+                             eps=1e-8, weight_decay=weight_decay)
+
+
+def _chunk_ce(hidden_c, head, targets_c, mask_c):
+    """Summed masked cross-entropy of one sequence chunk."""
+    logits_c = torch.einsum("bcd,dv->bcv", hidden_c, head).float()
+    ce = F.cross_entropy(logits_c.reshape(-1, logits_c.shape[-1]),
+                         targets_c.reshape(-1), reduction="none")
+    return torch.sum(ce * mask_c.reshape(-1))
 
 
 def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
@@ -20,9 +49,11 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
     full-length forward; the rolled-in last position is masked out.
 
     ``ce_chunk > 0`` applies the lm_head and the cross-entropy in sequence
-    chunks of that size, so the [B, T, vocab] f32 logits never exist at
-    once; the result is the same sum. ``include_aux`` is accepted for the
-    reference's signature: the dense model's aux loss is 0."""
+    chunks of that size, each checkpointed where autograd records, so the
+    backward recomputes one chunk's logits at a time and the [B, T, vocab]
+    f32 logits never exist at once; the result is the same sum.
+    ``include_aux`` is accepted for the reference's signature: the dense
+    model's aux loss is 0."""
     targets = torch.roll(tokens, -1, dims=1).long()
     b, t = tokens.shape
     mask = torch.ones((b, t), dtype=torch.float32, device=tokens.device)
@@ -43,17 +74,125 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
         head = tm.load_weight(params["lm_head"], cfg.dtype)
         total = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for s in range(0, t, ce_chunk):
-            logits_c = torch.einsum(
-                "bcd,dv->bcv", hidden[:, s:s + ce_chunk], head).float()
-            ce = F.cross_entropy(
-                logits_c.reshape(-1, logits_c.shape[-1]),
-                targets[:, s:s + ce_chunk].reshape(-1), reduction="none",
-            )
-            total = total + torch.sum(ce * mask[:, s:s + ce_chunk].reshape(-1))
+            chunk = (hidden[:, s:s + ce_chunk], head,
+                     targets[:, s:s + ce_chunk], mask[:, s:s + ce_chunk])
+            if torch.is_grad_enabled():
+                part = torch_checkpoint.checkpoint(_chunk_ce, *chunk,
+                                                   use_reentrant=False)
+            else:
+                part = _chunk_ce(*chunk)
+            total = total + part
         loss = total / torch.sum(mask)
     if include_aux:
         loss = loss + aux
     return loss
+
+
+def _leaves(params) -> List[torch.Tensor]:
+    """The tree's tensor leaves in a fixed (insertion) order."""
+    if isinstance(params, dict):
+        return [leaf for v in params.values() for leaf in _leaves(v)]
+    return [params]
+
+
+def _accumulated_value_and_grad(grad_fn, params, tokens: torch.Tensor,
+                                grad_accum: int):
+    """(loss, grads) of ``grad_fn(params, micro_tokens)`` averaged over
+    ``grad_accum`` equal batch slices, one slice's activations alive at a
+    time. For the dense model the average equals the full-batch gradient:
+    the LM loss is a mean over equal slices."""
+    if grad_accum <= 1:
+        return grad_fn(params, tokens)
+    b = tokens.shape[0]
+    if b % grad_accum:
+        raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
+    loss_sum, grad_sum = None, None
+    for micro in tokens.reshape(grad_accum, b // grad_accum, *tokens.shape[1:]):
+        loss, grads = grad_fn(params, micro)
+        if grad_sum is None:
+            loss_sum, grad_sum = loss, list(grads)
+        else:
+            loss_sum = loss_sum + loss
+            for acc, g in zip(grad_sum, grads):
+                acc.add_(g)
+    return loss_sum / grad_accum, [g / grad_accum for g in grad_sum]
+
+
+def train_step(params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor,
+               cfg: tm.TransformerConfig, mesh=None, grad_accum: int = 1,
+               ce_chunk: int = 0, skip_nonfinite: bool = False):
+    """One optimizer update -> (params, optimizer, loss). ``params`` are
+    updated in place; see ``_accumulated_value_and_grad`` for
+    ``grad_accum > 1`` and ``loss_fn`` for ``ce_chunk``.
+
+    ``skip_nonfinite``: when the loss comes out non-finite, params and the
+    optimizer state (its step count included) are left untouched and the
+    loss is still returned, for the caller's divergence accounting."""
+    leaves = _leaves(params)
+
+    def grad_fn(p, micro):
+        loss = loss_fn(p, micro, cfg, mesh, ce_chunk=ce_chunk)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    loss, grads = _accumulated_value_and_grad(grad_fn, params, tokens, grad_accum)
+    if skip_nonfinite and not bool(torch.isfinite(loss)):
+        return params, optimizer, loss
+    for leaf, g in zip(leaves, grads):
+        leaf.grad = g
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    return params, optimizer, loss
+
+
+REMAT_POLICIES = tm.REMAT_POLICIES
+
+
+def _apply_remat_policy(cfg: tm.TransformerConfig, remat_policy):
+    """``None`` keeps ``cfg.remat``; anything else replaces it. The policy
+    only changes what the backward recomputes: "full" whole layers, "dots"
+    all but the matmul outputs, "none" nothing. Loss and gradients are the
+    same under every policy."""
+    if remat_policy is None:
+        return cfg
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {remat_policy!r}; expected one of "
+            f"{REMAT_POLICIES}"
+        )
+    return dataclasses.replace(cfg, remat=remat_policy)
+
+
+def make_train_step(cfg: tm.TransformerConfig, device: str | torch.device = "cuda",
+                    optimizer: Optional[Callable] = None, grad_accum: int = 1,
+                    ce_chunk: int = 0, skip_nonfinite: bool = False,
+                    remat_policy: Optional[str] = None):
+    """The one-device training step, counterpart of
+    ``make_sharded_train_step``. Returns ``(step, init_fn)``:
+
+    - ``init_fn(generator) -> (params, opt_state)``: f32 params on
+      ``device`` that require grad, and ``opt_state``, the optimizer over
+      their leaves (``optimizer`` is a constructor as
+      :func:`make_optimizer` returns; AdamW by default);
+    - ``step(params, opt_state, tokens) -> (params, opt_state, loss)``,
+      one update in place; ``loss`` is a 0-d f32 tensor on the device.
+      Every leaf of ``params`` must require grad."""
+    cfg = _apply_remat_policy(cfg, remat_policy)
+    tm.check_supported(cfg)
+    dev = resolve_device(device)
+    make_opt = optimizer or make_optimizer()
+
+    def init_fn(generator: torch.Generator):
+        params = tm.init_params(cfg, generator, dev)
+        for leaf in _leaves(params):
+            leaf.requires_grad_(True)
+        return params, make_opt(_leaves(params))
+
+    def step(params, opt_state, tokens: torch.Tensor):
+        return train_step(params, opt_state, tokens.to(dev), cfg,
+                          grad_accum=grad_accum, ce_chunk=ce_chunk,
+                          skip_nonfinite=skip_nonfinite)
+
+    return step, init_fn
 
 
 def make_eval_step(cfg: tm.TransformerConfig, device: str | torch.device = "cuda",

@@ -195,3 +195,144 @@ def test_flagship_bound_counts():
     assert round(flops / 1e9, 1) == 137.5
     assert round(nbytes / 1e6) == 202
     assert round(flops / 989e12 * 1e3, 3) == 0.139
+
+
+# -- backward ----------------------------------------------------------------
+# The plain backward and autograd through the port's flash_attention are
+# held to the JAX kernels at atol 3e-5, the bound tests/test_parallel.py
+# holds the JAX flash gradients to: both are f32 over T=256 and differ by
+# summation order only.
+GRAD_ATOL = 3e-5
+
+
+def _jax_flash_backward(q, k, v, do, causal, block_q, block_k):
+    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        kw = dict(causal=causal, block_q=block_q, block_k=block_k, interpret=True)
+        o, lse = jattn._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+        grads = jattn._flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      o, lse, jnp.asarray(do), **kw)
+    return np.array(o), np.array(lse[..., 0]), [np.array(g) for g in grads]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h_kv", [4, 2, 1])
+def test_plain_backward_matches_jax_kernels(causal, h_kv):
+    # T=256 over blocks 128/64: the dq kernel walks k blocks up to the
+    # diagonal, the dk/dv kernel q blocks from it, and GQA sums the group
+    q, k, v = _qkv(10, 1, 256, 4, h_kv, 32)
+    do = np.random.default_rng(11).standard_normal(q.shape, dtype=np.float32)
+    o, lse, want = _jax_flash_backward(q, k, v, do, causal, 128, 64)
+    got = tattn.flash_backward_plain(
+        *(torch.from_numpy(x) for x in (q, k, v, o, lse, do)), causal=causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, atol=GRAD_ATOL, err_msg=name)
+
+
+def test_plain_backward_batch_layout_and_bf16_dtypes():
+    # B=2: lse rows are b*H + h; bf16 inputs give bf16 gradients
+    q, k, v = _qkv(12, 2, 128, 4, 2, 16)
+    do = np.random.default_rng(13).standard_normal(q.shape, dtype=np.float32)
+    o, lse, want = _jax_flash_backward(q, k, v, do, True, 128, 128)
+    got = tattn.flash_backward_plain(
+        *(torch.from_numpy(x) for x in (q, k, v, o, lse, do)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=GRAD_ATOL)
+    bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, o)]
+    grads = tattn.flash_backward_plain(*bf, torch.from_numpy(lse),
+                                       torch.from_numpy(do).to(torch.bfloat16))
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+
+
+def _sin_loss_grads(fn, q, k, v):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    loss = torch.sin(fn(qt, kt, vt)).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, (qt, kt, vt))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h_kv", [4, 1])
+def test_flash_attention_grads_match_jax_grad(causal, h_kv):
+    q, k, v = _qkv(14, 1, 256, 4, h_kv, 16)
+    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        want = jax.grad(
+            lambda q, k, v: jnp.sum(jnp.sin(jattn.flash_attention(
+                q, k, v, causal=causal, block_q=128, block_k=64, interpret=True))),
+            argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    before = tattn.FLASH_REFERENCE_ROUTES
+    got = _sin_loss_grads(lambda q, k, v: tattn.flash_attention(
+        q, k, v, causal=causal, block_q=128, block_k=64), q, k, v)
+    assert tattn.FLASH_REFERENCE_ROUTES == before  # the plain kernels ran
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, np.asarray(w), atol=GRAD_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h_kv", [4, 2, 1])
+def test_flash_attention_grads_match_xla_attention(causal, h_kv):
+    q, k, v = _qkv(15, 2, 128, 4, h_kv, 16)
+    got = _sin_loss_grads(lambda q, k, v: tattn.flash_attention(
+        q, k, v, causal=causal, block_q=64, block_k=64), q, k, v)
+    want = _sin_loss_grads(lambda q, k, v: tattn.xla_attention(
+        q, k, v, causal=causal), q, k, v)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, w, atol=GRAD_ATOL, err_msg=name)
+
+
+def test_reference_route_is_differentiable_too():
+    # T=96 does not tile by 64: the reference's einsums carry the gradient
+    q, k, v = _qkv(16, 1, 96, 2, 1, 16)
+    before = tattn.FLASH_REFERENCE_ROUTES
+    got = _sin_loss_grads(lambda q, k, v: tattn.flash_attention(
+        q, k, v, block_q=64, block_k=64), q, k, v)
+    assert tattn.FLASH_REFERENCE_ROUTES == before + 1
+    want = _sin_loss_grads(tattn.xla_attention, q, k, v)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-6)
+
+
+def test_cpu_flash_backward_takes_plain_version_and_launches_nothing():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(17, 1, 64, 2, 1, 16))
+    do = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        tuple(q.shape), dtype=np.float32))
+    o, lse = tattn.flash_forward(q, k, v)
+    launches = (tattn.FLASH_BWD_DQ_LAUNCHES, tattn.FLASH_BWD_DKV_LAUNCHES)
+    got = tattn.flash_backward(q, k, v, o, lse, do)
+    want = tattn.flash_backward_plain(q, k, v, o, lse, do)
+    assert (tattn.FLASH_BWD_DQ_LAUNCHES, tattn.FLASH_BWD_DKV_LAUNCHES) == launches
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError) as err:
+        tattn.flash_backward(*(x.to("meta") for x in (q, k, v, o, lse, do)))
+    assert "cuda or cpu" in str(err.value)
+
+
+def test_flash_attention_under_inference_mode_records_nothing():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(19, 1, 64, 2, 1, 16))
+    with torch.inference_mode():
+        o = tattn.flash_attention(q, k, v, block_q=64, block_k=64)
+    assert not o.requires_grad and o.grad_fn is None
+    np.testing.assert_array_equal(o.numpy(), tattn.flash_attention_plain(q, k, v)[0].numpy())
+
+
+def test_non_contiguous_output_gradient_is_read_as_is():
+    # autograd may hand the backward a transposed or expanded gradient
+    q, k, v = (torch.from_numpy(x) for x in _qkv(20, 1, 64, 2, 2, 16))
+    o, lse = tattn.flash_forward(q, k, v)
+    do = torch.ones((1, 1, 1, 1)).expand(1, 64, 2, 16)
+    got = tattn.flash_backward(q, k, v, o, lse, do)
+    want = tattn.flash_backward_plain(q, k, v, o, lse, do.contiguous())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tattn._kernel_readable(do) is not do  # the kernels would get a copy
+    assert tattn._kernel_readable(q) is q
+
+
+def test_flagship_backward_bound_counts():
+    # the numbers the kernels' source note and PERF.md state
+    flops = tattn.attention_bwd_flops(8, 2048, 16, 128, causal=True)
+    nbytes = tattn.attention_bwd_bytes(8, 2048, 16, 8, 128)
+    assert {k: round(v / 1e9, 1) for k, v in flops.items()} == {
+        "dq": 206.3, "dkv": 275.0, "least": 343.8}
+    assert flops["dq"] == 3 * tattn.attention_flops(8, 2048, 16, 128, True) // 2
+    assert {k: round(v / 1e6, 1) for k, v in nbytes.items()} == {"dq": 337.6, "dkv": 270.5}
+    assert round(flops["dq"] / 989e12 * 1e3, 4) == 0.2086
+    assert round(flops["dkv"] / 989e12 * 1e3, 4) == 0.2781

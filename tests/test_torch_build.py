@@ -96,3 +96,35 @@ def test_chip_smoke_refuses_without_the_repository(tmp_path):
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert "port package is missing" in proc.stderr
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    assert [os.path.basename(p) for p in _build.sources("flash_bwd")] == [
+        "flash_bwd.cu", "flash_common.cuh"]
+    before = {n: _build.library_path(n) for n in ("flash_fwd", "flash_bwd")}
+    with open(csrc / "flash_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.library_path(n) for n in ("flash_fwd", "flash_bwd")}
+    # an edited header names new libraries for every source that includes it
+    assert all(before[n] != after[n] for n in before)
+
+
+def test_build_all_runs_the_compilers_together(scratch_build, monkeypatch):
+    fake = scratch_build / "nvcc"
+    events = scratch_build / "events"
+    # logs its start, waits, logs its end, then writes its -o target
+    fake.write_text('#!/bin/sh\nsrc=""; out=""\n'
+                    'while [ $# -gt 0 ]; do case "$1" in -o) out="$2"; shift;; '
+                    '*.cu) src="$1";; esac; shift; done\n'
+                    f'echo "start $src" >> {events}\nsleep 0.3\n'
+                    f'echo "end $src" >> {events}\ntouch "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    paths = _build.build_all(["flash_fwd", "flash_bwd"])
+    assert all(os.path.exists(p) for p in paths)
+    kinds = [line.split()[0] for line in events.read_text().splitlines()]
+    assert kinds == ["start", "start", "end", "end"]
+    assert set(_build.BUILD_LOGS) == {"flash_fwd", "flash_bwd"}

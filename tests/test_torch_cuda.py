@@ -4,11 +4,16 @@
 
 Without a card every test skips: whether a card is present is decided in
 the ``cuda`` fixture, never at import, so every xdist worker collects the
-same tests. The kernel is held to its plain PyTorch version on the card (o
-at atol/rtol 2e-2: bf16 output of a kernel that rounds p to bf16, and
-every row (b, t, h) within a relative 1e-2 of its reference, so a fault in
-a few rows cannot pass; lse at atol 5e-3), and the model and eval step to
-the xla path on the same weights.
+same tests. The forward kernel is held to its plain PyTorch version on the
+card (o at atol/rtol 2e-2: bf16 output of a kernel that rounds p to bf16,
+and every row (b, t, h) within a relative 1e-2 of its reference, so a
+fault in a few rows cannot pass; lse at atol 5e-3). The backward kernels
+are held to theirs by normalised errors: dq, dk and dv within a relative
+Frobenius 1e-2 and every row within a relative 2e-2 (p and ds are rounded
+to bf16 for their products; an H100 read ~2.6e-3 and ~5e-3), a row whose
+reference is below 1e-3 of the largest row measured against that floor
+(row 0 of a causal dq is 0 in exact arithmetic). The model, eval step and
+train step are held to the xla path on the same weights.
 """
 
 import numpy as np
@@ -25,6 +30,8 @@ pytestmark = pytest.mark.cuda
 O_TOL = 2e-2
 O_ROW_REL = 1e-2
 LSE_ATOL = 5e-3
+GRAD_REL = 1e-2
+GRAD_ROW_REL = 2e-2
 
 
 @pytest.fixture
@@ -38,6 +45,18 @@ def cuda():
 def _worst_row_rel(o, o_ref):
     diff = (o.float() - o_ref.float()).norm(dim=-1)
     return float((diff / o_ref.float().norm(dim=-1)).max())
+
+
+def _grad_errs(x, ref):
+    """(relative Frobenius, worst row relative) over rows along D; a row
+    whose reference is below 1e-3 of the largest is measured against that
+    floor."""
+    x, ref = x.float(), ref.float()
+    diff = (x - ref).norm(dim=-1)
+    norms = ref.norm(dim=-1)
+    floor = 1e-3 * float(norms.max())
+    return (float((x - ref).norm() / ref.norm()),
+            float((diff / norms.clamp_min(floor)).max()))
 
 
 def _qkv(b, t, h, h_kv, d, seed=0, dtype=torch.bfloat16):
@@ -105,6 +124,8 @@ def test_kernel_raises_instead_of_falling_back(cuda, bad):
         q = torch.randn(1, 2, 128, 64, device="cuda").to(torch.bfloat16).transpose(1, 2)
         kind = ValueError
     elif bad == "grad":
+        # a raw kernel call is not differentiable: under grad mode it
+        # refuses a tensor that requires grad (flash_attention takes it)
         q = q.clone().requires_grad_(True)
         kind = NotImplementedError
     else:
@@ -147,3 +168,94 @@ def test_eval_step_flash_matches_xla_on_card(cuda):
         losses.append(float(step(params, tokens)))
     assert np.isfinite(losses).all()
     assert abs(losses[0] - losses[1]) < 2e-2
+
+
+BWD_SHAPES = [
+    (2, 256, 4, 2, 128, True),
+    (2, 256, 4, 4, 128, False),
+    (1, 512, 8, 1, 64, True),
+    (3, 130, 2, 1, 64, True),   # ragged last tile
+    (1, 64, 2, 2, 128, False),  # one tile
+]
+
+
+def _bwd_inputs(b, t, h, h_kv, d, causal, seed=0):
+    q, k, v = _qkv(b, t, h, h_kv, d, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
+    o, lse = tattn.flash_forward(q, k, v, causal=causal)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_backward_kernels_match_plain(cuda, shape):
+    *dims, causal = shape
+    q, k, v, o, lse, do = _bwd_inputs(*dims, causal)
+    before = (tattn.FLASH_BWD_DQ_LAUNCHES, tattn.FLASH_BWD_DKV_LAUNCHES)
+    got = tattn.flash_backward(q, k, v, o, lse, do, causal=causal)
+    assert (tattn.FLASH_BWD_DQ_LAUNCHES, tattn.FLASH_BWD_DKV_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = tattn.flash_backward_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for x, ref, like, name in zip(got, want, (q, k, v), ("dq", "dk", "dv")):
+        assert x.dtype == torch.bfloat16 and x.shape == like.shape, name
+        assert bool(torch.isfinite(x).all()), name
+        fro, row = _grad_errs(x, ref)
+        assert fro <= GRAD_REL and row <= GRAD_ROW_REL, (name, fro, row)
+
+
+def test_backward_is_bit_reproducible(cuda):
+    q, k, v, o, lse, do = _bwd_inputs(2, 512, 8, 2, 128, True, seed=4)
+    first = tattn.flash_backward(q, k, v, o, lse, do)
+    second = tattn.flash_backward(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_ragged_t_through_autograd(cuda):
+    # T=200 with D=64 and MQA: autograd through flash_attention reaches K1,
+    # K2 and K3, with a gradient in the layout autograd makes
+    q, k, v = (x.requires_grad_(True) for x in _qkv(2, 200, 4, 1, 64, seed=5))
+    w = torch.randn((2, 4, 200, 64), device="cuda").transpose(1, 2)
+    launches = (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_BWD_DQ_LAUNCHES,
+                tattn.FLASH_BWD_DKV_LAUNCHES)
+    o = tattn.flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+    assert (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_BWD_DQ_LAUNCHES,
+            tattn.FLASH_BWD_DKV_LAUNCHES) == tuple(n + 1 for n in launches)
+    with torch.no_grad():
+        o2, lse = tattn.flash_forward(q, k, v)
+        want = tattn.flash_backward_plain(q, k, v, o2, lse, w.to(torch.bfloat16))
+    for x, ref, name in zip(got, want, ("dq", "dk", "dv")):
+        fro, row = _grad_errs(x, ref)
+        assert fro <= GRAD_REL and row <= GRAD_ROW_REL, (name, fro, row)
+
+
+def test_backward_kernels_build_for_sm90a(cuda):
+    paths = _build.build_all(["flash_fwd", "flash_bwd"])
+    assert all(p.startswith(_build.BUILD_DIR) for p in paths)
+
+
+def test_flagship_train_step_flash_matches_xla(cuda):
+    # one layer at the flagship width, T=2048: the loss and every gradient
+    # leaf of one step, flash against xla on the same weights and batch
+    kw = dict(vocab_size=32768, d_model=2048, n_heads=16, n_kv_heads=8,
+              n_layers=1, d_ff=8192, max_seq_len=2048, remat="dots")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 32768, (2, 2048)).astype(np.int32)).cuda()
+    results = {}
+    for impl in ("flash", "xla"):
+        cfg = ttm.TransformerConfig(attn_impl=impl, **kw)
+        params = ttm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), cuda)
+        leaves = ttrain._leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        launches = tattn.FLASH_BWD_DKV_LAUNCHES
+        loss = ttrain.loss_fn(params, tokens, cfg, ce_chunk=512)
+        grads = torch.autograd.grad(loss, leaves)
+        assert tattn.FLASH_BWD_DKV_LAUNCHES - launches == (impl == "flash")
+        results[impl] = (float(loss.detach()), [g.float() for g in grads])
+    (lf, gf), (lx, gx) = results["flash"], results["xla"]
+    assert np.isfinite(lf) and abs(lf - lx) < 2e-2
+    for a, b in zip(gf, gx):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).norm() / b.norm()) < 5e-2
