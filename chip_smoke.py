@@ -8,11 +8,14 @@ Phases, each of which must pass or the script exits non-zero:
 (a) print the card's name and power limit; build the port's CUDA kernels
     ``hivedscheduler_tpu_torch/ops/csrc/flash_fwd.cu`` (K1) and
     ``flash_bwd.cu`` (K2, K3) with nvcc (sm_90a), both compilers at once,
-    and print ptxas's register and spill lines;
+    and print ptxas's register and spill lines and any warning that it
+    serialized wgmma;
 (b) hold the flash-forward kernel against its plain PyTorch version on the
     card: the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128, bf16,
-    causal), full attention, H_kv = H, and a ragged D=64 case; then show
-    that the check sees a planted fault (one swapped pair of V keys);
+    causal), full attention, H_kv = H, T=192 (a multiple of the 64-key
+    tile, not of the 128-row one) and a ragged D=64 case; show that two
+    runs are bit-identical and that the check sees a planted fault (one
+    swapped pair of V keys);
 (c) time the kernel, its plain version and PyTorch's
     ``scaled_dot_product_attention`` (a yardstick only: the port never
     calls it) with CUDA events, beside the least time the card could take;
@@ -26,9 +29,10 @@ Phases, each of which must pass or the script exits non-zero:
     planted fault (the last layer's attention output zeroed);
 (f) hold the backward kernels (K2: dq, K3: dk and dv) against their plain
     PyTorch version on the card at the flagship shape causal, full, with
-    H_kv = H, and ragged (T=200, D=64, MQA); show that each output's check
-    sees a planted fault (K keys T-2 and T-1 swapped, which moves only
-    those rows of dq, dk and dv), and that the backward is bit-reproducible;
+    H_kv = H, at T=192, and ragged (T=200, D=64, MQA); show that each
+    output's check sees a planted fault (K keys T-2 and T-1 swapped, which
+    moves only those rows of dq, dk and dv), and that the backward is
+    bit-reproducible;
 (g) time K2 and K3 with CUDA events at the flagship shape, beside their
     plain version, the least time the card could take, and the backward of
     ``scaled_dot_product_attention`` (a yardstick only: the port never
@@ -179,7 +183,8 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f}s")
     for name in KERNEL_LIBS:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if any(k in line for k in ("Compiling entry", "registers", "spill",
+                                       "Performance Loss")):
                 print(f"[a] {name}: {line.strip()}")
 
 
@@ -206,6 +211,7 @@ def phase_kernel_check() -> float:
         ("flagship_causal_gqa", f["b"], f["t"], f["h"], f["h_kv"], f["d"], True),
         ("flagship_full_gqa", f["b"], f["t"], f["h"], f["h_kv"], f["d"], False),
         ("flagship_causal_mha", f["b"], f["t"], f["h"], f["h"], f["d"], True),
+        ("t192_causal_gqa", 2, 192, f["h"], f["h_kv"], f["d"], True),
         ("ragged_d64_mqa", 2, 200, 4, 1, 64, True),
     ]
     flagship_err = None
@@ -229,6 +235,11 @@ def phase_kernel_check() -> float:
               f"{name}: kernel disagrees with its plain version")
         if i == 0:
             flagship_err = o_err
+            again = attn.flash_forward(q, k, v, causal=causal)
+            same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+            print(f"[b] {name} run twice: bit-identical {same}")
+            check(same, "the forward is not bit-reproducible")
+            del again
             # planted fault: the last two keys' values swapped, which moves
             # only the last two rows of each sequence
             v_bad = v.clone()
@@ -400,6 +411,7 @@ def phase_backward_check() -> dict:
         ("flagship_causal_gqa", f["b"], f["t"], f["h"], f["h_kv"], f["d"], True),
         ("flagship_full_gqa", f["b"], f["t"], f["h"], f["h_kv"], f["d"], False),
         ("flagship_causal_mha", f["b"], f["t"], f["h"], f["h"], f["d"], True),
+        ("t192_causal_gqa", 2, 192, f["h"], f["h_kv"], f["d"], True),
         ("ragged_d64_mqa", 2, 200, 4, 1, 64, True),
     ]
     max_err = {}
@@ -560,6 +572,14 @@ PROFILE_GROUPS = (
     ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("matmuls", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
 )
+OTHER_GROUP = "other (elementwise, norms, CE, optimizer)"
+
+
+def profile_group(kernel_name: str) -> str:
+    """The part of the step a device kernel's time is counted in."""
+    key = kernel_name.lower()
+    return next((name for name, frags in PROFILE_GROUPS
+                 if any(f.lower() in key for f in frags)), OTHER_GROUP)
 
 
 def phase_train_profile() -> None:
@@ -587,7 +607,7 @@ def phase_train_profile() -> None:
         float(step(params, opt, batches[1])[2])
         wall_ms = (time.perf_counter() - t0) * 1e3
     parts = {name: 0.0 for name, _ in PROFILE_GROUPS}
-    parts["other (elementwise, norms, CE, optimizer)"] = 0.0
+    parts[OTHER_GROUP] = 0.0
     total = 0.0
     for event in prof.key_averages():
         # device-side events only (kernels, copies): a host op's self device
@@ -596,11 +616,7 @@ def phase_train_profile() -> None:
             continue
         us = event.self_device_time_total
         total += us
-        key = event.key.lower()
-        group = next((name for name, frags in PROFILE_GROUPS
-                      if any(f.lower() in key for f in frags)),
-                     "other (elementwise, norms, CE, optimizer)")
-        parts[group] += us
+        parts[profile_group(event.key)] += us
     if total == 0:
         print("[h] profiler: no device time recorded (not measured)")
     else:

@@ -23,7 +23,11 @@ head ``i // (H // H_kv)``).
   the plain versions and the reference.
 
 The kernels replace ``hivedscheduler_tpu/ops/attention.py::_fwd_kernel``,
-``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``. On an H100 the tensor cores
+``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``. K1 and K2 run wgmma on
+TMA-fed shared tiles with a producer warpgroup and two consumer warpgroups
+(``csrc/hopper.cuh``); K3 is still mma.sync on cp.async tiles. The wrappers
+keep their C entry points: pointers, dims, [B, T, H] element strides and
+the stream; the tensor maps are encoded inside. On an H100 the tensor cores
 bound all three: at the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128,
 causal) K1 does 137.5 GFLOP (0.139 ms at 989 TFLOP/s; its 202 MB would
 take 0.060 ms at 3.35 TB/s), K2 206.3 GFLOP (0.209 ms) and K3 275.0 GFLOP
@@ -153,13 +157,15 @@ _KERNELS = {
 }
 
 
-def _launch(symbol: str, ptrs, dims, strided, stream) -> None:
+def _launch(symbol: str, ptrs, dims, strided, stream, libs=None) -> None:
     """Launch a kernel on ``stream``: data pointers of ``ptrs``, the int
-    ``dims``, and the [B, T, H] element strides of each of ``strided``."""
+    ``dims``, and the [B, T, H] element strides of each of ``strided``.
+    ``libs`` maps library names to loaded libraries (another checkout's,
+    to compare kernels); by default this tree's, built at first use."""
     from hivedscheduler_tpu_torch.ops import _build
 
     lib, n_ptr, n_int, n_stride = _KERNELS[symbol]
-    fn = getattr(_build.load(lib), symbol)
+    fn = getattr(libs[lib] if libs is not None else _build.load(lib), symbol)
     if fn.argtypes is None:
         # without argtypes ctypes passes Python ints as 32-bit C ints and
         # would cut every pointer
@@ -201,9 +207,10 @@ def _check_kernel_inputs(q, k, v) -> None:
 
 def _kernel_readable(x: torch.Tensor) -> torch.Tensor:
     """``x`` if the kernels can read it through its strides (D contiguous,
-    every row 16-byte aligned), else a contiguous copy: an output gradient
-    arrives in whatever layout autograd made."""
-    if (x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:-1])
+    every row 16-byte aligned, and every other stride positive, as a TMA
+    tensor map needs), else a contiguous copy: an output gradient arrives in
+    whatever layout autograd made, an expanded one with strides of 0."""
+    if (x.stride(-1) == 1 and all(s > 0 and s % 8 == 0 for s in x.stride()[:-1])
             and x.data_ptr() % 16 == 0):
         return x
     return x.contiguous()
@@ -327,13 +334,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Differentiable flash attention: q [B, T, H, D], k/v [B, T, H_kv, D]
     -> [B, T, H, D], through :class:`FlashAttention`.
 
-    A CUDA tensor always goes to the kernels, which tile any T by their own
-    64-row blocks and raise on what they do not take (dtype, head dim,
-    layout, a k length other than q's). A CPU tensor follows the JAX
-    package's ``flash_attention``: :func:`xla_attention`, counted, where T
-    is not divisible by ``block_q`` or ``block_k``, D is not a multiple of
-    8, H is not divisible by H_kv, or k's length differs from q's; the
-    plain versions of the kernels otherwise."""
+    A CUDA tensor always goes to the kernels, which tile any T themselves
+    (K1 and K2 in 128-row q tiles, K3 in 64-key tiles) and raise on what
+    they do not take (dtype, head dim, layout, a k length other than q's).
+    A CPU tensor follows the JAX package's ``flash_attention``:
+    :func:`xla_attention`, counted, where T is not divisible by ``block_q``
+    or ``block_k``, D is not a multiple of 8, H is not divisible by H_kv, or
+    k's length differs from q's; the plain versions of the kernels
+    otherwise."""
     global FLASH_REFERENCE_ROUTES
     if q.device.type == "cpu":
         _, t, h, d = q.shape

@@ -20,58 +20,49 @@
 // 989 TFLOP/s, against 0.10 and 0.08 ms for their bytes at 3.35 TB/s: the
 // tensor cores bound both.
 //
-// Design, kept simple and correct first:
-// - every output element is owned by one block, so a run is bit-reproducible:
-//   K2 has one block of 4 warps per (b*h, 64-row q tile), each warp owning 16
-//   q rows; K3 one block per (b*h_kv, 64-key tile), each warp owning 16 keys;
-// - K2 streams K/V tiles up to the causal diagonal through double-buffered
-//   shared memory (cp.async) and computes delta from do and o once per row,
-//   writing it to a [B*H, T] f32 buffer that K3 reads instead of o;
-// - K3 streams q/do tiles (and their lse, delta) of every q head of its
-//   group from the causal diagonal on, and computes the transposed tiles
-//   s^T = k q^T and dp^T = v do^T directly, so p^T and ds^T are already the
-//   A operands of dv += p^T do and dk += ds^T q in registers; it takes a q
-//   tile in two halves of 32 rows to keep dk, dv (64 + 64 f32 registers at
-//   D=128) and both score tiles in registers without spilling;
-// - all products are mma.sync m16n8k16, bf16 inputs and f32 accumulation;
-//   p and ds are rounded to bf16 only as the A operand of a product;
-// - masking follows the forward: causal pairs get NEG_INF before the exp,
-//   keys at or past a ragged T get p = 0 exactly, and q rows past T get
-//   lse = +inf, so p = 0 and they contribute nothing.
+// Every output element is owned by one block, so a run is bit-reproducible.
+//
+// K2 (hopper.cuh has the building blocks): wgmma on TMA-fed shared tiles,
+// with a producer warpgroup and two consumer warpgroups, like K1.
+// - One block of three warpgroups per (b*h, 128-row q tile), heaviest
+//   causal tiles first. The producer's one thread TMA-loads the q and do
+//   tiles once, then streams 64-key K/V tiles up to the causal diagonal
+//   through a two-stage ring of full/empty mbarrier pairs (at D=128,
+//   32 + 32 + 2 x (16 + 16) KB).
+// - Each consumer warpgroup owns 64 q rows. Before the loop it computes
+//   delta = rowsum(do * o) in f32 for its rows (do from the swizzled shared
+//   tile, o from global memory) and writes it to a [B*H, T] f32 buffer that
+//   K3 reads instead of o. Per tile: s = q k^T and dp = do v^T as SS wgmma
+//   m64n64k16 (32 f32 registers each); p = exp(s - lse) and ds = p (dp -
+//   delta) in f32; ds, rounded to bf16 only as the A operand in registers,
+//   times K as the MN-major B operand, accumulates dq as RS wgmma
+//   m64n{D}k16. So no operand is read with scalar shared loads.
+// - Only a consumer's last tile is masked (its causal diagonal, or the keys
+//   at or past a ragged T): there p = 0 exactly where the TPU kernel's
+//   NEG_INF makes exp underflow to 0. A consumer's rows past T get lse =
+//   +inf, so their p is 0; TMA loads rows past T as zeros.
+//
+// K3, still the first design (mma.sync m16n8k16 on cp.async tiles): one block
+// of 4 warps per (b*h_kv, 64-key tile), each warp owning 16 keys, streaming
+// q/do tiles (and their lse, delta) of every q head of its group from the
+// causal diagonal on through double-buffered shared memory. It computes the
+// transposed tiles s^T = k q^T and dp^T = v do^T directly, so p^T and ds^T
+// are already the A operands of dv += p^T do and dk += ds^T q in registers;
+// it takes a q tile in two halves of 32 rows to keep dk, dv (64 + 64 f32
+// registers at D=128) and both score tiles in registers without spilling.
+// Masking follows the forward: causal pairs get NEG_INF before the exp, and
+// q rows past T get lse = +inf, so p = 0 and they contribute nothing.
 // Inputs are addressed through their [B, T, H, D] strides (D contiguous).
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace hived;
 
-template <int D>
-constexpr int bwd_smem_bytes() {
-  // six bf16 tiles (K2: q, do, two stages of k and v; K3: k, v, two stages
-  // of q and do) and up to four 64-float vectors (lse and delta, per stage)
-  return 6 * kTile * (D + kPad) * static_cast<int>(sizeof(bf16)) +
-         4 * kTile * static_cast<int>(sizeof(float));
-}
-
 struct Strides {
   int64_t b, t, h;
-};
-
-struct BwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* o;
-  const bf16* dout;
-  const float* lse;
-  float* delta;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  int T, H, group;
-  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
-  float scale;
 };
 
 template <typename T>
@@ -79,69 +70,167 @@ __device__ __forceinline__ T* at(T* base, const Strides& s, int b, int h) {
   return base + b * s.b + h * s.h;
 }
 
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int kS = D + kPad;       // shared row stride, elements
-  constexpr int kDk = D / 16;        // k-steps over D
-  constexpr int kDn = D / 8;         // n-tiles of dq
-  constexpr int kNn = kTile / 8;     // n-tiles of a score tile
-  constexpr int kNk = kTile / 16;    // k-steps of ds k
+// ------------------------------------------------------------------- K2
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sDo = sQ + kTile * kS;
-  bf16* sK = sDo + kTile * kS;
-  bf16* sV = sK + 2 * kTile * kS;
-  float* sLse = reinterpret_cast<float*>(sV + 2 * kTile * kS);
-  float* sDelta = sLse + kTile;
+constexpr int kDqBlockM = 128;  // q rows per block: two consumer warpgroups of 64
+constexpr int kDqBlockN = 64;   // keys per K/V tile
+constexpr int kDqStages = 2;    // K/V ring depth
+
+// shared-memory layout, byte offsets from a 1024-aligned base
+template <int D>
+struct DqSmem {
+  static constexpr int kQTile = kDqBlockM * D * 2;  // q or do
+  static constexpr int kKTile = kDqBlockN * D * 2;  // k or v
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kQTile;
+  static constexpr int kK = kDo + kQTile;
+  static constexpr int kV = kK + kDqStages * kKTile;
+  static constexpr int kLse = kV + kDqStages * kKTile;  // kDqBlockM f32
+  static constexpr int kDelta = kLse + kDqBlockM * 4;  // kDqBlockM f32
+  static constexpr int kBars = kDelta + kDqBlockM * 4;  // qdo_full, kv_full[], empty[]
+  static constexpr int kBytes = kBars + (1 + 2 * kDqStages) * 8 + 1024;  // + alignment slack
+};
+
+struct DqArgs {
+  CUtensorMap tq, tk, tv, tdo;
+  const bf16* o;
+  const float* lse;
+  float* delta;
+  bf16* dq;
+  int T, H, group;
+  Strides so, sdq;
+  float scale;
+};
+
+// ds = p (dp - delta) of one tile, p = exp(scale s - lse), packed to bf16 as
+// the A operand of ds k (k-step kk: keys [16kk, 16kk + 16)); on the last tile
+// p = 0 for keys past T and, causal, past the row
+template <bool kMask, bool kCausal>
+__device__ __forceinline__ void ds_tile(uint32_t (&ds)[kDqBlockN / 16][4],
+                                        const float (&s)[kDqBlockN / 2],
+                                        const float (&dp)[kDqBlockN / 2], float scale_log2,
+                                        float lb_a, float lb_b, float dl_a, float dl_b, int k0,
+                                        int row_a, int t4, int T) {
+#pragma unroll
+  for (int kk = 0; kk < kDqBlockN / 16; ++kk) {
+    float e[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const bool top = (i & 2) == 0;  // row_a, else row_a + 8
+      float p = exp2f(fmaf(s[8 * kk + i], scale_log2, top ? -lb_a : -lb_b));
+      if (kMask) {
+        const int col = k0 + 16 * kk + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int row = top ? row_a : row_a + 8;
+        if (col >= T || (kCausal && col > row)) p = 0.f;
+      }
+      e[i] = p * (dp[8 * kk + i] - (top ? dl_a : dl_b));
+    }
+    ds[kk][0] = pack_f32(e[0], e[1]);
+    ds[kk][1] = pack_f32(e[2], e[3]);
+    ds[kk][2] = pack_f32(e[4], e[5]);
+    ds[kk][3] = pack_f32(e[6], e[7]);
+  }
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ DqArgs a) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
+  bf16* sDo = reinterpret_cast<bf16*>(smem + L::kDo);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
+  float* sLse = reinterpret_cast<float*>(smem + L::kLse);
+  float* sDelta = reinterpret_cast<float*>(smem + L::kDelta);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kv_full = qdo_full + 1;
+  uint64_t* empty = kv_full + kDqStages;
 
   const int T = a.T;
-  const int n_tiles = (T + kTile - 1) / kTile;
-  const int q_tile = n_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest first
+  const int n_q_tiles = (T + kDqBlockM - 1) / kDqBlockM;
+  const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest first
   const int bh = blockIdx.y;
   const int b = bh / a.H;
   const int h = bh % a.H;
-  const int h_kv = h / a.group;
-  const int q0 = q_tile * kTile;
+  const int q0 = q_tile * kDqBlockM;
+  const int n_k_tiles = (T + kDqBlockN - 1) / kDqBlockN;
+  // consumer c's rows meet keys up to their diagonal, tile 2 q_tile + c
+  const int n_kv = kCausal ? min(n_k_tiles, 2 * q_tile + 2) : n_k_tiles;
 
-  const bf16* kp = at(a.k, a.sk, b, h_kv);
-  const bf16* vp = at(a.v, a.sv, b, h_kv);
-  const int n_kv = kCausal ? q_tile + 1 : n_tiles;
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&empty[s], kWsConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_tile<D>(sQ, at(a.q, a.sq, b, h), a.sq.t, q0, T);
-  load_tile<D>(sDo, at(a.dout, a.sdo, b, h), a.sdo.t, q0, T);
-  cp_async_commit();
-  load_tile<D>(sK, kp, a.sk.t, 0, T);
-  load_tile<D>(sV, vp, a.sv.t, 0, T);
-  cp_async_commit();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread starts every load
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int h_kv = h / a.group;
+      mbar_expect_tx(qdo_full, 2 * L::kQTile);
+      tma_load_tile<D, kDqBlockM>(sQ, &a.tq, qdo_full, h, q0, b);
+      tma_load_tile<D, kDqBlockM>(sDo, &a.tdo, qdo_full, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int stage = j % kDqStages;
+        if (j >= kDqStages) mbar_wait(&empty[stage], ((j / kDqStages) - 1) & 1);
+        mbar_expect_tx(&kv_full[stage], 2 * L::kKTile);
+        tma_load_tile<D, kDqBlockN>(sK + stage * kDqBlockN * D, &a.tk, &kv_full[stage], h_kv,
+                                    j * kDqBlockN, b);
+        tma_load_tile<D, kDqBlockN>(sV + stage * kDqBlockN * D, &a.tv, &kv_full[stage], h_kv,
+                                    j * kDqBlockN, b);
+      }
+    }
+    return;
+  }
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  // consumer c owns q rows [64c, 64c + 64) of the tile
+  regs_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int r0 = warp * 16;               // the warp's first row in the tile
-  const int row_a = q0 + r0 + g;          // rows held in c[0], c[1]
-  const int row_b = row_a + 8;            // rows held in c[2], c[3]
+  const int r0 = 64 * c + 16 * warp;  // the warp's first row in the tile
+  const int row_a = q0 + r0 + g;      // rows of the accumulators' e = 0, 1
+  const int row_b = row_a + 8;        // and e = 2, 3
+  const int n_kv_c = kCausal ? min(n_k_tiles, 2 * q_tile + 1 + c) : n_k_tiles;
   const int64_t lrow = static_cast<int64_t>(bh) * T;
 
   // delta = rowsum(do * o) for the warp's 16 rows, two lanes a row, each
-  // summing half of D in f32 (do from shared memory, o from global memory)
-  cp_async_wait<1>();  // q and do landed
-  __syncthreads();
+  // summing half of D in f32: do from its swizzled tile (chunk c of row r at
+  // chunk c ^ (r % 8)), o from global memory
+  mbar_wait(qdo_full, 0);
   {
     const int r = r0 + lane / 2;
     const int row = q0 + r;
     const int c0 = (lane & 1) * (D / 2);
     float sum = 0.f;
     if (row < T) {
-      const bf16* orow = at(a.o, a.so, b, h) + row * a.so.t + c0;
-      const bf16* drow = sDo + r * kS + c0;
+      const bf16* orow = at(a.o, a.so, b, h) + row * a.so.t;
 #pragma unroll
-      for (int c = 0; c < D / 2; c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+      for (int cc = 0; cc < D / 2; cc += 8) {
+        const int col = c0 + cc;
+        const bf16* drow =
+            sDo + (col / 64) * kDqBlockM * 64 + r * 64 + ((((col % 64) / 8) ^ (r & 7)) * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(drow);
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + col);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) sum += __bfloat162float(drow[c + e]) * __bfloat162float(oe[e]);
+        for (int e = 0; e < 4; ++e) {
+          const float2 df = __bfloat1622float2(d2[e]);
+          const float2 of = __bfloat1622float2(o2[e]);
+          sum += df.x * of.x + df.y * of.y;
+        }
       }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -152,98 +241,107 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a)
     }
   }
   __syncwarp();
-  const float lse_a = sLse[r0 + g];
-  const float lse_b = sLse[r0 + g + 8];
+  const float lb_a = sLse[r0 + g] * kLog2e;
+  const float lb_b = sLse[r0 + g + 8] * kLog2e;
   const float dl_a = sDelta[r0 + g];
   const float dl_b = sDelta[r0 + g + 8];
+  const float scale_log2 = a.scale * kLog2e;
 
-  float acc[kDn][4];
+  // K-major descriptors of this consumer's q and do rows and of stage 0's K
+  // and V tiles; MN-major of stage 0's K tile (LBO: its 64-column blocks)
+  const uint64_t dQ = desc_sw128(sQ + 64 * c * 64, 16);
+  const uint64_t dDo = desc_sw128(sDo + 64 * c * 64, 16);
+  const uint64_t dK = desc_sw128(sK, 16);
+  const uint64_t dV = desc_sw128(sV, 16);
+  const uint64_t dKn = desc_sw128(sK, kDqBlockN * 128);
+
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < kDn; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  for (int j = 0; j < n_kv; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_kv) {
-      load_tile<D>(sK + (stage ^ 1) * kTile * kS, kp, a.sk.t, (j + 1) * kTile, T);
-      load_tile<D>(sV + (stage ^ 1) * kTile * kS, vp, a.sv.t, (j + 1) * kTile, T);
+  for (int j = 0; j < n_kv_c; ++j) {
+    const int stage = j % kDqStages;
+    const uint32_t stage_off = stage * L::kKTile;
+
+    // s = q k^T and dp = do v^T: k-step kk reads columns [16kk, 16kk + 16)
+    float s[kDqBlockN / 2], dp[kDqBlockN / 2];
+    mbar_wait(&kv_full[stage], (j / kDqStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qcol = (kk / 4) * kDqBlockM * 128 + (kk % 4) * 32;
+      const uint32_t kcol = stage_off + (kk / 4) * kDqBlockN * 128 + (kk % 4) * 32;
+      wgmma_ss<kDqBlockN>(s, desc_add(dQ, qcol), desc_add(dK, kcol), kk > 0);
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: tile j landed
-    __syncthreads();
-    const bf16* cK = sK + stage * kTile * kS;
-    const bf16* cV = sV + stage * kTile * kS;
-
-    // s = q k^T and dp = do v^T for the warp's 16 rows and the tile's keys
-    float s[kNn][4], dp[kNn][4];
 #pragma unroll
-    for (int n = 0; n < kNn; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qcol = (kk / 4) * kDqBlockM * 128 + (kk % 4) * 32;
+      const uint32_t kcol = stage_off + (kk / 4) * kDqBlockN * 128 + (kk % 4) * 32;
+      wgmma_ss<kDqBlockN>(dp, desc_add(dDo, qcol), desc_add(dV, kcol), kk > 0);
     }
-#pragma unroll
-    for (int kk = 0; kk < kDk; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, sQ, kS, r0, kk * 16);
-      load_a(da, sDo, kS, r0, kk * 16);
-#pragma unroll
-      for (int n = 0; n < kNn; ++n) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, cK, kS, kk * 16, n * 8);
-        mma_bf16(s[n], qa, b0, b1);
-        load_b_rows(b0, b1, cV, kS, kk * 16, n * 8);
-        mma_bf16(dp[n], da, b0, b1);
-      }
-    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
 
-    // ds = p (dp - delta), kept in s
-    const int k0 = j * kTile;
-#pragma unroll
-    for (int n = 0; n < kNn; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool top = e < 2;
-        const int row = top ? row_a : row_b;
-        const int col = k0 + n * 8 + 2 * t4 + (e & 1);
-        float x = s[n][e] * a.scale;
-        if (kCausal && col > row) x = kNegInf;
-        const float p = col < T ? exp2f((x - (top ? lse_a : lse_b)) * kLog2e) : 0.f;
-        s[n][e] = p * (dp[n][e] - (top ? dl_a : dl_b));
-      }
+    uint32_t ds[kDqBlockN / 16][4];
+    if (j == n_kv_c - 1) {
+      ds_tile<true, kCausal>(ds, s, dp, scale_log2, lb_a, lb_b, dl_a, dl_b, j * kDqBlockN,
+                             row_a, t4, T);
+    } else {
+      ds_tile<false, kCausal>(ds, s, dp, scale_log2, lb_a, lb_b, dl_a, dl_b, 0, 0, 0, 0);
     }
 
-    // dq += ds k: the ds accumulator of n-tiles (2kk, 2kk+1) is the A
-    // fragment of k-step kk; k is read untransposed along the key axis
+    // dq += ds k: k-step kk reads keys [16kk, 16kk + 16) of K, 2048 bytes on
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kNk; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < kDn; ++n) {
-        uint32_t b0, b1;
-        load_b_cols(b0, b1, cK, kS, kk * 16, n * 8);
-        mma_bf16(acc[n], pa, b0, b1);
-      }
+    for (int kk = 0; kk < kDqBlockN / 16; ++kk) {
+      wgmma_rs<D>(acc, ds[kk], desc_add(dKn, stage_off + kk * 2048), 1);
     }
-    __syncthreads();  // this stage is refilled by the next iteration's loads
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[stage]);
   }
 
   bf16* dqp = at(a.dq, a.sdq, b, h);
 #pragma unroll
-  for (int n = 0; n < kDn; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t4;
     if (row_a < T) {
       *reinterpret_cast<__nv_bfloat162*>(dqp + row_a * a.sdq.t + col) =
-          __floats2bfloat162_rn(acc[n][0] * a.scale, acc[n][1] * a.scale);
+          __floats2bfloat162_rn(acc[4 * n] * a.scale, acc[4 * n + 1] * a.scale);
     }
     if (row_b < T) {
       *reinterpret_cast<__nv_bfloat162*>(dqp + row_b * a.sdq.t + col) =
-          __floats2bfloat162_rn(acc[n][2] * a.scale, acc[n][3] * a.scale);
+          __floats2bfloat162_rn(acc[4 * n + 2] * a.scale, acc[4 * n + 3] * a.scale);
     }
   }
 }
+
+// ------------------------------------------------------------------- K3
+
+template <int D>
+constexpr int dkv_smem_bytes() {
+  // six bf16 tiles (k, v, two stages of q and do) and four 64-float
+  // vectors (lse and delta, per stage)
+  return 6 * kTile * (D + kPad) * static_cast<int>(sizeof(bf16)) +
+         4 * kTile * static_cast<int>(sizeof(float));
+}
+
+struct BwdArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;
+  const float* lse;
+  const float* delta;
+  bf16* dk;
+  bf16* dv;
+  int T, H, group;
+  Strides sq, sk, sv, sdo, sdk, sdv;
+  float scale;
+};
 
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a) {
@@ -408,62 +506,39 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a
   }
 }
 
-enum class Which { kDq, kDkv };
-
-template <Which W, int D, bool kCausal>
-cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
-  constexpr int kSmem = bwd_smem_bytes<D>();
+template <int D, bool kCausal>
+cudaError_t launch_dq(const DqArgs& a, int B, cudaStream_t stream) {
+  constexpr int kSmem = DqSmem<D>::kBytes;
   static bool attr_set = false;
-  const int n_tiles = (a.T + kTile - 1) / kTile;
-  if constexpr (W == Which::kDq) {
-    const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, kCausal>, kSmem, attr_set);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<D, kCausal><<<dim3(n_tiles, B * a.H), kThreads, kSmem, stream>>>(a);
-  } else {
-    const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, kCausal>, kSmem, attr_set);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<D, kCausal>
-        <<<dim3(n_tiles, B * (a.H / a.group)), kThreads, kSmem, stream>>>(a);
-  }
+  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, kCausal>, kSmem, attr_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T + kDqBlockM - 1) / kDqBlockM, B * a.H);
+  flash_bwd_dq_kernel<D, kCausal><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <Which W>
-int dispatch(const BwdArgs& a, int B, int H_kv, int D, int causal, void* stream) {
-  if (B <= 0 || a.T <= 0 || H_kv <= 0 || a.H % H_kv != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (D) {
-    case 64:
-      err = causal ? launch<W, 64, true>(a, B, s) : launch<W, 64, false>(a, B, s);
-      break;
-    case 128:
-      err = causal ? launch<W, 128, true>(a, B, s) : launch<W, 128, false>(a, B, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-      break;
-  }
-  return static_cast<int>(err);
+template <int D, bool kCausal>
+cudaError_t launch_dkv(const BwdArgs& a, int B, cudaStream_t stream) {
+  constexpr int kSmem = dkv_smem_bytes<D>();
+  static bool attr_set = false;
+  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, kCausal>, kSmem, attr_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T + kTile - 1) / kTile, B * (a.H / a.group));
+  flash_bwd_dkv_kernel<D, kCausal><<<grid, kThreads, kSmem, stream>>>(a);
+  return cudaGetLastError();
 }
 
-BwdArgs make_args(int T, int H, int H_kv, int D) {
-  BwdArgs a = {};
-  a.T = T;
-  a.H = H;
-  a.group = H_kv > 0 ? H / H_kv : 1;
-  a.scale = 1.0f / sqrtf(static_cast<float>(D));
-  return a;
+bool bad_dims(int B, int T, int H, int H_kv, int D) {
+  return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || (D != 64 && D != 128);
 }
 
 }  // namespace
 
 // K2. q, o, do [B, T, H, D], k/v [B, T, H_kv, D] and dq [B, T, H, D] in
-// bf16, addressed through the given element strides (D contiguous, o's rows
-// 16-byte aligned); lse [B*H, T] f32 from the forward; delta [B*H, T] f32 is
-// written for K3. Returns the cudaError_t of the launch (0 on success).
+// bf16, addressed through the given element strides (D contiguous, every
+// row 16-byte aligned, strides positive); lse [B*H, T] f32 from the
+// forward; delta [B*H, T] f32 is written for K3. Returns 0, the CUresult of
+// a tensor map that could not be encoded, or the cudaError_t of the launch.
 extern "C" int hived_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                   const void* dout, const void* lse, void* delta, void* dq,
                                   int B, int T, int H, int H_kv, int D, int causal,
@@ -474,22 +549,31 @@ extern "C" int hived_flash_bwd_dq(const void* q, const void* k, const void* v, c
                                   int64_t do_sb, int64_t do_st, int64_t do_sh,
                                   int64_t dq_sb, int64_t dq_st, int64_t dq_sh,
                                   void* stream) {
-  BwdArgs a = make_args(T, H, H_kv, D);
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
+  if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  DqArgs a;
+  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kDqBlockM);
+  if (err == 0) err = make_tile_map(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, kDqBlockM);
+  if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDqBlockN);
+  if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDqBlockN);
+  if (err != 0) return err;
   a.o = static_cast<const bf16*>(o);
-  a.dout = static_cast<const bf16*>(dout);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.dq = static_cast<bf16*>(dq);
-  a.sq = {q_sb, q_st, q_sh};
-  a.sk = {k_sb, k_st, k_sh};
-  a.sv = {v_sb, v_st, v_sh};
+  a.T = T;
+  a.H = H;
+  a.group = H / H_kv;
   a.so = {o_sb, o_st, o_sh};
-  a.sdo = {do_sb, do_st, do_sh};
   a.sdq = {dq_sb, dq_st, dq_sh};
-  return dispatch<Which::kDq>(a, B, H_kv, D, causal, stream);
+  a.scale = 1.0f / sqrtf(static_cast<float>(D));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t launched;
+  if (D == 64) {
+    launched = causal ? launch_dq<64, true>(a, B, s) : launch_dq<64, false>(a, B, s);
+  } else {
+    launched = causal ? launch_dq<128, true>(a, B, s) : launch_dq<128, false>(a, B, s);
+  }
+  return static_cast<int>(launched);
 }
 
 // K3. q, do [B, T, H, D], k/v and dk/dv [B, T, H_kv, D] in bf16, through
@@ -506,20 +590,32 @@ extern "C" int hived_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    int64_t dk_sb, int64_t dk_st, int64_t dk_sh,
                                    int64_t dv_sb, int64_t dv_st, int64_t dv_sh,
                                    void* stream) {
-  BwdArgs a = make_args(T, H, H_kv, D);
+  if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a = {};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
   a.dout = static_cast<const bf16*>(dout);
   a.lse = static_cast<const float*>(lse);
-  a.delta = const_cast<float*>(static_cast<const float*>(delta));
+  a.delta = static_cast<const float*>(delta);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
+  a.T = T;
+  a.H = H;
+  a.group = H / H_kv;
   a.sq = {q_sb, q_st, q_sh};
   a.sk = {k_sb, k_st, k_sh};
   a.sv = {v_sb, v_st, v_sh};
   a.sdo = {do_sb, do_st, do_sh};
   a.sdk = {dk_sb, dk_st, dk_sh};
   a.sdv = {dv_sb, dv_st, dv_sh};
-  return dispatch<Which::kDkv>(a, B, H_kv, D, causal, stream);
+  a.scale = 1.0f / sqrtf(static_cast<float>(D));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t launched;
+  if (D == 64) {
+    launched = causal ? launch_dkv<64, true>(a, B, s) : launch_dkv<64, false>(a, B, s);
+  } else {
+    launched = causal ? launch_dkv<128, true>(a, B, s) : launch_dkv<128, false>(a, B, s);
+  }
+  return static_cast<int>(launched);
 }

@@ -1,7 +1,10 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): 64-row tiles streamed into padded shared memory with
-// cp.async, and mma.sync m16n8k16 (bf16 in, f32 accumulate) with its
-// fragment loads.
+// Device helpers of the flash-attention kernels (flash_fwd.cu,
+// flash_bwd.cu): the TPU kernels' masking constants, bf16 packing, quad
+// reductions and the shared-memory attribute, which all three kernels use;
+// and, for K3 (flash_bwd_dkv_kernel) alone, 64-row tiles streamed into
+// padded shared memory with cp.async and mma.sync m16n8k16 (bf16 in, f32
+// accumulate) with its fragment loads. K1 and K2 take their tiles and
+// products from hopper.cuh instead (TMA and wgmma).
 //
 // Fragment layout of mma.sync m16n8k16 for lane l, g = l / 4, t = l % 4:
 // - A (16x16, row major), four registers of two bf16: (row g, cols 2t, 2t+1),
@@ -22,8 +25,8 @@ namespace hived {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;  // rows of every tile: q rows, keys
-constexpr int kWarps = 4;  // each warp owns 16 rows of a block's tile
+constexpr int kTile = 64;  // K3: rows of every tile, keys and q rows
+constexpr int kWarps = 4;  // K3: each warp owns 16 rows of a block's tile
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;  // bf16 elements of padding per shared-memory row
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernels

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, f32 softmax state.
+// Flash-attention forward (K1) for Hopper (sm_90a), bf16 in, f32 softmax
+// state.
 //
 // Replaces hivedscheduler_tpu/ops/attention.py::_fwd_kernel (launched by
 // _flash_forward). It computes the same function: for every (batch, q head)
@@ -16,159 +17,197 @@
 // 137.5 GFLOP, 0.139 ms at 989 TFLOP/s, against 0.060 ms for the 202 MB
 // the call must move at 3.35 TB/s: the tensor cores bound it, not memory.
 //
-// Design, kept simple and correct first:
-// - one block of 4 warps per (b*h, 64-row q tile); each warp owns 16 rows,
-//   so the softmax statistics of a row live in one quad of lanes and never
-//   leave registers;
-// - K and V tiles of 64 keys stream through shared memory with cp.async,
-//   double buffered, so the next tile loads while this one multiplies;
-//   rows are padded by 8 elements to spread shared-memory banks;
-// - both products are mma.sync m16n8k16 with bf16 inputs and f32
-//   accumulation; the score accumulator is re-packed in registers as the
-//   A operand of the P*V product (bf16), the usual flash-attention trick;
-// - the 1/sqrt(D) scale is applied to the f32 scores, not to a bf16 q;
-// - causal tiles above the diagonal are never loaded; q tiles are issued
-//   heaviest first so the long causal rows start early.
-// Inputs are addressed through their [B, T, H, D] strides (D contiguous),
-// so the caller makes no [B*H, T, D] copy.
+// Design (hopper.cuh has the building blocks): only wgmma reaches the
+// card's full tensor-core rate, and it wants its operands in swizzled shared
+// memory fed without spending the consumers' registers or instructions.
+// - One block of three warpgroups per (b*h, 128-row q tile), heaviest
+//   causal tiles first. Warpgroup 0 is the producer: it gives up its
+//   registers (setmaxnreg) and one thread starts TMA loads, the q tile
+//   once, then 128-key K and V tiles into a two-stage ring of full/empty
+//   mbarrier pairs (at D=128, 32 + 2 x (32 + 32) KB: one block an SM).
+// - Warpgroups 1 and 2 are consumers of 64 q rows each, with 240 registers
+//   a thread. Per tile: s = q k^T as SS wgmma m64n128k16 (D/16 k-steps,
+//   64 f32 registers); scale, mask and online softmax in f32, a row within
+//   one quad of lanes; o += p v as RS wgmma (p packed to bf16 in registers
+//   is the A operand, V the MN-major B operand, so no scalar V loads); then
+//   the stage is released on its empty barrier. The two consumers run out
+//   of step, so one's softmax overlaps the other's products.
+// - Only the last tile of a block's loop is masked: it holds the causal
+//   diagonal, and the keys at or past a ragged T. Keys past T are loaded as
+//   zeros by TMA (the box never crosses into the next batch) and get -inf.
+// - The 1/sqrt(D) scale is applied to the f32 scores, not to a bf16 q.
+// Inputs are addressed through their [B, T, H, D] strides (D contiguous):
+// tensor maps are encoded per call from the strides, so the caller makes no
+// [B*H, T, D] copy.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace hived;
 
-constexpr int kBlockM = kTile;  // q rows per block (4 warps x 16)
-constexpr int kBlockN = kTile;  // keys per k/v tile
+constexpr int kBlockM = 128;  // q rows per block: two consumer warpgroups of 64
+constexpr int kBlockN = 128;  // keys per K/V tile
+constexpr int kStages = 2;    // K/V ring depth
 
+// shared-memory layout, byte offsets from a 1024-aligned base
 template <int D>
-constexpr int smem_bytes() {
-  // q tile + two stages of k and v tiles
-  return (kBlockM + 4 * kBlockN) * (D + kPad) * static_cast<int>(sizeof(bf16));
-}
+struct FwdSmem {
+  static constexpr int kTile = kBlockN * D * 2;  // one 128-row tile (Q, K or V)
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;  // q_full, k_full[], v_full[], empty[]
+  static constexpr int kBytes = kBars + (1 + 3 * kStages) * 8 + 1024;  // + alignment slack
+};
 
-struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
+struct FwdArgs {
+  CUtensorMap tq, tk, tv;
   bf16* o;
   float* lse;
   int T, H, group;
-  int64_t q_sb, q_st, q_sh;
-  int64_t k_sb, k_st, k_sh;
-  int64_t v_sb, v_st, v_sh;
   int64_t o_sb, o_st, o_sh;
   float scale;
 };
 
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
-  constexpr int kS = D + kPad;  // shared row stride, elements
-  constexpr int kDk = D / 16;   // k-steps of the q*k^T product
-  constexpr int kDn = D / 8;    // n-tiles of the output
-  constexpr int kNn = kBlockN / 8;   // n-tiles of the score tile
-  constexpr int kNk = kBlockN / 16;  // k-steps of the p*v product
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBlockM * kS;
-  bf16* sV = sK + 2 * kBlockN * kS;
-
-  const int T = a.T;
-  const int n_q_tiles = (T + kBlockM - 1) / kBlockM;
-  const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh % a.H;
-  const int h_kv = h / a.group;
-  const int q0 = q_tile * kBlockM;
-
-  const bf16* qp = a.q + b * a.q_sb + h * a.q_sh;
-  const bf16* kp = a.k + b * a.k_sb + h_kv * a.k_sh;
-  const bf16* vp = a.v + b * a.v_sb + h_kv * a.v_sh;
-
-  int n_kv = (T + kBlockN - 1) / kBlockN;
-  if (kCausal) n_kv = min(n_kv, (q0 + kBlockM - 1) / kBlockN + 1);
-
-  load_tile<D>(sQ, qp, a.q_st, q0, T);
-  load_tile<D>(sK, kp, a.k_st, 0, T);
-  load_tile<D>(sV, vp, a.v_st, 0, T);
-  cp_async_commit();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // row within the warp's 8-row half
-  const int t4 = lane & 3;  // column pair within an 8-wide n-tile
-  const int row_a = q0 + warp * 16 + g;  // rows held in c[0], c[1]
-  const int row_b = row_a + 8;           // rows held in c[2], c[3]
-
-  uint32_t qf[kDk][4];
-  float acc[kDn][4];
+// scores of one tile in place: scale, and on the last tile mask (keys past T
+// to -inf, causal keys past the row to NEG_INF, as _fwd_kernel does)
+template <bool kMask, bool kCausal>
+__device__ __forceinline__ void scale_mask(float (&s)[kBlockN / 2], float scale, int k0,
+                                           int row_a, int t4, int T) {
 #pragma unroll
-  for (int n = 0; n < kDn; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_kv) {
-      load_tile<D>(sK + (stage ^ 1) * kBlockN * kS, kp, a.k_st, (j + 1) * kBlockN, T);
-      load_tile<D>(sV + (stage ^ 1) * kBlockN * kS, vp, a.v_st, (j + 1) * kBlockN, T);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: tile j (and q) landed
-    __syncthreads();
-
-    if (j == 0) {
-      const bf16* qr = sQ + (warp * 16 + g) * kS + 2 * t4;
+  for (int n = 0; n < kBlockN / 8; ++n) {
 #pragma unroll
-      for (int kk = 0; kk < kDk; ++kk) {
-        qf[kk][0] = *reinterpret_cast<const uint32_t*>(qr + kk * 16);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8 * kS + kk * 16);
-        qf[kk][2] = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8);
-        qf[kk][3] = *reinterpret_cast<const uint32_t*>(qr + 8 * kS + kk * 16 + 8);
-      }
-    }
-    const bf16* cK = sK + stage * kBlockN * kS;
-    const bf16* cV = sV + stage * kBlockN * kS;
-
-    // s = q k^T for this warp's 16 rows and the tile's 64 keys
-    float s[kNn][4];
-#pragma unroll
-    for (int n = 0; n < kNn; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDk; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kNn; ++n) {
-        const bf16* kr = cK + (n * 8 + g) * kS + kk * 16 + 2 * t4;
-        mma_bf16(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // scale in f32, then mask: keys past T never count, causal keys past
-    // the row get NEG_INF exactly as the TPU kernel's _causal_mask
-    const int k0 = j * kBlockN;
-    float mx_a = kNegInf, mx_b = kNegInf;
-#pragma unroll
-    for (int n = 0; n < kNn; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row_a : row_b;
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * n + e] * scale;
+      if (kMask) {
+        const int row = e < 2 ? row_a : row_a + 8;
         const int col = k0 + n * 8 + 2 * t4 + (e & 1);
-        float x = s[n][e] * a.scale;
         if (col >= T) {
           x = -CUDART_INF_F;
         } else if (kCausal && col > row) {
           x = kNegInf;
         }
-        s[n][e] = x;
       }
-      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+      s[4 * n + e] = x;
+    }
+  }
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ FwdArgs a) {
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+
+  const int T = a.T;
+  const int n_q_tiles = (T + kBlockM - 1) / kBlockM;
+  const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int q0 = q_tile * kBlockM;
+  int n_kv = (T + kBlockN - 1) / kBlockN;
+  if (kCausal) n_kv = min(n_kv, q_tile + 1);  // tiles past the diagonal are never loaded
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], kWsConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread starts every load
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int h_kv = h / a.group;
+      mbar_expect_tx(q_full, L::kTile);
+      tma_load_tile<D, kBlockM>(sQ, &a.tq, q_full, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int stage = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[stage], ((j / kStages) - 1) & 1);
+        mbar_expect_tx(&k_full[stage], L::kTile);
+        tma_load_tile<D, kBlockN>(sK + stage * kBlockN * D, &a.tk, &k_full[stage], h_kv,
+                                  j * kBlockN, b);
+        mbar_expect_tx(&v_full[stage], L::kTile);
+        tma_load_tile<D, kBlockN>(sV + stage * kBlockN * D, &a.tv, &v_full[stage], h_kv,
+                                  j * kBlockN, b);
+      }
+    }
+    return;
+  }
+
+  // consumer c owns q rows [64c, 64c + 64) of the tile
+  regs_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int row_a = q0 + 64 * c + 16 * warp + g;  // rows of s[4n], s[4n+1]
+  const int row_b = row_a + 8;                    // rows of s[4n+2], s[4n+3]
+
+  // K-major descriptors of this consumer's q rows and of stage 0's K tile;
+  // MN-major of stage 0's V tile (LBO: the 64-column blocks of V)
+  const uint64_t dQ = desc_sw128(sQ + 64 * c * 64, 16);
+  const uint64_t dK = desc_sw128(sK, 16);
+  const uint64_t dV = desc_sw128(sV, kBlockN * 128);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf;
+  float l_a = 0.f, l_b = 0.f;  // this thread's share of the row sums
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int stage = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const uint32_t stage_off = stage * L::kTile;
+
+    // s = q k^T: k-step kk reads columns [16kk, 16kk + 16) of q and K
+    float s[kBlockN / 2];
+    mbar_wait(&k_full[stage], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk / 4) * kBlockM * 128 + (kk % 4) * 32;
+      wgmma_ss<kBlockN>(s, desc_add(dQ, col), desc_add(dK, stage_off + col), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    if (j == n_kv - 1) {
+      scale_mask<true, kCausal>(s, a.scale, j * kBlockN, row_a, t4, T);
+    } else {
+      scale_mask<false, kCausal>(s, a.scale, 0, 0, 0, 0);
+    }
+
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int n = 0; n < kBlockN / 8; ++n) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * n + 2], s[4 * n + 3]));
     }
     mx_a = quad_max(mx_a);
     mx_b = quad_max(mx_b);
-
     const float mn_a = fmaxf(m_a, mx_a);
     const float mn_b = fmaxf(m_b, mx_b);
     const float ms_a = fmaxf(mn_a, kClamp);
@@ -177,62 +216,67 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     const float corr_b = exp2f((fmaxf(m_b, kClamp) - ms_b) * kLog2e);
     m_a = mn_a;
     m_b = mn_b;
+    const float mb_a = ms_a * kLog2e;
+    const float mb_b = ms_b * kLog2e;
 
+    // p = exp(s - m_safe), packed to bf16 as the A operand of p v: the
+    // accumulators of keys [16kk, 16kk + 16) are k-step kk's registers
+    uint32_t p[kBlockN / 16][4];
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-    for (int n = 0; n < kNn; ++n) {
-      s[n][0] = exp2f((s[n][0] - ms_a) * kLog2e);
-      s[n][1] = exp2f((s[n][1] - ms_a) * kLog2e);
-      s[n][2] = exp2f((s[n][2] - ms_b) * kLog2e);
-      s[n][3] = exp2f((s[n][3] - ms_b) * kLog2e);
-      sum_a += s[n][0] + s[n][1];
-      sum_b += s[n][2] + s[n][3];
-    }
-    l_a = l_a * corr_a + quad_sum(sum_a);
-    l_b = l_b * corr_b + quad_sum(sum_b);
-
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      float e[8];
 #pragma unroll
-    for (int n = 0; n < kDn; ++n) {
-      acc[n][0] *= corr_a;
-      acc[n][1] *= corr_a;
-      acc[n][2] *= corr_b;
-      acc[n][3] *= corr_b;
-    }
-
-    // o += p v: the score accumulator of n-tiles (2kk, 2kk+1) is exactly the
-    // A fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < kNk; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const bf16* vr = cV + (kk * 16 + 2 * t4) * kS + g;
-#pragma unroll
-      for (int n = 0; n < kDn; ++n) {
-        const bf16* vc = vr + n * 8;
-        mma_bf16(acc[n], pf, pack_bf16(vc[0], vc[kS]), pack_bf16(vc[8 * kS], vc[9 * kS]));
+      for (int i = 0; i < 8; ++i) {
+        e[i] = exp2f(fmaf(s[8 * kk + i], kLog2e, (i & 2) ? -mb_b : -mb_a));
       }
+      sum_a += e[0] + e[1] + e[4] + e[5];
+      sum_b += e[2] + e[3] + e[6] + e[7];
+      p[kk][0] = pack_f32(e[0], e[1]);
+      p[kk][1] = pack_f32(e[2], e[3]);
+      p[kk][2] = pack_f32(e[4], e[5]);
+      p[kk][3] = pack_f32(e[6], e[7]);
     }
-    __syncthreads();  // this stage is refilled by the next iteration's loads
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n] *= corr_a;
+      o[4 * n + 1] *= corr_a;
+      o[4 * n + 2] *= corr_b;
+      o[4 * n + 3] *= corr_b;
+    }
+
+    // o += p v: k-step kk reads keys [16kk, 16kk + 16) of V, 2048 bytes on
+    mbar_wait(&v_full[stage], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      wgmma_rs<D>(o, p[kk], desc_add(dV, stage_off + kk * 2048), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&empty[stage]);
   }
 
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
   const float ls_a = l_a == 0.f ? 1.f : l_a;
   const float ls_b = l_b == 0.f ? 1.f : l_b;
   const float inv_a = 1.f / ls_a;
   const float inv_b = 1.f / ls_b;
   bf16* op = a.o + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-  for (int n = 0; n < kDn; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t4;
     if (row_a < T) {
       *reinterpret_cast<__nv_bfloat162*>(op + row_a * a.o_st + col) =
-          __floats2bfloat162_rn(acc[n][0] * inv_a, acc[n][1] * inv_a);
+          __floats2bfloat162_rn(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
     }
     if (row_b < T) {
       *reinterpret_cast<__nv_bfloat162*>(op + row_b * a.o_st + col) =
-          __floats2bfloat162_rn(acc[n][2] * inv_b, acc[n][3] * inv_b);
+          __floats2bfloat162_rn(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
     }
   }
   if (t4 == 0) {
@@ -243,26 +287,28 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 }
 
 template <int D, bool kCausal>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<D>();
+cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
+  constexpr int kSmem = FwdSmem<D>::kBytes;
   static bool attr_set = false;
   const cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T + kBlockM - 1) / kBlockM, B * a.H);
-  flash_fwd_kernel<D, kCausal><<<grid, kThreads, kSmem, stream>>>(a);
+  flash_fwd_kernel<D, kCausal><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_d(const Args& a, int B, int causal, cudaStream_t stream) {
+cudaError_t launch_d(const FwdArgs& a, int B, int causal, cudaStream_t stream) {
   return causal ? launch<D, true>(a, B, stream) : launch<D, false>(a, B, stream);
 }
 
 }  // namespace
 
 // q [B, T, H, D], k/v [B, T, H_kv, D] and o [B, T, H, D] in bf16, addressed
-// through the given element strides (D must be contiguous); lse [B*H, T] f32.
-// Returns the cudaError_t of the launch (0 on success).
+// through the given element strides (D contiguous; q, k and v 16-byte
+// aligned with strides a multiple of 8); lse [B*H, T] f32. Returns 0, the
+// CUresult of a tensor map that could not be encoded, or the cudaError_t of
+// the launch.
 extern "C" int hived_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                int B, int T, int H, int H_kv, int D, int causal,
                                int64_t q_sb, int64_t q_st, int64_t q_sh,
@@ -270,27 +316,22 @@ extern "C" int hived_flash_fwd(const void* q, const void* k, const void* v, void
                                int64_t v_sb, int64_t v_st, int64_t v_sh,
                                int64_t o_sb, int64_t o_st, int64_t o_sh,
                                void* stream) {
-  if (B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
+  if (B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || (D != 64 && D != 128)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  FwdArgs a;
+  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kBlockM);
+  if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kBlockN);
+  if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kBlockN);
+  if (err != 0) return err;
   a.o = static_cast<bf16*>(o);
   a.lse = static_cast<float*>(lse);
   a.T = T;
   a.H = H;
   a.group = H / H_kv;
-  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
-  a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.o_sb = o_sb; a.o_st = o_st; a.o_sh = o_sh;
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (D) {
-    case 64: err = launch_d<64>(a, B, causal, s); break;
-    case 128: err = launch_d<128>(a, B, causal, s); break;
-    default: err = cudaErrorInvalidValue; break;
-  }
-  return static_cast<int>(err);
+  const cudaError_t launched = D == 64 ? launch_d<64>(a, B, causal, s) : launch_d<128>(a, B, causal, s);
+  return static_cast<int>(launched);
 }

@@ -326,6 +326,17 @@ def test_non_contiguous_output_gradient_is_read_as_is():
     assert tattn._kernel_readable(q) is q
 
 
+def test_zero_stride_output_gradient_is_copied_for_the_kernels():
+    # D contiguous but broadcast over B, T and H: a TMA tensor map needs every
+    # stride positive, so the kernels get a copy
+    do = torch.ones((1, 1, 1, 16)).expand(2, 64, 2, 16)
+    assert do.stride() == (0, 0, 0, 1)
+    copied = tattn._kernel_readable(do)
+    assert copied is not do and copied.is_contiguous() and torch.equal(copied, do)
+    strided = torch.ones((2, 2, 64, 16)).transpose(1, 2)  # [B, T, H, D] of [B, H, T, D]
+    assert tattn._kernel_readable(strided) is strided
+
+
 def test_flagship_backward_bound_counts():
     # the numbers the kernels' source note and PERF.md state
     flops = tattn.attention_bwd_flops(8, 2048, 16, 128, causal=True)

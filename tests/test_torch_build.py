@@ -2,6 +2,7 @@
 refusals of chip_smoke.py, on a machine without nvcc or a CUDA card."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -98,12 +99,22 @@ def test_chip_smoke_refuses_without_the_repository(tmp_path):
     assert "port package is missing" in proc.stderr
 
 
+def test_kernel_ab_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    assert kernel_ab.libraries() == ["flash_bwd", "flash_fwd"]
+    assert kernel_ab.main(["--other", str(tmp_path)]) != 0
+    assert not os.listdir(tmp_path)  # nothing was built
+
+
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
-    assert [os.path.basename(p) for p in _build.sources("flash_bwd")] == [
-        "flash_bwd.cu", "flash_common.cuh"]
+    assert sorted(os.path.basename(p) for p in _build.sources("flash_bwd")) == [
+        "flash_bwd.cu", "flash_common.cuh", "hopper.cuh"]
     before = {n: _build.library_path(n) for n in ("flash_fwd", "flash_bwd")}
     with open(csrc / "flash_common.cuh", "a") as f:
         f.write("\n// edited\n")
@@ -128,3 +139,31 @@ def test_build_all_runs_the_compilers_together(scratch_build, monkeypatch):
     kinds = [line.split()[0] for line in events.read_text().splitlines()]
     assert kinds == ["start", "start", "end", "end"]
     assert set(_build.BUILD_LOGS) == {"flash_fwd", "flash_bwd"}
+
+
+def test_both_libraries_rebuild_on_a_hopper_header_edit():
+    # K1 and K2 are built from hopper.cuh: its edits must name new libraries
+    for name in ("flash_fwd", "flash_bwd"):
+        assert "hopper.cuh" in [os.path.basename(p) for p in _build.sources(name)]
+
+
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def test_profile_groups_follow_the_kernel_names():
+    # chip_smoke.py files a train step's device time under K1, K2 and K3 by
+    # kernel-name fragments: a renamed kernel must not fall into "other"
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    names = set()
+    for src in os.listdir(_build.CSRC):
+        if src.endswith(".cu"):
+            with open(os.path.join(_build.CSRC, src)) as f:
+                names.update(_GLOBAL.findall(f.read()))
+    groups = {name: chip_smoke.profile_group(name) for name in names}
+    assert sorted(groups.values()) == ["K1 flash_fwd", "K2 flash_bwd_dq", "K3 flash_bwd_dkv"]
+    # as the profiler shows them: mangled, inside their anonymous namespace
+    for name, group in groups.items():
+        mangled = f"_ZN45_GLOBAL__N__0123_12_x{len(name)}{name}ILi128ELb1EEEvNS_4ArgsE"
+        assert chip_smoke.profile_group(mangled) == group

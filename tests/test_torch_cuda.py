@@ -12,9 +12,16 @@ are held to theirs by normalised errors: dq, dk and dv within a relative
 Frobenius 1e-2 and every row within a relative 2e-2 (p and ds are rounded
 to bf16 for their products; an H100 read ~2.6e-3 and ~5e-3), a row whose
 reference is below 1e-3 of the largest row measured against that floor
-(row 0 of a causal dq is 0 in exact arithmetic). The model, eval step and
-train step are held to the xla path on the same weights.
+(row 0 of a causal dq is 0 in exact arithmetic). Shapes include the
+kernels' tile edges (T a multiple of 64 but not of 128, T under one tile,
+non-causal D=64), and both the forward and the backward must repeat
+bit for bit. The model, eval step and train step are held to the xla
+path on the same weights.
 """
+
+import os
+import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -65,13 +72,22 @@ def _qkv(b, t, h, h_kv, d, seed=0, dtype=torch.bfloat16):
                  for s in ((b, t, h, d), (b, t, h_kv, d), (b, t, h_kv, d)))
 
 
+# the kernels' tile edges: K1 and K2 take 128 q rows a block, K1 128 keys a
+# tile, K2 and K3 64
+EDGE_SHAPES = [
+    (2, 192, 4, 2, 128, True),  # T a multiple of 64, not of 128
+    (2, 40, 4, 1, 64, True),    # T shorter than one tile, MQA
+    (2, 320, 4, 2, 64, False),  # non-causal D=64, ragged 128-row tile
+]
+
+
 @pytest.mark.parametrize("shape", [
     (2, 256, 4, 2, 128, True),
     (2, 256, 4, 4, 128, False),
     (1, 512, 8, 1, 64, True),
     (3, 130, 2, 1, 64, True),   # ragged last tile
     (1, 64, 2, 2, 128, False),  # one tile
-])
+] + EDGE_SHAPES)
 def test_kernel_matches_plain(cuda, shape):
     b, t, h, h_kv, d, causal = shape
     q, k, v = _qkv(b, t, h, h_kv, d)
@@ -84,6 +100,13 @@ def test_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(o.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL)
     assert _worst_row_rel(o, o_ref) <= O_ROW_REL
     torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+
+
+def test_forward_is_bit_reproducible(cuda):
+    q, k, v = _qkv(2, 512, 8, 2, 128, seed=6)
+    first = tattn.flash_forward(q, k, v)
+    second = tattn.flash_forward(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flash_attention_sends_ragged_t_to_the_kernel(cuda):
@@ -176,7 +199,7 @@ BWD_SHAPES = [
     (1, 512, 8, 1, 64, True),
     (3, 130, 2, 1, 64, True),   # ragged last tile
     (1, 64, 2, 2, 128, False),  # one tile
-]
+] + EDGE_SHAPES
 
 
 def _bwd_inputs(b, t, h, h_kv, d, causal, seed=0):
@@ -233,6 +256,39 @@ def test_ragged_t_through_autograd(cuda):
 def test_backward_kernels_build_for_sm90a(cuda):
     paths = _build.build_all(["flash_fwd", "flash_bwd"])
     assert all(p.startswith(_build.BUILD_DIR) for p in paths)
+
+
+def _sass_by_kernel(library: str) -> dict:
+    """{mangled kernel name: its SASS} of a built library, by cuobjdump (it
+    sits beside nvcc)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    kernels, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = []
+        elif name:
+            kernels[name].append(line)
+    return {k: "\n".join(v) for k, v in kernels.items()}
+
+
+@pytest.mark.parametrize("library, kernel", [
+    ("flash_fwd", "flash_fwd_kernel"),
+    ("flash_bwd", "flash_bwd_dq_kernel"),
+])
+def test_k1_and_k2_run_on_wgmma_and_tma(cuda, library, kernel):
+    # every instance (D 64/128 x causal/full) multiplies with wgmma (HGMMA)
+    # on tiles loaded by TMA (UTMALDG), never with mma.sync (HMMA) or
+    # cp.async (LDGSTS)
+    sass = _sass_by_kernel(_build.build(library))
+    found = {k: v for k, v in sass.items() if kernel in k}
+    assert len(found) == 4, sorted(sass)
+    for name, text in found.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert "HMMA" not in text and "LDGSTS" not in text, name
 
 
 def test_flagship_train_step_flash_matches_xla(cuda):
