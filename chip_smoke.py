@@ -29,9 +29,11 @@ Phases, each of which must pass or the script exits non-zero:
     planted fault (the last layer's attention output zeroed);
 (f) hold the backward kernels (K2: dq, K3: dk and dv) against their plain
     PyTorch version on the card at the flagship shape causal, full, with
-    H_kv = H, at T=192, and ragged (T=200, D=64, MQA); show that each
-    output's check sees a planted fault (K keys T-2 and T-1 swapped, which
-    moves only those rows of dq, dk and dv), and that the backward is
+    H_kv = H, at T=192 (a multiple of the 64-row tiles, not of K2's
+    128-row block), with a GQA group of 4 (K3's head walk crosses three
+    boundaries), and ragged (T=200, D=64, MQA); show that each output's
+    check sees a planted fault (K keys T-2 and T-1 swapped, which moves
+    only those rows of dq, dk and dv), and that the backward is
     bit-reproducible;
 (g) time K2 and K3 with CUDA events at the flagship shape, beside their
     plain version, the least time the card could take, and the backward of
@@ -412,6 +414,7 @@ def phase_backward_check() -> dict:
         ("flagship_full_gqa", f["b"], f["t"], f["h"], f["h_kv"], f["d"], False),
         ("flagship_causal_mha", f["b"], f["t"], f["h"], f["h"], f["d"], True),
         ("t192_causal_gqa", 2, 192, f["h"], f["h_kv"], f["d"], True),
+        ("t320_causal_gqa4", 2, 320, f["h"], 4, f["d"], True),
         ("ragged_d64_mqa", 2, 200, 4, 1, 64, True),
     ]
     max_err = {}

@@ -23,9 +23,9 @@ head ``i // (H // H_kv)``).
   the plain versions and the reference.
 
 The kernels replace ``hivedscheduler_tpu/ops/attention.py::_fwd_kernel``,
-``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``. K1 and K2 run wgmma on
+``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``. All three run wgmma on
 TMA-fed shared tiles with a producer warpgroup and two consumer warpgroups
-(``csrc/hopper.cuh``); K3 is still mma.sync on cp.async tiles. The wrappers
+(``csrc/hopper.cuh``). The wrappers
 keep their C entry points: pointers, dims, [B, T, H] element strides and
 the stream; the tensor maps are encoded inside. On an H100 the tensor cores
 bound all three: at the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128,

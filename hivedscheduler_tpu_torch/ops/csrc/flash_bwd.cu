@@ -42,16 +42,41 @@
 //   NEG_INF makes exp underflow to 0. A consumer's rows past T get lse =
 //   +inf, so their p is 0; TMA loads rows past T as zeros.
 //
-// K3, still the first design (mma.sync m16n8k16 on cp.async tiles): one block
-// of 4 warps per (b*h_kv, 64-key tile), each warp owning 16 keys, streaming
-// q/do tiles (and their lse, delta) of every q head of its group from the
-// causal diagonal on through double-buffered shared memory. It computes the
-// transposed tiles s^T = k q^T and dp^T = v do^T directly, so p^T and ds^T
-// are already the A operands of dv += p^T do and dk += ds^T q in registers;
-// it takes a q tile in two halves of 32 rows to keep dk, dv (64 + 64 f32
-// registers at D=128) and both score tiles in registers without spilling.
-// Masking follows the forward: causal pairs get NEG_INF before the exp, and
-// q rows past T get lse = +inf, so p = 0 and they contribute nothing.
+// K3 (the same building blocks): key-stationary, as the TPU kernel is.
+// - One block of three warpgroups per (b*h_kv, 64-key tile), key tile 0
+//   (which meets every q tile under the causal mask) first. The producer's
+//   thread TMA-loads the K and V tiles once, then streams 64-row q and do
+//   tiles of every q head of the GQA group, each from the causal diagonal
+//   on, through a three-stage ring of full/empty mbarrier pairs (at D=128,
+//   16 + 16 + 3 x (16 + 16) KB). The ring spans the head boundaries: its
+//   phases run on across them.
+// - lse and delta reach shared memory by plain loads of the producer's
+//   warp, not by TMA: a tensor map or bulk copy over [B*H, T] f32 needs a
+//   16-byte row stride, T % 4 == 0, and T is any length here. The 32 lanes
+//   store the stage's 64 + 64 floats (lse times log2 e, and +inf and 0 for
+//   rows past T), and each lane arrives on the stage's full barrier after
+//   its own stores (the barrier counts 32 such arrivals beside the TMA
+//   thread's expect_tx), so no lane's stores rely on another's arrival.
+// - The two consumer warpgroups split the products, not the keys: A
+//   computes s^T = k q^T (SS wgmma m64n64k16, q rows along the columns) and
+//   p^T = exp(scale s^T - lse), and accumulates dv += p^T do; B computes
+//   dp^T = v do^T and ds^T = p^T (dp^T - delta) with A's p^T, and
+//   accumulates dk += ds^T q. A hands p^T to B in f32 through two
+//   shared-memory buffers (thread-major, so B's thread t reads the values
+//   of A's thread t; p_full/p_empty mbarriers), so ds^T is formed from the
+//   f32 p^T, as in the TPU kernel. Each stores its p^T or ds^T as bf16 in a
+//   128-byte swizzled 64 x 64 tile, and dv and dk are SS wgmma m64n{D}k16
+//   with that tile K-major and the stage's do or q tile MN-major.
+// - Why split by product: a consumer that owned its keys' dk and dv (64 +
+//   64 f32 a thread at D=128) beside s^T and dp^T (32 + 32) was past what
+//   ptxas would allocate under setmaxnreg 240 (160 or more accumulator
+//   registers serialized every wgmma, with spills, in each layout tried:
+//   RS or SS dk/dv products, n-halves of D, one or two score tiles live);
+//   with 64 + 32 accumulator registers each consumer's wgmmas pipeline.
+// - Masking: only A's tile at the causal diagonal (the head's first q tile)
+//   and a ragged last tile are compared; there s^T = -inf, so p^T = 0 for
+//   causal pairs (where the TPU kernel's NEG_INF makes exp underflow to 0)
+//   and for rows past T, and ds^T = 0 with it.
 // Inputs are addressed through their [B, T, H, D] strides (D contiguous).
 
 #include "flash_common.cuh"
@@ -321,187 +346,342 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
 // ------------------------------------------------------------------- K3
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  // six bf16 tiles (k, v, two stages of q and do) and four 64-float
-  // vectors (lse and delta, per stage)
-  return 6 * kTile * (D + kPad) * static_cast<int>(sizeof(bf16)) +
-         4 * kTile * static_cast<int>(sizeof(float));
-}
+constexpr int kDkvBlockN = 64;  // keys per block, shared by both consumer warpgroups
+constexpr int kDkvBlockM = 64;  // q rows per streamed q/do tile
+constexpr int kDkvStages = 3;   // q/do ring depth
 
-struct BwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
+// shared-memory layout, byte offsets from a 1024-aligned base
+template <int D>
+struct DkvSmem {
+  static constexpr int kKTile = kDkvBlockN * D * 2;              // k or v
+  static constexpr int kQTile = kDkvBlockM * D * 2;              // q or do, one stage
+  static constexpr int kPTile = kDkvBlockN * kDkvBlockM * 2;     // p^T or ds^T, bf16
+  static constexpr int kPf = kDkvBlockN * kDkvBlockM * 4;        // p^T in f32, one buffer
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKTile;
+  static constexpr int kQ = kV + kKTile;
+  static constexpr int kDo = kQ + kDkvStages * kQTile;
+  static constexpr int kPb = kDo + kDkvStages * kQTile;  // p^T bf16 (consumer A's A operand)
+  static constexpr int kDs = kPb + kPTile;              // ds^T bf16 (consumer B's A operand)
+  static constexpr int kPfs = kDs + kPTile;             // two p^T f32 buffers, A to B
+  static constexpr int kLse = kPfs + 2 * kPf;           // per stage kDkvBlockM f32
+  static constexpr int kDelta = kLse + kDkvStages * kDkvBlockM * 4;
+  // kv_full, full[], empty[], p_full[2], p_empty[2]
+  static constexpr int kBars = kDelta + kDkvStages * kDkvBlockM * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * kDkvStages + 4) * 8 + 1024;  // + alignment slack
+};
+
+struct DkvArgs {
+  CUtensorMap tq, tk, tv, tdo;
   const float* lse;
   const float* delta;
   bf16* dk;
   bf16* dv;
   int T, H, group;
-  Strides sq, sk, sv, sdo, sdk, sdv;
+  Strides sdk, sdv;
   float scale;
 };
 
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a) {
-  constexpr int kS = D + kPad;
-  constexpr int kDk = D / 16;        // k-steps over D
-  constexpr int kDn = D / 8;         // n-tiles of dk, dv
-  constexpr int kHalf = kTile / 2;   // q rows taken at a time
-  constexpr int kHn = kHalf / 8;     // n-tiles of a half score tile
-  constexpr int kHk = kHalf / 16;    // k-steps of p^T do over a half
+// s^T = -inf (so p^T = 0) for the rows of a masked tile at or past T and,
+// causal, for keys past the row; in place, so that masked and unmasked
+// tiles share one exp path and one register layout. Element i of k-step kk
+// is q row q0 + 16kk + 8(i >> 2) + 2 t4 + (i & 1) and key key_a (+8 if i & 2).
+template <bool kCausal>
+__device__ __forceinline__ void mask_tile(float (&s)[kDkvBlockM / 2], int key_a, int q0, int t4,
+                                          int T) {
+#pragma unroll
+  for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + 16 * kk + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const int key = (i & 2) ? key_a + 8 : key_a;
+      if (row >= T || (kCausal && key > row)) s[8 * kk + i] = -CUDART_INF_F;
+    }
+  }
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kTile * kS;
-  bf16* sQ = sV + kTile * kS;
-  bf16* sDo = sQ + 2 * kTile * kS;
-  float* sLse = reinterpret_cast<float*>(sDo + 2 * kTile * kS);
-  float* sDelta = sLse + 2 * kTile;
+// p^T = exp(scale s^T - lse) of one tile, in place: the columns are q rows,
+// so lse (stored times log2 e) is read per column, for k-step kk columns
+// [16kk, 16kk + 16)
+__device__ __forceinline__ void p_tile(float (&s)[kDkvBlockM / 2], const float* lb,
+                                       float scale_log2, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+    const float2 l_lo = *reinterpret_cast<const float2*>(lb + 16 * kk + 2 * t4);
+    const float2 l_hi = *reinterpret_cast<const float2*>(lb + 16 * kk + 8 + 2 * t4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 l = (i & 4) ? l_hi : l_lo;
+      s[8 * kk + i] = exp2f(fmaf(s[8 * kk + i], scale_log2, (i & 1) ? -l.y : -l.x));
+    }
+  }
+}
+
+// One bf16 pair of the accumulator layout into a p^T or ds^T tile (64 x 64
+// bf16, 128-byte swizzled, K-major as the A operand of p^T do or ds^T q):
+// pair r of k-step kk holds row 16w + g + 8 (r & 1), columns 16kk + 8 (r >> 1)
+// + 2 t4 and the next, so 16-byte chunk 2kk + (r >> 1) of its row, which the
+// swizzle stores at chunk ^ (row % 8) = chunk ^ g. The eight rows of a warp's
+// store land in eight different chunks: no bank conflicts.
+__device__ __forceinline__ void store_pair(unsigned char* tile, int warp, int g, int t4, int kk,
+                                           int r, uint32_t v) {
+  const int row = 16 * warp + g + 8 * (r & 1);
+  const int chunk = 2 * kk + (r >> 1);
+  *reinterpret_cast<uint32_t*>(tile + row * 128 + ((chunk ^ g) << 4) + 4 * t4) = v;
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ DkvArgs a) {
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
+  bf16* sDo = reinterpret_cast<bf16*>(smem + L::kDo);
+  unsigned char* sPb = smem + L::kPb;
+  unsigned char* sDs = smem + L::kDs;
+  float4* sPf = reinterpret_cast<float4*>(smem + L::kPfs);
+  float* sLb = reinterpret_cast<float*>(smem + L::kLse);
+  float* sDelta = reinterpret_cast<float*>(smem + L::kDelta);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kDkvStages;
+  uint64_t* p_full = empty + kDkvStages;
+  uint64_t* p_empty = p_full + 2;
 
   const int T = a.T;
-  const int n_tiles = (T + kTile - 1) / kTile;
-  const int k_tile = blockIdx.x;  // tile 0 meets every q tile: heaviest first
   const int h_kv_count = a.H / a.group;
-  const int b = blockIdx.y / h_kv_count;
-  const int h_kv = blockIdx.y % h_kv_count;
-  const int k0 = k_tile * kTile;
-  const int first = kCausal ? k_tile : 0;  // earlier q tiles see none of these keys
-  const int per_head = n_tiles - first;
-  const int n_iter = a.group * per_head;
+  const int b = blockIdx.x / h_kv_count;
+  const int h_kv = blockIdx.x % h_kv_count;
+  const int k0 = blockIdx.y * kDkvBlockN;  // y = 0, the heaviest tiles, is scheduled first
+  const int n_q_tiles = (T + kDkvBlockM - 1) / kDkvBlockM;
+  const int first = kCausal ? k0 / kDkvBlockM : 0;  // earlier q tiles see none of these keys
+  const int per_head = n_q_tiles - first;
+  const int n_iter = a.group * per_head;  // q tile `it % per_head` of head `it / per_head`
 
-  // iteration `it` takes q head h_kv * group + it / per_head and its q tile
-  // first + it % per_head: the q and do tiles, and lse and delta of the rows
-  // (rows past T get lse +inf, so p = 0)
-  auto load_stage = [&](int it, int stage) {
-    const int hq = h_kv * a.group + it / per_head;
-    const int q0 = (first + it % per_head) * kTile;
-    load_tile<D>(sQ + stage * kTile * kS, at(a.q, a.sq, b, hq), a.sq.t, q0, T);
-    load_tile<D>(sDo + stage * kTile * kS, at(a.dout, a.sdo, b, hq), a.sdo.t, q0, T);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const int64_t lrow = static_cast<int64_t>(b * a.H + hq) * T;
-      sLse[stage * kTile + threadIdx.x] = row < T ? a.lse[lrow + row] : CUDART_INF_F;
-      sDelta[stage * kTile + threadIdx.x] = row < T ? a.delta[lrow + row] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA thread's expect_tx, each lane's lse/delta
+      mbar_init(&empty[s], kWsConsumerThreads);
     }
-  };
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&p_full[s], 128);   // consumer A's threads, p^T stored
+      mbar_init(&p_empty[s], 128);  // consumer B's threads, p^T read
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_tile<D>(sK, at(a.k, a.sk, b, h_kv), a.sk.t, k0, T);
-  load_tile<D>(sV, at(a.v, a.sv, b, h_kv), a.sv.t, k0, T);
-  load_stage(0, 0);
-  cp_async_commit();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one warp; its thread 0 starts every TMA load, its 32 lanes
+    // store each stage's lse and delta
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * L::kKTile);
+        tma_load_tile<D, kDkvBlockN>(sK, &a.tk, kv_full, h_kv, k0, b);
+        tma_load_tile<D, kDkvBlockN>(sV, &a.tv, kv_full, h_kv, k0, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int stage = it % kDkvStages;
+        const int hq = h_kv * a.group + it / per_head;
+        const int q0 = (first + it % per_head) * kDkvBlockM;
+        if (it >= kDkvStages) mbar_wait(&empty[stage], ((it / kDkvStages) - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage], 2 * L::kQTile);
+          tma_load_tile<D, kDkvBlockM>(sQ + stage * kDkvBlockM * D, &a.tq, &full[stage], hq,
+                                       q0, b);
+          tma_load_tile<D, kDkvBlockM>(sDo + stage * kDkvBlockM * D, &a.tdo, &full[stage],
+                                       hq, q0, b);
+        }
+        const int64_t lrow = static_cast<int64_t>(b * a.H + hq) * T;
+#pragma unroll
+        for (int j = 0; j < kDkvBlockM / 32; ++j) {
+          const int r = lane + 32 * j;
+          const int row = q0 + r;
+          sLb[stage * kDkvBlockM + r] = row < T ? a.lse[lrow + row] * kLog2e : CUDART_INF_F;
+          sDelta[stage * kDkvBlockM + r] = row < T ? a.delta[lrow + row] : 0.f;
+        }
+        mbar_arrive(&full[stage]);  // releases this lane's stores
+      }
+    }
+    return;
+  }
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  // consumers A (wg 1: p^T, dv) and B (wg 2: dp^T, ds^T, dk), both over the
+  // block's 64 keys
+  regs_inc<kConsumerRegs>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int r0 = warp * 16;            // the warp's first key in the tile
-  const int key_a = k0 + r0 + g;       // keys held in c[0], c[1]
-  const int key_b = key_a + 8;         // keys held in c[2], c[3]
+  const int key_a = k0 + 16 * warp + g;  // keys of the accumulators' e = 0, 1
+  const int key_b = key_a + 8;           // and e = 2, 3
 
-  float dk[kDn][4], dv[kDn][4];
+  // the stage-0 descriptors: K-major q, do and the score operands, MN-major
+  // q and do (LBO: their 64-column blocks, 64 rows x 128 bytes apart)
+  const uint64_t dQ = desc_sw128(sQ, 16);
+  const uint64_t dDo = desc_sw128(sDo, 16);
+  const uint64_t dQn = desc_sw128(sQ, kDkvBlockM * 128);
+  const uint64_t dDon = desc_sw128(sDo, kDkvBlockM * 128);
+
+  if (wg == 1) {
+    // A: s^T = k q^T, p^T = exp(scale s^T - lse), handed to B in f32 and
+    // stored in bf16 for dv += p^T do
+    const uint64_t dK = desc_sw128(sK, 16);
+    const uint64_t dP = desc_sw128(sPb, 16);
+    const float scale_log2 = a.scale * kLog2e;
+    float dv[D / 2];
 #pragma unroll
-  for (int n = 0; n < kDn; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
+    for (int i = 0; i < D / 2; ++i) dv[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int stage = it % kDkvStages;
+      const int q0 = (first + it % per_head) * kDkvBlockM;
+      const uint32_t stage_off = stage * L::kQTile;
+      const int pb = it & 1;
+      mbar_wait(&full[stage], (it / kDkvStages) & 1);
 
-  for (int it = 0; it < n_iter; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_iter) load_stage(it + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: this iteration's tiles landed
-    __syncthreads();
-    const int q0 = (first + it % per_head) * kTile;
-    const bf16* cQ = sQ + stage * kTile * kS;
-    const bf16* cDo = sDo + stage * kTile * kS;
-    const float* cLse = sLse + stage * kTile;
-    const float* cDelta = sDelta + stage * kTile;
-
-    // not unrolled: the two halves must not keep k and v fragments live
-    // across each other (at D=128 that spilled)
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * kHalf;  // first q row of the half, in the tile
-      // s^T = k q^T and dp^T = v do^T for the warp's 16 keys and 32 q rows
-      float p[kHn][4], ds[kHn][4];
+      float s[kDkvBlockM / 2];
+      wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kHn; ++n) {
-        p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-        ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t kcol = (kk / 4) * kDkvBlockN * 128 + (kk % 4) * 32;
+        const uint32_t qcol = stage_off + (kk / 4) * kDkvBlockM * 128 + (kk % 4) * 32;
+        wgmma_ss<kDkvBlockM>(s, desc_add(dK, kcol), desc_add(dQ, qcol), kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      // only the causal diagonal (the first q tile) and a ragged last tile
+      if ((kCausal && q0 == k0) || q0 + kDkvBlockM > T) mask_tile<kCausal>(s, key_a, q0, t4, T);
+      p_tile(s, sLb + stage * kDkvBlockM, scale_log2, t4);
+
+      // p^T in f32 to B, thread-major: B's thread t reads what A's thread t
+      // wrote, the same accumulator positions
+      if (it >= 2) mbar_wait(&p_empty[pb], ((it >> 1) - 1) & 1);
+      float4* pf = sPf + pb * (kDkvBlockN * kDkvBlockM / 4);
 #pragma unroll
-      for (int kk = 0; kk < kDk; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a(ka, sK, kS, r0, kk * 16);
-        load_a(va, sV, kS, r0, kk * 16);
+      for (int j = 0; j < kDkvBlockM / 8; ++j) {
+        pf[j * 128 + tid] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      }
+      mbar_arrive(&p_full[pb]);
+
 #pragma unroll
-        for (int n = 0; n < kHn; ++n) {
-          uint32_t b0, b1;
-          load_b_rows(b0, b1, cQ, kS, kk * 16, c0 + n * 8);
-          mma_bf16(p[n], ka, b0, b1);
-          load_b_rows(b0, b1, cDo, kS, kk * 16, c0 + n * 8);
-          mma_bf16(ds[n], va, b0, b1);
+      for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          store_pair(sPb, warp, g, t4, kk, r, pack_f32(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]));
         }
       }
+      // every thread's pairs visible to wgmma before any thread issues it
+      fence_async_shared();
+      named_barrier(1, 128);
 
-      // p^T = exp(s^T - lse) and ds^T = p^T (dp^T - delta), per q column
+      // dv += p^T do: k-step kk reads q rows [16kk, 16kk + 16), +32 bytes
+      // along the p^T rows, +2048 bytes down the do tile
+      wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kHn; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = e < 2 ? key_a : key_b;
-          const int qc = c0 + n * 8 + 2 * t4 + (e & 1);
-          float x = p[n][e] * a.scale;
-          if (kCausal && key > q0 + qc) x = kNegInf;
-          const float pv = exp2f((x - cLse[qc]) * kLog2e);
-          p[n][e] = pv;
-          ds[n][e] = pv * (ds[n][e] - cDelta[qc]);
-        }
+      for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+        wgmma_ss_mn<D>(dv, desc_add(dP, kk * 32), desc_add(dDon, stage_off + kk * 2048), 1);
       }
-
-      // dv += p^T do and dk += ds^T q over the half's q rows
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      mbar_arrive(&empty[stage]);
+    }
+    bf16* dvp = at(a.dv, a.sdv, b, h_kv);
 #pragma unroll
-      for (int kk = 0; kk < kHk; ++kk) {
-        uint32_t pa[4], sa[4];
-        pa[0] = pack_f32(p[2 * kk][0], p[2 * kk][1]);
-        pa[1] = pack_f32(p[2 * kk][2], p[2 * kk][3]);
-        pa[2] = pack_f32(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-        pa[3] = pack_f32(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-        sa[0] = pack_f32(ds[2 * kk][0], ds[2 * kk][1]);
-        sa[1] = pack_f32(ds[2 * kk][2], ds[2 * kk][3]);
-        sa[2] = pack_f32(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
-        sa[3] = pack_f32(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
-#pragma unroll
-        for (int n = 0; n < kDn; ++n) {
-          uint32_t b0, b1;
-          load_b_cols(b0, b1, cDo, kS, c0 + kk * 16, n * 8);
-          mma_bf16(dv[n], pa, b0, b1);
-          load_b_cols(b0, b1, cQ, kS, c0 + kk * 16, n * 8);
-          mma_bf16(dk[n], sa, b0, b1);
-        }
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (key_a < T) {
+        *reinterpret_cast<__nv_bfloat162*>(dvp + key_a * a.sdv.t + col) =
+            __floats2bfloat162_rn(dv[4 * n], dv[4 * n + 1]);
+      }
+      if (key_b < T) {
+        *reinterpret_cast<__nv_bfloat162*>(dvp + key_b * a.sdv.t + col) =
+            __floats2bfloat162_rn(dv[4 * n + 2], dv[4 * n + 3]);
       }
     }
-    __syncthreads();  // this stage is refilled by the next iteration's loads
+    return;
   }
 
-  bf16* dkp = at(a.dk, a.sdk, b, h_kv);
-  bf16* dvp = at(a.dv, a.sdv, b, h_kv);
+  // B: dp^T = v do^T, ds^T = p^T (dp^T - delta) in f32 with A's p^T, stored
+  // in bf16 for dk += ds^T q
+  const uint64_t dV = desc_sw128(sV, 16);
+  const uint64_t dDs = desc_sw128(sDs, 16);
+  float dk[D / 2];
 #pragma unroll
-  for (int n = 0; n < kDn; ++n) {
+  for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int stage = it % kDkvStages;
+    const uint32_t stage_off = stage * L::kQTile;
+    const int pb = it & 1;
+    mbar_wait(&full[stage], (it / kDkvStages) & 1);
+
+    float dp[kDkvBlockM / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t kcol = (kk / 4) * kDkvBlockN * 128 + (kk % 4) * 32;
+      const uint32_t qcol = stage_off + (kk / 4) * kDkvBlockM * 128 + (kk % 4) * 32;
+      wgmma_ss<kDkvBlockM>(dp, desc_add(dV, kcol), desc_add(dDo, qcol), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    mbar_wait(&p_full[pb], (it >> 1) & 1);
+    const float4* pf = sPf + pb * (kDkvBlockN * kDkvBlockM / 4);
+    const float* dl = sDelta + stage * kDkvBlockM;
+#pragma unroll
+    for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+      const float4 p_lo = pf[(2 * kk) * 128 + tid];
+      const float4 p_hi = pf[(2 * kk + 1) * 128 + tid];
+      const float p[8] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
+      const float2 d_lo = *reinterpret_cast<const float2*>(dl + 16 * kk + 2 * t4);
+      const float2 d_hi = *reinterpret_cast<const float2*>(dl + 16 * kk + 8 + 2 * t4);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 d = (r & 2) ? d_hi : d_lo;
+        const int e = 8 * kk + 2 * r;
+        store_pair(sDs, warp, g, t4, kk, r,
+                   pack_f32(p[2 * r] * (dp[e] - d.x), p[2 * r + 1] * (dp[e + 1] - d.y)));
+      }
+    }
+    mbar_arrive(&p_empty[pb]);
+    fence_async_shared();
+    named_barrier(2, 128);
+
+    // dk += ds^T q, as dv in A
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+      wgmma_ss_mn<D>(dk, desc_add(dDs, kk * 32), desc_add(dQn, stage_off + kk * 2048), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    mbar_arrive(&empty[stage]);
+  }
+  bf16* dkp = at(a.dk, a.sdk, b, h_kv);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t4;
     if (key_a < T) {
       *reinterpret_cast<__nv_bfloat162*>(dkp + key_a * a.sdk.t + col) =
-          __floats2bfloat162_rn(dk[n][0] * a.scale, dk[n][1] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + key_a * a.sdv.t + col) =
-          __floats2bfloat162_rn(dv[n][0], dv[n][1]);
+          __floats2bfloat162_rn(dk[4 * n] * a.scale, dk[4 * n + 1] * a.scale);
     }
     if (key_b < T) {
       *reinterpret_cast<__nv_bfloat162*>(dkp + key_b * a.sdk.t + col) =
-          __floats2bfloat162_rn(dk[n][2] * a.scale, dk[n][3] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + key_b * a.sdv.t + col) =
-          __floats2bfloat162_rn(dv[n][2], dv[n][3]);
+          __floats2bfloat162_rn(dk[4 * n + 2] * a.scale, dk[4 * n + 3] * a.scale);
     }
   }
 }
@@ -518,13 +698,14 @@ cudaError_t launch_dq(const DqArgs& a, int B, cudaStream_t stream) {
 }
 
 template <int D, bool kCausal>
-cudaError_t launch_dkv(const BwdArgs& a, int B, cudaStream_t stream) {
-  constexpr int kSmem = dkv_smem_bytes<D>();
+cudaError_t launch_dkv(const DkvArgs& a, int B, cudaStream_t stream) {
+  constexpr int kSmem = DkvSmem<D>::kBytes;
   static bool attr_set = false;
   const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, kCausal>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + kTile - 1) / kTile, B * (a.H / a.group));
-  flash_bwd_dkv_kernel<D, kCausal><<<grid, kThreads, kSmem, stream>>>(a);
+  // key tiles along y, so that every tile 0 (the heaviest) is scheduled first
+  const dim3 grid(B * (a.H / a.group), (a.T + kDkvBlockN - 1) / kDkvBlockN);
+  flash_bwd_dkv_kernel<D, kCausal><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -577,8 +758,10 @@ extern "C" int hived_flash_bwd_dq(const void* q, const void* k, const void* v, c
 }
 
 // K3. q, do [B, T, H, D], k/v and dk/dv [B, T, H_kv, D] in bf16, through
-// their element strides (D contiguous); lse and delta [B*H, T] f32 (delta
-// from K2). Returns the cudaError_t of the launch (0 on success).
+// their element strides (D contiguous; q, do, k and v every row 16-byte
+// aligned, strides positive); lse and delta [B*H, T] f32 (delta from K2).
+// Returns 0, the CUresult of a tensor map that could not be encoded, or the
+// cudaError_t of the launch.
 extern "C" int hived_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dk, void* dv,
@@ -591,11 +774,12 @@ extern "C" int hived_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    int64_t dv_sb, int64_t dv_st, int64_t dv_sh,
                                    void* stream) {
   if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a = {};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
+  DkvArgs a;
+  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kDkvBlockM);
+  if (err == 0) err = make_tile_map(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, kDkvBlockM);
+  if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDkvBlockN);
+  if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDkvBlockN);
+  if (err != 0) return err;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.dk = static_cast<bf16*>(dk);
@@ -603,10 +787,6 @@ extern "C" int hived_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.T = T;
   a.H = H;
   a.group = H / H_kv;
-  a.sq = {q_sb, q_st, q_sh};
-  a.sk = {k_sb, k_st, k_sh};
-  a.sv = {v_sb, v_st, v_sh};
-  a.sdo = {do_sb, do_st, do_sh};
   a.sdk = {dk_sb, dk_st, dk_sh};
   a.sdv = {dv_sb, dv_st, dv_sh};
   a.scale = 1.0f / sqrtf(static_cast<float>(D));

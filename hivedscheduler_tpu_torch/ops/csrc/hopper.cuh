@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels K1
-// (flash_fwd.cu) and K2 (flash_bwd.cu, flash_bwd_dq_kernel), as raw PTX:
+// (flash_fwd.cu), K2 and K3 (flash_bwd.cu), as raw PTX:
 // TMA tensor maps and bulk tensor loads that complete on mbarriers, wgmma
 // shared-memory descriptors for the 128-byte swizzled layout, and
 // wgmma.mma_async (bf16 in, f32 accumulate) with its fences.
@@ -10,13 +10,14 @@
 // swizzle: the 16-byte chunk c of row r lands at chunk c ^ (r % 8) of that
 // row. wgmma reads the same layout through a descriptor (layout type
 // SWIZZLE_128B), as either operand form:
-// - K-major (the contraction runs along a row: Q, K in q k^T, dO, V in
-//   do v^T): 8-row groups 1024 bytes apart (SBO); a 16-column k-step is
-//   +32 bytes inside the row, and +R * 128 bytes moves to the next column
-//   block;
-// - MN-major (the contraction runs down the rows: V in p v, K in ds k):
-//   8-row groups 1024 bytes apart (SBO), column blocks R * 128 bytes apart
-//   (LBO); a 16-row k-step is +2048 bytes, two whole swizzle atoms.
+// - K-major (the contraction runs along a row: Q, K in q k^T and k q^T,
+//   dO, V in do v^T and v do^T): 8-row groups 1024 bytes apart (SBO); a
+//   16-column k-step is +32 bytes inside the row, and +R * 128 bytes moves
+//   to the next column block;
+// - MN-major (the contraction runs down the rows: V in p v, K in ds k, dO
+//   in p^T do, Q in ds^T q): 8-row groups 1024 bytes apart (SBO), column
+//   blocks R * 128 bytes apart (LBO); a 16-row k-step is +2048 bytes, two
+//   whole swizzle atoms.
 //
 // Accumulator layout of wgmma m64nNk16 for thread t of the warpgroup, warp
 // w = t / 32, lane l, g = l / 4, t4 = l % 4: d[4j + e] holds row 16w + g
@@ -84,7 +85,7 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T, int h
 
 // -------------------------------------------------------------- device side
 
-// Warp specialisation of K1 and K2: a block of three warpgroups, warpgroup
+// Warp specialisation of K1, K2 and K3: a block of three warpgroups, warpgroup
 // 0 the producer (TMA), 1 and 2 the consumers (wgmma). setmaxnreg moves
 // registers from the one to the others within the SM's 65536:
 // 128 x 24 + 256 x 240 = 64512.
@@ -214,6 +215,17 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// makes this thread's plain shared-memory stores visible to wgmma (the async
+// proxy); a barrier over the threads that stored must follow
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_barrier(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -260,6 +272,36 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HIVED_R64
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24), HIVED_D8(32), HIVED_D8(40),
+        HIVED_D8(48), HIVED_D8(56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N, f32) = a b + (accumulate ? d : 0), one k-step of 16: a (64 x 16)
+// K-major and b (16 x N) MN-major, both in shared memory through their
+// descriptors
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                            int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HIVED_R32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HIVED_R64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
       : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24), HIVED_D8(32), HIVED_D8(40),
         HIVED_D8(48), HIVED_D8(56)
       : "l"(a), "l"(b), "r"(accumulate));

@@ -14,8 +14,8 @@ to bf16 for their products; an H100 read ~2.6e-3 and ~5e-3), a row whose
 reference is below 1e-3 of the largest row measured against that floor
 (row 0 of a causal dq is 0 in exact arithmetic). Shapes include the
 kernels' tile edges (T a multiple of 64 but not of 128, T under one tile,
-non-causal D=64), and both the forward and the backward must repeat
-bit for bit. The model, eval step and train step are held to the xla
+non-causal D=64, a GQA group of 4), and both the forward and the backward
+must repeat bit for bit. The model, eval step and train step are held to the xla
 path on the same weights.
 """
 
@@ -73,9 +73,10 @@ def _qkv(b, t, h, h_kv, d, seed=0, dtype=torch.bfloat16):
 
 
 # the kernels' tile edges: K1 and K2 take 128 q rows a block, K1 128 keys a
-# tile, K2 and K3 64
+# tile and K2 64; K3 takes 64 keys a block and 64 q rows a tile
 EDGE_SHAPES = [
     (2, 192, 4, 2, 128, True),  # T a multiple of 64, not of 128
+    (2, 192, 4, 2, 128, False),
     (2, 40, 4, 1, 64, True),    # T shorter than one tile, MQA
     (2, 320, 4, 2, 64, False),  # non-causal D=64, ragged 128-row tile
 ]
@@ -199,6 +200,8 @@ BWD_SHAPES = [
     (1, 512, 8, 1, 64, True),
     (3, 130, 2, 1, 64, True),   # ragged last tile
     (1, 64, 2, 2, 128, False),  # one tile
+    (1, 320, 16, 4, 128, True),  # GQA group of 4: K3's head walk crosses 3 boundaries
+    (2, 256, 16, 4, 64, False),
 ] + EDGE_SHAPES
 
 
@@ -278,8 +281,9 @@ def _sass_by_kernel(library: str) -> dict:
 @pytest.mark.parametrize("library, kernel", [
     ("flash_fwd", "flash_fwd_kernel"),
     ("flash_bwd", "flash_bwd_dq_kernel"),
+    ("flash_bwd", "flash_bwd_dkv_kernel"),
 ])
-def test_k1_and_k2_run_on_wgmma_and_tma(cuda, library, kernel):
+def test_kernels_run_on_wgmma_and_tma(cuda, library, kernel):
     # every instance (D 64/128 x causal/full) multiplies with wgmma (HGMMA)
     # on tiles loaded by TMA (UTMALDG), never with mma.sync (HMMA) or
     # cp.async (LDGSTS)
