@@ -48,7 +48,26 @@ Phases, each of which must pass or the script exits non-zero:
     hold the gradients of one flagship step, flash against xla on the same
     weights and batch, by leaf group, and show that the check sees a planted
     fault (the last layer's dq zeroed); print the device time of one flash
-    step by kernel group (torch.profiler).
+    step by kernel group (torch.profiler);
+(i) checkpoint and resume at the flagship width (6 layers, train's flags of
+    (h)): save the train state after one step (511.7 M f32 parameters and
+    their AdamW moments, ~6.1 GB), restore it into zeroed templates on the
+    card and require every parameter and moment bit-identical, and show
+    that the check sees one flipped bit; run ``train`` 4 steps twice
+    uninterrupted (A, A2), then 2 steps with ``--checkpoint-dir
+    --checkpoint-every 2 --goodput-file`` (B) and the same command with
+    ``--steps 4`` (B', which resumes), and hold B''s steps 3-4 to A's
+    (bit-identical when A and A2 are, else within a relative 1e-3); resume
+    again with the loader state dropped from the marker (fast-forward,
+    which must pass) and with the loader restarted at position 0 (which
+    must fail the same check); SIGTERM a ``python -m
+    hivedscheduler_tpu_torch.train`` process on the card after its step 2
+    and require exit 0 within the 60 s grace period with a committed
+    marker at the step it stopped on, then a resumed incarnation that
+    finishes; print the save and restore seconds, GB/s and B + B''s
+    goodput phase seconds, and require the goodput spool's audit to be
+    clean. The temp directory's free space is printed first, and the phase
+    fails if it cannot hold two checkpoints.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -65,6 +84,7 @@ import json
 import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -631,6 +651,306 @@ def phase_train_profile() -> None:
     torch.cuda.empty_cache()
 
 
+# phase (i): checkpoint, resume, preemption and goodput at the flagship width
+CKPT_ARGS = TRAIN_ARGS + ["--attn", "flash"]
+RESUME_STEPS, RESUME_SPLIT = 4, 2
+# resumed losses against the uninterrupted run's when two uninterrupted runs
+# are not bit-identical: the loss limit the port uses flash vs xla, relative
+RESUME_REL = 1e-3
+PREEMPT_STEPS, PREEMPT_AT, GRACE_SECS = 8, 2, 60.0
+
+
+def _train_main(tmp: str, name: str, *extra: str) -> dict:
+    """``train.main`` with the flagship train flags -> {step: loss} of its
+    timeline (the last record of a step wins)."""
+    import torch
+
+    from hivedscheduler_tpu_torch import train as port_train
+
+    torch.cuda.empty_cache()
+    path = os.path.join(tmp, f"{name}.jsonl")
+    rc = port_train.main(CKPT_ARGS + ["--timeline", path] + list(extra))
+    check(rc == 0, f"train ({name}) exited {rc}")
+    with open(path) as f:
+        losses = {r["step"]: r["loss"] for r in map(json.loads, f)}
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"train ({name}): non-finite loss {losses}")
+    return losses
+
+
+def _close_goodput() -> None:
+    """End one in-process incarnation's goodput ledger as a process exit
+    would (the summary record), so the next run spools as a new one."""
+    from hivedscheduler_tpu_torch.obs import goodput
+
+    goodput.GOODPUT.close()
+    goodput.disable()
+    goodput.GOODPUT.clear()
+
+
+def _state_mismatches(params, opt, params2, opt2) -> list:
+    """Names of the parameters and AdamW state entries that are not
+    bit-identical (or not on the same device and dtype)."""
+    import torch
+
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+
+    bad = []
+    a_named, b_named = ckpt.named_leaves(params), ckpt.named_leaves(params2)
+    for name, a in a_named.items():
+        b = b_named[name]
+        if (a.device, a.dtype) != (b.device, b.dtype) or not torch.equal(a, b):
+            bad.append(name)
+        sa, sb = opt.state[a], opt2.state.get(b, {})
+        for key, x in sa.items():
+            y = sb.get(key)
+            if (y is None or (x.device, x.dtype) != (y.device, y.dtype)
+                    or not torch.equal(x, y)):
+                bad.append(f"{name}.{key}")
+    return bad
+
+
+def _round_trip(tmp: str) -> dict:
+    """Save the flagship train state after one step and restore it into
+    zeroed templates on the card; bit-identical, with a planted fault."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash",
+                               remat="dots", **EVAL_MODEL)
+    step, init_fn = port_train.make_train_step(cfg, "cuda", ce_chunk=EVAL_CE_CHUNK)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(cfg.vocab_size), EVAL_BATCH, EVAL_SEQ)
+    params, opt, _ = step(params, opt, torch.from_numpy(np.asarray(next(loader))).cuda())
+    torch.cuda.synchronize()
+    d = os.path.join(tmp, "round-trip")
+    t0 = time.perf_counter()
+    ckpt.save(d, 1, params, opt)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, "1", n)) for n in os.listdir(os.path.join(d, "1")))
+    params2, opt2 = init_fn(torch.Generator(device="cuda").manual_seed(1))
+    with torch.no_grad():
+        for leaf in ckpt.named_leaves(params2).values():
+            leaf.zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ckpt.restore(d, params2, opt2)[0]
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(restored == 1, f"restored step {restored}")
+    n_params = sum(t.numel() for t in ckpt.named_leaves(params).values())
+    moments = sum(x.numel() for s in opt2.state.values() for x in s.values() if x.dim())
+    check(moments == 2 * n_params, f"restored {moments} moment values for {n_params} parameters")
+    bad = _state_mismatches(params, opt, params2, opt2)
+    print(f"[i] round trip: {n_params / 1e6:.1f} M f32 parameters and their AdamW "
+          f"moments, {nbytes / 1e9:.3f} GB written; save {save_s:.2f} s "
+          f"({nbytes / save_s / 1e9:.2f} GB/s), restore into zeroed templates "
+          f"{restore_s:.2f} s ({nbytes / restore_s / 1e9:.2f} GB/s); "
+          f"not bit-identical: {bad}")
+    check(not bad, f"the restored state differs in {bad}")
+    # planted fault: one element of one restored moment flipped in its
+    # lowest bit
+    moment = opt2.state[ckpt.named_leaves(params2)["layers.w_up"]]["exp_avg_sq"]
+    moment.view(-1)[12345:12346].view(torch.int32).bitwise_xor_(1)
+    planted = _state_mismatches(params, opt, params2, opt2)
+    print(f"[i] planted fault (one bit of one element of layers.w_up's "
+          f"exp_avg_sq): not bit-identical {planted}")
+    check(planted == ["layers.w_up.exp_avg_sq"], "the round-trip check does not see the planted fault")
+    shutil.rmtree(d)
+    return dict(gb=nbytes / 1e9, save_s=save_s, restore_s=restore_s)
+
+
+def phase_checkpoint() -> dict:
+    """(i): the round trip, resume against the uninterrupted run,
+    preemption by SIGTERM and the goodput ledger, at the flagship width."""
+    import torch
+
+    from hivedscheduler_tpu_torch.obs import goodput
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        # the phase holds at most two flagship checkpoints on disk at once
+        n_params = _flagship_params()
+        need = 2 * 3 * 4 * n_params
+        free = shutil.disk_usage(tmp).free
+        print(f"[i] {tmp}: {free / 1e9:.1f} GB free; the phase writes at most "
+              f"{need / 1e9:.1f} GB at once")
+        check(free > 1.1 * need, f"{tmp} has {free / 1e9:.1f} GB free, the phase "
+              f"needs {need / 1e9:.1f} GB")
+        report = _round_trip(tmp)
+        torch.cuda.empty_cache()
+
+        # resume against the uninterrupted run
+        a = _train_main(tmp, "A", "--steps", str(RESUME_STEPS))
+        a2 = _train_main(tmp, "A2", "--steps", str(RESUME_STEPS))
+        spread = max(abs(a[s] - a2[s]) / abs(a[s]) for s in a)
+        exact = a == a2
+        print(f"[i] uninterrupted runs A and A2, {RESUME_STEPS} steps: losses "
+              f"{list(a.values())}; bit-identical {exact}, largest relative "
+              f"spread {spread:.3e}")
+
+        def resumed_err(b):
+            steps = range(RESUME_SPLIT + 1, RESUME_STEPS + 1)
+            check(sorted(b) == list(steps), f"resumed run took steps {sorted(b)}")
+            return max(abs(b[s] - a[s]) / abs(a[s]) for s in steps), all(b[s] == a[s] for s in steps)
+
+        def within(err, same):
+            return same if exact else err <= RESUME_REL
+
+        limit = "bit-identical" if exact else f"relative {RESUME_REL}"
+        ck = os.path.join(tmp, "resume-ck")
+        gp = os.path.join(tmp, "goodput.jsonl")
+        common = ["--checkpoint-dir", ck, "--checkpoint-every", str(RESUME_SPLIT),
+                  "--goodput-file", gp]
+        _close_goodput()
+        b = _train_main(tmp, "B", "--steps", str(RESUME_SPLIT), *common)
+        _close_goodput()
+        if exact:
+            check(b == {s: a[s] for s in range(1, RESUME_SPLIT + 1)},
+                  "run B's first steps differ from run A's")
+        b1 = _train_main(tmp, "B1", "--steps", str(RESUME_STEPS), *common)
+        _close_goodput()
+        err, same = resumed_err(b1)
+        print(f"[i] B: {RESUME_SPLIT} steps with --checkpoint-every {RESUME_SPLIT}; "
+              f"B': the same command with --steps {RESUME_STEPS} resumed from step "
+              f"{RESUME_SPLIT}: steps {sorted(b1)} against A: largest relative "
+              f"error {err:.3e}, bit-identical {same} (limit: {limit})")
+        check(within(err, same), "the resumed steps disagree with the uninterrupted run")
+        check(ckpt.latest_step(ck) == RESUME_STEPS, f"B' committed {ckpt.latest_step(ck)}")
+
+        # planted faults on the resume: the loader state dropped from the
+        # marker (fast-forward by skip(start_step), which is right), then
+        # the loader restarted at position 0 (which is wrong)
+        marker = os.path.join(ck, str(RESUME_SPLIT), "hived_complete.json")
+        with open(marker) as f:
+            saved = json.load(f)
+        from hivedscheduler_tpu_torch.parallel import data as data_lib
+
+        fresh = data_lib.CheckpointableBatches(
+            data_lib.synthetic_dataset(EVAL_MODEL["vocab_size"]), EVAL_BATCH,
+            EVAL_SEQ).to_dict()
+        outcomes = {}
+        for case, loader in (("no loader state (skip)", None),
+                             ("loader restarted at 0", fresh)):
+            shutil.rmtree(os.path.join(ck, str(RESUME_STEPS)))
+            extra = {k: v for k, v in saved["extra"].items() if k != "loader"}
+            if loader is not None:
+                extra["loader"] = loader
+            ckpt.atomic_write_bytes(marker, json.dumps(dict(saved, extra=extra)).encode())
+            got = _train_main(tmp, case.split()[0], "--steps", str(RESUME_STEPS),
+                              "--checkpoint-dir", ck, "--checkpoint-every", str(RESUME_SPLIT))
+            outcomes[case] = resumed_err(got)
+            print(f"[i] resume with {case}: largest relative error "
+                  f"{outcomes[case][0]:.3e}, bit-identical {outcomes[case][1]}")
+        check(within(*outcomes["no loader state (skip)"]),
+              "a resume that fast-forwards the loader disagrees")
+        check(not within(*outcomes["loader restarted at 0"]),
+              "the resume check does not see a loader restarted at position 0")
+        shutil.rmtree(ck)
+
+        # goodput of B + B'
+        records = goodput.read_spool(gp)
+        agg = goodput.aggregate_spool(records)
+        violations = goodput.check_spool(gp) + goodput.check_rework_classification(records)
+        shown = ("checkpoint_save", "checkpoint_restore", "compile", "step_compute",
+                 "data_wait", "init", "idle")
+        print(f"[i] goodput of B + B' ({agg['incarnations']} incarnations, "
+              f"{agg['steps']} steps): " + ", ".join(
+                  f"{p} {agg['phases'].get(p, 0.0):.3f} s" for p in shown)
+              + f"; goodput fraction {agg['goodput_fraction']:.4f}; "
+              f"check_spool violations {violations}")
+        check(agg["incarnations"] == 2 and agg["torn"] == 0, f"goodput spool {agg}")
+        check(not violations, "the goodput spool has violations")
+        report["goodput"] = {p: agg["phases"].get(p, 0.0) for p in shown}
+
+        # preemption: SIGTERM to a training process on the card
+        report["preempt"] = _preemption(tmp)
+        report["spread"], report["exact"] = spread, exact
+        report["resume_err"] = err
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[i] phase wall time {report['phase_s']:.1f} s")
+    return report
+
+
+def _flagship_params() -> int:
+    m = EVAL_MODEL
+    d, f, v, n = m["d_model"], m["d_ff"], m["vocab_size"], m["n_layers"]
+    hd = d // m["n_heads"]
+    layer = 2 * d + d * d * 2 + 2 * d * m["n_kv_heads"] * hd + 3 * d * f
+    return 2 * v * d + d + n * layer
+
+
+def _preemption(tmp: str) -> dict:
+    """SIGTERM to ``python -m hivedscheduler_tpu_torch.train`` once its
+    timeline shows step PREEMPT_AT: exit 0 within the grace period with a
+    committed marker at the step it stopped on; then a second incarnation
+    resumes and finishes."""
+    import signal
+
+    import torch
+
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+
+    torch.cuda.empty_cache()
+    ck = os.path.join(tmp, "preempt-ck")
+    tl = os.path.join(tmp, "preempt.jsonl")
+    cmd = [sys.executable, "-m", "hivedscheduler_tpu_torch.train"] + CKPT_ARGS + [
+        "--steps", str(PREEMPT_STEPS), "--checkpoint-dir", ck,
+        "--checkpoint-every", "100", "--grace-secs", str(GRACE_SECS),
+        "--timeline", tl, "--log-every", "100"]
+    log_path = os.path.join(tmp, "preempt.log")
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 300
+            steps = []
+            while time.monotonic() < deadline and proc.poll() is None:
+                if os.path.exists(tl):
+                    with open(tl) as f:
+                        steps = [json.loads(l)["step"] for l in f if l.endswith("\n")]
+                if PREEMPT_AT in steps:
+                    break
+                time.sleep(0.05)
+            check(proc.poll() is None and PREEMPT_AT in steps,
+                  f"the training process reached steps {steps} and exit {proc.poll()}")
+            t_sig = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=GRACE_SECS + 30)
+            exit_s = time.monotonic() - t_sig
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(tl) as f:
+        stopped = [json.loads(l)["step"] for l in f][-1]
+    committed = ckpt.latest_step(ck)
+    print(f"[i] preemption: SIGTERM after step {PREEMPT_AT} -> exit {rc} in "
+          f"{exit_s:.2f} s (grace {GRACE_SECS:.0f} s), stopped after step "
+          f"{stopped}, committed step {committed}")
+    if rc != 0:
+        with open(log_path) as f:
+            print(f.read()[-4000:])
+    check(rc == 0 and exit_s <= GRACE_SECS, "SIGTERM did not lead to exit 0 within the grace period")
+    check(committed == stopped < PREEMPT_STEPS, "no committed marker at the step it stopped on")
+    rest = _train_main(tmp, "after-preempt", "--steps", str(PREEMPT_STEPS),
+                       "--checkpoint-dir", ck, "--checkpoint-every", "100")
+    print(f"[i] second incarnation resumed from step {committed} and ran steps "
+          f"{sorted(rest)}, committed step {ckpt.latest_step(ck)}")
+    check(sorted(rest) == list(range(committed + 1, PREEMPT_STEPS + 1))
+          and ckpt.latest_step(ck) == PREEMPT_STEPS, "the resumed incarnation did not finish")
+    return dict(exit_s=exit_s, stopped=stopped)
+
+
 GRAD_GROUPS = {
     "embed": ("embed",),
     "attention": ("wq", "wk", "wv", "wo"),
@@ -754,6 +1074,7 @@ def main() -> int:
     launches = phase_train()
     phase_train_grads()
     phase_train_profile()
+    phase_checkpoint()
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"

@@ -13,12 +13,19 @@ back from the card to the CPU.
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The device a caller asked for, checked: ``cuda`` (the default) needs
-    a card and raises without one; ``cpu`` is taken only when asked for."""
+    a card and raises without one; ``cpu`` is taken only when asked for.
+    torch is imported here, not with the package, so that a CLI can start
+    its goodput ledger before the import."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -7,9 +7,12 @@ positions) and the same output line:
     python -m hivedscheduler_tpu_torch.eval --attn flash --data heldout.bin
 
 ``--device`` (default ``cuda``) is the one addition; ``--device cpu`` runs
-on the CPU. The flash kernel runs under ``--attn flash``. Mesh axes above 1,
-MoE, checkpoints and the goodput ledger are not yet ported and exit with an
-error rather than being ignored.
+on the CPU. The flash kernel runs under ``--attn flash``.
+``--checkpoint-dir`` evaluates the parameters of the newest committed
+checkpoint of a ``train`` run (random init from seed 0 without it), and
+``--goodput-file`` spools the goodput ledger's phases. Mesh axes above 1
+and MoE are not yet ported and exit with an error rather than being
+ignored.
 """
 
 from __future__ import annotations
@@ -36,10 +39,6 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
                          "one device")
     if args.n_experts > 0:
         parser.error("--n-experts > 0 (MoE) is not yet ported")
-    if args.checkpoint_dir:
-        parser.error("--checkpoint-dir is not yet ported")
-    if args.goodput_file:
-        parser.error("--goodput-file is not yet ported")
     if args.attn is not None and args.attn not in PORTED_ATTN:
         parser.error(f"--attn {args.attn} is not yet ported; the port runs "
                      f"{'|'.join(PORTED_ATTN)}")
@@ -74,9 +73,11 @@ def main(argv=None) -> int:
     parser.add_argument("--max-steps", type=int, default=0,
                         help="cap evaluated windows (0 = whole corpus)")
     parser.add_argument("--checkpoint-dir", default="",
-                        help="not yet ported (random init from seed 0)")
+                        help="checkpoint to evaluate (random init when "
+                             "omitted: smoke only)")
     parser.add_argument("--goodput-file", default="",
-                        help="not yet ported")
+                        help="enable the workload goodput ledger and append "
+                        "this run's step-phase records to this JSONL spool")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("-v", "--verbose", action="store_true")
@@ -84,12 +85,17 @@ def main(argv=None) -> int:
     _reject_unported(parser, args)
 
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
+    from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
+
+    if args.goodput_file:
+        obs_goodput.enable(spool_path=args.goodput_file)
 
     import numpy as np
     import torch
 
     from hivedscheduler_tpu_torch import resolve_device
     from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
     from hivedscheduler_tpu_torch.parallel import data as data_lib
     from hivedscheduler_tpu_torch.parallel.train import make_eval_step
 
@@ -110,7 +116,11 @@ def main(argv=None) -> int:
     )
     eval_step, init_fn = make_eval_step(cfg, device, ce_chunk=args.ce_chunk)
     params = init_fn(torch.Generator(device=device).manual_seed(0))
-    log.warning("no --checkpoint-dir: evaluating RANDOM init (smoke)")
+    if args.checkpoint_dir:
+        step, params = ckpt.restore_params(args.checkpoint_dir, params)
+        log.info("restored params from step %s", step)
+    else:
+        log.warning("no --checkpoint-dir: evaluating RANDOM init (smoke)")
 
     if args.data:
         dataset = data_lib.TokenFileDataset(args.data, dtype=args.data_dtype)
@@ -127,6 +137,7 @@ def main(argv=None) -> int:
         return 1
 
     t0 = time.perf_counter()
+    obs_goodput.phase("eval")
     # accumulate on the device; one host sync at the end
     total_loss = None
     for i in range(n_steps):
@@ -143,6 +154,7 @@ def main(argv=None) -> int:
     # per-window means is the corpus token-level mean over scored targets
     loss = float(total_loss) / n_steps  # waits for the device
     dt = time.perf_counter() - t0
+    obs_goodput.phase("idle")
     ppl = math.exp(min(loss, 30.0))
     log.info(WINDOWS_LOG, n_steps, n_steps * window, dt,
              n_steps * window / max(dt, 1e-9))

@@ -24,6 +24,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from hivedscheduler_tpu_torch import resolve_device
 from hivedscheduler_tpu_torch.models import transformer as tm
+from hivedscheduler_tpu_torch.parallel.checkpoint import named_leaves
 
 
 def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.01) -> Callable:
@@ -90,9 +91,7 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
 
 def _leaves(params) -> List[torch.Tensor]:
     """The tree's tensor leaves in a fixed (insertion) order."""
-    if isinstance(params, dict):
-        return [leaf for v in params.values() for leaf in _leaves(v)]
-    return [params]
+    return list(named_leaves(params).values())
 
 
 def _accumulated_value_and_grad(grad_fn, params, tokens: torch.Tensor,

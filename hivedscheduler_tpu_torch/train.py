@@ -9,12 +9,23 @@ defaults, the same step loop and the same log line:
 ``--device`` (default ``cuda``) is the one addition; ``--device cpu`` runs
 on the CPU. ``--attn flash`` runs the flash kernels forward and backward;
 the optimizer is AdamW. ``--timeline`` writes the same per-step JSONL and
-syncs every step. ``--on-nan halt`` exits 44 on divergence and ``skip``
-drops the update of a non-finite step. Mesh axes above 1, pipelining, MoE,
-LoRA, the overlapped stack, checkpoints and what rides on them (rollback,
-warm start, the watchdog, elastic meshes), the profiler, the journal and
-the goodput ledger are not yet ported and exit with an error rather than
-being ignored.
+syncs every step.
+
+Preemptible training, as in the JAX CLI: with ``--checkpoint-dir`` the run
+commits a checkpoint every ``--checkpoint-every`` steps and at its end, and
+a new incarnation resumes from the newest committed step (parameters,
+AdamW state and the data loader's position), reproducing the
+uninterrupted run. SIGTERM/SIGINT checkpoint at the next step boundary and
+exit 0 within ``--grace-secs``; ``--watchdog-secs`` exits 43 on a hung
+step; ``--on-nan halt`` exits 44 on divergence, ``skip`` drops the update
+of a non-finite step and ``rollback`` restores the newest committed step
+and skips the poisoned batch (``--max-rollbacks`` times at most).
+``--init-from`` warm-starts the parameters with a fresh optimizer;
+``--goodput-file`` spools the goodput ledger's step phases.
+
+Mesh axes above 1, pipelining, MoE, LoRA, the overlapped stack, elastic
+meshes, the profiler and the journal are not yet ported and exit with an
+error rather than being ignored.
 """
 
 from __future__ import annotations
@@ -47,15 +58,10 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
         "--lora-mlp": args.lora_mlp,
         "--lora-alpha": args.lora_alpha != 16.0,
         "--overlap": bool(args.overlap),
-        "--on-nan rollback": args.on_nan == "rollback",
-        "--checkpoint-dir": bool(args.checkpoint_dir),
-        "--init-from": bool(args.init_from),
         "--profile-dir": bool(args.profile_dir),
         "--journal-file": bool(args.journal_file),
-        "--goodput-file": bool(args.goodput_file),
         "--elastic": args.elastic,
         "--min-chips": args.min_chips > 0,
-        "--watchdog-secs > 0": args.watchdog_secs > 0,
     }
     for flag, given in unported.items():
         if given:
@@ -122,37 +128,55 @@ def _parser() -> argparse.ArgumentParser:
                         help="packed token file; synthetic corpus when omitted")
     parser.add_argument("--data-dtype", default="uint16",
                         choices=["uint16", "uint32"])
-    parser.add_argument("--init-from", default="", help="not yet ported")
+    parser.add_argument("--init-from", default="",
+                        help="warm-start params from another run's "
+                        "checkpoint (fresh optimizer)")
     parser.add_argument("--profile-dir", default="", help="not yet ported")
     parser.add_argument("--journal-file", default="", help="not yet ported")
-    parser.add_argument("--goodput-file", default="", help="not yet ported")
+    parser.add_argument("--goodput-file", default="",
+                        help="enable the workload goodput ledger and append "
+                        "this incarnation's step-phase records to this JSONL "
+                        "spool; sharing one spool across a gang's "
+                        "incarnations makes rework classification exact "
+                        "across kills")
     parser.add_argument("--timeline", default="",
                         help="write a per-step JSONL timeline (step, wall_s, "
                         "tokens_per_sec, loss, compile) to this path; syncs "
                         "on the loss every step")
-    parser.add_argument("--checkpoint-dir", default="", help="not yet ported")
-    parser.add_argument("--checkpoint-every", type=int, default=50,
-                        help="with --checkpoint-dir (not yet ported)")
+    parser.add_argument("--checkpoint-dir", default="",
+                        help="commit checkpoints here and resume from the "
+                        "newest committed one")
+    parser.add_argument("--checkpoint-every", type=int, default=50)
     parser.add_argument("--log-every", type=int, default=10)
     parser.add_argument("--data-seed", type=int, default=0,
-                        help="data-loader stream seed")
+                        help="data-loader stream seed (the loader's state "
+                        "joins every checkpoint, so a resumed run continues "
+                        "the uninterrupted stream)")
     parser.add_argument("--elastic", action="store_true", help="not yet ported")
     parser.add_argument("--min-chips", type=int, default=0, help="not yet ported")
     parser.add_argument("--grace-secs", type=float, default=30.0,
-                        help="preemption grace period (with checkpoints, not "
-                        "yet ported)")
+                        help="preemption grace period: SIGTERM/SIGINT "
+                        "request checkpoint-and-exit at the next step "
+                        "boundary; a shutdown still wedged after this many "
+                        "seconds is force-exited (exit 45)")
     parser.add_argument("--watchdog-secs", type=float, default=0.0,
-                        help="not yet ported above 0")
+                        help="per-step hang deadline (0 = off): a step "
+                        "exceeding it records hived_stall.json in the "
+                        "checkpoint dir and exits 43 (the first step gets "
+                        "10x: it includes the kernels' build when cold)")
     parser.add_argument("--on-nan", choices=("halt", "rollback", "skip"),
                         default="halt",
                         help="divergence policy for a non-finite loss (or "
-                        "spike): halt = exit 44; skip = drop the update and "
-                        "continue; rollback is not yet ported")
+                        "spike): halt = exit 44 with the last committed "
+                        "checkpoint intact; rollback = restore the newest "
+                        "committed checkpoint and skip past the poisoned "
+                        "batch; skip = drop the update and continue")
     parser.add_argument("--loss-spike-factor", type=float, default=0.0,
                         help="also treat loss > FACTOR x its EMA as "
                         "divergence (0 = non-finite only)")
     parser.add_argument("--max-rollbacks", type=int, default=3,
-                        help="with --on-nan rollback (not yet ported)")
+                        help="divergence rollback budget before halting "
+                        "(--on-nan rollback)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("-v", "--verbose", action="store_true")
     return parser
@@ -164,16 +188,25 @@ def main(argv=None) -> int:
     _reject_unported(parser, args)
 
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
+    # goodput ledger: anchors the process wallclock here (phase `init`),
+    # BEFORE the torch import, so bring-up is attributed, not leaked
+    from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
+
+    if args.goodput_file:
+        obs_goodput.enable(spool_path=args.goodput_file)
 
     import torch
 
     from hivedscheduler_tpu_torch import resolve_device
     from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
     from hivedscheduler_tpu_torch.parallel import data as data_lib
     from hivedscheduler_tpu_torch.parallel import supervisor as sup_lib
+    from hivedscheduler_tpu_torch.parallel.topology import MeshAxes
     from hivedscheduler_tpu_torch.parallel.train import make_train_step
 
     device = resolve_device(args.device)
+    axes = MeshAxes()  # one device: every axis is 1
     cfg = tm.TransformerConfig(
         vocab_size=args.vocab_size,
         d_model=args.d_model,
@@ -197,7 +230,37 @@ def main(argv=None) -> int:
     step_fn, init_fn = make_train_step(
         cfg, device, grad_accum=args.grad_accum, ce_chunk=args.ce_chunk,
         skip_nonfinite=args.on_nan == "skip")
+    # the step updates these tensors and this optimizer in place; restores
+    # load into them too, so the optimizer's references stay valid
     params, opt_state = init_fn(torch.Generator(device=device).manual_seed(0))
+
+    # warm start: params only, the optimizer stays fresh
+    if args.init_from:
+        ckpt.restore_params(args.init_from, params)
+        log.info("warm-started params from %s", args.init_from)
+
+    def restore_state():
+        """Restore the newest committed checkpoint into the live state;
+        returns (step, the marker's metadata)."""
+        step_no, _, _ = ckpt.restore(args.checkpoint_dir, params, opt_state)
+        return step_no, ckpt.read_metadata(args.checkpoint_dir, step_no)
+
+    # resume if this gang incarnation has a previous checkpoint
+    start_step = 0
+    resume_meta: dict = {}
+    if args.checkpoint_dir:
+        last = ckpt.latest_step(args.checkpoint_dir)
+        if last is not None:
+            source_mesh = ckpt.validate_resume_metadata(
+                ckpt.read_metadata(args.checkpoint_dir, last), axes, cfg,
+                global_batch=args.batch, seq_len=args.seq_len,
+            )
+            if source_mesh is not None:
+                log.warning(
+                    "cross-topology resume: the checkpoint was saved on mesh "
+                    "%s, restoring onto one device", source_mesh)
+            start_step, resume_meta = restore_state()
+            log.info("resumed from checkpoint step %s", start_step)
 
     if args.data:
         dataset = data_lib.TokenFileDataset(args.data, dtype=args.data_dtype)
@@ -209,54 +272,154 @@ def main(argv=None) -> int:
             )
     else:
         dataset = data_lib.synthetic_dataset(cfg.vocab_size)
-    loader = data_lib.CheckpointableBatches(dataset, args.batch, args.seq_len,
-                                            seed=args.data_seed)
-    guard = sup_lib.DivergenceGuard(spike_factor=args.loss_spike_factor)
+
+    def make_loader(loader_dict, fast_forward_to):
+        """The checkpointable batch stream: restored from checkpoint
+        metadata when present, else fresh (fast-forwarded for a checkpoint
+        whose marker carries no loader state)."""
+        if loader_dict:
+            return data_lib.CheckpointableBatches.from_dict(
+                loader_dict, dataset, args.batch, args.seq_len)
+        loader = data_lib.CheckpointableBatches(
+            dataset, args.batch, args.seq_len, seed=args.data_seed)
+        if fast_forward_to:
+            loader.skip(fast_forward_to)
+        return loader
+
+    # data positions the divergence guard decided to skip (rollback policy)
+    skip_positions: set = set()
+
+    def stream(loader):
+        """Yield (host_batch, loader_state_snapshot): the snapshot rides
+        along so checkpoints commit the loader position of the NEXT
+        unconsumed batch even while prefetch reads ahead."""
+        while True:
+            while loader.step in skip_positions:
+                log.warning("skipping poisoned data position %s", loader.step)
+                loader.skip(1)
+            batch = next(loader)
+            yield batch, loader.to_dict()
+
+    sup = sup_lib.Supervisor(
+        grace_secs=args.grace_secs, watchdog_secs=args.watchdog_secs,
+        spike_factor=args.loss_spike_factor,
+        max_rollbacks=args.max_rollbacks, record_dir=args.checkpoint_dir,
+    )
+    loader = make_loader(resume_meta.get("loader"), start_step)
+    loader_snap = loader.to_dict()
+    # the commit-marker sidecar: loader state of record + the resume
+    # identity (source mesh, model geometry, data stream)
+    train_meta = ckpt.train_metadata(axes, cfg, global_batch=args.batch,
+                                     seq_len=args.seq_len)
+
+    def save_checkpoint(step_no):
+        if not args.checkpoint_dir:
+            return
+        if ckpt.latest_step(args.checkpoint_dir) == step_no:
+            return  # already committed (e.g. preempted right after a save)
+        ckpt.save(args.checkpoint_dir, step_no, params, opt_state,
+                  extra={"loader": loader_snap, **train_meta})
 
     tokens_per_step = args.batch * args.seq_len
     timeline = open(args.timeline, "w") if args.timeline else None
-    batches = data_lib.prefetch(loader, depth=args.prefetch)
+    preempted = False
     diverged = None
-    step = 0
+    step = start_step
     t0 = time.perf_counter()
-    try:
-        while step < args.steps:
-            step_t0 = time.perf_counter()
-            tokens = torch.from_numpy(next(batches)).to(device, non_blocking=True)
-            params, opt_state, loss = step_fn(params, opt_state, tokens)
-            loss_f = float(loss)  # waits for the device: per-step times are true
-            if timeline is not None:
-                wall = time.perf_counter() - step_t0
-                timeline.write(json.dumps({
-                    "step": step + 1,
-                    "wall_s": round(wall, 6),
-                    "tokens_per_sec": round(tokens_per_step / max(wall, 1e-9), 1),
-                    "loss": loss_f,
-                    "compile": step == 0,
-                }) + "\n")
-                timeline.flush()
-            if args.on_nan == "skip":
-                if not math.isfinite(loss_f):
-                    log.warning("non-finite loss at step %s: update skipped",
-                                step + 1)
-            else:
-                diverged = guard.check(step + 1, loss_f)
-                if diverged is not None:
+    with sup:
+        batches = data_lib.prefetch(stream(loader), depth=args.prefetch,
+                                    stop=sup.preemption.event)
+        try:
+            while step < args.steps:
+                if sup.preempt_requested:
+                    preempted = True
                     break
-            step += 1
-            if step % args.log_every == 0:
-                dt = time.perf_counter() - t0
-                log.info(STEP_LOG, step, loss_f,
-                         step * tokens_per_step / max(dt, 1e-9))
-    finally:
-        batches.close()
-        if timeline is not None:
-            timeline.close()
-            log.info("step timeline written to %s", args.timeline)
-    if diverged is not None:
-        log.error("divergence: %s; halting (exit %s)", diverged,
-                  sup_lib.EXIT_DIVERGED)
-        return sup_lib.EXIT_DIVERGED
+                sup.heartbeat(step)
+                # chaos hooks (inert unless HIVED_FAULT_* env vars arm them)
+                sup.faults.pace()
+                sup.faults.maybe_hang(step + 1)
+                sup.faults.take_nan(step + 1, params)
+                step_t0 = time.perf_counter()
+                obs_goodput.phase("data_wait")
+                try:
+                    local_batch, snap = next(batches)
+                except StopIteration:
+                    # the preemption event woke a consumer blocked on data
+                    preempted = True
+                    break
+                # compile / rework / step_compute, decided against the step
+                # high-water mark (rework = re-doing steps a kill threw away)
+                obs_goodput.note_step(step + 1, is_compile=step == start_step)
+                tokens = torch.from_numpy(local_batch).to(device, non_blocking=True)
+                params, opt_state, loss = step_fn(params, opt_state, tokens)
+                # waits for the device: per-step times are true, the watchdog
+                # sees completed work and the guard sees the loss before the
+                # next checkpoint can commit it
+                loss_f = float(loss)
+                obs_goodput.note_step_done(step + 1)
+                loader_snap = snap
+                if timeline is not None:
+                    wall = time.perf_counter() - step_t0
+                    timeline.write(json.dumps({
+                        "step": step + 1,
+                        "wall_s": round(wall, 6),
+                        "tokens_per_sec": round(tokens_per_step / max(wall, 1e-9), 1),
+                        "loss": loss_f,
+                        "compile": step == start_step,
+                    }) + "\n")
+                    timeline.flush()
+                if args.on_nan == "skip":
+                    if not math.isfinite(loss_f):
+                        log.warning("non-finite loss at step %s: update skipped",
+                                    step + 1)
+                else:
+                    reason = sup.check_loss(step + 1, loss_f)
+                    if reason is not None:
+                        can_roll = (
+                            args.on_nan == "rollback" and args.checkpoint_dir
+                            and ckpt.latest_step(args.checkpoint_dir) is not None
+                        )
+                        if can_roll and sup.note_rollback():
+                            bad_pos = snap["step"] - 1
+                            skip_positions.add(bad_pos)
+                            batches.close()
+                            step, meta = restore_state()
+                            loader = make_loader(meta.get("loader"), step)
+                            loader_snap = loader.to_dict()
+                            batches = data_lib.prefetch(
+                                stream(loader), depth=args.prefetch,
+                                stop=sup.preemption.event)
+                            log.warning(
+                                "divergence (%s): rolled back to checkpoint "
+                                "step %s; data position %s will be skipped",
+                                reason, step, bad_pos)
+                            continue
+                        diverged = reason
+                        break
+                step += 1
+                if step % args.log_every == 0:
+                    dt = time.perf_counter() - t0
+                    log.info(STEP_LOG, step, loss_f,
+                             (step - start_step) * tokens_per_step / max(dt, 1e-9))
+                if args.checkpoint_dir and step % args.checkpoint_every == 0:
+                    save_checkpoint(step)
+        finally:
+            batches.close()
+            if timeline is not None:
+                timeline.close()
+                log.info("step timeline written to %s", args.timeline)
+        obs_goodput.phase("idle")  # loop done; the final save spans itself
+        if diverged is not None:
+            log.error("divergence: %s; halting with the last committed "
+                      "checkpoint intact (exit %s)", diverged,
+                      sup_lib.EXIT_DIVERGED)
+            return sup_lib.EXIT_DIVERGED
+        save_checkpoint(step)
+        if preempted:
+            log.info("preemption: committed checkpoint at step %s and exiting "
+                     "cleanly within the %.1fs grace period", step,
+                     args.grace_secs)
+            return 0
     log.info("training complete: %s steps", args.steps)
     return 0
 

@@ -16,7 +16,8 @@ reference is below 1e-3 of the largest row measured against that floor
 kernels' tile edges (T a multiple of 64 but not of 128, T under one tile,
 non-causal D=64, a GQA group of 4), and both the forward and the backward
 must repeat bit for bit. The model, eval step and train step are held to the xla
-path on the same weights.
+path on the same weights. A checkpoint of a small train state round-trips
+bit-identically on the card, and the train CLI resumes there.
 """
 
 import os
@@ -319,3 +320,58 @@ def test_flagship_train_step_flash_matches_xla(cuda):
     for a, b in zip(gf, gx):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).norm() / b.norm()) < 5e-2
+
+
+def test_checkpoint_round_trip_on_card_is_bit_identical(cuda, tmp_path):
+    # a small train state after one step on the card: every parameter and
+    # AdamW moment comes back bit-identical, on the card, in f32, into the
+    # tensors the optimizer already holds
+    from hivedscheduler_tpu_torch.parallel import checkpoint as tck
+
+    cfg = ttm.TransformerConfig(vocab_size=256, d_model=256, n_heads=2, n_kv_heads=1,
+                                n_layers=2, d_ff=512, max_seq_len=256, attn_impl="flash")
+    step, init_fn = ttrain.make_train_step(cfg, cuda)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 256)).astype(np.int32)).cuda()
+    params, opt, _ = step(params, opt, tokens)
+    tck.save(str(tmp_path), 1, params, opt)
+    params2, opt2 = init_fn(torch.Generator(device="cuda").manual_seed(9))
+    held = [p for g in opt2.param_groups for p in g["params"]]
+    assert tck.restore(str(tmp_path), params2, opt2)[0] == 1
+    assert [p for g in opt2.param_groups for p in g["params"]] == held
+    for a, b in zip(ttrain._leaves(params), ttrain._leaves(params2)):
+        assert b.device.type == "cuda" and torch.equal(a, b)
+    for a, b in zip(ttrain._leaves(params), ttrain._leaves(params2)):
+        sa, sb = opt.state[a], opt2.state[b]
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert sb[key].device.type == "cuda" and sb[key].dtype == torch.float32
+            assert torch.equal(sa[key], sb[key])
+        assert torch.equal(sa["step"].cpu(), sb["step"].cpu())
+
+
+def test_cli_resume_on_card(cuda, tmp_path):
+    # 4 steps against 2 + 2 through the train CLI on the card at a small
+    # size; the losses of the resumed steps against the uninterrupted ones
+    import json
+
+    from hivedscheduler_tpu_torch import train as ttrain_cli
+
+    model = ["--vocab-size", "512", "--d-model", "256", "--n-layers", "2",
+             "--n-heads", "2", "--n-kv-heads", "1", "--d-ff", "512",
+             "--seq-len", "256", "--batch", "2", "--attn", "flash",
+             "--remat", "dots", "--ce-chunk", "128", "--device", "cuda"]
+
+    def run(name, *extra):
+        tl = tmp_path / f"{name}.jsonl"
+        assert ttrain_cli.main(model + ["--timeline", str(tl)] + list(extra)) == 0
+        return {r["step"]: r["loss"] for r in map(json.loads, tl.read_text().splitlines())}
+
+    ref = run("a", "--steps", "4")
+    ck = str(tmp_path / "ck")
+    first = run("b1", "--steps", "2", "--checkpoint-dir", ck)
+    second = run("b2", "--steps", "4", "--checkpoint-dir", ck)
+    assert sorted(first) == [1, 2] and sorted(second) == [3, 4]
+    got = {**first, **second}
+    for s in range(1, 5):
+        assert np.isfinite(got[s]) and abs(got[s] - ref[s]) <= 1e-3 * abs(ref[s]), (s, got, ref)

@@ -176,8 +176,7 @@ def test_cli_cuda_without_card_raises():
 
 @pytest.mark.parametrize("extra", [
     ["--tp", "2"], ["--sp", "2"], ["--fsdp", "2"], ["--ep", "2"],
-    ["--n-experts", "2"], ["--checkpoint-dir", "/nonexistent"],
-    ["--goodput-file", "g.jsonl"], ["--attn", "ring"],
+    ["--n-experts", "2"], ["--attn", "ring"],
 ])
 def test_cli_unported_flags_exit_with_error(extra, capsys):
     with pytest.raises(SystemExit) as exc:

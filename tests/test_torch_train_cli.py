@@ -131,11 +131,8 @@ def test_cuda_without_a_card_raises():
     ["--tp", "2"], ["--sp", "2"], ["--fsdp", "2"], ["--pp", "2"], ["--ep", "2"],
     ["--microbatches", "2"], ["--n-experts", "2"], ["--lora-rank", "4"],
     ["--lora-mlp"], ["--lora-alpha", "8"], ["--overlap"],
-    ["--on-nan", "rollback"], ["--checkpoint-dir", "/nonexistent"],
-    ["--init-from", "/nonexistent"], ["--profile-dir", "/nonexistent"],
-    ["--journal-file", "j.jsonl"], ["--goodput-file", "g.jsonl"],
-    ["--elastic"], ["--min-chips", "2"], ["--watchdog-secs", "5"],
-    ["--attn", "ring"],
+    ["--profile-dir", "/nonexistent"], ["--journal-file", "j.jsonl"],
+    ["--elastic"], ["--min-chips", "2"], ["--attn", "ring"],
 ])
 def test_unported_flags_exit_with_error(extra, capsys):
     with pytest.raises(SystemExit) as exc:

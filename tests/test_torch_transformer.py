@@ -262,9 +262,18 @@ def _port_files():
     return files
 
 
+# modules whose reference imports JAX, orbax or the JAX package's own
+# modules: the port keeps its own copies
+PORT_COPIES = ("common/envflags.py", "parallel/topology.py",
+               "parallel/checkpoint.py", "parallel/supervisor.py",
+               "obs/goodput.py", "chaos/workload.py", "train.py", "eval.py")
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    rel = {os.path.relpath(p, PORT_DIR) for p in files}
+    assert set(PORT_COPIES) <= rel
     bad = [(os.path.relpath(p, REPO), line, root)
            for p in files for root, line in _imported_roots(p)
            if root in FORBIDDEN_ROOTS]
