@@ -68,6 +68,24 @@ Phases, each of which must pass or the script exits non-zero:
     goodput phase seconds, and require the goodput spool's audit to be
     clean. The temp directory's free space is printed first, and the phase
     fails if it cannot hold two checkpoints.
+(j) decode and generate at the flagship width (6 layers, bf16 weights cast
+    from seed 0; bench_model.py's decode shape: batch 16, prompt 128, 64 new
+    tokens): hold the decode logits (``advance``: one prefill, then one
+    token a step) to the full forward on the same sequence, per position,
+    and show that the check sees a planted fault (K/V one position off);
+    require greedy ``generate``'s tokens to be the argmax of that advance
+    sequence, and the full forward's argmax wherever its top-1 margin is
+    decisive, with no flash kernel launched; measure int8 logit noise
+    against bf16 and hold the argmax at decisive positions; run
+    speculative decoding (a 1-layer draft from ``derive_draft_config``,
+    gamma 4), print its acceptance and agreement with greedy, and hold its
+    tokens to the target's argmax at decisive positions; require sampling
+    with top_k=1 to draw a top-1 token at every step (so it equals greedy
+    up to the first tie at the top) and a seeded sampled run to repeat; time
+    generate (bf16, int8, speculative) beside bench_model.py's HBM
+    roofline, the prefill and the decode step, with the device-busy share
+    of decode steps (torch.profiler); run ``python -m
+    hivedscheduler_tpu_torch.generate`` once as a subprocess.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -1047,6 +1065,322 @@ def phase_train_grads() -> None:
     torch.cuda.empty_cache()
 
 
+# phase (j): decode and generate at the flagship width, bench_model.py's
+# decode shape (its line 997): batch 16, prompt 128, 64 new tokens
+DEC_BATCH, DEC_PROMPT, DEC_NEW, DEC_GAMMA = 16, 128, 64, 4
+DEC_ARGS = [a for k, v in EVAL_MODEL.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))] + [
+    "--batch", str(DEC_BATCH), "--prompt-len", str(DEC_PROMPT),
+    "--new-tokens", str(DEC_NEW), "--device", "cuda"]
+# decode logits (advance: the prompt, then one token a step) against the
+# full forward (attn xla) on the same sequence, per position:
+# ||l_inc - l_full||_F / ||l_full||_F over batch and vocab. Both are bf16
+# through 6 layers with f32 attention; they differ in the matmuls' shapes
+# (S = 1 against S = 192), so in rounding only. The limit is HIDDEN_REL's,
+# set before the first reading.
+DEC_LOGIT_REL = 5e-2
+DEC_TIMED = 3  # timed runs of each generate, after one warm-up run
+DEC_PROFILED_STEPS = DEC_NEW - 1  # every decode step of one generate
+
+
+def _decode_sequence(params, cfg, prompt, toks, attention=None):
+    """Logits [B, T + N - 1, V] of the prompt and the first N - 1 tokens
+    through ``advance``: one prefill of the prompt, then one token a step,
+    as ``generate`` runs them. ``attention`` replaces ``_cached_attention``
+    (a planted fault)."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import decode as dec
+
+    real = dec._cached_attention
+    if attention is not None:
+        dec._cached_attention = attention
+    try:
+        cache = dec.init_kv_cache(cfg, prompt.shape[0], prompt.shape[1] + toks.shape[1], "cuda")
+        logits, cache = dec.advance(params, cache, prompt, cfg)
+        out = [logits]
+        for i in range(toks.shape[1] - 1):
+            logits, cache = dec.advance(params, cache, toks[:, i:i + 1], cfg)
+            out.append(logits)
+    finally:
+        dec._cached_attention = real
+    return torch.cat(out, dim=1)
+
+
+def _per_position_rel(x, ref):
+    """max over positions t of ||x[:, t] - ref[:, t]||_F / ||ref[:, t]||_F."""
+    diff = (x.float() - ref.float()).norm(dim=(0, 2))
+    return float((diff / ref.float().norm(dim=(0, 2))).max())
+
+
+def _decisive(logits_ref, noise: float):
+    """Positions whose top-1 margin exceeds twice ``noise``, and the
+    reference argmax there (tests/test_quant.py's rule)."""
+    top2 = logits_ref.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > 2 * noise, logits_ref.argmax(-1)
+
+
+def _first_divergence(a, b):
+    """First column where two [B, N] token tensors differ in any row, or None."""
+    cols = (a != b).any(dim=0).nonzero()
+    return int(cols[0]) if len(cols) else None
+
+
+def _host_ms(fn, reps: int):
+    """Host-clock ms of ``fn`` ending in a device sync, ``reps`` times."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+
+    return sum(t.numel() * t.element_size() for t in ckpt.named_leaves(tree).values())
+
+
+def _decode_rates(name: str, wall_ms: list, weight_bytes: float, kv_bytes: float) -> None:
+    """generate's wall time -> tokens/s and bench_model.py's decode roofline
+    (its lines 1084-1086): DEC_NEW steps, each streaming every weight byte
+    once, over the wall time, against the card's HBM rate."""
+    med = sorted(wall_ms)[len(wall_ms) // 2]
+    tps = DEC_BATCH * DEC_NEW / (med / 1e3)
+    frac = DEC_NEW * weight_bytes / (med / 1e3) / PEAK_HBM_BYTES
+    print(f"[j] {name}: generate wall {', '.join(f'{t:.2f}' for t in wall_ms)} ms "
+          f"(median {med:.2f}, {med / DEC_NEW:.3f} ms a new token), {tps:.1f} "
+          f"tokens/s, HBM roofline fraction "
+          f"{frac:.4f} ({DEC_NEW} x {weight_bytes / 1e9:.4f} GB of weights; "
+          f"the whole static KV cache the step scores, {kv_bytes / 1e6:.1f} MB, "
+          f"is left out as the formula leaves it)")
+
+
+def _profile_steps(params, cfg, prompt, toks) -> dict:
+    """DEC_PROFILED_STEPS decode steps after a prefill: their mean time by
+    CUDA events, then the same steps again under torch.profiler (the
+    prefill left out of the trace) for the device time they keep busy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hivedscheduler_tpu_torch.models import decode as dec
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def steps(prof=None) -> float:
+        cache = dec.init_kv_cache(cfg, DEC_BATCH, DEC_PROMPT + DEC_NEW, "cuda")
+        _, cache = dec.advance(params, cache, prompt, cfg)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.start()
+        start.record()
+        for i in range(DEC_PROFILED_STEPS):
+            _, cache = dec.advance(params, cache, toks[:, i:i + 1], cfg)
+        end.record()
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.stop()
+        return start.elapsed_time(end) / DEC_PROFILED_STEPS
+
+    step_ms = steps()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    profiled_ms = steps(prof)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    parts = {}
+    for e in events:
+        group = profile_group(e.key)
+        parts[group] = parts.get(group, 0.0) + e.self_device_time_total / 1e3 / DEC_PROFILED_STEPS
+    return dict(step_ms=step_ms, profiled_step_ms=profiled_ms, busy_ms=sum(parts.values()),
+                parts=parts, kernels=sum(e.count for e in events) / DEC_PROFILED_STEPS)
+
+
+def phase_decode() -> None:
+    """Decode and generate at the flagship width: incremental logits against
+    the full forward (with a planted fault), greedy tokens against the
+    teacher-forced argmax, speculative and int8 agreement, sampling, the
+    timings and the CLI."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import decode as dec
+    from hivedscheduler_tpu_torch.models import quant
+    from hivedscheduler_tpu_torch.models import speculative as spec
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW, **EVAL_MODEL)
+    f32 = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = tm.cast_params(f32, cfg.dtype)
+    q_params = quant.quantize_params(f32, cfg)
+    del f32
+    prompt = torch.randint(0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    weight_bytes = {"bf16": _tree_bytes(params), "int8": _tree_bytes(q_params)}
+    check(weight_bytes["bf16"] == 2 * _flagship_params(), "bf16 weight bytes")
+    kv_bytes = 2.0 * 2 * cfg.n_layers * DEC_BATCH * (DEC_PROMPT + DEC_NEW) * cfg.kv_heads * cfg.head_dim
+
+    # greedy tokens; the flash kernels must not run on the decode path
+    attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
+    toks = dec.generate(params, prompt, cfg, DEC_NEW)
+    torch.cuda.synchronize()
+    flash = (attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DQ_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES)
+    check(toks.shape == (DEC_BATCH, DEC_NEW) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, f"generate gave {tuple(toks.shape)}")
+    check(flash == (0, 0, 0), f"the decode path launched the flash kernels {flash}")
+
+    # incremental logits against the full forward on the same sequence
+    seq = torch.cat([prompt, toks], dim=1)
+    with torch.inference_mode():
+        full = tm.forward(params, seq[:, :-1], cfg)[:, DEC_PROMPT - 1:]
+    inc = _decode_sequence(params, cfg, prompt, toks)[:, DEC_PROMPT - 1:]
+
+    real_attention = dec._cached_attention
+
+    def one_off(q, ck, cv, pos0, scale):
+        # every key and value one position late, as if written at pos + 1
+        return real_attention(q, ck.roll(1, dims=1), cv.roll(1, dims=1), pos0, scale)
+
+    bad = _decode_sequence(params, cfg, prompt, toks, attention=one_off)[:, DEC_PROMPT - 1:]
+    rel, bad_rel = _per_position_rel(inc, full), _per_position_rel(bad, full)
+    noise = float((inc - full).abs().max())
+    check(bool(torch.isfinite(inc).all()), "non-finite decode logits")
+    print(f"[j] decode logits vs the full forward, {DEC_NEW} positions after a "
+          f"{DEC_PROMPT}-token prefill (B={DEC_BATCH}): worst position rel "
+          f"{rel:.3e} (<= {DEC_LOGIT_REL}), max|err| {noise:.3e}; planted fault "
+          f"(K/V one position off): worst position rel {bad_rel:.3e}")
+    check(rel <= DEC_LOGIT_REL, "decode logits disagree with the full forward")
+    check(bad_rel > DEC_LOGIT_REL, "the decode-logit check does not see the planted fault")
+
+    # greedy tokens: exactly the argmax of the same advance sequence, and the
+    # full forward's argmax wherever its top-1 margin is decisive
+    exact = int((inc.argmax(-1) != toks).sum())
+    decisive, ref_tok = _decisive(full, noise)
+    wrong = int((decisive & (ref_tok != toks)).sum())
+    first = _first_divergence(ref_tok, toks)
+    print(f"[j] greedy generate: {exact} tokens differ from the argmax of the "
+          f"same advance sequence; {int(decisive.sum())} of {toks.numel()} "
+          f"positions decisive (margin > 2 x {noise:.3e}), {wrong} of them "
+          f"differ from the full forward's argmax; first column where any row "
+          f"differs from it: {first}")
+    check(exact == 0 and wrong == 0, "greedy tokens disagree with the argmax")
+    check(bool(decisive.any()), "no decisive position: the greedy check does not bite")
+
+    # int8 weights: logit noise against bf16 on the same sequence, argmax
+    # agreement at decisive positions
+    inc_q = _decode_sequence(q_params, cfg, prompt, toks)[:, DEC_PROMPT - 1:]
+    q_noise = float((inc_q - inc).abs().max())
+    q_rel = _per_position_rel(inc_q, inc)
+    q_dec, bf_tok = _decisive(inc, q_noise)
+    q_wrong = int((q_dec & (inc_q.argmax(-1) != bf_tok)).sum())
+    toks_q = dec.generate(q_params, prompt, cfg, DEC_NEW)
+    print(f"[j] int8 vs bf16 logits: max|err| {q_noise:.3e}, worst position rel "
+          f"{q_rel:.3e}; {int(q_dec.sum())} decisive positions, {q_wrong} argmax "
+          f"disagreements there; int8 generate agrees with bf16 on "
+          f"{float((toks_q == toks).float().mean()):.3f} of tokens, first "
+          f"divergence at column {_first_divergence(toks_q, toks)}")
+    check(q_wrong == 0 and bool(torch.isfinite(inc_q).all()), "int8 argmax disagrees at decisive positions")
+
+    # speculative decoding with a 1-layer draft
+    d_cfg = spec.derive_draft_config(cfg, 1)
+    d_params = tm.cast_params(tm.init_params(
+        d_cfg, torch.Generator(device="cuda").manual_seed(3), "cuda"), d_cfg.dtype)
+    toks_s, stats = spec.generate_speculative(params, d_params, prompt, cfg, d_cfg,
+                                              DEC_NEW, gamma=DEC_GAMMA)
+    with torch.inference_mode():
+        full_s = tm.forward(params, torch.cat([prompt, toks_s], 1)[:, :-1], cfg)[:, DEC_PROMPT - 1:]
+    s_dec, s_ref = _decisive(full_s, noise)
+    s_wrong = int((s_dec & (s_ref != toks_s)).sum())
+    acc_rate = stats.accepted / max(1, stats.drafted)
+    print(f"[j] speculative (draft: 1 layer, d_model {d_cfg.d_model}, gamma "
+          f"{DEC_GAMMA}): {stats.rounds} rounds, {stats.accepted}/{stats.drafted} "
+          f"accepted ({acc_rate:.3f}); agrees with greedy generate on "
+          f"{float((toks_s == toks).float().mean()):.3f} of tokens, first "
+          f"divergence at column {_first_divergence(toks_s, toks)}; {s_wrong} of "
+          f"{int(s_dec.sum())} decisive positions differ from the target's argmax")
+    check(s_wrong == 0 and bool(s_dec.any()), "speculative tokens disagree with the target's argmax")
+
+    # sampling: top_k=1 draws a top-1 token at every step, so it equals
+    # greedy up to the first tie at the top (bf16 logits tie often); a
+    # fixed generator repeats
+    def sampled(seed, **kw):
+        return dec.generate(params, prompt, cfg, DEC_NEW, generator=torch.Generator(
+            device="cuda").manual_seed(seed), **kw)
+
+    top1 = sampled(2, temperature=1.0, top_k=1)
+    top1_logits = _decode_sequence(params, cfg, prompt, top1)[:, DEC_PROMPT - 1:]
+    all_top1 = bool((top1_logits.gather(-1, top1[..., None])[..., 0]
+                     == top1_logits.amax(-1)).all())
+    div = _first_divergence(top1, toks)
+    tie_at_div = True
+    if div is not None:
+        rows = top1[:, div] != toks[:, div]
+        at = inc[rows, div]  # greedy's logits there, on the shared prefix
+        tie_at_div = bool((at.gather(-1, top1[rows, div][:, None])[:, 0] == at.amax(-1)).all())
+    s_a = sampled(2, temperature=0.8, top_p=0.9)
+    s_b = sampled(2, temperature=0.8, top_p=0.9)
+    print(f"[j] sampling: top_k=1 drew a top-1 token at every step: {all_top1}; "
+          f"equals greedy up to column {div} (a tie at the top there: {tie_at_div}); "
+          f"two runs from one seed (temperature 0.8, top_p 0.9) equal: "
+          f"{torch.equal(s_a, s_b)}; agreement with greedy "
+          f"{float((s_a == toks).float().mean()):.3f}")
+    check(all_top1 and tie_at_div, "top_k=1 sampling drew a token that is not top-1")
+    check(torch.equal(s_a, s_b), "a seeded sampled run does not repeat")
+
+    # timings, after the warm-up runs above
+    _decode_rates("bf16", _host_ms(
+        lambda: dec.generate(params, prompt, cfg, DEC_NEW), DEC_TIMED), weight_bytes["bf16"], kv_bytes)
+    _decode_rates("int8", _host_ms(
+        lambda: dec.generate(q_params, prompt, cfg, DEC_NEW), DEC_TIMED), weight_bytes["int8"], kv_bytes)
+    _decode_rates("speculative", _host_ms(
+        lambda: spec.generate_speculative(params, d_params, prompt, cfg, d_cfg, DEC_NEW,
+                                          gamma=DEC_GAMMA), DEC_TIMED), weight_bytes["bf16"], kv_bytes)
+    prefill_ms = _host_ms(lambda: dec.advance(
+        params, dec.init_kv_cache(cfg, DEC_BATCH, DEC_PROMPT + DEC_NEW, "cuda"), prompt, cfg), 3)
+    for name, p in (("bf16", params), ("int8", q_params)):
+        step_bound_ms = (weight_bytes[name] + kv_bytes) / PEAK_HBM_BYTES * 1e3
+        prof = _profile_steps(p, cfg, prompt, toks)
+        print(f"[j] {name} decode step (B={DEC_BATCH}, cache {DEC_PROMPT + DEC_NEW}): "
+              f"{prof['step_ms']:.3f} ms by CUDA events over {DEC_PROFILED_STEPS} "
+              f"steps, {DEC_BATCH / prof['step_ms'] * 1e3:.1f} tokens/s; bound "
+              f"{step_bound_ms:.4f} ms (weights and KV at {PEAK_HBM_BYTES / 1e12} "
+              f"TB/s), {step_bound_ms / prof['step_ms']:.4f} of it; under the "
+              f"profiler {prof['profiled_step_ms']:.3f} ms a step, "
+              + (f"device busy {prof['busy_ms']:.3f} ms a step "
+                 f"({prof['busy_ms'] / prof['step_ms']:.1%} of the unprofiled step: "
+                 + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["parts"].items())
+                 + f"), {prof['kernels']:.0f} kernels a step" if prof["busy_ms"] > 0 else
+                 "device busy not measured (the profiler recorded no device time)"))
+    print(f"[j] prefill of {DEC_BATCH} x {DEC_PROMPT} tokens: "
+          f"{', '.join(f'{t:.2f}' for t in prefill_ms)} ms")
+
+    # the CLI, once, as a subprocess on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "hivedscheduler_tpu_torch.generate"] + DEC_ARGS,
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    rows = [line.split() for line in proc.stdout.splitlines()]
+    ok = (proc.returncode == 0 and len(rows) == DEC_BATCH
+          and all(len(r) == DEC_NEW and all(t.isdigit() for t in r) for r in rows))
+    timing = [l for l in proc.stderr.splitlines() if "generated" in l]
+    print(f"[j] python -m hivedscheduler_tpu_torch.generate (flagship, B={DEC_BATCH}): "
+          f"exit {proc.returncode} in {cli_s:.1f} s, {len(rows)} rows; "
+          f"{timing[-1].split('] ')[-1] if timing else 'no timing line'}")
+    if not ok:
+        print(proc.stderr[-4000:])
+    check(ok, "the generate CLI did not print its rows")
+    del params, q_params, d_params
+    torch.cuda.empty_cache()
+    print(f"[j] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1075,6 +1409,7 @@ def main() -> int:
     phase_train_grads()
     phase_train_profile()
     phase_checkpoint()
+    phase_decode()
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"

@@ -429,6 +429,25 @@ def restore_params(directory: str, params_template: Any,
     return step, params_template
 
 
+def restore_serving_params(cfg: Any, checkpoint_dir: str, generator, *,
+                           lora_rank: int = 0) -> Tuple[Any, Optional[int]]:
+    """The generate CLI's loading path: init a param tree from
+    ``generator`` on its device, then restore it in place from
+    ``checkpoint_dir`` when one is given (parameters only: serving needs
+    no optimizer moments). Returns (params, restored_step_or_None); raises
+    FileNotFoundError like :func:`restore_params`. A LoRA checkpoint
+    (``lora_rank`` > 0) is refused: merging adapters is not yet ported."""
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    if lora_rank > 0:
+        raise tm._not_yet_ported("LoRA (lora_rank > 0)")
+    params = tm.init_params(cfg, generator, generator.device)
+    step = None
+    if checkpoint_dir:
+        step, params = restore_params(checkpoint_dir, params)
+    return params, step
+
+
 def restore(directory: str, params_template: Any, opt_state_template: Any,
             step: Optional[int] = None) -> Tuple[int, Any, Any]:
     """Restore (step, params, opt_state): the parameters in place into

@@ -17,7 +17,10 @@ kernels' tile edges (T a multiple of 64 but not of 128, T under one tile,
 non-causal D=64, a GQA group of 4), and both the forward and the backward
 must repeat bit for bit. The model, eval step and train step are held to the xla
 path on the same weights. A checkpoint of a small train state round-trips
-bit-identically on the card, and the train CLI resumes there.
+bit-identically on the card, and the train CLI resumes there. Decode on
+the card (f32, no TF32) matches decode on the CPU (logits atol 1e-4,
+greedy tokens equal, plain and int8), greedy speculative decoding equals
+greedy generate, and the generate CLI prints its rows.
 """
 
 import os
@@ -375,3 +378,76 @@ def test_cli_resume_on_card(cuda, tmp_path):
     got = {**first, **second}
     for s in range(1, 5):
         assert np.isfinite(got[s]) and abs(got[s] - ref[s]) <= 1e-3 * abs(ref[s]), (s, got, ref)
+
+
+# -- decode and generate on the card -------------------------------------------
+
+DECODE_MODEL = dict(vocab_size=256, d_model=128, n_heads=4, n_kv_heads=2,
+                    n_layers=2, d_ff=256, max_seq_len=64)
+
+
+def _decode_setup(dtype=torch.float32):
+    cfg = ttm.TransformerConfig(dtype=dtype, **DECODE_MODEL)
+    params = ttm.init_params(cfg, torch.Generator().manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (3, 10)))
+    return cfg, params, prompt
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def test_decode_on_card_matches_the_cpu(cuda):
+    # f32 on both (no TF32): the prefill and every step's logits within
+    # atol 1e-4 of the CPU's, and greedy tokens equal, plain and int8
+    from hivedscheduler_tpu_torch.models import decode as tdec
+    from hivedscheduler_tpu_torch.models import quant as tquant
+
+    cfg, params, prompt = _decode_setup()
+    for tree in (params, tquant.quantize_params(params, cfg)):
+        logits = {}
+        for dev in ("cpu", "cuda"):
+            p, x = _to(tree, dev), prompt.to(dev)
+            cache = tdec.init_kv_cache(cfg, 3, 20, dev)
+            out, cache = tdec.advance(p, cache, x, cfg)
+            steps = [out]
+            for i in range(4):
+                out, cache = tdec.advance(p, cache, x[:, i:i + 1], cfg)
+                steps.append(out)
+            logits[dev] = torch.cat(steps, dim=1).cpu()
+            assert cache.k.device.type == dev
+        torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4, rtol=0)
+        toks = {dev: tdec.generate(_to(tree, dev), prompt.to(dev), cfg, 8).cpu()
+                for dev in ("cpu", "cuda")}
+        assert torch.equal(toks["cuda"], toks["cpu"])
+
+
+def test_speculative_on_card_equals_greedy_generate(cuda):
+    from hivedscheduler_tpu_torch.models import decode as tdec
+    from hivedscheduler_tpu_torch.models import speculative as tspec
+
+    cfg, params, prompt = _decode_setup()
+    d_cfg = tspec.derive_draft_config(cfg, 1)
+    draft = ttm.init_params(d_cfg, torch.Generator(device="cuda").manual_seed(3), cuda)
+    p, x = _to(params, "cuda"), prompt.cuda()
+    want = tdec.generate(p, x, cfg, 12)
+    for gamma in (1, 4):
+        got, stats = tspec.generate_speculative(p, draft, x, cfg, d_cfg, 12, gamma=gamma)
+        assert torch.equal(got, want) and stats.rounds >= 1
+    got, stats = tspec.generate_speculative(
+        p, p, x, cfg, cfg, 12, gamma=4, temperature=0.8,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    assert stats.accepted == stats.drafted and got.shape == (3, 12)
+
+
+def test_generate_cli_on_card(cuda, capsys):
+    from hivedscheduler_tpu_torch import generate as tgen_cli
+
+    model = [a for k, v in DECODE_MODEL.items() if k != "max_seq_len"
+             for a in (f"--{k.replace('_', '-')}", str(v))]
+    for extra in ([], ["--quantize", "int8"], ["--draft-layers", "1"],
+                  ["--temperature", "0.7", "--top-p", "0.9"]):
+        capsys.readouterr()
+        assert tgen_cli.main(model + ["--batch", "2", "--new-tokens", "5"] + extra) == 0
+        rows = [line.split() for line in capsys.readouterr().out.splitlines()]
+        assert len(rows) == 2 and all(len(r) == 5 for r in rows), extra

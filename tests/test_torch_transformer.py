@@ -266,7 +266,9 @@ def _port_files():
 # modules: the port keeps its own copies
 PORT_COPIES = ("common/envflags.py", "parallel/topology.py",
                "parallel/checkpoint.py", "parallel/supervisor.py",
-               "obs/goodput.py", "chaos/workload.py", "train.py", "eval.py")
+               "obs/goodput.py", "chaos/workload.py", "train.py", "eval.py",
+               "models/decode.py", "models/quant.py", "models/speculative.py",
+               "generate.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
