@@ -86,6 +86,26 @@ Phases, each of which must pass or the script exits non-zero:
     roofline, the prefill and the decode step, with the device-busy share
     of decode steps (torch.profiler); run ``python -m
     hivedscheduler_tpu_torch.generate`` once as a subprocess.
+(k) the continuous-batching serving engine at the flagship width (6
+    layers, bf16 weights from seed 0; bench_model.py's ``bench_serving``
+    trace: 16 requests, prompts of 4-64 tokens, budget 32, max_batch 16,
+    max_len 160, one arrival every 2 steps): dense and paged (page 16),
+    eager and with decode windows of 8 replayed from a CUDA graph, must
+    serve token-identical streams, with no K1-K3 launch, every window
+    through the graph and a clean pool check; the streams must be the
+    teacher-forced full forward's argmax at decisive positions, and the
+    check must see a planted fault (row lengths one off), as the pool check
+    must see a swapped table entry; int8 KV logits against bf16 KV within
+    a relative 5e-2, int8 dense and paged token-identical; chunked prefill
+    (chunk 32) and the prefix cache over a 24-token system prompt part from
+    the plain engine only at ties; ``drain(deadline_s=0)`` on a busy paged
+    engine returns every block; then the times (tokens/s, occupancy, TTFT,
+    TPOT of the four runs; the eager step against a graph step and the
+    device-busy share of one graph window beside the bound; the paged A/B
+    at equal KV bytes of ``bench_serving_paged_ab``; float against int8 KV
+    at ``bench_serving_kv_int8``'s long context) and ``python -m
+    hivedscheduler_tpu_torch.serve`` as a subprocess, plain and with
+    ``HIVED_FAULT_SERVE_PREEMPT_AT`` (drain, exit 0).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -1381,6 +1401,454 @@ def phase_decode() -> None:
     print(f"[j] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase (k): the serving engine at the flagship width, bench_model.py's
+# serving trace (bench_serving, its lines 236-283, at its real arguments,
+# lines 1111-1118): 16 requests, prompts of 4-64 tokens, budget 32,
+# max_batch 16, max_len 128 + budget, one arrival every 2 engine steps
+SRV_REQUESTS, SRV_BATCH, SRV_BUDGET, SRV_ARRIVAL = 16, 16, 32, 2
+SRV_MAX_LEN = 128 + SRV_BUDGET
+SRV_STEPS, SRV_PAGE, SRV_CHUNK, SRV_SYSTEM = 8, 16, 32, 24
+SRV_TIMED = 3  # timed runs of each engine, after the checked run
+SRV_NOISE_ROWS = 4  # requests whose engine-path logits set the noise
+SRV_RUNS = {  # the four runs that must be token-identical
+    "dense eager": {},
+    "dense graph": dict(decode_steps=SRV_STEPS),
+    "paged eager": dict(page_size=SRV_PAGE),
+    "paged graph": dict(page_size=SRV_PAGE, decode_steps=SRV_STEPS),
+}
+# bench_serving_paged_ab's real shape (bench_model.py:1099-1107): 32
+# mixed-length requests, max_len 512, page 16, budget 16; dense with 4
+# slots against paged with 16 slots over 4 * 32 + 1 blocks (equal KV bytes)
+AB_REQUESTS, AB_MAX_LEN, AB_BUDGET, AB_DENSE, AB_PAGED = 32, 512, 16, 4, 16
+# bench_serving_kv_int8's long-context shape: batch 8, context 1024, 48 new
+KV8_BATCH, KV8_CTX, KV8_NEW = 8, 1024, 48
+SRV_CLI_ARGS = [a for k, v in EVAL_MODEL.items()
+                for a in (f"--{k.replace('_', '-')}", str(v))] + [
+    "--page-size", str(SRV_PAGE), "--decode-steps", str(SRV_STEPS),
+    "--prefix-cache", "4", "--device", "cuda"]
+
+
+def _srv_prompts(vocab: int, n: int, seed: int, lo: int = 4, hi: int = 65,
+                 system=()) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [list(system) + [int(t) for t in rng.integers(0, vocab, int(rng.integers(lo, hi)))]
+            for _ in range(n)]
+
+
+def _serve(eng, prompts, budget: int, arrival_every: int = SRV_ARRIVAL, burst: int = 1):
+    """The bench's loop: ``burst`` arrivals every ``arrival_every`` engine
+    steps until the trace is in, then steps until every request is done.
+    Returns the requests, the ms between CUDA events around the loop (it
+    ends in a device sync: every step reads its tokens), the decode steps
+    and slot steps it ran, and the most streams resident at once."""
+    import torch
+
+    steps0, slot_steps0 = eng.steps, eng.slot_steps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    pending, reqs, step, peak = list(prompts), [], 0, 0
+    torch.cuda.synchronize()
+    start.record()
+    while pending or any(not r.done for r in reqs):
+        if pending and step % arrival_every == 0:
+            for _ in range(min(burst, len(pending))):
+                reqs.append(eng.submit(list(pending.pop(0)), budget))
+        eng.step()
+        peak = max(peak, sum(s is not None for s in eng.slots))
+        step += 1
+    end.record()
+    torch.cuda.synchronize()
+    return dict(reqs=reqs, ms=start.elapsed_time(end), steps=eng.steps - steps0,
+                slot_steps=eng.slot_steps - slot_steps0, peak=peak)
+
+
+def _serve_stats(run: dict, max_batch: int) -> dict:
+    reqs = run["reqs"]
+    toks = sum(len(r.tokens_out) for r in reqs)
+    ttft = sorted(r.ttft_s * 1e3 for r in reqs)
+    tpot = sorted(r.tpot_s * 1e3 for r in reqs if r.tpot_s is not None)
+    return dict(tps=toks / (run["ms"] / 1e3), rps=len(reqs) / (run["ms"] / 1e3),
+                occ=run["slot_steps"] / (run["steps"] * max_batch) if run["steps"] else 0.0,
+                ttft_p50=ttft[len(ttft) // 2], ttft_max=ttft[-1],
+                tpot_p50=tpot[len(tpot) // 2], tpot_max=tpot[-1], peak=run["peak"])
+
+
+def _streams(run: dict) -> list:
+    return [r.tokens_out for r in run["reqs"]]
+
+
+def _teacher_forced(params, cfg, prompts, streams):
+    """Full-forward logits at the positions that emitted each stream's
+    tokens: the prompt's last position, then each fed-back token. [N_i, V]
+    per request."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    out = []
+    with torch.inference_mode():
+        for p, s in zip(prompts, streams):
+            seq = torch.tensor([p + s[:-1]], device="cuda")
+            out.append(tm.forward(params, seq, cfg)[0, len(p) - 1:].float())
+    return out
+
+
+def _decisive_misses(full, streams, noise: float):
+    """(decisive positions, of which the stream's token is not the full
+    forward's argmax)."""
+    n = miss = 0
+    for logits, s in zip(full, streams):
+        dec, ref = _decisive(logits, noise)
+        tok = logits.new_tensor(s, dtype=ref.dtype)
+        n += int(dec.sum())
+        miss += int((dec & (ref != tok)).sum())
+    return n, miss
+
+
+def _parts_at_ties(full, streams_a, streams_b, noise: float):
+    """Requests where two streams part at a decisive position of a's full
+    forward (parting at a near-tie, margin <= 2 x noise, is rounding), and
+    the number of requests that part at all."""
+    bad = parted = 0
+    for logits, a, b in zip(full, streams_a, streams_b):
+        p = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if p is None:
+            continue
+        parted += 1
+        dec, _ = _decisive(logits[p:p + 1], noise)
+        bad += int(dec.any())
+    return bad, parted
+
+
+def _engine_logits(params, cfg, prompt, stream, kv_dtype=None):
+    """The engine path's logits for one request, teacher-forced: a bucketed
+    prefill into row 0 of a SRV_BATCH-row ragged cache, then one decode
+    step a token with the other rows idle, as the engine runs them."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import serving as srv
+
+    cache = srv.init_ragged_cache(cfg, SRV_BATCH, SRV_MAX_LEN, kv_dtype, "cuda")
+    bucket = min(SRV_MAX_LEN, 1 << max(1, (len(prompt) - 1).bit_length()))
+    toks = torch.tensor([prompt + [0] * (bucket - len(prompt))], device="cuda")
+    logits, _ = srv.advance_ragged(params, cache, toks, cfg, row=0, start=0)
+    out = [logits[0, len(prompt) - 1]]
+    cache.lengths[0] = len(prompt)
+    last = torch.zeros((SRV_BATCH, 1), dtype=torch.long, device="cuda")
+    for t in stream[:-1]:
+        last[0, 0] = t
+        logits, _ = srv.advance_ragged(params, cache, last, cfg)
+        out.append(logits[0, 0])
+    return torch.stack(out).float()
+
+
+def _graph_window_profile(eng) -> dict:
+    """One window of the engine's captured graph (SRV_STEPS replays): its
+    ms by CUDA events, then the same window under torch.profiler for the
+    device time it keeps busy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = eng._window.graph
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        start.record()
+        for _ in range(SRV_STEPS):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    for _ in range(SRV_STEPS):
+        graph.replay()
+    torch.cuda.synchronize()
+    prof.stop()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    parts = {}
+    for e in events:
+        group = profile_group(e.key)
+        parts[group] = parts.get(group, 0.0) + e.self_device_time_total / 1e3 / SRV_STEPS
+    return dict(window_ms=sorted(times)[1], busy_ms=sum(parts.values()) * SRV_STEPS,
+                parts=parts, kernels=sum(e.count for e in events) / SRV_STEPS)
+
+
+def phase_serving() -> None:
+    """The continuous-batching engine at the flagship width: four runs of
+    one trace (dense and paged, eager and graph) token-identical and held to
+    the full forward at decisive positions, with planted faults; int8 KV;
+    chunked prefill and the prefix cache; drain; the times; the CLI."""
+    import torch
+
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+    from hivedscheduler_tpu_torch.models import serving as srv
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **EVAL_MODEL)
+    params = tm.cast_params(tm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    weight_bytes = _tree_bytes(params)
+    prompts = _srv_prompts(cfg.vocab_size, SRV_REQUESTS, seed=2)
+
+    def engine(**kw):
+        kw = dict(dict(max_batch=SRV_BATCH, max_len=SRV_MAX_LEN), **kw)
+        return srv.ServingEngine(params, cfg, **kw)
+
+    # the four runs: token-identical, K1-K3 never launched, the pool clean,
+    # the graph used and never bypassed
+    attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
+    engines, runs = {}, {}
+    for name, kw in SRV_RUNS.items():
+        engines[name] = engine(**kw)
+        runs[name] = _serve(engines[name], prompts, SRV_BUDGET)
+        if engines[name].paged:
+            inv.check_block_pool(engines[name], name)
+            check(engines[name].blocks_in_use == 0, f"{name}: blocks left in use")
+        if engines[name].decode_steps > 1:
+            check(engines[name].graph_windows == engines[name].fused_windows > 0,
+                  f"{name}: windows did not run through the CUDA graph")
+    flash = (attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DQ_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES)
+    ref = _streams(runs["dense eager"])
+    same = {name: sum(a != b for a, b in zip(_streams(run), ref)) for name, run in runs.items()}
+    check(all(len(s) == SRV_BUDGET for s in ref), "a stream fell short of its budget")
+    print(f"[k] four runs of {SRV_REQUESTS} requests (prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))}, budget {SRV_BUDGET}, "
+          f"max_batch {SRV_BATCH}, max_len {SRV_MAX_LEN}): requests whose stream differs "
+          f"from dense eager: {same}; K1-K3 launches {flash}; windows through the graph: "
+          + ", ".join(f"{n} {e.graph_windows}/{e.fused_windows}"
+                      for n, e in engines.items() if e.decode_steps > 1))
+    check(all(v == 0 for v in same.values()), "dense/paged, eager/graph streams differ")
+    check(flash == (0, 0, 0), f"the serving path launched the flash kernels {flash}")
+
+    # each stream against a teacher-forced full forward, at decisive
+    # positions; noise = the engine path's logits against the full forward
+    full = _teacher_forced(params, cfg, prompts, ref)
+    eng_logits = [_engine_logits(params, cfg, prompts[i], ref[i]) for i in range(SRV_NOISE_ROWS)]
+    noise = max(float((e - f).abs().max()) for e, f in zip(eng_logits, full))
+    n_dec, miss = _decisive_misses(full, ref, noise)
+
+    class OffByOne(srv.ServingEngine):
+        """Planted fault: every row's length one too long after its prefill."""
+
+        def _set_row_length(self, slot, n):
+            super()._set_row_length(slot, min(n + 1, self.max_len - 1))
+
+    bad_run = _serve(OffByOne(params, cfg, max_batch=SRV_BATCH, max_len=SRV_MAX_LEN),
+                     prompts, SRV_BUDGET)
+    bad_n, bad_miss = _decisive_misses(_teacher_forced(params, cfg, prompts, _streams(bad_run)),
+                                       _streams(bad_run), noise)
+    print(f"[k] streams vs the teacher-forced full forward: {miss} of {n_dec} decisive "
+          f"positions differ (margin > 2 x {noise:.3e}, the engine path's max |logit err| "
+          f"on requests 0-{SRV_NOISE_ROWS - 1}); planted fault (row lengths one off): {bad_miss} of {bad_n}")
+    check(miss == 0 and n_dec > 0, "engine streams disagree with the full forward")
+    check(bad_miss > 0, "the stream check does not see the planted length fault")
+    probe = engine(page_size=SRV_PAGE)
+    for p in prompts[:4]:
+        probe.submit(p, SRV_BUDGET)
+    probe.step()
+    row = next(s for s in range(SRV_BATCH) if len(probe._slot_bids[s]) > 1)
+    probe._table[row, [0, 1]] = probe._table[row, [1, 0]]
+    try:
+        inv.check_block_pool(probe, "planted")
+        caught = "not caught"
+    except inv.InvariantViolation as err:
+        caught = str(err)
+    print(f"[k] planted swapped table entry: {caught}")
+    check(caught != "not caught", "the pool check does not see a swapped table entry")
+    del probe
+
+    # int8 KV: logits against bf16 KV on the engine path, and dense
+    # against paged token for token
+    q_logits = _engine_logits(params, cfg, prompts[0], ref[0], kv_dtype="int8")
+    q_err = float((q_logits - eng_logits[0]).abs().max())
+    q_rel = float(((q_logits - eng_logits[0]).norm(dim=-1) / eng_logits[0].norm(dim=-1)).max())
+    q_runs = {}
+    for name, kw in (("dense", {}), ("paged", dict(page_size=SRV_PAGE))):
+        q_runs[name] = _serve(engine(kv_dtype="int8", decode_steps=SRV_STEPS, **kw),
+                              prompts, SRV_BUDGET)
+    q_same = sum(a != b for a, b in zip(_streams(q_runs["dense"]), _streams(q_runs["paged"])))
+    q_bad, q_parted = _parts_at_ties(full, ref, _streams(q_runs["dense"]), noise + q_err)
+    print(f"[k] int8 KV vs bf16 KV logits (request 0, {len(ref[0])} positions): max|err| "
+          f"{q_err:.3e}, worst position rel {q_rel:.3e} (<= {DEC_LOGIT_REL}); int8 dense "
+          f"vs int8 paged (graph): {q_same} requests differ; int8 streams part from bf16 "
+          f"in {q_parted} requests, {q_bad} of them at a decisive position (margin > 2 x "
+          f"{noise + q_err:.3e})")
+    check(q_rel <= DEC_LOGIT_REL, "int8 KV logits too far from bf16 KV")
+    check(q_same == 0, "int8 dense and int8 paged streams differ")
+    check(q_bad == 0, "int8 KV streams part from bf16 at a decisive position")
+
+    # chunked prefill and the prefix cache over a shared system prompt
+    system = _srv_prompts(cfg.vocab_size, 1, seed=7, lo=SRV_SYSTEM, hi=SRV_SYSTEM + 1)[0]
+    sys_prompts = _srv_prompts(cfg.vocab_size, SRV_REQUESTS, seed=8, system=system)
+    plain = _serve(engine(), sys_prompts, SRV_BUDGET)
+    sys_full = _teacher_forced(params, cfg, sys_prompts, _streams(plain))
+    sys_dec, sys_miss = _decisive_misses(sys_full, _streams(plain), noise)
+    chunked = {}
+    for name, kw in (("chunked dense", dict(prefill_chunk=SRV_CHUNK, prefix_cache_size=4)),
+                     ("chunked paged graph", dict(prefill_chunk=SRV_CHUNK, prefix_cache_size=4,
+                                                  page_size=SRV_PAGE, decode_steps=SRV_STEPS))):
+        eng = engine(**kw)
+        run = _serve(eng, sys_prompts, SRV_BUDGET)
+        bad, parted = _parts_at_ties(sys_full, _streams(plain), _streams(run), noise)
+        chunked[name] = (eng, bad, parted)
+        if eng.paged:
+            inv.check_block_pool(eng, name)
+    print(f"[k] system prompt {SRV_SYSTEM} tokens + tails 4-64, chunk {SRV_CHUNK}: plain "
+          f"streams vs the full forward {sys_miss} of {sys_dec} decisive positions differ; "
+          + "; ".join(f"{n}: {e.prefix_hits} prefix hits, {e.prefix_tokens_reused} tokens "
+                      f"reused, {e.prefill_chunks_done} chunks, {parted} requests part from "
+                      f"plain, {bad} of them at a decisive position"
+                      for n, (e, bad, parted) in chunked.items()))
+    check(sys_miss == 0, "plain streams disagree with the full forward")
+    check(all(bad == 0 and e.prefix_hits > 0 for e, bad, _ in chunked.values()),
+          "chunked or prefix-cached streams part from plain at a decisive position")
+
+    # drain: a busy paged engine, deadline 0
+    busy = engine(page_size=SRV_PAGE, decode_steps=SRV_STEPS)
+    for p in prompts:
+        busy.submit(p, SRV_BUDGET)
+    for _ in range(2):
+        busy.step()
+    in_use = busy.blocks_in_use
+    drained = busy.drain(deadline_s=0.0)
+    inv.check_block_pool(busy, "after drain")
+    print(f"[k] drain(deadline_s=0) on a busy paged engine ({in_use} blocks in use): "
+          f"returned {drained}, {busy.blocks_in_use} blocks in use after, pool check clean")
+    check(drained is False and busy.blocks_in_use == 0, "drain left work or blocks behind")
+    del busy
+
+    # times: the four runs, median of SRV_TIMED after the checked run
+    for name, eng in engines.items():
+        timed = [_serve(eng, prompts, SRV_BUDGET) for _ in range(SRV_TIMED)]
+        check(all(_streams(t) == ref for t in timed), f"{name}: a timed run's streams differ")
+        stats = sorted((_serve_stats(t, SRV_BATCH) for t in timed), key=lambda s: s["tps"])
+        st = stats[len(stats) // 2]
+        print(f"[k] {name}: {', '.join(f'{s['tps']:.1f}' for s in stats)} tokens/s (median "
+              f"{st['tps']:.1f}), occupancy {st['occ']:.3f}, TTFT p50 {st['ttft_p50']:.2f} ms "
+              f"max {st['ttft_max']:.2f} ms, TPOT p50 {st['tpot_p50']:.3f} ms max "
+              f"{st['tpot_max']:.3f} ms")
+
+    # the decode step, eager against graph, on a full batch
+    eng = engines["dense graph"]
+    for p in prompts:
+        eng.submit(p, SRV_BUDGET)
+    eng.step()
+    eager_ms = min(time_ms(eng._decode_once, 10) for _ in range(3))
+    graph_ms = min(time_ms(eng._window.graph.replay, 40) for _ in range(3))
+    prof = _graph_window_profile(eng)
+    kv_bytes = 2.0 * 2 * cfg.n_layers * SRV_BATCH * SRV_MAX_LEN * cfg.kv_heads * cfg.head_dim
+    bound_ms = (weight_bytes + kv_bytes) / PEAK_HBM_BYTES * 1e3
+    print(f"[k] decode step (B={SRV_BATCH}, cache {SRV_MAX_LEN}): eager {eager_ms:.3f} ms, "
+          f"graph {graph_ms:.3f} ms a step ({eager_ms / graph_ms:.2f}x; with every slot busy "
+          f"{SRV_BATCH / eager_ms * 1e3:.1f} against {SRV_BATCH / graph_ms * 1e3:.1f} "
+          f"tokens/s); bound {bound_ms:.4f} "
+          f"ms ({weight_bytes / 1e9:.4f} GB weights + {kv_bytes / 1e6:.1f} MB KV at "
+          f"{PEAK_HBM_BYTES / 1e12} TB/s), graph step at {bound_ms / graph_ms:.3f} of it; one "
+          f"graph window of {SRV_STEPS}: {prof['window_ms']:.3f} ms, "
+          + (f"device busy {prof['busy_ms']:.3f} ms ({prof['busy_ms'] / prof['window_ms']:.1%}; "
+             "a step: " + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["parts"].items())
+             + f"), {prof['kernels']:.0f} kernels a step" if prof["busy_ms"] > 0 else
+             "device busy not measured (the profiler recorded no device time)"))
+    del engines, eng
+
+    # the paged A/B at equal KV bytes
+    rng_prompts = []
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    for i in range(AB_REQUESTS):
+        u = i % 20
+        if u < 12:
+            plen = int(rng.integers(4, 13))
+        elif u < 17:
+            plen = max(4, AB_MAX_LEN // 4 + int(rng.integers(-4, 5)))
+        else:
+            plen = max(8, AB_MAX_LEN // 2 + int(rng.integers(-4, 5)))
+        plen = min(plen, AB_MAX_LEN - AB_BUDGET - 1)
+        rng_prompts.append([int(t) for t in rng.integers(0, cfg.vocab_size, plen)])
+    nbs = -(-AB_MAX_LEN // SRV_PAGE)
+    ab = {}
+    for name, kw in (("dense", dict(max_batch=AB_DENSE)),
+                     ("paged", dict(max_batch=AB_PAGED, page_size=SRV_PAGE,
+                                    num_blocks=AB_DENSE * nbs + 1))):
+        eng = srv.ServingEngine(params, cfg, max_len=AB_MAX_LEN, decode_steps=SRV_STEPS, **kw)
+        _serve(eng, rng_prompts[:4], 2, arrival_every=1, burst=4)  # warm: the graph
+        runs_ab = [_serve(eng, rng_prompts, AB_BUDGET, arrival_every=1, burst=3)
+                   for _ in range(SRV_TIMED)]
+        ab[name] = (eng, sorted((_serve_stats(r, eng.max_batch) for r in runs_ab),
+                                key=lambda s: s["rps"]))
+        if eng.paged:
+            inv.check_block_pool(eng, "A/B")
+    kv_ab = {n: sum(t.numel() * t.element_size() for t in srv._kv_tensors(e.cache or e.pool))
+             for n, (e, _) in ab.items()}
+    print(f"[k] paged A/B ({AB_REQUESTS} mixed-length requests, max_len {AB_MAX_LEN}, page "
+          f"{SRV_PAGE}, budget {AB_BUDGET}, 3 arrivals a step, decode_steps {SRV_STEPS}): "
+          + "; ".join(f"{n} ({e.max_batch} slots, {kv_ab[n] / 1e6:.1f} MB KV): "
+                      f"{', '.join(f'{s['rps']:.2f}' for s in st)} requests/s, peak "
+                      f"{st[1]['peak']} streams, TTFT p50 {st[1]['ttft_p50']:.1f} ms"
+                      for n, (e, st) in ab.items()))
+    del ab, eng
+
+    # float against int8 KV, long context
+    kv8_prompts = _srv_prompts(cfg.vocab_size, KV8_BATCH, seed=9, lo=KV8_CTX, hi=KV8_CTX + 1)
+    kv8 = {}
+    for kv_dtype in (None, "int8"):
+        eng = srv.ServingEngine(params, cfg, max_batch=KV8_BATCH,
+                                max_len=KV8_CTX + KV8_NEW + 1, kv_dtype=kv_dtype,
+                                decode_steps=SRV_STEPS)
+        rates = []
+        for _ in range(1 + SRV_TIMED):
+            reqs = [eng.submit(list(p), KV8_NEW) for p in kv8_prompts]
+            eng.step()  # admit and prefill every row, then the first window
+            eng.step()
+            before = sum(len(r.tokens_out) for r in reqs)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            eng.run_until_drained()
+            end.record()
+            torch.cuda.synchronize()
+            rates.append((sum(len(r.tokens_out) for r in reqs) - before) /
+                         (start.elapsed_time(end) / 1e3))
+        kv8["int8" if kv_dtype else "bf16"] = (
+            sorted(rates[1:]), sum(t.numel() * t.element_size() for t in srv._kv_tensors(eng.cache)))
+        del eng
+    print(f"[k] long-context decode (batch {KV8_BATCH}, context {KV8_CTX}, {KV8_NEW} new, "
+          f"decode_steps {SRV_STEPS}, after 2 warm steps, CUDA events): "
+          + "; ".join(f"{n} KV ({b / 1e6:.1f} MB): {', '.join(f'{r:.1f}' for r in rs)} tokens/s"
+                      for n, (rs, b) in kv8.items())
+          + f"; weights {weight_bytes / 1e9:.4f} GB")
+    del params
+    torch.cuda.empty_cache()
+
+    # the CLI, plain and under an injected preemption
+    for label, env in (("plain", {}), ("preempted", {"HIVED_FAULT_SERVE_PREEMPT_AT": "3"})):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "hivedscheduler_tpu_torch.serve"]
+                              + SRV_CLI_ARGS, cwd=REPO, capture_output=True, text=True,
+                              timeout=300, env=dict(os.environ, **env))
+        cli_s = time.perf_counter() - t0
+        rows = [l for l in proc.stdout.splitlines() if l.startswith("[")]
+        said = [l.split("] ", 1)[-1] for l in proc.stderr.splitlines()
+                if "tok/s" in l or "preemption drain" in l]
+        print(f"[k] python -m hivedscheduler_tpu_torch.serve ({label}): exit "
+              f"{proc.returncode} in {cli_s:.1f} s, {len(rows)} request lines; "
+              + " | ".join(said))
+        ok = proc.returncode == 0 and rows and any("tok/s" in l for l in said)
+        if env:
+            ok = ok and any("preemption drain" in l for l in said)
+        if not ok:
+            print(proc.stderr[-4000:])
+        check(ok, f"the serve CLI ({label}) did not finish as it should")
+    print(f"[k] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1410,6 +1878,7 @@ def main() -> int:
     phase_train_profile()
     phase_checkpoint()
     phase_decode()
+    phase_serving()
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"

@@ -34,6 +34,14 @@ REGISTRY: Dict[str, Flag] = {f.name: f for f in [
          "Poison the parameters with NaN at this step index (on-nan "
          "chaos hook).",
          "hivedscheduler_tpu_torch/parallel/supervisor.py"),
+    Flag("HIVED_FAULT_SERVE_PREEMPT_AT", "unarmed",
+         "Trigger the serving drain path deterministically at this engine "
+         "step.",
+         "hivedscheduler_tpu_torch/parallel/supervisor.py"),
+    Flag("HIVED_PAGED_KV", "1",
+         "`0` forces the dense ragged KV cache: the differential reference "
+         "for the paged block-pool path.",
+         "hivedscheduler_tpu_torch/models/serving.py"),
     Flag("HIVED_FAULT_STEP_DELAY", "0.0",
          "Pad every workload step by this many seconds so the chaos "
          "harness can land signals at deterministic step windows.",

@@ -384,3 +384,34 @@ def attention_bwd_bytes(b: int, t: int, h: int, h_kv: int, d: int) -> dict:
     q_bytes, kv_bytes, row_bytes = 2 * b * t * h * d, 2 * b * t * h_kv * d, 4 * b * h * t
     return {"dq": 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
             "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes}
+
+
+# -- paged KV reads ----------------------------------------------------------
+# The serving engine's paged cache (models/serving.py) stores KV as a block
+# pool [n_blocks, block, ...] shared by every stream; a per-row block table
+# maps logical token positions to pool blocks. These two helpers are the one
+# home of the position <-> (block, offset) mapping, as in the JAX package.
+
+
+def gather_block_kv(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Per-row KV view of a paged block pool: ``pool`` [n_blocks, block,
+    ...tail], ``table`` int [B, nbs] of block ids (entry j backs logical
+    positions [j*block, (j+1)*block)). Returns a gathered copy [B,
+    nbs*block, ...tail] whose axis 1 is the logical position, so a causal
+    position mask applies unchanged; unassigned entries point at the trash
+    block 0, whose garbage only sits at masked positions."""
+    g = pool[table.long()]  # [B, nbs, block, ...tail]
+    return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
+
+
+def block_coords(positions: torch.Tensor, table: torch.Tensor, block: int):
+    """(block id, in-block offset) coordinates for writing new KV at
+    ``positions`` [B, S] through ``table`` [B, nbs] (a prefill passes a [1,
+    nbs] row). Positions are clamped to the table's range [0, nbs*block):
+    idle and parked rows sit at the clamp and write into their last table
+    entry (the trash block, or a position at or past the row's live
+    length), which no query attends before the row itself rewrites it."""
+    nbs = table.shape[-1]
+    pos = torch.clamp(positions.long(), max=nbs * block - 1)
+    blk = torch.gather(table.long(), 1, pos // block)
+    return blk, pos % block

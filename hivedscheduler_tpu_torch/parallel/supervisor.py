@@ -17,12 +17,12 @@ preemption promise (a preempted gang resumes from its last step):
   build when it is cold and the first launches.
 - :class:`DivergenceGuard`: non-finite loss (always) and optional
   loss-spike detection, behind the train CLI's ``--on-nan`` policy.
-- :class:`FaultInjection`: the chaos hooks (hang, NaN, step pacing),
-  inert unless the ``HIVED_FAULT_*`` environment variables arm them.
+- :class:`FaultInjection`: the chaos hooks (hang, NaN, step pacing, the
+  serving drain), inert unless the ``HIVED_FAULT_*`` environment variables
+  arm them.
 
 One supervisor per workload process, driven from the main loop; importing
-this module imports no torch. Not copied: the serving preemption hook
-(with the serving engine) and the metrics counters.
+this module imports no torch. Not copied: the metrics counters.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ STALL_RECORD = "hived_stall.json"
 # FaultInjection), registered in common/envflags.py
 ENV_FAULT_HANG_AT = "HIVED_FAULT_HANG_AT"
 ENV_FAULT_NAN_AT = "HIVED_FAULT_NAN_AT"
+ENV_FAULT_SERVE_PREEMPT_AT = "HIVED_FAULT_SERVE_PREEMPT_AT"
 ENV_FAULT_STEP_DELAY = "HIVED_FAULT_STEP_DELAY"
 
 
@@ -279,6 +280,7 @@ class FaultInjection:
 
     hang_at: Optional[int] = None
     nan_at: Optional[int] = None
+    serve_preempt_at: Optional[int] = None
     step_delay_s: float = 0.0
 
     @classmethod
@@ -289,6 +291,7 @@ class FaultInjection:
 
         return cls(hang_at=geti(ENV_FAULT_HANG_AT),
                    nan_at=geti(ENV_FAULT_NAN_AT),
+                   serve_preempt_at=geti(ENV_FAULT_SERVE_PREEMPT_AT),
                    step_delay_s=float(
                        envflags.get(ENV_FAULT_STEP_DELAY, "") or 0.0))
 
@@ -325,6 +328,16 @@ class FaultInjection:
                 for leaf in named_leaves(params).values():
                     leaf.mul_(float("nan"))
         return True
+
+    def take_serve_preempt(self, engine_step: int) -> bool:
+        """True exactly once, at the armed serving engine step."""
+        if (self.serve_preempt_at is not None
+                and engine_step == self.serve_preempt_at):
+            self.serve_preempt_at = None
+            log.warning("FAULT INJECTION: requesting serve preemption at "
+                        "engine step %d", engine_step)
+            return True
+        return False
 
 
 class Supervisor:

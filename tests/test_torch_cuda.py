@@ -20,7 +20,11 @@ path on the same weights. A checkpoint of a small train state round-trips
 bit-identically on the card, and the train CLI resumes there. Decode on
 the card (f32, no TF32) matches decode on the CPU (logits atol 1e-4,
 greedy tokens equal, plain and int8), greedy speculative decoding equals
-greedy generate, and the generate CLI prints its rows.
+greedy generate, and the generate CLI prints its rows. The serving engine
+on the card (bf16) serves the same streams dense and paged, eager and
+through its CUDA-graph decode window, greedy and sampled, int8 KV dense
+and paged; its graph refuses a rebound cache; the serve CLI prints its
+request lines.
 """
 
 import os
@@ -451,3 +455,83 @@ def test_generate_cli_on_card(cuda, capsys):
         assert tgen_cli.main(model + ["--batch", "2", "--new-tokens", "5"] + extra) == 0
         rows = [line.split() for line in capsys.readouterr().out.splitlines()]
         assert len(rows) == 2 and all(len(r) == 5 for r in rows), extra
+
+
+SERVE_MODEL = dict(vocab_size=256, d_model=128, n_heads=4, n_kv_heads=2, n_layers=2,
+                   d_ff=256, max_seq_len=64)
+
+
+def _serve_setup(device):
+    cfg = ttm.TransformerConfig(**SERVE_MODEL)  # bf16, as served
+    params = ttm.cast_params(ttm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device), cfg.dtype)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, 256, int(rng.integers(2, 20)))]
+               for _ in range(6)]
+    return cfg, params, prompts
+
+
+def _serve_streams(params, cfg, prompts, **kw):
+    from hivedscheduler_tpu_torch.chaos import invariants as tinv
+    from hivedscheduler_tpu_torch.models import serving as tsrv
+
+    eng = tsrv.ServingEngine(params, cfg, max_batch=3, max_len=48, **kw)
+    pending, reqs, step = list(prompts), [], 0
+    while pending or any(not r.done for r in reqs):
+        if pending and step % 2 == 0:
+            reqs.append(eng.submit(pending.pop(0), 9))
+        eng.step()
+        tinv.check_block_pool(eng, f"step {step}")
+        step += 1
+    return [r.tokens_out for r in reqs], eng
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_serving_graph_and_paged_equal_eager_dense_on_card(cuda, sampled):
+    # the same ops on the same shapes: dense and paged, eager and the
+    # CUDA-graph window, greedy or counter-sampled, token for token
+    cfg, params, prompts = _serve_setup("cuda")
+    kw = dict(temperature=0.8, top_k=40, seed=5) if sampled else {}
+    ref, _ = _serve_streams(params, cfg, prompts, **kw)
+    for extra in (dict(decode_steps=4), dict(page_size=8), dict(page_size=8, decode_steps=3),
+                  dict(page_size=8, decode_steps=4, prefix_cache_size=4)):
+        got, eng = _serve_streams(params, cfg, prompts, **kw, **extra)
+        assert got == ref, extra
+        if eng.decode_steps > 1:
+            assert eng.graph_windows == eng.fused_windows > 0, extra
+
+
+def test_serving_int8_kv_paged_equals_dense_on_card(cuda):
+    cfg, params, prompts = _serve_setup("cuda")
+    dense, _ = _serve_streams(params, cfg, prompts, kv_dtype="int8", decode_steps=4)
+    paged, _ = _serve_streams(params, cfg, prompts, kv_dtype="int8", decode_steps=4,
+                              page_size=8)
+    assert dense == paged
+
+
+def test_serving_graph_refuses_a_rebound_cache(cuda):
+    from hivedscheduler_tpu_torch.models import serving as tsrv
+
+    cfg, params, prompts = _serve_setup("cuda")
+    eng = tsrv.ServingEngine(params, cfg, max_batch=2, max_len=48, decode_steps=4)
+    eng.submit(prompts[0], 20)
+    eng.step()
+    assert eng.graph_windows == 1
+    eng.cache = tsrv.init_ragged_cache(cfg, 2, 48, device="cuda")
+    with pytest.raises(RuntimeError) as err:
+        eng.step()
+    assert "rebound" in str(err.value)
+
+
+def test_serve_cli_on_card(cuda, capsys):
+    from hivedscheduler_tpu_torch import serve as tserve
+
+    model = [a for k, v in SERVE_MODEL.items() if k != "max_seq_len"
+             for a in (f"--{k.replace('_', '-')}", str(v))]
+    outs = []
+    for extra in ([], ["--page-size", "8", "--decode-steps", "4", "--prefix-cache", "4"]):
+        capsys.readouterr()
+        assert tserve.main(model + ["--requests", "4", "--max-new-tokens", "6"] + extra) == 0
+        outs.append(capsys.readouterr().out.splitlines())
+        assert len(outs[-1]) == 4
+    assert outs[0] != outs[1]  # the prefix-cache run serves system-prompt requests
