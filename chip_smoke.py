@@ -106,6 +106,24 @@ Phases, each of which must pass or the script exits non-zero:
     at ``bench_serving_kv_int8``'s long context) and ``python -m
     hivedscheduler_tpu_torch.serve`` as a subprocess, plain and with
     ``HIVED_FAULT_SERVE_PREEMPT_AT`` (drain, exit 0).
+(l) the mesh path on one card: the gang handoff (a bind info of one pod
+    with ``NVIDIA_VISIBLE_DEVICES=0``) through ``initialize_from_gang``
+    must give rank 0 of world 1 on ``cuda:0`` over NCCL; K1, K2 and K3 at
+    the local shapes a tp=2 shard of the flagship launches (q [8,2048,8,128],
+    k/v [8,2048,4,128]) against their plain versions with the limits and
+    planted faults of (b) and (f), timed beside their bound and
+    ``scaled_dot_product_attention`` at the same shape, taken in turns; 3
+    flagship train steps (the train flags of (h)) through
+    ``make_sharded_train_step`` on a six-axis ``DeviceMesh`` of the one GPU
+    (DTensor state), with K1-K3's launches counted, held to the
+    single-device ``make_train_step`` from the same seed and batches and to
+    (h)'s losses (equal, or within a relative 1e-3), with both steps' ms by
+    CUDA events beside (h)'s, then both timed in turns (single, mesh, mesh,
+    single, 3 rounds); and a world-1 DTensor train state at the
+    flagship width and 2 layers (~3.1 GB) saved with the multi-rank commit
+    protocol, restored bit-identically into fresh templates, one flipped
+    bit caught, with the save and restore seconds (free space printed
+    first).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -613,17 +631,20 @@ def phase_train() -> dict:
           f"{[r['loss'] for r in records]}; launches over {TRAIN_STEPS} steps "
           f"{launches} (want {want}: K1 twice a layer, K2 and K3 once)")
     check(launches == want, f"train launched {launches}, want {want}")
+    flash = {"losses": [r["loss"] for r in records]}
     for impl in ("flash", "xla"):
         if impl == "xla":
             records, peak = run_train("xla", TRAIN_STEPS)
         timed = [r for r in records if not r["compile"]]
         step_ms = sum(r["wall_s"] for r in timed) / len(timed) * 1e3
+        if impl == "flash":
+            flash["step_ms"] = step_ms
         tokens_per_s = EVAL_BATCH * EVAL_SEQ / (step_ms / 1e3)
         print(f"[h] train step --attn {impl} (B={EVAL_BATCH}, T={EVAL_SEQ}, "
               f"{layers} layers, remat dots, ce_chunk {EVAL_CE_CHUNK}, mean of "
               f"{len(timed)} steps after the warm-up): {step_ms} ms, "
               f"{tokens_per_s} tokens/s, peak device memory {peak / 1e9:.2f} GB")
-    return launches
+    return launches, flash
 
 
 # kernel-name fragments of each part of a train step's device time
@@ -728,22 +749,27 @@ def _close_goodput() -> None:
 
 def _state_mismatches(params, opt, params2, opt2) -> list:
     """Names of the parameters and AdamW state entries that are not
-    bit-identical (or not on the same device and dtype)."""
+    bit-identical (or not on the same device and dtype); DTensors are held
+    shard for shard."""
     import torch
 
     from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+    from hivedscheduler_tpu_torch.parallel.sharding import local
+
+    def same(x, y):
+        x, y = local(x.detach()), local(y.detach())
+        return (x.device, x.dtype) == (y.device, y.dtype) and torch.equal(x, y)
 
     bad = []
     a_named, b_named = ckpt.named_leaves(params), ckpt.named_leaves(params2)
     for name, a in a_named.items():
         b = b_named[name]
-        if (a.device, a.dtype) != (b.device, b.dtype) or not torch.equal(a, b):
+        if not same(a, b):
             bad.append(name)
         sa, sb = opt.state[a], opt2.state.get(b, {})
         for key, x in sa.items():
             y = sb.get(key)
-            if (y is None or (x.device, x.dtype) != (y.device, y.dtype)
-                    or not torch.equal(x, y)):
+            if y is None or not same(x, y):
                 bad.append(f"{name}.{key}")
     return bad
 
@@ -1849,6 +1875,307 @@ def phase_serving() -> None:
     print(f"[k] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase (l): the mesh path on one card. A tp=2 shard of the flagship holds
+# half its heads: q [8, 2048, 8, 128], k/v [8, 2048, 4, 128]
+TP_LOCAL = dict(b=8, t=2048, h=8, h_kv=4, d=128)
+# mesh losses against the single-device ones when they are not equal: the
+# loss limit of (i)'s resume, relative
+MESH_LOSS_REL = 1e-3
+MESH_CKPT_LAYERS = 2
+# rounds of (single, mesh, mesh, single) steps timed in turns
+MESH_TURNS = 3
+
+
+def _tp_local_kernels() -> None:
+    """K1-K3 at the tp-local shapes against their plain versions, with
+    (b)'s and (f)'s limits and planted faults, then timed in turns with the
+    library at the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    f = TP_LOCAL
+    b, t, h, h_kv, d = f["b"], f["t"], f["h"], f["h_kv"], f["d"]
+    q, k, v = make_qkv(b, t, h, h_kv, d, seed=40)
+    do = make_qkv(b, t, h, h_kv, d, seed=41)[0]
+    o, lse = attn.flash_forward(q, k, v, causal=True)
+    o_ref, lse_ref = attn.flash_attention_plain(q, k, v, causal=True)
+    got = attn.flash_backward(q, k, v, o, lse, do, causal=True)
+    ref = attn.flash_backward_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    o_fro, o_row = rel_errs(o, o_ref)
+    lse_err = float((lse - lse_ref).abs().max())
+    errs = {name: rel_errs(x, r, floor=1e-3) for name, x, r in zip(("dq", "dk", "dv"), got, ref)}
+    print(f"[l] K1 at the tp-local shape q [{b},{t},{h},{d}] k/v [{b},{t},{h_kv},{d}] causal: "
+          f"o rel {o_fro:.3e} (<= {O_REL}), worst row {o_row:.3e} (<= {O_ROW_REL}), "
+          f"max|lse err| {lse_err:.3e} (<= {LSE_ATOL}); K2/K3: "
+          + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}" for n, (fr, rw) in errs.items())
+          + f" (limits {GRAD_REL}, {GRAD_ROW_REL})")
+    check(o_fro <= O_REL and o_row <= O_ROW_REL and lse_err <= LSE_ATOL,
+          "K1 disagrees with its plain version at the tp-local shape")
+    check(all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for fr, rw in errs.values()),
+          "K2/K3 disagree with their plain version at the tp-local shape")
+    # planted faults: (b)'s swapped V keys for K1, (f)'s swapped K keys for
+    # K2/K3 (o and lse kept)
+    v_bad = v.clone()
+    v_bad[:, [t - 2, t - 1]] = v[:, [t - 1, t - 2]]
+    bad_row = rel_errs(attn.flash_forward(q, k, v_bad, causal=True)[0], o_ref)[1]
+    k_bad = k.clone()
+    k_bad[:, [t - 2, t - 1]] = k[:, [t - 1, t - 2]]
+    bad = attn.flash_backward(q, k_bad, v, o, lse, do, causal=True)
+    bad_rows = {n: rel_errs(x, r, floor=1e-3)[1] for n, x, r in zip(("dq", "dk", "dv"), bad, ref)}
+    print(f"[l] planted faults at the tp-local shape: K1 (V keys swapped) worst row "
+          f"{bad_row:.3e}; K2/K3 (K keys swapped) worst rows "
+          + ", ".join(f"{n} {x:.3e}" for n, x in bad_rows.items()))
+    check(bad_row > O_ROW_REL, "the tp-local o check does not see a swapped V key pair")
+    check(all(x > GRAD_ROW_REL for x in bad_rows.values()),
+          "the tp-local gradient checks do not see a swapped K key pair")
+    del v_bad, k_bad, bad, o_ref, lse_ref, ref
+    torch.cuda.empty_cache()
+
+    _, delta = attn.flash_backward_dq_cuda(q, k, v, o, lse, do)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    dout = do.transpose(1, 2).contiguous()
+    timed = {
+        "K1": (lambda: attn.flash_forward(q, k, v, causal=True),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)),
+        "K2": (lambda: attn.flash_backward_dq_cuda(q, k, v, o, lse, do), None),
+        "K3": (lambda: attn.flash_backward_dkv_cuda(q, k, v, lse, delta, do),
+               lambda: torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)),
+    }
+    flops_f = attn.attention_flops(b, t, h, d, causal=True)
+    flops_b = attn.attention_bwd_flops(b, t, h, d, causal=True)
+    bytes_f = attn.attention_bytes(b, t, h, h_kv, d)
+    bytes_b = attn.attention_bwd_bytes(b, t, h, h_kv, d)
+    work = {"K1": (flops_f, bytes_f), "K2": (flops_b["dq"], bytes_b["dq"]),
+            "K3": (flops_b["dkv"], bytes_b["dkv"])}
+    plain_ms = {"K1": time_ms(lambda: attn.flash_attention_plain(q, k, v, causal=True),
+                              iters=2, warmup=1)}
+    plain_ms["K2"] = plain_ms["K3"] = time_ms(
+        lambda: attn.flash_backward_plain(q, k, v, o, lse, do, causal=True), iters=2, warmup=1)
+    # in turns: kernel, library, kernel, library
+    readings = {name: ([], []) for name in timed}
+    for _ in range(2):
+        for name, (kernel, library) in timed.items():
+            readings[name][0].append(time_ms(kernel, iters=20, warmup=3))
+            if library is not None:
+                readings[name][1].append(time_ms(library, iters=20, warmup=3))
+    for name, (kernel_ms, library_ms) in readings.items():
+        flops, nbytes = work[name]
+        ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        lib = ("library (the whole backward) " if name == "K3" else "library ") + (
+            ", ".join(f"{x:.4f}" for x in library_ms) + " ms" if library_ms else
+            "(see K3: the library backward computes dq, dk and dv together)")
+        print(f"[l] {name} at the tp-local shape: kernel_ms "
+              f"{', '.join(f'{x:.4f}' for x in kernel_ms)} (two turns) bound_ms {bound_ms:.4f} "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB) -> {bound_ms / min(kernel_ms):.1%} of the bound; "
+              f"plain_ms {plain_ms[name]:.3f}{' (the whole backward)' if name != 'K1' else ''}; {lib}")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg, out, dout
+    torch.cuda.empty_cache()
+
+
+def _steps_by_events(step, params, opt, batches) -> tuple:
+    """Run ``step`` over ``batches`` -> (losses, ms of each step by CUDA
+    events; each step ends in the loss's host read)."""
+    import torch
+
+    losses, ms = [], []
+    for tokens in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, loss = step(params, opt, tokens)
+        losses.append(float(loss))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return losses, ms
+
+
+def _mesh_train(mesh, h_flash: dict) -> None:
+    """3 flagship steps on the world-1 mesh against the single-device step
+    from the same seed and batches, and against (h)'s CLI losses."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash",
+                               remat="dots", **EVAL_MODEL)
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(cfg.vocab_size), EVAL_BATCH, EVAL_SEQ)
+    host = [np.asarray(next(loader)) for _ in range(TRAIN_STEPS)]
+
+    step, init_fn = port_train.make_train_step(cfg, "cuda", ce_chunk=EVAL_CE_CHUNK)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    plain_tokens = [torch.from_numpy(x).cuda() for x in host]
+    single, single_ms = _steps_by_events(step, params, opt, plain_tokens)
+
+    mstep, minit, token_sharding = port_train.make_sharded_train_step(
+        cfg, mesh, ce_chunk=EVAL_CE_CHUNK)
+    mparams, mopt = minit(torch.Generator(device="cuda").manual_seed(0))
+    check(all(type(t).__name__ == "DTensor" for t in port_train._leaves(mparams)),
+          "the mesh state is not DTensors")
+    tokens = [data_lib.device_put_global(x, token_sharding, EVAL_BATCH) for x in host]
+    attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
+    mesh_losses, mesh_ms = _steps_by_events(mstep, mparams, mopt, tokens)
+    launches = {"fwd": attn.FLASH_FWD_LAUNCHES, "dq": attn.FLASH_BWD_DQ_LAUNCHES,
+                "dkv": attn.FLASH_BWD_DKV_LAUNCHES}
+    layers = EVAL_MODEL["n_layers"]
+    want = {"fwd": 2 * layers * TRAIN_STEPS, "dq": layers * TRAIN_STEPS,
+            "dkv": layers * TRAIN_STEPS}
+    print(f"[l] mesh train (make_sharded_train_step, world 1, NCCL, mesh (1,1,1,1,1,1)): "
+          f"losses {mesh_losses}; launches over {TRAIN_STEPS} steps {launches} (want {want})")
+    check(launches == want, f"the mesh step launched {launches}, want {want}")
+    check(all(math.isfinite(x) for x in mesh_losses), f"non-finite mesh losses {mesh_losses}")
+    for name, ref in (("single-device make_train_step", single),
+                      ("(h)'s train CLI", h_flash["losses"])):
+        equal = mesh_losses == ref
+        rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, ref))
+        print(f"[l] mesh losses against {name} {ref}: "
+              + ("equal" if equal else f"within relative {rel:.3e} (<= {MESH_LOSS_REL})"))
+        check(equal or rel <= MESH_LOSS_REL, f"mesh losses disagree with {name}")
+    print(f"[l] step ms by CUDA events (B={EVAL_BATCH}, T={EVAL_SEQ}, {layers} layers): mesh "
+          f"{', '.join(f'{x:.3f}' for x in mesh_ms)}, single-device "
+          f"{', '.join(f'{x:.3f}' for x in single_ms)} (the first of each is the warm-up); "
+          f"(h)'s train CLI {h_flash['step_ms']:.3f} ms (its timeline, after the warm-up)")
+    # both states stay resident and step in turns (single, mesh, mesh,
+    # single), so the two are timed under the same conditions
+    turns = {"single-device": [], "mesh": []}
+    for _ in range(MESH_TURNS):
+        for name in ("single-device", "mesh", "mesh", "single-device"):
+            if name == "mesh":
+                turns[name] += _steps_by_events(mstep, mparams, mopt, tokens[:1])[1]
+            else:
+                turns[name] += _steps_by_events(step, params, opt, plain_tokens[:1])[1]
+    med = {name: sorted(ms)[len(ms) // 2] for name, ms in turns.items()}
+    print(f"[l] step ms in turns ({MESH_TURNS} x single, mesh, mesh, single): "
+          + "; ".join(f"{name} {', '.join(f'{x:.3f}' for x in ms)} (median {med[name]:.3f})"
+                      for name, ms in turns.items())
+          + f"; mesh - single-device {med['mesh'] - med['single-device']:.3f} ms")
+    del params, opt, step, mparams, mopt, mstep, tokens, plain_tokens
+    torch.cuda.empty_cache()
+
+
+def _mesh_checkpoint(mesh) -> None:
+    """A world-1 DTensor train state (flagship width, 2 layers) through the
+    multi-rank save and restore: bit-identical, with a planted fault."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import topology
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    model = dict(EVAL_MODEL, n_layers=MESH_CKPT_LAYERS)
+    cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", remat="dots", **model)
+    step, init_fn, token_sharding = port_train.make_sharded_train_step(
+        cfg, mesh, ce_chunk=EVAL_CE_CHUNK)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(cfg.vocab_size), EVAL_BATCH, EVAL_SEQ)
+    params, opt, _ = step(params, opt, data_lib.device_put_global(
+        np.asarray(next(loader)), token_sharding, EVAL_BATCH))
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-ckpt-")
+    try:
+        n_params = sum(t.numel() for t in ckpt.named_leaves(params).values())
+        need = 3 * 4 * n_params
+        free = shutil.disk_usage(tmp).free
+        print(f"[l] {tmp}: {free / 1e9:.1f} GB free; the round trip writes {need / 1e9:.2f} GB")
+        check(free > 1.1 * need, f"{tmp} has {free / 1e9:.1f} GB free, needs {need / 1e9:.1f} GB")
+        t0 = time.perf_counter()
+        ckpt.save(tmp, 1, params, opt, extra=ckpt.train_metadata(
+            topology.mesh_axes(mesh), cfg, global_batch=EVAL_BATCH, seq_len=EVAL_SEQ))
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tmp, "1", n)) for n in os.listdir(os.path.join(tmp, "1")))
+        params2, opt2 = init_fn(torch.Generator(device="cuda").manual_seed(1))
+        with torch.no_grad():
+            for leaf in ckpt.named_leaves(params2).values():
+                leaf.to_local().zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ckpt.restore(tmp, params2, opt2)[0]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(restored == 1, f"restored step {restored}")
+        check(all(isinstance(t, DTensor) for t in ckpt.named_leaves(params2).values()),
+              "the restored params are not DTensors")
+        moments = sum(x.numel() for s_ in opt2.state.values() for x in s_.values() if x.dim())
+        check(moments == 2 * n_params, f"restored {moments} moment values for {n_params} parameters")
+        bad = _state_mismatches(params, opt, params2, opt2)
+        print(f"[l] sharded round trip ({MESH_CKPT_LAYERS} layers, {n_params / 1e6:.1f} M f32 "
+              f"parameters and their AdamW moments as DTensors, {nbytes / 1e9:.3f} GB written; "
+              f"marker mesh {ckpt.read_metadata(tmp)['mesh']}): save {save_s:.2f} s "
+              f"({nbytes / save_s / 1e9:.2f} GB/s), restore {restore_s:.2f} s "
+              f"({nbytes / restore_s / 1e9:.2f} GB/s); not bit-identical: {bad}")
+        check(not bad, f"the restored sharded state differs in {bad}")
+        with torch.no_grad():
+            moment = opt2.state[ckpt.named_leaves(params2)["layers.w_up"]]["exp_avg_sq"]
+            flat = moment.to_local().view(-1)
+            at = 12345 % flat.numel()
+            flat[at:at + 1].view(torch.int32).bitwise_xor_(1)
+        planted = _state_mismatches(params, opt, params2, opt2)
+        print(f"[l] planted fault (one bit of one element of layers.w_up's exp_avg_sq): "
+              f"not bit-identical {planted}")
+        check(planted == ["layers.w_up.exp_avg_sq"],
+              "the sharded round-trip check does not see the planted fault")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params, opt, params2, opt2
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(h_flash: dict) -> None:
+    """(l): the gang handoff, the tp-local kernels, world-1 mesh training
+    and the sharded checkpoint, on one NCCL process group."""
+    import torch
+    import torch.distributed as dist
+
+    from hivedscheduler_tpu_torch.parallel import distributed, topology
+
+    t_phase = time.perf_counter()
+    bind_info = {"node": "chip-smoke/127.0.0.1", "leafCellIsolation": [0],
+                 "cellChain": "h100-rack", "affinityGroupBindInfo": [{"podPlacements": [
+                     {"physicalNode": "chip-smoke/127.0.0.1", "physicalLeafCellIndices": [0]}]}]}
+    handoff = {"POD_BIND_INFO": json.dumps(bind_info), "NODE_NAME": "chip-smoke/127.0.0.1",
+               "NVIDIA_VISIBLE_DEVICES": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in handoff}
+    os.environ.update(handoff)
+    try:
+        rank, world = distributed.initialize_from_gang(device="cuda")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        print(f"[l] gang handoff (one pod, NVIDIA_VISIBLE_DEVICES=0): rank {rank} of world "
+              f"{world}, cuda:{torch.cuda.current_device()}, backend {dist.get_backend()}")
+        check((rank, world) == (0, 1) and torch.cuda.current_device() == 0,
+              "the gang handoff did not give rank 0 of world 1 on cuda:0")
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, want nccl")
+        mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
+        _tp_local_kernels()
+        _mesh_train(mesh, h_flash)
+        _mesh_checkpoint(mesh)
+    finally:
+        distributed.shutdown()
+    print(f"[l] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1873,12 +2200,13 @@ def main() -> int:
     phase_hidden_check()
     bwd_err = phase_backward_check()
     bwd_timing = phase_backward_time()
-    launches = phase_train()
+    launches, train_flash = phase_train()
     phase_train_grads()
     phase_train_profile()
     phase_checkpoint()
     phase_decode()
     phase_serving()
+    phase_mesh(train_flash)
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"

@@ -19,7 +19,7 @@ Every fault decision is drawn from one ``random.Random(seed)``, so a seed
 replays the same episode plan. Subprocesses run on the CPU with one thread
 (:func:`cpu_only_env`); ``HIVED_FAULT_STEP_DELAY`` paces the tiny model's
 steps so signals land inside the training window. The elastic episode
-needs a device mesh and is not yet ported.
+needs ``train --elastic``, which is not yet ported.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Held-out evaluation on one device: token-level loss and perplexity.
+"""Held-out evaluation: token-level loss and perplexity.
 
 Counterpart of ``hivedscheduler_tpu/eval.py``, with the same flags, the
 same sequential non-overlapping windows (each scores batch x (seq_len - 1)
@@ -10,9 +10,12 @@ positions) and the same output line:
 on the CPU. The flash kernel runs under ``--attn flash``.
 ``--checkpoint-dir`` evaluates the parameters of the newest committed
 checkpoint of a ``train`` run (random init from seed 0 without it), and
-``--goodput-file`` spools the goodput ledger's phases. Mesh axes above 1
-and MoE are not yet ported and exit with an error rather than being
-ignored.
+``--goodput-file`` spools the goodput ledger's phases. As in ``train``,
+the run opens its process group from the scheduler's gang handoff, lays
+the mesh ``infer_axes(world, tp=, fsdp=)`` over it, and each rank reads
+its data-parallel share of every window. Sequence and expert parallelism
+(``--sp``, ``--ep`` above 1) and MoE are not yet ported and exit with an
+error rather than being ignored.
 """
 
 from __future__ import annotations
@@ -33,10 +36,11 @@ WINDOWS_LOG = "%s windows (%s tokens) in %.2fs (%.0f tok/s)"
 
 
 def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
-    for flag in ("tp", "sp", "fsdp", "ep"):
+    for flag, what in (("sp", "sequence parallelism (the ring family)"),
+                       ("ep", "expert parallelism")):
         if getattr(args, flag) > 1:
-            parser.error(f"--{flag} > 1 is not yet ported: the port runs on "
-                         "one device")
+            parser.error(f"--{flag} > 1 is not yet ported: {what}; the port "
+                         "shards over dp, fsdp and tp")
     if args.n_experts > 0:
         parser.error("--n-experts > 0 (MoE) is not yet ported")
     if args.attn is not None and args.attn not in PORTED_ATTN:
@@ -58,10 +62,14 @@ def main(argv=None) -> int:
     parser.add_argument("--moe-top-k", type=int, default=1)
     parser.add_argument("--attn", default=None,
                         help="xla|flash (default: xla)")
-    parser.add_argument("--tp", type=int, default=1)
-    parser.add_argument("--sp", type=int, default=1)
-    parser.add_argument("--fsdp", type=int, default=1)
-    parser.add_argument("--ep", type=int, default=1)
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree")
+    parser.add_argument("--sp", type=int, default=1,
+                        help="sequence parallelism: not yet ported above 1")
+    parser.add_argument("--fsdp", type=int, default=1,
+                        help="fully-sharded data-parallel degree")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert parallelism: not yet ported above 1")
     parser.add_argument("--ce-chunk", type=int, default=0,
                         help="chunked cross-entropy (as in train)")
     parser.add_argument("--data", default="",
@@ -85,22 +93,42 @@ def main(argv=None) -> int:
     _reject_unported(parser, args)
 
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
+    from hivedscheduler_tpu_torch.parallel import distributed
+
+    gang = distributed.gang_from_env()
     from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
 
-    if args.goodput_file:
+    if args.goodput_file and (gang is None or gang[1] == 0):
         obs_goodput.enable(spool_path=args.goodput_file)
 
+    rank, world = distributed.initialize_from_gang(device=args.device)
+    try:
+        return _evaluate(parser, args, rank, world)
+    finally:
+        distributed.shutdown()
+
+
+def _evaluate(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
+    if rank:
+        logging.getLogger().setLevel(logging.WARNING)  # rank 0 logs
     import numpy as np
     import torch
 
     from hivedscheduler_tpu_torch import resolve_device
     from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
     from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
     from hivedscheduler_tpu_torch.parallel import data as data_lib
-    from hivedscheduler_tpu_torch.parallel.train import make_eval_step
+    from hivedscheduler_tpu_torch.parallel import topology
+    from hivedscheduler_tpu_torch.parallel.train import make_sharded_eval_step
 
     device = resolve_device(args.device)
-    log.info("device %s", device)
+    try:
+        axes = topology.infer_axes(world, tp=args.tp, fsdp=args.fsdp)
+    except ValueError as err:
+        parser.error(str(err))
+    mesh = topology.make_mesh(axes, device.type)
+    log.info("rank %s/%s: device %s, mesh %s", rank, world, device, axes)
 
     cfg = tm.TransformerConfig(
         vocab_size=args.vocab_size,
@@ -114,7 +142,8 @@ def main(argv=None) -> int:
         n_experts=args.n_experts,
         moe_top_k=args.moe_top_k,
     )
-    eval_step, init_fn = make_eval_step(cfg, device, ce_chunk=args.ce_chunk)
+    eval_step, init_fn, token_sharding = make_sharded_eval_step(
+        cfg, mesh, ce_chunk=args.ce_chunk)
     params = init_fn(torch.Generator(device=device).manual_seed(0))
     if args.checkpoint_dir:
         step, params = ckpt.restore_params(args.checkpoint_dir, params)
@@ -135,6 +164,13 @@ def main(argv=None) -> int:
         log.error("corpus too small: %s tokens < one %s-token batch window",
                   len(corpus), window)
         return 1
+    # each rank takes its data-parallel share of every window's rows
+    part, n_parts = data_lib.data_split(mesh)
+    if args.batch % n_parts:
+        log.error("--batch %s must divide the %s data-parallel ranks",
+                  args.batch, n_parts)
+        return 1
+    rows = args.batch // n_parts
 
     t0 = time.perf_counter()
     obs_goodput.phase("eval")
@@ -143,8 +179,9 @@ def main(argv=None) -> int:
     for i in range(n_steps):
         batch_np = np.asarray(
             corpus[i * window: (i + 1) * window], dtype=np.int32
-        ).reshape(args.batch, args.seq_len)
-        tokens = torch.from_numpy(batch_np).to(device, non_blocking=True)
+        ).reshape(args.batch, args.seq_len)[part * rows: (part + 1) * rows]
+        tokens = data_lib.device_put_global(batch_np, token_sharding,
+                                            args.batch)
         step_loss = eval_step(params, tokens)
         total_loss = step_loss if total_loss is None else total_loss + step_loss
         if args.verbose and (i + 1) % 10 == 0:
@@ -158,7 +195,8 @@ def main(argv=None) -> int:
     ppl = math.exp(min(loss, 30.0))
     log.info(WINDOWS_LOG, n_steps, n_steps * window, dt,
              n_steps * window / max(dt, 1e-9))
-    print(f"loss {loss:.6f}  perplexity {ppl:.4f}")
+    if rank == 0:
+        print(f"loss {loss:.6f}  perplexity {ppl:.4f}")
     return 0
 
 

@@ -8,9 +8,12 @@ with the JAX package's tree: ``embed``, ``final_norm``, ``lm_head`` and
 ``bridge.py`` carries weights across unchanged and both packages compute
 with the same numbers.
 
-Ported: the dense single-device forward with ``attn_impl`` ``xla`` or
-``flash``, differentiable, with the ``remat`` policies of the layer loop.
-MoE, LoRA, the ring/Ulysses family, pipelining and the overlapped
+Ported: the dense forward with ``attn_impl`` ``xla`` or ``flash``,
+differentiable, with the ``remat`` policies of the layer loop, on one
+device or over a six-axis ``DeviceMesh`` with dp, fsdp and tp above 1
+(``sharding_specs`` gives each leaf's layout; ``parallel/sharding.py``
+holds the collectives). MoE, LoRA, the ring/Ulysses family (sp),
+pipelining (pp), expert parallelism (ep) and the overlapped
 tensor-parallel stack raise "not yet ported".
 """
 
@@ -24,6 +27,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
+
+from hivedscheduler_tpu_torch.parallel import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +157,54 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
 
 
+def sharding_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The JAX package's ``sharding_specs`` for the dense model, mirroring
+    ``init_params``' tree: one entry per tensor dim (None, an axis name or
+    a tuple of names). tp shards heads and the MLP hidden dim, fsdp the
+    complementary axis; the leading layer axis is not sharded. The
+    pipeline (pp), expert (ep) and LoRA layouts are not yet ported."""
+    check_supported(cfg)
+    fsdp, tp = "fsdp", "tp"
+    return {
+        "embed": (None, fsdp),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, fsdp, tp, None),
+            "wk": (None, fsdp, tp, None),
+            "wv": (None, fsdp, tp, None),
+            "wo": (None, tp, None, fsdp),
+            "mlp_norm": (None, None),
+            "w_gate": (None, fsdp, tp),
+            "w_up": (None, fsdp, tp),
+            "w_down": (None, tp, fsdp),
+        },
+        "final_norm": (None,),
+        "lm_head": (fsdp, tp),
+    }
+
+
+def activation_spec() -> tuple:
+    """[batch, seq, ...]: batch over dp(+fsdp), sequence over sp."""
+    return (("dp", "fsdp"), "sp")
+
+
+def check_mesh(cfg: TransformerConfig, sizes: Dict[str, int]) -> None:
+    """Raise for a mesh the port does not run the model on: sp, pp or ep
+    above 1 (not yet ported), or heads that do not divide tp (the JAX
+    package's ``_shardings`` check)."""
+    for axis, what in (("sp", "sequence parallelism (sp > 1)"),
+                       ("pp", "pipelining (pp > 1)"),
+                       ("ep", "expert parallelism (ep > 1)")):
+        if sizes.get(axis, 1) > 1:
+            raise _not_yet_ported(what)
+    tp = sizes.get("tp", 1)
+    if cfg.n_heads % tp or cfg.kv_heads % tp:
+        raise ValueError(
+            f"head counts must divide the tp axis: n_heads={cfg.n_heads}, "
+            f"kv_heads={cfg.kv_heads}, tp={tp}"
+        )
+
+
 def is_quantized_leaf(leaf) -> bool:
     """The int8 ``{"qi8", "scale"}`` leaf encoding of the JAX package."""
     return isinstance(leaf, dict) and "qi8" in leaf
@@ -204,10 +257,19 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 
 def _dispatch_attention(q, k, v, cfg: TransformerConfig, attn_fn):
-    """Single-device branch of the JAX package's ``_dispatch_attention``:
+    """The JAX package's ``_dispatch_attention`` for dense attention:
     ``flash`` takes compact GQA k/v as they are (the kernel reads kv head
     i // group itself); ``xla`` gets each shared head repeated for its
-    contiguous q-head group, after RoPE, exactly as the reference does."""
+    contiguous q-head group, after RoPE, exactly as the reference does.
+
+    Under a mesh q, k and v are the rank's local batch rows and head
+    shard, so this is the counterpart of ``_flash_gspmd``: the kernel runs
+    on the local shard with no communication. ``check_mesh`` refuses kv
+    heads that do not divide tp, so the compact k/v always split with
+    their q-head groups (the local q head i reads local kv head i //
+    group); a batch that does not split over dp x fsdp arrives as whole
+    rows on every rank (``parallel/train.py``), which is JAX's replicated
+    fallback."""
     if k.shape[2] != q.shape[2] and cfg.attn_impl != "flash":
         rep = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, rep, dim=2)
@@ -215,22 +277,49 @@ def _dispatch_attention(q, k, v, cfg: TransformerConfig, attn_fn):
     return attn_fn(q, k, v, causal=True)
 
 
-def _apply_layer(x, lp, positions, cfg: TransformerConfig, attn_fn):
-    """One dense transformer block; ``lp`` leaves have no layer axis."""
+def _identity(x):
+    return x
+
+
+def _apply_layer(x, lp, positions, cfg: TransformerConfig, attn_fn,
+                 shards: Optional[sharding.MeshShards] = None):
+    """One dense transformer block; ``lp`` leaves have no layer axis.
+
+    Under a mesh (``shards``) the leaves are the rank's shards: each
+    weight is gathered over fsdp where it is used, heads and the MLP
+    hidden dim stay tp-local, and the two row-parallel projections (``wo``,
+    ``w_down``) sum over tp, Megatron-style."""
     dtype = cfg.dtype
-    h = _rms_norm(x, lp["attn_norm"])
-    q = torch.einsum("btd,dhk->bthk", h, lp["wq"].to(dtype))
-    k = torch.einsum("btd,dhk->bthk", h, lp["wk"].to(dtype))
-    v = torch.einsum("btd,dhk->bthk", h, lp["wv"].to(dtype))
+    if shards is None:
+        def w(name):
+            return lp[name].to(dtype)
+
+        to_tp = from_tp = _identity
+    else:
+        specs = _LAYER_SPECS
+
+        def w(name):
+            return shards.weight(lp[name], specs[name], dtype)
+
+        to_tp, from_tp = shards.to_tp, shards.from_tp
+    h = to_tp(_rms_norm(x, lp["attn_norm"]))
+    q = torch.einsum("btd,dhk->bthk", h, w("wq"))
+    k = torch.einsum("btd,dhk->bthk", h, w("wk"))
+    v = torch.einsum("btd,dhk->bthk", h, w("wv"))
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     attn = _dispatch_attention(q, k, v, cfg, attn_fn)
-    x = x + torch.einsum("bthk,hkd->btd", attn, lp["wo"].to(dtype))
-    h = _rms_norm(x, lp["mlp_norm"])
-    gate = torch.einsum("btd,df->btf", h, lp["w_gate"].to(dtype))
-    up = torch.einsum("btd,df->btf", h, lp["w_up"].to(dtype))
+    x = x + from_tp(torch.einsum("bthk,hkd->btd", attn, w("wo")))
+    h = to_tp(_rms_norm(x, lp["mlp_norm"]))
+    gate = torch.einsum("btd,df->btf", h, w("w_gate"))
+    up = torch.einsum("btd,df->btf", h, w("w_up"))
     mid = F.silu(gate) * up
-    return x + torch.einsum("btf,fd->btd", mid, lp["w_down"].to(dtype))
+    return x + from_tp(torch.einsum("btf,fd->btd", mid, w("w_down")))
+
+
+# each layer leaf's spec without the stacked layer axis
+_LAYER_SPECS = {name: spec[1:] for name, spec in
+                sharding_specs(TransformerConfig())["layers"].items()}
 
 
 def _resolve_attn_fn(cfg: TransformerConfig):
@@ -280,6 +369,27 @@ def _remat_wrap(fn, cfg: TransformerConfig):
     return wrapped
 
 
+def mesh_shards(mesh, cfg: TransformerConfig) -> Optional[sharding.MeshShards]:
+    """The collectives of ``mesh`` (None for none), after ``check_mesh``."""
+    if mesh is None:
+        return None
+    shards = sharding.MeshShards(mesh)
+    check_mesh(cfg, shards.sizes)
+    return shards
+
+
+def lm_head_weight(params: Dict[str, Any], cfg: TransformerConfig,
+                   shards: Optional[sharding.MeshShards] = None) -> torch.Tensor:
+    """The whole ``lm_head`` in the compute dtype: under a mesh gathered
+    over fsdp and tp (vocab-sharded ``P("fsdp", "tp")``), so every rank
+    takes the softmax over the full vocab as the JAX package's loss does."""
+    if shards is None:
+        return load_weight(params["lm_head"], cfg.dtype)
+    return shards.weight(sharding.local(params["lm_head"]),
+                         sharding_specs(cfg)["lm_head"], cfg.dtype,
+                         axes=("fsdp", "tp"))
+
+
 def forward_with_aux(
     params: Dict[str, Any],
     tokens: torch.Tensor,
@@ -292,26 +402,35 @@ def forward_with_aux(
 
     ``return_hidden=True`` returns the final-norm hidden states [B, T, D]
     (model dtype) instead of logits, for the chunked cross-entropy loss.
-    ``mesh`` must be None: the distributed paths are not yet ported."""
-    if mesh is not None:
-        raise _not_yet_ported("forward over a device mesh")
+    ``mesh``: a six-axis ``DeviceMesh`` over which ``params`` are DTensors
+    laid out by ``sharding_specs`` and ``tokens`` are this rank's rows (a
+    DTensor laid out by ``activation_spec``, or its local tensor); the
+    result is then this rank's rows, replicated over tp."""
     attn_fn = _resolve_attn_fn(cfg)
+    shards = mesh_shards(mesh, cfg)
+    tokens = sharding.local(tokens)
     dtype = cfg.dtype
     t = tokens.shape[1]
-    x = F.embedding(tokens, params["embed"]).to(dtype)  # [B, T, D]
+    if shards is None:
+        embed = params["embed"]
+    else:
+        embed = shards.weight(sharding.local(params["embed"]),
+                              sharding_specs(cfg)["embed"], None)
+    x = F.embedding(tokens, embed).to(dtype)  # [B, T, D]
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)[None, :]
     # one unbind per stacked leaf: indexing leaf[i] per layer would make
     # each backward write a zero gradient of the whole stack per layer
-    per_layer = {name: torch.unbind(leaf) for name, leaf in params["layers"].items()}
+    per_layer = {name: torch.unbind(sharding.local(leaf))
+                 for name, leaf in params["layers"].items()}
     layer = _remat_wrap(_apply_layer, cfg)
     for i in range(cfg.n_layers):
         lp = {name: leaves[i] for name, leaves in per_layer.items()}
-        x = layer(x, lp, positions, cfg, attn_fn)
-    x = _rms_norm(x, params["final_norm"])
+        x = layer(x, lp, positions, cfg, attn_fn, shards)
+    x = _rms_norm(x, sharding.local(params["final_norm"]))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
-    logits = torch.einsum("btd,dv->btv", x, params["lm_head"].to(dtype))
+    logits = torch.einsum("btd,dv->btv", x, lm_head_weight(params, cfg, shards))
     return logits.float(), aux
 
 

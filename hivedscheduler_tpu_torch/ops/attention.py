@@ -310,13 +310,28 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
+def _refuse_dtensor(q, k, v) -> None:
+    """The kernels read ``data_ptr()``; a DTensor's is its wrapper's, not
+    its shard's. Under a mesh the model hands the op each rank's local
+    shard (``models/transformer.py`` ``_dispatch_attention``)."""
+    from torch.distributed.tensor import DTensor
+
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if isinstance(x, DTensor):
+            raise TypeError(
+                f"flash attention takes plain local tensors; {name} is a "
+                f"DTensor (pass its to_local() shard)")
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention, the counterpart of the JAX package's
     ``_flash_core`` custom_vjp: the forward runs :func:`flash_forward` and
-    keeps q, k, v, o and lse; the backward runs :func:`flash_backward`."""
+    keeps q, k, v, o and lse; the backward runs :func:`flash_backward`.
+    A DTensor input raises ``TypeError``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True):
+        _refuse_dtensor(q, k, v)
         o, lse = flash_forward(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
@@ -341,8 +356,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`xla_attention`, counted, where T is not divisible by ``block_q``
     or ``block_k``, D is not a multiple of 8, H is not divisible by H_kv, or
     k's length differs from q's; the plain versions of the kernels
-    otherwise."""
+    otherwise. A DTensor input raises ``TypeError``: the op takes each
+    rank's local shard."""
     global FLASH_REFERENCE_ROUTES
+    _refuse_dtensor(q, k, v)
     if q.device.type == "cpu":
         _, t, h, d = q.shape
         h_kv = k.shape[2]

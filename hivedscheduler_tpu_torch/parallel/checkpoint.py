@@ -1,15 +1,18 @@
 """Train-state checkpointing with crash-atomic commits.
 
 Counterpart of ``hivedscheduler_tpu/parallel/checkpoint.py``. The payload
-is written with ``torch.distributed.checkpoint`` (which runs in one
-process without a process group); the on-disk commit protocol is the JAX
+is written with ``torch.distributed.checkpoint`` (DCP): over the open
+process group, every rank writing its own shards of DTensor state into the
+same directory (on a filesystem the gang's nodes share), or in one process
+when there is none. The on-disk commit protocol is the JAX
 package's, so its ``_committed_steps``, ``latest_step`` and
 ``read_metadata`` read a directory the port wrote:
 
 - each step has a directory ``<dir>/<step>/``;
 - the step is committed only once ``hived_complete.json`` lands in it,
   written by :func:`atomic_write_bytes` strictly after the payload is
-  fully written and synced;
+  fully written and synced: every rank syncs its files, all meet at a
+  barrier, then rank 0 writes the marker;
 - the marker holds ``{"step", "format", "extra"}``, and ``extra`` carries
   the loader state and :func:`train_metadata`, so they commit with the
   tensors they belong to.
@@ -28,7 +31,9 @@ over its leaves. Both are keyed by the leaf's path in the tree
 (``layers.wq``), never by the optimizer's positional index, so a tree of
 another geometry cannot load by shape luck. Restores load in place into
 the given tensors and the given optimizer, whose references to the
-parameters stay valid.
+parameters stay valid. A template of DTensors takes the saved state in its
+own layout: DCP reshards on load, so a checkpoint saved on one mesh
+restores onto another (or onto plain tensors on one device).
 """
 
 from __future__ import annotations
@@ -222,11 +227,45 @@ def _opt_state_dict(params: Any, optimizer) -> Dict[str, Dict[str, Any]]:
     return out
 
 
+def _distributed() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _is_rank0() -> bool:
+    import torch.distributed as dist
+
+    return not _distributed() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if _distributed():
+        dist.barrier()
+
+
+def _all_ranks(ok: bool) -> bool:
+    """True when ``ok`` holds on every rank (``ok`` itself without a
+    process group)."""
+    import torch.distributed as dist
+
+    if not _distributed():
+        return ok
+    oks = [None] * dist.get_world_size()
+    dist.all_gather_object(oks, ok)
+    return all(oks)
+
+
 @contextlib.contextmanager
 def _single_process():
-    """``torch.distributed.checkpoint`` runs alone in a process without a
-    process group, and warns that it does so on every call; this hides
-    that one warning."""
+    """Without a process group ``torch.distributed.checkpoint`` runs alone
+    in the process and warns that it does so on every call; this hides
+    that one warning. With a group it is not needed and hides nothing."""
+    if _distributed():
+        yield
+        return
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="torch.distributed is disabled")
         yield
@@ -238,6 +277,10 @@ def save(directory: str, step: int, params: Any, opt_state: Any,
     ``opt_state`` (the optimizer over its leaves). The step is committed,
     visible to ``latest_step`` and the restores, only once its completion
     marker is atomically in place; the payload files are synced first.
+    With a process group every rank calls this: each writes and syncs its
+    shards, all meet at a barrier, and rank 0 writes the marker and
+    prunes; a last barrier keeps every rank from going on before the
+    commit.
 
     ``extra``: JSON-serializable sidecar state of record (data-loader
     position, :func:`train_metadata`) stored INSIDE the commit marker, so
@@ -249,15 +292,17 @@ def save(directory: str, step: int, params: Any, opt_state: Any,
     from hivedscheduler_tpu_torch.obs import goodput as _goodput
 
     with _goodput.span("checkpoint_save"):
-        os.makedirs(directory, exist_ok=True)
         path = _step_dir(directory, step)
-        if os.path.isdir(path):
-            # a step saved again: uncommit it first, so no reader can pair
-            # its marker with a half-written payload
-            if os.path.exists(_marker_path(directory, step)):
-                os.unlink(_marker_path(directory, step))
-                _fsync_dir(path)
-            shutil.rmtree(path)
+        if _is_rank0():
+            os.makedirs(directory, exist_ok=True)
+            if os.path.isdir(path):
+                # a step saved again: uncommit it first, so no reader can
+                # pair its marker with a half-written payload
+                if os.path.exists(_marker_path(directory, step)):
+                    os.unlink(_marker_path(directory, step))
+                    _fsync_dir(path)
+                shutil.rmtree(path)
+        _barrier()
         state = {
             "params": {n: t.detach() for n, t in named_leaves(params).items()},
             "opt_state": _opt_state_dict(params, opt_state),
@@ -266,13 +311,16 @@ def save(directory: str, step: int, params: Any, opt_state: Any,
                                       thread_count=min(8, os.cpu_count() or 1))
         with _single_process():
             dcp.save(state, storage_writer=writer)
-        marker = {"step": step, "format": FORMAT}
-        if extra:
-            marker["extra"] = extra
-        atomic_write_bytes(
-            _marker_path(directory, step), json.dumps(marker).encode(),
-        )
-        _prune(directory)
+        _barrier()  # every rank's payload is written and synced
+        if _is_rank0():
+            marker = {"step": step, "format": FORMAT}
+            if extra:
+                marker["extra"] = extra
+            atomic_write_bytes(
+                _marker_path(directory, step), json.dumps(marker).encode(),
+            )
+            _prune(directory)
+        _barrier()
 
 
 def _prune(directory: str) -> None:
@@ -333,8 +381,9 @@ def _restore_ladder(directory: str, step: Optional[int],
     is tried first; if its payload is unreadable (torn or truncated
     storage past the commit marker), the ladder falls back to the next
     committed step, so a resume always lands on the newest complete
-    checkpoint. A marker of another format raises at once. Returns
-    ``(step, restored)``."""
+    checkpoint. A marker of another format raises at once. With a process
+    group the ranks agree on each step: if any rank cannot read it, all
+    fall back together. Returns ``(step, restored)``."""
     if not os.path.isdir(directory):
         raise FileNotFoundError(f"no checkpoint found under {directory}")
     if step is not None:
@@ -347,14 +396,17 @@ def _restore_ladder(directory: str, step: Optional[int],
     for s in candidates:
         _check_format(directory, s)
         try:
-            return s, do_restore(s)
+            restored = do_restore(s)
+            ok = True
         except Exception as e:  # torn payload despite the marker
-            last_exc = e
-            log.warning(
-                "checkpoint step %d under %s is unreadable (%s); "
-                "falling back to the previous complete checkpoint",
-                s, directory, e,
-            )
+            last_exc, ok = e, False
+        if _all_ranks(ok):
+            return s, restored
+        log.warning(
+            "checkpoint step %d under %s is unreadable (%s); "
+            "falling back to the previous complete checkpoint",
+            s, directory, last_exc or "on another rank",
+        )
     raise RuntimeError(
         f"every checkpoint under {directory} is unreadable "
         f"(tried steps {candidates})"
@@ -386,10 +438,11 @@ def _load_params(path: str, params: Any) -> None:
 
 def _load_opt_state(path: str, params: Any, optimizer) -> None:
     """Load the step's optimizer state into ``optimizer``. The templates
-    come from the checkpoint's own listing: a moment of a parameter's shape
-    is read straight onto the parameter's device, anything else (AdamW's
-    ``step`` count) onto the CPU, and ``load_state_dict`` then places each
-    entry as the optimizer keeps it."""
+    come from the checkpoint's own listing: a moment of a parameter's
+    shape is read straight into a tensor like the parameter (its device,
+    or its layout for a DTensor), anything else (AdamW's ``step`` count)
+    onto the CPU, and ``load_state_dict`` then places each entry as the
+    optimizer keeps it."""
     import torch
     import torch.distributed.checkpoint as dcp
 
@@ -403,10 +456,12 @@ def _load_opt_state(path: str, params: Any, optimizer) -> None:
         for key, meta in listing.items():
             if not key.startswith(prefix) or "." in key[len(prefix):]:
                 continue
-            size = tuple(meta.size)
-            device = p.device if size == tuple(p.shape) else torch.device("cpu")
-            entries[key[len(prefix):]] = torch.empty(
-                size, dtype=meta.properties.dtype, device=device)
+            size, dtype = tuple(meta.size), meta.properties.dtype
+            if size == tuple(p.shape):
+                template = torch.empty_like(p.detach(), dtype=dtype)
+            else:
+                template = torch.empty(size, dtype=dtype, device="cpu")
+            entries[key[len(prefix):]] = template
         if entries:
             templates[name] = entries
     _dcp_load({"opt_state": templates}, reader)

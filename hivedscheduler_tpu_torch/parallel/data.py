@@ -5,8 +5,15 @@ file, the deterministic synthetic corpus, the per-step host batches, the
 checkpointable batch stream and the background prefetch. Every draw is the
 same numpy call as the JAX package's, so corpus and batches are
 bit-identical for the same dataset and seed. The gather is the numpy one
-(the JAX package's native gather is bit-identical to it). Multi-host
-slicing stays as parameters; the port runs one process.
+(the JAX package's native gather is bit-identical to it).
+
+The split of a global batch differs from the JAX package's. There one
+process holds all of a host's chips and takes the rows of its process
+index. Here one process is one GPU, and the tp ranks of one data-parallel
+group must read the same rows, so :func:`data_split` gives the loader the
+rank's data-parallel coordinate (its dp x fsdp index and their product)
+in place of a process index and count; :func:`device_put_global` then
+builds the global [batch, seq] token DTensor from each rank's rows.
 """
 
 from __future__ import annotations
@@ -243,3 +250,40 @@ def prefetch(batches: Iterator[np.ndarray], depth: int = 2,
             except queue.Empty:
                 break
         thread.join(timeout=2.0)
+
+
+def data_split(mesh):
+    """(index, count) of this rank's rows in a global batch: its position
+    along the data axes, dp-major and fsdp-minor (``activation_spec``), and
+    the number of data-parallel positions. Ranks that differ only along tp
+    (or another model axis) get the same index, so they read the same
+    rows."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return (coord["dp"] * sizes["fsdp"] + coord["fsdp"],
+            sizes["dp"] * sizes["fsdp"])
+
+
+def device_put_global(local_batch: np.ndarray, token_sharding, global_batch: int):
+    """The global [global_batch, seq_len] token DTensor from this rank's
+    rows (``data_split``'s share), placed per ``token_sharding``
+    (``make_sharded_train_step``'s): sharded over dp and fsdp, replicated
+    over the other axes. No data moves between ranks."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    mesh, placements = token_sharding
+    _, count = data_split(mesh)
+    if local_batch.shape[0] * count != global_batch:
+        raise ValueError(
+            f"{local_batch.shape[0]} local rows x {count} data-parallel ranks "
+            f"is not the global batch {global_batch}")
+    # non_blocking: a blocking copy would wait for the device to drain
+    # every launch before it, and a loop that does not sync each step (eval)
+    # would lose its overlap of the next batch with the device's work
+    local = torch.from_numpy(np.ascontiguousarray(local_batch)).to(
+        mesh.device_type, non_blocking=True)
+    global_shape = (global_batch,) + tuple(local_batch.shape[1:])
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(global_shape),
+                              stride=torch.empty(global_shape, device="meta").stride())

@@ -1,30 +1,36 @@
 """LM loss, the training step and the forward-only evaluation step.
 
-Counterpart of ``hivedscheduler_tpu/parallel/train.py`` on one device:
-``loss_fn``, ``make_optimizer``, ``train_step`` (with gradient
-accumulation), the remat-policy override, ``make_train_step`` (the
-one-device counterpart of ``make_sharded_train_step``) and
-``make_eval_step`` (of ``make_sharded_eval_step``). The sharded factories,
-LoRA and the mesh are not yet ported.
+Counterpart of ``hivedscheduler_tpu/parallel/train.py``: ``loss_fn``,
+``make_optimizer``, ``train_step`` (with gradient accumulation), the
+remat-policy override, ``_shardings``, ``make_sharded_train_step`` and
+``make_sharded_eval_step`` over a six-axis ``DeviceMesh`` (dp, fsdp and tp;
+sp, pp and ep above 1 are not yet ported), and their one-device cousins
+``make_train_step`` and ``make_eval_step``. LoRA is not yet ported.
 
-The parameter tree is the JAX package's: a dict of f32 leaves. PyTorch
-updates in place, so a step returns the same tree and optimizer it was
-given, updated, where the JAX step returns new ones.
+The parameter tree is the JAX package's: a dict of f32 leaves, plain
+tensors on one device and DTensors laid out by
+``models.transformer.sharding_specs`` over a mesh. PyTorch updates in
+place, so a step returns the same tree and optimizer it was given,
+updated, where the JAX step returns new ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, List, Optional
+import logging
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
-from hivedscheduler_tpu_torch import resolve_device
+from hivedscheduler_tpu_torch import bridge, resolve_device
 from hivedscheduler_tpu_torch.models import transformer as tm
+from hivedscheduler_tpu_torch.parallel import sharding
 from hivedscheduler_tpu_torch.parallel.checkpoint import named_leaves
+
+log = logging.getLogger(__name__)
 
 
 def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.01) -> Callable:
@@ -54,7 +60,15 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
     backward recomputes one chunk's logits at a time and the [B, T, vocab]
     f32 logits never exist at once; the result is the same sum.
     ``include_aux`` is accepted for the reference's signature: the dense
-    model's aux loss is 0."""
+    model's aux loss is 0.
+
+    Under a ``mesh``, ``tokens`` are this rank's rows (see
+    ``forward_with_aux``) and the loss is the global mean over the rows of
+    every data-parallel rank, the same number on every rank; each rank's
+    gradient of it is its own rows' contribution (``MeshShards.data_sum``),
+    which ``train_step`` sums over the data axes."""
+    shards = tm.mesh_shards(mesh, cfg)
+    tokens = sharding.local(tokens)
     targets = torch.roll(tokens, -1, dims=1).long()
     b, t = tokens.shape
     mask = torch.ones((b, t), dtype=torch.float32, device=tokens.device)
@@ -64,7 +78,7 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
         per_tok = F.cross_entropy(
             logits.reshape(b * t, -1), targets.reshape(-1), reduction="none"
         ).reshape(b, t)
-        loss = torch.sum(per_tok * mask) / torch.sum(mask)
+        total = torch.sum(per_tok * mask)
     else:
         if t % ce_chunk:
             raise ValueError(
@@ -72,7 +86,7 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
             )
         hidden, aux = tm.forward_with_aux(params, tokens, cfg, mesh=mesh,
                                           return_hidden=True)
-        head = tm.load_weight(params["lm_head"], cfg.dtype)
+        head = tm.lm_head_weight(params, cfg, shards)
         total = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for s in range(0, t, ce_chunk):
             chunk = (hidden[:, s:s + ce_chunk], head,
@@ -83,7 +97,10 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
             else:
                 part = _chunk_ce(*chunk)
             total = total + part
+    if shards is None:
         loss = total / torch.sum(mask)
+    else:
+        loss = shards.data_sum(total / shards.data_sum(torch.sum(mask)))
     if include_aux:
         loss = loss + aux
     return loss
@@ -95,14 +112,27 @@ def _leaves(params) -> List[torch.Tensor]:
 
 
 def _accumulated_value_and_grad(grad_fn, params, tokens: torch.Tensor,
-                                grad_accum: int):
+                                grad_accum: int,
+                                shards: Optional[sharding.MeshShards] = None):
     """(loss, grads) of ``grad_fn(params, micro_tokens)`` averaged over
     ``grad_accum`` equal batch slices, one slice's activations alive at a
     time. For the dense model the average equals the full-batch gradient:
-    the LM loss is a mean over equal slices."""
+    the LM loss is a mean over equal slices.
+
+    Under a mesh each rank slices its own rows. Where they do not split
+    into ``grad_accum`` slices, every rank takes the whole global batch and
+    runs each slice replicated, logged: JAX's fallback when a slice does
+    not split over dp x fsdp (the global-mean loss keeps the sum of the
+    ranks' gradients exact)."""
     if grad_accum <= 1:
         return grad_fn(params, tokens)
     b = tokens.shape[0]
+    if b % grad_accum and shards is not None:
+        log.info("%s local rows do not split into %s grad_accum slices: "
+                 "each slice runs replicated over the data axes", b,
+                 grad_accum)
+        tokens = shards.whole_rows(tokens)
+        b = tokens.shape[0]
     if b % grad_accum:
         raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
     loss_sum, grad_sum = None, None
@@ -126,17 +156,27 @@ def train_step(params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor,
 
     ``skip_nonfinite``: when the loss comes out non-finite, params and the
     optimizer state (its step count included) are left untouched and the
-    loss is still returned, for the caller's divergence accounting."""
+    loss is still returned, for the caller's divergence accounting. Under
+    a mesh the loss is global, so every rank decides the same way.
+
+    Under a ``mesh`` ``params`` are DTensors and ``tokens`` this rank's
+    rows; each gradient is summed over the data axes along which its
+    parameter is replicated before the update."""
     leaves = _leaves(params)
+    shards = tm.mesh_shards(mesh, cfg)
 
     def grad_fn(p, micro):
         loss = loss_fn(p, micro, cfg, mesh, ce_chunk=ce_chunk)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
-    loss, grads = _accumulated_value_and_grad(grad_fn, params, tokens, grad_accum)
+    loss, grads = _accumulated_value_and_grad(
+        grad_fn, params, sharding.local(tokens), grad_accum, shards)
     if skip_nonfinite and not bool(torch.isfinite(loss)):
         return params, optimizer, loss
     for leaf, g in zip(leaves, grads):
+        if shards is not None:
+            with torch.no_grad():
+                shards.sync_grad(sharding.local(g), leaf)
         leaf.grad = g
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
@@ -214,3 +254,105 @@ def make_eval_step(cfg: tm.TransformerConfig, device: str | torch.device = "cuda
                            include_aux=False)
 
     return eval_step, init_fn
+
+
+class TokenSharding(NamedTuple):
+    """Where a global [batch, seq] token batch lives: the mesh and the
+    DTensor placements of ``activation_spec`` (the counterpart of JAX's
+    token ``NamedSharding``)."""
+
+    mesh: Any
+    placements: list
+
+
+def _shardings(cfg: tm.TransformerConfig, mesh) -> TokenSharding:
+    """Check ``cfg``'s layout over ``mesh`` and return the token sharding,
+    the one home of the setup shared by the train and eval factories (the
+    parameters are placed by ``sharding_specs``, on
+    ``sharding.param_mesh(mesh)``). Raises ``ValueError`` when heads do not
+    divide tp (as the JAX package's does) or a sharded weight dim does not
+    split evenly, and "not yet ported" for sp, pp or ep above 1."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    tm.check_mesh(cfg, sizes)
+    shapes = {name: tuple(t.shape) for name, t in named_leaves(
+        tm.init_params(cfg, None, "meta")).items()}
+    for name, spec in named_leaves(tm.sharding_specs(cfg)).items():
+        sharding.check_divisible(shapes[name], spec, sizes, name)
+    return TokenSharding(mesh, sharding.placements(tm.activation_spec(), mesh))
+
+
+def _init_on_mesh(cfg: tm.TransformerConfig, mesh, generator: torch.Generator):
+    """Params from ``generator`` (the same seed on every rank), each leaf
+    laid out by ``sharding_specs`` on ``mesh``. Every rank draws the whole
+    tree once and keeps its shards."""
+    full = tm.init_params(cfg, generator, mesh.device_type)
+    return bridge.distribute_tree(full, mesh, tm.sharding_specs(cfg))
+
+
+def make_sharded_train_step(
+    cfg: tm.TransformerConfig,
+    mesh,
+    optimizer: Optional[Callable] = None,
+    grad_accum: int = 1,
+    ce_chunk: int = 0,
+    skip_nonfinite: bool = False,
+    remat_policy: Optional[str] = None,
+):
+    """The training step over a six-axis ``DeviceMesh``
+    (``parallel/topology.make_mesh``). Returns ``(step, init_fn,
+    token_sharding)``:
+
+    - ``init_fn(generator) -> (params, opt_state)``: f32 DTensor params
+      laid out by ``sharding_specs`` that require grad (every rank passes a
+      generator with the same seed), and ``opt_state``, the optimizer
+      (AdamW by default) over those DTensor leaves; its moments are made at
+      the first update as zeros like their parameter, with its placements,
+      as the JAX package's ``opt_shardings`` places them;
+    - ``step(params, opt_state, tokens) -> (params, opt_state, loss)``, one
+      update in place; ``tokens`` is the global batch as a DTensor
+      (``parallel/data.device_put_global``) and ``loss`` the global mean, a
+      0-d f32 tensor, the same on every rank;
+    - ``token_sharding``: the mesh and placements of the token batch.
+
+    ``grad_accum``, ``ce_chunk``, ``skip_nonfinite`` and ``remat_policy``
+    are those of :func:`make_train_step`. Even on a mesh of one device the
+    state is DTensors: the one-GPU path is the same code as the N-GPU
+    one."""
+    cfg = _apply_remat_policy(cfg, remat_policy)
+    tm.check_supported(cfg)
+    token_sharding = _shardings(cfg, mesh)
+    make_opt = optimizer or make_optimizer()
+
+    def init_fn(generator: torch.Generator):
+        params = _init_on_mesh(cfg, mesh, generator)
+        for leaf in _leaves(params):
+            leaf.requires_grad_(True)
+        return params, make_opt(_leaves(params))
+
+    def step(params, opt_state, tokens):
+        return train_step(params, opt_state, tokens, cfg, mesh=mesh,
+                          grad_accum=grad_accum, ce_chunk=ce_chunk,
+                          skip_nonfinite=skip_nonfinite)
+
+    return step, init_fn, token_sharding
+
+
+def make_sharded_eval_step(cfg: tm.TransformerConfig, mesh, ce_chunk: int = 0):
+    """Forward-only LM loss under the training layout, for the ``eval``
+    CLI. Returns ``(eval_step, init_fn, token_sharding)``: ``init_fn(
+    generator) -> params`` laid out by ``sharding_specs`` (a
+    checkpoint-restore template), and ``eval_step(params, tokens) -> mean
+    next-token CE`` over the global batch, the same on every rank, under
+    ``torch.inference_mode()``."""
+    tm.check_supported(cfg)
+    token_sharding = _shardings(cfg, mesh)
+
+    def init_fn(generator: torch.Generator):
+        return _init_on_mesh(cfg, mesh, generator)
+
+    def eval_step(params, tokens) -> torch.Tensor:
+        with torch.inference_mode():
+            return loss_fn(params, tokens, cfg, mesh, ce_chunk=ce_chunk,
+                           include_aux=False)
+
+    return eval_step, init_fn, token_sharding

@@ -1,4 +1,4 @@
-"""Train the flagship transformer on one device.
+"""Train the flagship transformer, on one GPU or a gang of them.
 
 Counterpart of ``hivedscheduler_tpu/train.py``, with the same flags and
 defaults, the same step loop and the same log line:
@@ -10,6 +10,16 @@ defaults, the same step loop and the same log line:
 on the CPU. ``--attn flash`` runs the flash kernels forward and backward;
 the optimizer is AdamW. ``--timeline`` writes the same per-step JSONL and
 syncs every step.
+
+One process drives one GPU. Step 1 opens the process group from the
+scheduler's gang handoff (``POD_BIND_INFO``, ``NODE_NAME``,
+``NVIDIA_VISIBLE_DEVICES`` and ``LOCAL_RANK``; a one-rank group when the
+run was not placed by the scheduler), NCCL on ``cuda`` and gloo on
+``cpu``; step 2 lays the mesh ``infer_axes(world, tp=, fsdp=)`` over it,
+dp taking the rest. ``--tp`` and ``--fsdp`` shard the model (Megatron
+tensor parallelism, ZeRO-3); tokens/s is over the global batch. Rank 0
+alone writes the logs, the timeline and the goodput spool; every rank
+takes part in each checkpoint save.
 
 Preemptible training, as in the JAX CLI: with ``--checkpoint-dir`` the run
 commits a checkpoint every ``--checkpoint-every`` steps and at its end, and
@@ -23,9 +33,11 @@ and skips the poisoned batch (``--max-rollbacks`` times at most).
 ``--init-from`` warm-starts the parameters with a fresh optimizer;
 ``--goodput-file`` spools the goodput ledger's step phases.
 
-Mesh axes above 1, pipelining, MoE, LoRA, the overlapped stack, elastic
-meshes, the profiler and the journal are not yet ported and exit with an
-error rather than being ignored.
+Sequence parallelism (``--sp``), pipelining (``--pp``,
+``--microbatches``), expert parallelism (``--ep``), MoE, LoRA, the
+overlapped stack, elastic meshes (``--elastic``, ``--min-chips``), the
+profiler and the journal are not yet ported and exit with an error
+rather than being ignored.
 """
 
 from __future__ import annotations
@@ -46,11 +58,18 @@ PORTED_ATTN = ("xla", "flash")
 STEP_LOG = "step %s loss %.4f | %.0f tok/s"
 
 
+UNPORTED_AXES = {
+    "sp": "sequence parallelism (the ring family)",
+    "pp": "pipelining",
+    "ep": "expert parallelism",
+}
+
+
 def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
-    for flag in ("tp", "sp", "fsdp", "pp", "ep"):
+    for flag, what in UNPORTED_AXES.items():
         if getattr(args, flag) > 1:
-            parser.error(f"--{flag} > 1 is not yet ported: the port trains on "
-                         "one device")
+            parser.error(f"--{flag} > 1 is not yet ported: {what}; the port "
+                         "shards over dp, fsdp and tp")
     unported = {
         "--microbatches": args.microbatches > 0,
         "--n-experts > 0 (MoE)": args.n_experts > 0,
@@ -83,13 +102,19 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--n-kv-heads", type=int, default=0,
                         help="GQA shared k/v heads (0 = n_heads, 1 = MQA)")
     parser.add_argument("--d-ff", type=int, default=1408)
-    parser.add_argument("--tp", type=int, default=1, help="not yet ported above 1")
-    parser.add_argument("--sp", type=int, default=1, help="not yet ported above 1")
-    parser.add_argument("--fsdp", type=int, default=1, help="not yet ported above 1")
-    parser.add_argument("--pp", type=int, default=1, help="not yet ported above 1")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree (heads and the MLP "
+                        "hidden dim; must divide the head counts)")
+    parser.add_argument("--sp", type=int, default=1,
+                        help="sequence parallelism: not yet ported above 1")
+    parser.add_argument("--fsdp", type=int, default=1,
+                        help="fully-sharded data-parallel degree (ZeRO-3)")
+    parser.add_argument("--pp", type=int, default=1,
+                        help="pipelining: not yet ported above 1")
     parser.add_argument("--microbatches", type=int, default=0,
                         help="not yet ported")
-    parser.add_argument("--ep", type=int, default=1, help="not yet ported above 1")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert parallelism: not yet ported above 1")
     parser.add_argument("--n-experts", type=int, default=0,
                         help="not yet ported above 0")
     parser.add_argument("--moe-top-k", type=int, default=1)
@@ -188,25 +213,52 @@ def main(argv=None) -> int:
     _reject_unported(parser, args)
 
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
+    from hivedscheduler_tpu_torch.parallel import distributed
+
+    # the rank, read from the gang handoff before any process group, so
+    # that only rank 0 spools goodput
+    gang = distributed.gang_from_env()
     # goodput ledger: anchors the process wallclock here (phase `init`),
     # BEFORE the torch import, so bring-up is attributed, not leaked
     from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
 
-    if args.goodput_file:
+    if args.goodput_file and (gang is None or gang[1] == 0):
         obs_goodput.enable(spool_path=args.goodput_file)
 
+    # 1. the process group from the scheduler's gang handoff (one rank when
+    #    the run was not placed by the scheduler)
+    rank, world = distributed.initialize_from_gang(device=args.device)
+    try:
+        return _train(parser, args, rank, world)
+    finally:
+        distributed.shutdown()
+
+
+def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
+    if rank:
+        logging.getLogger().setLevel(logging.WARNING)  # rank 0 logs
     import torch
 
     from hivedscheduler_tpu_torch import resolve_device
     from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
     from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
     from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import distributed
     from hivedscheduler_tpu_torch.parallel import supervisor as sup_lib
-    from hivedscheduler_tpu_torch.parallel.topology import MeshAxes
-    from hivedscheduler_tpu_torch.parallel.train import make_train_step
+    from hivedscheduler_tpu_torch.parallel import topology
+    from hivedscheduler_tpu_torch.parallel.train import make_sharded_train_step
 
     device = resolve_device(args.device)
-    axes = MeshAxes()  # one device: every axis is 1
+    # 2. the mesh over the gang's GPUs; dp takes what tp and fsdp leave
+    try:
+        axes = topology.infer_axes(world, tp=args.tp, fsdp=args.fsdp)
+    except ValueError as err:
+        parser.error(str(err))
+    mesh = topology.make_mesh(axes, device.type)
+    data_index, data_count = data_lib.data_split(mesh)
+    log.info("rank %s/%s: mesh %s, data rows %s of %s", rank, world, axes,
+             data_index, data_count)
     cfg = tm.TransformerConfig(
         vocab_size=args.vocab_size,
         d_model=args.d_model,
@@ -227,8 +279,8 @@ def main(argv=None) -> int:
         attn_block_k=args.block_k,
     )
     log.info("device %s, config %s", device, cfg)
-    step_fn, init_fn = make_train_step(
-        cfg, device, grad_accum=args.grad_accum, ce_chunk=args.ce_chunk,
+    step_fn, init_fn, token_sharding = make_sharded_train_step(
+        cfg, mesh, grad_accum=args.grad_accum, ce_chunk=args.ce_chunk,
         skip_nonfinite=args.on_nan == "skip")
     # the step updates these tensors and this optimizer in place; restores
     # load into them too, so the optimizer's references stay valid
@@ -256,9 +308,11 @@ def main(argv=None) -> int:
                 global_batch=args.batch, seq_len=args.seq_len,
             )
             if source_mesh is not None:
+                # the templates carry this run's layout: DCP reshards
                 log.warning(
                     "cross-topology resume: the checkpoint was saved on mesh "
-                    "%s, restoring onto one device", source_mesh)
+                    "%s, restoring onto %s", source_mesh,
+                    {n: s for n, s in zip(axes.names, axes.shape)})
             start_step, resume_meta = restore_state()
             log.info("resumed from checkpoint step %s", start_step)
 
@@ -279,9 +333,11 @@ def main(argv=None) -> int:
         whose marker carries no loader state)."""
         if loader_dict:
             return data_lib.CheckpointableBatches.from_dict(
-                loader_dict, dataset, args.batch, args.seq_len)
+                loader_dict, dataset, args.batch, args.seq_len,
+                process_index=data_index, process_count=data_count)
         loader = data_lib.CheckpointableBatches(
-            dataset, args.batch, args.seq_len, seed=args.data_seed)
+            dataset, args.batch, args.seq_len, process_index=data_index,
+            process_count=data_count, seed=args.data_seed)
         if fast_forward_to:
             loader.skip(fast_forward_to)
         return loader
@@ -321,17 +377,19 @@ def main(argv=None) -> int:
                   extra={"loader": loader_snap, **train_meta})
 
     tokens_per_step = args.batch * args.seq_len
-    timeline = open(args.timeline, "w") if args.timeline else None
+    timeline = open(args.timeline, "w") if args.timeline and rank == 0 else None
     preempted = False
     diverged = None
     step = start_step
     t0 = time.perf_counter()
+
     with sup:
-        batches = data_lib.prefetch(stream(loader), depth=args.prefetch,
-                                    stop=sup.preemption.event)
+        # no stop event: the ranks decide preemption together at the top
+        # of each step, so every rank runs the step it agreed to
+        batches = data_lib.prefetch(stream(loader), depth=args.prefetch)
         try:
             while step < args.steps:
-                if sup.preempt_requested:
+                if distributed.any_rank(sup.preempt_requested, device):
                     preempted = True
                     break
                 sup.heartbeat(step)
@@ -341,16 +399,12 @@ def main(argv=None) -> int:
                 sup.faults.take_nan(step + 1, params)
                 step_t0 = time.perf_counter()
                 obs_goodput.phase("data_wait")
-                try:
-                    local_batch, snap = next(batches)
-                except StopIteration:
-                    # the preemption event woke a consumer blocked on data
-                    preempted = True
-                    break
+                local_batch, snap = next(batches)
                 # compile / rework / step_compute, decided against the step
                 # high-water mark (rework = re-doing steps a kill threw away)
                 obs_goodput.note_step(step + 1, is_compile=step == start_step)
-                tokens = torch.from_numpy(local_batch).to(device, non_blocking=True)
+                tokens = data_lib.device_put_global(local_batch, token_sharding,
+                                                    args.batch)
                 params, opt_state, loss = step_fn(params, opt_state, tokens)
                 # waits for the device: per-step times are true, the watchdog
                 # sees completed work and the guard sees the loss before the
@@ -386,9 +440,8 @@ def main(argv=None) -> int:
                             step, meta = restore_state()
                             loader = make_loader(meta.get("loader"), step)
                             loader_snap = loader.to_dict()
-                            batches = data_lib.prefetch(
-                                stream(loader), depth=args.prefetch,
-                                stop=sup.preemption.event)
+                            batches = data_lib.prefetch(stream(loader),
+                                                        depth=args.prefetch)
                             log.warning(
                                 "divergence (%s): rolled back to checkpoint "
                                 "step %s; data position %s will be skipped",

@@ -24,7 +24,9 @@ greedy generate, and the generate CLI prints its rows. The serving engine
 on the card (bf16) serves the same streams dense and paged, eager and
 through its CUDA-graph decode window, greedy and sampled, int8 KV dense
 and paged; its graph refuses a rebound cache; the serve CLI prints its
-request lines.
+request lines. K1-K3 hold at the local shapes a tp=2 shard of the
+flagship launches, and a train step on a one-GPU NCCL mesh (DTensor
+state) equals the single-device step.
 """
 
 import os
@@ -535,3 +537,50 @@ def test_serve_cli_on_card(cuda, capsys):
         outs.append(capsys.readouterr().out.splitlines())
         assert len(outs[-1]) == 4
     assert outs[0] != outs[1]  # the prefix-cache run serves system-prompt requests
+
+
+# -- the mesh path on one card ------------------------------------------------
+
+# a tp=2 shard of the flagship: half its heads
+TP_LOCAL = (8, 2048, 8, 4, 128)
+
+
+def test_kernels_at_the_tp_local_shape_match_plain(cuda):
+    b, t, h, h_kv, d = TP_LOCAL
+    q, k, v, o, lse, do = _bwd_inputs(b, t, h, h_kv, d, True)
+    o_ref, lse_ref = tattn.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL)
+    assert _worst_row_rel(o, o_ref) <= O_ROW_REL
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+    got = tattn.flash_backward(q, k, v, o, lse, do, causal=True)
+    want = tattn.flash_backward_plain(q, k, v, o, lse, do, causal=True)
+    for x, ref, name in zip(got, want, ("dq", "dk", "dv")):
+        fro, row = _grad_errs(x, ref)
+        assert fro <= GRAD_REL and row <= GRAD_ROW_REL, (name, fro, row)
+
+
+def test_world_1_nccl_mesh_step_equals_the_single_device_step(cuda):
+    from hivedscheduler_tpu_torch.parallel import data as tdata
+    from hivedscheduler_tpu_torch.parallel import distributed, topology
+
+    cfg = ttm.TransformerConfig(vocab_size=512, d_model=256, n_heads=2, n_kv_heads=1,
+                                n_layers=2, d_ff=512, max_seq_len=256,
+                                attn_impl="flash", remat="dots")
+    tokens = np.random.default_rng(3).integers(0, 512, (2, 256)).astype(np.int32)
+    step, init_fn = ttrain.make_train_step(cfg, cuda, ce_chunk=128)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    want = [float(step(params, opt, torch.from_numpy(tokens).cuda())[2]) for _ in range(2)]
+    try:
+        assert distributed.initialize_from_gang(device="cuda") == (0, 1)
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
+        mstep, minit, tok_sh = ttrain.make_sharded_train_step(cfg, mesh, ce_chunk=128)
+        mparams, mopt = minit(torch.Generator(device="cuda").manual_seed(0))
+        before = tattn.FLASH_BWD_DKV_LAUNCHES
+        got = [float(mstep(mparams, mopt, tdata.device_put_global(tokens, tok_sh, 2))[2])
+               for _ in range(2)]
+        assert tattn.FLASH_BWD_DKV_LAUNCHES - before == 2 * cfg.n_layers
+    finally:
+        distributed.shutdown()
+    assert all(np.isfinite(got))
+    assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= 1e-3, (got, want)

@@ -222,12 +222,26 @@ def test_unported_configs_raise(over, kind):
         assert "not yet ported" in str(err.value)
 
 
+class _SpMesh:
+    """The six axes of a mesh with sp = 2 (all the forward reads of one
+    before it refuses the mesh)."""
+
+    mesh_dim_names = ("dp", "fsdp", "pp", "ep", "tp", "sp")
+    mesh = torch.zeros((1, 1, 1, 1, 1, 2))
+
+    def get_group(self, name):
+        return None
+
+
 def test_forward_over_a_mesh_raises():
+    # dp, fsdp and tp are ported (tests/test_torch_sharded_train.py); a
+    # mesh with sp > 1 needs the ring family, which is not
     _, tcfg = _configs("xla", "f32")
     with pytest.raises(NotImplementedError) as err:
         ttm.forward(None, torch.zeros((1, 8), dtype=torch.int32), tcfg,
-                    mesh=object())
+                    mesh=_SpMesh())
     assert "not yet ported" in str(err.value)
+    assert "sp > 1" in str(err.value)
 
 
 def test_resolve_device():
