@@ -124,6 +124,26 @@ Phases, each of which must pass or the script exits non-zero:
     protocol, restored bit-identically into fresh templates, one flipped
     bit caught, with the save and restore seconds (free space printed
     first).
+(m) sequence-parallel attention (the ring family) on one card: K1, K2 and
+    K3's f32 forms (o, dq, dk, dv stored in f32, as each ring hop needs)
+    against their plain versions at the main path's shape (the flagship,
+    causal: sp = 1) and at one sp = 4 rank's hop (q [1,2048,16,128], k/v
+    [1,2048,8,128]), diagonal and unmasked, with (b)'s and (f)'s limits;
+    rounded once to bf16 their outputs must equal the bf16 kernels' bit for
+    bit; run twice, bit-identical; (b)'s and (f)'s planted faults caught;
+    each timed against its bf16 form in turns, beside its bound, the plain
+    version and the library's bf16 call; every rank's hop schedule of a
+    4-rank ``ring_flash`` and ``ring_zigzag_flash`` over one sequence of
+    8192 replayed on the card through the port's per-hop functions, the
+    merged o and the gradients held to K1-K3 over the whole sequence
+    (relative 5e-3 and 1e-2); ``train`` with (h)'s flags and ``--attn
+    ring_flash`` (losses equal to (h)'s flash, within 1e-5 required; K1-f32
+    12, K2-f32 6 and K3-f32 6 launches a step and no bf16 launch) and
+    ``--attn ring_zigzag_flash`` (within 1e-3; three quarter-blocks a
+    layer), ``eval --attn ring_flash`` against flash (1e-5), ``--attn
+    ring`` and ``ulysses`` at 2 layers against xla (1e-3, no kernel); then
+    the steps of flash, ring_flash and ring_zigzag_flash timed in turns by
+    CUDA events on the world-1 mesh.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -584,9 +604,9 @@ def phase_backward_time() -> dict:
     return timing
 
 
-def run_train(attn_impl: str, steps: int):
-    """``train.main`` -> (its timeline records, checked; the peak device
-    memory of the run in bytes)."""
+def run_train(attn_impl: str, steps: int, args=TRAIN_ARGS):
+    """``train.main`` with ``args`` -> (its timeline records, checked; the
+    peak device memory of the run in bytes)."""
     import torch
 
     from hivedscheduler_tpu_torch import train as port_train
@@ -599,8 +619,8 @@ def run_train(attn_impl: str, steps: int):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "timeline.jsonl")
         try:
-            rc = port_train.main(TRAIN_ARGS + ["--attn", attn_impl, "--steps",
-                                               str(steps), "--timeline", path])
+            rc = port_train.main(args + ["--attn", attn_impl, "--steps",
+                                         str(steps), "--timeline", path])
         finally:
             logger.removeHandler(lines)
         with open(path) as f:
@@ -2176,6 +2196,434 @@ def phase_mesh(h_flash: dict) -> None:
     print(f"[l] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase (m): sequence-parallel attention. One sp = 4 rank's hop of a long
+# context at the flagship heads, q [1, 2048, 16, 128], k/v [1, 2048, 8, 128];
+# the replayed ring is 4 such ranks over one sequence of 8192
+RING_HOP = dict(b=1, t=2048, h=16, h_kv=8, d=128)
+RING_SP, RING_T = 4, 8192
+# ring_zigzag_flash at sp = 1 on the main path: (h)'s sequence in two halves,
+# each hop causal (a half against itself) or unmasked (the second against the
+# first)
+ZIGZAG_HALF = dict(FLAGSHIP, t=FLAGSHIP["t"] // 2)
+# the f32 forms must keep f32 precision: the share of their outputs that a
+# bf16 holds exactly (a store rounded to bf16 and widened gives 1; a true f32
+# store only the exact zeros and values, such as o's first row under a causal
+# mask, a small share)
+F32_EXACT_BF16_MAX = 0.1
+# the replay's merged o and gradients against the whole-sequence kernels,
+# relative Frobenius: both sides round to bf16, and the replay merges f32
+# partials where the kernels keep one online softmax
+RING_O_REL = 5e-3
+RING_GRAD_REL = 1e-2
+# ring_zigzag_flash splits each row's softmax over quarter-blocks merged in
+# f32, so its losses part from flash's by rounding (the loss limit of (d));
+# ring_flash's one diagonal hop merges exactly, and eval is held to 1e-5
+ZIGZAG_LOSS_ATOL = 1e-3
+RING_LOSS_ATOL = 1e-5
+# the einsum ring and Ulysses run no kernel: this depth, held to xla's
+RING_EINSUM_LAYERS = 2
+# rounds of (flash, ring_flash, zigzag, zigzag, ring_flash, flash) steps
+RING_TURNS = 2
+RING_IMPLS = ("flash", "ring_flash", "ring_zigzag_flash")
+
+
+def ring_replay(q, k, v, do, n: int, zigzag: bool):
+    """Every rank's hop schedule of an ``n``-rank ``ring_flash`` (or
+    ``ring_zigzag_flash``) over one whole sequence, replayed in one process
+    through the port's per-hop functions (``_ring_hop``/``_zigzag_hops``,
+    ``_flash_block``, ``_merge_flash_partial``, ``_flash_block_grad``) ->
+    (out [B, T, H, D] in q's dtype, dq, dk, dv f32), in the sequence's
+    order. Rank r holds rows [r T/n, (r + 1) T/n), or in the zigzag layout
+    the half-chunks r and 2n-1-r; its step s attends the blocks of rank r -
+    s, in the ring's order."""
+    import torch
+
+    from hivedscheduler_tpu_torch.parallel import ring_attention as ra
+
+    b, t, h, d = q.shape
+    if zigzag:
+        half = t // (2 * n)
+        spans = [[(r * half, half), ((2 * n - 1 - r) * half, half)] for r in range(n)]
+    else:
+        spans = [[(r * (t // n), t // n)] for r in range(n)]
+
+    def hops(src, r):
+        if zigzag:
+            return ra._zigzag_hops(src, r)
+        hop = ra._ring_hop(src, r, True)
+        return [] if hop is None else [(0, 0, hop)]
+
+    def part(x, r, j):
+        start, length = spans[r][j]
+        return x[:, start:start + length].contiguous()
+
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    for r in range(n):
+        acc = [ra._zero_flash_partial(b, h, length, d, q.device) for _, length in spans[r]]
+        for step in range(n):
+            src = (r - step) % n
+            for qj, kj, diag in hops(src, r):
+                acc[qj] = ra._merge_flash_partial(acc[qj], ra._flash_block(
+                    part(q, r, qj), part(k, src, kj), part(v, src, kj), diag))
+        for (start, length), (o_acc, lse_acc) in zip(spans[r], acc):
+            out[:, start:start + length] = o_acc.permute(0, 2, 1, 3).to(q.dtype)
+            lse[:, :, start:start + length] = lse_acc
+    dq = torch.zeros(q.shape, device=q.device)
+    dk = torch.zeros(k.shape, device=q.device)
+    dv = torch.zeros_like(dk)
+    for r in range(n):
+        for step in range(n):
+            src = (r - step) % n
+            for qj, kj, diag in hops(src, r):
+                (qs, ql), (ks, kl) = spans[r][qj], spans[src][kj]
+                dq_blk, dk_blk, dv_blk = ra._flash_block_grad(
+                    part(q, r, qj), part(k, src, kj), part(v, src, kj), part(out, r, qj),
+                    lse[:, :, qs:qs + ql].reshape(b * h, ql).contiguous(), part(do, r, qj),
+                    diag)
+                dq[:, qs:qs + ql] += dq_blk
+                dk[:, ks:ks + kl] += dk_blk
+                dv[:, ks:ks + kl] += dv_blk
+    return out, dq, dk, dv
+
+
+def _f32_kernel_checks() -> dict:
+    """K1-K3's f32 forms against their plain versions at the shapes the
+    main path gives them (sp = 1: ring_flash's flagship causal hop,
+    ring_zigzag_flash's causal and unmasked half-sequence hops) and at one
+    sp = 4 ring hop's (diagonal and unmasked), against their bf16 forms (the
+    f32 outputs rounded once to bf16 must equal them bit for bit: only the
+    epilogue's store differs), for f32 precision (few outputs a bf16 holds
+    exactly), run twice, and with (b)'s and (f)'s planted faults; returns
+    the main path's max |err| of each."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    f, zz, hp = FLAGSHIP, ZIGZAG_HALF, RING_HOP
+    cases = [
+        ("main_path_causal", f["b"], f["t"], f["h"], f["h_kv"], f["d"], True),
+        ("zigzag_half_causal", zz["b"], zz["t"], zz["h"], zz["h_kv"], zz["d"], True),
+        ("zigzag_half_unmasked", zz["b"], zz["t"], zz["h"], zz["h_kv"], zz["d"], False),
+        ("hop_diagonal", hp["b"], hp["t"], hp["h"], hp["h_kv"], hp["d"], True),
+        ("hop_unmasked", hp["b"], hp["t"], hp["h"], hp["h_kv"], hp["d"], False),
+    ]
+    f32 = torch.float32
+
+    def exact_bf16(x):
+        return float((x == x.to(torch.bfloat16).float()).float().mean())
+    max_err = {}
+    for i, (name, b, t, h, h_kv, d, causal) in enumerate(cases):
+        q, k, v = make_qkv(b, t, h, h_kv, d, seed=60 + i)
+        do = make_qkv(b, t, h, h_kv, d, seed=70 + i)[0]
+        o, lse = attn.flash_forward(q, k, v, causal=causal, out_dtype=f32)
+        o16, lse16 = attn.flash_forward(q, k, v, causal=causal)
+        o_ref, lse_ref = attn.flash_attention_plain(q, k, v, causal=causal, out_dtype=f32)
+        # K2/K3 read the merged out in bf16, as the ring hands it
+        got = attn.flash_backward(q, k, v, o16, lse, do, causal=causal, grad_dtype=f32)
+        got16 = attn.flash_backward(q, k, v, o16, lse, do, causal=causal)
+        ref = attn.flash_backward_plain(q, k, v, o16, lse, do, causal=causal, grad_dtype=f32)
+        torch.cuda.synchronize()
+        check(o.dtype == f32 and all(x.dtype == f32 for x in got),
+              f"{name}: f32 forms returned {o.dtype}, {[x.dtype for x in got]}")
+        check(all(bool(torch.isfinite(x).all()) for x in (o, lse, *got)),
+              f"{name}: non-finite f32 output")
+        o_fro, o_row = rel_errs(o, o_ref)
+        lse_err = float((lse - lse_ref).abs().max())
+        errs = {n: rel_errs(x, r, floor=1e-3) for n, x, r in zip(("dq", "dk", "dv"), got, ref)}
+        same = (torch.equal(o.to(torch.bfloat16), o16) and torch.equal(lse, lse16)
+                and all(torch.equal(x.to(torch.bfloat16), y) for x, y in zip(got, got16)))
+        exact = {n: exact_bf16(x) for n, x in zip(("o", "dq", "dk", "dv"), (o, *got))}
+        print(f"[m] {name} q [{b},{t},{h},{d}] k/v [{b},{t},{h_kv},{d}] causal={causal}: "
+              f"K1-f32 o rel {o_fro:.3e} (<= {O_REL}), worst row {o_row:.3e} "
+              f"(<= {O_ROW_REL}), max|lse err| {lse_err:.3e} (<= {LSE_ATOL}); K2/K3-f32 "
+              + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}" for n, (fr, rw) in errs.items())
+              + f" (limits {GRAD_REL}, {GRAD_ROW_REL}); rounded to bf16 equal to the bf16 "
+              f"kernels' outputs: {same}; share a bf16 holds exactly "
+              + ", ".join(f"{n} {x:.3e}" for n, x in exact.items())
+              + f" (<= {F32_EXACT_BF16_MAX})")
+        check(o_fro <= O_REL and o_row <= O_ROW_REL and lse_err <= LSE_ATOL,
+              f"{name}: K1-f32 disagrees with its plain version")
+        check(all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for fr, rw in errs.values()),
+              f"{name}: K2/K3-f32 disagree with their plain version")
+        check(same, f"{name}: the f32 forms, rounded to bf16, differ from the bf16 kernels")
+        check(all(x <= F32_EXACT_BF16_MAX for x in exact.values()),
+              f"{name}: the f32 forms' outputs are bf16 values widened: {exact}")
+        again = attn.flash_forward(q, k, v, causal=causal, out_dtype=f32)
+        again_g = attn.flash_backward(q, k, v, o16, lse, do, causal=causal, grad_dtype=f32)
+        twice = (torch.equal(o, again[0]) and torch.equal(lse, again[1])
+                 and all(torch.equal(x, y) for x, y in zip(got, again_g)))
+        print(f"[m] {name} f32 forms run twice: bit-identical {twice}")
+        check(twice, f"{name}: the f32 forms are not bit-reproducible")
+        del again, again_g
+        if i == 0:
+            max_err = {"fwd": float((o - o_ref).abs().max()),
+                       "dq": float((got[0] - ref[0]).abs().max()),
+                       "dkv": max(float((x - r).abs().max()) for x, r in zip(got[1:], ref[1:]))}
+            v_bad = v.clone()
+            v_bad[:, [t - 2, t - 1]] = v[:, [t - 1, t - 2]]
+            bad_row = rel_errs(attn.flash_forward(q, k, v_bad, causal=causal,
+                                                  out_dtype=f32)[0], o_ref)[1]
+            k_bad = k.clone()
+            k_bad[:, [t - 2, t - 1]] = k[:, [t - 1, t - 2]]
+            bad = attn.flash_backward(q, k_bad, v, o16, lse, do, causal=causal, grad_dtype=f32)
+            bad_rows = {n: rel_errs(x, r, floor=1e-3)[1]
+                        for n, x, r in zip(("dq", "dk", "dv"), bad, ref)}
+            widened = exact_bf16(o16.float())
+            print(f"[m] {name} planted faults: K1-f32 (V keys swapped) worst row "
+                  f"{bad_row:.3e}; K2/K3-f32 (K keys swapped) worst rows "
+                  + ", ".join(f"{n} {x:.3e}" for n, x in bad_rows.items())
+                  + f"; the bf16 o widened to f32: share a bf16 holds exactly {widened:.3e}")
+            check(bad_row > O_ROW_REL, "the K1-f32 check does not see a swapped V key pair")
+            check(all(x > GRAD_ROW_REL for x in bad_rows.values()),
+                  "the K2/K3-f32 checks do not see a swapped K key pair")
+            check(widened > F32_EXACT_BF16_MAX,
+                  "the precision check does not see a bf16 output widened to f32")
+            del v_bad, k_bad, bad
+        del q, k, v, do, o, lse, o16, lse16, o_ref, lse_ref, got, got16, ref
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def _f32_kernel_times() -> dict:
+    """Each f32 form against its bf16 form in turns (bf16, f32, f32, bf16)
+    at the main path's shape and at a hop's, beside the bound, the plain
+    version and the library's bf16 call (the nearest: no library call
+    returns f32); returns the main path's readings for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    f, hp = FLAGSHIP, RING_HOP
+    shapes = [("main_path_causal", f, True), ("hop_diagonal", hp, True),
+              ("hop_unmasked", hp, False)]
+    f32 = torch.float32
+    timing = {}
+    for name, s, causal in shapes:
+        b, t, h, h_kv, d = s["b"], s["t"], s["h"], s["h_kv"], s["d"]
+        q, k, v = make_qkv(b, t, h, h_kv, d, seed=80)
+        do = make_qkv(b, t, h, h_kv, d, seed=81)[0]
+        o, lse = attn.flash_forward(q, k, v, causal=causal)
+        _, delta = attn.flash_backward_dq_cuda(q, k, v, o, lse, do, causal)
+        forms = {
+            "fwd": (lambda dt: lambda: attn.flash_forward(q, k, v, causal=causal, out_dtype=dt)),
+            "dq": (lambda dt: lambda: attn.flash_backward_dq_cuda(q, k, v, o, lse, do, causal, dt)),
+            "dkv": (lambda dt: lambda: attn.flash_backward_dkv_cuda(q, k, v, lse, delta, do,
+                                                                    causal, dt)),
+        }
+        iters = 20 if b > 1 else 50
+        readings = {key: {"bf16": [], "f32": []} for key in forms}
+        for _ in range(2):
+            for key, make in forms.items():
+                for dtype in ("bf16", "f32", "f32", "bf16"):
+                    fn = make(f32 if dtype == "f32" else None)
+                    readings[key][dtype].append(time_ms(fn, iters=iters, warmup=3))
+        plain = {"fwd": time_ms(lambda: attn.flash_attention_plain(q, k, v, causal, f32),
+                                iters=2, warmup=1)}
+        plain["dq"] = plain["dkv"] = time_ms(
+            lambda: attn.flash_backward_plain(q, k, v, o, lse, do, causal, f32),
+            iters=2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
+        dout = do.transpose(1, 2).contiguous()
+        library = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=iters, warmup=3)}
+        library["dq"] = library["dkv"] = time_ms(
+            lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True),
+            iters=iters, warmup=3)
+        flops_f = attn.attention_flops(b, t, h, d, causal)
+        flops_b = attn.attention_bwd_flops(b, t, h, d, causal)
+        work = {"fwd": (flops_f, attn.attention_bytes(b, t, h, h_kv, d, out_bytes=4)),
+                "dq": (flops_b["dq"], attn.attention_bwd_bytes(b, t, h, h_kv, d, 4)["dq"]),
+                "dkv": (flops_b["dkv"], attn.attention_bwd_bytes(b, t, h, h_kv, d, 4)["dkv"])}
+        for key, (flops, nbytes) in work.items():
+            ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+            r32, r16 = readings[key]["f32"], readings[key]["bf16"]
+            ms = sorted(r32)[len(r32) // 2]
+            print(f"[m] {key}-f32 at {name} q [{b},{t},{h},{d}]: kernel_ms "
+                  f"{', '.join(f'{x:.4f}' for x in r32)} (median {ms:.4f}) against the bf16 "
+                  f"form {', '.join(f'{x:.4f}' for x in r16)} (median "
+                  f"{sorted(r16)[len(r16) // 2]:.4f}), in turns; bound_ms {bound_ms:.4f} "
+                  f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
+                  f"{bound_ms / ms:.1%} of the bound; plain_ms {plain[key]:.3f}; library_ms "
+                  f"(bf16 {'forward' if key == 'fwd' else 'backward, dq, dk and dv'}) "
+                  f"{library[key]:.4f}")
+            if name == "main_path_causal":
+                timing[key] = dict(ms=ms, plain_ms=plain[key], library_ms=library[key],
+                                   bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg, lib_out, dout
+        torch.cuda.empty_cache()
+    return timing
+
+
+def _ring_replay_check() -> None:
+    """(m) 2: a 4-rank ring's hop schedules replayed on the one card at
+    T = 8192, for ring_flash and ring_zigzag_flash, against K1-K3 over the
+    whole sequence."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    hp = RING_HOP
+    q, k, v = make_qkv(1, RING_T, hp["h"], hp["h_kv"], hp["d"], seed=90)
+    do = make_qkv(1, RING_T, hp["h"], hp["h_kv"], hp["d"], seed=91)[0]
+    o_ref, lse_ref = attn.flash_forward(q, k, v, causal=True)
+    ref = attn.flash_backward(q, k, v, o_ref, lse_ref, do, causal=True)
+    for zigzag in (False, True):
+        name = "ring_zigzag_flash" if zigzag else "ring_flash"
+        t0 = time.perf_counter()
+        out, *grads = ring_replay(q, k, v, do, RING_SP, zigzag)
+        torch.cuda.synchronize()
+        o_fro = rel_errs(out, o_ref)[0]
+        g_fro = {n: rel_errs(x, r)[0] for n, x, r in zip(("dq", "dk", "dv"), grads, ref)}
+        print(f"[m] {RING_SP}-rank {name} replayed over T={RING_T} (q [1,{RING_T},{hp['h']},"
+              f"{hp['d']}], {time.perf_counter() - t0:.2f} s): merged o rel {o_fro:.3e} "
+              f"(<= {RING_O_REL}); " + ", ".join(f"{n} rel {x:.3e}" for n, x in g_fro.items())
+              + f" (<= {RING_GRAD_REL}), against K1-K3 over the whole sequence")
+        check(out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+              and all(bool(torch.isfinite(x).all()) for x in grads),
+              f"{name} replay: non-finite or wrongly typed outputs")
+        check(o_fro <= RING_O_REL, f"the {name} replay's merged o disagrees with K1")
+        check(all(x <= RING_GRAD_REL for x in g_fro.values()),
+              f"the {name} replay's gradients disagree with K2/K3")
+        del out, grads
+    del q, k, v, do, o_ref, lse_ref, ref
+    torch.cuda.empty_cache()
+
+
+def _count_launches(attn) -> dict:
+    return {"fwd": attn.FLASH_FWD_LAUNCHES, "dq": attn.FLASH_BWD_DQ_LAUNCHES,
+            "dkv": attn.FLASH_BWD_DKV_LAUNCHES, "fwd_f32": attn.FLASH_FWD_F32_LAUNCHES,
+            "dq_f32": attn.FLASH_BWD_DQ_F32_LAUNCHES,
+            "dkv_f32": attn.FLASH_BWD_DKV_F32_LAUNCHES}
+
+
+def _zero_launches(attn) -> None:
+    attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
+    attn.FLASH_FWD_F32_LAUNCHES = attn.FLASH_BWD_DQ_F32_LAUNCHES = 0
+    attn.FLASH_BWD_DKV_F32_LAUNCHES = 0
+
+
+def _ring_entry_points(h_flash: dict) -> dict:
+    """(m) 3: ``train`` and ``eval`` through the ring family at sp = 1 on the
+    world-1 mesh; returns the f32 kernels' launches of the ring_flash
+    train run."""
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    layers = EVAL_MODEL["n_layers"]
+    results = {}
+    for impl, per_layer in (("ring_flash", 1), ("ring_zigzag_flash", 3)):
+        _zero_launches(attn)
+        records, peak = run_train(impl, TRAIN_STEPS)
+        launches = _count_launches(attn)
+        n = layers * TRAIN_STEPS * per_layer
+        want = {"fwd": 0, "dq": 0, "dkv": 0, "fwd_f32": 2 * n, "dq_f32": n, "dkv_f32": n}
+        losses = [r["loss"] for r in records]
+        diff = max(abs(a - b) for a, b in zip(losses, h_flash["losses"]))
+        limit = RING_LOSS_ATOL if impl == "ring_flash" else ZIGZAG_LOSS_ATOL
+        print(f"[m] train --attn {impl} --remat dots at sp=1 (world-1 mesh): losses {losses}; "
+              f"(h)'s flash {h_flash['losses']}: "
+              + ("equal" if losses == h_flash["losses"] else f"max |diff| {diff:.3e}")
+              + f" (<= {limit}); launches over {TRAIN_STEPS} steps {launches} (want {want}); "
+              f"peak device memory {peak / 1e9:.2f} GB")
+        check(launches == want, f"train --attn {impl} launched {launches}, want {want}")
+        check(diff <= limit, f"train --attn {impl} losses part from flash's by {diff}")
+        results[impl] = launches
+    loss_ring, _, _ = run_eval("ring_flash", 1)
+    loss_flash, _, _ = run_eval("flash", 1)
+    print(f"[m] eval --attn ring_flash, one window: loss {loss_ring:.6f}; --attn flash "
+          f"{loss_flash:.6f}; |diff| {abs(loss_ring - loss_flash):.3e} (<= {RING_LOSS_ATOL})")
+    check(abs(loss_ring - loss_flash) <= RING_LOSS_ATOL, "eval ring_flash and flash disagree")
+    shallow = [a for a in TRAIN_ARGS]
+    shallow[shallow.index("--n-layers") + 1] = str(RING_EINSUM_LAYERS)
+    _zero_launches(attn)
+    einsum = {impl: [r["loss"] for r in run_train(impl, TRAIN_STEPS, shallow)[0]]
+              for impl in ("xla", "ring", "ulysses")}
+    launches = _count_launches(attn)
+    for impl in ("ring", "ulysses"):
+        diff = max(abs(a - b) for a, b in zip(einsum[impl], einsum["xla"]))
+        print(f"[m] train --attn {impl} at sp=1, {RING_EINSUM_LAYERS} layers: losses "
+              f"{einsum[impl]}; xla {einsum['xla']}: max |diff| {diff:.3e} (<= {LOSS_ATOL})")
+        check(diff <= LOSS_ATOL, f"train --attn {impl} parts from xla by {diff}")
+    check(not any(launches.values()), f"the einsum ring and Ulysses launched {launches}")
+    return results["ring_flash"]
+
+
+def _ring_step_times() -> None:
+    """(m) 3: the step of flash, ring_flash and ring_zigzag_flash at sp = 1
+    on the world-1 mesh, by CUDA events, in turns."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import distributed, topology
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    distributed.initialize_from_gang(device="cuda")
+    try:
+        mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
+        loader = data_lib.CheckpointableBatches(
+            data_lib.synthetic_dataset(EVAL_MODEL["vocab_size"]), EVAL_BATCH, EVAL_SEQ)
+        host = np.asarray(next(loader))
+        runs = {}
+        for impl in RING_IMPLS:
+            cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl=impl, remat="dots",
+                                       **EVAL_MODEL)
+            step, init_fn, token_sharding = port_train.make_sharded_train_step(
+                cfg, mesh, ce_chunk=EVAL_CE_CHUNK)
+            params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+            tokens = [data_lib.device_put_global(host, token_sharding, EVAL_BATCH)]
+            _steps_by_events(step, params, opt, tokens)  # warm-up
+            runs[impl] = (step, params, opt, tokens)
+        turns = {impl: [] for impl in RING_IMPLS}
+        for _ in range(RING_TURNS):
+            for impl in RING_IMPLS + RING_IMPLS[::-1]:
+                turns[impl] += _steps_by_events(*runs[impl])[1]
+        med = {impl: sorted(ms)[len(ms) // 2] for impl, ms in turns.items()}
+        print(f"[m] step ms at sp=1 (B={EVAL_BATCH}, T={EVAL_SEQ}, {EVAL_MODEL['n_layers']} "
+              f"layers, remat dots, ce_chunk {EVAL_CE_CHUNK}) by CUDA events in turns "
+              f"({RING_TURNS} x {', '.join(RING_IMPLS + RING_IMPLS[::-1])}): "
+              + "; ".join(f"{impl} median {med[impl]:.3f} (spread {min(ms):.3f}-{max(ms):.3f})"
+                          for impl, ms in turns.items())
+              + "; " + ", ".join(f"{impl} - flash {med[impl] - med['flash']:.3f} ms"
+                                 for impl in RING_IMPLS[1:]))
+        del runs
+    finally:
+        distributed.shutdown()
+
+
+def phase_ring(h_flash: dict) -> dict:
+    """(m): the f32 kernels, the replayed 4-rank ring and the ring family's
+    entry points at sp = 1; returns the kernels line's entries of the f32
+    forms."""
+    import torch
+
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    max_err = timed("f32 kernel checks", _f32_kernel_checks)
+    timing = timed("f32 kernel times", _f32_kernel_times)
+    timed("ring replay", _ring_replay_check)
+    launches = timed("entry points", _ring_entry_points, h_flash)
+    timed("step times", _ring_step_times)
+    torch.cuda.empty_cache()
+    print(f"[m] phase wall time {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()) + ")")
+    return {key: dict(launches=launches[f"{key}_f32"], max_abs_err=max_err[key], **timing[key])
+            for key in ("fwd", "dq", "dkv")}
+
+
 def main() -> int:
     import torch
 
@@ -2207,6 +2655,7 @@ def main() -> int:
     phase_decode()
     phase_serving()
     phase_mesh(train_flash)
+    ring = phase_ring(train_flash)
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"
@@ -2221,6 +2670,13 @@ def main() -> int:
              replaces="hivedscheduler_tpu/ops/attention.py:179",
              launches=launches["dkv"], max_abs_err=bwd_err["dkv"], **bwd_timing["dkv"]),
     ]
+    # the f32 forms: launches of (m)'s ring_flash train run, times at its shape
+    kernels += [
+        dict(name=f"{name}_f32", route="cuda", source=source + lib,
+             replaces=f"hivedscheduler_tpu/ops/attention.py:{line}", **ring[key])
+        for name, key, lib, line in (("flash_fwd", "fwd", "flash_fwd.cu", 98),
+                                     ("flash_bwd_dq", "dq", "flash_bwd.cu", 143),
+                                     ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 179))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

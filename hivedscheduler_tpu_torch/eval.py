@@ -7,15 +7,16 @@ positions) and the same output line:
     python -m hivedscheduler_tpu_torch.eval --attn flash --data heldout.bin
 
 ``--device`` (default ``cuda``) is the one addition; ``--device cpu`` runs
-on the CPU. The flash kernel runs under ``--attn flash``.
+on the CPU. The flash kernel runs under ``--attn flash``; ``--attn`` takes
+every ``attn_impl`` and defaults to ``ring`` when ``--sp`` is above 1.
 ``--checkpoint-dir`` evaluates the parameters of the newest committed
 checkpoint of a ``train`` run (random init from seed 0 without it), and
 ``--goodput-file`` spools the goodput ledger's phases. As in ``train``,
 the run opens its process group from the scheduler's gang handoff, lays
-the mesh ``infer_axes(world, tp=, fsdp=)`` over it, and each rank reads
-its data-parallel share of every window. Sequence and expert parallelism
-(``--sp``, ``--ep`` above 1) and MoE are not yet ported and exit with an
-error rather than being ignored.
+the mesh ``infer_axes(world, tp=, sp=, fsdp=)`` over it, and each rank reads
+its data-parallel share of every window (over sp, its slice of the
+sequence). Expert parallelism (``--ep`` above 1) and MoE are not yet
+ported and exit with an error rather than being ignored.
 """
 
 from __future__ import annotations
@@ -30,22 +31,16 @@ from hivedscheduler_tpu_torch.common import utils as common
 
 log = logging.getLogger(__name__)
 
-PORTED_ATTN = ("xla", "flash")
 # the window loop's timing line: n windows, tokens, seconds, tokens/s
 WINDOWS_LOG = "%s windows (%s tokens) in %.2fs (%.0f tok/s)"
 
 
 def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
-    for flag, what in (("sp", "sequence parallelism (the ring family)"),
-                       ("ep", "expert parallelism")):
-        if getattr(args, flag) > 1:
-            parser.error(f"--{flag} > 1 is not yet ported: {what}; the port "
-                         "shards over dp, fsdp and tp")
+    if args.ep > 1:
+        parser.error("--ep > 1 is not yet ported: expert parallelism; the "
+                     "port shards over dp, fsdp, tp and sp")
     if args.n_experts > 0:
         parser.error("--n-experts > 0 (MoE) is not yet ported")
-    if args.attn is not None and args.attn not in PORTED_ATTN:
-        parser.error(f"--attn {args.attn} is not yet ported; the port runs "
-                     f"{'|'.join(PORTED_ATTN)}")
 
 
 def main(argv=None) -> int:
@@ -61,11 +56,13 @@ def main(argv=None) -> int:
     parser.add_argument("--n-experts", type=int, default=0)
     parser.add_argument("--moe-top-k", type=int, default=1)
     parser.add_argument("--attn", default=None,
-                        help="xla|flash (default: xla)")
+                        help="xla|flash|ring|ring_flash|ring_zigzag|"
+                        "ring_zigzag_flash|ulysses (default: ring when sp>1, "
+                        "else xla)")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel degree")
     parser.add_argument("--sp", type=int, default=1,
-                        help="sequence parallelism: not yet ported above 1")
+                        help="sequence-parallel degree")
     parser.add_argument("--fsdp", type=int, default=1,
                         help="fully-sharded data-parallel degree")
     parser.add_argument("--ep", type=int, default=1,
@@ -124,7 +121,7 @@ def _evaluate(parser: argparse.ArgumentParser, args, rank: int, world: int) -> i
 
     device = resolve_device(args.device)
     try:
-        axes = topology.infer_axes(world, tp=args.tp, fsdp=args.fsdp)
+        axes = topology.infer_axes(world, tp=args.tp, sp=args.sp, fsdp=args.fsdp)
     except ValueError as err:
         parser.error(str(err))
     mesh = topology.make_mesh(axes, device.type)
@@ -138,7 +135,7 @@ def _evaluate(parser: argparse.ArgumentParser, args, rank: int, world: int) -> i
         n_layers=args.n_layers,
         d_ff=args.d_ff,
         max_seq_len=args.seq_len,
-        attn_impl=args.attn or "xla",
+        attn_impl=args.attn or ("ring" if axes.sp > 1 else "xla"),
         n_experts=args.n_experts,
         moe_top_k=args.moe_top_k,
     )

@@ -8,13 +8,15 @@ with the JAX package's tree: ``embed``, ``final_norm``, ``lm_head`` and
 ``bridge.py`` carries weights across unchanged and both packages compute
 with the same numbers.
 
-Ported: the dense forward with ``attn_impl`` ``xla`` or ``flash``,
+Ported: the dense forward with every ``attn_impl`` (``xla``, ``flash``
+and the sequence-parallel family of ``parallel/ring_attention.py``),
 differentiable, with the ``remat`` policies of the layer loop, on one
-device or over a six-axis ``DeviceMesh`` with dp, fsdp and tp above 1
+device or over a six-axis ``DeviceMesh`` with dp, fsdp, tp and sp above 1
 (``sharding_specs`` gives each leaf's layout; ``parallel/sharding.py``
-holds the collectives). MoE, LoRA, the ring/Ulysses family (sp),
-pipelining (pp), expert parallelism (ep) and the overlapped
-tensor-parallel stack raise "not yet ported".
+holds the collectives). The ring family needs a mesh, as in the JAX
+package; a mesh of one device is enough. MoE, LoRA, pipelining (pp),
+expert parallelism (ep) and the overlapped tensor-parallel stack raise
+"not yet ported".
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ class TransformerConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
-    # "xla" | "flash" here; the ring family is not yet ported
+    # "xla" | "flash" | the ring family (RING_FAMILY, which needs a mesh)
     attn_impl: str = "xla"
     n_experts: int = 0
     expert_capacity_factor: float = 1.25
@@ -107,8 +109,6 @@ def check_supported(cfg: TransformerConfig) -> None:
         raise _not_yet_ported("pipelining")
     if cfg.overlap:
         raise _not_yet_ported("the overlapped tensor-parallel stack")
-    if cfg.attn_impl in RING_FAMILY:
-        raise _not_yet_ported(f"attn_impl {cfg.attn_impl!r}")
     if cfg.attn_impl not in ATTN_IMPLS:
         # a typo must not silently run dense attention
         raise ValueError(
@@ -189,20 +189,29 @@ def activation_spec() -> tuple:
 
 
 def check_mesh(cfg: TransformerConfig, sizes: Dict[str, int]) -> None:
-    """Raise for a mesh the port does not run the model on: sp, pp or ep
-    above 1 (not yet ported), or heads that do not divide tp (the JAX
-    package's ``_shardings`` check)."""
-    for axis, what in (("sp", "sequence parallelism (sp > 1)"),
-                       ("pp", "pipelining (pp > 1)"),
+    """Raise for a mesh the port does not run the model on: pp or ep above
+    1 (not yet ported), sp above 1 without a ring-family ``attn_impl`` (each
+    rank holds only its slice of the sequence), heads that do not divide tp
+    (the JAX package's ``_shardings`` check), or Ulysses' tp-local heads
+    that do not divide sp (its ``overlap_applicable`` check)."""
+    for axis, what in (("pp", "pipelining (pp > 1)"),
                        ("ep", "expert parallelism (ep > 1)")):
         if sizes.get(axis, 1) > 1:
             raise _not_yet_ported(what)
-    tp = sizes.get("tp", 1)
+    tp, sp = sizes.get("tp", 1), sizes.get("sp", 1)
+    if sp > 1 and cfg.attn_impl not in RING_FAMILY:
+        raise ValueError(
+            f"sp={sp} needs a ring-family attn_impl {RING_FAMILY}, got "
+            f"{cfg.attn_impl!r}")
     if cfg.n_heads % tp or cfg.kv_heads % tp:
         raise ValueError(
             f"head counts must divide the tp axis: n_heads={cfg.n_heads}, "
             f"kv_heads={cfg.kv_heads}, tp={tp}"
         )
+    if cfg.attn_impl == "ulysses" and (cfg.n_heads // tp) % sp:
+        raise ValueError(
+            f"ulysses needs tp-local heads divisible by sp: {cfg.n_heads} "
+            f"heads / tp={tp} vs sp={sp}")
 
 
 def is_quantized_leaf(leaf) -> bool:
@@ -257,10 +266,12 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 
 def _dispatch_attention(q, k, v, cfg: TransformerConfig, attn_fn):
-    """The JAX package's ``_dispatch_attention`` for dense attention:
-    ``flash`` takes compact GQA k/v as they are (the kernel reads kv head
-    i // group itself); ``xla`` gets each shared head repeated for its
-    contiguous q-head group, after RoPE, exactly as the reference does.
+    """The JAX package's ``_dispatch_attention``: ``flash`` and the ring
+    family take compact GQA k/v as they are (the kernels read kv head
+    i // group themselves, the rings and Ulysses rotate or exchange H_kv
+    heads, their grouped einsums read them in place); ``xla`` gets each
+    shared head repeated for its contiguous q-head group, after RoPE,
+    exactly as the reference does.
 
     Under a mesh q, k and v are the rank's local batch rows and head
     shard, so this is the counterpart of ``_flash_gspmd``: the kernel runs
@@ -270,11 +281,15 @@ def _dispatch_attention(q, k, v, cfg: TransformerConfig, attn_fn):
     group); a batch that does not split over dp x fsdp arrives as whole
     rows on every rank (``parallel/train.py``), which is JAX's replicated
     fallback."""
-    if k.shape[2] != q.shape[2] and cfg.attn_impl != "flash":
+    if k.shape[2] != q.shape[2] and cfg.attn_impl not in _COMPACT_GQA:
         rep = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     return attn_fn(q, k, v, causal=True)
+
+
+# attn_impls that read compact GQA k/v (check_mesh has kv heads divide tp)
+_COMPACT_GQA = ("flash",) + RING_FAMILY
 
 
 def _identity(x):
@@ -322,17 +337,30 @@ _LAYER_SPECS = {name: spec[1:] for name, spec in
                 sharding_specs(TransformerConfig())["layers"].items()}
 
 
-def _resolve_attn_fn(cfg: TransformerConfig):
+def _resolve_attn_fn(cfg: TransformerConfig, mesh=None):
+    """``attn_fn(q, k, v, causal)`` of ``cfg.attn_impl``, the JAX package's
+    table; the ring family attends over ``mesh``'s sp axis and raises
+    ``ValueError`` without a mesh (JAX asserts one)."""
     check_supported(cfg)
     from hivedscheduler_tpu_torch.ops import attention
 
+    blocks = dict(block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
     if cfg.attn_impl == "flash":
-        def attn_fn(q, k, v, causal=True):
-            return attention.flash_attention(
-                q, k, v, causal=causal,
-                block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+        return functools.partial(attention.flash_attention, **blocks)
+    if cfg.attn_impl in RING_FAMILY:
+        if mesh is None:
+            raise ValueError(f"attn_impl {cfg.attn_impl!r} requires a mesh")
+        from hivedscheduler_tpu_torch.parallel import ring_attention as ra
 
-        return attn_fn
+        fn = {
+            "ring": ra.ring_attention,
+            "ring_flash": functools.partial(ra.ring_flash_attention, **blocks),
+            "ring_zigzag": ra.zigzag_ring_attention,
+            "ring_zigzag_flash": functools.partial(ra.zigzag_ring_flash_attention,
+                                                   **blocks),
+            "ulysses": ra.ulysses_attention,
+        }[cfg.attn_impl]
+        return functools.partial(fn, mesh=mesh)
     return attention.xla_attention
 
 
@@ -373,9 +401,8 @@ def mesh_shards(mesh, cfg: TransformerConfig) -> Optional[sharding.MeshShards]:
     """The collectives of ``mesh`` (None for none), after ``check_mesh``."""
     if mesh is None:
         return None
-    shards = sharding.MeshShards(mesh)
-    check_mesh(cfg, shards.sizes)
-    return shards
+    check_mesh(cfg, dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)))
+    return sharding.MeshShards(mesh)
 
 
 def lm_head_weight(params: Dict[str, Any], cfg: TransformerConfig,
@@ -403,21 +430,27 @@ def forward_with_aux(
     ``return_hidden=True`` returns the final-norm hidden states [B, T, D]
     (model dtype) instead of logits, for the chunked cross-entropy loss.
     ``mesh``: a six-axis ``DeviceMesh`` over which ``params`` are DTensors
-    laid out by ``sharding_specs`` and ``tokens`` are this rank's rows (a
-    DTensor laid out by ``activation_spec``, or its local tensor); the
-    result is then this rank's rows, replicated over tp."""
-    attn_fn = _resolve_attn_fn(cfg)
+    laid out by ``sharding_specs`` and ``tokens`` are this rank's rows,
+    whole sequences (a DTensor or its local tensor); the result is then
+    this rank's rows at its sp slice of the positions
+    (``MeshShards.seq_part``), replicated over tp."""
+    attn_fn = _resolve_attn_fn(cfg, mesh)
     shards = mesh_shards(mesh, cfg)
     tokens = sharding.local(tokens)
+    if shards is not None:
+        tokens = shards.seq_part(tokens)
     dtype = cfg.dtype
     t = tokens.shape[1]
+    # RoPE at each position's place in the whole sequence
+    start = 0 if shards is None else shards.seq_index * t
     if shards is None:
         embed = params["embed"]
     else:
         embed = shards.weight(sharding.local(params["embed"]),
                               sharding_specs(cfg)["embed"], None)
     x = F.embedding(tokens, embed).to(dtype)  # [B, T, D]
-    positions = torch.arange(t, dtype=torch.int32, device=tokens.device)[None, :]
+    positions = torch.arange(start, start + t, dtype=torch.int32,
+                             device=tokens.device)[None, :]
     # one unbind per stacked leaf: indexing leaf[i] per layer would make
     # each backward write a zero gradient of the whole stack per layer
     per_layer = {name: torch.unbind(sharding.local(leaf))

@@ -15,6 +15,12 @@ head ``i // (H // H_kv)``).
   :func:`flash_backward` runs ``csrc/flash_bwd.cu`` (K2 for dq, then K3 for
   dk and dv) on CUDA tensors, or raises; on CPU tensors they run the plain
   versions.
+- ``out_dtype=torch.float32`` (forward) and ``grad_dtype=torch.float32``
+  (backward) are the JAX package's ``_flash_forward(out_dtype=)`` and
+  ``_flash_backward(grad_dtype=)``: the kernels' f32 forms
+  (``hived_flash_fwd_f32``, ``hived_flash_bwd_dq_f32``,
+  ``hived_flash_bwd_dkv_f32``), which the sequence-parallel ring
+  (``parallel/ring_attention.py``) calls once a hop and merges in f32.
 - :class:`FlashAttention` joins them as one differentiable op, the
   counterpart of the JAX package's ``_flash_core`` custom_vjp, and
   :func:`flash_attention` is what ``attn_impl="flash"`` calls: on a CUDA
@@ -48,12 +54,19 @@ _CLAMP = -0.5 * abs(NEG_INF)  # the m_safe clamp: masked rows exp() to 0
 FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
+# launches of their f32 forms (o, or dq, dk and dv, stored in f32), counted
+# apart: only the sequence-parallel ring calls them
+FLASH_FWD_F32_LAUNCHES = 0
+FLASH_BWD_DQ_F32_LAUNCHES = 0
+FLASH_BWD_DKV_F32_LAUNCHES = 0
 # calls of flash_attention on the CPU that took the reference (shapes that
 # don't tile, by the JAX package's rules)
 FLASH_REFERENCE_ROUTES = 0
 
 KERNEL_DTYPES = (torch.bfloat16,)
 KERNEL_HEAD_DIMS = (64, 128)
+# the output dtypes of the kernels' two forms (None: the input's bf16)
+KERNEL_OUT_DTYPES = (None, torch.float32)
 
 
 def _check_gqa(h: int, h_kv: int) -> None:
@@ -89,9 +102,9 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True):
+                          causal: bool = True, out_dtype=None):
     """Plain PyTorch version of the flash forward kernel -> (o [B, T, H, D]
-    in q's dtype, lse [B*H, T] f32).
+    in ``out_dtype`` (default q's dtype), lse [B*H, T] f32).
 
     Same arithmetic as ``_fwd_kernel`` taken over the whole row at once:
     q scaled by 1/sqrt(D) in f32, masked scores at NEG_INF, the max clamped
@@ -113,15 +126,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     o = o / l_safe.permute(0, 3, 1, 2, 4)  # [b,h_kv,g,t,1] -> [b,t,h_kv,g,1]
     lse = (m_safe + torch.log(l_safe)).reshape(b * h, t)
-    return o.reshape(b, t, h, d).to(q.dtype), lse
+    return o.reshape(b, t, h, d).to(out_dtype or q.dtype), lse
 
 
 def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                         causal: bool = True):
+                         causal: bool = True, grad_dtype=None):
     """Plain PyTorch version of the flash backward kernels -> (dq, dk, dv)
-    in q's, k's and v's dtypes, from the forward's o and lse [B*H, T] f32
-    and the output gradient do [B, T, H, D].
+    in ``grad_dtype`` (default q's, k's and v's dtypes), from the forward's
+    o and lse [B*H, T] f32 and the output gradient do [B, T, H, D].
 
     Same arithmetic as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` taken
     over whole rows: scores from q scaled by 1/sqrt(D) in f32, masked
@@ -145,7 +158,8 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
-    return dq.reshape(b, t, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.reshape(b, t, h, d).to(grad_dtype or q.dtype),
+            dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype))
 
 
 # C entry points of the kernels: (library, pointer, int and stride argument
@@ -154,6 +168,9 @@ _KERNELS = {
     "hived_flash_fwd": ("flash_fwd", 5, 6, 12),
     "hived_flash_bwd_dq": ("flash_bwd", 8, 6, 18),
     "hived_flash_bwd_dkv": ("flash_bwd", 8, 6, 18),
+    "hived_flash_fwd_f32": ("flash_fwd", 5, 6, 12),
+    "hived_flash_bwd_dq_f32": ("flash_bwd", 8, 6, 18),
+    "hived_flash_bwd_dkv_f32": ("flash_bwd", 8, 6, 18),
 }
 
 
@@ -216,6 +233,15 @@ def _kernel_readable(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def _is_f32(out_dtype, like: torch.Tensor) -> bool:
+    """Whether the kernels store their outputs in f32 (the ``_f32`` entry
+    points) rather than in the inputs' bf16; raises on any other dtype."""
+    if out_dtype not in KERNEL_OUT_DTYPES:
+        raise TypeError(f"flash kernels store the inputs' dtype (None) or {torch.float32}, "
+                        f"not {out_dtype}")
+    return out_dtype is not None
+
+
 def _dims(q, k, causal: bool):
     b, t, h, d = q.shape
     return (b, t, h, k.shape[2], d, int(causal))
@@ -225,28 +251,32 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _flash_forward_cuda(q, k, v, causal: bool):
-    global FLASH_FWD_LAUNCHES
+def _flash_forward_cuda(q, k, v, causal: bool, out_dtype=None):
+    global FLASH_FWD_LAUNCHES, FLASH_FWD_F32_LAUNCHES
     _check_kernel_inputs(q, k, v)
+    f32 = _is_f32(out_dtype, q)
     b, t, h, _ = q.shape
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, dtype=torch.float32 if f32 else q.dtype, device=q.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _launch("hived_flash_fwd", (q, k, v, o, lse), _dims(q, k, causal),
-                (q, k, v, o), _stream(q))
-    FLASH_FWD_LAUNCHES += 1
+        _launch("hived_flash_fwd_f32" if f32 else "hived_flash_fwd", (q, k, v, o, lse),
+                _dims(q, k, causal), (q, k, v, o), _stream(q))
+    if f32:
+        FLASH_FWD_F32_LAUNCHES += 1
+    else:
+        FLASH_FWD_LAUNCHES += 1
     return o, lse
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True):
-    """-> (o [B, T, H, D], lse [B*H, T] f32). A CUDA tensor runs the kernel
-    (or raises on what it does not take); a CPU tensor runs the plain
-    version."""
+                  causal: bool = True, out_dtype=None):
+    """-> (o [B, T, H, D] in ``out_dtype`` (default q's dtype; bf16 or
+    f32), lse [B*H, T] f32). A CUDA tensor runs the kernel (or raises on
+    what it does not take); a CPU tensor runs the plain version."""
     if q.device.type == "cuda":
-        return _flash_forward_cuda(q, k, v, causal)
+        return _flash_forward_cuda(q, k, v, causal, out_dtype)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
+        return flash_attention_plain(q, k, v, causal, out_dtype)
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
@@ -264,49 +294,62 @@ def _check_backward_inputs(q, k, v, lse, **like_q) -> None:
                          f"{tuple(lse.shape)} {lse.dtype}")
 
 
-def flash_backward_dq_cuda(q, k, v, o, lse, do, causal: bool = True):
-    """K2 alone on CUDA tensors -> (dq [B, T, H, D], delta [B*H, T] f32,
-    the rowsum(do * o) that K3 reads). :func:`flash_backward` runs it."""
-    global FLASH_BWD_DQ_LAUNCHES
+def flash_backward_dq_cuda(q, k, v, o, lse, do, causal: bool = True, grad_dtype=None):
+    """K2 alone on CUDA tensors -> (dq [B, T, H, D] in ``grad_dtype``
+    (default q's dtype; bf16 or f32), delta [B*H, T] f32, the rowsum(do *
+    o) that K3 reads). :func:`flash_backward` runs it."""
+    global FLASH_BWD_DQ_LAUNCHES, FLASH_BWD_DQ_F32_LAUNCHES
     _check_backward_inputs(q, k, v, lse, o=o, do=do)
+    f32 = _is_f32(grad_dtype, q)
     o, do = _kernel_readable(o), _kernel_readable(do)
     delta = torch.empty_like(lse)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32 if f32 else q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        _launch("hived_flash_bwd_dq", (q, k, v, o, do, lse, delta, dq),
-                _dims(q, k, causal), (q, k, v, o, do, dq), _stream(q))
-    FLASH_BWD_DQ_LAUNCHES += 1
+        _launch("hived_flash_bwd_dq_f32" if f32 else "hived_flash_bwd_dq",
+                (q, k, v, o, do, lse, delta, dq), _dims(q, k, causal),
+                (q, k, v, o, do, dq), _stream(q))
+    if f32:
+        FLASH_BWD_DQ_F32_LAUNCHES += 1
+    else:
+        FLASH_BWD_DQ_LAUNCHES += 1
     return dq, delta
 
 
-def flash_backward_dkv_cuda(q, k, v, lse, delta, do, causal: bool = True):
-    """K3 alone on CUDA tensors -> (dk, dv [B, T, H_kv, D]), with the GQA
-    group sum done inside the kernel. :func:`flash_backward` runs it."""
-    global FLASH_BWD_DKV_LAUNCHES
+def flash_backward_dkv_cuda(q, k, v, lse, delta, do, causal: bool = True, grad_dtype=None):
+    """K3 alone on CUDA tensors -> (dk, dv [B, T, H_kv, D] in
+    ``grad_dtype``, default k's dtype; bf16 or f32), with the GQA group
+    sum done inside the kernel. :func:`flash_backward` runs it."""
+    global FLASH_BWD_DKV_LAUNCHES, FLASH_BWD_DKV_F32_LAUNCHES
     _check_backward_inputs(q, k, v, lse, do=do)
     if delta.shape != lse.shape or delta.dtype != torch.float32:
         raise ValueError(f"delta must match lse, got {tuple(delta.shape)}")
+    f32 = _is_f32(grad_dtype, k)
     do = _kernel_readable(do)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    dk = torch.empty(k.shape, dtype=torch.float32 if f32 else k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):
-        _launch("hived_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
-                _dims(q, k, causal), (q, k, v, do, dk, dv), _stream(q))
-    FLASH_BWD_DKV_LAUNCHES += 1
+        _launch("hived_flash_bwd_dkv_f32" if f32 else "hived_flash_bwd_dkv",
+                (q, k, v, do, lse, delta, dk, dv), _dims(q, k, causal),
+                (q, k, v, do, dk, dv), _stream(q))
+    if f32:
+        FLASH_BWD_DKV_F32_LAUNCHES += 1
+    else:
+        FLASH_BWD_DKV_LAUNCHES += 1
     return dk, dv
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                   causal: bool = True):
+                   causal: bool = True, grad_dtype=None):
     """-> (dq, dk, dv) from the forward's o and lse and the output gradient
-    do. CUDA tensors run K2 then K3 (or raise on what they do not take); CPU
-    tensors run the plain version."""
+    do, in ``grad_dtype`` (default the inputs' dtypes; bf16 or f32). CUDA
+    tensors run K2 then K3 (or raise on what they do not take); CPU tensors
+    run the plain version."""
     if q.device.type == "cuda":
-        dq, delta = flash_backward_dq_cuda(q, k, v, o, lse, do, causal)
-        return (dq, *flash_backward_dkv_cuda(q, k, v, lse, delta, do, causal))
+        dq, delta = flash_backward_dq_cuda(q, k, v, o, lse, do, causal, grad_dtype)
+        return (dq, *flash_backward_dkv_cuda(q, k, v, lse, delta, do, causal, grad_dtype))
     if q.device.type == "cpu":
-        return flash_backward_plain(q, k, v, o, lse, do, causal)
+        return flash_backward_plain(q, k, v, o, lse, do, causal, grad_dtype)
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
@@ -387,20 +430,23 @@ def attention_bwd_flops(b: int, t: int, h: int, d: int, causal: bool) -> dict:
             for name, n in (("dq", 3), ("dkv", 4), ("least", 5))}
 
 
-def attention_bytes(b: int, t: int, h: int, h_kv: int, d: int) -> int:
-    """Bytes the bf16 forward must move: q, k, v read once, o and the f32
-    lse written once."""
-    return (2 * b * t * h * d + 2 * b * t * h_kv * d) * 2 + b * h * t * 4
+def attention_bytes(b: int, t: int, h: int, h_kv: int, d: int, out_bytes: int = 2) -> int:
+    """Bytes the bf16 forward must move: q, k, v read once, o (of
+    ``out_bytes`` an element: 2, or 4 for the f32 form) and the f32 lse
+    written once."""
+    return (b * t * h * d + 2 * b * t * h_kv * d) * 2 + b * t * h * d * out_bytes + b * h * t * 4
 
 
-def attention_bwd_bytes(b: int, t: int, h: int, h_kv: int, d: int) -> dict:
+def attention_bwd_bytes(b: int, t: int, h: int, h_kv: int, d: int,
+                        out_bytes: int = 2) -> dict:
     """Bytes each bf16 backward kernel must move, each input read once and
-    each output written once: K2 reads q, k, v, o, do and lse and writes dq
-    and the f32 delta; K3 reads q, k, v, do, lse and delta and writes dk
-    and dv."""
-    q_bytes, kv_bytes, row_bytes = 2 * b * t * h * d, 2 * b * t * h_kv * d, 4 * b * h * t
-    return {"dq": 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
-            "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes}
+    each output written once (gradients of ``out_bytes`` an element: 2, or
+    4 for the f32 forms): K2 reads q, k, v, o, do and lse and writes dq and
+    the f32 delta; K3 reads q, k, v, do, lse and delta and writes dk and
+    dv."""
+    q_el, kv_el, row_bytes = b * t * h * d, b * t * h_kv * d, 4 * b * h * t
+    return {"dq": 3 * 2 * q_el + q_el * out_bytes + 2 * 2 * kv_el + 2 * row_bytes,
+            "dkv": 2 * 2 * q_el + 2 * 2 * kv_el + 2 * kv_el * out_bytes + 2 * row_bytes}
 
 
 # -- paged KV reads ----------------------------------------------------------

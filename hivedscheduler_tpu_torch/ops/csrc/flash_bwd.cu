@@ -78,6 +78,13 @@
 //   causal pairs (where the TPU kernel's NEG_INF makes exp underflow to 0)
 //   and for rows past T, and ds^T = 0 with it.
 // Inputs are addressed through their [B, T, H, D] strides (D contiguous).
+//
+// Output type: dq, dk and dv are stored in bf16 (hived_flash_bwd_dq,
+// hived_flash_bwd_dkv) or in f32 (the _f32 entry points), the counterpart
+// of _flash_backward's grad_dtype=f32, which the sequence-parallel ring
+// calls once a hop and sums over hops in f32. Only the epilogues' stores
+// differ; K3's GQA group sum stays inside the kernel either way (the TPU
+// kernel's caller sums f32 per-q-head partials and then casts).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -121,7 +128,7 @@ struct DqArgs {
   const bf16* o;
   const float* lse;
   float* delta;
-  bf16* dq;
+  void* dq;  // bf16 or f32, the kernel's OutT
   int T, H, group;
   Strides so, sdq;
   float scale;
@@ -157,7 +164,7 @@ __device__ __forceinline__ void ds_tile(uint32_t (&ds)[kDqBlockN / 16][4],
   }
 }
 
-template <int D, bool kCausal>
+template <int D, bool kCausal, typename OutT>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ DqArgs a) {
   using L = DqSmem<D>;
@@ -329,17 +336,16 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     mbar_arrive(&empty[stage]);
   }
 
-  bf16* dqp = at(a.dq, a.sdq, b, h);
+  OutT* dqp = at(static_cast<OutT*>(a.dq), a.sdq, b, h);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t4;
     if (row_a < T) {
-      *reinterpret_cast<__nv_bfloat162*>(dqp + row_a * a.sdq.t + col) =
-          __floats2bfloat162_rn(acc[4 * n] * a.scale, acc[4 * n + 1] * a.scale);
+      store_out2(dqp + row_a * a.sdq.t + col, acc[4 * n] * a.scale, acc[4 * n + 1] * a.scale);
     }
     if (row_b < T) {
-      *reinterpret_cast<__nv_bfloat162*>(dqp + row_b * a.sdq.t + col) =
-          __floats2bfloat162_rn(acc[4 * n + 2] * a.scale, acc[4 * n + 3] * a.scale);
+      store_out2(dqp + row_b * a.sdq.t + col, acc[4 * n + 2] * a.scale,
+                 acc[4 * n + 3] * a.scale);
     }
   }
 }
@@ -375,8 +381,8 @@ struct DkvArgs {
   CUtensorMap tq, tk, tv, tdo;
   const float* lse;
   const float* delta;
-  bf16* dk;
-  bf16* dv;
+  void* dk;  // bf16 or f32, the kernel's OutT
+  void* dv;
   int T, H, group;
   Strides sdk, sdv;
   float scale;
@@ -430,7 +436,7 @@ __device__ __forceinline__ void store_pair(unsigned char* tile, int warp, int g,
   *reinterpret_cast<uint32_t*>(tile + row * 128 + ((chunk ^ g) << 4) + 4 * t4) = v;
 }
 
-template <int D, bool kCausal>
+template <int D, bool kCausal, typename OutT>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ DkvArgs a) {
   using L = DkvSmem<D>;
@@ -596,18 +602,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       fence_regs(dv);
       mbar_arrive(&empty[stage]);
     }
-    bf16* dvp = at(a.dv, a.sdv, b, h_kv);
+    OutT* dvp = at(static_cast<OutT*>(a.dv), a.sdv, b, h_kv);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int col = n * 8 + 2 * t4;
-      if (key_a < T) {
-        *reinterpret_cast<__nv_bfloat162*>(dvp + key_a * a.sdv.t + col) =
-            __floats2bfloat162_rn(dv[4 * n], dv[4 * n + 1]);
-      }
-      if (key_b < T) {
-        *reinterpret_cast<__nv_bfloat162*>(dvp + key_b * a.sdv.t + col) =
-            __floats2bfloat162_rn(dv[4 * n + 2], dv[4 * n + 3]);
-      }
+      if (key_a < T) store_out2(dvp + key_a * a.sdv.t + col, dv[4 * n], dv[4 * n + 1]);
+      if (key_b < T) store_out2(dvp + key_b * a.sdv.t + col, dv[4 * n + 2], dv[4 * n + 3]);
     }
     return;
   }
@@ -671,41 +671,40 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     fence_regs(dk);
     mbar_arrive(&empty[stage]);
   }
-  bf16* dkp = at(a.dk, a.sdk, b, h_kv);
+  OutT* dkp = at(static_cast<OutT*>(a.dk), a.sdk, b, h_kv);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t4;
     if (key_a < T) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + key_a * a.sdk.t + col) =
-          __floats2bfloat162_rn(dk[4 * n] * a.scale, dk[4 * n + 1] * a.scale);
+      store_out2(dkp + key_a * a.sdk.t + col, dk[4 * n] * a.scale, dk[4 * n + 1] * a.scale);
     }
     if (key_b < T) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + key_b * a.sdk.t + col) =
-          __floats2bfloat162_rn(dk[4 * n + 2] * a.scale, dk[4 * n + 3] * a.scale);
+      store_out2(dkp + key_b * a.sdk.t + col, dk[4 * n + 2] * a.scale,
+                 dk[4 * n + 3] * a.scale);
     }
   }
 }
 
-template <int D, bool kCausal>
+template <int D, bool kCausal, typename OutT>
 cudaError_t launch_dq(const DqArgs& a, int B, cudaStream_t stream) {
   constexpr int kSmem = DqSmem<D>::kBytes;
   static bool attr_set = false;
-  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, kCausal>, kSmem, attr_set);
+  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, kCausal, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T + kDqBlockM - 1) / kDqBlockM, B * a.H);
-  flash_bwd_dq_kernel<D, kCausal><<<grid, kWsThreads, kSmem, stream>>>(a);
+  flash_bwd_dq_kernel<D, kCausal, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, bool kCausal>
+template <int D, bool kCausal, typename OutT>
 cudaError_t launch_dkv(const DkvArgs& a, int B, cudaStream_t stream) {
   constexpr int kSmem = DkvSmem<D>::kBytes;
   static bool attr_set = false;
-  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, kCausal>, kSmem, attr_set);
+  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, kCausal, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
   // key tiles along y, so that every tile 0 (the heaviest) is scheduled first
   const dim3 grid(B * (a.H / a.group), (a.T + kDkvBlockN - 1) / kDkvBlockN);
-  flash_bwd_dkv_kernel<D, kCausal><<<grid, kWsThreads, kSmem, stream>>>(a);
+  flash_bwd_dkv_kernel<D, kCausal, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -713,23 +712,13 @@ bool bad_dims(int B, int T, int H, int H_kv, int D) {
   return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || (D != 64 && D != 128);
 }
 
-}  // namespace
-
-// K2. q, o, do [B, T, H, D], k/v [B, T, H_kv, D] and dq [B, T, H, D] in
-// bf16, addressed through the given element strides (D contiguous, every
-// row 16-byte aligned, strides positive); lse [B*H, T] f32 from the
-// forward; delta [B*H, T] f32 is written for K3. Returns 0, the CUresult of
-// a tensor map that could not be encoded, or the cudaError_t of the launch.
-extern "C" int hived_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                                  const void* dout, const void* lse, void* delta, void* dq,
-                                  int B, int T, int H, int H_kv, int D, int causal,
-                                  int64_t q_sb, int64_t q_st, int64_t q_sh,
-                                  int64_t k_sb, int64_t k_st, int64_t k_sh,
-                                  int64_t v_sb, int64_t v_st, int64_t v_sh,
-                                  int64_t o_sb, int64_t o_st, int64_t o_sh,
-                                  int64_t do_sb, int64_t do_st, int64_t do_sh,
-                                  int64_t dq_sb, int64_t dq_st, int64_t dq_sh,
-                                  void* stream) {
+template <typename OutT>
+int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const void* lse, void* delta, void* dq, int B, int T, int H, int H_kv, int D,
+           int causal, int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,
+           int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb, int64_t o_st,
+           int64_t o_sh, int64_t do_sb, int64_t do_st, int64_t do_sh, int64_t dq_sb,
+           int64_t dq_st, int64_t dq_sh, void* stream) {
   if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
   DqArgs a;
   int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kDqBlockM);
@@ -740,7 +729,7 @@ extern "C" int hived_flash_bwd_dq(const void* q, const void* k, const void* v, c
   a.o = static_cast<const bf16*>(o);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
-  a.dq = static_cast<bf16*>(dq);
+  a.dq = dq;
   a.T = T;
   a.H = H;
   a.group = H / H_kv;
@@ -750,29 +739,21 @@ extern "C" int hived_flash_bwd_dq(const void* q, const void* k, const void* v, c
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t launched;
   if (D == 64) {
-    launched = causal ? launch_dq<64, true>(a, B, s) : launch_dq<64, false>(a, B, s);
+    launched = causal ? launch_dq<64, true, OutT>(a, B, s) : launch_dq<64, false, OutT>(a, B, s);
   } else {
-    launched = causal ? launch_dq<128, true>(a, B, s) : launch_dq<128, false>(a, B, s);
+    launched =
+        causal ? launch_dq<128, true, OutT>(a, B, s) : launch_dq<128, false, OutT>(a, B, s);
   }
   return static_cast<int>(launched);
 }
 
-// K3. q, do [B, T, H, D], k/v and dk/dv [B, T, H_kv, D] in bf16, through
-// their element strides (D contiguous; q, do, k and v every row 16-byte
-// aligned, strides positive); lse and delta [B*H, T] f32 (delta from K2).
-// Returns 0, the CUresult of a tensor map that could not be encoded, or the
-// cudaError_t of the launch.
-extern "C" int hived_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                   const void* dout, const void* lse, const void* delta,
-                                   void* dk, void* dv,
-                                   int B, int T, int H, int H_kv, int D, int causal,
-                                   int64_t q_sb, int64_t q_st, int64_t q_sh,
-                                   int64_t k_sb, int64_t k_st, int64_t k_sh,
-                                   int64_t v_sb, int64_t v_st, int64_t v_sh,
-                                   int64_t do_sb, int64_t do_st, int64_t do_sh,
-                                   int64_t dk_sb, int64_t dk_st, int64_t dk_sh,
-                                   int64_t dv_sb, int64_t dv_st, int64_t dv_sh,
-                                   void* stream) {
+template <typename OutT>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dk, void* dv, int B, int T, int H, int H_kv, int D,
+            int causal, int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,
+            int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t do_sb,
+            int64_t do_st, int64_t do_sh, int64_t dk_sb, int64_t dk_st, int64_t dk_sh,
+            int64_t dv_sb, int64_t dv_st, int64_t dv_sh, void* stream) {
   if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
   DkvArgs a;
   int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kDkvBlockM);
@@ -782,8 +763,8 @@ extern "C" int hived_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (err != 0) return err;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
+  a.dk = dk;
+  a.dv = dv;
   a.T = T;
   a.H = H;
   a.group = H / H_kv;
@@ -793,9 +774,58 @@ extern "C" int hived_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t launched;
   if (D == 64) {
-    launched = causal ? launch_dkv<64, true>(a, B, s) : launch_dkv<64, false>(a, B, s);
+    launched =
+        causal ? launch_dkv<64, true, OutT>(a, B, s) : launch_dkv<64, false, OutT>(a, B, s);
   } else {
-    launched = causal ? launch_dkv<128, true>(a, B, s) : launch_dkv<128, false>(a, B, s);
+    launched =
+        causal ? launch_dkv<128, true, OutT>(a, B, s) : launch_dkv<128, false, OutT>(a, B, s);
   }
   return static_cast<int>(launched);
+}
+
+}  // namespace
+
+#define HIVED_DQ_PARAMS                                                                    \
+  const void *q, const void *k, const void *v, const void *o, const void *dout,            \
+      const void *lse, void *delta, void *dq, int B, int T, int H, int H_kv, int D,        \
+      int causal, int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,    \
+      int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb, int64_t o_st,  \
+      int64_t o_sh, int64_t do_sb, int64_t do_st, int64_t do_sh, int64_t dq_sb,            \
+      int64_t dq_st, int64_t dq_sh, void *stream
+#define HIVED_DQ_ARGS                                                                      \
+  q, k, v, o, dout, lse, delta, dq, B, T, H, H_kv, D, causal, q_sb, q_st, q_sh, k_sb, k_st, \
+      k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh, do_sb, do_st, do_sh, dq_sb, dq_st, dq_sh,  \
+      stream
+#define HIVED_DKV_PARAMS                                                                   \
+  const void *q, const void *k, const void *v, const void *dout, const void *lse,          \
+      const void *delta, void *dk, void *dv, int B, int T, int H, int H_kv, int D,         \
+      int causal, int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,    \
+      int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t do_sb,               \
+      int64_t do_st, int64_t do_sh, int64_t dk_sb, int64_t dk_st, int64_t dk_sh,           \
+      int64_t dv_sb, int64_t dv_st, int64_t dv_sh, void *stream
+#define HIVED_DKV_ARGS                                                                     \
+  q, k, v, dout, lse, delta, dk, dv, B, T, H, H_kv, D, causal, q_sb, q_st, q_sh, k_sb, k_st, \
+      k_sh, v_sb, v_st, v_sh, do_sb, do_st, do_sh, dk_sb, dk_st, dk_sh, dv_sb, dv_st,      \
+      dv_sh, stream
+
+// K2. q, o, do [B, T, H, D], k/v [B, T, H_kv, D] and dq [B, T, H, D] in
+// bf16, addressed through the given element strides (D contiguous, every
+// row 16-byte aligned, strides positive); lse [B*H, T] f32 from the
+// forward; delta [B*H, T] f32 is written for K3. Returns 0, the CUresult of
+// a tensor map that could not be encoded, or the cudaError_t of the launch.
+extern "C" int hived_flash_bwd_dq(HIVED_DQ_PARAMS) { return bwd_dq<bf16>(HIVED_DQ_ARGS); }
+
+// K2 with dq in f32 (its strides even, its base 8-byte aligned); o is bf16.
+extern "C" int hived_flash_bwd_dq_f32(HIVED_DQ_PARAMS) { return bwd_dq<float>(HIVED_DQ_ARGS); }
+
+// K3. q, do [B, T, H, D], k/v and dk/dv [B, T, H_kv, D] in bf16, through
+// their element strides (D contiguous; q, do, k and v every row 16-byte
+// aligned, strides positive); lse and delta [B*H, T] f32 (delta from K2).
+// Returns 0, the CUresult of a tensor map that could not be encoded, or the
+// cudaError_t of the launch.
+extern "C" int hived_flash_bwd_dkv(HIVED_DKV_PARAMS) { return bwd_dkv<bf16>(HIVED_DKV_ARGS); }
+
+// K3 with dk and dv in f32 (their strides even, their bases 8-byte aligned).
+extern "C" int hived_flash_bwd_dkv_f32(HIVED_DKV_PARAMS) {
+  return bwd_dkv<float>(HIVED_DKV_ARGS);
 }

@@ -24,6 +24,19 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
+// Two adjacent f32 results of an accumulator row into an output: packed to
+// bf16 (the model's outputs), or kept in f32 (the sequence-parallel ring's
+// per-hop partials, which are merged across hops before any rounding). The
+// address is 4-byte aligned for bf16 and 8-byte aligned for f32 (even
+// columns, even row strides).
+__device__ __forceinline__ void store_out2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void store_out2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
 // max and sum over the 4 lanes of a quad (the lanes that share a row)
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

@@ -39,6 +39,14 @@
 // Inputs are addressed through their [B, T, H, D] strides (D contiguous):
 // tensor maps are encoded per call from the strides, so the caller makes no
 // [B*H, T, D] copy.
+//
+// Output type: o is stored in bf16 (hived_flash_fwd) or in f32
+// (hived_flash_fwd_f32), the counterpart of _flash_forward's out_dtype=f32,
+// which the sequence-parallel ring calls once a hop and merges in f32. Only
+// the epilogue's store differs: at the same inputs the f32 o, rounded once
+// to bf16, is the bf16 kernel's o bit for bit; lse is the same f32 either
+// way. The f32 form writes twice o's bytes (at the flagship shape 64 MB more
+// than the bf16 form's 202 MB, still under the operations' bound).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -64,7 +72,7 @@ struct FwdSmem {
 
 struct FwdArgs {
   CUtensorMap tq, tk, tv;
-  bf16* o;
+  void* o;  // bf16 or f32, the kernel's OutT
   float* lse;
   int T, H, group;
   int64_t o_sb, o_st, o_sh;
@@ -95,7 +103,7 @@ __device__ __forceinline__ void scale_mask(float (&s)[kBlockN / 2], float scale,
   }
 }
 
-template <int D, bool kCausal>
+template <int D, bool kCausal, typename OutT>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_fwd_kernel(const __grid_constant__ FwdArgs a) {
   using L = FwdSmem<D>;
@@ -266,17 +274,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const float ls_b = l_b == 0.f ? 1.f : l_b;
   const float inv_a = 1.f / ls_a;
   const float inv_b = 1.f / ls_b;
-  bf16* op = a.o + b * a.o_sb + h * a.o_sh;
+  OutT* op = static_cast<OutT*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t4;
-    if (row_a < T) {
-      *reinterpret_cast<__nv_bfloat162*>(op + row_a * a.o_st + col) =
-          __floats2bfloat162_rn(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
-    }
+    if (row_a < T) store_out2(op + row_a * a.o_st + col, o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
     if (row_b < T) {
-      *reinterpret_cast<__nv_bfloat162*>(op + row_b * a.o_st + col) =
-          __floats2bfloat162_rn(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
+      store_out2(op + row_b * a.o_st + col, o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
     }
   }
   if (t4 == 0) {
@@ -286,36 +290,30 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
-template <int D, bool kCausal>
+template <int D, bool kCausal, typename OutT>
 cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
   constexpr int kSmem = FwdSmem<D>::kBytes;
   static bool attr_set = false;
-  const cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal>, kSmem, attr_set);
+  const cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T + kBlockM - 1) / kBlockM, B * a.H);
-  flash_fwd_kernel<D, kCausal><<<grid, kWsThreads, kSmem, stream>>>(a);
+  flash_fwd_kernel<D, kCausal, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 cudaError_t launch_d(const FwdArgs& a, int B, int causal, cudaStream_t stream) {
-  return causal ? launch<D, true>(a, B, stream) : launch<D, false>(a, B, stream);
+  return causal ? launch<D, true, OutT>(a, B, stream) : launch<D, false, OutT>(a, B, stream);
 }
 
-}  // namespace
-
-// q [B, T, H, D], k/v [B, T, H_kv, D] and o [B, T, H, D] in bf16, addressed
-// through the given element strides (D contiguous; q, k and v 16-byte
-// aligned with strides a multiple of 8); lse [B*H, T] f32. Returns 0, the
-// CUresult of a tensor map that could not be encoded, or the cudaError_t of
-// the launch.
-extern "C" int hived_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                               int B, int T, int H, int H_kv, int D, int causal,
-                               int64_t q_sb, int64_t q_st, int64_t q_sh,
-                               int64_t k_sb, int64_t k_st, int64_t k_sh,
-                               int64_t v_sb, int64_t v_st, int64_t v_sh,
-                               int64_t o_sb, int64_t o_st, int64_t o_sh,
-                               void* stream) {
+template <typename OutT>
+int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+              int B, int T, int H, int H_kv, int D, int causal,
+              int64_t q_sb, int64_t q_st, int64_t q_sh,
+              int64_t k_sb, int64_t k_st, int64_t k_sh,
+              int64_t v_sb, int64_t v_st, int64_t v_sh,
+              int64_t o_sb, int64_t o_st, int64_t o_sh,
+              void* stream) {
   if (B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || (D != 64 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -324,7 +322,7 @@ extern "C" int hived_flash_fwd(const void* q, const void* k, const void* v, void
   if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kBlockN);
   if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kBlockN);
   if (err != 0) return err;
-  a.o = static_cast<bf16*>(o);
+  a.o = o;
   a.lse = static_cast<float*>(lse);
   a.T = T;
   a.H = H;
@@ -332,6 +330,29 @@ extern "C" int hived_flash_fwd(const void* q, const void* k, const void* v, void
   a.o_sb = o_sb; a.o_st = o_st; a.o_sh = o_sh;
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t launched = D == 64 ? launch_d<64>(a, B, causal, s) : launch_d<128>(a, B, causal, s);
+  const cudaError_t launched =
+      D == 64 ? launch_d<64, OutT>(a, B, causal, s) : launch_d<128, OutT>(a, B, causal, s);
   return static_cast<int>(launched);
 }
+
+}  // namespace
+
+#define HIVED_FWD_PARAMS                                                                   \
+  const void *q, const void *k, const void *v, void *o, void *lse, int B, int T, int H,    \
+      int H_kv, int D, int causal, int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb, \
+      int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb, \
+      int64_t o_st, int64_t o_sh, void *stream
+#define HIVED_FWD_ARGS                                                                     \
+  q, k, v, o, lse, B, T, H, H_kv, D, causal, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,     \
+      v_st, v_sh, o_sb, o_st, o_sh, stream
+
+// q [B, T, H, D], k/v [B, T, H_kv, D] and o [B, T, H, D] in bf16, addressed
+// through the given element strides (D contiguous; q, k and v 16-byte
+// aligned with strides a multiple of 8); lse [B*H, T] f32. Returns 0, the
+// CUresult of a tensor map that could not be encoded, or the cudaError_t of
+// the launch.
+extern "C" int hived_flash_fwd(HIVED_FWD_PARAMS) { return flash_fwd<bf16>(HIVED_FWD_ARGS); }
+
+// The same with o [B, T, H, D] in f32 (its strides even, its base 8-byte
+// aligned).
+extern "C" int hived_flash_fwd_f32(HIVED_FWD_PARAMS) { return flash_fwd<float>(HIVED_FWD_ARGS); }

@@ -1,5 +1,5 @@
-"""Shardings and the collectives of the port's data-, fully-sharded- and
-tensor-parallel paths.
+"""Shardings and the collectives of the port's data-, fully-sharded-,
+tensor- and sequence-parallel paths.
 
 In the JAX package GSPMD inserts the collectives that a ``PartitionSpec``
 implies. The port runs one process per GPU and writes them out, as
@@ -31,11 +31,16 @@ flash kernels take nothing else):
 - a weight gathered whole over ``tp`` (the vocab-sharded ``lm_head``) is
   used the same way on every tp rank, so the gradient of that gather is
   the rank's own slice, not a sum;
-- the loss is the global mean: each rank divides its rows' sum by the
-  global count, and :meth:`MeshShards.data_sum` adds the ranks' parts with
-  an identity backward, so each rank's gradients are its rows'
-  contribution; :meth:`MeshShards.sync_grad` then sums them over the data
-  axes the fsdp reduce-scatter has not already summed.
+- sp: each rank holds its rows' whole token ids and computes one
+  contiguous slice of every sequence (:meth:`MeshShards.seq_part`);
+  attention crosses the slices (``parallel/ring_attention.py``),
+  everything else is position-local. Parameters are replicated along sp;
+- the loss is the global mean: each rank divides its part of the sum (its
+  rows, its slice of the sequence) by the global count, and
+  :meth:`MeshShards.data_sum` adds the ranks' parts over ``GRAD_AXES``
+  with an identity backward, so each rank's gradients are its part's
+  contribution; :meth:`MeshShards.sync_grad` then sums them over the axes
+  the fsdp reduce-scatter has not already summed.
 
 On a mesh axis of size 1 every operation here is the identity and no
 collective is issued, so a one-GPU mesh computes exactly what the
@@ -52,6 +57,10 @@ import torch.distributed as dist
 
 # the data-parallel axes: ranks along them read different rows
 DATA_AXES = ("dp", "fsdp")
+# the axes along which ranks compute different parts of the loss (rows over
+# the data axes, slices of the sequence over sp): the loss and the
+# gradients of the parameters replicated along them are summed over these
+GRAD_AXES = DATA_AXES + ("sp",)
 # the axes the parameter specs shard: parameters live on this submesh
 PARAM_AXES = ("fsdp", "tp")
 
@@ -191,6 +200,8 @@ class MeshShards:
         self.sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
         self.groups = {name: mesh.get_group(name)
                        for name, size in self.sizes.items() if size > 1}
+        # the slice of every sequence this rank computes, along sp
+        self.seq_index = mesh.get_local_rank("sp") if "sp" in self.groups else 0
 
     def weight(self, local: torch.Tensor, spec: Sequence,
                dtype: Optional[torch.dtype], axes: Tuple[str, ...] = ("fsdp",)):
@@ -217,14 +228,20 @@ class MeshShards:
             return x
         return _AllReduceForward.apply(x, (self.groups["tp"],))
 
-    def _data_groups(self):
-        return tuple(self.groups[a] for a in DATA_AXES if a in self.groups)
-
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over the data axes; the gradient passes unchanged, so each
-        rank's gradient is its own rows' contribution."""
-        groups = self._data_groups()
+        """Sum over ``GRAD_AXES``; the gradient passes unchanged, so each
+        rank's gradient is its own part's contribution."""
+        groups = tuple(self.groups[a] for a in GRAD_AXES if a in self.groups)
         return _AllReduceForward.apply(x, groups) if groups else x
+
+    def seq_part(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous slice ``seq_index`` of the sequence (dim 1)
+        of whole rows, one of ``sizes["sp"]`` equal slices."""
+        sp = self.sizes["sp"]
+        if x.shape[1] % sp:
+            raise ValueError(f"seq len {x.shape[1]} does not split over sp={sp}")
+        t = x.shape[1] // sp
+        return x[:, self.seq_index * t:(self.seq_index + 1) * t]
 
     def whole_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The global batch on every rank, from each rank's rows (dp-major,
@@ -235,12 +252,12 @@ class MeshShards:
         return x
 
     def sync_grad(self, grad_local: torch.Tensor, param) -> None:
-        """Sum a parameter's local gradient, in place, over the data axes
-        along which the DTensor ``param`` is replicated (along fsdp, where
-        it is sharded, the gather's reduce-scatter has already summed
-        it)."""
+        """Sum a parameter's local gradient, in place, over the
+        ``GRAD_AXES`` along which the DTensor ``param`` is replicated (along
+        fsdp, where it is sharded, the gather's reduce-scatter has already
+        summed it; along sp it never is)."""
         placed = dict(zip(param.device_mesh.mesh_dim_names, param.placements))
-        for name in DATA_AXES:
+        for name in GRAD_AXES:
             sharded = name in placed and placed[name].is_shard()
             if name in self.groups and not sharded:
                 dist.all_reduce(grad_local, group=self.groups[name])

@@ -3,8 +3,8 @@
 Counterpart of ``hivedscheduler_tpu/parallel/train.py``: ``loss_fn``,
 ``make_optimizer``, ``train_step`` (with gradient accumulation), the
 remat-policy override, ``_shardings``, ``make_sharded_train_step`` and
-``make_sharded_eval_step`` over a six-axis ``DeviceMesh`` (dp, fsdp and tp;
-sp, pp and ep above 1 are not yet ported), and their one-device cousins
+``make_sharded_eval_step`` over a six-axis ``DeviceMesh`` (dp, fsdp, tp and
+sp; pp and ep above 1 are not yet ported), and their one-device cousins
 ``make_train_step`` and ``make_eval_step``. LoRA is not yet ported.
 
 The parameter tree is the JAX package's: a dict of f32 leaves, plain
@@ -62,17 +62,22 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
     ``include_aux`` is accepted for the reference's signature: the dense
     model's aux loss is 0.
 
-    Under a ``mesh``, ``tokens`` are this rank's rows (see
-    ``forward_with_aux``) and the loss is the global mean over the rows of
-    every data-parallel rank, the same number on every rank; each rank's
-    gradient of it is its own rows' contribution (``MeshShards.data_sum``),
-    which ``train_step`` sums over the data axes."""
+    Under a ``mesh``, ``tokens`` are this rank's rows, whole sequences,
+    of which the rank computes its sp slice (see ``forward_with_aux``), and
+    the loss is the global mean over every rank's part, the same number on
+    every rank; each rank's gradient of it is its own part's contribution
+    (``MeshShards.data_sum``), which ``train_step`` sums over
+    ``sharding.GRAD_AXES``. The roll is over the whole sequence, so a
+    slice's last target is the next slice's first token."""
     shards = tm.mesh_shards(mesh, cfg)
     tokens = sharding.local(tokens)
     targets = torch.roll(tokens, -1, dims=1).long()
-    b, t = tokens.shape
-    mask = torch.ones((b, t), dtype=torch.float32, device=tokens.device)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
+    if shards is not None:
+        targets, mask = shards.seq_part(targets), shards.seq_part(mask)
+    b, t = targets.shape
+    sp = 1 if shards is None else shards.sizes["sp"]
     if ce_chunk <= 0:
         logits, aux = tm.forward_with_aux(params, tokens, cfg, mesh=mesh)
         per_tok = F.cross_entropy(
@@ -82,7 +87,8 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
     else:
         if t % ce_chunk:
             raise ValueError(
-                f"seq len {t} not divisible by ce_chunk {ce_chunk}"
+                f"seq len {t}{' (a rank slice of sp)' if sp > 1 else ''} not "
+                f"divisible by ce_chunk {ce_chunk}"
             )
         hidden, aux = tm.forward_with_aux(params, tokens, cfg, mesh=mesh,
                                           return_hidden=True)
@@ -160,8 +166,9 @@ def train_step(params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor,
     a mesh the loss is global, so every rank decides the same way.
 
     Under a ``mesh`` ``params`` are DTensors and ``tokens`` this rank's
-    rows; each gradient is summed over the data axes along which its
-    parameter is replicated before the update."""
+    rows (over sp, its slice of their sequence); each gradient is summed
+    over the ``sharding.GRAD_AXES`` along which its parameter is replicated
+    before the update."""
     leaves = _leaves(params)
     shards = tm.mesh_shards(mesh, cfg)
 
@@ -258,8 +265,9 @@ def make_eval_step(cfg: tm.TransformerConfig, device: str | torch.device = "cuda
 
 class TokenSharding(NamedTuple):
     """Where a global [batch, seq] token batch lives: the mesh and the
-    DTensor placements of ``activation_spec`` (the counterpart of JAX's
-    token ``NamedSharding``)."""
+    DTensor placements of ``activation_spec``'s rows (the counterpart of
+    JAX's token ``NamedSharding``). The sequence is not split: every sp
+    rank holds whole rows, a few KB, and computes its own slice of them."""
 
     mesh: Any
     placements: list
@@ -271,14 +279,15 @@ def _shardings(cfg: tm.TransformerConfig, mesh) -> TokenSharding:
     parameters are placed by ``sharding_specs``, on
     ``sharding.param_mesh(mesh)``). Raises ``ValueError`` when heads do not
     divide tp (as the JAX package's does) or a sharded weight dim does not
-    split evenly, and "not yet ported" for sp, pp or ep above 1."""
+    split evenly or sp is above 1 without a ring-family attention, and
+    "not yet ported" for pp or ep above 1."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     tm.check_mesh(cfg, sizes)
     shapes = {name: tuple(t.shape) for name, t in named_leaves(
         tm.init_params(cfg, None, "meta")).items()}
     for name, spec in named_leaves(tm.sharding_specs(cfg)).items():
         sharding.check_divisible(shapes[name], spec, sizes, name)
-    return TokenSharding(mesh, sharding.placements(tm.activation_spec(), mesh))
+    return TokenSharding(mesh, sharding.placements(tm.activation_spec()[:1], mesh))
 
 
 def _init_on_mesh(cfg: tm.TransformerConfig, mesh, generator: torch.Generator):

@@ -8,16 +8,20 @@ defaults, the same step loop and the same log line:
 
 ``--device`` (default ``cuda``) is the one addition; ``--device cpu`` runs
 on the CPU. ``--attn flash`` runs the flash kernels forward and backward;
-the optimizer is AdamW. ``--timeline`` writes the same per-step JSONL and
+the optimizer is AdamW. ``--attn`` takes every ``attn_impl`` of the JAX
+package and defaults to ``ring`` when ``--sp`` is above 1, ``xla``
+otherwise; the ring family runs on the mesh (at ``--sp 1`` a ring of one
+hop). ``--timeline`` writes the same per-step JSONL and
 syncs every step.
 
 One process drives one GPU. Step 1 opens the process group from the
 scheduler's gang handoff (``POD_BIND_INFO``, ``NODE_NAME``,
 ``NVIDIA_VISIBLE_DEVICES`` and ``LOCAL_RANK``; a one-rank group when the
 run was not placed by the scheduler), NCCL on ``cuda`` and gloo on
-``cpu``; step 2 lays the mesh ``infer_axes(world, tp=, fsdp=)`` over it,
-dp taking the rest. ``--tp`` and ``--fsdp`` shard the model (Megatron
-tensor parallelism, ZeRO-3); tokens/s is over the global batch. Rank 0
+``cpu``; step 2 lays the mesh ``infer_axes(world, tp=, sp=, fsdp=)`` over
+it, dp taking the rest. ``--tp`` and ``--fsdp`` shard the model (Megatron
+tensor parallelism, ZeRO-3), ``--sp`` the sequence (each rank attends its
+slice over the ring family); tokens/s is over the global batch. Rank 0
 alone writes the logs, the timeline and the goodput spool; every rank
 takes part in each checkpoint save.
 
@@ -33,11 +37,10 @@ and skips the poisoned batch (``--max-rollbacks`` times at most).
 ``--init-from`` warm-starts the parameters with a fresh optimizer;
 ``--goodput-file`` spools the goodput ledger's step phases.
 
-Sequence parallelism (``--sp``), pipelining (``--pp``,
-``--microbatches``), expert parallelism (``--ep``), MoE, LoRA, the
-overlapped stack, elastic meshes (``--elastic``, ``--min-chips``), the
-profiler and the journal are not yet ported and exit with an error
-rather than being ignored.
+Pipelining (``--pp``, ``--microbatches``), expert parallelism (``--ep``),
+MoE, LoRA, the overlapped stack, elastic meshes (``--elastic``,
+``--min-chips``), the profiler and the journal are not yet ported and
+exit with an error rather than being ignored.
 """
 
 from __future__ import annotations
@@ -53,13 +56,11 @@ from hivedscheduler_tpu_torch.common import utils as common
 
 log = logging.getLogger(__name__)
 
-PORTED_ATTN = ("xla", "flash")
 # the step loop's log line: step, loss, tokens/s since the loop started
 STEP_LOG = "step %s loss %.4f | %.0f tok/s"
 
 
 UNPORTED_AXES = {
-    "sp": "sequence parallelism (the ring family)",
     "pp": "pipelining",
     "ep": "expert parallelism",
 }
@@ -69,7 +70,7 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
     for flag, what in UNPORTED_AXES.items():
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} > 1 is not yet ported: {what}; the port "
-                         "shards over dp, fsdp and tp")
+                         "shards over dp, fsdp, tp and sp")
     unported = {
         "--microbatches": args.microbatches > 0,
         "--n-experts > 0 (MoE)": args.n_experts > 0,
@@ -85,9 +86,6 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
     for flag, given in unported.items():
         if given:
             parser.error(f"{flag} is not yet ported")
-    if args.attn is not None and args.attn not in PORTED_ATTN:
-        parser.error(f"--attn {args.attn} is not yet ported; the port runs "
-                     f"{'|'.join(PORTED_ATTN)}")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -106,7 +104,8 @@ def _parser() -> argparse.ArgumentParser:
                         help="tensor-parallel degree (heads and the MLP "
                         "hidden dim; must divide the head counts)")
     parser.add_argument("--sp", type=int, default=1,
-                        help="sequence parallelism: not yet ported above 1")
+                        help="sequence-parallel degree (the ring family "
+                        "attends across it; must divide --seq-len)")
     parser.add_argument("--fsdp", type=int, default=1,
                         help="fully-sharded data-parallel degree (ZeRO-3)")
     parser.add_argument("--pp", type=int, default=1,
@@ -146,7 +145,10 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--block-k", type=int, default=128,
                         help="flash tile by the JAX package's shape rules "
                         "(CPU tensors)")
-    parser.add_argument("--attn", default=None, help="xla|flash (default: xla)")
+    parser.add_argument("--attn", default=None,
+                        help="xla|flash|ring|ring_flash|ring_zigzag|"
+                        "ring_zigzag_flash|ulysses (default: ring when sp>1, "
+                        "else xla)")
     parser.add_argument("--prefetch", type=int, default=2,
                         help="data-loader prefetch depth (0 disables)")
     parser.add_argument("--data", default="",
@@ -250,9 +252,9 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
     from hivedscheduler_tpu_torch.parallel.train import make_sharded_train_step
 
     device = resolve_device(args.device)
-    # 2. the mesh over the gang's GPUs; dp takes what tp and fsdp leave
+    # 2. the mesh over the gang's GPUs; dp takes what tp, sp and fsdp leave
     try:
-        axes = topology.infer_axes(world, tp=args.tp, fsdp=args.fsdp)
+        axes = topology.infer_axes(world, tp=args.tp, sp=args.sp, fsdp=args.fsdp)
     except ValueError as err:
         parser.error(str(err))
     mesh = topology.make_mesh(axes, device.type)
@@ -267,7 +269,7 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
         n_layers=args.n_layers,
         d_ff=args.d_ff,
         max_seq_len=args.seq_len,
-        attn_impl=args.attn or "xla",
+        attn_impl=args.attn or ("ring" if axes.sp > 1 else "xla"),
         n_experts=args.n_experts,
         moe_top_k=args.moe_top_k,
         moe_aux_weight=args.moe_aux_weight,

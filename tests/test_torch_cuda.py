@@ -26,7 +26,10 @@ through its CUDA-graph decode window, greedy and sampled, int8 KV dense
 and paged; its graph refuses a rebound cache; the serve CLI prints its
 request lines. K1-K3 hold at the local shapes a tp=2 shard of the
 flagship launches, and a train step on a one-GPU NCCL mesh (DTensor
-state) equals the single-device step.
+state) equals the single-device step. K1-K3's f32 forms (the ring's hops)
+hold to their plain versions at hop shapes and, rounded once to bf16,
+equal the bf16 kernels' outputs; ring_flash at sp = 1 on the NCCL mesh
+launches them and equals flash's losses (ring_zigzag_flash within 1e-3).
 """
 
 import os
@@ -294,12 +297,12 @@ def _sass_by_kernel(library: str) -> dict:
     ("flash_bwd", "flash_bwd_dkv_kernel"),
 ])
 def test_kernels_run_on_wgmma_and_tma(cuda, library, kernel):
-    # every instance (D 64/128 x causal/full) multiplies with wgmma (HGMMA)
-    # on tiles loaded by TMA (UTMALDG), never with mma.sync (HMMA) or
-    # cp.async (LDGSTS)
+    # every instance (D 64/128 x causal/full x bf16/f32 outputs) multiplies
+    # with wgmma (HGMMA) on tiles loaded by TMA (UTMALDG), never with
+    # mma.sync (HMMA) or cp.async (LDGSTS)
     sass = _sass_by_kernel(_build.build(library))
     found = {k: v for k, v in sass.items() if kernel in k}
-    assert len(found) == 4, sorted(sass)
+    assert len(found) == 8, sorted(sass)
     for name, text in found.items():
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert "HMMA" not in text and "LDGSTS" not in text, name
@@ -584,3 +587,88 @@ def test_world_1_nccl_mesh_step_equals_the_single_device_step(cuda):
         distributed.shutdown()
     assert all(np.isfinite(got))
     assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= 1e-3, (got, want)
+
+
+# -- the sequence-parallel path: the kernels' f32 forms and the ring ----------
+
+# one hop of a ring: its diagonal (causal) and an unmasked hop, GQA
+RING_HOP_SHAPES = [(1, 256, 4, 2, 128, True), (1, 256, 4, 2, 128, False),
+                   (2, 192, 4, 1, 64, True)]
+# the share of an f32 form's outputs that a bf16 holds exactly (its exact
+# zeros and o's first causal row, at these shapes under 1%)
+F32_EXACT_BF16_MAX = 0.1
+
+
+def _exact_bf16_share(x):
+    return float((x == x.to(torch.bfloat16).float()).float().mean())
+
+
+@pytest.mark.parametrize("shape", RING_HOP_SHAPES)
+def test_f32_forms_match_plain_and_round_to_the_bf16_kernels(cuda, shape):
+    b, t, h, h_kv, d, causal = shape
+    f32 = torch.float32
+    q, k, v, o16, lse, do = _bwd_inputs(b, t, h, h_kv, d, causal)
+    before = (tattn.FLASH_FWD_F32_LAUNCHES, tattn.FLASH_BWD_DQ_F32_LAUNCHES,
+              tattn.FLASH_BWD_DKV_F32_LAUNCHES, tattn.FLASH_FWD_LAUNCHES)
+    o, lse32 = tattn.flash_forward(q, k, v, causal=causal, out_dtype=f32)
+    o_ref, _ = tattn.flash_attention_plain(q, k, v, causal=causal, out_dtype=f32)
+    assert o.dtype == f32
+    assert _worst_row_rel(o, o_ref) <= O_ROW_REL
+    # only the epilogue's store differs: rounded once, the bf16 kernel's o
+    assert torch.equal(o.to(torch.bfloat16), o16) and torch.equal(lse32, lse)
+    got = tattn.flash_backward(q, k, v, o16, lse, do, causal=causal, grad_dtype=f32)
+    got16 = tattn.flash_backward(q, k, v, o16, lse, do, causal=causal)
+    want = tattn.flash_backward_plain(q, k, v, o16, lse, do, causal=causal, grad_dtype=f32)
+    # f32 precision kept: few outputs are values a bf16 holds exactly (a
+    # bf16 store widened to f32 would give all of them)
+    assert _exact_bf16_share(o) <= F32_EXACT_BF16_MAX
+    assert _exact_bf16_share(o16.float()) > F32_EXACT_BF16_MAX
+    for x, x16, ref, name in zip(got, got16, want, ("dq", "dk", "dv")):
+        assert x.dtype == f32, name
+        fro, row = _grad_errs(x, ref)
+        assert fro <= GRAD_REL and row <= GRAD_ROW_REL, (name, fro, row)
+        assert torch.equal(x.to(torch.bfloat16), x16), name
+        assert _exact_bf16_share(x) <= F32_EXACT_BF16_MAX, name
+    after = (tattn.FLASH_FWD_F32_LAUNCHES, tattn.FLASH_BWD_DQ_F32_LAUNCHES,
+             tattn.FLASH_BWD_DKV_F32_LAUNCHES, tattn.FLASH_FWD_LAUNCHES)
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 0]
+
+
+def test_f32_forms_refuse_other_dtypes(cuda):
+    q, k, v = _qkv(1, 128, 2, 2, 64)
+    with pytest.raises(TypeError):
+        tattn.flash_forward(q, k, v, out_dtype=torch.float16)
+    # the bf16 form is the default (None), not a dtype to ask for
+    with pytest.raises(TypeError):
+        tattn.flash_forward(q, k, v, out_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("impl", ["ring_flash", "ring_zigzag_flash"])
+def test_ring_at_sp1_runs_the_f32_kernels_on_the_nccl_mesh(cuda, impl):
+    from hivedscheduler_tpu_torch.parallel import data as tdata
+    from hivedscheduler_tpu_torch.parallel import distributed, topology
+
+    kw = dict(vocab_size=512, d_model=256, n_heads=2, n_kv_heads=1, n_layers=2,
+              d_ff=512, max_seq_len=256, remat="dots")
+    tokens = np.random.default_rng(4).integers(0, 512, (2, 256)).astype(np.int32)
+    losses = {}
+    try:
+        assert distributed.initialize_from_gang(device="cuda") == (0, 1)
+        mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
+        for attn in ("flash", impl):
+            cfg = ttm.TransformerConfig(attn_impl=attn, **kw)
+            step, init, tok_sh = ttrain.make_sharded_train_step(cfg, mesh, ce_chunk=128)
+            params, opt = init(torch.Generator(device="cuda").manual_seed(0))
+            before = tattn.FLASH_FWD_F32_LAUNCHES
+            losses[attn] = [float(step(params, opt, tdata.device_put_global(
+                tokens, tok_sh, 2))[2]) for _ in range(2)]
+            blocks = 3 if impl == "ring_zigzag_flash" else 1
+            want = 0 if attn == "flash" else 2 * 2 * cfg.n_layers * blocks
+            assert tattn.FLASH_FWD_F32_LAUNCHES - before == want, attn
+    finally:
+        distributed.shutdown()
+    # one diagonal hop merges into an empty accumulator exactly
+    if impl == "ring_flash":
+        assert losses[impl] == losses["flash"]
+    else:
+        assert max(abs(a - b) for a, b in zip(losses[impl], losses["flash"])) <= 1e-3

@@ -176,16 +176,17 @@ def test_cli_cuda_without_card_raises():
 
 @pytest.mark.parametrize("extra", [
     ["--tp", "2"], ["--sp", "2"], ["--fsdp", "2"], ["--ep", "2"],
-    ["--n-experts", "2"], ["--attn", "ring"],
+    ["--n-experts", "2"], ["--attn", "ring", "--sp", "2"],
 ])
 def test_cli_unported_flags_exit_with_error(extra, capsys):
-    # --tp and --fsdp are ported: on one device their mesh cannot be laid,
-    # which is a usage error too; every other flag is not yet ported
+    # --tp, --fsdp and --sp (with the ring family) are ported: on one
+    # device their mesh cannot be laid, which is a usage error too; every
+    # other flag is not yet ported
     with pytest.raises(SystemExit) as exc:
         teval.main(CLI_MODEL + extra)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    if extra[0] in ("--tp", "--fsdp"):
+    if {"--tp", "--fsdp", "--sp"} & set(extra):
         assert "1 devices not divisible by tp*sp*fsdp*pp*ep=2" in err
     else:
         assert "not yet ported" in err

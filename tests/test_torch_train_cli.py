@@ -132,16 +132,17 @@ def test_cuda_without_a_card_raises():
     ["--microbatches", "2"], ["--n-experts", "2"], ["--lora-rank", "4"],
     ["--lora-mlp"], ["--lora-alpha", "8"], ["--overlap"],
     ["--profile-dir", "/nonexistent"], ["--journal-file", "j.jsonl"],
-    ["--elastic"], ["--min-chips", "2"], ["--attn", "ring"],
+    ["--elastic"], ["--min-chips", "2"], ["--attn", "ring", "--sp", "2"],
 ])
 def test_unported_flags_exit_with_error(extra, capsys):
-    # --tp and --fsdp are ported: on one device their mesh cannot be laid,
-    # which is a usage error too; every other flag is not yet ported
+    # --tp, --fsdp and --sp (with the ring family) are ported: on one
+    # device their mesh cannot be laid, which is a usage error too; every
+    # other flag is not yet ported
     with pytest.raises(SystemExit) as exc:
         ttrain_cli.main(CLI_MODEL + extra)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    if extra[0] in ("--tp", "--fsdp"):
+    if {"--tp", "--fsdp", "--sp"} & set(extra):
         assert "1 devices not divisible by tp*sp*fsdp*pp*ep=2" in err
     else:
         assert "not yet ported" in err

@@ -209,7 +209,8 @@ def test_cast_params_and_load_weight():
     (dict(lora_rank=4), NotImplementedError),
     (dict(pipeline_microbatches=2), NotImplementedError),
     (dict(overlap=True), NotImplementedError),
-    (dict(attn_impl="ring_flash"), NotImplementedError),
+    # the ring family needs a mesh (JAX asserts one)
+    (dict(attn_impl="ring_flash"), ValueError),
     (dict(attn_impl="flsh"), ValueError),
     (dict(remat="some"), ValueError),
 ])
@@ -234,14 +235,14 @@ class _SpMesh:
 
 
 def test_forward_over_a_mesh_raises():
-    # dp, fsdp and tp are ported (tests/test_torch_sharded_train.py); a
-    # mesh with sp > 1 needs the ring family, which is not
+    # dp, fsdp, tp and sp are ported (tests/test_torch_sharded_train.py,
+    # tests/test_torch_sp_train.py); a mesh with sp > 1 needs the ring
+    # family, since each rank holds only its slice of the sequence
     _, tcfg = _configs("xla", "f32")
-    with pytest.raises(NotImplementedError) as err:
+    with pytest.raises(ValueError) as err:
         ttm.forward(None, torch.zeros((1, 8), dtype=torch.int32), tcfg,
                     mesh=_SpMesh())
-    assert "not yet ported" in str(err.value)
-    assert "sp > 1" in str(err.value)
+    assert "sp=2 needs a ring-family attn_impl" in str(err.value)
 
 
 def test_resolve_device():
@@ -282,7 +283,7 @@ PORT_COPIES = ("common/envflags.py", "parallel/topology.py",
                "parallel/checkpoint.py", "parallel/supervisor.py",
                "obs/goodput.py", "chaos/workload.py", "train.py", "eval.py",
                "models/decode.py", "models/quant.py", "models/speculative.py",
-               "generate.py")
+               "generate.py", "parallel/ring_attention.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

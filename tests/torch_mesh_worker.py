@@ -3,7 +3,7 @@
     python tests/torch_mesh_worker.py JOB.json RANK
 
 ``JOB.json`` names the world size, the coordinator port, the mesh degrees
-(``tp``, ``fsdp``; dp takes the rest), the model config and a list of
+(``tp``, ``sp``, ``fsdp``; dp takes the rest), the model config and a list of
 tasks run in order on one process group. The rank joins the gang as a
 scheduled pod would: a bind info of one pod holding ``world`` GPUs on the
 node ``test/127.0.0.1``, ``NVIDIA_VISIBLE_DEVICES`` and ``LOCAL_RANK``, read
@@ -68,13 +68,14 @@ def main(job_path: str, rank: int) -> None:
     from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
     from hivedscheduler_tpu_torch.parallel import data as data_lib
     from hivedscheduler_tpu_torch.parallel import distributed, topology
+    from hivedscheduler_tpu_torch.parallel import ring_attention as ring
     from hivedscheduler_tpu_torch.parallel import train as ptrain
 
     got_rank, world = distributed.initialize_from_gang(
         coordinator_port=job["port"], device="cpu")
     assert (got_rank, world) == (rank, job["world"]), (got_rank, world)
     try:
-        axes = topology.infer_axes(world, tp=job.get("tp", 1),
+        axes = topology.infer_axes(world, tp=job.get("tp", 1), sp=job.get("sp", 1),
                                    fsdp=job.get("fsdp", 1))
         mesh = topology.make_mesh(axes, "cpu")
         cfg = tm.TransformerConfig(dtype=torch.float32, **job["cfg"])
@@ -111,6 +112,7 @@ def main(job_path: str, rank: int) -> None:
                 out["eval_loss"] = np.array(float(eval_step(params, tokens(0))))
             elif task == "train":
                 routes = attention.FLASH_REFERENCE_ROUTES
+                ring_routes = ring.RING_REFERENCE_ROUTES
                 losses = []
                 for i in range(batches.shape[0]):
                     params, opt, loss = step(params, opt, tokens(i))
@@ -118,6 +120,8 @@ def main(job_path: str, rank: int) -> None:
                 out["losses"] = np.array(losses)
                 out["reference_routes"] = np.array(
                     attention.FLASH_REFERENCE_ROUTES - routes)
+                out["ring_reference_routes"] = np.array(
+                    ring.RING_REFERENCE_ROUTES - ring_routes)
                 state_out("", params, opt)
             elif task == "save":
                 meta = ckpt.train_metadata(axes, cfg,
