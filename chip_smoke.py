@@ -398,8 +398,9 @@ class _LogArgs(logging.Handler):
             self.args.append(record.args)
 
 
-def run_eval(attn_impl: str, windows: int):
-    """``eval.main`` -> (loss, window ms, tokens/s) as it reports them."""
+def run_eval(attn_impl: str, windows: int, args=EVAL_ARGS):
+    """``eval.main`` with ``args`` -> (loss, window ms, tokens/s) as it
+    reports them."""
     from hivedscheduler_tpu_torch import eval as port_eval
 
     timing = _LogArgs(port_eval.WINDOWS_LOG)
@@ -408,8 +409,8 @@ def run_eval(attn_impl: str, windows: int):
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
-            rc = port_eval.main(EVAL_ARGS + ["--attn", attn_impl,
-                                             "--max-steps", str(windows)])
+            rc = port_eval.main(args + ["--attn", attn_impl,
+                                        "--max-steps", str(windows)])
     finally:
         logger.removeHandler(timing)
     out = buf.getvalue()
@@ -677,19 +678,44 @@ PROFILE_GROUPS = (
 OTHER_GROUP = "other (elementwise, norms, CE, optimizer)"
 
 
-def profile_group(kernel_name: str) -> str:
+def profile_group(kernel_name: str, groups=PROFILE_GROUPS) -> str:
     """The part of the step a device kernel's time is counted in."""
     key = kernel_name.lower()
-    return next((name for name, frags in PROFILE_GROUPS
+    return next((name for name, frags in groups
                  if any(f.lower() in key for f in frags)), OTHER_GROUP)
+
+
+def _step_profile(step, params, opt, batch, groups=PROFILE_GROUPS):
+    """One ``step`` under torch.profiler -> (its wall ms, device-busy ms,
+    {group: device ms}), each device kernel counted in the first of
+    ``groups`` whose name fragments it holds, else in OTHER_GROUP."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(params, opt, batch)[2])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = {name: 0.0 for name, _ in groups}
+    parts[OTHER_GROUP] = 0.0
+    total = 0.0
+    for event in prof.key_averages():
+        # device-side events only (kernels, copies): a host op's self device
+        # time is its kernels' again
+        if event.device_type != DeviceType.CUDA:
+            continue
+        us = event.self_device_time_total
+        total += us
+        parts[profile_group(event.key, groups)] += us
+    return wall_ms, total / 1e3, {k: v / 1e3 for k, v in parts.items()}
 
 
 def phase_train_profile() -> None:
     """Device time of one flagship flash train step by kernel group, from
     torch.profiler, beside the step's wall time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from hivedscheduler_tpu_torch.models import transformer as tm
     from hivedscheduler_tpu_torch.parallel import data as data_lib
@@ -703,28 +729,13 @@ def phase_train_profile() -> None:
         data_lib.synthetic_dataset(cfg.vocab_size), EVAL_BATCH, EVAL_SEQ)
     batches = [torch.from_numpy(next(loader)).cuda() for _ in range(2)]
     step(params, opt, batches[0])  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        float(step(params, opt, batches[1])[2])
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    parts = {name: 0.0 for name, _ in PROFILE_GROUPS}
-    parts[OTHER_GROUP] = 0.0
-    total = 0.0
-    for event in prof.key_averages():
-        # device-side events only (kernels, copies): a host op's self device
-        # time is its kernels' again
-        if event.device_type != DeviceType.CUDA:
-            continue
-        us = event.self_device_time_total
-        total += us
-        parts[profile_group(event.key)] += us
+    wall_ms, total, parts = _step_profile(step, params, opt, batches[1])
     if total == 0:
         print("[h] profiler: no device time recorded (not measured)")
     else:
         print(f"[h] profile of one flash train step: wall {wall_ms:.1f} ms, device "
-              f"busy {total / 1e3:.1f} ms ({1 - total / 1e3 / wall_ms:.1%} idle); "
-              + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / total:.1%})"
+              f"busy {total:.1f} ms ({1 - total / wall_ms:.1%} idle); "
+              + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})"
                           for k, v in parts.items()))
     del params, opt, batches
     torch.cuda.empty_cache()
@@ -2085,9 +2096,10 @@ def _mesh_train(mesh, h_flash: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _mesh_checkpoint(mesh) -> None:
-    """A world-1 DTensor train state (flagship width, 2 layers) through the
-    multi-rank save and restore: bit-identical, with a planted fault."""
+def _mesh_checkpoint(mesh, model=None, tag="[l]") -> None:
+    """A world-1 DTensor train state (flagship width, 2 layers; ``model``
+    overrides the flagship's fields) through the multi-rank save and
+    restore: bit-identical, with a planted fault."""
     import numpy as np
     import torch
     from torch.distributed.tensor import DTensor
@@ -2098,7 +2110,7 @@ def _mesh_checkpoint(mesh) -> None:
     from hivedscheduler_tpu_torch.parallel import topology
     from hivedscheduler_tpu_torch.parallel import train as port_train
 
-    model = dict(EVAL_MODEL, n_layers=MESH_CKPT_LAYERS)
+    model = dict(EVAL_MODEL, n_layers=MESH_CKPT_LAYERS, **(model or {}))
     cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", remat="dots", **model)
     step, init_fn, token_sharding = port_train.make_sharded_train_step(
         cfg, mesh, ce_chunk=EVAL_CE_CHUNK)
@@ -2113,7 +2125,7 @@ def _mesh_checkpoint(mesh) -> None:
         n_params = sum(t.numel() for t in ckpt.named_leaves(params).values())
         need = 3 * 4 * n_params
         free = shutil.disk_usage(tmp).free
-        print(f"[l] {tmp}: {free / 1e9:.1f} GB free; the round trip writes {need / 1e9:.2f} GB")
+        print(f"{tag} {tmp}: {free / 1e9:.1f} GB free; the round trip writes {need / 1e9:.2f} GB")
         check(free > 1.1 * need, f"{tmp} has {free / 1e9:.1f} GB free, needs {need / 1e9:.1f} GB")
         t0 = time.perf_counter()
         ckpt.save(tmp, 1, params, opt, extra=ckpt.train_metadata(
@@ -2135,7 +2147,7 @@ def _mesh_checkpoint(mesh) -> None:
         moments = sum(x.numel() for s_ in opt2.state.values() for x in s_.values() if x.dim())
         check(moments == 2 * n_params, f"restored {moments} moment values for {n_params} parameters")
         bad = _state_mismatches(params, opt, params2, opt2)
-        print(f"[l] sharded round trip ({MESH_CKPT_LAYERS} layers, {n_params / 1e6:.1f} M f32 "
+        print(f"{tag} sharded round trip ({MESH_CKPT_LAYERS} layers, {n_params / 1e6:.1f} M f32 "
               f"parameters and their AdamW moments as DTensors, {nbytes / 1e9:.3f} GB written; "
               f"marker mesh {ckpt.read_metadata(tmp)['mesh']}): save {save_s:.2f} s "
               f"({nbytes / save_s / 1e9:.2f} GB/s), restore {restore_s:.2f} s "
@@ -2147,7 +2159,7 @@ def _mesh_checkpoint(mesh) -> None:
             at = 12345 % flat.numel()
             flat[at:at + 1].view(torch.int32).bitwise_xor_(1)
         planted = _state_mismatches(params, opt, params2, opt2)
-        print(f"[l] planted fault (one bit of one element of layers.w_up's exp_avg_sq): "
+        print(f"{tag} planted fault (one bit of one element of layers.w_up's exp_avg_sq): "
               f"not bit-identical {planted}")
         check(planted == ["layers.w_up.exp_avg_sq"],
               "the sharded round-trip check does not see the planted fault")
@@ -2157,15 +2169,13 @@ def _mesh_checkpoint(mesh) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_mesh(h_flash: dict) -> None:
-    """(l): the gang handoff, the tp-local kernels, world-1 mesh training
-    and the sharded checkpoint, on one NCCL process group."""
-    import torch
-    import torch.distributed as dist
+@contextlib.contextmanager
+def _world_1_gang():
+    """The process group of a one-pod gang on GPU 0, from the scheduler's
+    handoff (a bind info, ``NVIDIA_VISIBLE_DEVICES=0``), through
+    ``initialize_from_gang``; yields (rank, world) and shuts it down."""
+    from hivedscheduler_tpu_torch.parallel import distributed
 
-    from hivedscheduler_tpu_torch.parallel import distributed, topology
-
-    t_phase = time.perf_counter()
     bind_info = {"node": "chip-smoke/127.0.0.1", "leafCellIsolation": [0],
                  "cellChain": "h100-rack", "affinityGroupBindInfo": [{"podPlacements": [
                      {"physicalNode": "chip-smoke/127.0.0.1", "physicalLeafCellIndices": [0]}]}]}
@@ -2182,6 +2192,21 @@ def phase_mesh(h_flash: dict) -> None:
             else:
                 os.environ[k] = v
     try:
+        yield rank, world
+    finally:
+        distributed.shutdown()
+
+
+def phase_mesh(h_flash: dict) -> None:
+    """(l): the gang handoff, the tp-local kernels, world-1 mesh training
+    and the sharded checkpoint, on one NCCL process group."""
+    import torch
+    import torch.distributed as dist
+
+    from hivedscheduler_tpu_torch.parallel import topology
+
+    t_phase = time.perf_counter()
+    with _world_1_gang() as (rank, world):
         print(f"[l] gang handoff (one pod, NVIDIA_VISIBLE_DEVICES=0): rank {rank} of world "
               f"{world}, cuda:{torch.cuda.current_device()}, backend {dist.get_backend()}")
         check((rank, world) == (0, 1) and torch.cuda.current_device() == 0,
@@ -2191,8 +2216,6 @@ def phase_mesh(h_flash: dict) -> None:
         _tp_local_kernels()
         _mesh_train(mesh, h_flash)
         _mesh_checkpoint(mesh)
-    finally:
-        distributed.shutdown()
     print(f"[l] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2624,6 +2647,437 @@ def phase_ring(h_flash: dict) -> dict:
             for key in ("fwd", "dq", "dkv")}
 
 
+# phase (n): the mixture-of-experts model at the flagship width: 8 experts
+# with renormalised top-2 routing (Mixtral 8x7B's, arXiv:2401.04088 2.1),
+# capacity factor 1.25, load-balance weight 0.01, no z-loss
+MOE_MODEL = dict(EVAL_MODEL, n_experts=8, moe_top_k=2)
+MOE_FLAGS = ["--n-experts", "8", "--moe-top-k", "2"]
+MOE_TRAIN_ARGS = TRAIN_ARGS + MOE_FLAGS + ["--ep", "1"]
+MOE_EVAL_ARGS = EVAL_ARGS + MOE_FLAGS
+# _moe_mlp in bf16 against the same function in f32 (f32 weights, the same
+# bf16-valued input): ||out_bf16 - out_f32||_F / ||out_f32||_F over the
+# tokens whose dispatch agrees (the same experts chosen and kept); set in
+# PERF.md before the first reading
+MOE_OUT_REL = 3e-2
+MOE_ROUTE_AGREE = 0.9  # least share of tokens whose top-2 set agrees
+MOE_TURNS = 3  # rounds of (dense, moe, moe, dense) timed steps
+MOE_DEC_TIMED = 2  # timed generate runs of each weight format
+# kernel-name fragments of the routing and dispatch (sort for the top-2,
+# scan for the slot positions, scatter for the one-hot and the combine);
+# the embedding's backward sorts and scatters too and lands here
+MOE_PROFILE_GROUPS = PROFILE_GROUPS + (
+    ("routing/dispatch", ("sort", "scan", "scatter")),)
+
+
+@contextlib.contextmanager
+def _moe_routes(record=None, replay=None):
+    """Record the experts every ``_moe_route`` call chooses into the list
+    ``record``, or make each call choose ``replay``'s, in order (the same
+    calls in the same order: layers, then windows or steps); a replayed
+    call keeps its own probabilities as the gates."""
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    real = tm._top_k
+    chosen = iter(replay) if replay is not None else None
+
+    def top_k(probs, k):
+        values, idx = real(probs, k)
+        if record is not None:
+            record.append(idx)
+        if chosen is not None:
+            idx = next(chosen)
+            values = probs.gather(-1, idx)
+        return values, idx
+
+    tm._top_k = top_k
+    try:
+        yield
+    finally:
+        tm._top_k = real
+
+
+def _route_flips(a, b) -> float:
+    """The share of (layer, token) routes whose expert set differs."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b)) / sum(x[..., 0].numel() for x in a)
+
+
+def _moe_layer_check() -> None:
+    """``_moe_mlp`` at the flagship shape in bf16 against f32 on the card:
+    the routes, the output on agreeing tokens with a planted fault, and the
+    layer's forward ms."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, **dict(MOE_MODEL, n_layers=1))
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    lp = {k: v[0] for k, v in tm.init_params(cfg, g, "cuda")["layers"].items()}
+    h = torch.randn(EVAL_BATCH, EVAL_SEQ, cfg.d_model, generator=g, device="cuda").to(torch.bfloat16)
+    w16 = {k: v.to(torch.bfloat16) for k, v in lp.items()}
+    with torch.inference_mode():
+        comb16, disp16, idx16, aux16 = tm._moe_route(h, w16["router"], cfg)
+        _, disp32, idx32, aux32 = tm._moe_route(h.float(), lp["router"], cfg32)
+        route_same = (idx16.sort(-1).values == idx32.sort(-1).values).all(-1)
+        # the same experts hold a slot for the token
+        agree = route_same & (disp16.amax(-1) == disp32.amax(-1)).all(-1)
+        out16 = tm._moe_mlp(h, w16.__getitem__, cfg)[0].float()
+        out32 = tm._moe_mlp(h.float(), lp.__getitem__, cfg32)[0]
+        rel = float((out16 - out32)[agree].norm() / out32[agree].norm())
+        bad_w = dict(w16, w_down=w16["w_down"][[1, 0] + list(range(2, cfg.n_experts))])
+        bad = tm._moe_mlp(h, bad_w.__getitem__, cfg)[0].float()
+        bad_rel = float((bad - out32)[agree].norm() / out32[agree].norm())
+        capacity = comb16.shape[-1]
+        kept = float(disp16.sum()) / (EVAL_BATCH * EVAL_SEQ * cfg.moe_top_k)
+        ms = time_ms(lambda: tm._moe_mlp(h, w16.__getitem__, cfg), 5)
+        route_ms = time_ms(lambda: tm._moe_route(h, w16["router"], cfg), 5)
+    flops = 2 * cfg.n_experts * EVAL_BATCH * capacity * cfg.d_model * cfg.d_ff * 3
+    flops += 2 * 2 * EVAL_BATCH * EVAL_SEQ * cfg.n_experts * capacity * cfg.d_model
+    print(f"[n] _moe_mlp at B={EVAL_BATCH}, T={EVAL_SEQ}, D={cfg.d_model}, F={cfg.d_ff}, "
+          f"E={cfg.n_experts}, top-{cfg.moe_top_k}, capacity {capacity}: top-2 set agrees "
+          f"bf16 vs f32 on {float(route_same.float().mean()):.4f} of tokens (>= "
+          f"{MOE_ROUTE_AGREE}), dispatch on {float(agree.float().mean()):.4f}; output rel "
+          f"{rel:.3e} on those (<= {MOE_OUT_REL}); planted fault (experts 0 and 1's "
+          f"w_down swapped): {bad_rel:.3e}; aux bf16 {float(aux16):.6f} f32 "
+          f"{float(aux32):.6f}; {kept:.4f} of the chosen slots kept")
+    print(f"[n] _moe_mlp forward (bf16) {ms:.3f} ms, of it the routing {route_ms:.3f} ms; "
+          f"{flops / 1e9:.1f} GFLOP in the expert and dispatch products, "
+          f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s")
+    check(float(route_same.float().mean()) >= MOE_ROUTE_AGREE, "bf16 and f32 routes disagree")
+    check(rel <= MOE_OUT_REL and math.isfinite(rel), "bf16 _moe_mlp disagrees with f32")
+    check(bad_rel > MOE_OUT_REL, "the MoE output check does not see the planted fault")
+    del lp, w16, bad_w, h, out16, out32, bad, comb16, disp16, disp32
+    torch.cuda.empty_cache()
+
+
+def _moe_train() -> dict:
+    """``train`` with the MoE model on the world-1 mesh (``--ep 1``): its
+    launches, losses, step ms, tokens/s and peak memory."""
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
+    records, peak = run_train("flash", TRAIN_STEPS, args=MOE_TRAIN_ARGS)
+    launches = {"fwd": attn.FLASH_FWD_LAUNCHES, "dq": attn.FLASH_BWD_DQ_LAUNCHES,
+                "dkv": attn.FLASH_BWD_DKV_LAUNCHES}
+    layers = MOE_MODEL["n_layers"]
+    want = {"fwd": 2 * layers * TRAIN_STEPS, "dq": layers * TRAIN_STEPS,
+            "dkv": layers * TRAIN_STEPS}
+    timed = [r for r in records if not r["compile"]]
+    step_ms = sum(r["wall_s"] for r in timed) / len(timed) * 1e3
+    print(f"[n] train {' '.join(MOE_FLAGS)} --ep 1 --attn flash --remat dots (world-1 "
+          f"mesh): losses {[r['loss'] for r in records]}; launches over {TRAIN_STEPS} "
+          f"steps {launches} (want {want}); step {step_ms} ms (mean of {len(timed)} "
+          f"after the warm-up), {EVAL_BATCH * EVAL_SEQ / (step_ms / 1e3)} tokens/s, "
+          f"peak device memory {peak / 1e9:.2f} GB")
+    check(launches == want, f"the MoE train run launched {launches}, want {want}")
+    return dict(losses=[r["loss"] for r in records], step_ms=step_ms, peak=peak)
+
+
+def _moe_steps(cli: dict) -> None:
+    """The first step's loss against xla on the same weights and batch; the
+    single-device step against the CLI's mesh step, bit for bit; step ms in
+    turns against the dense flagship step; one step's device time by part."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", remat="dots",
+                               **MOE_MODEL)
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(cfg.vocab_size), EVAL_BATCH, EVAL_SEQ)
+    tokens = [torch.from_numpy(np.asarray(next(loader))).cuda() for _ in range(TRAIN_STEPS)]
+    step, init_fn = port_train.make_train_step(cfg, "cuda", ce_chunk=EVAL_CE_CHUNK)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    def first_loss(impl, **routes):
+        with torch.no_grad(), _moe_routes(**routes):
+            return float(port_train.loss_fn(params, tokens[0], dataclasses.replace(
+                cfg, attn_impl=impl), ce_chunk=EVAL_CE_CHUNK))
+
+    flash_routes, xla_routes = [], []
+    loss_f = first_loss("flash", record=flash_routes)
+    loss_x = first_loss("xla", record=xla_routes)
+    # xla attention on flash's expert choices: the attention's own difference
+    loss_xr = first_loss("xla", replay=flash_routes)
+    print(f"[n] first step's loss (with the aux) on the CLI's weights and batch: flash "
+          f"{loss_f:.6f} (the CLI's {cli['losses'][0]:.6f}), xla {loss_x:.6f}: |flash - "
+          f"xla| {abs(loss_f - loss_x):.3e} with each routing its own way "
+          f"({_route_flips(flash_routes, xla_routes):.4%} of layer-token routes differ); "
+          f"xla on flash's routes {loss_xr:.6f}: |flash - xla| {abs(loss_f - loss_xr):.3e} "
+          f"(<= {LOSS_ATOL})")
+    check(abs(loss_f - loss_xr) <= LOSS_ATOL, "MoE flash and xla losses disagree")
+    # the same weights, batch and kernels; only the remat wrappers differ
+    check(abs(cli["losses"][0] - loss_f) <= 1e-5, "the MoE CLI's first loss is not this step's")
+    single, single_ms = _steps_by_events(step, params, opt, tokens)
+    print(f"[n] single-device make_train_step from the same seed and batches: losses "
+          f"{single}; the CLI's world-1 mesh step (make_sharded_train_step, --ep 1): "
+          f"{'equal' if single == cli['losses'] else 'NOT equal'}; step ms "
+          f"{', '.join(f'{x:.3f}' for x in single_ms)} (the first is the warm-up)")
+    check(single == cli["losses"], "the MoE mesh step is not the single-device step")
+
+    dense_cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", remat="dots",
+                                     **EVAL_MODEL)
+    dstep, dinit = port_train.make_train_step(dense_cfg, "cuda", ce_chunk=EVAL_CE_CHUNK)
+    dparams, dopt = dinit(torch.Generator(device="cuda").manual_seed(0))
+    _steps_by_events(dstep, dparams, dopt, tokens[:1])  # warm-up
+    turns = {"dense": [], "moe": []}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MOE_TURNS):
+        for name in ("dense", "moe", "moe", "dense"):
+            if name == "moe":
+                turns[name] += _steps_by_events(step, params, opt, tokens[:1])[1]
+            else:
+                turns[name] += _steps_by_events(dstep, dparams, dopt, tokens[:1])[1]
+    med = {name: sorted(ms)[len(ms) // 2] for name, ms in turns.items()}
+    print(f"[n] step ms in turns ({MOE_TURNS} x dense, moe, moe, dense; B={EVAL_BATCH}, "
+          f"T={EVAL_SEQ}): "
+          + "; ".join(f"{name} {', '.join(f'{x:.3f}' for x in ms)} (median {med[name]:.3f}, "
+                      f"{EVAL_BATCH * EVAL_SEQ / (med[name] / 1e3):.1f} tokens/s)"
+                      for name, ms in turns.items())
+          + f"; moe / dense {med['moe'] / med['dense']:.3f}; peak device memory with "
+          f"both states resident {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del dparams, dopt, dstep
+    torch.cuda.empty_cache()
+    wall_ms, total, parts = _step_profile(step, params, opt, tokens[0], MOE_PROFILE_GROUPS)
+    if total == 0:
+        print("[n] profiler: no device time recorded (not measured)")
+    else:
+        print(f"[n] profile of one MoE train step: wall {wall_ms:.1f} ms, device busy "
+              f"{total:.1f} ms ({1 - total / wall_ms:.1%} idle); "
+              + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})" for k, v in parts.items()))
+    del params, opt, step
+    torch.cuda.empty_cache()
+
+
+def _moe_eval() -> None:
+    """``eval`` with the MoE model: flash against xla, and the window ms."""
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    attn.FLASH_FWD_LAUNCHES = 0
+    flash_routes, xla_routes = [], []
+    with _moe_routes(record=flash_routes):
+        loss_f, _, _ = run_eval("flash", EVAL_WINDOWS, MOE_EVAL_ARGS)
+    launches = attn.FLASH_FWD_LAUNCHES
+    with _moe_routes(record=xla_routes):
+        loss_x, _, _ = run_eval("xla", EVAL_WINDOWS, MOE_EVAL_ARGS)
+    with _moe_routes(replay=flash_routes):
+        loss_xr, _, _ = run_eval("xla", EVAL_WINDOWS, MOE_EVAL_ARGS)
+    print(f"[n] eval {' '.join(MOE_FLAGS)}: loss flash {loss_f:.6f} (flash_fwd launches "
+          f"{launches}), xla {loss_x:.6f}: |flash - xla| {abs(loss_f - loss_x):.3e} with "
+          f"each routing its own way ({_route_flips(flash_routes, xla_routes):.4%} of "
+          f"layer-token routes differ); xla on flash's routes {loss_xr:.6f}: |flash - xla| "
+          f"{abs(loss_f - loss_xr):.3e} (<= {LOSS_ATOL})")
+    check(launches == MOE_MODEL["n_layers"] * EVAL_WINDOWS, f"MoE eval launched K1 {launches} times")
+    check(abs(loss_f - loss_xr) <= LOSS_ATOL, "MoE flash and xla eval losses disagree")
+    for impl in ("flash", "xla"):
+        _, window_ms, tokens_per_s = run_eval(impl, TIMED_WINDOWS, MOE_EVAL_ARGS)
+        print(f"[n] eval window --attn {impl} (B={EVAL_BATCH}, T={EVAL_SEQ}, "
+              f"{TIMED_WINDOWS} windows): {window_ms} ms, {tokens_per_s} tokens/s")
+
+
+def _decode_replay(full_routes, n_prompt: int, n_steps: int) -> list:
+    """The experts the full forward chose (one [B, T, K] per layer), cut
+    into the order ``_decode_sequence`` asks for them: the prompt's
+    prefill, then one position a step, layer by layer."""
+    out = [r[:, :n_prompt] for r in full_routes]
+    for i in range(n_steps):
+        out += [r[:, n_prompt + i:n_prompt + i + 1] for r in full_routes]
+    return out
+
+
+def _moe_generate() -> None:
+    """``generate`` with the MoE model: greedy tokens against the argmax of
+    their own advance sequence; the decode logits against the full forward,
+    on the full forward's expert choices (with a planted fault) and on
+    their own; int8 against bf16; tokens/s."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import decode as dec
+    from hivedscheduler_tpu_torch.models import quant
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW, **MOE_MODEL)
+    f32 = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = tm.cast_params(f32, cfg.dtype)
+    q_params = quant.quantize_params(f32, cfg)
+    del f32
+    torch.cuda.empty_cache()
+    prompt = torch.randint(0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    weight_bytes = {"bf16": _tree_bytes(params), "int8": _tree_bytes(q_params)}
+    kv_bytes = 2.0 * 2 * cfg.n_layers * DEC_BATCH * (DEC_PROMPT + DEC_NEW) * cfg.kv_heads * cfg.head_dim
+    toks = dec.generate(params, prompt, cfg, DEC_NEW)
+    # the full forward routes with the inference capacity, as advance does
+    full_routes, free_routes = [], []
+    with torch.inference_mode(), _moe_routes(record=full_routes):
+        full = tm.forward(params, torch.cat([prompt, toks], 1)[:, :-1],
+                          dec.inference_moe_cfg(cfg))[:, DEC_PROMPT - 1:]
+    with _moe_routes(record=free_routes):
+        inc = _decode_sequence(params, cfg, prompt, toks)[:, DEC_PROMPT - 1:]
+    exact = int((inc.argmax(-1) != toks).sum())
+    # a route that flips between the S = 1 and S = 191 products moves its
+    # token's logits by O(1): hold the rounding on the same expert choices
+    replay = _decode_replay(full_routes, DEC_PROMPT, DEC_NEW - 1)
+    flips = _route_flips(
+        [torch.cat(free_routes[i::cfg.n_layers], 1) for i in range(cfg.n_layers)], full_routes)
+    with _moe_routes(replay=replay):
+        inc_r = _decode_sequence(params, cfg, prompt, toks)[:, DEC_PROMPT - 1:]
+    real_attention = dec._cached_attention
+
+    def one_off(q, ck, cv, pos0, scale):
+        return real_attention(q, ck.roll(1, dims=1), cv.roll(1, dims=1), pos0, scale)
+
+    with _moe_routes(replay=replay):
+        bad = _decode_sequence(params, cfg, prompt, toks, attention=one_off)[:, DEC_PROMPT - 1:]
+    rel, bad_rel = _per_position_rel(inc_r, full), _per_position_rel(bad, full)
+    noise = float((inc_r - full).abs().max())
+    decisive, ref_tok = _decisive(full, noise)
+    wrong = int((decisive & (ref_tok != inc_r.argmax(-1))).sum())
+    free_agree = float((full.argmax(-1) == toks).float().mean())
+    print(f"[n] greedy generate (B={DEC_BATCH}, prompt {DEC_PROMPT}, {DEC_NEW} new): "
+          f"{exact} tokens differ from the argmax of the same advance sequence; "
+          f"{flips:.4%} of layer-token routes differ between it and the full forward "
+          f"(worst position rel {_per_position_rel(inc, full):.3e}); on the full "
+          f"forward's routes the decode logits' worst position rel {rel:.3e} (<= "
+          f"{DEC_LOGIT_REL}), max|err| {noise:.3e}, planted fault (K/V one position "
+          f"off) {bad_rel:.3e}; there {int(decisive.sum())} of {toks.numel()} positions "
+          f"decisive, {wrong} of them differ from the full forward's argmax; the "
+          f"greedy tokens are the full forward's argmax at {free_agree:.4f} of positions")
+    check(exact == 0, "MoE greedy tokens disagree with their advance sequence")
+    check(rel <= DEC_LOGIT_REL and bad_rel > DEC_LOGIT_REL,
+          "MoE decode logits disagree with the full forward, or miss the fault")
+    check(wrong == 0 and bool(decisive.any()), "MoE decode argmax disagrees at decisive positions")
+    with _moe_routes(replay=replay):
+        inc_q = _decode_sequence(q_params, cfg, prompt, toks)[:, DEC_PROMPT - 1:]
+    q_noise = float((inc_q - inc_r).abs().max())
+    q_dec, bf_tok = _decisive(inc_r, q_noise)
+    q_wrong = int((q_dec & (inc_q.argmax(-1) != bf_tok)).sum())
+    toks_q = dec.generate(q_params, prompt, cfg, DEC_NEW)
+    print(f"[n] int8 vs bf16 logits on the same routes: max|err| {q_noise:.3e}, worst "
+          f"position rel {_per_position_rel(inc_q, inc_r):.3e}; {int(q_dec.sum())} decisive "
+          f"positions, {q_wrong} argmax disagreements there; int8 generate agrees with "
+          f"bf16 on {float((toks_q == toks).float().mean()):.3f} of tokens")
+    check(q_wrong == 0 and bool(torch.isfinite(inc_q).all()),
+          "MoE int8 argmax disagrees at decisive positions")
+    for name, p in (("bf16", params), ("int8", q_params)):
+        wall = _host_ms(lambda: dec.generate(p, prompt, cfg, DEC_NEW), MOE_DEC_TIMED)
+        med = sorted(wall)[len(wall) // 2]
+        print(f"[n] generate {name}: wall {', '.join(f'{t:.2f}' for t in wall)} ms, "
+              f"{DEC_BATCH * DEC_NEW / (med / 1e3):.1f} tokens/s, {med / DEC_NEW:.3f} ms a "
+              f"new token; bound {(weight_bytes[name] + kv_bytes) / PEAK_HBM_BYTES * 1e3:.4f} "
+              f"ms a step ({weight_bytes[name] / 1e9:.3f} GB of weights, every expert "
+              f"read each step)")
+    del params, q_params
+    torch.cuda.empty_cache()
+
+
+def _engine_replay(full_routes, n_prompt: int, bucket: int, n_steps: int) -> list:
+    """The full forward's expert choices for one request (one [1, T, K] per
+    layer) in the order ``_engine_logits`` asks for them: the bucketed
+    prefill (its padding on experts 0..K-1), then each decode step's
+    SRV_BATCH rows, the request in row 0 and the idle rows on 0..K-1."""
+    import torch
+
+    k = full_routes[0].shape[-1]
+
+    def filler(rows, n):
+        return torch.arange(k, device="cuda").expand(rows, n, k).clone()
+
+    out = [torch.cat([r[:, :n_prompt], filler(1, bucket - n_prompt)], 1) for r in full_routes]
+    for i in range(n_steps):
+        for r in full_routes:
+            step = filler(SRV_BATCH, 1)
+            step[0, 0] = r[0, n_prompt + i]
+            out.append(step)
+    return out
+
+
+def _moe_serve() -> None:
+    """The serving engine with the MoE model: dense/paged and eager/graph
+    streams token-identical; the engine path's logits against the full
+    forward on its expert choices; tokens/s, TTFT and TPOT."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import decode as dec
+    from hivedscheduler_tpu_torch.models import serving as srv
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **MOE_MODEL)
+    params = tm.cast_params(tm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    torch.cuda.empty_cache()
+    prompts = _srv_prompts(cfg.vocab_size, SRV_REQUESTS, seed=2)
+    engines, runs = {}, {}
+    for name, kw in SRV_RUNS.items():
+        engines[name] = srv.ServingEngine(params, cfg, max_batch=SRV_BATCH,
+                                          max_len=SRV_MAX_LEN, **kw)
+        runs[name] = _serve(engines[name], prompts, SRV_BUDGET)
+        if engines[name].decode_steps > 1:
+            check(engines[name].graph_windows == engines[name].fused_windows > 0,
+                  f"MoE {name}: windows did not run through the CUDA graph")
+    ref = _streams(runs["dense eager"])
+    same = {name: sum(a != b for a, b in zip(_streams(run), ref)) for name, run in runs.items()}
+    full = _teacher_forced(params, dec.inference_moe_cfg(cfg), prompts, ref)
+    agree = sum(int((f.argmax(-1).cpu() == torch.tensor(s)).sum()) for f, s in zip(full, ref))
+    rels = []
+    for p, s in zip(prompts[:SRV_NOISE_ROWS], ref):
+        routes = []
+        with torch.inference_mode(), _moe_routes(record=routes):
+            want = tm.forward(params, torch.tensor([p + s[:-1]], device="cuda"),
+                              dec.inference_moe_cfg(cfg))[0, len(p) - 1:].float()
+        bucket = min(SRV_MAX_LEN, 1 << max(1, (len(p) - 1).bit_length()))
+        with _moe_routes(replay=_engine_replay(routes, len(p), bucket, len(s) - 1)):
+            got = _engine_logits(params, cfg, p, s)
+        rels.append(float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max()))
+    print(f"[n] serve, four runs of {SRV_REQUESTS} requests (budget {SRV_BUDGET}, max_batch "
+          f"{SRV_BATCH}): requests whose stream differs from dense eager: {same}; windows "
+          f"through the graph: " + ", ".join(f"{n} {e.graph_windows}/{e.fused_windows}"
+                                          for n, e in engines.items() if e.decode_steps > 1)
+          + f"; the engine path's logits on the teacher-forced full forward's routes, "
+          f"requests 0-{SRV_NOISE_ROWS - 1}: worst position rel {max(rels):.3e} (<= "
+          f"{DEC_LOGIT_REL}); the streams are the full forward's argmax at {agree} of "
+          f"{sum(map(len, ref))} positions")
+    check(all(v == 0 for v in same.values()), "MoE dense/paged, eager/graph streams differ")
+    check(max(rels) <= DEC_LOGIT_REL, "the MoE engine path's logits disagree with the full forward")
+    for name, kw in SRV_RUNS.items():
+        st = _serve_stats(_serve(engines[name], prompts, SRV_BUDGET), SRV_BATCH)
+        print(f"[n] serve {name}: {st['tps']:.1f} tokens/s, occupancy {st['occ']:.3f}, TTFT "
+              f"p50 {st['ttft_p50']:.2f} ms (max {st['ttft_max']:.2f}), TPOT p50 "
+              f"{st['tpot_p50']:.3f} ms (max {st['tpot_max']:.3f})")
+    del engines, runs, params
+    torch.cuda.empty_cache()
+
+
+def phase_moe() -> None:
+    """(n): the mixture-of-experts model through train, eval, generate and
+    serve at the flagship width, and a 2-layer MoE checkpoint."""
+    from hivedscheduler_tpu_torch.parallel import topology
+
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    timed("layer", _moe_layer_check)
+    cli = timed("train", _moe_train)
+    timed("steps", _moe_steps, cli)
+    timed("eval", _moe_eval)
+    timed("generate", _moe_generate)
+    timed("serve", _moe_serve)
+    with _world_1_gang():
+        mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
+        timed("checkpoint", _mesh_checkpoint, mesh, dict(n_experts=8, moe_top_k=2), "[n]")
+    print(f"[n] phase wall time {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()) + ")")
+
+
 def main() -> int:
     import torch
 
@@ -2656,6 +3110,7 @@ def main() -> int:
     phase_serving()
     phase_mesh(train_flash)
     ring = phase_ring(train_flash)
+    phase_moe()
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"

@@ -13,10 +13,12 @@ every ``attn_impl`` and defaults to ``ring`` when ``--sp`` is above 1.
 checkpoint of a ``train`` run (random init from seed 0 without it), and
 ``--goodput-file`` spools the goodput ledger's phases. As in ``train``,
 the run opens its process group from the scheduler's gang handoff, lays
-the mesh ``infer_axes(world, tp=, sp=, fsdp=)`` over it, and each rank reads
-its data-parallel share of every window (over sp, its slice of the
-sequence). Expert parallelism (``--ep`` above 1) and MoE are not yet
-ported and exit with an error rather than being ignored.
+the mesh ``infer_axes(world, tp=, sp=, fsdp=, ep=)`` over it, and each rank
+reads its data-parallel share of every window (over sp, its slice of the
+sequence). A mixture-of-experts model (``--n-experts``, ``--moe-top-k``)
+routes with the training capacity and its loss leaves out the aux terms;
+``--ep`` shards its experts. MoE with ``--sp`` above 1 is not yet ported
+and exits with an error rather than being ignored.
 """
 
 from __future__ import annotations
@@ -36,11 +38,9 @@ WINDOWS_LOG = "%s windows (%s tokens) in %.2fs (%.0f tok/s)"
 
 
 def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
-    if args.ep > 1:
-        parser.error("--ep > 1 is not yet ported: expert parallelism; the "
-                     "port shards over dp, fsdp, tp and sp")
-    if args.n_experts > 0:
-        parser.error("--n-experts > 0 (MoE) is not yet ported")
+    if args.n_experts > 0 and args.sp > 1:
+        parser.error("--n-experts > 0 with --sp > 1 (MoE under sequence "
+                     "parallelism) is not yet ported")
 
 
 def main(argv=None) -> int:
@@ -66,7 +66,7 @@ def main(argv=None) -> int:
     parser.add_argument("--fsdp", type=int, default=1,
                         help="fully-sharded data-parallel degree")
     parser.add_argument("--ep", type=int, default=1,
-                        help="expert parallelism: not yet ported above 1")
+                        help="expert-parallel degree (with --n-experts)")
     parser.add_argument("--ce-chunk", type=int, default=0,
                         help="chunked cross-entropy (as in train)")
     parser.add_argument("--data", default="",
@@ -121,7 +121,8 @@ def _evaluate(parser: argparse.ArgumentParser, args, rank: int, world: int) -> i
 
     device = resolve_device(args.device)
     try:
-        axes = topology.infer_axes(world, tp=args.tp, sp=args.sp, fsdp=args.fsdp)
+        axes = topology.infer_axes(world, tp=args.tp, sp=args.sp, fsdp=args.fsdp,
+                                   ep=args.ep)
     except ValueError as err:
         parser.error(str(err))
     mesh = topology.make_mesh(axes, device.type)

@@ -11,8 +11,10 @@ on the CPU. ``--checkpoint-dir`` restores the parameters of the newest
 committed checkpoint of a ``train`` run; without it random weights from
 ``--seed`` demo the decode path. ``--quantize int8`` serves int8 weights,
 ``--draft-layers`` decodes speculatively with a random draft model.
-``--tp/--dp`` above 1, MoE and LoRA are not yet ported and exit with an
-error rather than being ignored.
+A mixture-of-experts model (``--n-experts``, ``--moe-top-k``) decodes
+with the no-drop inference capacity. ``--tp/--dp`` above 1 (MoE on a
+mesh with them) and LoRA are not yet ported and exit with an error rather
+than being ignored.
 """
 
 from __future__ import annotations
@@ -35,8 +37,6 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} > 1 is not yet ported: the port serves "
                          "on one device")
-    if args.n_experts > 0:
-        parser.error("--n-experts > 0 (MoE) is not yet ported")
     if args.lora_rank > 0:
         parser.error("--lora-rank > 0 (merging LoRA adapters) is not yet ported")
 

@@ -36,9 +36,10 @@ import torch.nn.functional as F
 
 from hivedscheduler_tpu_torch.models.transformer import (
     TransformerConfig,
-    _not_yet_ported,
+    _moe_mlp,
     _rms_norm,
     _rope,
+    check_supported,
     is_quantized_leaf,
     load_weight,
 )
@@ -93,6 +94,16 @@ def dense_mlp(lp: Dict[str, Any], h: torch.Tensor, dtype) -> torch.Tensor:
                         load_weight(lp["w_down"], dtype))
 
 
+def mlp_block(lp: Dict[str, Any], h: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """One layer's MLP: SwiGLU, or the MoE layer routed with ``cfg``'s
+    capacity (the decode and serving paths pass :func:`inference_moe_cfg`'s
+    no-drop one); the MoE aux loss is dropped. int8 expert leaves
+    dequantize per expert (``load_weight`` broadcasts the [E, 1, F] scale)."""
+    if cfg.n_experts > 0:
+        return _moe_mlp(h, lambda name: load_weight(lp[name], cfg.dtype), cfg)[0]
+    return dense_mlp(lp, h, cfg.dtype)
+
+
 def final_logits(params: Dict[str, Any], x: torch.Tensor, dtype) -> torch.Tensor:
     """Final RMSNorm and lm_head; the logits come back in f32."""
     x = _rms_norm(x, params["final_norm"])
@@ -121,9 +132,12 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 
 def inference_moe_cfg(cfg: TransformerConfig) -> TransformerConfig:
-    """The JAX package's no-drop inference capacity for MoE (capacity
-    factor E). The port refuses MoE (``check_supported``), so a config the
-    port runs comes back unchanged."""
+    """The JAX package's no-drop inference capacity for MoE: a capacity
+    factor of E gives ceil(S k E / E) = S k slots per expert, which holds
+    the worst routing skew, so no inference path drops a token (a dropped
+    token would change the stream). The one home of the rule for
+    ``advance``, ``advance_ragged`` and ``advance_paged``; a dense config
+    comes back unchanged."""
     if cfg.n_experts <= 0:
         return cfg
     return dataclasses.replace(
@@ -147,15 +161,16 @@ def advance(
     """Absorb ``tokens`` [B, S] starting at position ``cache.length`` and
     return (logits [B, S, vocab] f32, the cache with its new length). The
     cache's tensors are written in place. S = prompt length for prefill,
-    S = 1 while decoding."""
+    S = 1 while decoding. MoE layers route with :func:`inference_moe_cfg`'s
+    no-drop capacity."""
     dtype = cfg.dtype
     b, s_len = tokens.shape
     pos0 = cache.length
     if pos0 + s_len > cache.k.shape[2]:
         raise ValueError(f"cache of {cache.k.shape[2]} positions cannot take "
                          f"{s_len} tokens at position {pos0}")
-    if cfg.n_experts > 0:
-        raise _not_yet_ported("MoE (n_experts > 0)")
+    check_supported(cfg)
+    cfg = inference_moe_cfg(cfg)
     x = embed_tokens(params, tokens, dtype)  # [B, S, D]
     positions = (pos0 + torch.arange(s_len, dtype=torch.int32,
                                      device=tokens.device))[None, :]
@@ -169,7 +184,7 @@ def advance(
         cv[:, pos0:pos0 + s_len] = v_new
         attn = _cached_attention(q, ck, cv, pos0, scale)
         x = x + torch.einsum("bshk,hkd->bsd", attn, load_weight(lp["wo"], dtype))
-        x = x + dense_mlp(lp, _rms_norm(x, lp["mlp_norm"]), dtype)
+        x = x + mlp_block(lp, _rms_norm(x, lp["mlp_norm"]), cfg)
     logits = final_logits(params, x, dtype)
     return logits, KVCache(cache.k, cache.v, pos0 + s_len)
 

@@ -3,10 +3,11 @@
 Counterpart of ``hivedscheduler_tpu/models/quant.py``. Post-training,
 symmetric, per output channel: q = round(w / s), s = max|w| / 127 reduced
 over the input (contraction) axes, with round half to even as in JAX. Norm
-weights stay float. Each quantized leaf becomes ``{"qi8": int8, "scale":
-f32}`` with the scale kept at the weight's rank (size 1 on the reduced
-axes); the decode path's weight loads (``transformer.load_weight``)
-dequantize either tree. The tp sharding of a quantized tree comes with the
+weights and the MoE router stay float; each expert of a stacked MoE leaf
+[L, E, in, out] gets its own scales. Each quantized leaf becomes
+``{"qi8": int8, "scale": f32}`` with the scale kept at the weight's rank
+(size 1 on the reduced axes); the decode path's weight loads
+(``transformer.load_weight``) dequantize either tree. The tp sharding of a quantized tree comes with the
 port's mesh.
 """
 

@@ -42,9 +42,14 @@ sampled stream is a pure function of those and its logits, independent of
 its slot, the batch, arrival order and the window size, as the
 reference's ``fold_in`` keys make it. The bits differ from JAX's.
 
+MoE models serve with the no-drop inference capacity
+(``decode.inference_moe_cfg``), so every stream routes as single-request
+decode does; the routing has static shapes, so the decode graph captures
+it.
+
 Left out: the speculative engine, the fleet's prefix export and import,
-the ``mesh`` layout, MoE, and the metrics, trace spans and journal
-flights the reference emits.
+the ``mesh`` layout (MoE on a mesh with it), and the metrics, trace spans
+and journal flights the reference emits.
 """
 
 from __future__ import annotations
@@ -61,10 +66,11 @@ import torch
 from hivedscheduler_tpu_torch.common import envflags
 from hivedscheduler_tpu_torch.models.decode import (
     _layer_params,
-    dense_mlp,
     embed_tokens,
     filter_logits,
     final_logits,
+    inference_moe_cfg,
+    mlp_block,
     qkv_proj,
 )
 from hivedscheduler_tpu_torch.models.transformer import (
@@ -202,10 +208,11 @@ def _ragged_attention(q, ck, cv, positions, scale, ck_scale=None, cv_scale=None)
     return o.reshape(b, s_len, h, d).to(q.dtype)
 
 
-def _layer_tail(x, lp, attn, dtype):
-    """Output projection and the MLP block of one layer."""
-    x = x + torch.einsum("bshk,hkd->bsd", attn, load_weight(lp["wo"], dtype))
-    return x + dense_mlp(lp, _rms_norm(x, lp["mlp_norm"]), dtype)
+def _layer_tail(x, lp, attn, cfg):
+    """Output projection and the MLP block of one layer (``cfg`` with the
+    no-drop inference capacity for MoE)."""
+    x = x + torch.einsum("bshk,hkd->bsd", attn, load_weight(lp["wo"], cfg.dtype))
+    return x + mlp_block(lp, _rms_norm(x, lp["mlp_norm"]), cfg)
 
 
 def _project(lp, x, positions, cfg, quantized):
@@ -247,8 +254,7 @@ def advance_ragged(
     idle rows, whose outputs are discarded; the reference's parked rows
     write their garbage at max_len - 1 too.
     """
-    if cfg.n_experts > 0:
-        raise _not_yet_ported("MoE (n_experts > 0)")
+    cfg = inference_moe_cfg(cfg)  # routing-exact: no-drop capacity
     _, s_len = tokens.shape
     m_len = cache.k.shape[2]
     dev = tokens.device
@@ -282,7 +288,7 @@ def advance_ragged(
         att = bufs if row is None else [t[row:row + 1] for t in bufs]
         scales = att[2:] if quantized else [None, None]
         attn = _ragged_attention(q, att[0], att[1], positions, scale, *scales)
-        x = _layer_tail(x, lp, attn, cfg.dtype)
+        x = _layer_tail(x, lp, attn, cfg)
     logits = final_logits(params, x, cfg.dtype)
     if row is None:
         cache.lengths.copy_(torch.clamp(cache.lengths + s_len, max=m_len))
@@ -344,8 +350,7 @@ def advance_paged(
     (clamped); the read is :func:`gather_block_kv` over the row's table,
     whose axis 1 is the logical position, so :func:`_ragged_attention`
     applies unchanged. Length bookkeeping is the caller's."""
-    if cfg.n_experts > 0:
-        raise _not_yet_ported("MoE (n_experts > 0)")
+    cfg = inference_moe_cfg(cfg)  # routing-exact: no-drop capacity
     _, s_len = tokens.shape
     block = pool.k.shape[2]
     steps = torch.arange(s_len, device=tokens.device)
@@ -373,7 +378,7 @@ def advance_paged(
         att = [gather_block_kv(buf, tbl) for buf in bufs]
         scales = att[2:] if quantized else [None, None]
         attn = _ragged_attention(q, att[0], att[1], positions, scale, *scales)
-        x = _layer_tail(x, lp, attn, cfg.dtype)
+        x = _layer_tail(x, lp, attn, cfg)
     return final_logits(params, x, cfg.dtype), pool
 
 
@@ -513,8 +518,6 @@ class ServingEngine:
             raise _not_yet_ported("the serving mesh layout (mesh=)")
         if spec_decode is not None:
             raise _not_yet_ported("speculative serving (spec_decode=)")
-        if cfg.n_experts > 0:
-            raise _not_yet_ported("MoE (n_experts > 0)")
         if decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, got {decode_steps}")
         _check_kv_dtype(kv_dtype)

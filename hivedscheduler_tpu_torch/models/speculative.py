@@ -57,7 +57,8 @@ def derive_draft_config(
     cfg: TransformerConfig, draft_layers: int, draft_d_model: int = 0
 ) -> TransformerConfig:
     """The CLIs' draft model: about half the target's width, rounded up so
-    head_dim stays even (RoPE rotates pairs), dense MLP at 2x width, MHA.
+    head_dim stays even (RoPE rotates pairs), dense MLP at 2x width (an MoE
+    target gets a dense draft), MHA.
     Raises ValueError when an explicit ``draft_d_model`` gives an odd
     head_dim."""
     quantum = 2 * cfg.n_heads

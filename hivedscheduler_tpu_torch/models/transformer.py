@@ -8,15 +8,17 @@ with the JAX package's tree: ``embed``, ``final_norm``, ``lm_head`` and
 ``bridge.py`` carries weights across unchanged and both packages compute
 with the same numbers.
 
-Ported: the dense forward with every ``attn_impl`` (``xla``, ``flash``
-and the sequence-parallel family of ``parallel/ring_attention.py``),
-differentiable, with the ``remat`` policies of the layer loop, on one
-device or over a six-axis ``DeviceMesh`` with dp, fsdp, tp and sp above 1
-(``sharding_specs`` gives each leaf's layout; ``parallel/sharding.py``
-holds the collectives). The ring family needs a mesh, as in the JAX
-package; a mesh of one device is enough. MoE, LoRA, pipelining (pp),
-expert parallelism (ep) and the overlapped tensor-parallel stack raise
-"not yet ported".
+Ported: the dense and the mixture-of-experts forward (``n_experts > 0``:
+top-1 switch or renormalised top-k routing, capacity-based dense
+dispatch, the Switch load-balance loss and the ST-MoE z-loss) with every
+``attn_impl`` (``xla``, ``flash`` and the sequence-parallel family of
+``parallel/ring_attention.py``), differentiable, with the ``remat``
+policies of the layer loop, on one device or over a six-axis
+``DeviceMesh`` with dp, fsdp, ep, tp and sp above 1 (``sharding_specs``
+gives each leaf's layout; ``parallel/sharding.py`` holds the
+collectives). The ring family needs a mesh, as in the JAX package; a mesh
+of one device is enough. LoRA, pipelining (pp), MoE at sp above 1 and the
+overlapped tensor-parallel stack raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -100,9 +102,11 @@ def _not_yet_ported(what: str) -> NotImplementedError:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for every configuration the port does not run yet."""
-    if cfg.n_experts > 0:
-        raise _not_yet_ported("MoE (n_experts > 0)")
+    """Raise for every configuration the port does not run yet, and for
+    the ones the JAX package's ``init_params`` refuses."""
+    if cfg.lora_mlp and cfg.n_experts > 0:
+        raise ValueError("lora_mlp adapts the dense MLP only (MoE experts "
+                         "are not adapted)")
     if cfg.lora_rank > 0 or cfg.lora_mlp:
         raise _not_yet_ported("LoRA")
     if cfg.pipeline_microbatches > 0:
@@ -145,10 +149,21 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         "wv": norm_init((L, d, h_kv, hd), d),
         "wo": norm_init((L, h, hd, d), d),
         "mlp_norm": ones((L, d)),
-        "w_gate": norm_init((L, d, f), d),
-        "w_up": norm_init((L, d, f), d),
-        "w_down": norm_init((L, f, d), f),
     }
+    if cfg.n_experts > 0:
+        E = cfg.n_experts
+        layers.update(
+            router=norm_init((L, d, E), d),
+            w_gate=norm_init((L, E, d, f), d),
+            w_up=norm_init((L, E, d, f), d),
+            w_down=norm_init((L, E, f, d), f),
+        )
+    else:
+        layers.update(
+            w_gate=norm_init((L, d, f), d),
+            w_up=norm_init((L, d, f), d),
+            w_down=norm_init((L, f, d), f),
+        )
     return {
         "embed": embed,
         "layers": layers,
@@ -158,26 +173,38 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 def sharding_specs(cfg: TransformerConfig) -> Dict[str, Any]:
-    """The JAX package's ``sharding_specs`` for the dense model, mirroring
-    ``init_params``' tree: one entry per tensor dim (None, an axis name or
-    a tuple of names). tp shards heads and the MLP hidden dim, fsdp the
-    complementary axis; the leading layer axis is not sharded. The
-    pipeline (pp), expert (ep) and LoRA layouts are not yet ported."""
+    """The JAX package's ``sharding_specs``, mirroring ``init_params``'
+    tree: one entry per tensor dim (None, an axis name or a tuple of
+    names). tp shards heads and the MLP hidden dim (each expert's too),
+    fsdp the complementary axis, ep the expert axis; the router is
+    replicated over ep and tp, and the leading layer axis is not sharded.
+    The pipeline (pp) and LoRA layouts are not yet ported."""
     check_supported(cfg)
     fsdp, tp = "fsdp", "tp"
+    layers = {
+        "attn_norm": (None, None),
+        "wq": (None, fsdp, tp, None),
+        "wk": (None, fsdp, tp, None),
+        "wv": (None, fsdp, tp, None),
+        "wo": (None, tp, None, fsdp),
+        "mlp_norm": (None, None),
+    }
+    if cfg.n_experts > 0:
+        layers.update(
+            router=(None, fsdp, None),
+            w_gate=(None, "ep", fsdp, tp),
+            w_up=(None, "ep", fsdp, tp),
+            w_down=(None, "ep", tp, fsdp),
+        )
+    else:
+        layers.update(
+            w_gate=(None, fsdp, tp),
+            w_up=(None, fsdp, tp),
+            w_down=(None, tp, fsdp),
+        )
     return {
         "embed": (None, fsdp),
-        "layers": {
-            "attn_norm": (None, None),
-            "wq": (None, fsdp, tp, None),
-            "wk": (None, fsdp, tp, None),
-            "wv": (None, fsdp, tp, None),
-            "wo": (None, tp, None, fsdp),
-            "mlp_norm": (None, None),
-            "w_gate": (None, fsdp, tp),
-            "w_up": (None, fsdp, tp),
-            "w_down": (None, tp, fsdp),
-        },
+        "layers": layers,
         "final_norm": (None,),
         "lm_head": (fsdp, tp),
     }
@@ -189,16 +216,22 @@ def activation_spec() -> tuple:
 
 
 def check_mesh(cfg: TransformerConfig, sizes: Dict[str, int]) -> None:
-    """Raise for a mesh the port does not run the model on: pp or ep above
-    1 (not yet ported), sp above 1 without a ring-family ``attn_impl`` (each
-    rank holds only its slice of the sequence), heads that do not divide tp
-    (the JAX package's ``_shardings`` check), or Ulysses' tp-local heads
-    that do not divide sp (its ``overlap_applicable`` check)."""
-    for axis, what in (("pp", "pipelining (pp > 1)"),
-                       ("ep", "expert parallelism (ep > 1)")):
-        if sizes.get(axis, 1) > 1:
-            raise _not_yet_ported(what)
-    tp, sp = sizes.get("tp", 1), sizes.get("sp", 1)
+    """Raise for a mesh the port does not run the model on: pp above 1 or
+    MoE at sp above 1 (not yet ported: the JAX package keeps global
+    capacity over sp with its manual ``_moe_mlp`` formulation), experts
+    that do not split over ep, sp above 1 without a ring-family
+    ``attn_impl`` (each rank holds only its slice of the sequence), heads
+    that do not divide tp (the JAX package's ``_shardings`` check), or
+    Ulysses' tp-local heads that do not divide sp (its
+    ``overlap_applicable`` check)."""
+    if sizes.get("pp", 1) > 1:
+        raise _not_yet_ported("pipelining (pp > 1)")
+    tp, sp, ep = sizes.get("tp", 1), sizes.get("sp", 1), sizes.get("ep", 1)
+    if cfg.n_experts > 0 and sp > 1:
+        raise _not_yet_ported("MoE under sequence parallelism (sp > 1)")
+    if cfg.n_experts > 0 and cfg.n_experts % ep:
+        raise ValueError(f"n_experts {cfg.n_experts} does not split over "
+                         f"ep={ep}")
     if sp > 1 and cfg.attn_impl not in RING_FAMILY:
         raise ValueError(
             f"sp={sp} needs a ring-family attn_impl {RING_FAMILY}, got "
@@ -296,14 +329,117 @@ def _identity(x):
     return x
 
 
+def _top_k(probs: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries along the last dim,
+    in ``lax.top_k``'s order: descending, the lower index first among equal
+    values. A stable descending sort keeps that rule; ``torch.topk``
+    promises no order among ties on CUDA."""
+    values, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def _moe_route(h: torch.Tensor, router: torch.Tensor, cfg: TransformerConfig,
+               shards: Optional[sharding.MeshShards] = None):
+    """The routing of ``_moe_mlp``: ``h`` [B, T, D] and ``router`` [D, E] in
+    the compute dtype -> (combine [B, T, E, C] f32, each kept token's gate
+    at its expert's slot; dispatch, ``combine > 0`` in ``h``'s dtype; the
+    chosen experts [B, T, K]; the layer's weighted aux loss, an f32
+    scalar).
+
+    Top-1 keeps the raw switch gate, top-k > 1 renormalises the gates over
+    the chosen experts. Capacity is ``ceil(T k / E x
+    expert_capacity_factor)`` slots per expert and row; each choice's
+    tokens queue after all tokens of the earlier choices, in sequence
+    order, and a token past its expert's capacity is dropped, as is one
+    whose gate is 0 (subnormal probabilities count as 0). The aux is
+    ``moe_aux_weight`` times the Switch load-balance term E x sum_e
+    (first-choice share_e x mean prob_e), plus ``moe_zloss_weight`` times
+    the ST-MoE z-loss mean(logsumexp(logits)^2).
+    Under a mesh the means are over every rank's rows, and the gates
+    enter the experts' region (``MeshShards.to_experts``) before they are
+    laid into ``combine``. Shapes are static and nothing reads the device
+    from the host, so a CUDA graph captures it."""
+    b, t, _ = h.shape
+    n_exp = router.shape[-1]
+    top_k = max(1, min(cfg.moe_top_k, n_exp))
+    capacity = max(1, int(math.ceil(t * top_k / n_exp * cfg.expert_capacity_factor)))
+    logits = torch.einsum("btd,de->bte", h, router).float()
+    # XLA flushes subnormal f32 results to 0 (as does the TPU): so that a
+    # gate that underflows there is 0 here too, and is dropped
+    probs = torch.softmax(logits, dim=-1)
+    probs = probs.masked_fill(probs < torch.finfo(torch.float32).tiny, 0.0)
+    top_gates, top_idx = _top_k(probs, top_k)  # [B, T, K]
+    if top_k > 1:
+        top_gates = top_gates / torch.sum(top_gates, dim=-1, keepdim=True)
+    masks = F.one_hot(top_idx, n_exp).float()  # [B, T, K, E]
+    # the load balance counts first choices only (standard Switch)
+    stats = [masks[:, :, 0, :], probs]
+    if cfg.moe_zloss_weight > 0.0:
+        stats.append(torch.square(torch.logsumexp(logits, dim=-1, keepdim=True)))
+    # token means; under a mesh over every rank's rows, as GSPMD takes the
+    # JAX package's batch means
+    sums = torch.sum(torch.cat(stats, dim=-1), dim=(0, 1))
+    means = sums / (b * t) if shards is None else shards.data_mean(sums, b * t)
+    aux = cfg.moe_aux_weight * (n_exp * torch.sum(means[:n_exp] * means[n_exp:2 * n_exp]))
+    if cfg.moe_zloss_weight > 0.0:
+        aux = aux + cfg.moe_zloss_weight * means[2 * n_exp]
+    if shards is not None:
+        top_gates = shards.to_experts(top_gates)
+    # slot positions: choice 0's tokens queue first, then choice 1's
+    combine = probs.new_zeros((b, t, n_exp, capacity))
+    counts = probs.new_zeros((b, n_exp))  # slots taken by earlier choices
+    for i in range(top_k):
+        m = masks[:, :, i, :]  # [B, T, E]
+        pos = torch.cumsum(m, dim=1) * m - 1.0 + counts[:, None, :] * m
+        counts = counts + torch.sum(m, dim=1)
+        keep = m * ((pos >= 0) & (pos < capacity)).float()
+        slot = torch.clamp(pos, 0, capacity - 1).long()[..., None]
+        combine = combine.scatter_add(
+            -1, slot, (keep * top_gates[:, :, i, None])[..., None])
+    return combine, (combine > 0.0).to(h.dtype), top_idx, aux
+
+
+def _moe_mlp(h: torch.Tensor, w, cfg: TransformerConfig,
+             shards: Optional[sharding.MeshShards] = None):
+    """Top-k MoE with capacity-based dense dispatch, the JAX package's
+    ``_moe_mlp``: ``h`` [B, T, D] -> (out [B, T, D], this layer's weighted
+    aux loss). ``w(name)`` is the layer's weight ``name`` in the compute
+    dtype: ``router`` [D, E] and the stacked experts ``w_gate`` / ``w_up``
+    [E', D, F'] and ``w_down`` [E', F', D]. Routing, drops and the aux are
+    :func:`_moe_route`'s.
+
+    Under a mesh (``shards``) every rank routes its rows over all E
+    experts (the router is whole). The experts are Megatron's region over
+    ep and tp: each rank holds E' = E/ep experts and its tp slice F' of
+    their hidden dim, so ``h`` and the gates enter through f
+    (``MeshShards.to_experts``) and the combined output leaves through g
+    (``from_experts``). Routing and the aux stay outside the region,
+    computed once per rank, so their gradients are whole on every rank."""
+    combine, dispatch, _, aux = _moe_route(h, w("router"), cfg, shards)
+    if shards is not None:
+        h = shards.to_experts(h)
+        dispatch, combine = shards.local_experts(dispatch), shards.local_experts(combine)
+    expert_in = torch.einsum("btec,btd->ebcd", dispatch, h)
+    g = torch.einsum("ebcd,edf->ebcf", expert_in, w("w_gate"))
+    u = torch.einsum("ebcd,edf->ebcf", expert_in, w("w_up"))
+    expert_out = torch.einsum("ebcf,efd->ebcd", F.silu(g) * u, w("w_down"))
+    # combine already carries each token's gate at its slot
+    out = torch.einsum("btec,ebcd->btd", combine.to(h.dtype), expert_out)
+    if shards is not None:
+        out = shards.from_experts(out)
+    return out, aux
+
+
 def _apply_layer(x, lp, positions, cfg: TransformerConfig, attn_fn,
                  shards: Optional[sharding.MeshShards] = None):
-    """One dense transformer block; ``lp`` leaves have no layer axis.
+    """One transformer block; ``lp`` leaves have no layer axis. Returns
+    (x, the layer's weighted MoE aux loss, None for a dense layer).
 
     Under a mesh (``shards``) the leaves are the rank's shards: each
     weight is gathered over fsdp where it is used, heads and the MLP
     hidden dim stay tp-local, and the two row-parallel projections (``wo``,
-    ``w_down``) sum over tp, Megatron-style."""
+    ``w_down``) sum over tp, Megatron-style; the experts sum over ep and
+    tp (``_moe_mlp``)."""
     dtype = cfg.dtype
     if shards is None:
         def w(name):
@@ -311,7 +447,7 @@ def _apply_layer(x, lp, positions, cfg: TransformerConfig, attn_fn,
 
         to_tp = from_tp = _identity
     else:
-        specs = _LAYER_SPECS
+        specs = _layer_specs(cfg.n_experts > 0)
 
         def w(name):
             return shards.weight(lp[name], specs[name], dtype)
@@ -325,16 +461,21 @@ def _apply_layer(x, lp, positions, cfg: TransformerConfig, attn_fn,
     k = _rope(k, positions, cfg.rope_theta)
     attn = _dispatch_attention(q, k, v, cfg, attn_fn)
     x = x + from_tp(torch.einsum("bthk,hkd->btd", attn, w("wo")))
+    if cfg.n_experts > 0:
+        out, aux = _moe_mlp(_rms_norm(x, lp["mlp_norm"]), w, cfg, shards)
+        return x + out, aux
     h = to_tp(_rms_norm(x, lp["mlp_norm"]))
     gate = torch.einsum("btd,df->btf", h, w("w_gate"))
     up = torch.einsum("btd,df->btf", h, w("w_up"))
     mid = F.silu(gate) * up
-    return x + from_tp(torch.einsum("btf,fd->btd", mid, w("w_down")))
+    return x + from_tp(torch.einsum("btf,fd->btd", mid, w("w_down"))), None
 
 
-# each layer leaf's spec without the stacked layer axis
-_LAYER_SPECS = {name: spec[1:] for name, spec in
-                sharding_specs(TransformerConfig())["layers"].items()}
+@functools.lru_cache(maxsize=None)
+def _layer_specs(moe: bool) -> Dict[str, tuple]:
+    """Each layer leaf's spec without the stacked layer axis."""
+    cfg = TransformerConfig(n_experts=2 if moe else 0)
+    return {name: spec[1:] for name, spec in sharding_specs(cfg)["layers"].items()}
 
 
 def _resolve_attn_fn(cfg: TransformerConfig, mesh=None):
@@ -424,8 +565,9 @@ def forward_with_aux(
     mesh=None,
     return_hidden: bool = False,
 ):
-    """tokens [B, T] int -> (logits [B, T, vocab] f32, aux loss f32 scalar,
-    always 0 for the dense model).
+    """tokens [B, T] int -> (logits [B, T, vocab] f32, aux loss f32 scalar:
+    the MoE layers' weighted aux losses summed over layers, 0 for the dense
+    model).
 
     ``return_hidden=True`` returns the final-norm hidden states [B, T, D]
     (model dtype) instead of logits, for the chunked cross-entropy loss.
@@ -456,11 +598,13 @@ def forward_with_aux(
     per_layer = {name: torch.unbind(sharding.local(leaf))
                  for name, leaf in params["layers"].items()}
     layer = _remat_wrap(_apply_layer, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = {name: leaves[i] for name, leaves in per_layer.items()}
-        x = layer(x, lp, positions, cfg, attn_fn, shards)
+        x, layer_aux = layer(x, lp, positions, cfg, attn_fn, shards)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     x = _rms_norm(x, sharding.local(params["final_norm"]))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     logits = torch.einsum("btd,dv->btv", x, lm_head_weight(params, cfg, shards))

@@ -1,5 +1,5 @@
 """Shardings and the collectives of the port's data-, fully-sharded-,
-tensor- and sequence-parallel paths.
+expert-, tensor- and sequence-parallel paths.
 
 In the JAX package GSPMD inserts the collectives that a ``PartitionSpec``
 implies. The port runs one process per GPU and writes them out, as
@@ -10,15 +10,15 @@ flash kernels take nothing else):
   name, or a tuple of names (``("dp", "fsdp")``), as ``jax.sharding.
   PartitionSpec`` holds them; :func:`placements` turns it into DTensor
   placements over a mesh of the same axis names;
-- parameters live on :func:`param_mesh`, the ``("fsdp", "tp")`` submesh
-  of the six-axis mesh: the only axes the parameter specs shard. Each
-  data-parallel replica holds the same DTensor on its own submesh, as
+- parameters live on :func:`param_mesh`, the ``("fsdp", "ep", "tp")``
+  submesh of the six-axis mesh: the only axes the parameter specs shard.
+  Each data-parallel replica holds the same DTensor on its own submesh, as
   FSDP2's hybrid sharding does. In torch 2.13 DTensor's sharding
   propagation enumerates strategies over every mesh dim at once, so its
   cost grows exponentially with the mesh's rank: the first AdamW step
   over five small DTensor leaves took 112.4 s on a mesh of six size-1
   dims against 0.084 s on two (torch 2.11: 0.05 s on six;
-  ``tests/torch_mesh_probe.py``);
+  ``tests/torch_mesh_probe.py``), and 0.33 s on three;
 - fsdp (ZeRO-3): a weight is all-gathered over ``fsdp`` where it is used,
   and the gradient of that gather is a reduce-scatter, since the fsdp
   ranks read different rows;
@@ -28,6 +28,13 @@ flash kernels take nothing else):
   row-parallel ones :meth:`MeshShards.from_tp` (all-reduce forward,
   identity backward), so the residual stream and its gradient are the same
   on every tp rank;
+- ep: the ep ranks read the same rows and each holds E/ep experts (and
+  its tp slice of their hidden dim). Routing runs on every rank over all
+  experts; the experts are a Megatron region over ``("ep", "tp")``: their
+  input and gates pass :meth:`MeshShards.to_experts` (f) and their
+  combined output :meth:`MeshShards.from_experts` (g), so everything
+  outside the region, the router and the aux loss included, is computed
+  the same way on every ep and tp rank, with the whole gradient;
 - a weight gathered whole over ``tp`` (the vocab-sharded ``lm_head``) is
   used the same way on every tp rank, so the gradient of that gather is
   the rank's own slice, not a sum;
@@ -62,7 +69,9 @@ DATA_AXES = ("dp", "fsdp")
 # gradients of the parameters replicated along them are summed over these
 GRAD_AXES = DATA_AXES + ("sp",)
 # the axes the parameter specs shard: parameters live on this submesh
-PARAM_AXES = ("fsdp", "tp")
+PARAM_AXES = ("fsdp", "ep", "tp")
+# the axes of the experts' Megatron region (``MeshShards.to_experts``)
+EXPERT_AXES = ("ep", "tp")
 
 
 def spec_axes(entry) -> Tuple[str, ...]:
@@ -87,8 +96,9 @@ def placements(spec: Sequence, mesh) -> list:
 
 
 def param_mesh(mesh):
-    """The ``("fsdp", "tp")`` submesh of a six-axis mesh, on which the
-    parameters and their optimizer moments live."""
+    """The ``("fsdp", "ep", "tp")`` submesh of a six-axis mesh (in the
+    mesh's order, as ``DeviceMesh`` slices), on which the parameters and
+    their optimizer moments live."""
     return mesh[PARAM_AXES]
 
 
@@ -178,16 +188,18 @@ class _AllReduceForward(torch.autograd.Function):
 
 
 class _AllReduceBackward(torch.autograd.Function):
-    """The identity in the forward; the gradient is summed over ``group``."""
+    """The identity in the forward; the gradient is summed over ``groups``."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, groups):
+        ctx.groups = groups
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
+        for group in ctx.groups:
+            g = _all_reduce(g, group)
+        return g, None
 
 
 class MeshShards:
@@ -202,6 +214,10 @@ class MeshShards:
                        for name, size in self.sizes.items() if size > 1}
         # the slice of every sequence this rank computes, along sp
         self.seq_index = mesh.get_local_rank("sp") if "sp" in self.groups else 0
+        # this rank's block of experts, along ep
+        self.ep_index = mesh.get_local_rank("ep") if "ep" in self.groups else 0
+        self._expert_groups = tuple(self.groups[a] for a in EXPERT_AXES
+                                    if a in self.groups)
 
     def weight(self, local: torch.Tensor, spec: Sequence,
                dtype: Optional[torch.dtype], axes: Tuple[str, ...] = ("fsdp",)):
@@ -220,13 +236,47 @@ class MeshShards:
         """Megatron's f: the input of the column-parallel projections."""
         if "tp" not in self.groups:
             return x
-        return _AllReduceBackward.apply(x, self.groups["tp"])
+        return _AllReduceBackward.apply(x, (self.groups["tp"],))
 
     def from_tp(self, x: torch.Tensor) -> torch.Tensor:
         """Megatron's g: the partial sums of a row-parallel projection."""
         if "tp" not in self.groups:
             return x
         return _AllReduceForward.apply(x, (self.groups["tp"],))
+
+    def to_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f over ep and tp: an input of the experts' region."""
+        if not self._expert_groups:
+            return x
+        return _AllReduceBackward.apply(x, self._expert_groups)
+
+    def from_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's g over ep and tp: the experts' combined output, partial
+        over this rank's experts and its tp slice of their hidden dim."""
+        if not self._expert_groups:
+            return x
+        return _AllReduceForward.apply(x, self._expert_groups)
+
+    def local_experts(self, x: torch.Tensor, dim: int = 2) -> torch.Tensor:
+        """This rank's block ``ep_index`` of the experts along ``dim``, one of
+        ``sizes["ep"]`` equal blocks."""
+        n = x.shape[dim] // self.sizes["ep"]
+        return x.narrow(dim, self.ep_index * n, n)
+
+    def data_mean(self, sums: torch.Tensor, count: int) -> torch.Tensor:
+        """The mean over every rank's part along ``GRAD_AXES`` of this rank's
+        ``sums`` over ``count`` items: sums and counts are added over the
+        axes in one all-reduce whose gradient passes unchanged, so each
+        rank's gradient is its own part's contribution (as in
+        :meth:`data_sum`). Rows held whole on every data rank (the
+        replicated fallback of ``parallel/train.py``) count once per rank
+        in both, so the mean is the same."""
+        groups = tuple(self.groups[a] for a in GRAD_AXES if a in self.groups)
+        if not groups:
+            return sums / count
+        packed = torch.cat([sums.reshape(-1), sums.new_full((1,), float(count))])
+        packed = _AllReduceForward.apply(packed, groups)
+        return packed[:-1].reshape(sums.shape) / packed[-1]
 
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over ``GRAD_AXES``; the gradient passes unchanged, so each

@@ -3,8 +3,8 @@
 Counterpart of ``hivedscheduler_tpu/parallel/train.py``: ``loss_fn``,
 ``make_optimizer``, ``train_step`` (with gradient accumulation), the
 remat-policy override, ``_shardings``, ``make_sharded_train_step`` and
-``make_sharded_eval_step`` over a six-axis ``DeviceMesh`` (dp, fsdp, tp and
-sp; pp and ep above 1 are not yet ported), and their one-device cousins
+``make_sharded_eval_step`` over a six-axis ``DeviceMesh`` (dp, fsdp, ep, tp
+and sp; pp above 1 is not yet ported), and their one-device cousins
 ``make_train_step`` and ``make_eval_step``. LoRA is not yet ported.
 
 The parameter tree is the JAX package's: a dict of f32 leaves, plain
@@ -27,6 +27,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from hivedscheduler_tpu_torch import bridge, resolve_device
 from hivedscheduler_tpu_torch.models import transformer as tm
+from hivedscheduler_tpu_torch.parallel import data as data_lib
 from hivedscheduler_tpu_torch.parallel import sharding
 from hivedscheduler_tpu_torch.parallel.checkpoint import named_leaves
 
@@ -59,8 +60,9 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
     chunks of that size, each checkpointed where autograd records, so the
     backward recomputes one chunk's logits at a time and the [B, T, vocab]
     f32 logits never exist at once; the result is the same sum.
-    ``include_aux`` is accepted for the reference's signature: the dense
-    model's aux loss is 0.
+    ``include_aux`` adds the MoE layers' weighted aux losses (load balance
+    and z-loss; 0 for the dense model); evaluation leaves them out, so that
+    ``exp(loss)`` is the perplexity.
 
     Under a ``mesh``, ``tokens`` are this rank's rows, whole sequences,
     of which the rank computes its sp slice (see ``forward_with_aux``), and
@@ -121,28 +123,38 @@ def _accumulated_value_and_grad(grad_fn, params, tokens: torch.Tensor,
                                 grad_accum: int,
                                 shards: Optional[sharding.MeshShards] = None):
     """(loss, grads) of ``grad_fn(params, micro_tokens)`` averaged over
-    ``grad_accum`` equal batch slices, one slice's activations alive at a
-    time. For the dense model the average equals the full-batch gradient:
-    the LM loss is a mean over equal slices.
+    ``grad_accum`` equal slices of the batch, one slice's activations alive
+    at a time. For the dense model the average equals the full-batch
+    gradient: the LM loss is a mean over equal slices. The MoE aux losses
+    are nonlinear batch statistics, so, as in the JAX package, each slice
+    computes its own and they are averaged.
 
-    Under a mesh each rank slices its own rows. Where they do not split
-    into ``grad_accum`` slices, every rank takes the whole global batch and
-    runs each slice replicated, logged: JAX's fallback when a slice does
-    not split over dp x fsdp (the global-mean loss keeps the sum of the
-    ranks' gradients exact)."""
+    Under a mesh with data axes above 1 the slices are the JAX package's:
+    slice i holds global rows [i B/n, (i+1) B/n), split over the data ranks
+    as ``activation_spec`` splits a batch, so each rank takes its part of
+    every slice from the whole token batch (a few KB, gathered once). Where
+    a slice does not split over dp x fsdp every rank runs it whole,
+    replicated over the data axes, logged: JAX's fallback (the global-mean
+    loss keeps the sum of the ranks' gradients exact)."""
     if grad_accum <= 1:
         return grad_fn(params, tokens)
-    b = tokens.shape[0]
-    if b % grad_accum and shards is not None:
-        log.info("%s local rows do not split into %s grad_accum slices: "
-                 "each slice runs replicated over the data axes", b,
-                 grad_accum)
+    part, n_parts = (0, 1) if shards is None else data_lib.data_split(shards.mesh)
+    if n_parts > 1:
         tokens = shards.whole_rows(tokens)
-        b = tokens.shape[0]
+    b = tokens.shape[0]
     if b % grad_accum:
         raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
+    slices = tokens.reshape(grad_accum, b // grad_accum, *tokens.shape[1:])
+    if n_parts > 1:
+        if slices.shape[1] % n_parts:
+            log.info("a grad_accum slice of %s rows does not split over %s "
+                     "data-parallel ranks: each slice runs replicated over "
+                     "the data axes", slices.shape[1], n_parts)
+        else:
+            n = slices.shape[1] // n_parts
+            slices = slices[:, part * n:(part + 1) * n]
     loss_sum, grad_sum = None, None
-    for micro in tokens.reshape(grad_accum, b // grad_accum, *tokens.shape[1:]):
+    for micro in slices:
         loss, grads = grad_fn(params, micro)
         if grad_sum is None:
             loss_sum, grad_sum = loss, list(grads)
@@ -279,8 +291,9 @@ def _shardings(cfg: tm.TransformerConfig, mesh) -> TokenSharding:
     parameters are placed by ``sharding_specs``, on
     ``sharding.param_mesh(mesh)``). Raises ``ValueError`` when heads do not
     divide tp (as the JAX package's does) or a sharded weight dim does not
-    split evenly or sp is above 1 without a ring-family attention, and
-    "not yet ported" for pp or ep above 1."""
+    split evenly or sp is above 1 without a ring-family attention or the
+    experts do not split over ep, and "not yet ported" for pp above 1 or
+    MoE at sp above 1."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     tm.check_mesh(cfg, sizes)
     shapes = {name: tuple(t.shape) for name, t in named_leaves(

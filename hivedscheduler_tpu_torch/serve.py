@@ -19,8 +19,10 @@ report. Not yet ported, and refused with an error: the fleet
 (``--fleet``, ``--disaggregate``, ``--autoscale``, ``--route-policy``,
 ``--prefill-replicas`` and ``--fleet-*``), ``--tp/--dp`` above 1,
 speculative serving (``--spec-decode``, ``--draft-layers``, ``--gamma``,
-``--draft-d-model``), MoE, LoRA, ``--journal-file``, ``--metrics-dump``
-and the SLO objectives (``--slo-*``).
+``--draft-d-model``), LoRA, ``--journal-file``, ``--metrics-dump`` and
+the SLO objectives (``--slo-*``). A mixture-of-experts model
+(``--n-experts``, ``--moe-top-k``) serves with the no-drop inference
+capacity.
 """
 
 from __future__ import annotations
@@ -65,8 +67,6 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} > 1 is not yet ported: the port serves on "
                          "one device")
-    if args.n_experts > 0:
-        parser.error("--n-experts > 0 (MoE) is not yet ported")
     if args.lora_rank > 0:
         parser.error("--lora-rank > 0 (merging LoRA adapters) is not yet ported")
     for name, what in _UNPORTED_FLAGS:
@@ -125,7 +125,7 @@ def main(argv=None) -> int:
     parser.add_argument("--n-kv-heads", type=int, default=0)
     parser.add_argument("--d-ff", type=int, default=1408)
     parser.add_argument("--n-experts", type=int, default=0,
-                        help="MoE (not yet ported)")
+                        help="experts per MoE layer (0 = dense MLP)")
     parser.add_argument("--moe-top-k", type=int, default=1)
     parser.add_argument("--expert-capacity-factor", type=float, default=1.25,
                         help="MoE expert capacity factor (must match the "

@@ -18,10 +18,13 @@ One process drives one GPU. Step 1 opens the process group from the
 scheduler's gang handoff (``POD_BIND_INFO``, ``NODE_NAME``,
 ``NVIDIA_VISIBLE_DEVICES`` and ``LOCAL_RANK``; a one-rank group when the
 run was not placed by the scheduler), NCCL on ``cuda`` and gloo on
-``cpu``; step 2 lays the mesh ``infer_axes(world, tp=, sp=, fsdp=)`` over
-it, dp taking the rest. ``--tp`` and ``--fsdp`` shard the model (Megatron
-tensor parallelism, ZeRO-3), ``--sp`` the sequence (each rank attends its
-slice over the ring family); tokens/s is over the global batch. Rank 0
+``cpu``; step 2 lays the mesh ``infer_axes(world, tp=, sp=, fsdp=, ep=)``
+over it, dp taking the rest. ``--tp`` and ``--fsdp`` shard the model
+(Megatron tensor parallelism, ZeRO-3), ``--sp`` the sequence (each rank
+attends its slice over the ring family), ``--ep`` the experts of a
+mixture-of-experts model (``--n-experts``, ``--moe-top-k``,
+``--expert-capacity-factor``, ``--moe-aux-weight``, ``--moe-zloss``);
+tokens/s is over the global batch. Rank 0
 alone writes the logs, the timeline and the goodput spool; every rank
 takes part in each checkpoint save.
 
@@ -37,8 +40,8 @@ and skips the poisoned batch (``--max-rollbacks`` times at most).
 ``--init-from`` warm-starts the parameters with a fresh optimizer;
 ``--goodput-file`` spools the goodput ledger's step phases.
 
-Pipelining (``--pp``, ``--microbatches``), expert parallelism (``--ep``),
-MoE, LoRA, the overlapped stack, elastic meshes (``--elastic``,
+Pipelining (``--pp``, ``--microbatches``), MoE under ``--sp`` above 1,
+LoRA, the overlapped stack, elastic meshes (``--elastic``,
 ``--min-chips``), the profiler and the journal are not yet ported and
 exit with an error rather than being ignored.
 """
@@ -62,7 +65,6 @@ STEP_LOG = "step %s loss %.4f | %.0f tok/s"
 
 UNPORTED_AXES = {
     "pp": "pipelining",
-    "ep": "expert parallelism",
 }
 
 
@@ -70,10 +72,11 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
     for flag, what in UNPORTED_AXES.items():
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} > 1 is not yet ported: {what}; the port "
-                         "shards over dp, fsdp, tp and sp")
+                         "shards over dp, fsdp, ep, tp and sp")
     unported = {
         "--microbatches": args.microbatches > 0,
-        "--n-experts > 0 (MoE)": args.n_experts > 0,
+        "--n-experts > 0 with --sp > 1 (MoE under sequence parallelism)":
+            args.n_experts > 0 and args.sp > 1,
         "--lora-rank": args.lora_rank > 0,
         "--lora-mlp": args.lora_mlp,
         "--lora-alpha": args.lora_alpha != 16.0,
@@ -113,9 +116,10 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--microbatches", type=int, default=0,
                         help="not yet ported")
     parser.add_argument("--ep", type=int, default=1,
-                        help="expert parallelism: not yet ported above 1")
+                        help="expert-parallel degree (with --n-experts; must "
+                        "divide it)")
     parser.add_argument("--n-experts", type=int, default=0,
-                        help="not yet ported above 0")
+                        help="experts per MoE layer (0 = dense MLP)")
     parser.add_argument("--moe-top-k", type=int, default=1)
     parser.add_argument("--moe-zloss", type=float, default=0.0)
     parser.add_argument("--moe-aux-weight", type=float, default=0.01)
@@ -252,9 +256,11 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
     from hivedscheduler_tpu_torch.parallel.train import make_sharded_train_step
 
     device = resolve_device(args.device)
-    # 2. the mesh over the gang's GPUs; dp takes what tp, sp and fsdp leave
+    # 2. the mesh over the gang's GPUs; dp takes what tp, sp, fsdp and ep
+    #    leave
     try:
-        axes = topology.infer_axes(world, tp=args.tp, sp=args.sp, fsdp=args.fsdp)
+        axes = topology.infer_axes(world, tp=args.tp, sp=args.sp, fsdp=args.fsdp,
+                                   ep=args.ep)
     except ValueError as err:
         parser.error(str(err))
     mesh = topology.make_mesh(axes, device.type)

@@ -30,6 +30,9 @@ state) equals the single-device step. K1-K3's f32 forms (the ring's hops)
 hold to their plain versions at hop shapes and, rounded once to bf16,
 equal the bf16 kernels' outputs; ring_flash at sp = 1 on the NCCL mesh
 launches them and equals flash's losses (ring_zigzag_flash within 1e-3).
+The MoE model decodes on the card as on the CPU (f32, plain and int8
+experts), serves the same streams eager and through the CUDA-graph window,
+and its train step on the one-GPU NCCL mesh equals the single-device step.
 """
 
 import os
@@ -672,3 +675,71 @@ def test_ring_at_sp1_runs_the_f32_kernels_on_the_nccl_mesh(cuda, impl):
         assert losses[impl] == losses["flash"]
     else:
         assert max(abs(a - b) for a, b in zip(losses[impl], losses["flash"])) <= 1e-3
+
+
+# -- the mixture-of-experts model ---------------------------------------------
+
+MOE = dict(n_experts=4, moe_top_k=2)
+
+
+def test_moe_decode_on_card_matches_the_cpu(cuda):
+    # f32 on both (no TF32): MoE logits within atol 1e-4 of the CPU's and
+    # greedy tokens equal, plain and int8 experts
+    from hivedscheduler_tpu_torch.models import decode as tdec
+    from hivedscheduler_tpu_torch.models import quant as tquant
+
+    cfg = ttm.TransformerConfig(dtype=torch.float32, **DECODE_MODEL, **MOE)
+    params = ttm.init_params(cfg, torch.Generator().manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (3, 10)))
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for tree in (params, tquant.quantize_params(params, cfg)):
+            logits = {}
+            for dev in ("cpu", "cuda"):
+                cache = tdec.init_kv_cache(cfg, 3, 20, dev)
+                out, cache = tdec.advance(_to(tree, dev), cache, prompt.to(dev), cfg)
+                logits[dev] = out.cpu()
+            torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4, rtol=0)
+            toks = {dev: tdec.generate(_to(tree, dev), prompt.to(dev), cfg, 8).cpu()
+                    for dev in ("cpu", "cuda")}
+            assert torch.equal(toks["cuda"], toks["cpu"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+def test_moe_serving_graph_and_paged_equal_eager_dense_on_card(cuda):
+    # the MoE layer inside the CUDA-graph decode window: static shapes, no
+    # host read; dense and paged, eager and graph, token for token
+    cfg = ttm.TransformerConfig(**SERVE_MODEL, **MOE)
+    params = ttm.cast_params(ttm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    _, _, prompts = _serve_setup("cuda")
+    ref, _ = _serve_streams(params, cfg, prompts)
+    for extra in (dict(decode_steps=4), dict(page_size=8, decode_steps=3)):
+        got, eng = _serve_streams(params, cfg, prompts, **extra)
+        assert got == ref, extra
+        assert eng.graph_windows == eng.fused_windows > 0, extra
+
+
+def test_moe_world_1_mesh_step_equals_the_single_device_step(cuda):
+    from hivedscheduler_tpu_torch.parallel import data as tdata
+    from hivedscheduler_tpu_torch.parallel import distributed, topology
+
+    cfg = ttm.TransformerConfig(vocab_size=512, d_model=256, n_heads=2, n_kv_heads=1,
+                                n_layers=2, d_ff=512, max_seq_len=256, attn_impl="flash",
+                                remat="dots", moe_zloss_weight=0.1, **MOE)
+    tokens = np.random.default_rng(3).integers(0, 512, (2, 256)).astype(np.int32)
+    step, init_fn = ttrain.make_train_step(cfg, cuda, ce_chunk=128)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    want = [float(step(params, opt, torch.from_numpy(tokens).cuda())[2]) for _ in range(2)]
+    try:
+        assert distributed.initialize_from_gang(device="cuda") == (0, 1)
+        mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
+        mstep, minit, tok_sh = ttrain.make_sharded_train_step(cfg, mesh, ce_chunk=128)
+        mparams, mopt = minit(torch.Generator(device="cuda").manual_seed(0))
+        got = [float(mstep(mparams, mopt, tdata.device_put_global(tokens, tok_sh, 2))[2])
+               for _ in range(2)]
+    finally:
+        distributed.shutdown()
+    assert got == want

@@ -8,6 +8,8 @@ agree to atol 1e-5 (observed <= 2.6e-6). Greedy tokens are compared
 exactly, and the filter masks of ``filter_logits`` must be identical.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -202,11 +204,15 @@ def test_generate_argument_checks(weights):
 
 
 def test_moe_config_is_refused(weights):
+    # MoE decodes (tests/test_torch_moe_serving.py); what advance still
+    # refuses is a MoE config with MLP adapters, as JAX's init_params does
     _, tcfg = _cfgs(0)
     params = bridge.from_numpy_tree(weights[0])
     moe = ttm.TransformerConfig(dtype=torch.float32, n_experts=4, **SMALL)
     assert tdec.inference_moe_cfg(tcfg) is tcfg
     assert tdec.inference_moe_cfg(moe).expert_capacity_factor == 4.0
-    with pytest.raises(NotImplementedError) as err:
-        tdec.advance(params, tdec.init_kv_cache(tcfg, B, T), torch.from_numpy(_tokens()), moe)
-    assert "not yet ported" in str(err.value)
+    lora_moe = dataclasses.replace(moe, lora_rank=4, lora_mlp=True)
+    with pytest.raises(ValueError) as err:
+        tdec.advance(params, tdec.init_kv_cache(tcfg, B, T), torch.from_numpy(_tokens()),
+                     lora_moe)
+    assert "MoE experts are not adapted" in str(err.value)

@@ -333,9 +333,10 @@ def test_train_cli_refuses_each_unported_axis_with_its_own_message(flag, what, c
         ttrain_cli.main(["--device", "cpu", flag, "2"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    if flag == "--sp":
-        # sequence parallelism is ported: on one device its mesh cannot be
-        # laid, a usage error of its own, never "not yet ported"
+    if flag in ("--sp", "--ep"):
+        # sequence and expert parallelism are ported: on one device their
+        # mesh cannot be laid, a usage error of its own, never "not yet
+        # ported"
         assert "1 devices not divisible by tp*sp*fsdp*pp*ep=2" in err
         assert "not yet ported" not in err
     else:

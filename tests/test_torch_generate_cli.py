@@ -133,7 +133,8 @@ def test_sampled_rows_repeat_and_the_goodput_spool_records_the_decode(capsys, tm
 
 
 @pytest.mark.parametrize("extra", [
-    ["--tp", "2"], ["--dp", "2"], ["--n-experts", "2"], ["--lora-rank", "4"],
+    # MoE decodes; MoE on a --tp/--dp mesh is not yet ported
+    ["--tp", "2"], ["--dp", "2"], ["--n-experts", "2", "--tp", "2"], ["--lora-rank", "4"],
 ])
 def test_unported_flags_exit_with_error(extra, capsys):
     with pytest.raises(SystemExit) as exc:

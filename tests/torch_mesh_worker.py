@@ -3,7 +3,7 @@
     python tests/torch_mesh_worker.py JOB.json RANK
 
 ``JOB.json`` names the world size, the coordinator port, the mesh degrees
-(``tp``, ``sp``, ``fsdp``; dp takes the rest), the model config and a list of
+(``tp``, ``sp``, ``fsdp``, ``ep``; dp takes the rest), the model config and a list of
 tasks run in order on one process group. The rank joins the gang as a
 scheduled pod would: a bind info of one pod holding ``world`` GPUs on the
 node ``test/127.0.0.1``, ``NVIDIA_VISIBLE_DEVICES`` and ``LOCAL_RANK``, read
@@ -76,7 +76,7 @@ def main(job_path: str, rank: int) -> None:
     assert (got_rank, world) == (rank, job["world"]), (got_rank, world)
     try:
         axes = topology.infer_axes(world, tp=job.get("tp", 1), sp=job.get("sp", 1),
-                                   fsdp=job.get("fsdp", 1))
+                                   fsdp=job.get("fsdp", 1), ep=job.get("ep", 1))
         mesh = topology.make_mesh(axes, "cpu")
         cfg = tm.TransformerConfig(dtype=torch.float32, **job["cfg"])
         step, init_fn, token_sharding = ptrain.make_sharded_train_step(
@@ -110,6 +110,11 @@ def main(job_path: str, rank: int) -> None:
         for task in job["tasks"]:
             if task == "eval":
                 out["eval_loss"] = np.array(float(eval_step(params, tokens(0))))
+                with torch.no_grad():
+                    for aux in (True, False):
+                        out[f"loss_aux_{aux}"] = np.array(float(ptrain.loss_fn(
+                            params, tokens(0), cfg, mesh, ce_chunk=job.get("ce_chunk", 0),
+                            include_aux=aux)))
             elif task == "train":
                 routes = attention.FLASH_REFERENCE_ROUTES
                 ring_routes = ring.RING_REFERENCE_ROUTES
