@@ -144,6 +144,31 @@ Phases, each of which must pass or the script exits non-zero:
     ring`` and ``ulysses`` at 2 layers against xla (1e-3, no kernel); then
     the steps of flash, ring_flash and ring_zigzag_flash timed in turns by
     CUDA events on the world-1 mesh.
+(n) the mixture-of-experts model (8 experts, top-2) at the flagship width
+    through train, eval, generate and serve, and a 2-layer MoE checkpoint.
+(o) LoRA fine-tuning at the flagship width: ``train`` with (h)'s flags and
+    ``--lora-rank 16 --lora-alpha 32 --lora-mlp`` (3 steps, committing a
+    checkpoint), with K1/K2/K3 launched 36/18/18 times; its first loss
+    equal to (h)'s dense first loss bit for bit (zero-init adapters); the
+    checkpoint's base bit-identical to the seed-0 init, its adapters moved;
+    the LoRA step against the dense step in turns by CUDA events, tokens/s,
+    the peak device memory of each run; the checkpoint restored and merged
+    through ``restore_serving_params(lora_rank=16, ...)``, equal to
+    ``merge_lora`` of the restored tree; with random nonzero adapters, the
+    merged model's logits on one window against the adapter forward, and a
+    planted fault (the adapters dropped at the merge) caught.
+(p) speculative serving on (k)'s trace and target (bf16): the CLI's draft
+    (``derive_draft_config(cfg, 2)``, random weights from seed 3) and the
+    target as its own draft, gamma 4, dense and paged: every stream parts
+    from (k)'s plain greedy streams only at a near-tie of the full
+    forward (margin <= 2 x (k)'s noise), dense and paged self-draft
+    streams token-identical, the acceptance and the share of differing
+    tokens printed; tokens/s, TTFT and TPOT against the plain engine eager
+    and with graph windows of 8, in turns; sampled with the perfect draft,
+    the share of tokens equal to the plain sampled engine's and two runs
+    identical; then ``python -m hivedscheduler_tpu_torch.serve --lora-rank
+    16 --spec-decode`` on (o)'s checkpoint, which must exit 0 with its
+    merge and acceptance lines.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -660,6 +685,7 @@ def phase_train() -> dict:
         step_ms = sum(r["wall_s"] for r in timed) / len(timed) * 1e3
         if impl == "flash":
             flash["step_ms"] = step_ms
+            flash["peak"] = peak
         tokens_per_s = EVAL_BATCH * EVAL_SEQ / (step_ms / 1e3)
         print(f"[h] train step --attn {impl} (B={EVAL_BATCH}, T={EVAL_SEQ}, "
               f"{layers} layers, remat dots, ce_chunk {EVAL_CE_CHUNK}, mean of "
@@ -1633,11 +1659,14 @@ def _graph_window_profile(eng) -> dict:
                 parts=parts, kernels=sum(e.count for e in events) / SRV_STEPS)
 
 
-def phase_serving() -> None:
+def phase_serving() -> dict:
     """The continuous-batching engine at the flagship width: four runs of
     one trace (dense and paged, eager and graph) token-identical and held to
     the full forward at decisive positions, with planted faults; int8 KV;
-    chunked prefill and the prefix cache; drain; the times; the CLI."""
+    chunked prefill and the prefix cache; drain; the times; the CLI.
+    Returns the trace's prompts, the dense eager streams, their
+    teacher-forced full-forward logits and the engine path's noise, which
+    (p) holds the speculative engine to."""
     import torch
 
     from hivedscheduler_tpu_torch.chaos import invariants as inv
@@ -1904,6 +1933,7 @@ def phase_serving() -> None:
             print(proc.stderr[-4000:])
         check(ok, f"the serve CLI ({label}) did not finish as it should")
     print(f"[k] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return dict(prompts=prompts, ref=ref, full=full, noise=noise)
 
 
 # phase (l): the mesh path on one card. A tp=2 shard of the flagship holds
@@ -3078,6 +3108,350 @@ def phase_moe() -> None:
           + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()) + ")")
 
 
+# phase (o): LoRA at the flagship width
+LORA_RANK, LORA_ALPHA = 16, 32.0
+LORA_FLAGS = ["--lora-rank", str(LORA_RANK), "--lora-alpha", str(LORA_ALPHA), "--lora-mlp"]
+LORA_TURNS = 3  # rounds of (dense, lora, lora, dense) timed steps
+# the random nonzero B factors of the merge check (std), and the merged
+# model's logits on one window against the adapter forward, relative
+# Frobenius: both run bf16 activations, the merged weights rounded once,
+# the adapter terms rounded per product
+LORA_B_STD = 0.02
+LORA_MERGE_REL = 5e-2
+
+
+def _lora_cfg(**over):
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    kw = dict(max_seq_len=EVAL_SEQ, attn_impl="flash", remat="dots", lora_rank=LORA_RANK,
+              lora_alpha=LORA_ALPHA, lora_mlp=True, **EVAL_MODEL)
+    kw.update(over)
+    return tm.TransformerConfig(**kw)
+
+
+def _lora_train(ckdir: str, h_flash: dict) -> None:
+    """``train`` with LoRA through ``train.main``: launches, losses against
+    (h)'s, the checkpoint's base and adapters."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+
+    attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
+    records, peak = run_train("flash", TRAIN_STEPS,
+                              args=TRAIN_ARGS + LORA_FLAGS + ["--checkpoint-dir", ckdir])
+    launches = {"fwd": attn.FLASH_FWD_LAUNCHES, "dq": attn.FLASH_BWD_DQ_LAUNCHES,
+                "dkv": attn.FLASH_BWD_DKV_LAUNCHES}
+    layers = EVAL_MODEL["n_layers"]
+    want = {"fwd": 2 * layers * TRAIN_STEPS, "dq": layers * TRAIN_STEPS,
+            "dkv": layers * TRAIN_STEPS}
+    losses = [r["loss"] for r in records]
+    timed = [r for r in records if not r["compile"]]
+    cli_ms = sum(r["wall_s"] for r in timed) / len(timed) * 1e3
+    print(f"[o] train {' '.join(LORA_FLAGS)} --attn flash --remat dots: losses {losses} "
+          f"(dense (h): {h_flash['losses']}); launches over {TRAIN_STEPS} steps {launches} "
+          f"(want {want}); step {cli_ms} ms from the timeline (mean of {len(timed)} after "
+          f"the warm-up); peak device memory {peak / 1e9:.2f} GB (dense (h): "
+          f"{h_flash['peak'] / 1e9:.2f} GB)")
+    check(launches == want, f"the LoRA train run launched {launches}, want {want}")
+    check(losses[0] == h_flash["losses"][0],
+          "the LoRA run's first loss is not the dense model's (zero-init adapters)")
+    check(losses[1:] != h_flash["losses"][1:], "the LoRA run trained like the dense run")
+
+    cfg = _lora_cfg()
+    fresh = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    saved = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    step_no, _ = ckpt.restore_params(ckdir, saved)
+    base_same = all(torch.equal(saved["layers"][k], t) for k, t in fresh["layers"].items()
+                    if not k.startswith("lora_"))
+    base_same &= all(torch.equal(saved[k], fresh[k]) for k in ("embed", "final_norm", "lm_head"))
+    moved = {k: float((saved["layers"][k] - t).abs().max())
+             for k, t in fresh["layers"].items() if k.startswith("lora_")}
+    size = sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(ckdir) for f in files)
+    print(f"[o] checkpoint step {step_no} ({size / 1e9:.3f} GB on disk: the base, the "
+          f"adapters and their AdamW moments): base bit-identical to the seed-0 init "
+          f"{base_same}; the adapters' max |change| {min(moved.values()):.3e} (least) to "
+          f"{max(moved.values()):.3e} over {len(moved)} leaves")
+    check(base_same, "the LoRA run changed its frozen base")
+    check(min(moved.values()) > 0.0, "an adapter did not move")
+
+
+def _lora_steps() -> None:
+    """The LoRA step against the dense step, in turns by CUDA events."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    cfg = _lora_cfg()
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(cfg.vocab_size), EVAL_BATCH, EVAL_SEQ)
+    tokens = [torch.from_numpy(np.asarray(next(loader))).cuda() for _ in range(2)]
+    lstep, linit = port_train.make_lora_train_step(cfg, "cuda", ce_chunk=EVAL_CE_CHUNK)
+    base, lora, lopt = linit(torch.Generator(device="cuda").manual_seed(0))
+    dense_cfg = _lora_cfg(lora_rank=0, lora_mlp=False)
+    dstep, dinit = port_train.make_train_step(dense_cfg, "cuda", ce_chunk=EVAL_CE_CHUNK)
+    params, dopt = dinit(torch.Generator(device="cuda").manual_seed(0))
+
+    def lora_step(_params, opt, toks):
+        lora_out, opt, loss = lstep(base, lora, opt, toks)
+        return _params, opt, loss
+
+    _steps_by_events(lora_step, None, lopt, tokens)  # warm-up
+    _steps_by_events(dstep, params, dopt, tokens[:1])
+    runs = {"dense": (dstep, params, dopt), "lora": (lora_step, None, lopt)}
+    turns = {"dense": [], "lora": []}
+    # each step's own device memory: its peak above what was allocated
+    # before it (both states stay resident)
+    own = {}
+    for _ in range(LORA_TURNS):
+        for name in ("dense", "lora", "lora", "dense"):
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            turns[name] += _steps_by_events(*runs[name], tokens[:1])[1]
+            own[name] = torch.cuda.max_memory_allocated() - before
+    med = {name: sorted(ms)[len(ms) // 2] for name, ms in turns.items()}
+    n_lora = sum(t.numel() for t in port_train._leaves(lora))
+    print(f"[o] step ms in turns ({LORA_TURNS} x dense, lora, lora, dense; B={EVAL_BATCH}, "
+          f"T={EVAL_SEQ}): "
+          + "; ".join(f"{name} {', '.join(f'{x:.3f}' for x in ms)} (median {med[name]:.3f}, "
+                      f"{EVAL_BATCH * EVAL_SEQ / (med[name] / 1e3):.1f} tokens/s)"
+                      for name, ms in turns.items())
+          + f"; lora / dense {med['lora'] / med['dense']:.3f}; {n_lora / 1e6:.3f} M adapter "
+          f"parameters in {len(port_train._leaves(lora))} leaves; each step's peak above "
+          f"its resident state: dense {own['dense'] / 1e9:.2f} GB, lora "
+          f"{own['lora'] / 1e9:.2f} GB")
+    for name, run in runs.items():
+        wall_ms, total, parts = _step_profile(*run, tokens[0])
+        if total == 0:
+            print(f"[o] profiler: no device time recorded for the {name} step (not measured)")
+            continue
+        print(f"[o] profile of one {name} step: wall {wall_ms:.1f} ms, device busy "
+              f"{total:.1f} ms; " + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})"
+                                             for k, v in parts.items()))
+    del base, lora, lopt, params, dopt, runs
+    torch.cuda.empty_cache()
+
+
+def _lora_merge(ckdir: str) -> None:
+    """The checkpoint through ``restore_serving_params``; the merge against
+    the adapter forward with random nonzero B, and its planted fault."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+
+    cfg = _lora_cfg()
+    base_cfg = _lora_cfg(lora_rank=0, lora_mlp=False)
+    merged, step_no = ckpt.restore_serving_params(
+        dc.replace(base_cfg, remat="full"), ckdir, torch.Generator(device="cuda").manual_seed(0),
+        lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA, lora_mlp=True)
+    tree = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    ckpt.restore_params(ckdir, tree)
+    want = tm.merge_lora(tree, cfg)
+    same = all(torch.equal(merged["layers"][k], t) for k, t in want["layers"].items())
+    check(same and not any(k.startswith("lora_") for k in merged["layers"]),
+          "restore_serving_params did not merge the checkpoint's adapters")
+    del merged, want
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, t in tree["layers"].items():
+        if name.startswith("lora_") and name.endswith("_b"):
+            t.normal_(0.0, LORA_B_STD, generator=gen)
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(cfg.vocab_size), 2, EVAL_SEQ, seed=5)
+    window = torch.from_numpy(np.asarray(next(loader))).cuda()
+    with torch.inference_mode():
+        adapted = tm.forward(tree, window, cfg)
+        merged = tm.forward(tm.merge_lora(tree, cfg), window, base_cfg)
+        dropped = tm.forward(tm.split_lora_params(tree)[0], window, base_cfg)
+    errs = {name: rel_errs(x, adapted) for name, x in (("merged", merged),
+                                                       ("dropped", dropped))}
+    print(f"[o] restore_serving_params(lora_rank={LORA_RANK}, ...) of step {step_no}: "
+          f"equal to merge_lora of the restored tree; with random B (std {LORA_B_STD}) "
+          f"the merged model's logits on one window (B=2, T={EVAL_SEQ}) against the adapter "
+          f"forward: relative Frobenius {errs['merged'][0]:.3e}, worst position "
+          f"{errs['merged'][1]:.3e} (<= {LORA_MERGE_REL}); planted fault (adapters dropped "
+          f"at the merge): {errs['dropped'][0]:.3e}, worst position {errs['dropped'][1]:.3e}")
+    check(errs["merged"][0] <= LORA_MERGE_REL, "the merged model does not compute the adapters'")
+    check(errs["dropped"][0] > LORA_MERGE_REL, "the merge check does not see dropped adapters")
+    del tree, adapted, merged, dropped
+    torch.cuda.empty_cache()
+
+
+def phase_lora(h_flash: dict) -> str:
+    """(o): LoRA fine-tuning at the flagship width. Returns the directory of
+    its checkpoint, which (p) serves; the caller removes it."""
+    t_phase = time.perf_counter()
+    ckdir = tempfile.mkdtemp(prefix="chip-smoke-lora-")
+    walls = {}
+    try:
+        for name, fn, args in (("train", _lora_train, (ckdir, h_flash)),
+                               ("steps", _lora_steps, ()), ("merge", _lora_merge, (ckdir,))):
+            t0 = time.perf_counter()
+            fn(*args)
+            walls[name] = time.perf_counter() - t0
+    except BaseException:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        raise
+    print(f"[o] phase wall time {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()) + ")")
+    return ckdir
+
+
+# phase (p): speculative serving on (k)'s trace
+SPEC_GAMMA = 4
+SPEC_SAMPLING = dict(temperature=0.8, top_k=40, seed=5)
+SPEC_CLI_ARGS = [a for k, v in EVAL_MODEL.items()
+                 for a in (f"--{k.replace('_', '-')}", str(v))] + LORA_FLAGS + [
+    "--spec-decode", "--requests", "8", "--max-batch", "8", "--max-len", "128",
+    "--max-new-tokens", "16", "--device", "cuda"]
+
+
+def _differing_share(a: list, b: list) -> float:
+    n = sum(len(x) for x in a)
+    return sum(x != y for s, t in zip(a, b) for x, y in zip(s, t)) / n
+
+
+def phase_spec(srv: dict, lora_dir: str) -> None:
+    """(p): the speculative engine on (k)'s trace: the CLI's draft and the
+    target as its own draft, dense and paged, greedy and sampled; times in
+    turns against the plain engine; the serve CLI on (o)'s checkpoint."""
+    import torch
+
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+    from hivedscheduler_tpu_torch.models import serving as srv_lib
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.models.speculative import (
+        SpecDecodeConfig,
+        derive_draft_config,
+    )
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **EVAL_MODEL)
+    params = tm.cast_params(tm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    prompts, ref, full, noise = srv["prompts"], srv["ref"], srv["full"], srv["noise"]
+    dcfg = derive_draft_config(cfg, 2, 0)
+    dparams = tm.cast_params(tm.init_params(
+        dcfg, torch.Generator(device="cuda").manual_seed(3), "cuda"), dcfg.dtype)
+
+    def engine(draft=None, **kw):
+        if draft is not None:
+            kw["spec_decode"] = SpecDecodeConfig(draft_params=draft[0], draft_cfg=draft[1],
+                                                 gamma=SPEC_GAMMA)
+        return srv_lib.ServingEngine(params, cfg, max_batch=SRV_BATCH, max_len=SRV_MAX_LEN,
+                                     **kw)
+
+    attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
+    runs, engines = {}, {}
+    for name, draft, kw in (("cli draft", (dparams, dcfg), {}),
+                            ("self draft dense", (params, cfg), {}),
+                            ("self draft paged", (params, cfg), dict(page_size=SRV_PAGE))):
+        engines[name] = engine(draft, **kw)
+        runs[name] = _serve(engines[name], prompts, SRV_BUDGET)
+        if engines[name].paged:
+            inv.check_block_pool(engines[name], name)
+            check(engines[name].blocks_in_use == 0, f"{name}: blocks left in use")
+    flash = (attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DQ_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES)
+    check(flash == (0, 0, 0), f"speculative serving launched the flash kernels {flash}")
+    for name, run in runs.items():
+        eng, streams = engines[name], _streams(run)
+        bad, parted = _parts_at_ties(full, ref, streams, noise)
+        st = _serve_stats(run, SRV_BATCH)
+        print(f"[p] {name} (gamma {SPEC_GAMMA}, {len(prompts)} requests, budget "
+              f"{SRV_BUDGET}): acceptance {eng.acceptance:.4f} ({eng.accepted}/{eng.drafted}), "
+              f"{eng.steps} rounds; {parted} requests part from the plain greedy streams of "
+              f"(k), {bad} of them at a decisive position (margin > 2 x {noise:.3e}); "
+              f"{_differing_share(ref, streams):.4f} of tokens differ; this first run "
+              f"{st['tps']:.1f} tokens/s, TTFT p50 {st['ttft_p50']:.2f} ms, TPOT p50 "
+              f"{st['tpot_p50']:.3f} ms")
+        check(all(len(s) == SRV_BUDGET for s in streams), f"{name}: a stream fell short")
+        check(bad == 0, f"{name}: a stream parts from greedy at a decisive position")
+    same = sum(a != b for a, b in zip(_streams(runs["self draft dense"]),
+                                      _streams(runs["self draft paged"])))
+    print(f"[p] self draft dense against paged: {same} requests differ")
+    check(same == 0, "the self-draft engine's dense and paged streams differ")
+    check(engines["self draft dense"].acceptance > 0.5, "the perfect draft accepts too little")
+
+    # times in turns: the plain engine eager and with graph windows, the
+    # self-draft engine dense and paged
+    engines["plain eager"] = engine()
+    engines["plain graph"] = engine(decode_steps=SRV_STEPS)
+    _serve(engines["plain graph"], prompts, SRV_BUDGET)  # warm: captures the graph
+    order = ("plain eager", "plain graph", "self draft dense", "self draft paged")
+    timed = {name: [] for name in order}
+    for name in order + order[::-1]:
+        run = _serve(engines[name], prompts, SRV_BUDGET)
+        if name.startswith("plain"):
+            check(_streams(run) == ref, f"{name}: a timed run's streams differ")
+        else:
+            check(_streams(run) == _streams(runs[name]), f"{name}: a timed run's streams differ")
+        timed[name].append(_serve_stats(run, SRV_BATCH))
+    print("[p] in turns (plain eager, plain graph, self dense, self paged, then reversed; "
+          f"one arrival every {SRV_ARRIVAL} engine steps, so a round's length spaces the "
+          "arrivals too): "
+          + "; ".join(f"{n}: {', '.join(f'{s['tps']:.1f}' for s in st)} tokens/s, TTFT p50 "
+                      f"{', '.join(f'{s['ttft_p50']:.2f}' for s in st)} ms, TPOT p50 "
+                      f"{', '.join(f'{s['tpot_p50']:.3f}' for s in st)} ms"
+                      for n, st in timed.items()))
+    # the whole trace at once: every slot busy from the first step
+    burst = {name: [] for name in order[:3]}
+    for name in order[:3] + order[2::-1]:
+        run = _serve(engines[name], prompts, SRV_BUDGET, arrival_every=1, burst=SRV_REQUESTS)
+        burst[name].append(_serve_stats(run, SRV_BATCH))
+    print("[p] the trace's 16 requests at once, in turns (plain eager, plain graph, self "
+          "dense, then reversed): "
+          + "; ".join(f"{n}: {', '.join(f'{s['tps']:.1f}' for s in st)} tokens/s, TPOT p50 "
+                      f"{', '.join(f'{s['tpot_p50']:.3f}' for s in st)} ms"
+                      for n, st in burst.items()))
+    del engines, runs
+
+    # sampled with the perfect draft, against the plain sampled engine
+    plain = _streams(_serve(engine(**SPEC_SAMPLING), prompts, SRV_BUDGET))
+    sampled = []
+    for _ in range(2):
+        eng = engine((params, cfg), **SPEC_SAMPLING)
+        sampled.append(_streams(_serve(eng, prompts, SRV_BUDGET)))
+    print(f"[p] sampled (temperature {SPEC_SAMPLING['temperature']}, top_k "
+          f"{SPEC_SAMPLING['top_k']}) with the perfect draft: acceptance {eng.acceptance:.4f}; "
+          f"{1 - _differing_share(plain, sampled[0]):.4f} of tokens equal to the plain sampled "
+          f"engine's ({sum(a == b for a, b in zip(plain, sampled[0]))} of {len(plain)} streams "
+          f"whole); two runs identical: {sampled[0] == sampled[1]}")
+    check(sampled[0] == sampled[1], "two sampled speculative runs differ")
+    check(all(0 <= t < cfg.vocab_size and len(s) == SRV_BUDGET
+              for s in sampled[0] for t in s), "a sampled stream is short or out of vocab")
+    del params, dparams, eng
+    torch.cuda.empty_cache()
+
+    # fine-tune, then serve: the serve CLI on (o)'s checkpoint
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "hivedscheduler_tpu_torch.serve"]
+                          + SPEC_CLI_ARGS + ["--checkpoint-dir", lora_dir], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    rows = [line for line in proc.stdout.splitlines() if line.startswith("[")]
+    said = [line.split("] ", 1)[-1] for line in proc.stderr.splitlines()
+            if "speculation:" in line or "merged rank" in line or "tok/s" in line]
+    print(f"[p] python -m hivedscheduler_tpu_torch.serve {' '.join(LORA_FLAGS)} --spec-decode "
+          f"on (o)'s checkpoint: exit {proc.returncode} in {cli_s:.1f} s, {len(rows)} request "
+          f"lines; " + " | ".join(said))
+    ok = (proc.returncode == 0 and len(rows) == 8 and any("speculation:" in l for l in said)
+          and any("merged rank-16" in l for l in said))
+    if not ok:
+        print(proc.stderr[-4000:])
+    check(ok, "serve --lora-rank --spec-decode did not finish as it should")
+    print(f"[p] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3107,10 +3481,15 @@ def main() -> int:
     phase_train_profile()
     phase_checkpoint()
     phase_decode()
-    phase_serving()
+    srv = phase_serving()
     phase_mesh(train_flash)
     ring = phase_ring(train_flash)
     phase_moe()
+    lora_dir = phase_lora(train_flash)
+    try:
+        phase_spec(srv, lora_dir)
+    finally:
+        shutil.rmtree(lora_dir, ignore_errors=True)
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"

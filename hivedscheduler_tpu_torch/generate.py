@@ -11,10 +11,13 @@ on the CPU. ``--checkpoint-dir`` restores the parameters of the newest
 committed checkpoint of a ``train`` run; without it random weights from
 ``--seed`` demo the decode path. ``--quantize int8`` serves int8 weights,
 ``--draft-layers`` decodes speculatively with a random draft model.
+``--lora-rank`` (with the run's ``--lora-alpha`` and ``--lora-mlp``)
+restores a LoRA fine-tune's checkpoint and merges its adapters into the
+base weights before decoding (and before ``--quantize int8``).
 A mixture-of-experts model (``--n-experts``, ``--moe-top-k``) decodes
 with the no-drop inference capacity. ``--tp/--dp`` above 1 (MoE on a
-mesh with them) and LoRA are not yet ported and exit with an error rather
-than being ignored.
+mesh with them) are not yet ported and exit with an error rather than
+being ignored.
 """
 
 from __future__ import annotations
@@ -37,8 +40,6 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} > 1 is not yet ported: the port serves "
                          "on one device")
-    if args.lora_rank > 0:
-        parser.error("--lora-rank > 0 (merging LoRA adapters) is not yet ported")
 
 
 def main(argv=None) -> int:
@@ -79,8 +80,8 @@ def main(argv=None) -> int:
     parser.add_argument("--checkpoint-dir", default="",
                         help="restore params from a training checkpoint")
     parser.add_argument("--lora-rank", type=int, default=0,
-                        help="the checkpoint is a LoRA run of this rank "
-                        "(not yet ported)")
+                        help="the checkpoint is a LoRA run of this rank: "
+                        "its adapters merge into the base at load")
     parser.add_argument("--lora-alpha", type=float, default=16.0)
     parser.add_argument("--lora-mlp", action="store_true",
                         help="the checkpoint's adapters also cover the "
@@ -149,12 +150,16 @@ def main(argv=None) -> int:
         return 1
     try:
         params, step = ckpt.restore_serving_params(
-            cfg, args.checkpoint_dir, seeded(0), lora_rank=args.lora_rank)
+            cfg, args.checkpoint_dir, seeded(0), lora_rank=args.lora_rank,
+            lora_alpha=args.lora_alpha, lora_mlp=args.lora_mlp)
     except FileNotFoundError as e:
         log.error("%s", e)
         return 1
     if step is not None:
         log.info("restored params from step %s", step)
+    if args.lora_rank > 0:
+        log.info("merged rank-%s LoRA adapters into the base weights",
+                 args.lora_rank)
     if args.quantize == "int8":
         # with --draft-layers the (big) target quantizes; the draft is small
         # enough that its float weights are not the bandwidth term

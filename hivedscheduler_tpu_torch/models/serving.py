@@ -37,19 +37,28 @@ tensors.
 
 Sampling draws each token with Gumbel-max (the algorithm of
 ``jax.random.categorical``) from uniforms made by a counter-based integer
-hash of (seed, request id, emitted position, vocabulary index): a request's
-sampled stream is a pure function of those and its logits, independent of
-its slot, the batch, arrival order and the window size, as the
-reference's ``fold_in`` keys make it. The bits differ from JAX's.
+hash of (seed, request id, emitted position, purpose tag, vocabulary
+index): a request's sampled stream is a pure function of those and its
+logits, independent of its slot, the batch, arrival order and the window
+size, as the reference's ``fold_in`` keys make it. The bits differ from
+JAX's. Tag 0 draws the tokens; the speculative engine's accept and
+residual draws take tags 1 and 2, as JAX's ``_stream_key`` tags them.
+
+**Speculative serving** (``ServingEngine(spec_decode=SpecDecodeConfig(...))``
+constructs :class:`SpeculativeServingEngine`): each round a draft model
+proposes ``gamma`` tokens a row, the target verifies them in one pass of
+``gamma + 1`` tokens at per-row offsets, and each row keeps its own
+accepted prefix and correction token. It composes with the paged target,
+chunked prefill, the prefix cache and int8 KV, and runs eager.
 
 MoE models serve with the no-drop inference capacity
 (``decode.inference_moe_cfg``), so every stream routes as single-request
 decode does; the routing has static shapes, so the decode graph captures
 it.
 
-Left out: the speculative engine, the fleet's prefix export and import,
-the ``mesh`` layout (MoE on a mesh with it), and the metrics, trace spans
-and journal flights the reference emits.
+Left out: the fleet's prefix export and import, the ``mesh`` layout (MoE
+on a mesh with it), and the metrics, trace spans and journal flights the
+reference emits.
 """
 
 from __future__ import annotations
@@ -89,6 +98,8 @@ from hivedscheduler_tpu_torch.ops.attention import NEG_INF, block_coords, gather
 # CPU and on the card.
 _MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
+# spreads the small purpose tags over 32 bits (an odd multiplier)
+_TAG_MUL = 0x85EBCA77
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -107,11 +118,15 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def stream_uniforms(seed: int, rids: torch.Tensor, counts: torch.Tensor,
-                    vocab: int) -> torch.Tensor:
+                    vocab: int, tag: int = 0) -> torch.Tensor:
     """Uniforms in (0, 1), f32 [B, vocab]: entry (b, j) is a hash of
-    (seed, rids[b], counts[b], j) alone. Built from int64 tensor ops, so a
-    CUDA graph can capture it."""
+    (seed, tag, rids[b], counts[b], j) alone. ``tag`` names the draw's
+    purpose: tag 0 (the tokens) hashes no tag at all, so its draws are
+    those of an untagged sampler. Built from int64 tensor ops, so a CUDA
+    graph can capture it."""
     h = _mix32(torch.full_like(rids, ((seed & _MASK32) ^ _GOLDEN)))
+    if tag:
+        h = _mix32(h ^ ((tag * _TAG_MUL) & _MASK32))
     h = _mix32(h ^ (rids & _MASK32))
     h = _mix32(h ^ (counts & _MASK32))
     j = torch.arange(vocab, dtype=torch.long, device=rids.device)
@@ -129,8 +144,16 @@ def sample_rows(logits: torch.Tensor, rids: torch.Tensor, counts: torch.Tensor,
     (seed, rid, count, its logits)."""
     filtered = filter_logits(
         logits / temperature if temperature > 0.0 else logits, top_k, top_p)
-    u = stream_uniforms(seed, rids, counts, logits.shape[-1])
-    return torch.argmax(filtered + -torch.log(-torch.log(u)), dim=-1)
+    return gumbel_argmax(filtered, rids, counts, seed)
+
+
+def gumbel_argmax(logits: torch.Tensor, rids: torch.Tensor, counts: torch.Tensor,
+                  seed: int, tag: int = 0) -> torch.Tensor:
+    """argmax(logits + g) over the last dim, g = -log(-log(u)) with ``u``
+    from :func:`stream_uniforms` under ``tag``: one categorical draw a row
+    from ``logits`` [B, V], which may hold NEG_INF entries."""
+    u = stream_uniforms(seed, rids, counts, logits.shape[-1], tag)
+    return torch.argmax(logits + -torch.log(-torch.log(u)), dim=-1)
 
 
 # -- the dense ragged cache ---------------------------------------------------
@@ -174,6 +197,18 @@ def init_ragged_cache(cfg: TransformerConfig, max_batch: int, max_len: int,
     return RaggedCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
                        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
                        lengths=lengths)
+
+
+def _extract_rows(cache: RaggedCache, slot: int, pb: int):
+    """A copy of row ``slot``'s [0:pb] KV (values and scales): cloned,
+    since a slice is a view of the row the next prefill overwrites."""
+    return tuple(t[:, slot, :pb].clone() for t in _kv_tensors(cache))
+
+
+def _restore_rows(cache: RaggedCache, slot: int, payload) -> None:
+    """Write a payload of :func:`_extract_rows` back into row ``slot``."""
+    for t, part in zip(_kv_tensors(cache), payload):
+        t[:, slot, :part.shape[1]].copy_(part)
 
 
 def _quant_kv(x: torch.Tensor):
@@ -488,8 +523,18 @@ class ServingEngine:
     Arguments as in the reference (``prefix_cache_size``,
     ``prefill_chunk``, ``kv_dtype``, ``queue_timeout_s``,
     ``age_boost_secs``, ``decode_steps``, ``page_size``/``num_blocks``,
-    ``clock``). The device is the params'. ``mesh`` and ``spec_decode``
-    are not yet ported and raise."""
+    ``clock``). The device is the params'. ``spec_decode`` (a
+    ``models.speculative.SpecDecodeConfig``) constructs the speculative
+    engine, :class:`SpeculativeServingEngine`, with the same arguments.
+    ``mesh`` is not yet ported and raises."""
+
+    def __new__(cls, *args, **kw):
+        # speculative serving is a mode of this constructor: spec_decode=
+        # routes construction to the subclass, whose __init__ then takes
+        # the same arguments
+        if cls is ServingEngine and kw.get("spec_decode") is not None:
+            return super().__new__(SpeculativeServingEngine)
+        return super().__new__(cls)
 
     def __init__(
         self,
@@ -516,8 +561,6 @@ class ServingEngine:
     ):
         if mesh is not None:
             raise _not_yet_ported("the serving mesh layout (mesh=)")
-        if spec_decode is not None:
-            raise _not_yet_ported("speculative serving (spec_decode=)")
         if decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, got {decode_steps}")
         _check_kv_dtype(kv_dtype)
@@ -771,6 +814,12 @@ class ServingEngine:
                                        row=slot, start=start)
         return logits[0]
 
+    def _store_payload(self, slot: int, bids, plen: int):
+        """The paged prefix-cache entry of ``slot``'s first ``plen`` tokens:
+        its shared block ids (the speculative engine bundles a copy of the
+        draft's KV beside them)."""
+        return tuple(bids)
+
     def _drop_entry(self, payload) -> None:
         """Release one evicted prefix-cache entry's block references."""
         if self.paged:
@@ -778,6 +827,7 @@ class ServingEngine:
                 self._decref(bid)
 
     def _entry_bids(self, payload):
+        """The block ids a paged prefix-cache entry holds references on."""
         return payload
 
     # -- request lifecycle -------------------------------------------------
@@ -828,9 +878,8 @@ class ServingEngine:
         return best
 
     def _prefix_extract(self, slot: int, pb: int):
-        """A copy of slot ``slot``'s [0:pb] KV (values and scales): cloned,
-        since a slice is a view of the row the next prefill overwrites."""
-        return tuple(t[:, slot, :pb].clone() for t in _kv_tensors(self.cache))
+        """A copy of slot ``slot``'s [0:pb] KV, the dense prefix payload."""
+        return _extract_rows(self.cache, slot, pb)
 
     def _prefix_restore(self, slot: int, payload) -> None:
         """Write a cached payload back into ``slot``. Paged: the payload is
@@ -845,8 +894,7 @@ class ServingEngine:
             self._slot_bids[slot] = bids
             self.prefix_block_hits += len(bids)
             return
-        for t, part in zip(_kv_tensors(self.cache), payload):
-            t[:, slot, :part.shape[1]].copy_(part)
+        _restore_rows(self.cache, slot, payload)
 
     def _store_prefix(self, slot: int, prompt: List[int]) -> None:
         """Cache the row's KV under the full prompt and under interior
@@ -876,7 +924,7 @@ class ServingEngine:
                 bids = self._slot_bids[slot][: -(-plen // self.page_size)]
                 for bid in bids:
                     self._ref[bid] += 1
-                payload = tuple(bids)
+                payload = self._store_payload(slot, bids, plen)
             else:
                 payload = self._prefix_extract(slot, self._bucket(plen))
             self._prefix_cache[key] = (payload, plen)
@@ -948,6 +996,7 @@ class ServingEngine:
                 continue
             tokens = self._padded_tokens(tail)
             logits = self._run_prefill(slot, tokens, plen)
+            self._on_prefill(slot, tokens, len(req.prompt), plen)
             self.slots[slot] = req
             self._finish_prefill(req, slot, logits, len(tail) - 1)
 
@@ -959,8 +1008,10 @@ class ServingEngine:
 
     def _finish_prefill(self, req: Request, slot: int, logits, last_idx: int) -> None:
         """Shared tail of the monolithic and chunked prefill: the row's
-        true length, the prefix store, the first token."""
+        true length, the prefix store (after ``_on_prefill`` has filled a
+        subclass's caches), the first token."""
         self._set_row_length(slot, len(req.prompt))
+        self._on_ready(slot, len(req.prompt))
         if self.prefix_cache_size > 0:
             self._store_prefix(slot, req.prompt)
         tok = self._pick(logits[last_idx], req)
@@ -989,7 +1040,9 @@ class ServingEngine:
         while self._bucket(size) > room:
             size = self._bucket(size) // 2
         chunk = tail[pos: pos + size]
-        logits = self._run_prefill(slot, self._padded_tokens(chunk), off)
+        tokens = self._padded_tokens(chunk)
+        logits = self._run_prefill(slot, tokens, off)
+        self._on_prefill(slot, tokens, len(req.prompt), off)
         self.prefill_chunks_done += 1
         pos += len(chunk)
         if pos < len(tail):
@@ -997,6 +1050,19 @@ class ServingEngine:
             return
         del self._prefilling[slot]
         self._finish_prefill(req, slot, logits, len(chunk) - 1)
+
+    def _on_prefill(self, slot: int, tokens, prompt_len: int, start: int = 0) -> None:
+        """Hook for a subclass with its own per-slot caches (the speculative
+        engine prefills its draft here): ``tokens`` [1, bucket] were just
+        absorbed into ``slot`` from position ``start`` (a prefix hit's
+        tail, or one chunk). Called once per monolithic prefill and once
+        per chunk, so it writes KV only and leaves lengths to
+        ``_on_ready``."""
+
+    def _on_ready(self, slot: int, prompt_len: int) -> None:
+        """Hook: ``slot``'s prefill is complete and its true length set; it
+        decodes from the next step. Not ``_on_prefill``, which fires while
+        a chunked slot must stay parked."""
 
     def _emit(self, req: Request, slot: int, tok: int) -> None:
         if req.first_token_at is None:
@@ -1207,3 +1273,279 @@ class ServingEngine:
     def occupancy(self) -> float:
         """Mean fraction of slots doing useful work per decode step."""
         return self.slot_steps / (self.steps * self.max_batch) if self.steps else 0.0
+
+
+class SpeculativeServingEngine(ServingEngine):
+    """Continuous batching with speculative decoding and per-row
+    acceptance, the JAX package's ``SpeculativeServingEngine``.
+
+    Each engine step runs one round over every decoding row: ``gamma``
+    draft steps (each an S = 1 pass of the draft over its own dense
+    :class:`RaggedCache`), one more draft pass that absorbs the last
+    proposal, and one target pass of S = ``gamma`` + 1 tokens (the fed-back
+    token and the proposals) at each row's own offset, on the ragged cache
+    or through the paged pool. Each row then keeps its own accepted prefix
+    and one correction token, 1 to ``gamma`` + 1 tokens a round, and both
+    caches' lengths roll back to its length before the round + 1 +
+    accepted; on the paged pool ``_trim_blocks`` returns the rejected
+    tail's blocks. A rolled-back tail lies inside the next round's window,
+    which rewrites it before any query attends it, so greedy streams equal
+    the plain engine's greedy decode.
+
+    Sampled rounds (``temperature`` > 0) accept proposal x with probability
+    min(1, p(x) / q(x)), resample a rejected position from norm(max(p - q,
+    0)) and draw a bonus token from p after full acceptance, so the output
+    is distributed as the target's. Proposals and the bonus token use the
+    plain engine's tag-0 draws at their emitted positions, the accept and
+    residual draws tags 1 and 2: a perfect draft (the target itself)
+    reproduces the plain sampled engine's stream, and streams do not
+    depend on interleaving.
+
+    ``decode_steps`` is accepted and ignored: a round already spreads the
+    host's round trip over up to ``gamma`` + 1 tokens, and the round runs
+    eager (no CUDA graph, so no buffer of the plain engine's graph is
+    shared). ``submit`` reserves ``gamma`` + 1 positions of headroom for a
+    verify pass's writes. ``mesh`` is not yet ported and raises."""
+
+    def __init__(self, params, cfg, draft_params=None, draft_cfg=None, *,
+                 gamma: int = 4, spec_decode=None, **kw):
+        if spec_decode is not None:
+            if draft_params is not None or draft_cfg is not None:
+                raise ValueError("pass either spec_decode= or explicit "
+                                 "draft_params/draft_cfg, not both")
+            draft_params = spec_decode.draft_params
+            draft_cfg = spec_decode.draft_cfg
+            gamma = spec_decode.gamma
+        if draft_params is None or draft_cfg is None:
+            raise ValueError("speculative serving needs a draft model: pass "
+                             "spec_decode=SpecDecodeConfig(...) (or "
+                             "draft_params and draft_cfg)")
+        if cfg.vocab_size != draft_cfg.vocab_size:
+            raise ValueError(f"target and draft vocabs must match: "
+                             f"{cfg.vocab_size} vs {draft_cfg.vocab_size}")
+        if gamma < 1:
+            raise ValueError(f"gamma must be >= 1, got {gamma}")
+        super().__init__(params, cfg, **kw)
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.gamma = gamma
+        # its own lengths tensor: both caches' lengths are written after
+        # every round
+        self.draft_cache = init_ragged_cache(draft_cfg, self.max_batch, self.max_len,
+                                             self.kv_dtype, self.device)
+        self.drafted = 0
+        self.accepted = 0
+
+    # -- the draft cache beside the target's --------------------------------
+    def _park(self, slot: int) -> None:
+        # park the draft row too: at a previous occupant's length the
+        # rounds' draft writes could land inside the prompt being chunked
+        # in; max_len - 1 is attended by no live query (submit's headroom)
+        super()._park(slot)
+        self.draft_cache.lengths[slot] = self.max_len - 1
+
+    def _on_prefill(self, slot: int, tokens, prompt_len: int, start: int = 0) -> None:
+        # KV only: the draft length stays parked until _on_ready
+        advance_ragged(self.draft_params, self.draft_cache, tokens, self.draft_cfg,
+                       row=slot, start=start)
+
+    def _on_ready(self, slot: int, prompt_len: int) -> None:
+        self.draft_cache.lengths[slot] = prompt_len
+
+    def _prefix_extract(self, slot: int, pb: int):
+        """Target and draft KV in one payload: a restored prefix leaves both
+        caches as a full prefill would."""
+        return (super()._prefix_extract(slot, pb),
+                _extract_rows(self.draft_cache, slot, pb))
+
+    def _prefix_restore(self, slot: int, payload) -> None:
+        target, draft = payload
+        super()._prefix_restore(slot, target)
+        _restore_rows(self.draft_cache, slot, draft)
+
+    def _store_payload(self, slot: int, bids, plen: int):
+        # the draft has no pool: the entry bundles a copy of its dense KV
+        # beside the target's shared block ids
+        return (tuple(bids), _extract_rows(self.draft_cache, slot, self._bucket(plen)))
+
+    def _entry_bids(self, payload):
+        return payload[0]
+
+    # the fleet's KV handoff (the plain engine's export_prefix and
+    # import_prefix, not yet ported) cannot ship these payloads
+    _NO_KV_SHIP = ("KV shipping across replicas does not support the speculative "
+                   "engine (its prefix payloads bundle a draft-cache copy); a "
+                   "replica re-prefills on a miss instead")
+
+    def export_prefix(self, prompt):
+        raise RuntimeError(self._NO_KV_SHIP)
+
+    def import_prefix(self, key, plen: int, data) -> bool:
+        raise RuntimeError(self._NO_KV_SHIP)
+
+    def submit(self, prompt: List[int], max_new_tokens: int,
+               priority: int = 0) -> Request:
+        # a verify pass writes gamma positions past the accepted prefix
+        # before it rolls back: reserve that headroom in the arena
+        if prompt and len(prompt) + max_new_tokens + self.gamma + 1 > self.max_len:
+            raise ValueError(
+                f"prompt {len(prompt)} + max_new {max_new_tokens} + "
+                f"speculation headroom {self.gamma + 1} exceeds max_len "
+                f"{self.max_len}")
+        return super().submit(prompt, max_new_tokens, priority=priority)
+
+    # -- the round ---------------------------------------------------------
+    def _draft_step(self, tok: torch.Tensor) -> torch.Tensor:
+        """One S = 1 draft pass over every row: [B, vocab] logits."""
+        logits, _ = advance_ragged(self.draft_params, self.draft_cache, tok[:, None],
+                                   self.draft_cfg)
+        return logits[:, 0]
+
+    def _verify(self, tgt_in: torch.Tensor, table, lens) -> torch.Tensor:
+        """The target's pass over [B, gamma + 1] tokens at every row's
+        offset: [B, gamma + 1, vocab] logits.
+
+        The arena edge: a parked or idle row writes all gamma + 1 positions
+        at the clamped last index (max_len - 1, or the paged pool's last
+        addressable position), several values onto one index of one
+        ``index_put``, whose winner CUDA leaves undefined. Only such garbage
+        rows write there, and submit's headroom keeps every live row's
+        queries at or below max_len - 2, so nothing live reads it."""
+        if self.paged:
+            logits, _ = advance_paged(self.params, self.pool, tgt_in, self.cfg,
+                                      table, lens)
+        else:
+            logits, _ = advance_ragged(self.params, self.cache, tgt_in, self.cfg)
+        return logits
+
+    @torch.no_grad()
+    def _round_greedy(self, last, table, lens):
+        """(proposals [B, gamma], the target's argmax [B, gamma + 1])."""
+        tok, props = last, []
+        for _ in range(self.gamma):
+            tok = torch.argmax(self._draft_step(tok), dim=-1)
+            props.append(tok)
+        # the extra absorb: the draft cache then holds its last proposal
+        # when a row accepts all of them
+        self._draft_step(tok)
+        props = torch.stack(props, dim=1)
+        tlogits = self._verify(torch.cat([last[:, None], props], dim=1), table, lens)
+        return props, torch.argmax(tlogits, dim=-1)
+
+    @torch.no_grad()
+    def _round_sampled(self, last, rids, counts, table, lens):
+        """(tokens to emit [B, gamma + 1]: the accepted proposals with the
+        correction token at the accepted count, accepted count [B])."""
+        g = self.gamma
+
+        def fdist(logits):
+            return filter_logits(logits / self.temperature, self.top_k, self.top_p)
+
+        tok, props, qf = last, [], []
+        for i in range(g):
+            f = fdist(self._draft_step(tok))
+            # the plain engine's tag-0 draw at this emitted position
+            tok = gumbel_argmax(f, rids, counts + i, self.seed)
+            props.append(tok)
+            qf.append(f)
+        self._draft_step(tok)  # the extra absorb
+        props = torch.stack(props, dim=1)  # [B, g]
+        qf = torch.stack(qf, dim=1)  # [B, g, V]
+        pf = fdist(self._verify(torch.cat([last[:, None], props], dim=1), table, lens))
+        p = torch.softmax(pf, dim=-1)
+        q = torch.softmax(qf, dim=-1)
+        rows = torch.arange(props.shape[0], device=props.device)
+        gidx = torch.arange(g, device=props.device)
+        px = p[rows[:, None], gidx[None, :], props]
+        qx = q[rows[:, None], gidx[None, :], props]
+        u = torch.stack([stream_uniforms(self.seed, rids, counts + i, 1, tag=1)[:, 0]
+                         for i in range(g)], dim=1)
+        # u < p/q, not u q < p: with a perfect draft the ratio is exactly 1
+        # and u < 1 always accepts, where u q could round up to q. q(x) > 0:
+        # x was drawn from q's filtered logits
+        accept = u < px / qx
+        acc = torch.sum(torch.cumprod(accept.long(), dim=1), dim=1)
+        p_at = p[rows, acc]
+        q_at = torch.where((acc < g)[:, None], q[rows, torch.clamp(acc, max=g - 1)], 0.0)
+        resid = torch.clamp(p_at - q_at, min=0.0)
+        degenerate = torch.sum(resid, dim=-1, keepdim=True) <= 0.0
+        resid = torch.where(degenerate, p_at, resid)
+        corr_res = gumbel_argmax(torch.log(torch.clamp(resid, min=1e-30)), rids,
+                                 counts + acc, self.seed, tag=2)
+        # full acceptance: the bonus token with the plain tag-0 draw over
+        # the target's filtered logits, as the plain engine would draw it
+        corr_bonus = gumbel_argmax(pf[rows, acc], rids, counts + acc, self.seed)
+        corr = torch.where(acc == g, corr_bonus, corr_res)
+        emit = torch.where(torch.arange(g + 1, device=props.device)[None, :] == acc[:, None],
+                           corr[:, None], torch.cat([props, props[:, -1:]], dim=1))
+        return emit, acc
+
+    def step(self) -> bool:
+        """Admit, tick chunked prefills, then one speculative round for
+        every decoding slot. Returns whether work remains."""
+        self._admit()
+        active = self._tick_prefills()
+        if active and self.paged:
+            # a verify pass writes [len, len + gamma]: allocate (and COW)
+            # that cover first; the rejected tail's blocks go back below
+            for slot in active:
+                if self.slots[slot] is None:
+                    continue  # retired by an earlier slot's pool preemption
+                lo = int(self._host_len[slot])
+                self._ensure_writable(slot, lo, lo + self.gamma)
+            active = [s for s in active if self.slots[s] is not None]
+        if not active:
+            return bool(self.queue) or any(s is not None for s in self.slots)
+        g = self.gamma
+        last = torch.tensor(self._last_host, dtype=torch.long, device=self.device)
+        if self.paged:
+            lengths_before = self._host_len.copy()
+            table, lens = self._table_dev(), self._len_dev()
+        else:
+            lengths_before = self.cache.lengths.cpu().numpy().copy()
+            table = lens = None
+        if self.temperature > 0.0:
+            emit_d, acc_d = self._round_sampled(last, *self._sample_coords(self.slots),
+                                                table, lens)
+            host = torch.cat([emit_d, acc_d[:, None]], dim=1).tolist()  # one sync
+            emit = [row[:g + 1] for row in host]
+            accs = [row[g + 1] for row in host]
+        else:
+            props_d, emit_d = self._round_greedy(last, table, lens)
+            host = torch.cat([props_d, emit_d], dim=1).tolist()  # one sync
+            emit = [row[g:] for row in host]
+            accs = []
+            for row in host:
+                acc = 0
+                while acc < g and row[acc] == row[g + acc]:
+                    acc += 1
+                accs.append(acc)
+        self.steps += 1
+        self.slot_steps += len(active)
+        # idle and parked rows keep their lengths (their absorbed garbage
+        # never advances them)
+        new_len = np.array(lengths_before, dtype=np.int64)
+        for slot in active:
+            req, acc = self.slots[slot], accs[slot]
+            self.drafted += g
+            self.accepted += acc
+            for tok in emit[slot][:acc + 1]:
+                self._emit(req, slot, int(tok))
+                if req.done:
+                    break
+            new_len[slot] = lengths_before[slot] + 1 + acc
+            if self.paged and not req.done:
+                # the rollback in blocks: keep the accepted cover
+                self._host_len[slot] = new_len[slot]
+                self._trim_blocks(slot, int(new_len[slot]))
+            if req.done:
+                self._retire(slot)
+        lens_new = torch.from_numpy(new_len.astype(np.int32)).to(self.device)
+        if not self.paged:
+            self.cache.lengths.copy_(lens_new)
+        self.draft_cache.lengths.copy_(lens_new)
+        return bool(self.queue) or any(s is not None for s in self.slots)
+
+    @property
+    def acceptance(self) -> float:
+        return self.accepted / self.drafted if self.drafted else 0.0

@@ -16,9 +16,18 @@ dispatch, the Switch load-balance loss and the ST-MoE z-loss) with every
 policies of the layer loop, on one device or over a six-axis
 ``DeviceMesh`` with dp, fsdp, ep, tp and sp above 1 (``sharding_specs``
 gives each leaf's layout; ``parallel/sharding.py`` holds the
-collectives). The ring family needs a mesh, as in the JAX package; a mesh
-of one device is enough. LoRA, pipelining (pp), MoE at sp above 1 and the
-overlapped tensor-parallel stack raise "not yet ported".
+collectives). At sp above 1, ``xla`` and ``flash`` gather the sequence
+and attend over all of it, as the JAX package's GSPMD layer does; the ring
+family needs a mesh, as in the JAX package; a mesh of one device is
+enough.
+
+LoRA (``lora_rank > 0``): rank-r adapters on the attention projections
+and, with ``lora_mlp``, on the dense MLP's, each scaled by ``lora_alpha /
+lora_rank``; ``split_lora_params`` and ``combine_lora_params`` part the
+tree for the adapter-only train step (``parallel/train.py``) and
+``merge_lora`` folds the adapters back into the base weights for
+serving. Pipelining (pp), MoE at sp above 1 and the overlapped
+tensor-parallel stack raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -107,8 +116,10 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.lora_mlp and cfg.n_experts > 0:
         raise ValueError("lora_mlp adapts the dense MLP only (MoE experts "
                          "are not adapted)")
-    if cfg.lora_rank > 0 or cfg.lora_mlp:
-        raise _not_yet_ported("LoRA")
+    if cfg.lora_mlp and cfg.lora_rank <= 0:
+        # training every parameter when MLP adapters were asked for would
+        # defeat the flag
+        raise ValueError("lora_mlp requires lora_rank > 0")
     if cfg.pipeline_microbatches > 0:
         raise _not_yet_ported("pipelining")
     if cfg.overlap:
@@ -128,7 +139,12 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device: str | torch.device = "cpu") -> Dict[str, Any]:
     """Stacked-layer f32 params with the JAX package's shapes, drawn from
     ``generator`` (which must live on ``device``). The numbers differ from
-    JAX's for the same seed; carry weights across with ``bridge.py``."""
+    JAX's for the same seed; carry weights across with ``bridge.py``.
+
+    With ``lora_rank > 0`` the adapter leaves follow: ``lora_<w>_a`` drawn
+    like the base projections (N(0, 1/fan_in)) and ``lora_<w>_b`` zero, so
+    the adapted model starts equal to the base. They are drawn after every
+    base leaf, so the base is the same for any rank."""
     check_supported(cfg)
     d, h, hd, f, L = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.n_layers
     h_kv = cfg.kv_heads
@@ -164,12 +180,75 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
             w_up=norm_init((L, d, f), d),
             w_down=norm_init((L, f, d), f),
         )
+    lm_head = norm_init((d, cfg.vocab_size), d)
+    if cfg.lora_rank > 0:
+        r = cfg.lora_rank
+
+        def zeros(shape):
+            return torch.zeros(shape, device=device, dtype=torch.float32)
+
+        lora = {
+            "lora_wq_a": norm_init((L, d, r), d), "lora_wq_b": zeros((L, r, h, hd)),
+            "lora_wk_a": norm_init((L, d, r), d), "lora_wk_b": zeros((L, r, h_kv, hd)),
+            "lora_wv_a": norm_init((L, d, r), d), "lora_wv_b": zeros((L, r, h_kv, hd)),
+            "lora_wo_a": norm_init((L, h, hd, r), d), "lora_wo_b": zeros((L, r, d)),
+        }
+        if cfg.lora_mlp:
+            lora.update(
+                lora_w_gate_a=norm_init((L, d, r), d), lora_w_gate_b=zeros((L, r, f)),
+                lora_w_up_a=norm_init((L, d, r), d), lora_w_up_b=zeros((L, r, f)),
+                lora_w_down_a=norm_init((L, f, r), f), lora_w_down_b=zeros((L, r, d)),
+            )
+        layers.update(lora)
     return {
         "embed": embed,
         "layers": layers,
         "final_norm": ones((d,)),
-        "lm_head": norm_init((d, cfg.vocab_size), d),
+        "lm_head": lm_head,
     }
+
+
+def split_lora_params(params: Dict[str, Any]):
+    """(base, adapters): the tree without its ``lora_*`` leaves, and
+    ``{"layers": {the lora_* leaves}}``, the same tensors. Inverse:
+    :func:`combine_lora_params`."""
+    layers = params["layers"]
+    base = dict(params)
+    base["layers"] = {k: v for k, v in layers.items() if not k.startswith("lora_")}
+    return base, {"layers": {k: v for k, v in layers.items() if k.startswith("lora_")}}
+
+
+def combine_lora_params(base: Dict[str, Any], lora: Dict[str, Any]) -> Dict[str, Any]:
+    out = dict(base)
+    out["layers"] = {**base["layers"], **lora["layers"]}
+    return out
+
+
+def merge_lora(params: Dict[str, Any], cfg: TransformerConfig) -> Dict[str, Any]:
+    """Fold the adapters into the base weights, W + (alpha / r) A B, and
+    drop the ``lora_*`` leaves: a tree of the base's shape, for decode and
+    serving, that computes the same function in exact arithmetic. Each
+    merged leaf keeps its base dtype."""
+    if cfg.lora_rank <= 0:
+        raise ValueError("merge_lora needs a LoRA config (lora_rank > 0)")
+    s = cfg.lora_alpha / cfg.lora_rank
+    layers = dict(params["layers"])
+    names = [k[len("lora_"):-len("_a")] for k in layers
+             if k.startswith("lora_") and k.endswith("_a")]
+    for name in names:
+        a = layers.pop(f"lora_{name}_a").detach()
+        b = layers.pop(f"lora_{name}_b").detach()
+        if name == "wo":
+            delta = torch.einsum("lhkr,lrd->lhkd", a, b)
+        elif name in ("wq", "wk", "wv"):
+            delta = torch.einsum("ldr,lrhk->ldhk", a, b)
+        else:  # the MLP projections: plain 2-D factors
+            delta = torch.einsum("lxr,lry->lxy", a, b)
+        base = layers[name].detach()
+        layers[name] = (base + s * delta).to(base.dtype)
+    out = dict(params)
+    out["layers"] = layers
+    return out
 
 
 def sharding_specs(cfg: TransformerConfig) -> Dict[str, Any]:
@@ -178,7 +257,9 @@ def sharding_specs(cfg: TransformerConfig) -> Dict[str, Any]:
     names). tp shards heads and the MLP hidden dim (each expert's too),
     fsdp the complementary axis, ep the expert axis; the router is
     replicated over ep and tp, and the leading layer axis is not sharded.
-    The pipeline (pp) and LoRA layouts are not yet ported."""
+    The LoRA rank axis is replicated; each adapter's other axes mirror its
+    base projection's, so the adapter products stay tp-local. The pipeline
+    (pp) layout is not yet ported."""
     check_supported(cfg)
     fsdp, tp = "fsdp", "tp"
     layers = {
@@ -202,6 +283,19 @@ def sharding_specs(cfg: TransformerConfig) -> Dict[str, Any]:
             w_up=(None, fsdp, tp),
             w_down=(None, tp, fsdp),
         )
+    if cfg.lora_rank > 0:
+        layers.update(
+            lora_wq_a=(None, fsdp, None), lora_wq_b=(None, None, tp, None),
+            lora_wk_a=(None, fsdp, None), lora_wk_b=(None, None, tp, None),
+            lora_wv_a=(None, fsdp, None), lora_wv_b=(None, None, tp, None),
+            lora_wo_a=(None, tp, None, None), lora_wo_b=(None, None, fsdp),
+        )
+        if cfg.lora_mlp:
+            layers.update(
+                lora_w_gate_a=(None, fsdp, None), lora_w_gate_b=(None, None, tp),
+                lora_w_up_a=(None, fsdp, None), lora_w_up_b=(None, None, tp),
+                lora_w_down_a=(None, tp, None), lora_w_down_b=(None, None, fsdp),
+            )
     return {
         "embed": (None, fsdp),
         "layers": layers,
@@ -219,11 +313,11 @@ def check_mesh(cfg: TransformerConfig, sizes: Dict[str, int]) -> None:
     """Raise for a mesh the port does not run the model on: pp above 1 or
     MoE at sp above 1 (not yet ported: the JAX package keeps global
     capacity over sp with its manual ``_moe_mlp`` formulation), experts
-    that do not split over ep, sp above 1 without a ring-family
-    ``attn_impl`` (each rank holds only its slice of the sequence), heads
-    that do not divide tp (the JAX package's ``_shardings`` check), or
-    Ulysses' tp-local heads that do not divide sp (its
-    ``overlap_applicable`` check)."""
+    that do not split over ep, heads that do not divide tp (the JAX
+    package's ``_shardings`` check), or Ulysses' tp-local heads that do not
+    divide sp (its ``overlap_applicable`` check). Every ``attn_impl`` runs
+    at sp above 1: ``xla`` and ``flash`` gather the sequence
+    (``_dispatch_attention``)."""
     if sizes.get("pp", 1) > 1:
         raise _not_yet_ported("pipelining (pp > 1)")
     tp, sp, ep = sizes.get("tp", 1), sizes.get("sp", 1), sizes.get("ep", 1)
@@ -232,10 +326,6 @@ def check_mesh(cfg: TransformerConfig, sizes: Dict[str, int]) -> None:
     if cfg.n_experts > 0 and cfg.n_experts % ep:
         raise ValueError(f"n_experts {cfg.n_experts} does not split over "
                          f"ep={ep}")
-    if sp > 1 and cfg.attn_impl not in RING_FAMILY:
-        raise ValueError(
-            f"sp={sp} needs a ring-family attn_impl {RING_FAMILY}, got "
-            f"{cfg.attn_impl!r}")
     if cfg.n_heads % tp or cfg.kv_heads % tp:
         raise ValueError(
             f"head counts must divide the tp axis: n_heads={cfg.n_heads}, "
@@ -298,7 +388,8 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return out.reshape(x.shape).to(x.dtype)
 
 
-def _dispatch_attention(q, k, v, cfg: TransformerConfig, attn_fn):
+def _dispatch_attention(q, k, v, cfg: TransformerConfig, attn_fn,
+                        shards: Optional[sharding.MeshShards] = None):
     """The JAX package's ``_dispatch_attention``: ``flash`` and the ring
     family take compact GQA k/v as they are (the kernels read kv head
     i // group themselves, the rings and Ulysses rotate or exchange H_kv
@@ -313,12 +404,26 @@ def _dispatch_attention(q, k, v, cfg: TransformerConfig, attn_fn):
     their q-head groups (the local q head i reads local kv head i //
     group); a batch that does not split over dp x fsdp arrives as whole
     rows on every rank (``parallel/train.py``), which is JAX's replicated
-    fallback."""
+    fallback.
+
+    At sp above 1 q, k and v hold this rank's slice of the sequence. The
+    ring family attends across the slices itself; ``xla`` and ``flash``
+    gather the whole sequence over sp (``MeshShards.seq_gather``, heads
+    still tp-local, as ``_flash_gspmd``'s spec ``P(("dp", "fsdp"), None,
+    "tp", None)`` gathers it), attend over it with the causal mask and keep
+    this rank's rows. The slice's backward puts the gradient on those rows
+    and zeros elsewhere, and the gather's backward reduce-scatters it, so
+    dq, dk and dv sum every rank's part."""
+    gathered = (shards is not None and "sp" in shards.groups
+                and cfg.attn_impl not in RING_FAMILY)
+    if gathered:
+        q, k, v = (shards.seq_gather(t) for t in (q, k, v))
     if k.shape[2] != q.shape[2] and cfg.attn_impl not in _COMPACT_GQA:
         rep = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
-    return attn_fn(q, k, v, causal=True)
+    out = attn_fn(q, k, v, causal=True)
+    return shards.seq_part(out) if gathered else out
 
 
 # attn_impls that read compact GQA k/v (check_mesh has kv heads divide tp)
@@ -439,7 +544,17 @@ def _apply_layer(x, lp, positions, cfg: TransformerConfig, attn_fn,
     weight is gathered over fsdp where it is used, heads and the MLP
     hidden dim stay tp-local, and the two row-parallel projections (``wo``,
     ``w_down``) sum over tp, Megatron-style; the experts sum over ep and
-    tp (``_moe_mlp``)."""
+    tp (``_moe_mlp``).
+
+    LoRA adapters (``lora_<w>_a``, ``lora_<w>_b`` leaves) add (alpha / r)
+    (h A) B to the projection ``w``. Under tp the rank-r bottleneck is the
+    Megatron boundary: ``A`` of a column-parallel projection reads the
+    whole input and its output enters the tp region through ``to_tp``;
+    ``A`` of a row-parallel projection reads the local heads (or hidden
+    slice) and its partial product leaves through ``from_tp``. So every
+    adapter's gradient is whole on each rank, the replicated leaves' as
+    well as the tp shards'. Each delta is added after its base product, so
+    with ``B`` zero the layer computes the base's values bit for bit."""
     dtype = cfg.dtype
     if shards is None:
         def w(name):
@@ -453,28 +568,56 @@ def _apply_layer(x, lp, positions, cfg: TransformerConfig, attn_fn,
             return shards.weight(lp[name], specs[name], dtype)
 
         to_tp, from_tp = shards.to_tp, shards.from_tp
-    h = to_tp(_rms_norm(x, lp["attn_norm"]))
+    scale = cfg.lora_alpha / cfg.lora_rank if cfg.lora_rank > 0 else 0.0
+
+    def lora_in(h_whole, name, eq):
+        """The adapter delta of a column-parallel projection ``name``."""
+        z = to_tp(torch.einsum("btd,dr->btr", h_whole, w(f"lora_{name}_a")))
+        return torch.einsum(eq, z, w(f"lora_{name}_b")) * scale
+
+    def lora_out(h_local, name, eq):
+        """The adapter delta of a row-parallel projection ``name``."""
+        z = from_tp(torch.einsum(eq, h_local, w(f"lora_{name}_a")))
+        return torch.einsum("btr,rd->btd", z, w(f"lora_{name}_b")) * scale
+
+    h_whole = _rms_norm(x, lp["attn_norm"])
+    h = to_tp(h_whole)
     q = torch.einsum("btd,dhk->bthk", h, w("wq"))
     k = torch.einsum("btd,dhk->bthk", h, w("wk"))
     v = torch.einsum("btd,dhk->bthk", h, w("wv"))
+    if "lora_wq_a" in lp:
+        q = q + lora_in(h_whole, "wq", "btr,rhk->bthk")
+        k = k + lora_in(h_whole, "wk", "btr,rhk->bthk")
+        v = v + lora_in(h_whole, "wv", "btr,rhk->bthk")
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    attn = _dispatch_attention(q, k, v, cfg, attn_fn)
-    x = x + from_tp(torch.einsum("bthk,hkd->btd", attn, w("wo")))
+    attn = _dispatch_attention(q, k, v, cfg, attn_fn, shards)
+    out = from_tp(torch.einsum("bthk,hkd->btd", attn, w("wo")))
+    if "lora_wo_a" in lp:
+        out = out + lora_out(attn, "wo", "bthk,hkr->btr")
+    x = x + out
     if cfg.n_experts > 0:
         out, aux = _moe_mlp(_rms_norm(x, lp["mlp_norm"]), w, cfg, shards)
         return x + out, aux
-    h = to_tp(_rms_norm(x, lp["mlp_norm"]))
+    h_whole = _rms_norm(x, lp["mlp_norm"])
+    h = to_tp(h_whole)
     gate = torch.einsum("btd,df->btf", h, w("w_gate"))
     up = torch.einsum("btd,df->btf", h, w("w_up"))
+    if "lora_w_gate_a" in lp:
+        gate = gate + lora_in(h_whole, "w_gate", "btr,rf->btf")
+        up = up + lora_in(h_whole, "w_up", "btr,rf->btf")
     mid = F.silu(gate) * up
-    return x + from_tp(torch.einsum("btf,fd->btd", mid, w("w_down"))), None
+    out = from_tp(torch.einsum("btf,fd->btd", mid, w("w_down")))
+    if "lora_w_down_a" in lp:
+        out = out + lora_out(mid, "w_down", "btf,fr->btr")
+    return x + out, None
 
 
 @functools.lru_cache(maxsize=None)
 def _layer_specs(moe: bool) -> Dict[str, tuple]:
-    """Each layer leaf's spec without the stacked layer axis."""
-    cfg = TransformerConfig(n_experts=2 if moe else 0)
+    """Each layer leaf's spec without the stacked layer axis, the adapters'
+    included."""
+    cfg = TransformerConfig(n_experts=2 if moe else 0, lora_rank=1, lora_mlp=not moe)
     return {name: spec[1:] for name, spec in sharding_specs(cfg)["layers"].items()}
 
 

@@ -485,21 +485,29 @@ def restore_params(directory: str, params_template: Any,
 
 
 def restore_serving_params(cfg: Any, checkpoint_dir: str, generator, *,
-                           lora_rank: int = 0) -> Tuple[Any, Optional[int]]:
-    """The generate CLI's loading path: init a param tree from
-    ``generator`` on its device, then restore it in place from
+                           lora_rank: int = 0, lora_alpha: float = 16.0,
+                           lora_mlp: bool = False) -> Tuple[Any, Optional[int]]:
+    """The generate and serve CLIs' one loading path: init a param tree
+    from ``generator`` on its device (LoRA-shaped when ``lora_rank`` > 0,
+    so that a fine-tune's checkpoint restores), restore it in place from
     ``checkpoint_dir`` when one is given (parameters only: serving needs
-    no optimizer moments). Returns (params, restored_step_or_None); raises
-    FileNotFoundError like :func:`restore_params`. A LoRA checkpoint
-    (``lora_rank`` > 0) is refused: merging adapters is not yet ported."""
+    no optimizer moments), then merge the adapters into the base weights.
+    Returns (params of the base tree's shape, restored_step_or_None);
+    raises FileNotFoundError like :func:`restore_params`."""
+    import dataclasses
+
     from hivedscheduler_tpu_torch.models import transformer as tm
 
+    init_cfg = cfg
     if lora_rank > 0:
-        raise tm._not_yet_ported("LoRA (lora_rank > 0)")
-    params = tm.init_params(cfg, generator, generator.device)
+        init_cfg = dataclasses.replace(cfg, lora_rank=lora_rank,
+                                       lora_alpha=lora_alpha, lora_mlp=lora_mlp)
+    params = tm.init_params(init_cfg, generator, generator.device)
     step = None
     if checkpoint_dir:
         step, params = restore_params(checkpoint_dir, params)
+    if lora_rank > 0:
+        params = tm.merge_lora(params, init_cfg)
     return params, step
 
 

@@ -35,13 +35,18 @@ flash kernels take nothing else):
   combined output :meth:`MeshShards.from_experts` (g), so everything
   outside the region, the router and the aux loss included, is computed
   the same way on every ep and tp rank, with the whole gradient;
+- a frozen leaf (LoRA's base, which does not require grad) gets no
+  gradient: its gather records no backward, so no reduce-scatter runs for
+  it, and the step sums only the gradients it takes (the adapters');
 - a weight gathered whole over ``tp`` (the vocab-sharded ``lm_head``) is
   used the same way on every tp rank, so the gradient of that gather is
   the rank's own slice, not a sum;
 - sp: each rank holds its rows' whole token ids and computes one
   contiguous slice of every sequence (:meth:`MeshShards.seq_part`);
-  attention crosses the slices (``parallel/ring_attention.py``),
-  everything else is position-local. Parameters are replicated along sp;
+  attention crosses the slices (``parallel/ring_attention.py``, or the
+  whole sequence gathered by :meth:`MeshShards.seq_gather` for ``xla``
+  and ``flash``), everything else is position-local. Parameters are
+  replicated along sp;
 - the loss is the global mean: each rank divides its part of the sum (its
   rows, its slice of the sequence) by the global count, and
   :meth:`MeshShards.data_sum` adds the ranks' parts over ``GRAD_AXES``
@@ -292,6 +297,13 @@ class MeshShards:
             raise ValueError(f"seq len {x.shape[1]} does not split over sp={sp}")
         t = x.shape[1] // sp
         return x[:, self.seq_index * t:(self.seq_index + 1) * t]
+
+    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole sequence (dim 1) from every sp rank's slice, contiguous
+        (the flash kernels take nothing else), differentiable: the ranks
+        compute different parts of the loss, so the gradient is
+        reduce-scattered back, each rank's slice summed over every rank."""
+        return _Gather.apply(x, x.dtype, ((1, self.groups["sp"], True),)).contiguous()
 
     def whole_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The global batch on every rank, from each rank's rows (dp-major,

@@ -2,10 +2,13 @@
 
 Counterpart of ``hivedscheduler_tpu/parallel/train.py``: ``loss_fn``,
 ``make_optimizer``, ``train_step`` (with gradient accumulation), the
-remat-policy override, ``_shardings``, ``make_sharded_train_step`` and
-``make_sharded_eval_step`` over a six-axis ``DeviceMesh`` (dp, fsdp, ep, tp
-and sp; pp above 1 is not yet ported), and their one-device cousins
-``make_train_step`` and ``make_eval_step``. LoRA is not yet ported.
+remat-policy override, ``_shardings``, ``make_sharded_train_step``,
+``make_sharded_eval_step`` and ``make_sharded_lora_train_step`` over a
+six-axis ``DeviceMesh`` (dp, fsdp, ep, tp and sp; pp above 1 is not yet
+ported), and their one-device cousins ``make_train_step``,
+``make_eval_step`` and ``make_lora_train_step``. The LoRA steps train the
+adapters alone: the base takes no gradient and AdamW holds moments for
+the adapters only.
 
 The parameter tree is the JAX package's: a dict of f32 leaves, plain
 tensors on one device and DTensors laid out by
@@ -167,10 +170,13 @@ def _accumulated_value_and_grad(grad_fn, params, tokens: torch.Tensor,
 
 def train_step(params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor,
                cfg: tm.TransformerConfig, mesh=None, grad_accum: int = 1,
-               ce_chunk: int = 0, skip_nonfinite: bool = False):
+               ce_chunk: int = 0, skip_nonfinite: bool = False,
+               trainable: Optional[List[torch.Tensor]] = None):
     """One optimizer update -> (params, optimizer, loss). ``params`` are
     updated in place; see ``_accumulated_value_and_grad`` for
-    ``grad_accum > 1`` and ``loss_fn`` for ``ce_chunk``.
+    ``grad_accum > 1`` and ``loss_fn`` for ``ce_chunk``. ``trainable``:
+    the leaves to differentiate and update (every leaf by default; the
+    LoRA steps pass the adapters), the ones ``optimizer`` holds.
 
     ``skip_nonfinite``: when the loss comes out non-finite, params and the
     optimizer state (its step count included) are left untouched and the
@@ -181,7 +187,7 @@ def train_step(params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor,
     rows (over sp, its slice of their sequence); each gradient is summed
     over the ``sharding.GRAD_AXES`` along which its parameter is replicated
     before the update."""
-    leaves = _leaves(params)
+    leaves = _leaves(params) if trainable is None else trainable
     shards = tm.mesh_shards(mesh, cfg)
 
     def grad_fn(p, micro):
@@ -291,9 +297,8 @@ def _shardings(cfg: tm.TransformerConfig, mesh) -> TokenSharding:
     parameters are placed by ``sharding_specs``, on
     ``sharding.param_mesh(mesh)``). Raises ``ValueError`` when heads do not
     divide tp (as the JAX package's does) or a sharded weight dim does not
-    split evenly or sp is above 1 without a ring-family attention or the
-    experts do not split over ep, and "not yet ported" for pp above 1 or
-    MoE at sp above 1."""
+    split evenly or the experts do not split over ep, and "not yet ported"
+    for pp above 1 or MoE at sp above 1."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     tm.check_mesh(cfg, sizes)
     shapes = {name: tuple(t.shape) for name, t in named_leaves(
@@ -378,3 +383,89 @@ def make_sharded_eval_step(cfg: tm.TransformerConfig, mesh, ce_chunk: int = 0):
                            include_aux=False)
 
     return eval_step, init_fn, token_sharding
+
+
+def _check_lora(cfg: tm.TransformerConfig) -> None:
+    if cfg.lora_rank <= 0:
+        raise ValueError("the LoRA step needs cfg.lora_rank > 0")
+
+
+def _trainable_adapters(lora):
+    """Set the adapter leaves to require grad; the base keeps none."""
+    for leaf in _leaves(lora):
+        leaf.requires_grad_(True)
+    return lora
+
+
+def make_lora_train_step(cfg: tm.TransformerConfig,
+                         device: str | torch.device = "cuda",
+                         optimizer: Optional[Callable] = None, grad_accum: int = 1,
+                         ce_chunk: int = 0, remat_policy: Optional[str] = None):
+    """LoRA fine-tuning on one device, the counterpart of
+    ``make_sharded_lora_train_step``. The base is frozen: it does not
+    require grad, so the backward takes no base gradient, and the
+    optimizer (AdamW by default) holds the adapters alone. Returns
+    ``(step, init_fn)``:
+
+    - ``init_fn(generator) -> (base, lora, opt_state)``: the
+      ``init_params`` tree split by ``split_lora_params``;
+    - ``step(base, lora, opt_state, tokens) -> (lora, opt_state, loss)``,
+      the adapters updated in place.
+
+    ``grad_accum``, ``ce_chunk`` and ``remat_policy`` are those of
+    :func:`make_train_step`."""
+    cfg = _apply_remat_policy(cfg, remat_policy)
+    tm.check_supported(cfg)
+    _check_lora(cfg)
+    dev = resolve_device(device)
+    make_opt = optimizer or make_optimizer()
+
+    def init_fn(generator: torch.Generator):
+        base, lora = tm.split_lora_params(tm.init_params(cfg, generator, dev))
+        lora = _trainable_adapters(lora)
+        return base, lora, make_opt(_leaves(lora))
+
+    def step(base, lora, opt_state, tokens: torch.Tensor):
+        _, opt_state, loss = train_step(
+            tm.combine_lora_params(base, lora), opt_state, tokens.to(dev), cfg,
+            grad_accum=grad_accum, ce_chunk=ce_chunk, trainable=_leaves(lora))
+        return lora, opt_state, loss
+
+    return step, init_fn
+
+
+def make_sharded_lora_train_step(
+    cfg: tm.TransformerConfig,
+    mesh,
+    optimizer: Optional[Callable] = None,
+    grad_accum: int = 1,
+    ce_chunk: int = 0,
+    remat_policy: Optional[str] = None,
+):
+    """LoRA fine-tuning over a six-axis ``DeviceMesh``, the JAX package's
+    ``make_sharded_lora_train_step``: the base and the adapters are
+    DTensors laid out by ``sharding_specs``, the base frozen (no
+    gradient, so its fsdp gathers run no reduce-scatter), and the
+    optimizer's moments are made for the adapters alone. Returns
+    ``(step, init_fn, token_sharding)``: ``init_fn(generator) -> (base,
+    lora, opt_state)`` and ``step(base, lora, opt_state, tokens) -> (lora,
+    opt_state, loss)``, as :func:`make_lora_train_step`'s, with the tokens
+    and loss of :func:`make_sharded_train_step`."""
+    cfg = _apply_remat_policy(cfg, remat_policy)
+    tm.check_supported(cfg)
+    _check_lora(cfg)
+    token_sharding = _shardings(cfg, mesh)
+    make_opt = optimizer or make_optimizer()
+
+    def init_fn(generator: torch.Generator):
+        base, lora = tm.split_lora_params(_init_on_mesh(cfg, mesh, generator))
+        lora = _trainable_adapters(lora)
+        return base, lora, make_opt(_leaves(lora))
+
+    def step(base, lora, opt_state, tokens):
+        _, opt_state, loss = train_step(
+            tm.combine_lora_params(base, lora), opt_state, tokens, cfg, mesh=mesh,
+            grad_accum=grad_accum, ce_chunk=ce_chunk, trainable=_leaves(lora))
+        return lora, opt_state, loss
+
+    return step, init_fn, token_sharding

@@ -15,14 +15,18 @@ prefix hits, the paged pool) to the log:
 on the CPU. The synthetic trace is drawn from a numpy generator seeded with
 ``--seed + 1``. SIGTERM/SIGINT (or ``HIVED_FAULT_SERVE_PREEMPT_AT``) drains
 the engine within ``--drain-deadline`` seconds and exits 0 with a drain
-report. Not yet ported, and refused with an error: the fleet
-(``--fleet``, ``--disaggregate``, ``--autoscale``, ``--route-policy``,
+report. ``--spec-decode`` (or ``--draft-layers`` above 0) serves
+speculatively: a draft of ``--draft-layers`` (2 when unset) layers and
+``--draft-d-model`` width (half the target's by default), random weights
+from ``--seed + 3``, proposes ``--gamma`` tokens a round, and the summary
+reports its acceptance. ``--lora-rank`` (with the run's ``--lora-alpha``
+and ``--lora-mlp``) merges a LoRA fine-tune's adapters at load. Not yet
+ported, and refused with an error: the fleet (``--fleet``,
+``--disaggregate``, ``--autoscale``, ``--route-policy``,
 ``--prefill-replicas`` and ``--fleet-*``), ``--tp/--dp`` above 1,
-speculative serving (``--spec-decode``, ``--draft-layers``, ``--gamma``,
-``--draft-d-model``), LoRA, ``--journal-file``, ``--metrics-dump`` and
-the SLO objectives (``--slo-*``). A mixture-of-experts model
-(``--n-experts``, ``--moe-top-k``) serves with the no-drop inference
-capacity.
+``--journal-file``, ``--metrics-dump`` and the SLO objectives
+(``--slo-*``). A mixture-of-experts model (``--n-experts``,
+``--moe-top-k``) serves with the no-drop inference capacity.
 """
 
 from __future__ import annotations
@@ -51,10 +55,6 @@ _UNPORTED_FLAGS = (
     ("fleet_min", "the fleet autoscaler (--fleet-min)"),
     ("fleet_max", "the fleet autoscaler (--fleet-max)"),
     ("fleet_config", "the fleet config (--fleet-config)"),
-    ("spec_decode", "speculative serving (--spec-decode)"),
-    ("draft_layers", "speculative serving (--draft-layers)"),
-    ("draft_d_model", "speculative serving (--draft-d-model)"),
-    ("gamma", "speculative serving (--gamma)"),
     ("journal_file", "the request journal (--journal-file)"),
     ("metrics_dump", "the metrics and trace dump (--metrics-dump)"),
     ("slo_ttft_p99", "the SLO tracker (--slo-ttft-p99)"),
@@ -67,8 +67,6 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} > 1 is not yet ported: the port serves on "
                          "one device")
-    if args.lora_rank > 0:
-        parser.error("--lora-rank > 0 (merging LoRA adapters) is not yet ported")
     for name, what in _UNPORTED_FLAGS:
         if getattr(args, name) is not None:
             parser.error(f"{what} is not yet ported to hivedscheduler_tpu_torch")
@@ -151,7 +149,19 @@ def main(argv=None) -> int:
     parser.add_argument("--decode-steps", type=int, default=1,
                         help="fuse up to K decode iterations per engine step "
                         "(a CUDA graph of one iteration replayed K times on "
-                        "the card); streams are exact for any K")
+                        "the card); streams are exact for any K; ignored by "
+                        "the speculative engine")
+    parser.add_argument("--spec-decode", action="store_true",
+                        help="speculative serving: ServingEngine(spec_decode=...) "
+                        "with a draft of --draft-layers (2 when unset) and "
+                        "--gamma proposals a round")
+    parser.add_argument("--draft-layers", type=int, default=0,
+                        help="speculative serving: draft layers (0 = off "
+                        "unless --spec-decode; random draft weights)")
+    parser.add_argument("--draft-d-model", type=int, default=0,
+                        help="draft width (default: half the target)")
+    parser.add_argument("--gamma", type=int, default=4,
+                        help="draft tokens proposed per verify round")
     parser.add_argument("--prefill-chunk", type=int, default=0,
                         help="absorb prompts at most this many tokens per "
                         "engine step (0 = whole prompt at admission)")
@@ -159,7 +169,9 @@ def main(argv=None) -> int:
                         help="weight-only int8 serving")
     parser.add_argument("--kv-quantize", choices=["none", "int8"], default="none",
                         help="int8 KV cache (per-token-per-head scales)")
-    parser.add_argument("--lora-rank", type=int, default=0, help="not yet ported")
+    parser.add_argument("--lora-rank", type=int, default=0,
+                        help="the checkpoint is a LoRA run of this rank: its "
+                        "adapters merge into the base at load")
     parser.add_argument("--lora-alpha", type=float, default=16.0)
     parser.add_argument("--lora-mlp", action="store_true")
     parser.add_argument("--drain-deadline", type=float, default=10.0,
@@ -182,11 +194,6 @@ def main(argv=None) -> int:
     parser.add_argument("--fleet-min", type=int, default=None)
     parser.add_argument("--fleet-max", type=int, default=None)
     parser.add_argument("--fleet-config", default=None)
-    parser.add_argument("--spec-decode", action="store_const", const=True,
-                        default=None)
-    parser.add_argument("--draft-layers", type=int, default=None)
-    parser.add_argument("--draft-d-model", type=int, default=None)
-    parser.add_argument("--gamma", type=int, default=None)
     parser.add_argument("--journal-file", default=None)
     parser.add_argument("--metrics-dump", default=None)
     parser.add_argument("--slo-ttft-p99", type=float, default=None)
@@ -235,12 +242,16 @@ def main(argv=None) -> int:
         params, step = ckpt.restore_serving_params(
             cfg, args.checkpoint_dir,
             torch.Generator(device=device).manual_seed(args.seed),
-            lora_rank=args.lora_rank)
+            lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
+            lora_mlp=args.lora_mlp)
     except FileNotFoundError as e:
         log.error("%s", e)
         return 1
     if step is not None:
         log.info("restored params from step %s", step)
+    if args.lora_rank > 0:
+        log.info("merged rank-%s LoRA adapters into the base weights",
+                 args.lora_rank)
     if args.quantize == "int8":
         from hivedscheduler_tpu_torch.models import quant
 
@@ -249,6 +260,28 @@ def main(argv=None) -> int:
     else:
         # serving streams the weights every step: hold them in the compute dtype
         params = tm.cast_params(params, cfg.dtype)
+    speculative = args.spec_decode or args.draft_layers > 0
+    spec_cfg = None
+    if speculative:
+        from hivedscheduler_tpu_torch.models.speculative import (
+            SpecDecodeConfig,
+            derive_draft_config,
+        )
+
+        if args.decode_steps > 1:
+            log.warning("--decode-steps is ignored by the speculative engine "
+                        "(a verify round already amortizes the host round-trip)")
+        try:
+            dft_cfg = derive_draft_config(cfg, args.draft_layers or 2,
+                                          args.draft_d_model)
+        except ValueError as e:
+            log.error("%s", e)
+            return 1
+        dft_params = tm.cast_params(tm.init_params(
+            dft_cfg, torch.Generator(device=device).manual_seed(args.seed + 3),
+            device), dft_cfg.dtype)
+        spec_cfg = SpecDecodeConfig(draft_params=dft_params, draft_cfg=dft_cfg,
+                                    gamma=args.gamma)
     try:
         eng = serving.ServingEngine(
             params, cfg, max_batch=args.max_batch, max_len=args.max_len,
@@ -259,7 +292,7 @@ def main(argv=None) -> int:
             queue_timeout_s=args.queue_timeout if args.queue_timeout > 0 else None,
             age_boost_secs=args.age_boost_secs if args.age_boost_secs > 0 else None,
             decode_steps=args.decode_steps, page_size=args.page_size,
-            num_blocks=args.num_blocks)
+            num_blocks=args.num_blocks, spec_decode=spec_cfg)
     except ValueError as e:
         log.error("%s", e)
         return 1
@@ -344,10 +377,13 @@ def main(argv=None) -> int:
                           in ("eos", "length")),
             len(preempted), args.drain_deadline,
             "fully drained" if drained else "deadline expired")
-    if args.decode_steps > 1:
+    if args.decode_steps > 1 and not speculative:
         log.info("fused decode: %s multi-step windows (decode_steps=%s) over "
                  "%s device steps, %s from the CUDA graph", eng.fused_windows,
                  args.decode_steps, eng.steps, eng.graph_windows)
+    if speculative:
+        log.info("speculation: %s/%s draft tokens accepted (%.0f%%)",
+                 eng.accepted, eng.drafted, 100.0 * eng.acceptance)
     if args.prefix_cache > 0:
         log.info("prefix cache: %s hits, %s prompt tokens reused (%s entries held)",
                  eng.prefix_hits, eng.prefix_tokens_reused, len(eng._prefix_cache))

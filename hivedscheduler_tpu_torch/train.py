@@ -40,10 +40,18 @@ and skips the poisoned batch (``--max-rollbacks`` times at most).
 ``--init-from`` warm-starts the parameters with a fresh optimizer;
 ``--goodput-file`` spools the goodput ledger's step phases.
 
+LoRA fine-tuning, as in the JAX CLI: ``--lora-rank`` trains rank-r
+adapters on the attention projections (``--lora-mlp`` adds the MLP's,
+``--lora-alpha`` scales them) with the base frozen and AdamW over the
+adapters alone; ``--init-from`` then loads the pretrained base they
+tune. Checkpoints hold the base and the adapters, and the adapters'
+optimizer state; ``generate`` and ``serve`` merge them with the same
+``--lora-*`` flags.
+
 Pipelining (``--pp``, ``--microbatches``), MoE under ``--sp`` above 1,
-LoRA, the overlapped stack, elastic meshes (``--elastic``,
-``--min-chips``), the profiler and the journal are not yet ported and
-exit with an error rather than being ignored.
+the overlapped stack, elastic meshes (``--elastic``, ``--min-chips``),
+the profiler and the journal are not yet ported and exit with an error
+rather than being ignored.
 """
 
 from __future__ import annotations
@@ -77,9 +85,6 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
         "--microbatches": args.microbatches > 0,
         "--n-experts > 0 with --sp > 1 (MoE under sequence parallelism)":
             args.n_experts > 0 and args.sp > 1,
-        "--lora-rank": args.lora_rank > 0,
-        "--lora-mlp": args.lora_mlp,
-        "--lora-alpha": args.lora_alpha != 16.0,
         "--overlap": bool(args.overlap),
         "--profile-dir": bool(args.profile_dir),
         "--journal-file": bool(args.journal_file),
@@ -129,10 +134,14 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--grad-accum", type=int, default=1,
                         help="gradient-accumulation slices per batch "
                         "(batch must divide evenly)")
-    parser.add_argument("--lora-rank", type=int, default=0, help="not yet ported")
-    parser.add_argument("--lora-mlp", action="store_true", help="not yet ported")
+    parser.add_argument("--lora-rank", type=int, default=0,
+                        help="LoRA fine-tuning: adapter rank on the attention "
+                        "projections (0 = full training)")
+    parser.add_argument("--lora-mlp", action="store_true",
+                        help="extend the LoRA adapters to the dense-MLP "
+                        "projections (gate/up/down)")
     parser.add_argument("--lora-alpha", type=float, default=16.0,
-                        help="not yet ported")
+                        help="LoRA scale (delta = alpha/rank * A B)")
     parser.add_argument("--remat", "--remat-policy", dest="remat",
                         choices=("full", "dots", "none"), default="full",
                         help="layer remat policy: full recomputes whole "
@@ -161,7 +170,8 @@ def _parser() -> argparse.ArgumentParser:
                         choices=["uint16", "uint32"])
     parser.add_argument("--init-from", default="",
                         help="warm-start params from another run's "
-                        "checkpoint (fresh optimizer)")
+                        "checkpoint (fresh optimizer). With --lora-rank this "
+                        "is the pretrained base the adapters fine-tune")
     parser.add_argument("--profile-dir", default="", help="not yet ported")
     parser.add_argument("--journal-file", default="", help="not yet ported")
     parser.add_argument("--goodput-file", default="",
@@ -217,6 +227,14 @@ def main(argv=None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
     _reject_unported(parser, args)
+    if args.on_nan == "skip" and args.lora_rank > 0:
+        parser.error("--on-nan skip gates the full train step; with "
+                     "--lora-rank use rollback or halt")
+    if args.lora_mlp and args.lora_rank <= 0:
+        parser.error("--lora-mlp requires --lora-rank > 0")
+    if args.lora_mlp and args.n_experts > 0:
+        parser.error("--lora-mlp adapts the dense MLP only (MoE experts are "
+                     "not adapted)")
 
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
     from hivedscheduler_tpu_torch.parallel import distributed
@@ -253,7 +271,10 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
     from hivedscheduler_tpu_torch.parallel import distributed
     from hivedscheduler_tpu_torch.parallel import supervisor as sup_lib
     from hivedscheduler_tpu_torch.parallel import topology
-    from hivedscheduler_tpu_torch.parallel.train import make_sharded_train_step
+    from hivedscheduler_tpu_torch.parallel.train import (
+        make_sharded_lora_train_step,
+        make_sharded_train_step,
+    )
 
     device = resolve_device(args.device)
     # 2. the mesh over the gang's GPUs; dp takes what tp, sp, fsdp and ep
@@ -285,23 +306,42 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
         remat=args.remat,
         attn_block_q=args.block_q,
         attn_block_k=args.block_k,
+        lora_rank=args.lora_rank,
+        lora_alpha=args.lora_alpha,
+        lora_mlp=args.lora_mlp,
     )
     log.info("device %s, config %s", device, cfg)
-    step_fn, init_fn, token_sharding = make_sharded_train_step(
-        cfg, mesh, grad_accum=args.grad_accum, ce_chunk=args.ce_chunk,
-        skip_nonfinite=args.on_nan == "skip")
     # the step updates these tensors and this optimizer in place; restores
     # load into them too, so the optimizer's references stay valid
-    params, opt_state = init_fn(torch.Generator(device=device).manual_seed(0))
+    generator = torch.Generator(device=device).manual_seed(0)
+    lora_mode = args.lora_rank > 0
+    if lora_mode:
+        lora_step, init_fn, token_sharding = make_sharded_lora_train_step(
+            cfg, mesh, grad_accum=args.grad_accum, ce_chunk=args.ce_chunk)
+        base_params, lora_params, opt_state = init_fn(generator)
+        # the whole tree (the same tensors): what checkpoints hold
+        params = tm.combine_lora_params(base_params, lora_params)
 
-    # warm start: params only, the optimizer stays fresh
+        def step_fn(params, opt_state, tokens):
+            _, opt_state, loss = lora_step(base_params, lora_params, opt_state, tokens)
+            return params, opt_state, loss
+    else:
+        step_fn, init_fn, token_sharding = make_sharded_train_step(
+            cfg, mesh, grad_accum=args.grad_accum, ce_chunk=args.ce_chunk,
+            skip_nonfinite=args.on_nan == "skip")
+        params, opt_state = init_fn(generator)
+
+    # warm start: params only, the optimizer stays fresh; for LoRA the
+    # frozen pretrained base the adapters tune
     if args.init_from:
-        ckpt.restore_params(args.init_from, params)
+        ckpt.restore_params(args.init_from, base_params if lora_mode else params)
         log.info("warm-started params from %s", args.init_from)
 
     def restore_state():
         """Restore the newest committed checkpoint into the live state;
-        returns (step, the marker's metadata)."""
+        returns (step, the marker's metadata). The restore loads in place,
+        so the base and adapter trees of a LoRA run, which hold the same
+        tensors, see it too."""
         step_no, _, _ = ckpt.restore(args.checkpoint_dir, params, opt_state)
         return step_no, ckpt.read_metadata(args.checkpoint_dir, step_no)
 
@@ -404,7 +444,8 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
                 # chaos hooks (inert unless HIVED_FAULT_* env vars arm them)
                 sup.faults.pace()
                 sup.faults.maybe_hang(step + 1)
-                sup.faults.take_nan(step + 1, params)
+                # a LoRA run poisons its adapters, the leaves it trains
+                sup.faults.take_nan(step + 1, lora_params if lora_mode else params)
                 step_t0 = time.perf_counter()
                 obs_goodput.phase("data_wait")
                 local_batch, snap = next(batches)

@@ -33,6 +33,10 @@ launches them and equals flash's losses (ring_zigzag_flash within 1e-3).
 The MoE model decodes on the card as on the CPU (f32, plain and int8
 experts), serves the same streams eager and through the CUDA-graph window,
 and its train step on the one-GPU NCCL mesh equals the single-device step.
+A LoRA step on the card launches K1-K3, leaves the base bit-identical and
+its first loss equal to the dense step's; the speculative engine with the
+target as its own draft serves the plain engine's greedy streams wherever
+the target's top-1 margin is decisive.
 """
 
 import os
@@ -743,3 +747,53 @@ def test_moe_world_1_mesh_step_equals_the_single_device_step(cuda):
     finally:
         distributed.shutdown()
     assert got == want
+
+
+def test_lora_step_on_card_keeps_the_base_and_runs_the_kernels(cuda):
+    import dataclasses
+
+    cfg = ttm.TransformerConfig(vocab_size=512, d_model=256, n_heads=2, n_kv_heads=1,
+                                n_layers=2, d_ff=512, max_seq_len=256, attn_impl="flash",
+                                remat="dots", lora_rank=8, lora_alpha=16.0, lora_mlp=True)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 512, (2, 256)).astype(np.int32)).cuda()
+    step, init_fn = ttrain.make_lora_train_step(cfg, cuda, ce_chunk=128)
+    base, lora, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    before = {k: v.clone() for k, v in base["layers"].items()}
+    lora_before = {k: v.detach().clone() for k, v in lora["layers"].items()}
+    launches = (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_BWD_DQ_LAUNCHES,
+                tattn.FLASH_BWD_DKV_LAUNCHES)
+    losses = [float(step(base, lora, opt, tokens)[2]) for _ in range(2)]
+    got = (tattn.FLASH_FWD_LAUNCHES - launches[0], tattn.FLASH_BWD_DQ_LAUNCHES - launches[1],
+           tattn.FLASH_BWD_DKV_LAUNCHES - launches[2])
+    assert got == (2 * 2 * 2, 2 * 2, 2 * 2)  # K1 twice a layer under "dots"
+    assert all(torch.equal(v, before[k]) for k, v in base["layers"].items())
+    assert all(not torch.equal(v, lora_before[k]) for k, v in lora["layers"].items())
+    # the dense step's first loss on the same base: bit for bit
+    dense_cfg = dataclasses.replace(cfg, lora_rank=0, lora_mlp=False)
+    dstep, dinit = ttrain.make_train_step(dense_cfg, cuda, ce_chunk=128)
+    params, dopt = dinit(torch.Generator(device="cuda").manual_seed(0))
+    assert float(dstep(params, dopt, tokens)[2]) == losses[0]
+
+
+def test_self_draft_serving_equals_the_plain_engine_at_decisive_positions(cuda):
+    from hivedscheduler_tpu_torch.models import serving as tsrv
+    from hivedscheduler_tpu_torch.models.speculative import SpecDecodeConfig
+
+    cfg, params, prompts = _serve_setup("cuda")
+    ref, _ = _serve_streams(params, cfg, prompts)
+    spec = SpecDecodeConfig(draft_params=params, draft_cfg=cfg, gamma=4)
+    for extra in ({}, dict(page_size=8)):
+        got, eng = _serve_streams(params, cfg, prompts, spec_decode=spec, **extra)
+        assert isinstance(eng, tsrv.SpeculativeServingEngine)
+        assert eng.acceptance > 0.5, extra
+        with torch.inference_mode():
+            for p, a, b in zip(prompts, ref, got):
+                first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                if first is None:
+                    continue
+                # a stream may part from the plain one only where the
+                # target's top two logits are within bf16 rounding
+                seq = torch.tensor([p + a[:first]], device="cuda")
+                top = torch.topk(ttm.forward(params, seq, cfg)[0, -1].float(), 2).values
+                assert float(top[0] - top[1]) < 0.25, (extra, first)

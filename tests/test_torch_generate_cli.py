@@ -4,7 +4,8 @@ and ``checkpoint.restore_serving_params``.
 Each CLI run is held to the library call it stands for, on the same seeded
 weights and prompt, token for token: ``decode.generate`` (greedy, int8),
 ``speculative.generate_speculative`` (``--draft-layers``), and the
-parameters a ``train`` run checkpointed (``--checkpoint-dir``).
+parameters a ``train`` run checkpointed (``--checkpoint-dir``), a LoRA
+run's merged (``--lora-rank``, ``--lora-mlp``).
 """
 
 import logging
@@ -133,8 +134,9 @@ def test_sampled_rows_repeat_and_the_goodput_spool_records_the_decode(capsys, tm
 
 
 @pytest.mark.parametrize("extra", [
-    # MoE decodes; MoE on a --tp/--dp mesh is not yet ported
-    ["--tp", "2"], ["--dp", "2"], ["--n-experts", "2", "--tp", "2"], ["--lora-rank", "4"],
+    # MoE and LoRA decode; on a --tp/--dp mesh neither is ported yet
+    ["--tp", "2"], ["--dp", "2"], ["--n-experts", "2", "--tp", "2"],
+    ["--lora-rank", "4", "--tp", "2"],
 ])
 def test_unported_flags_exit_with_error(extra, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -193,6 +195,35 @@ def test_restore_serving_params_without_a_directory_and_its_refusals(tmp_path):
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError):
         tck.restore_serving_params(CFG, str(tmp_path / "empty"), _seeded(0))
-    with pytest.raises(NotImplementedError) as err:
-        tck.restore_serving_params(CFG, "", _seeded(0), lora_rank=4)
-    assert "not yet ported" in str(err.value)
+    # a LoRA tree without a checkpoint merges its zero-init adapters: the
+    # base, bit for bit
+    merged, step = tck.restore_serving_params(CFG, "", _seeded(0), lora_rank=4,
+                                              lora_mlp=True)
+    assert step is None and set(merged["layers"]) == set(fresh["layers"])
+    assert all(torch.equal(merged["layers"][k], fresh["layers"][k]) for k in fresh["layers"])
+
+
+def test_lora_checkpoint_merges_into_generate(tmp_path, capsys, log_lines):
+    """A LoRA run's checkpoint: ``--lora-rank`` (with its alpha and MLP
+    adapters) restores base and adapters and decodes the merged model, as
+    ``decode.generate`` does on ``merge_lora`` of the restored tree; int8
+    quantizes after the merge."""
+    import dataclasses
+
+    ck = str(tmp_path / "lora")
+    lora = ["--lora-rank", "4", "--lora-alpha", "8", "--lora-mlp"]
+    assert ttrain_cli.main(TRAIN + lora + ["--steps", "2", "--checkpoint-dir", ck]) == 0
+    lcfg = dataclasses.replace(CFG, lora_rank=4, lora_alpha=8.0, lora_mlp=True)
+    tree = ttm.init_params(lcfg, _seeded(0))
+    tck.restore_params(ck, tree)
+    assert tree["layers"]["lora_w_down_b"].abs().sum() > 0  # the adapters trained
+    merged = ttm.merge_lora(tree, lcfg)
+    _, prompt = _inputs()
+    rc, rows = _run(capsys, "--checkpoint-dir", ck, *lora)
+    assert rc == 0
+    assert rows == tdec.generate(ttm.cast_params(merged, CFG.dtype), prompt, CFG, NEW).tolist()
+    assert "merged rank-4 LoRA adapters into the base weights" in log_lines
+    rc, rows = _run(capsys, "--checkpoint-dir", ck, *lora, "--quantize", "int8")
+    assert rc == 0
+    assert rows == tdec.generate(tquant.quantize_params(merged, CFG), prompt, CFG,
+                                 NEW).tolist()

@@ -343,10 +343,9 @@ def test_ulysses_refuses_heads_that_do_not_divide_sp_as_jax_does():
 
 
 def test_sp_above_1_needs_the_ring_family():
-    for impl in ("xla", "flash"):
-        cfg = ttm.TransformerConfig(dtype=torch.float32, attn_impl=impl)
-        with pytest.raises(ValueError) as err:
-            ttm.check_mesh(cfg, {"sp": 2})
-        assert "ring-family" in str(err.value)
-    for impl in ttm.RING_FAMILY:
+    # not any more: xla and flash gather the sequence at sp > 1
+    # (tests/test_torch_sp_train.py holds them to JAX), the ring family
+    # attends across the slices; every one takes the mesh
+    for impl in ttm.ATTN_IMPLS:
         ttm.check_mesh(ttm.TransformerConfig(dtype=torch.float32, attn_impl=impl), {"sp": 2})
+    assert set(ttm.ATTN_IMPLS) == {"xla", "flash"} | set(ttm.RING_FAMILY)

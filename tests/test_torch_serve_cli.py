@@ -4,9 +4,12 @@ Each run is held to the library it stands for: the ``[rid] tokens`` lines
 equal a ``ServingEngine`` run on the same seeded weights, trace and
 arrivals, token for token, and the dense, paged and fused-window runs of
 one trace print the same streams. The summary lines are checked by their
-content (tokens/s, fused windows, prefix hits, the paged pool), the
-preempt-at fault drains and exits 0, every flag of a path not yet ported
-exits non-zero, and ``--device cuda`` without a card raises.
+content (tokens/s, fused windows, prefix hits, the paged pool, the
+speculative acceptance), the preempt-at fault drains and exits 0, every
+flag of a path not yet ported exits non-zero, and ``--device cuda``
+without a card raises. ``--spec-decode`` serves the speculative engine's
+streams with the CLI's draft, and ``--lora-rank`` a LoRA run's merged
+model, each equal to the library run on the same weights.
 """
 
 import logging
@@ -17,6 +20,7 @@ import torch
 from hivedscheduler_tpu_torch import serve as tserve
 from hivedscheduler_tpu_torch.common import envflags
 from hivedscheduler_tpu_torch.models import serving as tsrv
+from hivedscheduler_tpu_torch.models import speculative as tspec
 from hivedscheduler_tpu_torch.models import transformer as ttm
 from hivedscheduler_tpu_torch.obs import goodput as tgp
 from hivedscheduler_tpu_torch.parallel import checkpoint as tck
@@ -73,12 +77,21 @@ def _run(capsys, *extra):
     return rc, streams
 
 
-def _engine_streams(system_len=0, **kw):
-    """The same run through the library: weights from --seed, the trace
-    from --seed + 1, one arrival every --arrival-every steps."""
+def _engine_streams(system_len=0, checkpoint_dir="", lora=None, draft=None, **kw):
+    """The same run through the library: weights from --seed (restored from
+    ``checkpoint_dir``, LoRA adapters of ``lora`` merged), the trace from
+    --seed + 1, one arrival every --arrival-every steps; ``draft`` = (draft
+    layers, gamma) serves speculatively with the CLI's draft."""
     cfg = ttm.TransformerConfig(max_seq_len=RUN["max_len"], **MODEL)
-    params, _ = tck.restore_serving_params(cfg, "", torch.Generator().manual_seed(RUN["seed"]))
+    params, _ = tck.restore_serving_params(cfg, checkpoint_dir,
+                                           torch.Generator().manual_seed(RUN["seed"]),
+                                           **(lora or {}))
     params = ttm.cast_params(params, cfg.dtype)
+    if draft is not None:
+        dcfg = tspec.derive_draft_config(cfg, draft[0])
+        dparams = ttm.cast_params(ttm.init_params(
+            dcfg, torch.Generator().manual_seed(RUN["seed"] + 3)), dcfg.dtype)
+        kw["spec_decode"] = tspec.SpecDecodeConfig(dparams, dcfg, gamma=draft[1])
     eng = tsrv.ServingEngine(params, cfg, max_batch=RUN["max_batch"],
                              max_len=RUN["max_len"], seed=RUN["seed"], **kw)
     pending = tserve.synthetic_trace(RUN["seed"] + 1, RUN["requests"], cfg.vocab_size,
@@ -144,9 +157,11 @@ def test_cli_preempt_at_drains_and_exits_zero(capsys, log_lines, monkeypatch):
     ["--fleet", "2"], ["--disaggregate"], ["--prefill-replicas", "1"],
     ["--route-policy", "prefix_affinity"], ["--autoscale"], ["--fleet-min", "1"],
     ["--fleet-max", "2"], ["--fleet-config", "x.yaml"], ["--tp", "2"], ["--dp", "2"],
-    # MoE serves; MoE on a --tp/--dp mesh is not yet ported
-    ["--spec-decode"], ["--draft-layers", "1"], ["--gamma", "4"], ["--n-experts", "4", "--tp", "2"],
-    ["--lora-rank", "4"], ["--journal-file", "j.jsonl"], ["--metrics-dump", "m.txt"],
+    # MoE, LoRA and speculative serving run; none of them on a --tp/--dp
+    # mesh or in the fleet yet
+    ["--spec-decode", "--tp", "2"], ["--draft-layers", "1", "--dp", "2"],
+    ["--gamma", "4", "--spec-decode", "--fleet", "2"], ["--n-experts", "4", "--tp", "2"],
+    ["--lora-rank", "4", "--tp", "2"], ["--journal-file", "j.jsonl"], ["--metrics-dump", "m.txt"],
     ["--slo-ttft-p99", "0.5"], ["--slo-window-s", "60"],
 ])
 def test_cli_refuses_unported_flags(capsys, flag):
@@ -171,3 +186,44 @@ def test_serve_preempt_fault_fires_once(monkeypatch):
     assert [faults.take_serve_preempt(s) for s in range(5)] == [False, False, True, False, False]
     monkeypatch.delenv(tsup.ENV_FAULT_SERVE_PREEMPT_AT)
     assert not any(tsup.FaultInjection.from_env().take_serve_preempt(s) for s in range(5))
+
+
+@pytest.mark.parametrize("extra, draft", [
+    (["--spec-decode", "--decode-steps", "4"], (2, 4)),
+    (["--draft-layers", "1", "--gamma", "2", "--page-size", "8", "--prefill-chunk", "4"],
+     (1, 2)),
+])
+def test_cli_spec_decode_serves_the_speculative_engines_streams(capsys, log_lines, extra,
+                                                                draft):
+    rc, streams = _run(capsys, *extra)
+    kw = {"page_size": 8, "prefill_chunk": 4} if "--page-size" in extra else {}
+    assert rc == 0 and streams == _engine_streams(draft=draft, **kw)
+    said = [m for m in log_lines if m.startswith("speculation: ")]
+    assert said and "draft tokens accepted" in said[0], log_lines
+    assert ("--decode-steps is ignored by the speculative engine" in " ".join(log_lines)) == (
+        "--decode-steps" in extra)
+    assert not any(m.startswith("fused decode:") for m in log_lines)
+
+
+def test_cli_serves_a_lora_checkpoint_merged(capsys, log_lines, tmp_path):
+    from hivedscheduler_tpu_torch import train as ttrain_cli
+
+    ck = str(tmp_path / "lora")
+    lora = ["--lora-rank", "4", "--lora-alpha", "8", "--lora-mlp"]
+    train = [a for k, v in MODEL.items() for a in (f"--{k.replace('_', '-')}", str(v))] + [
+        "--seq-len", "32", "--batch", "2", "--device", "cpu", "--steps", "2",
+        "--checkpoint-dir", ck]
+    assert ttrain_cli.main(train + lora) == 0
+    rc, streams = _run(capsys, "--checkpoint-dir", ck, *lora, "--spec-decode")
+    want = _engine_streams(checkpoint_dir=ck, draft=(2, 4),
+                           lora=dict(lora_rank=4, lora_alpha=8.0, lora_mlp=True))
+    assert rc == 0 and streams == want
+    assert "merged rank-4 LoRA adapters into the base weights" in log_lines
+    # the merge moved the weights (two steps move the streams of this
+    # random model too little to see)
+    cfg = ttm.TransformerConfig(max_seq_len=RUN["max_len"], **MODEL)
+    merged, _ = tck.restore_serving_params(cfg, ck, torch.Generator().manual_seed(0),
+                                           lora_rank=4, lora_alpha=8.0, lora_mlp=True)
+    base, _ = tck.restore_serving_params(cfg, ck, torch.Generator().manual_seed(0))
+    assert all(not torch.equal(merged["layers"][k], base["layers"][k])
+               for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))

@@ -9,6 +9,11 @@ rank holding a contiguous slice of every sequence. The JAX reference is
 ``attn_impl``, gradient accumulation and chunked cross-entropy. The port's
 runs start first and the JAX references are built while they run.
 
+At sp=2 ``xla`` and ``flash`` gather the sequence and attend over all of
+it (``_dispatch_attention``), as JAX's GSPMD layer and ``_flash_gspmd``
+do; at sp=2 JAX's flash runs its interpret-mode Pallas kernels there
+(its route is counted), the port's ranks the plain versions of theirs.
+
 Tolerances (f32, the tiny config of ``test_torch_sharded_train.py``):
 losses atol 1e-5 and parameters after three AdamW steps atol 3e-5, as for
 dp, fsdp and tp: sp adds only summation order (the ring's merges, the
@@ -26,6 +31,7 @@ import pytest
 import torch
 
 from hivedscheduler_tpu.models import transformer as jtm
+from hivedscheduler_tpu.ops import attention as jattn
 from hivedscheduler_tpu.parallel import checkpoint as jckpt
 from hivedscheduler_tpu.parallel import ring_attention as jra
 from hivedscheduler_tpu.parallel import topology as jtopo
@@ -42,7 +48,7 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 from test_torch_sharded_train import (  # noqa: E402
     BATCH, CFG, EVAL_ATOL, LOSS_ATOL, PARAM_ATOL, SEQ, STEPS, Gang, _assert_params_close,
-    _free_port, _named, _result, _worker_gang)
+    _cli_gang, _free_port, _named, _result, _worker_gang)
 from torch_mesh_worker import gang_env  # noqa: E402
 
 # each run: attn_impl, mesh degrees, worker options; every one at sp=2 over
@@ -55,11 +61,18 @@ SP2_RUNS = {
     "ring_zigzag": dict(attn="ring_zigzag", tasks=["train"], grad_accum=2,
                         remat="dots"),
     "ulysses": dict(attn="ulysses", tasks=["train"], ce_chunk=16),
+    # the gathered sequence: no ring, each rank keeps its rows of the
+    # whole sequence's attention
+    "xla": dict(attn="xla", tasks=["eval", "train"]),
+    "flash": dict(attn="flash", tasks=["eval", "train"], grad_accum=2, remat="dots"),
 }
 WORLD4_RUNS = {
     "sp4-ring_zigzag": dict(attn="ring_zigzag", sp=4),
     "sp2-tp2-ring_flash": dict(attn="ring_flash", sp=2, tp=2),
 }
+# flash over the sequence gathered at sp=2 with tp-local heads: a gang of
+# 4 in tier-1 (~20 s alone)
+GATHERED_SP2_TP2 = dict(attn="flash", sp=2, tp=2)
 # the train CLI's own flags at sp=2: --attn defaults to ring
 CLI_ARGS = ["--vocab-size", "256", "--d-model", "64", "--n-layers", "2",
             "--n-heads", "4", "--n-kv-heads", "2", "--d-ff", "128", "--seq-len", "64",
@@ -102,6 +115,19 @@ def _count_einsum_routes(monkeypatch, routes):
     monkeypatch.setattr(jra, "_ring_attention_local", counting)
 
 
+def _count_flash_routes(monkeypatch, routes):
+    """Count JAX's attention routes: its xla reference and the Pallas
+    backward (the kernels' route)."""
+    for name, key in (("xla_attention", "reference"), ("_flash_backward", "kernels")):
+        real = getattr(jattn, name)
+
+        def counting(*a, _real=real, _key=key, **kw):
+            routes[_key] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(jattn, name, counting)
+
+
 def _inputs(tmp):
     init = jax.device_get(jtm.init_params(
         jtm.TransformerConfig(dtype=jnp.float32, **CFG), jax.random.PRNGKey(0)))
@@ -128,16 +154,18 @@ def runs(tmp_path_factory):
             f"sys.exit(train.main({CLI_ARGS!r}))")
     cli = Gang(tmp, "cli-sp2", 2, lambda rank: [sys.executable, "-c", code],
                lambda rank: gang_env(2, rank))
+    cli_flash = _cli_gang(tmp, "cli-sp2-flash", ["--sp", "2", "--attn", "flash"])
     ref, routes = {}, {}
     with pytest.MonkeyPatch.context() as mp:
         for name, run in SP2_RUNS.items():
-            routes[name] = {"einsum": 0}
+            routes[name] = {"einsum": 0, "reference": 0, "kernels": 0}
             _count_einsum_routes(mp, routes[name])
+            _count_flash_routes(mp, routes[name])
             ref[name] = _jax_run(run, init, batches)
             mp.undo()
     out = {name: _result(job) for name, job in port.items()}
     return dict(init=init, batches=batches, ref=ref, routes=routes, out=out,
-                ckpt_dir=ckpt_dir, cli=cli.wait())
+                ckpt_dir=ckpt_dir, cli=cli.wait(), cli_flash=cli_flash.wait())
 
 
 @pytest.mark.parametrize("name", sorted(SP2_RUNS))
@@ -161,6 +189,31 @@ def test_ring_flash_at_sp2_takes_jax_route(runs):
     assert int(out["reference_routes"]) == 0
     # the einsum impls never count a route
     assert int(runs["out"]["ring"]["ring_reference_routes"]) == 0
+
+
+@pytest.mark.parametrize("name", ["xla", "flash"])
+def test_gathered_attention_at_sp2_routes(runs, name):
+    # JAX's xla attention at sp=2 is its reference under GSPMD; its flash
+    # gathers the sequence in _flash_gspmd and runs the interpret-mode
+    # Pallas kernels there. The port's flash ran the plain versions of its
+    # kernels on the gathered sequence, never the xla reference
+    routes = runs["routes"][name]
+    if name == "xla":
+        assert routes["reference"] > 0 and routes["kernels"] == 0
+    else:
+        assert routes["kernels"] > 0 and routes["reference"] == 0
+        assert int(runs["out"][name]["reference_routes"]) == 0
+    assert routes["einsum"] == 0
+
+
+@pytest.mark.parametrize("name", ["xla", "flash"])
+def test_gathered_attention_eval_at_sp2_equals_one_device(runs, name):
+    cfg = ttm.TransformerConfig(dtype=torch.float32, attn_impl=name, **CFG)
+    eval_step, _ = ttrain.make_eval_step(cfg, "cpu")
+    want = float(eval_step(bridge.from_numpy_tree(runs["init"]),
+                           torch.from_numpy(runs["batches"][0])))
+    got = float(runs["out"][name]["eval_loss"])
+    assert abs(got - want) <= EVAL_ATOL, (got, want)
 
 
 def test_eval_at_sp2_equals_one_device(runs):
@@ -206,3 +259,20 @@ def test_world_4_matches_jax(name, tmp_path):
     out = _result(job)
     np.testing.assert_allclose(out["losses"], j_losses, atol=LOSS_ATOL, rtol=0)
     _assert_params_close(out, j_params, PARAM_ATOL)
+
+
+def test_gathered_flash_at_sp2_tp2_matches_jax(tmp_path):
+    init, batches, common = _inputs(str(tmp_path))
+    job = _start(str(tmp_path), "sp2-tp2-flash", 4, GATHERED_SP2_TP2, common)
+    j_losses, j_params = _jax_run(GATHERED_SP2_TP2, init, batches)
+    out = _result(job)
+    np.testing.assert_allclose(out["losses"], j_losses, atol=LOSS_ATOL, rtol=0)
+    _assert_params_close(out, j_params, PARAM_ATOL)
+    assert int(out["reference_routes"]) == 0
+
+
+def test_train_cli_runs_flash_at_sp2(runs):
+    # --attn flash at --sp 2 trains, where it exited before the gather
+    rcs, outs = runs["cli_flash"]
+    assert rcs == [0, 0], "\n".join(outs)
+    assert "step 2 loss" in outs[0] and "attn_impl='flash'" in outs[0] and "sp=2" in outs[0]

@@ -129,21 +129,28 @@ def test_cuda_without_a_card_raises():
 
 @pytest.mark.parametrize("extra", [
     ["--tp", "2"], ["--sp", "2"], ["--fsdp", "2"], ["--pp", "2"], ["--ep", "2"],
-    ["--microbatches", "2"], ["--n-experts", "2", "--sp", "2"], ["--lora-rank", "4"],
-    ["--lora-mlp"], ["--lora-alpha", "8"], ["--overlap"],
+    ["--microbatches", "2"], ["--n-experts", "2", "--sp", "2"],
+    ["--lora-rank", "4", "--on-nan", "skip"], ["--lora-mlp"],
+    ["--lora-rank", "4", "--lora-mlp", "--n-experts", "2"], ["--overlap"],
     ["--profile-dir", "/nonexistent"], ["--journal-file", "j.jsonl"],
     ["--elastic"], ["--min-chips", "2"], ["--attn", "ring", "--sp", "2"],
 ])
 def test_unported_flags_exit_with_error(extra, capsys):
-    # --tp, --fsdp, --ep and --sp (with the ring family) are ported: on one
-    # device their mesh cannot be laid, which is a usage error too; MoE is
-    # ported, MoE at --sp above 1 is not yet; every other flag is not yet
-    # ported
+    # --tp, --fsdp, --ep and --sp are ported: on one device their mesh
+    # cannot be laid, which is a usage error too; MoE is ported, MoE at --sp
+    # above 1 is not yet; LoRA is ported, and refused where JAX's CLI
+    # refuses it (--on-nan skip) or its init_params does (MLP adapters
+    # without a rank, or on experts); every other flag is not yet ported
     with pytest.raises(SystemExit) as exc:
         ttrain_cli.main(CLI_MODEL + extra)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    if "--n-experts" in extra:
+    if "--on-nan" in extra:
+        assert "--on-nan skip gates the full train step" in err
+    elif "--lora-mlp" in extra:
+        assert ("requires --lora-rank > 0" if "--n-experts" not in extra
+                else "MoE experts are not adapted") in err
+    elif "--n-experts" in extra:
         assert "not yet ported" in err
     elif {"--tp", "--fsdp", "--sp", "--ep"} & set(extra):
         assert "1 devices not divisible by tp*sp*fsdp*pp*ep=2" in err
@@ -200,3 +207,90 @@ def test_divergence_guard_matches_jax(losses, spike):
 def test_exit_codes_match_jax():
     for name in ("EXIT_STALLED", "EXIT_DIVERGED", "EXIT_GRACE_EXCEEDED"):
         assert getattr(tsup, name) == getattr(jsup, name)
+
+
+LORA_ARGS = ["--attn", "flash", "--remat", "dots", "--log-every", "1", "--lora-rank", "4",
+             "--lora-alpha", "8", "--lora-mlp"]
+
+
+@pytest.fixture(scope="module")
+def lora_runs(tmp_path_factory):
+    """A dense run's checkpoint (1 step), then a LoRA run of 2 steps that
+    warm-starts its base from it and commits its own checkpoint."""
+    tmp = tmp_path_factory.mktemp("lora-cli")
+    dense, lora = str(tmp / "dense"), str(tmp / "lora")
+    assert ttrain_cli.main(CLI_MODEL + ["--attn", "flash", "--steps", "1",
+                                        "--checkpoint-dir", dense]) == 0
+    timeline = str(tmp / "lora.jsonl")
+    assert ttrain_cli.main(CLI_MODEL + LORA_ARGS + [
+        "--steps", "2", "--init-from", dense, "--checkpoint-dir", lora,
+        "--timeline", timeline, "--prefetch", "0"]) == 0
+    with open(timeline) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    return dict(dense=dense, lora=lora, losses=losses)
+
+
+def _lora_cfg():
+    from hivedscheduler_tpu_torch.models import transformer as ttm
+
+    return ttm.TransformerConfig(vocab_size=96, d_model=64, n_layers=2, n_heads=4,
+                                 n_kv_heads=2, d_ff=128, max_seq_len=128,
+                                 attn_impl="flash", attn_block_q=64, attn_block_k=64,
+                                 remat="dots", lora_rank=4, lora_alpha=8.0, lora_mlp=True)
+
+
+def test_lora_run_trains_the_adapters_on_the_warm_started_base(lora_runs):
+    """The LoRA run's checkpoint holds the dense run's base, unchanged, its
+    moved adapters and AdamW state for the adapters alone; its losses are
+    make_lora_train_step's on that base and the loader's stream."""
+    import dataclasses
+
+    from hivedscheduler_tpu_torch.models import transformer as ttm
+    from hivedscheduler_tpu_torch.parallel import checkpoint as tckpt
+    from hivedscheduler_tpu_torch.parallel import data as tdata
+
+    cfg = _lora_cfg()
+    base_cfg = dataclasses.replace(cfg, lora_rank=0, lora_mlp=False)
+    _, dense_init = ttrain.make_train_step(base_cfg, "cpu")
+    dense, dense_opt = dense_init(torch.Generator().manual_seed(1))
+    tckpt.restore(lora_runs["dense"], dense, dense_opt)
+    step, init_fn = ttrain.make_lora_train_step(cfg, "cpu", ce_chunk=64)
+    base, lora, opt = init_fn(torch.Generator().manual_seed(7))
+    tckpt.restore_params(lora_runs["dense"], base)
+    lora0 = {k: v.detach().clone() for k, v in lora["layers"].items()}
+    restored, _, _ = tckpt.restore(lora_runs["lora"], ttm.combine_lora_params(base, lora), opt)
+    assert restored == 2
+    for name, t in tckpt.named_leaves(base).items():
+        assert torch.equal(t, tckpt.named_leaves(dense)[name]), name
+    assert all(not torch.equal(v, lora0[k]) for k, v in lora["layers"].items())
+    assert set(tckpt._opt_state_dict(ttm.combine_lora_params(base, lora), opt)) == {
+        f"layers.{k}" for k in lora["layers"]}
+    meta = tckpt.read_metadata(lora_runs["lora"])
+    assert meta["model"]["lora_rank"] == 4 and meta["model"]["lora_mlp"] is True
+    # the same two steps from the dense base and the init's adapters
+    base, lora, opt = init_fn(torch.Generator().manual_seed(0))
+    tckpt.restore_params(lora_runs["dense"], base)
+    loader = tdata.CheckpointableBatches(tdata.synthetic_dataset(96), 2, 128)
+    want = []
+    for _ in range(2):
+        lora, opt, loss = step(base, lora, opt, torch.from_numpy(next(loader)))
+        want.append(float(loss))
+    assert lora_runs["losses"] == pytest.approx(want, abs=1e-6)
+
+
+def test_lora_resume_with_another_rank_is_refused(lora_runs):
+    args = [a if a != "4" else "2" for a in LORA_ARGS]
+    with pytest.raises(ValueError) as err:
+        ttrain_cli.main(CLI_MODEL + args + ["--steps", "3", "--checkpoint-dir",
+                                            lora_runs["lora"]])
+    assert "lora_rank: saved 4 != current 2" in str(err.value)
+
+
+def test_lora_resume_continues_the_run(lora_runs, tmp_path, step_lines):
+    import shutil
+
+    ckpt = str(tmp_path / "lora")
+    shutil.copytree(lora_runs["lora"], ckpt)
+    assert ttrain_cli.main(CLI_MODEL + LORA_ARGS + ["--steps", "3",
+                                                    "--checkpoint-dir", ckpt]) == 0
+    assert [a[0] for a in step_lines] == [3]

@@ -205,15 +205,20 @@ def test_cast_params_and_load_weight():
 
 
 @pytest.mark.parametrize("over,kind", [
-    # MoE is ported (tests/test_torch_moe.py); MoE with LoRA is not yet
-    (dict(n_experts=2, lora_rank=4), NotImplementedError),
-    (dict(lora_rank=4), NotImplementedError),
+    # MoE and LoRA are ported (tests/test_torch_moe.py,
+    # tests/test_torch_lora.py); neither in the pipeline or the overlapped
+    # stack yet
+    (dict(n_experts=2, lora_rank=4, pipeline_microbatches=2), NotImplementedError),
+    (dict(lora_rank=4, overlap=True), NotImplementedError),
     (dict(pipeline_microbatches=2), NotImplementedError),
     (dict(overlap=True), NotImplementedError),
     # the ring family needs a mesh (JAX asserts one)
     (dict(attn_impl="ring_flash"), ValueError),
     (dict(attn_impl="flsh"), ValueError),
     (dict(remat="some"), ValueError),
+    # as JAX's init_params: MLP adapters need a rank and a dense MLP
+    (dict(lora_mlp=True), ValueError),
+    (dict(n_experts=2, lora_rank=4, lora_mlp=True), ValueError),
 ])
 def test_unported_configs_raise(over, kind):
     over = dict(over)
@@ -237,13 +242,15 @@ class _SpMesh:
 
 def test_forward_over_a_mesh_raises():
     # dp, fsdp, tp and sp are ported (tests/test_torch_sharded_train.py,
-    # tests/test_torch_sp_train.py); a mesh with sp > 1 needs the ring
-    # family, since each rank holds only its slice of the sequence
+    # tests/test_torch_sp_train.py), every attn_impl at sp > 1 (xla and
+    # flash gather the sequence); MoE at sp > 1 is not yet ported
     _, tcfg = _configs("xla", "f32")
-    with pytest.raises(ValueError) as err:
-        ttm.forward(None, torch.zeros((1, 8), dtype=torch.int32), tcfg,
-                    mesh=_SpMesh())
-    assert "sp=2 needs a ring-family attn_impl" in str(err.value)
+    moe = dataclasses.replace(tcfg, n_experts=2)
+    with pytest.raises(NotImplementedError) as err:
+        ttm.forward(None, torch.zeros((1, 8), dtype=torch.int32), moe, mesh=_SpMesh())
+    assert "MoE under sequence parallelism (sp > 1) is not yet ported" in str(err.value)
+    for impl in ("xla", "flash"):
+        ttm.check_mesh(dataclasses.replace(tcfg, attn_impl=impl), {"sp": 2})
 
 
 def test_resolve_device():

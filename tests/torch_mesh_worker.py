@@ -7,7 +7,8 @@
 tasks run in order on one process group. The rank joins the gang as a
 scheduled pod would: a bind info of one pod holding ``world`` GPUs on the
 node ``test/127.0.0.1``, ``NVIDIA_VISIBLE_DEVICES`` and ``LOCAL_RANK``, read
-by ``initialize_from_gang``. Rank 0 writes what the tasks return to the
+by ``initialize_from_gang``. A config with ``lora_rank`` trains through
+``make_sharded_lora_train_step``: the adapters alone, the base frozen. Rank 0 writes what the tasks return to the
 job's ``out`` file (an ``.npz``). Inputs come as ``.npz`` files of named
 leaves (``layers.wq``) and token batches. This file imports no JAX.
 """
@@ -96,9 +97,21 @@ def main(job_path: str, rank: int) -> None:
         with np.load(job["init"]) as f:
             init = unflatten(dict(f))
         params = bridge.distribute_tree(init, mesh, tm.sharding_specs(cfg))
-        for leaf in ptrain._leaves(params):
+        if cfg.lora_rank > 0:
+            lora_step, _, _ = ptrain.make_sharded_lora_train_step(
+                cfg, mesh, grad_accum=job.get("grad_accum", 1),
+                ce_chunk=job.get("ce_chunk", 0))
+            base, lora = tm.split_lora_params(params)
+            trained = ptrain._leaves(lora)
+
+            def step(params, opt, tokens):
+                _, opt, loss = lora_step(base, lora, opt, tokens)
+                return params, opt, loss
+        else:
+            trained = ptrain._leaves(params)
+        for leaf in trained:
             leaf.requires_grad_(True)
-        opt = ptrain.make_optimizer()(ptrain._leaves(params))
+        opt = ptrain.make_optimizer()(trained)
         out = {"data_part": np.array([part, n_parts])}
 
         def state_out(prefix, params, opt):
