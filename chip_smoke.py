@@ -169,6 +169,28 @@ Phases, each of which must pass or the script exits non-zero:
     identical; then ``python -m hivedscheduler_tpu_torch.serve --lora-rank
     16 --spec-decode`` on (o)'s checkpoint, which must exit 0 with its
     merge and acceptance lines.
+(q) head dims other than 64 and 128: K1, K2, K3 and their f32 forms at D =
+    32, 80, 96 and 112 (each run at its padded width, 64 or 128), causal
+    and not, with a GQA group of 4 at a ragged T, against their plain
+    versions with the limits of (b), (f) and (m), the f32 forms rounded
+    once equal to the bf16 kernels; every output stored through a view
+    into a 128-wide buffer whose other columns hold a sentinel, which must
+    stay; two planted faults caught: a kernel that reads the next head's
+    columns (neighbouring heads differ twofold) and one that stores past
+    D; K1-K3 at Phi-3-mini's shape (B=8, T=2048, H=H_kv=32, D=96, causal)
+    against their plain versions, then timed in turns against the same
+    kernels at D = 128 (``ops/kernel_ab.py``), beside their bound at the
+    real D, the plain version and ``scaled_dot_product_attention``; then
+    Phi-3-mini's width (microsoft/Phi-3-mini-4k-instruct: vocab 32064,
+    d_model 3072, 32 heads, MHA, d_ff 8192, random weights from seed 0)
+    through ``eval`` at all 32 layers (K1 32 launches a window; flash
+    against xla, losses 1e-3, one window's hidden states 5e-2 with (e)'s
+    planted fault), ``train`` at 6 layers with (h)'s flags (K1/K2/K3
+    36/18/18; losses flash against xla within 1e-3, one step's gradients
+    by leaf group with (h)'s limits and planted fault; step ms, tokens/s,
+    peak memory), greedy ``generate`` at (j)'s shape and (k)'s serving
+    trace (dense/paged, eager/graph, int8 KV: token-identical, decisive
+    positions the full forward's argmax; TPOT p50).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -474,7 +496,7 @@ def phase_eval() -> int:
     return launches
 
 
-def phase_hidden_check() -> None:
+def phase_hidden_check(model=EVAL_MODEL, tag="[e]", what="one flagship window") -> None:
     import numpy as np
     import torch
 
@@ -483,7 +505,7 @@ def phase_hidden_check() -> None:
     from hivedscheduler_tpu_torch.parallel import data as data_lib
 
     # the weights and first window of eval's run
-    cfg_f = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", **EVAL_MODEL)
+    cfg_f = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", **model)
     cfg_x = dataclasses.replace(cfg_f, attn_impl="xla")
     params = tm.init_params(cfg_f, torch.Generator(device="cuda").manual_seed(0), "cuda")
     corpus = data_lib.synthetic_dataset(cfg_f.vocab_size).tokens
@@ -512,7 +534,7 @@ def phase_hidden_check() -> None:
     fro, row = rel_errs(h_f, h_x)
     max_abs = float((h_f.float() - h_x.float()).abs().max())
     bad_fro, bad_row = rel_errs(h_bad, h_x)
-    print(f"[e] final-norm hidden states, flash vs xla, one flagship window: "
+    print(f"{tag} final-norm hidden states, flash vs xla, {what}: "
           f"rel {fro:.3e} (<= {HIDDEN_REL}), worst token rel {row:.3e}, "
           f"max|err| {max_abs:.3e}; planted fault (last layer's attention "
           f"zeroed): rel {bad_fro:.3e}, worst token rel {bad_row:.3e}")
@@ -1114,7 +1136,7 @@ def _group_errs(grads, ref):
     return out, worst
 
 
-def phase_train_grads() -> None:
+def phase_train_grads(model=EVAL_MODEL, tag="[h]", what="one flagship step") -> None:
     import numpy as np
     import torch
 
@@ -1124,7 +1146,7 @@ def phase_train_grads() -> None:
 
     # the weights and first batch of train's run
     cfg_f = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash",
-                                 remat="dots", **EVAL_MODEL)
+                                 remat="dots", **model)
     cfg_x = dataclasses.replace(cfg_f, attn_impl="xla")
     params = tm.init_params(cfg_f, torch.Generator(device="cuda").manual_seed(0), "cuda")
     loader = data_lib.CheckpointableBatches(
@@ -1151,11 +1173,11 @@ def phase_train_grads() -> None:
     check(all(bool(torch.isfinite(g).all()) for g in g_f.values()), "non-finite flash gradients")
     groups, worst = _group_errs(g_f, g_x)
     bad_groups, bad_worst = _group_errs(g_bad, g_x)
-    print(f"[h] one flagship step, loss flash {loss_f:.6f} xla {loss_x:.6f}; "
+    print(f"{tag} {what}, loss flash {loss_f:.6f} xla {loss_x:.6f}; "
           f"gradients flash vs xla by group: "
           + ", ".join(f"{k} {v:.3e}" for k, v in groups.items())
           + f" (<= {TRAIN_GRAD_REL}); worst (leaf, layer) {worst:.3e} (<= {TRAIN_GRAD_SLICE_REL})")
-    print(f"[h] planted fault (last layer's dq zeroed): "
+    print(f"{tag} planted fault (last layer's dq zeroed): "
           + ", ".join(f"{k} {v:.3e}" for k, v in bad_groups.items())
           + f"; worst (leaf, layer) {bad_worst:.3e}")
     check(len(calls) == cfg_f.n_layers, f"planted run made {len(calls)} backward calls")
@@ -3452,6 +3474,459 @@ def phase_spec(srv: dict, lora_dir: str) -> None:
     print(f"[p] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase (q): Phi-3-mini's width, as microsoft/Phi-3-mini-4k-instruct's
+# published config.json gives it, written as the CLI flags both packages
+# accept: vocab 32064, d_model 3072, 32 heads, 32 kv heads (MHA), d_ff 8192,
+# rope theta 10000 (both packages' default): head dim 96, which K1-K3 run at
+# their padded width 128. SwiGLU, RMSNorm, RoPE, an untied lm_head and no
+# biases are the repo's own architecture. Departures: RMSNorm eps is 1e-6
+# in both packages (Phi-3: 1e-5; no flag sets it); the config's
+# sliding_window (2047) is absent from the repo's model (at seq 2048 it
+# would change at most the last row's first key). Cut to size: eval runs
+# all 32 layers (15.3 GB of f32 weights), train 6 (0.877 B parameters x 16
+# B of weights, gradients and AdamW moments = 14.0 GB; 32 layers would need
+# 3.82 B x 16 B = 61 GB before activations), generate and serve 6.
+PHI3_MODEL = dict(vocab_size=32064, d_model=3072, n_heads=32, n_kv_heads=32, d_ff=8192)
+PHI3_EVAL_LAYERS, PHI3_LAYERS = 32, 6
+PHI3 = dict(b=EVAL_BATCH, t=EVAL_SEQ, h=32, h_kv=32, d=96)
+PHI3_FLAGS = [a for k, v in PHI3_MODEL.items() for a in (f"--{k.replace('_', '-')}", str(v))]
+PHI3_EVAL_ARGS = PHI3_FLAGS + [
+    "--n-layers", str(PHI3_EVAL_LAYERS), "--seq-len", str(EVAL_SEQ), "--batch",
+    str(EVAL_BATCH), "--ce-chunk", str(EVAL_CE_CHUNK), "--device", "cuda"]
+PHI3_TRAIN_ARGS = PHI3_FLAGS + [
+    "--n-layers", str(PHI3_LAYERS), "--rope-theta", "10000", "--seq-len", str(EVAL_SEQ),
+    "--batch", str(EVAL_BATCH), "--ce-chunk", str(EVAL_CE_CHUNK), "--device", "cuda",
+    "--remat", "dots", "--log-every", "1"]
+PHI3_TIMED_WINDOWS = 4
+# the head dims the kernels run at a padded width (32 at 64; 80, 96 and 112
+# at 128), each checked causal and not, GQA (a group of 4) at a ragged T
+PADDED_DIMS = (32, 80, 96, 112)
+PADDED_CASE = dict(b=2, t=200, h=8, h_kv=2)
+SENTINEL = -7777.0  # the columns past D of a wider output buffer
+PAD_TURNS = 2  # rounds of (D 128, D 96, D 96, D 128) kernel timings
+
+
+def _padded(d: int) -> int:
+    return 64 if d <= 64 else 128
+
+
+def _spread_heads(x):
+    """Odd heads doubled: neighbouring heads hold very different values, so
+    a kernel that read the next head's columns would be far off."""
+    import torch
+
+    scale = 1.0 + torch.arange(x.shape[2], device=x.device, dtype=torch.float32) % 2
+    return (x.float() * scale[:, None]).to(x.dtype)
+
+
+def _over_read(x, dp: int):
+    """[B, T, H, dp] of what a kernel that read dp columns of a contiguous
+    [B, T, H, D] tensor would see: each head's D columns, then the next
+    head's first dp - D (zeros past the tensor's end)."""
+    import torch
+
+    b, t, h, d = x.shape
+    flat = torch.cat([x.reshape(-1), x.new_zeros(dp)])
+    return flat.as_strided((b, t, h, dp), (t * h * d, h * d, d, 1)).contiguous()
+
+
+def _zero_padded(x, dp: int):
+    import torch.nn.functional as F
+
+    return F.pad(x, (0, dp - x.shape[-1])).contiguous()
+
+
+def _wide_outputs(shapes, d: int, dtype):
+    """For each shape [B, T, H, D]: a [B, T, H, 128] buffer of SENTINEL and
+    its view of the first ``d`` columns, which a kernel stores through its
+    strides."""
+    import torch
+
+    out = []
+    for shape in shapes:
+        buf = torch.full((*shape[:3], 128), SENTINEL, dtype=dtype, device="cuda")
+        out.append((buf, buf[..., :d]))
+    return out
+
+
+def _launch_all(q, k, v, do, lse, o16, d_launch: int, causal: bool, f32: bool, outs):
+    """K1, K2 and K3 (their f32 forms if ``f32``) through their C entry
+    points into the views ``outs`` = (o, dq, dk, dv), at head dim
+    ``d_launch``; returns K1's lse and K2's delta. Checks only: nothing is
+    counted."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    sfx = "_f32" if f32 else ""
+    b, t, h, _ = q.shape
+    dims = (b, t, h, k.shape[2], d_launch, int(causal))
+    stream = torch.cuda.current_stream().cuda_stream
+    o, dq, dk, dv = outs
+    lse2, delta = torch.empty_like(lse), torch.empty_like(lse)
+    attn._launch("hived_flash_fwd" + sfx, (q, k, v, o, lse2), dims, (q, k, v, o), stream)
+    attn._launch("hived_flash_bwd_dq" + sfx, (q, k, v, o16, do, lse, delta, dq), dims,
+                 (q, k, v, o16, do, dq), stream)
+    attn._launch("hived_flash_bwd_dkv" + sfx, (q, k, v, do, lse, delta, dk, dv), dims,
+                 (q, k, v, do, dk, dv), stream)
+    torch.cuda.synchronize()
+    return lse2, delta
+
+
+def _padded_case(d: int, causal: bool, seed: int, plant: bool) -> None:
+    """K1-K3 and their f32 forms at head dim ``d`` against their plain
+    versions (the limits of (b), (f) and (m)); the f32 outputs rounded once
+    to bf16 equal to the bf16 kernels'; every output stored through a view
+    into a 128-wide buffer whose other columns must keep their sentinel;
+    with ``plant``, the two faults the padding invites: a kernel that reads
+    the next head's columns, and one that stores past D."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    c, f32 = PADDED_CASE, torch.float32
+    b, t, h, h_kv, dp = c["b"], c["t"], c["h"], c["h_kv"], _padded(d)
+    q, k, v = (_spread_heads(x) for x in make_qkv(b, t, h, h_kv, d, seed=seed))
+    do = _spread_heads(make_qkv(b, t, h, h_kv, d, seed=seed + 1)[0])
+    o16, lse = attn.flash_forward(q, k, v, causal=causal)
+    o32, lse32 = attn.flash_forward(q, k, v, causal=causal, out_dtype=f32)
+    g16 = attn.flash_backward(q, k, v, o16, lse, do, causal=causal)
+    g32 = attn.flash_backward(q, k, v, o16, lse, do, causal=causal, grad_dtype=f32)
+    o_ref, lse_ref = attn.flash_attention_plain(q, k, v, causal=causal, out_dtype=f32)
+    g_ref = attn.flash_backward_plain(q, k, v, o16, lse, do, causal=causal, grad_dtype=f32)
+    torch.cuda.synchronize()
+    errs = {}
+    for form, o, grads in (("bf16", o16, g16), ("f32", o32, g32)):
+        errs[form] = [("o",) + rel_errs(o, o_ref)] + [
+            (n,) + rel_errs(x, r, floor=1e-3) for n, x, r in zip(("dq", "dk", "dv"), grads, g_ref)]
+    lse_err = float((lse - lse_ref).abs().max())
+    same = (torch.equal(o32.to(torch.bfloat16), o16) and torch.equal(lse32, lse)
+            and all(torch.equal(x.to(torch.bfloat16), y) for x, y in zip(g32, g16)))
+    # every kernel into 128-wide buffers: the sentinels stay, the views equal
+    # the wrappers' outputs bit for bit
+    kept, equal = True, True
+    for dtype, o, grads in ((torch.bfloat16, o16, g16), (f32, o32, g32)):
+        wide = _wide_outputs((q.shape, q.shape, k.shape, v.shape), d, dtype)
+        _launch_all(q, k, v, do, lse, o16, d, causal, dtype == f32, [w[1] for w in wide])
+        kept &= all(bool((buf[..., d:] == SENTINEL).all()) for buf, _ in wide)
+        equal &= all(torch.equal(view, x) for (_, view), x in zip(wide, (o, *grads)))
+    print(f"[q] D={d} (run at {dp}) B={b} T={t} H={h} H_kv={h_kv} causal={causal}: "
+          + "; ".join(f"{form} " + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}"
+                                            for n, fr, rw in e) for form, e in errs.items())
+          + f"; max|lse err| {lse_err:.3e} (limits o {O_REL}/{O_ROW_REL}, gradients "
+          f"{GRAD_REL}/{GRAD_ROW_REL}, lse {LSE_ATOL}); f32 forms rounded equal to bf16: "
+          f"{same}; sentinel columns {d}-127 untouched: {kept}; views equal the outputs: "
+          f"{equal}")
+    for form, e in errs.items():
+        fo, ro = e[0][1:]
+        check(fo <= O_REL and ro <= O_ROW_REL, f"D={d} {form}: K1 disagrees with its plain version")
+        check(all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for _, fr, rw in e[1:]),
+              f"D={d} {form}: K2/K3 disagree with their plain version")
+    check(lse_err <= LSE_ATOL, f"D={d}: K1's lse disagrees with its plain version")
+    check(same, f"D={d}: the f32 forms, rounded to bf16, differ from the bf16 kernels")
+    check(kept, f"D={d}: a kernel stored past the head dim")
+    check(equal, f"D={d}: a kernel's output through a strided view differs")
+    if not plant:
+        return
+    # planted fault 1: a kernel that reads the next head's columns, i.e. the
+    # kernel at the padded width on over-read inputs (q rescaled so that the
+    # scale is the real D's)
+    qo = (_over_read(q, dp).float() * (dp / d) ** 0.5).to(torch.bfloat16)
+    ko, vo, doo = (_over_read(x, dp) for x in (k, v, do))
+    oo, lseo = attn.flash_forward(qo, ko, vo, causal=causal)
+    go = attn.flash_backward(qo, ko, vo, oo, lseo, doo, causal=causal)
+    bad_o = rel_errs(oo[..., :d], o_ref)[1]
+    bad_g = [rel_errs(x[..., :d], r, floor=1e-3)[1] for x, r in zip(go, g_ref)]
+    # planted fault 2: a kernel that stores every padded column, i.e. the
+    # kernel at the padded width on zero-padded inputs into the same buffers
+    wide = _wide_outputs((q.shape, q.shape, k.shape, v.shape), dp, torch.bfloat16)
+    qz, kz, vz, doz, oz = (_zero_padded(x, dp) for x in (q, k, v, do, o16))
+    _launch_all((qz.float() * (dp / d) ** 0.5).to(torch.bfloat16), kz, vz, doz, lse, oz, dp,
+                causal, False, [w[1] for w in wide])
+    overwritten = [not bool((buf[..., d:] == SENTINEL).all()) for buf, _ in wide]
+    print(f"[q] D={d} planted faults: the next head's columns read: worst rows o "
+          f"{bad_o:.3e}, " + ", ".join(f"{n} {x:.3e}" for n, x in zip(("dq", "dk", "dv"), bad_g))
+          + f"; every padded column stored: sentinels overwritten in o, dq, dk, dv "
+          f"{overwritten}")
+    check(bad_o > O_ROW_REL and all(x > GRAD_ROW_REL for x in bad_g),
+          f"D={d}: the checks do not see a kernel that reads the next head's columns")
+    check(all(overwritten), f"D={d}: the sentinel check does not see a store past D")
+
+
+def _phi3_kernel_check() -> dict:
+    """(q) 1: every padded head dim, then K1-K3 at the Phi-3 shape against
+    their plain versions; returns the Phi-3 shape's max |err|."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    for i, d in enumerate(PADDED_DIMS):
+        for causal in (True, False):
+            _padded_case(d, causal, seed=90 + 2 * i, plant=causal)
+    p = PHI3
+    q, k, v = make_qkv(p["b"], p["t"], p["h"], p["h_kv"], p["d"], seed=100)
+    do = make_qkv(p["b"], p["t"], p["h"], p["h_kv"], p["d"], seed=101)[0]
+    o, lse = attn.flash_forward(q, k, v)
+    o_ref, lse_ref = attn.flash_attention_plain(q, k, v)
+    o_fro, o_row = rel_errs(o, o_ref)
+    got = attn.flash_backward(q, k, v, o, lse, do)
+    ref = attn.flash_backward_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    g_errs = [rel_errs(x, r, floor=1e-3) for x, r in zip(got, ref)]
+    max_err = {"fwd": float((o.float() - o_ref.float()).abs().max()),
+               "dq": float((got[0].float() - ref[0].float()).abs().max()),
+               "dkv": max(float((x.float() - r.float()).abs().max())
+                          for x, r in zip(got[1:], ref[1:]))}
+    print(f"[q] Phi-3-mini shape q/k/v [{p['b']},{p['t']},{p['h']},{p['d']}] causal: K1 o rel "
+          f"{o_fro:.3e} worst row {o_row:.3e}, max|lse err| "
+          f"{float((lse - lse_ref).abs().max()):.3e}; K2/K3 "
+          + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}"
+                      for n, (fr, rw) in zip(("dq", "dk", "dv"), g_errs))
+          + f"; max|err| {max_err}")
+    check(o_fro <= O_REL and o_row <= O_ROW_REL, "K1 at the Phi-3 shape disagrees")
+    check(float((lse - lse_ref).abs().max()) <= LSE_ATOL, "K1's lse at the Phi-3 shape disagrees")
+    check(all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for fr, rw in g_errs),
+          "K2/K3 at the Phi-3 shape disagree")
+    del q, k, v, do, o, lse, o_ref, lse_ref, got, ref
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def _phi3_kernel_times() -> dict:
+    """(q) 2: K1, K2 and K3 at the Phi-3 shape (D = 96, run at 128) against
+    the same kernels at D = 128 with the same heads, in turns
+    (``ops/kernel_ab.py``'s inputs and launches); each beside its bound at
+    the real D, the plain version and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    p = PHI3
+    shapes = {d: kernel_ab.inputs(p["b"], p["t"], p["h"], p["h_kv"], d, seed=110)
+              for d in (96, 128)}
+    readings = {key: {96: [], 128: []} for key in kernel_ab.KERNELS}
+    for _ in range(PAD_TURNS):
+        for key in kernel_ab.KERNELS:
+            for d in (128, 96, 96, 128):
+                fn = kernel_ab.runner(None, shapes[d], {}, key)
+                readings[key][d].append(time_ms(fn, iters=20, warmup=3))
+    x = shapes[96]
+    q, k, v, o, lse, do = (x[n] for n in ("q", "k", "v", "o", "lse", "do"))
+    plain = {"fwd": time_ms(lambda: attn.flash_attention_plain(q, k, v), iters=2, warmup=1)}
+    plain["dq"] = plain["dkv"] = time_ms(
+        lambda: attn.flash_backward_plain(q, k, v, o, lse, do), iters=2, warmup=1)
+    qt, kt, vt = (y.transpose(1, 2).contiguous() for y in (q, k, v))
+    qg, kg, vg = (y.clone().requires_grad_(True) for y in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    dout = do.transpose(1, 2).contiguous()
+    library = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=20, warmup=3)}
+    library["dq"] = library["dkv"] = time_ms(
+        lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True),
+        iters=20, warmup=3)
+    timing = {}
+    for key in kernel_ab.KERNELS:
+        bound = {}
+        for d in (96, 128):
+            if key == "fwd":
+                flops = attn.attention_flops(p["b"], p["t"], p["h"], d, True)
+                nbytes = attn.attention_bytes(p["b"], p["t"], p["h"], p["h_kv"], d)
+            else:
+                flops = attn.attention_bwd_flops(p["b"], p["t"], p["h"], d, True)[key]
+                nbytes = attn.attention_bwd_bytes(p["b"], p["t"], p["h"], p["h_kv"], d)[key]
+            ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+            bound[d] = (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
+                        flops, nbytes)
+        med = {d: sorted(r)[len(r) // 2] for d, r in readings[key].items()}
+        print(f"[q] {key} at the Phi-3 shape [{p['b']},{p['t']},{p['h']},D] causal, in turns: "
+              + "; ".join(f"D={d}: kernel_ms {', '.join(f'{r:.4f}' for r in readings[key][d])} "
+                          f"(median {med[d]:.4f}), bound_ms {bound[d][0]:.4f} ({bound[d][1]}: "
+                          f"{bound[d][2] / 1e9:.1f} GFLOP, {bound[d][3] / 1e6:.1f} MB) -> "
+                          f"{bound[d][0] / med[d]:.1%} of the bound" for d in (96, 128))
+              + f"; D=96 / D=128 time {med[96] / med[128]:.3f} (the padded work is 1.000, "
+              f"the real work 0.750); at D=96 plain_ms {plain[key]:.3f}, library_ms "
+              f"{library[key]:.4f} ({'forward' if key == 'fwd' else 'whole backward'})")
+        timing[key] = dict(ms=med[96], plain_ms=plain[key], library_ms=library[key],
+                           bound_ms=bound[96][0], bound_by=bound[96][1])
+    del shapes, x, q, k, v, o, lse, do, qt, kt, vt, qg, kg, vg, lib_out, dout
+    torch.cuda.empty_cache()
+    return timing
+
+
+def _phi3_eval() -> int:
+    """(q) 3: eval at all 32 layers, flash against xla; K1's launches."""
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    attn.FLASH_FWD_LAUNCHES = 0
+    loss_f, _, _ = run_eval("flash", EVAL_WINDOWS, PHI3_EVAL_ARGS)
+    launches = attn.FLASH_FWD_LAUNCHES
+    loss_x, _, _ = run_eval("xla", EVAL_WINDOWS, PHI3_EVAL_ARGS)
+    print(f"[q] eval at Phi-3-mini's width ({PHI3_EVAL_LAYERS} layers): loss flash "
+          f"{loss_f:.6f} (K1 launches {launches}, want {PHI3_EVAL_LAYERS} x {EVAL_WINDOWS}), "
+          f"xla {loss_x:.6f}: |flash - xla| {abs(loss_f - loss_x):.3e} (<= {LOSS_ATOL})")
+    check(launches == PHI3_EVAL_LAYERS * EVAL_WINDOWS, f"Phi-3 eval launched K1 {launches} times")
+    check(abs(loss_f - loss_x) <= LOSS_ATOL, "Phi-3 flash and xla eval losses disagree")
+    for impl in ("flash", "xla"):
+        _, window_ms, tokens_per_s = run_eval(impl, PHI3_TIMED_WINDOWS, PHI3_EVAL_ARGS)
+        print(f"[q] eval window --attn {impl} (B={EVAL_BATCH}, T={EVAL_SEQ}, "
+              f"{PHI3_EVAL_LAYERS} layers, {PHI3_TIMED_WINDOWS} windows): {window_ms} ms, "
+              f"{tokens_per_s} tokens/s")
+    phase_hidden_check(dict(PHI3_MODEL, n_layers=PHI3_EVAL_LAYERS), "[q]",
+                       f"one Phi-3-mini window, {PHI3_EVAL_LAYERS} layers")
+    return launches
+
+
+def _phi3_train() -> dict:
+    """(q) 4: train at 6 layers, flash against xla; the launches, step ms,
+    tokens/s and peak memory, then one step's gradients by leaf group."""
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
+    runs = {"flash": run_train("flash", TRAIN_STEPS, PHI3_TRAIN_ARGS)}
+    launches = {"fwd": attn.FLASH_FWD_LAUNCHES, "dq": attn.FLASH_BWD_DQ_LAUNCHES,
+                "dkv": attn.FLASH_BWD_DKV_LAUNCHES}
+    runs["xla"] = run_train("xla", TRAIN_STEPS, PHI3_TRAIN_ARGS)
+    want = {"fwd": 2 * PHI3_LAYERS * TRAIN_STEPS, "dq": PHI3_LAYERS * TRAIN_STEPS,
+            "dkv": PHI3_LAYERS * TRAIN_STEPS}
+    losses = {impl: [r["loss"] for r in records] for impl, (records, _) in runs.items()}
+    diff = max(abs(a - b) for a, b in zip(losses["flash"], losses["xla"]))
+    print(f"[q] train at Phi-3-mini's width ({PHI3_LAYERS} layers, remat dots, ce_chunk "
+          f"{EVAL_CE_CHUNK}): losses flash {losses['flash']}, xla {losses['xla']}: max |flash - "
+          f"xla| {diff:.3e} (<= {LOSS_ATOL}); launches over {TRAIN_STEPS} steps {launches} "
+          f"(want {want})")
+    check(launches == want, f"the Phi-3 train run launched {launches}, want {want}")
+    check(diff <= LOSS_ATOL, "Phi-3 flash and xla train losses disagree")
+    for impl, (records, peak) in runs.items():
+        timed = [r for r in records if not r["compile"]]
+        step_ms = sum(r["wall_s"] for r in timed) / len(timed) * 1e3
+        print(f"[q] train step --attn {impl} (B={EVAL_BATCH}, T={EVAL_SEQ}, {PHI3_LAYERS} "
+              f"layers, mean of {len(timed)} steps after the warm-up): {step_ms} ms, "
+              f"{EVAL_BATCH * EVAL_SEQ / (step_ms / 1e3)} tokens/s, peak device memory "
+              f"{peak / 1e9:.2f} GB")
+    phase_train_grads(dict(PHI3_MODEL, n_layers=PHI3_LAYERS), "[q]",
+                      f"one Phi-3-mini step, {PHI3_LAYERS} layers")
+    return launches
+
+
+def _phi3_generate() -> None:
+    """(q) 5: greedy generate at (j)'s shape: its tokens the argmax of
+    their own advance sequence, no K1-K3 launch; tokens/s."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import decode as dec
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW,
+                               **dict(PHI3_MODEL, n_layers=PHI3_LAYERS))
+    params = tm.cast_params(tm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    torch.cuda.empty_cache()
+    prompt = torch.randint(0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    attn.FLASH_FWD_LAUNCHES = 0
+    toks = dec.generate(params, prompt, cfg, DEC_NEW)
+    inc = _decode_sequence(params, cfg, prompt, toks)[:, DEC_PROMPT - 1:]
+    exact = int((inc.argmax(-1) != toks).sum())
+    with torch.inference_mode():
+        full = tm.forward(params, torch.cat([prompt, toks], 1)[:, :-1], cfg)[:, DEC_PROMPT - 1:]
+    rel = _per_position_rel(inc, full)
+    wall = _host_ms(lambda: dec.generate(params, prompt, cfg, DEC_NEW), 2)
+    med = sorted(wall)[len(wall) // 2]
+    print(f"[q] generate at Phi-3-mini's width ({PHI3_LAYERS} layers, B={DEC_BATCH}, prompt "
+          f"{DEC_PROMPT}, {DEC_NEW} new): {exact} tokens differ from the argmax of their "
+          f"advance sequence; decode logits against the full forward, worst position rel "
+          f"{rel:.3e} (<= {DEC_LOGIT_REL}); K1 launches {attn.FLASH_FWD_LAUNCHES}; wall "
+          f"{', '.join(f'{t:.2f}' for t in wall)} ms, {DEC_BATCH * DEC_NEW / (med / 1e3):.1f} "
+          f"tokens/s")
+    check(exact == 0 and bool(torch.isfinite(inc).all()),
+          "Phi-3 greedy tokens disagree with their advance sequence")
+    check(rel <= DEC_LOGIT_REL, "Phi-3 decode logits disagree with the full forward")
+    check(attn.FLASH_FWD_LAUNCHES == 0, "Phi-3 decode launched a flash kernel")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _phi3_serve() -> None:
+    """(q) 6: (k)'s trace at Phi-3-mini's width: dense and paged, eager and
+    graph windows, token-identical and at decisive positions the full
+    forward's argmax; int8 KV (per-head scales) dense and paged
+    token-identical; TPOT p50."""
+    import torch
+
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+    from hivedscheduler_tpu_torch.models import serving as srv
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **dict(PHI3_MODEL, n_layers=PHI3_LAYERS))
+    params = tm.cast_params(tm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    torch.cuda.empty_cache()
+    prompts = _srv_prompts(cfg.vocab_size, SRV_REQUESTS, seed=2)
+    runs = dict(SRV_RUNS, **{f"int8 KV {name}": dict(kw, kv_dtype="int8")
+                             for name, kw in SRV_RUNS.items() if "graph" in name})
+    engines, out = {}, {}
+    for name, kw in runs.items():
+        engines[name] = srv.ServingEngine(params, cfg, max_batch=SRV_BATCH,
+                                          max_len=SRV_MAX_LEN, **kw)
+        out[name] = _serve(engines[name], prompts, SRV_BUDGET)
+        if engines[name].paged:
+            inv.check_block_pool(engines[name], name)
+        if engines[name].decode_steps > 1:
+            check(engines[name].graph_windows == engines[name].fused_windows > 0,
+                  f"Phi-3 {name}: windows did not run through the CUDA graph")
+    ref, ref8 = _streams(out["dense eager"]), _streams(out["int8 KV dense graph"])
+    same = {name: sum(a != b for a, b in zip(_streams(run), ref8 if "int8" in name else ref))
+            for name, run in out.items()}
+    full = _teacher_forced(params, cfg, prompts, ref)
+    eng_logits = [_engine_logits(params, cfg, prompts[i], ref[i]) for i in range(SRV_NOISE_ROWS)]
+    noise = max(float((e - f).abs().max()) for e, f in zip(eng_logits, full))
+    n_dec, miss = _decisive_misses(full, ref, noise)
+    print(f"[q] serve at Phi-3-mini's width ({PHI3_LAYERS} layers, {SRV_REQUESTS} requests, "
+          f"budget {SRV_BUDGET}, max_batch {SRV_BATCH}): requests whose stream differs from "
+          f"dense eager (int8 KV: from int8 KV dense graph): {same}; {miss} of {n_dec} "
+          f"decisive positions differ from the full forward's argmax (margin > 2 x "
+          f"{noise:.3e})")
+    check(all(v == 0 for v in same.values()), "Phi-3 dense/paged, eager/graph streams differ")
+    check(miss == 0 and n_dec > 0, "Phi-3 engine streams disagree with the full forward")
+    for name in runs:
+        st = _serve_stats(_serve(engines[name], prompts, SRV_BUDGET), SRV_BATCH)
+        print(f"[q] serve {name}: {st['tps']:.1f} tokens/s, TTFT p50 {st['ttft_p50']:.2f} ms, "
+              f"TPOT p50 {st['tpot_p50']:.3f} ms (max {st['tpot_max']:.3f})")
+    del engines, out, params
+    torch.cuda.empty_cache()
+
+
+def phase_phi3() -> dict:
+    """(q): K1-K3 and their f32 forms at the padded head dims, then
+    Phi-3-mini's width (head dim 96) through eval, train, generate and
+    serve. Returns the D = 96 rows of the kernels line."""
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    max_err = timed("kernel checks", _phi3_kernel_check)
+    timing = timed("kernel times", _phi3_kernel_times)
+    eval_k1 = timed("eval", _phi3_eval)
+    launches = timed("train", _phi3_train)
+    timed("generate", _phi3_generate)
+    timed("serve", _phi3_serve)
+    print(f"[q] phase wall time {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()) + ")")
+    # launches: K1 over the eval run (4 windows) and the train run (3 steps);
+    # K2 and K3 over the train run
+    launches["fwd"] += eval_k1
+    return {key: dict(launches=launches[key], max_abs_err=max_err[key], **timing[key])
+            for key in ("fwd", "dq", "dkv")}
+
+
 def main() -> int:
     import torch
 
@@ -3490,6 +3965,7 @@ def main() -> int:
         phase_spec(srv, lora_dir)
     finally:
         shutil.rmtree(lora_dir, ignore_errors=True)
+    phi3 = phase_phi3()
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"
@@ -3508,6 +3984,14 @@ def main() -> int:
     kernels += [
         dict(name=f"{name}_f32", route="cuda", source=source + lib,
              replaces=f"hivedscheduler_tpu/ops/attention.py:{line}", **ring[key])
+        for name, key, lib, line in (("flash_fwd", "fwd", "flash_fwd.cu", 98),
+                                     ("flash_bwd_dq", "dq", "flash_bwd.cu", 143),
+                                     ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 179))]
+    # the same kernels at Phi-3-mini's head dim 96 (run at 128): launches of
+    # (q)'s eval and train runs, times at its shape
+    kernels += [
+        dict(name=f"{name}_d96", route="cuda", source=source + lib,
+             replaces=f"hivedscheduler_tpu/ops/attention.py:{line}", **phi3[key])
         for name, key, lib, line in (("flash_fwd", "fwd", "flash_fwd.cu", 98),
                                      ("flash_bwd_dq", "dq", "flash_bwd.cu", 143),
                                      ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 179))]

@@ -23,15 +23,19 @@ head ``i // (H // H_kv)``).
   (``parallel/ring_attention.py``) calls once a hop and merges in f32.
 - :class:`FlashAttention` joins them as one differentiable op, the
   counterpart of the JAX package's ``_flash_core`` custom_vjp, and
-  :func:`flash_attention` is what ``attn_impl="flash"`` calls: on a CUDA
-  tensor the kernels, for every shape (they tile a ragged T themselves), or
-  an error; on a CPU tensor the JAX package's shape rules choose between
-  the plain versions and the reference.
+  :func:`flash_attention` is what ``attn_impl="flash"`` calls: the
+  reference where the JAX package's takes it for every backend (D not a
+  multiple of 8, a k length other than q's); otherwise on a CUDA tensor
+  the kernels, for every T (they tile a ragged T themselves), or an error;
+  on a CPU tensor the JAX package's other shape rules choose between the
+  plain versions and the reference.
 
 The kernels replace ``hivedscheduler_tpu/ops/attention.py::_fwd_kernel``,
 ``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``. All three run wgmma on
 TMA-fed shared tiles with a producer warpgroup and two consumer warpgroups
-(``csrc/hopper.cuh``). The wrappers
+(``csrc/hopper.cuh``). They take bf16 inputs at every head dim that is a
+multiple of 8 up to 128, each run at its padded width, 64 or 128 (D = 96
+runs the 128 template, 4/3 of the real work). The wrappers
 keep their C entry points: pointers, dims, [B, T, H] element strides and
 the stream; the tensor maps are encoded inside. On an H100 the tensor cores
 bound all three: at the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128,
@@ -59,12 +63,14 @@ FLASH_BWD_DKV_LAUNCHES = 0
 FLASH_FWD_F32_LAUNCHES = 0
 FLASH_BWD_DQ_F32_LAUNCHES = 0
 FLASH_BWD_DKV_F32_LAUNCHES = 0
-# calls of flash_attention on the CPU that took the reference (shapes that
-# don't tile, by the JAX package's rules)
+# calls of flash_attention that took the reference (shapes that don't tile,
+# by the JAX package's rules)
 FLASH_REFERENCE_ROUTES = 0
 
 KERNEL_DTYPES = (torch.bfloat16,)
-KERNEL_HEAD_DIMS = (64, 128)
+# every multiple of 8 up to 128, each run at its padded width 64 or 128
+# (csrc/flash_common.cuh)
+KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
 # the output dtypes of the kernels' two forms (None: the input's bf16)
 KERNEL_OUT_DTYPES = (None, torch.float32)
 
@@ -219,7 +225,8 @@ def _check_kernel_inputs(q, k, v) -> None:
                          f"match q {tuple(q.shape)}")
     _check_gqa(h, k.shape[2])
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel head dims are {KERNEL_HEAD_DIMS}, got {d}")
+        raise ValueError(f"flash kernel head dims are the multiples of 8 up to "
+                         f"{KERNEL_HEAD_DIMS[-1]}, got {d}")
 
 
 def _kernel_readable(x: torch.Tensor) -> torch.Tensor:
@@ -392,24 +399,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Differentiable flash attention: q [B, T, H, D], k/v [B, T, H_kv, D]
     -> [B, T, H, D], through :class:`FlashAttention`.
 
-    A CUDA tensor always goes to the kernels, which tile any T themselves
-    (K1 and K2 in 128-row q tiles, K3 in 64-key tiles) and raise on what
-    they do not take (dtype, head dim, layout, a k length other than q's).
-    A CPU tensor follows the JAX package's ``flash_attention``:
-    :func:`xla_attention`, counted, where T is not divisible by ``block_q``
-    or ``block_k``, D is not a multiple of 8, H is not divisible by H_kv, or
-    k's length differs from q's; the plain versions of the kernels
-    otherwise. A DTensor input raises ``TypeError``: the op takes each
-    rank's local shard."""
+    On every device, as the JAX package's ``flash_attention`` does:
+    :func:`xla_attention`, counted, where D is not a multiple of 8 or k's
+    length differs from q's. Its other shape rules apply on the CPU only:
+    there a T not divisible by ``block_q`` or ``block_k``, or H not
+    divisible by H_kv, takes the reference too (which raises on the
+    latter, as JAX's does), and the plain versions of the kernels run
+    otherwise. A CUDA tensor goes to the kernels, which tile any T
+    themselves (K1 and K2 in 128-row q tiles, K3 in 64-key tiles) and raise
+    on what they do not take (dtype, a head dim past 128, layout, GQA). The
+    route is chosen from the shapes before any launch; a kernel that fails
+    to build or launch raises. A DTensor input raises ``TypeError``: the op
+    takes each rank's local shard."""
     global FLASH_REFERENCE_ROUTES
     _refuse_dtensor(q, k, v)
-    if q.device.type == "cpu":
-        _, t, h, d = q.shape
-        h_kv = k.shape[2]
-        if (t % block_q or t % block_k or d % 8 or (h_kv and h % h_kv)
-                or k.shape[1] != t):
-            FLASH_REFERENCE_ROUTES += 1
-            return xla_attention(q, k, v, causal=causal)
+    _, t, h, d = q.shape
+    h_kv = k.shape[2]
+    if (d % 8 or k.shape[1] != t
+            or (q.device.type == "cpu" and (t % block_q or t % block_k or (h_kv and h % h_kv)))):
+        FLASH_REFERENCE_ROUTES += 1
+        return xla_attention(q, k, v, causal=causal)
     return FlashAttention.apply(q, k, v, causal)
 
 

@@ -79,6 +79,14 @@
 //   and for rows past T, and ds^T = 0 with it.
 // Inputs are addressed through their [B, T, H, D] strides (D contiguous).
 //
+// Head dims: as K1 (flash_fwd.cu), any D that is a multiple of 8 up to 128
+// runs on the template of its padded width Dp = 64 or 128. TMA fills the
+// columns of a box past the real D with zeros and credits the whole box to
+// the stage's barrier, so the expect_tx counts stay the full tiles' bytes;
+// zero columns of q, k, v and do add nothing to s, dp, dq, dk or dv. K2's
+// delta reads o from global memory only below D, and every epilogue stores
+// only columns < D. The scale is the real D's.
+//
 // Output type: dq, dk and dv are stored in bf16 (hived_flash_bwd_dq,
 // hived_flash_bwd_dkv) or in f32 (the _f32 entry points), the counterpart
 // of _flash_backward's grad_dtype=f32, which the sequence-parallel ring
@@ -130,6 +138,7 @@ struct DqArgs {
   float* delta;
   void* dq;  // bf16 or f32, the kernel's OutT
   int T, H, group;
+  int D;  // the real head dim; the kernel runs at its template's padded width
   Strides so, sdq;
   float scale;
 };
@@ -238,8 +247,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int64_t lrow = static_cast<int64_t>(bh) * T;
 
   // delta = rowsum(do * o) for the warp's 16 rows, two lanes a row, each
-  // summing half of D in f32: do from its swizzled tile (chunk c of row r at
-  // chunk c ^ (r % 8)), o from global memory
+  // summing half of the padded width in f32: do from its swizzled tile (chunk
+  // c of row r at chunk c ^ (r % 8)), o from global memory, columns < the
+  // real D only (past it lies the next head's o; D % 8 == 0 keeps each
+  // 8-column chunk whole)
   mbar_wait(qdo_full, 0);
   {
     const int r = r0 + lane / 2;
@@ -251,6 +262,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 #pragma unroll
       for (int cc = 0; cc < D / 2; cc += 8) {
         const int col = c0 + cc;
+        if (col >= a.D) break;
         const bf16* drow =
             sDo + (col / 64) * kDqBlockM * 64 + r * 64 + ((((col % 64) / 8) ^ (r & 7)) * 8);
         const uint4 dv = *reinterpret_cast<const uint4*>(drow);
@@ -339,11 +351,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   OutT* dqp = at(static_cast<OutT*>(a.dq), a.sdq, b, h);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
+    const bool live = n * 8 < a.D;  // padding columns past the real D: not stored
     const int col = n * 8 + 2 * t4;
-    if (row_a < T) {
+    if (live && row_a < T) {
       store_out2(dqp + row_a * a.sdq.t + col, acc[4 * n] * a.scale, acc[4 * n + 1] * a.scale);
     }
-    if (row_b < T) {
+    if (live && row_b < T) {
       store_out2(dqp + row_b * a.sdq.t + col, acc[4 * n + 2] * a.scale,
                  acc[4 * n + 3] * a.scale);
     }
@@ -384,6 +397,7 @@ struct DkvArgs {
   void* dk;  // bf16 or f32, the kernel's OutT
   void* dv;
   int T, H, group;
+  int D;  // the real head dim; the kernel runs at its template's padded width
   Strides sdk, sdv;
   float scale;
 };
@@ -605,9 +619,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     OutT* dvp = at(static_cast<OutT*>(a.dv), a.sdv, b, h_kv);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
+      const bool live = n * 8 < a.D;  // padding columns past the real D: not stored
       const int col = n * 8 + 2 * t4;
-      if (key_a < T) store_out2(dvp + key_a * a.sdv.t + col, dv[4 * n], dv[4 * n + 1]);
-      if (key_b < T) store_out2(dvp + key_b * a.sdv.t + col, dv[4 * n + 2], dv[4 * n + 3]);
+      if (live && key_a < T) store_out2(dvp + key_a * a.sdv.t + col, dv[4 * n], dv[4 * n + 1]);
+      if (live && key_b < T) {
+        store_out2(dvp + key_b * a.sdv.t + col, dv[4 * n + 2], dv[4 * n + 3]);
+      }
     }
     return;
   }
@@ -674,11 +691,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   OutT* dkp = at(static_cast<OutT*>(a.dk), a.sdk, b, h_kv);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
+    const bool live = n * 8 < a.D;
     const int col = n * 8 + 2 * t4;
-    if (key_a < T) {
+    if (live && key_a < T) {
       store_out2(dkp + key_a * a.sdk.t + col, dk[4 * n] * a.scale, dk[4 * n + 1] * a.scale);
     }
-    if (key_b < T) {
+    if (live && key_b < T) {
       store_out2(dkp + key_b * a.sdk.t + col, dk[4 * n + 2] * a.scale,
                  dk[4 * n + 3] * a.scale);
     }
@@ -709,7 +727,7 @@ cudaError_t launch_dkv(const DkvArgs& a, int B, cudaStream_t stream) {
 }
 
 bool bad_dims(int B, int T, int H, int H_kv, int D) {
-  return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || (D != 64 && D != 128);
+  return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || !head_dim_ok(D);
 }
 
 template <typename OutT>
@@ -733,12 +751,13 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   a.T = T;
   a.H = H;
   a.group = H / H_kv;
+  a.D = D;
   a.so = {o_sb, o_st, o_sh};
   a.sdq = {dq_sb, dq_st, dq_sh};
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t launched;
-  if (D == 64) {
+  if (padded_head_dim(D) == 64) {
     launched = causal ? launch_dq<64, true, OutT>(a, B, s) : launch_dq<64, false, OutT>(a, B, s);
   } else {
     launched =
@@ -768,12 +787,13 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   a.T = T;
   a.H = H;
   a.group = H / H_kv;
+  a.D = D;
   a.sdk = {dk_sb, dk_st, dk_sh};
   a.sdv = {dv_sb, dv_st, dv_sh};
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t launched;
-  if (D == 64) {
+  if (padded_head_dim(D) == 64) {
     launched =
         causal ? launch_dkv<64, true, OutT>(a, B, s) : launch_dkv<64, false, OutT>(a, B, s);
   } else {

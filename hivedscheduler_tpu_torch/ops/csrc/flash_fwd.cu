@@ -39,6 +39,13 @@
 // Inputs are addressed through their [B, T, H, D] strides (D contiguous):
 // tensor maps are encoded per call from the strides, so the caller makes no
 // [B*H, T, D] copy.
+// Head dims: any D that is a multiple of 8 up to 128 runs on the template
+// of its padded width Dp = 64 or 128 (flash_common.cuh). The tensor maps
+// declare the real D, so TMA fills a box's columns past D with zeros (and
+// credits the whole box to the stage's barrier, as for rows past T): zero
+// q and k columns leave the scores unchanged, zero v columns give zero o
+// columns, and the epilogue stores only columns < D. The scale is the real
+// D's. The tensor cores do Dp / D times the work (4/3 at D = 96).
 //
 // Output type: o is stored in bf16 (hived_flash_fwd) or in f32
 // (hived_flash_fwd_f32), the counterpart of _flash_forward's out_dtype=f32,
@@ -75,6 +82,7 @@ struct FwdArgs {
   void* o;  // bf16 or f32, the kernel's OutT
   float* lse;
   int T, H, group;
+  int D;  // the real head dim; the kernel runs at its template's padded width
   int64_t o_sb, o_st, o_sh;
   float scale;
 };
@@ -277,9 +285,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   OutT* op = static_cast<OutT*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
+    // columns at or past the real D are padding: the next head's o lies there
+    const bool live = n * 8 < a.D;
     const int col = n * 8 + 2 * t4;
-    if (row_a < T) store_out2(op + row_a * a.o_st + col, o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
-    if (row_b < T) {
+    if (live && row_a < T) {
+      store_out2(op + row_a * a.o_st + col, o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
+    }
+    if (live && row_b < T) {
       store_out2(op + row_b * a.o_st + col, o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
     }
   }
@@ -314,7 +326,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int64_t v_sb, int64_t v_st, int64_t v_sh,
               int64_t o_sb, int64_t o_st, int64_t o_sh,
               void* stream) {
-  if (B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || (D != 64 && D != 128)) {
+  if (B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || !head_dim_ok(D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FwdArgs a;
@@ -327,11 +339,13 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   a.T = T;
   a.H = H;
   a.group = H / H_kv;
+  a.D = D;
   a.o_sb = o_sb; a.o_st = o_st; a.o_sh = o_sh;
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t launched =
-      D == 64 ? launch_d<64, OutT>(a, B, causal, s) : launch_d<128, OutT>(a, B, causal, s);
+      padded_head_dim(D) == 64 ? launch_d<64, OutT>(a, B, causal, s)
+                               : launch_d<128, OutT>(a, B, causal, s);
   return static_cast<int>(launched);
 }
 

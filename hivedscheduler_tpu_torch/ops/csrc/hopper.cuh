@@ -65,7 +65,10 @@ inline EncodeTiled encode_tiled() {
 // Tensor map of a bf16 [B, T, heads, D] tensor with element strides (sb, st,
 // sh) and D contiguous, over the 4-D box space (D, heads, T, B): a box is 64
 // columns of one head and `rows` rows of one batch, 128-byte swizzled, so
-// rows at or past T read as zeros and never come from the next batch.
+// rows at or past T read as zeros and never come from the next batch, and
+// columns at or past D (the padding of a kernel run at a wider template)
+// read as zeros and never come from the next head. Either way the box's
+// full bytes complete on its barrier.
 // Returns 0 or the CUresult of the encoder.
 inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T, int heads, int D,
                          int64_t sb, int64_t st, int64_t sh, int rows) {

@@ -30,13 +30,14 @@ diagonal hop.
   sharded axis from sequence to heads, the plain attention runs on the
   whole sequence, and a second all-to-all swaps back.
 
-Routing, as the JAX package's: on a CUDA tensor the flash rings launch the
-f32 kernels at every hop, or raise. On a CPU tensor they run the kernels'
-plain versions where JAX's interpret-mode kernels would run, and the
-einsum ring (counted in ``RING_REFERENCE_ROUTES``) where JAX falls back:
-shapes that do not tile, or inside a mesh context (a non-empty
-``mesh_axes``), where the Pallas interpreter cannot run under the vma
-checker.
+Routing, as the JAX package's: on any device a head dim that is not a
+multiple of 8 takes the einsum ring (counted in ``RING_REFERENCE_ROUTES``),
+as JAX's rings do on every backend. Otherwise on a CUDA tensor the flash
+rings launch the f32 kernels at every hop, or raise. On a CPU tensor they
+run the kernels' plain versions where JAX's interpret-mode kernels would
+run, and the einsum ring where JAX falls back: shapes that do not tile,
+or inside a mesh context (a non-empty ``mesh_axes``), where the Pallas
+interpreter cannot run under the vma checker.
 
 The per-hop functions (``_flash_block``, ``_merge_flash_partial``,
 ``_flash_block_grad``, ``_ring_hop``, ``_zigzag_hops``) are module-level,
@@ -56,8 +57,9 @@ from hivedscheduler_tpu_torch.ops import attention
 NEG_INF = -1e30
 _CLAMP = -0.5 * abs(NEG_INF)  # the m_safe clamp of fully masked rows
 
-# calls of the flash rings on the CPU that took the einsum ring, by the
-# JAX package's route rules (shapes that do not tile, or a mesh context)
+# calls of the flash rings that took the einsum ring, by the JAX package's
+# route rules (a head dim not a multiple of 8; on the CPU also shapes that
+# do not tile, or a mesh context)
 RING_REFERENCE_ROUTES = 0
 
 
@@ -385,12 +387,17 @@ def _kernels_tile(q, k, block_q: int, block_k: int) -> bool:
 
 
 def _einsum_route(q, k, mesh_axes, block_q: int, block_k: int) -> bool:
-    """Whether a flash ring on these tensors takes the einsum ring instead:
-    never on a CUDA tensor (the kernels run or raise); on a CPU tensor
-    where JAX's interpret-mode kernels would not run (shapes that do not
-    tile, or a mesh context); counted."""
+    """Whether a flash ring on these tensors takes the einsum ring instead,
+    counted: on any device where D is not a multiple of 8, as JAX's ring
+    does on every backend; on a CPU tensor also where JAX's interpret-mode
+    kernels would not run (shapes that do not tile, or a mesh context). A
+    CUDA tensor otherwise runs the kernels, which tile any T, or raises."""
     global RING_REFERENCE_ROUTES
-    if q.device.type != "cpu" or (_kernels_tile(q, k, block_q, block_k) and not mesh_axes):
+    if q.device.type == "cpu":
+        kernels = _kernels_tile(q, k, block_q, block_k) and not mesh_axes
+    else:
+        kernels = q.shape[3] % 8 == 0
+    if kernels:
         return False
     RING_REFERENCE_ROUTES += 1
     return True

@@ -38,17 +38,23 @@ def _jax_flash_forward(q, k, v, causal, block_q, block_k):
     return np.asarray(o), np.asarray(lse)
 
 
+# head dims of the kernels' cases: 32, and D = 80 and 96 (Phi-2's and
+# Phi-3-mini's), which the card's kernels run at their padded width 128
+HEAD_DIMS = [32, 80, 96]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h_kv", [4, 2, 1])
-def test_plain_flash_matches_jax_kernel(causal, h_kv):
+def test_plain_flash_matches_jax_kernel(causal, h_kv, d):
     # T=256 over blocks 128/64: two q blocks, four k blocks, so the causal
     # diagonal block and the skipped blocks above it are both exercised
-    q, k, v = _qkv(0, 1, 256, 4, h_kv, 32)
+    q, k, v = _qkv(0, 1, 256, 4, h_kv, d)
     o_ref, lse_ref = _jax_flash_forward(q, k, v, causal, 128, 64)
     o, lse = tattn.flash_attention_plain(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=causal)
-    assert o.shape == (1, 256, 4, 32) and o.dtype == torch.float32
+    assert o.shape == (1, 256, 4, d) and o.dtype == torch.float32
     assert lse.shape == (4, 256) and lse.dtype == torch.float32
     np.testing.assert_allclose(o.numpy(), o_ref, atol=ATOL)
     # the TPU kernel stores lse 128 lanes wide, every lane equal
@@ -187,6 +193,40 @@ def test_flash_attention_off_the_cpu_never_takes_the_reference():
     assert tattn.FLASH_REFERENCE_ROUTES == before
 
 
+@pytest.mark.parametrize("case", ["d_not_mult_8", "cross_length_k"])
+def test_flash_attention_off_the_cpu_takes_the_reference_where_jax_does(case, monkeypatch):
+    # JAX's flash_attention returns xla_attention for these shapes on every
+    # backend, before any kernel: so does the port off the CPU (a meta
+    # tensor stands in for a CUDA one), counted, and no kernel is reached
+    shape, h_kv, t_k, bq, bk = ROUTE_CASES[case]
+    b, t, h, d = shape
+    q = torch.empty(shape, device="meta")
+    k = torch.empty((b, t_k or t, h_kv, d), device="meta")
+    monkeypatch.setattr(tattn.FlashAttention, "apply", staticmethod(
+        lambda *a: pytest.fail("the kernels' op was reached")))
+    before = tattn.FLASH_REFERENCE_ROUTES
+    out = tattn.flash_attention(q, k, k, block_q=bq, block_k=bk)
+    assert tattn.FLASH_REFERENCE_ROUTES == before + 1
+    assert out.shape == shape and out.device.type == "meta"
+    # JAX's choice on the same shapes
+    jax_routes = []
+    real = jattn.xla_attention
+    monkeypatch.setattr(jattn, "xla_attention",
+                        lambda *a, **kw: jax_routes.append(1) or real(*a, **kw))
+    qj, kj, _ = _qkv(5, b, t, h, h_kv, d, t_k=t_k)
+    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        jattn.flash_attention(jnp.asarray(qj), jnp.asarray(kj), jnp.asarray(kj),
+                              block_q=bq, block_k=bk, interpret=True)
+    assert jax_routes == [1]
+
+
+def test_head_dims_the_kernels_take():
+    # every multiple of 8 up to 128, each run at the padded width 64 or 128
+    assert tattn.KERNEL_HEAD_DIMS == tuple(range(8, 129, 8))
+    assert {32, 80, 96, 112} <= set(tattn.KERNEL_HEAD_DIMS)
+    assert not {12, 136, 256} & set(tattn.KERNEL_HEAD_DIMS)
+
+
 def test_flagship_bound_counts():
     # the numbers the kernel's source note and PERF.md state
     flops = tattn.attention_flops(8, 2048, 16, 128, causal=True)
@@ -214,12 +254,13 @@ def _jax_flash_backward(q, k, v, do, causal, block_q, block_k):
     return np.array(o), np.array(lse[..., 0]), [np.array(g) for g in grads]
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h_kv", [4, 2, 1])
-def test_plain_backward_matches_jax_kernels(causal, h_kv):
+def test_plain_backward_matches_jax_kernels(causal, h_kv, d):
     # T=256 over blocks 128/64: the dq kernel walks k blocks up to the
     # diagonal, the dk/dv kernel q blocks from it, and GQA sums the group
-    q, k, v = _qkv(10, 1, 256, 4, h_kv, 32)
+    q, k, v = _qkv(10, 1, 256, 4, h_kv, d)
     do = np.random.default_rng(11).standard_normal(q.shape, dtype=np.float32)
     o, lse, want = _jax_flash_backward(q, k, v, do, causal, 128, 64)
     got = tattn.flash_backward_plain(
@@ -250,10 +291,11 @@ def _sin_loss_grads(fn, q, k, v):
     return [g.numpy() for g in torch.autograd.grad(loss, (qt, kt, vt))]
 
 
+@pytest.mark.parametrize("d", [16] + HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h_kv", [4, 1])
-def test_flash_attention_grads_match_jax_grad(causal, h_kv):
-    q, k, v = _qkv(14, 1, 256, 4, h_kv, 16)
+def test_flash_attention_grads_match_jax_grad(causal, h_kv, d):
+    q, k, v = _qkv(14, 1, 256, 4, h_kv, d)
     with jax.default_device(jax.local_devices(backend="cpu")[0]):
         want = jax.grad(
             lambda q, k, v: jnp.sum(jnp.sin(jattn.flash_attention(

@@ -36,7 +36,11 @@ and its train step on the one-GPU NCCL mesh equals the single-device step.
 A LoRA step on the card launches K1-K3, leaves the base bit-identical and
 its first loss equal to the dense step's; the speculative engine with the
 target as its own draft serves the plain engine's greedy streams wherever
-the target's top-1 margin is decisive.
+the target's top-1 margin is decisive. K1-K3 and their f32 forms hold at
+head dims other than 64 and 128 (32, 80, 96, 112, run at the padded width
+64 or 128), and store nothing past D into a wider output buffer; a head
+dim off the multiples of 8 or a cross-length k takes ``xla_attention``, as
+in the JAX package, and the raw kernel call refuses D = 12 and D = 136.
 """
 
 import os
@@ -100,6 +104,15 @@ EDGE_SHAPES = [
     (2, 40, 4, 1, 64, True),    # T shorter than one tile, MQA
     (2, 320, 4, 2, 64, False),  # non-causal D=64, ragged 128-row tile
 ]
+# head dims other than 64 and 128, run at the padded width 64 (D=32) or 128
+# (D=80, 96: Phi-2's and Phi-3-mini's; 112), with GQA and ragged T
+PADDED_SHAPES = [
+    (2, 200, 4, 2, 32, True),
+    (2, 256, 4, 1, 80, False),
+    (1, 192, 8, 2, 96, True),
+    (2, 130, 4, 4, 96, False),
+    (2, 200, 8, 2, 112, True),
+]
 
 
 @pytest.mark.parametrize("shape", [
@@ -108,7 +121,7 @@ EDGE_SHAPES = [
     (1, 512, 8, 1, 64, True),
     (3, 130, 2, 1, 64, True),   # ragged last tile
     (1, 64, 2, 2, 128, False),  # one tile
-] + EDGE_SHAPES)
+] + EDGE_SHAPES + PADDED_SHAPES)
 def test_kernel_matches_plain(cuda, shape):
     b, t, h, h_kv, d, causal = shape
     q, k, v = _qkv(b, t, h, h_kv, d)
@@ -144,12 +157,26 @@ def test_flash_attention_sends_ragged_t_to_the_kernel(cuda):
 
 
 def test_flash_attention_raises_on_cross_length_k(cuda):
+    # a k longer than q takes xla_attention, as JAX's flash_attention does on
+    # every backend: counted, no launch, the reference's result (the name is
+    # kept from when the card raised here)
     q, _, _ = _qkv(1, 128, 2, 2, 64)
     _, k, v = _qkv(1, 256, 2, 2, 64)
-    before = tattn.FLASH_FWD_LAUNCHES
-    with pytest.raises(ValueError):
-        tattn.flash_attention(q, k, v, causal=False)
-    assert tattn.FLASH_FWD_LAUNCHES == before
+    before = (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_REFERENCE_ROUTES)
+    o = tattn.flash_attention(q, k, v, causal=False)
+    assert (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_REFERENCE_ROUTES) == (
+        before[0], before[1] + 1)
+    assert torch.equal(o, tattn.xla_attention(q, k, v, causal=False))
+
+
+def test_flash_attention_routes_a_head_dim_off_the_8_grid_to_the_reference(cuda):
+    # D=12: JAX's flash_attention returns xla_attention; so does the port
+    q, k, v = _qkv(1, 128, 2, 2, 12)
+    before = (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_REFERENCE_ROUTES)
+    o = tattn.flash_attention(q, k, v)
+    assert (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_REFERENCE_ROUTES) == (
+        before[0], before[1] + 1)
+    assert torch.equal(o, tattn.xla_attention(q, k, v))
 
 
 def test_kernel_builds_for_sm90a(cuda):
@@ -173,11 +200,16 @@ def test_kernel_raises_instead_of_falling_back(cuda, bad):
         q = q.clone().requires_grad_(True)
         kind = NotImplementedError
     else:
-        q, k, v = _qkv(1, 128, 2, 2, 32)
+        # the raw kernel call takes the multiples of 8 up to 128: D=136 is
+        # past the widest template, and D=12 (below) is off the grid
+        q, k, v = _qkv(1, 128, 2, 2, 136)
         kind = ValueError
     before = tattn.FLASH_FWD_LAUNCHES
     with pytest.raises(kind):
         tattn.flash_forward(q, k, v)
+    if bad == "head_dim":
+        with pytest.raises(kind):
+            tattn.flash_forward(*_qkv(1, 128, 2, 2, 12))
     assert tattn.FLASH_FWD_LAUNCHES == before
 
 
@@ -222,7 +254,7 @@ BWD_SHAPES = [
     (1, 64, 2, 2, 128, False),  # one tile
     (1, 320, 16, 4, 128, True),  # GQA group of 4: K3's head walk crosses 3 boundaries
     (2, 256, 16, 4, 64, False),
-] + EDGE_SHAPES
+] + EDGE_SHAPES + PADDED_SHAPES
 
 
 def _bwd_inputs(b, t, h, h_kv, d, causal, seed=0):
@@ -255,6 +287,44 @@ def test_backward_is_bit_reproducible(cuda):
     first = tattn.flash_backward(q, k, v, o, lse, do)
     second = tattn.flash_backward(q, k, v, o, lse, do)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+SENTINEL = -7777.0
+
+
+@pytest.mark.parametrize("d", [32, 96])
+@pytest.mark.parametrize("f32", [False, True])
+def test_kernels_store_no_column_past_d(cuda, d, f32):
+    # every output is a view of its first d columns into a buffer 128 wide
+    # whose other columns hold a sentinel: a store past d would overwrite the
+    # next head's columns; the views must equal the wrappers' outputs
+    b, t, h, h_kv = 2, 200, 4, 2
+    q, k, v, o16, lse, do = _bwd_inputs(b, t, h, h_kv, d, True, seed=9)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    suffix = "_f32" if f32 else ""
+
+    def wide(like):
+        buf = torch.full((*like.shape[:3], 128), SENTINEL, dtype=out_dtype, device="cuda")
+        return buf, buf[..., :d]
+
+    stream = torch.cuda.current_stream().cuda_stream
+    dims = (b, t, h, h_kv, d, 1)
+    (o_buf, o), lse2 = wide(q), torch.empty_like(lse)
+    tattn._launch("hived_flash_fwd" + suffix, (q, k, v, o, lse2), dims, (q, k, v, o), stream)
+    (dq_buf, dq), delta = wide(q), torch.empty_like(lse)
+    tattn._launch("hived_flash_bwd_dq" + suffix, (q, k, v, o16, do, lse, delta, dq), dims,
+                  (q, k, v, o16, do, dq), stream)
+    (dk_buf, dk), (dv_buf, dv) = wide(k), wide(v)
+    tattn._launch("hived_flash_bwd_dkv" + suffix, (q, k, v, do, lse, delta, dk, dv), dims,
+                  (q, k, v, do, dk, dv), stream)
+    torch.cuda.synchronize()
+    for buf in (o_buf, dq_buf, dk_buf, dv_buf):
+        assert bool((buf[..., d:] == SENTINEL).all())
+    kw = dict(out_dtype=torch.float32) if f32 else {}
+    gw = dict(grad_dtype=torch.float32) if f32 else {}
+    assert torch.equal(o, tattn.flash_forward(q, k, v, **kw)[0])
+    for x, y in zip((dq, dk, dv), tattn.flash_backward(q, k, v, o16, lse, do, **gw)):
+        assert torch.equal(x, y)
 
 
 def test_ragged_t_through_autograd(cuda):
@@ -600,7 +670,7 @@ def test_world_1_nccl_mesh_step_equals_the_single_device_step(cuda):
 
 # one hop of a ring: its diagonal (causal) and an unmasked hop, GQA
 RING_HOP_SHAPES = [(1, 256, 4, 2, 128, True), (1, 256, 4, 2, 128, False),
-                   (2, 192, 4, 1, 64, True)]
+                   (2, 192, 4, 1, 64, True), (1, 256, 4, 2, 96, True)]
 # the share of an f32 form's outputs that a bf16 holds exactly (its exact
 # zeros and o's first causal row, at these shapes under 1%)
 F32_EXACT_BF16_MAX = 0.1

@@ -129,6 +129,22 @@ def test_f32_launch_counters_exist_apart_from_the_bf16_ones():
         assert tattn._KERNELS[name] == tattn._KERNELS[name + "_f32"]
 
 
+@pytest.mark.parametrize("d, t, mesh_axes, einsum", [
+    (12, 64, (), True),          # D not a multiple of 8: JAX's ring falls back everywhere
+    (12, 64, ("sp",), True),
+    (16, 96, (), False),         # T tiles no 64-block: the kernels tile it themselves
+    (96, 64, ("sp",), False),    # a mesh context: only the interpret mode falls back
+])
+def test_flash_ring_route_off_the_cpu(d, t, mesh_axes, einsum):
+    # a meta tensor stands in for a CUDA one: only JAX's head-dim rule, which
+    # holds on every backend, sends it to the einsum ring, counted
+    q = torch.empty((1, t, 4, d), device="meta")
+    k = torch.empty((1, t, 2, d), device="meta")
+    before = tra.RING_REFERENCE_ROUTES
+    assert tra._einsum_route(q, k, mesh_axes, 64, 64) is einsum
+    assert tra.RING_REFERENCE_ROUTES == before + int(einsum)
+
+
 # -- the five attentions on gloo gangs ---------------------------------------
 
 
