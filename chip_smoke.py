@@ -9,7 +9,7 @@ Phases, each of which must pass or the script exits non-zero:
     ``hivedscheduler_tpu_torch/ops/csrc/flash_fwd.cu`` (K1) and
     ``flash_bwd.cu`` (K2, K3) with nvcc (sm_90a), both compilers at once,
     and print ptxas's register and spill lines and any warning that it
-    serialized wgmma;
+    serialized wgmma, for every instantiation (padded widths 64, 128, 256);
 (b) hold the flash-forward kernel against its plain PyTorch version on the
     card: the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128, bf16,
     causal), full attention, H_kv = H, T=192 (a multiple of the 64-key
@@ -191,6 +191,25 @@ Phases, each of which must pass or the script exits non-zero:
     peak memory), greedy ``generate`` at (j)'s shape and (k)'s serving
     trace (dense/paged, eager/graph, int8 KV: token-identical, decisive
     positions the full forward's argmax; TPOT p50).
+(r) head dims past 128: K1, K2, K3 and their f32 forms at D = 136, 192 and
+    256 (each run at the padded width 256), causal and not, with MQA and a
+    GQA group of 4 at a ragged T, held as in (q) with sentinel columns in a
+    256-wide buffer and the same two planted faults; K1-K3 at Gemma-2B's
+    training shape (B=8, T=2048, H=8, H_kv=1, D=256, causal: the flagship's
+    FLOPs) against their plain versions, run twice bit-identical, then timed
+    in turns against the flagship's D = 128 shape, beside their bound, the
+    plain version and ``scaled_dot_product_attention`` (its backend named);
+    the f32 forms at one sp = 4 hop of Gemma's heads (q [1,2048,8,256]),
+    against their plain versions and bf16 forms, timed in turns; then
+    Gemma-2B's width (google/gemma-2b: vocab 256000, d_model 2048, 8 heads,
+    one kv head, d_ff 16384, random weights from seed 0) through ``eval``
+    at all 18 layers (K1 18 launches a window; losses 1e-3, hidden states
+    5e-2 with (e)'s planted fault), ``train`` at 6 layers with (h)'s flags
+    (K1/K2/K3 36/18/18; losses 1e-3 of xla; gradients with (h)'s limits and
+    planted fault; step ms, tokens/s, peak memory) and with ``--attn
+    ring_flash`` (the f32 forms 36/18/18, losses 1e-5 of flash's), greedy
+    ``generate`` at (j)'s shape and (k)'s serving trace (as in (q), with no
+    flash launch).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -2362,35 +2381,33 @@ def ring_replay(q, k, v, do, n: int, zigzag: bool):
     return out, dq, dk, dv
 
 
-def _f32_kernel_checks() -> dict:
-    """K1-K3's f32 forms against their plain versions at the shapes the
-    main path gives them (sp = 1: ring_flash's flagship causal hop,
-    ring_zigzag_flash's causal and unmasked half-sequence hops) and at one
-    sp = 4 ring hop's (diagonal and unmasked), against their bf16 forms (the
-    f32 outputs rounded once to bf16 must equal them bit for bit: only the
-    epilogue's store differs), for f32 precision (few outputs a bf16 holds
-    exactly), run twice, and with (b)'s and (f)'s planted faults; returns
-    the main path's max |err| of each."""
+def _f32_kernel_checks(cases=None, tag: str = "[m]", seed: int = 60) -> dict:
+    """K1-K3's f32 forms against their plain versions at ``cases`` (name,
+    shape, causal), by default the shapes the main path gives them (sp = 1:
+    ring_flash's flagship causal hop, ring_zigzag_flash's causal and
+    unmasked half-sequence hops) and one sp = 4 ring hop's (diagonal and
+    unmasked), against their bf16 forms (the f32 outputs rounded once to
+    bf16 must equal them bit for bit: only the epilogue's store differs),
+    for f32 precision (few outputs a bf16 holds exactly), run twice, and
+    with (b)'s and (f)'s planted faults at the first case; returns the first
+    case's max |err| of each."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
 
-    f, zz, hp = FLAGSHIP, ZIGZAG_HALF, RING_HOP
-    cases = [
-        ("main_path_causal", f["b"], f["t"], f["h"], f["h_kv"], f["d"], True),
-        ("zigzag_half_causal", zz["b"], zz["t"], zz["h"], zz["h_kv"], zz["d"], True),
-        ("zigzag_half_unmasked", zz["b"], zz["t"], zz["h"], zz["h_kv"], zz["d"], False),
-        ("hop_diagonal", hp["b"], hp["t"], hp["h"], hp["h_kv"], hp["d"], True),
-        ("hop_unmasked", hp["b"], hp["t"], hp["h"], hp["h_kv"], hp["d"], False),
-    ]
+    if cases is None:
+        cases = [("main_path_causal", FLAGSHIP, True), ("zigzag_half_causal", ZIGZAG_HALF, True),
+                 ("zigzag_half_unmasked", ZIGZAG_HALF, False), ("hop_diagonal", RING_HOP, True),
+                 ("hop_unmasked", RING_HOP, False)]
     f32 = torch.float32
 
     def exact_bf16(x):
         return float((x == x.to(torch.bfloat16).float()).float().mean())
     max_err = {}
-    for i, (name, b, t, h, h_kv, d, causal) in enumerate(cases):
-        q, k, v = make_qkv(b, t, h, h_kv, d, seed=60 + i)
-        do = make_qkv(b, t, h, h_kv, d, seed=70 + i)[0]
+    for i, (name, s, causal) in enumerate(cases):
+        b, t, h, h_kv, d = (s[n] for n in ("b", "t", "h", "h_kv", "d"))
+        q, k, v = make_qkv(b, t, h, h_kv, d, seed=seed + i)
+        do = make_qkv(b, t, h, h_kv, d, seed=seed + 10 + i)[0]
         o, lse = attn.flash_forward(q, k, v, causal=causal, out_dtype=f32)
         o16, lse16 = attn.flash_forward(q, k, v, causal=causal)
         o_ref, lse_ref = attn.flash_attention_plain(q, k, v, causal=causal, out_dtype=f32)
@@ -2409,7 +2426,7 @@ def _f32_kernel_checks() -> dict:
         same = (torch.equal(o.to(torch.bfloat16), o16) and torch.equal(lse, lse16)
                 and all(torch.equal(x.to(torch.bfloat16), y) for x, y in zip(got, got16)))
         exact = {n: exact_bf16(x) for n, x in zip(("o", "dq", "dk", "dv"), (o, *got))}
-        print(f"[m] {name} q [{b},{t},{h},{d}] k/v [{b},{t},{h_kv},{d}] causal={causal}: "
+        print(f"{tag} {name} q [{b},{t},{h},{d}] k/v [{b},{t},{h_kv},{d}] causal={causal}: "
               f"K1-f32 o rel {o_fro:.3e} (<= {O_REL}), worst row {o_row:.3e} "
               f"(<= {O_ROW_REL}), max|lse err| {lse_err:.3e} (<= {LSE_ATOL}); K2/K3-f32 "
               + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}" for n, (fr, rw) in errs.items())
@@ -2428,7 +2445,7 @@ def _f32_kernel_checks() -> dict:
         again_g = attn.flash_backward(q, k, v, o16, lse, do, causal=causal, grad_dtype=f32)
         twice = (torch.equal(o, again[0]) and torch.equal(lse, again[1])
                  and all(torch.equal(x, y) for x, y in zip(got, again_g)))
-        print(f"[m] {name} f32 forms run twice: bit-identical {twice}")
+        print(f"{tag} {name} f32 forms run twice: bit-identical {twice}")
         check(twice, f"{name}: the f32 forms are not bit-reproducible")
         del again, again_g
         if i == 0:
@@ -2445,7 +2462,7 @@ def _f32_kernel_checks() -> dict:
             bad_rows = {n: rel_errs(x, r, floor=1e-3)[1]
                         for n, x, r in zip(("dq", "dk", "dv"), bad, ref)}
             widened = exact_bf16(o16.float())
-            print(f"[m] {name} planted faults: K1-f32 (V keys swapped) worst row "
+            print(f"{tag} {name} planted faults: K1-f32 (V keys swapped) worst row "
                   f"{bad_row:.3e}; K2/K3-f32 (K keys swapped) worst rows "
                   + ", ".join(f"{n} {x:.3e}" for n, x in bad_rows.items())
                   + f"; the bf16 o widened to f32: share a bf16 holds exactly {widened:.3e}")
@@ -2460,19 +2477,20 @@ def _f32_kernel_checks() -> dict:
     return max_err
 
 
-def _f32_kernel_times() -> dict:
+def _f32_kernel_times(shapes=None, tag: str = "[m]", main: str = "main_path_causal") -> dict:
     """Each f32 form against its bf16 form in turns (bf16, f32, f32, bf16)
-    at the main path's shape and at a hop's, beside the bound, the plain
-    version and the library's bf16 call (the nearest: no library call
-    returns f32); returns the main path's readings for the kernels line."""
+    at ``shapes`` (name, shape, causal), by default the main path's shape
+    and a hop's, beside the bound, the plain version and the library's bf16
+    call (the nearest: no library call returns f32); returns the readings at
+    ``main`` for the kernels line."""
     import torch
     import torch.nn.functional as F
 
     from hivedscheduler_tpu_torch.ops import attention as attn
 
-    f, hp = FLAGSHIP, RING_HOP
-    shapes = [("main_path_causal", f, True), ("hop_diagonal", hp, True),
-              ("hop_unmasked", hp, False)]
+    if shapes is None:
+        shapes = [("main_path_causal", FLAGSHIP, True), ("hop_diagonal", RING_HOP, True),
+                  ("hop_unmasked", RING_HOP, False)]
     f32 = torch.float32
     timing = {}
     for name, s, causal in shapes:
@@ -2519,7 +2537,7 @@ def _f32_kernel_times() -> dict:
             bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
             r32, r16 = readings[key]["f32"], readings[key]["bf16"]
             ms = sorted(r32)[len(r32) // 2]
-            print(f"[m] {key}-f32 at {name} q [{b},{t},{h},{d}]: kernel_ms "
+            print(f"{tag} {key}-f32 at {name} q [{b},{t},{h},{d}]: kernel_ms "
                   f"{', '.join(f'{x:.4f}' for x in r32)} (median {ms:.4f}) against the bf16 "
                   f"form {', '.join(f'{x:.4f}' for x in r16)} (median "
                   f"{sorted(r16)[len(r16) // 2]:.4f}), in turns; bound_ms {bound_ms:.4f} "
@@ -2527,7 +2545,7 @@ def _f32_kernel_times() -> dict:
                   f"{bound_ms / ms:.1%} of the bound; plain_ms {plain[key]:.3f}; library_ms "
                   f"(bf16 {'forward' if key == 'fwd' else 'backward, dq, dk and dv'}) "
                   f"{library[key]:.4f}")
-            if name == "main_path_causal":
+            if name == main:
                 timing[key] = dict(ms=ms, plain_ms=plain[key], library_ms=library[key],
                                    bound_ms=bound_ms, bound_by=bound_by)
         del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg, lib_out, dout
@@ -3474,40 +3492,96 @@ def phase_spec(srv: dict, lora_dir: str) -> None:
     print(f"[p] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
-# phase (q): Phi-3-mini's width, as microsoft/Phi-3-mini-4k-instruct's
-# published config.json gives it, written as the CLI flags both packages
-# accept: vocab 32064, d_model 3072, 32 heads, 32 kv heads (MHA), d_ff 8192,
-# rope theta 10000 (both packages' default): head dim 96, which K1-K3 run at
-# their padded width 128. SwiGLU, RMSNorm, RoPE, an untied lm_head and no
-# biases are the repo's own architecture. Departures: RMSNorm eps is 1e-6
-# in both packages (Phi-3: 1e-5; no flag sets it); the config's
-# sliding_window (2047) is absent from the repo's model (at seq 2048 it
-# would change at most the last row's first key). Cut to size: eval runs
-# all 32 layers (15.3 GB of f32 weights), train 6 (0.877 B parameters x 16
-# B of weights, gradients and AdamW moments = 14.0 GB; 32 layers would need
+# phases (q) and (r): public model widths whose head dim is neither 64 nor
+# 128, each written as the CLI flags both packages accept, with random
+# weights from seed 0, driven through eval, train, generate and serve.
+#
+# (q) Phi-3-mini's width, as microsoft/Phi-3-mini-4k-instruct's published
+# config.json gives it: vocab 32064, d_model 3072, 32 heads, 32 kv heads
+# (MHA), d_ff 8192, rope theta 10000 (both packages' default): head dim 96,
+# which K1-K3 run at their padded width 128. SwiGLU, RMSNorm, RoPE, an
+# untied lm_head and no biases are the repo's own architecture. Departures:
+# RMSNorm eps is 1e-6 in both packages (Phi-3: 1e-5; no flag sets it); the
+# config's sliding_window (2047) is absent from the repo's model (at seq 2048
+# it would change at most the last row's first key). Cut to size: eval runs
+# all 32 layers (15.3 GB of f32 weights), train 6 (0.877 B parameters x 16 B
+# of weights, gradients and AdamW moments = 14.0 GB; 32 layers would need
 # 3.82 B x 16 B = 61 GB before activations), generate and serve 6.
-PHI3_MODEL = dict(vocab_size=32064, d_model=3072, n_heads=32, n_kv_heads=32, d_ff=8192)
-PHI3_EVAL_LAYERS, PHI3_LAYERS = 32, 6
-PHI3 = dict(b=EVAL_BATCH, t=EVAL_SEQ, h=32, h_kv=32, d=96)
-PHI3_FLAGS = [a for k, v in PHI3_MODEL.items() for a in (f"--{k.replace('_', '-')}", str(v))]
-PHI3_EVAL_ARGS = PHI3_FLAGS + [
-    "--n-layers", str(PHI3_EVAL_LAYERS), "--seq-len", str(EVAL_SEQ), "--batch",
-    str(EVAL_BATCH), "--ce-chunk", str(EVAL_CE_CHUNK), "--device", "cuda"]
-PHI3_TRAIN_ARGS = PHI3_FLAGS + [
-    "--n-layers", str(PHI3_LAYERS), "--rope-theta", "10000", "--seq-len", str(EVAL_SEQ),
-    "--batch", str(EVAL_BATCH), "--ce-chunk", str(EVAL_CE_CHUNK), "--device", "cuda",
-    "--remat", "dots", "--log-every", "1"]
-PHI3_TIMED_WINDOWS = 4
-# the head dims the kernels run at a padded width (32 at 64; 80, 96 and 112
-# at 128), each checked causal and not, GQA (a group of 4) at a ragged T
+#
+# (r) Gemma-2B's width, as google/gemma-2b's published config.json gives it:
+# vocab 256000, d_model 2048, 8 heads, 1 kv head (MQA), d_ff 16384, rope
+# theta 10000, RMSNorm eps 1e-6 (both packages'): head dim 256 (d_model /
+# n_heads, as both packages derive it), which K1-K3 run at their padded
+# width 256. Departures from Gemma: SwiGLU, not GeGLU; an untied lm_head
+# (524 M parameters more); no sqrt(d_model) scaling of the embedding; the
+# plain RMSNorm weight, not (1 + w); seq 2048, not 8192. Cut to size: eval
+# runs all 18 layers (3.03 B parameters, 12.1 GB of f32 weights), train 6
+# (1.71 B x 16 B = 27.3 GB; 18 layers would need 48.5 GB before
+# activations), generate and serve 6. Its 8 x 256 query columns a token
+# equal the flagship's 16 x 128, so K1-K3 at its training shape do the
+# flagship's work exactly, and the two are timed in turns.
+@dataclasses.dataclass(frozen=True)
+class Width:
+    tag: str  # the phase's tag in the output
+    name: str
+    model: dict  # vocab_size, d_model, n_heads, n_kv_heads, d_ff
+    eval_layers: int  # eval runs every layer
+    layers: int  # train, generate and serve
+
+    @property
+    def d(self) -> int:
+        return self.model["d_model"] // self.model["n_heads"]
+
+    @property
+    def shape(self) -> dict:
+        """K1-K3's shape on the eval and train path."""
+        return dict(b=EVAL_BATCH, t=EVAL_SEQ, h=self.model["n_heads"],
+                    h_kv=self.model["n_kv_heads"], d=self.d)
+
+    def args(self, layers: int, train: bool) -> list:
+        flags = [a for k, v in self.model.items() for a in (f"--{k.replace('_', '-')}", str(v))]
+        flags += ["--n-layers", str(layers)]
+        if train:
+            flags += ["--rope-theta", "10000"]
+        flags += ["--seq-len", str(EVAL_SEQ), "--batch", str(EVAL_BATCH),
+                  "--ce-chunk", str(EVAL_CE_CHUNK), "--device", "cuda"]
+        if train:
+            flags += ["--remat", "dots", "--log-every", "1"]
+        return flags
+
+
+PHI3 = Width("[q]", "Phi-3-mini", dict(vocab_size=32064, d_model=3072, n_heads=32,
+                                       n_kv_heads=32, d_ff=8192),
+             eval_layers=32, layers=6)
+GEMMA = Width("[r]", "Gemma-2B", dict(vocab_size=256000, d_model=2048, n_heads=8,
+                                      n_kv_heads=1, d_ff=16384),
+              eval_layers=18, layers=6)
+# the head dims the kernels run at a padded width, each checked causal and
+# not at a ragged T: (q) 32 at 64; 80, 96 and 112 at 128, with GQA (a group
+# of 4); (r) 136, 192 and 256 at 256, with MQA and a GQA group of 4
 PADDED_DIMS = (32, 80, 96, 112)
-PADDED_CASE = dict(b=2, t=200, h=8, h_kv=2)
+PADDED_CASES = (dict(b=2, t=200, h=8, h_kv=2),)
+WIDE_DIMS = (136, 192, 256)
+WIDE_CASES = (dict(b=2, t=200, h=8, h_kv=1), dict(b=2, t=200, h=8, h_kv=2))
 SENTINEL = -7777.0  # the columns past D of a wider output buffer
-PAD_TURNS = 2  # rounds of (D 128, D 96, D 96, D 128) kernel timings
+WIDTH_TIMED_WINDOWS = 4  # eval windows timed for each attention
+PAD_TURNS = 2  # rounds of (reference shape, width's, width's, reference) kernel timings
+# one sp = 4 rank's ring hop at Gemma-2B's heads, for K1-K3's f32 forms
+GEMMA_HOP = dict(b=1, t=2048, h=8, h_kv=1, d=256)
 
 
 def _padded(d: int) -> int:
-    return 64 if d <= 64 else 128
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def _work_factor(key: str, dp: int) -> float:
+    """The work the kernel ``key`` does at the padded width ``dp``, over the
+    work of its products at that width: at 256 K1 computes s twice (3/2), K2
+    its two score products (5/3) and K3 its two (3/2), as flash_fwd.cu and
+    flash_bwd.cu say."""
+    if dp <= 128:
+        return 1.0
+    return 5 / 3 if key == "dq" else 3 / 2
 
 
 def _spread_heads(x):
@@ -3536,15 +3610,15 @@ def _zero_padded(x, dp: int):
     return F.pad(x, (0, dp - x.shape[-1])).contiguous()
 
 
-def _wide_outputs(shapes, d: int, dtype):
-    """For each shape [B, T, H, D]: a [B, T, H, 128] buffer of SENTINEL and
+def _wide_outputs(shapes, d: int, dtype, width: int):
+    """For each shape [B, T, H, D]: a [B, T, H, width] buffer of SENTINEL and
     its view of the first ``d`` columns, which a kernel stores through its
     strides."""
     import torch
 
     out = []
     for shape in shapes:
-        buf = torch.full((*shape[:3], 128), SENTINEL, dtype=dtype, device="cuda")
+        buf = torch.full((*shape[:3], width), SENTINEL, dtype=dtype, device="cuda")
         out.append((buf, buf[..., :d]))
     return out
 
@@ -3573,19 +3647,21 @@ def _launch_all(q, k, v, do, lse, o16, d_launch: int, causal: bool, f32: bool, o
     return lse2, delta
 
 
-def _padded_case(d: int, causal: bool, seed: int, plant: bool) -> None:
+def _padded_case(tag: str, d: int, case: dict, causal: bool, seed: int, plant: bool) -> None:
     """K1-K3 and their f32 forms at head dim ``d`` against their plain
     versions (the limits of (b), (f) and (m)); the f32 outputs rounded once
     to bf16 equal to the bf16 kernels'; every output stored through a view
-    into a 128-wide buffer whose other columns must keep their sentinel;
-    with ``plant``, the two faults the padding invites: a kernel that reads
-    the next head's columns, and one that stores past D."""
+    into a buffer at least 128 wide (the padded width) whose other columns
+    must keep their sentinel (64 columns past D where D is the padded width
+    itself); with ``plant``, the two faults the padding invites: a kernel
+    that reads the next head's columns, and one that stores past D."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
 
-    c, f32 = PADDED_CASE, torch.float32
-    b, t, h, h_kv, dp = c["b"], c["t"], c["h"], c["h_kv"], _padded(d)
+    f32 = torch.float32
+    b, t, h, h_kv, dp = case["b"], case["t"], case["h"], case["h_kv"], _padded(d)
+    width = max(128, dp) if dp > d else d + 64
     q, k, v = (_spread_heads(x) for x in make_qkv(b, t, h, h_kv, d, seed=seed))
     do = _spread_heads(make_qkv(b, t, h, h_kv, d, seed=seed + 1)[0])
     o16, lse = attn.flash_forward(q, k, v, causal=causal)
@@ -3602,21 +3678,21 @@ def _padded_case(d: int, causal: bool, seed: int, plant: bool) -> None:
     lse_err = float((lse - lse_ref).abs().max())
     same = (torch.equal(o32.to(torch.bfloat16), o16) and torch.equal(lse32, lse)
             and all(torch.equal(x.to(torch.bfloat16), y) for x, y in zip(g32, g16)))
-    # every kernel into 128-wide buffers: the sentinels stay, the views equal
-    # the wrappers' outputs bit for bit
+    # every kernel into wide buffers: the sentinels stay, the views equal the
+    # wrappers' outputs bit for bit
     kept, equal = True, True
     for dtype, o, grads in ((torch.bfloat16, o16, g16), (f32, o32, g32)):
-        wide = _wide_outputs((q.shape, q.shape, k.shape, v.shape), d, dtype)
+        wide = _wide_outputs((q.shape, q.shape, k.shape, v.shape), d, dtype, width)
         _launch_all(q, k, v, do, lse, o16, d, causal, dtype == f32, [w[1] for w in wide])
         kept &= all(bool((buf[..., d:] == SENTINEL).all()) for buf, _ in wide)
         equal &= all(torch.equal(view, x) for (_, view), x in zip(wide, (o, *grads)))
-    print(f"[q] D={d} (run at {dp}) B={b} T={t} H={h} H_kv={h_kv} causal={causal}: "
+    print(f"{tag} D={d} (run at {dp}) B={b} T={t} H={h} H_kv={h_kv} causal={causal}: "
           + "; ".join(f"{form} " + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}"
                                             for n, fr, rw in e) for form, e in errs.items())
           + f"; max|lse err| {lse_err:.3e} (limits o {O_REL}/{O_ROW_REL}, gradients "
           f"{GRAD_REL}/{GRAD_ROW_REL}, lse {LSE_ATOL}); f32 forms rounded equal to bf16: "
-          f"{same}; sentinel columns {d}-127 untouched: {kept}; views equal the outputs: "
-          f"{equal}")
+          f"{same}; sentinel columns {d}-{width - 1} untouched: {kept}; views equal the "
+          f"outputs: {equal}")
     for form, e in errs.items():
         fo, ro = e[0][1:]
         check(fo <= O_REL and ro <= O_ROW_REL, f"D={d} {form}: K1 disagrees with its plain version")
@@ -3626,7 +3702,7 @@ def _padded_case(d: int, causal: bool, seed: int, plant: bool) -> None:
     check(same, f"D={d}: the f32 forms, rounded to bf16, differ from the bf16 kernels")
     check(kept, f"D={d}: a kernel stored past the head dim")
     check(equal, f"D={d}: a kernel's output through a strided view differs")
-    if not plant:
+    if not plant or dp == d:  # no padding columns to read or store
         return
     # planted fault 1: a kernel that reads the next head's columns, i.e. the
     # kernel at the padded width on over-read inputs (q rescaled so that the
@@ -3639,12 +3715,12 @@ def _padded_case(d: int, causal: bool, seed: int, plant: bool) -> None:
     bad_g = [rel_errs(x[..., :d], r, floor=1e-3)[1] for x, r in zip(go, g_ref)]
     # planted fault 2: a kernel that stores every padded column, i.e. the
     # kernel at the padded width on zero-padded inputs into the same buffers
-    wide = _wide_outputs((q.shape, q.shape, k.shape, v.shape), dp, torch.bfloat16)
+    wide = _wide_outputs((q.shape, q.shape, k.shape, v.shape), dp, torch.bfloat16, width)
     qz, kz, vz, doz, oz = (_zero_padded(x, dp) for x in (q, k, v, do, o16))
     _launch_all((qz.float() * (dp / d) ** 0.5).to(torch.bfloat16), kz, vz, doz, lse, oz, dp,
                 causal, False, [w[1] for w in wide])
     overwritten = [not bool((buf[..., d:] == SENTINEL).all()) for buf, _ in wide]
-    print(f"[q] D={d} planted faults: the next head's columns read: worst rows o "
+    print(f"{tag} D={d} planted faults: the next head's columns read: worst rows o "
           f"{bad_o:.3e}, " + ", ".join(f"{n} {x:.3e}" for n, x in zip(("dq", "dk", "dv"), bad_g))
           + f"; every padded column stored: sentinels overwritten in o, dq, dk, dv "
           f"{overwritten}")
@@ -3653,17 +3729,21 @@ def _padded_case(d: int, causal: bool, seed: int, plant: bool) -> None:
     check(all(overwritten), f"D={d}: the sentinel check does not see a store past D")
 
 
-def _phi3_kernel_check() -> dict:
-    """(q) 1: every padded head dim, then K1-K3 at the Phi-3 shape against
-    their plain versions; returns the Phi-3 shape's max |err|."""
+def _width_kernel_check(w: Width, dims, cases, seed0: int) -> dict:
+    """1: every head dim of ``dims`` at each of ``cases``, causal (with the
+    planted faults at the first case, where D is padded) and not; then K1-K3
+    at the width's shape against their plain versions, run twice
+    bit-identical; returns that shape's max |err|."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
 
-    for i, d in enumerate(PADDED_DIMS):
-        for causal in (True, False):
-            _padded_case(d, causal, seed=90 + 2 * i, plant=causal)
-    p = PHI3
+    for i, d in enumerate(dims):
+        for j, case in enumerate(cases):
+            for causal in (True, False):
+                _padded_case(w.tag, d, case, causal, seed=seed0 + 2 * (i * len(cases) + j),
+                             plant=causal and j == 0)
+    p = w.shape
     q, k, v = make_qkv(p["b"], p["t"], p["h"], p["h_kv"], p["d"], seed=100)
     do = make_qkv(p["b"], p["t"], p["h"], p["h_kv"], p["d"], seed=101)[0]
     o, lse = attn.flash_forward(q, k, v)
@@ -3671,148 +3751,195 @@ def _phi3_kernel_check() -> dict:
     o_fro, o_row = rel_errs(o, o_ref)
     got = attn.flash_backward(q, k, v, o, lse, do)
     ref = attn.flash_backward_plain(q, k, v, o, lse, do)
+    again = (*attn.flash_forward(q, k, v), *attn.flash_backward(q, k, v, o, lse, do))
     torch.cuda.synchronize()
+    twice = all(torch.equal(x, y) for x, y in zip((o, lse, *got), again))
     g_errs = [rel_errs(x, r, floor=1e-3) for x, r in zip(got, ref)]
     max_err = {"fwd": float((o.float() - o_ref.float()).abs().max()),
                "dq": float((got[0].float() - ref[0].float()).abs().max()),
                "dkv": max(float((x.float() - r.float()).abs().max())
                           for x, r in zip(got[1:], ref[1:]))}
-    print(f"[q] Phi-3-mini shape q/k/v [{p['b']},{p['t']},{p['h']},{p['d']}] causal: K1 o rel "
-          f"{o_fro:.3e} worst row {o_row:.3e}, max|lse err| "
-          f"{float((lse - lse_ref).abs().max()):.3e}; K2/K3 "
+    print(f"{w.tag} {w.name} shape q [{p['b']},{p['t']},{p['h']},{p['d']}] k/v "
+          f"[{p['b']},{p['t']},{p['h_kv']},{p['d']}] causal: K1 o rel {o_fro:.3e} worst row "
+          f"{o_row:.3e}, max|lse err| {float((lse - lse_ref).abs().max()):.3e}; K2/K3 "
           + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}"
                       for n, (fr, rw) in zip(("dq", "dk", "dv"), g_errs))
-          + f"; max|err| {max_err}")
-    check(o_fro <= O_REL and o_row <= O_ROW_REL, "K1 at the Phi-3 shape disagrees")
-    check(float((lse - lse_ref).abs().max()) <= LSE_ATOL, "K1's lse at the Phi-3 shape disagrees")
+          + f"; max|err| {max_err}; run twice bit-identical {twice}")
+    check(o_fro <= O_REL and o_row <= O_ROW_REL, f"K1 at the {w.name} shape disagrees")
+    check(float((lse - lse_ref).abs().max()) <= LSE_ATOL,
+          f"K1's lse at the {w.name} shape disagrees")
     check(all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for fr, rw in g_errs),
-          "K2/K3 at the Phi-3 shape disagree")
-    del q, k, v, do, o, lse, o_ref, lse_ref, got, ref
+          f"K2/K3 at the {w.name} shape disagree")
+    check(twice, f"K1-K3 at the {w.name} shape are not bit-reproducible")
+    del q, k, v, do, o, lse, o_ref, lse_ref, got, ref, again
     torch.cuda.empty_cache()
     return max_err
 
 
-def _phi3_kernel_times() -> dict:
-    """(q) 2: K1, K2 and K3 at the Phi-3 shape (D = 96, run at 128) against
-    the same kernels at D = 128 with the same heads, in turns
-    (``ops/kernel_ab.py``'s inputs and launches); each beside its bound at
-    the real D, the plain version and ``scaled_dot_product_attention``."""
+def _sdpa_backend(q, k, v, enable_gqa: bool) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these
+    [B, H, T, D] inputs, causal (PyTorch's own choice function)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    choice = int(torch._fused_sdp_choice(q, k, v, None, 0.0, True, enable_gqa=enable_gqa))
+    return {int(b.value): n for n, b in SDPBackend.__members__.items()}.get(choice, str(choice))
+
+
+def _bound(key: str, s: dict):
+    """(bound ms, what bounds it, flops, bytes) of kernel ``key`` at the
+    causal shape ``s``: its products at the real D, each input read once and
+    each output written once."""
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    b, t, h, h_kv, d = s["b"], s["t"], s["h"], s["h_kv"], s["d"]
+    if key == "fwd":
+        flops, nbytes = attn.attention_flops(b, t, h, d, True), attn.attention_bytes(b, t, h, h_kv, d)
+    else:
+        flops = attn.attention_bwd_flops(b, t, h, d, True)[key]
+        nbytes = attn.attention_bwd_bytes(b, t, h, h_kv, d)[key]
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
+
+
+def _width_kernel_times(w: Width, ref: dict, ref_name: str) -> dict:
+    """2: K1, K2 and K3 at the width's shape against the same kernels at
+    ``ref``'s, in turns (``ops/kernel_ab.py``'s inputs and launches); each
+    beside its bound at the real D, the plain version and
+    ``scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
 
     from hivedscheduler_tpu_torch.ops import attention as attn
     from hivedscheduler_tpu_torch.ops import kernel_ab
 
-    p = PHI3
-    shapes = {d: kernel_ab.inputs(p["b"], p["t"], p["h"], p["h_kv"], d, seed=110)
-              for d in (96, 128)}
-    readings = {key: {96: [], 128: []} for key in kernel_ab.KERNELS}
+    shapes = {"this": w.shape, "ref": ref}
+    x = {name: kernel_ab.inputs(s["b"], s["t"], s["h"], s["h_kv"], s["d"], seed=110)
+         for name, s in shapes.items()}
+    readings = {key: {"this": [], "ref": []} for key in kernel_ab.KERNELS}
     for _ in range(PAD_TURNS):
         for key in kernel_ab.KERNELS:
-            for d in (128, 96, 96, 128):
-                fn = kernel_ab.runner(None, shapes[d], {}, key)
-                readings[key][d].append(time_ms(fn, iters=20, warmup=3))
-    x = shapes[96]
-    q, k, v, o, lse, do = (x[n] for n in ("q", "k", "v", "o", "lse", "do"))
+            for name in ("ref", "this", "this", "ref"):
+                fn = kernel_ab.runner(None, x[name], {}, key)
+                readings[key][name].append(time_ms(fn, iters=20, warmup=3))
+    q, k, v, o, lse, do = (x["this"][n] for n in ("q", "k", "v", "o", "lse", "do"))
     plain = {"fwd": time_ms(lambda: attn.flash_attention_plain(q, k, v), iters=2, warmup=1)}
     plain["dq"] = plain["dkv"] = time_ms(
         lambda: attn.flash_backward_plain(q, k, v, o, lse, do), iters=2, warmup=1)
+    gqa = k.shape[2] != q.shape[2]
     qt, kt, vt = (y.transpose(1, 2).contiguous() for y in (q, k, v))
     qg, kg, vg = (y.clone().requires_grad_(True) for y in (qt, kt, vt))
-    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    backend = _sdpa_backend(qt, kt, vt, gqa)
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=gqa)
     dout = do.transpose(1, 2).contiguous()
     library = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=20, warmup=3)}
+        qt, kt, vt, is_causal=True, enable_gqa=gqa), iters=20, warmup=3)}
     library["dq"] = library["dkv"] = time_ms(
         lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True),
         iters=20, warmup=3)
+    s, r = shapes["this"], shapes["ref"]
     timing = {}
     for key in kernel_ab.KERNELS:
-        bound = {}
-        for d in (96, 128):
-            if key == "fwd":
-                flops = attn.attention_flops(p["b"], p["t"], p["h"], d, True)
-                nbytes = attn.attention_bytes(p["b"], p["t"], p["h"], p["h_kv"], d)
-            else:
-                flops = attn.attention_bwd_flops(p["b"], p["t"], p["h"], d, True)[key]
-                nbytes = attn.attention_bwd_bytes(p["b"], p["t"], p["h"], p["h_kv"], d)[key]
-            ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-            bound[d] = (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
-                        flops, nbytes)
-        med = {d: sorted(r)[len(r) // 2] for d, r in readings[key].items()}
-        print(f"[q] {key} at the Phi-3 shape [{p['b']},{p['t']},{p['h']},D] causal, in turns: "
-              + "; ".join(f"D={d}: kernel_ms {', '.join(f'{r:.4f}' for r in readings[key][d])} "
-                          f"(median {med[d]:.4f}), bound_ms {bound[d][0]:.4f} ({bound[d][1]}: "
-                          f"{bound[d][2] / 1e9:.1f} GFLOP, {bound[d][3] / 1e6:.1f} MB) -> "
-                          f"{bound[d][0] / med[d]:.1%} of the bound" for d in (96, 128))
-              + f"; D=96 / D=128 time {med[96] / med[128]:.3f} (the padded work is 1.000, "
-              f"the real work 0.750); at D=96 plain_ms {plain[key]:.3f}, library_ms "
-              f"{library[key]:.4f} ({'forward' if key == 'fwd' else 'whole backward'})")
-        timing[key] = dict(ms=med[96], plain_ms=plain[key], library_ms=library[key],
-                           bound_ms=bound[96][0], bound_by=bound[96][1])
-    del shapes, x, q, k, v, o, lse, do, qt, kt, vt, qg, kg, vg, lib_out, dout
+        bound = {name: _bound(key, sh) for name, sh in shapes.items()}
+        med = {name: sorted(rd)[len(rd) // 2] for name, rd in readings[key].items()}
+        real = bound["this"][2] / bound["ref"][2]
+        done = {name: _padded(sh["d"]) / sh["d"] * _work_factor(key, _padded(sh["d"]))
+                for name, sh in shapes.items()}
+        print(f"{w.tag} {key} at the {w.name} shape [{s['b']},{s['t']},{s['h']}/{s['h_kv']},"
+              f"{s['d']}] against the {ref_name} [{r['b']},{r['t']},{r['h']}/{r['h_kv']},"
+              f"{r['d']}], causal, in turns: "
+              + "; ".join(f"{'D=%d' % shapes[n]['d']}: kernel_ms "
+                          f"{', '.join(f'{t:.4f}' for t in readings[key][n])} (median "
+                          f"{med[n]:.4f}), bound_ms {bound[n][0]:.4f} ({bound[n][1]}: "
+                          f"{bound[n][2] / 1e9:.1f} GFLOP, {bound[n][3] / 1e6:.1f} MB) -> "
+                          f"{bound[n][0] / med[n]:.1%} of the bound" for n in ("this", "ref"))
+              + f"; time ratio {med['this'] / med['ref']:.3f} (the real work "
+              f"{real:.3f}, the work done {real * done['this'] / done['ref']:.3f}); plain_ms "
+              f"{plain[key]:.3f}, library_ms {library[key]:.4f} "
+              f"({'forward' if key == 'fwd' else 'whole backward'}, SDPA backend {backend})")
+        timing[key] = dict(ms=med["this"], plain_ms=plain[key], library_ms=library[key],
+                           bound_ms=bound["this"][0], bound_by=bound["this"][1])
+    del x, q, k, v, o, lse, do, qt, kt, vt, qg, kg, vg, lib_out, dout
     torch.cuda.empty_cache()
     return timing
 
 
-def _phi3_eval() -> int:
-    """(q) 3: eval at all 32 layers, flash against xla; K1's launches."""
+def _width_eval(w: Width) -> int:
+    """3: eval at every layer, flash against xla; K1's launches."""
     from hivedscheduler_tpu_torch.ops import attention as attn
 
+    args = w.args(w.eval_layers, train=False)
     attn.FLASH_FWD_LAUNCHES = 0
-    loss_f, _, _ = run_eval("flash", EVAL_WINDOWS, PHI3_EVAL_ARGS)
+    loss_f, _, _ = run_eval("flash", EVAL_WINDOWS, args)
     launches = attn.FLASH_FWD_LAUNCHES
-    loss_x, _, _ = run_eval("xla", EVAL_WINDOWS, PHI3_EVAL_ARGS)
-    print(f"[q] eval at Phi-3-mini's width ({PHI3_EVAL_LAYERS} layers): loss flash "
-          f"{loss_f:.6f} (K1 launches {launches}, want {PHI3_EVAL_LAYERS} x {EVAL_WINDOWS}), "
+    loss_x, _, _ = run_eval("xla", EVAL_WINDOWS, args)
+    print(f"{w.tag} eval at {w.name}'s width ({w.eval_layers} layers): loss flash "
+          f"{loss_f:.6f} (K1 launches {launches}, want {w.eval_layers} x {EVAL_WINDOWS}), "
           f"xla {loss_x:.6f}: |flash - xla| {abs(loss_f - loss_x):.3e} (<= {LOSS_ATOL})")
-    check(launches == PHI3_EVAL_LAYERS * EVAL_WINDOWS, f"Phi-3 eval launched K1 {launches} times")
-    check(abs(loss_f - loss_x) <= LOSS_ATOL, "Phi-3 flash and xla eval losses disagree")
+    check(launches == w.eval_layers * EVAL_WINDOWS, f"{w.name} eval launched K1 {launches} times")
+    check(abs(loss_f - loss_x) <= LOSS_ATOL, f"{w.name} flash and xla eval losses disagree")
     for impl in ("flash", "xla"):
-        _, window_ms, tokens_per_s = run_eval(impl, PHI3_TIMED_WINDOWS, PHI3_EVAL_ARGS)
-        print(f"[q] eval window --attn {impl} (B={EVAL_BATCH}, T={EVAL_SEQ}, "
-              f"{PHI3_EVAL_LAYERS} layers, {PHI3_TIMED_WINDOWS} windows): {window_ms} ms, "
+        _, window_ms, tokens_per_s = run_eval(impl, WIDTH_TIMED_WINDOWS, args)
+        print(f"{w.tag} eval window --attn {impl} (B={EVAL_BATCH}, T={EVAL_SEQ}, "
+              f"{w.eval_layers} layers, {WIDTH_TIMED_WINDOWS} windows): {window_ms} ms, "
               f"{tokens_per_s} tokens/s")
-    phase_hidden_check(dict(PHI3_MODEL, n_layers=PHI3_EVAL_LAYERS), "[q]",
-                       f"one Phi-3-mini window, {PHI3_EVAL_LAYERS} layers")
+    phase_hidden_check(dict(w.model, n_layers=w.eval_layers), w.tag,
+                       f"one {w.name} window, {w.eval_layers} layers")
     return launches
 
 
-def _phi3_train() -> dict:
-    """(q) 4: train at 6 layers, flash against xla; the launches, step ms,
-    tokens/s and peak memory, then one step's gradients by leaf group."""
+def _width_train(w: Width, ring: bool = False) -> dict:
+    """4: train, flash against xla; the launches, step ms, tokens/s and
+    peak memory, then one step's gradients by leaf group. With ``ring``,
+    also ``--attn ring_flash`` at sp = 1, whose losses must equal flash's
+    (the f32 forms' launches are returned under "*_f32")."""
     from hivedscheduler_tpu_torch.ops import attention as attn
 
-    attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
-    runs = {"flash": run_train("flash", TRAIN_STEPS, PHI3_TRAIN_ARGS)}
-    launches = {"fwd": attn.FLASH_FWD_LAUNCHES, "dq": attn.FLASH_BWD_DQ_LAUNCHES,
-                "dkv": attn.FLASH_BWD_DKV_LAUNCHES}
-    runs["xla"] = run_train("xla", TRAIN_STEPS, PHI3_TRAIN_ARGS)
-    want = {"fwd": 2 * PHI3_LAYERS * TRAIN_STEPS, "dq": PHI3_LAYERS * TRAIN_STEPS,
-            "dkv": PHI3_LAYERS * TRAIN_STEPS}
+    args = w.args(w.layers, train=True)
+    _zero_launches(attn)
+    runs = {"flash": run_train("flash", TRAIN_STEPS, args)}
+    launches = _count_launches(attn)
+    runs["xla"] = run_train("xla", TRAIN_STEPS, args)
+    n = w.layers * TRAIN_STEPS
+    want = {"fwd": 2 * n, "dq": n, "dkv": n, "fwd_f32": 0, "dq_f32": 0, "dkv_f32": 0}
     losses = {impl: [r["loss"] for r in records] for impl, (records, _) in runs.items()}
     diff = max(abs(a - b) for a, b in zip(losses["flash"], losses["xla"]))
-    print(f"[q] train at Phi-3-mini's width ({PHI3_LAYERS} layers, remat dots, ce_chunk "
+    print(f"{w.tag} train at {w.name}'s width ({w.layers} layers, remat dots, ce_chunk "
           f"{EVAL_CE_CHUNK}): losses flash {losses['flash']}, xla {losses['xla']}: max |flash - "
           f"xla| {diff:.3e} (<= {LOSS_ATOL}); launches over {TRAIN_STEPS} steps {launches} "
           f"(want {want})")
-    check(launches == want, f"the Phi-3 train run launched {launches}, want {want}")
-    check(diff <= LOSS_ATOL, "Phi-3 flash and xla train losses disagree")
+    check(launches == want, f"the {w.name} train run launched {launches}, want {want}")
+    check(diff <= LOSS_ATOL, f"{w.name} flash and xla train losses disagree")
     for impl, (records, peak) in runs.items():
         timed = [r for r in records if not r["compile"]]
         step_ms = sum(r["wall_s"] for r in timed) / len(timed) * 1e3
-        print(f"[q] train step --attn {impl} (B={EVAL_BATCH}, T={EVAL_SEQ}, {PHI3_LAYERS} "
+        print(f"{w.tag} train step --attn {impl} (B={EVAL_BATCH}, T={EVAL_SEQ}, {w.layers} "
               f"layers, mean of {len(timed)} steps after the warm-up): {step_ms} ms, "
               f"{EVAL_BATCH * EVAL_SEQ / (step_ms / 1e3)} tokens/s, peak device memory "
               f"{peak / 1e9:.2f} GB")
-    phase_train_grads(dict(PHI3_MODEL, n_layers=PHI3_LAYERS), "[q]",
-                      f"one Phi-3-mini step, {PHI3_LAYERS} layers")
+    del runs
+    if ring:
+        _zero_launches(attn)
+        records, peak = run_train("ring_flash", TRAIN_STEPS, args)
+        ring_launches = _count_launches(attn)
+        want = {"fwd": 0, "dq": 0, "dkv": 0, "fwd_f32": 2 * n, "dq_f32": n, "dkv_f32": n}
+        got = [r["loss"] for r in records]
+        rdiff = max(abs(a - b) for a, b in zip(got, losses["flash"]))
+        print(f"{w.tag} train --attn ring_flash at sp=1 ({w.layers} layers): losses {got}; "
+              f"flash's: max |diff| {rdiff:.3e} (<= {RING_LOSS_ATOL}); launches over "
+              f"{TRAIN_STEPS} steps {ring_launches} (want {want}); peak device memory "
+              f"{peak / 1e9:.2f} GB")
+        check(ring_launches == want, f"the {w.name} ring_flash run launched {ring_launches}")
+        check(rdiff <= RING_LOSS_ATOL, f"{w.name} ring_flash losses part from flash's")
+        launches.update({k: v for k, v in ring_launches.items() if k.endswith("_f32")})
+    phase_train_grads(dict(w.model, n_layers=w.layers), w.tag,
+                      f"one {w.name} step, {w.layers} layers")
     return launches
 
 
-def _phi3_generate() -> None:
-    """(q) 5: greedy generate at (j)'s shape: its tokens the argmax of
-    their own advance sequence, no K1-K3 launch; tokens/s."""
+def _width_generate(w: Width) -> None:
+    """5: greedy generate at (j)'s shape: its tokens the argmax of their own
+    advance sequence, no K1-K3 launch; tokens/s."""
     import torch
 
     from hivedscheduler_tpu_torch.models import decode as dec
@@ -3820,7 +3947,7 @@ def _phi3_generate() -> None:
     from hivedscheduler_tpu_torch.ops import attention as attn
 
     cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW,
-                               **dict(PHI3_MODEL, n_layers=PHI3_LAYERS))
+                               **dict(w.model, n_layers=w.layers))
     params = tm.cast_params(tm.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
     torch.cuda.empty_cache()
@@ -3835,32 +3962,33 @@ def _phi3_generate() -> None:
     rel = _per_position_rel(inc, full)
     wall = _host_ms(lambda: dec.generate(params, prompt, cfg, DEC_NEW), 2)
     med = sorted(wall)[len(wall) // 2]
-    print(f"[q] generate at Phi-3-mini's width ({PHI3_LAYERS} layers, B={DEC_BATCH}, prompt "
+    print(f"{w.tag} generate at {w.name}'s width ({w.layers} layers, B={DEC_BATCH}, prompt "
           f"{DEC_PROMPT}, {DEC_NEW} new): {exact} tokens differ from the argmax of their "
           f"advance sequence; decode logits against the full forward, worst position rel "
           f"{rel:.3e} (<= {DEC_LOGIT_REL}); K1 launches {attn.FLASH_FWD_LAUNCHES}; wall "
           f"{', '.join(f'{t:.2f}' for t in wall)} ms, {DEC_BATCH * DEC_NEW / (med / 1e3):.1f} "
           f"tokens/s")
     check(exact == 0 and bool(torch.isfinite(inc).all()),
-          "Phi-3 greedy tokens disagree with their advance sequence")
-    check(rel <= DEC_LOGIT_REL, "Phi-3 decode logits disagree with the full forward")
-    check(attn.FLASH_FWD_LAUNCHES == 0, "Phi-3 decode launched a flash kernel")
+          f"{w.name} greedy tokens disagree with their advance sequence")
+    check(rel <= DEC_LOGIT_REL, f"{w.name} decode logits disagree with the full forward")
+    check(attn.FLASH_FWD_LAUNCHES == 0, f"{w.name} decode launched a flash kernel")
     del params
     torch.cuda.empty_cache()
 
 
-def _phi3_serve() -> None:
-    """(q) 6: (k)'s trace at Phi-3-mini's width: dense and paged, eager and
-    graph windows, token-identical and at decisive positions the full
-    forward's argmax; int8 KV (per-head scales) dense and paged
-    token-identical; TPOT p50."""
+def _width_serve(w: Width) -> None:
+    """6: (k)'s trace: dense and paged, eager and graph windows,
+    token-identical and at decisive positions the full forward's argmax;
+    int8 KV (per-head scales) dense and paged token-identical; no flash
+    launch; TPOT p50."""
     import torch
 
     from hivedscheduler_tpu_torch.chaos import invariants as inv
     from hivedscheduler_tpu_torch.models import serving as srv
     from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
 
-    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **dict(PHI3_MODEL, n_layers=PHI3_LAYERS))
+    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **dict(w.model, n_layers=w.layers))
     params = tm.cast_params(tm.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
     torch.cuda.empty_cache()
@@ -3868,6 +3996,7 @@ def _phi3_serve() -> None:
     runs = dict(SRV_RUNS, **{f"int8 KV {name}": dict(kw, kv_dtype="int8")
                              for name, kw in SRV_RUNS.items() if "graph" in name})
     engines, out = {}, {}
+    _zero_launches(attn)
     for name, kw in runs.items():
         engines[name] = srv.ServingEngine(params, cfg, max_batch=SRV_BATCH,
                                           max_len=SRV_MAX_LEN, **kw)
@@ -3876,7 +4005,8 @@ def _phi3_serve() -> None:
             inv.check_block_pool(engines[name], name)
         if engines[name].decode_steps > 1:
             check(engines[name].graph_windows == engines[name].fused_windows > 0,
-                  f"Phi-3 {name}: windows did not run through the CUDA graph")
+                  f"{w.name} {name}: windows did not run through the CUDA graph")
+    launches = _count_launches(attn)
     ref, ref8 = _streams(out["dense eager"]), _streams(out["int8 KV dense graph"])
     same = {name: sum(a != b for a, b in zip(_streams(run), ref8 if "int8" in name else ref))
             for name, run in out.items()}
@@ -3884,47 +4014,83 @@ def _phi3_serve() -> None:
     eng_logits = [_engine_logits(params, cfg, prompts[i], ref[i]) for i in range(SRV_NOISE_ROWS)]
     noise = max(float((e - f).abs().max()) for e, f in zip(eng_logits, full))
     n_dec, miss = _decisive_misses(full, ref, noise)
-    print(f"[q] serve at Phi-3-mini's width ({PHI3_LAYERS} layers, {SRV_REQUESTS} requests, "
+    print(f"{w.tag} serve at {w.name}'s width ({w.layers} layers, {SRV_REQUESTS} requests, "
           f"budget {SRV_BUDGET}, max_batch {SRV_BATCH}): requests whose stream differs from "
           f"dense eager (int8 KV: from int8 KV dense graph): {same}; {miss} of {n_dec} "
           f"decisive positions differ from the full forward's argmax (margin > 2 x "
-          f"{noise:.3e})")
-    check(all(v == 0 for v in same.values()), "Phi-3 dense/paged, eager/graph streams differ")
-    check(miss == 0 and n_dec > 0, "Phi-3 engine streams disagree with the full forward")
+          f"{noise:.3e}); flash launches {launches}")
+    check(all(v == 0 for v in same.values()), f"{w.name} dense/paged, eager/graph streams differ")
+    check(miss == 0 and n_dec > 0, f"{w.name} engine streams disagree with the full forward")
+    check(not any(launches.values()), f"{w.name} serving launched {launches}")
     for name in runs:
         st = _serve_stats(_serve(engines[name], prompts, SRV_BUDGET), SRV_BATCH)
-        print(f"[q] serve {name}: {st['tps']:.1f} tokens/s, TTFT p50 {st['ttft_p50']:.2f} ms, "
+        print(f"{w.tag} serve {name}: {st['tps']:.1f} tokens/s, TTFT p50 {st['ttft_p50']:.2f} ms, "
               f"TPOT p50 {st['tpot_p50']:.3f} ms (max {st['tpot_max']:.3f})")
     del engines, out, params
     torch.cuda.empty_cache()
 
 
-def phase_phi3() -> dict:
-    """(q): K1-K3 and their f32 forms at the padded head dims, then
-    Phi-3-mini's width (head dim 96) through eval, train, generate and
-    serve. Returns the D = 96 rows of the kernels line."""
+def _timed_parts(tag: str, parts) -> list:
+    """Runs each (name, fn) of ``parts`` and prints the phase's wall time by
+    part; returns their results."""
     t_phase = time.perf_counter()
-    walls = {}
-
-    def timed(name, fn):
+    walls, out = {}, []
+    for name, fn in parts:
         t0 = time.perf_counter()
-        out = fn()
+        out.append(fn())
         walls[name] = time.perf_counter() - t0
-        return out
-
-    max_err = timed("kernel checks", _phi3_kernel_check)
-    timing = timed("kernel times", _phi3_kernel_times)
-    eval_k1 = timed("eval", _phi3_eval)
-    launches = timed("train", _phi3_train)
-    timed("generate", _phi3_generate)
-    timed("serve", _phi3_serve)
-    print(f"[q] phase wall time {time.perf_counter() - t_phase:.1f} s ("
+    print(f"{tag} phase wall time {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()) + ")")
+    return out
+
+
+def phase_phi3() -> dict:
+    """(q): K1-K3 and their f32 forms at the padded head dims up to 128,
+    then Phi-3-mini's width (head dim 96) through eval, train, generate and
+    serve. Returns the D = 96 rows of the kernels line."""
+    max_err, timing, eval_k1, launches, _, _ = _timed_parts(PHI3.tag, [
+        ("kernel checks", lambda: _width_kernel_check(PHI3, PADDED_DIMS, PADDED_CASES, 90)),
+        ("kernel times", lambda: _width_kernel_times(PHI3, dict(PHI3.shape, d=128),
+                                                     "same heads at D 128")),
+        ("eval", lambda: _width_eval(PHI3)),
+        ("train", lambda: _width_train(PHI3)),
+        ("generate", lambda: _width_generate(PHI3)),
+        ("serve", lambda: _width_serve(PHI3))])
     # launches: K1 over the eval run (4 windows) and the train run (3 steps);
     # K2 and K3 over the train run
     launches["fwd"] += eval_k1
     return {key: dict(launches=launches[key], max_abs_err=max_err[key], **timing[key])
             for key in ("fwd", "dq", "dkv")}
+
+
+def _gemma_f32_hop() -> dict:
+    """The f32 forms at one sp = 4 ring hop of Gemma-2B's heads, diagonal
+    and unmasked: against their plain versions and their bf16 forms (equal
+    once rounded), then timed in turns with the bf16 forms."""
+    hops = [("gemma_hop_diagonal", GEMMA_HOP, True), ("gemma_hop_unmasked", GEMMA_HOP, False)]
+    checks = _f32_kernel_checks(hops, tag=GEMMA.tag, seed=130)
+    timing = _f32_kernel_times(hops, tag=GEMMA.tag, main="gemma_hop_diagonal")
+    return {key: dict(max_abs_err=checks[key], **timing[key]) for key in timing}
+
+
+def phase_gemma() -> tuple:
+    """(r): K1-K3 and their f32 forms at the head dims past 128, then
+    Gemma-2B's width (head dim 256, one kv head) through eval, train (with
+    ring_flash, which runs the f32 forms), generate and serve. Returns the
+    D = 256 rows of the kernels line: K1-K3, and their f32 forms."""
+    max_err, timing, hop, eval_k1, launches, _, _ = _timed_parts(GEMMA.tag, [
+        ("kernel checks", lambda: _width_kernel_check(GEMMA, WIDE_DIMS, WIDE_CASES, 120)),
+        ("kernel times", lambda: _width_kernel_times(GEMMA, FLAGSHIP, "flagship")),
+        ("f32 hop", _gemma_f32_hop),
+        ("eval", lambda: _width_eval(GEMMA)),
+        ("train", lambda: _width_train(GEMMA, ring=True)),
+        ("generate", lambda: _width_generate(GEMMA)),
+        ("serve", lambda: _width_serve(GEMMA))])
+    launches["fwd"] += eval_k1
+    rows = {key: dict(launches=launches[key], max_abs_err=max_err[key], **timing[key])
+            for key in ("fwd", "dq", "dkv")}
+    f32 = {key: dict(launches=launches[f"{key}_f32"], **hop[key]) for key in ("fwd", "dq", "dkv")}
+    return rows, f32
 
 
 def main() -> int:
@@ -3966,6 +4132,7 @@ def main() -> int:
     finally:
         shutil.rmtree(lora_dir, ignore_errors=True)
     phi3 = phase_phi3()
+    gemma, gemma_f32 = phase_gemma()
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"
@@ -3992,6 +4159,16 @@ def main() -> int:
     kernels += [
         dict(name=f"{name}_d96", route="cuda", source=source + lib,
              replaces=f"hivedscheduler_tpu/ops/attention.py:{line}", **phi3[key])
+        for name, key, lib, line in (("flash_fwd", "fwd", "flash_fwd.cu", 98),
+                                     ("flash_bwd_dq", "dq", "flash_bwd.cu", 143),
+                                     ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 179))]
+    # and at Gemma-2B's head dim 256: launches of (r)'s eval and train runs,
+    # times at its shape; the f32 forms' launches of (r)'s ring_flash run,
+    # times at one sp = 4 hop of its heads
+    kernels += [
+        dict(name=f"{name}{form}_d256", route="cuda", source=source + lib,
+             replaces=f"hivedscheduler_tpu/ops/attention.py:{line}", **rows[key])
+        for form, rows in (("", gemma), ("_f32", gemma_f32))
         for name, key, lib, line in (("flash_fwd", "fwd", "flash_fwd.cu", 98),
                                      ("flash_bwd_dq", "dq", "flash_bwd.cu", 143),
                                      ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 179))]

@@ -34,8 +34,12 @@ The kernels replace ``hivedscheduler_tpu/ops/attention.py::_fwd_kernel``,
 ``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``. All three run wgmma on
 TMA-fed shared tiles with a producer warpgroup and two consumer warpgroups
 (``csrc/hopper.cuh``). They take bf16 inputs at every head dim that is a
-multiple of 8 up to 128, each run at its padded width, 64 or 128 (D = 96
-runs the 128 template, 4/3 of the real work). The wrappers
+multiple of 8 up to 256, each run at its padded width, 64, 128 or 256 (D =
+96 runs the 128 template, 4/3 of the real work; D = 136 the 256 one, 1.88).
+At 256 (Gemma's head dim) each kernel splits its outputs' columns in
+halves, so K1 computes its scores twice (3/2 of the real work), K2 its two
+score products (5/3) and K3 its two (3/2); ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` say why. D > 256 raises on the card. The wrappers
 keep their C entry points: pointers, dims, [B, T, H] element strides and
 the stream; the tensor maps are encoded inside. On an H100 the tensor cores
 bound all three: at the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128,
@@ -68,9 +72,9 @@ FLASH_BWD_DKV_F32_LAUNCHES = 0
 FLASH_REFERENCE_ROUTES = 0
 
 KERNEL_DTYPES = (torch.bfloat16,)
-# every multiple of 8 up to 128, each run at its padded width 64 or 128
+# every multiple of 8 up to 256, each run at its padded width 64, 128 or 256
 # (csrc/flash_common.cuh)
-KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
+KERNEL_HEAD_DIMS = tuple(range(8, 257, 8))
 # the output dtypes of the kernels' two forms (None: the input's bf16)
 KERNEL_OUT_DTYPES = (None, torch.float32)
 
@@ -406,11 +410,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     divisible by H_kv, takes the reference too (which raises on the
     latter, as JAX's does), and the plain versions of the kernels run
     otherwise. A CUDA tensor goes to the kernels, which tile any T
-    themselves (K1 and K2 in 128-row q tiles, K3 in 64-key tiles) and raise
-    on what they do not take (dtype, a head dim past 128, layout, GQA). The
-    route is chosen from the shapes before any launch; a kernel that fails
-    to build or launch raises. A DTensor input raises ``TypeError``: the op
-    takes each rank's local shard."""
+    themselves (K1 and K2 in 128-row q tiles, 64-row ones past D 128, K3 in
+    64-key tiles) and raise on what they do not take (dtype, a head
+    dim past 256, layout, GQA): there is no fallback to the plain versions
+    or to the reference for them. The route is chosen from the shapes
+    before any launch; a kernel that fails to build or launch raises. A
+    DTensor input raises ``TypeError``: the op takes each rank's local
+    shard."""
     global FLASH_REFERENCE_ROUTES
     _refuse_dtensor(q, k, v)
     _, t, h, d = q.shape

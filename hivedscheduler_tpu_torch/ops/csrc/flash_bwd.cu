@@ -79,13 +79,32 @@
 //   and for rows past T, and ds^T = 0 with it.
 // Inputs are addressed through their [B, T, H, D] strides (D contiguous).
 //
-// Head dims: as K1 (flash_fwd.cu), any D that is a multiple of 8 up to 128
-// runs on the template of its padded width Dp = 64 or 128. TMA fills the
-// columns of a box past the real D with zeros and credits the whole box to
-// the stage's barrier, so the expect_tx counts stay the full tiles' bytes;
-// zero columns of q, k, v and do add nothing to s, dp, dq, dk or dv. K2's
-// delta reads o from global memory only below D, and every epilogue stores
-// only columns < D. The scale is the real D's.
+// Head dims: as K1 (flash_fwd.cu), any D that is a multiple of 8 up to 256
+// runs on the template of its padded width Dp = 64, 128 or 256. TMA fills
+// the columns of a box past the real D with zeros and credits the whole box
+// to the stage's barrier, so the expect_tx counts stay the full tiles'
+// bytes; zero columns of q, k, v and do add nothing to s, dp, dq, dk or dv.
+// K2's delta reads o from global memory only below D, and every epilogue
+// stores only columns < D. The scale is the real D's.
+//
+// Dp = 256 (Gemma's head dim). A whole-width accumulator is 128 f32
+// registers a thread there, and K2's dq beside s and dp (192), or K3's dv
+// beside s^T and dk beside dp^T (160 each), is the load that serialized
+// every wgmma with spills (see K3's note below). So at Dp = 256 the outputs'
+// columns are split in halves of 128 and every consumer keeps 64 + 32 + 32
+// or 64 + 32 accumulator registers, as at Dp = 128:
+// - K2: a block takes 64 q rows (not 128), and its two consumers both
+//   compute s and dp over the whole D for those rows, consumer c
+//   accumulating dq's columns [128c, 128c + 128). Shared memory: q 32 + do
+//   32 + 2 x (32 + 32) KB = 192 KB. The score products run twice: 5/3 of
+//   the real work (s, dp, dq).
+// - K3: the grid takes the column half as its z index, so two blocks share
+//   a key tile: each computes s^T and dp^T over the whole D and keeps dk
+//   and dv for its half. Two q/do stages, not three, and one f32 p^T
+//   buffer, not two: 32 + 32 + 2 x (32 + 32) + 8 + 8 + 16 KB = 224 KB,
+//   under the 227 KB a block may have. The score products run twice: 3/2
+//   of the real work (s^T, dp^T, dv, dk).
+// Each output element is still owned by one block, with no atomics.
 //
 // Output type: dq, dk and dv are stored in bf16 (hived_flash_bwd_dq,
 // hived_flash_bwd_dkv) or in f32 (the _f32 entry points), the counterpart
@@ -112,22 +131,28 @@ __device__ __forceinline__ T* at(T* base, const Strides& s, int b, int h) {
 
 // ------------------------------------------------------------------- K2
 
-constexpr int kDqBlockM = 128;  // q rows per block: two consumer warpgroups of 64
-constexpr int kDqBlockN = 64;   // keys per K/V tile
-constexpr int kDqStages = 2;    // K/V ring depth
+constexpr int kDqBlockN = 64;  // keys per K/V tile
+constexpr int kDqStages = 2;   // K/V ring depth
+
+// q rows per block at the padded width Dp: 128, the two consumer warpgroups
+// 64 each; at Dp = 256, 64, both consumers on the same rows
+constexpr int dq_block_m(int Dp) { return Dp > 128 ? 64 : 128; }
 
 // shared-memory layout, byte offsets from a 1024-aligned base
 template <int D>
 struct DqSmem {
-  static constexpr int kQTile = kDqBlockM * D * 2;  // q or do
-  static constexpr int kKTile = kDqBlockN * D * 2;  // k or v
+  static constexpr bool kSplitD = D > 128;          // consumers split dq's columns
+  static constexpr int kBlockM = dq_block_m(D);
+  static constexpr int kAccD = kSplitD ? D / 2 : D;  // dq columns a consumer owns
+  static constexpr int kQTile = kBlockM * D * 2;     // q or do
+  static constexpr int kKTile = kDqBlockN * D * 2;   // k or v
   static constexpr int kQ = 0;
   static constexpr int kDo = kQ + kQTile;
   static constexpr int kK = kDo + kQTile;
   static constexpr int kV = kK + kDqStages * kKTile;
-  static constexpr int kLse = kV + kDqStages * kKTile;  // kDqBlockM f32
-  static constexpr int kDelta = kLse + kDqBlockM * 4;  // kDqBlockM f32
-  static constexpr int kBars = kDelta + kDqBlockM * 4;  // qdo_full, kv_full[], empty[]
+  static constexpr int kLse = kV + kDqStages * kKTile;  // 64 f32 a consumer
+  static constexpr int kDelta = kLse + 128 * 4;        // 64 f32 a consumer
+  static constexpr int kBars = kDelta + 128 * 4;       // qdo_full, kv_full[], empty[]
   static constexpr int kBytes = kBars + (1 + 2 * kDqStages) * 8 + 1024;  // + alignment slack
 };
 
@@ -177,6 +202,7 @@ template <int D, bool kCausal, typename OutT>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ DqArgs a) {
   using L = DqSmem<D>;
+  constexpr int kBlockM = L::kBlockM;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
@@ -190,15 +216,17 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   uint64_t* empty = kv_full + kDqStages;
 
   const int T = a.T;
-  const int n_q_tiles = (T + kDqBlockM - 1) / kDqBlockM;
+  const int n_q_tiles = (T + kBlockM - 1) / kBlockM;
   const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest first
   const int bh = blockIdx.y;
   const int b = bh / a.H;
   const int h = bh % a.H;
-  const int q0 = q_tile * kDqBlockM;
+  const int q0 = q_tile * kBlockM;
   const int n_k_tiles = (T + kDqBlockN - 1) / kDqBlockN;
-  // consumer c's rows meet keys up to their diagonal, tile 2 q_tile + c
-  const int n_kv = kCausal ? min(n_k_tiles, 2 * q_tile + 2) : n_k_tiles;
+  // consumer c's rows meet keys up to their diagonal, tile 2 q_tile + c (at
+  // Dp = 256 both consumers' rows: tile q_tile)
+  const int n_kv =
+      kCausal ? min(n_k_tiles, L::kSplitD ? q_tile + 1 : 2 * q_tile + 2) : n_k_tiles;
 
   if (threadIdx.x == 0) {
     mbar_init(qdo_full, 1);
@@ -217,8 +245,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     if (threadIdx.x == 0) {
       const int h_kv = h / a.group;
       mbar_expect_tx(qdo_full, 2 * L::kQTile);
-      tma_load_tile<D, kDqBlockM>(sQ, &a.tq, qdo_full, h, q0, b);
-      tma_load_tile<D, kDqBlockM>(sDo, &a.tdo, qdo_full, h, q0, b);
+      tma_load_tile<D, kBlockM>(sQ, &a.tq, qdo_full, h, q0, b);
+      tma_load_tile<D, kBlockM>(sDo, &a.tdo, qdo_full, h, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int stage = j % kDqStages;
         if (j >= kDqStages) mbar_wait(&empty[stage], ((j / kDqStages) - 1) & 1);
@@ -232,7 +260,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     return;
   }
 
-  // consumer c owns q rows [64c, 64c + 64) of the tile
+  // consumer c owns q rows [64c, 64c + 64) of the tile, all of dq's
+  // columns; at Dp = 256 the tile's 64 rows, dq's columns [128c, 128c + 128)
   regs_inc<kConsumerRegs>();
   const int c = wg - 1;
   const int tid = threadIdx.x % 128;
@@ -240,10 +269,15 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int lane = tid % 32;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int r0 = 64 * c + 16 * warp;  // the warp's first row in the tile
-  const int row_a = q0 + r0 + g;      // rows of the accumulators' e = 0, 1
-  const int row_b = row_a + 8;        // and e = 2, 3
-  const int n_kv_c = kCausal ? min(n_k_tiles, 2 * q_tile + 1 + c) : n_k_tiles;
+  const int rows_c = L::kSplitD ? 0 : 64 * c;       // the consumer's first row in the tile
+  const int col_c = L::kSplitD ? L::kAccD * c : 0;  // its first dq column
+  const int r0 = rows_c + 16 * warp;                // the warp's first row in the tile
+  // the warp's 16 lse and delta values in shared memory (a consumer's own)
+  const int slot = L::kSplitD ? 64 * c + 16 * warp : r0;
+  const int row_a = q0 + r0 + g;  // rows of the accumulators' e = 0, 1
+  const int row_b = row_a + 8;    // and e = 2, 3
+  const int n_kv_c =
+      kCausal ? min(n_k_tiles, L::kSplitD ? q_tile + 1 : 2 * q_tile + 1 + c) : n_k_tiles;
   const int64_t lrow = static_cast<int64_t>(bh) * T;
 
   // delta = rowsum(do * o) for the warp's 16 rows, two lanes a row, each
@@ -264,7 +298,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         const int col = c0 + cc;
         if (col >= a.D) break;
         const bf16* drow =
-            sDo + (col / 64) * kDqBlockM * 64 + r * 64 + ((((col % 64) / 8) ^ (r & 7)) * 8);
+            sDo + (col / 64) * kBlockM * 64 + r * 64 + ((((col % 64) / 8) ^ (r & 7)) * 8);
         const uint4 dv = *reinterpret_cast<const uint4*>(drow);
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + col);
         const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
@@ -279,29 +313,31 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     if ((lane & 1) == 0) {
-      sDelta[r] = sum;
-      sLse[r] = row < T ? a.lse[lrow + row] : CUDART_INF_F;
-      if (row < T) a.delta[lrow + row] = sum;
+      sDelta[slot + lane / 2] = sum;
+      sLse[slot + lane / 2] = row < T ? a.lse[lrow + row] : CUDART_INF_F;
+      // at Dp = 256 both consumers sum the same rows; consumer 0 writes them
+      if (row < T && (!L::kSplitD || c == 0)) a.delta[lrow + row] = sum;
     }
   }
   __syncwarp();
-  const float lb_a = sLse[r0 + g] * kLog2e;
-  const float lb_b = sLse[r0 + g + 8] * kLog2e;
-  const float dl_a = sDelta[r0 + g];
-  const float dl_b = sDelta[r0 + g + 8];
+  const float lb_a = sLse[slot + g] * kLog2e;
+  const float lb_b = sLse[slot + g + 8] * kLog2e;
+  const float dl_a = sDelta[slot + g];
+  const float dl_b = sDelta[slot + g + 8];
   const float scale_log2 = a.scale * kLog2e;
 
   // K-major descriptors of this consumer's q and do rows and of stage 0's K
   // and V tiles; MN-major of stage 0's K tile (LBO: its 64-column blocks)
-  const uint64_t dQ = desc_sw128(sQ + 64 * c * 64, 16);
-  const uint64_t dDo = desc_sw128(sDo + 64 * c * 64, 16);
+  const uint64_t dQ = desc_sw128(sQ + rows_c * 64, 16);
+  const uint64_t dDo = desc_sw128(sDo + rows_c * 64, 16);
   const uint64_t dK = desc_sw128(sK, 16);
   const uint64_t dV = desc_sw128(sV, 16);
-  const uint64_t dKn = desc_sw128(sK, kDqBlockN * 128);
+  // MN-major K from its column block col_c / 64 on
+  const uint64_t dKn = desc_add(desc_sw128(sK, kDqBlockN * 128), (col_c / 64) * kDqBlockN * 128);
 
-  float acc[D / 2];
+  float acc[L::kAccD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::kAccD / 2; ++i) acc[i] = 0.f;
 
   for (int j = 0; j < n_kv_c; ++j) {
     const int stage = j % kDqStages;
@@ -313,13 +349,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t qcol = (kk / 4) * kDqBlockM * 128 + (kk % 4) * 32;
+      const uint32_t qcol = (kk / 4) * kBlockM * 128 + (kk % 4) * 32;
       const uint32_t kcol = stage_off + (kk / 4) * kDqBlockN * 128 + (kk % 4) * 32;
       wgmma_ss<kDqBlockN>(s, desc_add(dQ, qcol), desc_add(dK, kcol), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t qcol = (kk / 4) * kDqBlockM * 128 + (kk % 4) * 32;
+      const uint32_t qcol = (kk / 4) * kBlockM * 128 + (kk % 4) * 32;
       const uint32_t kcol = stage_off + (kk / 4) * kDqBlockN * 128 + (kk % 4) * 32;
       wgmma_ss<kDqBlockN>(dp, desc_add(dDo, qcol), desc_add(dV, kcol), kk > 0);
     }
@@ -340,7 +376,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDqBlockN / 16; ++kk) {
-      wgmma_rs<D>(acc, ds[kk], desc_add(dKn, stage_off + kk * 2048), 1);
+      wgmma_rs<L::kAccD>(acc, ds[kk], desc_add(dKn, stage_off + kk * 2048), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -350,9 +386,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
   OutT* dqp = at(static_cast<OutT*>(a.dq), a.sdq, b, h);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const bool live = n * 8 < a.D;  // padding columns past the real D: not stored
-    const int col = n * 8 + 2 * t4;
+  for (int n = 0; n < L::kAccD / 8; ++n) {
+    const bool live = col_c + n * 8 < a.D;  // padding columns past the real D: not stored
+    const int col = col_c + n * 8 + 2 * t4;
     if (live && row_a < T) {
       store_out2(dqp + row_a * a.sdq.t + col, acc[4 * n] * a.scale, acc[4 * n + 1] * a.scale);
     }
@@ -367,11 +403,14 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
 constexpr int kDkvBlockN = 64;  // keys per block, shared by both consumer warpgroups
 constexpr int kDkvBlockM = 64;  // q rows per streamed q/do tile
-constexpr int kDkvStages = 3;   // q/do ring depth
 
 // shared-memory layout, byte offsets from a 1024-aligned base
 template <int D>
 struct DkvSmem {
+  static constexpr bool kSplitD = D > 128;          // blocks split dk's and dv's columns
+  static constexpr int kAccD = kSplitD ? D / 2 : D;  // dk, dv columns a block owns
+  static constexpr int kStages = kSplitD ? 2 : 3;    // q/do ring depth
+  static constexpr int kPBufs = kSplitD ? 1 : 2;     // f32 p^T buffers, A to B
   static constexpr int kKTile = kDkvBlockN * D * 2;              // k or v
   static constexpr int kQTile = kDkvBlockM * D * 2;              // q or do, one stage
   static constexpr int kPTile = kDkvBlockN * kDkvBlockM * 2;     // p^T or ds^T, bf16
@@ -379,15 +418,16 @@ struct DkvSmem {
   static constexpr int kK = 0;
   static constexpr int kV = kK + kKTile;
   static constexpr int kQ = kV + kKTile;
-  static constexpr int kDo = kQ + kDkvStages * kQTile;
-  static constexpr int kPb = kDo + kDkvStages * kQTile;  // p^T bf16 (consumer A's A operand)
-  static constexpr int kDs = kPb + kPTile;              // ds^T bf16 (consumer B's A operand)
-  static constexpr int kPfs = kDs + kPTile;             // two p^T f32 buffers, A to B
-  static constexpr int kLse = kPfs + 2 * kPf;           // per stage kDkvBlockM f32
-  static constexpr int kDelta = kLse + kDkvStages * kDkvBlockM * 4;
-  // kv_full, full[], empty[], p_full[2], p_empty[2]
-  static constexpr int kBars = kDelta + kDkvStages * kDkvBlockM * 4;
-  static constexpr int kBytes = kBars + (1 + 2 * kDkvStages + 4) * 8 + 1024;  // + alignment slack
+  static constexpr int kDo = kQ + kStages * kQTile;
+  static constexpr int kPb = kDo + kStages * kQTile;  // p^T bf16 (consumer A's A operand)
+  static constexpr int kDs = kPb + kPTile;           // ds^T bf16 (consumer B's A operand)
+  static constexpr int kPfs = kDs + kPTile;          // the p^T f32 buffers, A to B
+  static constexpr int kLse = kPfs + kPBufs * kPf;   // per stage kDkvBlockM f32
+  static constexpr int kDelta = kLse + kStages * kDkvBlockM * 4;
+  // kv_full, full[], empty[], p_full[], p_empty[]
+  static constexpr int kBars = kDelta + kStages * kDkvBlockM * 4;
+  static constexpr int kBytes =
+      kBars + (1 + 2 * kStages + 2 * kPBufs) * 8 + 1024;  // + alignment slack
 };
 
 struct DkvArgs {
@@ -454,6 +494,8 @@ template <int D, bool kCausal, typename OutT>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ DkvArgs a) {
   using L = DkvSmem<D>;
+  constexpr int kStages = L::kStages;
+  constexpr int kPBufs = L::kPBufs;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
@@ -467,15 +509,16 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   float* sDelta = reinterpret_cast<float*>(smem + L::kDelta);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + kDkvStages;
-  uint64_t* p_full = empty + kDkvStages;
-  uint64_t* p_empty = p_full + 2;
+  uint64_t* empty = full + kStages;
+  uint64_t* p_full = empty + kStages;
+  uint64_t* p_empty = p_full + kPBufs;
 
   const int T = a.T;
   const int h_kv_count = a.H / a.group;
   const int b = blockIdx.x / h_kv_count;
   const int h_kv = blockIdx.x % h_kv_count;
   const int k0 = blockIdx.y * kDkvBlockN;  // y = 0, the heaviest tiles, is scheduled first
+  const int col0 = L::kSplitD ? blockIdx.z * L::kAccD : 0;  // the block's first dk, dv column
   const int n_q_tiles = (T + kDkvBlockM - 1) / kDkvBlockM;
   const int first = kCausal ? k0 / kDkvBlockM : 0;  // earlier q tiles see none of these keys
   const int per_head = n_q_tiles - first;
@@ -483,11 +526,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < kDkvStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1 + 32);  // the TMA thread's expect_tx, each lane's lse/delta
       mbar_init(&empty[s], kWsConsumerThreads);
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kPBufs; ++s) {
       mbar_init(&p_full[s], 128);   // consumer A's threads, p^T stored
       mbar_init(&p_empty[s], 128);  // consumer B's threads, p^T read
     }
@@ -508,10 +551,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         tma_load_tile<D, kDkvBlockN>(sV, &a.tv, kv_full, h_kv, k0, b);
       }
       for (int it = 0; it < n_iter; ++it) {
-        const int stage = it % kDkvStages;
+        const int stage = it % kStages;
         const int hq = h_kv * a.group + it / per_head;
         const int q0 = (first + it % per_head) * kDkvBlockM;
-        if (it >= kDkvStages) mbar_wait(&empty[stage], ((it / kDkvStages) - 1) & 1);
+        if (it >= kStages) mbar_wait(&empty[stage], ((it / kStages) - 1) & 1);
         if (lane == 0) {
           mbar_expect_tx(&full[stage], 2 * L::kQTile);
           tma_load_tile<D, kDkvBlockM>(sQ + stage * kDkvBlockM * D, &a.tq, &full[stage], hq,
@@ -545,11 +588,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int key_b = key_a + 8;           // and e = 2, 3
 
   // the stage-0 descriptors: K-major q, do and the score operands, MN-major
-  // q and do (LBO: their 64-column blocks, 64 rows x 128 bytes apart)
+  // q and do (LBO: their 64-column blocks, 64 rows x 128 bytes apart) from
+  // the block's first column block of dk and dv on
   const uint64_t dQ = desc_sw128(sQ, 16);
   const uint64_t dDo = desc_sw128(sDo, 16);
-  const uint64_t dQn = desc_sw128(sQ, kDkvBlockM * 128);
-  const uint64_t dDon = desc_sw128(sDo, kDkvBlockM * 128);
+  const uint32_t col0_off = (col0 / 64) * kDkvBlockM * 128;
+  const uint64_t dQn = desc_add(desc_sw128(sQ, kDkvBlockM * 128), col0_off);
+  const uint64_t dDon = desc_add(desc_sw128(sDo, kDkvBlockM * 128), col0_off);
 
   if (wg == 1) {
     // A: s^T = k q^T, p^T = exp(scale s^T - lse), handed to B in f32 and
@@ -557,16 +602,16 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const uint64_t dK = desc_sw128(sK, 16);
     const uint64_t dP = desc_sw128(sPb, 16);
     const float scale_log2 = a.scale * kLog2e;
-    float dv[D / 2];
+    float dv[L::kAccD / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dv[i] = 0.f;
+    for (int i = 0; i < L::kAccD / 2; ++i) dv[i] = 0.f;
     mbar_wait(kv_full, 0);
     for (int it = 0; it < n_iter; ++it) {
-      const int stage = it % kDkvStages;
+      const int stage = it % kStages;
       const int q0 = (first + it % per_head) * kDkvBlockM;
       const uint32_t stage_off = stage * L::kQTile;
-      const int pb = it & 1;
-      mbar_wait(&full[stage], (it / kDkvStages) & 1);
+      const int pb = kPBufs == 2 ? it & 1 : 0;
+      mbar_wait(&full[stage], (it / kStages) & 1);
 
       float s[kDkvBlockM / 2];
       wgmma_fence();
@@ -585,7 +630,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
       // p^T in f32 to B, thread-major: B's thread t reads what A's thread t
       // wrote, the same accumulator positions
-      if (it >= 2) mbar_wait(&p_empty[pb], ((it >> 1) - 1) & 1);
+      if (it >= kPBufs) mbar_wait(&p_empty[pb], ((kPBufs == 2 ? it >> 1 : it) - 1) & 1);
       float4* pf = sPf + pb * (kDkvBlockN * kDkvBlockM / 4);
 #pragma unroll
       for (int j = 0; j < kDkvBlockM / 8; ++j) {
@@ -609,7 +654,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
-        wgmma_ss_mn<D>(dv, desc_add(dP, kk * 32), desc_add(dDon, stage_off + kk * 2048), 1);
+        wgmma_ss_mn<L::kAccD>(dv, desc_add(dP, kk * 32), desc_add(dDon, stage_off + kk * 2048),
+                              1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -618,9 +664,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
     OutT* dvp = at(static_cast<OutT*>(a.dv), a.sdv, b, h_kv);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bool live = n * 8 < a.D;  // padding columns past the real D: not stored
-      const int col = n * 8 + 2 * t4;
+    for (int n = 0; n < L::kAccD / 8; ++n) {
+      const bool live = col0 + n * 8 < a.D;  // padding columns past the real D: not stored
+      const int col = col0 + n * 8 + 2 * t4;
       if (live && key_a < T) store_out2(dvp + key_a * a.sdv.t + col, dv[4 * n], dv[4 * n + 1]);
       if (live && key_b < T) {
         store_out2(dvp + key_b * a.sdv.t + col, dv[4 * n + 2], dv[4 * n + 3]);
@@ -633,15 +679,15 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   // in bf16 for dk += ds^T q
   const uint64_t dV = desc_sw128(sV, 16);
   const uint64_t dDs = desc_sw128(sDs, 16);
-  float dk[D / 2];
+  float dk[L::kAccD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+  for (int i = 0; i < L::kAccD / 2; ++i) dk[i] = 0.f;
   mbar_wait(kv_full, 0);
   for (int it = 0; it < n_iter; ++it) {
-    const int stage = it % kDkvStages;
+    const int stage = it % kStages;
     const uint32_t stage_off = stage * L::kQTile;
-    const int pb = it & 1;
-    mbar_wait(&full[stage], (it / kDkvStages) & 1);
+    const int pb = kPBufs == 2 ? it & 1 : 0;
+    mbar_wait(&full[stage], (it / kStages) & 1);
 
     float dp[kDkvBlockM / 2];
     wgmma_fence();
@@ -655,7 +701,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_wait<0>();
     fence_regs(dp);
 
-    mbar_wait(&p_full[pb], (it >> 1) & 1);
+    mbar_wait(&p_full[pb], (kPBufs == 2 ? it >> 1 : it) & 1);
     const float4* pf = sPf + pb * (kDkvBlockN * kDkvBlockM / 4);
     const float* dl = sDelta + stage * kDkvBlockM;
 #pragma unroll
@@ -681,7 +727,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
-      wgmma_ss_mn<D>(dk, desc_add(dDs, kk * 32), desc_add(dQn, stage_off + kk * 2048), 1);
+      wgmma_ss_mn<L::kAccD>(dk, desc_add(dDs, kk * 32), desc_add(dQn, stage_off + kk * 2048), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -690,9 +736,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
   OutT* dkp = at(static_cast<OutT*>(a.dk), a.sdk, b, h_kv);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const bool live = n * 8 < a.D;
-    const int col = n * 8 + 2 * t4;
+  for (int n = 0; n < L::kAccD / 8; ++n) {
+    const bool live = col0 + n * 8 < a.D;
+    const int col = col0 + n * 8 + 2 * t4;
     if (live && key_a < T) {
       store_out2(dkp + key_a * a.sdk.t + col, dk[4 * n] * a.scale, dk[4 * n + 1] * a.scale);
     }
@@ -709,7 +755,7 @@ cudaError_t launch_dq(const DqArgs& a, int B, cudaStream_t stream) {
   static bool attr_set = false;
   const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, kCausal, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + kDqBlockM - 1) / kDqBlockM, B * a.H);
+  const dim3 grid((a.T + DqSmem<D>::kBlockM - 1) / DqSmem<D>::kBlockM, B * a.H);
   flash_bwd_dq_kernel<D, kCausal, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -720,8 +766,10 @@ cudaError_t launch_dkv(const DkvArgs& a, int B, cudaStream_t stream) {
   static bool attr_set = false;
   const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, kCausal, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
-  // key tiles along y, so that every tile 0 (the heaviest) is scheduled first
-  const dim3 grid(B * (a.H / a.group), (a.T + kDkvBlockN - 1) / kDkvBlockN);
+  // key tiles along y, so that every tile 0 (the heaviest) is scheduled
+  // first; the column halves of dk and dv along z at Dp = 256
+  const dim3 grid(B * (a.H / a.group), (a.T + kDkvBlockN - 1) / kDkvBlockN,
+                  DkvSmem<D>::kSplitD ? 2 : 1);
   flash_bwd_dkv_kernel<D, kCausal, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -739,8 +787,10 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
            int64_t dq_st, int64_t dq_sh, void* stream) {
   if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
   DqArgs a;
-  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kDqBlockM);
-  if (err == 0) err = make_tile_map(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, kDqBlockM);
+  const int Dp = padded_head_dim(D);
+  const int rows = dq_block_m(Dp);
+  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, rows);
+  if (err == 0) err = make_tile_map(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, rows);
   if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDqBlockN);
   if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDqBlockN);
   if (err != 0) return err;
@@ -757,11 +807,14 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t launched;
-  if (padded_head_dim(D) == 64) {
+  if (Dp == 64) {
     launched = causal ? launch_dq<64, true, OutT>(a, B, s) : launch_dq<64, false, OutT>(a, B, s);
-  } else {
+  } else if (Dp == 128) {
     launched =
         causal ? launch_dq<128, true, OutT>(a, B, s) : launch_dq<128, false, OutT>(a, B, s);
+  } else {
+    launched =
+        causal ? launch_dq<256, true, OutT>(a, B, s) : launch_dq<256, false, OutT>(a, B, s);
   }
   return static_cast<int>(launched);
 }
@@ -793,12 +846,16 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t launched;
-  if (padded_head_dim(D) == 64) {
+  const int Dp = padded_head_dim(D);
+  if (Dp == 64) {
     launched =
         causal ? launch_dkv<64, true, OutT>(a, B, s) : launch_dkv<64, false, OutT>(a, B, s);
-  } else {
+  } else if (Dp == 128) {
     launched =
         causal ? launch_dkv<128, true, OutT>(a, B, s) : launch_dkv<128, false, OutT>(a, B, s);
+  } else {
+    launched =
+        causal ? launch_dkv<256, true, OutT>(a, B, s) : launch_dkv<256, false, OutT>(a, B, s);
   }
   return static_cast<int>(launched);
 }

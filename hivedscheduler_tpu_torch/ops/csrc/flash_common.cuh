@@ -19,15 +19,17 @@ constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernels
 constexpr float kClamp = -0.5e30f;  // the m_safe clamp of the TPU forward
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Head dims: the kernels take any D that is a multiple of 8 up to 128 (the
-// JAX package's rule, D % 8 == 0, within the two widths instantiated) and
-// run it at the padded width Dp = 64 * ceil(D / 64). TMA loads the columns
-// of a box at or past D as zeros (the tensor map's innermost extent is D),
-// so q k^T, do v^T and every delta are those of the real D; the epilogues
-// store only columns < D. A multiple of 8 keeps each 16-byte row chunk
-// whole and every global row 16-byte aligned, as a tensor map needs.
-inline bool head_dim_ok(int D) { return D >= 8 && D <= 128 && D % 8 == 0; }
-inline int padded_head_dim(int D) { return D <= 64 ? 64 : 128; }
+// Head dims: the kernels take any D that is a multiple of 8 up to 256 (the
+// JAX package's rule, D % 8 == 0, within the three widths instantiated) and
+// run it at the padded width Dp = 64, 128 or 256. TMA loads the columns of a
+// box at or past D as zeros (the tensor map's innermost extent is D), so
+// q k^T, do v^T and every delta are those of the real D; the epilogues store
+// only columns < D. A multiple of 8 keeps each 16-byte row chunk whole and
+// every global row 16-byte aligned, as a tensor map needs. At Dp = 256 one
+// 64-row accumulator of the whole width is 128 f32 registers a thread, so
+// each kernel has its own plan there (flash_fwd.cu, flash_bwd.cu).
+inline bool head_dim_ok(int D) { return D >= 8 && D <= 256 && D % 8 == 0; }
+inline int padded_head_dim(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);

@@ -39,13 +39,25 @@
 // Inputs are addressed through their [B, T, H, D] strides (D contiguous):
 // tensor maps are encoded per call from the strides, so the caller makes no
 // [B*H, T, D] copy.
-// Head dims: any D that is a multiple of 8 up to 128 runs on the template
-// of its padded width Dp = 64 or 128 (flash_common.cuh). The tensor maps
-// declare the real D, so TMA fills a box's columns past D with zeros (and
-// credits the whole box to the stage's barrier, as for rows past T): zero
-// q and k columns leave the scores unchanged, zero v columns give zero o
-// columns, and the epilogue stores only columns < D. The scale is the real
-// D's. The tensor cores do Dp / D times the work (4/3 at D = 96).
+// Head dims: any D that is a multiple of 8 up to 256 runs on the template
+// of its padded width Dp = 64, 128 or 256 (flash_common.cuh). The tensor
+// maps declare the real D, so TMA fills a box's columns past D with zeros
+// (and credits the whole box to the stage's barrier, as for rows past T):
+// zero q and k columns leave the scores unchanged, zero v columns give zero
+// o columns, and the epilogue stores only columns < D. The scale is the
+// real D's. The tensor cores do Dp / D times the work (4/3 at D = 96, 1.88
+// at D = 136, 4/3 at D = 192).
+// At Dp = 256 (Gemma's head dim) a block takes 64 q rows and 64-key K/V
+// tiles, and its two consumers split o's columns instead of the rows: both
+// compute s = q k^T over the whole D and the same online softmax for the 64
+// rows, and consumer c accumulates o's columns [128c, 128c + 128) (RS wgmma
+// m64n128k16 from V's column blocks 2c, 2c + 1); consumer 0 stores lse.
+// Why: a consumer holding all 256 columns of o keeps 128 f32 accumulator
+// registers beside s; with 128-row blocks and 64-key tiles (o 128 + s 32)
+// ptxas serialized every wgmma (C7512) and spilled 548-600 bytes, and the
+// kernel took 1.64x this plan's time on an H100 (PERF.md). Split, a
+// consumer holds 64 + 32, as at Dp = 128, for 3/2 of the real work (s runs
+// twice). Shared memory: q 32 + 2 x (32 + 32) = 160 KB.
 //
 // Output type: o is stored in bf16 (hived_flash_fwd) or in f32
 // (hived_flash_fwd_f32), the counterpart of _flash_forward's out_dtype=f32,
@@ -62,14 +74,20 @@ namespace {
 
 using namespace hived;
 
-constexpr int kBlockM = 128;  // q rows per block: two consumer warpgroups of 64
-constexpr int kBlockN = 128;  // keys per K/V tile
-constexpr int kStages = 2;    // K/V ring depth
+constexpr int kStages = 2;  // K/V ring depth
+
+// q rows per block (two consumer warpgroups of 64), and keys per K/V tile, at
+// the padded width Dp: 128, or 64 at Dp = 256 (both consumers on the same
+// rows)
+constexpr int fwd_block(int Dp) { return Dp > 128 ? 64 : 128; }
 
 // shared-memory layout, byte offsets from a 1024-aligned base
 template <int D>
 struct FwdSmem {
-  static constexpr int kTile = kBlockN * D * 2;  // one 128-row tile (Q, K or V)
+  static constexpr bool kSplitD = D > 128;           // consumers split o's columns
+  static constexpr int kBlock = fwd_block(D);
+  static constexpr int kAccD = kSplitD ? D / 2 : D;  // o columns a consumer owns
+  static constexpr int kTile = kBlock * D * 2;       // one tile (Q, K or V)
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kTile;
   static constexpr int kV = kK + kStages * kTile;
@@ -89,11 +107,11 @@ struct FwdArgs {
 
 // scores of one tile in place: scale, and on the last tile mask (keys past T
 // to -inf, causal keys past the row to NEG_INF, as _fwd_kernel does)
-template <bool kMask, bool kCausal>
-__device__ __forceinline__ void scale_mask(float (&s)[kBlockN / 2], float scale, int k0,
-                                           int row_a, int t4, int T) {
+template <int kN, bool kMask, bool kCausal>
+__device__ __forceinline__ void scale_mask(float (&s)[kN / 2], float scale, int k0, int row_a,
+                                           int t4, int T) {
 #pragma unroll
-  for (int n = 0; n < kBlockN / 8; ++n) {
+  for (int n = 0; n < kN / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * n + e] * scale;
@@ -115,6 +133,7 @@ template <int D, bool kCausal, typename OutT>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_fwd_kernel(const __grid_constant__ FwdArgs a) {
   using L = FwdSmem<D>;
+  constexpr int kN = L::kBlock;  // keys per tile, and q rows per block
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
@@ -126,13 +145,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   uint64_t* empty = v_full + kStages;
 
   const int T = a.T;
-  const int n_q_tiles = (T + kBlockM - 1) / kBlockM;
+  const int n_q_tiles = (T + kN - 1) / kN;
   const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest first
   const int bh = blockIdx.y;
   const int b = bh / a.H;
   const int h = bh % a.H;
-  const int q0 = q_tile * kBlockM;
-  int n_kv = (T + kBlockN - 1) / kBlockN;
+  const int q0 = q_tile * kN;
+  int n_kv = (T + kN - 1) / kN;
   if (kCausal) n_kv = min(n_kv, q_tile + 1);  // tiles past the diagonal are never loaded
 
   if (threadIdx.x == 0) {
@@ -153,22 +172,21 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     if (threadIdx.x == 0) {
       const int h_kv = h / a.group;
       mbar_expect_tx(q_full, L::kTile);
-      tma_load_tile<D, kBlockM>(sQ, &a.tq, q_full, h, q0, b);
+      tma_load_tile<D, kN>(sQ, &a.tq, q_full, h, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int stage = j % kStages;
         if (j >= kStages) mbar_wait(&empty[stage], ((j / kStages) - 1) & 1);
         mbar_expect_tx(&k_full[stage], L::kTile);
-        tma_load_tile<D, kBlockN>(sK + stage * kBlockN * D, &a.tk, &k_full[stage], h_kv,
-                                  j * kBlockN, b);
+        tma_load_tile<D, kN>(sK + stage * kN * D, &a.tk, &k_full[stage], h_kv, j * kN, b);
         mbar_expect_tx(&v_full[stage], L::kTile);
-        tma_load_tile<D, kBlockN>(sV + stage * kBlockN * D, &a.tv, &v_full[stage], h_kv,
-                                  j * kBlockN, b);
+        tma_load_tile<D, kN>(sV + stage * kN * D, &a.tv, &v_full[stage], h_kv, j * kN, b);
       }
     }
     return;
   }
 
-  // consumer c owns q rows [64c, 64c + 64) of the tile
+  // consumer c owns q rows [64c, 64c + 64) of the tile, all of o's
+  // columns; at Dp = 256 the tile's 64 rows, o's columns [128c, 128c + 128)
   regs_inc<kConsumerRegs>();
   const int c = wg - 1;
   const int tid = threadIdx.x % 128;
@@ -176,18 +194,21 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int lane = tid % 32;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int row_a = q0 + 64 * c + 16 * warp + g;  // rows of s[4n], s[4n+1]
-  const int row_b = row_a + 8;                    // rows of s[4n+2], s[4n+3]
+  const int rows_c = L::kSplitD ? 0 : 64 * c;       // the consumer's first row in the tile
+  const int col_c = L::kSplitD ? L::kAccD * c : 0;  // its first o column
+  const int row_a = q0 + rows_c + 16 * warp + g;    // rows of s[4n], s[4n+1]
+  const int row_b = row_a + 8;                      // rows of s[4n+2], s[4n+3]
 
   // K-major descriptors of this consumer's q rows and of stage 0's K tile;
-  // MN-major of stage 0's V tile (LBO: the 64-column blocks of V)
-  const uint64_t dQ = desc_sw128(sQ + 64 * c * 64, 16);
+  // MN-major of stage 0's V tile (LBO: the 64-column blocks of V) from the
+  // consumer's first o column on
+  const uint64_t dQ = desc_sw128(sQ + rows_c * 64, 16);
   const uint64_t dK = desc_sw128(sK, 16);
-  const uint64_t dV = desc_sw128(sV, kBlockN * 128);
+  const uint64_t dV = desc_add(desc_sw128(sV, kN * 128), (col_c / 64) * kN * 128);
 
-  float o[D / 2];
+  float o[L::kAccD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < L::kAccD / 2; ++i) o[i] = 0.f;
   float m_a = kNegInf, m_b = kNegInf;
   float l_a = 0.f, l_b = 0.f;  // this thread's share of the row sums
 
@@ -198,27 +219,27 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const uint32_t stage_off = stage * L::kTile;
 
     // s = q k^T: k-step kk reads columns [16kk, 16kk + 16) of q and K
-    float s[kBlockN / 2];
+    float s[kN / 2];
     mbar_wait(&k_full[stage], parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t col = (kk / 4) * kBlockM * 128 + (kk % 4) * 32;
-      wgmma_ss<kBlockN>(s, desc_add(dQ, col), desc_add(dK, stage_off + col), kk > 0);
+      const uint32_t col = (kk / 4) * kN * 128 + (kk % 4) * 32;
+      wgmma_ss<kN>(s, desc_add(dQ, col), desc_add(dK, stage_off + col), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
 
     if (j == n_kv - 1) {
-      scale_mask<true, kCausal>(s, a.scale, j * kBlockN, row_a, t4, T);
+      scale_mask<kN, true, kCausal>(s, a.scale, j * kN, row_a, t4, T);
     } else {
-      scale_mask<false, kCausal>(s, a.scale, 0, 0, 0, 0);
+      scale_mask<kN, false, kCausal>(s, a.scale, 0, 0, 0, 0);
     }
 
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
+    for (int n = 0; n < kN / 8; ++n) {
       mx_a = fmaxf(mx_a, fmaxf(s[4 * n], s[4 * n + 1]));
       mx_b = fmaxf(mx_b, fmaxf(s[4 * n + 2], s[4 * n + 3]));
     }
@@ -237,10 +258,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
     // p = exp(s - m_safe), packed to bf16 as the A operand of p v: the
     // accumulators of keys [16kk, 16kk + 16) are k-step kk's registers
-    uint32_t p[kBlockN / 16][4];
+    uint32_t p[kN / 16][4];
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+    for (int kk = 0; kk < kN / 16; ++kk) {
       float e[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -256,7 +277,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     l_a = l_a * corr_a + sum_a;
     l_b = l_b * corr_b + sum_b;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < L::kAccD / 8; ++n) {
       o[4 * n] *= corr_a;
       o[4 * n + 1] *= corr_a;
       o[4 * n + 2] *= corr_b;
@@ -267,8 +288,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     mbar_wait(&v_full[stage], parity);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      wgmma_rs<D>(o, p[kk], desc_add(dV, stage_off + kk * 2048), 1);
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      wgmma_rs<L::kAccD>(o, p[kk], desc_add(dV, stage_off + kk * 2048), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -284,10 +305,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const float inv_b = 1.f / ls_b;
   OutT* op = static_cast<OutT*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < L::kAccD / 8; ++n) {
     // columns at or past the real D are padding: the next head's o lies there
-    const bool live = n * 8 < a.D;
-    const int col = n * 8 + 2 * t4;
+    const bool live = col_c + n * 8 < a.D;
+    const int col = col_c + n * 8 + 2 * t4;
     if (live && row_a < T) {
       store_out2(op + row_a * a.o_st + col, o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
     }
@@ -295,7 +316,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       store_out2(op + row_b * a.o_st + col, o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
     }
   }
-  if (t4 == 0) {
+  if (t4 == 0 && (!L::kSplitD || c == 0)) {  // at Dp = 256 both consumers hold it
     float* lp = a.lse + static_cast<int64_t>(bh) * T;
     if (row_a < T) lp[row_a] = fmaxf(m_a, kClamp) + logf(ls_a);
     if (row_b < T) lp[row_b] = fmaxf(m_b, kClamp) + logf(ls_b);
@@ -308,7 +329,7 @@ cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
   static bool attr_set = false;
   const cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + kBlockM - 1) / kBlockM, B * a.H);
+  const dim3 grid((a.T + FwdSmem<D>::kBlock - 1) / FwdSmem<D>::kBlock, B * a.H);
   flash_fwd_kernel<D, kCausal, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -330,9 +351,11 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FwdArgs a;
-  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kBlockM);
-  if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kBlockN);
-  if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kBlockN);
+  const int Dp = padded_head_dim(D);
+  const int rows = fwd_block(Dp);
+  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, rows);
+  if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, rows);
+  if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, rows);
   if (err != 0) return err;
   a.o = o;
   a.lse = static_cast<float*>(lse);
@@ -343,9 +366,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   a.o_sb = o_sb; a.o_st = o_st; a.o_sh = o_sh;
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t launched =
-      padded_head_dim(D) == 64 ? launch_d<64, OutT>(a, B, causal, s)
-                               : launch_d<128, OutT>(a, B, causal, s);
+  const cudaError_t launched = Dp == 64    ? launch_d<64, OutT>(a, B, causal, s)
+                               : Dp == 128 ? launch_d<128, OutT>(a, B, causal, s)
+                                           : launch_d<256, OutT>(a, B, causal, s);
   return static_cast<int>(launched);
 }
 

@@ -11,13 +11,15 @@ flags into ``DIR/hivedscheduler_tpu_torch/_build/`` and called through the
 same C entry points (``attention._KERNELS``) on the same inputs, by
 default at the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128, bf16,
 causal); ``--d``, ``--heads`` and ``--kv-heads`` change the head dim (any
-multiple of 8 up to 128) and the head counts. Each
+multiple of 8 up to 256) and the head counts (Gemma-2B's shape: ``--d 256
+--heads 8 --kv-heads 1``). Each
 kernel is timed with CUDA events in the order other, this, this, other, so
 a drift of the card's clock falls on both alike. It prints each reading,
 the ratio of the means, and the largest difference between the two trees'
 outputs. Without a card it exits non-zero. :func:`inputs` and
 :func:`runner` time one tree's kernels at two shapes the same way
-(``chip_smoke.py`` [q]: D = 96 against D = 128).
+(``chip_smoke.py`` [q]: D = 96 against D = 128; [r]: D = 256 against the
+flagship's D = 128).
 """
 
 from __future__ import annotations

@@ -41,21 +41,32 @@ def _jax_flash_forward(q, k, v, causal, block_q, block_k):
 # head dims of the kernels' cases: 32, and D = 80 and 96 (Phi-2's and
 # Phi-3-mini's), which the card's kernels run at their padded width 128
 HEAD_DIMS = [32, 80, 96]
+# head dims past 128, which the card's kernels run at their padded width 256:
+# 136 and 192, and Gemma's 256
+WIDE_HEAD_DIMS = [136, 192, 256]
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h_kv", [4, 2, 1])
-def test_plain_flash_matches_jax_kernel(causal, h_kv, d):
+# (h_kv, causal, d, t, block_q, block_k): HEAD_DIMS at T=256 over blocks
+# 128/64 with each head grouping, ids ``h_kv-causal-d``; WIDE_HEAD_DIMS with
+# MQA at T=128 over blocks of 64 (two q and two k blocks: the diagonal and
+# the skipped block above it)
+KERNEL_CASES = [pytest.param(h_kv, causal, d, 256, 128, 64, id=f"{h_kv}-{causal}-{d}")
+                for h_kv in (4, 2, 1) for causal in (True, False) for d in HEAD_DIMS] + [
+    pytest.param(1, causal, d, 128, 64, 64, id=f"1-{causal}-{d}")
+    for causal in (True, False) for d in WIDE_HEAD_DIMS]
+
+
+@pytest.mark.parametrize("h_kv, causal, d, t, block_q, block_k", KERNEL_CASES)
+def test_plain_flash_matches_jax_kernel(causal, h_kv, d, t, block_q, block_k):
     # T=256 over blocks 128/64: two q blocks, four k blocks, so the causal
     # diagonal block and the skipped blocks above it are both exercised
-    q, k, v = _qkv(0, 1, 256, 4, h_kv, d)
-    o_ref, lse_ref = _jax_flash_forward(q, k, v, causal, 128, 64)
+    q, k, v = _qkv(0, 1, t, 4, h_kv, d)
+    o_ref, lse_ref = _jax_flash_forward(q, k, v, causal, block_q, block_k)
     o, lse = tattn.flash_attention_plain(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=causal)
-    assert o.shape == (1, 256, 4, d) and o.dtype == torch.float32
-    assert lse.shape == (4, 256) and lse.dtype == torch.float32
+    assert o.shape == (1, t, 4, d) and o.dtype == torch.float32
+    assert lse.shape == (4, t) and lse.dtype == torch.float32
     np.testing.assert_allclose(o.numpy(), o_ref, atol=ATOL)
     # the TPU kernel stores lse 128 lanes wide, every lane equal
     np.testing.assert_allclose(lse.numpy(), lse_ref[..., 0], atol=ATOL)
@@ -221,10 +232,33 @@ def test_flash_attention_off_the_cpu_takes_the_reference_where_jax_does(case, mo
 
 
 def test_head_dims_the_kernels_take():
-    # every multiple of 8 up to 128, each run at the padded width 64 or 128
-    assert tattn.KERNEL_HEAD_DIMS == tuple(range(8, 129, 8))
-    assert {32, 80, 96, 112} <= set(tattn.KERNEL_HEAD_DIMS)
-    assert not {12, 136, 256} & set(tattn.KERNEL_HEAD_DIMS)
+    # every multiple of 8 up to 256, each run at the padded width 64, 128 or
+    # 256
+    assert tattn.KERNEL_HEAD_DIMS == tuple(range(8, 257, 8))
+    assert {32, 80, 96, 112, 136, 192, 256} <= set(tattn.KERNEL_HEAD_DIMS)
+    assert not {12, 264} & set(tattn.KERNEL_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("d, route", [(256, "kernel"), (264, "refused")])
+def test_head_dim_route_off_the_cpu(d, route, monkeypatch):
+    # a meta tensor stands in for a CUDA one: D = 256 (Gemma's) goes to the
+    # kernels' op, D = 264 is past the widest template and the kernels'
+    # wrapper refuses it, with no fallback to the plain versions or the
+    # reference
+    q = torch.empty((1, 128, 8, d), device="meta", dtype=torch.bfloat16)
+    k = torch.empty((1, 128, 1, d), device="meta", dtype=torch.bfloat16)
+    routes = tattn.FLASH_REFERENCE_ROUTES
+    if route == "kernel":
+        reached = []
+        monkeypatch.setattr(tattn.FlashAttention, "apply", staticmethod(
+            lambda *a: reached.append(a[0].shape) or a[0]))
+        tattn.flash_attention(q, k, k, block_q=64, block_k=64)
+        assert reached == [q.shape]
+    else:
+        with pytest.raises(ValueError) as err:
+            tattn._check_kernel_inputs(q, k, k)
+        assert "multiples of 8 up to 256" in str(err.value)
+    assert tattn.FLASH_REFERENCE_ROUTES == routes
 
 
 def test_flagship_bound_counts():
@@ -254,15 +288,13 @@ def _jax_flash_backward(q, k, v, do, causal, block_q, block_k):
     return np.array(o), np.array(lse[..., 0]), [np.array(g) for g in grads]
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h_kv", [4, 2, 1])
-def test_plain_backward_matches_jax_kernels(causal, h_kv, d):
+@pytest.mark.parametrize("h_kv, causal, d, t, block_q, block_k", KERNEL_CASES)
+def test_plain_backward_matches_jax_kernels(causal, h_kv, d, t, block_q, block_k):
     # T=256 over blocks 128/64: the dq kernel walks k blocks up to the
     # diagonal, the dk/dv kernel q blocks from it, and GQA sums the group
-    q, k, v = _qkv(10, 1, 256, 4, h_kv, d)
+    q, k, v = _qkv(10, 1, t, 4, h_kv, d)
     do = np.random.default_rng(11).standard_normal(q.shape, dtype=np.float32)
-    o, lse, want = _jax_flash_backward(q, k, v, do, causal, 128, 64)
+    o, lse, want = _jax_flash_backward(q, k, v, do, causal, block_q, block_k)
     got = tattn.flash_backward_plain(
         *(torch.from_numpy(x) for x in (q, k, v, o, lse, do)), causal=causal)
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):

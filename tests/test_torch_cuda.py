@@ -38,9 +38,10 @@ its first loss equal to the dense step's; the speculative engine with the
 target as its own draft serves the plain engine's greedy streams wherever
 the target's top-1 margin is decisive. K1-K3 and their f32 forms hold at
 head dims other than 64 and 128 (32, 80, 96, 112, run at the padded width
-64 or 128), and store nothing past D into a wider output buffer; a head
-dim off the multiples of 8 or a cross-length k takes ``xla_attention``, as
-in the JAX package, and the raw kernel call refuses D = 12 and D = 136.
+64 or 128; 136, 192 and Gemma's 256 with MQA and ragged T, run at 256), and
+store nothing past D into a wider output buffer; a head dim off the
+multiples of 8 or a cross-length k takes ``xla_attention``, as in the JAX
+package, and the raw kernel call refuses D = 12 and D = 264.
 """
 
 import os
@@ -113,6 +114,16 @@ PADDED_SHAPES = [
     (2, 130, 4, 4, 96, False),
     (2, 200, 8, 2, 112, True),
 ]
+# head dims past 128, run at the padded width 256 (K1 and K2 in 64-row
+# blocks whose consumers split the output's columns, K3 in column halves),
+# with MQA and ragged T
+WIDE_SHAPES = [
+    (2, 200, 8, 1, 136, True),
+    (1, 200, 8, 1, 192, False),
+    (2, 200, 8, 1, 256, True),
+    (2, 150, 8, 1, 256, True),
+    (1, 320, 8, 2, 256, False),
+]
 
 
 @pytest.mark.parametrize("shape", [
@@ -121,7 +132,7 @@ PADDED_SHAPES = [
     (1, 512, 8, 1, 64, True),
     (3, 130, 2, 1, 64, True),   # ragged last tile
     (1, 64, 2, 2, 128, False),  # one tile
-] + EDGE_SHAPES + PADDED_SHAPES)
+] + EDGE_SHAPES + PADDED_SHAPES + WIDE_SHAPES)
 def test_kernel_matches_plain(cuda, shape):
     b, t, h, h_kv, d, causal = shape
     q, k, v = _qkv(b, t, h, h_kv, d)
@@ -200,9 +211,9 @@ def test_kernel_raises_instead_of_falling_back(cuda, bad):
         q = q.clone().requires_grad_(True)
         kind = NotImplementedError
     else:
-        # the raw kernel call takes the multiples of 8 up to 128: D=136 is
+        # the raw kernel call takes the multiples of 8 up to 256: D=264 is
         # past the widest template, and D=12 (below) is off the grid
-        q, k, v = _qkv(1, 128, 2, 2, 136)
+        q, k, v = _qkv(1, 128, 2, 2, 264)
         kind = ValueError
     before = tattn.FLASH_FWD_LAUNCHES
     with pytest.raises(kind):
@@ -254,7 +265,7 @@ BWD_SHAPES = [
     (1, 64, 2, 2, 128, False),  # one tile
     (1, 320, 16, 4, 128, True),  # GQA group of 4: K3's head walk crosses 3 boundaries
     (2, 256, 16, 4, 64, False),
-] + EDGE_SHAPES + PADDED_SHAPES
+] + EDGE_SHAPES + PADDED_SHAPES + WIDE_SHAPES
 
 
 def _bwd_inputs(b, t, h, h_kv, d, causal, seed=0):
@@ -292,19 +303,21 @@ def test_backward_is_bit_reproducible(cuda):
 SENTINEL = -7777.0
 
 
-@pytest.mark.parametrize("d", [32, 96])
+@pytest.mark.parametrize("d", [32, 96, 136, 256])
 @pytest.mark.parametrize("f32", [False, True])
 def test_kernels_store_no_column_past_d(cuda, d, f32):
-    # every output is a view of its first d columns into a buffer 128 wide
-    # whose other columns hold a sentinel: a store past d would overwrite the
-    # next head's columns; the views must equal the wrappers' outputs
+    # every output is a view of its first d columns into a buffer as wide as
+    # the padded width (64 columns past it at D 256) whose other columns hold
+    # a sentinel: a store past d would overwrite the next head's columns; the
+    # views must equal the wrappers' outputs
     b, t, h, h_kv = 2, 200, 4, 2
+    width = 128 if d <= 128 else 256 if d < 256 else d + 64
     q, k, v, o16, lse, do = _bwd_inputs(b, t, h, h_kv, d, True, seed=9)
     out_dtype = torch.float32 if f32 else torch.bfloat16
     suffix = "_f32" if f32 else ""
 
     def wide(like):
-        buf = torch.full((*like.shape[:3], 128), SENTINEL, dtype=out_dtype, device="cuda")
+        buf = torch.full((*like.shape[:3], width), SENTINEL, dtype=out_dtype, device="cuda")
         return buf, buf[..., :d]
 
     stream = torch.cuda.current_stream().cuda_stream
@@ -374,12 +387,12 @@ def _sass_by_kernel(library: str) -> dict:
     ("flash_bwd", "flash_bwd_dkv_kernel"),
 ])
 def test_kernels_run_on_wgmma_and_tma(cuda, library, kernel):
-    # every instance (D 64/128 x causal/full x bf16/f32 outputs) multiplies
-    # with wgmma (HGMMA) on tiles loaded by TMA (UTMALDG), never with
-    # mma.sync (HMMA) or cp.async (LDGSTS)
+    # every instance (D 64/128/256 x causal/full x bf16/f32 outputs)
+    # multiplies with wgmma (HGMMA) on tiles loaded by TMA (UTMALDG), never
+    # with mma.sync (HMMA) or cp.async (LDGSTS)
     sass = _sass_by_kernel(_build.build(library))
     found = {k: v for k, v in sass.items() if kernel in k}
-    assert len(found) == 8, sorted(sass)
+    assert len(found) == 12, sorted(sass)
     for name, text in found.items():
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert "HMMA" not in text and "LDGSTS" not in text, name
@@ -670,7 +683,8 @@ def test_world_1_nccl_mesh_step_equals_the_single_device_step(cuda):
 
 # one hop of a ring: its diagonal (causal) and an unmasked hop, GQA
 RING_HOP_SHAPES = [(1, 256, 4, 2, 128, True), (1, 256, 4, 2, 128, False),
-                   (2, 192, 4, 1, 64, True), (1, 256, 4, 2, 96, True)]
+                   (2, 192, 4, 1, 64, True), (1, 256, 4, 2, 96, True),
+                   (1, 256, 8, 1, 256, True), (1, 200, 8, 1, 192, False)]
 # the share of an f32 form's outputs that a bf16 holds exactly (its exact
 # zeros and o's first causal row, at these shapes under 1%)
 F32_EXACT_BF16_MAX = 0.1

@@ -74,16 +74,23 @@ def _inputs(seed, b, t, h, h_kv, d):
 
 # -- the kernels' f32 forms --------------------------------------------------
 
+# (h_kv, causal, d, t, block_q, block_k): D 32 at T=256 over blocks 128/64,
+# ids ``h_kv-causal``; the head dims past 128 (run at the padded width 256 on
+# the card) with MQA at T=128 over blocks of 64
+F32_CASES = [pytest.param(h_kv, causal, 32, 256, 128, 64, id=f"{h_kv}-{causal}")
+             for h_kv in (4, 2) for causal in (True, False)] + [
+    pytest.param(1, causal, d, 128, 64, 64, id=f"1-{causal}-{d}")
+    for d in (136, 192, 256) for causal in (True, False)]
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h_kv", [4, 2])
-def test_plain_f32_forward_matches_jax_kernel(causal, h_kv):
+
+@pytest.mark.parametrize("h_kv, causal, d, t, block_q, block_k", F32_CASES)
+def test_plain_f32_forward_matches_jax_kernel(h_kv, causal, d, t, block_q, block_k):
     # bf16 inputs, f32 output: what each ring hop asks of K1
-    q, k, v, _ = (_bf16(x) for x in _inputs(0, 1, 256, 4, h_kv, 32))
+    q, k, v, _ = (_bf16(x) for x in _inputs(0, 1, t, 4, h_kv, d))
     with jax.default_device(jax.local_devices(backend="cpu")[0]):
         o_ref, lse_ref = jattn._flash_forward(
             *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), causal=causal,
-            block_q=128, block_k=64, interpret=True, out_dtype=jnp.float32)
+            block_q=block_q, block_k=block_k, interpret=True, out_dtype=jnp.float32)
     qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
     o, lse = tattn.flash_forward(qt, kt, vt, causal=causal, out_dtype=torch.float32)
     assert o.dtype == torch.float32 and o_ref.dtype == jnp.float32
@@ -95,10 +102,9 @@ def test_plain_f32_forward_matches_jax_kernel(causal, h_kv):
     assert torch.equal(o16, o.to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h_kv", [4, 2])
-def test_plain_f32_backward_matches_jax_kernel(causal, h_kv):
-    q, k, v, do = (_bf16(x) for x in _inputs(1, 1, 256, 4, h_kv, 32))
+@pytest.mark.parametrize("h_kv, causal, d, t, block_q, block_k", F32_CASES)
+def test_plain_f32_backward_matches_jax_kernel(h_kv, causal, d, t, block_q, block_k):
+    q, k, v, do = (_bf16(x) for x in _inputs(1, 1, t, 4, h_kv, d))
     qt, kt, vt, dot = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
     # K2/K3 read the ring's merged out in bf16 and its f32 lse
     o, lse = tattn.flash_forward(qt, kt, vt, causal=causal)
@@ -107,8 +113,8 @@ def test_plain_f32_backward_matches_jax_kernel(causal, h_kv):
         ref = jattn._flash_backward(
             *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
             jnp.asarray(o.float().numpy(), jnp.bfloat16), jnp.asarray(lanes),
-            jnp.asarray(do, jnp.bfloat16), causal=causal, block_q=128, block_k=64,
-            interpret=True, grad_dtype=jnp.float32)
+            jnp.asarray(do, jnp.bfloat16), causal=causal, block_q=block_q,
+            block_k=block_k, interpret=True, grad_dtype=jnp.float32)
     got = tattn.flash_backward(qt, kt, vt, o, lse, dot, causal=causal,
                                grad_dtype=torch.float32)
     for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
