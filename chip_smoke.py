@@ -210,6 +210,28 @@ Phases, each of which must pass or the script exits non-zero:
     ring_flash`` (the f32 forms 36/18/18, losses 1e-5 of flash's), greedy
     ``generate`` at (j)'s shape and (k)'s serving trace (as in (q), with no
     flash launch).
+(s) observability at the flagship width: ``train`` with (h)'s flags, 5
+    steps, ``--journal-file --goodput-file --timeline --profile-dir``: the
+    journal and goodput audits (``check_journal``, ``check_goodput``, the
+    goodput spool's ``check_spool``) clean, the merged Chrome trace valid
+    with one ``train/step`` span a step and the goodput lane, the profiler
+    trace of steps 2-4 holding K1/K2/K3 36/18/18 times as CUDA kernel
+    events, its size and each traced step's device time by group (K1-K3,
+    cuBLAS, the element-wise work split by the ops that launched it into
+    AdamW, CE, SiLU, RMSNorm, RoPE, casts and the rest) beside its host
+    gaps; ``train`` 2 then 4 steps (2 layers) over one checkpoint
+    directory: one ``train_resume`` at step 2 and the resume counter +1;
+    the step with and without ``--journal-file --goodput-file`` in turns;
+    ``serve`` on (k)'s load (16 requests, graph windows of 8, paged, every
+    4th request at priority 10) with ``--metrics-dump --journal-file
+    --slo-ttft-p99 0.5``: the exposition's requests and TTFT samples by
+    priority equal to the finished requests, its fused windows to the
+    engine's count, one ``request/decode`` span a request in the valid
+    trace, every flight one terminal with legs that tile its TTFT, the SLO
+    lines logged, the streams equal to a run without the flags; tokens/s
+    and TPOT p50 of (k)'s paged graph engine with the journal, flights and
+    tracer on and off in turns; and planted faults caught (a dropped leg, a
+    duplicated terminal, a trace recorded without CUDA activity).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -770,8 +792,10 @@ def _step_profile(step, params, opt, batch, groups=PROFILE_GROUPS):
     total = 0.0
     for event in prof.key_averages():
         # device-side events only (kernels, copies): a host op's self device
-        # time is its kernels' again
-        if event.device_type != DeviceType.CUDA:
+        # time is its kernels' again, and so is the device-side range of a
+        # user annotation (the optimizer's ``Optimizer.step#AdamW.step``)
+        if event.device_type != DeviceType.CUDA or getattr(
+                event, "is_user_annotation", False):
             continue
         us = event.self_device_time_total
         total += us
@@ -4093,6 +4117,506 @@ def phase_gemma() -> tuple:
     return rows, f32
 
 
+# phase (s): observability at the flagship width. The train flags of (h)
+# with the journal, goodput, timeline and profiler; (k)'s serving load
+# through the serve CLI with the metrics dump, the journal and an SLO
+OBS_TRAIN_STEPS = 5  # the profiler records steps 2-4
+OBS_TRAIN_ARGS = TRAIN_ARGS + ["--attn", "flash"]
+# the resume check at 2 layers: its two checkpoints take ~3 GB each
+OBS_RESUME_ARGS = [a for k, v in dict(EVAL_MODEL, n_layers=2).items()
+                   for a in (f"--{k.replace('_', '-')}", str(v))] + [
+    "--seq-len", str(EVAL_SEQ), "--batch", str(EVAL_BATCH), "--ce-chunk",
+    str(EVAL_CE_CHUNK), "--device", "cuda", "--remat", "dots", "--attn", "flash"]
+OBS_COST_STEPS, OBS_TURNS = 4, 2  # flag-cost runs: steps each, rounds of 4
+OBS_SLO_TTFT = 0.5
+OBS_SERVE_ARGS = SRV_CLI_ARGS + [
+    "--requests", str(SRV_REQUESTS), "--max-batch", str(SRV_BATCH),
+    "--max-len", str(SRV_MAX_LEN), "--max-new-tokens", str(SRV_BUDGET),
+    "--arrival-every", str(SRV_ARRIVAL), "--high-priority-every", "4"]
+# the kernels of one traced step, by the name fragments of (h)'s profile
+TRACE_KERNELS = {"K1": "flash_fwd_kernel", "K2": "flash_bwd_dq_kernel",
+                 "K3": "flash_bwd_dkv_kernel"}
+# the element-wise split: the first group one of whose fragments is in the
+# name of the op that launched a kernel or of an op around it (the
+# optimizer's own range, the autograd node of a backward kernel)
+ELEMENTWISE_GROUPS = (
+    ("AdamW", ("optimizer.step", "_foreach_", "adamw")),
+    ("CE", ("cross_entropy", "log_softmax", "logsoftmax", "nll_loss", "nllloss")),
+    ("SiLU", ("silu",)),
+    ("RMSNorm", ("rsqrt", "aten::mean", "meanbackward")),
+    ("RoPE", ("aten::cos", "aten::sin", "aten::exp", "aten::stack", "stackbackward")),
+    ("casts", ("aten::_to_copy", "aten::copy_", "tocopybackward")),
+)
+OTHER_ELEMENTWISE = "other element-wise (mul, add, embedding, ...)"
+
+
+def validate_chrome_trace(obj) -> list:
+    """The events of a Chrome trace Perfetto loads: a traceEvents array of
+    events with a name, ph, numeric ts, int pid and tid, and a non-negative
+    dur on complete events; fails otherwise."""
+    events = obj.get("traceEvents") if isinstance(obj, dict) else None
+    check(isinstance(events, list), "the trace has no traceEvents array")
+    for ev in events:
+        ok = (isinstance(ev.get("name"), str) and ev["name"] and isinstance(ev.get("ph"), str)
+              and isinstance(ev.get("ts"), (int, float)) and isinstance(ev.get("pid"), int)
+              and isinstance(ev.get("tid"), int)
+              and (ev["ph"] != "X" or (isinstance(ev.get("dur"), (int, float))
+                                       and ev["dur"] >= 0)))
+        check(ok, f"malformed trace event {ev}")
+    return events
+
+
+def flight_faults(flights: dict) -> list:
+    """What breaks the request flights' invariants: a flight without
+    exactly one terminal, a leg that does not start where the previous
+    ended (the first at submit), or legs that do not tile the TTFT."""
+    out = []
+    for key, fl in flights.items():
+        if fl["terminals"] != 1:
+            out.append(f"{key}: {fl['terminals']} terminals")
+        mark = fl["t0"]
+        for leg, start, end in fl["legs"]:
+            if abs(start - mark) > 1e-9:
+                out.append(f"{key}: leg {leg} starts {start - mark:+.3e} s off the mark")
+            mark = end
+        if fl["first_token_t"] is not None and (fl["ttft_gap"] is None
+                                                or abs(fl["ttft_gap"]) > 1e-9):
+            out.append(f"{key}: the legs miss the TTFT by {fl['ttft_gap']} s")
+    return out
+
+
+def trace_kernel_counts(events: list) -> dict:
+    """Launches of K1-K3 among a profiler trace's CUDA kernel events."""
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {k: sum(frag in name for name in kernels) for k, frag in TRACE_KERNELS.items()}
+
+
+def _enclosing_ops(events: list, launches: dict) -> dict:
+    """For each launch (correlation -> (ts, tid)), the names of the host
+    ranges around it on its thread (ops and user ranges), outermost
+    first: a sweep over each thread's properly nested ranges."""
+    ranges = {}
+    for e in events:
+        if e.get("cat") in ("cpu_op", "user_annotation") and e.get("ph") == "X":
+            ranges.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e["dur"], e["name"]))
+    points = {}
+    for corr, (ts, tid) in launches.items():
+        points.setdefault(tid, []).append((ts, corr))
+    out = {}
+    for tid, pts in points.items():
+        spans = sorted(ranges.get(tid, []), key=lambda r: (r[0], -r[1]))
+        stack, i = [], 0
+        for ts, corr in sorted(pts):
+            while i < len(spans) and spans[i][0] <= ts:
+                while stack and stack[-1][1] < spans[i][0]:
+                    stack.pop()
+                stack.append(spans[i])
+                i += 1
+            while stack and stack[-1][1] < ts:
+                stack.pop()
+            out[corr] = [name for _, end, name in stack if end >= ts]
+    return out
+
+
+def _kernel_group(name: str, ops: list) -> str:
+    for group, frag in TRACE_KERNELS.items():
+        if frag in name:
+            return group
+    if profile_group(name) == "matmuls":
+        return "cuBLAS"
+    chain = " ".join(ops).lower()
+    return next((g for g, frags in ELEMENTWISE_GROUPS if any(f in chain for f in frags)),
+                OTHER_ELEMENTWISE)
+
+
+def _launching_op(ops: list) -> str:
+    """The innermost op around a launch, with the autograd node it runs
+    for in a backward pass."""
+    node = next((o.split(": ", 1)[1] for o in reversed(ops)
+                 if o.startswith("autograd::engine::evaluate_function: ")), "")
+    inner = ops[-1] if ops else "?"
+    return f"{inner} in {node}" if node else inner
+
+
+def trace_step_breakdown(events: list) -> dict:
+    """{step: (wall ms of its train/step range, device busy ms, host-gap
+    ms, {group: device ms}, {launching op: device ms} of the group the
+    split leaves over)} from a profiler trace: each device event (a
+    kernel, copy or memset) counts in the step whose range holds its
+    launch, and in the group of its kernel name or, for element-wise work,
+    of the ops that launched it."""
+    steps = {int(e["name"].split()[-1]): (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("train/step ")}
+    launches = {e["args"]["correlation"]: (e["ts"], e["tid"]) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    ops = _enclosing_ops(events, launches)
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e.get("args", {}).get("correlation") in launches]
+    out = {}
+    for step, (lo, hi) in sorted(steps.items()):
+        mine = [e for e in device if lo <= launches[e["args"]["correlation"]][0] <= hi]
+        groups, rest = {}, {}
+        for e in mine:
+            chain = ops.get(e["args"]["correlation"], [])
+            g = _kernel_group(e["name"], chain)
+            groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3
+            if g == OTHER_ELEMENTWISE:
+                op = _launching_op(chain)
+                rest[op] = rest.get(op, 0.0) + e["dur"] / 1e3
+        busy, end = 0.0, lo
+        for s, d in sorted((e["ts"], e["dur"]) for e in mine):
+            s, f = max(s, end), min(s + d, hi)
+            if f > s:
+                busy += f - s
+                end = f
+        out[step] = ((hi - lo) / 1e3, busy / 1e3, (hi - lo - busy) / 1e3, groups, rest)
+    return out
+
+
+def _registry_counts() -> dict:
+    from hivedscheduler_tpu_torch.runtime.metrics import REGISTRY
+
+    with REGISTRY._lock:
+        out = dict(REGISTRY._counters)
+        out.update({(f"{n}_count", labels): c
+                    for (n, labels), (_, _, c) in REGISTRY._histograms.items()})
+    return out
+
+
+def _exposition(text: str) -> dict:
+    """{series: value} of a Prometheus exposition's sample lines."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            out[series] = float(value)
+    return out
+
+
+def _obs_off() -> None:
+    """Every observability singleton disabled and cleared, as a fresh
+    process has them."""
+    from hivedscheduler_tpu_torch.obs import journal, trace
+
+    _close_goodput()
+    journal.disable()
+    journal.JOURNAL.clear()
+    trace.disable()
+    trace.TRACER.clear()
+
+
+def _obs_train(tmp: str) -> dict:
+    """1: the flagship step with every train flag: journal and goodput
+    audits, the merged Chrome trace, the profiler trace's kernels and the
+    step's device time by group. Returns the breakdown of step 3."""
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+    from hivedscheduler_tpu_torch.obs import goodput, trace
+
+    spool, gp = os.path.join(tmp, "journal.jsonl"), os.path.join(tmp, "goodput.jsonl")
+    prof_dir = os.path.join(tmp, "profile")
+    trace.enable()
+    losses = _train_main(tmp, "obs", "--steps", str(OBS_TRAIN_STEPS), "--journal-file", spool,
+                         "--goodput-file", gp, "--profile-dir", prof_dir)
+    check(sorted(losses) == list(range(1, OBS_TRAIN_STEPS + 1)), f"[s] train steps {losses}")
+    inv.check_journal()
+    inv.check_goodput()
+    events = validate_chrome_trace(json.loads(json.dumps(trace.to_chrome_trace())))
+    spans = [e for e in events if e["name"] == "train/step"]
+    lane = [e for e in events if e.get("cat") == "goodput"]
+    check([e["args"]["step"] for e in spans] == list(range(1, OBS_TRAIN_STEPS + 1)),
+          f"[s] train/step spans {[e['args'] for e in spans]}")
+    check(any(e["name"] == "phase:step_compute" for e in lane), "[s] no goodput lane")
+    _obs_off()
+    with open(spool) as f:
+        records = [json.loads(line) for line in f]
+    violations = goodput.check_spool(gp)
+    check(not violations, f"[s] goodput spool violations {violations}")
+    files = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)]
+    check(len(files) == 1 and files[0].endswith(".pt.trace.json"), f"[s] trace files {files}")
+    size = os.path.getsize(files[0])
+    with open(files[0]) as f:
+        prof_events = json.load(f)["traceEvents"]
+    counts = trace_kernel_counts(prof_events)
+    layers = EVAL_MODEL["n_layers"]
+    want = {"K1": 3 * 2 * layers, "K2": 3 * layers, "K3": 3 * layers}
+    breakdown = trace_step_breakdown(prof_events)
+    print(f"[s] train with --journal-file --goodput-file --timeline --profile-dir "
+          f"({OBS_TRAIN_STEPS} steps): journal {len(records)} records, goodput spool "
+          f"clean, Chrome trace {len(events)} events with {len(spans)} train/step spans and "
+          f"{len(lane)} goodput spans; profiler trace {os.path.basename(files[0])} "
+          f"{size / 1e6:.1f} MB, kernel events {counts} (want {want}), traced steps "
+          f"{sorted(breakdown)}")
+    check(counts == want, f"[s] the profiler trace holds {counts}, want {want}")
+    check(sorted(breakdown) == [2, 3, 4], f"[s] traced steps {sorted(breakdown)}")
+    for step, (wall, busy, gap, groups, rest) in breakdown.items():
+        elementwise = sum(v for k, v in groups.items()
+                          if k not in ("K1", "K2", "K3", "cuBLAS"))
+        print(f"[s] traced step {step}: wall {wall:.2f} ms, device busy {busy:.2f} ms, host "
+              f"gaps {gap:.2f} ms ({gap / wall:.1%}); K1-K3 "
+              f"{sum(groups.get(k, 0.0) for k in TRACE_KERNELS):.2f} ms, cuBLAS "
+              f"{groups.get('cuBLAS', 0.0):.2f} ms, element-wise {elementwise:.2f} ms: "
+              + ", ".join(f"{g} {groups.get(g, 0.0):.2f}"
+                          for g, _ in ELEMENTWISE_GROUPS + ((OTHER_ELEMENTWISE, ()),)))
+    rest = sorted(breakdown[3][4].items(), key=lambda kv: -kv[1])
+    print("[s] traced step 3, the rest of the element-wise work by launching op: "
+          + ", ".join(f"{op} {ms:.2f}" for op, ms in rest[:8]))
+    lo, hi = next((e["ts"], e["ts"] + e["dur"]) for e in prof_events
+                  if e.get("cat") == "user_annotation" and e["name"] == "train/step 3")
+    ranges = [f"{e['name']} {e['dur'] / 1e3:.2f} ms" for e in prof_events
+              if e.get("cat") == "gpu_user_annotation" and lo <= e["ts"] <= hi]
+    print(f"[s] traced step 3, device-side ranges of user annotations (kernel time that "
+          f"a sum over key_averages() counts twice): {ranges}")
+    return dict(size_mb=size / 1e6, step3=breakdown[3])
+
+
+def _obs_resume(tmp: str) -> None:
+    """2: 2 steps, then 4, over one checkpoint directory: exactly one
+    ``train_resume`` at step 2, one count of the resume counter."""
+    ck, spool = os.path.join(tmp, "ck"), os.path.join(tmp, "resume.jsonl")
+    before = _registry_counts()
+    for steps in (2, 4):
+        rc = _train_cli(OBS_RESUME_ARGS + ["--steps", str(steps), "--checkpoint-dir", ck,
+                                "--checkpoint-every", "100", "--journal-file", spool])
+        check(rc == 0, f"[s] resume run of {steps} steps exited {rc}")
+        _obs_off()
+    after = _registry_counts()
+    with open(spool) as f:
+        records = [json.loads(line) for line in f]
+    resumes = [r for r in records if r["type"] == "train_resume"]
+    n = after.get(("tpu_hive_train_resumes_total", ()), 0) - before.get(
+        ("tpu_hive_train_resumes_total", ()), 0)
+    print(f"[s] train 2 then 4 steps (2 layers) with --checkpoint-dir "
+          f"--journal-file: train_resume events {[r['args'] for r in resumes]}, "
+          f"tpu_hive_train_resumes_total +{n}")
+    check(len(resumes) == 1 and resumes[0]["args"] == {"step": 2, "crossTopology": False},
+          "[s] the resume was not journaled once at step 2")
+    check(n == 1, f"[s] the resume counter moved by {n}")
+    shutil.rmtree(ck, ignore_errors=True)
+
+
+def _train_cli(args: list) -> int:
+    import torch
+
+    from hivedscheduler_tpu_torch import train as port_train
+
+    torch.cuda.empty_cache()
+    return port_train.main(args)
+
+
+def _obs_train_cost(tmp: str) -> dict:
+    """3: step ms with and without --journal-file --goodput-file, both with
+    --timeline, in turns (plain, flags, flags, plain)."""
+    out = {"plain": [], "flags": []}
+    for turn in range(OBS_TURNS):
+        for mode in ("plain", "flags", "flags", "plain"):
+            extra = ["--steps", str(OBS_COST_STEPS)]
+            if mode == "flags":
+                extra += ["--journal-file", os.path.join(tmp, f"cost{turn}.jsonl"),
+                          "--goodput-file", os.path.join(tmp, f"cost{turn}-gp.jsonl")]
+            path = os.path.join(tmp, "cost.jsonl")
+            check(_train_cli(OBS_TRAIN_ARGS + extra + ["--timeline", path]) == 0,
+                  "[s] a flag-cost run failed")
+            _obs_off()
+            with open(path) as f:
+                walls = [r["wall_s"] for r in map(json.loads, f) if not r["compile"]]
+            out[mode].append(sum(walls) / len(walls) * 1e3)
+    ratio = sum(out["flags"]) / sum(out["plain"])
+    print(f"[s] train step ms in turns (mean of steps 2-{OBS_COST_STEPS} each run): "
+          f"plain {', '.join(f'{v:.2f}' for v in out['plain'])}; with --journal-file "
+          f"--goodput-file {', '.join(f'{v:.2f}' for v in out['flags'])}; ratio {ratio:.4f}")
+    return dict(out, ratio=ratio)
+
+
+def _obs_serve_cli(tmp: str) -> list:
+    """4: the serve CLI with --metrics-dump --journal-file --slo-ttft-p99 on
+    (k)'s load: the exposition, the trace, the flights, the SLO lines and
+    the streams, which must equal a run without the flags."""
+    from hivedscheduler_tpu_torch import serve as port_serve
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+    from hivedscheduler_tpu_torch.obs import journal
+
+    dump, spool = os.path.join(tmp, "metrics.txt"), os.path.join(tmp, "serve.jsonl")
+    runs = {}
+    for mode in ("flags", "plain"):
+        extra = (["--metrics-dump", dump, "--journal-file", spool, "--slo-ttft-p99",
+                  str(OBS_SLO_TTFT)] if mode == "flags" else [])
+        lines = _Lines()
+        logger = logging.getLogger(port_serve.__name__)
+        logger.addHandler(lines)
+        before = _registry_counts()
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = port_serve.main(OBS_SERVE_ARGS + extra)
+        finally:
+            logger.removeHandler(lines)
+        check(rc == 0, f"[s] serve ({mode}) exited {rc}")
+        streams = [line for line in out.getvalue().splitlines() if line.startswith("[")]
+        if mode == "flags":
+            flights = journal.JOURNAL.flights()
+            inv.check_journal()
+        runs[mode] = (streams, lines.messages, before)
+        _obs_off()
+    streams, messages, before = runs["flags"]
+    with open(dump) as f:
+        expo = _exposition(f.read())
+    finished = {p: expo.get(f'tpu_hive_serve_requests_total{{priority="{p}"}}', 0.0)
+                - before.get(("tpu_hive_serve_requests_total", (("priority", p),)), 0)
+                for p in ("0", "10")}
+    ttft = {p: expo.get(f'tpu_hive_serve_ttft_seconds_count{{priority="{p}"}}', 0.0)
+            - before.get(("tpu_hive_serve_ttft_seconds_count", (("priority", p),)), 0)
+            for p in ("0", "10")}
+    windows = expo.get("tpu_hive_serve_fused_decode_windows_total", 0.0) - before.get(
+        ("tpu_hive_serve_fused_decode_windows_total", ()), 0)
+    fused = [m for m in messages if m.startswith("fused decode:")]
+    engine_windows = int(fused[0].split()[2]) if fused else -1
+    with open(dump + ".trace.json") as f:
+        events = validate_chrome_trace(json.load(f))
+    decode_spans = sum(e["name"] == "request/decode" for e in events)
+    slo = [m for m in messages if m.startswith("slo")]
+    faults = flight_faults(flights)
+    print(f"[s] serve --metrics-dump --journal-file --slo-ttft-p99 {OBS_SLO_TTFT} "
+          f"({SRV_REQUESTS} requests, graph windows of {SRV_STEPS}): requests_total by "
+          f"priority {finished}, TTFT samples {ttft}, fused windows {windows} (the engine's "
+          f"{engine_windows}), request/decode spans {decode_spans}, {len(flights)} flights, "
+          f"flight faults {faults}; SLO lines: {slo}")
+    check(sum(finished.values()) == len(streams) == SRV_REQUESTS and all(finished.values()),
+          f"[s] requests_total {finished} for {len(streams)} streams")
+    check(ttft == finished, f"[s] TTFT samples {ttft} != finished {finished}")
+    check(windows == engine_windows > 0, f"[s] fused windows {windows} != {engine_windows}")
+    check(decode_spans == SRV_REQUESTS, f"[s] {decode_spans} request/decode spans")
+    check(len(flights) == SRV_REQUESTS and not faults, f"[s] flight faults {faults}")
+    check(len(slo) == 2 and "slo objective ttft_p99" in slo[1], f"[s] SLO lines {slo}")
+    check(streams == runs["plain"][0], "[s] the flags changed the served streams")
+    return streams
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _obs_serve_cost() -> dict:
+    """5: tokens/s and TPOT p50 of (k)'s paged graph engine with the
+    journal, its flights and the tracer on, against all off, in turns."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import serving as srv
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.obs import journal, trace
+
+    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **EVAL_MODEL)
+    params = tm.cast_params(tm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    prompts = _srv_prompts(cfg.vocab_size, SRV_REQUESTS, seed=2)
+    eng = srv.ServingEngine(params, cfg, max_batch=SRV_BATCH, max_len=SRV_MAX_LEN,
+                            **SRV_RUNS["paged graph"])
+    _serve(eng, prompts, SRV_BUDGET)  # capture the graph
+    out = {"plain": [], "flags": []}
+    streams = {}
+    for _ in range(OBS_TURNS):
+        for mode in ("plain", "flags", "flags", "plain"):
+            if mode == "flags":
+                journal.enable()
+                trace.enable()
+            eng.record_flights = mode == "flags"
+            run = _serve(eng, prompts, SRV_BUDGET)
+            streams.setdefault(mode, _streams(run))
+            if mode == "flags":
+                check(not flight_faults(journal.JOURNAL.flights()), "[s] flight faults")
+            _obs_off()
+            out[mode].append(_serve_stats(run, SRV_BATCH))
+    eng.record_flights = False
+    check(streams["flags"] == streams["plain"], "[s] the engine's streams moved with the flags")
+    tps = {m: [s["tps"] for s in v] for m, v in out.items()}
+    tpot = {m: [s["tpot_p50"] for s in v] for m, v in out.items()}
+    print(f"[s] serving in turns (paged graph engine, {SRV_REQUESTS} requests): tokens/s plain "
+          f"{', '.join(f'{v:.1f}' for v in tps['plain'])}, with the journal, flights and "
+          f"tracer {', '.join(f'{v:.1f}' for v in tps['flags'])}; TPOT p50 ms plain "
+          f"{', '.join(f'{v:.3f}' for v in tpot['plain'])}, with "
+          f"{', '.join(f'{v:.3f}' for v in tpot['flags'])}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return dict(tps=tps, tpot=tpot)
+
+
+def _obs_planted(tmp: str) -> None:
+    """6: the checks see planted faults: a dropped leg, a duplicated
+    terminal, and a profile without CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from hivedscheduler_tpu_torch import train as port_train
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+    from hivedscheduler_tpu_torch.obs import journal
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    j = journal.Journal(metrics=False)
+    j.enabled = True
+    j.note_request_submit("serve/0", at=0.0)
+    j.note_leg("serve/0", "admission_wait", at=1.0)  # the prefill leg dropped
+    j.note_request_done("serve/0", "length", first_token_at=2.5, at=3.0)
+    j.emit("serve_submit", "serve/1", at=0.0)
+    j.emit("serve_finish", "serve/1", at=1.0)
+    j.emit("serve_finish", "serve/1", at=1.0)  # a second terminal
+    j.note_request_done("serve/1", "length", at=1.0)
+    j.note_request_done("serve/1", "length", at=1.0)
+    faults = flight_faults(j.flights())
+    try:
+        inv.check_journal(journal=j)
+        dup = None
+    except inv.InvariantViolation as err:
+        dup = str(err)
+    prof_dir = os.path.join(tmp, "cpu-only")
+    q, k, v = make_qkv(1, 256, 2, 2, 128, seed=3)
+    prof = profile(activities=[ProfilerActivity.CPU],
+                   on_trace_ready=tensorboard_trace_handler(prof_dir, worker_name="rank0"))
+    prof.start()
+    attn.flash_forward(q, k, v, causal=True)
+    try:
+        port_train.stop_profile(prof, torch.device("cuda"))
+        refused = None
+    except RuntimeError as err:
+        refused = str(err)
+    name = os.listdir(prof_dir)[0]
+    with open(os.path.join(prof_dir, name)) as f:
+        counts = trace_kernel_counts(json.load(f)["traceEvents"])
+    print(f"[s] planted: dropped leg -> {faults[:1]}; duplicated terminal -> "
+          f"{[f for f in faults if 'terminals' in f]} and check_journal: {dup}; a trace "
+          f"without CUDA activity: kernel events {counts}, train's check: {refused}")
+    check(any("miss the TTFT" in f for f in faults), "[s] the dropped leg passed")
+    check(any("2 terminals" in f for f in faults) and dup and "duplicate terminal" in dup,
+          "[s] the duplicated terminal passed")
+    check(refused is not None and counts["K1"] == 0,
+          "[s] a trace without CUDA activity passed the kernel check")
+
+
+def phase_obs() -> None:
+    """(s): observability at the flagship width (journal, goodput, the
+    Chrome trace and the profiler through train; resume events; the cost
+    of the flags; the serve CLI's dump, flights and SLO; planted faults)."""
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        _zero_launches(attn)
+        _timed_parts("[s]", [
+            ("train", lambda: _obs_train(tmp)),
+            ("resume", lambda: _obs_resume(tmp)),
+            ("train cost", lambda: _obs_train_cost(tmp)),
+            ("serve", lambda: _obs_serve_cli(tmp)),
+            ("serve cost", _obs_serve_cost),
+            ("planted", lambda: _obs_planted(tmp))])
+    finally:
+        _obs_off()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4133,6 +4657,7 @@ def main() -> int:
         shutil.rmtree(lora_dir, ignore_errors=True)
     phi3 = phase_phi3()
     gemma, gemma_f32 = phase_gemma()
+    phase_obs()
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"

@@ -46,6 +46,24 @@ REGISTRY: Dict[str, Flag] = {f.name: f for f in [
          "Pad every workload step by this many seconds so the chaos "
          "harness can land signals at deterministic step windows.",
          "hivedscheduler_tpu_torch/parallel/supervisor.py"),
+    Flag("HIVED_JOURNAL", "0",
+         "`1` enables the event journal and its request flights at import "
+         "time (`journal.enable()` or the CLIs' `--journal-file` "
+         "otherwise).",
+         "hivedscheduler_tpu_torch/obs/journal.py"),
+    Flag("HIVED_TRACE", "0",
+         "`1` enables the span tracer at import time (`trace.enable()` or "
+         "`serve --metrics-dump` otherwise).",
+         "hivedscheduler_tpu_torch/obs/trace.py"),
+    Flag("HIVED_SLO_WINDOW_S", "60",
+         "Default sliding window (seconds) of the SLO tracker's quantiles "
+         "and burn rates; `0` disables time-windowing (last-N ring). "
+         "Overridden by `serve --slo-window-s`.",
+         "hivedscheduler_tpu_torch/obs/slo.py"),
+    Flag("HIVED_LOCKCHECK", "0",
+         "`1` swaps the registered locks to CheckedLock: per-thread "
+         "lock-order assertions.",
+         "hivedscheduler_tpu_torch/common/lockcheck.py"),
 ]}
 
 

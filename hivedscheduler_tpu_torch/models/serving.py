@@ -56,9 +56,18 @@ MoE models serve with the no-drop inference capacity
 decode does; the routing has static shapes, so the decode graph captures
 it.
 
-Left out: the fleet's prefix export and import, the ``mesh`` layout (MoE
-on a mesh with it), and the metrics, trace spans and journal flights the
-reference emits.
+The engine reports as the reference does: counters, gauges and
+per-priority histograms into ``runtime.metrics.REGISTRY``, ``request/*``
+spans on each request's lane while ``obs.trace`` is on, and ``serve_*``
+journal events while ``obs.journal`` is on, with a ``serve/<rid>`` request
+flight (``record_flights``: admission_wait and prefill legs, one terminal)
+for single-engine serving. Every call sits in host code that runs once for
+each event: none is inside the fused window's captured iteration, so a
+replayed window counts once. Request times are the engine clock's, read
+after the host read of the token they stamp.
+
+Left out: the fleet's prefix export and import, and the ``mesh`` layout
+(MoE on a mesh with it).
 """
 
 from __future__ import annotations
@@ -90,7 +99,10 @@ from hivedscheduler_tpu_torch.models.transformer import (
     load_weight,
 )
 from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
+from hivedscheduler_tpu_torch.obs import journal as obs_journal
+from hivedscheduler_tpu_torch.obs import trace as obs_trace
 from hivedscheduler_tpu_torch.ops.attention import NEG_INF, block_coords, gather_block_kv
+from hivedscheduler_tpu_torch.runtime.metrics import REGISTRY as metrics
 
 # -- the counter-based sampler ----------------------------------------------
 # 32-bit values held in int64 tensors. Every product below stays under
@@ -446,6 +458,14 @@ class Request:
     admitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
     done_at: Optional[float] = None
+    # request flight (obs/journal.py REQUEST_LEGS): the journal key the
+    # admission and first-token marks attribute into. ``flight_decode``
+    # names the first-token leg ``first_decode`` (a decode leg after a KV
+    # handoff) instead of ``prefill``; ``flight_local`` means this engine
+    # owns the terminal (set by ``record_flights``)
+    flight: Optional[str] = None
+    flight_decode: bool = False
+    flight_local: bool = False
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -527,6 +547,11 @@ class ServingEngine:
     ``models.speculative.SpecDecodeConfig``) constructs the speculative
     engine, :class:`SpeculativeServingEngine`, with the same arguments.
     ``mesh`` is not yet ported and raises."""
+
+    # single-engine request flights: submit() opens a serve/<rid> flight
+    # in the journal and the engine owns its terminal (the serve CLI sets
+    # this with --journal-file or HIVED_JOURNAL)
+    record_flights = False
 
     def __new__(cls, *args, **kw):
         # speculative serving is a mode of this constructor: spec_decode=
@@ -724,6 +749,11 @@ class ServingEngine:
         req.done = True
         req.done_at = self._clock()
         req.finish_reason = "preempted"
+        if obs_journal.JOURNAL.enabled:
+            obs_journal.emit("serve_preempt", f"serve/{req.rid}",
+                             slot=victim, priority=req.priority)
+        self._observe_request(req)
+        metrics.inc("tpu_hive_serve_pool_preempted_total")
         self.pool_preempted += 1
         self._retire(victim)
         return True
@@ -771,6 +801,7 @@ class ServingEngine:
                 bids[j] = dst
                 self._table[slot, j] = dst
                 self.blocks_cow += 1
+                metrics.inc("tpu_hive_serve_block_cow_total")
 
     def _trim_blocks(self, slot: int, keep_tokens: int) -> None:
         """Roll the table back past ``keep_tokens``: the blocks beyond go
@@ -836,6 +867,7 @@ class ServingEngine:
         """Enqueue a request: higher ``priority`` is admitted first (FIFO
         within a level; running rows are never preempted for it)."""
         if self.draining:
+            metrics.inc("tpu_hive_serve_drain_rejected_total")
             raise EngineDraining(
                 "engine is draining (preemption requested): new requests "
                 "are rejected; retry on another replica")
@@ -849,6 +881,14 @@ class ServingEngine:
         req = Request(self._next_rid, list(prompt), max_new_tokens,
                       priority=priority, submitted_at=self._clock())
         self._next_rid += 1
+        if self.record_flights and obs_journal.JOURNAL.enabled:
+            # single-engine flight: this engine owns the whole request path,
+            # terminal included
+            req.flight = f"serve/{req.rid}"
+            req.flight_local = True
+            obs_journal.note_request_submit(
+                req.flight, at=req.submitted_at, priority=priority,
+                promptTokens=len(req.prompt))
         # insert before the first strictly lower-priority waiter
         at = len(self.queue)
         for i, w in enumerate(self.queue):
@@ -856,6 +896,9 @@ class ServingEngine:
                 at = i
                 break
         self.queue.insert(at, req)
+        if obs_journal.JOURNAL.enabled:
+            obs_journal.emit("serve_submit", f"serve/{req.rid}",
+                             priority=priority, promptTokens=len(req.prompt))
         return req
 
     def _bucket(self, n: int) -> int:
@@ -893,6 +936,7 @@ class ServingEngine:
                 self._table[slot, j] = bid
             self._slot_bids[slot] = bids
             self.prefix_block_hits += len(bids)
+            metrics.inc("tpu_hive_serve_prefix_block_hits_total", len(bids))
             return
         _restore_rows(self.cache, slot, payload)
 
@@ -944,6 +988,14 @@ class ServingEngine:
                 req.done = True
                 req.done_at = now
                 req.finish_reason = "shed"
+                metrics.inc("tpu_hive_serve_shed_total", priority=str(req.priority))
+                if obs_journal.JOURNAL.enabled:
+                    if req.flight_local:
+                        obs_journal.note_request_done(req.flight, "shed", at=now,
+                                                      priority=req.priority)
+                    # shed closes the request's episode (it never ran)
+                    obs_journal.note_phase(f"serve/{req.rid}", "closed", "serve_shed",
+                                           priority=req.priority)
             else:
                 kept.append(req)
         self.queue = kept
@@ -976,6 +1028,12 @@ class ServingEngine:
                 return  # head of line until blocks free up
             self.queue.pop(at)
             req.admitted_at = self._clock()
+            if obs_journal.JOURNAL.enabled:
+                obs_journal.emit("serve_admit", f"serve/{req.rid}", slot=slot,
+                                 priority=req.priority)
+                if req.flight is not None:
+                    obs_journal.note_leg(req.flight, "admission_wait",
+                                         at=req.admitted_at, slot=slot)
             if hit is not None:
                 payload, plen = hit[1]
                 self.prefix_hits += 1
@@ -1065,14 +1123,65 @@ class ServingEngine:
         a chunked slot must stay parked."""
 
     def _emit(self, req: Request, slot: int, tok: int) -> None:
+        """Append one token, read to the host already, so the clock
+        stamps a token that exists."""
         if req.first_token_at is None:
             req.first_token_at = self._clock()
+            if req.flight is not None and obs_journal.JOURNAL.enabled:
+                # the first-token mark closes the flight's TTFT window: new
+                # request-path code between admission and here must note its
+                # own leg or the legs stop summing to the TTFT
+                obs_journal.note_leg(
+                    req.flight, "first_decode" if req.flight_decode else "prefill",
+                    at=req.first_token_at)
         req.tokens_out.append(tok)
         self._last_host[slot] = tok
         if len(req.tokens_out) >= req.max_new_tokens or tok == self.eos_id:
             req.done = True
             req.finish_reason = "eos" if tok == self.eos_id else "length"
             req.done_at = self._clock()
+            self._observe_request(req)
+
+    def _observe_request(self, req: Request) -> None:
+        """Publish one finished request: its flight's terminal and the
+        journal's ``serve_finish``, the per-priority histograms and
+        counter, and, while tracing, queued, prefill and decode spans and a
+        done instant on the request's own lane (tid = rid)."""
+        prio = str(req.priority)
+        metrics.inc("tpu_hive_serve_requests_total", priority=prio)
+        if obs_journal.JOURNAL.enabled:
+            if req.flight_local:
+                obs_journal.note_request_done(
+                    req.flight, req.finish_reason,
+                    first_token_at=req.first_token_at, at=req.done_at,
+                    tokensOut=len(req.tokens_out))
+            obs_journal.note_phase(
+                f"serve/{req.rid}", "closed", "serve_finish",
+                finishReason=req.finish_reason, tokensOut=len(req.tokens_out))
+        if req.queue_wait_s is not None:
+            metrics.observe("tpu_hive_serve_queue_wait_seconds", req.queue_wait_s,
+                            priority=prio)
+        if req.ttft_s is not None:
+            metrics.observe("tpu_hive_serve_ttft_seconds", req.ttft_s, priority=prio)
+        if req.tpot_s is not None:
+            metrics.observe("tpu_hive_serve_tpot_seconds", req.tpot_s, priority=prio)
+        if not obs_trace.enabled():
+            return
+        args = {"rid": req.rid, "priority": req.priority,
+                "prompt_tokens": len(req.prompt), "new_tokens": len(req.tokens_out)}
+        tid = req.rid
+        if req.admitted_at is not None:
+            obs_trace.TRACER.complete("request/queued", req.submitted_at,
+                                      req.admitted_at, cat="serving", tid=tid, args=args)
+            if req.first_token_at is not None:
+                obs_trace.TRACER.complete("request/prefill", req.admitted_at,
+                                          req.first_token_at, cat="serving",
+                                          tid=tid, args=args)
+        if req.first_token_at is not None and req.done_at is not None:
+            obs_trace.TRACER.complete("request/decode", req.first_token_at,
+                                      req.done_at, cat="serving", tid=tid, args=args)
+        obs_trace.TRACER.instant("request/done", cat="serving", tid=tid,
+                                 at=req.done_at, args=args)
 
     # -- engine ticks ------------------------------------------------------
     def _tick_prefills(self) -> List[int]:
@@ -1204,6 +1313,7 @@ class ServingEngine:
             else:
                 toks = self._run_window(k)
                 self.fused_windows += 1
+                metrics.inc("tpu_hive_serve_fused_decode_windows_total")
                 self.steps += k
                 self.slot_steps += len(active) * k
                 if self.paged:
@@ -1217,7 +1327,14 @@ class ServingEngine:
                             break  # surplus window tokens are discarded
                     if req.done:
                         self._retire(slot)
+        self._publish_pool()
         return bool(self.queue) or any(s is not None for s in self.slots)
+
+    def _publish_pool(self) -> None:
+        """The pool-occupancy gauge, once an engine step (paged only)."""
+        if self.paged:
+            metrics.set_gauge("tpu_hive_serve_block_pool_occupancy",
+                              self.blocks_in_use / max(1, self.num_blocks - 1))
 
     def run_until_drained(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):
@@ -1259,6 +1376,10 @@ class ServingEngine:
                         req.done = True
                         req.done_at = now
                         req.finish_reason = "preempted"
+                        if req.flight_local and obs_journal.JOURNAL.enabled:
+                            obs_journal.note_request_done(
+                                req.flight, "preempted",
+                                first_token_at=req.first_token_at, at=now)
                     self.queue.clear()
                     for slot in range(self.max_batch):
                         if self.slots[slot] is not None:
@@ -1495,6 +1616,7 @@ class SpeculativeServingEngine(ServingEngine):
                 self._ensure_writable(slot, lo, lo + self.gamma)
             active = [s for s in active if self.slots[s] is not None]
         if not active:
+            self._publish_pool()
             return bool(self.queue) or any(s is not None for s in self.slots)
         g = self.gamma
         last = torch.tensor(self._last_host, dtype=torch.long, device=self.device)
@@ -1529,6 +1651,7 @@ class SpeculativeServingEngine(ServingEngine):
             req, acc = self.slots[slot], accs[slot]
             self.drafted += g
             self.accepted += acc
+            metrics.observe("tpu_hive_serve_spec_acceptance_ratio", acc / g)
             for tok in emit[slot][:acc + 1]:
                 self._emit(req, slot, int(tok))
                 if req.done:
@@ -1544,6 +1667,7 @@ class SpeculativeServingEngine(ServingEngine):
         if not self.paged:
             self.cache.lengths.copy_(lens_new)
         self.draft_cache.lengths.copy_(lens_new)
+        self._publish_pool()
         return bool(self.queue) or any(s is not None for s in self.slots)
 
     @property

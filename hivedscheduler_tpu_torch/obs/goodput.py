@@ -16,9 +16,10 @@ twice. The spool's JSONL records (``start``, ``phase``, ``step``,
 record for record the JAX package's, so its ``check_spool`` and
 ``aggregate_spool`` read a spool the port wrote.
 
-Not copied: the Perfetto lane and the phase-seconds counters (the port has
-no trace exporter or metrics registry yet) and the journal's suppression
-hook (the port has no journal, so nothing is suppressed).
+Served as ``tpu_hive_goodput_seconds_total{phase=}`` counters, the
+``--goodput-file`` spool, and a ``workload goodput`` Perfetto lane merged
+into every ``trace.to_chrome_trace()`` export. A thread inside the
+journal's ``suppress()`` records nothing here either.
 
 Disabled by default, at the cost of one attribute load per call. Enable
 with ``goodput.enable(spool_path=...)``, the CLIs' ``--goodput-file``, or
@@ -30,11 +31,11 @@ from __future__ import annotations
 import atexit
 import json
 import os
-import threading
 import time
-from typing import Any, Dict, IO, List, Optional
+from typing import Any, Dict, IO, List, Optional, Tuple
 
-from hivedscheduler_tpu_torch.common import envflags
+from hivedscheduler_tpu_torch.common import envflags, lockcheck
+from hivedscheduler_tpu_torch.obs import journal as _journal
 
 # ---------------------------------------------------------------------------
 # step-phase taxonomy. At any instant the workload process is in exactly
@@ -73,21 +74,28 @@ STEP_PHASES: Dict[str, str] = {
 # the one phase that counts toward goodput_fraction's numerator
 GOODPUT_PHASES = ("step_compute",)
 
+_MAX_LANE_SPANS = 2048
+# Perfetto tid for the phase lane; journal lanes start at 1000
+_LANE_TID = 30000
+
 
 class GoodputLedger:
     """Per-process phase state machine + phase-second accumulators.
 
     Instantiable for tests; the module singleton :data:`GOODPUT` is what
-    the live stack shares.
+    the live stack shares. ``metrics`` gates counter emission so a test
+    instance never pollutes the process registry.
     """
 
-    def __init__(self):
-        self._lock = threading.Lock()
+    def __init__(self, metrics: bool = True):
+        self._lock = lockcheck.make_lock("goodput_lock", late=True)
         self.enabled = False
+        self.metrics = metrics
         self._t0: Optional[float] = None
         self._phase: Optional[str] = None
         self._since: float = 0.0
         self._acc: Dict[str, float] = {}
+        self._lane: List[Tuple[str, float, float]] = []
         self._steps = 0
         self._rework_steps = 0
         self._max_step = 0  # high-water mark: largest step ever completed
@@ -130,8 +138,14 @@ class GoodputLedger:
         if dur < 0:
             dur = 0.0
         self._acc[phase] = self._acc.get(phase, 0.0) + dur
+        if len(self._lane) < _MAX_LANE_SPANS:
+            self._lane.append((phase, self._since, at))
         self._emit({"kind": "phase", "pid": os.getpid(), "phase": phase,
                     "start": self._since, "end": at})
+        if self.metrics and dur > 0:
+            from hivedscheduler_tpu_torch.runtime.metrics import REGISTRY
+            REGISTRY.inc("tpu_hive_goodput_seconds_total", amount=dur,
+                         phase=phase)
         self._since = at
 
     # -- mutators (the instrumentation surface) ---------------------------
@@ -139,7 +153,7 @@ class GoodputLedger:
         """Anchor the process wallclock and open the first phase.
         Idempotent — the first call wins (conservation is measured from
         it)."""
-        if not self.enabled:
+        if not self.enabled or _journal.suppressed():
             return
         self._check_phase(phase)
         t = self._now(at)
@@ -155,7 +169,7 @@ class GoodputLedger:
     def phase(self, phase: str, at: Optional[float] = None) -> None:
         """Transition into ``phase`` (closing the open interval). Same
         phase is a no-op — the interval just continues."""
-        if not self.enabled:
+        if not self.enabled or _journal.suppressed():
             return
         self._check_phase(phase)
         t = self._now(at)
@@ -176,7 +190,7 @@ class GoodputLedger:
         """``with goodput.span("checkpoint_save"): ...`` — enter the
         phase, restore the surrounding phase on exit. A shared no-op
         when disabled."""
-        if not self.enabled:
+        if not self.enabled or _journal.suppressed():
             return _NOOP_SPAN
         self._check_phase(phase)
         with self._lock:
@@ -203,7 +217,7 @@ class GoodputLedger:
         to re-reach the old high-water mark, so ALL wallclock until then
         is fault-caused badput — then ``compile`` for the incarnation's
         first step (XLA trace+compile dominates), else ``step_compute``."""
-        if not self.enabled:
+        if not self.enabled or _journal.suppressed():
             return
         with self._lock:
             rework = step <= self._max_step
@@ -218,7 +232,7 @@ class GoodputLedger:
         """The step's loss is materialized (the host sync). Advances the
         high-water mark and spools a per-step record so the NEXT
         incarnation can classify rework exactly."""
-        if not self.enabled:
+        if not self.enabled or _journal.suppressed():
             return
         with self._lock:
             self._steps += 1
@@ -267,6 +281,7 @@ class GoodputLedger:
             self._t0 = None
             self._phase = None
             self._acc = {}
+            self._lane = []
             self._steps = 0
             self._rework_steps = 0
             self._max_step = 0
@@ -338,6 +353,28 @@ class GoodputLedger:
                                 if frac is not None else None),
             "steps": steps, "reworkSteps": rework, "maxStep": max_step,
         }
+
+
+    def chrome_events(self, t0: float) -> List[Dict[str, Any]]:
+        """One named ``workload goodput`` Perfetto lane: an X span per
+        closed phase interval (the open phase is drawn to the export
+        instant). ``t0`` is the tracer's perf_counter anchor."""
+        now = time.perf_counter()
+        with self._lock:
+            spans = list(self._lane)
+            if self._phase is not None:
+                spans.append((self._phase, self._since, now))
+        if not spans:
+            return []
+        out: List[Dict[str, Any]] = [
+            {"name": "thread_name", "ph": "M", "pid": 1, "tid": _LANE_TID,
+             "ts": 0, "args": {"name": "workload goodput"}}]
+        for phase, start, end in spans:
+            out.append({"name": f"phase:{phase}", "ph": "X",
+                        "cat": "goodput", "ts": (start - t0) * 1e6,
+                        "dur": max(0.0, (end - start) * 1e6),
+                        "pid": 1, "tid": _LANE_TID, "args": {}})
+        return out
 
 
 class _PhaseSpan:

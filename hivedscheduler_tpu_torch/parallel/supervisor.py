@@ -22,7 +22,9 @@ preemption promise (a preempted gang resumes from its last step):
   arm them.
 
 One supervisor per workload process, driven from the main loop; importing
-this module imports no torch. Not copied: the metrics counters.
+this module imports no torch. Metrics: ``tpu_hive_watchdog_stalls_total``
+and ``tpu_hive_train_rollbacks_total``; a rollback also emits the
+journal's ``train_rollback``.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ import threading
 import time
 from typing import Callable, Optional
 
-from hivedscheduler_tpu_torch.common import envflags
+from hivedscheduler_tpu_torch.common import envflags, lockcheck
+from hivedscheduler_tpu_torch.runtime.metrics import REGISTRY as metrics
 
 log = logging.getLogger(__name__)
 
@@ -164,7 +167,7 @@ class Watchdog:
         self._clock = clock
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("watchdog_lock")
         self._last_beat: Optional[float] = None
         self._last_step: Optional[int] = None
         self._beats = 0
@@ -221,6 +224,7 @@ class Watchdog:
                   "last step %s) — exiting %d so the gang restarts from the "
                   "newest committed checkpoint", age, deadline, step,
                   EXIT_STALLED)
+        metrics.inc("tpu_hive_watchdog_stalls_total")
         if self.record_dir:
             try:
                 os.makedirs(self.record_dir, exist_ok=True)
@@ -409,4 +413,9 @@ class Supervisor:
         exhausted (the caller must halt)."""
         self.rollbacks += 1
         self.guard.reset()
+        metrics.inc("tpu_hive_train_rollbacks_total")
+        from hivedscheduler_tpu_torch.obs import journal as obs_journal
+        if obs_journal.JOURNAL.enabled:
+            obs_journal.emit("train_rollback", "train",
+                             rollbacks=self.rollbacks)
         return self.rollbacks <= self.max_rollbacks

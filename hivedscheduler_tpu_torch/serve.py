@@ -20,13 +20,22 @@ speculatively: a draft of ``--draft-layers`` (2 when unset) layers and
 ``--draft-d-model`` width (half the target's by default), random weights
 from ``--seed + 3``, proposes ``--gamma`` tokens a round, and the summary
 reports its acceptance. ``--lora-rank`` (with the run's ``--lora-alpha``
-and ``--lora-mlp``) merges a LoRA fine-tune's adapters at load. Not yet
-ported, and refused with an error: the fleet (``--fleet``,
-``--disaggregate``, ``--autoscale``, ``--route-policy``,
-``--prefill-replicas`` and ``--fleet-*``), ``--tp/--dp`` above 1,
-``--journal-file``, ``--metrics-dump`` and the SLO objectives
-(``--slo-*``). A mixture-of-experts model (``--n-experts``,
-``--moe-top-k``) serves with the no-drop inference capacity.
+and ``--lora-mlp``) merges a LoRA fine-tune's adapters at load. A
+mixture-of-experts model (``--n-experts``, ``--moe-top-k``) serves with the
+no-drop inference capacity.
+
+Observability, as in the JAX CLI: ``--metrics-dump PATH`` turns the span
+tracer on before the engine is built and at exit writes the metrics
+registry's Prometheus exposition to PATH and the Chrome trace (request
+spans, journal and goodput lanes) to ``PATH.trace.json``;
+``--journal-file`` spools the event journal with one ``serve/<rid>`` request
+flight a request; an SLO tracker (``--slo-ttft-p99``, ``--slo-window-s``)
+observes every finished request's TTFT and TPOT with its dominant leg and
+logs its summary at exit. Not yet ported, and refused with an error: the
+fleet (``--fleet``, ``--disaggregate``, ``--autoscale``,
+``--route-policy``, ``--prefill-replicas``, ``--fleet-*`` and
+``--fleet-config``, whose SLO defaults therefore do not apply) and
+``--tp/--dp`` above 1.
 """
 
 from __future__ import annotations
@@ -55,10 +64,6 @@ _UNPORTED_FLAGS = (
     ("fleet_min", "the fleet autoscaler (--fleet-min)"),
     ("fleet_max", "the fleet autoscaler (--fleet-max)"),
     ("fleet_config", "the fleet config (--fleet-config)"),
-    ("journal_file", "the request journal (--journal-file)"),
-    ("metrics_dump", "the metrics and trace dump (--metrics-dump)"),
-    ("slo_ttft_p99", "the SLO tracker (--slo-ttft-p99)"),
-    ("slo_window_s", "the SLO tracker (--slo-window-s)"),
 )
 
 
@@ -70,6 +75,28 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
     for name, what in _UNPORTED_FLAGS:
         if getattr(args, name) is not None:
             parser.error(f"{what} is not yet ported to hivedscheduler_tpu_torch")
+
+
+def _log_slo(tracker) -> None:
+    """One SLO summary block at exit: windowed quantiles and, for each
+    declared objective, compliance, burn rate and violation attribution by
+    dominant leg (the tracker's snapshot, logged)."""
+    snap = tracker.snapshot()
+    s = snap["series"]["ttft"]
+    if s["count"]:
+        log.info("slo: ttft p50 %.0f ms, p95 %.0f ms, p99 %.0f ms over "
+                 "%s requests (window %ss)", 1e3 * s["p50"],
+                 1e3 * s["p95"], 1e3 * s["p99"], s["count"],
+                 snap["windowS"])
+    for o in snap["objectives"]:
+        log.info(
+            "slo objective %s: ceiling %.0f ms, observed %.0f ms, "
+            "compliance %s, burn rate %s, violation attribution %s",
+            o["name"], 1e3 * o["ceilingS"], 1e3 * o["value"],
+            "n/a" if o["compliance"] is None else f"{o['compliance']:.4f}",
+            "n/a" if o["burnRate"] is None else f"{o['burnRate']:.2f}",
+            o["attribution"] or "{}",
+        )
 
 
 def synthetic_trace(seed: int, n_requests: int, vocab_size: int,
@@ -179,9 +206,29 @@ def main(argv=None) -> int:
                         "in-flight requests for up to this many seconds, then "
                         "exit; the rest finish as preempted")
     parser.add_argument("--checkpoint-dir", default="")
+    parser.add_argument("--metrics-dump", default="",
+                        help="after the run, write the Prometheus exposition "
+                        "text (per-priority TTFT/TPOT/queue-wait histograms) "
+                        "to this path and a Chrome-trace/Perfetto JSON of "
+                        "request lifecycles to <path>.trace.json")
+    parser.add_argument("--journal-file", default="",
+                        help="enable the event journal and append its request "
+                        "admission/shed/preemption events, with each "
+                        "request's flight legs, to this JSONL spool (one "
+                        "line per event, flushed per append)")
     parser.add_argument("--goodput-file", default="",
                         help="enable the workload goodput ledger and append "
                         "this run's step-phase records to this JSONL spool")
+    parser.add_argument("--slo-ttft-p99", type=float, default=0.0,
+                        help="declare a p99 TTFT objective (seconds): the "
+                        "SLO tracker then reports windowed compliance, "
+                        "error-budget burn rate and violation attribution by "
+                        "dominant request leg (0 = no objective; quantiles "
+                        "are tracked either way)")
+    parser.add_argument("--slo-window-s", type=float, default=-1.0,
+                        help="SLO tracker sliding window in seconds (-1 = the "
+                        "HIVED_SLO_WINDOW_S default, 0 = no time window: a "
+                        "last-N ring)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     # not yet ported: refused when given
     parser.add_argument("--fleet", type=int, default=None)
@@ -194,10 +241,6 @@ def main(argv=None) -> int:
     parser.add_argument("--fleet-min", type=int, default=None)
     parser.add_argument("--fleet-max", type=int, default=None)
     parser.add_argument("--fleet-config", default=None)
-    parser.add_argument("--journal-file", default=None)
-    parser.add_argument("--metrics-dump", default=None)
-    parser.add_argument("--slo-ttft-p99", type=float, default=None)
-    parser.add_argument("--slo-window-s", type=float, default=None)
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
     _reject_unported(parser, args)
@@ -212,6 +255,15 @@ def main(argv=None) -> int:
                 f"exceeds --max-len {args.max_len}")
 
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
+    from hivedscheduler_tpu_torch.obs import journal as obs_journal
+    from hivedscheduler_tpu_torch.obs import slo as obs_slo
+    from hivedscheduler_tpu_torch.obs import trace as obs_trace
+
+    if args.metrics_dump:
+        # request-lifecycle spans only reach the ring while tracing is on
+        obs_trace.enable()
+    if args.journal_file:
+        obs_journal.enable(spool_path=args.journal_file)
     from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
 
     if args.goodput_file:
@@ -296,6 +348,12 @@ def main(argv=None) -> int:
     except ValueError as e:
         log.error("%s", e)
         return 1
+    if args.journal_file or obs_journal.JOURNAL.enabled:
+        # single-engine flights: serve/<rid> legs and terminal in the journal
+        eng.record_flights = True
+    slo_tracker = obs_slo.SLOTracker(
+        objectives=obs_slo.objectives_from_knobs(ttft_p99_s=args.slo_ttft_p99),
+        window_s=None if args.slo_window_s < 0 else args.slo_window_s)
     system_len = args.system_prompt_len if args.prefix_cache > 0 else 0
     pending = synthetic_trace(args.seed + 1, args.requests, cfg.vocab_size,
                               args.max_new_tokens, system_len)
@@ -350,6 +408,18 @@ def main(argv=None) -> int:
     total_tokens = sum(len(r.tokens_out) for r in reqs)
     for r in reqs:
         print(f"[{r.rid}] " + " ".join(str(t) for t in r.tokens_out))
+    for r in reqs:
+        if not r.done:
+            continue
+        dom = (obs_journal.JOURNAL.request_dominant_leg(f"serve/{r.rid}")
+               if obs_journal.JOURNAL.enabled else "")
+        if r.ttft_s is not None:
+            slo_tracker.observe("ttft", r.ttft_s, priority=r.priority, leg=dom,
+                                at=r.done_at)
+        if r.tpot_s is not None:
+            slo_tracker.observe("tpot", r.tpot_s, priority=r.priority, leg=dom,
+                                at=r.done_at)
+    _log_slo(slo_tracker)
     ttfts = sorted(r.ttft_s for r in reqs if r.ttft_s is not None)
     if ttfts:
         log.info("time-to-first-token: p50 %.0f ms, max %.0f ms",
@@ -392,6 +462,15 @@ def main(argv=None) -> int:
                  "%s COW copies, %s pool preemptions",
                  eng.blocks_in_use, eng.num_blocks - 1, eng.prefix_block_hits,
                  eng.blocks_cow, eng.pool_preempted)
+    if args.metrics_dump:
+        from hivedscheduler_tpu_torch.runtime.metrics import REGISTRY
+
+        with open(args.metrics_dump, "w") as f:
+            f.write(REGISTRY.render())
+        trace_path = args.metrics_dump + ".trace.json"
+        obs_trace.write_chrome_trace(trace_path)
+        log.info("metrics exposition -> %s; Chrome trace -> %s "
+                 "(open in https://ui.perfetto.dev)", args.metrics_dump, trace_path)
     return 0
 
 

@@ -40,6 +40,18 @@ and skips the poisoned batch (``--max-rollbacks`` times at most).
 ``--init-from`` warm-starts the parameters with a fresh optimizer;
 ``--goodput-file`` spools the goodput ledger's step phases.
 
+Observability, as in the JAX CLI: ``--journal-file`` spools the event
+journal (``train_resume`` with the step and whether the mesh changed,
+``train_rollback``); a resume counts ``tpu_hive_train_resumes_total`` (and
+``tpu_hive_train_cross_topology_resumes_total`` across meshes); with
+``--timeline`` each step is also a ``train/step`` span of ``obs.trace``.
+``--profile-dir`` records steps 2-4 of the incarnation with
+``torch.profiler`` (CUDA activity on the card, where a trace without a
+kernel event is an error), each step a ``train/step N`` range, written by
+``tensorboard_trace_handler`` as ``rank<r>.<ns>.pt.trace.json``, one file a
+rank, for TensorBoard or Perfetto. Rank 0 alone spools the journal; every
+rank writes its own trace.
+
 LoRA fine-tuning, as in the JAX CLI: ``--lora-rank`` trains rank-r
 adapters on the attention projections (``--lora-mlp`` adds the MLP's,
 ``--lora-alpha`` scales them) with the base frozen and AdamW over the
@@ -49,14 +61,14 @@ optimizer state; ``generate`` and ``serve`` merge them with the same
 ``--lora-*`` flags.
 
 Pipelining (``--pp``, ``--microbatches``), MoE under ``--sp`` above 1,
-the overlapped stack, elastic meshes (``--elastic``, ``--min-chips``),
-the profiler and the journal are not yet ported and exit with an error
-rather than being ignored.
+the overlapped stack and elastic meshes (``--elastic``, ``--min-chips``)
+are not yet ported and exit with an error rather than being ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import math
@@ -69,6 +81,10 @@ log = logging.getLogger(__name__)
 
 # the step loop's log line: step, loss, tokens/s since the loop started
 STEP_LOG = "step %s loss %.4f | %.0f tok/s"
+# --profile-dir records the steps of an incarnation from this index (0 is
+# the first step, which builds and warms up and would drown the trace) to
+# the one before the stop index: steps 2-4
+PROFILE_START, PROFILE_STOP = 1, 4
 
 
 UNPORTED_AXES = {
@@ -86,8 +102,6 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
         "--n-experts > 0 with --sp > 1 (MoE under sequence parallelism)":
             args.n_experts > 0 and args.sp > 1,
         "--overlap": bool(args.overlap),
-        "--profile-dir": bool(args.profile_dir),
-        "--journal-file": bool(args.journal_file),
         "--elastic": args.elastic,
         "--min-chips": args.min_chips > 0,
     }
@@ -172,8 +186,15 @@ def _parser() -> argparse.ArgumentParser:
                         help="warm-start params from another run's "
                         "checkpoint (fresh optimizer). With --lora-rank this "
                         "is the pretrained base the adapters fine-tune")
-    parser.add_argument("--profile-dir", default="", help="not yet ported")
-    parser.add_argument("--journal-file", default="", help="not yet ported")
+    parser.add_argument("--profile-dir", default="",
+                        help="capture a torch.profiler trace (TensorBoard/"
+                        "Perfetto format) of steps 2..4 into this directory, "
+                        "one file a rank; step 1 builds and warms up and "
+                        "would drown the trace")
+    parser.add_argument("--journal-file", default="",
+                        help="enable the event journal and append this "
+                        "incarnation's resume/rollback events to this JSONL "
+                        "spool (rank 0)")
     parser.add_argument("--goodput-file", default="",
                         help="enable the workload goodput ledger and append "
                         "this incarnation's step-phase records to this JSONL "
@@ -240,8 +261,12 @@ def main(argv=None) -> int:
     from hivedscheduler_tpu_torch.parallel import distributed
 
     # the rank, read from the gang handoff before any process group, so
-    # that only rank 0 spools goodput
+    # that only rank 0 spools the journal and goodput
     gang = distributed.gang_from_env()
+    if args.journal_file and (gang is None or gang[1] == 0):
+        from hivedscheduler_tpu_torch.obs import journal as obs_journal
+
+        obs_journal.enable(spool_path=args.journal_file)
     # goodput ledger: anchors the process wallclock here (phase `init`),
     # BEFORE the torch import, so bring-up is attributed, not leaked
     from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
@@ -258,6 +283,55 @@ def main(argv=None) -> int:
         distributed.shutdown()
 
 
+def start_profile(profile_dir: str, rank: int, device):
+    """A running ``torch.profiler`` over CPU and, on the card, CUDA
+    activity; on stop it writes this rank's trace into ``profile_dir``
+    through ``tensorboard_trace_handler``."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(
+                       profile_dir, worker_name=f"rank{rank}"))
+    prof.start()
+    return prof
+
+
+def kernel_events(prof) -> int:
+    """The CUDA kernel events of a stopped profiler (copies and memsets
+    left out)."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+def stop_profile(prof, device) -> None:
+    """Wait for the device, stop the profiler (which writes the trace)
+    and, on the card, require kernel events in it: CUPTI can drop the CUDA
+    activity with no more than a warning."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    if device.type == "cuda" and kernel_events(prof) == 0:
+        raise RuntimeError("the profiler trace holds no CUDA kernel event: the "
+                           "CUDA activity was not recorded")
+
+
+def _step_range(prof, step: int):
+    """The ``train/step N`` range of a profiled step; nothing otherwise."""
+    if prof is None:
+        return contextlib.nullcontext()
+    import torch
+
+    return torch.profiler.record_function(f"train/step {step}")
+
+
 def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
     if rank:
         logging.getLogger().setLevel(logging.WARNING)  # rank 0 logs
@@ -266,6 +340,8 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
     from hivedscheduler_tpu_torch import resolve_device
     from hivedscheduler_tpu_torch.models import transformer as tm
     from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
+    from hivedscheduler_tpu_torch.obs import journal as obs_journal
+    from hivedscheduler_tpu_torch.obs import trace as obs_trace
     from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
     from hivedscheduler_tpu_torch.parallel import data as data_lib
     from hivedscheduler_tpu_torch.parallel import distributed
@@ -275,6 +351,7 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
         make_sharded_lora_train_step,
         make_sharded_train_step,
     )
+    from hivedscheduler_tpu_torch.runtime.metrics import REGISTRY as metrics
 
     device = resolve_device(args.device)
     # 2. the mesh over the gang's GPUs; dp takes what tp, sp, fsdp and ep
@@ -362,6 +439,12 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
                     "%s, restoring onto %s", source_mesh,
                     {n: s for n, s in zip(axes.names, axes.shape)})
             start_step, resume_meta = restore_state()
+            metrics.inc("tpu_hive_train_resumes_total")
+            if obs_journal.JOURNAL.enabled:
+                obs_journal.emit("train_resume", "train", step=start_step,
+                                 crossTopology=source_mesh is not None)
+            if source_mesh is not None:
+                metrics.inc("tpu_hive_train_cross_topology_resumes_total")
             log.info("resumed from checkpoint step %s", start_step)
 
     if args.data:
@@ -426,6 +509,12 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
 
     tokens_per_step = args.batch * args.seq_len
     timeline = open(args.timeline, "w") if args.timeline and rank == 0 else None
+    if args.profile_dir and args.steps - start_step < PROFILE_START + 1:
+        log.warning(
+            "--profile-dir needs at least 2 steps to trace (step 1 is "
+            "compile); %s step(s) will run — no trace will be written",
+            args.steps - start_step)
+    prof = None
     preempted = False
     diverged = None
     step = start_step
@@ -446,20 +535,31 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
                 sup.faults.maybe_hang(step + 1)
                 # a LoRA run poisons its adapters, the leaves it trains
                 sup.faults.take_nan(step + 1, lora_params if lora_mode else params)
+                if args.profile_dir:
+                    rel = step - start_step
+                    if rel == PROFILE_START and prof is None:
+                        prof = start_profile(args.profile_dir, rank, device)
+                        log.info("profiler trace started -> %s", args.profile_dir)
+                    elif rel == PROFILE_STOP and prof is not None:
+                        stop_profile(prof, device)
+                        prof = None
+                        log.info("profiler trace written to %s", args.profile_dir)
                 step_t0 = time.perf_counter()
-                obs_goodput.phase("data_wait")
-                local_batch, snap = next(batches)
-                # compile / rework / step_compute, decided against the step
-                # high-water mark (rework = re-doing steps a kill threw away)
-                obs_goodput.note_step(step + 1, is_compile=step == start_step)
-                tokens = data_lib.device_put_global(local_batch, token_sharding,
-                                                    args.batch)
-                params, opt_state, loss = step_fn(params, opt_state, tokens)
-                # waits for the device: per-step times are true, the watchdog
-                # sees completed work and the guard sees the loss before the
-                # next checkpoint can commit it
-                loss_f = float(loss)
-                obs_goodput.note_step_done(step + 1)
+                with _step_range(prof, step + 1):
+                    obs_goodput.phase("data_wait")
+                    local_batch, snap = next(batches)
+                    # compile / rework / step_compute, decided against the
+                    # step high-water mark (rework = re-doing steps a kill
+                    # threw away)
+                    obs_goodput.note_step(step + 1, is_compile=step == start_step)
+                    tokens = data_lib.device_put_global(local_batch, token_sharding,
+                                                        args.batch)
+                    params, opt_state, loss = step_fn(params, opt_state, tokens)
+                    # waits for the device: per-step times are true, the
+                    # watchdog sees completed work and the guard sees the
+                    # loss before the next checkpoint can commit it
+                    loss_f = float(loss)
+                    obs_goodput.note_step_done(step + 1)
                 loader_snap = snap
                 if timeline is not None:
                     wall = time.perf_counter() - step_t0
@@ -471,6 +571,9 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
                         "compile": step == start_step,
                     }) + "\n")
                     timeline.flush()
+                    obs_trace.complete("train/step", step_t0, time.perf_counter(),
+                                       cat="train", step=step + 1,
+                                       compile=step == start_step)
                 if args.on_nan == "skip":
                     if not math.isfinite(loss_f):
                         log.warning("non-finite loss at step %s: update skipped",
@@ -505,6 +608,10 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
                              (step - start_step) * tokens_per_step / max(dt, 1e-9))
                 if args.checkpoint_dir and step % args.checkpoint_every == 0:
                     save_checkpoint(step)
+            if prof is not None:
+                # fewer than 4 steps ran after the trace started
+                stop_profile(prof, device)
+                log.info("profiler trace written to %s", args.profile_dir)
         finally:
             batches.close()
             if timeline is not None:

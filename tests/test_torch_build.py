@@ -167,3 +167,81 @@ def test_profile_groups_follow_the_kernel_names():
     for name, group in groups.items():
         mangled = f"_ZN45_GLOBAL__N__0123_12_x{len(name)}{name}ILi128ELb1EEEvNS_4ArgsE"
         assert chip_smoke.profile_group(mangled) == group
+
+
+def _trace_events():
+    """A Kineto-shaped trace of one step: a SiLU kernel launched in the
+    forward, a mul under an RsqrtBackward0 node on the autograd thread, K1,
+    an overlapping GEMM and an AdamW kernel under the optimizer's range."""
+    def x(cat, name, tid, ts, dur, corr=None):
+        ev = {"ph": "X", "cat": cat, "name": name, "pid": 1, "tid": tid, "ts": ts, "dur": dur}
+        if corr is not None:
+            ev["args"] = {"correlation": corr}
+        return ev
+
+    return [
+        x("user_annotation", "train/step 2", 1, 0, 1000),
+        x("user_annotation", "Optimizer.step#AdamW.step", 1, 800, 100),
+        x("cpu_op", "aten::_foreach_mul_", 1, 810, 10),
+        x("cuda_runtime", "cudaLaunchKernel", 1, 812, 2, corr=5),
+        x("kernel", "multi_tensor_apply_kernel", 7, 850, 40, corr=5),
+        x("cpu_op", "aten::silu", 1, 100, 10),
+        x("cuda_runtime", "cudaLaunchKernel", 1, 105, 2, corr=1),
+        x("kernel", "vectorized_elementwise_kernel", 7, 120, 30, corr=1),
+        x("cpu_op", "autograd::engine::evaluate_function: RsqrtBackward0", 2, 300, 50),
+        x("cpu_op", "aten::mul", 2, 310, 10),
+        x("cuda_runtime", "cudaLaunchKernel", 2, 312, 2, corr=2),
+        x("kernel", "elementwise_kernel", 7, 320, 20, corr=2),
+        x("cpu_op", "aten::mul", 2, 355, 4),
+        x("cuda_runtime", "cudaLaunchKernel", 2, 356, 2, corr=6),
+        x("kernel", "elementwise_kernel", 7, 357, 3, corr=6),
+        x("cuda_runtime", "cudaLaunchKernel", 2, 360, 2, corr=3),
+        x("kernel", "void flash_fwd_kernel<128>", 7, 365, 100, corr=3),
+        x("cuda_runtime", "cudaLaunchKernel", 1, 470, 2, corr=4),
+        x("kernel", "sm90_xmma_gemm_bf16", 8, 460, 100, corr=4),
+        x("cuda_runtime", "cudaLaunchKernel", 1, 1500, 2, corr=9),  # after the step
+        x("kernel", "flash_fwd_kernel", 7, 1510, 10, corr=9),
+    ]
+
+
+def test_chip_smoke_splits_a_traced_step_by_group():
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    events = _trace_events()
+    assert chip_smoke.trace_kernel_counts(events) == {"K1": 2, "K2": 0, "K3": 0}
+    (step, (wall, busy, gap, groups, rest)), = chip_smoke.trace_step_breakdown(events).items()
+    assert step == 2 and wall == 1.0
+    # the union of the device intervals: 30 + 20 + 3 + (365..560) + 40 us
+    assert busy == pytest.approx(0.288) and gap == pytest.approx(0.712)
+    assert groups == pytest.approx({"AdamW": 0.04, "SiLU": 0.03, "RMSNorm": 0.02,
+                                    "K1": 0.1, "cuBLAS": 0.1,
+                                    chip_smoke.OTHER_ELEMENTWISE: 0.003})
+    assert rest == pytest.approx({"aten::mul": 0.003})
+
+
+def test_chip_smoke_flight_check_sees_planted_faults():
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from hivedscheduler_tpu_torch.obs import journal
+
+    j = journal.Journal(metrics=False)
+    j.enabled = True
+    j.note_request_submit("serve/0", at=0.0)
+    j.note_leg("serve/0", "admission_wait", at=1.0)
+    j.note_leg("serve/0", "prefill", at=2.5)
+    j.note_request_done("serve/0", "length", first_token_at=2.5, at=3.0)
+    assert chip_smoke.flight_faults(j.flights()) == []
+    j.note_request_submit("serve/1", at=0.0)
+    j.note_leg("serve/1", "admission_wait", at=1.0)  # no prefill leg
+    j.note_request_done("serve/1", "length", first_token_at=2.5, at=3.0)
+    j.note_request_done("serve/1", "length", at=3.0)
+    faults = chip_smoke.flight_faults(j.flights())
+    assert faults == ["serve/1: 2 terminals", "serve/1: the legs miss the TTFT by -1.5 s"]
+    events = chip_smoke.validate_chrome_trace({"traceEvents": [
+        {"name": "a", "ph": "X", "ts": 0, "dur": 1, "pid": 1, "tid": 1}]})
+    assert len(events) == 1
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.validate_chrome_trace({"traceEvents": [
+            {"name": "a", "ph": "X", "ts": 0, "dur": -1, "pid": 1, "tid": 1}]})

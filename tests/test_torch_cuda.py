@@ -23,7 +23,8 @@ greedy tokens equal, plain and int8), greedy speculative decoding equals
 greedy generate, and the generate CLI prints its rows. The serving engine
 on the card (bf16) serves the same streams dense and paged, eager and
 through its CUDA-graph decode window, greedy and sampled, int8 KV dense
-and paged; its graph refuses a rebound cache; the serve CLI prints its
+and paged; its graph refuses a rebound cache; the metrics registry counts
+one fused window a window the graph replays; the serve CLI prints its
 request lines. K1-K3 hold at the local shapes a tp=2 shard of the
 flagship launches, and a train step on a one-GPU NCCL mesh (DTensor
 state) equals the single-device step. K1-K3's f32 forms (the ring's hops)
@@ -616,6 +617,19 @@ def test_serving_graph_refuses_a_rebound_cache(cuda):
     with pytest.raises(RuntimeError) as err:
         eng.step()
     assert "rebound" in str(err.value)
+
+
+def test_graph_windows_count_once_a_window_on_card(cuda):
+    # the counter sits in the host code around the replays, never in the
+    # captured iteration: one count a window, graph replays included
+    from hivedscheduler_tpu_torch.runtime.metrics import REGISTRY
+
+    name = ("tpu_hive_serve_fused_decode_windows_total", ())
+    cfg, params, prompts = _serve_setup("cuda")
+    before = REGISTRY._counters.get(name, 0)
+    _, eng = _serve_streams(params, cfg, prompts, page_size=8, decode_steps=4)
+    assert eng.graph_windows == eng.fused_windows > 1
+    assert REGISTRY._counters[name] - before == eng.fused_windows
 
 
 def test_serve_cli_on_card(cuda, capsys):

@@ -161,8 +161,7 @@ def test_cli_preempt_at_drains_and_exits_zero(capsys, log_lines, monkeypatch):
     # mesh or in the fleet yet
     ["--spec-decode", "--tp", "2"], ["--draft-layers", "1", "--dp", "2"],
     ["--gamma", "4", "--spec-decode", "--fleet", "2"], ["--n-experts", "4", "--tp", "2"],
-    ["--lora-rank", "4", "--tp", "2"], ["--journal-file", "j.jsonl"], ["--metrics-dump", "m.txt"],
-    ["--slo-ttft-p99", "0.5"], ["--slo-window-s", "60"],
+    ["--lora-rank", "4", "--tp", "2"],
 ])
 def test_cli_refuses_unported_flags(capsys, flag):
     with pytest.raises(SystemExit) as exc:

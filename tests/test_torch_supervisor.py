@@ -250,7 +250,8 @@ def test_flag_registry_covers_the_port_reads():
 
     assert set(envflags.REGISTRY) == {
         "HIVED_GOODPUT", "HIVED_FAULT_HANG_AT", "HIVED_FAULT_NAN_AT",
-        "HIVED_FAULT_STEP_DELAY", "HIVED_FAULT_SERVE_PREEMPT_AT", "HIVED_PAGED_KV"}
+        "HIVED_FAULT_STEP_DELAY", "HIVED_FAULT_SERVE_PREEMPT_AT", "HIVED_PAGED_KV",
+        "HIVED_JOURNAL", "HIVED_TRACE", "HIVED_SLO_WINDOW_S", "HIVED_LOCKCHECK"}
     for name, flag in envflags.REGISTRY.items():
         assert flag.default == jflags.REGISTRY[name].default
         assert flag.module.startswith("hivedscheduler_tpu_torch/")

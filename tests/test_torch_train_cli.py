@@ -132,7 +132,6 @@ def test_cuda_without_a_card_raises():
     ["--microbatches", "2"], ["--n-experts", "2", "--sp", "2"],
     ["--lora-rank", "4", "--on-nan", "skip"], ["--lora-mlp"],
     ["--lora-rank", "4", "--lora-mlp", "--n-experts", "2"], ["--overlap"],
-    ["--profile-dir", "/nonexistent"], ["--journal-file", "j.jsonl"],
     ["--elastic"], ["--min-chips", "2"], ["--attn", "ring", "--sp", "2"],
 ])
 def test_unported_flags_exit_with_error(extra, capsys):
