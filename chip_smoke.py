@@ -233,6 +233,32 @@ Phases, each of which must pass or the script exits non-zero:
     tracer on and off in turns; and planted faults caught (a dropped leg, a
     duplicated terminal, a trace recorded without CUDA activity).
 
+(t) the serving fleet at the flagship width on (k)'s engine settings
+    (paged, page 16, graph windows of 8, ``max_batch`` 16, prefix cache 4),
+    bf16 params from seed 0 shared by every replica: ``python -m
+    hivedscheduler_tpu_torch.serve --fleet 3 --disaggregate
+    --prefill-replicas 1 --route-policy prefix_affinity`` on (k)'s load with
+    a 24-token system prompt, under ``HIVED_FLEET_KV_SHIP=1`` and ``=0``,
+    beside the single-engine CLI and ``--fleet-config
+    example/config/design/fleet.yaml``, as subprocesses started together:
+    each exits 0 and launches no flash kernel, check_fleet (and
+    check_requests) is clean on its router, every handoff ships (or
+    re-prefills), the streams part from the single engine's only at
+    near-ties of the teacher-forced full forward, every journal flight has
+    one terminal and legs that sum to its TTFT within 1e-6 s, and the
+    config run logs its parsed knobs and the autoscaler's line; then in
+    this process: each of (k)'s system-prompt requests exported from a
+    prefill engine and imported into a graph-warmed decode engine, bf16 and
+    int8 KV, the imported blocks equal to the exported bytes, the pool's
+    and params' addresses unmoved, a flipped byte caught, ms per export
+    and per import and bytes per handoff; a warmed disaggregated fleet
+    (ship and re-prefill, journal on, check_fleet after every step) serving
+    fresh prompts of the same shapes under ``compileguard.budget(0)``; a
+    decode replica killed with decode legs in flight, each stream retried
+    to its end; planted faults (a prefill leg's journal mark dropped, a
+    request with two live attempts) caught; and tokens/s, TTFT and TPOT of
+    the single engine and the ship and re-prefill fleets in turns.
+
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and
@@ -1574,6 +1600,12 @@ SRV_CLI_ARGS = [a for k, v in EVAL_MODEL.items()
                 for a in (f"--{k.replace('_', '-')}", str(v))] + [
     "--page-size", str(SRV_PAGE), "--decode-steps", str(SRV_STEPS),
     "--prefix-cache", "4", "--device", "cuda"]
+# (k)'s load through the CLI: its request count, slots, arena, budget and
+# arrivals (the CLI's own prompts, after a 24-token system prompt)
+SRV_LOAD_ARGS = SRV_CLI_ARGS + [
+    "--requests", str(SRV_REQUESTS), "--max-batch", str(SRV_BATCH),
+    "--max-len", str(SRV_MAX_LEN), "--max-new-tokens", str(SRV_BUDGET),
+    "--arrival-every", str(SRV_ARRIVAL)]
 
 
 def _srv_prompts(vocab: int, n: int, seed: int, lo: int = 4, hi: int = 65,
@@ -4129,10 +4161,7 @@ OBS_RESUME_ARGS = [a for k, v in dict(EVAL_MODEL, n_layers=2).items()
     str(EVAL_CE_CHUNK), "--device", "cuda", "--remat", "dots", "--attn", "flash"]
 OBS_COST_STEPS, OBS_TURNS = 4, 2  # flag-cost runs: steps each, rounds of 4
 OBS_SLO_TTFT = 0.5
-OBS_SERVE_ARGS = SRV_CLI_ARGS + [
-    "--requests", str(SRV_REQUESTS), "--max-batch", str(SRV_BATCH),
-    "--max-len", str(SRV_MAX_LEN), "--max-new-tokens", str(SRV_BUDGET),
-    "--arrival-every", str(SRV_ARRIVAL), "--high-priority-every", "4"]
+OBS_SERVE_ARGS = SRV_LOAD_ARGS + ["--high-priority-every", "4"]
 # the kernels of one traced step, by the name fragments of (h)'s profile
 TRACE_KERNELS = {"K1": "flash_fwd_kernel", "K2": "flash_bwd_dq_kernel",
                  "K3": "flash_bwd_dkv_kernel"}
@@ -4617,6 +4646,459 @@ def phase_obs() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase (t): the serving fleet at the flagship width on (k)'s engine settings
+# (paged, page 16, graph windows of 8, max_batch 16, max_len 160, prefix
+# cache 4), bf16 params from seed 0 shared by every replica
+FLEET_CLI = ["--fleet", "3", "--disaggregate", "--prefill-replicas", "1",
+             "--route-policy", "prefix_affinity"]
+FLEET_YAML = "example/config/design/fleet.yaml"
+FLEET_TURNS = 2  # rounds of (single, ship, re-prefill, re-prefill, ship, single)
+# runs the serve CLI's main in a subprocess and reports, on one line, what
+# only that process can see: its exit code, K1-K3's launches, and
+# check_fleet (with check_requests) on every router the CLI published
+FLEET_WRAPPER = (
+    "import json, sys\n"
+    "from hivedscheduler_tpu_torch import fleet, serve\n"
+    "from hivedscheduler_tpu_torch.chaos import invariants as inv\n"
+    "from hivedscheduler_tpu_torch.ops import attention as attn\n"
+    "routers, publish = [], fleet.publish\n"
+    "def spy(r):\n"
+    "    if r is not None:\n"
+    "        routers.append(r)\n"
+    "    publish(r)\n"
+    "fleet.publish = spy\n"
+    "rc = serve.main(sys.argv[1:])\n"
+    "for r in routers:\n"
+    "    inv.check_fleet(r, 'cli')\n"
+    "print('FLEET_SMOKE ' + json.dumps(dict(rc=rc, checked=len(routers), flash=[\n"
+    "    attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DQ_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES,\n"
+    "    attn.FLASH_FWD_F32_LAUNCHES, attn.FLASH_BWD_DQ_F32_LAUNCHES,\n"
+    "    attn.FLASH_BWD_DKV_F32_LAUNCHES],\n"
+    "    handoffs=[r.handoffs for r in routers], retried=[r.retried for r in routers])))\n"
+    "sys.exit(rc)\n")
+
+
+def _fleet_cli(tmp: str, noise: float) -> None:
+    """1: the serve CLI as subprocesses, all started at once: the single
+    engine, the disaggregated prefix-affinity fleet of 3 in ship and
+    re-prefill mode (each with --journal-file), and --fleet-config
+    example/config/design/fleet.yaml. Each exits 0 and launches no flash
+    kernel; the fleets' streams part from the single engine's only at
+    near-ties of the teacher-forced full forward; every handoff ships (or
+    re-prefills); every flight has one terminal and legs that sum to its
+    TTFT; check_fleet is clean on every router."""
+    import torch
+
+    from hivedscheduler_tpu_torch import serve as port_serve
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+
+    runs = {
+        "single": ([], {}),
+        "ship": (FLEET_CLI + ["--journal-file", os.path.join(tmp, "ship.jsonl")],
+                 {"HIVED_FLEET_KV_SHIP": "1"}),
+        "re-prefill": (FLEET_CLI + ["--journal-file", os.path.join(tmp, "reprefill.jsonl")],
+                       {"HIVED_FLEET_KV_SHIP": "0"}),
+        "fleet-config": (["--fleet-config", FLEET_YAML], {"HIVED_FLEET_KV_SHIP": "1"}),
+    }
+    procs = {}
+    for name, (extra, env) in runs.items():
+        out, err = (open(os.path.join(tmp, f"{name}.{s}"), "w+") for s in ("out", "err"))
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", FLEET_WRAPPER] + SRV_LOAD_ARGS + extra, cwd=REPO,
+            stdout=out, stderr=err, text=True, env=dict(os.environ, **env)), out, err,
+            time.perf_counter())
+    res = {}
+    for name, (proc, out, err, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+        out.close()
+        err.close()
+        rows = {int(l[1:].split("]")[0]): [int(t) for t in l.split("] ", 1)[1].split()]
+                for l in stdout.splitlines() if l.startswith("[")}
+        smoke = [json.loads(l.split(" ", 1)[1]) for l in stdout.splitlines()
+                 if l.startswith("FLEET_SMOKE ")]
+        logs = [l.split("] ", 1)[-1] for l in stderr.splitlines()]
+        res[name] = dict(rc=rc, rows=rows, smoke=smoke[0] if smoke else None, logs=logs,
+                         s=time.perf_counter() - t0)
+        if rc != 0 or not smoke:
+            print(stderr[-4000:])
+        check(rc == 0 and smoke and smoke[0]["rc"] == 0, f"[t] serve CLI ({name}) exit {rc}")
+        check(not any(smoke[0]["flash"]), f"[t] {name}: flash launches {smoke[0]['flash']}")
+        check(len(rows) == SRV_REQUESTS, f"[t] {name}: {len(rows)} request lines")
+
+    # the single engine's streams against the teacher-forced full forward
+    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **EVAL_MODEL)
+    params, _ = ckpt.restore_serving_params(cfg, "", torch.Generator(device="cuda").manual_seed(0))
+    params = tm.cast_params(params, cfg.dtype)
+    prompts = [p for p, _ in port_serve.synthetic_trace(1, SRV_REQUESTS, cfg.vocab_size,
+                                                        SRV_BUDGET, 24)]
+    single = [res["single"]["rows"][i] for i in range(SRV_REQUESTS)]
+    full = _teacher_forced(params, cfg, prompts, single)
+    n_dec, miss = _decisive_misses(full, single, noise)
+    del params
+    torch.cuda.empty_cache()
+    check(miss == 0 and n_dec > 0, "[t] the single-engine CLI disagrees with the full forward")
+    for name in ("ship", "re-prefill", "fleet-config"):
+        r = res[name]
+        streams = [r["rows"][i] for i in range(SRV_REQUESTS)]
+        bad, parted = _parts_at_ties(full, single, streams, noise)
+        handoffs = r["smoke"]["handoffs"][0]
+        said = [l for l in r["logs"] if l.startswith(("fleet", "slo"))]
+        print(f"[t] serve CLI {name}: exit 0 in {r['s']:.1f} s, K1-K3 launches "
+              f"{r['smoke']['flash']}, handoffs {handoffs}, check_fleet clean on "
+              f"{r['smoke']['checked']} router(s); streams part from the single engine's in "
+              f"{parted} of {SRV_REQUESTS} requests, {bad} at a decisive position (margin > "
+              f"2 x {noise:.3e}); " + " | ".join(said))
+        check(bad == 0, f"[t] {name}: a stream parts from the single engine at a decisive position")
+        check(r["smoke"]["checked"] == 1, f"[t] {name}: no router was checked")
+        if name == "ship":
+            check(handoffs == {"ship": SRV_REQUESTS, "miss": 0, "reprefill": 0},
+                  f"[t] ship: not every handoff shipped: {handoffs}")
+        elif name == "re-prefill":
+            check(handoffs == {"ship": 0, "miss": 0, "reprefill": SRV_REQUESTS},
+                  f"[t] re-prefill: {handoffs}")
+        else:
+            knobs = [l for l in r["logs"] if l.startswith(f"fleet config {FLEET_YAML}: ")]
+            action = [l for l in r["logs"] if l.startswith("fleet autoscaler: ")]
+            check(knobs and "replicas=3" in knobs[0] and action,
+                  "[t] --fleet-config: no knobs line or no autoscaler line")
+        if name != "fleet-config":
+            with open(runs[name][0][-1]) as f:
+                records = [json.loads(l) for l in f]
+            done = [x for x in records if x["type"] == "request_done"]
+            gangs = sorted(x["gang"] for x in done)
+            worst = max(abs(x["args"]["ttftGapS"]) for x in done)
+            print(f"[t] {name} journal: {len(records)} records, {len(done)} terminals over "
+                  f"{len(set(gangs))} flights, worst |TTFT gap| {worst:.3e} s")
+            check(gangs == sorted(f"fleet/{i}" for i in range(SRV_REQUESTS)),
+                  f"[t] {name}: terminals {gangs}")
+            check(worst <= 1e-6, f"[t] {name}: the legs miss a TTFT by {worst} s")
+
+
+def _fleet_engine(params, cfg, **kw):
+    from hivedscheduler_tpu_torch.models import serving as srv
+
+    kw = dict(dict(max_batch=SRV_BATCH, max_len=SRV_MAX_LEN, page_size=SRV_PAGE,
+                   decode_steps=SRV_STEPS, prefix_cache_size=4), **kw)
+    return srv.ServingEngine(params, cfg, **kw)
+
+
+def _fleet(params, cfg, ship: bool, decode: int = 2):
+    from hivedscheduler_tpu_torch import fleet
+
+    # least blocks: the decode legs spread over every decode replica (prefix
+    # affinity would send every request of one system prompt to one)
+    r = fleet.FleetRouter(disaggregate=True, kv_ship=ship)
+    r.add_replica("p0", _fleet_engine(params, cfg), role="prefill")
+    for i in range(decode):
+        r.add_replica(f"d{i}", _fleet_engine(params, cfg), role="decode")
+    return r
+
+
+def _serve_fleet(router, prompts, budget: int, check_each=None):
+    """``_serve``'s loop through a router: an arrival every SRV_ARRIVAL
+    router steps, CUDA events around the loop (each step ends in host reads
+    of its tokens)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    pending, reqs, step = list(prompts), [], 0
+    torch.cuda.synchronize()
+    start.record()
+    while pending or any(not f.done for f in reqs):
+        if pending and step % SRV_ARRIVAL == 0:
+            reqs.append(router.submit(list(pending.pop(0)), budget))
+        router.step()
+        if check_each is not None:
+            check_each(router, step)
+        step += 1
+    end.record()
+    torch.cuda.synchronize()
+    return dict(reqs=reqs, ms=start.elapsed_time(end))
+
+
+def _fleet_stats(run: dict) -> dict:
+    reqs = run["reqs"]
+    toks = sum(len(f.tokens_out) for f in reqs)
+    ttft = sorted(f.ttft_s * 1e3 for f in reqs)
+    tpot = sorted(f.tpot_s * 1e3 for f in reqs if f.tpot_s is not None)
+    return dict(tps=toks / (run["ms"] / 1e3), ttft_p50=ttft[len(ttft) // 2],
+                ttft_max=ttft[-1], tpot_p50=tpot[len(tpot) // 2])
+
+
+def _same_bytes(a, b) -> bool:
+    """Equal bit for bit (a NaN equals itself)."""
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _held_blocks(eng, key) -> list:
+    """The pool's blocks of a prefix-cache entry, k, v (and scales), on
+    the host."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import serving as srv
+
+    idx = torch.tensor(list(eng._entry_bids(eng._prefix_cache[tuple(key)][0])),
+                       device=eng.device)
+    return [t.index_select(1, idx).cpu() for t in srv._kv_tensors(eng.pool)]
+
+
+def _pointers(eng) -> list:
+    from hivedscheduler_tpu_torch.models import serving as srv
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+
+    return ([t.data_ptr() for t in srv._kv_tensors(eng.pool)]
+            + [t.data_ptr() for t in ckpt.named_leaves(eng.params).values()])
+
+
+def _fleet_handoff(params, cfg, prompts) -> None:
+    """2: the handoff itself, bf16 and int8 KV: each of (k)'s system-prompt
+    requests prefilled on one engine, exported, imported into a
+    graph-warmed decode engine, whose blocks must equal the exported bytes;
+    the pool's and params' addresses unmoved; ms per export and import,
+    bytes per handoff; a flipped byte caught by the block compare."""
+    import torch
+
+    for kv_dtype in (None, "int8"):
+        pre = _fleet_engine(params, cfg, kv_dtype=kv_dtype)
+        dec = _fleet_engine(params, cfg, kv_dtype=kv_dtype)
+        _serve(dec, prompts[:4], SRV_BUDGET)  # capture the decode graph
+        check(dec._window is not None and dec._window.graph is not None,
+              "[t] the decode engine has no graph")
+        before = _pointers(dec)
+        export_ms, import_ms, sizes, equal = [], [], [], 0
+        sample = None
+        for p in prompts:
+            pre.submit(list(p), 1)
+            pre.run_until_drained()
+            t0 = time.perf_counter()
+            key, plen, data = pre.export_prefix(p)  # ends in its host copies
+            t1 = time.perf_counter()
+            check(dec.import_prefix(key, plen, data) is True, "[t] the import wrote nothing")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            export_ms.append((t1 - t0) * 1e3)
+            import_ms.append((t2 - t1) * 1e3)
+            sizes.append(sum(t.numel() * t.element_size() for t in data.values()))
+            want = [data[n] for n in ("k", "v", "k_scale", "v_scale") if n in data]
+            equal += all(_same_bytes(h, w) for h, w in zip(_held_blocks(dec, key), want))
+            sample = (key, plen, data)
+        moved = _pointers(dec) != before
+        # planted fault: one byte of a shipped payload flipped in transit
+        key, plen, data = sample
+        bad = {n: t.clone() for n, t in data.items()}
+        flat = bad["k"].view(torch.uint8).view(-1)
+        flat[flat.numel() // 2] ^= 1
+        other = _fleet_engine(params, cfg, kv_dtype=kv_dtype)
+        other.import_prefix(key, plen, bad)
+        caught = not all(_same_bytes(h, data[n]) for h, n in zip(_held_blocks(other, key),
+                                                                 ("k", "v", "k_scale", "v_scale")))
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        print(f"[t] handoff ({kv_dtype or 'bf16'} KV): {equal}/{len(prompts)} imports equal "
+              f"the exported blocks byte for byte; pool and params moved: {moved}; export "
+              f"{med(export_ms):.3f} ms (median; {min(export_ms):.3f}-{max(export_ms):.3f}), "
+              f"import {med(import_ms):.3f} ms ({min(import_ms):.3f}-{max(import_ms):.3f}), "
+              f"{med(sizes) / 1e6:.3f} MB a handoff (median; {min(sizes) / 1e6:.3f}-"
+              f"{max(sizes) / 1e6:.3f}); a flipped byte caught: {caught}")
+        check(equal == len(prompts), "[t] an import differs from its export")
+        check(not moved, "[t] the import moved the pool or the params")
+        check(caught, "[t] the block compare does not see a flipped byte")
+        del pre, dec, other
+
+
+def _fleet_steady(params, cfg, prompts, fresh) -> dict:
+    """3: a warmed disaggregated fleet (ship mode, journal on) serves fresh
+    prompts of the same shapes under compileguard.budget(0); check_fleet
+    after every step; then the same in re-prefill mode. Returns the warmed
+    fleets."""
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+    from hivedscheduler_tpu_torch.common import compileguard
+    from hivedscheduler_tpu_torch.obs import journal
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    def audit(router, step):
+        inv.check_fleet(router, f"step {step}")
+
+    fleets = {}
+    old = os.environ.get("HIVED_COMPILE_GUARD")
+    os.environ["HIVED_COMPILE_GUARD"] = "1"
+    try:
+        for mode, ship in (("ship", True), ("re-prefill", False)):
+            _zero_launches(attn)
+            compileguard.reset()
+            journal.enable()
+            r = _fleet(params, cfg, ship)
+            _serve_fleet(r, prompts, SRV_BUDGET, audit)
+            warm = compileguard.counts()
+            with compileguard.budget(0):
+                run = _serve_fleet(r, fresh, SRV_BUDGET, audit)
+            faults = flight_faults(journal.JOURNAL.flights())
+            gaps = max(abs(fl["ttft_gap"]) for fl in journal.JOURNAL.flights().values())
+            launches = _count_launches(attn)
+            print(f"[t] {mode} fleet (1 prefill + 2 decode, journal on): warm-up captures "
+                  f"{warm}, captures serving {len(fresh)} fresh prompts of the same shapes "
+                  f"under budget(0): {compileguard.total() - sum(warm.values())}; handoffs "
+                  f"{r.handoffs}; check_fleet clean after each of the steps; flight faults "
+                  f"{faults[:3]} (worst |TTFT gap| {gaps:.3e} s); flash launches {launches}")
+            check(all(len(f.tokens_out) == SRV_BUDGET for f in run["reqs"]),
+                  f"[t] {mode}: a stream fell short")
+            graphs = sum(rep.engine._window is not None and rep.engine._window.graph is not None
+                         for rep in r.replicas.values())
+            check(warm.get("serve.decode_window", 0) == graphs >= 2,
+                  f"[t] {mode}: {warm} captures for {graphs} decode graphs")
+            check(gaps <= 1e-6 and not [f for f in faults if "miss the TTFT" not in f],
+                  f"[t] {mode}: flight faults {faults[:3]}")
+            check(not any(launches.values()), f"[t] {mode}: flash launches {launches}")
+            _obs_off()
+            fleets[mode] = r
+    finally:
+        if old is None:
+            os.environ.pop("HIVED_COMPILE_GUARD", None)
+        else:
+            os.environ["HIVED_COMPILE_GUARD"] = old
+        compileguard.reset()
+        _obs_off()
+    return fleets
+
+
+def _fleet_kill(params, cfg, prompts) -> None:
+    """4: a decode replica killed while its decode legs are in flight (the
+    handoff done): each stream retries on the surviving decode replica and
+    finishes; check_fleet after every step."""
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+
+    r = _fleet(params, cfg, True)
+    reqs = [r.submit(list(p), SRV_BUDGET) for p in prompts[:6]]
+    victim = None
+    for _ in range(200):
+        r.step()
+        live = [f for f in reqs if f.handoff is None and f.attempts and not f.done]
+        if live:
+            victim = live[0].replica
+            break
+    check(victim is not None, "[t] no decode leg came into flight")
+    on_victim = sum(1 for f in reqs if not f.done and f.replica == victim)
+    r.kill(victim)
+    steps = 0
+    while r.step():
+        inv.check_fleet(r, f"after the kill, step {steps}")
+        steps += 1
+    inv.check_fleet(r, "drained")
+    reasons = sorted({f.finish_reason for f in reqs})
+    print(f"[t] killed decode replica {victim} with {on_victim} stream(s) on it: {r.retried} "
+          f"retried, finish reasons {reasons}, lengths {sorted({len(f.tokens_out) for f in reqs})}; "
+          "check_fleet clean after every step")
+    check(r.retried >= on_victim >= 1 and reasons == ["length"]
+          and all(len(f.tokens_out) == SRV_BUDGET for f in reqs),
+          "[t] a stream on the lost replica did not finish")
+
+
+def _fleet_planted(params, cfg, prompts) -> None:
+    """5: the checks see planted faults: a prefill leg's journal mark
+    dropped (the TTFT gap) and a request with two live attempts."""
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+    from hivedscheduler_tpu_torch.obs import journal
+
+    note_leg = journal.note_leg
+    journal.enable()
+    try:
+        journal.note_leg = lambda req, leg, **kw: (None if leg == "prefill"
+                                                    else note_leg(req, leg, **kw))
+        r = _fleet(params, cfg, True, decode=1)
+        _serve_fleet(r, prompts[:2], 4)
+    finally:
+        journal.note_leg = note_leg
+    try:
+        inv.check_requests(r, "dropped leg")
+        gap = "not caught"
+    except inv.InvariantViolation as err:
+        gap = str(err)
+    _obs_off()
+    f = r.submit(list(prompts[2]), SRV_BUDGET)
+    r.step()
+    stray = r.replicas["d0"].engine.submit(list(prompts[2]), SRV_BUDGET)
+    f.attempts.insert(0, ("d0", stray))
+    try:
+        inv.check_fleet(r, "two attempts")
+        double = "not caught"
+    except inv.InvariantViolation as err:
+        double = str(err)
+    print(f"[t] planted: the prefill leg's mark dropped -> {gap}; two live attempts -> {double}")
+    check("TTFT legs sum differs" in gap, "[t] the dropped leg passed")
+    check("double-routed" in double, "[t] two live attempts passed")
+
+
+def _fleet_turns(params, cfg, prompts, fleets) -> None:
+    """6: tokens/s, TTFT and TPOT of the single engine and the warmed ship
+    and re-prefill fleets on (k)'s system-prompt trace, in turns."""
+    single = _fleet_engine(params, cfg)
+    _serve(single, prompts, SRV_BUDGET)  # capture
+    out = {"single": [], "ship": [], "re-prefill": []}
+    for _ in range(FLEET_TURNS):
+        for name in ("single", "ship", "re-prefill", "re-prefill", "ship", "single"):
+            if name == "single":
+                run = _serve(single, prompts, SRV_BUDGET)
+                st = _serve_stats(run, SRV_BATCH)
+            else:
+                st = _fleet_stats(_serve_fleet(fleets[name], prompts, SRV_BUDGET))
+            out[name].append(st)
+    for name, stats in out.items():
+        print(f"[t] {name} in turns ({SRV_REQUESTS} requests, budget {SRV_BUDGET}): tokens/s "
+              f"{', '.join(f'{s['tps']:.1f}' for s in stats)}; TTFT p50 ms "
+              f"{', '.join(f'{s['ttft_p50']:.2f}' for s in stats)}, max "
+              f"{', '.join(f'{s['ttft_max']:.2f}' for s in stats)}; TPOT p50 ms "
+              f"{', '.join(f'{s['tpot_p50']:.3f}' for s in stats)}")
+    ratio = [f / s["tps"] for f, s in zip((x["tps"] for x in out["ship"]), out["single"])]
+    print(f"[t] ship fleet tokens/s over the single engine's, turn by turn: "
+          + ", ".join(f"{x:.3f}" for x in ratio))
+
+
+def phase_fleet(srv: dict) -> None:
+    """(t): the serving fleet (router, KV handoff, autoscaler) at the
+    flagship width through the serve CLI and in-process."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **EVAL_MODEL)
+        system = _srv_prompts(cfg.vocab_size, 1, seed=7, lo=SRV_SYSTEM, hi=SRV_SYSTEM + 1)[0]
+        prompts = _srv_prompts(cfg.vocab_size, SRV_REQUESTS, seed=8, system=system)
+        rng = np.random.default_rng(12)
+        fresh = [system + [int(t) for t in rng.integers(0, cfg.vocab_size, len(p) - SRV_SYSTEM)]
+                 for p in prompts]
+
+        def in_process():
+            params = tm.cast_params(tm.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+            _fleet_handoff(params, cfg, prompts)
+            fleets = _fleet_steady(params, cfg, prompts, fresh)
+            _fleet_kill(params, cfg, prompts)
+            _fleet_planted(params, cfg, prompts)
+            _fleet_turns(params, cfg, prompts, fleets)
+            del params, fleets
+            torch.cuda.empty_cache()
+
+        _timed_parts("[t]", [("serve CLI", lambda: _fleet_cli(tmp, srv["noise"])),
+                             ("in-process", in_process)])
+    finally:
+        _obs_off()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4658,6 +5140,7 @@ def main() -> int:
     phi3 = phase_phi3()
     gemma, gemma_f32 = phase_gemma()
     phase_obs()
+    phase_fleet(srv)
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"

@@ -64,6 +64,22 @@ REGISTRY: Dict[str, Flag] = {f.name: f for f in [
          "`1` swaps the registered locks to CheckedLock: per-thread "
          "lock-order assertions.",
          "hivedscheduler_tpu_torch/common/lockcheck.py"),
+    Flag("HIVED_FLEET_KV_SHIP", "1",
+         "Disaggregated prefill->decode KV handoff mode: unset/`1` ships "
+         "the prefix-cache payload host-side (block table + block "
+         "contents); `0` re-prefills on the decode replica through its own "
+         "prefix cache (re-prefill-on-miss). Both modes are token-exact vs "
+         "single-replica serving.",
+         "hivedscheduler_tpu_torch/fleet/router.py"),
+    Flag("HIVED_FLEET_AUTOSCALE_COOLDOWN_S", "30",
+         "Fleet autoscaler cooldown: at most one scale action per role per "
+         "this many seconds (AutoscalePolicy.cooldown_s < 0 reads it).",
+         "hivedscheduler_tpu_torch/fleet/autoscaler.py"),
+    Flag("HIVED_COMPILE_GUARD", "0",
+         "`1` counts CUDA-graph captures per label "
+         "(common/compileguard.py): a warmed engine or fleet is held to "
+         "zero new captures under `compileguard.budget(0)`.",
+         "hivedscheduler_tpu_torch/common/compileguard.py"),
 ]}
 
 

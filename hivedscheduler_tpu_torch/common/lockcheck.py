@@ -1,7 +1,8 @@
 """Lock registry and the opt-in runtime lock-order sanitizer of the port.
 
 A copy of ``hivedscheduler_tpu/common/lockcheck.py`` for the locks the
-port creates (the observability leaves and the watchdog), with the
+port creates (the observability leaves, the watchdog, the fleet router
+and the capture counters of ``common/compileguard.py``), with the
 reference's levels:
 
 - every lock of the port is created through :func:`make_lock` with a
@@ -37,6 +38,10 @@ from hivedscheduler_tpu_torch.common import envflags
 LOCK_HIERARCHY: Dict[str, int] = {
     # parallel/supervisor.py: the watchdog's beat state
     "watchdog_lock": 40,
+    # fleet/router.py: the fleet router's bookkeeping, a leaf above only
+    # the observability leaves (routing and harvest emit journal events
+    # and metrics under it)
+    "fleet_router_lock": 70,
     # observability leaves: nothing is acquired under these but the
     # metrics leaf (closing a goodput/wait interval or observing an SLO
     # datapoint updates a counter, histogram or gauge while holding them)
@@ -45,6 +50,8 @@ LOCK_HIERARCHY: Dict[str, int] = {
     "slo_lock": 79,
     "metrics_lock": 80,
     "trace_lock": 82,
+    # common/compileguard.py: the capture counters, a leaf
+    "compileguard_lock": 86,
 }
 
 

@@ -66,8 +66,13 @@ each event: none is inside the fused window's captured iteration, so a
 replayed window counts once. Request times are the engine clock's, read
 after the host read of the token they stamp.
 
-Left out: the fleet's prefix export and import, and the ``mesh`` layout
-(MoE on a mesh with it).
+**The fleet's KV handoff** (``export_prefix``/``import_prefix``): a
+cached prefix leaves one engine as a host copy (paged: the entry's blocks
+of every pool tensor; dense: the entry's bucketed payload) and enters a
+config-identical engine's prefix cache, paged blocks written in place
+into its own pool, so a captured decode graph keeps its addresses.
+
+Left out: the ``mesh`` layout (MoE on a mesh with it).
 """
 
 from __future__ import annotations
@@ -81,7 +86,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from hivedscheduler_tpu_torch.common import envflags
+from hivedscheduler_tpu_torch.common import compileguard, envflags
 from hivedscheduler_tpu_torch.models.decode import (
     _layer_params,
     embed_tokens,
@@ -495,6 +500,10 @@ def _kv_tensors(store) -> List[torch.Tensor]:
     """k, v and, when quantized, their scales, of a cache or a pool."""
     return [t for t in (store.k, store.v, store.k_scale, store.v_scale)
             if t is not None]
+
+
+# the names of a shipped paged payload's parts, in _kv_tensors' order
+_KV_NAMES = ("k", "v", "k_scale", "v_scale")
 
 
 def _params_device(params: Dict[str, Any]) -> torch.device:
@@ -976,6 +985,82 @@ class ServingEngine:
             _, (payload, _plen) = self._prefix_cache.popitem(last=False)
             self._drop_entry(payload)
 
+    # -- cross-replica prefix shipping (the fleet's KV handoff) -------------
+    def export_prefix(self, prompt: List[int]):
+        """Host copy of the longest cached STRICT prefix of ``prompt``: the
+        ship leg of the fleet's KV handoff. None on a cache miss, else
+        ``(key, plen, data)``, where ``data`` is an opaque host payload for
+        :meth:`import_prefix` on a config-identical engine (same
+        TransformerConfig, page_size and kv_dtype). Paged: every pool
+        tensor's blocks of the entry (k, v and, under int8 KV, their
+        scales); dense: the entry's bucketed payload. The bytes are copies
+        of this engine's cached KV, which equals what the importer would
+        compute for the same prefix, so a decode leg resumed from it is
+        token-exact against local serving."""
+        hit = self._match_prefix(list(prompt))
+        if hit is None:
+            return None
+        key, (payload, plen) = hit
+        if self.paged:
+            idx = torch.tensor(list(self._entry_bids(payload)), dtype=torch.long,
+                               device=self.device)
+            data = {n: t.index_select(1, idx).cpu()
+                    for n, t in zip(_KV_NAMES, _kv_tensors(self.pool))}
+        else:
+            data = tuple(t.cpu() for t in payload)
+        return key, plen, data
+
+    def import_prefix(self, key, plen: int, data) -> bool:
+        """Install a payload of :meth:`export_prefix` (from a
+        config-identical engine) into this engine's prefix cache: the
+        receive leg of the fleet's KV handoff. The next ``submit()`` of a
+        prompt extending ``key`` restores it and prefills only the tail,
+        the ordinary prefix-hit path. Paged: the blocks come from this
+        pool's allocator, refcounted as a local entry's, and are written in
+        place (``self.pool`` is never rebound: a captured decode graph
+        holds its addresses). Returns False when the key is already cached
+        (LRU-touched, nothing written). May reclaim cache entries or
+        preempt streams under pool pressure, like any allocation."""
+        if self.prefix_cache_size <= 0:
+            raise ValueError(
+                "import_prefix needs prefix_cache_size > 0 — the imported "
+                "payload lives in the prefix cache")
+        key = tuple(key)
+        if len(key) != plen or plen <= 0:
+            raise ValueError(f"prefix key length {len(key)} != plen {plen}")
+        if key in self._prefix_cache:
+            self._prefix_cache.move_to_end(key)
+            return False
+        if self.paged:
+            nb = -(-plen // self.page_size)
+            if data["k"].shape[1] != nb or data["k"].shape[2] != self.page_size:
+                raise ValueError(
+                    f"shipped payload shape {tuple(data['k'].shape)} does not "
+                    f"cover {plen} tokens at page_size {self.page_size} — "
+                    f"handoff requires config-identical engines")
+            # one host-to-device copy a tensor, then a device copy a block
+            parts = [data[n].to(self.device)
+                     for n, _ in zip(_KV_NAMES, _kv_tensors(self.pool))]
+            bids: List[int] = []
+            try:
+                for j in range(nb):
+                    bid = self._alloc_block()
+                    bids.append(bid)
+                    for t, part in zip(_kv_tensors(self.pool), parts):
+                        t[:, bid].copy_(part[:, j])
+            except RuntimeError:
+                for bid in bids:
+                    self._decref(bid)
+                raise
+            payload = tuple(bids)
+        else:
+            payload = tuple(t.to(self.device) for t in data)
+        self._prefix_cache[key] = (payload, plen)
+        while len(self._prefix_cache) > self.prefix_cache_size:
+            _k, (pl, _n) = self._prefix_cache.popitem(last=False)
+            self._drop_entry(pl)
+        return True
+
     def _shed_expired(self) -> None:
         """Queue-wait deadline: finish expired waiters as "shed" before
         admission."""
@@ -1275,6 +1360,7 @@ class ServingEngine:
                 with torch.cuda.graph(graph):
                     self._window_iteration(w)
                 w.graph = graph
+                compileguard.note_capture("serve.decode_window")
                 replays = k - 1
             for _ in range(replays):
                 w.graph.replay()
@@ -1492,11 +1578,10 @@ class SpeculativeServingEngine(ServingEngine):
     def _entry_bids(self, payload):
         return payload[0]
 
-    # the fleet's KV handoff (the plain engine's export_prefix and
-    # import_prefix, not yet ported) cannot ship these payloads
+    # the fleet's KV handoff cannot ship these payloads
     _NO_KV_SHIP = ("KV shipping across replicas does not support the speculative "
-                   "engine (its prefix payloads bundle a draft-cache copy); a "
-                   "replica re-prefills on a miss instead")
+                   "engine (its prefix payloads bundle a draft-cache copy); run "
+                   "the fleet with HIVED_FLEET_KV_SHIP=0 (re-prefill-on-miss)")
 
     def export_prefix(self, prompt):
         raise RuntimeError(self._NO_KV_SHIP)

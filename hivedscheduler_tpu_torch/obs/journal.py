@@ -34,10 +34,12 @@ package's, record for record.
   :data:`SCHEMA`, :data:`WAIT_BUCKETS` and :data:`REQUEST_LEGS`; the
   runtime raises otherwise.
 
+``last_id`` gives a key's newest event id: the fleet router names a
+serving leg's last event as the cause of its handoff and retry events.
 Not copied: the scheduler's ladder helpers, which nothing in the port
 calls: ``classify_wait``, the gang summaries ``gangs`` and ``timeline``,
-and the replay helpers ``wait_intervals``, ``wait_totals``, ``close_all``
-and ``last_id``.
+and the replay helpers ``wait_intervals``, ``wait_totals`` and
+``close_all``.
 
 Enable with ``journal.enable()``, the CLIs' ``--journal-file``, or
 ``HIVED_JOURNAL=1``.
@@ -513,6 +515,13 @@ class Journal:
             if rec is None or rec["flight"] is None:
                 return ""
             return self._dominant_leg_of(rec["flight"])
+
+    def last_id(self, gang: str) -> Optional[int]:
+        """The gang's most recent event id (for explicit cross-gang
+        causes), or None."""
+        with self._lock:
+            rec = self._gangs.get(gang)
+            return None if rec is None else rec["last"]
 
     def flights(self) -> Dict[str, Dict[str, Any]]:
         """Copy-on-read raw flight records — the invariant checks' and

@@ -6,12 +6,13 @@ exposition format by :meth:`Registry.render` (``serve --metrics-dump``
 writes it), with the reference's latency buckets and help texts, so the
 same calls render the same text in either package.
 
-The families described here are the workload's: serving, training and the
-supervisor, the journal's wait and request-leg histograms, the SLO tracker
-and the goodput ledger. The scheduler's families (HTTP, the extender
-routines, binds, the batched watch events of ``HIVED_EVENT_BATCH``,
-defrag, backfill, elastic offers, the fleet and its ``HIVED_FLEET_KV_SHIP``
-handoffs, the capacity ledger) stay out: nothing in the port emits them.
+The families described here are the workload's: serving, the serving
+fleet (router and autoscaler, with its ``HIVED_FLEET_KV_SHIP`` handoffs),
+training and the supervisor, the journal's wait and request-leg
+histograms, the SLO tracker and the goodput ledger. The scheduler's
+families (HTTP, the extender routines, binds, the batched watch events of
+``HIVED_EVENT_BATCH``, defrag, backfill, elastic offers, the capacity
+ledger) stay out: nothing in the port emits them.
 """
 
 from __future__ import annotations
@@ -172,6 +173,29 @@ REGISTRY.describe("tpu_hive_serve_pool_preempted_total",
 REGISTRY.describe("tpu_hive_serve_spec_acceptance_ratio",
                   "Per-verify-round speculative acceptance fraction "
                   "(accepted draft tokens / gamma) as a histogram")
+# serving fleet tier (fleet/router.py + fleet/autoscaler.py)
+REGISTRY.describe("tpu_hive_fleet_requests_total",
+                  "Fleet requests finished by outcome (eos/length/shed/"
+                  "preempted/no_replica — shed/preempted here means "
+                  "retries were exhausted)")
+REGISTRY.describe("tpu_hive_fleet_retries_total",
+                  "Shed/preempted/lost legs re-routed to another replica "
+                  "by leg (prefill/decode)")
+REGISTRY.describe("tpu_hive_fleet_handoffs_total",
+                  "Disaggregated prefill->decode handoffs by mode (ship = "
+                  "KV crossed host-side, miss = no exportable prefix, "
+                  "reprefill = HIVED_FLEET_KV_SHIP=0 path)")
+REGISTRY.describe("tpu_hive_fleet_prefix_affinity_hits_total",
+                  "Requests routed by a content-hash prefix-index hit "
+                  "(the caching replica serves the prompt's leading "
+                  "blocks from its prefix cache)")
+REGISTRY.describe("tpu_hive_fleet_replicas",
+                  "Live fleet replicas (active + draining)")
+REGISTRY.describe("tpu_hive_fleet_target_replicas",
+                  "Fleet autoscaler target replica count (sum over roles)")
+REGISTRY.describe("tpu_hive_fleet_scale_events_total",
+                  "Autoscaler scale actions by direction (up = replica "
+                  "added, down = drain-based removal started)")
 REGISTRY.describe("tpu_hive_train_resumes_total",
                   "Training incarnations that resumed from a committed "
                   "checkpoint (preemption/crash restarts)")

@@ -29,13 +29,23 @@ tracer on before the engine is built and at exit writes the metrics
 registry's Prometheus exposition to PATH and the Chrome trace (request
 spans, journal and goodput lanes) to ``PATH.trace.json``;
 ``--journal-file`` spools the event journal with one ``serve/<rid>`` request
-flight a request; an SLO tracker (``--slo-ttft-p99``, ``--slo-window-s``)
-observes every finished request's TTFT and TPOT with its dominant leg and
-logs its summary at exit. Not yet ported, and refused with an error: the
-fleet (``--fleet``, ``--disaggregate``, ``--autoscale``,
-``--route-policy``, ``--prefill-replicas``, ``--fleet-*`` and
-``--fleet-config``, whose SLO defaults therefore do not apply) and
-``--tp/--dp`` above 1.
+flight a request (``fleet/<fid>`` in fleet mode); an SLO tracker
+(``--slo-ttft-p99``, ``--slo-window-s``) observes every finished request's
+TTFT and TPOT with its dominant leg and logs its summary at exit.
+
+The fleet, as in the JAX CLI: ``--fleet N`` serves the trace through a
+``fleet.FleetRouter`` over N replicas in this process, each a fresh engine
+over the same params (``--route-policy``; shed, preempted and lost streams
+retry on another replica). ``--disaggregate`` splits prefill (the first
+``--prefill-replicas``) from decode, with the KV handoff that
+``HIVED_FLEET_KV_SHIP`` selects (a prefix cache of 8 entries a replica
+when shipping and none was given). ``--autoscale`` runs the
+``FleetAutoscaler`` between ``--fleet-min`` and ``--fleet-max``, building
+replicas in-process. ``--fleet-config`` reads those knobs and the SLO
+defaults from a YAML's ``fleet:`` section; explicit flags win. One
+``[fid] tokens`` line per request, and the fleet summary (TTFT, tokens/s,
+handoffs, retries, affinity hits, autoscaler actions) in the log. Not yet
+ported, and refused with an error: ``--tp/--dp`` above 1.
 """
 
 from __future__ import annotations
@@ -54,27 +64,11 @@ log = logging.getLogger(__name__)
 SUMMARY_LOG = ("%s requests, %s tokens in %.2fs (%.1f tok/s), occupancy %.0f%% "
                "over %s decode steps")
 
-# flags of paths not yet ported: refused when given at all (default None)
-_UNPORTED_FLAGS = (
-    ("fleet", "the fleet router (--fleet)"),
-    ("disaggregate", "prefill/decode disaggregation (--disaggregate)"),
-    ("prefill_replicas", "the fleet's --prefill-replicas"),
-    ("route_policy", "fleet routing (--route-policy)"),
-    ("autoscale", "the fleet autoscaler (--autoscale)"),
-    ("fleet_min", "the fleet autoscaler (--fleet-min)"),
-    ("fleet_max", "the fleet autoscaler (--fleet-max)"),
-    ("fleet_config", "the fleet config (--fleet-config)"),
-)
-
-
 def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
     for flag in ("tp", "dp"):
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} > 1 is not yet ported: the port serves on "
                          "one device")
-    for name, what in _UNPORTED_FLAGS:
-        if getattr(args, name) is not None:
-            parser.error(f"{what} is not yet ported to hivedscheduler_tpu_torch")
 
 
 def _log_slo(tracker) -> None:
@@ -115,6 +109,116 @@ def synthetic_trace(seed: int, n_requests: int, vocab_size: int,
         prompt = system + [int(t) for t in rng.integers(0, vocab_size, plen)]
         pending.append((prompt, budget))
     return pending
+
+
+def _run_fleet(args, router, autoscaler, pending, prio_of) -> int:
+    """Drive the synthetic load through the FleetRouter (the --fleet
+    path): staggered arrivals, an autoscaler tick a step, and a fleet
+    summary beside the single-engine report's."""
+    from hivedscheduler_tpu_torch import fleet as fleet_pkg
+
+    reqs = []
+    steps = 0
+    t0 = time.perf_counter()
+    try:
+        if args.arrival_every == 0:  # all up front
+            while pending:
+                prompt, budget = pending.pop(0)
+                reqs.append(router.submit(prompt, budget, priority=prio_of(len(reqs))))
+        while pending or (reqs and not all(f.done for f in reqs)):
+            if pending and steps % args.arrival_every == 0:
+                prompt, budget = pending.pop(0)
+                reqs.append(router.submit(prompt, budget, priority=prio_of(len(reqs))))
+            if autoscaler is not None:
+                autoscaler.tick()
+            router.step()
+            steps += 1
+    finally:
+        fleet_pkg.publish(None)
+    dt = time.perf_counter() - t0
+
+    total_tokens = sum(len(f.tokens_out) for f in reqs)
+    for f in reqs:
+        print(f"[{f.fid}] " + " ".join(str(t) for t in f.tokens_out))
+    ttfts = sorted(f.ttft_s for f in reqs if f.ttft_s is not None)
+    if ttfts:
+        log.info("fleet time-to-first-token: p50 %.0f ms, max %.0f ms",
+                 1e3 * ttfts[len(ttfts) // 2], 1e3 * ttfts[-1])
+    snap = router.snapshot()
+    log.info("fleet: %s requests, %s tokens in %.2fs (%.1f tok/s) over %s "
+             "replicas (policy %s%s)", len(reqs), total_tokens, dt,
+             total_tokens / dt, len(snap["replicas"]), router.policy,
+             ", disaggregated" if router.disaggregate else "")
+    if router.disaggregate:
+        log.info("fleet handoffs: %s shipped, %s missed, %s re-prefilled "
+                 "(HIVED_FLEET_KV_SHIP=%s)", router.handoffs["ship"],
+                 router.handoffs["miss"], router.handoffs["reprefill"],
+                 "1" if router.kv_ship else "0")
+    if router.retried:
+        log.info("fleet retries: %s shed/preempted/lost legs re-routed",
+                 router.retried)
+    if router.policy == "prefix_affinity":
+        log.info("fleet prefix-affinity hits: %s", router.affinity_hits)
+    _log_slo(router.slo)
+    if autoscaler is not None:
+        ups = sum(1 for a in autoscaler.actions
+                  if a["direction"] == "up" and a["phase"] == "added")
+        downs = sum(1 for a in autoscaler.actions if a["phase"] == "removed")
+        log.info("fleet autoscaler: %s scale-ups, %s drain-based removals, %s "
+                 "live replicas at exit", ups, downs,
+                 sum(1 for r in snap["replicas"]
+                     if r["state"] in ("active", "draining")))
+    if args.metrics_dump:
+        _write_metrics_dump(args.metrics_dump)
+    return 0
+
+
+def _write_metrics_dump(path: str) -> None:
+    """The registry's exposition to ``path``, the Chrome trace beside it."""
+    from hivedscheduler_tpu_torch.obs import trace as obs_trace
+    from hivedscheduler_tpu_torch.runtime.metrics import REGISTRY
+
+    with open(path, "w") as f:
+        f.write(REGISTRY.render())
+    trace_path = path + ".trace.json"
+    obs_trace.write_chrome_trace(trace_path)
+    log.info("metrics exposition -> %s; Chrome trace -> %s "
+             "(open in https://ui.perfetto.dev)", path, trace_path)
+
+
+def _merge_fleet_config(parser: argparse.ArgumentParser, args):
+    """--fleet-config: the YAML's ``fleet:`` knobs fill every fleet and SLO
+    flag left at its default. Returns the FleetConfig (or None)."""
+    if not args.fleet_config:
+        return None
+    from hivedscheduler_tpu_torch.fleet import FleetConfig
+
+    try:
+        fleet_cfg = FleetConfig.from_yaml(args.fleet_config)
+    except (OSError, ValueError) as e:
+        parser.error(f"--fleet-config {args.fleet_config}: {e}")
+    if fleet_cfg is None:
+        parser.error(f"{args.fleet_config} has no `fleet:` section")
+    if args.fleet == 0:
+        args.fleet = fleet_cfg.replicas
+    if not args.disaggregate:
+        args.disaggregate = fleet_cfg.disaggregate
+    if args.prefill_replicas == 1:
+        args.prefill_replicas = fleet_cfg.prefill_replicas
+    if args.route_policy == "least_blocks":
+        args.route_policy = fleet_cfg.policy
+    if not args.autoscale:
+        args.autoscale = fleet_cfg.autoscale
+    if args.fleet_min == 1:
+        args.fleet_min = fleet_cfg.min_replicas
+    if args.fleet_max == 0 and fleet_cfg.autoscale:
+        args.fleet_max = fleet_cfg.max_replicas
+    if args.slo_ttft_p99 == 0.0:
+        args.slo_ttft_p99 = fleet_cfg.slo_ttft_p99_s
+    if args.slo_window_s < 0:
+        args.slo_window_s = fleet_cfg.slo_window_s
+    log.info("fleet config %s: %s", args.fleet_config, fleet_cfg)
+    return fleet_cfg
 
 
 def main(argv=None) -> int:
@@ -229,21 +333,54 @@ def main(argv=None) -> int:
                         help="SLO tracker sliding window in seconds (-1 = the "
                         "HIVED_SLO_WINDOW_S default, 0 = no time window: a "
                         "last-N ring)")
+    parser.add_argument("--fleet", type=int, default=0,
+                        help="serve through a FleetRouter over this many "
+                        "replicas (0 = single engine). Each replica is a "
+                        "fresh engine over the same weights; requests are "
+                        "routed by --route-policy, shed/preempted streams "
+                        "retry on another replica")
+    parser.add_argument("--disaggregate", action="store_true",
+                        help="fleet mode: split prefill from decode: the "
+                        "first --prefill-replicas replicas take prefill "
+                        "legs, the rest decode legs, with the KV handoff "
+                        "selected by HIVED_FLEET_KV_SHIP (1 = ship block "
+                        "contents host-side, 0 = re-prefill through the "
+                        "decode replica's prefix cache). Token-exact vs "
+                        "single-replica either way")
+    parser.add_argument("--prefill-replicas", type=int, default=1,
+                        help="with --disaggregate: replicas dedicated to "
+                        "prefill legs (the rest decode)")
+    parser.add_argument("--route-policy", default="least_blocks",
+                        choices=["least_blocks", "prefix_affinity"],
+                        help="fleet routing policy: least outstanding KV "
+                        "blocks, or prefix-affinity (route to the replica "
+                        "whose prefix cache holds the prompt's leading "
+                        "blocks, falling back to least-blocks)")
+    parser.add_argument("--autoscale", action="store_true",
+                        help="fleet mode: run the FleetAutoscaler over the "
+                        "replica set (hysteresis + cooldown; scale-down is "
+                        "always drain-based) between --fleet-min and "
+                        "--fleet-max replicas; --fleet sizes the starting set")
+    parser.add_argument("--fleet-min", type=int, default=1,
+                        help="autoscaler floor (replicas)")
+    parser.add_argument("--fleet-max", type=int, default=0,
+                        help="autoscaler ceiling (0 = the --fleet value)")
+    parser.add_argument("--fleet-config", default="",
+                        help="YAML with a `fleet:` section (see example/"
+                        "config/design/fleet.yaml) providing fleet/"
+                        "disaggregation/autoscaler knobs; explicit fleet "
+                        "flags override it")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # not yet ported: refused when given
-    parser.add_argument("--fleet", type=int, default=None)
-    parser.add_argument("--disaggregate", action="store_const", const=True,
-                        default=None)
-    parser.add_argument("--prefill-replicas", type=int, default=None)
-    parser.add_argument("--route-policy", default=None)
-    parser.add_argument("--autoscale", action="store_const", const=True,
-                        default=None)
-    parser.add_argument("--fleet-min", type=int, default=None)
-    parser.add_argument("--fleet-max", type=int, default=None)
-    parser.add_argument("--fleet-config", default=None)
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
     _reject_unported(parser, args)
+    common.init_all(logging.DEBUG if args.verbose else logging.INFO)
+    fleet_cfg = _merge_fleet_config(parser, args)
+    if args.fleet > 0 and args.disaggregate and not 0 < args.prefill_replicas < args.fleet:
+        parser.error(
+            f"--disaggregate needs 0 < --prefill-replicas "
+            f"{args.prefill_replicas} < --fleet {args.fleet} (at least "
+            f"one prefill and one decode replica)")
     if args.prefix_cache > 0:
         # synthetic prompts are system + up to 16 tokens: fail fast rather
         # than let a mid-run submit() raise
@@ -254,7 +391,6 @@ def main(argv=None) -> int:
                 f"(16) + --max-new-tokens {args.max_new_tokens} = {worst} "
                 f"exceeds --max-len {args.max_len}")
 
-    common.init_all(logging.DEBUG if args.verbose else logging.INFO)
     from hivedscheduler_tpu_torch.obs import journal as obs_journal
     from hivedscheduler_tpu_torch.obs import slo as obs_slo
     from hivedscheduler_tpu_torch.obs import trace as obs_trace
@@ -334,26 +470,68 @@ def main(argv=None) -> int:
             device), dft_cfg.dtype)
         spec_cfg = SpecDecodeConfig(draft_params=dft_params, draft_cfg=dft_cfg,
                                     gamma=args.gamma)
+    kw = dict(
+        max_batch=args.max_batch, max_len=args.max_len,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        eos_id=None if args.eos_id < 0 else args.eos_id, seed=args.seed,
+        prefix_cache_size=args.prefix_cache, prefill_chunk=args.prefill_chunk,
+        kv_dtype=None if args.kv_quantize == "none" else args.kv_quantize,
+        queue_timeout_s=args.queue_timeout if args.queue_timeout > 0 else None,
+        age_boost_secs=args.age_boost_secs if args.age_boost_secs > 0 else None,
+        decode_steps=args.decode_steps, page_size=args.page_size,
+        num_blocks=args.num_blocks)
+
+    def build_engine():
+        # every replica shares the one set of params
+        return serving.ServingEngine(params, cfg, spec_decode=spec_cfg, **kw)
+
+    slo_tracker = obs_slo.SLOTracker(
+        objectives=obs_slo.objectives_from_knobs(
+            ttft_p99_s=args.slo_ttft_p99,
+            tpot_p95_s=fleet_cfg.slo_tpot_p95_s if fleet_cfg else 0.0,
+            per_priority_ttft_p99=(fleet_cfg.slo_ttft_p99_by_priority
+                                   if fleet_cfg else None)),
+        window_s=None if args.slo_window_s < 0 else args.slo_window_s)
+    router = autoscaler = None
     try:
-        eng = serving.ServingEngine(
-            params, cfg, max_batch=args.max_batch, max_len=args.max_len,
-            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-            eos_id=None if args.eos_id < 0 else args.eos_id, seed=args.seed,
-            prefix_cache_size=args.prefix_cache, prefill_chunk=args.prefill_chunk,
-            kv_dtype=None if args.kv_quantize == "none" else args.kv_quantize,
-            queue_timeout_s=args.queue_timeout if args.queue_timeout > 0 else None,
-            age_boost_secs=args.age_boost_secs if args.age_boost_secs > 0 else None,
-            decode_steps=args.decode_steps, page_size=args.page_size,
-            num_blocks=args.num_blocks, spec_decode=spec_cfg)
+        if args.fleet > 0:
+            from hivedscheduler_tpu_torch import fleet as fleet_pkg
+
+            router = fleet_pkg.FleetRouter(policy=args.route_policy,
+                                           disaggregate=args.disaggregate,
+                                           slo=slo_tracker)
+            if args.disaggregate and router.kv_ship and kw["prefix_cache_size"] == 0:
+                # the handoff payload travels through the prefix cache
+                kw["prefix_cache_size"] = 8
+                log.info("fleet: --disaggregate with KV shipping needs a "
+                         "prefix cache; defaulting to 8 entries/replica")
+            for i in range(args.fleet):
+                role = "serve"
+                if args.disaggregate:
+                    role = "prefill" if i < args.prefill_replicas else "decode"
+                router.add_replica(f"r{i}-{role}", build_engine(), role=role)
+            fleet_pkg.publish(router)
+            if args.autoscale:
+                seq = [0]
+
+                def factory(role):
+                    seq[0] += 1
+                    return f"auto{seq[0]}-{role}", build_engine()
+
+                autoscaler = fleet_pkg.FleetAutoscaler(
+                    router, fleet_pkg.LocalScaleBackend(factory),
+                    fleet_pkg.AutoscalePolicy(
+                        min_replicas=args.fleet_min,
+                        max_replicas=args.fleet_max or args.fleet))
+        else:
+            eng = build_engine()
+            if args.journal_file or obs_journal.JOURNAL.enabled:
+                # single-engine flights: serve/<rid> legs and terminal in the
+                # journal (the fleet's router opens fleet/<fid> flights)
+                eng.record_flights = True
     except ValueError as e:
         log.error("%s", e)
         return 1
-    if args.journal_file or obs_journal.JOURNAL.enabled:
-        # single-engine flights: serve/<rid> legs and terminal in the journal
-        eng.record_flights = True
-    slo_tracker = obs_slo.SLOTracker(
-        objectives=obs_slo.objectives_from_knobs(ttft_p99_s=args.slo_ttft_p99),
-        window_s=None if args.slo_window_s < 0 else args.slo_window_s)
     system_len = args.system_prompt_len if args.prefix_cache > 0 else 0
     pending = synthetic_trace(args.seed + 1, args.requests, cfg.vocab_size,
                               args.max_new_tokens, system_len)
@@ -361,6 +539,9 @@ def main(argv=None) -> int:
     def prio_of(i: int) -> int:
         hp = args.high_priority_every
         return 10 if hp > 0 and (i + 1) % hp == 0 else 0
+
+    if router is not None:
+        return _run_fleet(args, router, autoscaler, pending, prio_of)
 
     # graceful preemption: SIGTERM/SIGINT request a drain instead of dying
     # mid-decode; HIVED_FAULT_SERVE_PREEMPT_AT triggers the same path
@@ -463,14 +644,7 @@ def main(argv=None) -> int:
                  eng.blocks_in_use, eng.num_blocks - 1, eng.prefix_block_hits,
                  eng.blocks_cow, eng.pool_preempted)
     if args.metrics_dump:
-        from hivedscheduler_tpu_torch.runtime.metrics import REGISTRY
-
-        with open(args.metrics_dump, "w") as f:
-            f.write(REGISTRY.render())
-        trace_path = args.metrics_dump + ".trace.json"
-        obs_trace.write_chrome_trace(trace_path)
-        log.info("metrics exposition -> %s; Chrome trace -> %s "
-                 "(open in https://ui.perfetto.dev)", args.metrics_dump, trace_path)
+        _write_metrics_dump(args.metrics_dump)
     return 0
 
 

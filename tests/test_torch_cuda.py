@@ -24,8 +24,9 @@ greedy generate, and the generate CLI prints its rows. The serving engine
 on the card (bf16) serves the same streams dense and paged, eager and
 through its CUDA-graph decode window, greedy and sampled, int8 KV dense
 and paged; its graph refuses a rebound cache; the metrics registry counts
-one fused window a window the graph replays; the serve CLI prints its
-request lines. K1-K3 hold at the local shapes a tp=2 shard of the
+one fused window a window the graph replays; a prefix imported into a
+graph-warmed engine keeps the pool's addresses and the next window
+replays without a new capture; the serve CLI prints its request lines. K1-K3 hold at the local shapes a tp=2 shard of the
 flagship launches, and a train step on a one-GPU NCCL mesh (DTensor
 state) equals the single-device step. K1-K3's f32 forms (the ring's hops)
 hold to their plain versions at hop shapes and, rounded once to bf16,
@@ -630,6 +631,42 @@ def test_graph_windows_count_once_a_window_on_card(cuda):
     _, eng = _serve_streams(params, cfg, prompts, page_size=8, decode_steps=4)
     assert eng.graph_windows == eng.fused_windows > 1
     assert REGISTRY._counters[name] - before == eng.fused_windows
+
+
+def test_import_prefix_keeps_the_graph_on_card(cuda, monkeypatch):
+    # the fleet's KV handoff writes a graph-warmed engine's pool in place:
+    # the pool's data pointers stay, the next window replays the captured
+    # graph (no new capture), and the imported prefix serves the stream the
+    # exporter serves from its own cached prefix
+    from hivedscheduler_tpu_torch.chaos import invariants as tinv
+    from hivedscheduler_tpu_torch.common import compileguard
+    from hivedscheduler_tpu_torch.models import serving as tsrv
+
+    monkeypatch.setenv("HIVED_COMPILE_GUARD", "1")
+    compileguard.reset()
+    cfg, params, prompts = _serve_setup("cuda")
+    kw = dict(max_batch=3, max_len=48, page_size=8, decode_steps=4, prefix_cache_size=4)
+    src = tsrv.ServingEngine(params, cfg, **kw)
+    dst = tsrv.ServingEngine(params, cfg, **kw)
+    prompt = list(range(1, 20))
+    src.submit(prompt, 9)
+    src.run_until_drained()
+    local = src.submit(prompt, 9)  # a hit on src's own 16-token prefix
+    src.run_until_drained()
+    dst.submit(prompts[0], 9)
+    dst.run_until_drained()  # captures dst's decode graph
+    assert dst.graph_windows >= 1 and compileguard.counts() == {"serve.decode_window": 2}
+    pointers = [t.data_ptr() for t in tsrv._kv_tensors(dst.pool)]
+    windows = dst.graph_windows
+    with compileguard.budget(0):
+        assert dst.import_prefix(*src.export_prefix(prompt)) is True
+        assert [t.data_ptr() for t in tsrv._kv_tensors(dst.pool)] == pointers
+        req = dst.submit(prompt, 9)
+        dst.run_until_drained()
+    assert dst.prefix_hits == 1 and dst.graph_windows > windows
+    assert src.prefix_hits == 1 and req.tokens_out == local.tokens_out
+    tinv.check_block_pool(dst)
+    compileguard.reset()
 
 
 def test_serve_cli_on_card(cuda, capsys):

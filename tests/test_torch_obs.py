@@ -118,7 +118,10 @@ def test_described_families_are_the_references():
         "tpu_hive_watchdog_stalls_total", "tpu_hive_gang_wait_seconds",
         "tpu_hive_request_leg_seconds", "tpu_hive_slo_violations_total",
         "tpu_hive_slo_ttft_p99_seconds", "tpu_hive_slo_burn_rate",
-        "tpu_hive_goodput_seconds_total"}
+        "tpu_hive_goodput_seconds_total", "tpu_hive_fleet_requests_total",
+        "tpu_hive_fleet_retries_total", "tpu_hive_fleet_handoffs_total",
+        "tpu_hive_fleet_prefix_affinity_hits_total", "tpu_hive_fleet_replicas",
+        "tpu_hive_fleet_target_replicas", "tpu_hive_fleet_scale_events_total"}
     assert set(port) == emitted
 
 

@@ -5,8 +5,8 @@ equal a ``ServingEngine`` run on the same seeded weights, trace and
 arrivals, token for token, and the dense, paged and fused-window runs of
 one trace print the same streams. The summary lines are checked by their
 content (tokens/s, fused windows, prefix hits, the paged pool, the
-speculative acceptance), the preempt-at fault drains and exits 0, every
-flag of a path not yet ported exits non-zero, and ``--device cuda``
+speculative acceptance), the preempt-at fault drains and exits 0,
+``--tp/--dp`` above 1 (not yet ported) exit non-zero, and ``--device cuda``
 without a card raises. ``--spec-decode`` serves the speculative engine's
 streams with the CLI's draft, and ``--lora-rank`` a LoRA run's merged
 model, each equal to the library run on the same weights.
@@ -154,14 +154,12 @@ def test_cli_preempt_at_drains_and_exits_zero(capsys, log_lines, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fleet", "2"], ["--disaggregate"], ["--prefill-replicas", "1"],
-    ["--route-policy", "prefix_affinity"], ["--autoscale"], ["--fleet-min", "1"],
-    ["--fleet-max", "2"], ["--fleet-config", "x.yaml"], ["--tp", "2"], ["--dp", "2"],
+    ["--tp", "2"], ["--dp", "2"],
     # MoE, LoRA and speculative serving run; none of them on a --tp/--dp
-    # mesh or in the fleet yet
+    # mesh yet
     ["--spec-decode", "--tp", "2"], ["--draft-layers", "1", "--dp", "2"],
-    ["--gamma", "4", "--spec-decode", "--fleet", "2"], ["--n-experts", "4", "--tp", "2"],
-    ["--lora-rank", "4", "--tp", "2"],
+    ["--n-experts", "4", "--tp", "2"], ["--lora-rank", "4", "--tp", "2"],
+    ["--fleet", "2", "--tp", "2"],
 ])
 def test_cli_refuses_unported_flags(capsys, flag):
     with pytest.raises(SystemExit) as exc:

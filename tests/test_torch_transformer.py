@@ -291,7 +291,8 @@ PORT_COPIES = ("common/envflags.py", "parallel/topology.py",
                "parallel/checkpoint.py", "parallel/supervisor.py",
                "obs/goodput.py", "chaos/workload.py", "train.py", "eval.py",
                "models/decode.py", "models/quant.py", "models/speculative.py",
-               "generate.py", "parallel/ring_attention.py")
+               "generate.py", "parallel/ring_attention.py", "fleet/__init__.py",
+               "fleet/router.py", "fleet/autoscaler.py", "common/compileguard.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
