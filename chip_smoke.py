@@ -259,6 +259,33 @@ Phases, each of which must pass or the script exits non-zero:
     request with two live attempts) caught; and tokens/s, TTFT and TPOT of
     the single engine and the ship and re-prefill fleets in turns.
 
+(u) elastic training and the serving mesh on the one card: ``train
+    --elastic --min-chips 1 --tp 2 --fsdp 2`` at (h)'s shape (2 layers, 3
+    steps) in turns with the run without the flags: the warning names the
+    derived one-card mesh, K1-K3 launch, the losses are bit for bit the
+    plain run's, step ms of both; ``--min-chips 2`` exits with the floor
+    message and leaves the card's allocation as it was. A 2-rank gloo
+    gang on the machine's CPU trains the elastic harness's tiny model to a
+    dp = 2 commit; ``train --elastic --device cuda`` resumes it on the card
+    (the journal's ``train_resume`` has ``crossTopology`` true, the
+    cross-topology counter reads 1, the new commit records dp 1 and the
+    elastic metadata, the restore seconds from the goodput spool), its
+    losses within the harness's 0.02 of an uninterrupted 2-rank CPU run,
+    and a planted resume that skips a step is caught. ``generate`` and
+    ``serve`` as subprocesses placed in a one-GPU gang take the CLIs' mesh
+    branch at world 1 and print what they print alone (tp or dp above 1
+    needs more GPUs: the CPU gangs of the tests hold it). The decode
+    step of a tp = 2 rank's shard of the flagship (8 heads, 4 kv heads,
+    d_ff / 2, vocab / 2; no all-reduce or gather: one card) in turns with
+    the whole model at (j)'s B 16, eager and as a CUDA-graph replay. On a world-1 NCCL serving mesh:
+    ``make_sharded_generate`` equals ``generate`` at (j)'s shape;
+    ``ServingEngine(mesh=)`` on (k)'s trace, dense and paged graph
+    windows, serves the mesh-less engine's streams, replays its windows
+    and captures nothing new under ``compileguard.budget(0)`` once warm;
+    planted faults (two vocab shards swapped in the logits gather, the dp
+    rows gathered out of order) are caught; tokens/s and TPOT p50 of the
+    mesh and mesh-less engines in turns.
+
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and
@@ -2786,7 +2813,7 @@ MOE_EVAL_ARGS = EVAL_ARGS + MOE_FLAGS
 # PERF.md before the first reading
 MOE_OUT_REL = 3e-2
 MOE_ROUTE_AGREE = 0.9  # least share of tokens whose top-2 set agrees
-MOE_TURNS = 3  # rounds of (dense, moe, moe, dense) timed steps
+MOE_TURNS = 2  # rounds of (dense, moe, moe, dense) timed steps
 MOE_DEC_TIMED = 2  # timed generate runs of each weight format
 # kernel-name fragments of the routing and dispatch (sort for the top-2,
 # scan for the slot positions, scatter for the one-hot and the combine);
@@ -5099,6 +5126,490 @@ def phase_fleet(srv: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase (u): elastic training and the serving mesh on the one card. The
+# elastic run is (h)'s step at 2 layers: the CLI asked for tp 2 x fsdp 2
+# derives the one-card mesh
+ELASTIC_ARGS = CKPT_ARGS + ["--n-layers", "2", "--steps", str(TRAIN_STEPS)]
+ELASTIC_FLAGS = ["--elastic", "--min-chips", "1", "--tp", "2", "--fsdp", "2"]
+# the cross-device resume: the harness's tiny model trains 2 steps on a
+# 2-rank gloo gang on the machine's CPU, then resumes on the card to 4,
+# held to an uninterrupted 2-rank CPU run within JAX's LOSS_ATOL
+XRESUME_SPLIT, XRESUME_STEPS = 2, 4
+# the world-1 serving mesh: rounds of (plain, mesh, mesh, plain) timed runs
+MESH_SRV_TURNS = 2
+
+
+class _TpLocal:
+    """The collectives of a tp = 2 rank with the all-reduce and the logits
+    gather left out, so that the decode step times one rank's own work."""
+
+    tp, dp = 2, 1
+
+    @staticmethod
+    def tp_sum(x):
+        return x
+
+    @staticmethod
+    def vocab_gather(x):
+        return x
+
+    @staticmethod
+    def gather_rows(x):
+        return x
+
+
+def _elastic_train(tmp: str) -> dict:
+    """1: train --elastic at (h)'s shape in turns with the plain run
+    (plain, elastic, elastic, plain): the derived mesh in its warning,
+    K1-K3 launched, losses bit for bit those of the run without
+    --elastic, the step times; then the floor."""
+    import torch
+
+    from hivedscheduler_tpu_torch import train as port_train
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    warnings = []
+
+    class Warn(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                warnings.append(record.getMessage())
+
+    handler = Warn()
+    logging.getLogger(port_train.__name__).addHandler(handler)
+    losses, walls, launches = {"plain": [], "elastic": []}, {"plain": [], "elastic": []}, []
+    try:
+        for i, name in enumerate(("plain", "elastic", "elastic", "plain")):
+            _zero_launches(attn)
+            flags = ELASTIC_FLAGS if name == "elastic" else []
+            losses[name].append(_train_main(tmp, f"u-{name}-{i}", "--n-layers", "2",
+                                            "--steps", str(TRAIN_STEPS), *flags))
+            if name == "elastic":
+                launches.append(_count_launches(attn))
+            with open(os.path.join(tmp, f"u-{name}-{i}.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            # the steps after the first, which warms up
+            walls[name].append(1e3 * sum(r["wall_s"] for r in recs[1:]) / (len(recs) - 1))
+    finally:
+        logging.getLogger(port_train.__name__).removeHandler(handler)
+    derived = [w for w in warnings if w.startswith("elastic: requested")]
+    print(f"[u] train {' '.join(ELASTIC_FLAGS)} at (h)'s shape, 2 layers: warnings "
+          f"{derived[:1]} (x{len(derived)}); K1/K2/K3 launches "
+          f"{[(n['fwd'], n['dq'], n['dkv']) for n in launches]}; losses {losses['elastic'][0]} "
+          f"vs without --elastic {losses['plain'][0]}; step ms in turns ({card_line()}): "
+          f"plain {', '.join(f'{v:.2f}' for v in walls['plain'])}, elastic "
+          f"{', '.join(f'{v:.2f}' for v in walls['elastic'])}")
+    check(len(derived) == 2 and all(
+        w.endswith("derived mesh MeshAxes(dp=1, fsdp=1, pp=1, ep=1, tp=1, sp=1)")
+        for w in derived), f"[u] derived-mesh warnings {derived}")
+    check(all(min(n["fwd"], n["dq"], n["dkv"]) > 0 for n in launches),
+          f"[u] the elastic step launched {launches}")
+    check(all(run == losses["plain"][0] for run in losses["plain"] + losses["elastic"]),
+          "[u] elastic losses differ from the run without --elastic")
+
+    # the floor: exits before any weight reaches the card
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        port_train.main(ELASTIC_ARGS + ["--elastic", "--min-chips", "2"])
+        floor = None
+    except SystemExit as err:
+        floor = str(err.code)
+    after = torch.cuda.memory_allocated()
+    print(f"[u] --elastic --min-chips 2 on one card: {floor!r}; device bytes "
+          f"allocated {before} -> {after}")
+    check(floor == "elastic job floor not met: offered 1 chip(s), --min-chips 2",
+          f"[u] floor: {floor!r}")
+    check(after == before, "[u] the floor exit left weights on the card")
+    return {"elastic_ms": walls["elastic"], "plain_ms": walls["plain"]}
+
+
+def _start_cpu_gangs(tmp: str) -> dict:
+    """2a: the elastic harness's tiny model on two 2-rank gloo gangs on the
+    machine's CPU, started now and awaited by :func:`_cross_device_resume`:
+    one commits a dp = 2 checkpoint at step 2, the other runs
+    uninterrupted to step 4."""
+    from hivedscheduler_tpu_torch.chaos import workload as chaos
+
+    h = chaos.ElasticWorkloadHarness(0, tmp)
+    ck, ref_ck = os.path.join(tmp, "x-ck"), os.path.join(tmp, "x-ref-ck")
+    ref_tl = os.path.join(tmp, "x-ref.jsonl")
+    gangs = [h.spawn(ck, os.path.join(tmp, "x-cpu.jsonl"), 2, paced=False,
+                     steps=XRESUME_SPLIT),
+             h.spawn(ref_ck, ref_tl, 2, paced=False, steps=XRESUME_STEPS)]
+    return dict(harness=h, gangs=gangs, ck=ck, ref_tl=ref_tl)
+
+
+def _cross_device_resume(tmp: str, started: dict) -> dict:
+    """2b: the CPU gang's dp = 2 checkpoint resumed by train --elastic on
+    the card: crossTopology in the journal, the cross-topology counter, the
+    new commit's mesh, losses within LOSS_ATOL of the uninterrupted 2-rank
+    CPU run, and a planted resume that skips a step caught."""
+    from hivedscheduler_tpu_torch import train as port_train
+    from hivedscheduler_tpu_torch.chaos import workload as chaos
+    from hivedscheduler_tpu_torch.obs import goodput, journal
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+
+    h, ck, ref_tl = started["harness"], started["ck"], started["ref_tl"]
+    rcs = [h.wait(g, name) for g, name in zip(started["gangs"],
+                                              ("cpu gang", "reference gang"))]
+    check(rcs == [0, 0], f"[u] the CPU gangs exited {rcs}: {h.violations}")
+    saved = ckpt.read_metadata(ck)
+    bad_ck = os.path.join(tmp, "x-bad-ck")
+    shutil.copytree(ck, bad_ck)
+
+    def on_card(ckdir, name, *extra):
+        tl = os.path.join(tmp, f"{name}.jsonl")
+        args = h.train_args(ckdir, tl, steps=XRESUME_STEPS)
+        args[args.index("--device") + 1] = "cuda"
+        rc = port_train.main(args + list(extra))
+        check(rc == 0, f"[u] {name} exited {rc}")
+        return chaos.read_timeline(tl)
+
+    jf, gp = os.path.join(tmp, "x-journal.jsonl"), os.path.join(tmp, "x-goodput.jsonl")
+    _obs_off()
+    counts0 = _registry_counts()
+    got = on_card(ck, "x-card", "--journal-file", jf, "--goodput-file", gp)
+    counts = _registry_counts()
+    _close_goodput()
+    journal.disable()
+    journal.JOURNAL.clear()
+    with open(jf) as f:
+        resumes = [e for e in map(json.loads, f) if e["type"] == "train_resume"]
+    restore_s = goodput.aggregate_spool(goodput.read_spool(gp))["phases"].get(
+        "checkpoint_restore", 0.0)
+    key = ("tpu_hive_train_cross_topology_resumes_total", ())
+    cross = counts.get(key, 0) - counts0.get(key, 0)
+    after = ckpt.read_metadata(ck)
+    ref = chaos.read_timeline(ref_tl)
+    err = max(abs(got[s] - ref[s]) for s in got)
+
+    orig = data_lib.CheckpointableBatches.__dict__["from_dict"]
+
+    def skipping(*a, **kw):
+        loader = orig.__get__(None, data_lib.CheckpointableBatches)(*a, **kw)
+        loader.skip(1)  # planted: the resume skips one step of data
+        return loader
+
+    data_lib.CheckpointableBatches.from_dict = staticmethod(skipping)
+    try:
+        bad = on_card(bad_ck, "x-card-skip")
+    finally:
+        data_lib.CheckpointableBatches.from_dict = orig
+    bad_err = max(abs(bad[s] - ref[s]) for s in bad)
+    print(f"[u] cross-device resume: a 2-rank gloo gang on the CPU committed step "
+          f"{XRESUME_SPLIT} on mesh {saved['mesh']}; train --elastic --device cuda resumed "
+          f"it to step {XRESUME_STEPS}: train_resume {[e['args'] for e in resumes]}, "
+          f"cross-topology resumes counted {cross}, new commit mesh {after['mesh']}, "
+          f"restore {restore_s:.3f} s; losses {got} vs the uninterrupted 2-rank CPU run "
+          f"{ref}: max |diff| {err:.3e} (limit {chaos.ElasticWorkloadHarness.LOSS_ATOL}); "
+          f"planted resume that skips a step: max |diff| {bad_err:.3e}")
+    check(saved["mesh"]["dp"] == 2, f"[u] the gang committed mesh {saved['mesh']}")
+    check(len(resumes) == 1 and resumes[0]["args"]["crossTopology"] is True
+          and resumes[0]["args"]["step"] == XRESUME_SPLIT, f"[u] resume events {resumes}")
+    check(cross == 1, f"[u] cross-topology resumes counted {cross}")
+    check(after["mesh"]["dp"] == 1 and ckpt.latest_step(ck) == XRESUME_STEPS,
+          f"[u] the card's commit records {after['mesh']}")
+    check(after["elastic"] == {"min_chips": 1, "requested": dict(
+        tp=1, sp=1, fsdp=1, pp=1, ep=1)}, f"[u] elastic metadata {after['elastic']}")
+    check(sorted(got) == list(range(XRESUME_SPLIT + 1, XRESUME_STEPS + 1)),
+          f"[u] the card ran steps {sorted(got)}")
+    check(err <= chaos.ElasticWorkloadHarness.LOSS_ATOL,
+          f"[u] resumed losses {err:.3e} off the reference")
+    check(bad_err > chaos.ElasticWorkloadHarness.LOSS_ATOL,
+          "[u] the loss check does not see a resume that skips a step")
+    return {"restore_s": restore_s}
+
+
+def _mesh_engines(mesh) -> dict:
+    """3: ServingEngine(mesh=) at world 1 on (k)'s trace: streams equal
+    the mesh-less engine's, dense and paged graph windows captured and
+    replayed, no new capture once warm; planted vocab-shard and dp-row
+    faults caught; tokens/s and TPOT p50 in turns with the mesh-less
+    engine."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.common import compileguard
+    from hivedscheduler_tpu_torch.models import serving as srv
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **EVAL_MODEL)
+    params = tm.cast_params(tm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    prompts = _srv_prompts(cfg.vocab_size, SRV_REQUESTS, seed=2)
+    # fresh prompts of the same lengths, served once the engines are warm
+    rng = np.random.default_rng(21)
+    fresh = [[int(t) for t in rng.integers(0, cfg.vocab_size, len(p))] for p in prompts]
+
+    def engine(with_mesh, **kw):
+        kw = dict(dict(max_batch=SRV_BATCH, max_len=SRV_MAX_LEN), **kw)
+        return srv.ServingEngine(params, cfg, mesh=mesh if with_mesh else None, **kw)
+
+    old = os.environ.get("HIVED_COMPILE_GUARD")
+    os.environ["HIVED_COMPILE_GUARD"] = "1"
+    engines, refs, lines = {}, {}, []
+    try:
+        for name in ("dense graph", "paged graph"):
+            kw = SRV_RUNS[name]
+            compileguard.reset()
+            plain = engine(False, **kw)
+            meshed = engine(True, **kw)
+            ref = _streams(_serve(plain, prompts, SRV_BUDGET))
+            got = _streams(_serve(meshed, prompts, SRV_BUDGET))
+            warm = compileguard.counts()
+            with compileguard.budget(0):
+                ref2 = _streams(_serve(plain, fresh, SRV_BUDGET))
+                got2 = _streams(_serve(meshed, fresh, SRV_BUDGET))
+            new = compileguard.total() - sum(warm.values())
+            differ = sum(a != b for a, b in zip(got + got2, ref + ref2))
+            lines.append(f"{name}: requests whose stream differs from the mesh-less "
+                         f"engine's {differ} of {2 * len(prompts)}; windows through the "
+                         f"graph {meshed.graph_windows}/{meshed.fused_windows}; warm-up "
+                         f"captures {warm}, new captures once warm {new}")
+            check(differ == 0, f"[u] {name}: mesh streams differ from the mesh-less engine's")
+            check(meshed.graph_windows == meshed.fused_windows > 0,
+                  f"[u] {name}: the mesh engine's windows bypassed the graph")
+            check(warm.get("serve.decode_window", 0) == 2 and new == 0,
+                  f"[u] {name}: captures {warm}, {new} new once warm")
+            engines[name] = (plain, meshed)
+            refs[name] = ref
+    finally:
+        if old is None:
+            os.environ.pop("HIVED_COMPILE_GUARD", None)
+        else:
+            os.environ["HIVED_COMPILE_GUARD"] = old
+        compileguard.reset()
+    print("[u] world-1 serving mesh (NCCL) on (k)'s trace: " + "; ".join(lines))
+
+    # planted faults on the eager mesh engine: two vocab shards swapped in
+    # the logits gather, and the dp rows gathered in the wrong order; the
+    # reference is the mesh-less dense graph run's streams ((k): eager and
+    # graph streams are token-identical)
+    ref = refs["dense graph"]
+    planted = {}
+    for fault, attr, fn in (
+            ("vocab shards swapped", "vocab_gather",
+             lambda self, x: torch.cat(x.chunk(2, -1)[::-1], -1)),
+            ("dp rows to the wrong rank", "gather_rows",
+             lambda self, x: torch.roll(x, 1, 0))):
+        orig = getattr(sharding.ServingShards, attr)
+        setattr(sharding.ServingShards, attr, fn)
+        try:
+            bad = _streams(_serve(engine(True), prompts, SRV_BUDGET))
+        finally:
+            setattr(sharding.ServingShards, attr, orig)
+        planted[fault] = sum(a != b for a, b in zip(bad, ref))
+    print(f"[u] planted faults, requests whose stream differs: {planted}")
+    check(all(v > 0 for v in planted.values()), f"[u] a planted fault was missed {planted}")
+
+    # tokens/s and TPOT p50 of the dense graph engines in turns
+    plain, meshed = engines["dense graph"]
+    stats = {"plain": [], "mesh": []}
+    for _ in range(MESH_SRV_TURNS):
+        for name, eng in (("plain", plain), ("mesh", meshed), ("mesh", meshed),
+                          ("plain", plain)):
+            stats[name].append(_serve_stats(_serve(eng, prompts, SRV_BUDGET), SRV_BATCH))
+    out = {name: dict(tps=[s["tps"] for s in runs], tpot=[s["tpot_p50"] for s in runs])
+           for name, runs in stats.items()}
+    print(f"[u] dense graph engine (decode_steps {SRV_STEPS}) in turns, {card_line()}: "
+          + "; ".join(f"{name}: tokens/s {', '.join(f'{v:.1f}' for v in o['tps'])}, TPOT "
+                      f"p50 ms {', '.join(f'{v:.3f}' for v in o['tpot'])}"
+                      for name, o in out.items()))
+    del engines, plain, meshed, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_generate(mesh) -> None:
+    """4: make_sharded_generate at world 1 equals generate at (j)'s shape."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import decode as dec
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW, **EVAL_MODEL)
+    params = tm.cast_params(tm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    run, layout, rows = dec.make_sharded_generate(cfg, mesh, DEC_NEW)
+    got = run(layout(params), rows(prompt))
+    want = dec.generate(params, prompt, cfg, DEC_NEW)
+    print(f"[u] make_sharded_generate at world 1 (B {DEC_BATCH}, prompt {DEC_PROMPT}, "
+          f"{DEC_NEW} new): equal to generate: {bool(torch.equal(got, want))}")
+    check(torch.equal(got, want), "[u] make_sharded_generate differs from generate")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _tp_local_decode() -> dict:
+    """5: the decode step of a tp = 2 rank's shard of the flagship (8
+    heads, 4 kv heads, d_ff / 2, vocab / 2) in turns with the whole model,
+    B 16 at (j)'s context, eager and as a CUDA-graph replay; the
+    all-reduce and the logits gather are not issued (one card)."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import decode as dec
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW, **EVAL_MODEL)
+    params = tm.cast_params(tm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+    specs = tm.sharding_specs(cfg)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        return sharding._local_leaf(node, spec, {"tp": 2}, {"tp": 0})
+
+    local = walk(params, specs)
+    prompt = torch.randint(0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    tok = prompt[:, -1:]
+    caches = {}
+    for name, p, kv, shards in (("full", params, None, None),
+                                ("tp-local", local, cfg.kv_heads // 2, _TpLocal())):
+        cache = dec.init_kv_cache(cfg, DEC_BATCH, DEC_PROMPT + DEC_NEW, "cuda", kv)
+        _, cache = dec.advance(p, cache, prompt, cfg, shards)
+        caches[name] = (p, cache, shards)
+
+    def step(name):
+        p, cache, shards = caches[name]
+        # one token at the prompt's end, rewritten in place each call
+        return dec.advance(p, dec.KVCache(cache.k, cache.v, DEC_PROMPT), tok, cfg, shards)
+
+    def graphed(name):
+        # the step captured once, so that a replay times the device's work
+        # without the eager step's host dispatch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(name)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step(name)
+        return graph
+
+    graphs = {name: graphed(name) for name in caches}
+    ms = {"full": [], "tp-local": []}
+    graph_ms = {"full": [], "tp-local": []}
+    for _ in range(2):
+        for name in ("full", "tp-local", "tp-local", "full"):
+            ms[name].append(time_ms(lambda: step(name), 20))
+            graph_ms[name].append(time_ms(graphs[name].replay, 50))
+
+    def line(d):
+        return "; ".join(f"{name} {', '.join(f'{v:.3f}' for v in vals)} ms"
+                         for name, vals in d.items())
+
+    print(f"[u] decode step, B {DEC_BATCH} at position {DEC_PROMPT}, the whole model "
+          f"against a tp = 2 rank's shard (8 heads, 4 kv heads, d_ff {cfg.d_ff // 2}, vocab "
+          f"{cfg.vocab_size // 2}) in turns ({card_line()}): eager {line(ms)} (best ratio "
+          f"{min(ms['tp-local']) / min(ms['full']):.3f}); CUDA-graph replay "
+          f"{line(graph_ms)} (best ratio "
+          f"{min(graph_ms['tp-local']) / min(graph_ms['full']):.3f}); the all-reduce and the "
+          f"logits gather are not measured (one card)")
+    del graphs, caches, params, local
+    torch.cuda.empty_cache()
+    return {"eager": ms, "graph": graph_ms}
+
+
+def _mesh_clis() -> None:
+    """6: generate and serve as subprocesses, each twice: placed in a
+    one-GPU gang (the scheduler's handoff in the environment), which takes
+    the CLIs' mesh branch at world 1 (the gang's NCCL group, the
+    ``("dp", "tp")`` mesh, rank-0 printing, the serve loop's agreed
+    step), and alone, which does not. Both exit 0 and print the same
+    tokens. The mesh branch at tp or dp above 1 needs more than one GPU:
+    it is held on CPU gangs by the tests."""
+    from hivedscheduler_tpu_torch.chaos import workload as chaos
+
+    small = [a for k, v in dict(EVAL_MODEL, n_layers=2).items()
+             for a in (f"--{k.replace('_', '-')}", str(v))] + ["--device", "cuda"]
+    cmds = {
+        "generate": small + ["--batch", "2", "--prompt-len", "16", "--new-tokens", "8"],
+        "serve": small + ["--requests", "4", "--max-batch", "2", "--max-len", "64",
+                          "--max-new-tokens", "8"],
+    }
+    alone = {k: v for k, v in os.environ.items() if k not in chaos._GANG_VARS}
+    gang = dict(alone, **chaos.gang_env(1, 0))
+    procs = {(name, how): subprocess.Popen(
+        [sys.executable, "-m", f"hivedscheduler_tpu_torch.{name}"] + argv, cwd=REPO,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, argv in cmds.items() for how, env in (("gang", gang), ("alone", alone))}
+    outs = {}
+    try:
+        for (name, how), p in procs.items():
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0,
+                  f"[u] {name} ({how}) exited {p.returncode}: {err[-2000:]}")
+            meshed = "serving mesh dp=1 tp=1: rank 0 of 1" in err
+            check(meshed == (how == "gang"),
+                  f"[u] {name} ({how}) took the mesh branch: {meshed}")
+            outs[name, how] = out
+    finally:
+        _stop(procs.values())
+    for name in cmds:
+        rows = len(outs[name, "gang"].splitlines())
+        check(rows > 0 and outs[name, "gang"] == outs[name, "alone"],
+              f"[u] {name} in a one-GPU gang printed other tokens than alone")
+        print(f"[u] {name} in a one-GPU gang (the mesh branch at world 1): exit 0, "
+              f"{rows} rows equal to the run alone")
+
+
+def phase_elastic_mesh() -> None:
+    """(u): elastic training through the CLI, a cross-topology and
+    cross-device resume, the serving mesh at world 1, sharded generate,
+    the tp-local decode step and the CLIs' mesh branch at world 1."""
+    from hivedscheduler_tpu_torch.parallel import topology
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    started = {}
+    try:
+        # the CPU gangs run beside the CLIs, which only report exit codes;
+        # every timed part runs with neither
+        parts = _timed_parts("[u]", [
+            ("elastic train", lambda: _elastic_train(tmp)),
+            ("tp-local decode", _tp_local_decode),
+            ("CLIs beside the CPU gangs",
+             lambda: (started.update(_start_cpu_gangs(tmp)), _mesh_clis())),
+            ("cross-device resume", lambda: _cross_device_resume(tmp, started)),
+        ])
+        with _world_1_gang():
+            mesh = topology.serving_mesh(1, 1, "cuda")
+            _mesh_generate(mesh)
+            srv = _mesh_engines(mesh)
+        train, decode_ms, resume = parts[0], parts[1], parts[3]
+        print(f"[u] numbers ({card_line()}): elastic step "
+              f"{', '.join(f'{v:.2f}' for v in train['elastic_ms'])} ms (without --elastic, "
+              f"in turns: {', '.join(f'{v:.2f}' for v in train['plain_ms'])} ms); "
+              f"cross-device restore "
+              f"{resume['restore_s']:.3f} s; world-1 mesh engine tokens/s "
+              f"{max(srv['mesh']['tps']):.1f} (mesh-less {max(srv['plain']['tps']):.1f}), "
+              f"TPOT p50 {min(srv['mesh']['tpot']):.3f} ms (mesh-less "
+              f"{min(srv['plain']['tpot']):.3f} ms); tp-local decode step eager "
+              f"{min(decode_ms['eager']['tp-local']):.3f} ms (full "
+              f"{min(decode_ms['eager']['full']):.3f} ms), graph "
+              f"{min(decode_ms['graph']['tp-local']):.3f} ms (full "
+              f"{min(decode_ms['graph']['full']):.3f} ms)")
+    finally:
+        _stop(p for gang in started.get("gangs", []) for p in gang)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _stop(procs) -> None:
+    """Kill and reap every process of ``procs`` still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
 def main() -> int:
     import torch
 
@@ -5141,6 +5652,7 @@ def main() -> int:
     gemma, gemma_f32 = phase_gemma()
     phase_obs()
     phase_fleet(srv)
+    phase_elastic_mesh()
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"

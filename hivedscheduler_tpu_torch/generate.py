@@ -1,4 +1,5 @@
-"""Generation CLI: KV-cache autoregressive decoding on one device.
+"""Generation CLI: KV-cache autoregressive decoding on one device or a
+serving mesh.
 
 Counterpart of ``hivedscheduler_tpu/generate.py``, with its flags and
 defaults and the same output, one line of space-separated token ids per
@@ -15,9 +16,18 @@ committed checkpoint of a ``train`` run; without it random weights from
 restores a LoRA fine-tune's checkpoint and merges its adapters into the
 base weights before decoding (and before ``--quantize int8``).
 A mixture-of-experts model (``--n-experts``, ``--moe-top-k``) decodes
-with the no-drop inference capacity. ``--tp/--dp`` above 1 (MoE on a
-mesh with them) are not yet ported and exit with an error rather than
-being ignored.
+with the no-drop inference capacity.
+
+``--tp``/``--dp`` above 1, or a process the scheduler placed in a gang
+(its handoff in the environment, as ``train`` reads it), decode on a
+``("dp", "tp")`` serving mesh, one process a GPU: the process group comes
+from the gang handoff and its ranks must be exactly dp x tp (one process
+asked for ``--tp 2`` is a usage error). Every rank builds the same
+weights and prompts from the seed, keeps its local leaves
+(``decode.make_sharded_generate``, or ``speculative.
+make_sharded_speculative`` with ``--draft-layers``; LoRA merged and int8
+quantized before the layout) and its dp block of rows; rank 0 alone prints
+the rows.
 """
 
 from __future__ import annotations
@@ -33,13 +43,6 @@ log = logging.getLogger(__name__)
 
 # the decode's timing line: rows, new tokens, seconds, generated tokens/s
 DECODE_LOG = "generated %s x %s tokens in %.3fs (%.1f tok/s)"
-
-
-def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
-    for flag in ("tp", "dp"):
-        if getattr(args, flag) > 1:
-            parser.error(f"--{flag} > 1 is not yet ported: the port serves "
-                         "on one device")
 
 
 def main(argv=None) -> int:
@@ -90,9 +93,9 @@ def main(argv=None) -> int:
                         help="weight-only int8 post-training quantization "
                         "(matmuls stay in the model dtype)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel serving (not yet ported)")
+                        help="tensor-parallel serving over a tp mesh axis")
     parser.add_argument("--dp", type=int, default=1,
-                        help="batch-parallel serving (not yet ported)")
+                        help="batch-parallel serving over a dp mesh axis")
     parser.add_argument("--draft-layers", type=int, default=0,
                         help="speculative decoding: layers of the draft model "
                         "(0 = off; demo uses random draft weights)")
@@ -107,17 +110,53 @@ def main(argv=None) -> int:
                         help="cuda (default) or cpu")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    _reject_unported(parser, args)
 
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
+    if args.tp < 1 or args.dp < 1:
+        log.error("--dp/--tp must be >= 1, got dp=%s tp=%s", args.dp, args.tp)
+        return 1
+    from hivedscheduler_tpu_torch.parallel import distributed
+
+    # a mesh when one is asked for or the scheduler placed this process in
+    # a gang (a gang of one GPU gives the world-1 mesh)
+    sharded = args.tp > 1 or args.dp > 1 or distributed.gang_from_env() is not None
+    if sharded and args.batch % args.dp:
+        log.error("--batch %s must be divisible by --dp %s", args.batch, args.dp)
+        return 1
     from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
 
     if args.goodput_file:
         obs_goodput.enable(spool_path=args.goodput_file)
+    if not sharded:
+        return _generate(args, None, 0)
+    from hivedscheduler_tpu_torch import resolve_device
+    from hivedscheduler_tpu_torch.parallel import topology
+
+    # the serving mesh over the gang's GPUs: one process a GPU
+    rank, world = distributed.initialize_from_gang(device=args.device)
+    try:
+        if rank:
+            logging.getLogger().setLevel(logging.WARNING)  # rank 0 logs
+        try:
+            mesh = topology.serving_mesh(args.dp, args.tp,
+                                         resolve_device(args.device).type)
+        except ValueError as err:
+            parser.error(str(err))
+        log.info("serving mesh dp=%s tp=%s: rank %s of %s", args.dp, args.tp,
+                 rank, world)
+        return _generate(args, mesh, rank)
+    finally:
+        distributed.shutdown()
+
+
+def _generate(args, mesh, rank: int) -> int:
+    """Decode the seeded prompts on one device (``mesh`` None) or as rank
+    ``rank`` of the serving mesh; rank 0 prints the rows."""
     import torch
 
     from hivedscheduler_tpu_torch import resolve_device
     from hivedscheduler_tpu_torch.models import decode, transformer as tm
+    from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
     from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
 
     device = resolve_device(args.device)
@@ -176,7 +215,7 @@ def main(argv=None) -> int:
                            generator=seeded(1), device=device)
     gen = seeded(2) if args.temperature > 0 else None
     sampling = dict(temperature=args.temperature, top_k=args.top_k,
-                    top_p=args.top_p, generator=gen)
+                    top_p=args.top_p)
     t0 = time.perf_counter()
     obs_goodput.phase("step_compute")
     if args.draft_layers > 0:
@@ -193,24 +232,54 @@ def main(argv=None) -> int:
             return 1
         dft_params = tm.cast_params(
             tm.init_params(dft_cfg, seeded(3), device), dft_cfg.dtype)
-        out, stats = generate_speculative(
-            params, dft_params, prompt, cfg, dft_cfg, args.new_tokens,
-            gamma=args.gamma, **sampling)
+        if mesh is not None:
+            from hivedscheduler_tpu_torch.models.speculative import (
+                make_sharded_speculative,
+            )
+
+            try:
+                run, tgt_layout, dft_layout, prompt_layout = make_sharded_speculative(
+                    cfg, dft_cfg, mesh, args.new_tokens, gamma=args.gamma,
+                    quantized_target=args.quantize == "int8", **sampling)
+            except ValueError as e:
+                log.error("%s", e)
+                return 1
+            # rebinding drops the whole trees: this rank keeps its slices
+            params, dft_params = tgt_layout(params), dft_layout(dft_params)
+            out, stats = run(params, dft_params, prompt_layout(prompt), gen)
+        else:
+            out, stats = generate_speculative(
+                params, dft_params, prompt, cfg, dft_cfg, args.new_tokens,
+                gamma=args.gamma, generator=gen, **sampling)
         log.info(
             "speculation: %s rounds, %s/%s draft tokens accepted (%.0f%%)",
             stats.rounds, stats.accepted, stats.drafted,
             100.0 * stats.accepted / max(1, stats.drafted),
         )
+    elif mesh is not None:
+        try:
+            run, param_layout, prompt_layout = decode.make_sharded_generate(
+                cfg, mesh, args.new_tokens, quantized=args.quantize == "int8",
+                decode_steps=args.decode_steps, **sampling)
+        except ValueError as e:
+            # user errors (head counts, vocab or d_ff vs --tp) get the same
+            # one-line treatment as the JAX CLI's
+            log.error("%s", e)
+            return 1
+        params = param_layout(params)  # this rank's slices; the whole tree goes
+        out = run(params, prompt_layout(prompt), gen)
     else:
         out = decode.generate(params, prompt, cfg, args.new_tokens,
-                              decode_steps=args.decode_steps, **sampling)
+                              decode_steps=args.decode_steps, generator=gen,
+                              **sampling)
     rows = out.tolist()  # the host sync: decode ends here
     obs_goodput.phase("idle")
     dt = time.perf_counter() - t0
     log.info(DECODE_LOG, args.batch, args.new_tokens, dt,
              args.batch * args.new_tokens / max(dt, 1e-9))
-    for row in rows:
-        print(" ".join(str(t) for t in row))
+    if rank == 0:
+        for row in rows:
+            print(" ".join(str(t) for t in row))
     return 0
 
 

@@ -23,6 +23,20 @@ place and returns a ``KVCache`` over the same tensors with the new
 stale entries to the position mask, as in JAX. The loop of ``generate``
 runs eagerly on the host, one ``advance`` per token; it syncs with the
 device only when its caller reads the tokens.
+
+**Sharded decode** (:func:`make_sharded_generate`, the JAX package's; one
+process a GPU): over a ``("dp", "tp")`` serving mesh
+(``topology.serving_mesh``), each rank holds its local leaves by
+:func:`serving_shardings` and takes a ``shards``
+(``parallel.sharding.ServingShards``) through ``advance``: its heads and
+the kv cache's kv-head axis stay local, the attention output projection
+and the MLP's down projection add their partial sums over tp
+(``tp_sum``), MoE experts run their tp slice of the hidden dim (ep = 1:
+the serving mesh has no ep), and ``lm_head`` is vocab-sharded: each rank
+computes its [B, S, V/tp] logits and the whole logits are all-gathered
+(``vocab_gather``), never the weight. The prompt rows split over dp and
+the tokens are gathered back; sampled draws are taken over the gathered
+batch, so a mesh samples as one device does.
 """
 
 from __future__ import annotations
@@ -59,8 +73,11 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
-                  device: str | torch.device = "cpu") -> KVCache:
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+                  device: str | torch.device = "cpu",
+                  kv_heads: Optional[int] = None) -> KVCache:
+    """A zero cache; ``kv_heads`` (default ``cfg.kv_heads``) is a tp rank's
+    local count on a serving mesh."""
+    shape = (cfg.n_layers, batch, max_len, kv_heads or cfg.kv_heads, cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -94,21 +111,38 @@ def dense_mlp(lp: Dict[str, Any], h: torch.Tensor, dtype) -> torch.Tensor:
                         load_weight(lp["w_down"], dtype))
 
 
-def mlp_block(lp: Dict[str, Any], h: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+def mlp_block(lp: Dict[str, Any], h: torch.Tensor, cfg: TransformerConfig,
+              shards=None) -> torch.Tensor:
     """One layer's MLP: SwiGLU, or the MoE layer routed with ``cfg``'s
     capacity (the decode and serving paths pass :func:`inference_moe_cfg`'s
     no-drop one); the MoE aux loss is dropped. int8 expert leaves
-    dequantize per expert (``load_weight`` broadcasts the [E, 1, F] scale)."""
+    dequantize per expert (``load_weight`` broadcasts the [E, 1, F] scale).
+    Under ``shards`` the leaves hold this rank's slice of the hidden dim
+    (every expert's), routing runs whole on every rank, and the partial
+    outputs are summed over tp."""
     if cfg.n_experts > 0:
-        return _moe_mlp(h, lambda name: load_weight(lp[name], cfg.dtype), cfg)[0]
-    return dense_mlp(lp, h, cfg.dtype)
+        out = _moe_mlp(h, lambda name: load_weight(lp[name], cfg.dtype), cfg)[0]
+    else:
+        out = dense_mlp(lp, h, cfg.dtype)
+    return out if shards is None else shards.tp_sum(out)
 
 
-def final_logits(params: Dict[str, Any], x: torch.Tensor, dtype) -> torch.Tensor:
-    """Final RMSNorm and lm_head; the logits come back in f32."""
+def attn_out(lp: Dict[str, Any], attn: torch.Tensor, dtype, shards=None) -> torch.Tensor:
+    """The attention output projection; under ``shards`` the local heads'
+    partial sums are added over tp."""
+    out = torch.einsum("bshk,hkd->bsd", attn, load_weight(lp["wo"], dtype))
+    return out if shards is None else shards.tp_sum(out)
+
+
+def final_logits(params: Dict[str, Any], x: torch.Tensor, dtype,
+                 shards=None) -> torch.Tensor:
+    """Final RMSNorm and lm_head; the logits come back in f32. Under
+    ``shards`` ``lm_head`` holds this rank's vocabulary slice: the local
+    logits are computed and the whole ones all-gathered over tp."""
     x = _rms_norm(x, params["final_norm"])
-    return torch.einsum("bsd,dv->bsv", x,
-                        load_weight(params["lm_head"], dtype)).float()
+    logits = torch.einsum("bsd,dv->bsv", x,
+                          load_weight(params["lm_head"], dtype)).float()
+    return logits if shards is None else shards.vocab_gather(logits)
 
 
 def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
@@ -157,12 +191,14 @@ def advance(
     cache: KVCache,
     tokens: torch.Tensor,
     cfg: TransformerConfig,
+    shards=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Absorb ``tokens`` [B, S] starting at position ``cache.length`` and
     return (logits [B, S, vocab] f32, the cache with its new length). The
     cache's tensors are written in place. S = prompt length for prefill,
     S = 1 while decoding. MoE layers route with :func:`inference_moe_cfg`'s
-    no-drop capacity."""
+    no-drop capacity. ``shards``: the rank's local leaves and cache on a
+    serving mesh (module docstring); the logits come back whole."""
     dtype = cfg.dtype
     b, s_len = tokens.shape
     pos0 = cache.length
@@ -183,9 +219,9 @@ def advance(
         ck[:, pos0:pos0 + s_len] = k_new
         cv[:, pos0:pos0 + s_len] = v_new
         attn = _cached_attention(q, ck, cv, pos0, scale)
-        x = x + torch.einsum("bshk,hkd->bsd", attn, load_weight(lp["wo"], dtype))
-        x = x + mlp_block(lp, _rms_norm(x, lp["mlp_norm"]), cfg)
-    logits = final_logits(params, x, dtype)
+        x = x + attn_out(lp, attn, dtype, shards)
+        x = x + mlp_block(lp, _rms_norm(x, lp["mlp_norm"]), cfg, shards)
+    logits = final_logits(params, x, dtype, shards)
     return logits, KVCache(cache.k, cache.v, pos0 + s_len)
 
 
@@ -230,6 +266,7 @@ def generate(
     generator: Optional[torch.Generator] = None,
     max_len: Optional[int] = None,
     decode_steps: int = 1,
+    shards=None,
 ) -> torch.Tensor:
     """Greedy (``temperature`` 0) or sampled continuation of ``prompt``
     [B, T], with optional top-k / top-p filtering of the sampled
@@ -238,7 +275,12 @@ def generate(
 
     ``decode_steps`` (>= 1) unrolls the JAX package's decode scan; the
     tokens do not depend on it. Here each token step is its own eager
-    ``advance``, so it has no effect."""
+    ``advance``, so it has no effect.
+
+    ``shards``: on a serving mesh, ``params`` are this rank's local leaves
+    and ``prompt`` its dp block of rows; the result is every rank's rows,
+    gathered. Each draw is taken over the gathered batch with the same
+    generator on every rank, so the stream is the one-device stream."""
     if decode_steps < 1:
         raise ValueError(f"decode_steps must be >= 1, got {decode_steps}")
     if temperature > 0.0 and generator is None:
@@ -248,20 +290,103 @@ def generate(
     max_len = total if max_len is None else max_len
     if max_len < total:
         raise ValueError(f"max_len {max_len} < prompt + new tokens {total}")
-    cache = init_kv_cache(cfg, b, max_len, prompt.device)
-    logits, cache = advance(params, cache, prompt, cfg)
+    kv_heads = cfg.kv_heads // shards.tp if shards is not None else None
+    cache = init_kv_cache(cfg, b, max_len, prompt.device, kv_heads)
+    logits, cache = advance(params, cache, prompt, cfg, shards)
     last = logits[:, -1]
     toks = []
     for i in range(max_new_tokens):
         if temperature == 0.0:
             tok = torch.argmax(last, dim=-1)
         else:
-            tok = sample(torch.softmax(
-                filter_logits(last / temperature, top_k, top_p), dim=-1), generator)
+            tok = draw_rows(torch.softmax(
+                filter_logits(last / temperature, top_k, top_p), dim=-1),
+                generator, shards)
         toks.append(tok)
         if i + 1 < max_new_tokens:  # the last token's logits are never read
-            logits, cache = advance(params, cache, tok[:, None].to(prompt.dtype), cfg)
+            logits, cache = advance(params, cache, tok[:, None].to(prompt.dtype),
+                                    cfg, shards)
             last = logits[:, -1]
     if not toks:
-        return prompt.new_zeros((b, 0))
-    return torch.stack(toks, dim=1).to(prompt.dtype)
+        out = prompt.new_zeros((b, 0))
+    else:
+        out = torch.stack(toks, dim=1).to(prompt.dtype)
+    return out if shards is None else shards.gather_rows(out)
+
+
+def draw_rows(probs: torch.Tensor, generator: torch.Generator,
+              shards=None) -> torch.Tensor:
+    """:func:`sample` of this rank's rows: on a mesh with dp above 1 the
+    draw is taken over every rank's rows (the same generator state on each
+    rank) and this rank keeps its own, so the draw does not depend on dp."""
+    if shards is None or shards.dp == 1:
+        return sample(probs, generator)
+    return shards.local_rows(sample(shards.gather_rows(probs), generator))
+
+
+def serving_shardings(cfg: TransformerConfig, mesh, *, require: bool = True,
+                      quantized: bool = False):
+    """Validate ``cfg`` against the serving mesh's tp axis and return the
+    layout of the param tree (``transformer.sharding_specs`` laid over
+    ``mesh``; ``quantized`` takes ``quant.sharding_specs`` for int8 trees),
+    a ``parallel.sharding.ServingLayout`` that gives each rank its local
+    leaves of the whole tree. The one home of the serving shard contract:
+    heads, vocab and d_ff must divide tp. ``require=False`` returns None
+    instead of raising (the speculative draft's replicated fallback)."""
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    shards = sharding.ServingShards(mesh)
+    tp = shards.tp
+    if cfg.n_heads % tp or cfg.kv_heads % tp:
+        if not require:
+            return None
+        raise ValueError(
+            f"head counts must divide the tp axis: n_heads={cfg.n_heads}, "
+            f"kv_heads={cfg.kv_heads}, tp={tp}"
+        )
+    if cfg.vocab_size % tp or cfg.d_ff % tp:
+        if not require:
+            return None
+        raise ValueError(
+            f"vocab_size ({cfg.vocab_size}) and d_ff ({cfg.d_ff}) must "
+            f"divide the tp axis ({tp})"
+        )
+    if quantized:
+        from hivedscheduler_tpu_torch.models import quant
+
+        specs = quant.sharding_specs(cfg)
+    else:
+        specs = tm.sharding_specs(cfg)
+    return sharding.ServingLayout(shards, specs)
+
+
+def make_sharded_generate(
+    cfg: TransformerConfig,
+    mesh,
+    max_new_tokens: int,
+    *,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    quantized: bool = False,
+    decode_steps: int = 1,
+):
+    """Sharded decode over a ``("dp", "tp")`` serving mesh: returns (run,
+    param_layout, prompt_layout), as the JAX package returns (jitted,
+    param_shardings, prompt_sharding). ``param_layout(params)`` gives this
+    rank's leaves of the whole tree (``quantized``: an int8 tree from
+    ``quant.quantize_params``), ``prompt_layout(prompt)`` its dp block of
+    the [B, T] prompt rows, and ``run(local_params, local_prompt,
+    generator=None)`` the whole [B, max_new_tokens] tokens on every rank
+    (``generator`` for temperature > 0, seeded alike on every rank)."""
+    param_layout = serving_shardings(cfg, mesh, quantized=quantized)
+    shards = param_layout.shards
+
+    def run(params, prompt, generator=None):
+        return generate(params, prompt, cfg, max_new_tokens,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        generator=generator, decode_steps=decode_steps,
+                        shards=shards)
+
+    return run, param_layout, shards.local_rows

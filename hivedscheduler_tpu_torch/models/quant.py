@@ -7,8 +7,9 @@ weights and the MoE router stay float; each expert of a stacked MoE leaf
 [L, E, in, out] gets its own scales. Each quantized leaf becomes
 ``{"qi8": int8, "scale": f32}`` with the scale kept at the weight's rank
 (size 1 on the reduced axes); the decode path's weight loads
-(``transformer.load_weight``) dequantize either tree. The tp sharding of a quantized tree comes with the
-port's mesh.
+(``transformer.load_weight``) dequantize either tree. :func:`sharding_specs`
+lays a quantized tree over the serving mesh
+(``decode.serving_shardings(..., quantized=True)``).
 """
 
 from __future__ import annotations
@@ -71,3 +72,33 @@ def quantize_params(params: Dict[str, Any], cfg: TransformerConfig) -> Dict[str,
         else:
             out[name] = leaf
     return out
+
+
+def sharding_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The specs of a quantized tree, the JAX package's
+    ``quant.sharding_specs``: ``qi8`` takes the base weight's spec
+    (``transformer.sharding_specs``); the keepdims scale drops the sharding
+    of every reduced (size-1) axis, so a scale over a tp-sharded
+    contraction (``wo``'s heads, ``w_down``'s hidden dim) is whole on every
+    rank and a per-output-channel one is cut with its channels."""
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    base = tm.sharding_specs(cfg)
+    moe = cfg.n_experts > 0
+
+    def qspec(spec: tuple, axes: Tuple[int, ...]) -> Dict[str, Any]:
+        return {"qi8": spec,
+                "scale": tuple(None if i in axes else s for i, s in enumerate(spec))}
+
+    layers: Dict[str, Any] = {}
+    for name, spec in base["layers"].items():
+        if name in _LAYER_CONTRACT_AXES:
+            layers[name] = qspec(spec, _contract_axes(name, moe))
+        else:
+            layers[name] = spec
+    return {
+        "embed": qspec(base["embed"], (1,)),
+        "layers": layers,
+        "final_norm": base["final_norm"],
+        "lm_head": qspec(base["lm_head"], (0,)),
+    }

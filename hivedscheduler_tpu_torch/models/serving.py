@@ -72,7 +72,30 @@ of every pool tensor; dense: the entry's bucketed payload) and enters a
 config-identical engine's prefix cache, paged blocks written in place
 into its own pool, so a captured decode graph keeps its addresses.
 
-Left out: the ``mesh`` layout (MoE on a mesh with it).
+**The serving mesh** (``mesh=``, a ``("dp", "tp")`` DeviceMesh from
+``topology.serving_mesh``; one process a GPU): the params are laid out by
+``decode.serving_shardings`` (each rank keeps its local leaves), the
+ragged cache's rows over dp and its kv-head axis over tp (int8 scales with
+their heads), and the paged pool's kv-head axis over tp (paged with dp
+above 1 raises, as in JAX: any block may back any slot). ``advance_ragged``
+and ``advance_paged`` take the same ``shards`` as decode: the projections'
+partial sums add over tp and the vocab-sharded logits are all-gathered.
+Each dp rank computes its own rows only (a prefill runs on the rank that
+holds the slot, which broadcasts the first token); the picked tokens are
+all-gathered over dp, so every rank's host state (queue, slots, lengths,
+block table, prefix LRU) stays the same. The host decisions that read
+the clock (queue deadlines, age boosts, drain deadlines) read the step's
+agreed reading instead: each step opens with one collective
+(:meth:`ServingEngine.sync_step`) that gives every rank rank 0's clock and
+whether any rank asked for a drain, and a request's queue wait counts
+from the reading in force when it was submitted. Timestamps (TTFT, TPOT,
+the journal) stay each rank's own clock; rank 0 reports. A
+dense prefix-cache entry is replicated over dp (broadcast from the rank
+that held the row when it is stored, so any rank can restore it into any
+slot: each rank holds every entry's tp slice) and sharded over tp. At
+world 1 no collective is issued and the decode window captures as
+without a mesh; at tp above 1 the captured window holds NCCL calls.
+``export_prefix``/``import_prefix`` refuse a mesh, as JAX's fleet does.
 """
 
 from __future__ import annotations
@@ -89,6 +112,7 @@ import torch
 from hivedscheduler_tpu_torch.common import compileguard, envflags
 from hivedscheduler_tpu_torch.models.decode import (
     _layer_params,
+    attn_out,
     embed_tokens,
     filter_logits,
     final_logits,
@@ -98,10 +122,8 @@ from hivedscheduler_tpu_torch.models.decode import (
 )
 from hivedscheduler_tpu_torch.models.transformer import (
     TransformerConfig,
-    _not_yet_ported,
     _rms_norm,
     is_quantized_leaf,
-    load_weight,
 )
 from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
 from hivedscheduler_tpu_torch.obs import journal as obs_journal
@@ -199,9 +221,12 @@ def _check_kv_dtype(kv_dtype: Optional[str]) -> None:
 
 def init_ragged_cache(cfg: TransformerConfig, max_batch: int, max_len: int,
                       kv_dtype: Optional[str] = None,
-                      device: str | torch.device = "cpu") -> RaggedCache:
+                      device: str | torch.device = "cpu",
+                      kv_heads: Optional[int] = None) -> RaggedCache:
+    """A zero cache; ``kv_heads`` (default ``cfg.kv_heads``) is a tp rank's
+    local count on a serving mesh."""
     _check_kv_dtype(kv_dtype)
-    shape = (cfg.n_layers, max_batch, max_len, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, max_batch, max_len, kv_heads or cfg.kv_heads, cfg.head_dim)
     lengths = torch.zeros((max_batch,), dtype=torch.int32, device=device)
     if kv_dtype == "int8":
         return RaggedCache(
@@ -260,11 +285,12 @@ def _ragged_attention(q, ck, cv, positions, scale, ck_scale=None, cv_scale=None)
     return o.reshape(b, s_len, h, d).to(q.dtype)
 
 
-def _layer_tail(x, lp, attn, cfg):
+def _layer_tail(x, lp, attn, cfg, shards=None):
     """Output projection and the MLP block of one layer (``cfg`` with the
-    no-drop inference capacity for MoE)."""
-    x = x + torch.einsum("bshk,hkd->bsd", attn, load_weight(lp["wo"], cfg.dtype))
-    return x + mlp_block(lp, _rms_norm(x, lp["mlp_norm"]), cfg)
+    no-drop inference capacity for MoE); under ``shards`` both add their
+    partial sums over tp."""
+    x = x + attn_out(lp, attn, cfg.dtype, shards)
+    return x + mlp_block(lp, _rms_norm(x, lp["mlp_norm"]), cfg, shards)
 
 
 def _project(lp, x, positions, cfg, quantized):
@@ -285,8 +311,11 @@ def advance_ragged(
     cfg: TransformerConfig,
     row: Optional[int] = None,
     start: Optional[int] = None,
+    shards=None,
 ):
     """Absorb ``tokens`` and return (logits [B_t, S, vocab] f32, cache).
+    ``shards``: the rank's local leaves and cache on a serving mesh (the
+    module docstring); the logits come back whole.
 
     - decode (``row is None``): tokens [B, S], every row at its own
       ``cache.lengths[b]``; the lengths then advance by S, clamped at
@@ -340,8 +369,8 @@ def advance_ragged(
         att = bufs if row is None else [t[row:row + 1] for t in bufs]
         scales = att[2:] if quantized else [None, None]
         attn = _ragged_attention(q, att[0], att[1], positions, scale, *scales)
-        x = _layer_tail(x, lp, attn, cfg)
-    logits = final_logits(params, x, cfg.dtype)
+        x = _layer_tail(x, lp, attn, cfg, shards)
+    logits = final_logits(params, x, cfg.dtype, shards)
     if row is None:
         cache.lengths.copy_(torch.clamp(cache.lengths + s_len, max=m_len))
     return logits, cache
@@ -368,9 +397,11 @@ class PagedKVPool(NamedTuple):
 
 def init_paged_pool(cfg: TransformerConfig, n_blocks: int, block: int,
                     kv_dtype: Optional[str] = None,
-                    device: str | torch.device = "cpu") -> PagedKVPool:
+                    device: str | torch.device = "cpu",
+                    kv_heads: Optional[int] = None) -> PagedKVPool:
+    """A zero pool; ``kv_heads`` as :func:`init_ragged_cache`'s."""
     _check_kv_dtype(kv_dtype)
-    shape = (cfg.n_layers, n_blocks, block, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, n_blocks, block, kv_heads or cfg.kv_heads, cfg.head_dim)
     if kv_dtype == "int8":
         return PagedKVPool(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -392,9 +423,11 @@ def advance_paged(
     lengths: Optional[torch.Tensor] = None,
     row: Optional[int] = None,
     start: Optional[int] = None,
+    shards=None,
 ):
     """Paged twin of :func:`advance_ragged`: absorb ``tokens`` through the
-    block table and return (logits [B_t, S, vocab] f32, pool).
+    block table and return (logits [B_t, S, vocab] f32, pool); ``shards``
+    as there (the pool holds the rank's kv heads).
 
     Decode (``row is None``): tokens [B, S] at per-row positions from
     ``lengths`` [B]. Prefill (``row`` given): tokens [1, S] written through
@@ -430,8 +463,8 @@ def advance_paged(
         att = [gather_block_kv(buf, tbl) for buf in bufs]
         scales = att[2:] if quantized else [None, None]
         attn = _ragged_attention(q, att[0], att[1], positions, scale, *scales)
-        x = _layer_tail(x, lp, attn, cfg)
-    return final_logits(params, x, cfg.dtype), pool
+        x = _layer_tail(x, lp, attn, cfg, shards)
+    return final_logits(params, x, cfg.dtype, shards), pool
 
 
 # -- requests -----------------------------------------------------------------
@@ -460,6 +493,9 @@ class Request:
     finish_reason: Optional[str] = None
     priority: int = 0
     submitted_at: float = 0.0
+    # the clock reading queue deadlines and age boosts count from: the
+    # submit time, on a mesh the step's agreed reading (``sync_step``)
+    queued_at: float = 0.0
     admitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
     done_at: Optional[float] = None
@@ -521,7 +557,7 @@ class DecodeWindow:
     are never rebound; :meth:`check_bound` raises if they were."""
 
     def __init__(self, engine: "ServingEngine"):
-        b = engine.max_batch
+        b = engine._hi - engine._lo  # this rank's rows
         i64 = dict(dtype=torch.long, device=engine.device)
         self.last = torch.zeros(b, **i64)
         self.rids = torch.zeros(b, **i64)
@@ -555,7 +591,10 @@ class ServingEngine:
     ``clock``). The device is the params'. ``spec_decode`` (a
     ``models.speculative.SpecDecodeConfig``) constructs the speculative
     engine, :class:`SpeculativeServingEngine`, with the same arguments.
-    ``mesh`` is not yet ported and raises."""
+    ``mesh``: a ``("dp", "tp")`` serving mesh (``topology.serving_mesh``)
+    over which the engine lays itself out (the module docstring); every
+    rank builds the engine from the same whole params and makes the same
+    calls in the same order. ``max_batch`` must divide dp."""
 
     # single-engine request flights: submit() opens a serve/<rid> flight
     # in the journal and the engine owns its terminal (the serve CLI sets
@@ -593,11 +632,42 @@ class ServingEngine:
         spec_decode=None,
         clock=time.perf_counter,
     ):
-        if mesh is not None:
-            raise _not_yet_ported("the serving mesh layout (mesh=)")
         if decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, got {decode_steps}")
         _check_kv_dtype(kv_dtype)
+        self.page_size = max(0, page_size)
+        self.paged = (self.page_size > 0
+                      and envflags.get("HIVED_PAGED_KV", "1") != "0")
+        # the mesh layout: this rank's rows [_lo, _hi) of the max_batch slots
+        # and its kv heads; every host structure below stays global
+        self.mesh = mesh
+        self.shards = None
+        self._lo, self._hi = 0, max_batch
+        kv_heads = cfg.kv_heads
+        if mesh is not None:
+            from hivedscheduler_tpu_torch.models.decode import serving_shardings
+            from hivedscheduler_tpu_torch.parallel.sharding import ServingShards
+
+            shards = ServingShards(mesh)
+            if max_batch % shards.dp:
+                raise ValueError(
+                    f"max_batch {max_batch} must divide the dp axis {shards.dp}")
+            layout = serving_shardings(cfg, mesh,
+                                       quantized=is_quantized_leaf(params["lm_head"]))
+            if self.paged and shards.dp != 1:
+                # blocks are fungible across slots, so the pool cannot shard
+                # over a batch axis, only its kv-head axis over tp
+                raise ValueError(
+                    f"paged KV cache cannot shard blocks over dp/fsdp (axis "
+                    f"size {shards.dp}): any block may back any slot; use tp")
+            params = layout(params)
+            self.shards = shards
+            self._lo, self._hi = shards.row_range(max_batch)
+            kv_heads = cfg.kv_heads // shards.tp
+        # a mesh engine's agreed clock reading for this step, and whether
+        # sync_step already took it (the next step() then does not)
+        self._step_now: Optional[float] = None
+        self._synced = False
         self.params = params
         self.cfg = cfg
         self.device = _params_device(params)
@@ -612,9 +682,6 @@ class ServingEngine:
         self.eos_id = eos_id
         self.seed = seed
         self.kv_dtype = kv_dtype
-        self.page_size = max(0, page_size)
-        self.paged = (self.page_size > 0
-                      and envflags.get("HIVED_PAGED_KV", "1") != "0")
         if self.paged:
             self._blocks_per_slot = -(-max_len // self.page_size)
             if num_blocks <= 0:
@@ -631,7 +698,7 @@ class ServingEngine:
             # at or past every live row's length
             self._park_pos = self._blocks_per_slot * self.page_size - 1
             self.pool = init_paged_pool(cfg, num_blocks, self.page_size,
-                                        kv_dtype, self.device)
+                                        kv_dtype, self.device, kv_heads)
             self._table = np.zeros((max_batch, self._blocks_per_slot), np.int32)
             self._host_len = np.full((max_batch,), self._park_pos, np.int32)
             self._slot_bids: List[List[int]] = [[] for _ in range(max_batch)]
@@ -643,8 +710,8 @@ class ServingEngine:
             self.cache = None
         else:
             self.pool = None
-            self.cache = init_ragged_cache(cfg, max_batch, max_len, kv_dtype,
-                                           self.device)
+            self.cache = init_ragged_cache(cfg, self._hi - self._lo, max_len,
+                                           kv_dtype, self.device, kv_heads)
         self.slots: List[Optional[Request]] = [None] * max_batch
         # host staging of the per-row feedback tokens: one upload a step
         self._last_host = [0] * max_batch
@@ -690,10 +757,54 @@ class ServingEngine:
         return int(self._sample(logits_row[None], *self._sample_coords([req]))[0])
 
     def _pick_batch(self, logits, reqs) -> List[int]:
-        """A token for every row with ONE device-to-host transfer."""
+        """A token for every slot with ONE device-to-host transfer, from
+        this rank's rows of ``logits`` (every row without a mesh) and the
+        slots' requests ``reqs``; on a mesh the ranks' tokens are gathered
+        over dp."""
         if self.temperature == 0.0:
-            return torch.argmax(logits, dim=-1).tolist()
-        return self._sample(logits, *self._sample_coords(reqs)).tolist()
+            tok = torch.argmax(logits, dim=-1)
+        else:
+            tok = self._sample(logits, *self._sample_coords(reqs[self._lo:self._hi]))
+        return self._gather_rows(tok).tolist()
+
+    # -- the mesh's rows ---------------------------------------------------
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank holds ``slot``'s row (every row without dp)."""
+        return self._lo <= slot < self._hi
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t`` (this rank's rows first-dim), in slot
+        order; ``t`` itself without dp."""
+        return t if self.shards is None else self.shards.gather_rows(t)
+
+    def _from_owner(self, slot: int, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the rank holding ``slot`` computed it, on every dp rank
+        (in place; the other ranks pass a buffer of its shape)."""
+        if self.shards is None or self.shards.dp == 1:
+            return t
+        return self.shards.broadcast_from(
+            t, self.shards.row_owner(slot, self.max_batch))
+
+    def _pick_prefill(self, logits, last_idx: int, req: Request, slot: int) -> int:
+        """The first token of a prefill, picked by the rank that ran it
+        (``logits`` is None on the others) and shared over dp."""
+        if self.shards is None or self.shards.dp == 1:
+            return self._pick(logits[last_idx], req)
+        tok = self._pick(logits[last_idx], req) if logits is not None else 0
+        t = torch.tensor([tok], dtype=torch.long, device=self.device)
+        return int(self._from_owner(slot, t)[0])
+
+    def _row_payload(self, cache: RaggedCache, slot: int, pb: int):
+        """A copy of ``slot``'s [0:pb] KV of a dense ``cache`` (values and
+        scales) on every rank: extracted by the rank that holds the row and
+        broadcast over dp, so the prefix entry can be restored into a slot
+        of any rank."""
+        if self._owns(slot):
+            payload = _extract_rows(cache, slot - self._lo, pb)
+        else:
+            payload = tuple(t.new_empty((t.shape[0], pb) + tuple(t.shape[3:]))
+                            for t in _kv_tensors(cache))
+        return tuple(self._from_owner(slot, part) for part in payload)
 
     # -- paged block allocator (host side; the pool is the device state) ---
     #
@@ -840,18 +951,22 @@ class ServingEngine:
     def _set_row_length(self, slot: int, n: int) -> None:
         if self.paged:
             self._host_len[slot] = n
-        else:
-            self.cache.lengths[slot] = n
+        elif self._owns(slot):
+            self.cache.lengths[slot - self._lo] = n
 
     def _run_prefill(self, slot: int, tokens, start: int):
         """One (possibly offset) prefill through the active backend; the
-        [S, vocab] logits."""
+        [S, vocab] logits, or None on a rank that does not hold the row."""
+        if not self._owns(slot):
+            return None
         if self.paged:
             logits, _ = advance_paged(self.params, self.pool, tokens, self.cfg,
-                                      self._table_dev(), row=slot, start=start)
+                                      self._table_dev(), row=slot, start=start,
+                                      shards=self.shards)
         else:
             logits, _ = advance_ragged(self.params, self.cache, tokens, self.cfg,
-                                       row=slot, start=start)
+                                       row=slot - self._lo, start=start,
+                                       shards=self.shards)
         return logits[0]
 
     def _store_payload(self, slot: int, bids, plen: int):
@@ -889,6 +1004,7 @@ class ServingEngine:
                              f"exceeds max_len {self.max_len}")
         req = Request(self._next_rid, list(prompt), max_new_tokens,
                       priority=priority, submitted_at=self._clock())
+        req.queued_at = req.submitted_at if self.shards is None else self._decision_now()
         self._next_rid += 1
         if self.record_flights and obs_journal.JOURNAL.enabled:
             # single-engine flight: this engine owns the whole request path,
@@ -931,7 +1047,7 @@ class ServingEngine:
 
     def _prefix_extract(self, slot: int, pb: int):
         """A copy of slot ``slot``'s [0:pb] KV, the dense prefix payload."""
-        return _extract_rows(self.cache, slot, pb)
+        return self._row_payload(self.cache, slot, pb)
 
     def _prefix_restore(self, slot: int, payload) -> None:
         """Write a cached payload back into ``slot``. Paged: the payload is
@@ -947,7 +1063,8 @@ class ServingEngine:
             self.prefix_block_hits += len(bids)
             metrics.inc("tpu_hive_serve_prefix_block_hits_total", len(bids))
             return
-        _restore_rows(self.cache, slot, payload)
+        if self._owns(slot):
+            _restore_rows(self.cache, slot - self._lo, payload)
 
     def _store_prefix(self, slot: int, prompt: List[int]) -> None:
         """Cache the row's KV under the full prompt and under interior
@@ -996,7 +1113,9 @@ class ServingEngine:
         scales); dense: the entry's bucketed payload. The bytes are copies
         of this engine's cached KV, which equals what the importer would
         compute for the same prefix, so a decode leg resumed from it is
-        token-exact against local serving."""
+        token-exact against local serving. A mesh engine refuses, as the
+        JAX package's fleet refuses a mesh."""
+        self._refuse_mesh("export_prefix")
         hit = self._match_prefix(list(prompt))
         if hit is None:
             return None
@@ -1020,7 +1139,9 @@ class ServingEngine:
         place (``self.pool`` is never rebound: a captured decode graph
         holds its addresses). Returns False when the key is already cached
         (LRU-touched, nothing written). May reclaim cache entries or
-        preempt streams under pool pressure, like any allocation."""
+        preempt streams under pool pressure, like any allocation. A mesh
+        engine refuses."""
+        self._refuse_mesh("import_prefix")
         if self.prefix_cache_size <= 0:
             raise ValueError(
                 "import_prefix needs prefix_cache_size > 0 — the imported "
@@ -1061,15 +1182,51 @@ class ServingEngine:
             self._drop_entry(pl)
         return True
 
+    def _refuse_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"{what}: the fleet's KV handoff does not compose "
+                             f"with a serving mesh (each fleet replica is a "
+                             f"single-device engine)")
+
+    # -- the clock host decisions read ----------------------------------------
+    def sync_step(self, flag: bool = False) -> bool:
+        """Open the next step: on a mesh, one collective gives every rank
+        rank 0's clock reading, which the step's host decisions (and
+        submits until the step runs) read, and whether ``flag`` is set on
+        any rank (the serve CLI's drain request), which it returns.
+        ``step()`` calls it when the caller did not. Without a mesh it
+        reads nothing and returns ``flag``; at world 1 it issues no
+        collective."""
+        if self.shards is None:
+            return flag
+        self._step_now, flag = self.shards.agree(self._clock(), flag)
+        self._synced = True
+        return flag
+
+    def _open_step(self) -> None:
+        if self.shards is not None:
+            if not self._synced:
+                self.sync_step()
+            self._synced = False
+
+    def _decision_now(self) -> float:
+        """The reading a host decision compares: the clock without a mesh,
+        the step's agreed reading on one (the same on every rank)."""
+        if self.shards is None:
+            return self._clock()
+        if self._step_now is None:
+            self.sync_step()  # a submit before the first step
+        return self._step_now
+
     def _shed_expired(self) -> None:
         """Queue-wait deadline: finish expired waiters as "shed" before
         admission."""
         if self.queue_timeout_s is None or not self.queue:
             return
-        now = self._clock()
+        now = self._decision_now()
         kept: List[Request] = []
         for req in self.queue:
-            if now - req.submitted_at > self.queue_timeout_s:
+            if now - req.queued_at > self.queue_timeout_s:
                 req.done = True
                 req.done_at = now
                 req.finish_reason = "shed"
@@ -1091,10 +1248,10 @@ class ServingEngine:
         one level per ``age_boost_secs`` waited)."""
         if self.age_boost_secs is None or len(self.queue) <= 1:
             return 0
-        now = self._clock()
+        now = self._decision_now()
         best_i, best_eff = 0, None
         for i, w in enumerate(self.queue):
-            eff = w.priority + int((now - w.submitted_at) / self.age_boost_secs)
+            eff = w.priority + int((now - w.queued_at) / self.age_boost_secs)
             if best_eff is None or eff > best_eff:
                 best_i, best_eff = i, eff
         return best_i
@@ -1157,7 +1314,7 @@ class ServingEngine:
         self._on_ready(slot, len(req.prompt))
         if self.prefix_cache_size > 0:
             self._store_prefix(slot, req.prompt)
-        tok = self._pick(logits[last_idx], req)
+        tok = self._pick_prefill(logits, last_idx, req, slot)
         self._emit(req, slot, tok)
         if req.done:
             self._retire(slot)
@@ -1300,13 +1457,17 @@ class ServingEngine:
         return 1 << (rem.bit_length() - 1)
 
     def _decode_once(self):
-        """The eager decode step over every row: [B, vocab] logits."""
-        last = torch.tensor(self._last_host, dtype=torch.long, device=self.device)
+        """The eager decode step over this rank's rows (every row without
+        dp): [B_local, vocab] logits."""
+        last = torch.tensor(self._last_host[self._lo:self._hi], dtype=torch.long,
+                            device=self.device)
         if self.paged:
             logits, _ = advance_paged(self.params, self.pool, last[:, None], self.cfg,
-                                      self._table_dev(), self._len_dev())
+                                      self._table_dev(), self._len_dev(),
+                                      shards=self.shards)
         else:
-            logits, _ = advance_ragged(self.params, self.cache, last[:, None], self.cfg)
+            logits, _ = advance_ragged(self.params, self.cache, last[:, None], self.cfg,
+                                       shards=self.shards)
         return logits[:, 0]
 
     def _window_iteration(self, w: DecodeWindow) -> None:
@@ -1315,10 +1476,11 @@ class ServingEngine:
         token into ``w.toks``. No host sync, so a graph can capture it."""
         if self.paged:
             logits, _ = advance_paged(self.params, self.pool, w.last[:, None],
-                                      self.cfg, w.table, w.lens)
+                                      self.cfg, w.table, w.lens, shards=self.shards)
             w.lens.copy_(torch.clamp(w.lens + 1, max=self._park_pos))
         else:
-            logits, _ = advance_ragged(self.params, self.cache, w.last[:, None], self.cfg)
+            logits, _ = advance_ragged(self.params, self.cache, w.last[:, None], self.cfg,
+                                       shards=self.shards)
         if self.temperature == 0.0:
             tok = torch.argmax(logits[:, 0], dim=-1)
         else:
@@ -1338,8 +1500,8 @@ class ServingEngine:
             self._window = DecodeWindow(self)
         w = self._window
         w.check_bound(self)
-        w.last.copy_(torch.tensor(self._last_host, dtype=torch.long))
-        rids, counts = self._sample_coords(self.slots)
+        w.last.copy_(torch.tensor(self._last_host[self._lo:self._hi], dtype=torch.long))
+        rids, counts = self._sample_coords(self.slots[self._lo:self._hi])
         w.rids.copy_(rids)
         w.counts.copy_(counts)
         if self.paged:
@@ -1365,11 +1527,12 @@ class ServingEngine:
             for _ in range(replays):
                 w.graph.replay()
             self.graph_windows += 1
-        return w.toks[:, -k:].tolist()
+        return self._gather_rows(w.toks[:, -k:]).tolist()
 
     def step(self) -> bool:
         """Admit, tick chunked prefills, then one decode step (or one fused
         window) for every decoding slot. Returns whether work remains."""
+        self._open_step()
         self._admit()
         active = self._tick_prefills()
         if active and self.paged:
@@ -1451,11 +1614,13 @@ class ServingEngine:
         self.begin_drain()
         obs_goodput.phase("drain")
         try:
-            t0 = self._clock()
+            t0 = self._decision_now()
             steps = 0
             while self.step():
                 steps += 1
-                expired = deadline_s is not None and self._clock() - t0 > deadline_s
+                # on a mesh: the reading that opened this step
+                expired = (deadline_s is not None
+                           and self._decision_now() - t0 > deadline_s)
                 if expired or steps >= max_steps:
                     now = self._clock()
                     for req in list(self.queue) + [r for r in self.slots if r is not None]:
@@ -1512,7 +1677,11 @@ class SpeculativeServingEngine(ServingEngine):
     host's round trip over up to ``gamma`` + 1 tokens, and the round runs
     eager (no CUDA graph, so no buffer of the plain engine's graph is
     shared). ``submit`` reserves ``gamma`` + 1 positions of headroom for a
-    verify pass's writes. ``mesh`` is not yet ported and raises."""
+    verify pass's writes. On a ``mesh`` the target is laid out as the plain
+    engine's and the draft by ``speculative.draft_serving_shardings``: the
+    draft cache's rows go over dp, and its kv-head axis over tp only when
+    the draft shards (a replicated draft runs whole on every rank, with no
+    collective)."""
 
     def __init__(self, params, cfg, draft_params=None, draft_cfg=None, *,
                  gamma: int = 4, spec_decode=None, **kw):
@@ -1533,13 +1702,26 @@ class SpeculativeServingEngine(ServingEngine):
         if gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {gamma}")
         super().__init__(params, cfg, **kw)
+        self._draft_shards = None
+        draft_kv_heads = draft_cfg.kv_heads
+        if self.mesh is not None:
+            from hivedscheduler_tpu_torch.models.speculative import (
+                draft_serving_shardings,
+            )
+
+            layout, sharded = draft_serving_shardings(draft_cfg, self.mesh)
+            draft_params = layout(draft_params)
+            if sharded:
+                self._draft_shards = self.shards
+                draft_kv_heads //= self.shards.tp
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
         self.gamma = gamma
         # its own lengths tensor: both caches' lengths are written after
         # every round
-        self.draft_cache = init_ragged_cache(draft_cfg, self.max_batch, self.max_len,
-                                             self.kv_dtype, self.device)
+        self.draft_cache = init_ragged_cache(draft_cfg, self._hi - self._lo,
+                                             self.max_len, self.kv_dtype, self.device,
+                                             draft_kv_heads)
         self.drafted = 0
         self.accepted = 0
 
@@ -1549,31 +1731,36 @@ class SpeculativeServingEngine(ServingEngine):
         # rounds' draft writes could land inside the prompt being chunked
         # in; max_len - 1 is attended by no live query (submit's headroom)
         super()._park(slot)
-        self.draft_cache.lengths[slot] = self.max_len - 1
+        if self._owns(slot):
+            self.draft_cache.lengths[slot - self._lo] = self.max_len - 1
 
     def _on_prefill(self, slot: int, tokens, prompt_len: int, start: int = 0) -> None:
         # KV only: the draft length stays parked until _on_ready
-        advance_ragged(self.draft_params, self.draft_cache, tokens, self.draft_cfg,
-                       row=slot, start=start)
+        if self._owns(slot):
+            advance_ragged(self.draft_params, self.draft_cache, tokens, self.draft_cfg,
+                           row=slot - self._lo, start=start, shards=self._draft_shards)
 
     def _on_ready(self, slot: int, prompt_len: int) -> None:
-        self.draft_cache.lengths[slot] = prompt_len
+        if self._owns(slot):
+            self.draft_cache.lengths[slot - self._lo] = prompt_len
 
     def _prefix_extract(self, slot: int, pb: int):
         """Target and draft KV in one payload: a restored prefix leaves both
         caches as a full prefill would."""
         return (super()._prefix_extract(slot, pb),
-                _extract_rows(self.draft_cache, slot, pb))
+                self._row_payload(self.draft_cache, slot, pb))
 
     def _prefix_restore(self, slot: int, payload) -> None:
         target, draft = payload
         super()._prefix_restore(slot, target)
-        _restore_rows(self.draft_cache, slot, draft)
+        if self._owns(slot):
+            _restore_rows(self.draft_cache, slot - self._lo, draft)
 
     def _store_payload(self, slot: int, bids, plen: int):
         # the draft has no pool: the entry bundles a copy of its dense KV
         # beside the target's shared block ids
-        return (tuple(bids), _extract_rows(self.draft_cache, slot, self._bucket(plen)))
+        return (tuple(bids), self._row_payload(self.draft_cache, slot,
+                                               self._bucket(plen)))
 
     def _entry_bids(self, payload):
         return payload[0]
@@ -1604,7 +1791,7 @@ class SpeculativeServingEngine(ServingEngine):
     def _draft_step(self, tok: torch.Tensor) -> torch.Tensor:
         """One S = 1 draft pass over every row: [B, vocab] logits."""
         logits, _ = advance_ragged(self.draft_params, self.draft_cache, tok[:, None],
-                                   self.draft_cfg)
+                                   self.draft_cfg, shards=self._draft_shards)
         return logits[:, 0]
 
     def _verify(self, tgt_in: torch.Tensor, table, lens) -> torch.Tensor:
@@ -1619,9 +1806,10 @@ class SpeculativeServingEngine(ServingEngine):
         queries at or below max_len - 2, so nothing live reads it."""
         if self.paged:
             logits, _ = advance_paged(self.params, self.pool, tgt_in, self.cfg,
-                                      table, lens)
+                                      table, lens, shards=self.shards)
         else:
-            logits, _ = advance_ragged(self.params, self.cache, tgt_in, self.cfg)
+            logits, _ = advance_ragged(self.params, self.cache, tgt_in, self.cfg,
+                                       shards=self.shards)
         return logits
 
     @torch.no_grad()
@@ -1689,6 +1877,7 @@ class SpeculativeServingEngine(ServingEngine):
     def step(self) -> bool:
         """Admit, tick chunked prefills, then one speculative round for
         every decoding slot. Returns whether work remains."""
+        self._open_step()
         self._admit()
         active = self._tick_prefills()
         if active and self.paged:
@@ -1704,22 +1893,24 @@ class SpeculativeServingEngine(ServingEngine):
             self._publish_pool()
             return bool(self.queue) or any(s is not None for s in self.slots)
         g = self.gamma
-        last = torch.tensor(self._last_host, dtype=torch.long, device=self.device)
+        last = torch.tensor(self._last_host[self._lo:self._hi], dtype=torch.long,
+                            device=self.device)
         if self.paged:
             lengths_before = self._host_len.copy()
             table, lens = self._table_dev(), self._len_dev()
         else:
-            lengths_before = self.cache.lengths.cpu().numpy().copy()
+            lengths_before = self._gather_rows(self.cache.lengths).cpu().numpy().copy()
             table = lens = None
         if self.temperature > 0.0:
-            emit_d, acc_d = self._round_sampled(last, *self._sample_coords(self.slots),
-                                                table, lens)
-            host = torch.cat([emit_d, acc_d[:, None]], dim=1).tolist()  # one sync
+            emit_d, acc_d = self._round_sampled(
+                last, *self._sample_coords(self.slots[self._lo:self._hi]), table, lens)
+            host = self._gather_rows(
+                torch.cat([emit_d, acc_d[:, None]], dim=1)).tolist()  # one sync
             emit = [row[:g + 1] for row in host]
             accs = [row[g + 1] for row in host]
         else:
             props_d, emit_d = self._round_greedy(last, table, lens)
-            host = torch.cat([props_d, emit_d], dim=1).tolist()  # one sync
+            host = self._gather_rows(torch.cat([props_d, emit_d], dim=1)).tolist()
             emit = [row[g:] for row in host]
             accs = []
             for row in host:
@@ -1748,7 +1939,8 @@ class SpeculativeServingEngine(ServingEngine):
                 self._trim_blocks(slot, int(new_len[slot]))
             if req.done:
                 self._retire(slot)
-        lens_new = torch.from_numpy(new_len.astype(np.int32)).to(self.device)
+        lens_new = torch.from_numpy(
+            new_len[self._lo:self._hi].astype(np.int32)).to(self.device)
         if not self.paged:
             self.cache.lengths.copy_(lens_new)
         self.draft_cache.lengths.copy_(lens_new)

@@ -14,6 +14,15 @@ sequence accepted past n are still emitted as they were drafted. Both
 caches roll back by setting ``length``: the stale entries stay, masked by
 position. The rounds are a host loop; reading n is the one device sync a
 round (the counterpart of JAX's ``while_loop`` condition).
+
+On a ``("dp", "tp")`` serving mesh (:func:`make_sharded_speculative`) the
+target runs tensor-parallel as ``decode.make_sharded_generate``'s model
+does; the draft shards the same way when its head counts divide tp
+(:func:`draft_serving_shardings`) and is replicated otherwise, so its
+steps issue no collective. Each rank holds its dp block of rows; n is the
+least over every rank's rows (an all-reduce over dp), and every random
+draw is taken over the gathered batch, so the output does not depend on
+the mesh.
 """
 
 from __future__ import annotations
@@ -27,9 +36,10 @@ import torch.nn.functional as F
 from hivedscheduler_tpu_torch.models.decode import (
     KVCache,
     advance,
+    draw_rows,
     filter_logits,
     init_kv_cache,
-    sample,
+    serving_shardings,
 )
 from hivedscheduler_tpu_torch.models.transformer import TransformerConfig
 
@@ -90,11 +100,16 @@ def generate_speculative(
     top_k: int = 0,
     top_p: float = 1.0,
     generator: Optional[torch.Generator] = None,
+    shards=None,
+    draft_shards=None,
 ) -> Tuple[torch.Tensor, SpecStats]:
     """Speculative continuation of ``prompt`` [B, T] -> ([B,
     max_new_tokens], SpecStats). ``temperature`` 0 decodes greedily;
     sampling draws from ``generator`` (on the prompt's device). The two
-    configs must share the vocab."""
+    configs must share the vocab. ``shards``: on a serving mesh, the
+    target's local leaves and this rank's dp block of prompt rows;
+    ``draft_shards`` is ``shards`` for a sharded draft and None for a
+    replicated one. The tokens come back whole on every rank."""
     if target_cfg.vocab_size != draft_cfg.vocab_size:
         raise ValueError(f"vocabs must match: target {target_cfg.vocab_size}, "
                          f"draft {draft_cfg.vocab_size}")
@@ -115,14 +130,33 @@ def generate_speculative(
         return torch.softmax(filter_logits(logits / temperature, top_k, top_p), dim=-1)
 
     def pick(p):
-        return torch.argmax(p, dim=-1) if greedy else sample(p, generator)
+        return torch.argmax(p, dim=-1) if greedy else draw_rows(p, generator, shards)
+
+    def uniforms(shape):
+        # drawn for every rank's rows, this rank keeping its own
+        if shards is None or shards.dp == 1:
+            return torch.rand(shape, generator=generator, device=device)
+        full = torch.rand((shape[0] * shards.dp,) + shape[1:], generator=generator,
+                          device=device)
+        return shards.local_rows(full)
+
+    def local_kv(cfg, sh):
+        return cfg.kv_heads // sh.tp if sh is not None else None
+
+    def tgt_step(cache, toks):
+        return advance(target_params, cache, toks, target_cfg, shards)
+
+    def dft_step(cache, toks):
+        return advance(draft_params, cache, toks, draft_cfg, draft_shards)
 
     # both caches absorb the prompt; from here on both hold the same prefix
     # and last_tok is not absorbed yet
-    tgt_cache = init_kv_cache(target_cfg, b, max_len, device)
-    dft_cache = init_kv_cache(draft_cfg, b, max_len, device)
-    tgt_logits, tgt_cache = advance(target_params, tgt_cache, prompt, target_cfg)
-    _, dft_cache = advance(draft_params, dft_cache, prompt, draft_cfg)
+    tgt_cache = init_kv_cache(target_cfg, b, max_len, device,
+                              local_kv(target_cfg, shards))
+    dft_cache = init_kv_cache(draft_cfg, b, max_len, device,
+                              local_kv(draft_cfg, draft_shards))
+    tgt_logits, tgt_cache = tgt_step(tgt_cache, prompt)
+    _, dft_cache = dft_step(dft_cache, prompt)
     last_tok = pick(probs_of(tgt_logits[:, -1]))
 
     buf = torch.zeros((b, max_new_tokens + gamma + 1), dtype=torch.int64, device=device)
@@ -134,18 +168,18 @@ def generate_speculative(
         # cache absorbs its own last proposal (needed when all are accepted)
         tok, drafted_toks, p_d = last_tok, [], []
         for _ in range(gamma):
-            logits, dft_cache = advance(draft_params, dft_cache, tok[:, None], draft_cfg)
+            logits, dft_cache = dft_step(dft_cache, tok[:, None])
             p = probs_of(logits[:, -1])
             tok = pick(p)
             drafted_toks.append(tok)
             p_d.append(p)
-        _, dft_cache = advance(draft_params, dft_cache, tok[:, None], draft_cfg)
+        _, dft_cache = dft_step(dft_cache, tok[:, None])
         t_draft = torch.stack(drafted_toks, dim=1)  # [B, gamma]
         p_d = torch.stack(p_d, dim=1)  # [B, gamma, V]
 
         # target: verify every proposal in one S = gamma+1 step
         tgt_in = torch.cat([last_tok[:, None], t_draft], dim=1)
-        tgt_logits, tgt_cache = advance(target_params, tgt_cache, tgt_in, target_cfg)
+        tgt_logits, tgt_cache = tgt_step(tgt_cache, tgt_in)
         p_t = probs_of(tgt_logits)  # [B, gamma+1, V]
 
         # acceptance: n_i accepted prefix per sequence, n the batch's least
@@ -154,10 +188,13 @@ def generate_speculative(
         else:
             pt_tok = torch.gather(p_t[:, :gamma], -1, t_draft[..., None])[..., 0]
             pd_tok = torch.gather(p_d, -1, t_draft[..., None])[..., 0]
-            u = torch.rand(t_draft.shape, generator=generator, device=device)
+            u = uniforms(tuple(t_draft.shape))
             acc = u * pd_tok < pt_tok
         n_i = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1)  # [B]
-        n = int(n_i.min())  # the round's host sync
+        n_min = n_i.min().reshape(1)
+        if shards is not None:
+            n_min = shards.min_over_dp(n_min)  # the least over every rank's rows
+        n = int(n_min)  # the round's host sync
 
         # emit n accepted draft tokens and one correction or bonus token
         if greedy:
@@ -172,7 +209,7 @@ def generate_speculative(
             # a draft equal to the target leaves an empty residual; fall
             # back to the target (a rejection there has probability 0)
             residual = torch.where(residual.sum(-1, keepdim=True) > 0, residual, p_t_n)
-            resample = sample(residual, generator)
+            resample = draw_rows(residual, generator, shards)
             t_pad = F.pad(t_draft, (0, 1))
             at_n = torch.where(n_i > n, t_pad[:, n], resample)
             emit = torch.where(cols < n, t_pad, at_n[:, None])
@@ -188,4 +225,53 @@ def generate_speculative(
         accepted += n
         n_out += n + 1
     stats = SpecStats(rounds=rounds, drafted=gamma * rounds, accepted=accepted)
-    return buf[:, :max_new_tokens].to(prompt.dtype), stats
+    out = buf[:, :max_new_tokens].to(prompt.dtype)
+    return (out if shards is None else shards.gather_rows(out)), stats
+
+
+def draft_serving_shardings(draft_cfg: TransformerConfig, mesh):
+    """The one home of the draft's shard-or-replicate policy: the (small)
+    draft shards tensor-parallel when its head counts (and vocab and d_ff)
+    divide tp, and is replicated otherwise, which costs its small weights
+    on every rank but keeps each draft step free of collectives. Returns
+    (layout, sharded)."""
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    layout = serving_shardings(draft_cfg, mesh, require=False)
+    if layout is not None:
+        return layout, True
+    return sharding.ServingLayout(sharding.ServingShards(mesh), None), False
+
+
+def make_sharded_speculative(
+    target_cfg: TransformerConfig,
+    draft_cfg: TransformerConfig,
+    mesh,
+    max_new_tokens: int,
+    *,
+    gamma: int = 4,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    quantized_target: bool = False,
+):
+    """Speculative decoding over a ``("dp", "tp")`` serving mesh: returns
+    (run, target_layout, draft_layout, prompt_layout), as the JAX package
+    returns (jitted_run, target_shardings, draft_shardings,
+    prompt_sharding). The target (an int8 tree with ``quantized_target``)
+    is laid out as ``decode.make_sharded_generate``'s model; the draft by
+    :func:`draft_serving_shardings`. ``run(target_local, draft_local,
+    prompt_local, generator=None)`` -> (the whole [B, max_new_tokens]
+    tokens, SpecStats) on every rank."""
+    target_layout = serving_shardings(target_cfg, mesh, quantized=quantized_target)
+    draft_layout, sharded = draft_serving_shardings(draft_cfg, mesh)
+    shards = target_layout.shards
+
+    def run(target_params, draft_params, prompt, generator=None):
+        return generate_speculative(
+            target_params, draft_params, prompt, target_cfg, draft_cfg,
+            max_new_tokens, gamma=gamma, temperature=temperature, top_k=top_k,
+            top_p=top_p, generator=generator, shards=shards,
+            draft_shards=shards if sharded else None)
+
+    return run, target_layout, draft_layout, shards.local_rows

@@ -57,6 +57,10 @@ flash kernels take nothing else):
 On a mesh axis of size 1 every operation here is the identity and no
 collective is issued, so a one-GPU mesh computes exactly what the
 single-device path does.
+
+Decode and serving run on a mesh of their own, the two-axis ``("dp",
+"tp")`` serving mesh: :class:`ServingShards` holds its collectives and
+:class:`ServingLayout` a param tree's layout over it.
 """
 
 from __future__ import annotations
@@ -330,3 +334,156 @@ def local(t: Any):
     from torch.distributed.tensor import DTensor
 
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+# -- the serving mesh ---------------------------------------------------------
+# the two axes of the decode and serving mesh, the JAX package's
+# ``MeshAxes(dp=, tp=)``: rows over dp, heads, the MLP hidden dim and the
+# vocabulary over tp. It is its own two-axis DeviceMesh, never laid over the
+# six-axis training mesh (see the DTensor note above)
+SERVING_AXES = ("dp", "tp")
+
+
+def _local_leaf(leaf, spec, sizes: Dict[str, int], index: Dict[str, int]):
+    """The slice of ``leaf`` this rank holds under ``spec``: each dim that
+    names a serving axis above 1 is cut into equal blocks, the rank keeping
+    its block in mesh order; other axes (fsdp, ep) are not on the serving
+    mesh and leave their dims whole. A cut leaf is a copy with storage of
+    its own, so the whole leaf can be freed once every rank has its block
+    (a view would keep the whole storage alive)."""
+    cut = leaf
+    for dim, entry in enumerate(spec):
+        for axis in spec_axes(entry):
+            n = sizes.get(axis, 1)
+            if n > 1:
+                cut = cut.chunk(n, dim)[index[axis]]
+    return leaf if cut is leaf else cut.clone(memory_format=torch.contiguous_format)
+
+
+class ServingShards:
+    """The collectives of a ``("dp", "tp")`` serving mesh that spans the
+    whole process group. Decode and serving run under ``torch.no_grad``,
+    so these are plain collectives, not autograd functions:
+
+    - tp: each rank holds its heads (q, k, v and the kv cache's kv-head
+      axis), its slice of the MLP hidden dim (each expert's too) and its
+      slice of the vocabulary (``lm_head``); :meth:`tp_sum` adds the
+      partial sums of the row-parallel projections (attention's output
+      projection, the MLP's down projection) and :meth:`vocab_gather`
+      joins the local logits [..., V/tp] into the whole [..., V], the same
+      bytes on every tp rank, so argmax ties and sampling decide alike;
+    - dp: each rank computes its block of rows (:meth:`row_range`);
+      :meth:`gather_rows` joins the ranks' rows and :meth:`broadcast_from`
+      sends a row's result from the rank that holds it;
+    - :meth:`agree` gives every rank rank 0's reading of a host value (the
+      engine's clock) and any rank's flag (a drain request) in one
+      collective, so that host decisions are the same on every rank.
+
+    On an axis of size 1 every operation is the identity and issues no
+    collective, so a world-1 mesh runs exactly the single-device code (and
+    a CUDA graph captures it as it does that code)."""
+
+    def __init__(self, mesh):
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        if names != SERVING_AXES:
+            raise ValueError(f"the serving mesh has the axes {SERVING_AXES}, "
+                             f"got {names}")
+        self.mesh = mesh
+        self.sizes = dict(zip(names, mesh.mesh.shape))
+        self.dp, self.tp = self.sizes["dp"], self.sizes["tp"]
+        self.groups = {name: mesh.get_group(name)
+                       for name, size in self.sizes.items() if size > 1}
+        self.index = {name: mesh.get_local_rank(name) for name in names}
+        self.dp_index, self.tp_index = self.index["dp"], self.index["tp"]
+        self.world = self.dp * self.tp
+        if mesh.device_type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self.device = torch.device(mesh.device_type)
+
+    def local(self, tree: Any, specs: Any) -> Any:
+        """This rank's leaves of a whole tree laid out by ``specs`` (the
+        spec tree mirrors the tree; an int8 leaf's spec is a ``{"qi8",
+        "scale"}`` dict like the leaf). ``specs`` None replicates the tree.
+        With tp = 1 every leaf comes back as the same tensor; otherwise a
+        tp-sharded leaf is a copy of this rank's block, so a caller that
+        drops the whole tree holds ~1/tp of the sharded leaves' bytes."""
+        if specs is None or self.tp == 1:
+            return tree
+
+        def walk(node, spec):
+            if isinstance(node, dict):
+                return {k: walk(v, spec[k]) for k, v in node.items()}
+            return _local_leaf(node, spec, self.sizes, self.index)
+
+        return walk(tree, specs)
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The partial sums of a row-parallel projection, added in place
+        over tp."""
+        if "tp" in self.groups:
+            dist.all_reduce(x, group=self.groups["tp"])
+        return x
+
+    def vocab_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., V/tp] local logits -> [..., V], tp ranks in mesh order."""
+        if "tp" not in self.groups:
+            return x
+        return _all_gather(x, x.dim() - 1, self.groups["tp"]).contiguous()
+
+    def row_range(self, n: int) -> Tuple[int, int]:
+        """[lo, hi): this rank's block of ``n`` rows (n divides dp)."""
+        per = n // self.dp
+        return self.dp_index * per, (self.dp_index + 1) * per
+
+    def row_owner(self, row: int, n: int) -> int:
+        """The dp index that holds row ``row`` of ``n``."""
+        return row // (n // self.dp)
+
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        lo, hi = self.row_range(x.shape[0])
+        return x[lo:hi]
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every dp rank's rows, in dp order, on every rank."""
+        if "dp" not in self.groups:
+            return x
+        return _all_gather(x, 0, self.groups["dp"])
+
+    def broadcast_from(self, x: torch.Tensor, owner: int) -> torch.Tensor:
+        """``x`` as dp rank ``owner`` holds it, in place on every dp rank."""
+        if "dp" in self.groups:
+            group = self.groups["dp"]
+            dist.broadcast(x, src=dist.get_global_rank(group, owner), group=group)
+        return x
+
+    def min_over_dp(self, x: torch.Tensor) -> torch.Tensor:
+        if "dp" in self.groups:
+            dist.all_reduce(x, op=dist.ReduceOp.MIN, group=self.groups["dp"])
+        return x
+
+    def agree(self, value: float, flag: bool = False) -> Tuple[float, bool]:
+        """Rank 0's ``value``, and whether ``flag`` is set on any rank, on
+        every rank of the mesh: one all-reduce (max) of [``value`` on rank
+        0, -inf elsewhere; ``flag``] and one host sync."""
+        if self.world == 1:
+            return value, flag
+        lead = self.dp_index == 0 and self.tp_index == 0
+        t = torch.tensor([value if lead else float("-inf"), float(flag)],
+                         dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        value, flag = t.tolist()
+        return value, flag > 0
+
+
+class ServingLayout:
+    """How a whole tree's leaves lie over a serving mesh, the port's
+    counterpart of a tree of JAX ``NamedSharding``: calling it on the whole
+    tree gives this rank's local leaves (``specs`` None: replicated)."""
+
+    def __init__(self, shards: ServingShards, specs: Any):
+        self.shards = shards
+        self.specs = specs
+
+    def __call__(self, tree: Any) -> Any:
+        return self.shards.local(tree, self.specs)

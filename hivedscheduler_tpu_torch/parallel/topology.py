@@ -97,6 +97,29 @@ def make_mesh(axes: MeshAxes, device_type: str = "cuda"):
     return init_device_mesh(device_type, axes.shape, mesh_dim_names=axes.names)
 
 
+def serving_mesh(dp: int = 1, tp: int = 1, device_type: str = "cuda"):
+    """The two-axis ``("dp", "tp")`` DeviceMesh of decode and serving (the
+    JAX package's ``make_mesh(MeshAxes(dp=, tp=))``) over the ranks of the
+    default process group, tp varying fastest. Raises ``ValueError`` when
+    dp x tp is not the world size: one process drives one GPU, so a mesh
+    cannot leave ranks out."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if dp < 1 or tp < 1:
+        raise ValueError(f"--dp/--tp must be >= 1, got dp={dp} tp={tp}")
+    if not dist.is_initialized():
+        raise RuntimeError("serving_mesh needs a process group; call "
+                           "initialize_from_gang first")
+    world = dist.get_world_size()
+    if world % (dp * tp):
+        raise ValueError(f"{world} devices not divisible by dp*tp={dp * tp}")
+    if world != dp * tp:
+        raise ValueError(f"{world} devices, but the serving mesh dp*tp="
+                         f"{dp * tp} must span all of them")
+    return init_device_mesh(device_type, (dp, tp), mesh_dim_names=("dp", "tp"))
+
+
 def mesh_from_slice(slice_shape: Sequence[int], axes: MeshAxes,
                     device_type: str = "cuda"):
     """A mesh for a scheduler-allocated slice of the given shape (``(2,

@@ -1,4 +1,4 @@
-"""Continuous-batching serving CLI on one device.
+"""Continuous-batching serving CLI on one device or a serving mesh.
 
 Counterpart of ``hivedscheduler_tpu/serve.py``'s single-engine path, with
 its flags, defaults and output: a synthetic stream of requests (random
@@ -44,8 +44,18 @@ when shipping and none was given). ``--autoscale`` runs the
 replicas in-process. ``--fleet-config`` reads those knobs and the SLO
 defaults from a YAML's ``fleet:`` section; explicit flags win. One
 ``[fid] tokens`` line per request, and the fleet summary (TTFT, tokens/s,
-handoffs, retries, affinity hits, autoscaler actions) in the log. Not yet
-ported, and refused with an error: ``--tp/--dp`` above 1.
+handoffs, retries, affinity hits, autoscaler actions) in the log.
+
+``--tp``/``--dp`` above 1, or a process the scheduler placed in a gang
+(its handoff in the environment, as ``train`` reads it) and not asked for
+``--fleet``, serve on a ``("dp", "tp")`` serving mesh
+(``ServingEngine(mesh=)``), one process a GPU: the process group comes
+from the gang handoff and its ranks must be exactly dp x tp (one process asked for ``--tp 2`` is a usage
+error). Every rank builds the same weights and trace from the seed and
+makes the same engine calls; a preemption signal on any rank drains every
+rank at the same step. Rank 0 alone prints the streams and the summary and
+writes ``--journal-file`` and ``--metrics-dump``. ``--fleet`` does not
+compose with them, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -63,13 +73,6 @@ log = logging.getLogger(__name__)
 # occupancy percent, decode steps
 SUMMARY_LOG = ("%s requests, %s tokens in %.2fs (%.1f tok/s), occupancy %.0f%% "
                "over %s decode steps")
-
-def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
-    for flag in ("tp", "dp"):
-        if getattr(args, flag) > 1:
-            parser.error(f"--{flag} > 1 is not yet ported: the port serves on "
-                         "one device")
-
 
 def _log_slo(tracker) -> None:
     """One SLO summary block at exit: windowed quantiles and, for each
@@ -262,8 +265,11 @@ def main(argv=None) -> int:
     parser.add_argument("--rope-theta", type=float, default=10000.0,
                         help="RoPE base frequency (must match the "
                         "checkpoint's training value)")
-    parser.add_argument("--tp", type=int, default=1, help="not yet ported")
-    parser.add_argument("--dp", type=int, default=1, help="not yet ported")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel serving over a tp mesh axis")
+    parser.add_argument("--dp", type=int, default=1,
+                        help="shard engine slots over a dp mesh axis "
+                        "(--max-batch must divide it)")
     parser.add_argument("--page-size", type=int, default=0,
                         help="paged KV cache: tokens per block (0 = dense "
                         "per-slot slabs; HIVED_PAGED_KV=0 forces dense)")
@@ -373,14 +379,18 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    _reject_unported(parser, args)
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
     fleet_cfg = _merge_fleet_config(parser, args)
-    if args.fleet > 0 and args.disaggregate and not 0 < args.prefill_replicas < args.fleet:
-        parser.error(
-            f"--disaggregate needs 0 < --prefill-replicas "
-            f"{args.prefill_replicas} < --fleet {args.fleet} (at least "
-            f"one prefill and one decode replica)")
+    sharded = args.tp > 1 or args.dp > 1
+    if args.fleet > 0:
+        if args.disaggregate and not 0 < args.prefill_replicas < args.fleet:
+            parser.error(
+                f"--disaggregate needs 0 < --prefill-replicas "
+                f"{args.prefill_replicas} < --fleet {args.fleet} (at least "
+                f"one prefill and one decode replica)")
+        if sharded:
+            parser.error("--fleet does not compose with --tp/--dp (each "
+                         "replica is a single-host engine in this CLI)")
     if args.prefix_cache > 0:
         # synthetic prompts are system + up to 16 tokens: fail fast rather
         # than let a mid-run submit() raise
@@ -392,19 +402,54 @@ def main(argv=None) -> int:
                 f"exceeds --max-len {args.max_len}")
 
     from hivedscheduler_tpu_torch.obs import journal as obs_journal
-    from hivedscheduler_tpu_torch.obs import slo as obs_slo
     from hivedscheduler_tpu_torch.obs import trace as obs_trace
+    from hivedscheduler_tpu_torch.parallel import distributed
 
-    if args.metrics_dump:
+    # the rank, read from the gang handoff before any process group, so
+    # that only rank 0 traces, spools and dumps; a process placed in a gang
+    # serves on the gang's mesh (a gang of one GPU gives the world-1 mesh)
+    gang = None if args.fleet > 0 else distributed.gang_from_env()
+    sharded = sharded or gang is not None
+    lead = gang is None or gang[1] == 0
+    if args.metrics_dump and lead:
         # request-lifecycle spans only reach the ring while tracing is on
         obs_trace.enable()
-    if args.journal_file:
+    if args.journal_file and lead:
         obs_journal.enable(spool_path=args.journal_file)
     from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
 
-    if args.goodput_file:
+    if args.goodput_file and lead:
         obs_goodput.enable(spool_path=args.goodput_file)
+    if not sharded:
+        return _serve(args, fleet_cfg, None, 0)
+    from hivedscheduler_tpu_torch import resolve_device
+    from hivedscheduler_tpu_torch.parallel import topology
+
+    # the serving mesh over the gang's GPUs: one process a GPU
+    rank, world = distributed.initialize_from_gang(device=args.device)
+    try:
+        if rank:
+            logging.getLogger().setLevel(logging.WARNING)  # rank 0 logs
+        try:
+            mesh = topology.serving_mesh(args.dp, args.tp,
+                                         resolve_device(args.device).type)
+        except ValueError as err:
+            parser.error(str(err))
+        log.info("serving mesh dp=%s tp=%s: rank %s of %s", args.dp, args.tp,
+                 rank, world)
+        return _serve(args, fleet_cfg, mesh, rank)
+    finally:
+        distributed.shutdown()
+
+
+def _serve(args, fleet_cfg, mesh, rank: int) -> int:
+    """Build the params and the engine (or the fleet) and serve the
+    synthetic trace; on a mesh every rank runs this and rank 0 reports."""
     import torch
+
+    from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
+    from hivedscheduler_tpu_torch.obs import journal as obs_journal
+    from hivedscheduler_tpu_torch.obs import slo as obs_slo
 
     from hivedscheduler_tpu_torch import resolve_device
     from hivedscheduler_tpu_torch.models import serving, transformer as tm
@@ -479,7 +524,7 @@ def main(argv=None) -> int:
         queue_timeout_s=args.queue_timeout if args.queue_timeout > 0 else None,
         age_boost_secs=args.age_boost_secs if args.age_boost_secs > 0 else None,
         decode_steps=args.decode_steps, page_size=args.page_size,
-        num_blocks=args.num_blocks)
+        num_blocks=args.num_blocks, mesh=mesh)
 
     def build_engine():
         # every replica shares the one set of params
@@ -525,6 +570,10 @@ def main(argv=None) -> int:
                         max_replicas=args.fleet_max or args.fleet))
         else:
             eng = build_engine()
+            # the engine holds its own leaves (on a mesh, this rank's
+            # slices): drop the whole trees, which only a fleet's later
+            # replicas would need
+            del params, spec_cfg
             if args.journal_file or obs_journal.JOURNAL.enabled:
                 # single-engine flights: serve/<rid> legs and terminal in the
                 # journal (the fleet's router opens fleet/<fid> flights)
@@ -560,7 +609,10 @@ def main(argv=None) -> int:
         while pending or (reqs and not all(r.done for r in reqs)):
             if faults.take_serve_preempt(steps):
                 listener.trigger()
-            if listener.requested:
+            # a signal on any rank drains every rank at this step; on a
+            # mesh the same collective agrees the step's clock reading
+            if eng.sync_step(listener.requested):
+                listener.trigger()
                 break
             if pending and steps % args.arrival_every == 0:
                 prompt, budget = pending.pop(0)
@@ -587,6 +639,8 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
 
     total_tokens = sum(len(r.tokens_out) for r in reqs)
+    if rank:
+        return 0  # rank 0 reports
     for r in reqs:
         print(f"[{r.rid}] " + " ".join(str(t) for t in r.tokens_out))
     for r in reqs:

@@ -60,9 +60,18 @@ tune. Checkpoints hold the base and the adapters, and the adapters'
 optimizer state; ``generate`` and ``serve`` merge them with the same
 ``--lora-*`` flags.
 
-Pipelining (``--pp``, ``--microbatches``), MoE under ``--sp`` above 1,
-the overlapped stack and elastic meshes (``--elastic``, ``--min-chips``)
-are not yet ported and exit with an error rather than being ignored.
+Elastic meshes, as in the JAX CLI: with ``--elastic`` the requested
+``--tp/--sp/--fsdp/--ep`` are preferences, and the mesh is
+``topology.elastic_axes`` for the slice the scheduler offered, the gang's
+world size (the GPUs the bind annotation granted), with a warning when it
+differs from the request; a checkpoint saved on one mesh restores onto the
+derived one. ``--min-chips`` is the job's floor: an offer below it exits
+nonzero on every rank before any weight is built. The checkpoint metadata
+records the floor and the request (``elastic``).
+
+Pipelining (``--pp``, ``--microbatches``), MoE under ``--sp`` above 1 and
+the overlapped stack are not yet ported and exit with an error rather than
+being ignored.
 """
 
 from __future__ import annotations
@@ -102,8 +111,6 @@ def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
         "--n-experts > 0 with --sp > 1 (MoE under sequence parallelism)":
             args.n_experts > 0 and args.sp > 1,
         "--overlap": bool(args.overlap),
-        "--elastic": args.elastic,
-        "--min-chips": args.min_chips > 0,
     }
     for flag, given in unported.items():
         if given:
@@ -214,8 +221,21 @@ def _parser() -> argparse.ArgumentParser:
                         help="data-loader stream seed (the loader's state "
                         "joins every checkpoint, so a resumed run continues "
                         "the uninterrupted stream)")
-    parser.add_argument("--elastic", action="store_true", help="not yet ported")
-    parser.add_argument("--min-chips", type=int, default=0, help="not yet ported")
+    parser.add_argument("--elastic", action="store_true",
+                        help="elastic mesh mode: treat --tp/--sp/--fsdp/"
+                        "--pp/--ep as PREFERENCES and derive a valid mesh "
+                        "for whatever slice the scheduler actually offered "
+                        "(the device count the bind annotation granted) "
+                        "instead of asserting the requested shape. A "
+                        "checkpoint saved on one mesh restores onto the "
+                        "derived one (cross-topology resume; "
+                        "doc/design/elastic.md)")
+    parser.add_argument("--min-chips", type=int, default=0,
+                        help="with --elastic: the smallest slice this job "
+                        "accepts; an offer below it exits nonzero instead "
+                        "of training degenerately (recorded in the "
+                        "checkpoint metadata as the job's shape ladder "
+                        "floor)")
     parser.add_argument("--grace-secs", type=float, default=30.0,
                         help="preemption grace period: SIGTERM/SIGINT "
                         "request checkpoint-and-exit at the next step "
@@ -256,6 +276,8 @@ def main(argv=None) -> int:
     if args.lora_mlp and args.n_experts > 0:
         parser.error("--lora-mlp adapts the dense MLP only (MoE experts are "
                      "not adapted)")
+    if args.min_chips and not args.elastic:
+        parser.error("--min-chips requires --elastic")
 
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
     from hivedscheduler_tpu_torch.parallel import distributed
@@ -263,6 +285,15 @@ def main(argv=None) -> int:
     # the rank, read from the gang handoff before any process group, so
     # that only rank 0 spools the journal and goodput
     gang = distributed.gang_from_env()
+    # the elastic floor: the offered slice is the gang's world size (the
+    # GPUs the bind annotation granted; one for an unscheduled run). Every
+    # rank reads the same annotation, so every rank exits here, before a
+    # process group or a weight exists
+    offered = 1 if gang is None else gang[2]
+    if args.elastic and args.min_chips and offered < args.min_chips:
+        raise SystemExit(
+            f"elastic job floor not met: offered {offered} chip(s), "
+            f"--min-chips {args.min_chips}")
     if args.journal_file and (gang is None or gang[1] == 0):
         from hivedscheduler_tpu_torch.obs import journal as obs_journal
 
@@ -355,10 +386,24 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
 
     device = resolve_device(args.device)
     # 2. the mesh over the gang's GPUs; dp takes what tp, sp, fsdp and ep
-    #    leave
+    #    leave. Elastic mode derives a valid mesh for the offered slice
+    #    instead of asserting the requested shape
     try:
-        axes = topology.infer_axes(world, tp=args.tp, sp=args.sp, fsdp=args.fsdp,
-                                   ep=args.ep)
+        if args.elastic:
+            axes = topology.elastic_axes(
+                world, tp=args.tp, sp=args.sp, fsdp=args.fsdp, pp=args.pp,
+                ep=args.ep, n_heads=args.n_heads,
+                n_kv_heads=args.n_kv_heads or args.n_heads,
+                global_batch=args.batch, seq_len=args.seq_len)
+            requested = (args.tp, args.sp, args.fsdp, args.pp, args.ep)
+            if (axes.tp, axes.sp, axes.fsdp, axes.pp, axes.ep) != requested:
+                log.warning(
+                    "elastic: requested (tp, sp, fsdp, pp, ep)=%s does not fit "
+                    "the offered %d-chip slice; derived mesh %s", requested,
+                    world, axes)
+        else:
+            axes = topology.infer_axes(world, tp=args.tp, sp=args.sp,
+                                       fsdp=args.fsdp, ep=args.ep)
     except ValueError as err:
         parser.error(str(err))
     mesh = topology.make_mesh(axes, device.type)
@@ -495,9 +540,16 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
     loader = make_loader(resume_meta.get("loader"), start_step)
     loader_snap = loader.to_dict()
     # the commit-marker sidecar: loader state of record + the resume
-    # identity (source mesh, model geometry, data stream)
+    # identity (source mesh, model geometry, data stream, shape ladder)
+    elastic_meta = None
+    if args.elastic:
+        elastic_meta = {
+            "min_chips": args.min_chips,
+            "requested": {"tp": args.tp, "sp": args.sp, "fsdp": args.fsdp,
+                          "pp": args.pp, "ep": args.ep},
+        }
     train_meta = ckpt.train_metadata(axes, cfg, global_batch=args.batch,
-                                     seq_len=args.seq_len)
+                                     seq_len=args.seq_len, elastic=elastic_meta)
 
     def save_checkpoint(step_no):
         if not args.checkpoint_dir:

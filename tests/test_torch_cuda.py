@@ -26,7 +26,10 @@ through its CUDA-graph decode window, greedy and sampled, int8 KV dense
 and paged; its graph refuses a rebound cache; the metrics registry counts
 one fused window a window the graph replays; a prefix imported into a
 graph-warmed engine keeps the pool's addresses and the next window
-replays without a new capture; the serve CLI prints its request lines. K1-K3 hold at the local shapes a tp=2 shard of the
+replays without a new capture; the serve CLI prints its request lines;
+``ServingEngine(mesh=)`` on a one-GPU NCCL serving mesh serves the
+mesh-less engine's streams and replays its graph windows with no new
+capture once warm. K1-K3 hold at the local shapes a tp=2 shard of the
 flagship launches, and a train step on a one-GPU NCCL mesh (DTensor
 state) equals the single-device step. K1-K3's f32 forms (the ring's hops)
 hold to their plain versions at hop shapes and, rounded once to bf16,
@@ -667,6 +670,37 @@ def test_import_prefix_keeps_the_graph_on_card(cuda, monkeypatch):
     assert src.prefix_hits == 1 and req.tokens_out == local.tokens_out
     tinv.check_block_pool(dst)
     compileguard.reset()
+
+
+def test_world_1_nccl_mesh_engine_replays_its_graph_and_serves_the_same_streams(
+        cuda, monkeypatch):
+    # ServingEngine(mesh=) on a one-GPU NCCL serving mesh issues no
+    # collective: its decode windows capture once, replay with no new
+    # capture once warm, and serve the mesh-less engine's streams, dense
+    # and paged
+    from hivedscheduler_tpu_torch.common import compileguard
+    from hivedscheduler_tpu_torch.parallel import distributed, topology
+
+    monkeypatch.setenv("HIVED_COMPILE_GUARD", "1")
+    cfg, params, prompts = _serve_setup("cuda")
+    try:
+        assert distributed.initialize_from_gang(device="cuda") == (0, 1)
+        mesh = topology.serving_mesh(1, 1, "cuda")
+        for extra in (dict(decode_steps=4), dict(page_size=8, decode_steps=4)):
+            compileguard.reset()
+            ref, _ = _serve_streams(params, cfg, prompts, **extra)
+            got, eng = _serve_streams(params, cfg, prompts, mesh=mesh, **extra)
+            assert got == ref, extra
+            assert eng.graph_windows == eng.fused_windows > 0, extra
+            assert compileguard.counts() == {"serve.decode_window": 2}, extra
+            windows = eng.graph_windows
+            with compileguard.budget(0):
+                req = eng.submit(prompts[1], 9)
+                eng.run_until_drained()
+            assert eng.graph_windows > windows and req.tokens_out == ref[1], extra
+    finally:
+        distributed.shutdown()
+        compileguard.reset()
 
 
 def test_serve_cli_on_card(cuda, capsys):

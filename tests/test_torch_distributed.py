@@ -341,10 +341,12 @@ def test_train_cli_refuses_each_unported_axis_with_its_own_message(flag, what, c
         assert "not yet ported" not in err
     else:
         assert f"{flag} > 1 is not yet ported: {what}" in err
+    # --elastic is ported (tests/test_torch_elastic.py); --min-chips without
+    # it is the JAX CLI's usage error
     with pytest.raises(SystemExit) as exc:
-        ttrain_cli.main(["--device", "cpu", "--elastic"])
+        ttrain_cli.main(["--device", "cpu", "--min-chips", "2"])
     assert exc.value.code == 2
-    assert "--elastic is not yet ported" in capsys.readouterr().err
+    assert "--min-chips requires --elastic" in capsys.readouterr().err
 
 
 def test_h100_config_gang_of_16_gets_ranks_0_to_15():

@@ -134,7 +134,9 @@ def test_sampled_rows_repeat_and_the_goodput_spool_records_the_decode(capsys, tm
 
 
 @pytest.mark.parametrize("extra", [
-    # MoE and LoRA decode; on a --tp/--dp mesh neither is ported yet
+    # --tp/--dp are ported (tests/test_torch_sharded_serving.py), MoE and
+    # LoRA on the mesh too: one process cannot lay a mesh of two ranks,
+    # which is a usage error, as train's is
     ["--tp", "2"], ["--dp", "2"], ["--n-experts", "2", "--tp", "2"],
     ["--lora-rank", "4", "--tp", "2"],
 ])
@@ -142,7 +144,9 @@ def test_unported_flags_exit_with_error(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         tgen_cli.main(CLI + extra)
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "1 devices not divisible by dp*tp=2" in err
+    assert "not yet ported" not in err
 
 
 @pytest.mark.parametrize("extra", [

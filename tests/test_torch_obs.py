@@ -44,7 +44,9 @@ PACKAGES = {"jax": (jjournal, jtrace, jgp), "port": (tjournal, ttrace, tgp)}
 def _reset_obs():
     for journal, trace, goodput in PACKAGES.values():
         journal.disable()
-        journal.JOURNAL.clear()
+        # a fresh journal: clear() keeps the request lanes' tid counter,
+        # which an earlier test file in the same process may have moved
+        journal.JOURNAL = journal.Journal()
         trace.disable()
         trace.TRACER.clear()
         goodput.GOODPUT.close()

@@ -6,8 +6,8 @@ arrivals, token for token, and the dense, paged and fused-window runs of
 one trace print the same streams. The summary lines are checked by their
 content (tokens/s, fused windows, prefix hits, the paged pool, the
 speculative acceptance), the preempt-at fault drains and exits 0,
-``--tp/--dp`` above 1 (not yet ported) exit non-zero, and ``--device cuda``
-without a card raises. ``--spec-decode`` serves the speculative engine's
+``--tp/--dp`` above 1 in one process (a usage error) exit non-zero, and
+``--device cuda`` without a card raises. ``--spec-decode`` serves the speculative engine's
 streams with the CLI's draft, and ``--lora-rank`` a LoRA run's merged
 model, each equal to the library run on the same weights.
 """
@@ -155,8 +155,10 @@ def test_cli_preempt_at_drains_and_exits_zero(capsys, log_lines, monkeypatch):
 
 @pytest.mark.parametrize("flag", [
     ["--tp", "2"], ["--dp", "2"],
-    # MoE, LoRA and speculative serving run; none of them on a --tp/--dp
-    # mesh yet
+    # --tp/--dp are ported (tests/test_torch_sharded_serving.py), MoE, LoRA
+    # and speculative serving on the mesh too: one process cannot lay a
+    # mesh of two ranks, a usage error; the fleet does not compose with a
+    # mesh, the JAX CLI's message
     ["--spec-decode", "--tp", "2"], ["--draft-layers", "1", "--dp", "2"],
     ["--n-experts", "4", "--tp", "2"], ["--lora-rank", "4", "--tp", "2"],
     ["--fleet", "2", "--tp", "2"],
@@ -164,8 +166,13 @@ def test_cli_preempt_at_drains_and_exits_zero(capsys, log_lines, monkeypatch):
 def test_cli_refuses_unported_flags(capsys, flag):
     with pytest.raises(SystemExit) as exc:
         tserve.main(CLI + flag)
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "not yet ported" not in err
+    if "--fleet" in flag:
+        assert "--fleet does not compose with --tp/--dp" in err
+    else:
+        assert "1 devices not divisible by dp*tp=2" in err
 
 
 def test_cli_on_cuda_without_a_card_raises():

@@ -405,14 +405,17 @@ def test_drain_finishes_or_preempts(models):
 
 def test_unported_options_raise(models):
     _, _, tcfg, tparams = models
-    # speculative serving is ported (tests/test_torch_serving_speculative.py);
-    # the mesh layout is not yet, with or without it
+    # speculative serving and the mesh layout are ported
+    # (tests/test_torch_serving_speculative.py,
+    # tests/test_torch_sharded_serving.py); a mesh must be the ("dp", "tp")
+    # serving mesh, with or without a draft
     from hivedscheduler_tpu_torch.models.speculative import SpecDecodeConfig
 
     spec = SpecDecodeConfig(draft_params=tparams, draft_cfg=tcfg)
     for kw in (dict(mesh=object()), dict(mesh=object(), spec_decode=spec)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError) as err:
             tsrv.ServingEngine(tparams, tcfg, **kw)
+        assert "the serving mesh has the axes ('dp', 'tp')" in str(err.value)
     with pytest.raises(ValueError):
         tsrv.ServingEngine(tparams, tcfg, decode_steps=0)
     with pytest.raises(ValueError):

@@ -262,9 +262,11 @@ def test_validation(setup):
             call()
         assert "bundle a draft-cache copy" in str(err.value)
     spec = SpecDecodeConfig(draft_params=dparams, draft_cfg=dcfg)
-    with pytest.raises(NotImplementedError) as err:
+    # the mesh layout is ported (tests/test_torch_sharded_serving.py); a
+    # mesh must be the ("dp", "tp") serving mesh
+    with pytest.raises(ValueError) as err:
         tsrv.ServingEngine(params, cfg, spec_decode=spec, mesh=object())
-    assert "not yet ported" in str(err.value)
+    assert "the serving mesh has the axes" in str(err.value)
     with pytest.raises(ValueError) as err:
         tsrv.SpeculativeServingEngine(params, cfg, dparams, dcfg, spec_decode=spec)
     assert "not both" in str(err.value)

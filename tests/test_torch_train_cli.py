@@ -132,7 +132,7 @@ def test_cuda_without_a_card_raises():
     ["--microbatches", "2"], ["--n-experts", "2", "--sp", "2"],
     ["--lora-rank", "4", "--on-nan", "skip"], ["--lora-mlp"],
     ["--lora-rank", "4", "--lora-mlp", "--n-experts", "2"], ["--overlap"],
-    ["--elastic"], ["--min-chips", "2"], ["--attn", "ring", "--sp", "2"],
+    ["--min-chips", "2"], ["--attn", "ring", "--sp", "2"],
 ])
 def test_unported_flags_exit_with_error(extra, capsys):
     # --tp, --fsdp, --ep and --sp are ported: on one device their mesh
@@ -146,6 +146,10 @@ def test_unported_flags_exit_with_error(extra, capsys):
     err = capsys.readouterr().err
     if "--on-nan" in extra:
         assert "--on-nan skip gates the full train step" in err
+    elif "--min-chips" in extra:
+        # --elastic is ported (tests/test_torch_elastic.py): the floor
+        # without it is the JAX CLI's usage error
+        assert "--min-chips requires --elastic" in err
     elif "--lora-mlp" in extra:
         assert ("requires --lora-rank > 0" if "--n-experts" not in extra
                 else "MoE experts are not adapted") in err

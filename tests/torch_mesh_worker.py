@@ -11,6 +11,12 @@ by ``initialize_from_gang``. A config with ``lora_rank`` trains through
 ``make_sharded_lora_train_step``: the adapters alone, the base frozen. Rank 0 writes what the tasks return to the
 job's ``out`` file (an ``.npz``). Inputs come as ``.npz`` files of named
 leaves (``layers.wq``) and token batches. This file imports no JAX.
+
+A job with ``serve`` runs decode and serving cases instead, on a ``("dp",
+"tp")`` serving mesh (``dp``, ``tp``): ``make_sharded_generate``,
+``make_sharded_speculative`` and ``ServingEngine(mesh=)`` (plain or
+speculative, with an optional injected clock skewed per rank), each rank
+writing its results as JSON to ``{out}.{rank}.json``.
 """
 
 import json
@@ -58,10 +64,142 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+class TickClock:
+    """An injected engine clock that advances ``tick`` seconds a read,
+    offset by ``skew`` (a rank's skewed clock)."""
+
+    def __init__(self, tick: float, skew: float = 0.0):
+        self.t, self.tick, self.skew = 0.0, tick, skew
+
+    def __call__(self) -> float:
+        self.t += self.tick
+        return self.t + self.skew
+
+
+def drive_engine(eng, requests):
+    """Serve ``requests`` ([prompt, budget, submit_at_step]) with
+    ``eng.step()`` until every request is done ->
+    [[tokens, finish_reason]] in submit order."""
+    pending = sorted(requests, key=lambda r: r[2])
+    reqs, step = [], 0
+    while pending or any(not r.done for r in reqs):
+        while pending and pending[0][2] <= step:
+            prompt, budget, _ = pending.pop(0)
+            reqs.append(eng.submit(list(prompt), budget))
+        eng.step()
+        step += 1
+    return [[r.tokens_out, r.finish_reason] for r in reqs]
+
+
+def _load_params(path: str, dtype):
+    from hivedscheduler_tpu_torch import bridge
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    with np.load(path) as f:
+        tree = unflatten(dict(f))
+    return tm.cast_params(bridge.from_numpy_tree(tree), dtype)
+
+
+def serve_case(case: dict, mesh, rank: int):
+    """One decode or serving case on the serving mesh; what it returns is
+    JSON (token lists, finish reasons, an error's text)."""
+    from hivedscheduler_tpu_torch.models import decode, quant, serving, speculative
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import sharding
+
+    cfg = tm.TransformerConfig(dtype=torch.float32, **case["cfg"])
+    params = _load_params(case["params"], cfg.dtype) if "params" in case else None
+    if case.get("lora"):
+        lcfg = tm.TransformerConfig(dtype=torch.float32, **dict(case["cfg"], **case["lora"]))
+        params = tm.merge_lora(params, lcfg)
+    if case.get("quantize"):
+        params = quant.quantize_params(params, cfg)
+    sampling = {k: case[k] for k in ("temperature", "top_k", "top_p") if k in case}
+    gen = None
+    if case.get("temperature", 0.0) > 0:
+        gen = torch.Generator().manual_seed(case["seed"])
+    kind = case["kind"]
+    try:
+        if kind == "generate":
+            run, layout, rows = decode.make_sharded_generate(
+                cfg, mesh, case["new"], quantized=bool(case.get("quantize")), **sampling)
+            out = run(layout(params), rows(torch.tensor(case["prompt"])), gen)
+            return out.tolist()
+        if kind == "param-bytes":
+            # each leaf: its bytes in the whole tree, the bytes of the
+            # storage the engine keeps, whether the layout cuts it over tp,
+            # and whether the engine's leaf still holds the whole storage
+            layout = decode.serving_shardings(cfg, mesh)
+            eng = serving.ServingEngine(params, cfg, mesh=mesh, **case["engine"])
+            out = {}
+
+            def walk(name, whole, local, spec):
+                if isinstance(whole, dict):
+                    for k in whole:
+                        walk(f"{name}.{k}" if name else k, whole[k], local[k], spec[k])
+                    return
+                cut = any("tp" in sharding.spec_axes(e) for e in spec)
+                out[name] = [whole.nbytes, local.untyped_storage().nbytes(), cut,
+                             local.untyped_storage().data_ptr()
+                             == whole.untyped_storage().data_ptr()]
+
+            walk("", params, eng.params, layout.specs)
+            return out
+        if kind == "layout":
+            # the error of laying the config over the mesh, or None
+            decode.serving_shardings(cfg, mesh, quantized=bool(case.get("quantize")))
+            return None
+        dcfg = dparams = None
+        if "draft_cfg" in case:
+            dcfg = tm.TransformerConfig(dtype=torch.float32, **case["draft_cfg"])
+            dparams = _load_params(case["draft_params"], dcfg.dtype)
+        if kind == "speculative":
+            run, tl, dl, rows = speculative.make_sharded_speculative(
+                cfg, dcfg, mesh, case["new"], gamma=case["gamma"],
+                quantized_target=bool(case.get("quantize")), **sampling)
+            out, _ = run(tl(params), dl(dparams), rows(torch.tensor(case["prompt"])), gen)
+            return out.tolist()
+        if kind == "engine":
+            kw = dict(case.get("engine", {}))
+            if "clock" in case:
+                c = case["clock"]
+                kw["clock"] = TickClock(c["tick"] * c.get("rate", {}).get(str(rank), 1.0),
+                                        c.get("skew", {}).get(str(rank), 0.0))
+            if dcfg is not None:
+                kw["spec_decode"] = speculative.SpecDecodeConfig(
+                    draft_params=dparams, draft_cfg=dcfg, gamma=case["gamma"])
+            eng = serving.ServingEngine(params, cfg, mesh=mesh, **kw)
+            return drive_engine(eng, case["requests"])
+        raise ValueError(f"unknown case kind {kind!r}")
+    except ValueError as err:
+        if not case.get("expect_error"):
+            raise
+        return {"error": str(err)}
+
+
+def serve_main(job: dict, rank: int) -> None:
+    """The serving job: every case on one ("dp", "tp") mesh; each rank
+    writes what its cases returned to ``{out}.{rank}.json``."""
+    from hivedscheduler_tpu_torch.parallel import distributed, topology
+
+    got_rank, world = distributed.initialize_from_gang(
+        coordinator_port=job["port"], device="cpu")
+    assert (got_rank, world) == (rank, job["world"]), (got_rank, world)
+    try:
+        mesh = topology.serving_mesh(job["dp"], job["tp"], "cpu")
+        out = {case["name"]: serve_case(case, mesh, rank) for case in job["cases"]}
+        with open(f"{job['out']}.{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        distributed.shutdown()
+
+
 def main(job_path: str, rank: int) -> None:
     with open(job_path) as f:
         job = json.load(f)
     os.environ.update(gang_env(job["world"], rank))
+    if job.get("serve"):
+        return serve_main(job, rank)
 
     from hivedscheduler_tpu_torch import bridge
     from hivedscheduler_tpu_torch.models import transformer as tm
