@@ -286,6 +286,31 @@ Phases, each of which must pass or the script exits non-zero:
     rows gathered out of order) are caught; tokens/s and TPOT p50 of the
     mesh and mesh-less engines in turns.
 
+(v) the pipeline and MoE under sequence parallelism on the one card (pp
+    and sp above 1 need more GPUs: the CPU gangs of the tests hold them).
+    Two 2-rank gloo gangs on the machine's CPU train
+    ``tests/test_pipeline_moe.py``'s tiny model at ``--pp 2 --microbatches
+    2`` and at ``--sp 2 --n-experts 4`` to a step-2 commit, beside two that
+    run uninterrupted to step 4; ``train --device cuda`` resumes each
+    commit on the card at pp 1 and sp 1: the state restored on the card
+    equals the checkpoint read on the CPU, the losses lie within the
+    elastic harness's 0.02 of the uninterrupted gang, and a planted restore
+    that swaps the two stages' layer blocks is caught (the state check
+    always, the losses for the dense model). Then, on the world-1 NCCL
+    mesh, (h)'s train step (6 layers, flash, remat dots, ce_chunk 512)
+    through the one-stage GPipe schedule at n_micro 2 and 4 against the
+    plain step from seed 0: K1-K3 launched n_micro times (h)'s per-step
+    counts, the first step's loss within (d)'s 1e-3 (the same weights and
+    batch) and every step's within (l)'s relative 1e-3 (the updates part in
+    bf16 rounding), first-step gradients by leaf group
+    within (h)'s limits, step ms by CUDA events and the step's peak memory
+    in turns; the same for the MoE model of (n) at 2 layers (n_micro 2),
+    its cross-entropy within 1e-3 and its aux printed beside the plain one
+    (they differ by design: per-microbatch statistics); and one pp = 2
+    stage's work (3 of the 6 layers, 4 microbatches, forward and backward,
+    no transfer) in turns with the whole 6-layer step, beside the GPipe
+    bubble (pp - 1) / (n_micro + pp - 1).
+
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and
@@ -5602,6 +5627,417 @@ def phase_elastic_mesh() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase (v): the pipeline and MoE under sequence parallelism. One card, so
+# pp = 1: the GPipe schedule at one stage on the world-1 mesh, at (h)'s
+# shape, and one pp = 2 stage's work; pp = 2 and sp = 2 run on CPU gangs
+PIPE_MICRO = (2, 4)
+PIPE_MOE_LAYERS = 2  # two MoE train states stay resident (~11 GB each)
+PIPE_TURNS = 2  # rounds of (plain, pipelined..., pipelined..., plain) steps
+PIPE_STAGE = dict(pp=2, n_micro=4)  # one stage: 3 of the 6 layers
+# the cross-layout resumes: tests/test_pipeline_moe.py's tiny model, 2 steps
+# on a 2-rank gloo gang, resumed on the card to 4, held to an uninterrupted
+# 2-rank run within the elastic harness's 0.02
+XLAYOUT_MODEL = ["--batch", "4", "--seq-len", "16", "--vocab-size", "64",
+                 "--d-model", "32", "--n-layers", "4", "--n-heads", "4", "--d-ff", "64",
+                 "--log-every", "100", "--checkpoint-every", "2"]
+# name: (the gang's flags, the card's flags)
+XLAYOUT_GANGS = {"pp2": (["--pp", "2", "--microbatches", "2"], []),
+                 "sp2-moe": (["--sp", "2", "--n-experts", "4"], ["--n-experts", "4"])}
+XLAYOUT_SPLIT, XLAYOUT_STEPS = 2, 4
+
+
+def _pipe_cfg(n_micro: int, **over):
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    return tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", remat="dots",
+                                pipeline_microbatches=n_micro, **dict(EVAL_MODEL, **over))
+
+
+def _short_grads(params, grads) -> dict:
+    """{leaf name without ``layers.``: its whole gradient} (world 1)."""
+    from hivedscheduler_tpu_torch.parallel import sharding
+    from hivedscheduler_tpu_torch.parallel.checkpoint import named_leaves
+
+    return {name.split(".")[-1]: sharding.local(g)
+            for name, g in zip(named_leaves(params), grads)}
+
+
+def _pipe_states(mesh, host, micro, **over) -> dict:
+    """{n_micro (0: the plain step): (step, params, opt, tokens)} from
+    seed 0 on the world-1 mesh."""
+    import torch
+
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    states = {}
+    for n in (0,) + tuple(micro):
+        step, init_fn, tok_sh = port_train.make_sharded_train_step(
+            _pipe_cfg(n, **over), mesh, ce_chunk=EVAL_CE_CHUNK)
+        params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        tokens = [data_lib.device_put_global(x, tok_sh, EVAL_BATCH) for x in host]
+        states[n] = (step, params, opt, tokens)
+    return states
+
+
+def _pipe_turns(states, tag: str) -> dict:
+    """Steps of each state timed in turns by CUDA events, with the peak
+    device memory each step adds to what is resident."""
+    import torch
+
+    names = list(states)
+    order = names + names[::-1]
+    ms = {n: [] for n in names}
+    peak = {n: 0 for n in names}
+    for _ in range(PIPE_TURNS):
+        for n in order:
+            step, params, opt, tokens = states[n]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms[n] += _steps_by_events(step, params, opt, tokens[:1])[1]
+            peak[n] = max(peak[n], torch.cuda.max_memory_allocated() - base)
+    label = {n: "plain" if n == 0 else f"pipeline n_micro {n}" for n in names}
+    print(f"{tag} step ms in turns ({PIPE_TURNS} x {', '.join(label[n] for n in order)}; "
+          f"{card_line()}): " + "; ".join(
+              f"{label[n]} {', '.join(f'{x:.3f}' for x in ms[n])} (median "
+              f"{sorted(ms[n])[len(ms[n]) // 2]:.3f}), step peak over the resident "
+              f"states {peak[n] / 1e9:.2f} GB" for n in names))
+    return {n: dict(ms=ms[n], peak_gb=peak[n] / 1e9) for n in names}
+
+
+def _pipe_dense(mesh, h_flash: dict) -> dict:
+    """1: the flagship step through the one-stage pipeline (n_micro 2 and
+    4) in turns with the plain step: launches, losses, gradients by group,
+    step ms and peak memory. Returns the n_micro 2 run's launches."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(EVAL_MODEL["vocab_size"]), EVAL_BATCH, EVAL_SEQ)
+    host = [np.asarray(next(loader)) for _ in range(TRAIN_STEPS)]
+    states = _pipe_states(mesh, host, PIPE_MICRO)
+    # the first step's gradients, before any update, each from seed 0
+    grads = {}
+    for n, (_, params, _, tokens) in states.items():
+        _, g = port_train.value_and_grad(params, tokens[0], _pipe_cfg(n), mesh,
+                                         ce_chunk=EVAL_CE_CHUNK)
+        grads[n] = _short_grads(params, g)
+    layers = EVAL_MODEL["n_layers"]
+    per_step = {"fwd": 2 * layers, "dq": layers, "dkv": layers}
+    losses, launches = {}, {}
+    for n, (step, params, opt, tokens) in states.items():
+        _zero_launches(attn)
+        losses[n], _ = _steps_by_events(step, params, opt, tokens)
+        launches[n] = {k: v for k, v in _count_launches(attn).items() if k in per_step}
+    for n in PIPE_MICRO:
+        groups, worst = _group_errs(grads[n], grads[0])
+        want = {k: n * v * TRAIN_STEPS for k, v in per_step.items()}
+        first = abs(losses[n][0] - losses[0][0])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[n], losses[0]))
+        print(f"[v] one-stage pipeline, n_micro {n}, at (h)'s shape (world-1 mesh, flash, "
+              f"remat dots, ce_chunk {EVAL_CE_CHUNK}): K1/K2/K3 launches over "
+              f"{TRAIN_STEPS} steps {launches[n]} (want {want}: n_micro x (h)'s per-step "
+              f"{per_step}); losses {losses[n]} vs plain {losses[0]}: the first step's "
+              f"|diff| {first:.3e} (<= {LOSS_ATOL}), every step's relative |diff| <= "
+              f"{rel:.3e} (<= {MESH_LOSS_REL}); first-step gradients vs plain by group: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in groups.items())
+              + f" (<= {TRAIN_GRAD_REL}), worst (leaf, layer) {worst:.3e} "
+              f"(<= {TRAIN_GRAD_SLICE_REL})")
+        check(launches[n] == want, f"[v] n_micro {n} launched {launches[n]}, want {want}")
+        check(first <= LOSS_ATOL and rel <= MESH_LOSS_REL,
+              f"[v] n_micro {n} losses off the plain step's")
+        check(all(v <= TRAIN_GRAD_REL for v in groups.values())
+              and worst <= TRAIN_GRAD_SLICE_REL, f"[v] n_micro {n} gradients off")
+    check(all(math.isfinite(x) for x in losses[0]), "[v] non-finite plain losses")
+    print(f"[v] the plain mesh step's losses {losses[0]} vs (h)'s CLI {h_flash['losses']}")
+    timing = _pipe_turns(states, "[v] dense")
+    # whether the pipelined steps wait on the host: one traced step of each
+    for n, (step, params, opt, tokens) in states.items():
+        wall, busy, parts = _step_profile(step, params, opt, tokens[0])
+        timing[n].update(wall_ms=wall, busy_ms=busy)
+        print(f"[v] one traced step, {'plain' if n == 0 else f'pipeline n_micro {n}'}: "
+              f"wall {wall:.3f} ms, device busy {busy:.3f} ms (idle "
+              f"{1 - busy / wall:.1%}): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    del states, grads
+    torch.cuda.empty_cache()
+    return {"launches": launches[PIPE_MICRO[0]], "timing": timing}
+
+
+def _pipe_moe(mesh) -> None:
+    """2: the MoE model ([n]'s 8 experts, top-2, 2 layers) through the
+    one-stage pipeline (n_micro 2) against the plain step: the
+    cross-entropy within (d)'s limit, the aux beside the plain one (they
+    differ by design), step ms in turns."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    over = dict(n_layers=PIPE_MOE_LAYERS, n_experts=MOE_MODEL["n_experts"],
+                moe_top_k=MOE_MODEL["moe_top_k"])
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(EVAL_MODEL["vocab_size"]), EVAL_BATCH, EVAL_SEQ)
+    host = [np.asarray(next(loader))]
+    states = _pipe_states(mesh, host, PIPE_MICRO[:1], **over)
+    out = {}
+    with torch.no_grad():
+        for n, (_, params, _, tokens) in states.items():
+            cfg = _pipe_cfg(n, **over)
+            _, aux = tm.forward_with_aux(params, tokens[0], cfg, mesh)
+            ce = port_train.loss_fn(params, tokens[0], cfg, mesh, ce_chunk=EVAL_CE_CHUNK,
+                                    include_aux=False)
+            out[n] = (float(ce), float(aux))
+    n = PIPE_MICRO[0]
+    diff = abs(out[n][0] - out[0][0])
+    print(f"[v] MoE (8 experts, top-2, {PIPE_MOE_LAYERS} layers) through the one-stage "
+          f"pipeline, n_micro {n}: cross-entropy {out[n][0]:.6f} vs plain {out[0][0]:.6f} "
+          f"(|diff| {diff:.3e} <= {LOSS_ATOL}); aux {out[n][1]:.6e} vs plain "
+          f"{out[0][1]:.6e}: they differ by design (the pipeline takes each "
+          f"microbatch's routing statistics, the JAX package's stage body; the plain "
+          f"step the whole batch's)")
+    check(diff <= LOSS_ATOL, "[v] the pipelined MoE cross-entropy is off the plain one")
+    _pipe_turns(states, "[v] MoE")
+    del states
+    torch.cuda.empty_cache()
+
+
+def _pipe_stage(mesh) -> dict:
+    """3: one pp = 2 stage's work, 3 of the 6 layers on 4 microbatches
+    forward and backward with no transfer, in turns with the whole
+    6-layer plain step; with the GPipe bubble."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import pipeline
+
+    pp, n_micro = PIPE_STAGE["pp"], PIPE_STAGE["n_micro"]
+    layers = EVAL_MODEL["n_layers"] // pp
+    cfg = _pipe_cfg(n_micro, n_layers=layers)
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    for leaf in params["layers"].values():
+        leaf.requires_grad_(True)
+    shards = tm.mesh_shards(mesh, cfg)
+    stage = pipeline.Stage(cfg, tm._resolve_attn_fn(cfg, mesh), shards)
+    mb = EVAL_BATCH // n_micro
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xs = [torch.randn(mb, EVAL_SEQ, cfg.d_model, device="cuda", dtype=cfg.dtype,
+                      generator=gen) for _ in range(n_micro)]
+    dys = [torch.randn_like(x) for x in xs]
+    positions = tm.token_positions(torch.zeros(mb, EVAL_SEQ, device="cuda"), shards)
+    leaves = list(params["layers"].values())
+
+    def work():
+        outs = []
+        for x in xs:
+            outs.append(stage.run(x.requires_grad_(True), positions, params["layers"])[0])
+        for x, y, dy in zip(reversed(xs), reversed(outs), reversed(dys)):
+            torch.autograd.grad([y], leaves + [x], [dy])
+
+    _zero_launches(attn)
+    work()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _count_launches(attn).items() if k in ("fwd", "dq", "dkv")}
+    want = {"fwd": 2 * layers * n_micro, "dq": layers * n_micro, "dkv": layers * n_micro}
+    check(got == want, f"[v] one stage launched {got}, want {want}")
+    # the whole 6-layer plain step on the same card, in turns
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(EVAL_MODEL["vocab_size"]), EVAL_BATCH, EVAL_SEQ)
+    whole = _pipe_states(mesh, [np.asarray(next(loader))], ())[0]
+    _steps_by_events(*whole)  # the warm-up: the optimizer's state is made
+    ms = {"stage": [], "whole": []}
+    for _ in range(PIPE_TURNS):
+        for name in ("whole", "stage", "stage", "whole"):
+            if name == "whole":
+                ms[name] += _steps_by_events(*whole)[1]
+            else:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                work()
+                end.record()
+                torch.cuda.synchronize()
+                ms[name].append(start.elapsed_time(end))
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    bubble = pipeline.bubble(pp, n_micro)
+    print(f"[v] one pp = {pp} stage's work ({layers} of {EVAL_MODEL['n_layers']} layers, "
+          f"{n_micro} microbatches of {mb} rows, forward and backward, no transfer; "
+          f"launches {got}) in turns with the whole {EVAL_MODEL['n_layers']}-layer plain "
+          f"step ({card_line()}): stage {', '.join(f'{x:.3f}' for x in ms['stage'])} ms "
+          f"(median {med['stage']:.3f}), whole step {', '.join(f'{x:.3f}' for x in ms['whole'])}"
+          f" ms (median {med['whole']:.3f}); GPipe bubble (pp - 1) / (n_micro + pp - 1) = "
+          f"{bubble:.3f}, so a pp = {pp} step would take at least {med['stage']:.3f} / "
+          f"(1 - {bubble:.3f}) = {med['stage'] / (1 - bubble):.3f} ms of each stage's time "
+          f"before transfers, embedding and loss")
+    del params, stage, whole, xs, dys
+    torch.cuda.empty_cache()
+    return {"stage_ms": med["stage"], "whole_ms": med["whole"], "bubble": bubble}
+
+
+def _start_layout_gangs(tmp: str) -> dict:
+    """4a: for each of ``XLAYOUT_GANGS``, a 2-rank gloo gang on the
+    machine's CPU that commits step 2 and one that runs uninterrupted to
+    step 4; awaited by :func:`_layout_resumes`."""
+    from hivedscheduler_tpu_torch.chaos import workload as chaos
+    from hivedscheduler_tpu_torch.parallel import distributed
+
+    started = {}
+    for name, (flags, _) in XLAYOUT_GANGS.items():
+        for run, steps in (("ck", XLAYOUT_SPLIT), ("ref", XLAYOUT_STEPS)):
+            port = str(distributed._free_local_port())
+            argv = XLAYOUT_MODEL + flags + [
+                "--device", "cpu", "--steps", str(steps),
+                "--checkpoint-dir", os.path.join(tmp, f"v-{name}-{run}"),
+                "--timeline", os.path.join(tmp, f"v-{name}-{run}.jsonl")]
+            started[(name, run)] = [subprocess.Popen(
+                [sys.executable, "-c", chaos._GANG_LAUNCH, port] + argv, cwd=REPO,
+                env=chaos.cpu_only_env(gang=(2, rank)), stdout=subprocess.DEVNULL,
+                stderr=subprocess.DEVNULL) for rank in range(2)]
+    return started
+
+
+def _swapped_stages(real_restore):
+    """A restore that swaps the two halves of every stacked layer leaf
+    (the two pp = 2 stages' blocks) after loading: the planted fault."""
+    import torch
+
+    def restore(directory, params, opt_state, step=None):
+        out = real_restore(directory, params, opt_state, step)
+        with torch.no_grad():
+            for leaf in params["layers"].values():
+                half = leaf.shape[0] // 2
+                leaf.copy_(torch.cat([leaf[half:], leaf[:half]]))
+        return out
+
+    return restore
+
+
+def _layout_resumes(tmp: str, started: dict) -> dict:
+    """4b: each gang's commit resumed on the card by ``train --device cuda``
+    at pp 1 and sp 1: the restored state equal to the checkpoint read on
+    the CPU, the losses within the harness's 0.02 of the uninterrupted
+    gang, the restore seconds; the stages' layer blocks swapped on restore
+    caught."""
+    import torch
+
+    from hivedscheduler_tpu_torch import train as port_train
+    from hivedscheduler_tpu_torch.chaos import workload as chaos
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+    from hivedscheduler_tpu_torch.parallel import train as ptrain
+
+    for key, procs in started.items():
+        rcs = [p.wait(timeout=600) for p in procs]
+        check(rcs == [0, 0], f"[v] the {key} CPU gang exited {rcs}")
+    def mismatches(params, opt, params2, opt2) -> int:
+        """Parameters and AdamW entries of a card state that differ from a
+        CPU state's."""
+        a, b = ckpt.named_leaves(params), ckpt.named_leaves(params2)
+        bad = 0
+        for name, x in a.items():
+            y = b[name]
+            pairs = [(x, y)] + [(m, opt2.state[y].get(k)) for k, m in opt.state[x].items()]
+            bad += sum(1 for u, v in pairs
+                       if v is None or not torch.equal(u.detach().cpu(), v.detach().cpu()))
+        return bad
+
+    out = {}
+    for name, (flags, card_flags) in XLAYOUT_GANGS.items():
+        ck = os.path.join(tmp, f"v-{name}-ck")
+        saved = ckpt.read_metadata(ck)
+        experts = 4 if "--n-experts" in flags else 0
+        cfg = tm.TransformerConfig(vocab_size=64, d_model=32, n_heads=4, n_layers=4,
+                                   d_ff=64, max_seq_len=16, n_experts=experts)
+
+        def restored(device, restore):
+            _, init_fn = ptrain.make_train_step(cfg, device)
+            params, opt = init_fn(torch.Generator(device=device).manual_seed(1))
+            t0 = time.perf_counter()
+            restore(ck, params, opt)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return params, opt, time.perf_counter() - t0
+
+        cpu_params, cpu_opt, _ = restored("cpu", ckpt.restore)
+        faults = {}
+        seconds = None
+        for planted in (False, True):
+            restore = _swapped_stages(ckpt.restore) if planted else ckpt.restore
+            params, opt, s = restored("cuda", restore)
+            seconds = seconds if planted else s
+            faults[planted] = mismatches(cpu_params, cpu_opt, params, opt)
+            del params, opt
+            bad = os.path.join(tmp, f"v-{name}-{'bad' if planted else 'card'}")
+            shutil.copytree(ck, bad)
+            args = XLAYOUT_MODEL + card_flags + [
+                "--device", "cuda", "--steps", str(XLAYOUT_STEPS), "--checkpoint-dir", bad,
+                "--timeline", os.path.join(tmp, f"v-{name}-{planted}.jsonl")]
+            real = ckpt.restore
+            ckpt.restore = restore
+            try:
+                rc = port_train.main(args)
+            finally:
+                ckpt.restore = real
+            check(rc == 0, f"[v] the {name} resume on the card exited {rc}")
+            got = chaos.read_timeline(os.path.join(tmp, f"v-{name}-{planted}.jsonl"))
+            ref = chaos.read_timeline(os.path.join(tmp, f"v-{name}-ref.jsonl"))
+            err = max(abs(got[s] - ref[s]) for s in got)
+            after = ckpt.read_metadata(bad)
+            out[(name, planted)] = err
+            print(f"[v] {name} gang commit (mesh {saved['mesh']}) resumed on the card "
+                  f"{'with the stages swapped on restore (planted)' if planted else ''}: "
+                  f"state mismatches against the checkpoint read on the CPU "
+                  f"{faults[planted]}, losses {got} vs the uninterrupted gang "
+                  f"{ {s: ref[s] for s in got} }: max |diff| {err:.3e} (limit "
+                  f"{chaos.ElasticWorkloadHarness.LOSS_ATOL}); new commit mesh "
+                  f"{after['mesh']}" + ("" if planted else f"; restore {seconds:.3f} s"))
+            check(sorted(got) == list(range(XLAYOUT_SPLIT + 1, XLAYOUT_STEPS + 1)),
+                  f"[v] the {name} resume ran steps {sorted(got)}")
+        check(faults[False] == 0, f"[v] the {name} state restored on the card differs")
+        check(faults[True] > 0, f"[v] the {name} state check does not see the planted swap")
+        check(out[(name, False)] <= chaos.ElasticWorkloadHarness.LOSS_ATOL,
+              f"[v] the {name} resumed losses are off the uninterrupted gang's")
+        out[name] = seconds
+    # the dense pipeline's swap moves the loss past the limit as well
+    check(out[("pp2", True)] > chaos.ElasticWorkloadHarness.LOSS_ATOL,
+          "[v] the loss check does not see the pp2 stages swapped")
+    return out
+
+
+def phase_pipeline(h_flash: dict) -> dict:
+    """(v): the pipeline at one stage and one pp = 2 stage's work on the
+    world-1 NCCL mesh, then the pp = 2 and sp = 2 MoE gangs' checkpoints
+    resumed on the card."""
+    from hivedscheduler_tpu_torch.parallel import topology
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-v-")
+    try:
+        # the CPU gangs run beside the untimed checks only
+        started = _start_layout_gangs(tmp)
+        try:
+            resumes = _layout_resumes(tmp, started)
+        finally:
+            _stop([p for procs in started.values() for p in procs])
+        with _world_1_gang():
+            mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
+            dense = _pipe_dense(mesh, h_flash)
+            _pipe_moe(mesh)
+            stage = _pipe_stage(mesh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[v] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return dict(dense, stage=stage, resumes=resumes)
+
+
 def _stop(procs) -> None:
     """Kill and reap every process of ``procs`` still running."""
     for p in procs:
@@ -5653,6 +6089,7 @@ def main() -> int:
     phase_obs()
     phase_fleet(srv)
     phase_elastic_mesh()
+    pipe = phase_pipeline(train_flash)
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"
@@ -5689,6 +6126,17 @@ def main() -> int:
         dict(name=f"{name}{form}_d256", route="cuda", source=source + lib,
              replaces=f"hivedscheduler_tpu/ops/attention.py:{line}", **rows[key])
         for form, rows in (("", gemma), ("_f32", gemma_f32))
+        for name, key, lib, line in (("flash_fwd", "fwd", "flash_fwd.cu", 98),
+                                     ("flash_bwd_dq", "dq", "flash_bwd.cu", 143),
+                                     ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 179))]
+    # and through (v)'s one-stage pipeline at n_micro 2: its launches over
+    # (h)'s steps, the errors and times of (b)-(c) and (f)-(g) at that shape
+    measured = {"fwd": (max_err, timing), "dq": (bwd_err["dq"], bwd_timing["dq"]),
+                "dkv": (bwd_err["dkv"], bwd_timing["dkv"])}
+    kernels += [
+        dict(name=f"{name}_pipeline", route="cuda", source=source + lib,
+             replaces=f"hivedscheduler_tpu/ops/attention.py:{line}",
+             launches=pipe["launches"][key], max_abs_err=measured[key][0], **measured[key][1])
         for name, key, lib, line in (("flash_fwd", "fwd", "flash_fwd.cu", 98),
                                      ("flash_bwd_dq", "dq", "flash_bwd.cu", 143),
                                      ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 179))]

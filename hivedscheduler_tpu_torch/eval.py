@@ -16,9 +16,9 @@ the run opens its process group from the scheduler's gang handoff, lays
 the mesh ``infer_axes(world, tp=, sp=, fsdp=, ep=)`` over it, and each rank
 reads its data-parallel share of every window (over sp, its slice of the
 sequence). A mixture-of-experts model (``--n-experts``, ``--moe-top-k``)
-routes with the training capacity and its loss leaves out the aux terms;
-``--ep`` shards its experts. MoE with ``--sp`` above 1 is not yet ported
-and exits with an error rather than being ignored.
+routes with the training capacity (at ``--sp`` above 1 on the whole
+sequence's length, as on one device) and its loss leaves out the aux
+terms; ``--ep`` shards its experts.
 """
 
 from __future__ import annotations
@@ -35,12 +35,6 @@ log = logging.getLogger(__name__)
 
 # the window loop's timing line: n windows, tokens, seconds, tokens/s
 WINDOWS_LOG = "%s windows (%s tokens) in %.2fs (%.0f tok/s)"
-
-
-def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
-    if args.n_experts > 0 and args.sp > 1:
-        parser.error("--n-experts > 0 with --sp > 1 (MoE under sequence "
-                     "parallelism) is not yet ported")
 
 
 def main(argv=None) -> int:
@@ -87,7 +81,6 @@ def main(argv=None) -> int:
                         help="cuda (default) or cpu")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    _reject_unported(parser, args)
 
     common.init_all(logging.DEBUG if args.verbose else logging.INFO)
     from hivedscheduler_tpu_torch.parallel import distributed

@@ -14,20 +14,21 @@ dispatch, the Switch load-balance loss and the ST-MoE z-loss) with every
 ``attn_impl`` (``xla``, ``flash`` and the sequence-parallel family of
 ``parallel/ring_attention.py``), differentiable, with the ``remat``
 policies of the layer loop, on one device or over a six-axis
-``DeviceMesh`` with dp, fsdp, ep, tp and sp above 1 (``sharding_specs``
+``DeviceMesh`` with dp, fsdp, pp, ep, tp and sp above 1 (``sharding_specs``
 gives each leaf's layout; ``parallel/sharding.py`` holds the
 collectives). At sp above 1, ``xla`` and ``flash`` gather the sequence
-and attend over all of it, as the JAX package's GSPMD layer does; the ring
+and attend over all of it, as the JAX package's GSPMD layer does, and MoE
+keeps the unsharded routing (capacity on the global length); the ring
 family needs a mesh, as in the JAX package; a mesh of one device is
-enough.
+enough. With ``pipeline_microbatches > 0`` the layers run as GPipe stages
+over pp (``parallel/pipeline.py``), which also needs a mesh.
 
 LoRA (``lora_rank > 0``): rank-r adapters on the attention projections
 and, with ``lora_mlp``, on the dense MLP's, each scaled by ``lora_alpha /
 lora_rank``; ``split_lora_params`` and ``combine_lora_params`` part the
 tree for the adapter-only train step (``parallel/train.py``) and
 ``merge_lora`` folds the adapters back into the base weights for
-serving. Pipelining (pp), MoE at sp above 1 and the overlapped
-tensor-parallel stack raise "not yet ported".
+serving. The overlapped tensor-parallel stack raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -120,8 +121,6 @@ def check_supported(cfg: TransformerConfig) -> None:
         # training every parameter when MLP adapters were asked for would
         # defeat the flag
         raise ValueError("lora_mlp requires lora_rank > 0")
-    if cfg.pipeline_microbatches > 0:
-        raise _not_yet_ported("pipelining")
     if cfg.overlap:
         raise _not_yet_ported("the overlapped tensor-parallel stack")
     if cfg.attn_impl not in ATTN_IMPLS:
@@ -256,45 +255,47 @@ def sharding_specs(cfg: TransformerConfig) -> Dict[str, Any]:
     tree: one entry per tensor dim (None, an axis name or a tuple of
     names). tp shards heads and the MLP hidden dim (each expert's too),
     fsdp the complementary axis, ep the expert axis; the router is
-    replicated over ep and tp, and the leading layer axis is not sharded.
-    The LoRA rank axis is replicated; each adapter's other axes mirror its
-    base projection's, so the adapter products stay tp-local. The pipeline
-    (pp) layout is not yet ported."""
+    replicated over ep and tp. The leading layer axis is sharded over pp
+    when the model is pipelined (``pipeline_microbatches > 0``: stage s
+    holds its contiguous block of layers), else not. The LoRA rank axis is
+    replicated; each adapter's other axes mirror its base projection's, so
+    the adapter products stay tp-local."""
     check_supported(cfg)
+    pl = "pp" if cfg.pipeline_microbatches > 0 else None
     fsdp, tp = "fsdp", "tp"
     layers = {
-        "attn_norm": (None, None),
-        "wq": (None, fsdp, tp, None),
-        "wk": (None, fsdp, tp, None),
-        "wv": (None, fsdp, tp, None),
-        "wo": (None, tp, None, fsdp),
-        "mlp_norm": (None, None),
+        "attn_norm": (pl, None),
+        "wq": (pl, fsdp, tp, None),
+        "wk": (pl, fsdp, tp, None),
+        "wv": (pl, fsdp, tp, None),
+        "wo": (pl, tp, None, fsdp),
+        "mlp_norm": (pl, None),
     }
     if cfg.n_experts > 0:
         layers.update(
-            router=(None, fsdp, None),
-            w_gate=(None, "ep", fsdp, tp),
-            w_up=(None, "ep", fsdp, tp),
-            w_down=(None, "ep", tp, fsdp),
+            router=(pl, fsdp, None),
+            w_gate=(pl, "ep", fsdp, tp),
+            w_up=(pl, "ep", fsdp, tp),
+            w_down=(pl, "ep", tp, fsdp),
         )
     else:
         layers.update(
-            w_gate=(None, fsdp, tp),
-            w_up=(None, fsdp, tp),
-            w_down=(None, tp, fsdp),
+            w_gate=(pl, fsdp, tp),
+            w_up=(pl, fsdp, tp),
+            w_down=(pl, tp, fsdp),
         )
     if cfg.lora_rank > 0:
         layers.update(
-            lora_wq_a=(None, fsdp, None), lora_wq_b=(None, None, tp, None),
-            lora_wk_a=(None, fsdp, None), lora_wk_b=(None, None, tp, None),
-            lora_wv_a=(None, fsdp, None), lora_wv_b=(None, None, tp, None),
-            lora_wo_a=(None, tp, None, None), lora_wo_b=(None, None, fsdp),
+            lora_wq_a=(pl, fsdp, None), lora_wq_b=(pl, None, tp, None),
+            lora_wk_a=(pl, fsdp, None), lora_wk_b=(pl, None, tp, None),
+            lora_wv_a=(pl, fsdp, None), lora_wv_b=(pl, None, tp, None),
+            lora_wo_a=(pl, tp, None, None), lora_wo_b=(pl, None, fsdp),
         )
         if cfg.lora_mlp:
             layers.update(
-                lora_w_gate_a=(None, fsdp, None), lora_w_gate_b=(None, None, tp),
-                lora_w_up_a=(None, fsdp, None), lora_w_up_b=(None, None, tp),
-                lora_w_down_a=(None, tp, None), lora_w_down_b=(None, None, fsdp),
+                lora_w_gate_a=(pl, fsdp, None), lora_w_gate_b=(pl, None, tp),
+                lora_w_up_a=(pl, fsdp, None), lora_w_up_b=(pl, None, tp),
+                lora_w_down_a=(pl, tp, None), lora_w_down_b=(pl, None, fsdp),
             )
     return {
         "embed": (None, fsdp),
@@ -309,20 +310,53 @@ def activation_spec() -> tuple:
     return (("dp", "fsdp"), "sp")
 
 
+def _check_pipeline(cfg: TransformerConfig, sizes: Dict[str, int]) -> None:
+    """The JAX package's checks of a pipelined model's mesh
+    (``forward_with_aux``'s pipeline branch), with its messages, and a
+    layer count that the stages split evenly."""
+    tp, sp, ep, pp = (sizes.get(a, 1) for a in ("tp", "sp", "ep", "pp"))
+    if sp > 1 and cfg.attn_impl not in RING_FAMILY:
+        raise ValueError(
+            f"pipeline with mesh sp > 1 requires one of attn_impl "
+            f"{RING_FAMILY} (got {cfg.attn_impl}): the sequence axis "
+            "is sharded inside the stage"
+        )
+    if cfg.kv_heads % tp:
+        raise ValueError(
+            f"GQA in pipeline needs kv heads divisible by tp: "
+            f"{cfg.kv_heads} kv heads, tp={tp}"
+        )
+    if cfg.n_experts > 0 and cfg.n_experts % ep:
+        raise ValueError(
+            f"n_experts {cfg.n_experts} not divisible by mesh "
+            f"ep={ep} inside the pipeline"
+        )
+    if cfg.attn_impl == "ulysses" and sp > 1 and (cfg.n_heads // tp) % sp:
+        raise ValueError(
+            f"ulysses in pipeline needs local heads divisible by sp: "
+            f"{cfg.n_heads} heads / tp={tp} not divisible by sp={sp}"
+        )
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers {cfg.n_layers} does not split over "
+                         f"pp={pp} pipeline stages")
+
+
 def check_mesh(cfg: TransformerConfig, sizes: Dict[str, int]) -> None:
-    """Raise for a mesh the port does not run the model on: pp above 1 or
-    MoE at sp above 1 (not yet ported: the JAX package keeps global
-    capacity over sp with its manual ``_moe_mlp`` formulation), experts
-    that do not split over ep, heads that do not divide tp (the JAX
-    package's ``_shardings`` check), or Ulysses' tp-local heads that do not
-    divide sp (its ``overlap_applicable`` check). Every ``attn_impl`` runs
-    at sp above 1: ``xla`` and ``flash`` gather the sequence
-    (``_dispatch_attention``)."""
-    if sizes.get("pp", 1) > 1:
-        raise _not_yet_ported("pipelining (pp > 1)")
+    """Raise for a mesh the port does not run the model on: a pipelined
+    model's mesh that the JAX package's pipeline refuses
+    (:func:`_check_pipeline`, with its messages), pp above 1 for a model
+    that is not pipelined, experts that do not split over ep, heads that do
+    not divide tp (the JAX package's ``_shardings`` check), or Ulysses'
+    tp-local heads that do not divide sp (its ``overlap_applicable``
+    check). Every ``attn_impl`` runs at sp above 1: ``xla`` and ``flash``
+    gather the sequence (``_dispatch_attention``), and MoE keeps the
+    unsharded routing (``_moe_route``)."""
+    if cfg.pipeline_microbatches > 0:
+        _check_pipeline(cfg, sizes)
+    elif sizes.get("pp", 1) > 1:
+        raise ValueError(f"a mesh with pp={sizes['pp']} needs a pipelined "
+                         "model (pipeline_microbatches > 0)")
     tp, sp, ep = sizes.get("tp", 1), sizes.get("sp", 1), sizes.get("ep", 1)
-    if cfg.n_experts > 0 and sp > 1:
-        raise _not_yet_ported("MoE under sequence parallelism (sp > 1)")
     if cfg.n_experts > 0 and cfg.n_experts % ep:
         raise ValueError(f"n_experts {cfg.n_experts} does not split over "
                          f"ep={ep}")
@@ -460,14 +494,23 @@ def _moe_route(h: torch.Tensor, router: torch.Tensor, cfg: TransformerConfig,
     ``moe_aux_weight`` times the Switch load-balance term E x sum_e
     (first-choice share_e x mean prob_e), plus ``moe_zloss_weight`` times
     the ST-MoE z-loss mean(logsumexp(logits)^2).
-    Under a mesh the means are over every rank's rows, and the gates
-    enter the experts' region (``MeshShards.to_experts``) before they are
-    laid into ``combine``. Shapes are static and nothing reads the device
-    from the host, so a CUDA graph captures it."""
+    Under a mesh the means are over every rank's rows (in a pipeline
+    stage, over the sp slices of the microbatch's rows only:
+    ``MeshShards.stat_axes``), and the gates enter the experts' region
+    (``MeshShards.to_experts``) before they are laid into ``combine``.
+
+    At sp above 1 ``h`` is this rank's slice of T / sp positions and the
+    routing is the unsharded one, the JAX package's ``manual_sp_axis``
+    form: capacity is taken on the whole length, and a token's slot adds
+    the counts of its choice on the earlier sp slices and every slice's
+    counts of the earlier choices (``MeshShards.seq_counts``), so a token
+    overflows its expert iff it would on one device. Shapes are static and
+    nothing reads the device from the host, so a CUDA graph captures it."""
     b, t, _ = h.shape
     n_exp = router.shape[-1]
     top_k = max(1, min(cfg.moe_top_k, n_exp))
-    capacity = max(1, int(math.ceil(t * top_k / n_exp * cfg.expert_capacity_factor)))
+    sp = 1 if shards is None or "sp" not in shards.groups else shards.sizes["sp"]
+    capacity = max(1, int(math.ceil(t * sp * top_k / n_exp * cfg.expert_capacity_factor)))
     logits = torch.einsum("btd,de->bte", h, router).float()
     # XLA flushes subnormal f32 results to 0 (as does the TPU): so that a
     # gate that underflows there is 0 here too, and is dropped
@@ -493,10 +536,19 @@ def _moe_route(h: torch.Tensor, router: torch.Tensor, cfg: TransformerConfig,
     # slot positions: choice 0's tokens queue first, then choice 1's
     combine = probs.new_zeros((b, t, n_exp, capacity))
     counts = probs.new_zeros((b, n_exp))  # slots taken by earlier choices
+    if sp > 1:
+        # [sp, B, K, E]: each slice's tokens per choice and expert
+        slice_counts = shards.seq_counts(torch.sum(masks, dim=1))
+        earlier = torch.sum(slice_counts[:shards.seq_index], dim=0)
     for i in range(top_k):
         m = masks[:, :, i, :]  # [B, T, E]
-        pos = torch.cumsum(m, dim=1) * m - 1.0 + counts[:, None, :] * m
-        counts = counts + torch.sum(m, dim=1)
+        if sp > 1:
+            pos = ((torch.cumsum(m, dim=1) + earlier[:, None, i, :]) * m - 1.0
+                   + counts[:, None, :] * m)
+            counts = counts + torch.sum(slice_counts[:, :, i, :], dim=0)
+        else:
+            pos = torch.cumsum(m, dim=1) * m - 1.0 + counts[:, None, :] * m
+            counts = counts + torch.sum(m, dim=1)
         keep = m * ((pos >= 0) & (pos < capacity)).float()
         slot = torch.clamp(pos, 0, capacity - 1).long()[..., None]
         combine = combine.scatter_add(
@@ -519,15 +571,29 @@ def _moe_mlp(h: torch.Tensor, w, cfg: TransformerConfig,
     their hidden dim, so ``h`` and the gates enter through f
     (``MeshShards.to_experts``) and the combined output leaves through g
     (``from_experts``). Routing and the aux stay outside the region,
-    computed once per rank, so their gradients are whole on every rank."""
+    computed once per rank, so their gradients are whole on every rank.
+
+    At sp above 1 each rank's tokens fill their own slots, so the
+    experts' inputs are summed over sp before the experts and, where
+    that sum was scattered over the capacity dim, their outputs gathered
+    back before each rank combines its tokens (``MeshShards.slots_sum``,
+    ``slots_gather``): the JAX package's order, dispatch, sp sum,
+    experts, sp gather, combine, then the sum over ep and tp. The expert
+    weights' gradients are then partial over sp and ``sync_grad`` sums
+    them."""
     combine, dispatch, _, aux = _moe_route(h, w("router"), cfg, shards)
     if shards is not None:
         h = shards.to_experts(h)
         dispatch, combine = shards.local_experts(dispatch), shards.local_experts(combine)
     expert_in = torch.einsum("btec,btd->ebcd", dispatch, h)
+    scattered = False
+    if shards is not None and "sp" in shards.groups:
+        expert_in, scattered = shards.slots_sum(expert_in)
     g = torch.einsum("ebcd,edf->ebcf", expert_in, w("w_gate"))
     u = torch.einsum("ebcd,edf->ebcf", expert_in, w("w_up"))
     expert_out = torch.einsum("ebcf,efd->ebcd", F.silu(g) * u, w("w_down"))
+    if scattered:
+        expert_out = shards.slots_gather(expert_out)
     # combine already carries each token's gate at its slot
     out = torch.einsum("btec,ebcd->btd", combine.to(h.dtype), expert_out)
     if shards is not None:
@@ -682,8 +748,11 @@ def _remat_wrap(fn, cfg: TransformerConfig):
 
 
 def mesh_shards(mesh, cfg: TransformerConfig) -> Optional[sharding.MeshShards]:
-    """The collectives of ``mesh`` (None for none), after ``check_mesh``."""
+    """The collectives of ``mesh`` (None for none), after ``check_mesh``; a
+    pipelined model needs a mesh, as in the JAX package."""
     if mesh is None:
+        if cfg.pipeline_microbatches > 0:
+            raise ValueError(f"{cfg.attn_impl}/pipeline requires a mesh")
         return None
     check_mesh(cfg, dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)))
     return sharding.MeshShards(mesh)
@@ -699,6 +768,56 @@ def lm_head_weight(params: Dict[str, Any], cfg: TransformerConfig,
     return shards.weight(sharding.local(params["lm_head"]),
                          sharding_specs(cfg)["lm_head"], cfg.dtype,
                          axes=("fsdp", "tp"))
+
+
+def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
+                 cfg: TransformerConfig,
+                 shards: Optional[sharding.MeshShards] = None) -> torch.Tensor:
+    """tokens [B, T] -> their embeddings [B, T, D] in the compute dtype
+    (under a mesh the table is gathered over fsdp where it is used)."""
+    if shards is None:
+        embed = params["embed"]
+    else:
+        embed = shards.weight(sharding.local(params["embed"]),
+                              sharding_specs(cfg)["embed"], None)
+    return F.embedding(tokens, embed).to(cfg.dtype)
+
+
+def token_positions(tokens: torch.Tensor,
+                    shards: Optional[sharding.MeshShards] = None) -> torch.Tensor:
+    """[1, T]: each of ``tokens``' positions in the whole sequence (over sp
+    the rank's slice starts at its index times its length), for RoPE."""
+    t = tokens.shape[1]
+    start = 0 if shards is None else shards.seq_index * t
+    return torch.arange(start, start + t, dtype=torch.int32,
+                        device=tokens.device)[None, :]
+
+
+def layer_leaves(layers: Dict[str, Any]) -> list:
+    """The per-layer leaves of a stacked ``layers`` tree (this rank's local
+    layers under a mesh): one unbind per stacked leaf, since indexing
+    leaf[i] per layer would make each backward write a zero gradient of the
+    whole stack per layer."""
+    per_layer = {name: torch.unbind(sharding.local(leaf))
+                 for name, leaf in layers.items()}
+    n = len(next(iter(per_layer.values())))
+    return [{name: leaves[i] for name, leaves in per_layer.items()}
+            for i in range(n)]
+
+
+def apply_layers(x: torch.Tensor, lps: list, positions: torch.Tensor,
+                 cfg: TransformerConfig, attn_fn,
+                 shards: Optional[sharding.MeshShards] = None):
+    """Run ``x`` through the layers ``lps`` (:func:`layer_leaves`), each
+    under ``cfg.remat`` -> (x, the layers' MoE aux losses summed, an f32
+    scalar)."""
+    layer = _remat_wrap(_apply_layer, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in lps:
+        x, layer_aux = layer(x, lp, positions, cfg, attn_fn, shards)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return x, aux
 
 
 def forward_with_aux(
@@ -718,35 +837,29 @@ def forward_with_aux(
     laid out by ``sharding_specs`` and ``tokens`` are this rank's rows,
     whole sequences (a DTensor or its local tensor); the result is then
     this rank's rows at its sp slice of the positions
-    (``MeshShards.seq_part``), replicated over tp."""
+    (``MeshShards.seq_part``), replicated over tp.
+
+    A pipelined model (``pipeline_microbatches > 0``) needs a mesh, as in
+    the JAX package, and runs the layers as GPipe stages over its pp axis
+    (``parallel/pipeline.forward``): the result is the last stage's, on
+    every pp rank, and the aux the JAX package's pipelined one (each
+    microbatch's and data shard's statistics, averaged). Above one stage
+    this forward is not differentiable by autograd (the stages meet
+    through sends); training differentiates the schedule itself
+    (``parallel/pipeline.value_and_grad``)."""
     attn_fn = _resolve_attn_fn(cfg, mesh)
     shards = mesh_shards(mesh, cfg)
     tokens = sharding.local(tokens)
     if shards is not None:
         tokens = shards.seq_part(tokens)
-    dtype = cfg.dtype
-    t = tokens.shape[1]
-    # RoPE at each position's place in the whole sequence
-    start = 0 if shards is None else shards.seq_index * t
-    if shards is None:
-        embed = params["embed"]
+    if cfg.pipeline_microbatches > 0:
+        from hivedscheduler_tpu_torch.parallel import pipeline
+
+        x, aux = pipeline.forward(params, tokens, cfg, attn_fn, shards)
     else:
-        embed = shards.weight(sharding.local(params["embed"]),
-                              sharding_specs(cfg)["embed"], None)
-    x = F.embedding(tokens, embed).to(dtype)  # [B, T, D]
-    positions = torch.arange(start, start + t, dtype=torch.int32,
-                             device=tokens.device)[None, :]
-    # one unbind per stacked leaf: indexing leaf[i] per layer would make
-    # each backward write a zero gradient of the whole stack per layer
-    per_layer = {name: torch.unbind(sharding.local(leaf))
-                 for name, leaf in params["layers"].items()}
-    layer = _remat_wrap(_apply_layer, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = {name: leaves[i] for name, leaves in per_layer.items()}
-        x, layer_aux = layer(x, lp, positions, cfg, attn_fn, shards)
-        if layer_aux is not None:
-            aux = aux + layer_aux
+        x, aux = apply_layers(embed_tokens(params, tokens, cfg, shards),
+                              layer_leaves(params["layers"]),
+                              token_positions(tokens, shards), cfg, attn_fn, shards)
     x = _rms_norm(x, sharding.local(params["final_norm"]))
     if return_hidden:
         return x, aux

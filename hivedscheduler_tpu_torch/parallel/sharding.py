@@ -11,14 +11,19 @@ flash kernels take nothing else):
   PartitionSpec`` holds them; :func:`placements` turns it into DTensor
   placements over a mesh of the same axis names;
 - parameters live on :func:`param_mesh`, the ``("fsdp", "ep", "tp")``
-  submesh of the six-axis mesh: the only axes the parameter specs shard.
-  Each data-parallel replica holds the same DTensor on its own submesh, as
-  FSDP2's hybrid sharding does. In torch 2.13 DTensor's sharding
-  propagation enumerates strategies over every mesh dim at once, so its
-  cost grows exponentially with the mesh's rank: the first AdamW step
-  over five small DTensor leaves took 112.4 s on a mesh of six size-1
-  dims against 0.084 s on two (torch 2.11: 0.05 s on six;
-  ``tests/torch_mesh_probe.py``), and 0.33 s on three;
+  submesh of the six-axis mesh, or ``("fsdp", "pp", "ep", "tp")`` when pp
+  is above 1: the only axes the parameter specs shard. Each data-parallel
+  replica holds the same DTensor on its own submesh, as FSDP2's hybrid
+  sharding does. In torch 2.13 DTensor's sharding propagation enumerates
+  strategies over every mesh dim at once, so its cost grows exponentially
+  with the mesh's rank: the first AdamW step over five small DTensor
+  leaves took 112.4 s on a mesh of six size-1 dims against 0.084 s on two
+  (torch 2.11: 0.05 s on six; ``tests/torch_mesh_probe.py``), 0.40 s on
+  three and 2.26 s on four (CPU, torch 2.13). Four dims stay in seconds,
+  so the pipeline shards the stacked layer axis over pp as a DTensor
+  (``Shard(0)`` on pp) and ``torch.distributed.checkpoint`` reshards the
+  ``[L, ...]`` stacks across pp layouts by itself; at pp = 1 the submesh
+  keeps its three dims;
 - fsdp (ZeRO-3): a weight is all-gathered over ``fsdp`` where it is used,
   and the gradient of that gather is a reduce-scatter, since the fsdp
   ranks read different rows;
@@ -47,6 +52,19 @@ flash kernels take nothing else):
   whole sequence gathered by :meth:`MeshShards.seq_gather` for ``xla``
   and ``flash``), everything else is position-local. Parameters are
   replicated along sp;
+- MoE at sp above 1 keeps the unsharded routing (global capacity): the
+  slot positions add the earlier sp ranks' per-expert counts
+  (:meth:`MeshShards.seq_counts`, no gradient), and the experts' inputs,
+  partial sums of each sp rank's tokens, are summed over sp before the
+  experts and the outputs gathered after (:meth:`MeshShards.slots_sum`,
+  :meth:`MeshShards.slots_gather`). These move partial sums of different
+  tokens, so each backward is the collective's transpose (an all-reduce
+  for an all-reduce, an all-gather for a reduce-scatter and the reverse),
+  not Megatron's identity;
+- pp (``parallel/pipeline.py``): stage s holds layers [s L/pp, (s+1)
+  L/pp); ``embed``, ``final_norm`` and ``lm_head`` are replicated along pp
+  and used by one stage each, the others giving them a zero gradient, so
+  :meth:`MeshShards.sync_grad` sums them over pp as well;
 - the loss is the global mean: each rank divides its part of the sum (its
   rows, its slice of the sequence) by the global count, and
   :meth:`MeshShards.data_sum` adds the ranks' parts over ``GRAD_AXES``
@@ -65,6 +83,7 @@ Decode and serving run on a mesh of their own, the two-axis ``("dp",
 
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -107,8 +126,12 @@ def placements(spec: Sequence, mesh) -> list:
 def param_mesh(mesh):
     """The ``("fsdp", "ep", "tp")`` submesh of a six-axis mesh (in the
     mesh's order, as ``DeviceMesh`` slices), on which the parameters and
-    their optimizer moments live."""
-    return mesh[PARAM_AXES]
+    their optimizer moments live; with pp above 1, ``("fsdp", "pp", "ep",
+    "tp")``, over which the pipeline shards the stacked layers."""
+    axes = PARAM_AXES
+    if dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get("pp", 1) > 1:
+        axes += ("pp",)
+    return mesh[tuple(a for a in mesh.mesh_dim_names if a in axes)]
 
 
 def check_divisible(shape: Sequence[int], spec: Sequence, sizes: Dict[str, int],
@@ -196,6 +219,35 @@ class _AllReduceForward(torch.autograd.Function):
         return g, None
 
 
+class _AllReduceBoth(torch.autograd.Function):
+    """Sum over ``group`` in the forward and in the backward: the
+    transpose of a sum of partial sums that every rank then uses for its
+    own part of the loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.group), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over ``group`` and keep this rank's block of ``dim``; the
+    backward all-gathers the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
 class _AllReduceBackward(torch.autograd.Function):
     """The identity in the forward; the gradient is summed over ``groups``."""
 
@@ -215,6 +267,11 @@ class MeshShards:
     """The collectives of one mesh. ``sizes`` maps each axis to its size;
     only the axes above 1 have a group, and an operation over an axis of
     size 1 is the identity."""
+
+    # the axes over which the MoE routing statistics are meaned: every
+    # rank's rows and slice, as GSPMD takes the JAX package's batch means;
+    # a pipeline stage means over sp only (:meth:`in_stage`)
+    stat_axes = GRAD_AXES
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -272,15 +329,29 @@ class MeshShards:
         n = x.shape[dim] // self.sizes["ep"]
         return x.narrow(dim, self.ep_index * n, n)
 
+    def in_stage(self) -> "MeshShards":
+        """These collectives inside a pipeline stage: the MoE statistics are
+        meaned over sp only, per microbatch and data shard, as the JAX
+        package's manual stage body takes them."""
+        stage = copy.copy(self)
+        stage.stat_axes = ("sp",)
+        return stage
+
+    def sum_over(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """Sum over those of ``axes`` above 1; the gradient passes
+        unchanged."""
+        groups = tuple(self.groups[a] for a in axes if a in self.groups)
+        return _AllReduceForward.apply(x, groups) if groups else x
+
     def data_mean(self, sums: torch.Tensor, count: int) -> torch.Tensor:
-        """The mean over every rank's part along ``GRAD_AXES`` of this rank's
-        ``sums`` over ``count`` items: sums and counts are added over the
-        axes in one all-reduce whose gradient passes unchanged, so each
-        rank's gradient is its own part's contribution (as in
-        :meth:`data_sum`). Rows held whole on every data rank (the
-        replicated fallback of ``parallel/train.py``) count once per rank
-        in both, so the mean is the same."""
-        groups = tuple(self.groups[a] for a in GRAD_AXES if a in self.groups)
+        """The mean over every rank's part along :attr:`stat_axes`
+        (``GRAD_AXES``) of this rank's ``sums`` over ``count`` items: sums
+        and counts are added over the axes in one all-reduce whose gradient
+        passes unchanged, so each rank's gradient is its own part's
+        contribution (as in :meth:`data_sum`). Rows held whole on every
+        data rank (the replicated fallback of ``parallel/train.py``) count
+        once per rank in both, so the mean is the same."""
+        groups = tuple(self.groups[a] for a in self.stat_axes if a in self.groups)
         if not groups:
             return sums / count
         packed = torch.cat([sums.reshape(-1), sums.new_full((1,), float(count))])
@@ -290,8 +361,7 @@ class MeshShards:
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over ``GRAD_AXES``; the gradient passes unchanged, so each
         rank's gradient is its own part's contribution."""
-        groups = tuple(self.groups[a] for a in GRAD_AXES if a in self.groups)
-        return _AllReduceForward.apply(x, groups) if groups else x
+        return self.sum_over(x, GRAD_AXES)
 
     def seq_part(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous slice ``seq_index`` of the sequence (dim 1)
@@ -309,6 +379,31 @@ class MeshShards:
         reduce-scattered back, each rank's slice summed over every rank."""
         return _Gather.apply(x, x.dtype, ((1, self.groups["sp"], True),)).contiguous()
 
+    def seq_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """[sp, ...]: every sp rank's ``counts``, in sp order (integer
+        counts from one-hot masks; no gradient)."""
+        return _all_gather(counts.detach()[None], 0, self.groups["sp"])
+
+    def slots_sum(self, expert_in: torch.Tensor):
+        """(the experts' inputs [E', B, C', D] summed over sp, whether they
+        were scattered): each sp rank's tokens fill their own slots of
+        ``expert_in`` [E', B, C, D], so the sum over sp is every expert's
+        whole input. When sp divides the capacity C it is a reduce-scatter
+        over C (each sp rank runs the experts on C / sp slots, C' = C / sp;
+        the backward all-gathers), otherwise an all-reduce (C' = C; the
+        backward all-reduces)."""
+        group = self.groups["sp"]
+        if expert_in.shape[2] % self.sizes["sp"] == 0:
+            return _ReduceScatter.apply(expert_in, 2, group), True
+        return _AllReduceBoth.apply(expert_in, group), False
+
+    def slots_gather(self, expert_out: torch.Tensor) -> torch.Tensor:
+        """The experts' outputs over every slot from each sp rank's block of
+        the capacity dim (after a scattered :meth:`slots_sum`); each rank
+        combines its own tokens from them, so the backward reduce-scatters."""
+        return _Gather.apply(expert_out, expert_out.dtype,
+                             ((2, self.groups["sp"], True),)).contiguous()
+
     def whole_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The global batch on every rank, from each rank's rows (dp-major,
         fsdp-minor, as ``activation_spec`` lays them out)."""
@@ -319,11 +414,13 @@ class MeshShards:
 
     def sync_grad(self, grad_local: torch.Tensor, param) -> None:
         """Sum a parameter's local gradient, in place, over the
-        ``GRAD_AXES`` along which the DTensor ``param`` is replicated (along
-        fsdp, where it is sharded, the gather's reduce-scatter has already
-        summed it; along sp it never is)."""
+        ``GRAD_AXES`` and pp along which the DTensor ``param`` is replicated
+        (along fsdp, where it is sharded, the gather's reduce-scatter has
+        already summed it; along sp it never is; along pp the stacked
+        layers are sharded, and the leaves replicated along it have their
+        gradient on one stage)."""
         placed = dict(zip(param.device_mesh.mesh_dim_names, param.placements))
-        for name in GRAD_AXES:
+        for name in GRAD_AXES + ("pp",):
             sharded = name in placed and placed[name].is_shard()
             if name in self.groups and not sharded:
                 dist.all_reduce(grad_local, group=self.groups[name])
@@ -334,6 +431,19 @@ def local(t: Any):
     from torch.distributed.tensor import DTensor
 
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+def like_param(local_t: torch.Tensor, param) -> Any:
+    """``local_t``, this rank's shard of a tensor laid out as the DTensor
+    ``param`` (its gradient, say), as that DTensor; as is for a plain
+    ``param``. No data moves."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(param, DTensor):
+        return local_t
+    return DTensor.from_local(local_t, param.device_mesh, param.placements,
+                              run_check=False, shape=param.shape,
+                              stride=param.stride())
 
 
 # -- the serving mesh ---------------------------------------------------------

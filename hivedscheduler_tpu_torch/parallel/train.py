@@ -4,8 +4,9 @@ Counterpart of ``hivedscheduler_tpu/parallel/train.py``: ``loss_fn``,
 ``make_optimizer``, ``train_step`` (with gradient accumulation), the
 remat-policy override, ``_shardings``, ``make_sharded_train_step``,
 ``make_sharded_eval_step`` and ``make_sharded_lora_train_step`` over a
-six-axis ``DeviceMesh`` (dp, fsdp, ep, tp and sp; pp above 1 is not yet
-ported), and their one-device cousins ``make_train_step``,
+six-axis ``DeviceMesh`` (dp, fsdp, pp, ep, tp and sp; a pipelined model
+trains through ``parallel/pipeline.value_and_grad``), and their
+one-device cousins ``make_train_step``,
 ``make_eval_step`` and ``make_lora_train_step``. The LoRA steps train the
 adapters alone: the base takes no gradient and AdamW holds moments for
 the adapters only.
@@ -76,29 +77,50 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
     slice's last target is the next slice's first token."""
     shards = tm.mesh_shards(mesh, cfg)
     tokens = sharding.local(tokens)
+    targets, mask = _lm_targets(tokens, shards, ce_chunk)
+    hidden, aux = tm.forward_with_aux(params, tokens, cfg, mesh=mesh,
+                                      return_hidden=True)
+    loss = _lm_loss(hidden, params, cfg, shards, targets, mask, ce_chunk)
+    if include_aux:
+        loss = loss + aux
+    return loss
+
+
+def _lm_targets(tokens: torch.Tensor, shards: Optional[sharding.MeshShards],
+                ce_chunk: int):
+    """(targets, mask) of ``loss_fn``: the next tokens of the whole rows,
+    the last position masked out, at this rank's sp slice."""
     targets = torch.roll(tokens, -1, dims=1).long()
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
     if shards is not None:
         targets, mask = shards.seq_part(targets), shards.seq_part(mask)
+    t = targets.shape[1]
+    if ce_chunk > 0 and t % ce_chunk:
+        sp = 1 if shards is None else shards.sizes["sp"]
+        raise ValueError(
+            f"seq len {t}{' (a rank slice of sp)' if sp > 1 else ''} not "
+            f"divisible by ce_chunk {ce_chunk}"
+        )
+    return targets, mask
+
+
+def _lm_loss(hidden: torch.Tensor, params, cfg: tm.TransformerConfig,
+             shards: Optional[sharding.MeshShards], targets: torch.Tensor,
+             mask: torch.Tensor, ce_chunk: int) -> torch.Tensor:
+    """The global mean of the masked cross-entropy of the final-norm
+    ``hidden`` states (in sequence chunks of ``ce_chunk``, each
+    checkpointed, when it is above 0)."""
     b, t = targets.shape
-    sp = 1 if shards is None else shards.sizes["sp"]
+    head = tm.lm_head_weight(params, cfg, shards)
     if ce_chunk <= 0:
-        logits, aux = tm.forward_with_aux(params, tokens, cfg, mesh=mesh)
+        logits = torch.einsum("btd,dv->btv", hidden, head).float()
         per_tok = F.cross_entropy(
             logits.reshape(b * t, -1), targets.reshape(-1), reduction="none"
         ).reshape(b, t)
         total = torch.sum(per_tok * mask)
     else:
-        if t % ce_chunk:
-            raise ValueError(
-                f"seq len {t}{' (a rank slice of sp)' if sp > 1 else ''} not "
-                f"divisible by ce_chunk {ce_chunk}"
-            )
-        hidden, aux = tm.forward_with_aux(params, tokens, cfg, mesh=mesh,
-                                          return_hidden=True)
-        head = tm.lm_head_weight(params, cfg, shards)
-        total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for s in range(0, t, ce_chunk):
             chunk = (hidden[:, s:s + ce_chunk], head,
                      targets[:, s:s + ce_chunk], mask[:, s:s + ce_chunk])
@@ -109,12 +131,27 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
                 part = _chunk_ce(*chunk)
             total = total + part
     if shards is None:
-        loss = total / torch.sum(mask)
-    else:
-        loss = shards.data_sum(total / shards.data_sum(torch.sum(mask)))
-    if include_aux:
-        loss = loss + aux
-    return loss
+        return total / torch.sum(mask)
+    return shards.data_sum(total / shards.data_sum(torch.sum(mask)))
+
+
+def _pipeline_value_and_grad(params, tokens: torch.Tensor,
+                             cfg: tm.TransformerConfig, mesh,
+                             leaves: List[torch.Tensor], ce_chunk: int):
+    """(loss, grads) of ``loss_fn`` for a pipelined model: the schedule of
+    ``parallel/pipeline.value_and_grad``, whose last stage takes the
+    final norm and this cross-entropy."""
+    from hivedscheduler_tpu_torch.parallel import pipeline
+
+    shards = tm.mesh_shards(mesh, cfg)
+    tokens = sharding.local(tokens)
+    targets, mask = _lm_targets(tokens, shards, ce_chunk)
+
+    def head_loss(hidden):
+        hidden = tm._rms_norm(hidden, sharding.local(params["final_norm"]))
+        return _lm_loss(hidden, params, cfg, shards, targets, mask, ce_chunk)
+
+    return pipeline.value_and_grad(params, tokens, cfg, mesh, leaves, head_loss)
 
 
 def _leaves(params) -> List[torch.Tensor]:
@@ -163,9 +200,13 @@ def _accumulated_value_and_grad(grad_fn, params, tokens: torch.Tensor,
             loss_sum, grad_sum = loss, list(grads)
         else:
             loss_sum = loss_sum + loss
+            # on the local shards: DTensor arithmetic would pay its
+            # sharding propagation for every leaf's shape
             for acc, g in zip(grad_sum, grads):
-                acc.add_(g)
-    return loss_sum / grad_accum, [g / grad_accum for g in grad_sum]
+                sharding.local(acc).add_(sharding.local(g))
+    for g in grad_sum:
+        sharding.local(g).div_(grad_accum)
+    return loss_sum / grad_accum, grad_sum
 
 
 def train_step(params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor,
@@ -185,27 +226,45 @@ def train_step(params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor,
 
     Under a ``mesh`` ``params`` are DTensors and ``tokens`` this rank's
     rows (over sp, its slice of their sequence); each gradient is summed
-    over the ``sharding.GRAD_AXES`` along which its parameter is replicated
-    before the update."""
+    over the ``sharding.GRAD_AXES`` (and pp) along which its parameter is
+    replicated before the update. A pipelined model takes its gradients
+    from the GPipe schedule (``parallel/pipeline.value_and_grad``)."""
     leaves = _leaves(params) if trainable is None else trainable
-    shards = tm.mesh_shards(mesh, cfg)
-
-    def grad_fn(p, micro):
-        loss = loss_fn(p, micro, cfg, mesh, ce_chunk=ce_chunk)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
-
-    loss, grads = _accumulated_value_and_grad(
-        grad_fn, params, sharding.local(tokens), grad_accum, shards)
+    loss, grads = value_and_grad(params, tokens, cfg, mesh, grad_accum=grad_accum,
+                                 ce_chunk=ce_chunk, trainable=leaves)
     if skip_nonfinite and not bool(torch.isfinite(loss)):
         return params, optimizer, loss
     for leaf, g in zip(leaves, grads):
-        if shards is not None:
-            with torch.no_grad():
-                shards.sync_grad(sharding.local(g), leaf)
         leaf.grad = g
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     return params, optimizer, loss
+
+
+def value_and_grad(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
+                   mesh=None, grad_accum: int = 1, ce_chunk: int = 0,
+                   trainable: Optional[List[torch.Tensor]] = None):
+    """(loss, gradients of ``trainable``, every leaf by default) of
+    ``train_step``'s update, before the optimizer: under a mesh each
+    gradient is already summed over the axes its leaf is replicated along,
+    so it is the whole gradient on every rank."""
+    leaves = _leaves(params) if trainable is None else trainable
+    shards = tm.mesh_shards(mesh, cfg)
+    if cfg.pipeline_microbatches > 0:
+        def grad_fn(p, micro):
+            return _pipeline_value_and_grad(p, micro, cfg, mesh, leaves, ce_chunk)
+    else:
+        def grad_fn(p, micro):
+            loss = loss_fn(p, micro, cfg, mesh, ce_chunk=ce_chunk)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    loss, grads = _accumulated_value_and_grad(
+        grad_fn, params, sharding.local(tokens), grad_accum, shards)
+    if shards is not None:
+        with torch.no_grad():
+            for leaf, g in zip(leaves, grads):
+                shards.sync_grad(sharding.local(g), leaf)
+    return loss, grads
 
 
 REMAT_POLICIES = tm.REMAT_POLICIES
@@ -297,8 +356,9 @@ def _shardings(cfg: tm.TransformerConfig, mesh) -> TokenSharding:
     parameters are placed by ``sharding_specs``, on
     ``sharding.param_mesh(mesh)``). Raises ``ValueError`` when heads do not
     divide tp (as the JAX package's does) or a sharded weight dim does not
-    split evenly or the experts do not split over ep, and "not yet ported"
-    for pp above 1 or MoE at sp above 1."""
+    split evenly or the experts do not split over ep, and the JAX
+    package's pipeline errors for a pipelined model's mesh
+    (``models.transformer.check_mesh``)."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     tm.check_mesh(cfg, sizes)
     shapes = {name: tuple(t.shape) for name, t in named_leaves(

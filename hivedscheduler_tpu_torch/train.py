@@ -18,13 +18,15 @@ One process drives one GPU. Step 1 opens the process group from the
 scheduler's gang handoff (``POD_BIND_INFO``, ``NODE_NAME``,
 ``NVIDIA_VISIBLE_DEVICES`` and ``LOCAL_RANK``; a one-rank group when the
 run was not placed by the scheduler), NCCL on ``cuda`` and gloo on
-``cpu``; step 2 lays the mesh ``infer_axes(world, tp=, sp=, fsdp=, ep=)``
-over it, dp taking the rest. ``--tp`` and ``--fsdp`` shard the model
-(Megatron tensor parallelism, ZeRO-3), ``--sp`` the sequence (each rank
-attends its slice over the ring family), ``--ep`` the experts of a
+``cpu``; step 2 lays the mesh ``infer_axes(world, tp=, sp=, fsdp=, pp=,
+ep=)`` over it, dp taking the rest. ``--tp`` and ``--fsdp`` shard the
+model (Megatron tensor parallelism, ZeRO-3), ``--sp`` the sequence (each
+rank attends its slice over the ring family), ``--ep`` the experts of a
 mixture-of-experts model (``--n-experts``, ``--moe-top-k``,
-``--expert-capacity-factor``, ``--moe-aux-weight``, ``--moe-zloss``);
-tokens/s is over the global batch. Rank 0
+``--expert-capacity-factor``, ``--moe-aux-weight``, ``--moe-zloss``; at
+``--sp`` above 1 the routing keeps global capacity), ``--pp`` the layers
+into GPipe stages of ``--microbatches`` microbatches
+(``parallel/pipeline.py``); tokens/s is over the global batch. Rank 0
 alone writes the logs, the timeline and the goodput spool; every rank
 takes part in each checkpoint save.
 
@@ -69,9 +71,8 @@ derived one. ``--min-chips`` is the job's floor: an offer below it exits
 nonzero on every rank before any weight is built. The checkpoint metadata
 records the floor and the request (``elastic``).
 
-Pipelining (``--pp``, ``--microbatches``), MoE under ``--sp`` above 1 and
-the overlapped stack are not yet ported and exit with an error rather than
-being ignored.
+The overlapped stack (``--overlap``) is not yet ported and exits with an
+error rather than being ignored.
 """
 
 from __future__ import annotations
@@ -96,25 +97,9 @@ STEP_LOG = "step %s loss %.4f | %.0f tok/s"
 PROFILE_START, PROFILE_STOP = 1, 4
 
 
-UNPORTED_AXES = {
-    "pp": "pipelining",
-}
-
-
 def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
-    for flag, what in UNPORTED_AXES.items():
-        if getattr(args, flag) > 1:
-            parser.error(f"--{flag} > 1 is not yet ported: {what}; the port "
-                         "shards over dp, fsdp, ep, tp and sp")
-    unported = {
-        "--microbatches": args.microbatches > 0,
-        "--n-experts > 0 with --sp > 1 (MoE under sequence parallelism)":
-            args.n_experts > 0 and args.sp > 1,
-        "--overlap": bool(args.overlap),
-    }
-    for flag, given in unported.items():
-        if given:
-            parser.error(f"{flag} is not yet ported")
+    if args.overlap:
+        parser.error("--overlap is not yet ported")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -138,9 +123,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--fsdp", type=int, default=1,
                         help="fully-sharded data-parallel degree (ZeRO-3)")
     parser.add_argument("--pp", type=int, default=1,
-                        help="pipelining: not yet ported above 1")
+                        help="pipeline stages (requires --microbatches)")
     parser.add_argument("--microbatches", type=int, default=0,
-                        help="not yet ported")
+                        help="GPipe microbatches; required when --pp > 1")
     parser.add_argument("--ep", type=int, default=1,
                         help="expert-parallel degree (with --n-experts; must "
                         "divide it)")
@@ -267,6 +252,10 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
+    if args.pp > 1 and args.microbatches <= 0:
+        parser.error("--pp > 1 requires --microbatches")
+    if args.microbatches > 0 and args.pp <= 1:
+        parser.error("--microbatches requires --pp > 1")
     _reject_unported(parser, args)
     if args.on_nan == "skip" and args.lora_rank > 0:
         parser.error("--on-nan skip gates the full train step; with "
@@ -403,7 +392,7 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
                     world, axes)
         else:
             axes = topology.infer_axes(world, tp=args.tp, sp=args.sp,
-                                       fsdp=args.fsdp, ep=args.ep)
+                                       fsdp=args.fsdp, pp=args.pp, ep=args.ep)
     except ValueError as err:
         parser.error(str(err))
     mesh = topology.make_mesh(axes, device.type)
@@ -431,6 +420,9 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
         lora_rank=args.lora_rank,
         lora_alpha=args.lora_alpha,
         lora_mlp=args.lora_mlp,
+        # elastic mode may have shrunk pp away: pipelining follows the
+        # derived mesh
+        pipeline_microbatches=args.microbatches if axes.pp > 1 else 0,
     )
     log.info("device %s, config %s", device, cfg)
     # the step updates these tensors and this optimizer in place; restores

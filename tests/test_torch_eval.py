@@ -179,16 +179,14 @@ def test_cli_cuda_without_card_raises():
     ["--n-experts", "2", "--sp", "2"], ["--attn", "ring", "--sp", "2"],
 ])
 def test_cli_unported_flags_exit_with_error(extra, capsys):
-    # --tp, --fsdp, --ep and --sp (with the ring family) are ported: on one
-    # device their mesh cannot be laid, which is a usage error too; MoE is
-    # ported, MoE at --sp above 1 is not yet
+    # --tp, --fsdp, --ep and --sp (with the ring family) are ported, and
+    # MoE at --sp above 1 too (tests/test_torch_moe_sp.py): on one device
+    # their mesh cannot be laid, which is a usage error
     with pytest.raises(SystemExit) as exc:
         teval.main(CLI_MODEL + extra)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    if "--n-experts" in extra:
-        assert "not yet ported" in err
-    elif {"--tp", "--fsdp", "--sp", "--ep"} & set(extra):
+    if {"--tp", "--fsdp", "--sp", "--ep"} & set(extra):
         assert "1 devices not divisible by tp*sp*fsdp*pp*ep=2" in err
     else:
         assert "not yet ported" in err

@@ -236,11 +236,14 @@ def test_moe_layouts_the_port_refuses():
     with pytest.raises(ValueError) as err:
         ttm.check_mesh(tcfg, dict(ep=3))
     assert "does not split over ep=3" in str(err.value)
-    # sp > 1 needs JAX's manual global-capacity formulation: not yet ported
-    ring = dataclasses.replace(tcfg, attn_impl="ring")
-    with pytest.raises(NotImplementedError) as err:
-        ttm.check_mesh(ring, dict(sp=2))
-    assert "MoE under sequence parallelism (sp > 1) is not yet ported" in str(err.value)
+    # sp > 1 runs JAX's manual global-capacity formulation
+    # (tests/test_torch_moe_sp.py), with every attn_impl; the experts must
+    # still split over ep there
+    for attn in ("ring", "xla"):
+        ttm.check_mesh(dataclasses.replace(tcfg, attn_impl=attn), dict(sp=2, ep=2))
+    with pytest.raises(ValueError) as err:
+        ttm.check_mesh(tcfg, dict(sp=2, ep=3))
+    assert "does not split over ep=3" in str(err.value)
     # the dense model takes ep > 1 (replicated over it, as in JAX)
     ttm.check_mesh(dataclasses.replace(tcfg, n_experts=0), dict(ep=2))
     # JAX's init_params refuses MLP adapters on experts

@@ -291,8 +291,9 @@ def test_train_cli_with_moe_on_one_process(argv, tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--sp", "2"], "--n-experts > 0 with --sp > 1 (MoE under sequence parallelism) "
-                    "is not yet ported"),
+    # MoE at --sp above 1 is ported (tests/test_torch_moe_sp.py): on one
+    # process its mesh cannot be laid
+    (["--sp", "2"], "1 devices not divisible by tp*sp*fsdp*pp*ep=2"),
     (["--ep", "3"], "1 devices not divisible by tp*sp*fsdp*pp*ep=3"),
 ])
 def test_moe_clis_refuse_what_is_not_ported(extra, message, capsys):

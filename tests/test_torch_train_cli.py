@@ -135,11 +135,12 @@ def test_cuda_without_a_card_raises():
     ["--min-chips", "2"], ["--attn", "ring", "--sp", "2"],
 ])
 def test_unported_flags_exit_with_error(extra, capsys):
-    # --tp, --fsdp, --ep and --sp are ported: on one device their mesh
-    # cannot be laid, which is a usage error too; MoE is ported, MoE at --sp
-    # above 1 is not yet; LoRA is ported, and refused where JAX's CLI
-    # refuses it (--on-nan skip) or its init_params does (MLP adapters
-    # without a rank, or on experts); every other flag is not yet ported
+    # --tp, --fsdp, --ep and --sp are ported, MoE at --sp above 1 too: on
+    # one device their mesh cannot be laid, which is a usage error too;
+    # --pp and --microbatches are ported, each refused without the other
+    # with the JAX CLI's usage errors; LoRA is ported, and refused where
+    # JAX's CLI refuses it (--on-nan skip) or its init_params does (MLP
+    # adapters without a rank, or on experts); --overlap is not yet ported
     with pytest.raises(SystemExit) as exc:
         ttrain_cli.main(CLI_MODEL + extra)
     assert exc.value.code == 2
@@ -153,8 +154,10 @@ def test_unported_flags_exit_with_error(extra, capsys):
     elif "--lora-mlp" in extra:
         assert ("requires --lora-rank > 0" if "--n-experts" not in extra
                 else "MoE experts are not adapted") in err
-    elif "--n-experts" in extra:
-        assert "not yet ported" in err
+    elif "--pp" in extra:
+        assert "--pp > 1 requires --microbatches" in err
+    elif "--microbatches" in extra:
+        assert "--microbatches requires --pp > 1" in err
     elif {"--tp", "--fsdp", "--sp", "--ep"} & set(extra):
         assert "1 devices not divisible by tp*sp*fsdp*pp*ep=2" in err
     else:

@@ -205,12 +205,12 @@ def test_cast_params_and_load_weight():
 
 
 @pytest.mark.parametrize("over,kind", [
-    # MoE and LoRA are ported (tests/test_torch_moe.py,
-    # tests/test_torch_lora.py); neither in the pipeline or the overlapped
-    # stack yet
-    (dict(n_experts=2, lora_rank=4, pipeline_microbatches=2), NotImplementedError),
+    # MoE, LoRA and the pipeline are ported (tests/test_torch_moe.py,
+    # tests/test_torch_lora.py, tests/test_torch_pipeline.py): the pipeline
+    # needs a mesh, as in JAX; the overlapped stack is not yet ported
+    (dict(n_experts=2, lora_rank=4, pipeline_microbatches=2), ValueError),
     (dict(lora_rank=4, overlap=True), NotImplementedError),
-    (dict(pipeline_microbatches=2), NotImplementedError),
+    (dict(pipeline_microbatches=2), ValueError),
     (dict(overlap=True), NotImplementedError),
     # the ring family needs a mesh (JAX asserts one)
     (dict(attn_impl="ring_flash"), ValueError),
@@ -241,16 +241,19 @@ class _SpMesh:
 
 
 def test_forward_over_a_mesh_raises():
-    # dp, fsdp, tp and sp are ported (tests/test_torch_sharded_train.py,
-    # tests/test_torch_sp_train.py), every attn_impl at sp > 1 (xla and
-    # flash gather the sequence); MoE at sp > 1 is not yet ported
+    # dp, fsdp, tp, sp and pp are ported (tests/test_torch_sharded_train.py,
+    # tests/test_torch_sp_train.py, tests/test_torch_pipeline.py), every
+    # attn_impl at sp > 1 (xla and flash gather the sequence) and MoE at
+    # sp > 1 (tests/test_torch_moe_sp.py); a pipeline stage at sp > 1
+    # needs the ring family, with the JAX package's message
     _, tcfg = _configs("xla", "f32")
-    moe = dataclasses.replace(tcfg, n_experts=2)
-    with pytest.raises(NotImplementedError) as err:
-        ttm.forward(None, torch.zeros((1, 8), dtype=torch.int32), moe, mesh=_SpMesh())
-    assert "MoE under sequence parallelism (sp > 1) is not yet ported" in str(err.value)
+    piped = dataclasses.replace(tcfg, pipeline_microbatches=2)
+    with pytest.raises(ValueError) as err:
+        ttm.forward(None, torch.zeros((1, 8), dtype=torch.int32), piped, mesh=_SpMesh())
+    assert "pipeline with mesh sp > 1 requires one of attn_impl" in str(err.value)
     for impl in ("xla", "flash"):
         ttm.check_mesh(dataclasses.replace(tcfg, attn_impl=impl), {"sp": 2})
+        ttm.check_mesh(dataclasses.replace(tcfg, attn_impl=impl, n_experts=2), {"sp": 2})
 
 
 def test_resolve_device():

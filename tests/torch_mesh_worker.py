@@ -3,8 +3,12 @@
     python tests/torch_mesh_worker.py JOB.json RANK
 
 ``JOB.json`` names the world size, the coordinator port, the mesh degrees
-(``tp``, ``sp``, ``fsdp``, ``ep``; dp takes the rest), the model config and a list of
-tasks run in order on one process group. The rank joins the gang as a
+(``tp``, ``sp``, ``fsdp``, ``ep``, ``pp``; dp takes the rest), the model config and a list of
+tasks run in order on one process group. Besides training, eval and
+checkpoints (``restore`` reads ``ckpt_dir``, ``save`` writes ``save_dir``
+or else ``ckpt_dir``), ``forward`` records the whole batch's logits and
+the aux (every rank's part, replicas checked equal) and ``grads`` one
+step's loss and whole gradients, before the optimizer. The rank joins the gang as a
 scheduled pod would: a bind info of one pod holding ``world`` GPUs on the
 node ``test/127.0.0.1``, ``NVIDIA_VISIBLE_DEVICES`` and ``LOCAL_RANK``, read
 by ``initialize_from_gang``. A config with ``lora_rank`` trains through
@@ -194,6 +198,126 @@ def serve_main(job: dict, rank: int) -> None:
         distributed.shutdown()
 
 
+def run_case(job: dict, rank: int, world: int) -> None:
+    """One mesh, config and task list on the open process group; rank 0
+    writes what the tasks return to the case's ``out``."""
+    from hivedscheduler_tpu_torch import bridge
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import topology
+    from hivedscheduler_tpu_torch.parallel import ring_attention as ring
+    from hivedscheduler_tpu_torch.parallel import train as ptrain
+
+    axes = topology.infer_axes(world, tp=job.get("tp", 1), sp=job.get("sp", 1),
+                               fsdp=job.get("fsdp", 1), ep=job.get("ep", 1),
+                               pp=job.get("pp", 1))
+    mesh = topology.make_mesh(axes, "cpu")
+    cfg = tm.TransformerConfig(dtype=torch.float32, **job["cfg"])
+    step, init_fn, token_sharding = ptrain.make_sharded_train_step(
+        cfg, mesh, grad_accum=job.get("grad_accum", 1),
+        ce_chunk=job.get("ce_chunk", 0))
+    eval_step, _, _ = ptrain.make_sharded_eval_step(
+        cfg, mesh, ce_chunk=job.get("ce_chunk", 0))
+    part, n_parts = data_lib.data_split(mesh)
+    batches = np.load(job["batches"])["tokens"]  # [steps, batch, seq]
+    rows = batches.shape[1] // n_parts
+
+    def tokens(i):
+        return data_lib.device_put_global(
+            batches[i, part * rows:(part + 1) * rows], token_sharding,
+            batches.shape[1])
+
+    with np.load(job["init"]) as f:
+        init = unflatten(dict(f))
+    params = bridge.distribute_tree(init, mesh, tm.sharding_specs(cfg))
+    if cfg.lora_rank > 0:
+        lora_step, _, _ = ptrain.make_sharded_lora_train_step(
+            cfg, mesh, grad_accum=job.get("grad_accum", 1),
+            ce_chunk=job.get("ce_chunk", 0))
+        base, lora = tm.split_lora_params(params)
+        trained = ptrain._leaves(lora)
+
+        def step(params, opt, tokens):
+            _, opt, loss = lora_step(base, lora, opt, tokens)
+            return params, opt, loss
+    else:
+        trained = ptrain._leaves(params)
+    for leaf in trained:
+        leaf.requires_grad_(True)
+    opt = ptrain.make_optimizer()(trained)
+    out = {"data_part": np.array([part, n_parts])}
+
+    def state_out(prefix, params, opt):
+        for name, t in ckpt.named_leaves(params).items():
+            out[f"{prefix}params/{name}"] = _full(t.detach()).numpy()
+            for key, m in opt.state.get(t, {}).items():
+                out[f"{prefix}opt/{name}.{key}"] = _full(m).numpy()
+
+    for task in job["tasks"]:
+        if task == "forward":
+            with torch.no_grad():
+                logits, aux = tm.forward_with_aux(params, tokens(0), cfg, mesh)
+            seq = mesh.get_local_rank("sp") if axes.sp > 1 else 0
+            parts = [None] * world
+            torch.distributed.all_gather_object(parts, (part, seq, logits.numpy()))
+            t = logits.shape[1]
+            whole = np.full((batches.shape[1], batches.shape[2], logits.shape[2]),
+                            np.nan, np.float32)
+            spread = 0.0
+            for p, q, x in parts:
+                block = whole[p * rows:(p + 1) * rows, q * t:(q + 1) * t]
+                if not np.isnan(block).any():
+                    spread = max(spread, float(np.abs(block - x).max()))
+                block[...] = x
+            out["logits"], out["replica_spread"] = whole, np.array(spread)
+            out["aux"] = np.array(float(aux))
+        elif task == "grads":
+            loss, grads = ptrain.value_and_grad(
+                params, tokens(0), cfg, mesh, grad_accum=job.get("grad_accum", 1),
+                ce_chunk=job.get("ce_chunk", 0), trainable=trained)
+            out["grad_loss"] = np.array(float(loss))
+            names = {id(t): n for n, t in ckpt.named_leaves(params).items()}
+            for leaf, g in zip(trained, grads):
+                out[f"grads/{names[id(leaf)]}"] = _full(g).numpy()
+        elif task == "eval":
+            out["eval_loss"] = np.array(float(eval_step(params, tokens(0))))
+            with torch.no_grad():
+                for aux in (True, False):
+                    out[f"loss_aux_{aux}"] = np.array(float(ptrain.loss_fn(
+                        params, tokens(0), cfg, mesh, ce_chunk=job.get("ce_chunk", 0),
+                        include_aux=aux)))
+        elif task == "train":
+            routes = attention.FLASH_REFERENCE_ROUTES
+            ring_routes = ring.RING_REFERENCE_ROUTES
+            losses = []
+            for i in range(batches.shape[0]):
+                params, opt, loss = step(params, opt, tokens(i))
+                losses.append(float(loss))
+            out["losses"] = np.array(losses)
+            out["reference_routes"] = np.array(
+                attention.FLASH_REFERENCE_ROUTES - routes)
+            out["ring_reference_routes"] = np.array(
+                ring.RING_REFERENCE_ROUTES - ring_routes)
+            state_out("", params, opt)
+        elif task == "save":
+            meta = ckpt.train_metadata(axes, cfg,
+                                       global_batch=batches.shape[1],
+                                       seq_len=batches.shape[2])
+            ckpt.save(job.get("save_dir", job["ckpt_dir"]), batches.shape[0],
+                      params, opt, extra=meta)
+        elif task == "restore":
+            params_r, opt_r = init_fn(torch.Generator().manual_seed(1))
+            restored, _, _ = ckpt.restore(job["ckpt_dir"], params_r, opt_r)
+            out["restored_step"] = np.array(restored)
+            state_out("restored/", params_r, opt_r)
+        else:
+            raise ValueError(f"unknown task {task!r}")
+    if rank == 0:
+        np.savez(job["out"], **out)
+
+
 def main(job_path: str, rank: int) -> None:
     with open(job_path) as f:
         job = json.load(f)
@@ -201,99 +325,16 @@ def main(job_path: str, rank: int) -> None:
     if job.get("serve"):
         return serve_main(job, rank)
 
-    from hivedscheduler_tpu_torch import bridge
-    from hivedscheduler_tpu_torch.models import transformer as tm
-    from hivedscheduler_tpu_torch.ops import attention
-    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
-    from hivedscheduler_tpu_torch.parallel import data as data_lib
-    from hivedscheduler_tpu_torch.parallel import distributed, topology
-    from hivedscheduler_tpu_torch.parallel import ring_attention as ring
-    from hivedscheduler_tpu_torch.parallel import train as ptrain
+    from hivedscheduler_tpu_torch.parallel import distributed
 
     got_rank, world = distributed.initialize_from_gang(
         coordinator_port=job["port"], device="cpu")
     assert (got_rank, world) == (rank, job["world"]), (got_rank, world)
     try:
-        axes = topology.infer_axes(world, tp=job.get("tp", 1), sp=job.get("sp", 1),
-                                   fsdp=job.get("fsdp", 1), ep=job.get("ep", 1))
-        mesh = topology.make_mesh(axes, "cpu")
-        cfg = tm.TransformerConfig(dtype=torch.float32, **job["cfg"])
-        step, init_fn, token_sharding = ptrain.make_sharded_train_step(
-            cfg, mesh, grad_accum=job.get("grad_accum", 1),
-            ce_chunk=job.get("ce_chunk", 0))
-        eval_step, _, _ = ptrain.make_sharded_eval_step(
-            cfg, mesh, ce_chunk=job.get("ce_chunk", 0))
-        part, n_parts = data_lib.data_split(mesh)
-        batches = np.load(job["batches"])["tokens"]  # [steps, batch, seq]
-        rows = batches.shape[1] // n_parts
-
-        def tokens(i):
-            return data_lib.device_put_global(
-                batches[i, part * rows:(part + 1) * rows], token_sharding,
-                batches.shape[1])
-
-        with np.load(job["init"]) as f:
-            init = unflatten(dict(f))
-        params = bridge.distribute_tree(init, mesh, tm.sharding_specs(cfg))
-        if cfg.lora_rank > 0:
-            lora_step, _, _ = ptrain.make_sharded_lora_train_step(
-                cfg, mesh, grad_accum=job.get("grad_accum", 1),
-                ce_chunk=job.get("ce_chunk", 0))
-            base, lora = tm.split_lora_params(params)
-            trained = ptrain._leaves(lora)
-
-            def step(params, opt, tokens):
-                _, opt, loss = lora_step(base, lora, opt, tokens)
-                return params, opt, loss
-        else:
-            trained = ptrain._leaves(params)
-        for leaf in trained:
-            leaf.requires_grad_(True)
-        opt = ptrain.make_optimizer()(trained)
-        out = {"data_part": np.array([part, n_parts])}
-
-        def state_out(prefix, params, opt):
-            for name, t in ckpt.named_leaves(params).items():
-                out[f"{prefix}params/{name}"] = _full(t.detach()).numpy()
-                for key, m in opt.state.get(t, {}).items():
-                    out[f"{prefix}opt/{name}.{key}"] = _full(m).numpy()
-
-        for task in job["tasks"]:
-            if task == "eval":
-                out["eval_loss"] = np.array(float(eval_step(params, tokens(0))))
-                with torch.no_grad():
-                    for aux in (True, False):
-                        out[f"loss_aux_{aux}"] = np.array(float(ptrain.loss_fn(
-                            params, tokens(0), cfg, mesh, ce_chunk=job.get("ce_chunk", 0),
-                            include_aux=aux)))
-            elif task == "train":
-                routes = attention.FLASH_REFERENCE_ROUTES
-                ring_routes = ring.RING_REFERENCE_ROUTES
-                losses = []
-                for i in range(batches.shape[0]):
-                    params, opt, loss = step(params, opt, tokens(i))
-                    losses.append(float(loss))
-                out["losses"] = np.array(losses)
-                out["reference_routes"] = np.array(
-                    attention.FLASH_REFERENCE_ROUTES - routes)
-                out["ring_reference_routes"] = np.array(
-                    ring.RING_REFERENCE_ROUTES - ring_routes)
-                state_out("", params, opt)
-            elif task == "save":
-                meta = ckpt.train_metadata(axes, cfg,
-                                           global_batch=batches.shape[1],
-                                           seq_len=batches.shape[2])
-                ckpt.save(job["ckpt_dir"], batches.shape[0], params, opt,
-                          extra=meta)
-            elif task == "restore":
-                params_r, opt_r = init_fn(torch.Generator().manual_seed(1))
-                restored, _, _ = ckpt.restore(job["ckpt_dir"], params_r, opt_r)
-                out["restored_step"] = np.array(restored)
-                state_out("restored/", params_r, opt_r)
-            else:
-                raise ValueError(f"unknown task {task!r}")
-        if rank == 0:
-            np.savez(job["out"], **out)
+        # a job's ``cases`` run one after another on this process group,
+        # each with its own mesh, config, tasks and output
+        for case in job.get("cases", [{}]):
+            run_case(dict(job, **case), rank, world)
     finally:
         distributed.shutdown()
 
