@@ -49,11 +49,11 @@ Phases, each of which must pass or the script exits non-zero:
     weights and batch, by leaf group, and show that the check sees a planted
     fault (the last layer's dq zeroed); print the device time of one flash
     step by kernel group (torch.profiler);
-(i) checkpoint and resume at the flagship width (6 layers, train's flags of
-    (h)): save the train state after one step (511.7 M f32 parameters and
-    their AdamW moments, ~6.1 GB), restore it into zeroed templates on the
-    card and require every parameter and moment bit-identical, and show
-    that the check sees one flipped bit; run ``train`` 4 steps twice
+(i) checkpoint and resume at the flagship width (train's flags of (h)):
+    save the 6-layer train state after one step (511.7 M f32 parameters
+    and their AdamW moments, ~6.1 GB), restore it into zeroed templates on
+    the card and require every parameter and moment bit-identical, and show
+    that the check sees one flipped bit; then, at 2 layers, run ``train`` 4 steps twice
     uninterrupted (A, A2), then 2 steps with ``--checkpoint-dir
     --checkpoint-every 2 --goodput-file`` (B) and the same command with
     ``--steps 4`` (B', which resumes), and hold B''s steps 3-4 to A's
@@ -61,15 +61,16 @@ Phases, each of which must pass or the script exits non-zero:
     again with the loader state dropped from the marker (fast-forward,
     which must pass) and with the loader restarted at position 0 (which
     must fail the same check); SIGTERM a ``python -m
-    hivedscheduler_tpu_torch.train`` process on the card after its step 2
-    and require exit 0 within the 60 s grace period with a committed
+    hivedscheduler_tpu_torch.train`` process on the card (8 steps) after its
+    step 2 and require exit 0 within the 60 s grace period with a committed
     marker at the step it stopped on, then a resumed incarnation that
     finishes; print the save and restore seconds, GB/s and B + B''s
     goodput phase seconds, and require the goodput spool's audit to be
     clean. The temp directory's free space is printed first, and the phase
     fails if it cannot hold two checkpoints.
-(j) decode and generate at the flagship width (6 layers, bf16 weights cast
-    from seed 0; bench_model.py's decode shape: batch 16, prompt 128, 64 new
+(j) decode and generate at the flagship width (3 layers, cut from 6 for the
+    script's time limit; bf16 weights cast from seed 0; bench_model.py's
+    decode shape: batch 16, prompt 128, 64 new
     tokens): hold the decode logits (``advance``: one prefill, then one
     token a step) to the full forward on the same sequence, per position,
     and show that the check sees a planted fault (K/V one position off);
@@ -145,7 +146,7 @@ Phases, each of which must pass or the script exits non-zero:
     the steps of flash, ring_flash and ring_zigzag_flash timed in turns by
     CUDA events on the world-1 mesh.
 (n) the mixture-of-experts model (8 experts, top-2) at the flagship width
-    through train, eval, generate and serve, and a 2-layer MoE checkpoint.
+    through train, eval, generate and serve, and a 1-layer MoE checkpoint.
 (o) LoRA fine-tuning at the flagship width: ``train`` with (h)'s flags and
     ``--lora-rank 16 --lora-alpha 32 --lora-mlp`` (3 steps, committing a
     checkpoint), with K1/K2/K3 launched 36/18/18 times; its first loss
@@ -311,6 +312,29 @@ Phases, each of which must pass or the script exits non-zero:
     no transfer) in turns with the whole 6-layer step, beside the GPipe
     bubble (pp - 1) / (n_micro + pp - 1).
 
+(w) overlapped tensor parallelism on the one card (tp above 1 needs more
+    GPUs: NCCL refuses two ranks on one device, and the CPU gangs of the
+    tests hold the real pipelines): a tp = 2 rank pair of the flagship
+    (each rank 8 heads, 4 kv heads, d_ff / 2; bf16, ``--attn flash``)
+    replayed in this process through ``shard_utils``' per-hop functions,
+    one rank's transfer being the other rank's tensor read in the hop's
+    order. (1) The whole 6-layer stack on both ranks' token blocks, joined,
+    against the one-device forward's final-norm hidden states (relative
+    (e)'s 5e-2), K1 launched 12 times on the ranks' local heads, and a
+    planted fault (each chunk's products at the other chunk's position)
+    caught; (2) one layer's backward on both ranks (the collective
+    matmuls' backward schedules, the rest by autograd on each rank, K1/K2/K3
+    2/2/2) against autograd of the one-device layer, by group with (h)'s
+    limits (the norms' gradients summed over the ranks), and a planted
+    fault (the dx accumulator's last add dropped) caught; (4) rank 0's
+    projection GEMMs of one layer, forward and backward, chunked over the
+    two hops against the whole gathered sequence's, in turns by CUDA
+    events (the transfers and their overlap cannot be seen on one card);
+    (5) ``train --overlap`` at world 1 exits with the JAX CLI's usage error
+    ("tp axis is 1"), and a 2-layer eval on the world-1 NCCL mesh with
+    ``overlap`` None runs the reference body (the overlapped-stack counter
+    unmoved, K1 launched).
+
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and
@@ -327,6 +351,7 @@ import logging
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -910,8 +935,11 @@ def phase_train_profile() -> None:
     torch.cuda.empty_cache()
 
 
-# phase (i): checkpoint, resume, preemption and goodput at the flagship width
+# phase (i): checkpoint, resume, preemption and goodput at the flagship
+# width; the round trip holds the whole 6-layer state, the train runs that
+# resume and preempt are cut to 2 layers (the script's time limit)
 CKPT_ARGS = TRAIN_ARGS + ["--attn", "flash"]
+RESUME_ARGS = CKPT_ARGS + ["--n-layers", "2"]
 RESUME_STEPS, RESUME_SPLIT = 4, 2
 # resumed losses against the uninterrupted run's when two uninterrupted runs
 # are not bit-identical: the loss limit the port uses flash vs xla, relative
@@ -919,16 +947,16 @@ RESUME_REL = 1e-3
 PREEMPT_STEPS, PREEMPT_AT, GRACE_SECS = 8, 2, 60.0
 
 
-def _train_main(tmp: str, name: str, *extra: str) -> dict:
-    """``train.main`` with the flagship train flags -> {step: loss} of its
-    timeline (the last record of a step wins)."""
+def _train_main(tmp: str, name: str, *extra: str, args=CKPT_ARGS) -> dict:
+    """``train.main`` with ``args`` (the flagship train flags) and ``extra``
+    -> {step: loss} of its timeline (the last record of a step wins)."""
     import torch
 
     from hivedscheduler_tpu_torch import train as port_train
 
     torch.cuda.empty_cache()
     path = os.path.join(tmp, f"{name}.jsonl")
-    rc = port_train.main(CKPT_ARGS + ["--timeline", path] + list(extra))
+    rc = port_train.main(args + ["--timeline", path] + list(extra))
     check(rc == 0, f"train ({name}) exited {rc}")
     with open(path) as f:
         losses = {r["step"]: r["loss"] for r in map(json.loads, f)}
@@ -1053,8 +1081,8 @@ def phase_checkpoint() -> dict:
         torch.cuda.empty_cache()
 
         # resume against the uninterrupted run
-        a = _train_main(tmp, "A", "--steps", str(RESUME_STEPS))
-        a2 = _train_main(tmp, "A2", "--steps", str(RESUME_STEPS))
+        a = _train_main(tmp, "A", "--steps", str(RESUME_STEPS), args=RESUME_ARGS)
+        a2 = _train_main(tmp, "A2", "--steps", str(RESUME_STEPS), args=RESUME_ARGS)
         spread = max(abs(a[s] - a2[s]) / abs(a[s]) for s in a)
         exact = a == a2
         print(f"[i] uninterrupted runs A and A2, {RESUME_STEPS} steps: losses "
@@ -1075,12 +1103,13 @@ def phase_checkpoint() -> dict:
         common = ["--checkpoint-dir", ck, "--checkpoint-every", str(RESUME_SPLIT),
                   "--goodput-file", gp]
         _close_goodput()
-        b = _train_main(tmp, "B", "--steps", str(RESUME_SPLIT), *common)
+        b = _train_main(tmp, "B", "--steps", str(RESUME_SPLIT), *common, args=RESUME_ARGS)
         _close_goodput()
         if exact:
             check(b == {s: a[s] for s in range(1, RESUME_SPLIT + 1)},
                   "run B's first steps differ from run A's")
-        b1 = _train_main(tmp, "B1", "--steps", str(RESUME_STEPS), *common)
+        b1 = _train_main(tmp, "B1", "--steps", str(RESUME_STEPS), *common,
+                         args=RESUME_ARGS)
         _close_goodput()
         err, same = resumed_err(b1)
         print(f"[i] B: {RESUME_SPLIT} steps with --checkpoint-every {RESUME_SPLIT}; "
@@ -1110,7 +1139,8 @@ def phase_checkpoint() -> dict:
                 extra["loader"] = loader
             ckpt.atomic_write_bytes(marker, json.dumps(dict(saved, extra=extra)).encode())
             got = _train_main(tmp, case.split()[0], "--steps", str(RESUME_STEPS),
-                              "--checkpoint-dir", ck, "--checkpoint-every", str(RESUME_SPLIT))
+                              "--checkpoint-dir", ck, "--checkpoint-every", str(RESUME_SPLIT),
+                              args=RESUME_ARGS)
             outcomes[case] = resumed_err(got)
             print(f"[i] resume with {case}: largest relative error "
                   f"{outcomes[case][0]:.3e}, bit-identical {outcomes[case][1]}")
@@ -1146,8 +1176,7 @@ def phase_checkpoint() -> dict:
     return report
 
 
-def _flagship_params() -> int:
-    m = EVAL_MODEL
+def _flagship_params(m=EVAL_MODEL) -> int:
     d, f, v, n = m["d_model"], m["d_ff"], m["vocab_size"], m["n_layers"]
     hd = d // m["n_heads"]
     layer = 2 * d + d * d * 2 + 2 * d * m["n_kv_heads"] * hd + 3 * d * f
@@ -1168,7 +1197,7 @@ def _preemption(tmp: str) -> dict:
     torch.cuda.empty_cache()
     ck = os.path.join(tmp, "preempt-ck")
     tl = os.path.join(tmp, "preempt.jsonl")
-    cmd = [sys.executable, "-m", "hivedscheduler_tpu_torch.train"] + CKPT_ARGS + [
+    cmd = [sys.executable, "-m", "hivedscheduler_tpu_torch.train"] + RESUME_ARGS + [
         "--steps", str(PREEMPT_STEPS), "--checkpoint-dir", ck,
         "--checkpoint-every", "100", "--grace-secs", str(GRACE_SECS),
         "--timeline", tl, "--log-every", "100"]
@@ -1207,7 +1236,7 @@ def _preemption(tmp: str) -> dict:
     check(rc == 0 and exit_s <= GRACE_SECS, "SIGTERM did not lead to exit 0 within the grace period")
     check(committed == stopped < PREEMPT_STEPS, "no committed marker at the step it stopped on")
     rest = _train_main(tmp, "after-preempt", "--steps", str(PREEMPT_STEPS),
-                       "--checkpoint-dir", ck, "--checkpoint-every", "100")
+                       "--checkpoint-dir", ck, "--checkpoint-every", "100", args=RESUME_ARGS)
     print(f"[i] second incarnation resumed from step {committed} and ran steps "
           f"{sorted(rest)}, committed step {ckpt.latest_step(ck)}")
     check(sorted(rest) == list(range(committed + 1, PREEMPT_STEPS + 1))
@@ -1314,7 +1343,9 @@ def phase_train_grads(model=EVAL_MODEL, tag="[h]", what="one flagship step") -> 
 # phase (j): decode and generate at the flagship width, bench_model.py's
 # decode shape (its line 997): batch 16, prompt 128, 64 new tokens
 DEC_BATCH, DEC_PROMPT, DEC_NEW, DEC_GAMMA = 16, 128, 64, 4
-DEC_ARGS = [a for k, v in EVAL_MODEL.items()
+# the flagship's width at 3 of its 6 layers (the script's time limit)
+DEC_MODEL = dict(EVAL_MODEL, n_layers=3)
+DEC_ARGS = [a for k, v in DEC_MODEL.items()
             for a in (f"--{k.replace('_', '-')}", str(v))] + [
     "--batch", str(DEC_BATCH), "--prompt-len", str(DEC_PROMPT),
     "--new-tokens", str(DEC_NEW), "--device", "cuda"]
@@ -1325,7 +1356,7 @@ DEC_ARGS = [a for k, v in EVAL_MODEL.items()
 # (S = 1 against S = 192), so in rounding only. The limit is HIDDEN_REL's,
 # set before the first reading.
 DEC_LOGIT_REL = 5e-2
-DEC_TIMED = 3  # timed runs of each generate, after one warm-up run
+DEC_TIMED = 2  # timed runs of each generate, after one warm-up run
 DEC_PROFILED_STEPS = DEC_NEW - 1  # every decode step of one generate
 
 
@@ -1462,7 +1493,7 @@ def phase_decode() -> None:
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW, **EVAL_MODEL)
+    cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW, **DEC_MODEL)
     f32 = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     params = tm.cast_params(f32, cfg.dtype)
     q_params = quant.quantize_params(f32, cfg)
@@ -1470,7 +1501,7 @@ def phase_decode() -> None:
     prompt = torch.randint(0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(1))
     weight_bytes = {"bf16": _tree_bytes(params), "int8": _tree_bytes(q_params)}
-    check(weight_bytes["bf16"] == 2 * _flagship_params(), "bf16 weight bytes")
+    check(weight_bytes["bf16"] == 2 * _flagship_params(DEC_MODEL), "bf16 weight bytes")
     kv_bytes = 2.0 * 2 * cfg.n_layers * DEC_BATCH * (DEC_PROMPT + DEC_NEW) * cfg.kv_heads * cfg.head_dim
 
     # greedy tokens; the flash kernels must not run on the decode path
@@ -2096,10 +2127,12 @@ MESH_CKPT_LAYERS = 2
 MESH_TURNS = 3
 
 
-def _tp_local_kernels() -> None:
+def _tp_local_kernels() -> dict:
     """K1-K3 at the tp-local shapes against their plain versions, with
     (b)'s and (f)'s limits and planted faults, then timed in turns with the
-    library at the same shape."""
+    library at the same shape -> {"fwd", "dq", "dkv": the kernels line's
+    max_abs_err and times at that shape (medians of the turns; the plain and
+    library backward are the whole backward's)}."""
     import torch
     import torch.nn.functional as F
 
@@ -2117,6 +2150,10 @@ def _tp_local_kernels() -> None:
     o_fro, o_row = rel_errs(o, o_ref)
     lse_err = float((lse - lse_ref).abs().max())
     errs = {name: rel_errs(x, r, floor=1e-3) for name, x, r in zip(("dq", "dk", "dv"), got, ref)}
+    max_abs = {"fwd": float((o.float() - o_ref.float()).abs().max())}
+    max_abs["dq"] = float((got[0].float() - ref[0].float()).abs().max())
+    max_abs["dkv"] = max(float((x.float() - r.float()).abs().max())
+                         for x, r in zip(got[1:], ref[1:]))
     print(f"[l] K1 at the tp-local shape q [{b},{t},{h},{d}] k/v [{b},{t},{h_kv},{d}] causal: "
           f"o rel {o_fro:.3e} (<= {O_REL}), worst row {o_row:.3e} (<= {O_ROW_REL}), "
           f"max|lse err| {lse_err:.3e} (<= {LSE_ATOL}); K2/K3: "
@@ -2174,10 +2211,16 @@ def _tp_local_kernels() -> None:
             readings[name][0].append(time_ms(kernel, iters=20, warmup=3))
             if library is not None:
                 readings[name][1].append(time_ms(library, iters=20, warmup=3))
+    rows = {}
     for name, (kernel_ms, library_ms) in readings.items():
         flops, nbytes = work[name]
         ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
         bound_ms = max(ops_ms, bytes_ms)
+        key = {"K1": "fwd", "K2": "dq", "K3": "dkv"}[name]
+        rows[key] = dict(max_abs_err=max_abs[key], ms=statistics.median(kernel_ms),
+                         plain_ms=plain_ms[name], bound_ms=bound_ms,
+                         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                         library_ms=statistics.median(library_ms or readings["K3"][1]))
         lib = ("library (the whole backward) " if name == "K3" else "library ") + (
             ", ".join(f"{x:.4f}" for x in library_ms) + " ms" if library_ms else
             "(see K3: the library backward computes dq, dk and dv together)")
@@ -2188,6 +2231,7 @@ def _tp_local_kernels() -> None:
               f"plain_ms {plain_ms[name]:.3f}{' (the whole backward)' if name != 'K1' else ''}; {lib}")
     del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg, out, dout
     torch.cuda.empty_cache()
+    return rows
 
 
 def _steps_by_events(step, params, opt, batches) -> tuple:
@@ -2276,9 +2320,9 @@ def _mesh_train(mesh, h_flash: dict) -> None:
 
 
 def _mesh_checkpoint(mesh, model=None, tag="[l]") -> None:
-    """A world-1 DTensor train state (flagship width, 2 layers; ``model``
-    overrides the flagship's fields) through the multi-rank save and
-    restore: bit-identical, with a planted fault."""
+    """A world-1 DTensor train state (flagship width, ``MESH_CKPT_LAYERS``
+    layers; ``model`` overrides the flagship's fields) through the
+    multi-rank save and restore: bit-identical, with a planted fault."""
     import numpy as np
     import torch
     from torch.distributed.tensor import DTensor
@@ -2289,7 +2333,7 @@ def _mesh_checkpoint(mesh, model=None, tag="[l]") -> None:
     from hivedscheduler_tpu_torch.parallel import topology
     from hivedscheduler_tpu_torch.parallel import train as port_train
 
-    model = dict(EVAL_MODEL, n_layers=MESH_CKPT_LAYERS, **(model or {}))
+    model = {**EVAL_MODEL, "n_layers": MESH_CKPT_LAYERS, **(model or {})}
     cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", remat="dots", **model)
     step, init_fn, token_sharding = port_train.make_sharded_train_step(
         cfg, mesh, ce_chunk=EVAL_CE_CHUNK)
@@ -2326,7 +2370,7 @@ def _mesh_checkpoint(mesh, model=None, tag="[l]") -> None:
         moments = sum(x.numel() for s_ in opt2.state.values() for x in s_.values() if x.dim())
         check(moments == 2 * n_params, f"restored {moments} moment values for {n_params} parameters")
         bad = _state_mismatches(params, opt, params2, opt2)
-        print(f"{tag} sharded round trip ({MESH_CKPT_LAYERS} layers, {n_params / 1e6:.1f} M f32 "
+        print(f"{tag} sharded round trip ({cfg.n_layers} layers, {n_params / 1e6:.1f} M f32 "
               f"parameters and their AdamW moments as DTensors, {nbytes / 1e9:.3f} GB written; "
               f"marker mesh {ckpt.read_metadata(tmp)['mesh']}): save {save_s:.2f} s "
               f"({nbytes / save_s / 1e9:.2f} GB/s), restore {restore_s:.2f} s "
@@ -2376,9 +2420,10 @@ def _world_1_gang():
         distributed.shutdown()
 
 
-def phase_mesh(h_flash: dict) -> None:
+def phase_mesh(h_flash: dict) -> dict:
     """(l): the gang handoff, the tp-local kernels, world-1 mesh training
-    and the sharded checkpoint, on one NCCL process group."""
+    and the sharded checkpoint, on one NCCL process group -> the tp-local
+    kernels' errors and times (``_tp_local_kernels``)."""
     import torch
     import torch.distributed as dist
 
@@ -2392,10 +2437,11 @@ def phase_mesh(h_flash: dict) -> None:
               "the gang handoff did not give rank 0 of world 1 on cuda:0")
         check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, want nccl")
         mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
-        _tp_local_kernels()
+        tp_local = _tp_local_kernels()
         _mesh_train(mesh, h_flash)
         _mesh_checkpoint(mesh)
     print(f"[l] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return tp_local
 
 
 # phase (m): sequence-parallel attention. One sp = 4 rank's hop of a long
@@ -3231,7 +3277,7 @@ def _moe_serve() -> None:
 
 def phase_moe() -> None:
     """(n): the mixture-of-experts model through train, eval, generate and
-    serve at the flagship width, and a 2-layer MoE checkpoint."""
+    serve at the flagship width, and a 1-layer MoE checkpoint."""
     from hivedscheduler_tpu_torch.parallel import topology
 
     t_phase = time.perf_counter()
@@ -3251,7 +3297,8 @@ def phase_moe() -> None:
     timed("serve", _moe_serve)
     with _world_1_gang():
         mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
-        timed("checkpoint", _mesh_checkpoint, mesh, dict(n_experts=8, moe_top_k=2), "[n]")
+        timed("checkpoint", _mesh_checkpoint, mesh, dict(n_experts=8, moe_top_k=2, n_layers=1),
+              "[n]")
     print(f"[n] phase wall time {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()) + ")")
 
@@ -6038,6 +6085,461 @@ def phase_pipeline(h_flash: dict) -> dict:
     return dict(dense, stage=stage, resumes=resumes)
 
 
+# phase (w): overlapped tensor parallelism. A tp = 2 rank pair of the
+# flagship (each rank 8 of the 16 heads, 4 of the 8 kv heads, half of d_ff)
+# replayed in this process through shard_utils' per-hop functions: a rank's
+# transfer is the other rank's tensor read in the hop's order
+OVERLAP_TP = 2
+OVERLAP_TURNS = 3  # rounds of (chunked, whole, whole, chunked) GEMM timings
+_GATHER_QKV, _GATHER_MLP = "btd,dhk->bthk", "btd,df->btf"
+_SCATTER_O, _SCATTER_MLP = "bthk,hkd->btd", "btf,fd->btd"
+
+
+def _tp_shards(lp: dict, dtype) -> list:
+    """Each tp rank's shards of one layer's projections in ``dtype``, cut as
+    ``sharding_specs`` lays them over tp: heads, or the MLP hidden dim."""
+    dims = dict(wq=1, wk=1, wv=1, wo=0, w_gate=1, w_up=1, w_down=0)
+    return [{name: lp[name].detach().to(dtype).chunk(OVERLAP_TP, dim)[j].contiguous()
+             for name, dim in dims.items()} for j in range(OVERLAP_TP)]
+
+
+def _ring_gather(xs, wss, eq, plant=False):
+    """``allgather_matmul`` on every rank: at hop s rank j holds the chunk of
+    rank (j + s) % n (sent i -> i - 1) and places its products at that
+    position (``place_hop``); ``plant`` puts them one position off."""
+    from hivedscheduler_tpu_torch.parallel import shard_utils as su
+
+    n = len(xs)
+    outs = [None] * n
+    for s in range(n):
+        for j in range(n):
+            src = (j + s) % n
+            outs[j] = su.place_hop(outs[j], xs[src], wss[j], eq, (src + plant) % n, n)
+    return outs
+
+
+def _ring_gather_grad(xs, wss, dys, eq, plant=False):
+    """The backward of :func:`_ring_gather` as ``_AllGatherMatmul`` runs it:
+    hops in reverse, each rank's dx accumulator sent i -> i + 1 and added to
+    the hop's part (``place_hop_grad``) -> (dx, each weight's gradient) per
+    rank; ``plant`` drops the last hop's accumulator add."""
+    from hivedscheduler_tpu_torch.parallel import shard_utils as su
+
+    n = len(xs)
+    dx, dws = [None] * n, [None] * n
+    for s in reversed(range(n)):
+        arrived = [dx[(j - 1) % n] for j in range(n)]
+        for j in range(n):
+            part, parts = su.place_hop_grad(dys[j], xs[(j + s) % n], wss[j], eq, (j + s) % n)
+            dws[j] = parts if dws[j] is None else [a + b for a, b in zip(dws[j], parts)]
+            keep = arrived[j] is not None and not (plant and s == 0)
+            dx[j] = part + arrived[j] if keep else part
+    return dx, dws
+
+
+def _ring_scatter(xs, ws, eq):
+    """``matmul_reducescatter`` on every rank: at step s rank j adds its part
+    of chunk (j + s + 1) % n to the accumulator that arrived from rank j + 1
+    (``accumulate_hop``)."""
+    from hivedscheduler_tpu_torch.parallel import shard_utils as su
+
+    n = len(xs)
+    acc = [None] * n
+    for s in range(n):
+        arrived = [acc[(j + 1) % n] for j in range(n)]
+        acc = [su.accumulate_hop(arrived[j], xs[j], ws[j], eq, (j + s + 1) % n, n)
+               for j in range(n)]
+    return acc
+
+
+def _ring_scatter_grad(xs, ws, dys, eq):
+    """The backward of :func:`_ring_scatter` as ``_MatmulReduceScatter`` runs
+    it: dy all-gathered hop by hop (sent i -> i + 1), each hop giving one
+    chunk of dx (``accumulate_hop_grad``), and dw x^T against the gathered
+    dy -> (dx, dw) per rank."""
+    import torch
+
+    from hivedscheduler_tpu_torch.parallel import shard_utils as su
+
+    n, t = len(xs), dys[0].shape[1]
+    x_s, w_s, o_s = su._operands(eq)
+    g = list(dys)
+    dx = [x.new_empty(x.shape) for x in xs]
+    dy_all = [d.new_empty((d.shape[0], t * n) + tuple(d.shape[2:])) for d in dys]
+    for s in reversed(range(n)):
+        for j in range(n):
+            c = (j + s + 1) % n
+            dx[j][:, c * t:(c + 1) * t].copy_(su.accumulate_hop_grad(g[j], ws[j], eq))
+            dy_all[j][:, c * t:(c + 1) * t].copy_(g[j])
+        g = [g[(j - 1) % n] for j in range(n)]
+    return dx, [torch.einsum(f"{x_s},{o_s}->{w_s}", x, d) for x, d in zip(xs, dy_all)]
+
+
+def _replay_layer(xs, lp, ws, positions, cfg, attn_fn, plant=False):
+    """One dense layer of ``_apply_layer_overlapped`` on every replayed rank:
+    ``xs`` are the ranks' token blocks, ``ws`` their projection shards."""
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    th = cfg.rope_theta
+    h = [tm._rms_norm(x, lp["attn_norm"]) for x in xs]
+    qkv = _ring_gather(h, [[w["wq"], w["wk"], w["wv"]] for w in ws], _GATHER_QKV, plant)
+    att = [attn_fn(tm._rope(q, positions, th), tm._rope(k, positions, th), v, causal=True)
+           for q, k, v in qkv]
+    xs = [x + o for x, o in zip(xs, _ring_scatter(att, [w["wo"] for w in ws], _SCATTER_O))]
+    h = [tm._rms_norm(x, lp["mlp_norm"]) for x in xs]
+    gate_up = _ring_gather(h, [[w["w_gate"], w["w_up"]] for w in ws], _GATHER_MLP, plant)
+    mid = [F.silu(g) * u for g, u in gate_up]
+    return [x + d for x, d in zip(xs, _ring_scatter(mid, [w["w_down"] for w in ws],
+                                                    _SCATTER_MLP))]
+
+
+def _replay_stack(params, tokens, cfg, attn_fn, plant=False):
+    """The overlapped stack of a tp = 2 rank pair, replayed: every layer on
+    both ranks' token blocks, then the blocks joined -> final-norm hidden
+    states."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    positions = tm.token_positions(tokens)
+    xs = list(tm.embed_tokens(params, tokens, cfg).chunk(OVERLAP_TP, dim=1))
+    for lp in tm.layer_leaves(params["layers"]):
+        xs = _replay_layer(xs, lp, _tp_shards(lp, cfg.dtype), positions, cfg, attn_fn, plant)
+    return tm._rms_norm(torch.cat(xs, dim=1), params["final_norm"])
+
+
+def _replay_layer_grad(x, lp, dy, positions, cfg, attn_fn, plant=False) -> dict:
+    """One layer's backward on a replayed tp = 2 rank pair: the rank-local
+    pieces (norms, RoPE, attention through K1-K3, SiLU, the residual adds)
+    by autograd on each rank, the collective matmuls by their hand-written
+    backward schedules -> {"x", each layer leaf: the whole gradient}, the
+    weights' from the ranks' shards joined and the norms' summed over the
+    ranks."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+
+    n, th = OVERLAP_TP, cfg.rope_theta
+    ws = _tp_shards(lp, cfg.dtype)
+
+    def leaf(t):
+        return t.detach().requires_grad_(True)
+
+    def grad(outs, ins, gs):
+        return torch.autograd.grad(outs, ins, gs)
+
+    xs = [leaf(b) for b in x.chunk(n, dim=1)]
+    n1 = [leaf(lp["attn_norm"]) for _ in range(n)]
+    n2 = [leaf(lp["mlp_norm"]) for _ in range(n)]
+    h1 = [tm._rms_norm(xj, nj) for xj, nj in zip(xs, n1)]
+    h1_in = [h.detach() for h in h1]
+    w_qkv = [[w["wq"], w["wk"], w["wv"]] for w in ws]
+    qkv = [[leaf(t) for t in r] for r in _ring_gather(h1_in, w_qkv, _GATHER_QKV)]
+    att = [attn_fn(tm._rope(q, positions, th), tm._rope(k, positions, th), v, causal=True)
+           for q, k, v in qkv]
+    a_in = [a.detach() for a in att]
+    o = [leaf(t) for t in _ring_scatter(a_in, [w["wo"] for w in ws], _SCATTER_O)]
+    x2 = [xj + oj for xj, oj in zip(xs, o)]
+    h2 = [tm._rms_norm(x2j, nj) for x2j, nj in zip(x2, n2)]
+    h2_in = [h.detach() for h in h2]
+    w_gu = [[w["w_gate"], w["w_up"]] for w in ws]
+    gate_up = [[leaf(t) for t in r] for r in _ring_gather(h2_in, w_gu, _GATHER_MLP)]
+    mid = [F.silu(g) * u for g, u in gate_up]
+    dys = list(dy.chunk(n, dim=1))
+    # y = x2 + the down projection's reduce-scatter of mid
+    d_mid, d_down = _ring_scatter_grad([m.detach() for m in mid], [w["w_down"] for w in ws],
+                                       dys, _SCATTER_MLP)
+    d_gu = [grad(mid[j], gate_up[j], d_mid[j]) for j in range(n)]
+    d_h2, d_wgu = _ring_gather_grad(h2_in, w_gu, d_gu, _GATHER_MLP, plant)
+    g_mid = [grad((x2[j], h2[j]), (xs[j], o[j], n2[j]), (dys[j], d_h2[j])) for j in range(n)]
+    d_att, d_wo = _ring_scatter_grad(a_in, [w["wo"] for w in ws], [g[1] for g in g_mid],
+                                     _SCATTER_O)
+    d_qkv = [grad(att[j], qkv[j], d_att[j]) for j in range(n)]  # K2, K3
+    d_h1, d_wqkv = _ring_gather_grad(h1_in, w_qkv, d_qkv, _GATHER_QKV, plant)
+    g_in = [grad(h1[j], (xs[j], n1[j]), d_h1[j]) for j in range(n)]
+    out = {"x": torch.cat([g_mid[j][0] + g_in[j][0] for j in range(n)], dim=1),
+           "attn_norm": sum(g[1] for g in g_in), "mlp_norm": sum(g[2] for g in g_mid),
+           "wo": torch.cat(d_wo, dim=0), "w_down": torch.cat(d_down, dim=0)}
+    for i, name in enumerate(("wq", "wk", "wv")):
+        out[name] = torch.cat([d[i] for d in d_wqkv], dim=1)
+    for i, name in enumerate(("w_gate", "w_up")):
+        out[name] = torch.cat([d[i] for d in d_wgu], dim=1)
+    return out
+
+
+OVERLAP_GRAD_GROUPS = {"input": ("x",), "attention": ("wq", "wk", "wv", "wo"),
+                       "mlp": ("w_gate", "w_up", "w_down"), "norms": ("attn_norm", "mlp_norm")}
+
+
+def _layer_grad_errs(got: dict, ref: dict):
+    """({group: relative Frobenius over its leaves}, the worst leaf's)."""
+    def sq(t):
+        return float(t.float().norm()) ** 2
+
+    groups = {g: (sum(sq(got[n] - ref[n]) for n in names) / sum(sq(ref[n]) for n in names)) ** 0.5
+              for g, names in OVERLAP_GRAD_GROUPS.items()}
+    worst = max((sq(got[n] - ref[n]) / sq(ref[n])) ** 0.5 for n in ref)
+    return groups, worst
+
+
+def _overlap_gemm_turns(params, cfg) -> dict:
+    """(4): rank 0's projection GEMMs of one layer, forward and backward, as
+    the collective matmuls chunk them (two hops, the products placed and the
+    accumulators added) against the same rank's GEMMs on the whole gathered
+    sequence, by CUDA events in turns; the transfers cannot be seen on one
+    card."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import shard_utils as su
+
+    lp = tm.layer_leaves(params["layers"])[0]
+    w = _tp_shards(lp, cfg.dtype)[0]
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    b, t, d = EVAL_BATCH, EVAL_SEQ, cfg.d_model
+    hl, hk, f = cfg.n_heads // OVERLAP_TP, cfg.kv_heads // OVERLAP_TP, cfg.d_ff // OVERLAP_TP
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype)
+
+    h, att, mid = randn(b, t, d), randn(b, t, hl, cfg.head_dim), randn(b, t, f)
+    # contiguous, as a rank holds them: its own block and the received ones
+    chunks = [c.contiguous() for c in h.chunk(OVERLAP_TP, dim=1)]
+    other = randn(b, t // OVERLAP_TP, d)  # the accumulator rank 1 sends
+    dq, dk = randn(b, t, hl, cfg.head_dim), randn(b, t, hk, cfg.head_dim)
+    dg, dy = randn(b, t, f), randn(b, t // OVERLAP_TP, d)
+    dy_whole = torch.cat([dy] * OVERLAP_TP, dim=1)
+    qkv, gu = [w["wq"], w["wk"], w["wv"]], [w["w_gate"], w["w_up"]]
+
+    def chunked_fwd():
+        for ws, eq in ((qkv, _GATHER_QKV), (gu, _GATHER_MLP)):
+            outs = None
+            for s in range(OVERLAP_TP):
+                outs = su.place_hop(outs, chunks[s], ws, eq, s, OVERLAP_TP)
+        for x, wt, eq in ((att, w["wo"], _SCATTER_O), (mid, w["w_down"], _SCATTER_MLP)):
+            acc = None
+            for s in range(OVERLAP_TP):
+                acc = su.accumulate_hop(other if s else None, x, wt, eq, (s + 1) % OVERLAP_TP,
+                                        OVERLAP_TP)
+
+    def whole_fwd():
+        for wt in qkv:
+            torch.einsum(_GATHER_QKV, h, wt)
+        for wt in gu:
+            torch.einsum(_GATHER_MLP, h, wt)
+        torch.einsum(_SCATTER_O, att, w["wo"])
+        torch.einsum(_SCATTER_MLP, mid, w["w_down"])
+
+    def chunked_bwd():
+        for ws, eq, dys in ((qkv, _GATHER_QKV, [dq, dk, dk]), (gu, _GATHER_MLP, [dg, dg])):
+            dx = None
+            for s in reversed(range(OVERLAP_TP)):
+                part, _ = su.place_hop_grad(dys, chunks[s], ws, eq, s)
+                dx = part if dx is None else part + dx
+        for x, wt, eq in ((att, w["wo"], _SCATTER_O), (mid, w["w_down"], _SCATTER_MLP)):
+            x_s, w_s, o_s = su._operands(eq)
+            dx, dy_all = x.new_empty(x.shape), dy_whole.new_empty(dy_whole.shape)
+            n = dy.shape[1]
+            for s in reversed(range(OVERLAP_TP)):
+                c = (s + 1) % OVERLAP_TP
+                dx[:, c * n:(c + 1) * n].copy_(su.accumulate_hop_grad(dy, wt, eq))
+                dy_all[:, c * n:(c + 1) * n].copy_(dy)
+            torch.einsum(f"{x_s},{o_s}->{w_s}", x, dy_all)
+
+    def whole_bwd():
+        for ws, eq, dys in ((qkv, _GATHER_QKV, [dq, dk, dk]), (gu, _GATHER_MLP, [dg, dg])):
+            x_s, w_s, o_s = su._operands(eq)
+            dx = None
+            for wt, g in zip(ws, dys):
+                part = torch.einsum(f"{o_s},{w_s}->{x_s}", g, wt)
+                dx = part if dx is None else dx + part
+                torch.einsum(f"{x_s},{o_s}->{w_s}", h, g)
+        for x, wt, eq in ((att, w["wo"], _SCATTER_O), (mid, w["w_down"], _SCATTER_MLP)):
+            x_s, w_s, o_s = su._operands(eq)
+            torch.einsum(f"{o_s},{w_s}->{x_s}", dy_whole, wt)
+            torch.einsum(f"{x_s},{o_s}->{w_s}", x, dy_whole)
+
+    readings = {k: [] for k in ("chunked_fwd", "whole_fwd", "chunked_bwd", "whole_bwd")}
+    fns = dict(chunked_fwd=chunked_fwd, whole_fwd=whole_fwd, chunked_bwd=chunked_bwd,
+               whole_bwd=whole_bwd)
+    for _ in range(OVERLAP_TURNS):
+        for order in (("chunked", "whole"), ("whole", "chunked")):
+            for way in order:
+                for part in ("fwd", "bwd"):
+                    readings[f"{way}_{part}"].append(time_ms(fns[f"{way}_{part}"], iters=10))
+    rows = b * t
+    flops_fwd = 2 * rows * d * (hl + 2 * hk) * cfg.head_dim + 2 * rows * hl * cfg.head_dim * d \
+        + 2 * 2 * rows * d * f + 2 * rows * f * d
+    med = {k: statistics.median(v) for k, v in readings.items()}
+    for part, flops in (("fwd", flops_fwd), ("bwd", 2 * flops_fwd)):
+        print(f"[w] (4) rank 0's projection GEMMs of one layer, {part}: chunked (2 hops) "
+              f"{', '.join(f'{x:.4f}' for x in readings[f'chunked_{part}'])} ms, whole gathered "
+              f"{', '.join(f'{x:.4f}' for x in readings[f'whole_{part}'])} ms in turns; medians "
+              f"{med[f'chunked_{part}']:.4f} / {med[f'whole_{part}']:.4f} = "
+              f"{med[f'chunked_{part}'] / med[f'whole_{part}']:.3f}x "
+              f"({flops / 1e9:.1f} GFLOP: {flops / med[f'chunked_{part}'] / 1e9:.1f} / "
+              f"{flops / med[f'whole_{part}'] / 1e9:.1f} TFLOP/s)")
+    del h, att, mid, chunks, other, dq, dk, dg, dy, dy_whole
+    torch.cuda.empty_cache()
+    return med
+
+
+def _overlap_world_1() -> None:
+    """(5): at world 1 ``train --overlap`` exits with the JAX CLI's usage
+    error, and with ``overlap`` None the world-1 mesh runs the reference
+    body (the counter unmoved, K1 launched)."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch import train as port_train
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import topology
+    from hivedscheduler_tpu_torch.parallel import train as ptrain
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            port_train.main(["--steps", "1", "--overlap", "--device", "cuda"])
+            code = 0
+        except SystemExit as exc:
+            code = exc.code
+    want = "--overlap requested but inapplicable: tp axis is 1: no tensor collectives to overlap"
+    print(f"[w] (5) train --overlap at world 1: exit {code}; "
+          f"{[l for l in err.getvalue().splitlines() if 'error' in l]}")
+    check(code == 2 and want in err.getvalue(), "train --overlap at world 1 is not JAX's usage error")
+    cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash",
+                               **dict(EVAL_MODEL, n_layers=2))
+    with _world_1_gang():
+        mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
+        ok, reason = tm.overlap_applicable(cfg, mesh, EVAL_SEQ, EVAL_BATCH)
+        eval_step, init_fn, sharding = ptrain.make_sharded_eval_step(cfg, mesh, EVAL_CE_CHUNK)
+        params = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        corpus = data_lib.synthetic_dataset(cfg.vocab_size).tokens
+        batch = np.asarray(corpus[:EVAL_BATCH * EVAL_SEQ], dtype=np.int32).reshape(
+            EVAL_BATCH, EVAL_SEQ)
+        stacks, attn.FLASH_FWD_LAUNCHES = tm.OVERLAPPED_STACKS, 0
+        loss = float(eval_step(params, data_lib.device_put_global(batch, sharding, EVAL_BATCH)))
+        launched = attn.FLASH_FWD_LAUNCHES
+        del params
+    torch.cuda.empty_cache()
+    print(f"[w] (5) world-1 mesh, overlap None: gate ({ok}, {reason!r}); eval loss "
+          f"{loss:.6f}, overlapped stacks run {tm.OVERLAPPED_STACKS - stacks}, K1 {launched}")
+    check(not ok and tm.OVERLAPPED_STACKS == stacks and launched == cfg.n_layers
+          and math.isfinite(loss), "the world-1 mesh did not run the reference body")
+
+
+def phase_overlap(tp_local: dict) -> dict:
+    """(w): a tp = 2 rank pair of overlapped tensor parallelism replayed on
+    the one card -> K1-K3's launches in the replay and their rows of the
+    kernels line (errors and times at the tp-local shape, from (l))."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+
+    t_phase = time.perf_counter()
+    cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", **EVAL_MODEL)
+    attn_fn = tm._resolve_attn_fn(cfg)
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    corpus = data_lib.synthetic_dataset(cfg.vocab_size).tokens
+    tokens = torch.from_numpy(np.asarray(
+        corpus[:EVAL_BATCH * EVAL_SEQ], dtype=np.int32).reshape(EVAL_BATCH, EVAL_SEQ)).cuda()
+    positions = tm.token_positions(tokens)
+
+    def zero_launches():
+        attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
+
+    def read_launches():
+        return dict(fwd=attn.FLASH_FWD_LAUNCHES, dq=attn.FLASH_BWD_DQ_LAUNCHES,
+                    dkv=attn.FLASH_BWD_DKV_LAUNCHES)
+
+    # (1) the whole stack, both ranks, against the one-device forward
+    with torch.inference_mode():
+        h_ref = tm.forward_with_aux(params, tokens, cfg, return_hidden=True)[0]
+        zero_launches()
+        t0 = time.perf_counter()
+        h_rep = _replay_stack(params, tokens, cfg, attn_fn)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches = read_launches()
+        h_bad = _replay_stack(params, tokens, cfg, attn_fn, plant=True)
+    check(h_rep.shape == h_ref.shape and bool(torch.isfinite(h_rep).all()),
+          f"replayed hidden states {tuple(h_rep.shape)}")
+    fro, row = rel_errs(h_rep, h_ref)
+    bad_fro, _ = rel_errs(h_bad, h_ref)
+    print(f"[w] (1) a tp = 2 rank pair replayed through the overlapped stack "
+          f"({cfg.n_layers} layers, q [{EVAL_BATCH},{EVAL_SEQ},{cfg.n_heads // OVERLAP_TP},"
+          f"{cfg.head_dim}] a rank): final-norm hidden states against the one-device forward "
+          f"rel {fro:.3e} (<= {HIDDEN_REL}), worst token rel {row:.3e}, max|err| "
+          f"{float((h_rep.float() - h_ref.float()).abs().max()):.3e}; K1 {launches['fwd']} "
+          f"launches; {fwd_s:.2f} s; planted fault (each chunk's products at the other "
+          f"chunk's position): rel {bad_fro:.3e}")
+    check(launches["fwd"] == OVERLAP_TP * cfg.n_layers, f"the replay launched K1 {launches}")
+    check(fro <= HIDDEN_REL, "the replayed overlapped stack disagrees with the one-device forward")
+    check(bad_fro > HIDDEN_REL, "the hidden-state check does not see the misplaced chunks")
+    del h_ref, h_rep, h_bad
+
+    # (2) one layer's backward, both ranks, against autograd of the layer
+    lp = tm.layer_leaves(params["layers"])[0]
+    with torch.no_grad():
+        x = tm.embed_tokens(params, tokens, cfg)
+    dy = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(72),
+                     device="cuda").to(cfg.dtype)
+    leaves = {name: lp[name].detach().requires_grad_(True) for name in
+              ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")}
+    x_leaf = x.detach().requires_grad_(True)
+    y, _ = tm._apply_layer(x_leaf, leaves, positions, cfg, attn_fn)
+    ref = dict(zip(["x", *leaves], torch.autograd.grad(y, [x_leaf, *leaves.values()], dy)))
+    del y
+    zero_launches()
+    got = _replay_layer_grad(x, lp, dy, positions, cfg, attn_fn)
+    torch.cuda.synchronize()
+    grad_launches = read_launches()
+    bad = _replay_layer_grad(x, lp, dy, positions, cfg, attn_fn, plant=True)
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()), "non-finite replayed gradients")
+    groups, worst = _layer_grad_errs(got, ref)
+    bad_groups, bad_worst = _layer_grad_errs(bad, ref)
+    print(f"[w] (2) one layer's backward on the replayed pair against autograd of the "
+          f"one-device layer, by group: " + ", ".join(f"{k} {v:.3e}" for k, v in groups.items())
+          + f" (<= {TRAIN_GRAD_REL}); worst leaf {worst:.3e} (<= {TRAIN_GRAD_SLICE_REL}); "
+          f"K1/K2/K3 {grad_launches['fwd']}/{grad_launches['dq']}/{grad_launches['dkv']}; "
+          f"planted fault (the dx accumulator's last add dropped): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in bad_groups.items())
+          + f", worst leaf {bad_worst:.3e}")
+    check(all(v <= TRAIN_GRAD_REL for v in groups.values()) and worst <= TRAIN_GRAD_SLICE_REL,
+          "the replayed gradients disagree with the one-device layer's")
+    check(bad_groups["input"] > TRAIN_GRAD_REL or bad_worst > TRAIN_GRAD_SLICE_REL,
+          "the gradient check does not see the dropped add")
+    check(grad_launches == dict(fwd=OVERLAP_TP, dq=OVERLAP_TP, dkv=OVERLAP_TP),
+          f"the replayed backward launched {grad_launches}")
+    for key in launches:
+        launches[key] += grad_launches[key]
+    del ref, got, bad, x, dy, leaves, x_leaf, lp
+
+    # (4) the GEMMs' cost of chunking, (5) the world-1 gate
+    gemms = _overlap_gemm_turns(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    _overlap_world_1()
+    print(f"[w] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    source = "hivedscheduler_tpu_torch/ops/csrc/"
+    rows = [dict(name=f"{name}_overlap", route="cuda", source=source + lib,
+                 replaces=f"hivedscheduler_tpu/ops/attention.py:{line}",
+                 launches=launches[key], **tp_local[key])
+            for name, key, lib, line in (("flash_fwd", "fwd", "flash_fwd.cu", 98),
+                                         ("flash_bwd_dq", "dq", "flash_bwd.cu", 143),
+                                         ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 179))]
+    return dict(rows=rows, gemms=gemms)
+
+
 def _stop(procs) -> None:
     """Kill and reap every process of ``procs`` still running."""
     for p in procs:
@@ -6076,7 +6578,7 @@ def main() -> int:
     phase_checkpoint()
     phase_decode()
     srv = phase_serving()
-    phase_mesh(train_flash)
+    tp_local = phase_mesh(train_flash)
     ring = phase_ring(train_flash)
     phase_moe()
     lora_dir = phase_lora(train_flash)
@@ -6090,6 +6592,7 @@ def main() -> int:
     phase_fleet(srv)
     phase_elastic_mesh()
     pipe = phase_pipeline(train_flash)
+    overlap = phase_overlap(tp_local)
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"
@@ -6140,6 +6643,9 @@ def main() -> int:
         for name, key, lib, line in (("flash_fwd", "fwd", "flash_fwd.cu", 98),
                                      ("flash_bwd_dq", "dq", "flash_bwd.cu", 143),
                                      ("flash_bwd_dkv", "dkv", "flash_bwd.cu", 179))]
+    # and through (w)'s replayed tp = 2 rank pair: its launches, the errors
+    # and times of (l) at a tp = 2 rank's shape
+    kernels += overlap["rows"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,11 @@ class Flag:
 
 
 REGISTRY: Dict[str, Flag] = {f.name: f for f in [
+    Flag("HIVED_OVERLAP", "auto",
+         "Collective-matmul tensor parallelism gate: `0` forces the "
+         "reference path (the differential-parity contract); unset/`1` = on "
+         "whenever `overlap_applicable` holds.",
+         "hivedscheduler_tpu_torch/models/transformer.py"),
     Flag("HIVED_GOODPUT", "0",
          "`1` enables the workload goodput ledger at import time "
          "(`goodput.enable()` or the CLIs' `--goodput-file` otherwise).",

@@ -18,7 +18,10 @@ reads its data-parallel share of every window (over sp, its slice of the
 sequence). A mixture-of-experts model (``--n-experts``, ``--moe-top-k``)
 routes with the training capacity (at ``--sp`` above 1 on the whole
 sequence's length, as on one device) and its loss leaves out the aux
-terms; ``--ep`` shards its experts.
+terms; ``--ep`` shards its experts. At ``--tp`` above 1 a dense model
+takes the overlapped collective-matmul layer stack wherever it applies, as
+the JAX eval does (it has no flag; ``HIVED_OVERLAP=0`` forces the
+reference body).
 """
 
 from __future__ import annotations

@@ -28,7 +28,17 @@ and, with ``lora_mlp``, on the dense MLP's, each scaled by ``lora_alpha /
 lora_rank``; ``split_lora_params`` and ``combine_lora_params`` part the
 tree for the adapter-only train step (``parallel/train.py``) and
 ``merge_lora`` folds the adapters back into the base weights for
-serving. The overlapped tensor-parallel stack raises "not yet ported".
+serving.
+
+Overlapped tensor parallelism (``cfg.overlap``, ``HIVED_OVERLAP``): at tp
+above 1 a dense, unpipelined model without adapters runs its layers as
+the JAX package's collective-matmul stack (``_overlapped_stack``) wherever
+``overlap_applicable`` holds: the residual stream sequence-sharded over
+(sp, tp), QKV and gate/up through ``shard_utils.allgather_matmul``, the
+attention output and the MLP down projection through
+``matmul_reducescatter``. ``overlap=None`` takes it whenever it applies,
+``False`` never, ``True`` raises when it cannot; ``HIVED_OVERLAP=0``
+forces the reference layer body regardless.
 """
 
 from __future__ import annotations
@@ -42,7 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
-from hivedscheduler_tpu_torch.parallel import sharding
+from hivedscheduler_tpu_torch.common import envflags
+from hivedscheduler_tpu_torch.parallel import shard_utils, sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +83,8 @@ class TransformerConfig:
     # decide, as in the JAX package, which shapes take the flash kernel
     attn_block_q: int = 128
     attn_block_k: int = 128
+    # the collective-matmul stack at tp > 1: None on whenever it applies,
+    # False never, True required (raises where it cannot serve the config)
     overlap: Optional[bool] = None
     # grouped-query attention: shared k/v heads (0 = n_heads); q head i
     # attends with k/v head i // (n_heads // n_kv_heads)
@@ -105,12 +118,6 @@ RING_FAMILY = ("ring", "ring_flash", "ring_zigzag", "ring_zigzag_flash",
 REMAT_POLICIES = ("full", "dots", "none")
 
 
-def _not_yet_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to hivedscheduler_tpu_torch"
-    )
-
-
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for every configuration the port does not run yet, and for
     the ones the JAX package's ``init_params`` refuses."""
@@ -121,8 +128,6 @@ def check_supported(cfg: TransformerConfig) -> None:
         # training every parameter when MLP adapters were asked for would
         # defeat the flag
         raise ValueError("lora_mlp requires lora_rank > 0")
-    if cfg.overlap:
-        raise _not_yet_ported("the overlapped tensor-parallel stack")
     if cfg.attn_impl not in ATTN_IMPLS:
         # a typo must not silently run dense attention
         raise ValueError(
@@ -679,6 +684,142 @@ def _apply_layer(x, lp, positions, cfg: TransformerConfig, attn_fn,
     return x + out, None
 
 
+def _apply_layer_overlapped(x, lp, positions, cfg: TransformerConfig, attn_fn,
+                            shards: sharding.MeshShards, tp: shard_utils.RingAxis):
+    """One dense block on the overlapped tensor-parallel path, the JAX
+    package's ``_apply_layer_overlapped``.
+
+    ``x`` [B, T / (sp tp), D] is this rank's block of the residual stream
+    (``MeshShards.tp_part``), so the norms and residual adds are
+    token-local. QKV and gate/up take ``allgather_matmul``, one rotation
+    of the block feeding the fused weights, and give this rank's heads
+    (or hidden slice) over the sp slice's T / sp positions, ``positions``
+    (RoPE's); attention runs on the tp-local heads through
+    ``_dispatch_attention`` (``flash`` launches K1-K3, the ring family
+    attends over sp); the attention output and the MLP down projection
+    take ``matmul_reducescatter`` back to the rank's block. The norm
+    weights see the rank's tokens only, so their gradients are summed over
+    tp (``MeshShards.to_tp``). Each output element comes from the local
+    dot of the reference body; only the row-parallel sums' order differs
+    (JAX's ring order), the same bits at tp = 2."""
+    dtype = cfg.dtype
+    specs = _layer_specs(False)
+
+    def w(name):
+        return shards.weight(lp[name], specs[name], dtype)
+
+    h = _rms_norm(x, shards.to_tp(lp["attn_norm"]))
+    q, k, v = shard_utils.allgather_matmul(h, [w("wq"), w("wk"), w("wv")], tp,
+                                           "btd,dhk->bthk")
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+    attn = _dispatch_attention(q, k, v, cfg, attn_fn, shards)
+    x = x + shard_utils.matmul_reducescatter(attn, w("wo"), tp, "bthk,hkd->btd")
+    h = _rms_norm(x, shards.to_tp(lp["mlp_norm"]))
+    gate, up = shard_utils.allgather_matmul(h, [w("w_gate"), w("w_up")], tp,
+                                            "btd,df->btf")
+    mid = F.silu(gate) * up
+    return x + shard_utils.matmul_reducescatter(mid, w("w_down"), tp, "btf,fd->btd")
+
+
+# forward passes that ran the overlapped stack (``_overlapped_stack``), so
+# that tests and ``chip_smoke.py`` can tell which path a run took
+OVERLAPPED_STACKS = 0
+
+
+def _mesh_sizes(mesh) -> Dict[str, int]:
+    """Each axis' size of a ``DeviceMesh`` or a ``topology.MeshAxes``."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.names, mesh.shape))
+
+
+def overlap_applicable(cfg: TransformerConfig, mesh, seq_len=None, batch=None):
+    """Can the overlapped collective-matmul stack serve (cfg, mesh)? ->
+    (ok, reason), the JAX package's gate with its reasons word for word.
+    ``mesh`` is a six-axis ``DeviceMesh`` or a ``topology.MeshAxes``;
+    ``seq_len`` and ``batch`` (the global batch) add the call shape's
+    divisibility checks when given."""
+    if mesh is None:
+        return False, "no mesh"
+    shape = _mesh_sizes(mesh)
+    tp = shape.get("tp", 1)
+    sp = shape.get("sp", 1)
+    if tp <= 1:
+        return False, "tp axis is 1: no tensor collectives to overlap"
+    if cfg.pipeline_microbatches > 0:
+        return False, "pipelined stacks run the pipeline's own manual path"
+    if cfg.n_experts > 0:
+        return False, "MoE dispatch is not on the overlapped path"
+    if cfg.lora_rank > 0:
+        return False, "LoRA adapters are not on the overlapped path"
+    if cfg.n_heads % tp or cfg.kv_heads % tp or cfg.d_ff % tp:
+        return False, (
+            f"heads/kv/ff must divide tp: n_heads={cfg.n_heads}, "
+            f"kv_heads={cfg.kv_heads}, d_ff={cfg.d_ff}, tp={tp}"
+        )
+    if sp > 1 and cfg.attn_impl not in RING_FAMILY:
+        return False, (
+            f"sp={sp} needs a ring-family attn_impl, got {cfg.attn_impl!r}"
+        )
+    if cfg.attn_impl == "ulysses" and sp > 1 and (cfg.n_heads // tp) % sp:
+        return False, (
+            f"ulysses needs tp-local heads divisible by sp: "
+            f"{cfg.n_heads} heads / tp={tp} vs sp={sp}"
+        )
+    if seq_len is not None and seq_len % (sp * tp):
+        return False, (
+            f"sequence {seq_len} must divide sp*tp={sp * tp} to "
+            "sequence-shard the residual stream"
+        )
+    if batch is not None and batch % (shape.get("dp", 1) * shape.get("fsdp", 1)):
+        return False, (
+            f"batch {batch} must divide dp*fsdp="
+            f"{shape.get('dp', 1) * shape.get('fsdp', 1)}"
+        )
+    return True, ""
+
+
+def _use_overlap(cfg: TransformerConfig, mesh, seq_len, batch) -> bool:
+    """The ``HIVED_OVERLAP`` / ``cfg.overlap`` gate, the JAX package's:
+    ``HIVED_OVERLAP=0`` always forces the reference path (the
+    differential-parity contract); ``cfg.overlap`` False opts out, True
+    requires the stack (raising ``ValueError`` where it cannot serve the
+    config), None takes it whenever it applies."""
+    if envflags.get("HIVED_OVERLAP", "") == "0":
+        return False
+    if cfg.overlap is False:
+        return False
+    ok, reason = overlap_applicable(cfg, mesh, seq_len, batch)
+    if cfg.overlap is True and not ok:
+        raise ValueError(
+            f"cfg.overlap=True but the overlapped path cannot serve this "
+            f"config: {reason}"
+        )
+    return ok
+
+
+def _overlapped_stack(x: torch.Tensor, lps: list, positions: torch.Tensor,
+                      cfg: TransformerConfig, attn_fn,
+                      shards: sharding.MeshShards) -> torch.Tensor:
+    """Run the layers ``lps`` (:func:`layer_leaves`) as the JAX package's
+    ``_overlapped_stack``, each under ``cfg.remat``: the stream ``x`` (this
+    rank's sp slice, the same on every tp rank) enters sequence-sharded
+    over (sp, tp), sp-major, so rank (sp i, tp j) holds token block i tp +
+    j; fsdp shards are gathered where each layer uses them; and the result
+    leaves in the reference layout again, the rank's sp slice whole over
+    tp, so the final norm, the head and the loss run as on the reference
+    path."""
+    global OVERLAPPED_STACKS
+    OVERLAPPED_STACKS += 1
+    tp = shard_utils.RingAxis.from_mesh(shards.mesh, "tp")
+    layer = _remat_wrap(_apply_layer_overlapped, cfg)
+    x = shards.tp_part(x)
+    for lp in lps:
+        x = layer(x, lp, positions, cfg, attn_fn, shards, tp)
+    return shards.tp_gather(x)
+
+
 @functools.lru_cache(maxsize=None)
 def _layer_specs(moe: bool) -> Dict[str, tuple]:
     """Each layer leaf's spec without the stacked layer axis, the adapters'
@@ -826,6 +967,7 @@ def forward_with_aux(
     cfg: TransformerConfig,
     mesh=None,
     return_hidden: bool = False,
+    batch: Optional[int] = None,
 ):
     """tokens [B, T] int -> (logits [B, T, vocab] f32, aux loss f32 scalar:
     the MoE layers' weighted aux losses summed over layers, 0 for the dense
@@ -846,16 +988,32 @@ def forward_with_aux(
     microbatch's and data shard's statistics, averaged). Above one stage
     this forward is not differentiable by autograd (the stages meet
     through sends); training differentiates the schedule itself
-    (``parallel/pipeline.value_and_grad``)."""
+    (``parallel/pipeline.value_and_grad``).
+
+    At tp above 1 the layers take the overlapped stack where
+    :func:`_use_overlap` says so, for the whole sequence and ``batch``,
+    the global batch these rows belong to (default: the rows times the
+    data-parallel ranks, ``activation_spec``'s split)."""
     attn_fn = _resolve_attn_fn(cfg, mesh)
     shards = mesh_shards(mesh, cfg)
     tokens = sharding.local(tokens)
+    seq_len = tokens.shape[1]
+    if batch is None:
+        batch = tokens.shape[0]
+        if shards is not None:
+            batch *= shards.sizes["dp"] * shards.sizes["fsdp"]
     if shards is not None:
         tokens = shards.seq_part(tokens)
     if cfg.pipeline_microbatches > 0:
         from hivedscheduler_tpu_torch.parallel import pipeline
 
         x, aux = pipeline.forward(params, tokens, cfg, attn_fn, shards)
+    elif _use_overlap(cfg, mesh, seq_len, batch):
+        # dense only (the gate refuses MoE), so there is no aux
+        x = _overlapped_stack(embed_tokens(params, tokens, cfg, shards),
+                              layer_leaves(params["layers"]),
+                              token_positions(tokens, shards), cfg, attn_fn, shards)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         x, aux = apply_layers(embed_tokens(params, tokens, cfg, shards),
                               layer_leaves(params["layers"]),

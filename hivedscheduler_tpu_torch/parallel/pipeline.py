@@ -28,7 +28,7 @@ order. Each stage keeps its microbatches' (input, output) pairs, runs
 ``torch.autograd.grad`` from the gradient the next stage sent (the last
 stage: from the loss, which it alone computes) and sends its input's
 gradient to the previous stage. The transfers are paired
-``batch_isend_irecv`` calls (``ring_attention._Transfer``), matched by
+``batch_isend_irecv`` calls (``shard_utils.Transfer``), matched by
 tag, in an order every stage agrees on, never left to autograd's
 traversal order. ``embed`` is used by stage 0 only and ``final_norm`` and
 ``lm_head`` by the last stage; the other stages give them a zero
@@ -44,7 +44,7 @@ import torch.distributed as dist
 
 from hivedscheduler_tpu_torch.models import transformer as tm
 from hivedscheduler_tpu_torch.parallel import sharding
-from hivedscheduler_tpu_torch.parallel.ring_attention import SeqAxis, _Transfer
+from hivedscheduler_tpu_torch.parallel.shard_utils import RingAxis, Transfer
 
 
 def bubble(pp: int, n_micro: int) -> float:
@@ -60,7 +60,7 @@ class Stage:
     def __init__(self, cfg: tm.TransformerConfig, attn_fn,
                  shards: sharding.MeshShards):
         self.cfg, self.attn_fn = cfg, attn_fn
-        self.axis = SeqAxis.from_mesh(shards.mesh, "pp")
+        self.axis = RingAxis.from_mesh(shards.mesh, "pp")
         self.first = self.axis.index == 0
         self.last = self.axis.index == self.axis.size - 1
         self.n_micro = cfg.pipeline_microbatches
@@ -89,13 +89,13 @@ class Stage:
     def send(self, x: torch.Tensor, step: int, forward: bool = True) -> None:
         """``x`` to the next stage (forward) or the previous (backward)."""
         peer = self.axis.index + (1 if forward else -1)
-        _Transfer(self.axis, [(peer, self._tag(step, forward), x)], []).wait()
+        Transfer(self.axis, [(peer, self._tag(step, forward), x)], []).wait()
 
     def recv(self, tokens: torch.Tensor, step: int, forward: bool = True) -> torch.Tensor:
         """A microbatch of ``tokens``' hidden states (or their gradient)
         from the previous stage (forward) or the next (backward)."""
         peer = self.axis.index + (-1 if forward else 1)
-        return _Transfer(self.axis, [], [(peer, self._tag(step, forward),
+        return Transfer(self.axis, [], [(peer, self._tag(step, forward),
                                           self._like(tokens))]).wait()[0]
 
     def _tag(self, step: int, forward: bool) -> int:

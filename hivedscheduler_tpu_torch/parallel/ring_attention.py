@@ -4,12 +4,13 @@ Counterpart of ``hivedscheduler_tpu/parallel/ring_attention.py``. Every
 function takes one rank's local tensors: q ``[B, T/sp, H, D]`` and compact
 GQA k/v ``[B, T/sp, H_kv, D]``, this rank's contiguous slice of the
 sequence (the model's layout), and an :class:`SeqAxis`, the rank's place
-on the ``sp`` axis of the mesh. Where the JAX package rotates k/v with
-``lax.ppermute`` inside ``shard_map``, the port posts ``isend``/``irecv``
-pairs to the next and previous ranks of the ``sp`` process group, the
-next hop's transfer before the current hop's compute (XLA overlaps the
-ppermute likewise). At sp = 1 no transfer is made: the ring is one
-diagonal hop.
+on the ``sp`` axis of the mesh (``shard_utils.RingAxis``, whose tagged
+transfers the collective matmuls and the pipeline share too). Where the
+JAX package rotates k/v with ``lax.ppermute`` inside ``shard_map``, the
+port posts ``isend``/``irecv`` pairs to the next and previous ranks of the
+``sp`` process group, the next hop's transfer before the current hop's
+compute (XLA overlaps the ppermute likewise). At sp = 1 no transfer is
+made: the ring is one diagonal hop.
 
 - :func:`ring_attention`: online softmax over einsum blocks, with a
   hand-written backward ring (``_RingCore``, the counterpart of
@@ -47,12 +48,15 @@ so a single process can replay a whole ring's hop schedule.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from hivedscheduler_tpu_torch.ops import attention
+from hivedscheduler_tpu_torch.parallel.shard_utils import RingAxis as SeqAxis
+from hivedscheduler_tpu_torch.parallel.shard_utils import Transfer as _Transfer
+from hivedscheduler_tpu_torch.parallel.shard_utils import rotate as _rotate
 
 NEG_INF = -1e30
 _CLAMP = -0.5 * abs(NEG_INF)  # the m_safe clamp of fully masked rows
@@ -61,72 +65,6 @@ _CLAMP = -0.5 * abs(NEG_INF)  # the m_safe clamp of fully masked rows
 # route rules (a head dim not a multiple of 8; on the CPU also shapes that
 # do not tile, or a mesh context)
 RING_REFERENCE_ROUTES = 0
-
-
-class SeqAxis:
-    """One rank's place on the sequence-parallel axis: the process group
-    (None at size 1, where nothing is sent), its size, the rank's index
-    along it, and the global ranks of its neighbours on the ring."""
-
-    def __init__(self, group=None, index: int = 0):
-        self.group = group
-        self.size = 1 if group is None else dist.get_world_size(group)
-        self.index = index
-        if not 0 <= index < self.size:
-            raise ValueError(f"sp index {index} outside an axis of {self.size}")
-
-    @classmethod
-    def from_mesh(cls, mesh, name: str = "sp") -> "SeqAxis":
-        """The ``name`` axis of a ``DeviceMesh`` (its group only when the
-        axis is above 1)."""
-        size = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))[name]
-        if size == 1:
-            return cls()
-        return cls(mesh.get_group(name), mesh.get_local_rank(name))
-
-    def global_rank(self, index: int) -> int:
-        return dist.get_global_rank(self.group, index)
-
-
-class _Transfer:
-    """Point-to-point transfers within ``axis``, in flight until
-    :meth:`wait`: ``sends`` are (peer index, tag, tensor), ``recvs`` (peer
-    index, tag, a tensor shaped like the one to receive). A transfer to
-    this rank itself is a copy. The tags tell apart two messages between
-    one pair of ranks (gloo matches by tag, NCCL by the order of issue,
-    the same on both sides)."""
-
-    def __init__(self, axis: SeqAxis, sends, recvs):
-        own = {tag: x for peer, tag, x in sends if peer == axis.index}
-        # the ops hold the sent tensors until the transfer completes
-        self.ops = [dist.P2POp(dist.isend, x.contiguous(), axis.global_rank(peer),
-                               axis.group, tag)
-                    for peer, tag, x in sends if peer != axis.index]
-        self.received = []
-        for peer, tag, like in recvs:
-            if peer == axis.index:
-                self.received.append(own[tag].clone())
-                continue
-            buf = torch.empty(like.shape, dtype=like.dtype, device=like.device)
-            self.received.append(buf)
-            self.ops.append(dist.P2POp(dist.irecv, buf, axis.global_rank(peer),
-                                       axis.group, tag))
-        self.works = dist.batch_isend_irecv(self.ops) if self.ops else []
-
-    def wait(self) -> List[torch.Tensor]:
-        """The received tensors, in ``recvs``' order."""
-        for work in self.works:
-            work.wait()
-        self.ops = None
-        return self.received
-
-
-def _rotate(axis: SeqAxis, tensors: Sequence[torch.Tensor], tag: int = 0) -> _Transfer:
-    """Each tensor sent to the next rank of the ring, its counterpart
-    received from the previous one."""
-    nxt, prv = (axis.index + 1) % axis.size, (axis.index - 1) % axis.size
-    return _Transfer(axis, [(nxt, tag + j, x) for j, x in enumerate(tensors)],
-                     [(prv, tag + j, x) for j, x in enumerate(tensors)])
 
 
 def _ring_blocks(axis: SeqAxis, *tensors):

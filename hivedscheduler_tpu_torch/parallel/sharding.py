@@ -33,6 +33,20 @@ flash kernels take nothing else):
   row-parallel ones :meth:`MeshShards.from_tp` (all-reduce forward,
   identity backward), so the residual stream and its gradient are the same
   on every tp rank;
+- tp, overlapped (``models/transformer.py`` ``_overlapped_stack``, the
+  JAX package's collective-matmul path): the residual stream enters
+  sequence-sharded over tp (:meth:`MeshShards.tp_part`, this rank's block
+  of its sp slice; the backward all-gathers, since the stream before is
+  the same on every tp rank) and leaves whole again
+  (:meth:`MeshShards.tp_gather`; the backward keeps the rank's block,
+  since the loss after is computed the same way on every tp rank). A
+  reduce-scatter in either place would scale every gradient by tp. Inside,
+  the projections are ``shard_utils``' collective matmuls over the tp
+  ring, and the norm weights, used on the rank's tokens
+  only, pass :meth:`MeshShards.to_tp`, so their partial gradients are
+  summed over tp in the backward (never in :meth:`MeshShards.sync_grad`,
+  which leaves tp alone: the tp-sharded leaves' gradients are the rank's
+  own);
 - ep: the ep ranks read the same rows and each holds E/ep experts (and
   its tp slice of their hidden dim). Routing runs on every rank over all
   experts; the experts are a Megatron region over ``("ep", "tp")``: their
@@ -205,6 +219,21 @@ class _Gather(torch.autograd.Function):
         return g, None, None
 
 
+class _OwnSlice(torch.autograd.Function):
+    """This rank's block of ``dim`` over ``group``, from a tensor that is
+    the same on every rank of it; the backward all-gathers the blocks'
+    gradients, each rank's whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _own_slice(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
 class _AllReduceForward(torch.autograd.Function):
     """Sum over ``groups`` in the forward; the gradient passes unchanged."""
 
@@ -309,6 +338,24 @@ class MeshShards:
         if "tp" not in self.groups:
             return x
         return _AllReduceForward.apply(x, (self.groups["tp"],))
+
+    def tp_part(self, x: torch.Tensor) -> torch.Tensor:
+        """The overlapped stack's entry: this rank's tp block of the
+        sequence (dim 1) of ``x``, which is the same on every tp rank (so
+        rank (sp i, tp j) holds token block i tp + j); the backward
+        all-gathers the blocks' gradients."""
+        if "tp" not in self.groups:
+            return x
+        return _OwnSlice.apply(x, 1, self.groups["tp"])
+
+    def tp_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The overlapped stack's exit: the sequence (dim 1) whole over tp
+        from every tp rank's block, contiguous; the backward keeps this
+        rank's block of the gradient, which every tp rank computes the
+        same."""
+        if "tp" not in self.groups:
+            return x
+        return _Gather.apply(x, x.dtype, ((1, self.groups["tp"], False),)).contiguous()
 
     def to_experts(self, x: torch.Tensor) -> torch.Tensor:
         """Megatron's f over ep and tp: an input of the experts' region."""

@@ -56,7 +56,8 @@ def _chunk_ce(hidden_c, head, targets_c, mask_c):
 
 
 def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
-            mesh=None, ce_chunk: int = 0, include_aux: bool = True) -> torch.Tensor:
+            mesh=None, ce_chunk: int = 0, include_aux: bool = True,
+            batch: Optional[int] = None) -> torch.Tensor:
     """Next-token LM loss: predict tokens[:, 1:] from tokens[:, :-1] with a
     full-length forward; the rolled-in last position is masked out.
 
@@ -74,12 +75,13 @@ def loss_fn(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
     every rank; each rank's gradient of it is its own part's contribution
     (``MeshShards.data_sum``), which ``train_step`` sums over
     ``sharding.GRAD_AXES``. The roll is over the whole sequence, so a
-    slice's last target is the next slice's first token."""
+    slice's last target is the next slice's first token. ``batch``: the
+    global batch of these rows, for the overlap gate (``forward_with_aux``)."""
     shards = tm.mesh_shards(mesh, cfg)
     tokens = sharding.local(tokens)
     targets, mask = _lm_targets(tokens, shards, ce_chunk)
     hidden, aux = tm.forward_with_aux(params, tokens, cfg, mesh=mesh,
-                                      return_hidden=True)
+                                      return_hidden=True, batch=batch)
     loss = _lm_loss(hidden, params, cfg, shards, targets, mask, ce_chunk)
     if include_aux:
         loss = loss + aux
@@ -175,7 +177,9 @@ def _accumulated_value_and_grad(grad_fn, params, tokens: torch.Tensor,
     every slice from the whole token batch (a few KB, gathered once). Where
     a slice does not split over dp x fsdp every rank runs it whole,
     replicated over the data axes, logged: JAX's fallback (the global-mean
-    loss keeps the sum of the ranks' gradients exact)."""
+    loss keeps the sum of the ranks' gradients exact), and ``grad_fn`` is
+    told the slice's global rows (``batch=``), which the overlap gate reads
+    as the JAX package's does."""
     if grad_accum <= 1:
         return grad_fn(params, tokens)
     part, n_parts = (0, 1) if shards is None else data_lib.data_split(shards.mesh)
@@ -185,8 +189,10 @@ def _accumulated_value_and_grad(grad_fn, params, tokens: torch.Tensor,
     if b % grad_accum:
         raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
     slices = tokens.reshape(grad_accum, b // grad_accum, *tokens.shape[1:])
+    kw = {}
     if n_parts > 1:
         if slices.shape[1] % n_parts:
+            kw["batch"] = slices.shape[1]
             log.info("a grad_accum slice of %s rows does not split over %s "
                      "data-parallel ranks: each slice runs replicated over "
                      "the data axes", slices.shape[1], n_parts)
@@ -195,7 +201,7 @@ def _accumulated_value_and_grad(grad_fn, params, tokens: torch.Tensor,
             slices = slices[:, part * n:(part + 1) * n]
     loss_sum, grad_sum = None, None
     for micro in slices:
-        loss, grads = grad_fn(params, micro)
+        loss, grads = grad_fn(params, micro, **kw)
         if grad_sum is None:
             loss_sum, grad_sum = loss, list(grads)
         else:
@@ -251,11 +257,11 @@ def value_and_grad(params, tokens: torch.Tensor, cfg: tm.TransformerConfig,
     leaves = _leaves(params) if trainable is None else trainable
     shards = tm.mesh_shards(mesh, cfg)
     if cfg.pipeline_microbatches > 0:
-        def grad_fn(p, micro):
+        def grad_fn(p, micro, batch=None):
             return _pipeline_value_and_grad(p, micro, cfg, mesh, leaves, ce_chunk)
     else:
-        def grad_fn(p, micro):
-            loss = loss_fn(p, micro, cfg, mesh, ce_chunk=ce_chunk)
+        def grad_fn(p, micro, batch=None):
+            loss = loss_fn(p, micro, cfg, mesh, ce_chunk=ce_chunk, batch=batch)
             return loss.detach(), torch.autograd.grad(loss, leaves)
 
     loss, grads = _accumulated_value_and_grad(

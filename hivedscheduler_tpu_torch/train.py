@@ -71,8 +71,11 @@ derived one. ``--min-chips`` is the job's floor: an offer below it exits
 nonzero on every rank before any weight is built. The checkpoint metadata
 records the floor and the request (``elastic``).
 
-The overlapped stack (``--overlap``) is not yet ported and exits with an
-error rather than being ignored.
+Overlapped tensor parallelism, as in the JAX CLI: at ``--tp`` above 1 a
+dense model without adapters or a pipeline takes the collective-matmul
+layer stack by default (logged); ``--no-overlap`` keeps the reference
+body, ``--overlap`` exits with a usage error where the stack cannot serve
+the run, and ``HIVED_OVERLAP=0`` forces the reference body regardless.
 """
 
 from __future__ import annotations
@@ -95,11 +98,6 @@ STEP_LOG = "step %s loss %.4f | %.0f tok/s"
 # the first step, which builds and warms up and would drown the trace) to
 # the one before the stop index: steps 2-4
 PROFILE_START, PROFILE_STOP = 1, 4
-
-
-def _reject_unported(parser: argparse.ArgumentParser, args) -> None:
-    if args.overlap:
-        parser.error("--overlap is not yet ported")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -154,7 +152,15 @@ def _parser() -> argparse.ArgumentParser:
                         "layers, dots saves matmul outputs and recomputes "
                         "the rest, none saves everything")
     parser.add_argument("--overlap", action=argparse.BooleanOptionalAction,
-                        default=None, help="not yet ported")
+                        default=None,
+                        help="--overlap/--no-overlap: the collective-matmul "
+                        "tensor-parallel path (sequence-sharded residual "
+                        "stream; point-to-point pipelined all-gather/"
+                        "reduce-scatter around the QKV/out/MLP projections "
+                        "so each hop overlaps the GEMMs). Default: auto — on "
+                        "whenever applicable (tp>1, dense, no LoRA/pipeline); "
+                        "--overlap errors if inapplicable; HIVED_OVERLAP=0 "
+                        "forces the reference path regardless")
     parser.add_argument("--ce-chunk", type=int, default=0,
                         help="chunked cross-entropy: lm_head+CE in sequence "
                         "chunks of this size (0 = off; must divide --seq-len)")
@@ -256,7 +262,6 @@ def main(argv=None) -> int:
         parser.error("--pp > 1 requires --microbatches")
     if args.microbatches > 0 and args.pp <= 1:
         parser.error("--microbatches requires --pp > 1")
-    _reject_unported(parser, args)
     if args.on_nan == "skip" and args.lora_rank > 0:
         parser.error("--on-nan skip gates the full train step; with "
                      "--lora-rank use rollback or halt")
@@ -358,6 +363,7 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
     import torch
 
     from hivedscheduler_tpu_torch import resolve_device
+    from hivedscheduler_tpu_torch.common import envflags
     from hivedscheduler_tpu_torch.models import transformer as tm
     from hivedscheduler_tpu_torch.obs import goodput as obs_goodput
     from hivedscheduler_tpu_torch.obs import journal as obs_journal
@@ -423,8 +429,20 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int) -> int:
         # elastic mode may have shrunk pp away: pipelining follows the
         # derived mesh
         pipeline_microbatches=args.microbatches if axes.pp > 1 else 0,
+        overlap=args.overlap,
     )
     log.info("device %s, config %s", device, cfg)
+    if args.overlap is not False and envflags.get("HIVED_OVERLAP") != "0":
+        ok, reason = tm.overlap_applicable(cfg, mesh, args.seq_len, args.batch)
+        if ok:
+            log.info("overlapped collective-matmul path enabled (tp=%s)",
+                     axes.tp)
+        elif args.overlap is True:
+            parser.error(f"--overlap requested but inapplicable: {reason}")
+        else:
+            # JAX's words: the port's reference body is its GSPMD path
+            log.info("overlapped path not applicable (%s); using the "
+                     "reference GSPMD path", reason)
     # the step updates these tensors and this optimizer in place; restores
     # load into them too, so the optimizer's references stay valid
     generator = torch.Generator(device=device).manual_seed(0)

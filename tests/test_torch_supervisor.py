@@ -252,7 +252,8 @@ def test_flag_registry_covers_the_port_reads():
         "HIVED_GOODPUT", "HIVED_FAULT_HANG_AT", "HIVED_FAULT_NAN_AT",
         "HIVED_FAULT_STEP_DELAY", "HIVED_FAULT_SERVE_PREEMPT_AT", "HIVED_PAGED_KV",
         "HIVED_JOURNAL", "HIVED_TRACE", "HIVED_SLO_WINDOW_S", "HIVED_LOCKCHECK",
-        "HIVED_FLEET_KV_SHIP", "HIVED_FLEET_AUTOSCALE_COOLDOWN_S", "HIVED_COMPILE_GUARD"}
+        "HIVED_FLEET_KV_SHIP", "HIVED_FLEET_AUTOSCALE_COOLDOWN_S", "HIVED_COMPILE_GUARD",
+        "HIVED_OVERLAP"}
     for name, flag in envflags.REGISTRY.items():
         assert flag.default == jflags.REGISTRY[name].default
         assert flag.module.startswith("hivedscheduler_tpu_torch/")

@@ -140,7 +140,9 @@ def test_unported_flags_exit_with_error(extra, capsys):
     # --pp and --microbatches are ported, each refused without the other
     # with the JAX CLI's usage errors; LoRA is ported, and refused where
     # JAX's CLI refuses it (--on-nan skip) or its init_params does (MLP
-    # adapters without a rank, or on experts); --overlap is not yet ported
+    # adapters without a rank, or on experts); --overlap is ported
+    # (tests/test_torch_overlap.py), and on one device it is JAX's usage
+    # error: the tp axis is 1
     with pytest.raises(SystemExit) as exc:
         ttrain_cli.main(CLI_MODEL + extra)
     assert exc.value.code == 2
@@ -161,7 +163,8 @@ def test_unported_flags_exit_with_error(extra, capsys):
     elif {"--tp", "--fsdp", "--sp", "--ep"} & set(extra):
         assert "1 devices not divisible by tp*sp*fsdp*pp*ep=2" in err
     else:
-        assert "not yet ported" in err
+        assert ("--overlap requested but inapplicable: tp axis is 1: no tensor "
+                "collectives to overlap") in err
 
 
 def test_flags_and_defaults_match_the_jax_cli():

@@ -207,11 +207,15 @@ def test_cast_params_and_load_weight():
 @pytest.mark.parametrize("over,kind", [
     # MoE, LoRA and the pipeline are ported (tests/test_torch_moe.py,
     # tests/test_torch_lora.py, tests/test_torch_pipeline.py): the pipeline
-    # needs a mesh, as in JAX; the overlapped stack is not yet ported
+    # needs a mesh, as in JAX. The overlapped stack is ported
+    # (tests/test_torch_overlap.py): overlap=True without a mesh raises
+    # JAX's ValueError (the ids are those of the cases when they raised
+    # NotImplementedError)
     (dict(n_experts=2, lora_rank=4, pipeline_microbatches=2), ValueError),
-    (dict(lora_rank=4, overlap=True), NotImplementedError),
+    pytest.param(dict(lora_rank=4, overlap=True), ValueError,
+                 id="over1-NotImplementedError"),
     (dict(pipeline_microbatches=2), ValueError),
-    (dict(overlap=True), NotImplementedError),
+    pytest.param(dict(overlap=True), ValueError, id="over3-NotImplementedError"),
     # the ring family needs a mesh (JAX asserts one)
     (dict(attn_impl="ring_flash"), ValueError),
     (dict(attn_impl="flsh"), ValueError),
@@ -225,8 +229,9 @@ def test_unported_configs_raise(over, kind):
     _, tcfg = _configs(over.pop("attn_impl", "flash"), "f32", **over)
     with pytest.raises(kind) as err:
         ttm.forward(None, torch.zeros((1, 8), dtype=torch.int32), tcfg)
-    if kind is NotImplementedError:
-        assert "not yet ported" in str(err.value)
+    if over.get("overlap"):
+        assert ("cfg.overlap=True but the overlapped path cannot serve this "
+                "config: no mesh") in str(err.value)
 
 
 class _SpMesh:

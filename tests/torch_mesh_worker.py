@@ -8,7 +8,12 @@ tasks run in order on one process group. Besides training, eval and
 checkpoints (``restore`` reads ``ckpt_dir``, ``save`` writes ``save_dir``
 or else ``ckpt_dir``), ``forward`` records the whole batch's logits and
 the aux (every rank's part, replicas checked equal) and ``grads`` one
-step's loss and whole gradients, before the optimizer. The rank joins the gang as a
+step's loss and whole gradients, before the optimizer; ``collective``
+holds ``shard_utils``' collective matmuls over the tp ring to their plain
+compositions. A case's ``env`` is set while it runs (``HIVED_OVERLAP``),
+``ring_kernels`` sends the flash rings to their kernels' plain versions
+inside the mesh, and the output counts the overlapped stacks the case
+ran and its rings' einsum routes. The rank joins the gang as a
 scheduled pod would: a bind info of one pod holding ``world`` GPUs on the
 node ``test/127.0.0.1``, ``NVIDIA_VISIBLE_DEVICES`` and ``LOCAL_RANK``, read
 by ``initialize_from_gang``. A config with ``lora_rank`` trains through
@@ -198,9 +203,75 @@ def serve_main(job: dict, rank: int) -> None:
         distributed.shutdown()
 
 
+def collective_checks(mesh) -> dict:
+    """``allgather_matmul`` (one weight and three) and
+    ``matmul_reducescatter`` over the mesh's tp ring against the plain
+    compositions, all-gather then einsum and einsum then reduce-scatter
+    (``sharding``'s differentiable collectives), on seeded inputs of each
+    rank: whether each forward is equal bit for bit on every rank, and the
+    largest difference over the ranks of the forward and of each input's
+    gradient (autograd of the plain composition, from the same random
+    cotangent)."""
+    from hivedscheduler_tpu_torch.parallel import shard_utils, sharding
+
+    ring = shard_utils.RingAxis.from_mesh(mesh, "tp")
+    group = sharding.MeshShards(mesh).groups["tp"]
+    gen = torch.Generator().manual_seed(100 + ring.index)
+    b, t, d, h, k, f = 2, 8, 16, 2, 4, 24
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=gen).requires_grad_(True)
+
+    def gather_plain(x, ws, eq):
+        whole = sharding._Gather.apply(x, x.dtype, ((1, group, True),))
+        return [torch.einsum(eq, whole, w) for w in ws]
+
+    def scatter_plain(x, ws, eq):
+        return [sharding._ReduceScatter.apply(torch.einsum(eq, x, ws[0]), 1, group)]
+
+    cases = {
+        "gather1": (leaf(b, t, d), [leaf(d, f)], "btd,df->btf",
+                    lambda x, ws, eq: [shard_utils.allgather_matmul(x, ws[0], ring, eq)],
+                    gather_plain),
+        "gather3": (leaf(b, t, d), [leaf(d, h, k) for _ in range(3)], "btd,dhk->bthk",
+                    lambda x, ws, eq: shard_utils.allgather_matmul(x, ws, ring, eq),
+                    gather_plain),
+        "scatter": (leaf(b, t * ring.size, h, k), [leaf(h, k, d)], "bthk,hkd->btd",
+                    lambda x, ws, eq: [shard_utils.matmul_reducescatter(x, ws[0], ring, eq)],
+                    scatter_plain),
+    }
+    out = {}
+    for name, (x, ws, eq, fn, plain) in cases.items():
+        got, want = fn(x, ws, eq), plain(x, ws, eq)
+        cots = [torch.randn(o.shape, generator=gen) for o in want]
+        grads = [torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cots)),
+                                     [x, *ws]) for outs in (got, want)]
+        diffs = torch.tensor(
+            [max(float((a - w).abs().max()) for a, w in zip(got, want)),
+             float(not all(torch.equal(a, w) for a, w in zip(got, want)))]
+            + [float((a - w).abs().max()) for a, w in zip(*grads)], dtype=torch.float64)
+        torch.distributed.all_reduce(diffs, op=torch.distributed.ReduceOp.MAX)
+        out[f"collective/{name}"] = diffs.numpy()
+    return out
+
+
 def run_case(job: dict, rank: int, world: int) -> None:
-    """One mesh, config and task list on the open process group; rank 0
-    writes what the tasks return to the case's ``out``."""
+    """One mesh, config and task list on the open process group, with the
+    case's ``env`` set; rank 0 writes what the tasks return to the case's
+    ``out``."""
+    saved = {name: os.environ.get(name) for name in job.get("env", {})}
+    os.environ.update(job.get("env", {}))
+    try:
+        _run_case(job, rank, world)
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def _run_case(job: dict, rank: int, world: int) -> None:
     from hivedscheduler_tpu_torch import bridge
     from hivedscheduler_tpu_torch.models import transformer as tm
     from hivedscheduler_tpu_torch.ops import attention
@@ -248,6 +319,12 @@ def run_case(job: dict, rank: int, world: int) -> None:
         leaf.requires_grad_(True)
     opt = ptrain.make_optimizer()(trained)
     out = {"data_part": np.array([part, n_parts])}
+    stacks, ring_routes = tm.OVERLAPPED_STACKS, ring.RING_REFERENCE_ROUTES
+    if job.get("ring_kernels"):
+        # the flash rings' kernel schedule (their plain versions) inside the
+        # mesh, where the public entry takes the einsum ring on the CPU
+        einsum_route = ring._einsum_route
+        ring._einsum_route = lambda q, k, _axes, bq, bk: einsum_route(q, k, (), bq, bk)
 
     def state_out(prefix, params, opt):
         for name, t in ckpt.named_leaves(params).items():
@@ -307,6 +384,8 @@ def run_case(job: dict, rank: int, world: int) -> None:
                                        seq_len=batches.shape[2])
             ckpt.save(job.get("save_dir", job["ckpt_dir"]), batches.shape[0],
                       params, opt, extra=meta)
+        elif task == "collective":
+            out.update(collective_checks(mesh))
         elif task == "restore":
             params_r, opt_r = init_fn(torch.Generator().manual_seed(1))
             restored, _, _ = ckpt.restore(job["ckpt_dir"], params_r, opt_r)
@@ -314,6 +393,10 @@ def run_case(job: dict, rank: int, world: int) -> None:
             state_out("restored/", params_r, opt_r)
         else:
             raise ValueError(f"unknown task {task!r}")
+    if job.get("ring_kernels"):
+        ring._einsum_route = einsum_route
+    out["overlapped_stacks"] = np.array(tm.OVERLAPPED_STACKS - stacks)
+    out["case_ring_routes"] = np.array(ring.RING_REFERENCE_ROUTES - ring_routes)
     if rank == 0:
         np.savez(job["out"], **out)
 
