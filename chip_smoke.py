@@ -7,9 +7,12 @@ Phases, each of which must pass or the script exits non-zero:
 
 (a) print the card's name and power limit; build the port's CUDA kernels
     ``hivedscheduler_tpu_torch/ops/csrc/flash_fwd.cu`` (K1) and
-    ``flash_bwd.cu`` (K2, K3) with nvcc (sm_90a), both compilers at once,
-    and print ptxas's register and spill lines and any warning that it
-    serialized wgmma, for every instantiation (padded widths 64, 128, 256);
+    ``flash_bwd.cu`` (K2, K3), their fp16 instantiations
+    (``flash_fwd_f16.cu``, ``flash_bwd_f16.cu``) and the CUDA-core family
+    (``flash_generic.cu``) with nvcc (sm_90a), all five compilers at once,
+    with each one's seconds, and print ptxas's register and spill lines and
+    any warning that it serialized wgmma, for every instantiation (padded
+    widths 64, 128, 256);
 (b) hold the flash-forward kernel against its plain PyTorch version on the
     card: the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128, bf16,
     causal), full attention, H_kv = H, T=192 (a multiple of the 64-key
@@ -86,7 +89,8 @@ Phases, each of which must pass or the script exits non-zero:
     generate (bf16, int8, speculative) beside bench_model.py's HBM
     roofline, the prefill and the decode step, with the device-busy share
     of decode steps (torch.profiler); run ``python -m
-    hivedscheduler_tpu_torch.generate`` once as a subprocess.
+    hivedscheduler_tpu_torch.generate`` once as a subprocess, beside the
+    checks, before the times.
 (k) the continuous-batching serving engine at the flagship width (6
     layers, bf16 weights from seed 0; bench_model.py's ``bench_serving``
     trace: 16 requests, prompts of 4-64 tokens, budget 32, max_batch 16,
@@ -105,8 +109,8 @@ Phases, each of which must pass or the script exits non-zero:
     device-busy share of one graph window beside the bound; the paged A/B
     at equal KV bytes of ``bench_serving_paged_ab``; float against int8 KV
     at ``bench_serving_kv_int8``'s long context) and ``python -m
-    hivedscheduler_tpu_torch.serve`` as a subprocess, plain and with
-    ``HIVED_FAULT_SERVE_PREEMPT_AT`` (drain, exit 0).
+    hivedscheduler_tpu_torch.serve`` as two subprocesses at once, plain
+    and with ``HIVED_FAULT_SERVE_PREEMPT_AT`` (drain, exit 0).
 (l) the mesh path on one card: the gang handoff (a bind info of one pod
     with ``NVIDIA_VISIBLE_DEVICES=0``) through ``initialize_from_gang``
     must give rank 0 of world 1 on ``cuda:0`` over NCCL; K1, K2 and K3 at
@@ -146,7 +150,8 @@ Phases, each of which must pass or the script exits non-zero:
     the steps of flash, ring_flash and ring_zigzag_flash timed in turns by
     CUDA events on the world-1 mesh.
 (n) the mixture-of-experts model (8 experts, top-2) at the flagship width
-    through train, eval, generate and serve, and a 1-layer MoE checkpoint.
+    through train and eval (6 layers), generate and serve (3 layers), and a
+    1-layer MoE checkpoint.
 (o) LoRA fine-tuning at the flagship width: ``train`` with (h)'s flags and
     ``--lora-rank 16 --lora-alpha 32 --lora-mlp`` (3 steps, committing a
     checkpoint), with K1/K2/K3 launched 36/18/18 times; its first loss
@@ -164,12 +169,12 @@ Phases, each of which must pass or the script exits non-zero:
     from (k)'s plain greedy streams only at a near-tie of the full
     forward (margin <= 2 x (k)'s noise), dense and paged self-draft
     streams token-identical, the acceptance and the share of differing
-    tokens printed; tokens/s, TTFT and TPOT against the plain engine eager
-    and with graph windows of 8, in turns; sampled with the perfect draft,
-    the share of tokens equal to the plain sampled engine's and two runs
-    identical; then ``python -m hivedscheduler_tpu_torch.serve --lora-rank
-    16 --spec-decode`` on (o)'s checkpoint, which must exit 0 with its
-    merge and acceptance lines.
+    tokens printed; sampled with the perfect draft, the share of tokens
+    equal to the plain sampled engine's and two runs identical; beside
+    these checks ``python -m hivedscheduler_tpu_torch.serve --lora-rank 16
+    --spec-decode`` on (o)'s checkpoint, which must exit 0 with its merge
+    and acceptance lines; then tokens/s, TTFT and TPOT against the plain
+    engine eager and with graph windows of 8, in turns.
 (q) head dims other than 64 and 128: K1, K2, K3 and their f32 forms at D =
     32, 80, 96 and 112 (each run at its padded width, 64 or 128), causal
     and not, with a GQA group of 4 at a ragged T, against their plain
@@ -247,18 +252,19 @@ Phases, each of which must pass or the script exits non-zero:
     re-prefills), the streams part from the single engine's only at
     near-ties of the teacher-forced full forward, every journal flight has
     one terminal and legs that sum to its TTFT within 1e-6 s, and the
-    config run logs its parsed knobs and the autoscaler's line; then in
-    this process: each of (k)'s system-prompt requests exported from a
+    config run logs its parsed knobs and the autoscaler's line. In this
+    process, first: each of (k)'s system-prompt requests exported from a
     prefill engine and imported into a graph-warmed decode engine, bf16 and
     int8 KV, the imported blocks equal to the exported bytes, the pool's
     and params' addresses unmoved, a flipped byte caught, ms per export
-    and per import and bytes per handoff; a warmed disaggregated fleet
-    (ship and re-prefill, journal on, check_fleet after every step) serving
-    fresh prompts of the same shapes under ``compileguard.budget(0)``; a
-    decode replica killed with decode legs in flight, each stream retried
-    to its end; planted faults (a prefill leg's journal mark dropped, a
-    request with two live attempts) caught; and tokens/s, TTFT and TPOT of
-    the single engine and the ship and re-prefill fleets in turns.
+    and per import and bytes per handoff; then, beside the CLIs: a warmed
+    disaggregated fleet (ship and re-prefill, journal on, check_fleet after
+    every step) serving fresh prompts of the same shapes under
+    ``compileguard.budget(0)``; a decode replica killed with decode legs in
+    flight, each stream retried to its end; planted faults (a prefill
+    leg's journal mark dropped, a request with two live attempts) caught;
+    and once the CLIs are done, tokens/s, TTFT and TPOT of the single
+    engine and the ship and re-prefill fleets in turns.
 
 (u) elastic training and the serving mesh on the one card: ``train
     --elastic --min-chips 1 --tp 2 --fsdp 2`` at (h)'s shape (2 layers, 3
@@ -291,11 +297,11 @@ Phases, each of which must pass or the script exits non-zero:
     and sp above 1 need more GPUs: the CPU gangs of the tests hold them).
     Two 2-rank gloo gangs on the machine's CPU train
     ``tests/test_pipeline_moe.py``'s tiny model at ``--pp 2 --microbatches
-    2`` and at ``--sp 2 --n-experts 4`` to a step-2 commit, beside two that
-    run uninterrupted to step 4; ``train --device cuda`` resumes each
-    commit on the card at pp 1 and sp 1: the state restored on the card
-    equals the checkpoint read on the CPU, the losses lie within the
-    elastic harness's 0.02 of the uninterrupted gang, and a planted restore
+    2`` and at ``--sp 2 --n-experts 4`` uninterrupted to step 4, committing
+    steps 2 and 4; ``train --device cuda`` resumes each step-2 commit on
+    the card at pp 1 and sp 1: the state restored on the card equals the
+    checkpoint read on the CPU, the losses lie within the elastic
+    harness's 0.02 of the gang's own steps 3-4, and a planted restore
     that swaps the two stages' layer blocks is caught (the state check
     always, the losses for the dense model). Then, on the world-1 NCCL
     mesh, (h)'s train step (6 layers, flash, remat dots, ce_chunk 512)
@@ -309,8 +315,8 @@ Phases, each of which must pass or the script exits non-zero:
     its cross-entropy within 1e-3 and its aux printed beside the plain one
     (they differ by design: per-microbatch statistics); and one pp = 2
     stage's work (3 of the 6 layers, 4 microbatches, forward and backward,
-    no transfer) in turns with the whole 6-layer step, beside the GPipe
-    bubble (pp - 1) / (n_micro + pp - 1).
+    no transfer) in turns with the plain 6-layer step above, beside the
+    GPipe bubble (pp - 1) / (n_micro + pp - 1).
 
 (w) overlapped tensor parallelism on the one card (tp above 1 needs more
     GPUs: NCCL refuses two ranks on one device, and the CPU gangs of the
@@ -334,6 +340,39 @@ Phases, each of which must pass or the script exits non-zero:
     ("tp axis is 1"), and a 2-layer eval on the world-1 NCCL mesh with
     ``overlap`` None runs the reference body (the overlapped-stack counter
     unmoved, K1 launched).
+
+(x) K1-K3 at every input dtype and head dim the JAX kernels take. (1) The
+    fp16 forms of the wgmma kernels and their f32 forms at the flagship
+    shape, D 96, D 256, T 192 and not causal; the CUDA-core family
+    (``csrc/flash_generic.cu``) at f32 inputs (the flagship shape, D 256)
+    and at bf16, fp16 and f32 inputs at D 264 (an 8-column last panel, MQA,
+    ragged T), 320 (not causal) and 512: each against its plain version
+    (16-bit: (b)'s and (f)'s limits; f32: a relative 2e-5, which one TF32
+    pass and the bf16-cast inputs are shown to exceed), each entry point's
+    own counter moved once a call, the f32 forms rounded once equal to the
+    dtype's, sentinel columns past D untouched in a wider buffer, two runs
+    bit-identical, (b)'s swapped V keys caught at the flagship fp16 and f32
+    cases; the fp16 backward's error below the bf16 backward's on the same
+    draws in turns, at unit do and at a gradient's magnitude (do x 2^-20).
+    (2) Each new kernel timed by CUDA events (the fp16 forms at the
+    flagship shape, the CUDA-core family at f32 there and at bf16 and the D
+    512 CLI shape), beside its plain version, ``scaled_dot_product_attention``
+    at the same dtype and shape (a yardstick only) and its bound: the
+    products at 989 TFLOP/s for 16-bit inputs, at a third of TF32's 495 for
+    f32 inputs (the least time at f32 accuracy), the bytes at 3.35 TB/s with
+    the inputs' own element size; K1-K3 on bf16 against fp16 inputs at the
+    flagship shape in turns. (3) ``TransformerConfig(dtype=float16)``
+    and ``float32`` with ``attn_impl="flash"`` at the flagship width and 2
+    layers: a forward (final-norm hidden states against xla, (e)'s limit)
+    and 3 ``make_train_step`` steps with remat dots (K1-K3 12/6/6 on the
+    fp16 or the CUDA-core counters; the first loss against xla's); the
+    ``eval`` CLI (2 windows) and 3 steps of the ``train`` CLI at ``--d-model
+    2048 --n-heads 4 --n-kv-heads 2`` (D 512), 2 layers, flash against xla
+    on the same weights, on the CUDA-core counters, with both step times;
+    one fp16 ``ring_flash`` step on the world-1 NCCL mesh (the fp16
+    f32-output forms 4/2/2, the loss the flash step's); the ring's hop
+    functions at fp16 and f32 and D 320 against the plain versions. (4) Nine rows of the
+    kernels line: the fp16 forms, their f32 forms and the CUDA-core family.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -458,19 +497,17 @@ def rel_errs(x, ref, floor: float = 0.0):
     return fro, row
 
 
-KERNEL_LIBS = ("flash_fwd", "flash_bwd")
-
-
 def phase_build():
     from hivedscheduler_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all(KERNEL_LIBS)
-    for name in KERNEL_LIBS:
+    _build.build_all(_build.LIBRARIES)
+    for name in _build.LIBRARIES:
         _build.load(name)
-    print(f"[a] built and loaded {', '.join(KERNEL_LIBS)} in "
-          f"{time.perf_counter() - t0:.1f}s")
-    for name in KERNEL_LIBS:
+    print(f"[a] built and loaded {', '.join(_build.LIBRARIES)} in "
+          f"{time.perf_counter() - t0:.1f}s, one nvcc each, all at once ("
+          + ", ".join(f"{n} {s:.1f} s" for n, s in _build.BUILD_SECONDS.items()) + ")")
+    for name in _build.LIBRARIES:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill",
                                        "Performance Loss")):
@@ -862,9 +899,9 @@ def phase_train() -> dict:
 
 # kernel-name fragments of each part of a train step's device time
 PROFILE_GROUPS = (
-    ("K1 flash_fwd", ("flash_fwd_kernel",)),
-    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K1 flash_fwd", ("flash_fwd_kernel", "generic_fwd_kernel")),
+    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel", "generic_dq_kernel")),
+    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel", "generic_dkv_kernel")),
     ("matmuls", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
 )
 OTHER_GROUP = "other (elementwise, norms, CE, optimizer)"
@@ -1079,8 +1116,10 @@ def phase_checkpoint() -> dict:
               f"needs {need / 1e9:.1f} GB")
         report = _round_trip(tmp)
         torch.cuda.empty_cache()
+        walls = {"round trip": time.perf_counter() - t_phase}
 
         # resume against the uninterrupted run
+        t0 = time.perf_counter()
         a = _train_main(tmp, "A", "--steps", str(RESUME_STEPS), args=RESUME_ARGS)
         a2 = _train_main(tmp, "A2", "--steps", str(RESUME_STEPS), args=RESUME_ARGS)
         spread = max(abs(a[s] - a2[s]) / abs(a[s]) for s in a)
@@ -1165,14 +1204,19 @@ def phase_checkpoint() -> dict:
         check(not violations, "the goodput spool has violations")
         report["goodput"] = {p: agg["phases"].get(p, 0.0) for p in shown}
 
+        walls["resumes and goodput"] = time.perf_counter() - t0
+
         # preemption: SIGTERM to a training process on the card
+        t0 = time.perf_counter()
         report["preempt"] = _preemption(tmp)
+        walls["preemption"] = time.perf_counter() - t0
         report["spread"], report["exact"] = spread, exact
         report["resume_err"] = err
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     report["phase_s"] = time.perf_counter() - t_phase
-    print(f"[i] phase wall time {report['phase_s']:.1f} s")
+    print(f"[i] phase wall time {report['phase_s']:.1f} s ("
+          + ", ".join(f"{name} {sec:.1f} s" for name, sec in walls.items()) + ")")
     return report
 
 
@@ -1481,15 +1525,14 @@ def _profile_steps(params, cfg, prompt, toks) -> dict:
 def phase_decode() -> None:
     """Decode and generate at the flagship width: incremental logits against
     the full forward (with a planted fault), greedy tokens against the
-    teacher-forced argmax, speculative and int8 agreement, sampling, the
-    timings and the CLI."""
+    teacher-forced argmax, speculative and int8 agreement, sampling, with
+    the CLI beside them; then the timings."""
     import torch
 
     from hivedscheduler_tpu_torch.models import decode as dec
     from hivedscheduler_tpu_torch.models import quant
     from hivedscheduler_tpu_torch.models import speculative as spec
     from hivedscheduler_tpu_torch.models import transformer as tm
-    from hivedscheduler_tpu_torch.ops import attention as attn
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1503,6 +1546,70 @@ def phase_decode() -> None:
     weight_bytes = {"bf16": _tree_bytes(params), "int8": _tree_bytes(q_params)}
     check(weight_bytes["bf16"] == 2 * _flagship_params(DEC_MODEL), "bf16 weight bytes")
     kv_bytes = 2.0 * 2 * cfg.n_layers * DEC_BATCH * (DEC_PROMPT + DEC_NEW) * cfg.kv_heads * cfg.head_dim
+    # the CLI, once, as a subprocess on the card, beside the untimed checks
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m", "hivedscheduler_tpu_torch.generate"] + DEC_ARGS,
+                           cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        toks, d_cfg, d_params = _decode_checks(params, q_params, prompt, cfg)
+        stdout, stderr = cli.communicate(timeout=300)
+    finally:
+        _stop([cli])
+    cli_s = time.perf_counter() - t_cli
+    rows = [line.split() for line in stdout.splitlines()]
+    ok = (cli.returncode == 0 and len(rows) == DEC_BATCH
+          and all(len(r) == DEC_NEW and all(t.isdigit() for t in r) for r in rows))
+    timing = [l for l in stderr.splitlines() if "generated" in l]
+    print(f"[j] python -m hivedscheduler_tpu_torch.generate (flagship, B={DEC_BATCH}), beside the "
+          f"checks above: exit {cli.returncode} in {cli_s:.1f} s, {len(rows)} rows; "
+          f"{timing[-1].split('] ')[-1] if timing else 'no timing line'}")
+    if not ok:
+        print(stderr[-4000:])
+    check(ok, "the generate CLI did not print its rows")
+
+    # timings, after the warm-up runs above
+    _decode_rates("bf16", _host_ms(
+        lambda: dec.generate(params, prompt, cfg, DEC_NEW), DEC_TIMED), weight_bytes["bf16"], kv_bytes)
+    _decode_rates("int8", _host_ms(
+        lambda: dec.generate(q_params, prompt, cfg, DEC_NEW), DEC_TIMED), weight_bytes["int8"], kv_bytes)
+    _decode_rates("speculative", _host_ms(
+        lambda: spec.generate_speculative(params, d_params, prompt, cfg, d_cfg, DEC_NEW,
+                                          gamma=DEC_GAMMA), DEC_TIMED), weight_bytes["bf16"], kv_bytes)
+    prefill_ms = _host_ms(lambda: dec.advance(
+        params, dec.init_kv_cache(cfg, DEC_BATCH, DEC_PROMPT + DEC_NEW, "cuda"), prompt, cfg), 3)
+    for name, p in (("bf16", params), ("int8", q_params)):
+        step_bound_ms = (weight_bytes[name] + kv_bytes) / PEAK_HBM_BYTES * 1e3
+        prof = _profile_steps(p, cfg, prompt, toks)
+        print(f"[j] {name} decode step (B={DEC_BATCH}, cache {DEC_PROMPT + DEC_NEW}): "
+              f"{prof['step_ms']:.3f} ms by CUDA events over {DEC_PROFILED_STEPS} "
+              f"steps, {DEC_BATCH / prof['step_ms'] * 1e3:.1f} tokens/s; bound "
+              f"{step_bound_ms:.4f} ms (weights and KV at {PEAK_HBM_BYTES / 1e12} "
+              f"TB/s), {step_bound_ms / prof['step_ms']:.4f} of it; under the "
+              f"profiler {prof['profiled_step_ms']:.3f} ms a step, "
+              + (f"device busy {prof['busy_ms']:.3f} ms a step "
+                 f"({prof['busy_ms'] / prof['step_ms']:.1%} of the unprofiled step: "
+                 + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["parts"].items())
+                 + f"), {prof['kernels']:.0f} kernels a step" if prof["busy_ms"] > 0 else
+                 "device busy not measured (the profiler recorded no device time)"))
+    print(f"[j] prefill of {DEC_BATCH} x {DEC_PROMPT} tokens: "
+          f"{', '.join(f'{t:.2f}' for t in prefill_ms)} ms")
+
+    del params, q_params, d_params
+    torch.cuda.empty_cache()
+    print(f"[j] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def _decode_checks(params, q_params, prompt, cfg) -> tuple:
+    """(j)'s checks: greedy generate with no flash launch, incremental
+    logits against the full forward (with a planted fault), greedy tokens
+    against the argmax, int8 and speculative agreement, sampling. -> (the
+    greedy tokens, the draft's config and weights)."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import decode as dec
+    from hivedscheduler_tpu_torch.models import speculative as spec
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
 
     # greedy tokens; the flash kernels must not run on the decode path
     attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
@@ -1610,52 +1717,7 @@ def phase_decode() -> None:
           f"{float((s_a == toks).float().mean()):.3f}")
     check(all_top1 and tie_at_div, "top_k=1 sampling drew a token that is not top-1")
     check(torch.equal(s_a, s_b), "a seeded sampled run does not repeat")
-
-    # timings, after the warm-up runs above
-    _decode_rates("bf16", _host_ms(
-        lambda: dec.generate(params, prompt, cfg, DEC_NEW), DEC_TIMED), weight_bytes["bf16"], kv_bytes)
-    _decode_rates("int8", _host_ms(
-        lambda: dec.generate(q_params, prompt, cfg, DEC_NEW), DEC_TIMED), weight_bytes["int8"], kv_bytes)
-    _decode_rates("speculative", _host_ms(
-        lambda: spec.generate_speculative(params, d_params, prompt, cfg, d_cfg, DEC_NEW,
-                                          gamma=DEC_GAMMA), DEC_TIMED), weight_bytes["bf16"], kv_bytes)
-    prefill_ms = _host_ms(lambda: dec.advance(
-        params, dec.init_kv_cache(cfg, DEC_BATCH, DEC_PROMPT + DEC_NEW, "cuda"), prompt, cfg), 3)
-    for name, p in (("bf16", params), ("int8", q_params)):
-        step_bound_ms = (weight_bytes[name] + kv_bytes) / PEAK_HBM_BYTES * 1e3
-        prof = _profile_steps(p, cfg, prompt, toks)
-        print(f"[j] {name} decode step (B={DEC_BATCH}, cache {DEC_PROMPT + DEC_NEW}): "
-              f"{prof['step_ms']:.3f} ms by CUDA events over {DEC_PROFILED_STEPS} "
-              f"steps, {DEC_BATCH / prof['step_ms'] * 1e3:.1f} tokens/s; bound "
-              f"{step_bound_ms:.4f} ms (weights and KV at {PEAK_HBM_BYTES / 1e12} "
-              f"TB/s), {step_bound_ms / prof['step_ms']:.4f} of it; under the "
-              f"profiler {prof['profiled_step_ms']:.3f} ms a step, "
-              + (f"device busy {prof['busy_ms']:.3f} ms a step "
-                 f"({prof['busy_ms'] / prof['step_ms']:.1%} of the unprofiled step: "
-                 + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["parts"].items())
-                 + f"), {prof['kernels']:.0f} kernels a step" if prof["busy_ms"] > 0 else
-                 "device busy not measured (the profiler recorded no device time)"))
-    print(f"[j] prefill of {DEC_BATCH} x {DEC_PROMPT} tokens: "
-          f"{', '.join(f'{t:.2f}' for t in prefill_ms)} ms")
-
-    # the CLI, once, as a subprocess on the card
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "hivedscheduler_tpu_torch.generate"] + DEC_ARGS,
-                          cwd=REPO, capture_output=True, text=True, timeout=300)
-    cli_s = time.perf_counter() - t0
-    rows = [line.split() for line in proc.stdout.splitlines()]
-    ok = (proc.returncode == 0 and len(rows) == DEC_BATCH
-          and all(len(r) == DEC_NEW and all(t.isdigit() for t in r) for r in rows))
-    timing = [l for l in proc.stderr.splitlines() if "generated" in l]
-    print(f"[j] python -m hivedscheduler_tpu_torch.generate (flagship, B={DEC_BATCH}): "
-          f"exit {proc.returncode} in {cli_s:.1f} s, {len(rows)} rows; "
-          f"{timing[-1].split('] ')[-1] if timing else 'no timing line'}")
-    if not ok:
-        print(proc.stderr[-4000:])
-    check(ok, "the generate CLI did not print its rows")
-    del params, q_params, d_params
-    torch.cuda.empty_cache()
-    print(f"[j] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return toks, d_cfg, d_params
 
 
 # phase (k): the serving engine at the flagship width, bench_model.py's
@@ -2093,24 +2155,31 @@ def phase_serving() -> dict:
     del params
     torch.cuda.empty_cache()
 
-    # the CLI, plain and under an injected preemption
-    for label, env in (("plain", {}), ("preempted", {"HIVED_FAULT_SERVE_PREEMPT_AT": "3"})):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "hivedscheduler_tpu_torch.serve"]
-                              + SRV_CLI_ARGS, cwd=REPO, capture_output=True, text=True,
-                              timeout=300, env=dict(os.environ, **env))
-        cli_s = time.perf_counter() - t0
-        rows = [l for l in proc.stdout.splitlines() if l.startswith("[")]
-        said = [l.split("] ", 1)[-1] for l in proc.stderr.splitlines()
+    # the CLI, plain and under an injected preemption, both at once
+    runs = {"plain": {}, "preempted": {"HIVED_FAULT_SERVE_PREEMPT_AT": "3"}}
+    t0 = time.perf_counter()
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-m", "hivedscheduler_tpu_torch.serve"] + SRV_CLI_ARGS, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, **env)) for label, env in runs.items()}
+    try:
+        outs = {label: proc.communicate(timeout=300) for label, proc in procs.items()}
+    finally:
+        _stop(procs.values())
+    cli_s = time.perf_counter() - t0
+    for label, env in runs.items():
+        proc, (stdout, stderr) = procs[label], outs[label]
+        rows = [l for l in stdout.splitlines() if l.startswith("[")]
+        said = [l.split("] ", 1)[-1] for l in stderr.splitlines()
                 if "tok/s" in l or "preemption drain" in l]
-        print(f"[k] python -m hivedscheduler_tpu_torch.serve ({label}): exit "
-              f"{proc.returncode} in {cli_s:.1f} s, {len(rows)} request lines; "
+        print(f"[k] python -m hivedscheduler_tpu_torch.serve ({label}, beside the other): exit "
+              f"{proc.returncode} in {cli_s:.1f} s for both, {len(rows)} request lines; "
               + " | ".join(said))
         ok = proc.returncode == 0 and rows and any("tok/s" in l for l in said)
         if env:
             ok = ok and any("preemption drain" in l for l in said)
         if not ok:
-            print(proc.stderr[-4000:])
+            print(stderr[-4000:])
         check(ok, f"the serve CLI ({label}) did not finish as it should")
     print(f"[k] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return dict(prompts=prompts, ref=ref, full=full, noise=noise)
@@ -2875,6 +2944,8 @@ def phase_ring(h_flash: dict) -> dict:
 # with renormalised top-2 routing (Mixtral 8x7B's, arXiv:2401.04088 2.1),
 # capacity factor 1.25, load-balance weight 0.01, no z-loss
 MOE_MODEL = dict(EVAL_MODEL, n_experts=8, moe_top_k=2)
+# generate and serve take 3 of its 6 layers (the script's time limit)
+MOE_DEC_MODEL = dict(MOE_MODEL, n_layers=3)
 MOE_FLAGS = ["--n-experts", "8", "--moe-top-k", "2"]
 MOE_TRAIN_ARGS = TRAIN_ARGS + MOE_FLAGS + ["--ep", "1"]
 MOE_EVAL_ARGS = EVAL_ARGS + MOE_FLAGS
@@ -3123,7 +3194,7 @@ def _moe_generate() -> None:
     from hivedscheduler_tpu_torch.models import quant
     from hivedscheduler_tpu_torch.models import transformer as tm
 
-    cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW, **MOE_MODEL)
+    cfg = tm.TransformerConfig(max_seq_len=DEC_PROMPT + DEC_NEW, **MOE_DEC_MODEL)
     f32 = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     params = tm.cast_params(f32, cfg.dtype)
     q_params = quant.quantize_params(f32, cfg)
@@ -3161,7 +3232,8 @@ def _moe_generate() -> None:
     decisive, ref_tok = _decisive(full, noise)
     wrong = int((decisive & (ref_tok != inc_r.argmax(-1))).sum())
     free_agree = float((full.argmax(-1) == toks).float().mean())
-    print(f"[n] greedy generate (B={DEC_BATCH}, prompt {DEC_PROMPT}, {DEC_NEW} new): "
+    print(f"[n] greedy generate ({cfg.n_layers} layers, B={DEC_BATCH}, prompt {DEC_PROMPT}, "
+          f"{DEC_NEW} new): "
           f"{exact} tokens differ from the argmax of the same advance sequence; "
           f"{flips:.4%} of layer-token routes differ between it and the full forward "
           f"(worst position rel {_per_position_rel(inc, full):.3e}); on the full "
@@ -3229,7 +3301,7 @@ def _moe_serve() -> None:
     from hivedscheduler_tpu_torch.models import serving as srv
     from hivedscheduler_tpu_torch.models import transformer as tm
 
-    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **MOE_MODEL)
+    cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **MOE_DEC_MODEL)
     params = tm.cast_params(tm.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
     torch.cuda.empty_cache()
@@ -3256,7 +3328,8 @@ def _moe_serve() -> None:
         with _moe_routes(replay=_engine_replay(routes, len(p), bucket, len(s) - 1)):
             got = _engine_logits(params, cfg, p, s)
         rels.append(float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max()))
-    print(f"[n] serve, four runs of {SRV_REQUESTS} requests (budget {SRV_BUDGET}, max_batch "
+    print(f"[n] serve ({cfg.n_layers} layers), four runs of {SRV_REQUESTS} requests (budget "
+          f"{SRV_BUDGET}, max_batch "
           f"{SRV_BATCH}): requests whose stream differs from dense eager: {same}; windows "
           f"through the graph: " + ", ".join(f"{n} {e.graph_windows}/{e.fused_windows}"
                                           for n, e in engines.items() if e.decode_steps > 1)
@@ -3516,25 +3589,23 @@ def _differing_share(a: list, b: list) -> float:
 
 def phase_spec(srv: dict, lora_dir: str) -> None:
     """(p): the speculative engine on (k)'s trace: the CLI's draft and the
-    target as its own draft, dense and paged, greedy and sampled; times in
-    turns against the plain engine; the serve CLI on (o)'s checkpoint."""
+    target as its own draft, dense and paged, greedy and sampled, with the
+    serve CLI on (o)'s checkpoint beside them; then times in turns against
+    the plain engine."""
     import torch
 
-    from hivedscheduler_tpu_torch.chaos import invariants as inv
     from hivedscheduler_tpu_torch.models import serving as srv_lib
     from hivedscheduler_tpu_torch.models import transformer as tm
     from hivedscheduler_tpu_torch.models.speculative import (
         SpecDecodeConfig,
         derive_draft_config,
     )
-    from hivedscheduler_tpu_torch.ops import attention as attn
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     cfg = tm.TransformerConfig(max_seq_len=SRV_MAX_LEN, **EVAL_MODEL)
     params = tm.cast_params(tm.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
-    prompts, ref, full, noise = srv["prompts"], srv["ref"], srv["full"], srv["noise"]
     dcfg = derive_draft_config(cfg, 2, 0)
     dparams = tm.cast_params(tm.init_params(
         dcfg, torch.Generator(device="cuda").manual_seed(3), "cuda"), dcfg.dtype)
@@ -3546,6 +3617,49 @@ def phase_spec(srv: dict, lora_dir: str) -> None:
         return srv_lib.ServingEngine(params, cfg, max_batch=SRV_BATCH, max_len=SRV_MAX_LEN,
                                      **kw)
 
+    # the serve CLI on (o)'s checkpoint runs beside the untimed checks, and
+    # is awaited before the times in turns
+    walls = {}
+    t0 = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m", "hivedscheduler_tpu_torch.serve"]
+                           + SPEC_CLI_ARGS + ["--checkpoint-dir", lora_dir], cwd=REPO,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        checked = _spec_checks(params, cfg, dparams, dcfg, srv, engine)
+        walls["checks"] = time.perf_counter() - t0
+        stdout, stderr = cli.communicate(timeout=600)
+    finally:
+        _stop([cli])
+    cli_s = time.perf_counter() - t0
+    rows = [line for line in stdout.splitlines() if line.startswith("[")]
+    said = [line.split("] ", 1)[-1] for line in stderr.splitlines()
+            if "speculation:" in line or "merged rank" in line or "tok/s" in line]
+    print(f"[p] python -m hivedscheduler_tpu_torch.serve {' '.join(LORA_FLAGS)} --spec-decode "
+          f"on (o)'s checkpoint, beside the checks above: exit {cli.returncode} in {cli_s:.1f} s, "
+          f"{len(rows)} request lines; " + " | ".join(said))
+    ok = (cli.returncode == 0 and len(rows) == 8 and any("speculation:" in l for l in said)
+          and any("merged rank-16" in l for l in said))
+    if not ok:
+        print(stderr[-4000:])
+    check(ok, "serve --lora-rank --spec-decode did not finish as it should")
+    t0 = time.perf_counter()
+    _spec_times(srv, engine, checked)
+    walls["times"] = time.perf_counter() - t0
+    del params, dparams, checked
+    torch.cuda.empty_cache()
+    print(f"[p] phase wall time {time.perf_counter() - t_phase:.1f} s (checks {walls['checks']:.1f} "
+          f"s, the CLI's wait {cli_s - walls['checks']:.1f} s, times {walls['times']:.1f} s)")
+
+
+def _spec_checks(params, cfg, dparams, dcfg, srv: dict, engine) -> dict:
+    """(p)'s checks: the CLI's draft and the target as its own draft, dense
+    and paged, greedy against (k)'s streams at decisive positions, no flash
+    launch; sampled with the perfect draft, reproducible. -> {self-draft
+    engine's name: (the engine, its checked streams)}."""
+    from hivedscheduler_tpu_torch.chaos import invariants as inv
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    prompts, ref, full, noise = srv["prompts"], srv["ref"], srv["full"], srv["noise"]
     attn.FLASH_FWD_LAUNCHES = attn.FLASH_BWD_DQ_LAUNCHES = attn.FLASH_BWD_DKV_LAUNCHES = 0
     runs, engines = {}, {}
     for name, draft, kw in (("cli draft", (dparams, dcfg), {}),
@@ -3576,12 +3690,38 @@ def phase_spec(srv: dict, lora_dir: str) -> None:
     print(f"[p] self draft dense against paged: {same} requests differ")
     check(same == 0, "the self-draft engine's dense and paged streams differ")
     check(engines["self draft dense"].acceptance > 0.5, "the perfect draft accepts too little")
+    checked = {name: (engines[name], _streams(runs[name]))
+               for name in ("self draft dense", "self draft paged")}
+    del engines, runs
 
-    # times in turns: the plain engine eager and with graph windows, the
-    # self-draft engine dense and paged
+    # sampled with the perfect draft, against the plain sampled engine
+    plain = _streams(_serve(engine(**SPEC_SAMPLING), prompts, SRV_BUDGET))
+    sampled = []
+    for _ in range(2):
+        eng = engine((params, cfg), **SPEC_SAMPLING)
+        sampled.append(_streams(_serve(eng, prompts, SRV_BUDGET)))
+    print(f"[p] sampled (temperature {SPEC_SAMPLING['temperature']}, top_k "
+          f"{SPEC_SAMPLING['top_k']}) with the perfect draft: acceptance {eng.acceptance:.4f}; "
+          f"{1 - _differing_share(plain, sampled[0]):.4f} of tokens equal to the plain sampled "
+          f"engine's ({sum(a == b for a, b in zip(plain, sampled[0]))} of {len(plain)} streams "
+          f"whole); two runs identical: {sampled[0] == sampled[1]}")
+    check(sampled[0] == sampled[1], "two sampled speculative runs differ")
+    check(all(0 <= t < cfg.vocab_size and len(s) == SRV_BUDGET
+              for s in sampled[0] for t in s), "a sampled stream is short or out of vocab")
+    return checked
+
+
+def _spec_times(srv: dict, engine, checked: dict) -> None:
+    """(p)'s times in turns: the plain engine eager and with graph windows,
+    the self-draft engines of ``checked`` dense and paged, each run's
+    streams those of its checked run; then the trace's requests all at
+    once."""
+    prompts, ref = srv["prompts"], srv["ref"]
+    engines = {name: eng for name, (eng, _) in checked.items()}
     engines["plain eager"] = engine()
     engines["plain graph"] = engine(decode_steps=SRV_STEPS)
-    _serve(engines["plain graph"], prompts, SRV_BUDGET)  # warm: captures the graph
+    for name in ("plain eager", "plain graph"):
+        _serve(engines[name], prompts, SRV_BUDGET)  # warm (the graph engine captures)
     order = ("plain eager", "plain graph", "self draft dense", "self draft paged")
     timed = {name: [] for name in order}
     for name in order + order[::-1]:
@@ -3589,7 +3729,7 @@ def phase_spec(srv: dict, lora_dir: str) -> None:
         if name.startswith("plain"):
             check(_streams(run) == ref, f"{name}: a timed run's streams differ")
         else:
-            check(_streams(run) == _streams(runs[name]), f"{name}: a timed run's streams differ")
+            check(_streams(run) == checked[name][1], f"{name}: a timed run's streams differ")
         timed[name].append(_serve_stats(run, SRV_BATCH))
     print("[p] in turns (plain eager, plain graph, self dense, self paged, then reversed; "
           f"one arrival every {SRV_ARRIVAL} engine steps, so a round's length spaces the "
@@ -3608,43 +3748,6 @@ def phase_spec(srv: dict, lora_dir: str) -> None:
           + "; ".join(f"{n}: {', '.join(f'{s['tps']:.1f}' for s in st)} tokens/s, TPOT p50 "
                       f"{', '.join(f'{s['tpot_p50']:.3f}' for s in st)} ms"
                       for n, st in burst.items()))
-    del engines, runs
-
-    # sampled with the perfect draft, against the plain sampled engine
-    plain = _streams(_serve(engine(**SPEC_SAMPLING), prompts, SRV_BUDGET))
-    sampled = []
-    for _ in range(2):
-        eng = engine((params, cfg), **SPEC_SAMPLING)
-        sampled.append(_streams(_serve(eng, prompts, SRV_BUDGET)))
-    print(f"[p] sampled (temperature {SPEC_SAMPLING['temperature']}, top_k "
-          f"{SPEC_SAMPLING['top_k']}) with the perfect draft: acceptance {eng.acceptance:.4f}; "
-          f"{1 - _differing_share(plain, sampled[0]):.4f} of tokens equal to the plain sampled "
-          f"engine's ({sum(a == b for a, b in zip(plain, sampled[0]))} of {len(plain)} streams "
-          f"whole); two runs identical: {sampled[0] == sampled[1]}")
-    check(sampled[0] == sampled[1], "two sampled speculative runs differ")
-    check(all(0 <= t < cfg.vocab_size and len(s) == SRV_BUDGET
-              for s in sampled[0] for t in s), "a sampled stream is short or out of vocab")
-    del params, dparams, eng
-    torch.cuda.empty_cache()
-
-    # fine-tune, then serve: the serve CLI on (o)'s checkpoint
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "hivedscheduler_tpu_torch.serve"]
-                          + SPEC_CLI_ARGS + ["--checkpoint-dir", lora_dir], cwd=REPO,
-                          capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
-    rows = [line for line in proc.stdout.splitlines() if line.startswith("[")]
-    said = [line.split("] ", 1)[-1] for line in proc.stderr.splitlines()
-            if "speculation:" in line or "merged rank" in line or "tok/s" in line]
-    print(f"[p] python -m hivedscheduler_tpu_torch.serve {' '.join(LORA_FLAGS)} --spec-decode "
-          f"on (o)'s checkpoint: exit {proc.returncode} in {cli_s:.1f} s, {len(rows)} request "
-          f"lines; " + " | ".join(said))
-    ok = (proc.returncode == 0 and len(rows) == 8 and any("speculation:" in l for l in said)
-          and any("merged rank-16" in l for l in said))
-    if not ok:
-        print(proc.stderr[-4000:])
-    check(ok, "serve --lora-rank --spec-decode did not finish as it should")
-    print(f"[p] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 # phases (q) and (r): public model widths whose head dim is neither 64 nor
@@ -3779,25 +3882,25 @@ def _wide_outputs(shapes, d: int, dtype, width: int):
 
 
 def _launch_all(q, k, v, do, lse, o16, d_launch: int, causal: bool, f32: bool, outs):
-    """K1, K2 and K3 (their f32 forms if ``f32``) through their C entry
-    points into the views ``outs`` = (o, dq, dk, dv), at head dim
-    ``d_launch``; returns K1's lse and K2's delta. Checks only: nothing is
-    counted."""
+    """K1, K2 and K3 (their f32 forms if ``f32``) through the C entry points
+    ``kernel_entry`` picks for q's dtype and ``d_launch``, into the views
+    ``outs`` = (o, dq, dk, dv), at head dim ``d_launch``; returns K1's lse
+    and K2's delta. Checks only: nothing is counted."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
 
-    sfx = "_f32" if f32 else ""
     b, t, h, _ = q.shape
     dims = (b, t, h, k.shape[2], d_launch, int(causal))
     stream = torch.cuda.current_stream().cuda_stream
     o, dq, dk, dv = outs
     lse2, delta = torch.empty_like(lse), torch.empty_like(lse)
-    attn._launch("hived_flash_fwd" + sfx, (q, k, v, o, lse2), dims, (q, k, v, o), stream)
-    attn._launch("hived_flash_bwd_dq" + sfx, (q, k, v, o16, do, lse, delta, dq), dims,
-                 (q, k, v, o16, do, dq), stream)
-    attn._launch("hived_flash_bwd_dkv" + sfx, (q, k, v, do, lse, delta, dk, dv), dims,
-                 (q, k, v, do, dk, dv), stream)
+    for kernel, ptrs, strided in (
+            ("fwd", (q, k, v, o, lse2), (q, k, v, o)),
+            ("dq", (q, k, v, o16, do, lse, delta, dq), (q, k, v, o16, do, dq)),
+            ("dkv", (q, k, v, do, lse, delta, dk, dv), (q, k, v, do, dk, dv))):
+        symbol = attn.kernel_entry(q.dtype, d_launch, f32, kernel)
+        attn._launch(symbol, ptrs, attn.launch_dims(symbol, dims, q.dtype, f32), strided, stream)
     torch.cuda.synchronize()
     return lse2, delta
 
@@ -4777,21 +4880,12 @@ FLEET_WRAPPER = (
     "sys.exit(rc)\n")
 
 
-def _fleet_cli(tmp: str, noise: float) -> None:
-    """1: the serve CLI as subprocesses, all started at once: the single
+def _start_fleet_clis(tmp: str) -> tuple:
+    """1a: the serve CLI as subprocesses, all started at once: the single
     engine, the disaggregated prefix-affinity fleet of 3 in ship and
     re-prefill mode (each with --journal-file), and --fleet-config
-    example/config/design/fleet.yaml. Each exits 0 and launches no flash
-    kernel; the fleets' streams part from the single engine's only at
-    near-ties of the teacher-forced full forward; every handoff ships (or
-    re-prefills); every flight has one terminal and legs that sum to its
-    TTFT; check_fleet is clean on every router."""
-    import torch
-
-    from hivedscheduler_tpu_torch import serve as port_serve
-    from hivedscheduler_tpu_torch.models import transformer as tm
-    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
-
+    example/config/design/fleet.yaml. -> (the runs, their processes),
+    awaited by :func:`_fleet_cli`."""
     runs = {
         "single": ([], {}),
         "ship": (FLEET_CLI + ["--journal-file", os.path.join(tmp, "ship.jsonl")],
@@ -4807,6 +4901,21 @@ def _fleet_cli(tmp: str, noise: float) -> None:
             [sys.executable, "-c", FLEET_WRAPPER] + SRV_LOAD_ARGS + extra, cwd=REPO,
             stdout=out, stderr=err, text=True, env=dict(os.environ, **env)), out, err,
             time.perf_counter())
+    return runs, procs
+
+
+def _fleet_cli(noise: float, runs: dict, procs: dict) -> None:
+    """1b: each CLI of :func:`_start_fleet_clis` exits 0 and launches no
+    flash kernel; the fleets' streams part from the single engine's only at
+    near-ties of the teacher-forced full forward; every handoff ships (or
+    re-prefills); every flight has one terminal and legs that sum to its
+    TTFT; check_fleet is clean on every router."""
+    import torch
+
+    from hivedscheduler_tpu_torch import serve as port_serve
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+
     res = {}
     for name, (proc, out, err, t0) in procs.items():
         try:
@@ -5180,19 +5289,30 @@ def phase_fleet(srv: dict) -> None:
         fresh = [system + [int(t) for t in rng.integers(0, cfg.vocab_size, len(p) - SRV_SYSTEM)]
                  for p in prompts]
 
-        def in_process():
-            params = tm.cast_params(tm.init_params(
-                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
-            _fleet_handoff(params, cfg, prompts)
-            fleets = _fleet_steady(params, cfg, prompts, fresh)
-            _fleet_kill(params, cfg, prompts)
-            _fleet_planted(params, cfg, prompts)
-            _fleet_turns(params, cfg, prompts, fleets)
-            del params, fleets
-            torch.cuda.empty_cache()
+        state = {}
 
-        _timed_parts("[t]", [("serve CLI", lambda: _fleet_cli(tmp, srv["noise"])),
-                             ("in-process", in_process)])
+        def handoff():
+            state["params"] = tm.cast_params(tm.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg.dtype)
+            _fleet_handoff(state["params"], cfg, prompts)
+
+        def checks():
+            # the serve CLIs run beside the untimed in-process checks
+            runs, procs = _start_fleet_clis(tmp)
+            try:
+                state["fleets"] = _fleet_steady(state["params"], cfg, prompts, fresh)
+                _fleet_kill(state["params"], cfg, prompts)
+                _fleet_planted(state["params"], cfg, prompts)
+                _fleet_cli(srv["noise"], runs, procs)
+            finally:
+                _stop(proc for proc, *_ in procs.values())
+
+        _timed_parts("[t]", [
+            ("handoff", handoff),
+            ("checks beside the serve CLIs", checks),
+            ("turns", lambda: _fleet_turns(state["params"], cfg, prompts, state["fleets"]))])
+        state.clear()
+        torch.cuda.empty_cache()
     finally:
         _obs_off()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5681,9 +5801,10 @@ PIPE_MICRO = (2, 4)
 PIPE_MOE_LAYERS = 2  # two MoE train states stay resident (~11 GB each)
 PIPE_TURNS = 2  # rounds of (plain, pipelined..., pipelined..., plain) steps
 PIPE_STAGE = dict(pp=2, n_micro=4)  # one stage: 3 of the 6 layers
-# the cross-layout resumes: tests/test_pipeline_moe.py's tiny model, 2 steps
-# on a 2-rank gloo gang, resumed on the card to 4, held to an uninterrupted
-# 2-rank run within the elastic harness's 0.02
+# the cross-layout resumes: tests/test_pipeline_moe.py's tiny model, 4 steps
+# on a 2-rank gloo gang committing steps 2 and 4, its step-2 commit resumed
+# on the card to 4, held to the gang's own steps 3-4 within the elastic
+# harness's 0.02
 XLAYOUT_MODEL = ["--batch", "4", "--seq-len", "16", "--vocab-size", "64",
                  "--d-model", "32", "--n-layers", "4", "--n-heads", "4", "--d-ff", "64",
                  "--log-every", "100", "--checkpoint-every", "2"]
@@ -5756,7 +5877,8 @@ def _pipe_turns(states, tag: str) -> dict:
 def _pipe_dense(mesh, h_flash: dict) -> dict:
     """1: the flagship step through the one-stage pipeline (n_micro 2 and
     4) in turns with the plain step: launches, losses, gradients by group,
-    step ms and peak memory. Returns the n_micro 2 run's launches."""
+    step ms and peak memory. Returns the n_micro 2 run's launches and the
+    plain step's state."""
     import numpy as np
     import torch
 
@@ -5810,9 +5932,10 @@ def _pipe_dense(mesh, h_flash: dict) -> dict:
         print(f"[v] one traced step, {'plain' if n == 0 else f'pipeline n_micro {n}'}: "
               f"wall {wall:.3f} ms, device busy {busy:.3f} ms (idle "
               f"{1 - busy / wall:.1%}): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    plain = states[0]
     del states, grads
     torch.cuda.empty_cache()
-    return {"launches": launches[PIPE_MICRO[0]], "timing": timing}
+    return {"launches": launches[PIPE_MICRO[0]], "timing": timing, "plain": plain}
 
 
 def _pipe_moe(mesh) -> None:
@@ -5855,16 +5978,15 @@ def _pipe_moe(mesh) -> None:
     torch.cuda.empty_cache()
 
 
-def _pipe_stage(mesh) -> dict:
+def _pipe_stage(mesh, whole) -> dict:
     """3: one pp = 2 stage's work, 3 of the 6 layers on 4 microbatches
     forward and backward with no transfer, in turns with the whole
-    6-layer plain step; with the GPipe bubble."""
-    import numpy as np
+    6-layer plain step ``whole`` (1's state, stepped already); with the
+    GPipe bubble."""
     import torch
 
     from hivedscheduler_tpu_torch.models import transformer as tm
     from hivedscheduler_tpu_torch.ops import attention as attn
-    from hivedscheduler_tpu_torch.parallel import data as data_lib
     from hivedscheduler_tpu_torch.parallel import pipeline
 
     pp, n_micro = PIPE_STAGE["pp"], PIPE_STAGE["n_micro"]
@@ -5897,10 +6019,7 @@ def _pipe_stage(mesh) -> dict:
     want = {"fwd": 2 * layers * n_micro, "dq": layers * n_micro, "dkv": layers * n_micro}
     check(got == want, f"[v] one stage launched {got}, want {want}")
     # the whole 6-layer plain step on the same card, in turns
-    loader = data_lib.CheckpointableBatches(
-        data_lib.synthetic_dataset(EVAL_MODEL["vocab_size"]), EVAL_BATCH, EVAL_SEQ)
-    whole = _pipe_states(mesh, [np.asarray(next(loader))], ())[0]
-    _steps_by_events(*whole)  # the warm-up: the optimizer's state is made
+    whole = (*whole[:3], whole[3][:1])
     ms = {"stage": [], "whole": []}
     for _ in range(PIPE_TURNS):
         for name in ("whole", "stage", "stage", "whole"):
@@ -5931,23 +6050,22 @@ def _pipe_stage(mesh) -> dict:
 
 def _start_layout_gangs(tmp: str) -> dict:
     """4a: for each of ``XLAYOUT_GANGS``, a 2-rank gloo gang on the
-    machine's CPU that commits step 2 and one that runs uninterrupted to
-    step 4; awaited by :func:`_layout_resumes`."""
+    machine's CPU that runs uninterrupted to step 4, committing steps 2 and
+    4; awaited by :func:`_layout_resumes`."""
     from hivedscheduler_tpu_torch.chaos import workload as chaos
     from hivedscheduler_tpu_torch.parallel import distributed
 
     started = {}
     for name, (flags, _) in XLAYOUT_GANGS.items():
-        for run, steps in (("ck", XLAYOUT_SPLIT), ("ref", XLAYOUT_STEPS)):
-            port = str(distributed._free_local_port())
-            argv = XLAYOUT_MODEL + flags + [
-                "--device", "cpu", "--steps", str(steps),
-                "--checkpoint-dir", os.path.join(tmp, f"v-{name}-{run}"),
-                "--timeline", os.path.join(tmp, f"v-{name}-{run}.jsonl")]
-            started[(name, run)] = [subprocess.Popen(
-                [sys.executable, "-c", chaos._GANG_LAUNCH, port] + argv, cwd=REPO,
-                env=chaos.cpu_only_env(gang=(2, rank)), stdout=subprocess.DEVNULL,
-                stderr=subprocess.DEVNULL) for rank in range(2)]
+        port = str(distributed._free_local_port())
+        argv = XLAYOUT_MODEL + flags + [
+            "--device", "cpu", "--steps", str(XLAYOUT_STEPS),
+            "--checkpoint-dir", os.path.join(tmp, f"v-{name}-run"),
+            "--timeline", os.path.join(tmp, f"v-{name}-ref.jsonl")]
+        started[name] = [subprocess.Popen(
+            [sys.executable, "-c", chaos._GANG_LAUNCH, port] + argv, cwd=REPO,
+            env=chaos.cpu_only_env(gang=(2, rank)), stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL) for rank in range(2)]
     return started
 
 
@@ -5968,11 +6086,11 @@ def _swapped_stages(real_restore):
 
 
 def _layout_resumes(tmp: str, started: dict) -> dict:
-    """4b: each gang's commit resumed on the card by ``train --device cuda``
-    at pp 1 and sp 1: the restored state equal to the checkpoint read on
-    the CPU, the losses within the harness's 0.02 of the uninterrupted
-    gang, the restore seconds; the stages' layer blocks swapped on restore
-    caught."""
+    """4b: each gang's step-2 commit resumed on the card by ``train
+    --device cuda`` at pp 1 and sp 1: the restored state equal to the
+    checkpoint read on the CPU, the losses within the harness's 0.02 of the
+    gang's own (uninterrupted) steps 3-4, the restore seconds; the stages'
+    layer blocks swapped on restore caught."""
     import torch
 
     from hivedscheduler_tpu_torch import train as port_train
@@ -5984,6 +6102,12 @@ def _layout_resumes(tmp: str, started: dict) -> dict:
     for key, procs in started.items():
         rcs = [p.wait(timeout=600) for p in procs]
         check(rcs == [0, 0], f"[v] the {key} CPU gang exited {rcs}")
+        # the step-2 commit alone, as a gang stopped there would have left it
+        run = os.path.join(tmp, f"v-{key}-run")
+        check(ckpt._committed_steps(run) == [XLAYOUT_STEPS, XLAYOUT_SPLIT],
+              f"[v] the {key} gang committed {ckpt._committed_steps(run)}")
+        shutil.copytree(os.path.join(run, str(XLAYOUT_SPLIT)),
+                        os.path.join(tmp, f"v-{key}-ck", str(XLAYOUT_SPLIT)))
     def mismatches(params, opt, params2, opt2) -> int:
         """Parameters and AdamW entries of a card state that differ from a
         CPU state's."""
@@ -6066,22 +6190,31 @@ def phase_pipeline(h_flash: dict) -> dict:
     from hivedscheduler_tpu_torch.parallel import topology
 
     t_phase = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
     tmp = tempfile.mkdtemp(prefix="chip-smoke-v-")
     try:
         # the CPU gangs run beside the untimed checks only
         started = _start_layout_gangs(tmp)
         try:
-            resumes = _layout_resumes(tmp, started)
+            resumes = timed("CPU gangs and resumes", _layout_resumes, tmp, started)
         finally:
             _stop([p for procs in started.values() for p in procs])
         with _world_1_gang():
             mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
-            dense = _pipe_dense(mesh, h_flash)
-            _pipe_moe(mesh)
-            stage = _pipe_stage(mesh)
+            dense = timed("dense", _pipe_dense, mesh, h_flash)
+            timed("moe", _pipe_moe, mesh)
+            stage = timed("stage", _pipe_stage, mesh, dense.pop("plain"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"[v] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    print(f"[v] phase wall time {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{name} {sec:.1f} s" for name, sec in walls.items()) + ")")
     return dict(dense, stage=stage, resumes=resumes)
 
 
@@ -6540,6 +6673,568 @@ def phase_overlap(tp_local: dict) -> dict:
     return dict(rows=rows, gemms=gemms)
 
 
+# phase (x): K1-K3 at every input dtype and head dim the JAX package's
+# kernels take: the fp16 forms of the wgmma kernels, and the CUDA-core family
+# (csrc/flash_generic.cu) for f32 inputs at any D and bf16 or fp16 past 256
+# f32 inputs: every output within this relative Frobenius distance of the
+# plain f32 version (an H100 read ~1e-7 before the phase was written; a TF32
+# pass, or the same inputs cast to bf16, read ~1e-3)
+DT_F32_REL = 2e-5
+PEAK_TF32_FLOPS = 495e12
+# the least time the card can take for f32-accurate products: on the tensor
+# cores at 3xTF32, a third of TF32's rate (the CUDA cores' 67 TFLOP/s is
+# slower still)
+PEAK_F32_EXACT_FLOPS = PEAK_TF32_FLOPS / 3
+DT_FP16_CASES = (  # (tag, B, T, H, H_kv, D, causal)
+    ("flagship", 8, 2048, 16, 8, 128, True),
+    ("d96", 2, 1024, 8, 2, 96, True),
+    ("d256", 2, 1024, 8, 1, 256, True),
+    ("t192", 2, 192, 16, 8, 128, True),
+    ("full", 2, 1024, 8, 2, 128, False),
+)
+DT_F32_CASES = (("flagship", 8, 2048, 16, 8, 128, True), ("d256", 2, 1024, 8, 2, 256, True))
+# past 256 at every input dtype: 264 leaves an 8-column last panel (with MQA
+# and a ragged T), 320 not causal, 512 two whole panels
+DT_WIDE_CASES = (("d264", 2, 1000, 4, 1, 264, True), ("d320", 2, 1024, 4, 2, 320, False),
+                 ("d512", 2, 1024, 4, 2, 512, True))
+DT_MODEL = dict(EVAL_MODEL, n_layers=2)  # the fp16 and f32 model paths: 2 of the 6 layers
+# the flagship's width at 4 heads: head dim 512, no public model's
+D512_MODEL = dict(EVAL_MODEL, n_heads=4, n_kv_heads=2, n_layers=2)
+D512_ARGS = [a for k, v in D512_MODEL.items() for a in (f"--{k.replace('_', '-')}", str(v))] + [
+    "--seq-len", str(EVAL_SEQ), "--batch", str(EVAL_BATCH), "--ce-chunk", str(EVAL_CE_CHUNK),
+    "--device", "cuda"]
+D512_WINDOWS = 2
+
+
+def _all_launches(attn) -> dict:
+    """Every launch counter of the kernels' entry points, by name."""
+    return {name: getattr(attn, name) for name in attn._COUNTERS.values()}
+
+
+def _moved(attn, before: dict) -> dict:
+    return {n: c - before[n] for n, c in _all_launches(attn).items() if c != before[n]}
+
+
+def _want(attn, dtype, d: int, counts: dict, out_f32: bool = False) -> dict:
+    """The counters ``counts`` ({"fwd": n, ...}) of the entry points that
+    run (dtype, d) should move by."""
+    want = {}
+    for kernel, n in counts.items():
+        name = attn._COUNTERS[attn.kernel_entry(dtype, d, out_f32, kernel)]
+        want[name] = want.get(name, 0) + n
+    return {k: v for k, v in want.items() if v}
+
+
+def _dt_inputs(dtype, b, t, h, h_kv, d, seed):
+    """q, k, v, do drawn in f32 from ``seed`` and rounded to ``dtype``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=g, device="cuda").to(dtype)
+            for s in ((b, t, h, d), (b, t, h_kv, d), (b, t, h_kv, d), (b, t, h, d))]
+
+
+def _dt_case(dtype, case, seed: int, plant: bool = False) -> dict:
+    """K1-K3 and their f32 forms at one (dtype, shape) against the plain
+    versions (16-bit: the limits of (b) and (f); f32: DT_F32_REL for every
+    output), each entry point's counter moved once a call, the f32 forms
+    rounded once equal to the dtype's forms, every output stored through a
+    view into a buffer 64 columns wider whose other columns keep their
+    sentinel, two runs bit-identical; with ``plant``, (b)'s swapped V keys
+    caught -> the max |err| of K1-K3 in the dtype's form."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    f32 = torch.float32
+    tag, b, t, h, h_kv, d, causal = case
+    q, k, v, do = _dt_inputs(dtype, b, t, h, h_kv, d, seed)
+    want = {}
+    for form in (False, True):
+        for name, n in _want(attn, dtype, d, {"fwd": 1, "dq": 1, "dkv": 1}, form).items():
+            want[name] = want.get(name, 0) + n
+    before = _all_launches(attn)
+    o, lse = attn.flash_forward(q, k, v, causal=causal)
+    g = attn.flash_backward(q, k, v, o, lse, do, causal=causal)
+    o32, lse32 = attn.flash_forward(q, k, v, causal=causal, out_dtype=f32)
+    g32 = attn.flash_backward(q, k, v, o, lse, do, causal=causal, grad_dtype=f32)
+    torch.cuda.synchronize()
+    moved = _moved(attn, before)
+    o_ref, lse_ref = attn.flash_attention_plain(q, k, v, causal=causal, out_dtype=f32)
+    g_ref = attn.flash_backward_plain(q, k, v, o, lse, do, causal=causal, grad_dtype=f32)
+    errs = {}
+    for form, oo, gg in (("", o, g), ("_f32", o32, g32)):
+        errs["o" + form] = rel_errs(oo, o_ref)
+        for n, x, r in zip(("dq", "dk", "dv"), gg, g_ref):
+            errs[n + form] = rel_errs(x, r, floor=1e-3)
+    lse_err = float((lse - lse_ref).abs().max())
+    rounded = (torch.equal(o32.to(dtype), o) and torch.equal(lse32, lse)
+               and all(torch.equal(x.to(dtype), y) for x, y in zip(g32, g)))
+    again = (*attn.flash_forward(q, k, v, causal=causal),
+             *attn.flash_backward(q, k, v, o, lse, do, causal=causal))
+    twice = all(torch.equal(x, y) for x, y in zip((o, lse, *g), again))
+    wide = _wide_outputs((q.shape, q.shape, k.shape, v.shape), d, dtype, d + 64)
+    _launch_all(q, k, v, do, lse, o, d, causal, False, [w[1] for w in wide])
+    kept = all(bool((buf[..., d:] == SENTINEL).all()) for buf, _ in wide)
+    equal = all(torch.equal(view, x) for (_, view), x in zip(wide, (o, *g)))
+    family = attn.kernel_entry(dtype, d, False)
+    print(f"[x] {str(dtype)[6:]} {tag} B={b} T={t} H={h} H_kv={h_kv} D={d} causal={causal} "
+          f"({family}): " + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}"
+                                      for n, (fr, rw) in errs.items())
+          + f"; max|lse err| {lse_err:.3e}; launches {moved}; f32 forms rounded equal: "
+          f"{rounded}; run twice bit-identical {twice}; sentinel columns {d}-{d + 63} "
+          f"untouched {kept}, views equal {equal}")
+    check(moved == want, f"{tag} {dtype}: launches {moved}, want {want}")
+    if dtype == f32:
+        check(all(fr <= DT_F32_REL for fr, _ in errs.values()),
+              f"{tag} f32: a kernel is not within {DT_F32_REL} of the plain f32 version")
+    else:
+        check(all(errs[n][0] <= O_REL and errs[n][1] <= O_ROW_REL for n in ("o", "o_f32")),
+              f"{tag} {dtype}: K1 disagrees with its plain version")
+        check(all(fr <= GRAD_REL and rw <= GRAD_ROW_REL
+                  for n, (fr, rw) in errs.items() if not n.startswith("o")),
+              f"{tag} {dtype}: K2/K3 disagree with their plain version")
+    check(lse_err <= LSE_ATOL, f"{tag} {dtype}: K1's lse disagrees")
+    check(rounded, f"{tag} {dtype}: the f32 forms, rounded, differ from the dtype's forms")
+    check(twice, f"{tag} {dtype}: K1-K3 are not bit-reproducible")
+    check(kept and equal, f"{tag} {dtype}: a kernel stored past D or through its view wrongly")
+    out = {"fwd": float((o.float() - o_ref).abs().max()),
+           "dq": float((g[0].float() - g_ref[0]).abs().max()),
+           "dkv": max(float((x.float() - r).abs().max()) for x, r in zip(g[1:], g_ref[1:]))}
+    if plant:
+        v_bad = v.clone()
+        v_bad[:, [t - 2, t - 1]] = v[:, [t - 1, t - 2]]
+        bad_row = rel_errs(attn.flash_forward(q, k, v_bad, causal=causal)[0], o_ref)[1]
+        print(f"[x] {str(dtype)[6:]} {tag} planted fault (V keys {t - 2}, {t - 1} swapped): o "
+              f"worst row rel {bad_row:.3e}")
+        check(bad_row > O_ROW_REL, f"{tag} {dtype}: the o check does not see swapped V keys")
+    if dtype == f32 and tag == "flagship":
+        # the bound tells f32 from the nearest cheaper arithmetic: the plain
+        # version with TF32 matmuls, and the kernels on the inputs cast to bf16
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            o_tf32 = attn.flash_attention_plain(q, k, v, causal=causal)[0]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        o_bf16 = attn.flash_forward(*(x.to(torch.bfloat16) for x in (q, k, v)), causal=causal)[0]
+        tf32_rel, bf16_rel = rel_errs(o_tf32, o_ref)[0], rel_errs(o_bf16, o_ref)[0]
+        print(f"[x] f32 {tag}: o of one TF32 pass rel {tf32_rel:.3e}, o of the bf16-cast inputs "
+              f"rel {bf16_rel:.3e} (both must exceed {DT_F32_REL})")
+        check(tf32_rel > DT_F32_REL and bf16_rel > DT_F32_REL,
+              f"the f32 bound {DT_F32_REL} does not tell f32 from TF32 or bf16")
+    return out
+
+
+def _dt_error_ratio() -> dict:
+    """The fp16 backward's error against the bf16 backward's on the same
+    draws, in turns (bf16, fp16, fp16, bf16), at unit do and at a
+    gradient's magnitude (do x 2^-20): the f32 forms against each one's
+    plain version, relative Frobenius."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    f32 = torch.float32
+    ratios = {}
+    for scale in (1.0, 2.0 ** -20):
+        errs = {torch.bfloat16: [], torch.float16: []}
+        for dtype in (torch.bfloat16, torch.float16, torch.float16, torch.bfloat16):
+            q, k, v, do = _dt_inputs(dtype, 2, 1024, 8, 4, 128, seed=70)
+            do = (do.float() * scale).to(dtype)
+            o, lse = attn.flash_forward(q, k, v)
+            got = attn.flash_backward(q, k, v, o, lse, do, grad_dtype=f32)
+            ref = attn.flash_backward_plain(q, k, v, o, lse, do, grad_dtype=f32)
+            errs[dtype].append([rel_errs(x, r)[0] for x, r in zip(got, ref)])
+        same = errs[torch.float16][0] == errs[torch.float16][1]
+        fp16, bf16 = errs[torch.float16][0], errs[torch.bfloat16][0]
+        ratios[scale] = [a / b for a, b in zip(fp16, bf16)]
+        print(f"[x] backward at do x {scale:g} (B=2, T=1024, H=8, H_kv=4, D=128, causal), f32 "
+              f"forms against their plain versions: bf16 dq, dk, dv "
+              + ", ".join(f"{e:.3e}" for e in bf16) + "; fp16 "
+              + ", ".join(f"{e:.3e}" for e in fp16)
+              + "; fp16/bf16 " + ", ".join(f"{r:.3f}" for r in ratios[scale])
+              + f"; repeated turns equal {same}")
+        check(all(a < b for a, b in zip(fp16, bf16)),
+              f"the fp16 backward's error is not below the bf16 backward's at do x {scale:g}")
+    return ratios
+
+
+def _dt_bound(key: str, s: dict, dtype, out_f32: bool):
+    """(bound ms, what bounds it) of kernel ``key`` at the causal shape
+    ``s`` and input ``dtype``: its products at 989 TFLOP/s for 16-bit
+    inputs, whichever family runs them, and for f32 inputs at a third of
+    TF32's rate (the least time at f32 accuracy); the bytes at 3.35 TB/s
+    with the inputs' own bytes an element."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    b, t, h, h_kv, d = s["b"], s["t"], s["h"], s["h_kv"], s["d"]
+    in_bytes = 4 if dtype == torch.float32 else 2
+    out_bytes = 4 if out_f32 or dtype == torch.float32 else 2
+    if key == "fwd":
+        flops = attn.attention_flops(b, t, h, d, True)
+        nbytes = attn.attention_bytes(b, t, h, h_kv, d, out_bytes, in_bytes)
+    else:
+        flops = attn.attention_bwd_flops(b, t, h, d, True)[key]
+        nbytes = attn.attention_bwd_bytes(b, t, h, h_kv, d, out_bytes, in_bytes)[key]
+    peak = PEAK_F32_EXACT_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def _dt_times(tag: str, dtype, s: dict, forms=(False,), iters: int = 20) -> dict:
+    """K1-K3 of (dtype, s) in each output form of ``forms`` by CUDA events,
+    beside the plain version, ``scaled_dot_product_attention`` at the same
+    dtype and shape (a yardstick only) and the bound; each kernel's outputs
+    held to the plain version at this shape by ``_dt_case``'s limits, and
+    its max |err|. -> {(kernel, form): the kernels line's numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    f32 = torch.float32
+    x = kernel_ab.inputs(s["b"], s["t"], s["h"], s["h_kv"], s["d"], seed=120, dtype=dtype)
+    q, k, v, o, lse, do = (x[n] for n in ("q", "k", "v", "o", "lse", "do"))
+    warm = 1 if iters < 10 else 3
+    plain = {"fwd": time_ms(lambda: attn.flash_attention_plain(q, k, v), iters=2, warmup=1)}
+    plain["dq"] = plain["dkv"] = time_ms(
+        lambda: attn.flash_backward_plain(q, k, v, o, lse, do), iters=2, warmup=1)
+    o_ref, lse_ref = attn.flash_attention_plain(q, k, v, out_dtype=f32)
+    g_ref = attn.flash_backward_plain(q, k, v, o, lse, do, grad_dtype=f32)
+    gqa = k.shape[2] != q.shape[2]
+    qt, kt, vt = (y.transpose(1, 2).contiguous() for y in (q, k, v))
+    qg, kg, vg = (y.clone().requires_grad_(True) for y in (qt, kt, vt))
+    backend = _sdpa_backend(qt, kt, vt, gqa)
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=gqa)
+    dout = do.transpose(1, 2).contiguous()
+    library = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=gqa), iters=iters, warmup=warm)}
+    library["dq"] = library["dkv"] = time_ms(
+        lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True),
+        iters=iters, warmup=warm)
+    rows = {}
+    for form in forms:
+        for key in kernel_ab.KERNELS:
+            res = {}
+            ms = time_ms(kernel_ab.runner(None, x, res, key, out_f32=form), iters=iters,
+                         warmup=warm)
+            pairs = {"fwd": (("o", o_ref),), "dq": (("dq", g_ref[0]),),
+                     "dkv": (("dk", g_ref[1]), ("dv", g_ref[2]))}[key]
+            err = max(float((res[n].float() - r).abs().max()) for n, r in pairs)
+            rel = {n: rel_errs(res[n], r, floor=0.0 if key == "fwd" else 1e-3)
+                   for n, r in pairs}
+            bound, bound_by = _dt_bound(key, s, dtype, form)
+            symbol = attn.kernel_entry(dtype, s["d"], form, key)
+            if dtype == f32:
+                limits = f"<= {DT_F32_REL}"
+                ok = all(fr <= DT_F32_REL for fr, _ in rel.values())
+            elif key == "fwd":
+                limits = f"<= {O_REL}, worst row <= {O_ROW_REL}"
+                ok = all(fr <= O_REL and rw <= O_ROW_REL for fr, rw in rel.values())
+            else:
+                limits = f"<= {GRAD_REL}, worst row <= {GRAD_ROW_REL}"
+                ok = all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for fr, rw in rel.values())
+            if key == "fwd":
+                lse_err = float((res["lse"] - lse_ref).abs().max())
+                ok = ok and lse_err <= LSE_ATOL
+            print(f"[x] {tag} {key} ({symbol}{', f32 out' if form else ''}) at "
+                  f"[{s['b']},{s['t']},{s['h']}/{s['h_kv']},{s['d']}] {str(dtype)[6:]} causal: "
+                  f"kernel_ms {ms:.4f}, bound_ms {bound:.4f} ({bound_by}) -> {bound / ms:.1%} of "
+                  f"the bound; plain_ms {plain[key]:.3f}; library_ms {library[key]:.4f} "
+                  f"({'forward' if key == 'fwd' else 'whole backward'}, SDPA backend {backend}); "
+                  f"max|err| {err:.3e}; " + ", ".join(
+                      f"{n} rel {fr:.3e} worst row {rw:.3e}" for n, (fr, rw) in rel.items())
+                  + f" ({limits})" + (f", max|lse err| {lse_err:.3e} (<= {LSE_ATOL})"
+                                      if key == "fwd" else ""))
+            check(ok, f"{tag} {key}{' f32 out' if form else ''}: the kernel disagrees with its "
+                  f"plain version at the timed shape")
+            rows[(key, form)] = dict(max_abs_err=err, ms=ms, plain_ms=plain[key],
+                                     bound_ms=bound, bound_by=bound_by, library_ms=library[key])
+    del x, q, k, v, o, lse, do, qt, kt, vt, qg, kg, vg, lib_out, dout, o_ref, lse_ref, g_ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dt_turns() -> dict:
+    """K1-K3 at the flagship shape on bf16 against fp16 inputs, in turns
+    (bf16, fp16, fp16, bf16, twice): what fp16 costs on the same wgmma
+    kernels (K2's and K3's ds row scaling) -> {kernel: fp16 / bf16}."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    f = FLAGSHIP
+    x = {dt: kernel_ab.inputs(f["b"], f["t"], f["h"], f["h_kv"], f["d"], seed=130, dtype=dt)
+         for dt in (torch.bfloat16, torch.float16)}
+    readings = {key: {dt: [] for dt in x} for key in kernel_ab.KERNELS}
+    for _ in range(2):
+        for key in kernel_ab.KERNELS:
+            for dt in (torch.bfloat16, torch.float16, torch.float16, torch.bfloat16):
+                readings[key][dt].append(time_ms(kernel_ab.runner(None, x[dt], {}, key),
+                                                 iters=20, warmup=3))
+    ratios = {}
+    for key, r in readings.items():
+        med = {dt: statistics.median(v) for dt, v in r.items()}
+        ratios[key] = med[torch.float16] / med[torch.bfloat16]
+        print(f"[x] {key} at the flagship shape in turns, bf16 against fp16 inputs: bf16 "
+              + ", ".join(f"{t:.4f}" for t in r[torch.bfloat16]) + " ms; fp16 "
+              + ", ".join(f"{t:.4f}" for t in r[torch.float16])
+              + f" ms; fp16 / bf16 (medians) {ratios[key]:.3f}")
+    del x
+    torch.cuda.empty_cache()
+    return ratios
+
+
+def _dt_model(dtype) -> dict:
+    """TransformerConfig(dtype=..., attn_impl="flash") at the flagship
+    width and 2 layers: a forward (final-norm hidden states against xla on
+    the same weights, K1 once a layer) and 3 make_train_step steps with
+    --remat dots's policy (K1-K3 12/6/6; the first loss against xla's on the
+    same weights and batch) -> the steps' launches and first loss."""
+    import numpy as np
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    layers = DT_MODEL["n_layers"]
+    cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", remat="dots",
+                               dtype=dtype, **DT_MODEL)
+    cfg_x = dataclasses.replace(cfg, attn_impl="xla")
+    d = cfg.head_dim
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    loader = data_lib.CheckpointableBatches(
+        data_lib.synthetic_dataset(cfg.vocab_size), EVAL_BATCH, EVAL_SEQ)
+    batches = [torch.from_numpy(np.asarray(next(loader))).cuda() for _ in range(TRAIN_STEPS)]
+    before = _all_launches(attn)
+    with torch.inference_mode():
+        h_f = tm.forward_with_aux(params, batches[0], cfg, return_hidden=True)[0]
+        fwd = _moved(attn, before)
+        h_x = tm.forward_with_aux(params, batches[0], cfg_x, return_hidden=True)[0]
+    torch.cuda.synchronize()
+    fro, row = rel_errs(h_f, h_x)
+    want_fwd = _want(attn, dtype, d, {"fwd": layers})
+    print(f"[x] {str(dtype)[6:]} model at the flagship width, {layers} layers: final-norm hidden "
+          f"states ({h_f.dtype}) flash vs xla rel {fro:.3e} (<= {HIDDEN_REL}), worst token rel "
+          f"{row:.3e}; forward launches {fwd} (want {want_fwd})")
+    check(fwd == want_fwd, f"{dtype} forward launched {fwd}")
+    check(bool(torch.isfinite(h_f).all()) and fro <= HIDDEN_REL,
+          f"{dtype} flash and xla hidden states disagree")
+    del params, h_f, h_x
+    torch.cuda.empty_cache()
+    losses = {}
+    for c in (cfg, cfg_x):
+        step, init_fn = port_train.make_train_step(c, "cuda", ce_chunk=EVAL_CE_CHUNK)
+        p, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        before = _all_launches(attn)
+        losses[c.attn_impl] = []
+        for tokens in batches[:TRAIN_STEPS if c is cfg else 1]:
+            p, opt, loss = step(p, opt, tokens)
+            losses[c.attn_impl].append(float(loss))
+        if c is cfg:
+            launches = _moved(attn, before)
+        del step, p, opt
+        torch.cuda.empty_cache()
+    n = layers * TRAIN_STEPS
+    want = _want(attn, dtype, d, {"fwd": 2 * n, "dq": n, "dkv": n})
+    diff = abs(losses["flash"][0] - losses["xla"][0])
+    print(f"[x] {str(dtype)[6:]} make_train_step, remat dots, {TRAIN_STEPS} steps: losses "
+          f"{losses['flash']}; launches {launches} (want {want}); the first loss against xla's "
+          f"{losses['xla'][0]:.6f} on the same weights and batch: |diff| {diff:.3e} (<= {LOSS_ATOL})")
+    check(launches == want, f"{dtype} train steps launched {launches}")
+    check(all(math.isfinite(x) for x in losses["flash"]) and diff <= LOSS_ATOL,
+          f"{dtype} flash and xla first losses disagree")
+    return dict(launches=launches, first_loss=losses["flash"][0], batch=batches[0].cpu())
+
+
+def _dt_clis() -> dict:
+    """eval and 3 train steps of the CLIs at D 512 (the flagship's width at
+    4 heads, 2 layers), --attn flash against --attn xla on the same weights,
+    on the CUDA-core family's counters -> the train run's launches."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    layers = D512_MODEL["n_layers"]
+    d = D512_MODEL["d_model"] // D512_MODEL["n_heads"]
+    before = _all_launches(attn)
+    loss_f, _, _ = run_eval("flash", D512_WINDOWS, D512_ARGS)
+    eval_launches = _moved(attn, before)
+    loss_x, _, _ = run_eval("xla", D512_WINDOWS, D512_ARGS)
+    want = _want(attn, torch.bfloat16, d, {"fwd": layers * D512_WINDOWS})
+    print(f"[x] eval --attn flash at D {d} ({layers} layers, {D512_WINDOWS} windows): loss "
+          f"{loss_f:.6f}, launches {eval_launches} (want {want}); xla {loss_x:.6f}: |diff| "
+          f"{abs(loss_f - loss_x):.3e} (<= {LOSS_ATOL})")
+    check(eval_launches == want, f"eval at D {d} launched {eval_launches}")
+    check(abs(loss_f - loss_x) <= LOSS_ATOL, f"eval at D {d}: flash and xla losses disagree")
+    train_args = D512_ARGS + ["--remat", "dots", "--log-every", "1"]
+    before = _all_launches(attn)
+    rec_f, _ = run_train("flash", TRAIN_STEPS, train_args)
+    launches = _moved(attn, before)
+    rec_x, _ = run_train("xla", TRAIN_STEPS, train_args)
+    n = layers * TRAIN_STEPS
+    want = _want(attn, torch.bfloat16, d, {"fwd": 2 * n, "dq": n, "dkv": n})
+    lf, lx = [r["loss"] for r in rec_f], [r["loss"] for r in rec_x]
+    step_ms = {impl: statistics.mean(r["wall_s"] for r in rec if not r["compile"]) * 1e3
+               for impl, rec in (("flash", rec_f), ("xla", rec_x))}
+    print(f"[x] train --attn flash --remat dots at D {d}, {TRAIN_STEPS} steps: losses {lf}; "
+          f"launches {launches} (want {want}); xla {lx}: first |diff| {abs(lf[0] - lx[0]):.3e} "
+          f"(<= {LOSS_ATOL}); step ms after the warm-up: flash {step_ms['flash']:.1f}, xla "
+          f"{step_ms['xla']:.1f} (flash / xla {step_ms['flash'] / step_ms['xla']:.2f})")
+    check(launches == want, f"train at D {d} launched {launches}")
+    check(abs(lf[0] - lx[0]) <= LOSS_ATOL, f"train at D {d}: flash and xla first losses disagree")
+    return launches
+
+
+def _dt_ring_hops() -> None:
+    """The ring's per-hop functions (``_flash_block``, ``_flash_block_grad``)
+    at fp16 and f32 inputs and D 320, diagonal and unmasked: each hop's f32
+    partials within DT_F32_REL of the plain versions (all three run the
+    CUDA-core family, in f32), one launch each on its counter."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.parallel import ring_attention as ring
+
+    f32 = torch.float32
+    for dtype, d in ((torch.float16, 320), (f32, 128), (f32, 320)):
+        q, k, v, do = _dt_inputs(dtype, 1, 1024, 4, 2, d, seed=140)
+        for diag in (True, False):
+            before = _all_launches(attn)
+            o, lse = ring._flash_block(q, k, v, diag)
+            out = o.permute(0, 2, 1, 3).to(dtype).contiguous()
+            lse_rows = lse.reshape(-1, q.shape[1]).contiguous()
+            grads = ring._flash_block_grad(q, k, v, out, lse_rows, do, diag)
+            torch.cuda.synchronize()
+            moved = _moved(attn, before)
+            want = _want(attn, dtype, d, {"fwd": 1, "dq": 1, "dkv": 1}, out_f32=True)
+            o_ref, lse_ref = attn.flash_attention_plain(q, k, v, causal=diag, out_dtype=f32)
+            g_ref = attn.flash_backward_plain(q, k, v, out, lse_rows, do, causal=diag,
+                                              grad_dtype=f32)
+            errs = [rel_errs(o.permute(0, 2, 1, 3), o_ref)[0]] + [
+                rel_errs(x, r)[0] for x, r in zip(grads, g_ref)]
+            lse_err = float((lse.reshape(-1, q.shape[1]) - lse_ref).abs().max())
+            print(f"[x] ring hop {str(dtype)[6:]} D={d} ({'diagonal' if diag else 'unmasked'}, "
+                  f"q [1,1024,4,{d}], k/v [1,1024,2,{d}]): o, dq, dk, dv rel "
+                  + ", ".join(f"{e:.3e}" for e in errs) + f" (<= {DT_F32_REL}), max|lse err| "
+                  f"{lse_err:.3e}; launches {moved} (want {want})")
+            check(moved == want, f"the ring hop at {dtype} D {d} launched {moved}")
+            check(all(e <= DT_F32_REL for e in errs) and lse_err <= LSE_ATOL,
+                  f"the ring hop at {dtype} D {d} disagrees with the plain versions")
+
+
+def _dt_ring_fp16(first_loss: float, batch) -> dict:
+    """One ring_flash step of the fp16 model (2 layers) on the world-1 NCCL
+    mesh (sp = 1: one diagonal hop a layer): the fp16 f32-output forms
+    4/2/2 and nothing else, the loss that of the flash step on the same
+    weights and batch -> its launches."""
+    import torch
+
+    from hivedscheduler_tpu_torch.models import transformer as tm
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.parallel import data as data_lib
+    from hivedscheduler_tpu_torch.parallel import topology
+    from hivedscheduler_tpu_torch.parallel import train as port_train
+
+    layers = DT_MODEL["n_layers"]
+    cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="ring_flash", remat="dots",
+                               dtype=torch.float16, **DT_MODEL)
+    with _world_1_gang():
+        mesh = topology.make_mesh(topology.MeshAxes(), "cuda")
+        step, init_fn, tok_sh = port_train.make_sharded_train_step(cfg, mesh,
+                                                                    ce_chunk=EVAL_CE_CHUNK)
+        params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        tokens = data_lib.device_put_global(batch.numpy(), tok_sh, EVAL_BATCH)
+        before = _all_launches(attn)
+        loss = float(step(params, opt, tokens)[2])
+        launches = _moved(attn, before)
+        del step, params, opt
+    torch.cuda.empty_cache()
+    want = _want(attn, torch.float16, cfg.head_dim, {"fwd": 2 * layers, "dq": layers,
+                                                      "dkv": layers}, out_f32=True)
+    print(f"[x] fp16 ring_flash step (world-1 NCCL mesh, sp = 1, {layers} layers, remat dots): "
+          f"loss {loss:.6f} against the fp16 flash step's {first_loss:.6f} (|diff| "
+          f"{abs(loss - first_loss):.3e} <= {LOSS_ATOL}); launches {launches} (want {want})")
+    check(launches == want, f"the fp16 ring step launched {launches}")
+    check(abs(loss - first_loss) <= LOSS_ATOL, "the fp16 ring and flash losses disagree")
+    return launches
+
+
+def phase_dtypes() -> list:
+    """(x): K1-K3 at every input dtype and head dim the JAX kernels take ->
+    the kernels line's nine rows of the fp16 forms and the CUDA-core
+    family."""
+    import torch
+
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    def checks():
+        errs = {}
+        for i, case in enumerate(DT_FP16_CASES):
+            errs[("fp16", case[0])] = _dt_case(torch.float16, case, seed=80 + i, plant=i == 0)
+        for i, case in enumerate(DT_F32_CASES):
+            errs[("f32", case[0])] = _dt_case(torch.float32, case, seed=90 + i, plant=i == 0)
+        for i, case in enumerate(DT_WIDE_CASES):
+            for j, dtype in enumerate((torch.bfloat16, torch.float16, torch.float32)):
+                _dt_case(dtype, case, seed=100 + 3 * i + j)
+        return errs
+
+    timed("kernel checks", checks)
+    timed("fp16/bf16 errors", _dt_error_ratio)
+    f = FLAGSHIP
+    d512 = dict(b=EVAL_BATCH, t=EVAL_SEQ, h=D512_MODEL["n_heads"],
+                h_kv=D512_MODEL["n_kv_heads"], d=D512_MODEL["d_model"] // D512_MODEL["n_heads"])
+    times = {}
+    times["fp16"] = timed("fp16 times", _dt_times, "fp16 flagship", torch.float16, f,
+                          forms=(False, True))
+    timed("bf16/fp16 turns", _dt_turns)
+    times["f32"] = timed("f32 times", _dt_times, "f32 flagship", torch.float32, f, iters=3)
+    times["d512"] = timed("d512 times", _dt_times, "bf16 D 512", torch.bfloat16, d512, iters=3)
+    fp16 = timed("fp16 model", _dt_model, torch.float16)
+    timed("f32 model", _dt_model, torch.float32)
+    d512_launches = timed("D 512 CLIs", _dt_clis)
+    ring = timed("fp16 ring", _dt_ring_fp16, fp16["first_loss"], fp16["batch"])
+    timed("ring hops", _dt_ring_hops)
+    print(f"[x] phase wall time {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()) + ")")
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    # the rows: fp16 forms at the flagship shape with the fp16 model's train
+    # launches (the f32 forms: the fp16 ring step's); the CUDA-core family at
+    # the D 512 CLI shape with the D 512 train CLI's launches
+    source = "hivedscheduler_tpu_torch/ops/csrc/"
+    lines = {"fwd": 98, "dq": 143, "dkv": 179}
+    names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
+    rows = []
+    for form, launches in ((False, fp16["launches"]), (True, ring)):
+        for key in ("fwd", "dq", "dkv"):
+            counter = attn._COUNTERS[attn.kernel_entry(torch.float16, 128, form, key)]
+            rows.append(dict(name=names[key] + ("_f16_f32" if form else "_f16"), route="cuda",
+                             source=source + ("flash_fwd.cu" if key == "fwd" else "flash_bwd.cu"),
+                             replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
+                             launches=launches.get(counter, 0), **times["fp16"][(key, form)]))
+    for key in ("fwd", "dq", "dkv"):
+        counter = attn._COUNTERS[attn.kernel_entry(torch.bfloat16, d512["d"], False, key)]
+        rows.append(dict(name=names[key] + "_generic", route="cuda",
+                         source=source + "flash_generic.cu",
+                         replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
+                         launches=d512_launches.get(counter, 0), **times["d512"][(key, False)]))
+    return rows
+
+
 def _stop(procs) -> None:
     """Kill and reap every process of ``procs`` still running."""
     for p in procs:
@@ -6563,36 +7258,48 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
+    walls = {}
+
+    def phase(tag, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[tag] = walls.get(tag, 0.0) + time.perf_counter() - t0
+        return out
+
     card = card_line()
     print(f"[a] card: {card}")
-    phase_build()
-    max_err = phase_kernel_check()
-    timing = phase_kernel_time()
-    phase_eval()
-    phase_hidden_check()
-    bwd_err = phase_backward_check()
-    bwd_timing = phase_backward_time()
-    launches, train_flash = phase_train()
-    phase_train_grads()
-    phase_train_profile()
-    phase_checkpoint()
-    phase_decode()
-    srv = phase_serving()
-    tp_local = phase_mesh(train_flash)
-    ring = phase_ring(train_flash)
-    phase_moe()
-    lora_dir = phase_lora(train_flash)
+    phase("a", phase_build)
+    max_err = phase("b", phase_kernel_check)
+    timing = phase("c", phase_kernel_time)
+    phase("d", phase_eval)
+    phase("e", phase_hidden_check)
+    bwd_err = phase("f", phase_backward_check)
+    bwd_timing = phase("g", phase_backward_time)
+    launches, train_flash = phase("h", phase_train)
+    phase("h", phase_train_grads)
+    phase("h", phase_train_profile)
+    phase("i", phase_checkpoint)
+    phase("j", phase_decode)
+    srv = phase("k", phase_serving)
+    tp_local = phase("l", phase_mesh, train_flash)
+    ring = phase("m", phase_ring, train_flash)
+    phase("n", phase_moe)
+    lora_dir = phase("o", phase_lora, train_flash)
     try:
-        phase_spec(srv, lora_dir)
+        phase("p", phase_spec, srv, lora_dir)
     finally:
         shutil.rmtree(lora_dir, ignore_errors=True)
-    phi3 = phase_phi3()
-    gemma, gemma_f32 = phase_gemma()
-    phase_obs()
-    phase_fleet(srv)
-    phase_elastic_mesh()
-    pipe = phase_pipeline(train_flash)
-    overlap = phase_overlap(tp_local)
+    phi3 = phase("q", phase_phi3)
+    gemma, gemma_f32 = phase("r", phase_gemma)
+    phase("s", phase_obs)
+    phase("t", phase_fleet, srv)
+    phase("u", phase_elastic_mesh)
+    pipe = phase("v", phase_pipeline, train_flash)
+    overlap = phase("w", phase_overlap, tp_local)
+    dtype_rows = phase("x", phase_dtypes)
+    print(f"walls of the phases, {time.perf_counter() - t_start:.1f} s in all: "
+          + ", ".join(f"[{tag}] {sec:.1f}" for tag, sec in walls.items()))
 
     # launches are those of the training path, the train run of (h)
     source = "hivedscheduler_tpu_torch/ops/csrc/"
@@ -6646,6 +7353,9 @@ def main() -> int:
     # and through (w)'s replayed tp = 2 rank pair: its launches, the errors
     # and times of (l) at a tp = 2 rank's shape
     kernels += overlap["rows"]
+    # and (x)'s: the fp16 forms (the fp16 model's steps, the fp16 ring's) and
+    # the CUDA-core family (the D 512 train CLI's)
+    kernels += dtype_rows
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so a
 build takes seconds. Libraries go to ``hivedscheduler_tpu_torch/_build/``
 at first use, named with a hash of the source, of every header it includes
 from ``csrc/`` and of the flags, so an edited source or header never loads
-a stale library. Several sources build in parallel, one ``nvcc`` each. A
-missing ``nvcc`` or a failed build raises with the compiler's output;
-nothing falls back.
+a stale library. The first use of any of :data:`LIBRARIES` builds every one
+of them that is missing, one ``nvcc`` each, all started together. A missing
+``nvcc`` or a failed build raises with the compiler's output; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from typing import Dict, List, Sequence
 
 _OPS = os.path.dirname(os.path.abspath(__file__))
@@ -29,11 +32,18 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the kernels' libraries: K1, and K2 and K3, on wgmma for bf16 inputs and for
+# fp16 inputs (the fp16 sources include the bf16 ones, instantiated for fp16:
+# four compilers in parallel, not two of twice the work), and the CUDA-core
+# family of all three
+LIBRARIES = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16", "flash_generic")
+
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 # compiler output (ptxas register and shared-memory report) of each build
-# this process ran, by kernel name
+# this process ran, by kernel name, and each build's wall seconds
 BUILD_LOGS: Dict[str, str] = {}
+BUILD_SECONDS: Dict[str, float] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -87,6 +97,7 @@ def build_all(names: Sequence[str]) -> List[str]:
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = []
+        t0 = time.perf_counter()
         for name, path in todo:
             tmp = f"{path}.{os.getpid()}.tmp"
             proc = subprocess.Popen(
@@ -94,8 +105,19 @@ def build_all(names: Sequence[str]) -> List[str]:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             procs.append((name, path, tmp, proc))
         failed = []
-        for name, path, tmp, proc in procs:
+
+        def reap(name, proc):
+            # one reader a compiler: each one's output is drained as it comes,
+            # and its seconds are its own
             BUILD_LOGS[name] = proc.communicate()[0]
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+
+        readers = [threading.Thread(target=reap, args=(name, proc)) for name, _, _, proc in procs]
+        for reader in readers:
+            reader.start()
+        for reader in readers:
+            reader.join()
+        for name, path, tmp, proc in procs:
             if proc.returncode != 0:
                 failed.append(f"nvcc failed to build {name}.cu (exit "
                               f"{proc.returncode}):\n{BUILD_LOGS[name]}")
@@ -113,9 +135,15 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed; for
+    one of :data:`LIBRARIES`, with every other one of them that is missing,
+    in one parallel build."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build(name))
+        if name in LIBRARIES:
+            path = build_all(LIBRARIES)[LIBRARIES.index(name)]
+        else:
+            path = build(name)
+        lib = ctypes.CDLL(path)
         _LOADED[name] = lib
     return lib

@@ -11,16 +11,16 @@ head ``i // (H // H_kv)``).
 - :func:`flash_attention_plain` and :func:`flash_backward_plain` are the
   plain PyTorch versions of the kernels: the same o and lse, and the same
   dq, dk and dv, with the same masking constants.
-- :func:`flash_forward` runs ``csrc/flash_fwd.cu`` (K1) and
-  :func:`flash_backward` runs ``csrc/flash_bwd.cu`` (K2 for dq, then K3 for
-  dk and dv) on CUDA tensors, or raises; on CPU tensors they run the plain
-  versions.
+- :func:`flash_forward` runs K1 and :func:`flash_backward` K2 (dq), then
+  K3 (dk and dv) on CUDA tensors, or raises; on CPU tensors they run the
+  plain versions. :func:`kernel_entry` picks the kernel from the inputs'
+  dtype and head dim (below).
 - ``out_dtype=torch.float32`` (forward) and ``grad_dtype=torch.float32``
   (backward) are the JAX package's ``_flash_forward(out_dtype=)`` and
-  ``_flash_backward(grad_dtype=)``: the kernels' f32 forms
-  (``hived_flash_fwd_f32``, ``hived_flash_bwd_dq_f32``,
-  ``hived_flash_bwd_dkv_f32``), which the sequence-parallel ring
-  (``parallel/ring_attention.py``) calls once a hop and merges in f32.
+  ``_flash_backward(grad_dtype=)``: the kernels' f32 forms (the ``_f32``
+  entry points, or the CUDA-core family's f32 output code), which the
+  sequence-parallel ring (``parallel/ring_attention.py``) calls once a hop
+  and merges in f32. For f32 inputs both forms store f32.
 - :class:`FlashAttention` joins them as one differentiable op, the
   counterpart of the JAX package's ``_flash_core`` custom_vjp, and
   :func:`flash_attention` is what ``attn_impl="flash"`` calls: the
@@ -31,26 +31,51 @@ head ``i // (H // H_kv)``).
   plain versions and the reference.
 
 The kernels replace ``hivedscheduler_tpu/ops/attention.py::_fwd_kernel``,
-``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``. All three run wgmma on
-TMA-fed shared tiles with a producer warpgroup and two consumer warpgroups
-(``csrc/hopper.cuh``). They take bf16 inputs at every head dim that is a
-multiple of 8 up to 256, each run at its padded width, 64, 128 or 256 (D =
-96 runs the 128 template, 4/3 of the real work; D = 136 the 256 one, 1.88).
-At 256 (Gemma's head dim) each kernel splits its outputs' columns in
-halves, so K1 computes its scores twice (3/2 of the real work), K2 its two
-score products (5/3) and K3 its two (3/2); ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` say why. D > 256 raises on the card. The wrappers
-keep their C entry points: pointers, dims, [B, T, H] element strides and
-the stream; the tensor maps are encoded inside. On an H100 the tensor cores
-bound all three: at the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128,
-causal) K1 does 137.5 GFLOP (0.139 ms at 989 TFLOP/s; its 202 MB would
-take 0.060 ms at 3.35 TB/s), K2 206.3 GFLOP (0.209 ms) and K3 275.0 GFLOP
-(0.278 ms). Their measured times are in ``PERF.md``.
+``::_bwd_dq_kernel`` and ``::_bwd_dkv_kernel``, at every input dtype and
+head dim those take (any dtype, D % 8 == 0), in two families routed from
+(dtype, D) before any launch (:func:`kernel_entry`):
+
+=================  ==============  ===========================================
+inputs             D               kernels
+=================  ==============  ===========================================
+bf16               8-256           wgmma (``csrc/flash_fwd.cu``,
+                                   ``csrc/flash_bwd.cu``): ``hived_flash_*``
+fp16               8-256           the same wgmma kernels for fp16:
+                                   ``hived_flash_*_f16``
+f32 (any D); bf16  every D % 8 ==  f32 on the CUDA cores
+or fp16 past 256   0               (``csrc/flash_generic.cu``):
+                                   ``hived_flash_generic_*``
+=================  ==============  ===========================================
+
+f64, integer dtypes and D % 8 != 0 raise; no route depends on a build or a
+launch failing, and a kernel that fails raises.
+
+The wgmma kernels run on TMA-fed shared tiles with a producer warpgroup and
+two consumer warpgroups (``csrc/hopper.cuh``), each D at its padded width,
+64, 128 or 256 (D = 96 runs the 128 template, 4/3 of the real work; D = 136
+the 256 one, 1.88). At 256 (Gemma's head dim) each kernel splits its
+outputs' columns in halves, so K1 computes its scores twice (3/2 of the
+real work), K2 its two score products (5/3) and K3 its two (3/2);
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` say why. In fp16 K2 and K3
+pack ds scaled by a power of two per row, so that a gradient's small ds
+does not fall into fp16's subnormals (``csrc/flash_bwd.cu``). The CUDA-core
+family computes what the TPU kernels compute in their own arithmetic:
+every input widened to f32, every product an f32 FMA (no TF32), in
+64-row tiles and 128-column panels of the output, with the scores summed
+over D in 64-column chunks, so its shared memory does not grow with D. The
+wrappers keep their C entry points: pointers, dims (the CUDA-core family
+adds input- and output-type codes), [B, T, H] element strides and the
+stream; the wgmma kernels encode their tensor maps inside. On an H100 the
+tensor cores bound all three: at the flagship shape (B=8, T=2048, H=16,
+H_kv=8, D=128, causal) K1 does 137.5 GFLOP (0.139 ms at 989 TFLOP/s; its
+202 MB would take 0.060 ms at 3.35 TB/s), K2 206.3 GFLOP (0.209 ms) and
+K3 275.0 GFLOP (0.278 ms). Their measured times are in ``PERF.md``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -67,15 +92,31 @@ FLASH_BWD_DKV_LAUNCHES = 0
 FLASH_FWD_F32_LAUNCHES = 0
 FLASH_BWD_DQ_F32_LAUNCHES = 0
 FLASH_BWD_DKV_F32_LAUNCHES = 0
+# the same wgmma kernels at fp16 inputs (outputs in fp16), and their f32 forms
+FLASH_FWD_F16_LAUNCHES = 0
+FLASH_BWD_DQ_F16_LAUNCHES = 0
+FLASH_BWD_DKV_F16_LAUNCHES = 0
+FLASH_FWD_F16_F32_LAUNCHES = 0
+FLASH_BWD_DQ_F16_F32_LAUNCHES = 0
+FLASH_BWD_DKV_F16_F32_LAUNCHES = 0
+# launches of the CUDA-core family (f32 inputs at any D; bf16 and fp16 past
+# D 256), every output form
+FLASH_FWD_GENERIC_LAUNCHES = 0
+FLASH_BWD_DQ_GENERIC_LAUNCHES = 0
+FLASH_BWD_DKV_GENERIC_LAUNCHES = 0
 # calls of flash_attention that took the reference (shapes that don't tile,
 # by the JAX package's rules)
 FLASH_REFERENCE_ROUTES = 0
 
-KERNEL_DTYPES = (torch.bfloat16,)
-# every multiple of 8 up to 256, each run at its padded width 64, 128 or 256
-# (csrc/flash_common.cuh)
-KERNEL_HEAD_DIMS = tuple(range(8, 257, 8))
-# the output dtypes of the kernels' two forms (None: the input's bf16)
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# every positive multiple of 8, with no upper bound (a range, so that ``in``
+# is a test of the rule)
+KERNEL_HEAD_DIMS = range(8, sys.maxsize, 8)
+# the head dims of the wgmma kernels, each run at its padded width 64, 128
+# or 256 (csrc/flash_common.cuh); bf16 and fp16 past them run the CUDA-core
+# family
+WGMMA_HEAD_DIMS = range(8, 257, 8)
+# the output dtypes of the kernels' two forms (None: the inputs' dtype)
 KERNEL_OUT_DTYPES = (None, torch.float32)
 
 
@@ -181,7 +222,65 @@ _KERNELS = {
     "hived_flash_fwd_f32": ("flash_fwd", 5, 6, 12),
     "hived_flash_bwd_dq_f32": ("flash_bwd", 8, 6, 18),
     "hived_flash_bwd_dkv_f32": ("flash_bwd", 8, 6, 18),
+    "hived_flash_fwd_f16": ("flash_fwd_f16", 5, 6, 12),
+    "hived_flash_bwd_dq_f16": ("flash_bwd_f16", 8, 6, 18),
+    "hived_flash_bwd_dkv_f16": ("flash_bwd_f16", 8, 6, 18),
+    "hived_flash_fwd_f16_f32": ("flash_fwd_f16", 5, 6, 12),
+    "hived_flash_bwd_dq_f16_f32": ("flash_bwd_f16", 8, 6, 18),
+    "hived_flash_bwd_dkv_f16_f32": ("flash_bwd_f16", 8, 6, 18),
+    # the dims, then the input- and output-type codes (_TYPE_CODES)
+    "hived_flash_generic_fwd": ("flash_generic", 5, 8, 12),
+    "hived_flash_generic_bwd_dq": ("flash_generic", 8, 8, 18),
+    "hived_flash_generic_bwd_dkv": ("flash_generic", 8, 8, 18),
 }
+_TYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+# the launch counter of each entry point
+_COUNTERS = {
+    "hived_flash_fwd": "FLASH_FWD_LAUNCHES",
+    "hived_flash_bwd_dq": "FLASH_BWD_DQ_LAUNCHES",
+    "hived_flash_bwd_dkv": "FLASH_BWD_DKV_LAUNCHES",
+    "hived_flash_fwd_f32": "FLASH_FWD_F32_LAUNCHES",
+    "hived_flash_bwd_dq_f32": "FLASH_BWD_DQ_F32_LAUNCHES",
+    "hived_flash_bwd_dkv_f32": "FLASH_BWD_DKV_F32_LAUNCHES",
+    "hived_flash_fwd_f16": "FLASH_FWD_F16_LAUNCHES",
+    "hived_flash_bwd_dq_f16": "FLASH_BWD_DQ_F16_LAUNCHES",
+    "hived_flash_bwd_dkv_f16": "FLASH_BWD_DKV_F16_LAUNCHES",
+    "hived_flash_fwd_f16_f32": "FLASH_FWD_F16_F32_LAUNCHES",
+    "hived_flash_bwd_dq_f16_f32": "FLASH_BWD_DQ_F16_F32_LAUNCHES",
+    "hived_flash_bwd_dkv_f16_f32": "FLASH_BWD_DKV_F16_F32_LAUNCHES",
+    "hived_flash_generic_fwd": "FLASH_FWD_GENERIC_LAUNCHES",
+    "hived_flash_generic_bwd_dq": "FLASH_BWD_DQ_GENERIC_LAUNCHES",
+    "hived_flash_generic_bwd_dkv": "FLASH_BWD_DKV_GENERIC_LAUNCHES",
+}
+_STEMS = {"fwd": "hived_flash_fwd", "dq": "hived_flash_bwd_dq", "dkv": "hived_flash_bwd_dkv"}
+
+
+def kernel_entry(dtype, d: int, out_f32: bool, kernel: str = "fwd") -> str:
+    """The C entry point that runs ``kernel`` ("fwd": K1, "dq": K2, "dkv":
+    K3) on inputs of ``dtype`` at head dim ``d``, storing f32 (``out_f32``)
+    or the inputs' dtype: bf16 and fp16 at D <= 256 the wgmma kernels
+    (``_f16`` for fp16, ``_f32`` for the f32 forms), f32 at any D and bf16
+    or fp16 past 256 the CUDA-core family (one symbol for every input and
+    output type). Raises on any other dtype and on D % 8 != 0."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"flash kernels take {KERNEL_DTYPES}, not {dtype}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel head dims are the positive multiples of 8, got {d}")
+    if kernel not in _STEMS:
+        raise ValueError(f"kernel is one of {tuple(_STEMS)}, not {kernel!r}")
+    if dtype == torch.float32 or d not in WGMMA_HEAD_DIMS:
+        return _STEMS[kernel].replace("hived_flash", "hived_flash_generic")
+    return (_STEMS[kernel] + ("_f16" if dtype == torch.float16 else "")
+            + ("_f32" if out_f32 else ""))
+
+
+def launch_dims(symbol: str, dims, dtype, out_f32: bool) -> tuple:
+    """The int arguments of ``symbol`` on inputs of ``dtype``: ``dims``, and
+    for the CUDA-core family the input- and output-type codes."""
+    if _KERNELS[symbol][0] != "flash_generic":
+        return tuple(dims)
+    code = _TYPE_CODES[dtype]
+    return (*dims, code, _TYPE_CODES[torch.float32] if out_f32 else code)
 
 
 def _launch(symbol: str, ptrs, dims, strided, stream, libs=None) -> None:
@@ -214,6 +313,9 @@ def _check_kernel_inputs(q, k, v) -> None:
             raise TypeError(
                 f"flash kernel takes {KERNEL_DTYPES}, {name} is {x.dtype}"
             )
+        if x.dtype != q.dtype:
+            raise TypeError(f"flash kernel takes one dtype; {name} is {x.dtype}, "
+                            f"q {q.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"flash kernel needs contiguous inputs; {name} is not")
         if x.requires_grad and torch.is_grad_enabled():
@@ -229,8 +331,7 @@ def _check_kernel_inputs(q, k, v) -> None:
                          f"match q {tuple(q.shape)}")
     _check_gqa(h, k.shape[2])
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel head dims are the multiples of 8 up to "
-                         f"{KERNEL_HEAD_DIMS[-1]}, got {d}")
+        raise ValueError(f"flash kernel head dims are the positive multiples of 8, got {d}")
 
 
 def _kernel_readable(x: torch.Tensor) -> torch.Tensor:
@@ -245,12 +346,13 @@ def _kernel_readable(x: torch.Tensor) -> torch.Tensor:
 
 
 def _is_f32(out_dtype, like: torch.Tensor) -> bool:
-    """Whether the kernels store their outputs in f32 (the ``_f32`` entry
-    points) rather than in the inputs' bf16; raises on any other dtype."""
+    """Whether the kernels store their outputs in f32 (the f32 forms) rather
+    than in the inputs' dtype: for f32 inputs both forms are f32. Raises on
+    any other ``out_dtype``."""
     if out_dtype not in KERNEL_OUT_DTYPES:
         raise TypeError(f"flash kernels store the inputs' dtype (None) or {torch.float32}, "
                         f"not {out_dtype}")
-    return out_dtype is not None
+    return out_dtype is not None or like.dtype == torch.float32
 
 
 def _dims(q, k, causal: bool):
@@ -262,28 +364,34 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _run(kernel: str, q, k, causal: bool, f32: bool, ptrs, strided) -> None:
+    """Launch ``kernel`` ("fwd", "dq" or "dkv") through the entry point
+    :func:`kernel_entry` picks for q's dtype and head dim, on q's device and
+    current stream, and count the launch on that entry point's counter."""
+    symbol = kernel_entry(q.dtype, q.shape[3], f32, kernel)
+    with torch.cuda.device(q.device):
+        _launch(symbol, ptrs, launch_dims(symbol, _dims(q, k, causal), q.dtype, f32), strided,
+                _stream(q))
+    counter = _COUNTERS[symbol]
+    globals()[counter] += 1
+
+
 def _flash_forward_cuda(q, k, v, causal: bool, out_dtype=None):
-    global FLASH_FWD_LAUNCHES, FLASH_FWD_F32_LAUNCHES
     _check_kernel_inputs(q, k, v)
     f32 = _is_f32(out_dtype, q)
     b, t, h, _ = q.shape
     o = torch.empty(q.shape, dtype=torch.float32 if f32 else q.dtype, device=q.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _launch("hived_flash_fwd_f32" if f32 else "hived_flash_fwd", (q, k, v, o, lse),
-                _dims(q, k, causal), (q, k, v, o), _stream(q))
-    if f32:
-        FLASH_FWD_F32_LAUNCHES += 1
-    else:
-        FLASH_FWD_LAUNCHES += 1
+    _run("fwd", q, k, causal, f32, (q, k, v, o, lse), (q, k, v, o))
     return o, lse
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, out_dtype=None):
-    """-> (o [B, T, H, D] in ``out_dtype`` (default q's dtype; bf16 or
-    f32), lse [B*H, T] f32). A CUDA tensor runs the kernel (or raises on
-    what it does not take); a CPU tensor runs the plain version."""
+    """-> (o [B, T, H, D] in ``out_dtype`` (default q's dtype; bf16, fp16
+    or f32), lse [B*H, T] f32). A CUDA tensor runs the kernel
+    :func:`kernel_entry` picks (or raises on what none takes); a CPU tensor
+    runs the plain version."""
     if q.device.type == "cuda":
         return _flash_forward_cuda(q, k, v, causal, out_dtype)
     if q.device.type == "cpu":
@@ -307,30 +415,21 @@ def _check_backward_inputs(q, k, v, lse, **like_q) -> None:
 
 def flash_backward_dq_cuda(q, k, v, o, lse, do, causal: bool = True, grad_dtype=None):
     """K2 alone on CUDA tensors -> (dq [B, T, H, D] in ``grad_dtype``
-    (default q's dtype; bf16 or f32), delta [B*H, T] f32, the rowsum(do *
-    o) that K3 reads). :func:`flash_backward` runs it."""
-    global FLASH_BWD_DQ_LAUNCHES, FLASH_BWD_DQ_F32_LAUNCHES
+    (default q's dtype; or f32), delta [B*H, T] f32, the rowsum(do * o)
+    that K3 reads). :func:`flash_backward` runs it."""
     _check_backward_inputs(q, k, v, lse, o=o, do=do)
     f32 = _is_f32(grad_dtype, q)
     o, do = _kernel_readable(o), _kernel_readable(do)
     delta = torch.empty_like(lse)
     dq = torch.empty(q.shape, dtype=torch.float32 if f32 else q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        _launch("hived_flash_bwd_dq_f32" if f32 else "hived_flash_bwd_dq",
-                (q, k, v, o, do, lse, delta, dq), _dims(q, k, causal),
-                (q, k, v, o, do, dq), _stream(q))
-    if f32:
-        FLASH_BWD_DQ_F32_LAUNCHES += 1
-    else:
-        FLASH_BWD_DQ_LAUNCHES += 1
+    _run("dq", q, k, causal, f32, (q, k, v, o, do, lse, delta, dq), (q, k, v, o, do, dq))
     return dq, delta
 
 
 def flash_backward_dkv_cuda(q, k, v, lse, delta, do, causal: bool = True, grad_dtype=None):
     """K3 alone on CUDA tensors -> (dk, dv [B, T, H_kv, D] in
-    ``grad_dtype``, default k's dtype; bf16 or f32), with the GQA group
-    sum done inside the kernel. :func:`flash_backward` runs it."""
-    global FLASH_BWD_DKV_LAUNCHES, FLASH_BWD_DKV_F32_LAUNCHES
+    ``grad_dtype``, default k's dtype; or f32), with the GQA group sum done
+    inside the kernel. :func:`flash_backward` runs it."""
     _check_backward_inputs(q, k, v, lse, do=do)
     if delta.shape != lse.shape or delta.dtype != torch.float32:
         raise ValueError(f"delta must match lse, got {tuple(delta.shape)}")
@@ -338,14 +437,7 @@ def flash_backward_dkv_cuda(q, k, v, lse, delta, do, causal: bool = True, grad_d
     do = _kernel_readable(do)
     dk = torch.empty(k.shape, dtype=torch.float32 if f32 else k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    with torch.cuda.device(q.device):
-        _launch("hived_flash_bwd_dkv_f32" if f32 else "hived_flash_bwd_dkv",
-                (q, k, v, do, lse, delta, dk, dv), _dims(q, k, causal),
-                (q, k, v, do, dk, dv), _stream(q))
-    if f32:
-        FLASH_BWD_DKV_F32_LAUNCHES += 1
-    else:
-        FLASH_BWD_DKV_LAUNCHES += 1
+    _run("dkv", q, k, causal, f32, (q, k, v, do, lse, delta, dk, dv), (q, k, v, do, dk, dv))
     return dk, dv
 
 
@@ -353,9 +445,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                    causal: bool = True, grad_dtype=None):
     """-> (dq, dk, dv) from the forward's o and lse and the output gradient
-    do, in ``grad_dtype`` (default the inputs' dtypes; bf16 or f32). CUDA
-    tensors run K2 then K3 (or raise on what they do not take); CPU tensors
-    run the plain version."""
+    do, in ``grad_dtype`` (default the inputs' dtypes; or f32). CUDA
+    tensors run K2 then K3 of the family :func:`kernel_entry` picks (or
+    raise on what none takes); CPU tensors run the plain version."""
     if q.device.type == "cuda":
         dq, delta = flash_backward_dq_cuda(q, k, v, o, lse, do, causal, grad_dtype)
         return (dq, *flash_backward_dkv_cuda(q, k, v, lse, delta, do, causal, grad_dtype))
@@ -410,10 +502,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     divisible by H_kv, takes the reference too (which raises on the
     latter, as JAX's does), and the plain versions of the kernels run
     otherwise. A CUDA tensor goes to the kernels, which tile any T
-    themselves (K1 and K2 in 128-row q tiles, 64-row ones past D 128, K3 in
-    64-key tiles) and raise on what they do not take (dtype, a head
-    dim past 256, layout, GQA): there is no fallback to the plain versions
-    or to the reference for them. The route is chosen from the shapes
+    themselves and take bf16, fp16 and f32 at every D % 8 == 0 (the wgmma
+    kernels, or the CUDA-core family for f32 and past D 256:
+    :func:`kernel_entry`), and raise on what they do not take (another
+    dtype, layout, GQA): there is no fallback to the plain versions or to
+    the reference for them. The route is chosen from the shapes
     before any launch; a kernel that fails to build or launch raises. A
     DTensor input raises ``TypeError``: the op takes each rank's local
     shard."""
@@ -445,23 +538,27 @@ def attention_bwd_flops(b: int, t: int, h: int, d: int, causal: bool) -> dict:
             for name, n in (("dq", 3), ("dkv", 4), ("least", 5))}
 
 
-def attention_bytes(b: int, t: int, h: int, h_kv: int, d: int, out_bytes: int = 2) -> int:
-    """Bytes the bf16 forward must move: q, k, v read once, o (of
-    ``out_bytes`` an element: 2, or 4 for the f32 form) and the f32 lse
-    written once."""
-    return (b * t * h * d + 2 * b * t * h_kv * d) * 2 + b * t * h * d * out_bytes + b * h * t * 4
+def attention_bytes(b: int, t: int, h: int, h_kv: int, d: int, out_bytes: int = 2,
+                    in_bytes: int = 2) -> int:
+    """Bytes the forward must move: q, k, v (of ``in_bytes`` an element: 2
+    for bf16 and fp16, 4 for f32) read once, o (of ``out_bytes``: 2, or 4
+    for the f32 forms and f32 inputs) and the f32 lse written once."""
+    return ((b * t * h * d + 2 * b * t * h_kv * d) * in_bytes + b * t * h * d * out_bytes
+            + b * h * t * 4)
 
 
 def attention_bwd_bytes(b: int, t: int, h: int, h_kv: int, d: int,
-                        out_bytes: int = 2) -> dict:
-    """Bytes each bf16 backward kernel must move, each input read once and
-    each output written once (gradients of ``out_bytes`` an element: 2, or
-    4 for the f32 forms): K2 reads q, k, v, o, do and lse and writes dq and
-    the f32 delta; K3 reads q, k, v, do, lse and delta and writes dk and
+                        out_bytes: int = 2, in_bytes: int = 2) -> dict:
+    """Bytes each backward kernel must move, each input (of ``in_bytes``
+    an element) read once and each output written once (gradients of
+    ``out_bytes`` an element): K2 reads q, k, v, o, do and lse and writes dq
+    and the f32 delta; K3 reads q, k, v, do, lse and delta and writes dk and
     dv."""
     q_el, kv_el, row_bytes = b * t * h * d, b * t * h_kv * d, 4 * b * h * t
-    return {"dq": 3 * 2 * q_el + q_el * out_bytes + 2 * 2 * kv_el + 2 * row_bytes,
-            "dkv": 2 * 2 * q_el + 2 * 2 * kv_el + 2 * kv_el * out_bytes + 2 * row_bytes}
+    return {"dq": 3 * in_bytes * q_el + q_el * out_bytes + 2 * in_bytes * kv_el
+            + 2 * row_bytes,
+            "dkv": 2 * in_bytes * q_el + 2 * in_bytes * kv_el + 2 * kv_el * out_bytes
+            + 2 * row_bytes}
 
 
 # -- paged KV reads ----------------------------------------------------------

@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a): dq (K2) and dk/dv (K3),
-// bf16 in, f32 accumulation, no atomics.
+// bf16 or fp16 in, f32 accumulation, no atomics.
 //
 // Replaces hivedscheduler_tpu/ops/attention.py::_bwd_dq_kernel and
 // ::_bwd_dkv_kernel (both launched by _flash_backward). They compute the same
@@ -106,12 +106,30 @@
 //   of the real work (s^T, dp^T, dv, dk).
 // Each output element is still owned by one block, with no atomics.
 //
-// Output type: dq, dk and dv are stored in bf16 (hived_flash_bwd_dq,
-// hived_flash_bwd_dkv) or in f32 (the _f32 entry points), the counterpart
-// of _flash_backward's grad_dtype=f32, which the sequence-parallel ring
-// calls once a hop and sums over hops in f32. Only the epilogues' stores
-// differ; K3's GQA group sum stays inside the kernel either way (the TPU
-// kernel's caller sums f32 per-q-head partials and then casts).
+// Output type: dq, dk and dv are stored in the input type
+// (hived_flash_bwd_dq, hived_flash_bwd_dkv and their _f16 forms) or in f32
+// (the _f32 entry points), the counterpart of _flash_backward's
+// grad_dtype=f32, which the sequence-parallel ring calls once a hop and sums
+// over hops in f32. Only the epilogues' stores differ; K3's GQA group sum
+// stays inside the kernel either way (the TPU kernel's caller sums f32
+// per-q-head partials and then casts).
+//
+// Input type: bf16 or fp16 (the _f16 entry points), a template parameter:
+// the tensor maps' data type, the wgmma type suffix and the packing of p and
+// ds differ. The fp16 entry points are a library of their own
+// (flash_bwd_f16.cu defines HIVED_FLASH_F16 and includes this file), so that
+// nvcc compiles them beside the bf16 ones. fp16 keeps three more mantissa
+// bits than bf16 but ends at 65504 and turns subnormal below 6.1e-5, and ds
+// = p (dp - delta) is linear in do:
+// at the magnitudes of a model's gradients (do of 1e-5 and below) most of ds
+// would pack to fp16 subnormals or to 0, where bf16 keeps 8 bits. So in fp16
+// each operand row of ds (K2: a q row, K3: a key) is packed scaled by 2^E,
+// with E chosen per tile so that the row's largest |ds| lands in [2^14,
+// 2^15), and E only falls from tile to tile: when it falls, the row's f32
+// accumulator is multiplied by the power of two between the two scales
+// before the next product, and the epilogue multiplies by 2^-E. Powers of
+// two are exact, so the scaling adds no rounding of its own. p (in [0, 1])
+// packs unscaled, as in K1. bf16 packs ds unscaled, as before.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -158,10 +176,10 @@ struct DqSmem {
 
 struct DqArgs {
   CUtensorMap tq, tk, tv, tdo;
-  const bf16* o;
+  const void* o;  // the input type
   const float* lse;
   float* delta;
-  void* dq;  // bf16 or f32, the kernel's OutT
+  void* dq;  // the input type or f32, the kernel's OutT
   int T, H, group;
   int D;  // the real head dim; the kernel runs at its template's padded width
   Strides so, sdq;
@@ -191,24 +209,90 @@ __device__ __forceinline__ void ds_tile(uint32_t (&ds)[kDqBlockN / 16][4],
       }
       e[i] = p * (dp[8 * kk + i] - (top ? dl_a : dl_b));
     }
-    ds[kk][0] = pack_f32(e[0], e[1]);
-    ds[kk][1] = pack_f32(e[2], e[3]);
-    ds[kk][2] = pack_f32(e[4], e[5]);
-    ds[kk][3] = pack_f32(e[6], e[7]);
+    ds[kk][0] = pack_f32<bf16>(e[0], e[1]);
+    ds[kk][1] = pack_f32<bf16>(e[2], e[3]);
+    ds[kk][2] = pack_f32<bf16>(e[4], e[5]);
+    ds[kk][3] = pack_f32<bf16>(e[6], e[7]);
   }
 }
 
-template <int D, bool kCausal, typename OutT>
+// The fp16 scaling of ds (see the file's note). Accumulator-layout arrays
+// hold row a (e.g. row_a, key_a) at indices with bit 1 clear and row b at
+// those with bit 1 set, in K2's s, dp and dq and in K3's dp^T and dk alike.
+constexpr int kDsExpMax = 126;  // 2^E stays a normal f32, and so does 2^-E
+
+// the E that puts m * 2^E in [2^14, 2^15) (2^15 leaves room under fp16's
+// 65504 for the rounding); a zero or tiny m keeps the largest E
+__device__ __forceinline__ int ds_exponent(float m) {
+  return min(kDsExpMax, 141 - static_cast<int>((__float_as_uint(m) >> 23) & 0xffu));
+}
+
+// 2^e for e <= 127, built from its bits (0 below 2^-126)
+__device__ __forceinline__ float pow2i(int e) {
+  return e < -126 ? 0.f : __uint_as_float(static_cast<uint32_t>(127 + e) << 23);
+}
+
+// A tile's ds in f32 (accumulator layout) -> the two rows' new exponents
+// (never above the old ones), the accumulator's rows moved to them, and the
+// scales 2^E to pack this tile's ds with. The rows' values lie in one quad.
+template <int N, int M>
+__device__ __forceinline__ void ds_row_scales(const float (&ds)[N], float (&acc)[M], int& e_a,
+                                              int& e_b, float& sc_a, float& sc_b) {
+  float mx_a = 0.f, mx_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i & 2) {
+      mx_b = fmaxf(mx_b, fabsf(ds[i]));
+    } else {
+      mx_a = fmaxf(mx_a, fabsf(ds[i]));
+    }
+  }
+  const int na = min(e_a, ds_exponent(quad_max(mx_a)));
+  const int nb = min(e_b, ds_exponent(quad_max(mx_b)));
+  const float ra = pow2i(na - e_a);
+  const float rb = pow2i(nb - e_b);
+#pragma unroll
+  for (int i = 0; i < M; ++i) acc[i] *= (i & 2) ? rb : ra;
+  e_a = na;
+  e_b = nb;
+  sc_a = pow2i(na);
+  sc_b = pow2i(nb);
+}
+
+// K2's ds of one tile in f32, in place of s: as ds_tile, before any packing
+template <bool kMask, bool kCausal>
+__device__ __forceinline__ void ds_values(float (&s)[kDqBlockN / 2],
+                                          const float (&dp)[kDqBlockN / 2], float scale_log2,
+                                          float lb_a, float lb_b, float dl_a, float dl_b, int k0,
+                                          int row_a, int t4, int T) {
+#pragma unroll
+  for (int kk = 0; kk < kDqBlockN / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const bool top = (i & 2) == 0;
+      float p = exp2f(fmaf(s[8 * kk + i], scale_log2, top ? -lb_a : -lb_b));
+      if (kMask) {
+        const int col = k0 + 16 * kk + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int row = top ? row_a : row_a + 8;
+        if (col >= T || (kCausal && col > row)) p = 0.f;
+      }
+      s[8 * kk + i] = p * (dp[8 * kk + i] - (top ? dl_a : dl_b));
+    }
+  }
+}
+
+template <int D, bool kCausal, typename In, typename OutT>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ DqArgs a) {
   using L = DqSmem<D>;
+  using Pair = typename std::conditional<kIsF16<In>, __half2, __nv_bfloat162>::type;
   constexpr int kBlockM = L::kBlockM;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* sDo = reinterpret_cast<bf16*>(smem + L::kDo);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
+  In* sQ = reinterpret_cast<In*>(smem + L::kQ);
+  In* sDo = reinterpret_cast<In*>(smem + L::kDo);
+  In* sK = reinterpret_cast<In*>(smem + L::kK);
+  In* sV = reinterpret_cast<In*>(smem + L::kV);
   float* sLse = reinterpret_cast<float*>(smem + L::kLse);
   float* sDelta = reinterpret_cast<float*>(smem + L::kDelta);
   uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -292,21 +376,21 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const int c0 = (lane & 1) * (D / 2);
     float sum = 0.f;
     if (row < T) {
-      const bf16* orow = at(a.o, a.so, b, h) + row * a.so.t;
+      const In* orow = at(static_cast<const In*>(a.o), a.so, b, h) + row * a.so.t;
 #pragma unroll
       for (int cc = 0; cc < D / 2; cc += 8) {
         const int col = c0 + cc;
         if (col >= a.D) break;
-        const bf16* drow =
+        const In* drow =
             sDo + (col / 64) * kBlockM * 64 + r * 64 + ((((col % 64) / 8) ^ (r & 7)) * 8);
         const uint4 dv = *reinterpret_cast<const uint4*>(drow);
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + col);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const Pair* d2 = reinterpret_cast<const Pair*>(&dv);
+        const Pair* o2 = reinterpret_cast<const Pair*>(&ov);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 df = __bfloat1622float2(d2[e]);
-          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = to_float2(d2[e]);
+          const float2 of = to_float2(o2[e]);
           sum += df.x * of.x + df.y * of.y;
         }
       }
@@ -338,6 +422,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   float acc[L::kAccD / 2];
 #pragma unroll
   for (int i = 0; i < L::kAccD / 2; ++i) acc[i] = 0.f;
+  int e_a = kDsExpMax, e_b = kDsExpMax;  // fp16: the rows' ds exponents
 
   for (int j = 0; j < n_kv_c; ++j) {
     const int stage = j % kDqStages;
@@ -351,13 +436,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t qcol = (kk / 4) * kBlockM * 128 + (kk % 4) * 32;
       const uint32_t kcol = stage_off + (kk / 4) * kDqBlockN * 128 + (kk % 4) * 32;
-      wgmma_ss<kDqBlockN>(s, desc_add(dQ, qcol), desc_add(dK, kcol), kk > 0);
+      wgmma_ss<kDqBlockN, In>(s, desc_add(dQ, qcol), desc_add(dK, kcol), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t qcol = (kk / 4) * kBlockM * 128 + (kk % 4) * 32;
       const uint32_t kcol = stage_off + (kk / 4) * kDqBlockN * 128 + (kk % 4) * 32;
-      wgmma_ss<kDqBlockN>(dp, desc_add(dDo, qcol), desc_add(dV, kcol), kk > 0);
+      wgmma_ss<kDqBlockN, In>(dp, desc_add(dDo, qcol), desc_add(dV, kcol), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -365,7 +450,23 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     fence_regs(dp);
 
     uint32_t ds[kDqBlockN / 16][4];
-    if (j == n_kv_c - 1) {
+    if constexpr (kIsF16<In>) {
+      if (j == n_kv_c - 1) {
+        ds_values<true, kCausal>(s, dp, scale_log2, lb_a, lb_b, dl_a, dl_b, j * kDqBlockN,
+                                 row_a, t4, T);
+      } else {
+        ds_values<false, kCausal>(s, dp, scale_log2, lb_a, lb_b, dl_a, dl_b, 0, 0, 0, 0);
+      }
+      float sc_a, sc_b;
+      ds_row_scales(s, acc, e_a, e_b, sc_a, sc_b);
+#pragma unroll
+      for (int kk = 0; kk < kDqBlockN / 16; ++kk) {
+        ds[kk][0] = pack_f32<In>(s[8 * kk] * sc_a, s[8 * kk + 1] * sc_a);
+        ds[kk][1] = pack_f32<In>(s[8 * kk + 2] * sc_b, s[8 * kk + 3] * sc_b);
+        ds[kk][2] = pack_f32<In>(s[8 * kk + 4] * sc_a, s[8 * kk + 5] * sc_a);
+        ds[kk][3] = pack_f32<In>(s[8 * kk + 6] * sc_b, s[8 * kk + 7] * sc_b);
+      }
+    } else if (j == n_kv_c - 1) {
       ds_tile<true, kCausal>(ds, s, dp, scale_log2, lb_a, lb_b, dl_a, dl_b, j * kDqBlockN,
                              row_a, t4, T);
     } else {
@@ -376,7 +477,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDqBlockN / 16; ++kk) {
-      wgmma_rs<L::kAccD>(acc, ds[kk], desc_add(dKn, stage_off + kk * 2048), 1);
+      wgmma_rs<L::kAccD, In>(acc, ds[kk], desc_add(dKn, stage_off + kk * 2048), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -384,6 +485,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     mbar_arrive(&empty[stage]);
   }
 
+  if constexpr (kIsF16<In>) {  // undo the rows' ds scales
+    const float inv_a = pow2i(-e_a);
+    const float inv_b = pow2i(-e_b);
+#pragma unroll
+    for (int i = 0; i < L::kAccD / 2; ++i) acc[i] *= (i & 2) ? inv_b : inv_a;
+  }
   OutT* dqp = at(static_cast<OutT*>(a.dq), a.sdq, b, h);
 #pragma unroll
   for (int n = 0; n < L::kAccD / 8; ++n) {
@@ -434,7 +541,7 @@ struct DkvArgs {
   CUtensorMap tq, tk, tv, tdo;
   const float* lse;
   const float* delta;
-  void* dk;  // bf16 or f32, the kernel's OutT
+  void* dk;  // the input type or f32, the kernel's OutT
   void* dv;
   int T, H, group;
   int D;  // the real head dim; the kernel runs at its template's padded width
@@ -477,8 +584,8 @@ __device__ __forceinline__ void p_tile(float (&s)[kDkvBlockM / 2], const float* 
   }
 }
 
-// One bf16 pair of the accumulator layout into a p^T or ds^T tile (64 x 64
-// bf16, 128-byte swizzled, K-major as the A operand of p^T do or ds^T q):
+// One 16-bit pair of the accumulator layout into a p^T or ds^T tile (64 x 64
+// of the input type, 128-byte swizzled, K-major as the A operand of p^T do or ds^T q):
 // pair r of k-step kk holds row 16w + g + 8 (r & 1), columns 16kk + 8 (r >> 1)
 // + 2 t4 and the next, so 16-byte chunk 2kk + (r >> 1) of its row, which the
 // swizzle stores at chunk ^ (row % 8) = chunk ^ g. The eight rows of a warp's
@@ -490,7 +597,7 @@ __device__ __forceinline__ void store_pair(unsigned char* tile, int warp, int g,
   *reinterpret_cast<uint32_t*>(tile + row * 128 + ((chunk ^ g) << 4) + 4 * t4) = v;
 }
 
-template <int D, bool kCausal, typename OutT>
+template <int D, bool kCausal, typename In, typename OutT>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ DkvArgs a) {
   using L = DkvSmem<D>;
@@ -498,10 +605,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   constexpr int kPBufs = L::kPBufs;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* sDo = reinterpret_cast<bf16*>(smem + L::kDo);
+  In* sK = reinterpret_cast<In*>(smem + L::kK);
+  In* sV = reinterpret_cast<In*>(smem + L::kV);
+  In* sQ = reinterpret_cast<In*>(smem + L::kQ);
+  In* sDo = reinterpret_cast<In*>(smem + L::kDo);
   unsigned char* sPb = smem + L::kPb;
   unsigned char* sDs = smem + L::kDs;
   float4* sPf = reinterpret_cast<float4*>(smem + L::kPfs);
@@ -598,7 +705,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
   if (wg == 1) {
     // A: s^T = k q^T, p^T = exp(scale s^T - lse), handed to B in f32 and
-    // stored in bf16 for dv += p^T do
+    // stored in the input type for dv += p^T do
     const uint64_t dK = desc_sw128(sK, 16);
     const uint64_t dP = desc_sw128(sPb, 16);
     const float scale_log2 = a.scale * kLog2e;
@@ -619,7 +726,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t kcol = (kk / 4) * kDkvBlockN * 128 + (kk % 4) * 32;
         const uint32_t qcol = stage_off + (kk / 4) * kDkvBlockM * 128 + (kk % 4) * 32;
-        wgmma_ss<kDkvBlockM>(s, desc_add(dK, kcol), desc_add(dQ, qcol), kk > 0);
+        wgmma_ss<kDkvBlockM, In>(s, desc_add(dK, kcol), desc_add(dQ, qcol), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -642,7 +749,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          store_pair(sPb, warp, g, t4, kk, r, pack_f32(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]));
+          store_pair(sPb, warp, g, t4, kk, r,
+                     pack_f32<In>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]));
         }
       }
       // every thread's pairs visible to wgmma before any thread issues it
@@ -654,8 +762,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
-        wgmma_ss_mn<L::kAccD>(dv, desc_add(dP, kk * 32), desc_add(dDon, stage_off + kk * 2048),
-                              1);
+        wgmma_ss_mn<L::kAccD, In>(dv, desc_add(dP, kk * 32),
+                                  desc_add(dDon, stage_off + kk * 2048), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -676,12 +784,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 
   // B: dp^T = v do^T, ds^T = p^T (dp^T - delta) in f32 with A's p^T, stored
-  // in bf16 for dk += ds^T q
+  // in the input type (fp16: each key's row scaled) for dk += ds^T q
   const uint64_t dV = desc_sw128(sV, 16);
   const uint64_t dDs = desc_sw128(sDs, 16);
   float dk[L::kAccD / 2];
 #pragma unroll
   for (int i = 0; i < L::kAccD / 2; ++i) dk[i] = 0.f;
+  int e_a = kDsExpMax, e_b = kDsExpMax;  // fp16: the keys' ds exponents
   mbar_wait(kv_full, 0);
   for (int it = 0; it < n_iter; ++it) {
     const int stage = it % kStages;
@@ -695,7 +804,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t kcol = (kk / 4) * kDkvBlockN * 128 + (kk % 4) * 32;
       const uint32_t qcol = stage_off + (kk / 4) * kDkvBlockM * 128 + (kk % 4) * 32;
-      wgmma_ss<kDkvBlockM>(dp, desc_add(dV, kcol), desc_add(dDo, qcol), kk > 0);
+      wgmma_ss<kDkvBlockM, In>(dp, desc_add(dV, kcol), desc_add(dDo, qcol), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -704,22 +813,53 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     mbar_wait(&p_full[pb], (kPBufs == 2 ? it >> 1 : it) & 1);
     const float4* pf = sPf + pb * (kDkvBlockN * kDkvBlockM / 4);
     const float* dl = sDelta + stage * kDkvBlockM;
+    if constexpr (kIsF16<In>) {
+      // ds^T in f32 in place of dp^T, then each key's row scaled and packed
 #pragma unroll
-    for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
-      const float4 p_lo = pf[(2 * kk) * 128 + tid];
-      const float4 p_hi = pf[(2 * kk + 1) * 128 + tid];
-      const float p[8] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
-      const float2 d_lo = *reinterpret_cast<const float2*>(dl + 16 * kk + 2 * t4);
-      const float2 d_hi = *reinterpret_cast<const float2*>(dl + 16 * kk + 8 + 2 * t4);
+      for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+        const float4 p_lo = pf[(2 * kk) * 128 + tid];
+        const float4 p_hi = pf[(2 * kk + 1) * 128 + tid];
+        const float p[8] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
+        const float2 d_lo = *reinterpret_cast<const float2*>(dl + 16 * kk + 2 * t4);
+        const float2 d_hi = *reinterpret_cast<const float2*>(dl + 16 * kk + 8 + 2 * t4);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float2 d = (r & 2) ? d_hi : d_lo;
-        const int e = 8 * kk + 2 * r;
-        store_pair(sDs, warp, g, t4, kk, r,
-                   pack_f32(p[2 * r] * (dp[e] - d.x), p[2 * r + 1] * (dp[e + 1] - d.y)));
+        for (int r = 0; r < 4; ++r) {
+          const float2 d = (r & 2) ? d_hi : d_lo;
+          const int e = 8 * kk + 2 * r;
+          dp[e] = p[2 * r] * (dp[e] - d.x);
+          dp[e + 1] = p[2 * r + 1] * (dp[e + 1] - d.y);
+        }
       }
+      mbar_arrive(&p_empty[pb]);
+      float sc_a, sc_b;
+      ds_row_scales(dp, dk, e_a, e_b, sc_a, sc_b);
+#pragma unroll
+      for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int e = 8 * kk + 2 * r;
+          const float sc = (r & 1) ? sc_b : sc_a;  // bit 1 of e: key_b
+          store_pair(sDs, warp, g, t4, kk, r, pack_f32<In>(dp[e] * sc, dp[e + 1] * sc));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+        const float4 p_lo = pf[(2 * kk) * 128 + tid];
+        const float4 p_hi = pf[(2 * kk + 1) * 128 + tid];
+        const float p[8] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
+        const float2 d_lo = *reinterpret_cast<const float2*>(dl + 16 * kk + 2 * t4);
+        const float2 d_hi = *reinterpret_cast<const float2*>(dl + 16 * kk + 8 + 2 * t4);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 d = (r & 2) ? d_hi : d_lo;
+          const int e = 8 * kk + 2 * r;
+          store_pair(sDs, warp, g, t4, kk, r,
+                     pack_f32<In>(p[2 * r] * (dp[e] - d.x), p[2 * r + 1] * (dp[e + 1] - d.y)));
+        }
+      }
+      mbar_arrive(&p_empty[pb]);
     }
-    mbar_arrive(&p_empty[pb]);
     fence_async_shared();
     named_barrier(2, 128);
 
@@ -727,12 +867,19 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
-      wgmma_ss_mn<L::kAccD>(dk, desc_add(dDs, kk * 32), desc_add(dQn, stage_off + kk * 2048), 1);
+      wgmma_ss_mn<L::kAccD, In>(dk, desc_add(dDs, kk * 32), desc_add(dQn, stage_off + kk * 2048),
+                                1);
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dk);
     mbar_arrive(&empty[stage]);
+  }
+  if constexpr (kIsF16<In>) {  // undo the keys' ds scales
+    const float inv_a = pow2i(-e_a);
+    const float inv_b = pow2i(-e_b);
+#pragma unroll
+    for (int i = 0; i < L::kAccD / 2; ++i) dk[i] *= (i & 2) ? inv_b : inv_a;
   }
   OutT* dkp = at(static_cast<OutT*>(a.dk), a.sdk, b, h_kv);
 #pragma unroll
@@ -749,28 +896,30 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
-template <int D, bool kCausal, typename OutT>
+template <int D, bool kCausal, typename In, typename OutT>
 cudaError_t launch_dq(const DqArgs& a, int B, cudaStream_t stream) {
   constexpr int kSmem = DqSmem<D>::kBytes;
   static bool attr_set = false;
-  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, kCausal, OutT>, kSmem, attr_set);
+  const cudaError_t err =
+      allow_smem(flash_bwd_dq_kernel<D, kCausal, In, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T + DqSmem<D>::kBlockM - 1) / DqSmem<D>::kBlockM, B * a.H);
-  flash_bwd_dq_kernel<D, kCausal, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
+  flash_bwd_dq_kernel<D, kCausal, In, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, bool kCausal, typename OutT>
+template <int D, bool kCausal, typename In, typename OutT>
 cudaError_t launch_dkv(const DkvArgs& a, int B, cudaStream_t stream) {
   constexpr int kSmem = DkvSmem<D>::kBytes;
   static bool attr_set = false;
-  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, kCausal, OutT>, kSmem, attr_set);
+  const cudaError_t err =
+      allow_smem(flash_bwd_dkv_kernel<D, kCausal, In, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
   // key tiles along y, so that every tile 0 (the heaviest) is scheduled
   // first; the column halves of dk and dv along z at Dp = 256
   const dim3 grid(B * (a.H / a.group), (a.T + kDkvBlockN - 1) / kDkvBlockN,
                   DkvSmem<D>::kSplitD ? 2 : 1);
-  flash_bwd_dkv_kernel<D, kCausal, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
+  flash_bwd_dkv_kernel<D, kCausal, In, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -778,7 +927,7 @@ bool bad_dims(int B, int T, int H, int H_kv, int D) {
   return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || !head_dim_ok(D);
 }
 
-template <typename OutT>
+template <typename In, typename OutT>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const void* lse, void* delta, void* dq, int B, int T, int H, int H_kv, int D,
            int causal, int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,
@@ -789,12 +938,12 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   DqArgs a;
   const int Dp = padded_head_dim(D);
   const int rows = dq_block_m(Dp);
-  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, rows);
-  if (err == 0) err = make_tile_map(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, rows);
-  if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDqBlockN);
-  if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDqBlockN);
+  int err = make_tile_map<In>(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, rows);
+  if (err == 0) err = make_tile_map<In>(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, rows);
+  if (err == 0) err = make_tile_map<In>(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDqBlockN);
+  if (err == 0) err = make_tile_map<In>(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDqBlockN);
   if (err != 0) return err;
-  a.o = static_cast<const bf16*>(o);
+  a.o = o;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.dq = dq;
@@ -808,18 +957,19 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t launched;
   if (Dp == 64) {
-    launched = causal ? launch_dq<64, true, OutT>(a, B, s) : launch_dq<64, false, OutT>(a, B, s);
+    launched = causal ? launch_dq<64, true, In, OutT>(a, B, s)
+                      : launch_dq<64, false, In, OutT>(a, B, s);
   } else if (Dp == 128) {
-    launched =
-        causal ? launch_dq<128, true, OutT>(a, B, s) : launch_dq<128, false, OutT>(a, B, s);
+    launched = causal ? launch_dq<128, true, In, OutT>(a, B, s)
+                      : launch_dq<128, false, In, OutT>(a, B, s);
   } else {
-    launched =
-        causal ? launch_dq<256, true, OutT>(a, B, s) : launch_dq<256, false, OutT>(a, B, s);
+    launched = causal ? launch_dq<256, true, In, OutT>(a, B, s)
+                      : launch_dq<256, false, In, OutT>(a, B, s);
   }
   return static_cast<int>(launched);
 }
 
-template <typename OutT>
+template <typename In, typename OutT>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
             const void* delta, void* dk, void* dv, int B, int T, int H, int H_kv, int D,
             int causal, int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,
@@ -828,10 +978,12 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
             int64_t dv_sb, int64_t dv_st, int64_t dv_sh, void* stream) {
   if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
   DkvArgs a;
-  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kDkvBlockM);
-  if (err == 0) err = make_tile_map(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, kDkvBlockM);
-  if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDkvBlockN);
-  if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDkvBlockN);
+  int err = make_tile_map<In>(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kDkvBlockM);
+  if (err == 0) {
+    err = make_tile_map<In>(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, kDkvBlockM);
+  }
+  if (err == 0) err = make_tile_map<In>(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDkvBlockN);
+  if (err == 0) err = make_tile_map<In>(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDkvBlockN);
   if (err != 0) return err;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
@@ -848,14 +1000,14 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   cudaError_t launched;
   const int Dp = padded_head_dim(D);
   if (Dp == 64) {
-    launched =
-        causal ? launch_dkv<64, true, OutT>(a, B, s) : launch_dkv<64, false, OutT>(a, B, s);
+    launched = causal ? launch_dkv<64, true, In, OutT>(a, B, s)
+                      : launch_dkv<64, false, In, OutT>(a, B, s);
   } else if (Dp == 128) {
-    launched =
-        causal ? launch_dkv<128, true, OutT>(a, B, s) : launch_dkv<128, false, OutT>(a, B, s);
+    launched = causal ? launch_dkv<128, true, In, OutT>(a, B, s)
+                      : launch_dkv<128, false, In, OutT>(a, B, s);
   } else {
-    launched =
-        causal ? launch_dkv<256, true, OutT>(a, B, s) : launch_dkv<256, false, OutT>(a, B, s);
+    launched = causal ? launch_dkv<256, true, In, OutT>(a, B, s)
+                      : launch_dkv<256, false, In, OutT>(a, B, s);
   }
   return static_cast<int>(launched);
 }
@@ -885,24 +1037,49 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
       k_sh, v_sb, v_st, v_sh, do_sb, do_st, do_sh, dk_sb, dk_st, dk_sh, dv_sb, dv_st,      \
       dv_sh, stream
 
+#ifndef HIVED_FLASH_F16
 // K2. q, o, do [B, T, H, D], k/v [B, T, H_kv, D] and dq [B, T, H, D] in
 // bf16, addressed through the given element strides (D contiguous, every
 // row 16-byte aligned, strides positive); lse [B*H, T] f32 from the
 // forward; delta [B*H, T] f32 is written for K3. Returns 0, the CUresult of
 // a tensor map that could not be encoded, or the cudaError_t of the launch.
-extern "C" int hived_flash_bwd_dq(HIVED_DQ_PARAMS) { return bwd_dq<bf16>(HIVED_DQ_ARGS); }
+extern "C" int hived_flash_bwd_dq(HIVED_DQ_PARAMS) { return bwd_dq<bf16, bf16>(HIVED_DQ_ARGS); }
 
 // K2 with dq in f32 (its strides even, its base 8-byte aligned); o is bf16.
-extern "C" int hived_flash_bwd_dq_f32(HIVED_DQ_PARAMS) { return bwd_dq<float>(HIVED_DQ_ARGS); }
+extern "C" int hived_flash_bwd_dq_f32(HIVED_DQ_PARAMS) {
+  return bwd_dq<bf16, float>(HIVED_DQ_ARGS);
+}
 
 // K3. q, do [B, T, H, D], k/v and dk/dv [B, T, H_kv, D] in bf16, through
 // their element strides (D contiguous; q, do, k and v every row 16-byte
 // aligned, strides positive); lse and delta [B*H, T] f32 (delta from K2).
 // Returns 0, the CUresult of a tensor map that could not be encoded, or the
 // cudaError_t of the launch.
-extern "C" int hived_flash_bwd_dkv(HIVED_DKV_PARAMS) { return bwd_dkv<bf16>(HIVED_DKV_ARGS); }
+extern "C" int hived_flash_bwd_dkv(HIVED_DKV_PARAMS) {
+  return bwd_dkv<bf16, bf16>(HIVED_DKV_ARGS);
+}
 
 // K3 with dk and dv in f32 (their strides even, their bases 8-byte aligned).
 extern "C" int hived_flash_bwd_dkv_f32(HIVED_DKV_PARAMS) {
-  return bwd_dkv<float>(HIVED_DKV_ARGS);
+  return bwd_dkv<bf16, float>(HIVED_DKV_ARGS);
 }
+
+#else
+
+// K2 with q, k, v, o and do in fp16: dq in fp16, or in f32.
+extern "C" int hived_flash_bwd_dq_f16(HIVED_DQ_PARAMS) { return bwd_dq<f16, f16>(HIVED_DQ_ARGS); }
+
+extern "C" int hived_flash_bwd_dq_f16_f32(HIVED_DQ_PARAMS) {
+  return bwd_dq<f16, float>(HIVED_DQ_ARGS);
+}
+
+// K3 with q, k, v and do in fp16: dk and dv in fp16, or in f32.
+extern "C" int hived_flash_bwd_dkv_f16(HIVED_DKV_PARAMS) {
+  return bwd_dkv<f16, f16>(HIVED_DKV_ARGS);
+}
+
+extern "C" int hived_flash_bwd_dkv_f16_f32(HIVED_DKV_PARAMS) {
+  return bwd_dkv<f16, float>(HIVED_DKV_ARGS);
+}
+
+#endif  // HIVED_FLASH_F16

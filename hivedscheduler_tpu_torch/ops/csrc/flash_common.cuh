@@ -1,26 +1,37 @@
 // Device helpers of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): the TPU kernels' masking constants, bf16 packing, quad
-// reductions and the shared-memory attribute. The Hopper building blocks
-// all three kernels take their tiles and products from (TMA, mbarriers,
-// wgmma) are in hopper.cuh.
+// flash_bwd.cu, flash_generic.cu): the TPU kernels' masking constants, bf16
+// and fp16 packing, quad reductions and the shared-memory attribute. The
+// Hopper building blocks the wgmma kernels take their tiles and products
+// from (TMA, mbarriers, wgmma) are in hopper.cuh.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace hived {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// The 16-bit input types of the wgmma kernels: bf16, or fp16 (the same
+// instruction shapes and swizzles; fp16 has three more mantissa bits and
+// ends at 65504).
+template <typename In>
+constexpr bool kIsF16 = std::is_same<In, f16>::value;
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernels
 constexpr float kClamp = -0.5e30f;  // the m_safe clamp of the TPU forward
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Head dims: the kernels take any D that is a multiple of 8 up to 256 (the
-// JAX package's rule, D % 8 == 0, within the three widths instantiated) and
+// Head dims: the wgmma kernels take any D that is a multiple of 8 up to 256
+// (the JAX package's rule, D % 8 == 0, within the three widths instantiated;
+// flash_generic.cu takes every D % 8 == 0 past that) and
 // run it at the padded width Dp = 64, 128 or 256. TMA loads the columns of a
 // box at or past D as zeros (the tensor map's innermost extent is D), so
 // q k^T, do v^T and every delta are those of the real D; the epilogues store
@@ -31,18 +42,38 @@ constexpr float kLog2e = 1.4426950408889634f;
 inline bool head_dim_ok(int D) { return D >= 8 && D <= 256 && D % 8 == 0; }
 inline int padded_head_dim(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+// two f32 values rounded to a pair of the input type, as one 32-bit wgmma
+// operand register
+template <typename In>
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack_f32<bf16>(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
+template <>
+__device__ __forceinline__ uint32_t pack_f32<f16>(float lo, float hi) {
+  __half2 p = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// a pair of the input type, widened to f32
+__device__ __forceinline__ float2 to_float2(__nv_bfloat162 x) { return __bfloat1622float2(x); }
+__device__ __forceinline__ float2 to_float2(__half2 x) { return __half22float2(x); }
+
 // Two adjacent f32 results of an accumulator row into an output: packed to
-// bf16 (the model's outputs), or kept in f32 (the sequence-parallel ring's
-// per-hop partials, which are merged across hops before any rounding). The
-// address is 4-byte aligned for bf16 and 8-byte aligned for f32 (even
-// columns, even row strides).
+// bf16 or fp16 (the model's outputs), or kept in f32 (the sequence-parallel
+// ring's per-hop partials, which are merged across hops before any
+// rounding). The address is 4-byte aligned for 16-bit types and 8-byte
+// aligned for f32 (even columns, even row strides).
 __device__ __forceinline__ void store_out2(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void store_out2(f16* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
 __device__ __forceinline__ void store_out2(float* p, float x, float y) {

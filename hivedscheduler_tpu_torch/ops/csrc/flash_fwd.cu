@@ -1,5 +1,5 @@
-// Flash-attention forward (K1) for Hopper (sm_90a), bf16 in, f32 softmax
-// state.
+// Flash-attention forward (K1) for Hopper (sm_90a), bf16 or fp16 in, f32
+// softmax state.
 //
 // Replaces hivedscheduler_tpu/ops/attention.py::_fwd_kernel (launched by
 // _flash_forward). It computes the same function: for every (batch, q head)
@@ -59,13 +59,24 @@
 // consumer holds 64 + 32, as at Dp = 128, for 3/2 of the real work (s runs
 // twice). Shared memory: q 32 + 2 x (32 + 32) = 160 KB.
 //
-// Output type: o is stored in bf16 (hived_flash_fwd) or in f32
-// (hived_flash_fwd_f32), the counterpart of _flash_forward's out_dtype=f32,
-// which the sequence-parallel ring calls once a hop and merges in f32. Only
-// the epilogue's store differs: at the same inputs the f32 o, rounded once
-// to bf16, is the bf16 kernel's o bit for bit; lse is the same f32 either
-// way. The f32 form writes twice o's bytes (at the flagship shape 64 MB more
-// than the bf16 form's 202 MB, still under the operations' bound).
+// Input type: bf16 (hived_flash_fwd, hived_flash_fwd_f32) or fp16
+// (hived_flash_fwd_f16, hived_flash_fwd_f16_f32), a template parameter: the
+// tensor maps' data type, the wgmma type suffix and the packing of p differ,
+// nothing else. The fp16 entry points are a library of their own
+// (flash_fwd_f16.cu defines HIVED_FLASH_F16 and includes this file), so that
+// nvcc compiles them beside the bf16 ones. p lies in [0, 1]: in fp16 a p
+// below 6.1e-5 is subnormal, with an absolute error under 2^-25, far below
+// bf16's relative 2^-9 on the p that carry o. f32 inputs, and D past 256,
+// run flash_generic.cu.
+//
+// Output type: o is stored in the input type (hived_flash_fwd,
+// hived_flash_fwd_f16) or in f32 (the _f32 entry points), the counterpart of
+// _flash_forward's out_dtype=f32, which the sequence-parallel ring calls once
+// a hop and merges in f32. Only the epilogue's store differs: at the same
+// inputs the f32 o, rounded once to the input type, is the 16-bit kernel's o
+// bit for bit; lse is the same f32 either way. The f32 form writes twice o's
+// bytes (at the flagship shape 64 MB more than the bf16 form's 202 MB, still
+// under the operations' bound).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -97,7 +108,7 @@ struct FwdSmem {
 
 struct FwdArgs {
   CUtensorMap tq, tk, tv;
-  void* o;  // bf16 or f32, the kernel's OutT
+  void* o;  // the input type or f32, the kernel's OutT
   float* lse;
   int T, H, group;
   int D;  // the real head dim; the kernel runs at its template's padded width
@@ -129,16 +140,16 @@ __device__ __forceinline__ void scale_mask(float (&s)[kN / 2], float scale, int 
   }
 }
 
-template <int D, bool kCausal, typename OutT>
+template <int D, bool kCausal, typename In, typename OutT>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_fwd_kernel(const __grid_constant__ FwdArgs a) {
   using L = FwdSmem<D>;
   constexpr int kN = L::kBlock;  // keys per tile, and q rows per block
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
+  In* sQ = reinterpret_cast<In*>(smem + L::kQ);
+  In* sK = reinterpret_cast<In*>(smem + L::kK);
+  In* sV = reinterpret_cast<In*>(smem + L::kV);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kStages;
@@ -225,7 +236,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t col = (kk / 4) * kN * 128 + (kk % 4) * 32;
-      wgmma_ss<kN>(s, desc_add(dQ, col), desc_add(dK, stage_off + col), kk > 0);
+      wgmma_ss<kN, In>(s, desc_add(dQ, col), desc_add(dK, stage_off + col), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -256,7 +267,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const float mb_a = ms_a * kLog2e;
     const float mb_b = ms_b * kLog2e;
 
-    // p = exp(s - m_safe), packed to bf16 as the A operand of p v: the
+    // p = exp(s - m_safe), packed to the input type as the A operand of p v: the
     // accumulators of keys [16kk, 16kk + 16) are k-step kk's registers
     uint32_t p[kN / 16][4];
     float sum_a = 0.f, sum_b = 0.f;
@@ -269,10 +280,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
       sum_a += e[0] + e[1] + e[4] + e[5];
       sum_b += e[2] + e[3] + e[6] + e[7];
-      p[kk][0] = pack_f32(e[0], e[1]);
-      p[kk][1] = pack_f32(e[2], e[3]);
-      p[kk][2] = pack_f32(e[4], e[5]);
-      p[kk][3] = pack_f32(e[6], e[7]);
+      p[kk][0] = pack_f32<In>(e[0], e[1]);
+      p[kk][1] = pack_f32<In>(e[2], e[3]);
+      p[kk][2] = pack_f32<In>(e[4], e[5]);
+      p[kk][3] = pack_f32<In>(e[6], e[7]);
     }
     l_a = l_a * corr_a + sum_a;
     l_b = l_b * corr_b + sum_b;
@@ -289,7 +300,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk) {
-      wgmma_rs<L::kAccD>(o, p[kk], desc_add(dV, stage_off + kk * 2048), 1);
+      wgmma_rs<L::kAccD, In>(o, p[kk], desc_add(dV, stage_off + kk * 2048), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -323,23 +334,24 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
-template <int D, bool kCausal, typename OutT>
+template <int D, bool kCausal, typename In, typename OutT>
 cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
   constexpr int kSmem = FwdSmem<D>::kBytes;
   static bool attr_set = false;
-  const cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal, OutT>, kSmem, attr_set);
+  const cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal, In, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T + FwdSmem<D>::kBlock - 1) / FwdSmem<D>::kBlock, B * a.H);
-  flash_fwd_kernel<D, kCausal, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
+  flash_fwd_kernel<D, kCausal, In, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, typename OutT>
+template <int D, typename In, typename OutT>
 cudaError_t launch_d(const FwdArgs& a, int B, int causal, cudaStream_t stream) {
-  return causal ? launch<D, true, OutT>(a, B, stream) : launch<D, false, OutT>(a, B, stream);
+  return causal ? launch<D, true, In, OutT>(a, B, stream)
+                : launch<D, false, In, OutT>(a, B, stream);
 }
 
-template <typename OutT>
+template <typename In, typename OutT>
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int B, int T, int H, int H_kv, int D, int causal,
               int64_t q_sb, int64_t q_st, int64_t q_sh,
@@ -353,9 +365,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   FwdArgs a;
   const int Dp = padded_head_dim(D);
   const int rows = fwd_block(Dp);
-  int err = make_tile_map(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, rows);
-  if (err == 0) err = make_tile_map(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, rows);
-  if (err == 0) err = make_tile_map(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, rows);
+  int err = make_tile_map<In>(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, rows);
+  if (err == 0) err = make_tile_map<In>(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, rows);
+  if (err == 0) err = make_tile_map<In>(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, rows);
   if (err != 0) return err;
   a.o = o;
   a.lse = static_cast<float*>(lse);
@@ -366,9 +378,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   a.o_sb = o_sb; a.o_st = o_st; a.o_sh = o_sh;
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t launched = Dp == 64    ? launch_d<64, OutT>(a, B, causal, s)
-                               : Dp == 128 ? launch_d<128, OutT>(a, B, causal, s)
-                                           : launch_d<256, OutT>(a, B, causal, s);
+  const cudaError_t launched = Dp == 64    ? launch_d<64, In, OutT>(a, B, causal, s)
+                               : Dp == 128 ? launch_d<128, In, OutT>(a, B, causal, s)
+                                           : launch_d<256, In, OutT>(a, B, causal, s);
   return static_cast<int>(launched);
 }
 
@@ -383,13 +395,32 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   q, k, v, o, lse, B, T, H, H_kv, D, causal, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,     \
       v_st, v_sh, o_sb, o_st, o_sh, stream
 
+#ifndef HIVED_FLASH_F16
 // q [B, T, H, D], k/v [B, T, H_kv, D] and o [B, T, H, D] in bf16, addressed
 // through the given element strides (D contiguous; q, k and v 16-byte
 // aligned with strides a multiple of 8); lse [B*H, T] f32. Returns 0, the
 // CUresult of a tensor map that could not be encoded, or the cudaError_t of
 // the launch.
-extern "C" int hived_flash_fwd(HIVED_FWD_PARAMS) { return flash_fwd<bf16>(HIVED_FWD_ARGS); }
+extern "C" int hived_flash_fwd(HIVED_FWD_PARAMS) {
+  return flash_fwd<bf16, bf16>(HIVED_FWD_ARGS);
+}
 
 // The same with o [B, T, H, D] in f32 (its strides even, its base 8-byte
 // aligned).
-extern "C" int hived_flash_fwd_f32(HIVED_FWD_PARAMS) { return flash_fwd<float>(HIVED_FWD_ARGS); }
+extern "C" int hived_flash_fwd_f32(HIVED_FWD_PARAMS) {
+  return flash_fwd<bf16, float>(HIVED_FWD_ARGS);
+}
+
+#else
+
+// The same two with q, k and v in fp16: o in fp16 (its strides even, its
+// base 4-byte aligned), or in f32.
+extern "C" int hived_flash_fwd_f16(HIVED_FWD_PARAMS) {
+  return flash_fwd<f16, f16>(HIVED_FWD_ARGS);
+}
+
+extern "C" int hived_flash_fwd_f16_f32(HIVED_FWD_PARAMS) {
+  return flash_fwd<f16, float>(HIVED_FWD_ARGS);
+}
+
+#endif  // HIVED_FLASH_F16

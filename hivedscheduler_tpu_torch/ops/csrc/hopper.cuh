@@ -2,9 +2,12 @@
 // (flash_fwd.cu), K2 and K3 (flash_bwd.cu), as raw PTX:
 // TMA tensor maps and bulk tensor loads that complete on mbarriers, wgmma
 // shared-memory descriptors for the 128-byte swizzled layout, and
-// wgmma.mma_async (bf16 in, f32 accumulate) with its fences.
+// wgmma.mma_async (bf16 or fp16 in, f32 accumulate) with its fences. The
+// element type In (bf16 or fp16) is a template parameter throughout: both
+// take the same instruction shapes, k-steps of 16 and swizzles, and differ
+// only in the tensor map's data type and the wgmma type suffix.
 //
-// Shared tiles. A tile of R rows by D bf16 columns (D a multiple of 64) is
+// Shared tiles. A tile of R rows by D 16-bit columns (D a multiple of 64) is
 // kept as D / 64 column blocks of [R][64], one after the other, each row 128
 // bytes and each block 1024-byte aligned. TMA writes it with the 128-byte
 // swizzle: the 16-byte chunk c of row r lands at chunk c ^ (r % 8) of that
@@ -30,8 +33,11 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hived {
 
@@ -62,16 +68,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a bf16 [B, T, heads, D] tensor with element strides (sb, st,
-// sh) and D contiguous, over the 4-D box space (D, heads, T, B): a box is 64
-// columns of one head and `rows` rows of one batch, 128-byte swizzled, so
-// rows at or past T read as zeros and never come from the next batch, and
-// columns at or past D (the padding of a kernel run at a wider template)
-// read as zeros and never come from the next head. Either way the box's
-// full bytes complete on its barrier.
+// Tensor map of a bf16 or fp16 (In) [B, T, heads, D] tensor with element
+// strides (sb, st, sh) and D contiguous, over the 4-D box space (D, heads,
+// T, B): a box is 64 columns of one head and `rows` rows of one batch,
+// 128-byte swizzled, so rows at or past T read as zeros and never come from
+// the next batch, and columns at or past D (the padding of a kernel run at a
+// wider template) read as zeros and never come from the next head. Either
+// way the box's full bytes complete on its barrier.
 // Returns 0 or the CUresult of the encoder.
+template <typename In>
 inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T, int heads, int D,
                          int64_t sb, int64_t st, int64_t sh, int rows) {
+  constexpr CUtensorMapDataType kType = std::is_same<In, __half>::value
+                                            ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
@@ -80,7 +90,7 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T, int h
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return static_cast<int>(encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  return static_cast<int>(encode(map, kType, 4, const_cast<void*>(base),
                                  dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
@@ -174,8 +184,8 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 
 // rows [row0, row0 + kRows) of one head of a [B, T, heads, D] map, as the
 // D / 64 column blocks of a shared tile; kRows * D * 2 bytes on `bar`
-template <int D, int kRows>
-__device__ __forceinline__ void tma_load_tile(__nv_bfloat16* dst, const CUtensorMap* map,
+template <int D, int kRows, typename In>
+__device__ __forceinline__ void tma_load_tile(In* dst, const CUtensorMap* map,
                                               uint64_t* bar, int head, int row0, int b) {
 #pragma unroll
   for (int blk = 0; blk < D / 64; ++blk) {
@@ -251,95 +261,93 @@ __device__ __forceinline__ void regs_inc() {
   "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "  \
   "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
+// The wgmma instructions, one per (N, operand form, type): TY is the
+// operand type's PTX name (bf16 or f16), MN 1 for an MN-major b.
+#define HIVED_SS64(TY, MN)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                       \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." #TY "." #TY " " HIVED_R32 \
+               ", %32, %33, p, 1, 1, 0, " #MN ";\n}\n"                               \
+               : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24)             \
+               : "l"(a), "l"(b), "r"(accumulate))
+#define HIVED_SS128(TY, MN)                                                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." #TY "." #TY " " HIVED_R64 \
+               ", %64, %65, p, 1, 1, 0, " #MN ";\n}\n"                                 \
+               : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24), HIVED_D8(32), \
+                 HIVED_D8(40), HIVED_D8(48), HIVED_D8(56)                           \
+               : "l"(a), "l"(b), "r"(accumulate))
+#define HIVED_RS64(TY)                                                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                       \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." #TY "." #TY " " HIVED_R32 \
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+               : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24)             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+#define HIVED_RS128(TY)                                                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." #TY "." #TY " " HIVED_R64 \
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                        \
+               : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24), HIVED_D8(32), \
+                 HIVED_D8(40), HIVED_D8(48), HIVED_D8(56)                           \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+
 // d (64 x N, f32) = a b + (accumulate ? d : 0), one k-step of 16: a (64 x 16)
-// and b (16 x N) K-major in shared memory, through their descriptors
-template <int N>
+// and b (16 x N) K-major in shared memory, through their descriptors; a and
+// b of type In (bf16 or fp16)
+template <int N, typename In>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
-                                         int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HIVED_R32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HIVED_R64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24), HIVED_D8(32), HIVED_D8(40),
-        HIVED_D8(48), HIVED_D8(56)
-      : "l"(a), "l"(b), "r"(accumulate));
+                                         int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64 && std::is_same<In, __half>::value) {
+    HIVED_SS64(f16, 0);
+  } else if constexpr (N == 64) {
+    HIVED_SS64(bf16, 0);
+  } else if constexpr (std::is_same<In, __half>::value) {
+    HIVED_SS128(f16, 0);
+  } else {
+    HIVED_SS128(bf16, 0);
+  }
 }
 
 // d (64 x N, f32) = a b + (accumulate ? d : 0), one k-step of 16: a (64 x 16)
 // K-major and b (16 x N) MN-major, both in shared memory through their
 // descriptors
-template <int N>
+template <int N, typename In>
 __device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t a, uint64_t b,
-                                            int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_ss_mn<64>(float (&d)[32], uint64_t a, uint64_t b,
-                                                int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HIVED_R32
-      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[64], uint64_t a, uint64_t b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HIVED_R64
-      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24), HIVED_D8(32), HIVED_D8(40),
-        HIVED_D8(48), HIVED_D8(56)
-      : "l"(a), "l"(b), "r"(accumulate));
+                                            int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_ss_mn: N is 64 or 128");
+  if constexpr (N == 64 && std::is_same<In, __half>::value) {
+    HIVED_SS64(f16, 1);
+  } else if constexpr (N == 64) {
+    HIVED_SS64(bf16, 1);
+  } else if constexpr (std::is_same<In, __half>::value) {
+    HIVED_SS128(f16, 1);
+  } else {
+    HIVED_SS128(bf16, 1);
+  }
 }
 
 // d (64 x N, f32) = a b + (accumulate ? d : 0), one k-step of 16: a (64 x 16)
-// in registers (four bf16 pairs, the layout above), b (16 x N) MN-major in
+// in registers (four pairs of In, the layout above), b (16 x N) MN-major in
 // shared memory through its descriptor
-template <int N>
+template <int N, typename In>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
-                                         int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HIVED_R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+                                         int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64 && std::is_same<In, __half>::value) {
+    HIVED_RS64(f16);
+  } else if constexpr (N == 64) {
+    HIVED_RS64(bf16);
+  } else if constexpr (std::is_same<In, __half>::value) {
+    HIVED_RS128(f16);
+  } else {
+    HIVED_RS128(bf16);
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HIVED_R64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24), HIVED_D8(32), HIVED_D8(40),
-        HIVED_D8(48), HIVED_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
+#undef HIVED_SS64
+#undef HIVED_SS128
+#undef HIVED_RS64
+#undef HIVED_RS128
 #undef HIVED_D8
 #undef HIVED_R32
 #undef HIVED_R64

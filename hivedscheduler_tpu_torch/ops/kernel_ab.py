@@ -2,17 +2,20 @@
 one process on one CUDA card.
 
     python -m hivedscheduler_tpu_torch.ops.kernel_ab --other DIR [--kernels fwd,dq,dkv]
-        [--d D] [--heads H] [--kv-heads H_KV]
+        [--d D] [--heads H] [--kv-heads H_KV] [--dtype bf16|fp16|f32]
 
 ``DIR`` is the root of another copy of the repository, for example the
 parent commit unpacked with ``git archive``. Its
 ``hivedscheduler_tpu_torch/ops/csrc/*.cu`` are built with this tree's nvcc
 flags into ``DIR/hivedscheduler_tpu_torch/_build/`` and called through the
-same C entry points (``attention._KERNELS``) on the same inputs, by
-default at the flagship shape (B=8, T=2048, H=16, H_kv=8, D=128, bf16,
-causal); ``--d``, ``--heads`` and ``--kv-heads`` change the head dim (any
-multiple of 8 up to 256) and the head counts (Gemma-2B's shape: ``--d 256
---heads 8 --kv-heads 1``). Each
+same C entry points (``attention._KERNELS``, the one
+``attention.kernel_entry`` picks for the dtype and head dim) on the same
+inputs, by default at the flagship shape (B=8, T=2048, H=16, H_kv=8,
+D=128, bf16, causal); ``--d``, ``--heads`` and ``--kv-heads`` change the
+head dim (any multiple of 8: past 256 the CUDA-core family runs) and the
+head counts (Gemma-2B's shape: ``--d 256 --heads 8 --kv-heads 1``), and
+``--dtype`` the inputs' dtype (fp16: the wgmma kernels' fp16 forms; f32:
+the CUDA-core family). The other tree must have the entry point. Each
 kernel is timed with CUDA events in the order other, this, this, other, so
 a drift of the card's clock falls on both alike. It prints each reading,
 the ratio of the means, and the largest difference between the two trees'
@@ -37,6 +40,7 @@ from hivedscheduler_tpu_torch.ops import attention as attn
 
 FLAGSHIP = dict(b=8, t=2048, h=16, h_kv=8, d=128)
 KERNELS = ("fwd", "dq", "dkv")
+DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "f32": torch.float32}
 
 
 def libraries():
@@ -45,15 +49,16 @@ def libraries():
 
 
 def build_other(root: str) -> dict:
-    """{library name: CDLL} of the other tree's sources, all compilers at
-    once."""
+    """{library name: CDLL} of the other tree's sources (those of
+    :func:`libraries` it has), all compilers at once."""
     csrc = os.path.join(root, "hivedscheduler_tpu_torch", "ops", "csrc")
     out = os.path.join(root, "hivedscheduler_tpu_torch", "_build")
     os.makedirs(out, exist_ok=True)
     procs = {n: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o", os.path.join(out, f"lib{n}_ab.so"),
          os.path.join(csrc, f"{n}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for n in libraries()}
+        stderr=subprocess.STDOUT, text=True)
+        for n in libraries() if os.path.exists(os.path.join(csrc, f"{n}.cu"))}
     for n, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -75,13 +80,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def inputs(b: int, t: int, h: int, h_kv: int, d: int, seed: int = 0) -> dict:
-    """bf16 q, k, v, do from ``seed`` and the forward's o, lse and K2's
-    delta at [B, T, H(_kv), D], causal, with the launch dims."""
+def inputs(b: int, t: int, h: int, h_kv: int, d: int, seed: int = 0,
+           dtype=torch.bfloat16) -> dict:
+    """q, k, v, do of ``dtype`` from ``seed`` and the forward's o, lse and
+    K2's delta at [B, T, H(_kv), D], causal, with the launch dims."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     x = dict(q=randn(b, t, h, d), do=randn(b, t, h, d), k=randn(b, t, h_kv, d),
              v=randn(b, t, h_kv, d), dims=(b, t, h, h_kv, d, 1))
@@ -91,25 +97,28 @@ def inputs(b: int, t: int, h: int, h_kv: int, d: int, seed: int = 0) -> dict:
     return x
 
 
-def runner(libs, x: dict, res: dict, kernel: str):
+def runner(libs, x: dict, res: dict, kernel: str, out_f32: bool = False):
     """A launch of ``kernel`` ("fwd", "dq" or "dkv") from ``libs`` (None:
-    this tree's) on ``inputs``' tensors, its outputs kept in ``res``; it
-    goes through ``attention._launch`` and counts no launch."""
+    this tree's) on ``inputs``' tensors, through the entry point
+    ``attention.kernel_entry`` picks for their dtype and head dim (outputs
+    in the inputs' dtype, or in f32 with ``out_f32``), its outputs kept in
+    ``res``; it goes through ``attention._launch`` and counts no launch."""
     q, k, v, o, do, lse, delta = (x[n] for n in ("q", "k", "v", "o", "do", "lse", "delta"))
+    symbol = attn.kernel_entry(q.dtype, q.shape[3], out_f32, kernel)
+    dims = attn.launch_dims(symbol, x["dims"], q.dtype, out_f32)
+    out = torch.float32 if out_f32 else q.dtype
     if kernel == "fwd":
-        res["o"], res["lse"] = torch.empty_like(q), torch.empty_like(lse)
-        launch = ("hived_flash_fwd", (q, k, v, res["o"], res["lse"]), x["dims"],
-                  (q, k, v, res["o"]))
+        res["o"], res["lse"] = torch.empty_like(q, dtype=out), torch.empty_like(lse)
+        launch = ((q, k, v, res["o"], res["lse"]), (q, k, v, res["o"]))
     elif kernel == "dq":
-        res["dq"], res["delta"] = torch.empty_like(q), torch.empty_like(lse)
-        launch = ("hived_flash_bwd_dq", (q, k, v, o, do, lse, res["delta"], res["dq"]),
-                  x["dims"], (q, k, v, o, do, res["dq"]))
+        res["dq"], res["delta"] = torch.empty_like(q, dtype=out), torch.empty_like(lse)
+        launch = ((q, k, v, o, do, lse, res["delta"], res["dq"]), (q, k, v, o, do, res["dq"]))
     else:
-        res["dk"], res["dv"] = torch.empty_like(k), torch.empty_like(v)
-        launch = ("hived_flash_bwd_dkv", (q, k, v, do, lse, delta, res["dk"], res["dv"]),
-                  x["dims"], (q, k, v, do, res["dk"], res["dv"]))
+        res["dk"], res["dv"] = torch.empty_like(k, dtype=out), torch.empty_like(v, dtype=out)
+        launch = ((q, k, v, do, lse, delta, res["dk"], res["dv"]),
+                  (q, k, v, do, res["dk"], res["dv"]))
     stream = torch.cuda.current_stream().cuda_stream
-    return lambda: attn._launch(*launch, stream, libs)
+    return lambda: attn._launch(symbol, launch[0], dims, launch[1], stream, libs)
 
 
 def main(argv=None) -> int:
@@ -119,6 +128,8 @@ def main(argv=None) -> int:
     ap.add_argument("--d", type=int, default=FLAGSHIP["d"], help="head dim")
     ap.add_argument("--heads", type=int, default=FLAGSHIP["h"])
     ap.add_argument("--kv-heads", type=int, default=FLAGSHIP["h_kv"])
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
+                    help="the inputs' dtype")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
@@ -131,7 +142,7 @@ def main(argv=None) -> int:
              "this": {n: _build.load(n) for n in libraries()}}
 
     f = FLAGSHIP
-    x = inputs(f["b"], f["t"], args.heads, args.kv_heads, args.d)
+    x = inputs(f["b"], f["t"], args.heads, args.kv_heads, args.d, dtype=DTYPES[args.dtype])
     for kernel in args.kernels.split(","):
         outs = {tree: {} for tree in trees}
         fns = {tree: runner(trees[tree], x, outs[tree], kernel) for tree in trees}
@@ -141,7 +152,7 @@ def main(argv=None) -> int:
         mean = {tree: sum(r) / len(r) for tree, r in readings.items()}
         diff = max(float((outs["this"][key].float() - outs["other"][key].float()).abs().max())
                    for key in outs["this"])
-        print(f"{kernel} at D={args.d}, H={args.heads}, H_kv={args.kv_heads}: other "
+        print(f"{kernel} at D={args.d}, H={args.heads}, H_kv={args.kv_heads}, {args.dtype}: other "
               f"{readings['other']} ms, this {readings['this']} ms; "
               f"other/this {mean['other'] / mean['this']:.3f}; max |this - other| "
               f"over its outputs {diff:.3e} ({card})")

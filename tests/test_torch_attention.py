@@ -232,19 +232,22 @@ def test_flash_attention_off_the_cpu_takes_the_reference_where_jax_does(case, mo
 
 
 def test_head_dims_the_kernels_take():
-    # every multiple of 8 up to 256, each run at the padded width 64, 128 or
-    # 256
-    assert tattn.KERNEL_HEAD_DIMS == tuple(range(8, 257, 8))
-    assert {32, 80, 96, 112, 136, 192, 256} <= set(tattn.KERNEL_HEAD_DIMS)
-    assert not {12, 264} & set(tattn.KERNEL_HEAD_DIMS)
+    # every positive multiple of 8: up to 256 the wgmma kernels, each run at
+    # the padded width 64, 128 or 256; past it the CUDA-core family
+    assert tattn.WGMMA_HEAD_DIMS == range(8, 257, 8)
+    assert {32, 80, 96, 112, 136, 192, 256} <= set(tattn.WGMMA_HEAD_DIMS)
+    assert 264 not in tattn.WGMMA_HEAD_DIMS
+    assert all(d in tattn.KERNEL_HEAD_DIMS for d in (8, 32, 96, 256, 264, 320, 512, 4096))
+    assert not any(d in tattn.KERNEL_HEAD_DIMS for d in (0, 12, 260))
 
 
-@pytest.mark.parametrize("d, route", [(256, "kernel"), (264, "refused")])
+@pytest.mark.parametrize("d, route", [(256, "kernel"), (264, "kernel"), (12, "refused")])
 def test_head_dim_route_off_the_cpu(d, route, monkeypatch):
-    # a meta tensor stands in for a CUDA one: D = 256 (Gemma's) goes to the
-    # kernels' op, D = 264 is past the widest template and the kernels'
-    # wrapper refuses it, with no fallback to the plain versions or the
-    # reference
+    # a meta tensor stands in for a CUDA one: D = 256 (Gemma's) and D = 264
+    # (past the widest wgmma template: the CUDA-core family) go to the
+    # kernels' op; D = 12 is no multiple of 8, and the kernels' wrapper
+    # refuses it, with no fallback to the plain versions or the reference
+    # (flash_attention itself takes the reference there, as JAX's does)
     q = torch.empty((1, 128, 8, d), device="meta", dtype=torch.bfloat16)
     k = torch.empty((1, 128, 1, d), device="meta", dtype=torch.bfloat16)
     routes = tattn.FLASH_REFERENCE_ROUTES
@@ -257,7 +260,7 @@ def test_head_dim_route_off_the_cpu(d, route, monkeypatch):
     else:
         with pytest.raises(ValueError) as err:
             tattn._check_kernel_inputs(q, k, k)
-        assert "multiples of 8 up to 256" in str(err.value)
+        assert "positive multiples of 8" in str(err.value)
     assert tattn.FLASH_REFERENCE_ROUTES == routes
 
 

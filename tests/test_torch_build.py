@@ -104,7 +104,8 @@ def test_kernel_ab_refuses_without_a_card(tmp_path):
         pytest.skip("a CUDA card is present")
     from hivedscheduler_tpu_torch.ops import kernel_ab
 
-    assert kernel_ab.libraries() == ["flash_bwd", "flash_fwd"]
+    assert kernel_ab.libraries() == sorted(_build.LIBRARIES) == [
+        "flash_bwd", "flash_bwd_f16", "flash_fwd", "flash_fwd_f16", "flash_generic"]
     assert kernel_ab.main(["--other", str(tmp_path)]) != 0
     assert not os.listdir(tmp_path)  # nothing was built
 
@@ -162,7 +163,9 @@ def test_profile_groups_follow_the_kernel_names():
             with open(os.path.join(_build.CSRC, src)) as f:
                 names.update(_GLOBAL.findall(f.read()))
     groups = {name: chip_smoke.profile_group(name) for name in names}
-    assert sorted(groups.values()) == ["K1 flash_fwd", "K2 flash_bwd_dq", "K3 flash_bwd_dkv"]
+    # each of K1-K3 has a wgmma kernel and a CUDA-core one (flash_generic.cu)
+    assert sorted(groups.values()) == ["K1 flash_fwd"] * 2 + ["K2 flash_bwd_dq"] * 2 + [
+        "K3 flash_bwd_dkv"] * 2
     # as the profiler shows them: mangled, inside their anonymous namespace
     for name, group in groups.items():
         mangled = f"_ZN45_GLOBAL__N__0123_12_x{len(name)}{name}ILi128ELb1EEEvNS_4ArgsE"

@@ -46,7 +46,13 @@ head dims other than 64 and 128 (32, 80, 96, 112, run at the padded width
 64 or 128; 136, 192 and Gemma's 256 with MQA and ragged T, run at 256), and
 store nothing past D into a wider output buffer; a head dim off the
 multiples of 8 or a cross-length k takes ``xla_attention``, as in the JAX
-package, and the raw kernel call refuses D = 12 and D = 264.
+package, and the raw kernel call refuses D = 12 and f64. K1-K3 at fp16
+inputs run the same wgmma kernels' fp16 forms (outputs in fp16 or f32),
+held to their plain versions with the bf16 limits and an error below the
+bf16 kernels' on the same inputs; f32 inputs at any D and bf16 or fp16
+past D 256 (264, 320, 512) run the CUDA-core family, held to the plain
+versions (f32 within a relative 2e-5), each on its own launch counter, with
+nothing stored past D; the fp16 libraries multiply on wgmma fed by TMA.
 """
 
 import os
@@ -204,28 +210,37 @@ def test_kernel_builds_for_sm90a(cuda):
 @pytest.mark.parametrize("bad", ["f32", "noncontig", "grad", "head_dim"])
 def test_kernel_raises_instead_of_falling_back(cuda, bad):
     q, k, v = _qkv(1, 128, 2, 2, 64)
-    if bad == "f32":
-        q, k, v = q.float(), k.float(), v.float()
-        kind = TypeError
-    elif bad == "noncontig":
+    if bad in ("f32", "head_dim"):
+        # f32 inputs, and D = 264 past the widest wgmma template, run the
+        # CUDA-core family (its counter moves, the wgmma one does not); f64
+        # and D = 12, off the multiples of 8, are refused
+        if bad == "f32":
+            q, k, v = q.float(), k.float(), v.float()
+            refused, kind = tuple(x.double() for x in (q, k, v)), TypeError
+        else:
+            q, k, v = _qkv(1, 128, 2, 2, 264)
+            refused, kind = _qkv(1, 128, 2, 2, 12), ValueError
+        before = (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_FWD_GENERIC_LAUNCHES)
+        o, lse = tattn.flash_forward(q, k, v)
+        assert (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_FWD_GENERIC_LAUNCHES) == (
+            before[0], before[1] + 1)
+        o_ref, lse_ref = tattn.flash_attention_plain(q, k, v)
+        assert o.dtype == q.dtype and _worst_row_rel(o, o_ref) <= O_ROW_REL
+        with pytest.raises(kind):
+            tattn.flash_forward(*refused)
+        assert tattn.FLASH_FWD_GENERIC_LAUNCHES == before[1] + 1
+        return
+    if bad == "noncontig":
         q = torch.randn(1, 2, 128, 64, device="cuda").to(torch.bfloat16).transpose(1, 2)
         kind = ValueError
-    elif bad == "grad":
+    else:
         # a raw kernel call is not differentiable: under grad mode it
         # refuses a tensor that requires grad (flash_attention takes it)
         q = q.clone().requires_grad_(True)
         kind = NotImplementedError
-    else:
-        # the raw kernel call takes the multiples of 8 up to 256: D=264 is
-        # past the widest template, and D=12 (below) is off the grid
-        q, k, v = _qkv(1, 128, 2, 2, 264)
-        kind = ValueError
     before = tattn.FLASH_FWD_LAUNCHES
     with pytest.raises(kind):
         tattn.flash_forward(q, k, v)
-    if bad == "head_dim":
-        with pytest.raises(kind):
-            tattn.flash_forward(*_qkv(1, 128, 2, 2, 12))
     assert tattn.FLASH_FWD_LAUNCHES == before
 
 
@@ -367,6 +382,9 @@ def test_ragged_t_through_autograd(cuda):
 def test_backward_kernels_build_for_sm90a(cuda):
     paths = _build.build_all(["flash_fwd", "flash_bwd"])
     assert all(p.startswith(_build.BUILD_DIR) for p in paths)
+    # and every library of the kernels, one compiler each, all at once
+    paths = _build.build_all(_build.LIBRARIES)
+    assert all(p.startswith(_build.BUILD_DIR) for p in paths)
 
 
 def _sass_by_kernel(library: str) -> dict:
@@ -390,10 +408,14 @@ def _sass_by_kernel(library: str) -> dict:
     ("flash_fwd", "flash_fwd_kernel"),
     ("flash_bwd", "flash_bwd_dq_kernel"),
     ("flash_bwd", "flash_bwd_dkv_kernel"),
+    ("flash_fwd_f16", "flash_fwd_kernel"),
+    ("flash_bwd_f16", "flash_bwd_dq_kernel"),
+    ("flash_bwd_f16", "flash_bwd_dkv_kernel"),
 ])
 def test_kernels_run_on_wgmma_and_tma(cuda, library, kernel):
-    # every instance (D 64/128/256 x causal/full x bf16/f32 outputs)
-    # multiplies with wgmma (HGMMA) on tiles loaded by TMA (UTMALDG), never
+    # every instance (D 64/128/256 x causal/full x 16-bit/f32 outputs, of
+    # the bf16 or the fp16 library) multiplies with wgmma (HGMMA) on tiles
+    # loaded by TMA (UTMALDG), never
     # with mma.sync (HMMA) or cp.async (LDGSTS)
     sass = _sass_by_kernel(_build.build(library))
     found = {k: v for k, v in sass.items() if kernel in k}
@@ -811,12 +833,16 @@ def test_f32_forms_match_plain_and_round_to_the_bf16_kernels(cuda, shape):
 
 
 def test_f32_forms_refuse_other_dtypes(cuda):
-    q, k, v = _qkv(1, 128, 2, 2, 64)
-    with pytest.raises(TypeError):
-        tattn.flash_forward(q, k, v, out_dtype=torch.float16)
-    # the bf16 form is the default (None), not a dtype to ask for
-    with pytest.raises(TypeError):
-        tattn.flash_forward(q, k, v, out_dtype=torch.bfloat16)
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v = _qkv(1, 128, 2, 2, 64, dtype=dtype)
+        # the inputs' form is the default (None), not a dtype to ask for,
+        # and no other dtype is a form
+        for out_dtype in (torch.float16, torch.bfloat16):
+            with pytest.raises(TypeError):
+                tattn.flash_forward(q, k, v, out_dtype=out_dtype)
+        # None: the inputs' dtype, fp16 for fp16 inputs
+        assert tattn.flash_forward(q, k, v)[0].dtype == dtype
+        assert tattn.flash_forward(q, k, v, out_dtype=torch.float32)[0].dtype == torch.float32
 
 
 @pytest.mark.parametrize("impl", ["ring_flash", "ring_zigzag_flash"])
@@ -966,3 +992,144 @@ def test_self_draft_serving_equals_the_plain_engine_at_decisive_positions(cuda):
                 seq = torch.tensor([p + a[:first]], device="cuda")
                 top = torch.topk(ttm.forward(params, seq, cfg)[0, -1].float(), 2).values
                 assert float(top[0] - top[1]) < 0.25, (extra, first)
+
+
+# -- every input dtype and head dim: the fp16 forms and the CUDA-core family ---
+
+# (dtype, (B, T, H, H_kv, D, causal)): fp16 on the wgmma kernels at each
+# padded width (ragged T, GQA, MQA, not causal); the CUDA-core family at f32
+# (D 128, 64 ragged) and at bf16, fp16 and f32 past D 256 (264: an 8-column
+# last panel; 320; 512), with MQA and ragged T
+DTYPE_CASES = [
+    (torch.float16, (2, 256, 4, 2, 128, True)), (torch.float16, (2, 200, 4, 1, 64, True)),
+    (torch.float16, (1, 192, 8, 2, 96, False)), (torch.float16, (2, 200, 8, 1, 256, True)),
+    (torch.float32, (2, 256, 4, 2, 128, True)), (torch.float32, (2, 200, 4, 1, 64, False)),
+    (torch.bfloat16, (2, 200, 4, 1, 264, True)), (torch.float16, (1, 192, 4, 2, 320, False)),
+    (torch.float32, (1, 256, 4, 2, 512, True)), (torch.bfloat16, (1, 130, 4, 4, 512, False)),
+]
+# f32 inputs: every output within a relative 2e-5 of the plain f32 version
+# (a TF32 pass or a 16-bit operand would read ~1e-3; an H100 read ~1e-7)
+F32_REL = 2e-5
+
+
+def _dtype_inputs(dtype, b, t, h, h_kv, d, causal, seed=0, do_scale=1.0):
+    q, k, v = _qkv(b, t, h, h_kv, d, seed=seed, dtype=dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    do = (torch.randn(q.shape, generator=g, device="cuda") * do_scale).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype, shape", DTYPE_CASES,
+                         ids=[f"{str(d)[6:]}-{s[4]}-{s[5]}" for d, s in DTYPE_CASES])
+def test_every_dtype_and_head_dim_runs_its_kernels(cuda, dtype, shape):
+    b, t, h, h_kv, d, causal = shape
+    f32 = torch.float32
+    q, k, v, do = _dtype_inputs(dtype, *shape)
+    counters = {form: [tattn._COUNTERS[tattn.kernel_entry(dtype, d, form, kernel)]
+                       for kernel in ("fwd", "dq", "dkv")] for form in (False, True)}
+    before = {n: getattr(tattn, n) for n in tattn._COUNTERS.values()}
+    o, lse = tattn.flash_forward(q, k, v, causal=causal)
+    grads = tattn.flash_backward(q, k, v, o, lse, do, causal=causal)
+    o32, lse32 = tattn.flash_forward(q, k, v, causal=causal, out_dtype=f32)
+    grads32 = tattn.flash_backward(q, k, v, o, lse, do, causal=causal, grad_dtype=f32)
+    torch.cuda.synchronize()
+    moved = {n: getattr(tattn, n) - before[n] for n in before if getattr(tattn, n) != before[n]}
+    want = {}
+    for form in (False, True):
+        for name in counters[form]:
+            want[name] = want.get(name, 0) + 1
+    assert moved == want
+    assert o.dtype == dtype and all(x.dtype == dtype for x in grads)
+    assert o32.dtype == f32 and all(x.dtype == f32 for x in grads32)
+    o_ref, lse_ref = tattn.flash_attention_plain(q, k, v, causal=causal, out_dtype=f32)
+    g_ref = tattn.flash_backward_plain(q, k, v, o, lse, do, causal=causal, grad_dtype=f32)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+    assert torch.equal(lse32, lse)
+    for out, gr in ((o, grads), (o32, grads32)):
+        if dtype == f32:
+            assert _grad_errs(out, o_ref)[0] <= F32_REL
+            assert all(_grad_errs(x, r)[0] <= F32_REL for x, r in zip(gr, g_ref))
+        else:
+            assert _worst_row_rel(out, o_ref) <= O_ROW_REL
+            for x, r, name in zip(gr, g_ref, ("dq", "dk", "dv")):
+                fro, row = _grad_errs(x, r)
+                assert fro <= GRAD_REL and row <= GRAD_ROW_REL, (name, fro, row)
+    # the f32 forms, rounded once, are the inputs'-dtype forms bit for bit
+    assert torch.equal(o32.to(dtype), o)
+    assert all(torch.equal(x.to(dtype), y) for x, y in zip(grads32, grads))
+    again = (*tattn.flash_forward(q, k, v, causal=causal),
+             *tattn.flash_backward(q, k, v, o, lse, do, causal=causal))
+    assert all(torch.equal(x, y) for x, y in zip((o, lse, *grads), again))
+
+
+@pytest.mark.parametrize("do_scale", [1.0, 2.0 ** -20])
+def test_fp16_backward_beats_bf16_on_the_same_inputs(cuda, do_scale):
+    # the same f32 draws rounded to each type; the f32 forms' errors against
+    # each one's plain version: fp16's three more mantissa bits must show,
+    # also at a gradient's magnitude (do ~ 1e-6), where an unscaled fp16 ds
+    # would fall into the subnormals (csrc/flash_bwd.cu)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v, do = _dtype_inputs(dtype, 2, 512, 8, 4, 128, True, seed=11, do_scale=do_scale)
+        o, lse = tattn.flash_forward(q, k, v)
+        got = tattn.flash_backward(q, k, v, o, lse, do, grad_dtype=torch.float32)
+        want = tattn.flash_backward_plain(q, k, v, o, lse, do, grad_dtype=torch.float32)
+        errs[dtype] = [_grad_errs(x, r)[0] for x, r in zip(got, want)]
+    assert all(a < b for a, b in zip(errs[torch.float16], errs[torch.bfloat16])), errs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_core_family_stores_no_column_past_d(cuda, dtype):
+    # D = 264: an 8-column last panel; every output a view into a buffer 64
+    # columns wider whose other columns hold a sentinel
+    b, t, h, h_kv, d = 2, 200, 4, 2, 264
+    q, k, v, do = _dtype_inputs(dtype, b, t, h, h_kv, d, True, seed=12)
+    o16, lse = tattn.flash_forward(q, k, v)
+
+    def wide(like):
+        buf = torch.full((*like.shape[:3], d + 64), SENTINEL, dtype=dtype, device="cuda")
+        return buf, buf[..., :d]
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(kernel, ptrs, strided):
+        symbol = tattn.kernel_entry(dtype, d, False, kernel)
+        dims = tattn.launch_dims(symbol, (b, t, h, h_kv, d, 1), dtype, False)
+        tattn._launch(symbol, ptrs, dims, strided, stream)
+
+    (o_buf, o), lse2 = wide(q), torch.empty_like(lse)
+    launch("fwd", (q, k, v, o, lse2), (q, k, v, o))
+    (dq_buf, dq), delta = wide(q), torch.empty_like(lse)
+    launch("dq", (q, k, v, o16, do, lse, delta, dq), (q, k, v, o16, do, dq))
+    (dk_buf, dk), (dv_buf, dv) = wide(k), wide(v)
+    launch("dkv", (q, k, v, do, lse, delta, dk, dv), (q, k, v, do, dk, dv))
+    torch.cuda.synchronize()
+    for buf in (o_buf, dq_buf, dk_buf, dv_buf):
+        assert bool((buf[..., d:] == SENTINEL).all())
+    assert torch.equal(o, o16)
+    for x, y in zip((dq, dk, dv), tattn.flash_backward(q, k, v, o16, lse, do)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype, d", [(torch.float16, 320), (torch.float32, 128),
+                                      (torch.float32, 320)], ids=["fp16-320", "f32-128", "f32-320"])
+def test_ring_hops_run_every_dtype_and_head_dim(cuda, dtype, d):
+    # the ring's per-hop functions reach the new forms through flash_forward
+    # and flash_backward unchanged: f32 partials of the CUDA-core family
+    from hivedscheduler_tpu_torch.parallel import ring_attention as tring
+
+    f32 = torch.float32
+    q, k, v, do = _dtype_inputs(dtype, 1, 256, 4, 2, d, True, seed=13)
+    for diag in (True, False):
+        before = tattn.FLASH_FWD_GENERIC_LAUNCHES, tattn.FLASH_BWD_DKV_GENERIC_LAUNCHES
+        o, lse = tring._flash_block(q, k, v, diag)
+        out = o.permute(0, 2, 1, 3).to(dtype).contiguous()
+        rows = lse.reshape(-1, q.shape[1]).contiguous()
+        grads = tring._flash_block_grad(q, k, v, out, rows, do, diag)
+        assert (tattn.FLASH_FWD_GENERIC_LAUNCHES, tattn.FLASH_BWD_DKV_GENERIC_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        o_ref, _ = tattn.flash_attention_plain(q, k, v, causal=diag, out_dtype=f32)
+        g_ref = tattn.flash_backward_plain(q, k, v, out, rows, do, causal=diag, grad_dtype=f32)
+        assert o.dtype == f32 and _grad_errs(o.permute(0, 2, 1, 3), o_ref)[0] <= F32_REL
+        for x, r in zip(grads, g_ref):
+            assert x.dtype == f32 and _grad_errs(x, r)[0] <= F32_REL
