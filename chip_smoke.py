@@ -8,8 +8,9 @@ Phases, each of which must pass or the script exits non-zero:
 (a) print the card's name and power limit; build the port's CUDA kernels
     ``hivedscheduler_tpu_torch/ops/csrc/flash_fwd.cu`` (K1) and
     ``flash_bwd.cu`` (K2, K3), their fp16 instantiations
-    (``flash_fwd_f16.cu``, ``flash_bwd_f16.cu``) and the CUDA-core family
-    (``flash_generic.cu``) with nvcc (sm_90a), all five compilers at once,
+    (``flash_fwd_f16.cu``, ``flash_bwd_f16.cu``), the CUDA-core family
+    (``flash_generic.cu``) and the cluster K2 and K3 past D 256
+    (``flash_bwd_wide.cu``) with nvcc (sm_90a), all six compilers at once,
     with each one's seconds, and print ptxas's register and spill lines and
     any warning that it serialized wgmma, for every instantiation (padded
     widths 64, 128, 256);
@@ -346,7 +347,9 @@ Phases, each of which must pass or the script exits non-zero:
     shape, D 96, D 256, T 192 and not causal; the CUDA-core family
     (``csrc/flash_generic.cu``) at f32 inputs (the flagship shape, D 256)
     and at bf16, fp16 and f32 inputs at D 264 (an 8-column last panel, MQA,
-    ragged T), 320 (not causal) and 512: each against its plain version
+    ragged T), 320 (not causal) and 512, where bf16's and fp16's K2 and K3
+    run the cluster kernels (``csrc/flash_bwd_wide.cu``): each against its
+    plain version
     (16-bit: (b)'s and (f)'s limits; f32: a relative 2e-5, which one TF32
     pass and the bf16-cast inputs are shown to exceed), each entry point's
     own counter moved once a call, the f32 forms rounded once equal to the
@@ -355,24 +358,31 @@ Phases, each of which must pass or the script exits non-zero:
     cases; the fp16 backward's error below the bf16 backward's on the same
     draws in turns, at unit do and at a gradient's magnitude (do x 2^-20).
     (2) Each new kernel timed by CUDA events (the fp16 forms at the
-    flagship shape, the CUDA-core family at f32 there and at bf16 and the D
-    512 CLI shape), beside its plain version, ``scaled_dot_product_attention``
+    flagship shape, the CUDA-core family at f32 there, K1 and the cluster
+    K2 and K3 at bf16 and the D 512 CLI shape), beside its plain version,
+    ``scaled_dot_product_attention``
     at the same dtype and shape (a yardstick only) and its bound: the
     products at 989 TFLOP/s for 16-bit inputs, at a third of TF32's 495 for
     f32 inputs (the least time at f32 accuracy), the bytes at 3.35 TB/s with
-    the inputs' own element size; K1-K3 on bf16 against fp16 inputs at the
-    flagship shape in turns. (3) ``TransformerConfig(dtype=float16)``
+    the inputs' own element size; at the D 512 CLI shape the cluster K2 +
+    K3 in turns with the CUDA-core K2 + K3 (by symbol), the plain backward
+    and SDPA's backward, held to the CUDA-core outputs and faster than both
+    single calls, with the clusters the card holds at once; K1-K3 on bf16
+    against fp16 inputs at the flagship shape in turns. (3) ``TransformerConfig(dtype=float16)``
     and ``float32`` with ``attn_impl="flash"`` at the flagship width and 2
     layers: a forward (final-norm hidden states against xla, (e)'s limit)
     and 3 ``make_train_step`` steps with remat dots (K1-K3 12/6/6 on the
     fp16 or the CUDA-core counters; the first loss against xla's); the
     ``eval`` CLI (2 windows) and 3 steps of the ``train`` CLI at ``--d-model
     2048 --n-heads 4 --n-kv-heads 2`` (D 512), 2 layers, flash against xla
-    on the same weights, on the CUDA-core counters, with both step times;
-    one fp16 ``ring_flash`` step on the world-1 NCCL mesh (the fp16
-    f32-output forms 4/2/2, the loss the flash step's); the ring's hop
-    functions at fp16 and f32 and D 320 against the plain versions. (4) Nine rows of the
-    kernels line: the fp16 forms, their f32 forms and the CUDA-core family.
+    on the same weights (K1 on the CUDA-core counter, K2 and K3 on the
+    cluster kernels'), with both step times and their ratio; one fp16
+    ``ring_flash`` step on the world-1 NCCL mesh (the fp16 f32-output forms
+    4/2/2, the loss the flash step's); the ring's hop functions at fp16 and
+    f32 and D 320 against the plain versions. (4) Eleven rows of the
+    kernels line: the fp16 forms, their f32 forms, the cluster K2 and K3
+    (the D 512 train CLI's launches), the CUDA-core K1 (the same) and K2
+    and K3 (the f32 model's).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -383,6 +393,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -900,8 +911,8 @@ def phase_train() -> dict:
 # kernel-name fragments of each part of a train step's device time
 PROFILE_GROUPS = (
     ("K1 flash_fwd", ("flash_fwd_kernel", "generic_fwd_kernel")),
-    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel", "generic_dq_kernel")),
-    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel", "generic_dkv_kernel")),
+    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel", "generic_dq_kernel", "wide_dq_kernel")),
+    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel", "generic_dkv_kernel", "wide_dkv_kernel")),
     ("matmuls", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
 )
 OTHER_GROUP = "other (elementwise, norms, CE, optimizer)"
@@ -6674,8 +6685,10 @@ def phase_overlap(tp_local: dict) -> dict:
 
 
 # phase (x): K1-K3 at every input dtype and head dim the JAX package's
-# kernels take: the fp16 forms of the wgmma kernels, and the CUDA-core family
-# (csrc/flash_generic.cu) for f32 inputs at any D and bf16 or fp16 past 256
+# kernels take: the fp16 forms of the wgmma kernels, the cluster K2 and K3
+# (csrc/flash_bwd_wide.cu) for bf16 and fp16 at 256 < D <= 1024, and the
+# CUDA-core family (csrc/flash_generic.cu) for f32 inputs at any D, K1 past
+# 256 and K2 and K3 past 1024
 # f32 inputs: every output within this relative Frobenius distance of the
 # plain f32 version (an H100 read ~1e-7 before the phase was written; a TF32
 # pass, or the same inputs cast to bf16, read ~1e-3)
@@ -6958,6 +6971,65 @@ def _dt_times(tag: str, dtype, s: dict, forms=(False,), iters: int = 20) -> dict
     return rows
 
 
+def _dt_wide_turns(s: dict) -> dict:
+    """The cluster K2 and K3 at the D 512 CLI shape ``s`` (bf16, causal) in
+    turns with the CUDA-core K2 and K3 (by symbol), the plain backward and
+    SDPA's backward (cluster, CUDA-core, plain, SDPA, SDPA, plain, CUDA-core,
+    cluster), the cluster kernels' outputs held to the CUDA-core ones' by
+    (f)'s limits; K2 + K3 must beat both single calls -> {name: mean ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.ops import _build
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    b, t, h, h_kv, d = s["b"], s["t"], s["h"], s["h_kv"], s["d"]
+    x = kernel_ab.inputs(b, t, h, h_kv, d, seed=150, dtype=torch.bfloat16)
+    q, k, v, o, lse, do = (x[n] for n in ("q", "k", "v", "o", "lse", "do"))
+    res = {"cluster": {}, "cuda-core": {}}
+    launch = {name: [kernel_ab.runner(None, x, res[name], key,
+                                      symbol=None if name == "cluster"
+                                      else "hived_flash_generic_bwd_" + key)
+                     for key in ("dq", "dkv")] for name in res}
+    qt, kt, vt = (y.transpose(1, 2).contiguous().requires_grad_(True) for y in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dout = do.transpose(1, 2).contiguous()
+    calls = {"plain": lambda: attn.flash_backward_plain(q, k, v, o, lse, do),
+             "sdpa": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout, retain_graph=True)}
+    readings = {name: [] for name in ("cluster", "cuda-core", "plain", "sdpa")}
+    for name in ("cluster", "cuda-core", "plain", "sdpa", "sdpa", "plain", "cuda-core", "cluster"):
+        if name in launch:
+            iters = 20 if name == "cluster" else 2
+            readings[name].append(sum(time_ms(fn, iters=iters, warmup=1) for fn in launch[name]))
+        else:
+            readings[name].append(time_ms(calls[name], iters=3, warmup=1))
+    mean = {name: statistics.mean(r) for name, r in readings.items()}
+    errs = {n: rel_errs(res["cluster"][n], res["cuda-core"][n], floor=1e-3)
+            for n in ("dq", "dk", "dv")}
+    query = _build.load("flash_bwd_wide").hived_flash_wide_clusters
+    query.argtypes, query.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    clusters = [query(d, kernel) for kernel in (0, 1)]
+    print(f"[x] K2 + K3 at [{b},{t},{h}/{h_kv},{d}] bf16 causal in turns (ms): cluster "
+          + ", ".join(f"{r:.4f}" for r in readings["cluster"]) + "; CUDA-core "
+          + ", ".join(f"{r:.3f}" for r in readings["cuda-core"]) + "; plain backward "
+          + ", ".join(f"{r:.3f}" for r in readings["plain"]) + "; SDPA backward "
+          + ", ".join(f"{r:.4f}" for r in readings["sdpa"])
+          + f"; CUDA-core / cluster {mean['cuda-core'] / mean['cluster']:.2f}, plain / cluster "
+          f"{mean['plain'] / mean['cluster']:.2f}, SDPA / cluster "
+          f"{mean['sdpa'] / mean['cluster']:.2f}; cluster against CUDA-core: "
+          + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}" for n, (fr, rw) in errs.items())
+          + f" (<= {GRAD_REL}, {GRAD_ROW_REL}); clusters of {(d + 127) // 128} at once: K2 "
+          f"{clusters[0]}, K3 {clusters[1]}")
+    check(all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for fr, rw in errs.values()),
+          "the cluster K2/K3 disagree with the CUDA-core ones at the D 512 shape")
+    check(mean["cluster"] < min(mean["plain"], mean["sdpa"]),
+          "the cluster K2 + K3 are not faster than the plain backward and SDPA's")
+    del x, q, k, v, o, lse, do, qt, kt, vt, lib_out, dout, res, launch
+    torch.cuda.empty_cache()
+    return mean
+
+
 def _dt_turns() -> dict:
     """K1-K3 at the flagship shape on bf16 against fp16 inputs, in turns
     (bf16, fp16, fp16, bf16, twice): what fp16 costs on the same wgmma
@@ -7054,8 +7126,9 @@ def _dt_model(dtype) -> dict:
 
 def _dt_clis() -> dict:
     """eval and 3 train steps of the CLIs at D 512 (the flagship's width at
-    4 heads, 2 layers), --attn flash against --attn xla on the same weights,
-    on the CUDA-core family's counters -> the train run's launches."""
+    4 heads, 2 layers), --attn flash against --attn xla on the same weights:
+    K1 on the CUDA-core family's counter, K2 and K3 on the cluster kernels'
+    -> the train run's launches."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
@@ -7093,9 +7166,11 @@ def _dt_clis() -> dict:
 
 def _dt_ring_hops() -> None:
     """The ring's per-hop functions (``_flash_block``, ``_flash_block_grad``)
-    at fp16 and f32 inputs and D 320, diagonal and unmasked: each hop's f32
-    partials within DT_F32_REL of the plain versions (all three run the
-    CUDA-core family, in f32), one launch each on its counter."""
+    at fp16 and f32 inputs and D 320, diagonal and unmasked, one launch each
+    on its counter: each hop's f32 partials within DT_F32_REL of the plain
+    versions where the CUDA-core family runs them (f32 inputs; fp16's K1),
+    and fp16's gradients, from the cluster K2 and K3 on fp16 operands,
+    within (f)'s limits."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
@@ -7119,12 +7194,14 @@ def _dt_ring_hops() -> None:
             errs = [rel_errs(o.permute(0, 2, 1, 3), o_ref)[0]] + [
                 rel_errs(x, r)[0] for x, r in zip(grads, g_ref)]
             lse_err = float((lse.reshape(-1, q.shape[1]) - lse_ref).abs().max())
+            grad_rel = DT_F32_REL if dtype == f32 else GRAD_REL
             print(f"[x] ring hop {str(dtype)[6:]} D={d} ({'diagonal' if diag else 'unmasked'}, "
-                  f"q [1,1024,4,{d}], k/v [1,1024,2,{d}]): o, dq, dk, dv rel "
-                  + ", ".join(f"{e:.3e}" for e in errs) + f" (<= {DT_F32_REL}), max|lse err| "
-                  f"{lse_err:.3e}; launches {moved} (want {want})")
+                  f"q [1,1024,4,{d}], k/v [1,1024,2,{d}]): o rel {errs[0]:.3e} (<= {DT_F32_REL}), "
+                  "dq, dk, dv rel " + ", ".join(f"{e:.3e}" for e in errs[1:])
+                  + f" (<= {grad_rel}), max|lse err| {lse_err:.3e}; launches {moved} (want {want})")
             check(moved == want, f"the ring hop at {dtype} D {d} launched {moved}")
-            check(all(e <= DT_F32_REL for e in errs) and lse_err <= LSE_ATOL,
+            check(errs[0] <= DT_F32_REL and all(e <= grad_rel for e in errs[1:])
+                  and lse_err <= LSE_ATOL,
                   f"the ring hop at {dtype} D {d} disagrees with the plain versions")
 
 
@@ -7167,8 +7244,8 @@ def _dt_ring_fp16(first_loss: float, batch) -> dict:
 
 def phase_dtypes() -> list:
     """(x): K1-K3 at every input dtype and head dim the JAX kernels take ->
-    the kernels line's nine rows of the fp16 forms and the CUDA-core
-    family."""
+    the kernels line's eleven rows: the fp16 forms, the cluster K2 and K3 and
+    the CUDA-core family."""
     import torch
 
     t_phase = time.perf_counter()
@@ -7202,8 +7279,9 @@ def phase_dtypes() -> list:
     timed("bf16/fp16 turns", _dt_turns)
     times["f32"] = timed("f32 times", _dt_times, "f32 flagship", torch.float32, f, iters=3)
     times["d512"] = timed("d512 times", _dt_times, "bf16 D 512", torch.bfloat16, d512, iters=3)
+    timed("D 512 turns", _dt_wide_turns, d512)
     fp16 = timed("fp16 model", _dt_model, torch.float16)
-    timed("f32 model", _dt_model, torch.float32)
+    f32_model = timed("f32 model", _dt_model, torch.float32)
     d512_launches = timed("D 512 CLIs", _dt_clis)
     ring = timed("fp16 ring", _dt_ring_fp16, fp16["first_loss"], fp16["batch"])
     timed("ring hops", _dt_ring_hops)
@@ -7213,8 +7291,10 @@ def phase_dtypes() -> list:
     from hivedscheduler_tpu_torch.ops import attention as attn
 
     # the rows: fp16 forms at the flagship shape with the fp16 model's train
-    # launches (the f32 forms: the fp16 ring step's); the CUDA-core family at
-    # the D 512 CLI shape with the D 512 train CLI's launches
+    # launches (the f32 forms: the fp16 ring step's); the cluster K2 and K3
+    # and the CUDA-core K1 at the D 512 CLI shape with the D 512 train CLI's
+    # launches; the CUDA-core K2 and K3 at the f32 flagship shape with the
+    # f32 model's
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     lines = {"fwd": 98, "dq": 143, "dkv": 179}
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
@@ -7228,10 +7308,19 @@ def phase_dtypes() -> list:
                              launches=launches.get(counter, 0), **times["fp16"][(key, form)]))
     for key in ("fwd", "dq", "dkv"):
         counter = attn._COUNTERS[attn.kernel_entry(torch.bfloat16, d512["d"], False, key)]
+        rows.append(dict(name=names[key] + ("_generic" if key == "fwd" else "_wide"),
+                         route="cuda",
+                         source=source + ("flash_generic.cu" if key == "fwd" else
+                                          "flash_bwd_wide.cu"),
+                         replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
+                         launches=d512_launches.get(counter, 0), **times["d512"][(key, False)]))
+    for key in ("dq", "dkv"):
+        counter = attn._COUNTERS[attn.kernel_entry(torch.float32, 128, False, key)]
         rows.append(dict(name=names[key] + "_generic", route="cuda",
                          source=source + "flash_generic.cu",
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
-                         launches=d512_launches.get(counter, 0), **times["d512"][(key, False)]))
+                         launches=f32_model["launches"].get(counter, 0),
+                         **times["f32"][(key, False)]))
     return rows
 
 
@@ -7353,8 +7442,9 @@ def main() -> int:
     # and through (w)'s replayed tp = 2 rank pair: its launches, the errors
     # and times of (l) at a tp = 2 rank's shape
     kernels += overlap["rows"]
-    # and (x)'s: the fp16 forms (the fp16 model's steps, the fp16 ring's) and
-    # the CUDA-core family (the D 512 train CLI's)
+    # and (x)'s: the fp16 forms (the fp16 model's steps, the fp16 ring's),
+    # the cluster K2 and K3 and the CUDA-core K1 (the D 512 train CLI's) and
+    # the CUDA-core K2 and K3 (the f32 model's steps)
     kernels += dtype_rows
     print(json.dumps({"kernels": kernels}))
     print(card)

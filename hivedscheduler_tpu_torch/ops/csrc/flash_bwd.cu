@@ -216,49 +216,6 @@ __device__ __forceinline__ void ds_tile(uint32_t (&ds)[kDqBlockN / 16][4],
   }
 }
 
-// The fp16 scaling of ds (see the file's note). Accumulator-layout arrays
-// hold row a (e.g. row_a, key_a) at indices with bit 1 clear and row b at
-// those with bit 1 set, in K2's s, dp and dq and in K3's dp^T and dk alike.
-constexpr int kDsExpMax = 126;  // 2^E stays a normal f32, and so does 2^-E
-
-// the E that puts m * 2^E in [2^14, 2^15) (2^15 leaves room under fp16's
-// 65504 for the rounding); a zero or tiny m keeps the largest E
-__device__ __forceinline__ int ds_exponent(float m) {
-  return min(kDsExpMax, 141 - static_cast<int>((__float_as_uint(m) >> 23) & 0xffu));
-}
-
-// 2^e for e <= 127, built from its bits (0 below 2^-126)
-__device__ __forceinline__ float pow2i(int e) {
-  return e < -126 ? 0.f : __uint_as_float(static_cast<uint32_t>(127 + e) << 23);
-}
-
-// A tile's ds in f32 (accumulator layout) -> the two rows' new exponents
-// (never above the old ones), the accumulator's rows moved to them, and the
-// scales 2^E to pack this tile's ds with. The rows' values lie in one quad.
-template <int N, int M>
-__device__ __forceinline__ void ds_row_scales(const float (&ds)[N], float (&acc)[M], int& e_a,
-                                              int& e_b, float& sc_a, float& sc_b) {
-  float mx_a = 0.f, mx_b = 0.f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i & 2) {
-      mx_b = fmaxf(mx_b, fabsf(ds[i]));
-    } else {
-      mx_a = fmaxf(mx_a, fabsf(ds[i]));
-    }
-  }
-  const int na = min(e_a, ds_exponent(quad_max(mx_a)));
-  const int nb = min(e_b, ds_exponent(quad_max(mx_b)));
-  const float ra = pow2i(na - e_a);
-  const float rb = pow2i(nb - e_b);
-#pragma unroll
-  for (int i = 0; i < M; ++i) acc[i] *= (i & 2) ? rb : ra;
-  e_a = na;
-  e_b = nb;
-  sc_a = pow2i(na);
-  sc_b = pow2i(nb);
-}
-
 // K2's ds of one tile in f32, in place of s: as ds_tile, before any packing
 template <bool kMask, bool kCausal>
 __device__ __forceinline__ void ds_values(float (&s)[kDqBlockN / 2],

@@ -1,6 +1,7 @@
 // Device helpers of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu, flash_generic.cu): the TPU kernels' masking constants, bf16
-// and fp16 packing, quad reductions and the shared-memory attribute. The
+// flash_bwd.cu, flash_bwd_wide.cu, flash_generic.cu): the TPU kernels'
+// masking constants, bf16 and fp16 packing, quad reductions, the fp16 ds
+// scaling of the backward and the shared-memory attribute. The
 // Hopper building blocks the wgmma kernels take their tiles and products
 // from (TMA, mbarriers, wgmma) are in hopper.cuh.
 
@@ -89,6 +90,50 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The fp16 scaling of ds in K2 and K3 (flash_bwd.cu, flash_bwd_wide.cu): ds
+// is packed scaled by 2^E a row (see flash_bwd.cu's note). Accumulator-layout
+// arrays hold row a (e.g. row_a, key_a) at indices with bit 1 clear and row b
+// at those with bit 1 set, in K2's s, dp and dq and in K3's dp^T and dk alike.
+constexpr int kDsExpMax = 126;  // 2^E stays a normal f32, and so does 2^-E
+
+// the E that puts m * 2^E in [2^14, 2^15) (2^15 leaves room under fp16's
+// 65504 for the rounding); a zero or tiny m keeps the largest E
+__device__ __forceinline__ int ds_exponent(float m) {
+  return min(kDsExpMax, 141 - static_cast<int>((__float_as_uint(m) >> 23) & 0xffu));
+}
+
+// 2^e for e <= 127, built from its bits (0 below 2^-126)
+__device__ __forceinline__ float pow2i(int e) {
+  return e < -126 ? 0.f : __uint_as_float(static_cast<uint32_t>(127 + e) << 23);
+}
+
+// A tile's ds in f32 (accumulator layout) -> the two rows' new exponents
+// (never above the old ones), the accumulator's rows moved to them, and the
+// scales 2^E to pack this tile's ds with. The rows' values lie in one quad.
+template <int N, int M>
+__device__ __forceinline__ void ds_row_scales(const float (&ds)[N], float (&acc)[M], int& e_a,
+                                              int& e_b, float& sc_a, float& sc_b) {
+  float mx_a = 0.f, mx_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i & 2) {
+      mx_b = fmaxf(mx_b, fabsf(ds[i]));
+    } else {
+      mx_a = fmaxf(mx_a, fabsf(ds[i]));
+    }
+  }
+  const int na = min(e_a, ds_exponent(quad_max(mx_a)));
+  const int nb = min(e_b, ds_exponent(quad_max(mx_b)));
+  const float ra = pow2i(na - e_a);
+  const float rb = pow2i(nb - e_b);
+#pragma unroll
+  for (int i = 0; i < M; ++i) acc[i] *= (i & 2) ? rb : ra;
+  e_a = na;
+  e_b = nb;
+  sc_a = pow2i(na);
+  sc_b = pow2i(nb);
 }
 
 // Set the dynamic shared memory a kernel needs above the 48 KB default, once

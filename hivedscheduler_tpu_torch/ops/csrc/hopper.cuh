@@ -239,6 +239,12 @@ __device__ __forceinline__ void named_barrier(uint32_t id, uint32_t threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrive on barrier `id` without waiting (the others of its `threads` wait
+// in named_barrier)
+__device__ __forceinline__ void named_arrive(uint32_t id, uint32_t threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -351,5 +357,88 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HIVED_D8
 #undef HIVED_R32
 #undef HIVED_R64
+
+// ------------------------------------------------------ thread-block clusters
+// The wide backward (flash_bwd_wide.cu) runs a cluster of blocks that store
+// into each other's shared memory (distributed shared memory): st_async
+// writes at another block's shared::cluster address (map_rank) and completes
+// its bytes as transactions on that block's mbarrier, which the receiver
+// arms with mbar_expect_tx and waits on with cluster-scope acquire.
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives, then waits for the
+// others: what each did before is visible to all after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address, in block `rank`, of this block's shared::cta
+// address `addr`: the same offset in that block
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// asynchronous stores into another block's shared memory at `addr`, each
+// completing its bytes on that block's mbarrier `bar` (both from map_rank)
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, uint2 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "r"(v.x), "r"(v.y), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(addr),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// mbar_wait that also acquires what other blocks stored with st_async
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait_cluster(addr, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait_cluster(addr, parity)) {
+    if (global_ns() - t0 > kWaitLimitNs) __trap();
+  }
+}
 
 }  // namespace hived

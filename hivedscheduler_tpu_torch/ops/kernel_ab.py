@@ -12,10 +12,15 @@ same C entry points (``attention._KERNELS``, the one
 ``attention.kernel_entry`` picks for the dtype and head dim) on the same
 inputs, by default at the flagship shape (B=8, T=2048, H=16, H_kv=8,
 D=128, bf16, causal); ``--d``, ``--heads`` and ``--kv-heads`` change the
-head dim (any multiple of 8: past 256 the CUDA-core family runs) and the
+head dim (any multiple of 8: past 256 K1 runs on the CUDA-core family, K2
+and K3 on the cluster kernels) and the
 head counts (Gemma-2B's shape: ``--d 256 --heads 8 --kv-heads 1``), and
 ``--dtype`` the inputs' dtype (fp16: the wgmma kernels' fp16 forms; f32:
-the CUDA-core family). The other tree must have the entry point. Each
+the CUDA-core family). Where the other tree lacks the entry point this
+tree picks, it runs the one it routes the same call to: a tree without
+``csrc/flash_bwd_wide.cu`` ran K2 and K3 past D 256 on the CUDA-core
+family, so ``--d 512 --heads 4 --kv-heads 2`` times those against the
+cluster kernels. Each
 kernel is timed with CUDA events in the order other, this, this, other, so
 a drift of the card's clock falls on both alike. It prints each reading,
 the ratio of the means, and the largest difference between the two trees'
@@ -97,14 +102,27 @@ def inputs(b: int, t: int, h: int, h_kv: int, d: int, seed: int = 0,
     return x
 
 
-def runner(libs, x: dict, res: dict, kernel: str, out_f32: bool = False):
+def entry_in(libs, symbol: str) -> str:
+    """``symbol``, or where ``libs`` (another tree's libraries) lack its
+    library, the entry point that tree routed the call to: a cluster K2 or
+    K3's CUDA-core counterpart, which takes the same arguments."""
+    if libs is None or attn._KERNELS[symbol][0] in libs:
+        return symbol
+    generic = symbol.replace("hived_flash_wide", "hived_flash_generic")
+    if generic == symbol or attn._KERNELS[generic][0] not in libs:
+        raise RuntimeError(f"the other tree has no {symbol}")
+    return generic
+
+
+def runner(libs, x: dict, res: dict, kernel: str, out_f32: bool = False, symbol: str = None):
     """A launch of ``kernel`` ("fwd", "dq" or "dkv") from ``libs`` (None:
-    this tree's) on ``inputs``' tensors, through the entry point
-    ``attention.kernel_entry`` picks for their dtype and head dim (outputs
-    in the inputs' dtype, or in f32 with ``out_f32``), its outputs kept in
-    ``res``; it goes through ``attention._launch`` and counts no launch."""
+    this tree's) on ``inputs``' tensors, through ``symbol`` (default: the
+    entry point ``attention.kernel_entry`` picks for their dtype and head
+    dim, or the one ``libs``' tree routed it to: :func:`entry_in`), outputs
+    in the inputs' dtype, or in f32 with ``out_f32``, kept in ``res``; it
+    goes through ``attention._launch`` and counts no launch."""
     q, k, v, o, do, lse, delta = (x[n] for n in ("q", "k", "v", "o", "do", "lse", "delta"))
-    symbol = attn.kernel_entry(q.dtype, q.shape[3], out_f32, kernel)
+    symbol = symbol or entry_in(libs, attn.kernel_entry(q.dtype, q.shape[3], out_f32, kernel))
     dims = attn.launch_dims(symbol, x["dims"], q.dtype, out_f32)
     out = torch.float32 if out_f32 else q.dtype
     if kernel == "fwd":
@@ -152,7 +170,11 @@ def main(argv=None) -> int:
         mean = {tree: sum(r) / len(r) for tree, r in readings.items()}
         diff = max(float((outs["this"][key].float() - outs["other"][key].float()).abs().max())
                    for key in outs["this"])
-        print(f"{kernel} at D={args.d}, H={args.heads}, H_kv={args.kv_heads}, {args.dtype}: other "
+        symbols = {tree: entry_in(trees[tree] if tree == "other" else None,
+                                  attn.kernel_entry(DTYPES[args.dtype], args.d, False, kernel))
+                   for tree in trees}
+        print(f"{kernel} at D={args.d}, H={args.heads}, H_kv={args.kv_heads}, {args.dtype} "
+              f"(other {symbols['other']}, this {symbols['this']}): other "
               f"{readings['other']} ms, this {readings['this']} ms; "
               f"other/this {mean['other'] / mean['this']:.3f}; max |this - other| "
               f"over its outputs {diff:.3e} ({card})")

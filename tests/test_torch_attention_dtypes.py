@@ -149,10 +149,14 @@ def test_kernel_entry_takes_the_wgmma_kernels_up_to_256(dtype, suffix, d):
 @pytest.mark.parametrize("dtype, d", [
     (torch.float32, 8), (torch.float32, 128), (torch.float32, 256), (torch.float32, 264),
     (torch.float32, 1024), (torch.bfloat16, 264), (torch.bfloat16, 512),
-    (torch.float16, 320), (torch.float16, 1024)])
+    (torch.float16, 320), (torch.float16, 1024), (torch.bfloat16, 1032),
+    (torch.float16, 1032)])
 def test_kernel_entry_takes_the_cuda_core_family(dtype, d):
+    # f32 inputs at every D, K1 at 16-bit inputs past 256, and K2 and K3 at
+    # 16-bit inputs past 1024 (the cluster kernels' limit)
     code = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}[dtype]
-    for kernel, stem in STEMS.items():
+    kernels = STEMS if dtype == torch.float32 or d > 1024 else {"fwd": STEMS["fwd"]}
+    for kernel, stem in kernels.items():
         for out_f32 in (False, True):
             symbol = tattn.kernel_entry(dtype, d, out_f32, kernel)
             assert symbol == stem.replace("hived_flash", "hived_flash_generic")
@@ -161,6 +165,27 @@ def test_kernel_entry_takes_the_cuda_core_family(dtype, d):
             assert tattn.launch_dims(symbol, (1, 2, 3, 4, d, 0), dtype, out_f32) == (
                 1, 2, 3, 4, d, 0, code, 2 if out_f32 else code)
             assert tattn._KERNELS[symbol][2] == 8
+
+
+@pytest.mark.parametrize("out_f32", [False, True], ids=["in-dtype", "f32-out"])
+@pytest.mark.parametrize("d", [264, 320, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_kernel_entry_takes_the_wide_backward(dtype, d, out_f32):
+    # K2 and K3 at 16-bit inputs past 256 up to 1024: the cluster kernels,
+    # one symbol each for every input and output type, type codes after the
+    # dims as the CUDA-core family's
+    code = {torch.bfloat16: 0, torch.float16: 1}[dtype]
+    for kernel in ("dq", "dkv"):
+        symbol = tattn.kernel_entry(dtype, d, out_f32, kernel)
+        assert symbol == f"hived_flash_wide_bwd_{kernel}"
+        assert tattn._KERNELS[symbol] == ("flash_bwd_wide", 8, 8, 18)
+        assert tattn._KERNELS[symbol][1:] == tattn._KERNELS[
+            STEMS[kernel].replace("hived_flash", "hived_flash_generic")][1:]
+        assert tattn.launch_dims(symbol, (1, 2, 3, 4, d, 1), dtype, out_f32) == (
+            1, 2, 3, 4, d, 1, code, 2 if out_f32 else code)
+    assert tattn.kernel_entry(dtype, d, out_f32, "fwd") == "hived_flash_generic_fwd"
+    assert tattn.kernel_entry(torch.float32, d, out_f32, "dq") == "hived_flash_generic_bwd_dq"
+    assert d in tattn.WIDE_BWD_HEAD_DIMS and d not in tattn.WGMMA_HEAD_DIMS
 
 
 @pytest.mark.parametrize("dtype, d, error", [
@@ -175,6 +200,8 @@ def test_kernel_entry_refuses(dtype, d, error):
 def test_every_entry_point_has_its_own_launch_counter():
     assert set(tattn._COUNTERS) == set(tattn._KERNELS)
     assert len(set(tattn._COUNTERS.values())) == len(tattn._COUNTERS)
+    assert tattn._COUNTERS["hived_flash_wide_bwd_dq"] == "FLASH_BWD_DQ_WIDE_LAUNCHES"
+    assert tattn._COUNTERS["hived_flash_wide_bwd_dkv"] == "FLASH_BWD_DKV_WIDE_LAUNCHES"
     for counter in tattn._COUNTERS.values():
         assert isinstance(getattr(tattn, counter), int)
     assert tattn.KERNEL_DTYPES == (torch.bfloat16, torch.float16, torch.float32)

@@ -105,9 +105,39 @@ def test_kernel_ab_refuses_without_a_card(tmp_path):
     from hivedscheduler_tpu_torch.ops import kernel_ab
 
     assert kernel_ab.libraries() == sorted(_build.LIBRARIES) == [
-        "flash_bwd", "flash_bwd_f16", "flash_fwd", "flash_fwd_f16", "flash_generic"]
+        "flash_bwd", "flash_bwd_f16", "flash_bwd_wide", "flash_fwd", "flash_fwd_f16",
+        "flash_generic"]
     assert kernel_ab.main(["--other", str(tmp_path)]) != 0
     assert not os.listdir(tmp_path)  # nothing was built
+
+
+def test_kernel_ab_times_the_other_trees_route():
+    # a tree without the cluster kernels' library ran K2 and K3 past D 256
+    # on the CUDA-core family: the comparison calls that, with the same
+    # arguments; a symbol the other tree lacks otherwise is refused
+    from hivedscheduler_tpu_torch.ops import attention as tattn
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    parent = {n: None for n in _build.LIBRARIES if n != "flash_bwd_wide"}
+    for kernel in ("dq", "dkv"):
+        symbol = tattn.kernel_entry(torch.bfloat16, 512, False, kernel)
+        assert symbol == f"hived_flash_wide_bwd_{kernel}"
+        assert kernel_ab.entry_in(parent, symbol) == f"hived_flash_generic_bwd_{kernel}"
+        assert kernel_ab.entry_in(None, symbol) == symbol
+        assert tattn._KERNELS[kernel_ab.entry_in(parent, symbol)][1:] == tattn._KERNELS[symbol][1:]
+    assert kernel_ab.entry_in(parent, "hived_flash_bwd_dq") == "hived_flash_bwd_dq"
+    with pytest.raises(RuntimeError) as info:
+        kernel_ab.entry_in({"flash_generic": None}, "hived_flash_fwd")
+    assert "hived_flash_fwd" in str(info.value)
+
+
+def test_dsmem_rate_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from hivedscheduler_tpu_torch.ops import dsmem_rate
+
+    assert dsmem_rate.main([]) != 0
+    assert os.path.exists(os.path.join(os.path.dirname(_build.CSRC), "dsmem_rate.cu"))
 
 
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
@@ -163,9 +193,10 @@ def test_profile_groups_follow_the_kernel_names():
             with open(os.path.join(_build.CSRC, src)) as f:
                 names.update(_GLOBAL.findall(f.read()))
     groups = {name: chip_smoke.profile_group(name) for name in names}
-    # each of K1-K3 has a wgmma kernel and a CUDA-core one (flash_generic.cu)
-    assert sorted(groups.values()) == ["K1 flash_fwd"] * 2 + ["K2 flash_bwd_dq"] * 2 + [
-        "K3 flash_bwd_dkv"] * 2
+    # each of K1-K3 has a wgmma kernel and a CUDA-core one (flash_generic.cu),
+    # and K2 and K3 a cluster one (flash_bwd_wide.cu)
+    assert sorted(groups.values()) == ["K1 flash_fwd"] * 2 + ["K2 flash_bwd_dq"] * 3 + [
+        "K3 flash_bwd_dkv"] * 3
     # as the profiler shows them: mangled, inside their anonymous namespace
     for name, group in groups.items():
         mangled = f"_ZN45_GLOBAL__N__0123_12_x{len(name)}{name}ILi128ELb1EEEvNS_4ArgsE"

@@ -1115,21 +1115,131 @@ def test_cuda_core_family_stores_no_column_past_d(cuda, dtype):
                                       (torch.float32, 320)], ids=["fp16-320", "f32-128", "f32-320"])
 def test_ring_hops_run_every_dtype_and_head_dim(cuda, dtype, d):
     # the ring's per-hop functions reach the new forms through flash_forward
-    # and flash_backward unchanged: f32 partials of the CUDA-core family
+    # and flash_backward unchanged: f32 partials of the CUDA-core family (f32
+    # inputs, and fp16's K1), and at fp16 past D 256 of the cluster K2 and
+    # K3, whose fp16 operands hold the gradients to the 16-bit limits
     from hivedscheduler_tpu_torch.parallel import ring_attention as tring
 
     f32 = torch.float32
     q, k, v, do = _dtype_inputs(dtype, 1, 256, 4, 2, d, True, seed=13)
+    counters = [tattn._COUNTERS[tattn.kernel_entry(dtype, d, True, kernel)]
+                for kernel in ("fwd", "dkv")]
+    grad_rel = F32_REL if dtype == f32 else GRAD_REL
     for diag in (True, False):
-        before = tattn.FLASH_FWD_GENERIC_LAUNCHES, tattn.FLASH_BWD_DKV_GENERIC_LAUNCHES
+        before = [getattr(tattn, n) for n in counters]
         o, lse = tring._flash_block(q, k, v, diag)
         out = o.permute(0, 2, 1, 3).to(dtype).contiguous()
         rows = lse.reshape(-1, q.shape[1]).contiguous()
         grads = tring._flash_block_grad(q, k, v, out, rows, do, diag)
-        assert (tattn.FLASH_FWD_GENERIC_LAUNCHES, tattn.FLASH_BWD_DKV_GENERIC_LAUNCHES) == (
-            before[0] + 1, before[1] + 1)
+        assert [getattr(tattn, n) for n in counters] == [n + 1 for n in before]
         o_ref, _ = tattn.flash_attention_plain(q, k, v, causal=diag, out_dtype=f32)
         g_ref = tattn.flash_backward_plain(q, k, v, out, rows, do, causal=diag, grad_dtype=f32)
         assert o.dtype == f32 and _grad_errs(o.permute(0, 2, 1, 3), o_ref)[0] <= F32_REL
         for x, r in zip(grads, g_ref):
-            assert x.dtype == f32 and _grad_errs(x, r)[0] <= F32_REL
+            assert x.dtype == f32 and _grad_errs(x, r)[0] <= grad_rel
+
+
+# -- the cluster K2 and K3 past D 256 (csrc/flash_bwd_wide.cu) -------------------
+
+# (B, T, H, H_kv, D, causal): clusters of 3 (D 264, an 8-column last panel;
+# 320; 384), 4 (512), 5 (640), 6 (768), 8 (896, whose 7 panels run as 8;
+# 1024) blocks; GQA groups 1, 2 and 4 and H_kv = 1; T 1000 and 130, ragged
+# against K2's 128-row and both 64 tiles
+WIDE_BWD_SHAPES = [
+    (2, 1000, 4, 1, 264, True),
+    (1, 256, 4, 2, 320, False),
+    (1, 256, 4, 4, 384, True),
+    (2, 256, 4, 2, 512, True),
+    (1, 1000, 4, 4, 512, False),
+    (1, 256, 4, 2, 640, False),
+    (1, 192, 8, 2, 768, True),
+    (1, 130, 4, 1, 896, True),
+    (1, 200, 4, 1, 1024, True),
+    (1, 256, 2, 2, 1024, False),
+]
+
+
+def _cuda_core_backward(q, k, v, o, lse, do, causal, out_f32):
+    """K2 then K3 of the CUDA-core family, called by symbol on the same
+    inputs -> (dq, dk, dv)."""
+    out = torch.float32 if out_f32 else q.dtype
+    dims = (*q.shape[:3], k.shape[2], q.shape[3], int(causal))
+    stream = torch.cuda.current_stream().cuda_stream
+    dq, delta = torch.empty_like(q, dtype=out), torch.empty_like(lse)
+    dk, dv = torch.empty_like(k, dtype=out), torch.empty_like(v, dtype=out)
+    for symbol, ptrs, strided in (
+            ("hived_flash_generic_bwd_dq", (q, k, v, o, do, lse, delta, dq), (q, k, v, o, do, dq)),
+            ("hived_flash_generic_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+             (q, k, v, do, dk, dv))):
+        tattn._launch(symbol, ptrs, tattn.launch_dims(symbol, dims, q.dtype, out_f32), strided,
+                      stream)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("shape", WIDE_BWD_SHAPES,
+                         ids=[f"d{s[4]}-t{s[1]}-g{s[2] // s[3]}-{'causal' if s[5] else 'full'}"
+                              for s in WIDE_BWD_SHAPES])
+def test_wide_backward_matches_plain_and_cuda_core(cuda, dtype, shape):
+    # both output forms against the plain f32 backward and the CUDA-core K2
+    # and K3 on the same inputs ((f)'s limits), one launch each on the
+    # cluster kernels' counters, two runs bit-identical, the f32 forms
+    # rounded once equal to the dtype's
+    b, t, h, h_kv, d, causal = shape
+    q, k, v, do = _dtype_inputs(dtype, *shape, seed=21)
+    o, lse = tattn.flash_forward(q, k, v, causal=causal)
+    ref = tattn.flash_backward_plain(q, k, v, o, lse, do, causal=causal,
+                                     grad_dtype=torch.float32)
+    forms = {}
+    for out_f32 in (False, True):
+        grad_dtype = torch.float32 if out_f32 else None
+        before = (tattn.FLASH_BWD_DQ_WIDE_LAUNCHES, tattn.FLASH_BWD_DKV_WIDE_LAUNCHES)
+        got = tattn.flash_backward(q, k, v, o, lse, do, causal=causal, grad_dtype=grad_dtype)
+        torch.cuda.synchronize()
+        assert (tattn.FLASH_BWD_DQ_WIDE_LAUNCHES, tattn.FLASH_BWD_DKV_WIDE_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        assert all(x.dtype == (torch.float32 if out_f32 else dtype) for x in got)
+        again = tattn.flash_backward(q, k, v, o, lse, do, causal=causal, grad_dtype=grad_dtype)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        core = _cuda_core_backward(q, k, v, o, lse, do, causal, out_f32)
+        for name, x, r, c in zip(("dq", "dk", "dv"), got, ref, core):
+            for against in (r, c):
+                fro, row = _grad_errs(x, against)
+                assert fro <= GRAD_REL and row <= GRAD_ROW_REL, (name, out_f32, fro, row)
+        forms[out_f32] = got
+    assert all(torch.equal(x.to(dtype), y) for x, y in zip(forms[True], forms[False]))
+
+
+@pytest.mark.parametrize("do_scale", [1.0, 2.0 ** -20])
+def test_wide_fp16_backward_beats_bf16_on_the_same_inputs(cuda, do_scale):
+    # as the D 128 test: the same f32 draws rounded to each type, the f32
+    # forms against each one's plain version; at a gradient's magnitude the
+    # fp16 ds row scaling, derived from the summed ds, must still show
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v, do = _dtype_inputs(dtype, 1, 512, 4, 2, 512, True, seed=22, do_scale=do_scale)
+        o, lse = tattn.flash_forward(q, k, v)
+        got = tattn.flash_backward(q, k, v, o, lse, do, grad_dtype=torch.float32)
+        want = tattn.flash_backward_plain(q, k, v, o, lse, do, grad_dtype=torch.float32)
+        errs[dtype] = [_grad_errs(x, r)[0] for x, r in zip(got, want)]
+    assert all(a < b for a, b in zip(errs[torch.float16], errs[torch.bfloat16])), errs
+
+
+def test_wide_backward_refuses_what_it_does_not_take(cuda):
+    # a dtype or head dim off the cluster kernels' range is refused by the
+    # entry point itself, not run on another kernel
+    q, k, v, do = _dtype_inputs(torch.bfloat16, 1, 128, 2, 2, 512, True, seed=23)
+    o, lse = tattn.flash_forward(q, k, v)
+    dims = (1, 128, 2, 2, 512, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    delta, dq = torch.empty_like(lse), torch.empty_like(q)
+    symbol = "hived_flash_wide_bwd_dq"
+    ptrs, strided = (q, k, v, o, do, lse, delta, dq), (q, k, v, o, do, dq)
+    for bad in ((1, 128, 2, 2, 256, 1, 0, 0), (1, 128, 2, 2, 1032, 1, 0, 0),
+                (1, 128, 2, 2, 512, 1, 2, 2), (1, 128, 2, 2, 512, 1, 0, 1)):
+        with pytest.raises(RuntimeError) as info:
+            tattn._launch(symbol, ptrs, bad, strided, stream)
+        assert "CUDA error" in str(info.value)
+    tattn._launch(symbol, ptrs, tattn.launch_dims(symbol, dims, q.dtype, False), strided, stream)
+    torch.cuda.synchronize()
+    assert _grad_errs(dq, tattn.flash_backward_plain(q, k, v, o, lse, do)[0])[0] <= GRAD_REL
