@@ -9,8 +9,9 @@ Phases, each of which must pass or the script exits non-zero:
     ``hivedscheduler_tpu_torch/ops/csrc/flash_fwd.cu`` (K1) and
     ``flash_bwd.cu`` (K2, K3), their fp16 instantiations
     (``flash_fwd_f16.cu``, ``flash_bwd_f16.cu``), the CUDA-core family
-    (``flash_generic.cu``) and the cluster K2 and K3 past D 256
-    (``flash_bwd_wide.cu``) with nvcc (sm_90a), all six compilers at once,
+    (``flash_generic.cu``) and the cluster K1, and K2 and K3, past D 256
+    (``flash_fwd_wide.cu``, ``flash_bwd_wide.cu``) with nvcc (sm_90a), all
+    seven compilers at once,
     with each one's seconds, and print ptxas's register and spill lines and
     any warning that it serialized wgmma, for every instantiation (padded
     widths 64, 128, 256);
@@ -347,9 +348,9 @@ Phases, each of which must pass or the script exits non-zero:
     shape, D 96, D 256, T 192 and not causal; the CUDA-core family
     (``csrc/flash_generic.cu``) at f32 inputs (the flagship shape, D 256)
     and at bf16, fp16 and f32 inputs at D 264 (an 8-column last panel, MQA,
-    ragged T), 320 (not causal) and 512, where bf16's and fp16's K2 and K3
-    run the cluster kernels (``csrc/flash_bwd_wide.cu``): each against its
-    plain version
+    ragged T), 320 (not causal) and 512, where bf16's and fp16's K1-K3 run
+    the cluster kernels (``csrc/flash_fwd_wide.cu``,
+    ``csrc/flash_bwd_wide.cu``): each against its plain version
     (16-bit: (b)'s and (f)'s limits; f32: a relative 2e-5, which one TF32
     pass and the bf16-cast inputs are shown to exceed), each entry point's
     own counter moved once a call, the f32 forms rounded once equal to the
@@ -364,10 +365,13 @@ Phases, each of which must pass or the script exits non-zero:
     at the same dtype and shape (a yardstick only) and its bound: the
     products at 989 TFLOP/s for 16-bit inputs, at a third of TF32's 495 for
     f32 inputs (the least time at f32 accuracy), the bytes at 3.35 TB/s with
-    the inputs' own element size; at the D 512 CLI shape the cluster K2 +
-    K3 in turns with the CUDA-core K2 + K3 (by symbol), the plain backward
-    and SDPA's backward, held to the CUDA-core outputs and faster than both
-    single calls, with the clusters the card holds at once; K1-K3 on bf16
+    the inputs' own element size; at the D 512 CLI shape the cluster K1 in
+    turns with the CUDA-core K1 (by symbol), the plain forward and SDPA,
+    held to the CUDA-core K1 and the plain version by (b)'s limits and
+    faster than the plain version and SDPA, and the cluster K2 + K3 in
+    turns with the CUDA-core K2 + K3, the plain backward and SDPA's
+    backward, held to the CUDA-core outputs and faster than both single
+    calls, each with the clusters the card holds at once; K1-K3 on bf16
     against fp16 inputs at the flagship shape in turns. (3) ``TransformerConfig(dtype=float16)``
     and ``float32`` with ``attn_impl="flash"`` at the flagship width and 2
     layers: a forward (final-norm hidden states against xla, (e)'s limit)
@@ -375,14 +379,15 @@ Phases, each of which must pass or the script exits non-zero:
     fp16 or the CUDA-core counters; the first loss against xla's); the
     ``eval`` CLI (2 windows) and 3 steps of the ``train`` CLI at ``--d-model
     2048 --n-heads 4 --n-kv-heads 2`` (D 512), 2 layers, flash against xla
-    on the same weights (K1 on the CUDA-core counter, K2 and K3 on the
-    cluster kernels'), with both step times and their ratio; one fp16
+    on the same weights (K1, K2 and K3 on the cluster kernels' counters,
+    none on the CUDA-core ones), with both step and window times and their
+    ratios; one fp16
     ``ring_flash`` step on the world-1 NCCL mesh (the fp16 f32-output forms
     4/2/2, the loss the flash step's); the ring's hop functions at fp16 and
-    f32 and D 320 against the plain versions. (4) Eleven rows of the
-    kernels line: the fp16 forms, their f32 forms, the cluster K2 and K3
-    (the D 512 train CLI's launches), the CUDA-core K1 (the same) and K2
-    and K3 (the f32 model's).
+    f32 and D 320 against the plain versions. (4) Twelve rows of the
+    kernels line: the fp16 forms, their f32 forms, the cluster K1, K2 and
+    K3 (the D 512 train CLI's launches) and the CUDA-core K1, K2 and K3 (the
+    f32 model's).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -910,7 +915,7 @@ def phase_train() -> dict:
 
 # kernel-name fragments of each part of a train step's device time
 PROFILE_GROUPS = (
-    ("K1 flash_fwd", ("flash_fwd_kernel", "generic_fwd_kernel")),
+    ("K1 flash_fwd", ("flash_fwd_kernel", "generic_fwd_kernel", "wide_fwd_kernel")),
     ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel", "generic_dq_kernel", "wide_dq_kernel")),
     ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel", "generic_dkv_kernel", "wide_dkv_kernel")),
     ("matmuls", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
@@ -6685,10 +6690,10 @@ def phase_overlap(tp_local: dict) -> dict:
 
 
 # phase (x): K1-K3 at every input dtype and head dim the JAX package's
-# kernels take: the fp16 forms of the wgmma kernels, the cluster K2 and K3
-# (csrc/flash_bwd_wide.cu) for bf16 and fp16 at 256 < D <= 1024, and the
-# CUDA-core family (csrc/flash_generic.cu) for f32 inputs at any D, K1 past
-# 256 and K2 and K3 past 1024
+# kernels take: the fp16 forms of the wgmma kernels, the cluster K1-K3
+# (csrc/flash_fwd_wide.cu, csrc/flash_bwd_wide.cu) for bf16 and fp16 at 256
+# < D <= 1024, and the CUDA-core family (csrc/flash_generic.cu) for f32
+# inputs at any D and 16-bit ones past 1024
 # f32 inputs: every output within this relative Frobenius distance of the
 # plain f32 version (an H100 read ~1e-7 before the phase was written; a TF32
 # pass, or the same inputs cast to bf16, read ~1e-3)
@@ -6971,6 +6976,65 @@ def _dt_times(tag: str, dtype, s: dict, forms=(False,), iters: int = 20) -> dict
     return rows
 
 
+def _dt_wide_fwd_turns(s: dict) -> dict:
+    """The cluster K1 at the D 512 CLI shape ``s`` (bf16, causal) in turns
+    with the CUDA-core K1 (by symbol), the plain forward and SDPA (cluster,
+    CUDA-core, plain, SDPA, SDPA, plain, CUDA-core, cluster), its o and lse
+    held to the CUDA-core K1's and the plain version's by (b)'s limits; it
+    must beat the plain version and SDPA -> {name: mean ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from hivedscheduler_tpu_torch.ops import _build
+    from hivedscheduler_tpu_torch.ops import attention as attn
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    b, t, h, h_kv, d = s["b"], s["t"], s["h"], s["h_kv"], s["d"]
+    x = kernel_ab.inputs(b, t, h, h_kv, d, seed=160, dtype=torch.bfloat16)
+    q, k, v = x["q"], x["k"], x["v"]
+    res = {"cluster": {}, "cuda-core": {}}
+    launch = {name: kernel_ab.runner(None, x, res[name], "fwd",
+                                     symbol=None if name == "cluster" else "hived_flash_generic_fwd")
+              for name in res}
+    qt, kt, vt = (y.transpose(1, 2).contiguous() for y in (q, k, v))
+    launch["plain"] = lambda: attn.flash_attention_plain(q, k, v)
+    launch["sdpa"] = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                            enable_gqa=True)
+    iters = {"cluster": 20, "cuda-core": 3, "plain": 2, "sdpa": 3}
+    readings = {name: [] for name in launch}
+    for name in ("cluster", "cuda-core", "plain", "sdpa", "sdpa", "plain", "cuda-core", "cluster"):
+        readings[name].append(time_ms(launch[name], iters=iters[name], warmup=1))
+    mean = {name: statistics.mean(r) for name, r in readings.items()}
+    o_ref, lse_ref = attn.flash_attention_plain(q, k, v, out_dtype=torch.float32)
+    got = res["cluster"]
+    errs = {"plain": rel_errs(got["o"], o_ref), "CUDA-core": rel_errs(got["o"], res["cuda-core"]["o"])}
+    lse_errs = {"plain": float((got["lse"] - lse_ref).abs().max()),
+                "CUDA-core": float((got["lse"] - res["cuda-core"]["lse"]).abs().max())}
+    query = _build.load("flash_fwd_wide").hived_flash_wide_fwd_clusters
+    query.argtypes, query.restype = [ctypes.c_int], ctypes.c_int
+    print(f"[x] K1 at [{b},{t},{h}/{h_kv},{d}] bf16 causal in turns (ms): cluster "
+          + ", ".join(f"{r:.4f}" for r in readings["cluster"]) + "; CUDA-core "
+          + ", ".join(f"{r:.3f}" for r in readings["cuda-core"]) + "; plain forward "
+          + ", ".join(f"{r:.3f}" for r in readings["plain"]) + "; SDPA "
+          + ", ".join(f"{r:.4f}" for r in readings["sdpa"])
+          + f" ({_sdpa_backend(qt, kt, vt, True)}); CUDA-core / cluster "
+          f"{mean['cuda-core'] / mean['cluster']:.2f}, plain / cluster "
+          f"{mean['plain'] / mean['cluster']:.2f}, SDPA / cluster "
+          f"{mean['sdpa'] / mean['cluster']:.2f}; cluster o against "
+          + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}, max|lse err| {lse_errs[n]:.3e}"
+                      for n, (fr, rw) in errs.items())
+          + f" (<= {O_REL}, {O_ROW_REL}, {LSE_ATOL}); clusters of {(d + 127) // 128} at once "
+          f"{query(d)}")
+    check(all(fr <= O_REL and rw <= O_ROW_REL for fr, rw in errs.values())
+          and all(e <= LSE_ATOL for e in lse_errs.values()),
+          "the cluster K1 disagrees with the CUDA-core K1 or the plain version at the D 512 shape")
+    check(mean["cluster"] < min(mean["plain"], mean["sdpa"]),
+          "the cluster K1 is not faster than the plain forward and SDPA")
+    del x, q, k, v, qt, kt, vt, res, launch, o_ref, lse_ref, got
+    torch.cuda.empty_cache()
+    return mean
+
+
 def _dt_wide_turns(s: dict) -> dict:
     """The cluster K2 and K3 at the D 512 CLI shape ``s`` (bf16, causal) in
     turns with the CUDA-core K2 and K3 (by symbol), the plain backward and
@@ -7127,8 +7191,8 @@ def _dt_model(dtype) -> dict:
 def _dt_clis() -> dict:
     """eval and 3 train steps of the CLIs at D 512 (the flagship's width at
     4 heads, 2 layers), --attn flash against --attn xla on the same weights:
-    K1 on the CUDA-core family's counter, K2 and K3 on the cluster kernels'
-    -> the train run's launches."""
+    K1, K2 and K3 on the cluster kernels' counters and none on the CUDA-core
+    family's -> the train run's launches."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
@@ -7139,10 +7203,15 @@ def _dt_clis() -> dict:
     loss_f, _, _ = run_eval("flash", D512_WINDOWS, D512_ARGS)
     eval_launches = _moved(attn, before)
     loss_x, _, _ = run_eval("xla", D512_WINDOWS, D512_ARGS)
+    # the windows timed again once both are warm (the first runs pay each
+    # shape's first use), as eval reports them
+    win = {impl: run_eval(impl, D512_WINDOWS, D512_ARGS)[1] for impl in ("flash", "xla")}
     want = _want(attn, torch.bfloat16, d, {"fwd": layers * D512_WINDOWS})
     print(f"[x] eval --attn flash at D {d} ({layers} layers, {D512_WINDOWS} windows): loss "
-          f"{loss_f:.6f}, launches {eval_launches} (want {want}); xla {loss_x:.6f}: |diff| "
-          f"{abs(loss_f - loss_x):.3e} (<= {LOSS_ATOL})")
+          f"{loss_f:.6f}, launches {eval_launches} (want {want}; CUDA-core K1 "
+          f"{eval_launches.get('FLASH_FWD_GENERIC_LAUNCHES', 0)}); xla {loss_x:.6f}: |diff| "
+          f"{abs(loss_f - loss_x):.3e} (<= {LOSS_ATOL}); window ms once warm: flash "
+          f"{win['flash']:.1f}, xla {win['xla']:.1f} (flash / xla {win['flash'] / win['xla']:.2f})")
     check(eval_launches == want, f"eval at D {d} launched {eval_launches}")
     check(abs(loss_f - loss_x) <= LOSS_ATOL, f"eval at D {d}: flash and xla losses disagree")
     train_args = D512_ARGS + ["--remat", "dots", "--log-every", "1"]
@@ -7156,7 +7225,9 @@ def _dt_clis() -> dict:
     step_ms = {impl: statistics.mean(r["wall_s"] for r in rec if not r["compile"]) * 1e3
                for impl, rec in (("flash", rec_f), ("xla", rec_x))}
     print(f"[x] train --attn flash --remat dots at D {d}, {TRAIN_STEPS} steps: losses {lf}; "
-          f"launches {launches} (want {want}); xla {lx}: first |diff| {abs(lf[0] - lx[0]):.3e} "
+          f"launches {launches} (want {want}; CUDA-core K1 "
+          f"{launches.get('FLASH_FWD_GENERIC_LAUNCHES', 0)}); xla {lx}: first |diff| "
+          f"{abs(lf[0] - lx[0]):.3e} "
           f"(<= {LOSS_ATOL}); step ms after the warm-up: flash {step_ms['flash']:.1f}, xla "
           f"{step_ms['xla']:.1f} (flash / xla {step_ms['flash'] / step_ms['xla']:.2f})")
     check(launches == want, f"train at D {d} launched {launches}")
@@ -7168,9 +7239,9 @@ def _dt_ring_hops() -> None:
     """The ring's per-hop functions (``_flash_block``, ``_flash_block_grad``)
     at fp16 and f32 inputs and D 320, diagonal and unmasked, one launch each
     on its counter: each hop's f32 partials within DT_F32_REL of the plain
-    versions where the CUDA-core family runs them (f32 inputs; fp16's K1),
-    and fp16's gradients, from the cluster K2 and K3 on fp16 operands,
-    within (f)'s limits."""
+    versions where the CUDA-core family runs them (f32 inputs), and fp16's,
+    from the cluster K1-K3 on fp16 operands, within (b)'s and (f)'s
+    limits."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
@@ -7194,13 +7265,13 @@ def _dt_ring_hops() -> None:
             errs = [rel_errs(o.permute(0, 2, 1, 3), o_ref)[0]] + [
                 rel_errs(x, r)[0] for x, r in zip(grads, g_ref)]
             lse_err = float((lse.reshape(-1, q.shape[1]) - lse_ref).abs().max())
-            grad_rel = DT_F32_REL if dtype == f32 else GRAD_REL
+            o_rel, grad_rel = (DT_F32_REL, DT_F32_REL) if dtype == f32 else (O_REL, GRAD_REL)
             print(f"[x] ring hop {str(dtype)[6:]} D={d} ({'diagonal' if diag else 'unmasked'}, "
-                  f"q [1,1024,4,{d}], k/v [1,1024,2,{d}]): o rel {errs[0]:.3e} (<= {DT_F32_REL}), "
+                  f"q [1,1024,4,{d}], k/v [1,1024,2,{d}]): o rel {errs[0]:.3e} (<= {o_rel}), "
                   "dq, dk, dv rel " + ", ".join(f"{e:.3e}" for e in errs[1:])
                   + f" (<= {grad_rel}), max|lse err| {lse_err:.3e}; launches {moved} (want {want})")
             check(moved == want, f"the ring hop at {dtype} D {d} launched {moved}")
-            check(errs[0] <= DT_F32_REL and all(e <= grad_rel for e in errs[1:])
+            check(errs[0] <= o_rel and all(e <= grad_rel for e in errs[1:])
                   and lse_err <= LSE_ATOL,
                   f"the ring hop at {dtype} D {d} disagrees with the plain versions")
 
@@ -7244,7 +7315,7 @@ def _dt_ring_fp16(first_loss: float, batch) -> dict:
 
 def phase_dtypes() -> list:
     """(x): K1-K3 at every input dtype and head dim the JAX kernels take ->
-    the kernels line's eleven rows: the fp16 forms, the cluster K2 and K3 and
+    the kernels line's twelve rows: the fp16 forms, the cluster K1-K3 and
     the CUDA-core family."""
     import torch
 
@@ -7279,6 +7350,7 @@ def phase_dtypes() -> list:
     timed("bf16/fp16 turns", _dt_turns)
     times["f32"] = timed("f32 times", _dt_times, "f32 flagship", torch.float32, f, iters=3)
     times["d512"] = timed("d512 times", _dt_times, "bf16 D 512", torch.bfloat16, d512, iters=3)
+    timed("D 512 K1 turns", _dt_wide_fwd_turns, d512)
     timed("D 512 turns", _dt_wide_turns, d512)
     fp16 = timed("fp16 model", _dt_model, torch.float16)
     f32_model = timed("f32 model", _dt_model, torch.float32)
@@ -7291,10 +7363,9 @@ def phase_dtypes() -> list:
     from hivedscheduler_tpu_torch.ops import attention as attn
 
     # the rows: fp16 forms at the flagship shape with the fp16 model's train
-    # launches (the f32 forms: the fp16 ring step's); the cluster K2 and K3
-    # and the CUDA-core K1 at the D 512 CLI shape with the D 512 train CLI's
-    # launches; the CUDA-core K2 and K3 at the f32 flagship shape with the
-    # f32 model's
+    # launches (the f32 forms: the fp16 ring step's); the cluster K1-K3 at
+    # the D 512 CLI shape with the D 512 train CLI's launches; the CUDA-core
+    # K1-K3 at the f32 flagship shape with the f32 model's
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     lines = {"fwd": 98, "dq": 143, "dkv": 179}
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
@@ -7308,13 +7379,12 @@ def phase_dtypes() -> list:
                              launches=launches.get(counter, 0), **times["fp16"][(key, form)]))
     for key in ("fwd", "dq", "dkv"):
         counter = attn._COUNTERS[attn.kernel_entry(torch.bfloat16, d512["d"], False, key)]
-        rows.append(dict(name=names[key] + ("_generic" if key == "fwd" else "_wide"),
-                         route="cuda",
-                         source=source + ("flash_generic.cu" if key == "fwd" else
+        rows.append(dict(name=names[key] + "_wide", route="cuda",
+                         source=source + ("flash_fwd_wide.cu" if key == "fwd" else
                                           "flash_bwd_wide.cu"),
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=d512_launches.get(counter, 0), **times["d512"][(key, False)]))
-    for key in ("dq", "dkv"):
+    for key in ("fwd", "dq", "dkv"):
         counter = attn._COUNTERS[attn.kernel_entry(torch.float32, 128, False, key)]
         rows.append(dict(name=names[key] + "_generic", route="cuda",
                          source=source + "flash_generic.cu",
@@ -7443,8 +7513,8 @@ def main() -> int:
     # and times of (l) at a tp = 2 rank's shape
     kernels += overlap["rows"]
     # and (x)'s: the fp16 forms (the fp16 model's steps, the fp16 ring's),
-    # the cluster K2 and K3 and the CUDA-core K1 (the D 512 train CLI's) and
-    # the CUDA-core K2 and K3 (the f32 model's steps)
+    # the cluster K1-K3 (the D 512 train CLI's) and the CUDA-core K1-K3 (the
+    # f32 model's steps)
     kernels += dtype_rows
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -42,13 +42,13 @@ bf16               8-256           wgmma (``csrc/flash_fwd.cu``,
                                    ``csrc/flash_bwd.cu``): ``hived_flash_*``
 fp16               8-256           the same wgmma kernels for fp16:
                                    ``hived_flash_*_f16``
-bf16 or fp16, K2   264-1024        wgmma on thread-block clusters
-and K3 only                        (``csrc/flash_bwd_wide.cu``):
-                                   ``hived_flash_wide_bwd_*``
+bf16 or fp16       264-1024        wgmma on thread-block clusters
+                                   (``csrc/flash_fwd_wide.cu``,
+                                   ``csrc/flash_bwd_wide.cu``):
+                                   ``hived_flash_wide_*``
 f32 (any D); bf16  every D % 8 ==  f32 on the CUDA cores
-or fp16 past 256   0               (``csrc/flash_generic.cu``):
-(K1), past 1024                    ``hived_flash_generic_*``
-(K2, K3)
+or fp16 past 1024  0               (``csrc/flash_generic.cu``):
+                                   ``hived_flash_generic_*``
 =================  ==============  ===========================================
 
 f64, integer dtypes and D % 8 != 0 raise; no route depends on a build or a
@@ -62,11 +62,12 @@ outputs' columns in halves, so K1 computes its scores twice (3/2 of the
 real work), K2 its two score products (5/3) and K3 its two (3/2);
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` say why. In fp16 K2 and K3
 pack ds scaled by a power of two per row, so that a gradient's small ds
-does not fall into fp16's subnormals (``csrc/flash_bwd.cu``). Past D 256 K2
-and K3 split their outputs into 128-column panels, one block each, and a
-cluster of those blocks forms each score tile once: each block's partial
-scores over its panel are summed across the cluster through distributed
-shared memory (``csrc/flash_bwd_wide.cu``). The CUDA-core
+does not fall into fp16's subnormals (``csrc/flash_bwd.cu``). Past D 256
+K1, K2 and K3 split their outputs into 128-column panels, one block each,
+and a cluster of those blocks forms each score tile once: each block's
+partial scores over its panel are summed across the cluster through
+distributed shared memory (``csrc/flash_fwd_wide.cu``,
+``csrc/flash_bwd_wide.cu``). The CUDA-core
 family computes what the TPU kernels compute in their own arithmetic:
 every input widened to f32, every product an f32 FMA (no TF32), in
 64-row tiles and 128-column panels of the output, with the scores summed
@@ -107,13 +108,14 @@ FLASH_BWD_DKV_F16_LAUNCHES = 0
 FLASH_FWD_F16_F32_LAUNCHES = 0
 FLASH_BWD_DQ_F16_F32_LAUNCHES = 0
 FLASH_BWD_DKV_F16_F32_LAUNCHES = 0
-# launches of the CUDA-core family (f32 inputs at any D; bf16 and fp16 K1
-# past D 256, K2 and K3 past 1024), every output form
+# launches of the CUDA-core family (f32 inputs at any D; bf16 and fp16 past
+# D 1024), every output form
 FLASH_FWD_GENERIC_LAUNCHES = 0
 FLASH_BWD_DQ_GENERIC_LAUNCHES = 0
 FLASH_BWD_DKV_GENERIC_LAUNCHES = 0
-# launches of the cluster K2 and K3 (bf16 and fp16 at 256 < D <= 1024),
+# launches of the cluster K1, K2 and K3 (bf16 and fp16 at 256 < D <= 1024),
 # every input and output form
+FLASH_FWD_WIDE_LAUNCHES = 0
 FLASH_BWD_DQ_WIDE_LAUNCHES = 0
 FLASH_BWD_DKV_WIDE_LAUNCHES = 0
 # calls of flash_attention that took the reference (shapes that don't tile,
@@ -125,12 +127,12 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 # is a test of the rule)
 KERNEL_HEAD_DIMS = range(8, sys.maxsize, 8)
 # the head dims of the wgmma kernels, each run at its padded width 64, 128
-# or 256 (csrc/flash_common.cuh); past them bf16 and fp16 run K1 on the
-# CUDA-core family, and K2 and K3 on the cluster kernels up to 1024
+# or 256 (csrc/flash_common.cuh); past them bf16 and fp16 run the cluster
+# kernels up to 1024, and the CUDA-core family past that
 WGMMA_HEAD_DIMS = range(8, 257, 8)
-# the head dims of the cluster K2 and K3 (csrc/flash_bwd_wide.cu): 128-column
-# panels, at most 8 blocks a cluster
-WIDE_BWD_HEAD_DIMS = range(264, 1025, 8)
+# the head dims of the cluster K1, K2 and K3 (csrc/flash_fwd_wide.cu,
+# csrc/flash_bwd_wide.cu): 128-column panels, at most 8 blocks a cluster
+WIDE_HEAD_DIMS = range(264, 1025, 8)
 # the output dtypes of the kernels' two forms (None: the inputs' dtype)
 KERNEL_OUT_DTYPES = (None, torch.float32)
 
@@ -247,12 +249,13 @@ _KERNELS = {
     "hived_flash_generic_fwd": ("flash_generic", 5, 8, 12),
     "hived_flash_generic_bwd_dq": ("flash_generic", 8, 8, 18),
     "hived_flash_generic_bwd_dkv": ("flash_generic", 8, 8, 18),
+    "hived_flash_wide_fwd": ("flash_fwd_wide", 5, 8, 12),
     "hived_flash_wide_bwd_dq": ("flash_bwd_wide", 8, 8, 18),
     "hived_flash_wide_bwd_dkv": ("flash_bwd_wide", 8, 8, 18),
 }
 _TYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # the libraries whose entry points take the type codes after the dims
-_TYPED_LIBRARIES = ("flash_generic", "flash_bwd_wide")
+_TYPED_LIBRARIES = ("flash_generic", "flash_fwd_wide", "flash_bwd_wide")
 # the launch counter of each entry point
 _COUNTERS = {
     "hived_flash_fwd": "FLASH_FWD_LAUNCHES",
@@ -270,6 +273,7 @@ _COUNTERS = {
     "hived_flash_generic_fwd": "FLASH_FWD_GENERIC_LAUNCHES",
     "hived_flash_generic_bwd_dq": "FLASH_BWD_DQ_GENERIC_LAUNCHES",
     "hived_flash_generic_bwd_dkv": "FLASH_BWD_DKV_GENERIC_LAUNCHES",
+    "hived_flash_wide_fwd": "FLASH_FWD_WIDE_LAUNCHES",
     "hived_flash_wide_bwd_dq": "FLASH_BWD_DQ_WIDE_LAUNCHES",
     "hived_flash_wide_bwd_dkv": "FLASH_BWD_DKV_WIDE_LAUNCHES",
 }
@@ -280,18 +284,17 @@ def kernel_entry(dtype, d: int, out_f32: bool, kernel: str = "fwd") -> str:
     """The C entry point that runs ``kernel`` ("fwd": K1, "dq": K2, "dkv":
     K3) on inputs of ``dtype`` at head dim ``d``, storing f32 (``out_f32``)
     or the inputs' dtype: bf16 and fp16 at D <= 256 the wgmma kernels
-    (``_f16`` for fp16, ``_f32`` for the f32 forms); K2 and K3 on bf16 and
-    fp16 at 256 < D <= 1024 the cluster kernels; f32 at any D and every other
-    bf16 or fp16 case past 256 the CUDA-core family (the last two one symbol
-    for every input and output type). Raises on any other dtype and on
-    D % 8 != 0."""
+    (``_f16`` for fp16, ``_f32`` for the f32 forms); bf16 and fp16 at 256 <
+    D <= 1024 the cluster kernels; f32 at any D and bf16 or fp16 past 1024
+    the CUDA-core family (the last two one symbol for every input and output
+    type). Raises on any other dtype and on D % 8 != 0."""
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash kernels take {KERNEL_DTYPES}, not {dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel head dims are the positive multiples of 8, got {d}")
     if kernel not in _STEMS:
         raise ValueError(f"kernel is one of {tuple(_STEMS)}, not {kernel!r}")
-    if dtype != torch.float32 and kernel != "fwd" and d in WIDE_BWD_HEAD_DIMS:
+    if dtype != torch.float32 and d in WIDE_HEAD_DIMS:
         return _STEMS[kernel].replace("hived_flash", "hived_flash_wide")
     if dtype == torch.float32 or d not in WGMMA_HEAD_DIMS:
         return _STEMS[kernel].replace("hived_flash", "hived_flash_generic")
@@ -301,7 +304,7 @@ def kernel_entry(dtype, d: int, out_f32: bool, kernel: str = "fwd") -> str:
 
 def launch_dims(symbol: str, dims, dtype, out_f32: bool) -> tuple:
     """The int arguments of ``symbol`` on inputs of ``dtype``: ``dims``, and
-    for the CUDA-core family and the cluster K2 and K3 the input- and
+    for the CUDA-core family and the cluster kernels the input- and
     output-type codes."""
     if _KERNELS[symbol][0] not in _TYPED_LIBRARIES:
         return tuple(dims)
@@ -529,12 +532,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     latter, as JAX's does), and the plain versions of the kernels run
     otherwise. A CUDA tensor goes to the kernels, which tile any T
     themselves and take bf16, fp16 and f32 at every D % 8 == 0 (the wgmma
-    kernels, the cluster K2 and K3 past D 256, or the CUDA-core family for
-    f32 and the rest: :func:`kernel_entry`), and raise on what they do not
-    take (another
-    dtype, layout, GQA): there is no fallback to the plain versions or to
-    the reference for them. The route is chosen from the shapes
-    before any launch; a kernel that fails to build or launch raises. A
+    kernels, the cluster kernels past D 256, or the CUDA-core family for f32
+    and past D 1024: :func:`kernel_entry`), and raise on what they do not
+    take (another dtype, layout, GQA): there is no fallback to the plain
+    versions or to the reference for them. The route is chosen from the
+    shapes before any launch; a kernel that fails to build or launch raises. A
     DTensor input raises ``TypeError``: the op takes each rank's local
     shard."""
     global FLASH_REFERENCE_ROUTES

@@ -65,10 +65,11 @@
 //   block sends (P - 1) / P of 2 x 32 KB of f32 partials a 64-key tile and
 //   receives (P - 1) / P of a 16 KB ds tile (bf16; 32 KB of f32 in fp16);
 //   a K3 block a third of that a q tile. An H100 SM's port to the cluster
-//   carried about 15.5 bytes a cycle out (ops/bench/dsmem.cu; PERF.md), so
-//   at P = 4 K2's 60 KB a tile take ~4,000 cycles against ~2,000 of
-//   products. K2's consumer 1 starts once consumer 0 has sent its first
-//   partials, so that their sends take turns on that port.
+//   carried about 15.5 bytes a cycle out (ops/dsmem_rate.cu, driven by
+//   ops/dsmem_rate.py; PERF.md), so at P = 4 K2's 60 KB a tile take ~4,000
+//   cycles against ~2,000 of products. K2's consumer 1 starts once consumer
+//   0 has sent its first partials, so that their sends take turns on that
+//   port.
 // - Each receive and operand buffer is written once a tile and read before
 //   its readers send what its writers wait for next (partials after the last
 //   operand tile, operand tiles after the partials they are summed from), so
@@ -106,57 +107,13 @@
 // A cluster that cannot be scheduled, or a launch that fails, returns its
 // CUDA error; nothing falls back.
 
-#include "flash_common.cuh"
-#include "hopper.cuh"
+#include "flash_cluster.cuh"
 
 namespace {
 
 using namespace hived;
 
-struct Strides {
-  int64_t b, t, h;
-};
-
-template <typename T>
-__device__ __forceinline__ T* at(T* base, const Strides& s, int b, int h) {
-  return base + b * s.b + h * s.h;
-}
-
-enum TypeCode { kBf16 = 0, kF16 = 1, kF32 = 2 };
-
-constexpr int kPanel = 128;                 // output columns a block owns
-constexpr int kKeys = 64;                   // keys a K/V tile (K2) or a block (K3) holds
-constexpr int kRowsQ = 128;                 // q rows a K2 block holds
-constexpr int kRowsS = 64;                  // q rows a K3 stage holds
-constexpr int kGroups = 8;                  // 8-column groups of a 64 x 64 score tile
-constexpr int kMaxPanels = 8;               // the portable cluster size
-constexpr int kMaxD = kPanel * kMaxPanels;  // 1024
-constexpr int kSmemMax = 232448;            // dynamic shared memory a block may have
-constexpr int kGroupBytes = 128 * 16;       // one group of a consumer's f32 values
-
-// blocks a cluster for head dim D: ceil(D / 128); 7 run as 8, whose eighth
-// panel is all zero columns (8 groups over 7 blocks: one block owns two, and
-// in fp16 K2's receive buffers for two groups of 7 blocks' partials would
-// not fit beside its tiles)
-__host__ __device__ inline int wide_panels(int D) {
-  const int p = (D + kPanel - 1) / kPanel;
-  return p == 7 ? 8 : p;
-}
-
-// the most groups one block owns
-__host__ __device__ inline int max_owned(int P) { return (kGroups + P - 1) / P; }
-
-__device__ __forceinline__ int owner_of(int n, int P) { return n * P / kGroups; }
-
-__device__ __forceinline__ int first_group(int o, int P) { return (o * kGroups + P - 1) / P; }
-
-// a [kRows][128] panel from column col0 as two [kRows][64] column blocks
-template <int kRows, typename In>
-__device__ __forceinline__ void tma_load_panel(In* dst, const CUtensorMap* map, uint64_t* bar,
-                                               int col0, int head, int row0, int b) {
-  tma_load_4d(dst, map, bar, col0, head, row0, b);
-  tma_load_4d(dst + kRows * 64, map, bar, col0 + 64, head, row0, b);
-}
+constexpr int kRowsS = 64;  // q rows a K3 stage holds
 
 // the four f32 of one group of an accumulator-layout array
 __device__ __forceinline__ float4 group4(const float* x) {
@@ -196,45 +153,6 @@ __device__ __forceinline__ void pack_scaled(uint32_t (&a)[4][4], const float (&x
     a[kk][1] = pack_f32<In>(x[8 * kk + 2] * sc_b, x[8 * kk + 3] * sc_b);
     a[kk][2] = pack_f32<In>(x[8 * kk + 4] * sc_a, x[8 * kk + 5] * sc_a);
     a[kk][3] = pack_f32<In>(x[8 * kk + 6] * sc_b, x[8 * kk + 7] * sc_b);
-  }
-}
-
-// thread t's values of one group from the P blocks, in rank order
-// (`recv` at block 0's, the blocks `stride` float4 apart), added
-__device__ __forceinline__ float4 sum_partials(const float4* recv, int stride, int P) {
-  float4 tot = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int src = 0; src < P; ++src) {
-    const float4 v = recv[src * stride];
-    tot.x += v.x;
-    tot.y += v.y;
-    tot.z += v.z;
-    tot.w += v.w;
-  }
-  return tot;
-}
-
-// a group's value to its owner `o`'s receive buffer, at the offset of
-// `local`: by a plain store if this block owns it, else completing on the
-// owner's barrier at `bar`'s offset
-__device__ __forceinline__ void send(float4* local, const uint64_t* bar, float4 v, int o,
-                                     int rank) {
-  if (o == rank) {
-    *local = v;
-  } else {
-    st_async(map_rank(smem_u32(local), o), v, map_rank(smem_u32(bar), o));
-  }
-}
-
-// one value to the same offset in every block of the cluster: this block's
-// by a plain store, the others' completing on their barrier at `bar`'s offset
-template <typename V>
-__device__ __forceinline__ void broadcast(unsigned char* local, const uint64_t* bar, V v, int P,
-                                          int rank) {
-  *reinterpret_cast<V*>(local) = v;
-  const uint32_t addr = smem_u32(local);
-  const uint32_t b = smem_u32(bar);
-  for (int dst = 0; dst < P; ++dst) {
-    if (dst != rank) st_async(map_rank(addr, dst), v, map_rank(b, dst));
   }
 }
 
@@ -888,28 +806,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
 template <bool kDkv, typename In, typename OutT>
 cudaError_t launch(const WideArgs& a, int B, cudaStream_t stream) {
-  auto kernel = kDkv ? wide_dkv_kernel<In, OutT> : wide_dq_kernel<In, OutT>;
   static bool attr_set = false;
-  cudaError_t err = allow_smem(kernel, kSmemMax, attr_set);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
   // the panels along x, one cluster of them; tiles along z, heaviest first
-  cfg.gridDim = dim3(a.P, B * (kDkv ? a.H / a.group : a.H),
-                     kDkv ? (a.T + kKeys - 1) / kKeys : (a.T + kRowsQ - 1) / kRowsQ);
-  cfg.blockDim = dim3(kWsThreads);
-  cfg.dynamicSmemBytes =
-      kDkv ? dkv_layout(a.P, kIsF16<In>).bytes : dq_layout(a.P, kIsF16<In>).bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = a.P;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const dim3 grid(a.P, B * (kDkv ? a.H / a.group : a.H),
+                  kDkv ? (a.T + kKeys - 1) / kKeys : (a.T + kRowsQ - 1) / kRowsQ);
+  const int smem = kDkv ? dkv_layout(a.P, kIsF16<In>).bytes : dq_layout(a.P, kIsF16<In>).bytes;
+  return launch_clusters(kDkv ? wide_dkv_kernel<In, OutT> : wide_dq_kernel<In, OutT>, a, grid,
+                         a.P, smem, stream, attr_set);
 }
 
 template <bool kDkv>
@@ -923,14 +826,6 @@ int launch_types(const WideArgs& a, int B, int in_type, int out_type, void* stre
     err = f32 ? launch<kDkv, f16, float>(a, B, s) : launch<kDkv, f16, f16>(a, B, s);
   }
   return static_cast<int>(err);
-}
-
-// the shapes and types the entry points take: 256 < D <= 1024, D % 8 == 0,
-// bf16 or fp16 inputs, the output in the input type or f32
-bool bad_args(int B, int T, int H, int H_kv, int D, int in_type, int out_type) {
-  return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || D <= 256 || D > kMaxD ||
-         D % 8 != 0 || (in_type != kBf16 && in_type != kF16) ||
-         (out_type != in_type && out_type != kF32);
 }
 
 // the four tensor maps (q and do boxes of q_rows rows, k and v of 64; s the
@@ -1021,32 +916,7 @@ extern "C" int hived_flash_wide_bwd_dkv(
 // the card holds at once, or -1 - the cudaError_t of the query.
 extern "C" int hived_flash_wide_clusters(int D, int dkv) {
   const int P = wide_panels(D);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(P, 1, 1);
-  cfg.blockDim = dim3(kWsThreads);
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = P;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  int n = 0;
-  cudaError_t err;
-  if (dkv) {
-    static bool set = false;
-    cfg.dynamicSmemBytes = dkv_layout(P, false).bytes;
-    err = allow_smem(wide_dkv_kernel<bf16, bf16>, kSmemMax, set);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveClusters(&n, wide_dkv_kernel<bf16, bf16>, &cfg);
-    }
-  } else {
-    static bool set = false;
-    cfg.dynamicSmemBytes = dq_layout(P, false).bytes;
-    err = allow_smem(wide_dq_kernel<bf16, bf16>, kSmemMax, set);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveClusters(&n, wide_dq_kernel<bf16, bf16>, &cfg);
-    }
-  }
-  return err == cudaSuccess ? n : -1 - static_cast<int>(err);
+  static bool dq_set = false, dkv_set = false;
+  return dkv ? max_clusters(wide_dkv_kernel<bf16, bf16>, P, dkv_layout(P, false).bytes, dkv_set)
+             : max_clusters(wide_dq_kernel<bf16, bf16>, P, dq_layout(P, false).bytes, dq_set);
 }

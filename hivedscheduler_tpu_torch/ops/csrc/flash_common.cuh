@@ -1,7 +1,7 @@
 // Device helpers of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu, flash_bwd_wide.cu, flash_generic.cu): the TPU kernels'
-// masking constants, bf16 and fp16 packing, quad reductions, the fp16 ds
-// scaling of the backward and the shared-memory attribute. The
+// flash_bwd.cu, flash_fwd_wide.cu, flash_bwd_wide.cu, flash_generic.cu): the
+// TPU kernels' masking constants, bf16 and fp16 packing, quad reductions,
+// the fp16 ds scaling of the backward and the shared-memory attribute. The
 // Hopper building blocks the wgmma kernels take their tiles and products
 // from (TMA, mbarriers, wgmma) are in hopper.cuh.
 

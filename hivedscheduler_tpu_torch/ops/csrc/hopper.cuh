@@ -359,8 +359,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HIVED_R64
 
 // ------------------------------------------------------ thread-block clusters
-// The wide backward (flash_bwd_wide.cu) runs a cluster of blocks that store
-// into each other's shared memory (distributed shared memory): st_async
+// The wide kernels (flash_fwd_wide.cu, flash_bwd_wide.cu) run a cluster of
+// blocks that store into each other's shared memory (distributed shared memory): st_async
 // writes at another block's shared::cluster address (map_rank) and completes
 // its bytes as transactions on that block's mbarrier, which the receiver
 // arms with mbar_expect_tx and waits on with cluster-scope acquire.

@@ -1,8 +1,9 @@
 // How fast a thread-block cluster's blocks exchange data through distributed
-// shared memory, the cost that sets the pace of the cluster K2 and K3
-// (csrc/flash_bwd_wide.cu). A cluster of P blocks, each of two warpgroups of
-// 128 threads; every round, each warpgroup sends `per` float4 a thread to the
-// same warpgroup of each other block and waits until the others' have landed.
+// shared memory, the cost that sets the pace of the cluster K1, K2 and K3
+// (csrc/flash_fwd_wide.cu, csrc/flash_bwd_wide.cu). A cluster of P blocks,
+// each of two warpgroups of 128 threads; every round, each warpgroup sends
+// `per` float4 a thread to the same warpgroup of each other block and waits
+// until the others' have landed.
 // Four ways, by `mode`:
 //   0: st.async from registers, the bytes completing on the receiver's
 //      mbarrier (the cluster kernels' way);

@@ -1,6 +1,7 @@
 """How fast a thread-block cluster exchanges data through distributed shared
 memory on the card: the rate and the per-round latency behind the cluster
-K2 and K3 (``csrc/flash_bwd_wide.cu``), for four ways to send
+kernels (``csrc/flash_fwd_wide.cu``, ``csrc/flash_bwd_wide.cu``), for four
+ways to send
 (``ops/dsmem_rate.cu`` says which).
 
     python -m hivedscheduler_tpu_torch.ops.dsmem_rate [--clusters N]

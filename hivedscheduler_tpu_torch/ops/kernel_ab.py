@@ -12,15 +12,14 @@ same C entry points (``attention._KERNELS``, the one
 ``attention.kernel_entry`` picks for the dtype and head dim) on the same
 inputs, by default at the flagship shape (B=8, T=2048, H=16, H_kv=8,
 D=128, bf16, causal); ``--d``, ``--heads`` and ``--kv-heads`` change the
-head dim (any multiple of 8: past 256 K1 runs on the CUDA-core family, K2
-and K3 on the cluster kernels) and the
-head counts (Gemma-2B's shape: ``--d 256 --heads 8 --kv-heads 1``), and
-``--dtype`` the inputs' dtype (fp16: the wgmma kernels' fp16 forms; f32:
+head dim (any multiple of 8: past 256 K1-K3 run on the cluster kernels,
+past 1024 on the CUDA-core family) and the head counts (Gemma-2B's shape:
+``--d 256 --heads 8 --kv-heads 1``), and ``--dtype`` the inputs' dtype (fp16: the wgmma kernels' fp16 forms; f32:
 the CUDA-core family). Where the other tree lacks the entry point this
 tree picks, it runs the one it routes the same call to: a tree without
-``csrc/flash_bwd_wide.cu`` ran K2 and K3 past D 256 on the CUDA-core
-family, so ``--d 512 --heads 4 --kv-heads 2`` times those against the
-cluster kernels. Each
+``csrc/flash_fwd_wide.cu`` or ``csrc/flash_bwd_wide.cu`` ran K1, or K2 and
+K3, past D 256 on the CUDA-core family, so ``--d 512 --heads 4 --kv-heads
+2`` times those against the cluster kernels. Each
 kernel is timed with CUDA events in the order other, this, this, other, so
 a drift of the card's clock falls on both alike. It prints each reading,
 the ratio of the means, and the largest difference between the two trees'
@@ -104,8 +103,8 @@ def inputs(b: int, t: int, h: int, h_kv: int, d: int, seed: int = 0,
 
 def entry_in(libs, symbol: str) -> str:
     """``symbol``, or where ``libs`` (another tree's libraries) lack its
-    library, the entry point that tree routed the call to: a cluster K2 or
-    K3's CUDA-core counterpart, which takes the same arguments."""
+    library, the entry point that tree routed the call to: a cluster
+    kernel's CUDA-core counterpart, which takes the same arguments."""
     if libs is None or attn._KERNELS[symbol][0] in libs:
         return symbol
     generic = symbol.replace("hived_flash_wide", "hived_flash_generic")

@@ -123,6 +123,11 @@ def _free_local_port() -> int:
         return s.getsockname()[1]
 
 
+# tries of a one-rank group at ports it picks itself: between the probe that
+# finds a port free and the store's bind, another socket can take it
+_OWN_PORT_TRIES = 3
+
+
 def initialize_from_gang(
     bind_info_json: Optional[str] = None,
     my_node: Optional[str] = None,
@@ -137,8 +142,9 @@ def initialize_from_gang(
     (port 8476 by default; ``node_to_address`` defaults to the last path
     element of the node name, as the JAX package's does). A run with no
     bind info or a gang of one GPU opens a one-rank group on
-    ``tcp://127.0.0.1`` (a free port unless ``coordinator_port`` is given).
-    The backend follows ``device``: NCCL for ``cuda``, after selecting
+    ``tcp://127.0.0.1`` (a free port unless ``coordinator_port`` is given;
+    if another socket takes that port before the group binds it, another
+    free port). The backend follows ``device``: NCCL for ``cuda``, after selecting
     ``cuda:{LOCAL_RANK}``, and gloo for ``cpu``; it never changes because
     a card is missing."""
     import torch
@@ -151,9 +157,11 @@ def initialize_from_gang(
         raise RuntimeError("a process group is already open; close it with "
                            "shutdown() first")
     gang = gang_from_env(bind_info_json, my_node)
+    own_port = False
     if gang is None or gang[2] == 1:
         rank, world = 0, 1
         address = "127.0.0.1"
+        own_port = not coordinator_port
         port = coordinator_port or _free_local_port()
     else:
         coordinator, rank, world = gang
@@ -163,10 +171,20 @@ def initialize_from_gang(
     if dev.type == "cuda":
         device_id = torch.device("cuda", local_rank())
         torch.cuda.set_device(device_id)
-    dist.init_process_group(
-        "nccl" if dev.type == "cuda" else "gloo",
-        init_method=f"tcp://{address}:{port}", world_size=world, rank=rank,
-        device_id=device_id)
+    tries = _OWN_PORT_TRIES if own_port else 1
+    for attempt in range(tries):
+        try:
+            dist.init_process_group(
+                "nccl" if dev.type == "cuda" else "gloo",
+                init_method=f"tcp://{address}:{port}", world_size=world, rank=rank,
+                device_id=device_id)
+            break
+        except dist.DistNetworkError as err:
+            if attempt == tries - 1 or "EADDRINUSE" not in str(err):
+                raise
+            log.warning("port %s was taken before the process group bound it; "
+                        "trying another", port)
+            port = _free_local_port()
     log.info("process group initialized: rank %s/%s, coordinator %s:%s, %s",
              rank, world, address, port, dist.get_backend())
     return rank, world

@@ -152,15 +152,19 @@ def test_kernel_entry_takes_the_wgmma_kernels_up_to_256(dtype, suffix, d):
     (torch.float16, 320), (torch.float16, 1024), (torch.bfloat16, 1032),
     (torch.float16, 1032)])
 def test_kernel_entry_takes_the_cuda_core_family(dtype, d):
-    # f32 inputs at every D, K1 at 16-bit inputs past 256, and K2 and K3 at
-    # 16-bit inputs past 1024 (the cluster kernels' limit)
+    # f32 inputs at every D, and K1-K3 at 16-bit inputs past 1024 (the
+    # cluster kernels' limit); at 16-bit inputs past 256 up to 1024 all
+    # three, K1 too, take the cluster kernels, with the same arguments
     code = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}[dtype]
-    kernels = STEMS if dtype == torch.float32 or d > 1024 else {"fwd": STEMS["fwd"]}
-    for kernel, stem in kernels.items():
+    core = dtype == torch.float32 or d > 1024
+    for kernel, stem in STEMS.items():
+        lib = "flash_fwd_wide" if kernel == "fwd" else "flash_bwd_wide"
         for out_f32 in (False, True):
             symbol = tattn.kernel_entry(dtype, d, out_f32, kernel)
-            assert symbol == stem.replace("hived_flash", "hived_flash_generic")
-            assert tattn._KERNELS[symbol][0] == "flash_generic"
+            generic = stem.replace("hived_flash", "hived_flash_generic")
+            assert symbol == (generic if core else stem.replace("hived_flash", "hived_flash_wide"))
+            assert tattn._KERNELS[symbol][0] == ("flash_generic" if core else lib)
+            assert tattn._KERNELS[symbol][1:] == tattn._KERNELS[generic][1:]
             # the dims, then the input- and output-type codes: f32 out is 2
             assert tattn.launch_dims(symbol, (1, 2, 3, 4, d, 0), dtype, out_f32) == (
                 1, 2, 3, 4, d, 0, code, 2 if out_f32 else code)
@@ -171,21 +175,25 @@ def test_kernel_entry_takes_the_cuda_core_family(dtype, d):
 @pytest.mark.parametrize("d", [264, 320, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 def test_kernel_entry_takes_the_wide_backward(dtype, d, out_f32):
-    # K2 and K3 at 16-bit inputs past 256 up to 1024: the cluster kernels,
+    # K1, K2 and K3 at 16-bit inputs past 256 up to 1024: the cluster
+    # kernels (K1 csrc/flash_fwd_wide.cu, K2 and K3 csrc/flash_bwd_wide.cu),
     # one symbol each for every input and output type, type codes after the
     # dims as the CUDA-core family's
     code = {torch.bfloat16: 0, torch.float16: 1}[dtype]
-    for kernel in ("dq", "dkv"):
+    for kernel, entry in (("fwd", ("flash_fwd_wide", 5, 8, 12)),
+                          ("dq", ("flash_bwd_wide", 8, 8, 18)),
+                          ("dkv", ("flash_bwd_wide", 8, 8, 18))):
         symbol = tattn.kernel_entry(dtype, d, out_f32, kernel)
-        assert symbol == f"hived_flash_wide_bwd_{kernel}"
-        assert tattn._KERNELS[symbol] == ("flash_bwd_wide", 8, 8, 18)
+        assert symbol == STEMS[kernel].replace("hived_flash", "hived_flash_wide")
+        assert tattn._KERNELS[symbol] == entry
         assert tattn._KERNELS[symbol][1:] == tattn._KERNELS[
             STEMS[kernel].replace("hived_flash", "hived_flash_generic")][1:]
         assert tattn.launch_dims(symbol, (1, 2, 3, 4, d, 1), dtype, out_f32) == (
             1, 2, 3, 4, d, 1, code, 2 if out_f32 else code)
-    assert tattn.kernel_entry(dtype, d, out_f32, "fwd") == "hived_flash_generic_fwd"
+    assert tattn.kernel_entry(dtype, d, out_f32, "fwd") == "hived_flash_wide_fwd"
+    assert tattn.kernel_entry(torch.float32, d, out_f32, "fwd") == "hived_flash_generic_fwd"
     assert tattn.kernel_entry(torch.float32, d, out_f32, "dq") == "hived_flash_generic_bwd_dq"
-    assert d in tattn.WIDE_BWD_HEAD_DIMS and d not in tattn.WGMMA_HEAD_DIMS
+    assert d in tattn.WIDE_HEAD_DIMS and d not in tattn.WGMMA_HEAD_DIMS
 
 
 @pytest.mark.parametrize("dtype, d, error", [
@@ -200,6 +208,7 @@ def test_kernel_entry_refuses(dtype, d, error):
 def test_every_entry_point_has_its_own_launch_counter():
     assert set(tattn._COUNTERS) == set(tattn._KERNELS)
     assert len(set(tattn._COUNTERS.values())) == len(tattn._COUNTERS)
+    assert tattn._COUNTERS["hived_flash_wide_fwd"] == "FLASH_FWD_WIDE_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_wide_bwd_dq"] == "FLASH_BWD_DQ_WIDE_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_wide_bwd_dkv"] == "FLASH_BWD_DKV_WIDE_LAUNCHES"
     for counter in tattn._COUNTERS.values():

@@ -106,25 +106,29 @@ def test_kernel_ab_refuses_without_a_card(tmp_path):
 
     assert kernel_ab.libraries() == sorted(_build.LIBRARIES) == [
         "flash_bwd", "flash_bwd_f16", "flash_bwd_wide", "flash_fwd", "flash_fwd_f16",
-        "flash_generic"]
+        "flash_fwd_wide", "flash_generic"]
     assert kernel_ab.main(["--other", str(tmp_path)]) != 0
     assert not os.listdir(tmp_path)  # nothing was built
 
 
 def test_kernel_ab_times_the_other_trees_route():
-    # a tree without the cluster kernels' library ran K2 and K3 past D 256
-    # on the CUDA-core family: the comparison calls that, with the same
-    # arguments; a symbol the other tree lacks otherwise is refused
+    # a tree without a cluster kernel's library ran it past D 256 on the
+    # CUDA-core family (a tree without flash_fwd_wide.cu K1, one without
+    # flash_bwd_wide.cu as well K2 and K3): the comparison calls that, with
+    # the same arguments; a symbol the other tree lacks otherwise is refused
     from hivedscheduler_tpu_torch.ops import attention as tattn
     from hivedscheduler_tpu_torch.ops import kernel_ab
 
-    parent = {n: None for n in _build.LIBRARIES if n != "flash_bwd_wide"}
-    for kernel in ("dq", "dkv"):
-        symbol = tattn.kernel_entry(torch.bfloat16, 512, False, kernel)
-        assert symbol == f"hived_flash_wide_bwd_{kernel}"
-        assert kernel_ab.entry_in(parent, symbol) == f"hived_flash_generic_bwd_{kernel}"
-        assert kernel_ab.entry_in(None, symbol) == symbol
-        assert tattn._KERNELS[kernel_ab.entry_in(parent, symbol)][1:] == tattn._KERNELS[symbol][1:]
+    for lacks in (("flash_fwd_wide",), ("flash_fwd_wide", "flash_bwd_wide")):
+        parent = {n: None for n in _build.LIBRARIES if n not in lacks}
+        for kernel, stem in (("fwd", "fwd"), ("dq", "bwd_dq"), ("dkv", "bwd_dkv")):
+            symbol = tattn.kernel_entry(torch.bfloat16, 512, False, kernel)
+            assert symbol == f"hived_flash_wide_{stem}"
+            other = kernel_ab.entry_in(parent, symbol)
+            assert other == (f"hived_flash_generic_{stem}" if tattn._KERNELS[symbol][0] in lacks
+                             else symbol)
+            assert kernel_ab.entry_in(None, symbol) == symbol
+            assert tattn._KERNELS[other][1:] == tattn._KERNELS[symbol][1:]
     assert kernel_ab.entry_in(parent, "hived_flash_bwd_dq") == "hived_flash_bwd_dq"
     with pytest.raises(RuntimeError) as info:
         kernel_ab.entry_in({"flash_generic": None}, "hived_flash_fwd")
@@ -193,9 +197,9 @@ def test_profile_groups_follow_the_kernel_names():
             with open(os.path.join(_build.CSRC, src)) as f:
                 names.update(_GLOBAL.findall(f.read()))
     groups = {name: chip_smoke.profile_group(name) for name in names}
-    # each of K1-K3 has a wgmma kernel and a CUDA-core one (flash_generic.cu),
-    # and K2 and K3 a cluster one (flash_bwd_wide.cu)
-    assert sorted(groups.values()) == ["K1 flash_fwd"] * 2 + ["K2 flash_bwd_dq"] * 3 + [
+    # each of K1-K3 has a wgmma kernel, a CUDA-core one (flash_generic.cu)
+    # and a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu)
+    assert sorted(groups.values()) == ["K1 flash_fwd"] * 3 + ["K2 flash_bwd_dq"] * 3 + [
         "K3 flash_bwd_dkv"] * 3
     # as the profiler shows them: mangled, inside their anonymous namespace
     for name, group in groups.items():

@@ -50,9 +50,12 @@ package, and the raw kernel call refuses D = 12 and f64. K1-K3 at fp16
 inputs run the same wgmma kernels' fp16 forms (outputs in fp16 or f32),
 held to their plain versions with the bf16 limits and an error below the
 bf16 kernels' on the same inputs; f32 inputs at any D and bf16 or fp16
-past D 256 (264, 320, 512) run the CUDA-core family, held to the plain
-versions (f32 within a relative 2e-5), each on its own launch counter, with
-nothing stored past D; the fp16 libraries multiply on wgmma fed by TMA.
+past D 1024 run the CUDA-core family, held to the plain versions (f32
+within a relative 2e-5), each on its own launch counter, with nothing
+stored past D; the fp16 libraries multiply on wgmma fed by TMA. bf16 and
+fp16 K1-K3 at 256 < D <= 1024 run the cluster kernels, held to the plain
+versions and to the CUDA-core kernels on the same inputs, bit-reproducible,
+and their entry points refuse what they do not take.
 """
 
 import os
@@ -71,6 +74,7 @@ from hivedscheduler_tpu_torch.parallel import train as ttrain
 pytestmark = pytest.mark.cuda
 
 O_TOL = 2e-2
+O_REL = 5e-3  # K1's relative Frobenius limit, as chip_smoke.py (b)'s
 O_ROW_REL = 1e-2
 LSE_ATOL = 5e-3
 GRAD_REL = 1e-2
@@ -211,14 +215,14 @@ def test_kernel_builds_for_sm90a(cuda):
 def test_kernel_raises_instead_of_falling_back(cuda, bad):
     q, k, v = _qkv(1, 128, 2, 2, 64)
     if bad in ("f32", "head_dim"):
-        # f32 inputs, and D = 264 past the widest wgmma template, run the
+        # f32 inputs, and D = 1032 past the cluster kernels' 1024, run the
         # CUDA-core family (its counter moves, the wgmma one does not); f64
         # and D = 12, off the multiples of 8, are refused
         if bad == "f32":
             q, k, v = q.float(), k.float(), v.float()
             refused, kind = tuple(x.double() for x in (q, k, v)), TypeError
         else:
-            q, k, v = _qkv(1, 128, 2, 2, 264)
+            q, k, v = _qkv(1, 128, 2, 2, 1032)
             refused, kind = _qkv(1, 128, 2, 2, 12), ValueError
         before = (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_FWD_GENERIC_LAUNCHES)
         o, lse = tattn.flash_forward(q, k, v)
@@ -1116,8 +1120,8 @@ def test_cuda_core_family_stores_no_column_past_d(cuda, dtype):
 def test_ring_hops_run_every_dtype_and_head_dim(cuda, dtype, d):
     # the ring's per-hop functions reach the new forms through flash_forward
     # and flash_backward unchanged: f32 partials of the CUDA-core family (f32
-    # inputs, and fp16's K1), and at fp16 past D 256 of the cluster K2 and
-    # K3, whose fp16 operands hold the gradients to the 16-bit limits
+    # inputs), and at fp16 past D 256 of the cluster K1-K3, whose fp16
+    # operands hold o and the gradients to the 16-bit limits
     from hivedscheduler_tpu_torch.parallel import ring_attention as tring
 
     f32 = torch.float32
@@ -1134,7 +1138,10 @@ def test_ring_hops_run_every_dtype_and_head_dim(cuda, dtype, d):
         assert [getattr(tattn, n) for n in counters] == [n + 1 for n in before]
         o_ref, _ = tattn.flash_attention_plain(q, k, v, causal=diag, out_dtype=f32)
         g_ref = tattn.flash_backward_plain(q, k, v, out, rows, do, causal=diag, grad_dtype=f32)
-        assert o.dtype == f32 and _grad_errs(o.permute(0, 2, 1, 3), o_ref)[0] <= F32_REL
+        if dtype == f32:
+            assert o.dtype == f32 and _grad_errs(o.permute(0, 2, 1, 3), o_ref)[0] <= F32_REL
+        else:
+            assert o.dtype == f32 and _worst_row_rel(o.permute(0, 2, 1, 3), o_ref) <= O_ROW_REL
         for x, r in zip(grads, g_ref):
             assert x.dtype == f32 and _grad_errs(x, r)[0] <= grad_rel
 
@@ -1243,3 +1250,89 @@ def test_wide_backward_refuses_what_it_does_not_take(cuda):
     tattn._launch(symbol, ptrs, tattn.launch_dims(symbol, dims, q.dtype, False), strided, stream)
     torch.cuda.synchronize()
     assert _grad_errs(dq, tattn.flash_backward_plain(q, k, v, o, lse, do)[0])[0] <= GRAD_REL
+
+
+# -- the cluster K1 past D 256 (csrc/flash_fwd_wide.cu) ------------------------
+
+
+def _cuda_core_forward(q, k, v, causal, out_f32):
+    """K1 of the CUDA-core family, called by symbol on the same inputs ->
+    (o, lse)."""
+    o = torch.empty_like(q, dtype=torch.float32 if out_f32 else q.dtype)
+    lse = torch.empty((q.shape[0] * q.shape[2], q.shape[1]), dtype=torch.float32,
+                      device=q.device)
+    symbol = "hived_flash_generic_fwd"
+    dims = (*q.shape[:3], k.shape[2], q.shape[3], int(causal))
+    tattn._launch(symbol, (q, k, v, o, lse), tattn.launch_dims(symbol, dims, q.dtype, out_f32),
+                  (q, k, v, o), torch.cuda.current_stream().cuda_stream)
+    return o, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("shape", WIDE_BWD_SHAPES,
+                         ids=[f"d{s[4]}-t{s[1]}-g{s[2] // s[3]}-{'causal' if s[5] else 'full'}"
+                              for s in WIDE_BWD_SHAPES])
+def test_wide_forward_matches_plain_and_cuda_core(cuda, dtype, shape):
+    # both output forms against the plain f32 forward and the CUDA-core K1
+    # on the same inputs ((b)'s limits), one launch each on the cluster K1's
+    # counter, two runs bit-identical, the f32 form rounded once equal to
+    # the dtype's
+    b, t, h, h_kv, d, causal = shape
+    q, k, v, _ = _dtype_inputs(dtype, *shape, seed=24)
+    o_ref, lse_ref = tattn.flash_attention_plain(q, k, v, causal=causal, out_dtype=torch.float32)
+    forms = {}
+    for out_f32 in (False, True):
+        out_dtype = torch.float32 if out_f32 else None
+        before = tattn.FLASH_FWD_WIDE_LAUNCHES
+        o, lse = tattn.flash_forward(q, k, v, causal=causal, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert tattn.FLASH_FWD_WIDE_LAUNCHES == before + 1
+        assert o.dtype == (torch.float32 if out_f32 else dtype)
+        again = tattn.flash_forward(q, k, v, causal=causal, out_dtype=out_dtype)
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        core_o, core_lse = _cuda_core_forward(q, k, v, causal, out_f32)
+        for o_want, lse_want in ((o_ref, lse_ref), (core_o, core_lse)):
+            fro, row = _grad_errs(o, o_want)
+            assert fro <= O_REL and row <= O_ROW_REL, (out_f32, fro, row)
+            torch.testing.assert_close(lse, lse_want, atol=LSE_ATOL, rtol=0)
+        forms[out_f32] = (o, lse)
+    assert torch.equal(forms[True][0].to(dtype), forms[False][0])
+    assert torch.equal(forms[True][1], forms[False][1])
+
+
+def test_wide_forward_refuses_what_it_does_not_take(cuda):
+    # D 256 (the wgmma kernels'), D 1032 (past the cluster's 1024) and f32
+    # inputs or a third output type are refused by the entry point itself,
+    # not run on another kernel
+    q, k, v, _ = _dtype_inputs(torch.bfloat16, 1, 128, 2, 2, 512, True, seed=25)
+    stream = torch.cuda.current_stream().cuda_stream
+    o, lse = torch.empty_like(q), torch.empty((2, 128), dtype=torch.float32, device="cuda")
+    symbol = "hived_flash_wide_fwd"
+    ptrs, strided = (q, k, v, o, lse), (q, k, v, o)
+    before = tattn.FLASH_FWD_WIDE_LAUNCHES
+    for bad in ((1, 128, 2, 2, 256, 1, 0, 0), (1, 128, 2, 2, 1032, 1, 0, 0),
+                (1, 128, 2, 2, 512, 1, 2, 2), (1, 128, 2, 2, 512, 1, 0, 1)):
+        with pytest.raises(RuntimeError) as info:
+            tattn._launch(symbol, ptrs, bad, strided, stream)
+        assert "CUDA error" in str(info.value)
+    tattn._launch(symbol, ptrs, tattn.launch_dims(symbol, (1, 128, 2, 2, 512, 1), q.dtype, False),
+                  strided, stream)
+    torch.cuda.synchronize()
+    assert tattn.FLASH_FWD_WIDE_LAUNCHES == before  # a raw launch counts nothing
+    o_ref, lse_ref = tattn.flash_attention_plain(q, k, v, out_dtype=torch.float32)
+    assert _grad_errs(o, o_ref)[0] <= O_REL
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("library, kernel", [("flash_fwd_wide", "wide_fwd_kernel"),
+                                             ("flash_bwd_wide", "wide_dq_kernel"),
+                                             ("flash_bwd_wide", "wide_dkv_kernel")])
+def test_wide_kernels_run_on_wgmma_and_tma(cuda, library, kernel):
+    # every instance (bf16 or fp16 inputs x 16-bit or f32 outputs) multiplies
+    # with wgmma on tiles loaded by TMA
+    sass = _sass_by_kernel(_build.build(library))
+    found = {k: v for k, v in sass.items() if kernel in k}
+    assert len(found) == 4, sorted(sass)
+    for name, text in found.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert "HMMA" not in text and "LDGSTS" not in text, name

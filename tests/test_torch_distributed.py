@@ -181,6 +181,42 @@ def test_initialize_from_gang_one_rank(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+def test_one_rank_group_takes_another_port_when_its_own_is_taken(monkeypatch):
+    # between the probe that finds a free port and the store's bind another
+    # socket can take it (EADDRINUSE): the one-rank group tries a new free
+    # port; a port the caller gave, and any other error, are not retried
+    for name in ("POD_BIND_INFO", "NODE_NAME", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    ports = iter([50423, 50424])
+    monkeypatch.setattr(tdist, "_free_local_port", lambda: next(ports))
+    calls, errors = [], []
+
+    def fake_init(backend, init_method, **kw):
+        calls.append(init_method)
+        if errors:
+            raise errors.pop(0)
+
+    taken = ("The server socket has failed to listen on any local network address. "
+             "port: 50423, useIpv6: false, code: -98, name: EADDRINUSE, message: "
+             "address already in use")
+    monkeypatch.setattr(torch.distributed, "init_process_group", fake_init)
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda *a: "gloo")
+    errors.append(torch.distributed.DistNetworkError(taken))
+    assert tdist.initialize_from_gang(device="cpu") == (0, 1)
+    assert calls == ["tcp://127.0.0.1:50423", "tcp://127.0.0.1:50424"]
+    calls.clear()
+    errors.append(torch.distributed.DistNetworkError(taken))
+    with pytest.raises(torch.distributed.DistNetworkError):
+        tdist.initialize_from_gang(device="cpu", coordinator_port=50423)
+    assert calls == ["tcp://127.0.0.1:50423"]
+    monkeypatch.setattr(tdist, "_free_local_port", lambda: 50425)
+    calls.clear()
+    errors.append(torch.distributed.DistNetworkError("connection reset"))
+    with pytest.raises(torch.distributed.DistNetworkError):
+        tdist.initialize_from_gang(device="cpu")
+    assert calls == ["tcp://127.0.0.1:50425"]
+
+
 AXES_GRID = [dict(n=n, tp=tp, sp=sp, fsdp=f, pp=pp, ep=ep)
              for n, tp, sp, f, pp, ep in itertools.product(
                  (1, 2, 4, 6, 8, 16), (1, 2, 4), (1, 2), (1, 2, 4), (1, 2), (1, 2))]
