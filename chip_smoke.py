@@ -9,9 +9,10 @@ Phases, each of which must pass or the script exits non-zero:
     ``hivedscheduler_tpu_torch/ops/csrc/flash_fwd.cu`` (K1) and
     ``flash_bwd.cu`` (K2, K3), their fp16 instantiations
     (``flash_fwd_f16.cu``, ``flash_bwd_f16.cu``), the CUDA-core family
-    (``flash_generic.cu``) and the cluster K1, and K2 and K3, past D 256
-    (``flash_fwd_wide.cu``, ``flash_bwd_wide.cu``) with nvcc (sm_90a), all
-    seven compilers at once,
+    (``flash_generic.cu``), the cluster K1, and K2 and K3, past D 256
+    (``flash_fwd_wide.cu``, ``flash_bwd_wide.cu``) and the 3xTF32 K2 and K3
+    at f32 inputs (``flash_bwd_tf32.cu``) with nvcc (sm_90a), all eight
+    compilers at once,
     with each one's seconds, and print ptxas's register and spill lines and
     any warning that it serialized wgmma, for every instantiation (padded
     widths 64, 128, 256);
@@ -345,9 +346,12 @@ Phases, each of which must pass or the script exits non-zero:
 
 (x) K1-K3 at every input dtype and head dim the JAX kernels take. (1) The
     fp16 forms of the wgmma kernels and their f32 forms at the flagship
-    shape, D 96, D 256, T 192 and not causal; the CUDA-core family
-    (``csrc/flash_generic.cu``) at f32 inputs (the flagship shape, D 256)
-    and at bf16, fp16 and f32 inputs at D 264 (an 8-column last panel, MQA,
+    shape, D 96, D 256, T 192 and not causal; at f32 inputs (the flagship
+    shape, D 256) K1 on the CUDA-core family (``csrc/flash_generic.cu``) and
+    K2 and K3 on the 3xTF32 wgmma kernels (``csrc/flash_bwd_tf32.cu``) up to
+    D 128, on the CUDA-core family past it; the CUDA-core family and the
+    cluster kernels at bf16, fp16 and f32 inputs at D 264 (an 8-column last
+    panel, MQA,
     ragged T), 320 (not causal) and 512, where bf16's and fp16's K1-K3 run
     the cluster kernels (``csrc/flash_fwd_wide.cu``,
     ``csrc/flash_bwd_wide.cu``): each against its plain version
@@ -356,10 +360,12 @@ Phases, each of which must pass or the script exits non-zero:
     own counter moved once a call, the f32 forms rounded once equal to the
     dtype's, sentinel columns past D untouched in a wider buffer, two runs
     bit-identical, (b)'s swapped V keys caught at the flagship fp16 and f32
-    cases; the fp16 backward's error below the bf16 backward's on the same
+    cases, and at the f32 one K keys 0 and 1 swapped caught by K2's and
+    K3's check; the fp16 backward's error below the bf16 backward's on the same
     draws in turns, at unit do and at a gradient's magnitude (do x 2^-20).
     (2) Each new kernel timed by CUDA events (the fp16 forms at the
-    flagship shape, the CUDA-core family at f32 there, K1 and the cluster
+    flagship shape, the 3xTF32 K2 and K3 and the CUDA-core K1-K3 (K2 and K3
+    by symbol) at f32 there, K1 and the cluster
     K2 and K3 at bf16 and the D 512 CLI shape), beside its plain version,
     ``scaled_dot_product_attention``
     at the same dtype and shape (a yardstick only) and its bound: the
@@ -371,12 +377,19 @@ Phases, each of which must pass or the script exits non-zero:
     faster than the plain version and SDPA, and the cluster K2 + K3 in
     turns with the CUDA-core K2 + K3, the plain backward and SDPA's
     backward, held to the CUDA-core outputs and faster than both single
-    calls, each with the clusters the card holds at once; K1-K3 on bf16
-    against fp16 inputs at the flagship shape in turns. (3) ``TransformerConfig(dtype=float16)``
+    calls, each with the clusters the card holds at once; the 3xTF32 K2 +
+    K3 at the f32 flagship shape in turns with the CUDA-core pair (by
+    symbol) and SDPA's backward on the math backend (GQA) and on the
+    memory-efficient one (k and v expanded to H heads), held to the
+    CUDA-core outputs within the f32 limit and faster than that pair;
+    K1-K3 on bf16 against fp16 inputs at the flagship shape in turns. (3)
+    ``TransformerConfig(dtype=float16)``
     and ``float32`` with ``attn_impl="flash"`` at the flagship width and 2
     layers: a forward (final-norm hidden states against xla, (e)'s limit)
     and 3 ``make_train_step`` steps with remat dots (K1-K3 12/6/6 on the
-    fp16 or the CUDA-core counters; the first loss against xla's); the
+    fp16 counters, or K1 on the CUDA-core and K2 and K3 on the 3xTF32
+    counters; the first loss against xla's), and the f32 model's step in
+    turns with K2 and K3 on the CUDA-core family (routes patched); the
     ``eval`` CLI (2 windows) and 3 steps of the ``train`` CLI at ``--d-model
     2048 --n-heads 4 --n-kv-heads 2`` (D 512), 2 layers, flash against xla
     on the same weights (K1, K2 and K3 on the cluster kernels' counters,
@@ -384,10 +397,11 @@ Phases, each of which must pass or the script exits non-zero:
     ratios; one fp16
     ``ring_flash`` step on the world-1 NCCL mesh (the fp16 f32-output forms
     4/2/2, the loss the flash step's); the ring's hop functions at fp16 and
-    f32 and D 320 against the plain versions. (4) Twelve rows of the
+    f32 and D 320 against the plain versions. (4) Fourteen rows of the
     kernels line: the fp16 forms, their f32 forms, the cluster K1, K2 and
-    K3 (the D 512 train CLI's launches) and the CUDA-core K1, K2 and K3 (the
-    f32 model's).
+    K3 (the D 512 train CLI's launches), the CUDA-core K1 (the f32 model's),
+    K2 and K3 (the f32 D 320 ring hops') and the 3xTF32 K2 and K3 (the f32
+    model's).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -916,8 +930,10 @@ def phase_train() -> dict:
 # kernel-name fragments of each part of a train step's device time
 PROFILE_GROUPS = (
     ("K1 flash_fwd", ("flash_fwd_kernel", "generic_fwd_kernel", "wide_fwd_kernel")),
-    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel", "generic_dq_kernel", "wide_dq_kernel")),
-    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel", "generic_dkv_kernel", "wide_dkv_kernel")),
+    ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel", "generic_dq_kernel", "wide_dq_kernel",
+                         "tf32_dq_kernel")),
+    ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel", "generic_dkv_kernel", "wide_dkv_kernel",
+                          "tf32_dkv_kernel")),
     ("matmuls", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
 )
 OTHER_GROUP = "other (elementwise, norms, CE, optimizer)"
@@ -6826,6 +6842,16 @@ def _dt_case(dtype, case, seed: int, plant: bool = False) -> dict:
         print(f"[x] {str(dtype)[6:]} {tag} planted fault (V keys {t - 2}, {t - 1} swapped): o "
               f"worst row rel {bad_row:.3e}")
         check(bad_row > O_ROW_REL, f"{tag} {dtype}: the o check does not see swapped V keys")
+        if dtype == f32:
+            # K2's and K3's f32 check against a planted fault: K keys 0 and 1
+            # (which every causal row sees) swapped
+            k_bad = k.clone()
+            k_bad[:, [0, 1]] = k[:, [1, 0]]
+            g_bad = attn.flash_backward(q, k_bad, v, o, lse, do, causal=causal)
+            bad = [rel_errs(x, r)[0] for x, r in zip(g_bad, g_ref)]
+            print(f"[x] f32 {tag} planted fault (K keys 0, 1 swapped): dq, dk, dv rel "
+                  + ", ".join(f"{e:.3e}" for e in bad) + f" (the check's limit {DT_F32_REL})")
+            check(min(bad) > DT_F32_REL, f"{tag} f32: the K2/K3 check does not see swapped K keys")
     if dtype == f32 and tag == "flagship":
         # the bound tells f32 from the nearest cheaper arithmetic: the plain
         # version with TF32 matmuls, and the kernels on the inputs cast to bf16
@@ -6901,12 +6927,14 @@ def _dt_bound(key: str, s: dict, dtype, out_f32: bool):
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def _dt_times(tag: str, dtype, s: dict, forms=(False,), iters: int = 20) -> dict:
+def _dt_times(tag: str, dtype, s: dict, forms=(False,), iters: int = 20, extra=()) -> dict:
     """K1-K3 of (dtype, s) in each output form of ``forms`` by CUDA events,
     beside the plain version, ``scaled_dot_product_attention`` at the same
     dtype and shape (a yardstick only) and the bound; each kernel's outputs
     held to the plain version at this shape by ``_dt_case``'s limits, and
-    its max |err|. -> {(kernel, form): the kernels line's numbers}."""
+    its max |err|; then each (kernel, symbol) of ``extra`` the same way,
+    called by symbol in the inputs' form. -> {(kernel, form or symbol): the
+    kernels line's numbers}."""
     import torch
     import torch.nn.functional as F
 
@@ -6934,43 +6962,45 @@ def _dt_times(tag: str, dtype, s: dict, forms=(False,), iters: int = 20) -> dict
         lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True),
         iters=iters, warmup=warm)
     rows = {}
-    for form in forms:
-        for key in kernel_ab.KERNELS:
-            res = {}
-            ms = time_ms(kernel_ab.runner(None, x, res, key, out_f32=form), iters=iters,
-                         warmup=warm)
-            pairs = {"fwd": (("o", o_ref),), "dq": (("dq", g_ref[0]),),
-                     "dkv": (("dk", g_ref[1]), ("dv", g_ref[2]))}[key]
-            err = max(float((res[n].float() - r).abs().max()) for n, r in pairs)
-            rel = {n: rel_errs(res[n], r, floor=0.0 if key == "fwd" else 1e-3)
-                   for n, r in pairs}
-            bound, bound_by = _dt_bound(key, s, dtype, form)
-            symbol = attn.kernel_entry(dtype, s["d"], form, key)
-            if dtype == f32:
-                limits = f"<= {DT_F32_REL}"
-                ok = all(fr <= DT_F32_REL for fr, _ in rel.values())
-            elif key == "fwd":
-                limits = f"<= {O_REL}, worst row <= {O_ROW_REL}"
-                ok = all(fr <= O_REL and rw <= O_ROW_REL for fr, rw in rel.values())
-            else:
-                limits = f"<= {GRAD_REL}, worst row <= {GRAD_ROW_REL}"
-                ok = all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for fr, rw in rel.values())
-            if key == "fwd":
-                lse_err = float((res["lse"] - lse_ref).abs().max())
-                ok = ok and lse_err <= LSE_ATOL
-            print(f"[x] {tag} {key} ({symbol}{', f32 out' if form else ''}) at "
-                  f"[{s['b']},{s['t']},{s['h']}/{s['h_kv']},{s['d']}] {str(dtype)[6:]} causal: "
-                  f"kernel_ms {ms:.4f}, bound_ms {bound:.4f} ({bound_by}) -> {bound / ms:.1%} of "
-                  f"the bound; plain_ms {plain[key]:.3f}; library_ms {library[key]:.4f} "
-                  f"({'forward' if key == 'fwd' else 'whole backward'}, SDPA backend {backend}); "
-                  f"max|err| {err:.3e}; " + ", ".join(
-                      f"{n} rel {fr:.3e} worst row {rw:.3e}" for n, (fr, rw) in rel.items())
-                  + f" ({limits})" + (f", max|lse err| {lse_err:.3e} (<= {LSE_ATOL})"
-                                      if key == "fwd" else ""))
-            check(ok, f"{tag} {key}{' f32 out' if form else ''}: the kernel disagrees with its "
-                  f"plain version at the timed shape")
-            rows[(key, form)] = dict(max_abs_err=err, ms=ms, plain_ms=plain[key],
-                                     bound_ms=bound, bound_by=bound_by, library_ms=library[key])
+    runs = [(key, form, None) for form in forms for key in kernel_ab.KERNELS]
+    runs += [(key, False, symbol) for key, symbol in extra]
+    for key, form, given in runs:
+        res = {}
+        ms = time_ms(kernel_ab.runner(None, x, res, key, out_f32=form, symbol=given),
+                     iters=iters, warmup=warm)
+        pairs = {"fwd": (("o", o_ref),), "dq": (("dq", g_ref[0]),),
+                 "dkv": (("dk", g_ref[1]), ("dv", g_ref[2]))}[key]
+        err = max(float((res[n].float() - r).abs().max()) for n, r in pairs)
+        rel = {n: rel_errs(res[n], r, floor=0.0 if key == "fwd" else 1e-3)
+               for n, r in pairs}
+        bound, bound_by = _dt_bound(key, s, dtype, form)
+        symbol = given or attn.kernel_entry(dtype, s["d"], form, key)
+        if dtype == f32:
+            limits = f"<= {DT_F32_REL}"
+            ok = all(fr <= DT_F32_REL for fr, _ in rel.values())
+        elif key == "fwd":
+            limits = f"<= {O_REL}, worst row <= {O_ROW_REL}"
+            ok = all(fr <= O_REL and rw <= O_ROW_REL for fr, rw in rel.values())
+        else:
+            limits = f"<= {GRAD_REL}, worst row <= {GRAD_ROW_REL}"
+            ok = all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for fr, rw in rel.values())
+        if key == "fwd":
+            lse_err = float((res["lse"] - lse_ref).abs().max())
+            ok = ok and lse_err <= LSE_ATOL
+        print(f"[x] {tag} {key} ({symbol}{', f32 out' if form else ''}) at "
+              f"[{s['b']},{s['t']},{s['h']}/{s['h_kv']},{s['d']}] {str(dtype)[6:]} causal: "
+              f"kernel_ms {ms:.4f}, bound_ms {bound:.4f} ({bound_by}) -> {bound / ms:.1%} of "
+              f"the bound; plain_ms {plain[key]:.3f}; library_ms {library[key]:.4f} "
+              f"({'forward' if key == 'fwd' else 'whole backward'}, SDPA backend {backend}); "
+              f"max|err| {err:.3e}; " + ", ".join(
+                  f"{n} rel {fr:.3e} worst row {rw:.3e}" for n, (fr, rw) in rel.items())
+              + f" ({limits})" + (f", max|lse err| {lse_err:.3e} (<= {LSE_ATOL})"
+                                  if key == "fwd" else ""))
+        check(ok, f"{tag} {key}{' f32 out' if form else ''}: the kernel disagrees with its "
+              f"plain version at the timed shape")
+        rows[(key, given or form)] = dict(max_abs_err=err, ms=ms, plain_ms=plain[key],
+                                          bound_ms=bound, bound_by=bound_by,
+                                          library_ms=library[key])
     del x, q, k, v, o, lse, do, qt, kt, vt, qg, kg, vg, lib_out, dout, o_ref, lse_ref, g_ref
     torch.cuda.empty_cache()
     return rows
@@ -7094,6 +7124,115 @@ def _dt_wide_turns(s: dict) -> dict:
     return mean
 
 
+def _sdpa_backward(qt, kt, vt, dout, group: int, backend: str):
+    """A call of SDPA's backward on [B, H, T, D] inputs (causal), k and v
+    given at H_kv heads: on the math backend with ``enable_gqa``, or on the
+    memory-efficient one with k and v expanded to H heads (it takes no GQA)
+    -> (the call, None), or (None, the first line of its refusal)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if backend == "math":
+        q_, k_, v_ = (y.detach().requires_grad_(True) for y in (qt, kt, vt))
+        picked, gqa = SDPBackend.MATH, True
+    else:
+        q_, k_, v_ = (y.detach().requires_grad_(True) for y in (
+            qt, kt.repeat_interleave(group, dim=1), vt.repeat_interleave(group, dim=1)))
+        picked, gqa = SDPBackend.EFFICIENT_ATTENTION, False
+    try:
+        with sdpa_kernel(picked):
+            out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True, enable_gqa=gqa)
+    except RuntimeError as err:
+        return None, str(err).splitlines()[0]
+    return lambda: torch.autograd.grad(out, (q_, k_, v_), dout, retain_graph=True), None
+
+
+def _dt_tf32_turns(s: dict) -> dict:
+    """The 3xTF32 K2 + K3 at the f32 flagship shape ``s`` in turns with the
+    CUDA-core K2 + K3 (by symbol) and SDPA's backward on the math backend
+    (GQA, what ``library_ms`` times) and on the memory-efficient one (k and
+    v expanded to H heads; reported refused if it refuses): 3xTF32,
+    CUDA-core, math, efficient, efficient, math, CUDA-core, 3xTF32. The
+    3xTF32 outputs are held to the CUDA-core ones within DT_F32_REL, and
+    the pair must beat the CUDA-core pair -> {name: mean ms}."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    b, t, h, h_kv, d = s["b"], s["t"], s["h"], s["h_kv"], s["d"]
+    x = kernel_ab.inputs(b, t, h, h_kv, d, seed=170, dtype=torch.float32)
+    res = {"3xTF32": {}, "CUDA-core": {}}
+    launch = {name: [kernel_ab.runner(None, x, res[name], key,
+                                      symbol=None if name == "3xTF32"
+                                      else "hived_flash_generic_bwd_" + key)
+                     for key in ("dq", "dkv")] for name in res}
+    qt, kt, vt, dout = (x[n].transpose(1, 2).contiguous() for n in ("q", "k", "v", "do"))
+    sdpa, refused = {}, {}
+    for backend in ("math", "efficient"):
+        call, why = _sdpa_backward(qt, kt, vt, dout, h // h_kv, backend)
+        if call is None:
+            refused[backend] = why
+        else:
+            sdpa["SDPA " + backend] = call
+    readings = {name: [] for name in (*launch, *sdpa)}
+    for name in ("3xTF32", "CUDA-core", "SDPA math", "SDPA efficient", "SDPA efficient",
+                 "SDPA math", "CUDA-core", "3xTF32"):
+        if name in launch:
+            readings[name].append(sum(time_ms(fn, iters=5 if name == "3xTF32" else 2, warmup=1)
+                                      for fn in launch[name]))
+        elif name in sdpa:
+            readings[name].append(time_ms(sdpa[name], iters=2, warmup=1))
+    mean = {name: statistics.mean(r) for name, r in readings.items()}
+    errs = {n: rel_errs(res["3xTF32"][n], res["CUDA-core"][n])[0] for n in ("dq", "dk", "dv")}
+    fastest = min((n for n in mean if n.startswith("SDPA")), key=mean.get)
+    print(f"[x] K2 + K3 at [{b},{t},{h}/{h_kv},{d}] f32 causal in turns (ms): 3xTF32 "
+          + ", ".join(f"{r:.4f}" for r in readings["3xTF32"]) + "; CUDA-core "
+          + ", ".join(f"{r:.4f}" for r in readings["CUDA-core"])
+          + "".join(f"; {n} backward " + ", ".join(f"{r:.4f}" for r in readings[n])
+                    for n in sdpa)
+          + "".join(f"; SDPA {n} refused: {why}" for n, why in refused.items())
+          + f"; CUDA-core / 3xTF32 {mean['CUDA-core'] / mean['3xTF32']:.2f}, faster SDPA "
+          f"({fastest}) / 3xTF32 {mean[fastest] / mean['3xTF32']:.2f}; 3xTF32 against CUDA-core: "
+          + ", ".join(f"{n} rel {e:.3e}" for n, e in errs.items()) + f" (<= {DT_F32_REL})")
+    check(all(e <= DT_F32_REL for e in errs.values()),
+          "the 3xTF32 K2/K3 disagree with the CUDA-core ones at the f32 flagship shape")
+    check(mean["3xTF32"] < mean["CUDA-core"],
+          "the 3xTF32 K2 + K3 are not faster than the CUDA-core pair")
+    del x, res, launch, qt, kt, vt, dout, sdpa
+    torch.cuda.empty_cache()
+    return mean
+
+
+def _f32_step_turns(step, p, opt, tokens) -> dict:
+    """make_train_step steps of the f32 model in turns with K2 and K3 on the
+    3xTF32 kernels and on the CUDA-core family (``kernel_entry`` patched to
+    route them there): 3xTF32, CUDA-core, CUDA-core, 3xTF32, one step each
+    by the host clock around a synchronised step -> {route: [ms]}."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    real = attn.kernel_entry
+
+    def core(dtype, d, out_f32, kernel="fwd"):
+        return real(dtype, d, out_f32, kernel).replace("hived_flash_tf32", "hived_flash_generic")
+
+    readings = {"3xTF32": [], "CUDA-core": []}
+    try:
+        for route in ("3xTF32", "CUDA-core", "CUDA-core", "3xTF32"):
+            attn.kernel_entry = real if route == "3xTF32" else core
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, opt, loss = step(p, opt, tokens)
+            check(math.isfinite(float(loss)), f"the f32 step with {route} K2/K3 lost its loss")
+            torch.cuda.synchronize()
+            readings[route].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        attn.kernel_entry = real
+    return readings
+
+
 def _dt_turns() -> dict:
     """K1-K3 at the flagship shape on bf16 against fp16 inputs, in turns
     (bf16, fp16, fp16, bf16, twice): what fp16 costs on the same wgmma
@@ -7174,6 +7313,13 @@ def _dt_model(dtype) -> dict:
             losses[c.attn_impl].append(float(loss))
         if c is cfg:
             launches = _moved(attn, before)
+            if dtype == torch.float32:
+                steps = _f32_step_turns(step, p, opt, batches[0])
+                ratio = statistics.mean(steps["CUDA-core"]) / statistics.mean(steps["3xTF32"])
+                print(f"[x] f32 make_train_step, {layers} layers, one step each in turns (ms): "
+                      f"K2/K3 3xTF32 " + ", ".join(f"{r:.1f}" for r in steps["3xTF32"])
+                      + "; CUDA-core " + ", ".join(f"{r:.1f}" for r in steps["CUDA-core"])
+                      + f"; CUDA-core / 3xTF32 {ratio:.3f}")
         del step, p, opt
         torch.cuda.empty_cache()
     n = layers * TRAIN_STEPS
@@ -7235,19 +7381,21 @@ def _dt_clis() -> dict:
     return launches
 
 
-def _dt_ring_hops() -> None:
+def _dt_ring_hops() -> dict:
     """The ring's per-hop functions (``_flash_block``, ``_flash_block_grad``)
     at fp16 and f32 inputs and D 320, diagonal and unmasked, one launch each
     on its counter: each hop's f32 partials within DT_F32_REL of the plain
-    versions where the CUDA-core family runs them (f32 inputs), and fp16's,
-    from the cluster K1-K3 on fp16 operands, within (b)'s and (f)'s
-    limits."""
+    versions at f32 inputs (K1 on the CUDA-core family, K2 and K3 in 3xTF32
+    at D 128 and on the CUDA-core family at D 320), and fp16's, from the
+    cluster K1-K3 on fp16 operands, within (b)'s and (f)'s limits -> the
+    hops' launches."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
     from hivedscheduler_tpu_torch.parallel import ring_attention as ring
 
     f32 = torch.float32
+    total = {}
     for dtype, d in ((torch.float16, 320), (f32, 128), (f32, 320)):
         q, k, v, do = _dt_inputs(dtype, 1, 1024, 4, 2, d, seed=140)
         for diag in (True, False):
@@ -7271,9 +7419,12 @@ def _dt_ring_hops() -> None:
                   "dq, dk, dv rel " + ", ".join(f"{e:.3e}" for e in errs[1:])
                   + f" (<= {grad_rel}), max|lse err| {lse_err:.3e}; launches {moved} (want {want})")
             check(moved == want, f"the ring hop at {dtype} D {d} launched {moved}")
+            for name, n in moved.items():
+                total[name] = total.get(name, 0) + n
             check(errs[0] <= o_rel and all(e <= grad_rel for e in errs[1:])
                   and lse_err <= LSE_ATOL,
                   f"the ring hop at {dtype} D {d} disagrees with the plain versions")
+    return total
 
 
 def _dt_ring_fp16(first_loss: float, batch) -> dict:
@@ -7315,8 +7466,8 @@ def _dt_ring_fp16(first_loss: float, batch) -> dict:
 
 def phase_dtypes() -> list:
     """(x): K1-K3 at every input dtype and head dim the JAX kernels take ->
-    the kernels line's twelve rows: the fp16 forms, the cluster K1-K3 and
-    the CUDA-core family."""
+    the kernels line's fourteen rows: the fp16 forms, the cluster K1-K3,
+    the CUDA-core family and the 3xTF32 K2 and K3."""
     import torch
 
     t_phase = time.perf_counter()
@@ -7348,7 +7499,9 @@ def phase_dtypes() -> list:
     times["fp16"] = timed("fp16 times", _dt_times, "fp16 flagship", torch.float16, f,
                           forms=(False, True))
     timed("bf16/fp16 turns", _dt_turns)
-    times["f32"] = timed("f32 times", _dt_times, "f32 flagship", torch.float32, f, iters=3)
+    times["f32"] = timed("f32 times", _dt_times, "f32 flagship", torch.float32, f, iters=3,
+                         extra=[(key, "hived_flash_generic_bwd_" + key) for key in ("dq", "dkv")])
+    timed("f32 K2 + K3 turns", _dt_tf32_turns, f)
     times["d512"] = timed("d512 times", _dt_times, "bf16 D 512", torch.bfloat16, d512, iters=3)
     timed("D 512 K1 turns", _dt_wide_fwd_turns, d512)
     timed("D 512 turns", _dt_wide_turns, d512)
@@ -7356,7 +7509,7 @@ def phase_dtypes() -> list:
     f32_model = timed("f32 model", _dt_model, torch.float32)
     d512_launches = timed("D 512 CLIs", _dt_clis)
     ring = timed("fp16 ring", _dt_ring_fp16, fp16["first_loss"], fp16["batch"])
-    timed("ring hops", _dt_ring_hops)
+    hops = timed("ring hops", _dt_ring_hops)
     print(f"[x] phase wall time {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()) + ")")
 
@@ -7365,7 +7518,9 @@ def phase_dtypes() -> list:
     # the rows: fp16 forms at the flagship shape with the fp16 model's train
     # launches (the f32 forms: the fp16 ring step's); the cluster K1-K3 at
     # the D 512 CLI shape with the D 512 train CLI's launches; the CUDA-core
-    # K1-K3 at the f32 flagship shape with the f32 model's
+    # K1-K3 at the f32 flagship shape (K2 and K3 by symbol) with the f32
+    # model's launches (K1) and the f32 D 320 ring hops' (K2, K3); the
+    # 3xTF32 K2 and K3 there with the f32 model's
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     lines = {"fwd": 98, "dq": 143, "dkv": 179}
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
@@ -7385,9 +7540,17 @@ def phase_dtypes() -> list:
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=d512_launches.get(counter, 0), **times["d512"][(key, False)]))
     for key in ("fwd", "dq", "dkv"):
-        counter = attn._COUNTERS[attn.kernel_entry(torch.float32, 128, False, key)]
+        symbol = "hived_flash_generic_" + ("fwd" if key == "fwd" else "bwd_" + key)
+        launches = f32_model["launches"] if key == "fwd" else hops
         rows.append(dict(name=names[key] + "_generic", route="cuda",
                          source=source + "flash_generic.cu",
+                         replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
+                         launches=launches.get(attn._COUNTERS[symbol], 0),
+                         **times["f32"][(key, False if key == "fwd" else symbol)]))
+    for key in ("dq", "dkv"):
+        counter = attn._COUNTERS[attn.kernel_entry(torch.float32, 128, False, key)]
+        rows.append(dict(name=names[key] + "_tf32", route="cuda",
+                         source=source + "flash_bwd_tf32.cu",
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=f32_model["launches"].get(counter, 0),
                          **times["f32"][(key, False)]))
@@ -7513,8 +7676,9 @@ def main() -> int:
     # and times of (l) at a tp = 2 rank's shape
     kernels += overlap["rows"]
     # and (x)'s: the fp16 forms (the fp16 model's steps, the fp16 ring's),
-    # the cluster K1-K3 (the D 512 train CLI's) and the CUDA-core K1-K3 (the
-    # f32 model's steps)
+    # the cluster K1-K3 (the D 512 train CLI's), the CUDA-core K1-K3 (K1 the
+    # f32 model's steps, K2 and K3 the f32 D 320 ring hops') and the 3xTF32
+    # K2 and K3 (the f32 model's steps)
     kernels += dtype_rows
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,152 @@
+"""The arithmetic the 3xTF32 K2 and K3 (``csrc/flash_bwd_tf32.cu``) rest on,
+emulated on the CPU and held to the port's plain f32 backward and to the JAX
+package's ``_flash_backward`` (Pallas in interpret mode).
+
+The card kernels form every product of the backward (q k^T, do v^T, ds k,
+ds^T q, p^T do) from the operands' tf32 parts: big = the f32 value rounded
+to tf32 (10 mantissa bits, to nearest, ties away from zero: ``cvt.rna``),
+small = the rest rounded the same way, and a b = big big' + big small' +
+small big', accumulated in f32. Here each product is three f32 matmuls of
+tf32-valued operands, whose products are exact in f32 (11 x 11 significant
+bits), summed in f32. The tests show that this stays within the f32 limit
+the card checks hold the kernels to (2e-5 relative Frobenius,
+``chip_smoke.py``'s ``DT_F32_REL``) and that one TF32 pass (big big' alone)
+does not, at B 1, T 128, H 4 on H_kv 2, D 64 and 96, causal and not.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hivedscheduler_tpu.ops import attention as jattn
+from hivedscheduler_tpu_torch.ops import attention as tattn
+
+torch.set_num_threads(1)
+
+F32_REL = 2e-5  # chip_smoke.py's DT_F32_REL, the card checks' limit at f32 inputs
+CASES = [pytest.param(d, causal, id=f"d{d}-{'causal' if causal else 'full'}")
+         for d in (64, 96) for causal in (True, False)]
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 as cvt.rna.tf32.f32 does: half of the 13
+    dropped bits added to the magnitude, then the 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    big = tf32(x)
+    return big, tf32(x - big)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32: three f32 matmuls of tf32 parts."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one TF32 pass."""
+    return tf32(a) @ tf32(b)
+
+
+def backward(q, k, v, o, lse, do, causal: bool, mm):
+    """dq, dk, dv of the flash backward with every product through ``mm``,
+    the rest in f32, as the card kernels compute them: s = q k^T times the
+    scale, p = exp(s - lse) (0 where causal masks), delta = rowsum(do o),
+    ds = p (dp - delta), dq = scale ds k, dk = scale ds^T q, dv = p^T do, dk
+    and dv summed over each kv head's q-head group."""
+    b, t, h, d = q.shape
+    h_kv = k.shape[2]
+    g = h // h_kv
+    scale = 1.0 / d ** 0.5
+    qh, oh, doh = (x.permute(0, 2, 1, 3) for x in (q, o, do))  # [b, h, t, d]
+    kh, vh = (x.permute(0, 2, 1, 3).repeat_interleave(g, dim=1) for x in (k, v))
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.reshape(b, h, t, 1))
+    if causal:
+        p = p.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), 0.0)
+    dp = mm(doh, vh.transpose(-1, -2))
+    delta = (doh * oh).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = mm(ds, kh) * scale
+    dk = (mm(ds.transpose(-1, -2), qh) * scale).reshape(b, h_kv, g, t, d).sum(2)
+    dv = mm(p.transpose(-1, -2), doh).reshape(b, h_kv, g, t, d).sum(2)
+    return dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+def _rel(x, ref) -> float:
+    x, ref = torch.as_tensor(np.array(x)), torch.as_tensor(np.array(ref))
+    return float((x - ref).norm() / ref.norm())
+
+
+def _inputs(d: int, causal: bool):
+    """q, k, v, do from a seed, and the forward's o and lse from JAX's
+    interpret-mode kernel (lse as the port's [B*H, T])."""
+    rng = np.random.default_rng(1000 + d + causal)
+    b, t, h, h_kv = 1, 128, 4, 2
+    q, do = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, t, h_kv, d)).astype(np.float32) for _ in range(2))
+    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        o, lse = jattn._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      causal=causal, block_q=64, block_k=64, interpret=True)
+        g_ref = jattn._flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse,
+                                      jnp.asarray(do), causal=causal, block_q=64, block_k=64,
+                                      interpret=True)
+    x = {n: torch.from_numpy(a) for n, a in (("q", q), ("k", k), ("v", v), ("do", do))}
+    x["o"] = torch.from_numpy(np.asarray(o).copy())
+    x["lse"] = torch.from_numpy(np.asarray(lse)[:, :, 0].copy())
+    return x, [np.asarray(g) for g in g_ref]
+
+
+@pytest.mark.parametrize("d, causal", CASES)
+def test_3xtf32_backward_is_within_the_f32_limit(d, causal):
+    x, jax_grads = _inputs(d, causal)
+    args = (x["q"], x["k"], x["v"], x["o"], x["lse"], x["do"], causal)
+    got = backward(*args, mm3)
+    plain = tattn.flash_backward_plain(*args)
+    for name, g, p, j in zip(("dq", "dk", "dv"), got, plain, jax_grads):
+        assert _rel(g, p) <= F32_REL, (name, _rel(g, p))
+        assert _rel(g, j) <= F32_REL, (name, _rel(g, j))
+    # the emulation with exact products is the plain version's function
+    exact = backward(*args, torch.matmul)
+    assert all(_rel(e, p) <= 1e-6 for e, p in zip(exact, plain))
+
+
+@pytest.mark.parametrize("d, causal", CASES)
+def test_one_tf32_pass_is_outside_the_f32_limit(d, causal):
+    # what the three passes buy: one pass is off by more than the limit
+    x, jax_grads = _inputs(d, causal)
+    args = (x["q"], x["k"], x["v"], x["o"], x["lse"], x["do"], causal)
+    one = backward(*args, mm1)
+    plain = tattn.flash_backward_plain(*args)
+    errs = [_rel(g, p) for g, p in zip(one, plain)]
+    assert min(errs) > F32_REL, errs
+    assert all(_rel(g, j) > F32_REL for g, j in zip(one, jax_grads))
+
+
+def test_tf32_split_rounds_to_nearest_and_keeps_22_bits():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32) * 3.0)
+    big, small = split(x)
+    low = 0x1FFF
+    assert int((big.view(torch.int32) & low).abs().sum()) == 0
+    assert int((small.view(torch.int32) & low).abs().sum()) == 0
+    # big is the nearest tf32 value: within half a tf32 ulp (2^-11 of the
+    # value's binade), where truncation would be off by up to a whole one
+    assert float(((x - big).abs() / x.abs()).max()) <= 2.0 ** -11
+    bits = x.view(torch.int32)
+    trunc = (bits & ~low).view(torch.float32)
+    up = (bits & low) >= 0x1000  # rounding goes away from zero here
+    assert bool(up.any()) and bool((~up).any())
+    assert bool((big[up].abs() > trunc[up].abs()).all())
+    assert torch.equal(big[~up], trunc[~up])
+    # big + small is x to about 2^-22
+    assert float(((big + small - x).abs() / x.abs()).max()) <= 2.0 ** -21
+    # ties go away from zero, as cvt.rna does
+    tie = torch.tensor([0x3F801000, -0x407FF000], dtype=torch.int32).view(torch.float32)
+    assert torch.equal(tf32(tie).view(torch.int32),
+                       torch.tensor([0x3F802000, -0x407FE000], dtype=torch.int32))

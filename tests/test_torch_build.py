@@ -105,8 +105,8 @@ def test_kernel_ab_refuses_without_a_card(tmp_path):
     from hivedscheduler_tpu_torch.ops import kernel_ab
 
     assert kernel_ab.libraries() == sorted(_build.LIBRARIES) == [
-        "flash_bwd", "flash_bwd_f16", "flash_bwd_wide", "flash_fwd", "flash_fwd_f16",
-        "flash_fwd_wide", "flash_generic"]
+        "flash_bwd", "flash_bwd_f16", "flash_bwd_tf32", "flash_bwd_wide", "flash_fwd",
+        "flash_fwd_f16", "flash_fwd_wide", "flash_generic"]
     assert kernel_ab.main(["--other", str(tmp_path)]) != 0
     assert not os.listdir(tmp_path)  # nothing was built
 
@@ -130,6 +130,16 @@ def test_kernel_ab_times_the_other_trees_route():
             assert kernel_ab.entry_in(None, symbol) == symbol
             assert tattn._KERNELS[other][1:] == tattn._KERNELS[symbol][1:]
     assert kernel_ab.entry_in(parent, "hived_flash_bwd_dq") == "hived_flash_bwd_dq"
+    # a tree without flash_bwd_tf32.cu ran f32 K2 and K3 on the CUDA-core
+    # family at every D: --dtype f32 times the 3xTF32 kernels against those
+    parent = {n: None for n in _build.LIBRARIES if n != "flash_bwd_tf32"}
+    for kernel, stem in (("dq", "bwd_dq"), ("dkv", "bwd_dkv")):
+        symbol = tattn.kernel_entry(torch.float32, 128, False, kernel)
+        assert symbol == f"hived_flash_tf32_{stem}"
+        assert kernel_ab.entry_in(parent, symbol) == f"hived_flash_generic_{stem}"
+        assert kernel_ab.entry_in({**parent, "flash_bwd_tf32": None}, symbol) == symbol
+        assert tattn._KERNELS[f"hived_flash_generic_{stem}"][1:] == tattn._KERNELS[symbol][1:]
+    assert kernel_ab.entry_in(parent, "hived_flash_generic_fwd") == "hived_flash_generic_fwd"
     with pytest.raises(RuntimeError) as info:
         kernel_ab.entry_in({"flash_generic": None}, "hived_flash_fwd")
     assert "hived_flash_fwd" in str(info.value)
@@ -198,9 +208,10 @@ def test_profile_groups_follow_the_kernel_names():
                 names.update(_GLOBAL.findall(f.read()))
     groups = {name: chip_smoke.profile_group(name) for name in names}
     # each of K1-K3 has a wgmma kernel, a CUDA-core one (flash_generic.cu)
-    # and a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu)
-    assert sorted(groups.values()) == ["K1 flash_fwd"] * 3 + ["K2 flash_bwd_dq"] * 3 + [
-        "K3 flash_bwd_dkv"] * 3
+    # and a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu); K2 and K3 a
+    # 3xTF32 one as well (flash_bwd_tf32.cu)
+    assert sorted(groups.values()) == ["K1 flash_fwd"] * 3 + ["K2 flash_bwd_dq"] * 4 + [
+        "K3 flash_bwd_dkv"] * 4
     # as the profiler shows them: mangled, inside their anonymous namespace
     for name, group in groups.items():
         mangled = f"_ZN45_GLOBAL__N__0123_12_x{len(name)}{name}ILi128ELb1EEEvNS_4ArgsE"

@@ -49,13 +49,19 @@ multiples of 8 or a cross-length k takes ``xla_attention``, as in the JAX
 package, and the raw kernel call refuses D = 12 and f64. K1-K3 at fp16
 inputs run the same wgmma kernels' fp16 forms (outputs in fp16 or f32),
 held to their plain versions with the bf16 limits and an error below the
-bf16 kernels' on the same inputs; f32 inputs at any D and bf16 or fp16
-past D 1024 run the CUDA-core family, held to the plain versions (f32
-within a relative 2e-5), each on its own launch counter, with nothing
-stored past D; the fp16 libraries multiply on wgmma fed by TMA. bf16 and
-fp16 K1-K3 at 256 < D <= 1024 run the cluster kernels, held to the plain
-versions and to the CUDA-core kernels on the same inputs, bit-reproducible,
-and their entry points refuse what they do not take.
+bf16 kernels' on the same inputs; f32 inputs (K1 at any D, K2 and K3 past
+D 128) and bf16 or fp16 past D 1024 run the CUDA-core family, held to the
+plain versions (f32 within a relative 2e-5), each on its own launch
+counter, with nothing stored past D; the fp16 libraries multiply on wgmma
+fed by TMA. bf16 and fp16 K1-K3 at 256 < D <= 1024 run the cluster kernels,
+held to the plain versions and to the CUDA-core kernels on the same inputs,
+bit-reproducible, and their entry points refuse what they do not take. K2
+and K3 at f32 inputs up to D 128 run the 3xTF32 wgmma kernels, held to the
+plain f32 backward within 2e-5 (also on inputs whose operands truncation
+to tf32 would cut by more than that) and to the CUDA-core pair,
+bit-reproducible in both output forms, on their own counters; their entry
+points refuse what they do not take, and every instance runs on wgmma and
+TMA.
 """
 
 import os
@@ -1331,6 +1337,140 @@ def test_wide_kernels_run_on_wgmma_and_tma(cuda, library, kernel):
     # every instance (bf16 or fp16 inputs x 16-bit or f32 outputs) multiplies
     # with wgmma on tiles loaded by TMA
     sass = _sass_by_kernel(_build.build(library))
+    found = {k: v for k, v in sass.items() if kernel in k}
+    assert len(found) == 4, sorted(sass)
+    for name, text in found.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert "HMMA" not in text and "LDGSTS" not in text, name
+
+
+# -- the 3xTF32 K2 and K3 at f32 inputs (csrc/flash_bwd_tf32.cu) ---------------
+
+# (B, T, H, H_kv, D, causal): D 8, 72 and 96 (zero columns up to the padded
+# width 64 or 128), 64 and 128; a ragged T (1000, 130) against the 64-row and
+# 32-key tiles; MQA (H_kv 1) and GQA groups 2 and 4; causal and not
+TF32_SHAPES = [
+    (1, 256, 4, 2, 8, True),
+    (2, 256, 4, 2, 64, True),
+    (1, 256, 4, 2, 96, False),
+    (2, 1000, 4, 1, 128, True),
+    (1, 512, 8, 2, 128, False),
+    (1, 130, 2, 2, 72, True),
+]
+
+
+def _tf32_inputs(shape, seed):
+    q, k, v, do = _dtype_inputs(torch.float32, *shape, seed=seed)
+    o, lse = tattn.flash_forward(q, k, v, causal=shape[5])
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES,
+                         ids=[f"d{s[4]}-t{s[1]}-g{s[2] // s[3]}-{'causal' if s[5] else 'full'}"
+                              for s in TF32_SHAPES])
+def test_tf32_backward_matches_plain_f32(cuda, shape):
+    # both output forms (f32 in both) within F32_REL of the plain f32
+    # backward, delta too; one launch each on the 3xTF32 counters and none
+    # on the CUDA-core family's; the two forms and two runs bit-identical
+    b, t, h, h_kv, d, causal = shape
+    q, k, v, o, lse, do = _tf32_inputs(shape, seed=31)
+    assert all(tattn.kernel_entry(torch.float32, d, f, kernel).startswith("hived_flash_tf32")
+               for f in (False, True) for kernel in ("dq", "dkv"))
+    ref = tattn.flash_backward_plain(q, k, v, o, lse, do, causal=causal)
+    forms = []
+    for grad_dtype in (None, torch.float32):
+        before = {n: getattr(tattn, n) for n in tattn._COUNTERS.values()}
+        got = tattn.flash_backward(q, k, v, o, lse, do, causal=causal, grad_dtype=grad_dtype)
+        torch.cuda.synchronize()
+        moved = {n: getattr(tattn, n) - before[n] for n in before
+                 if getattr(tattn, n) != before[n]}
+        assert moved == {"FLASH_BWD_DQ_TF32_LAUNCHES": 1, "FLASH_BWD_DKV_TF32_LAUNCHES": 1}
+        assert all(x.dtype == torch.float32 for x in got)
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            assert _grad_errs(x, r)[0] <= F32_REL, (name, _grad_errs(x, r))
+        forms.append(got)
+    assert all(torch.equal(x, y) for x, y in zip(*forms))
+    again = tattn.flash_backward(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(forms[0], again))
+    _, delta = tattn.flash_backward_dq_cuda(q, k, v, o, lse, do, causal)
+    want = (do * o).sum(-1).permute(0, 2, 1).reshape(b * h, t)
+    assert _grad_errs(delta, want)[0] <= F32_REL
+
+
+def test_tf32_backward_rounds_its_operands_to_nearest(cuda):
+    # every input's low 13 bits set at or past half a tf32 ulp, where
+    # truncating an operand to tf32 and rounding it differ: the kernels
+    # still agree with the plain f32 backward, while the same backward on
+    # the truncated inputs does not (what an operand left to wgmma to cut
+    # down would give)
+    shape = (1, 512, 4, 2, 128, True)
+    q, k, v, do = _dtype_inputs(torch.float32, *shape, seed=32)
+
+    def round_up_bits(x):
+        bits = x.view(torch.int32)
+        return ((bits & ~0x1FFF) | 0x1800).view(torch.float32)
+
+    def truncated(x):
+        return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+    q, k, v, do = (round_up_bits(x) for x in (q, k, v, do))
+    o, lse = tattn.flash_forward(q, k, v)
+    ref = tattn.flash_backward_plain(q, k, v, o, lse, do)
+    got = tattn.flash_backward(q, k, v, o, lse, do)
+    cut = tattn.flash_backward_plain(*(truncated(x) for x in (q, k, v, o)), lse, truncated(do))
+    for name, x, c, r in zip(("dq", "dk", "dv"), got, cut, ref):
+        assert _grad_errs(x, r)[0] <= F32_REL, name
+        assert _grad_errs(c, r)[0] > F32_REL, name
+
+
+def test_tf32_pair_matches_the_cuda_core_pair(cuda):
+    # the same inputs through both families' K2 and K3, by symbol (the
+    # CUDA-core pair computes every product in f32 FMA): within F32_REL of
+    # each other; a raw launch counts nothing
+    shape = (2, 1024, 8, 4, 128, True)
+    q, k, v, o, lse, do = _tf32_inputs(shape, seed=33)
+    before = (tattn.FLASH_BWD_DQ_TF32_LAUNCHES, tattn.FLASH_BWD_DKV_TF32_LAUNCHES)
+    dims = (*q.shape[:3], k.shape[2], q.shape[3], 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for symbol, ptrs, strided in (
+            ("hived_flash_tf32_bwd_dq", (q, k, v, o, do, lse, delta, dq), (q, k, v, o, do, dq)),
+            ("hived_flash_tf32_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+             (q, k, v, do, dk, dv))):
+        tattn._launch(symbol, ptrs, tattn.launch_dims(symbol, dims, q.dtype, False), strided,
+                      stream)
+    core = _cuda_core_backward(q, k, v, o, lse, do, True, False)
+    torch.cuda.synchronize()
+    assert (tattn.FLASH_BWD_DQ_TF32_LAUNCHES, tattn.FLASH_BWD_DKV_TF32_LAUNCHES) == before
+    for name, x, c in zip(("dq", "dk", "dv"), (dq, dk, dv), core):
+        assert _grad_errs(x, c)[0] <= F32_REL, name
+
+
+def test_tf32_backward_refuses_what_it_does_not_take(cuda):
+    # 16-bit type codes, an output type other than f32 and D past 128 are
+    # refused by the entry points themselves
+    shape = (1, 128, 2, 2, 128, True)
+    q, k, v, o, lse, do = _tf32_inputs(shape, seed=34)
+    stream = torch.cuda.current_stream().cuda_stream
+    delta, dq = torch.empty_like(lse), torch.empty_like(q)
+    symbol = "hived_flash_tf32_bwd_dq"
+    ptrs, strided = (q, k, v, o, do, lse, delta, dq), (q, k, v, o, do, dq)
+    for bad in ((1, 128, 2, 2, 136, 1, 2, 2), (1, 128, 2, 2, 128, 1, 0, 0),
+                (1, 128, 2, 2, 128, 1, 2, 0), (1, 128, 2, 2, 12, 1, 2, 2)):
+        with pytest.raises(RuntimeError) as info:
+            tattn._launch(symbol, ptrs, bad, strided, stream)
+        assert "CUDA error" in str(info.value)
+    tattn._launch(symbol, ptrs, (1, 128, 2, 2, 128, 1, 2, 2), strided, stream)
+    torch.cuda.synchronize()
+    assert _grad_errs(dq, tattn.flash_backward_plain(q, k, v, o, lse, do)[0])[0] <= F32_REL
+
+
+@pytest.mark.parametrize("kernel", ["tf32_dq_kernel", "tf32_dkv_kernel"])
+def test_tf32_kernels_run_on_wgmma_and_tma(cuda, kernel):
+    # every instance (padded width 64 or 128 x causal or not) multiplies
+    # with wgmma on tiles loaded by TMA, never with mma.sync
+    sass = _sass_by_kernel(_build.build("flash_bwd_tf32"))
     found = {k: v for k, v in sass.items() if kernel in k}
     assert len(found) == 4, sorted(sass)
     for name, text in found.items():
