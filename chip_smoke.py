@@ -10,9 +10,9 @@ Phases, each of which must pass or the script exits non-zero:
     ``flash_bwd.cu`` (K2, K3), their fp16 instantiations
     (``flash_fwd_f16.cu``, ``flash_bwd_f16.cu``), the CUDA-core family
     (``flash_generic.cu``), the cluster K1, and K2 and K3, past D 256
-    (``flash_fwd_wide.cu``, ``flash_bwd_wide.cu``) and the 3xTF32 K2 and K3
-    at f32 inputs (``flash_bwd_tf32.cu``) with nvcc (sm_90a), all eight
-    compilers at once,
+    (``flash_fwd_wide.cu``, ``flash_bwd_wide.cu``) and the 3xTF32 K1, and
+    K2 and K3, at f32 inputs (``flash_fwd_tf32.cu``, ``flash_bwd_tf32.cu``)
+    with nvcc (sm_90a), all nine compilers at once,
     with each one's seconds, and print ptxas's register and spill lines and
     any warning that it serialized wgmma, for every instantiation (padded
     widths 64, 128, 256);
@@ -59,7 +59,7 @@ Phases, each of which must pass or the script exits non-zero:
     save the 6-layer train state after one step (511.7 M f32 parameters
     and their AdamW moments, ~6.1 GB), restore it into zeroed templates on
     the card and require every parameter and moment bit-identical, and show
-    that the check sees one flipped bit; then, at 2 layers, run ``train`` 4 steps twice
+    that the check sees one flipped bit; then, at 1 layer, run ``train`` 4 steps twice
     uninterrupted (A, A2), then 2 steps with ``--checkpoint-dir
     --checkpoint-every 2 --goodput-file`` (B) and the same command with
     ``--steps 4`` (B', which resumes), and hold B''s steps 3-4 to A's
@@ -347,9 +347,10 @@ Phases, each of which must pass or the script exits non-zero:
 (x) K1-K3 at every input dtype and head dim the JAX kernels take. (1) The
     fp16 forms of the wgmma kernels and their f32 forms at the flagship
     shape, D 96, D 256, T 192 and not causal; at f32 inputs (the flagship
-    shape, D 256) K1 on the CUDA-core family (``csrc/flash_generic.cu``) and
-    K2 and K3 on the 3xTF32 wgmma kernels (``csrc/flash_bwd_tf32.cu``) up to
-    D 128, on the CUDA-core family past it; the CUDA-core family and the
+    shape; D 64 with MQA, a ragged T and no mask; D 256) K1, K2 and K3 on
+    the 3xTF32 wgmma kernels (``csrc/flash_fwd_tf32.cu``,
+    ``csrc/flash_bwd_tf32.cu``) up to D 128, on the CUDA-core family
+    (``csrc/flash_generic.cu``) past it; the CUDA-core family and the
     cluster kernels at bf16, fp16 and f32 inputs at D 264 (an 8-column last
     panel, MQA,
     ragged T), 320 (not causal) and 512, where bf16's and fp16's K1-K3 run
@@ -364,8 +365,8 @@ Phases, each of which must pass or the script exits non-zero:
     K3's check; the fp16 backward's error below the bf16 backward's on the same
     draws in turns, at unit do and at a gradient's magnitude (do x 2^-20).
     (2) Each new kernel timed by CUDA events (the fp16 forms at the
-    flagship shape, the 3xTF32 K2 and K3 and the CUDA-core K1-K3 (K2 and K3
-    by symbol) at f32 there, K1 and the cluster
+    flagship shape, the 3xTF32 K1-K3 and the CUDA-core K1-K3 (by symbol) at
+    f32 there, K1 and the cluster
     K2 and K3 at bf16 and the D 512 CLI shape), beside its plain version,
     ``scaled_dot_product_attention``
     at the same dtype and shape (a yardstick only) and its bound: the
@@ -377,19 +378,20 @@ Phases, each of which must pass or the script exits non-zero:
     faster than the plain version and SDPA, and the cluster K2 + K3 in
     turns with the CUDA-core K2 + K3, the plain backward and SDPA's
     backward, held to the CUDA-core outputs and faster than both single
-    calls, each with the clusters the card holds at once; the 3xTF32 K2 +
-    K3 at the f32 flagship shape in turns with the CUDA-core pair (by
-    symbol) and SDPA's backward on the math backend (GQA) and on the
-    memory-efficient one (k and v expanded to H heads), held to the
-    CUDA-core outputs within the f32 limit and faster than that pair;
+    calls, each with the clusters the card holds at once; the 3xTF32 K1,
+    and K2 + K3, at the f32 flagship shape in turns with the CUDA-core K1,
+    or pair (by symbol), and SDPA's forward, or backward, on the math
+    backend (GQA) and on the memory-efficient one (k and v expanded to H
+    heads), held to the CUDA-core outputs within the f32 limit and faster
+    than them, K1 with its share of the bound;
     K1-K3 on bf16 against fp16 inputs at the flagship shape in turns. (3)
     ``TransformerConfig(dtype=float16)``
     and ``float32`` with ``attn_impl="flash"`` at the flagship width and 2
     layers: a forward (final-norm hidden states against xla, (e)'s limit)
     and 3 ``make_train_step`` steps with remat dots (K1-K3 12/6/6 on the
-    fp16 counters, or K1 on the CUDA-core and K2 and K3 on the 3xTF32
-    counters; the first loss against xla's), and the f32 model's step in
-    turns with K2 and K3 on the CUDA-core family (routes patched); the
+    fp16 counters, or on the 3xTF32 counters; the first loss against
+    xla's), and the f32 model's step in turns with K1, K2 and K3 on the
+    CUDA-core family (routes patched); the
     ``eval`` CLI (2 windows) and 3 steps of the ``train`` CLI at ``--d-model
     2048 --n-heads 4 --n-kv-heads 2`` (D 512), 2 layers, flash against xla
     on the same weights (K1, K2 and K3 on the cluster kernels' counters,
@@ -397,11 +399,10 @@ Phases, each of which must pass or the script exits non-zero:
     ratios; one fp16
     ``ring_flash`` step on the world-1 NCCL mesh (the fp16 f32-output forms
     4/2/2, the loss the flash step's); the ring's hop functions at fp16 and
-    f32 and D 320 against the plain versions. (4) Fourteen rows of the
+    f32 and D 320 against the plain versions. (4) Fifteen rows of the
     kernels line: the fp16 forms, their f32 forms, the cluster K1, K2 and
-    K3 (the D 512 train CLI's launches), the CUDA-core K1 (the f32 model's),
-    K2 and K3 (the f32 D 320 ring hops') and the 3xTF32 K2 and K3 (the f32
-    model's).
+    K3 (the D 512 train CLI's launches), the CUDA-core K1, K2 and K3 (the
+    f32 D 320 ring hops') and the 3xTF32 K1, K2 and K3 (the f32 model's).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -929,7 +930,8 @@ def phase_train() -> dict:
 
 # kernel-name fragments of each part of a train step's device time
 PROFILE_GROUPS = (
-    ("K1 flash_fwd", ("flash_fwd_kernel", "generic_fwd_kernel", "wide_fwd_kernel")),
+    ("K1 flash_fwd", ("flash_fwd_kernel", "generic_fwd_kernel", "wide_fwd_kernel",
+                      "tf32_fwd_kernel")),
     ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel", "generic_dq_kernel", "wide_dq_kernel",
                          "tf32_dq_kernel")),
     ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel", "generic_dkv_kernel", "wide_dkv_kernel",
@@ -1006,9 +1008,10 @@ def phase_train_profile() -> None:
 
 # phase (i): checkpoint, resume, preemption and goodput at the flagship
 # width; the round trip holds the whole 6-layer state, the train runs that
-# resume and preempt are cut to 2 layers (the script's time limit)
+# resume and preempt are cut to 1 layer (the script's time limit: their
+# checkpoint saves take most of the phase, and the slowest phase goes first)
 CKPT_ARGS = TRAIN_ARGS + ["--attn", "flash"]
-RESUME_ARGS = CKPT_ARGS + ["--n-layers", "2"]
+RESUME_ARGS = CKPT_ARGS + ["--n-layers", "1"]
 RESUME_STEPS, RESUME_SPLIT = 4, 2
 # resumed losses against the uninterrupted run's when two uninterrupted runs
 # are not bit-identical: the loss limit the port uses flash vs xla, relative
@@ -6708,8 +6711,10 @@ def phase_overlap(tp_local: dict) -> dict:
 # phase (x): K1-K3 at every input dtype and head dim the JAX package's
 # kernels take: the fp16 forms of the wgmma kernels, the cluster K1-K3
 # (csrc/flash_fwd_wide.cu, csrc/flash_bwd_wide.cu) for bf16 and fp16 at 256
-# < D <= 1024, and the CUDA-core family (csrc/flash_generic.cu) for f32
-# inputs at any D and 16-bit ones past 1024
+# < D <= 1024, the 3xTF32 K1-K3 (csrc/flash_fwd_tf32.cu,
+# csrc/flash_bwd_tf32.cu) for f32 inputs up to D 128, and the CUDA-core
+# family (csrc/flash_generic.cu) for f32 inputs past it and 16-bit ones past
+# 1024
 # f32 inputs: every output within this relative Frobenius distance of the
 # plain f32 version (an H100 read ~1e-7 before the phase was written; a TF32
 # pass, or the same inputs cast to bf16, read ~1e-3)
@@ -6726,11 +6731,17 @@ DT_FP16_CASES = (  # (tag, B, T, H, H_kv, D, causal)
     ("t192", 2, 192, 16, 8, 128, True),
     ("full", 2, 1024, 8, 2, 128, False),
 )
-DT_F32_CASES = (("flagship", 8, 2048, 16, 8, 128, True), ("d256", 2, 1024, 8, 2, 256, True))
+# f32: the flagship shape; D 64 (the 3xTF32 kernels' padded width 64) with
+# MQA, a ragged T and no mask; D 256 (the CUDA-core family)
+DT_F32_CASES = (("flagship", 8, 2048, 16, 8, 128, True), ("d64-t200", 2, 200, 8, 1, 64, False),
+                ("d256", 2, 1024, 8, 2, 256, True))
 # past 256 at every input dtype: 264 leaves an 8-column last panel (with MQA
 # and a ragged T), 320 not causal, 512 two whole panels
 DT_WIDE_CASES = (("d264", 2, 1000, 4, 1, 264, True), ("d320", 2, 1024, 4, 2, 320, False),
                  ("d512", 2, 1024, 4, 2, 512, True))
+# the CUDA-core family's entry points, called by symbol where (dtype, D) routes elsewhere
+_GENERIC = {"fwd": "hived_flash_generic_fwd", "dq": "hived_flash_generic_bwd_dq",
+            "dkv": "hived_flash_generic_bwd_dkv"}
 DT_MODEL = dict(EVAL_MODEL, n_layers=2)  # the fp16 and f32 model paths: 2 of the 6 layers
 # the flagship's width at 4 heads: head dim 512, no public model's
 D512_MODEL = dict(EVAL_MODEL, n_heads=4, n_kv_heads=2, n_layers=2)
@@ -7124,27 +7135,34 @@ def _dt_wide_turns(s: dict) -> dict:
     return mean
 
 
-def _sdpa_backward(qt, kt, vt, dout, group: int, backend: str):
-    """A call of SDPA's backward on [B, H, T, D] inputs (causal), k and v
-    given at H_kv heads: on the math backend with ``enable_gqa``, or on the
-    memory-efficient one with k and v expanded to H heads (it takes no GQA)
-    -> (the call, None), or (None, the first line of its refusal)."""
+def _sdpa_call(qt, kt, vt, group: int, backend: str, dout=None):
+    """A call of SDPA's forward, or with ``dout`` its backward, on [B, H, T,
+    D] inputs (causal), k and v given at H_kv heads: on the math backend
+    with ``enable_gqa``, or on the memory-efficient one with k and v
+    expanded to H heads (it takes no GQA) -> (the call, None), or (None,
+    the first line of its refusal)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     if backend == "math":
-        q_, k_, v_ = (y.detach().requires_grad_(True) for y in (qt, kt, vt))
+        q_, k_, v_ = (y.detach().requires_grad_(dout is not None) for y in (qt, kt, vt))
         picked, gqa = SDPBackend.MATH, True
     else:
-        q_, k_, v_ = (y.detach().requires_grad_(True) for y in (
+        q_, k_, v_ = (y.detach().requires_grad_(dout is not None) for y in (
             qt, kt.repeat_interleave(group, dim=1), vt.repeat_interleave(group, dim=1)))
         picked, gqa = SDPBackend.EFFICIENT_ATTENTION, False
-    try:
+
+    def forward():
         with sdpa_kernel(picked):
-            out = F.scaled_dot_product_attention(q_, k_, v_, is_causal=True, enable_gqa=gqa)
+            return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True, enable_gqa=gqa)
+
+    try:
+        out = forward()
     except RuntimeError as err:
         return None, str(err).splitlines()[0]
+    if dout is None:
+        return forward, None
     return lambda: torch.autograd.grad(out, (q_, k_, v_), dout, retain_graph=True), None
 
 
@@ -7164,13 +7182,12 @@ def _dt_tf32_turns(s: dict) -> dict:
     x = kernel_ab.inputs(b, t, h, h_kv, d, seed=170, dtype=torch.float32)
     res = {"3xTF32": {}, "CUDA-core": {}}
     launch = {name: [kernel_ab.runner(None, x, res[name], key,
-                                      symbol=None if name == "3xTF32"
-                                      else "hived_flash_generic_bwd_" + key)
+                                      symbol=None if name == "3xTF32" else _GENERIC[key])
                      for key in ("dq", "dkv")] for name in res}
     qt, kt, vt, dout = (x[n].transpose(1, 2).contiguous() for n in ("q", "k", "v", "do"))
     sdpa, refused = {}, {}
     for backend in ("math", "efficient"):
-        call, why = _sdpa_backward(qt, kt, vt, dout, h // h_kv, backend)
+        call, why = _sdpa_call(qt, kt, vt, h // h_kv, backend, dout)
         if call is None:
             refused[backend] = why
         else:
@@ -7204,11 +7221,68 @@ def _dt_tf32_turns(s: dict) -> dict:
     return mean
 
 
+def _dt_tf32_fwd_turns(s: dict) -> dict:
+    """The 3xTF32 K1 at the f32 flagship shape ``s`` in turns with the
+    CUDA-core K1 (by symbol) and SDPA's forward on the math backend (GQA,
+    what ``library_ms`` times) and on the memory-efficient one (k and v
+    expanded to H heads; reported refused if it refuses): 3xTF32,
+    CUDA-core, math, efficient, efficient, math, CUDA-core, 3xTF32. The
+    3xTF32 o and lse are held to the CUDA-core ones within DT_F32_REL, and
+    K1 must beat the CUDA-core K1 -> {name: mean ms}."""
+    import torch
+
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    b, t, h, h_kv, d = s["b"], s["t"], s["h"], s["h_kv"], s["d"]
+    x = kernel_ab.inputs(b, t, h, h_kv, d, seed=180, dtype=torch.float32)
+    res = {"3xTF32": {}, "CUDA-core": {}}
+    launch = {name: kernel_ab.runner(None, x, res[name], "fwd",
+                                     symbol=None if name == "3xTF32" else _GENERIC["fwd"])
+              for name in res}
+    qt, kt, vt = (x[n].transpose(1, 2).contiguous() for n in ("q", "k", "v"))
+    sdpa, refused = {}, {}
+    for backend in ("math", "efficient"):
+        call, why = _sdpa_call(qt, kt, vt, h // h_kv, backend)
+        if call is None:
+            refused[backend] = why
+        else:
+            sdpa["SDPA " + backend] = call
+    readings = {name: [] for name in (*launch, *sdpa)}
+    for name in ("3xTF32", "CUDA-core", "SDPA math", "SDPA efficient", "SDPA efficient",
+                 "SDPA math", "CUDA-core", "3xTF32"):
+        if name in launch:
+            readings[name].append(time_ms(launch[name], iters=5 if name == "3xTF32" else 3,
+                                          warmup=1))
+        elif name in sdpa:
+            readings[name].append(time_ms(sdpa[name], iters=3, warmup=1))
+    mean = {name: statistics.mean(r) for name, r in readings.items()}
+    errs = {n: rel_errs(res["3xTF32"][n], res["CUDA-core"][n])[0] for n in ("o", "lse")}
+    bound, _ = _dt_bound("fwd", s, torch.float32, False)
+    fastest = min((n for n in mean if n.startswith("SDPA")), key=mean.get)
+    print(f"[x] K1 at [{b},{t},{h}/{h_kv},{d}] f32 causal in turns (ms): 3xTF32 "
+          + ", ".join(f"{r:.4f}" for r in readings["3xTF32"]) + "; CUDA-core "
+          + ", ".join(f"{r:.4f}" for r in readings["CUDA-core"])
+          + "".join(f"; {n} forward " + ", ".join(f"{r:.4f}" for r in readings[n])
+                    for n in sdpa)
+          + "".join(f"; SDPA {n} refused: {why}" for n, why in refused.items())
+          + f"; 3xTF32 at {bound / mean['3xTF32']:.1%} of its {bound:.4f} ms bound; CUDA-core "
+          f"/ 3xTF32 {mean['CUDA-core'] / mean['3xTF32']:.2f}, faster SDPA ({fastest}) / 3xTF32 "
+          f"{mean[fastest] / mean['3xTF32']:.2f}; 3xTF32 against CUDA-core: "
+          + ", ".join(f"{n} rel {e:.3e}" for n, e in errs.items()) + f" (<= {DT_F32_REL})")
+    check(all(e <= DT_F32_REL for e in errs.values()),
+          "the 3xTF32 K1 disagrees with the CUDA-core K1 at the f32 flagship shape")
+    check(mean["3xTF32"] < mean["CUDA-core"], "the 3xTF32 K1 is not faster than the CUDA-core K1")
+    del x, res, launch, qt, kt, vt, sdpa
+    torch.cuda.empty_cache()
+    return mean
+
+
 def _f32_step_turns(step, p, opt, tokens) -> dict:
-    """make_train_step steps of the f32 model in turns with K2 and K3 on the
-    3xTF32 kernels and on the CUDA-core family (``kernel_entry`` patched to
-    route them there): 3xTF32, CUDA-core, CUDA-core, 3xTF32, one step each
-    by the host clock around a synchronised step -> {route: [ms]}."""
+    """make_train_step steps of the f32 model in turns with K1, K2 and K3
+    on the 3xTF32 kernels and on the CUDA-core family (``kernel_entry``
+    patched to route them there): 3xTF32, CUDA-core, CUDA-core, 3xTF32, one
+    step each by the host clock around a synchronised step -> {route:
+    [ms]}."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
@@ -7225,7 +7299,7 @@ def _f32_step_turns(step, p, opt, tokens) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             p, opt, loss = step(p, opt, tokens)
-            check(math.isfinite(float(loss)), f"the f32 step with {route} K2/K3 lost its loss")
+            check(math.isfinite(float(loss)), f"the f32 step with {route} K1-K3 lost its loss")
             torch.cuda.synchronize()
             readings[route].append((time.perf_counter() - t0) * 1e3)
     finally:
@@ -7317,7 +7391,7 @@ def _dt_model(dtype) -> dict:
                 steps = _f32_step_turns(step, p, opt, batches[0])
                 ratio = statistics.mean(steps["CUDA-core"]) / statistics.mean(steps["3xTF32"])
                 print(f"[x] f32 make_train_step, {layers} layers, one step each in turns (ms): "
-                      f"K2/K3 3xTF32 " + ", ".join(f"{r:.1f}" for r in steps["3xTF32"])
+                      f"K1-K3 3xTF32 " + ", ".join(f"{r:.1f}" for r in steps["3xTF32"])
                       + "; CUDA-core " + ", ".join(f"{r:.1f}" for r in steps["CUDA-core"])
                       + f"; CUDA-core / 3xTF32 {ratio:.3f}")
         del step, p, opt
@@ -7385,8 +7459,8 @@ def _dt_ring_hops() -> dict:
     """The ring's per-hop functions (``_flash_block``, ``_flash_block_grad``)
     at fp16 and f32 inputs and D 320, diagonal and unmasked, one launch each
     on its counter: each hop's f32 partials within DT_F32_REL of the plain
-    versions at f32 inputs (K1 on the CUDA-core family, K2 and K3 in 3xTF32
-    at D 128 and on the CUDA-core family at D 320), and fp16's, from the
+    versions at f32 inputs (K1-K3 in 3xTF32 at D 128 and on the CUDA-core
+    family at D 320), and fp16's, from the
     cluster K1-K3 on fp16 operands, within (b)'s and (f)'s limits -> the
     hops' launches."""
     import torch
@@ -7466,8 +7540,8 @@ def _dt_ring_fp16(first_loss: float, batch) -> dict:
 
 def phase_dtypes() -> list:
     """(x): K1-K3 at every input dtype and head dim the JAX kernels take ->
-    the kernels line's fourteen rows: the fp16 forms, the cluster K1-K3,
-    the CUDA-core family and the 3xTF32 K2 and K3."""
+    the kernels line's fifteen rows: the fp16 forms, the cluster K1-K3,
+    the CUDA-core family and the 3xTF32 K1-K3."""
     import torch
 
     t_phase = time.perf_counter()
@@ -7500,7 +7574,8 @@ def phase_dtypes() -> list:
                           forms=(False, True))
     timed("bf16/fp16 turns", _dt_turns)
     times["f32"] = timed("f32 times", _dt_times, "f32 flagship", torch.float32, f, iters=3,
-                         extra=[(key, "hived_flash_generic_bwd_" + key) for key in ("dq", "dkv")])
+                         extra=[(key, _GENERIC[key]) for key in ("fwd", "dq", "dkv")])
+    timed("f32 K1 turns", _dt_tf32_fwd_turns, f)
     timed("f32 K2 + K3 turns", _dt_tf32_turns, f)
     times["d512"] = timed("d512 times", _dt_times, "bf16 D 512", torch.bfloat16, d512, iters=3)
     timed("D 512 K1 turns", _dt_wide_fwd_turns, d512)
@@ -7518,9 +7593,8 @@ def phase_dtypes() -> list:
     # the rows: fp16 forms at the flagship shape with the fp16 model's train
     # launches (the f32 forms: the fp16 ring step's); the cluster K1-K3 at
     # the D 512 CLI shape with the D 512 train CLI's launches; the CUDA-core
-    # K1-K3 at the f32 flagship shape (K2 and K3 by symbol) with the f32
-    # model's launches (K1) and the f32 D 320 ring hops' (K2, K3); the
-    # 3xTF32 K2 and K3 there with the f32 model's
+    # K1-K3 at the f32 flagship shape (by symbol) with the f32 D 320 ring
+    # hops' launches; the 3xTF32 K1-K3 there with the f32 model's
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     lines = {"fwd": 98, "dq": 143, "dkv": 179}
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
@@ -7540,17 +7614,16 @@ def phase_dtypes() -> list:
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=d512_launches.get(counter, 0), **times["d512"][(key, False)]))
     for key in ("fwd", "dq", "dkv"):
-        symbol = "hived_flash_generic_" + ("fwd" if key == "fwd" else "bwd_" + key)
-        launches = f32_model["launches"] if key == "fwd" else hops
         rows.append(dict(name=names[key] + "_generic", route="cuda",
                          source=source + "flash_generic.cu",
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
-                         launches=launches.get(attn._COUNTERS[symbol], 0),
-                         **times["f32"][(key, False if key == "fwd" else symbol)]))
-    for key in ("dq", "dkv"):
+                         launches=hops.get(attn._COUNTERS[_GENERIC[key]], 0),
+                         **times["f32"][(key, _GENERIC[key])]))
+    for key in ("fwd", "dq", "dkv"):
         counter = attn._COUNTERS[attn.kernel_entry(torch.float32, 128, False, key)]
         rows.append(dict(name=names[key] + "_tf32", route="cuda",
-                         source=source + "flash_bwd_tf32.cu",
+                         source=source + ("flash_fwd_tf32.cu" if key == "fwd" else
+                                          "flash_bwd_tf32.cu"),
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=f32_model["launches"].get(counter, 0),
                          **times["f32"][(key, False)]))
@@ -7676,9 +7749,8 @@ def main() -> int:
     # and times of (l) at a tp = 2 rank's shape
     kernels += overlap["rows"]
     # and (x)'s: the fp16 forms (the fp16 model's steps, the fp16 ring's),
-    # the cluster K1-K3 (the D 512 train CLI's), the CUDA-core K1-K3 (K1 the
-    # f32 model's steps, K2 and K3 the f32 D 320 ring hops') and the 3xTF32
-    # K2 and K3 (the f32 model's steps)
+    # the cluster K1-K3 (the D 512 train CLI's), the CUDA-core K1-K3 (the
+    # f32 D 320 ring hops') and the 3xTF32 K1-K3 (the f32 model's steps)
     kernels += dtype_rows
     print(json.dumps({"kernels": kernels}))
     print(card)

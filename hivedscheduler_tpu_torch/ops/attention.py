@@ -46,12 +46,13 @@ bf16 or fp16       264-1024        wgmma on thread-block clusters
                                    (``csrc/flash_fwd_wide.cu``,
                                    ``csrc/flash_bwd_wide.cu``):
                                    ``hived_flash_wide_*``
-f32, K2 and K3     8-128           wgmma in 3xTF32
-                                   (``csrc/flash_bwd_tf32.cu``):
-                                   ``hived_flash_tf32_bwd_*``
-f32 K1, f32 K2/K3  every D % 8 ==  f32 on the CUDA cores
-past 128; bf16 or  0               (``csrc/flash_generic.cu``):
-fp16 past 1024                     ``hived_flash_generic_*``
+f32                8-128           wgmma in 3xTF32
+                                   (``csrc/flash_fwd_tf32.cu``,
+                                   ``csrc/flash_bwd_tf32.cu``):
+                                   ``hived_flash_tf32_*``
+f32; bf16 or fp16  136 and up;     f32 on the CUDA cores
+                   1032 and up     (``csrc/flash_generic.cu``):
+                                   ``hived_flash_generic_*``
 =================  ==============  ===========================================
 
 f64, integer dtypes and D % 8 != 0 raise; no route depends on a build or a
@@ -70,12 +71,13 @@ K1, K2 and K3 split their outputs into 128-column panels, one block each,
 and a cluster of those blocks forms each score tile once: each block's
 partial scores over its panel are summed across the cluster through
 distributed shared memory (``csrc/flash_fwd_wide.cu``,
-``csrc/flash_bwd_wide.cu``). At f32 inputs and D <= 128, K2 and K3
+``csrc/flash_bwd_wide.cu``). At f32 inputs and D <= 128, K1, K2 and K3
 run on the tensor cores in 3xTF32: every product is formed as big big +
 big small + small big of the operands' tf32 parts (big the operand rounded
 to tf32, small the rest rounded again), in f32 accumulators, so they keep
 f32 accuracy (about 2^-22 a product) where one TF32 pass would not
-(``csrc/flash_bwd_tf32.cu``). The CUDA-core
+(``csrc/flash_tf32.cuh``, ``csrc/flash_fwd_tf32.cu``,
+``csrc/flash_bwd_tf32.cu``). The CUDA-core
 family computes what the TPU kernels compute in their own arithmetic:
 every input widened to f32, every product an f32 FMA (no TF32), in
 64-row tiles and 128-column panels of the output, with the scores summed
@@ -121,7 +123,9 @@ FLASH_BWD_DKV_F16_F32_LAUNCHES = 0
 FLASH_FWD_GENERIC_LAUNCHES = 0
 FLASH_BWD_DQ_GENERIC_LAUNCHES = 0
 FLASH_BWD_DKV_GENERIC_LAUNCHES = 0
-# launches of the 3xTF32 K2 and K3 (f32 inputs at D <= 128), every output form
+# launches of the 3xTF32 K1, K2 and K3 (f32 inputs at D <= 128), every output
+# form
+FLASH_FWD_TF32_LAUNCHES = 0
 FLASH_BWD_DQ_TF32_LAUNCHES = 0
 FLASH_BWD_DKV_TF32_LAUNCHES = 0
 # launches of the cluster K1, K2 and K3 (bf16 and fp16 at 256 < D <= 1024),
@@ -144,8 +148,9 @@ WGMMA_HEAD_DIMS = range(8, 257, 8)
 # the head dims of the cluster K1, K2 and K3 (csrc/flash_fwd_wide.cu,
 # csrc/flash_bwd_wide.cu): 128-column panels, at most 8 blocks a cluster
 WIDE_HEAD_DIMS = range(264, 1025, 8)
-# the head dims of the 3xTF32 K2 and K3 at f32 inputs (csrc/flash_bwd_tf32.cu),
-# each run at its padded width 64 or 128
+# the head dims of the 3xTF32 K1, K2 and K3 at f32 inputs
+# (csrc/flash_fwd_tf32.cu, csrc/flash_bwd_tf32.cu), each run at its padded
+# width 64 or 128
 TF32_HEAD_DIMS = range(8, 129, 8)
 # the output dtypes of the kernels' two forms (None: the inputs' dtype)
 KERNEL_OUT_DTYPES = (None, torch.float32)
@@ -266,12 +271,14 @@ _KERNELS = {
     "hived_flash_wide_fwd": ("flash_fwd_wide", 5, 8, 12),
     "hived_flash_wide_bwd_dq": ("flash_bwd_wide", 8, 8, 18),
     "hived_flash_wide_bwd_dkv": ("flash_bwd_wide", 8, 8, 18),
+    "hived_flash_tf32_fwd": ("flash_fwd_tf32", 5, 8, 12),
     "hived_flash_tf32_bwd_dq": ("flash_bwd_tf32", 8, 8, 18),
     "hived_flash_tf32_bwd_dkv": ("flash_bwd_tf32", 8, 8, 18),
 }
 _TYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # the libraries whose entry points take the type codes after the dims
-_TYPED_LIBRARIES = ("flash_generic", "flash_fwd_wide", "flash_bwd_wide", "flash_bwd_tf32")
+_TYPED_LIBRARIES = ("flash_generic", "flash_fwd_wide", "flash_bwd_wide", "flash_fwd_tf32",
+                    "flash_bwd_tf32")
 # the launch counter of each entry point
 _COUNTERS = {
     "hived_flash_fwd": "FLASH_FWD_LAUNCHES",
@@ -292,6 +299,7 @@ _COUNTERS = {
     "hived_flash_wide_fwd": "FLASH_FWD_WIDE_LAUNCHES",
     "hived_flash_wide_bwd_dq": "FLASH_BWD_DQ_WIDE_LAUNCHES",
     "hived_flash_wide_bwd_dkv": "FLASH_BWD_DKV_WIDE_LAUNCHES",
+    "hived_flash_tf32_fwd": "FLASH_FWD_TF32_LAUNCHES",
     "hived_flash_tf32_bwd_dq": "FLASH_BWD_DQ_TF32_LAUNCHES",
     "hived_flash_tf32_bwd_dkv": "FLASH_BWD_DKV_TF32_LAUNCHES",
 }
@@ -303,11 +311,10 @@ def kernel_entry(dtype, d: int, out_f32: bool, kernel: str = "fwd") -> str:
     K3) on inputs of ``dtype`` at head dim ``d``, storing f32 (``out_f32``)
     or the inputs' dtype: bf16 and fp16 at D <= 256 the wgmma kernels
     (``_f16`` for fp16, ``_f32`` for the f32 forms); bf16 and fp16 at 256 <
-    D <= 1024 the cluster kernels; K2 and K3 at f32 inputs and D <= 128 the
-    3xTF32 wgmma kernels; K1 at f32 inputs, K2 and K3 at f32 past 128, and
-    bf16 or fp16 past 1024 the CUDA-core family (the last three one symbol
-    for every input and output type). Raises on any other dtype and on D % 8
-    != 0."""
+    D <= 1024 the cluster kernels; K1, K2 and K3 at f32 inputs and D <= 128
+    the 3xTF32 wgmma kernels; f32 past 128 and bf16 or fp16 past 1024 the
+    CUDA-core family (the last three one symbol for every input and output
+    type). Raises on any other dtype and on D % 8 != 0."""
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash kernels take {KERNEL_DTYPES}, not {dtype}")
     if d not in KERNEL_HEAD_DIMS:
@@ -316,7 +323,7 @@ def kernel_entry(dtype, d: int, out_f32: bool, kernel: str = "fwd") -> str:
         raise ValueError(f"kernel is one of {tuple(_STEMS)}, not {kernel!r}")
     if dtype != torch.float32 and d in WIDE_HEAD_DIMS:
         return _STEMS[kernel].replace("hived_flash", "hived_flash_wide")
-    if dtype == torch.float32 and d in TF32_HEAD_DIMS and kernel != "fwd":
+    if dtype == torch.float32 and d in TF32_HEAD_DIMS:
         return _STEMS[kernel].replace("hived_flash", "hived_flash_tf32")
     if dtype == torch.float32 or d not in WGMMA_HEAD_DIMS:
         return _STEMS[kernel].replace("hived_flash", "hived_flash_generic")
@@ -554,9 +561,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     latter, as JAX's does), and the plain versions of the kernels run
     otherwise. A CUDA tensor goes to the kernels, which tile any T
     themselves and take bf16, fp16 and f32 at every D % 8 == 0 (the wgmma
-    kernels, the cluster kernels past D 256, the 3xTF32 K2 and K3 for f32 up
-    to D 128, or the CUDA-core family for the rest of f32 and past D 1024:
-    :func:`kernel_entry`), and raise on what they do not
+    kernels, the cluster kernels past D 256, the 3xTF32 K1, K2 and K3 for f32
+    up to D 128, or the CUDA-core family for f32 past D 128 and 16-bit past
+    D 1024: :func:`kernel_entry`), and raise on what they do not
     take (another dtype, layout, GQA): there is no fallback to the plain
     versions or to the reference for them. The route is chosen from the
     shapes before any launch; a kernel that fails to build or launch raises. A

@@ -14,15 +14,17 @@ inputs, by default at the flagship shape (B=8, T=2048, H=16, H_kv=8,
 D=128, bf16, causal); ``--d``, ``--heads`` and ``--kv-heads`` change the
 head dim (any multiple of 8: past 256 K1-K3 run on the cluster kernels,
 past 1024 on the CUDA-core family) and the head counts (Gemma-2B's shape:
-``--d 256 --heads 8 --kv-heads 1``), and ``--dtype`` the inputs' dtype (fp16: the wgmma kernels' fp16 forms; f32:
-K1 on the CUDA-core family, K2 and K3 in 3xTF32 up to D 128). Where the
-other tree lacks the entry point this tree picks, it runs the one it routes
-the same call to: a tree without ``csrc/flash_fwd_wide.cu`` or
-``csrc/flash_bwd_wide.cu`` ran K1, or K2 and K3, past D 256 on the
-CUDA-core family, so ``--d 512 --heads 4 --kv-heads 2`` times those against
-the cluster kernels; a tree without ``csrc/flash_bwd_tf32.cu`` ran f32 K2
-and K3 there too, so ``--dtype f32 --kernels dq,dkv`` times them against
-the 3xTF32 kernels. Each
+``--d 256 --heads 8 --kv-heads 1``), and ``--dtype`` the inputs' dtype
+(fp16: the wgmma kernels' fp16 forms; f32: K1-K3 in 3xTF32 up to D 128, on
+the CUDA-core family past it). Where the other tree lacks the entry point
+this tree picks, it runs the one it routes the same call to: a tree
+without ``csrc/flash_fwd_wide.cu`` or ``csrc/flash_bwd_wide.cu`` ran K1,
+or K2 and K3, past D 256 on the CUDA-core family, so ``--d 512 --heads 4
+--kv-heads 2`` times those against the cluster kernels; a tree without
+``csrc/flash_fwd_tf32.cu`` or ``csrc/flash_bwd_tf32.cu`` ran f32 K1, or K2
+and K3, there too, so ``--dtype f32 --kernels fwd`` (or ``dq,dkv``) times
+them against the 3xTF32 kernels. Both trees' K2 and K3 read the o and lse
+of this tree's K1. Each
 kernel is timed with CUDA events in the order other, this, this, other, so
 a drift of the card's clock falls on both alike. It prints each reading,
 the ratio of the means, and the largest difference between the two trees'

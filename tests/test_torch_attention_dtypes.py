@@ -152,21 +152,22 @@ def test_kernel_entry_takes_the_wgmma_kernels_up_to_256(dtype, suffix, d):
     (torch.float16, 320), (torch.float16, 1024), (torch.bfloat16, 1032),
     (torch.float16, 1032)])
 def test_kernel_entry_takes_the_cuda_core_family(dtype, d):
-    # f32 inputs at every D (K2 and K3 up to D 128 on the 3xTF32 kernels),
-    # and K1-K3 at 16-bit inputs past 1024 (the cluster kernels' limit); at
+    # f32 inputs at every D (K1-K3 up to D 128 on the 3xTF32 kernels), and
+    # K1-K3 at 16-bit inputs past 1024 (the cluster kernels' limit); at
     # 16-bit inputs past 256 up to 1024 all three, K1 too, take the cluster
     # kernels; every one of them with the same arguments
     code = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}[dtype]
     core = dtype == torch.float32 or d > 1024
     for kernel, stem in STEMS.items():
         lib = "flash_fwd_wide" if kernel == "fwd" else "flash_bwd_wide"
-        tf32 = dtype == torch.float32 and d <= 128 and kernel != "fwd"
+        tf32 = dtype == torch.float32 and d <= 128
         for out_f32 in (False, True):
             symbol = tattn.kernel_entry(dtype, d, out_f32, kernel)
             generic = stem.replace("hived_flash", "hived_flash_generic")
             if tf32:
                 assert symbol == stem.replace("hived_flash", "hived_flash_tf32")
-                assert tattn._KERNELS[symbol][0] == "flash_bwd_tf32"
+                assert tattn._KERNELS[symbol][0] == (
+                    "flash_fwd_tf32" if kernel == "fwd" else "flash_bwd_tf32")
             else:
                 assert symbol == (generic if core else
                                   stem.replace("hived_flash", "hived_flash_wide"))
@@ -204,28 +205,31 @@ def test_kernel_entry_takes_the_wide_backward(dtype, d, out_f32):
 
 
 @pytest.mark.parametrize("out_f32", [False, True], ids=["in-dtype", "f32-out"])
-@pytest.mark.parametrize("d", [8, 64, 96, 128])
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
 def test_kernel_entry_takes_the_tf32_backward_at_f32(d, out_f32):
-    # K2 and K3 at f32 inputs up to D 128: the 3xTF32 wgmma kernels
-    # (csrc/flash_bwd_tf32.cu), with the CUDA-core family's arguments (the
-    # type codes after the dims, f32 in and out in both forms); K1 stays on
-    # the CUDA-core family, and so do K2 and K3 past 128
+    # K1, K2 and K3 at f32 inputs up to D 128: the 3xTF32 wgmma kernels
+    # (K1 csrc/flash_fwd_tf32.cu, K2 and K3 csrc/flash_bwd_tf32.cu), with
+    # the CUDA-core family's arguments (the type codes after the dims, f32
+    # in and out in both forms); past 128 all three stay on the CUDA-core
+    # family
     f32 = torch.float32
     assert d in tattn.TF32_HEAD_DIMS
-    for kernel in ("dq", "dkv"):
+    for kernel, entry, counter in (
+            ("fwd", ("flash_fwd_tf32", 5, 8, 12), "FLASH_FWD_TF32_LAUNCHES"),
+            ("dq", ("flash_bwd_tf32", 8, 8, 18), "FLASH_BWD_DQ_TF32_LAUNCHES"),
+            ("dkv", ("flash_bwd_tf32", 8, 8, 18), "FLASH_BWD_DKV_TF32_LAUNCHES")):
         symbol = tattn.kernel_entry(f32, d, out_f32, kernel)
         generic = STEMS[kernel].replace("hived_flash", "hived_flash_generic")
         assert symbol == STEMS[kernel].replace("hived_flash", "hived_flash_tf32")
-        assert tattn._KERNELS[symbol] == ("flash_bwd_tf32", 8, 8, 18)
+        assert tattn._KERNELS[symbol] == entry
         assert tattn._KERNELS[symbol][1:] == tattn._KERNELS[generic][1:]
         assert tattn.launch_dims(symbol, (1, 2, 3, 4, d, 1), f32, out_f32) == (
             1, 2, 3, 4, d, 1, 2, 2)
-        assert tattn._COUNTERS[symbol] == (
-            "FLASH_BWD_DQ_TF32_LAUNCHES" if kernel == "dq" else "FLASH_BWD_DKV_TF32_LAUNCHES")
+        assert tattn._COUNTERS[symbol] == counter
+        assert entry[0] in tattn._TYPED_LIBRARIES
         for wider in (136, 256):
             assert wider not in tattn.TF32_HEAD_DIMS
             assert tattn.kernel_entry(f32, wider, out_f32, kernel) == generic
-    assert tattn.kernel_entry(f32, d, out_f32, "fwd") == "hived_flash_generic_fwd"
     # 16-bit inputs at the same head dims keep the wgmma kernels
     assert tattn.kernel_entry(torch.bfloat16, d, out_f32, "dq") == (
         "hived_flash_bwd_dq" + ("_f32" if out_f32 else ""))
@@ -248,6 +252,7 @@ def test_every_entry_point_has_its_own_launch_counter():
     assert tattn._COUNTERS["hived_flash_wide_fwd"] == "FLASH_FWD_WIDE_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_wide_bwd_dq"] == "FLASH_BWD_DQ_WIDE_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_wide_bwd_dkv"] == "FLASH_BWD_DKV_WIDE_LAUNCHES"
+    assert tattn._COUNTERS["hived_flash_tf32_fwd"] == "FLASH_FWD_TF32_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_tf32_bwd_dq"] == "FLASH_BWD_DQ_TF32_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_tf32_bwd_dkv"] == "FLASH_BWD_DKV_TF32_LAUNCHES"
     for counter in tattn._COUNTERS.values():

@@ -1,9 +1,11 @@
-"""The arithmetic the 3xTF32 K2 and K3 (``csrc/flash_bwd_tf32.cu``) rest on,
-emulated on the CPU and held to the port's plain f32 backward and to the JAX
-package's ``_flash_backward`` (Pallas in interpret mode).
+"""The arithmetic the 3xTF32 K1, K2 and K3 (``csrc/flash_fwd_tf32.cu``,
+``csrc/flash_bwd_tf32.cu``) rest on, emulated on the CPU and held to the
+port's plain f32 forward and backward and to the JAX package's
+``_flash_forward`` and ``_flash_backward`` (Pallas in interpret mode).
 
-The card kernels form every product of the backward (q k^T, do v^T, ds k,
-ds^T q, p^T do) from the operands' tf32 parts: big = the f32 value rounded
+The card kernels form every product (the forward's q k^T and p v, the
+backward's q k^T, do v^T, ds k, ds^T q, p^T do) from the operands' tf32
+parts: big = the f32 value rounded
 to tf32 (10 mantissa bits, to nearest, ties away from zero: ``cvt.rna``),
 small = the rest rounded the same way, and a b = big big' + big small' +
 small big', accumulated in f32. Here each product is three f32 matmuls of
@@ -11,7 +13,9 @@ tf32-valued operands, whose products are exact in f32 (11 x 11 significant
 bits), summed in f32. The tests show that this stays within the f32 limit
 the card checks hold the kernels to (2e-5 relative Frobenius,
 ``chip_smoke.py``'s ``DT_F32_REL``) and that one TF32 pass (big big' alone)
-does not, at B 1, T 128, H 4 on H_kv 2, D 64 and 96, causal and not.
+does not, at B 1, T 128, H 4 on H_kv 2, D 64 and 96, causal and not; the
+forward also at a ragged T 200, in K1's own order (32-key tiles, each
+tile's o^T = v^T p^T in a fresh part folded in as o corr + part).
 """
 
 import jax
@@ -28,6 +32,9 @@ torch.set_num_threads(1)
 F32_REL = 2e-5  # chip_smoke.py's DT_F32_REL, the card checks' limit at f32 inputs
 CASES = [pytest.param(d, causal, id=f"d{d}-{'causal' if causal else 'full'}")
          for d in (64, 96) for causal in (True, False)]
+FWD_CASES = [pytest.param(t, d, causal, id=f"t{t}-d{d}-{'causal' if causal else 'full'}")
+             for t in (128, 200) for d in (64, 96) for causal in (True, False)]
+KEYS = 32  # keys a K/V tile of the card's K1
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -78,6 +85,40 @@ def backward(q, k, v, o, lse, do, causal: bool, mm):
     return dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
 
 
+def forward(q, k, v, causal: bool, mm):
+    """o, lse [B*H, T] of the flash forward in the card K1's order, every
+    product through ``mm``, the rest in f32: q scaled by 1/sqrt(D), then
+    for each 32-key tile s = q k^T (causal keys past the row at NEG_INF),
+    m_new, m_safe = max(m_new, -0.5e30), p = exp(s - m_safe), corr =
+    exp(max(m, -0.5e30) - m_safe), l = l corr + rowsum(p) and o = o corr +
+    part, with the tile's part = (v^T p^T)^T in a fresh accumulator; then
+    the l == 0 guard, o / l and lse = m_safe + log(l)."""
+    b, t, h, d = q.shape
+    g = h // k.shape[2]
+    qh = q.permute(0, 2, 1, 3) * (1.0 / d ** 0.5)  # [b, h, t, d]
+    kh, vh = (x.permute(0, 2, 1, 3).repeat_interleave(g, dim=1) for x in (k, v))
+    m = torch.full((b, h, t, 1), tattn.NEG_INF)
+    l = torch.zeros((b, h, t, 1))
+    o = torch.zeros((b, h, t, d))
+    rows = torch.arange(t)[:, None]
+    for k0 in range(0, t, KEYS):
+        kt, vt = kh[:, :, k0:k0 + KEYS], vh[:, :, k0:k0 + KEYS]
+        s = mm(qh, kt.transpose(-1, -2))
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kt.shape[2])[None, :] > rows, tattn.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.clamp(m_new, min=tattn._CLAMP)
+        p = torch.exp(s - m_safe)
+        corr = torch.exp(torch.clamp(m, min=tattn._CLAMP) - m_safe)
+        l = l * corr + p.sum(-1, keepdim=True)
+        part = mm(vt.transpose(-1, -2), p.transpose(-1, -2)).transpose(-1, -2)
+        o = o * corr + part
+        m = m_new
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = torch.clamp(m, min=tattn._CLAMP) + torch.log(l_safe)
+    return (o / l_safe).permute(0, 2, 1, 3), lse.reshape(b * h, t)
+
+
 def _rel(x, ref) -> float:
     x, ref = torch.as_tensor(np.array(x)), torch.as_tensor(np.array(ref))
     return float((x - ref).norm() / ref.norm())
@@ -100,6 +141,46 @@ def _inputs(d: int, causal: bool):
     x["o"] = torch.from_numpy(np.asarray(o).copy())
     x["lse"] = torch.from_numpy(np.asarray(lse)[:, :, 0].copy())
     return x, [np.asarray(g) for g in g_ref]
+
+
+def _fwd_inputs(t: int, d: int, causal: bool):
+    """q, k, v from a seed, and o and lse from JAX's interpret-mode
+    forward (lse as the port's [B*H, T]; blocks of 64, or 40 at T 200)."""
+    rng = np.random.default_rng(2000 + t + d + causal)
+    b, h, h_kv = 1, 4, 2
+    q = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, t, h_kv, d)).astype(np.float32) for _ in range(2))
+    block = 64 if t % 64 == 0 else 40
+    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        o, lse = jattn._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      causal=causal, block_q=block, block_k=block,
+                                      interpret=True)
+    x = {n: torch.from_numpy(a) for n, a in (("q", q), ("k", k), ("v", v))}
+    return x, np.asarray(o), np.asarray(lse)[:, :, 0]
+
+
+@pytest.mark.parametrize("t, d, causal", FWD_CASES)
+def test_3xtf32_forward_is_within_the_f32_limit(t, d, causal):
+    x, jax_o, jax_lse = _fwd_inputs(t, d, causal)
+    args = (x["q"], x["k"], x["v"], causal)
+    o, lse = forward(*args, mm3)
+    plain_o, plain_lse = tattn.flash_attention_plain(*args)
+    for got, plain, jax_ref in ((o, plain_o, jax_o), (lse, plain_lse, jax_lse)):
+        assert _rel(got, plain) <= F32_REL, _rel(got, plain)
+        assert _rel(got, jax_ref) <= F32_REL, _rel(got, jax_ref)
+    # the emulation with exact products is the plain version's function
+    exact = forward(*args, torch.matmul)
+    assert _rel(exact[0], plain_o) <= 1e-6 and _rel(exact[1], plain_lse) <= 1e-6
+
+
+@pytest.mark.parametrize("t, d, causal", FWD_CASES)
+def test_one_tf32_pass_forward_is_outside_the_f32_limit(t, d, causal):
+    # what the three passes buy in K1: one pass is off by more than the limit
+    x, jax_o, _ = _fwd_inputs(t, d, causal)
+    args = (x["q"], x["k"], x["v"], causal)
+    o, _ = forward(*args, mm1)
+    assert _rel(o, tattn.flash_attention_plain(*args)[0]) > F32_REL
+    assert _rel(o, jax_o) > F32_REL
 
 
 @pytest.mark.parametrize("d, causal", CASES)

@@ -106,7 +106,7 @@ def test_kernel_ab_refuses_without_a_card(tmp_path):
 
     assert kernel_ab.libraries() == sorted(_build.LIBRARIES) == [
         "flash_bwd", "flash_bwd_f16", "flash_bwd_tf32", "flash_bwd_wide", "flash_fwd",
-        "flash_fwd_f16", "flash_fwd_wide", "flash_generic"]
+        "flash_fwd_f16", "flash_fwd_tf32", "flash_fwd_wide", "flash_generic"]
     assert kernel_ab.main(["--other", str(tmp_path)]) != 0
     assert not os.listdir(tmp_path)  # nothing was built
 
@@ -140,6 +140,19 @@ def test_kernel_ab_times_the_other_trees_route():
         assert kernel_ab.entry_in({**parent, "flash_bwd_tf32": None}, symbol) == symbol
         assert tattn._KERNELS[f"hived_flash_generic_{stem}"][1:] == tattn._KERNELS[symbol][1:]
     assert kernel_ab.entry_in(parent, "hived_flash_generic_fwd") == "hived_flash_generic_fwd"
+    # a tree without flash_fwd_tf32.cu (this one's parent) ran f32 K1 on the
+    # CUDA-core family at every D: --dtype f32 --kernels fwd times the
+    # 3xTF32 K1 against that, and its K2 and K3 against the parent's own
+    for lacks in (("flash_fwd_tf32",), ("flash_fwd_tf32", "flash_bwd_tf32")):
+        parent = {n: None for n in _build.LIBRARIES if n not in lacks}
+        symbol = tattn.kernel_entry(torch.float32, 128, False, "fwd")
+        assert symbol == "hived_flash_tf32_fwd"
+        assert kernel_ab.entry_in(parent, symbol) == "hived_flash_generic_fwd"
+        assert tattn._KERNELS["hived_flash_generic_fwd"][1:] == tattn._KERNELS[symbol][1:]
+        for kernel, stem in (("dq", "bwd_dq"), ("dkv", "bwd_dkv")):
+            symbol = tattn.kernel_entry(torch.float32, 128, False, kernel)
+            assert kernel_ab.entry_in(parent, symbol) == (
+                f"hived_flash_generic_{stem}" if "flash_bwd_tf32" in lacks else symbol)
     with pytest.raises(RuntimeError) as info:
         kernel_ab.entry_in({"flash_generic": None}, "hived_flash_fwd")
     assert "hived_flash_fwd" in str(info.value)
@@ -186,6 +199,23 @@ def test_build_all_runs_the_compilers_together(scratch_build, monkeypatch):
     assert set(_build.BUILD_LOGS) == {"flash_fwd", "flash_bwd"}
 
 
+def test_tf32_libraries_rebuild_on_a_tf32_header_edit(tmp_path, monkeypatch):
+    # the 3xTF32 K1 and K2/K3 share flash_tf32.cuh: an edit names new
+    # libraries for both, and for no library that does not include it
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    names = ("flash_fwd_tf32", "flash_bwd_tf32", "flash_fwd", "flash_generic")
+    for name in names[:2]:
+        assert sorted(os.path.basename(p) for p in _build.sources(name)) == sorted([
+            f"{name}.cu", "flash_tf32.cuh", "flash_common.cuh", "hopper.cuh"])
+    before = {n: _build.library_path(n) for n in names}
+    with open(csrc / "flash_tf32.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert [before[n] != after[n] for n in names] == [True, True, False, False]
+
+
 def test_both_libraries_rebuild_on_a_hopper_header_edit():
     # K1 and K2 are built from hopper.cuh: its edits must name new libraries
     for name in ("flash_fwd", "flash_bwd"):
@@ -207,10 +237,10 @@ def test_profile_groups_follow_the_kernel_names():
             with open(os.path.join(_build.CSRC, src)) as f:
                 names.update(_GLOBAL.findall(f.read()))
     groups = {name: chip_smoke.profile_group(name) for name in names}
-    # each of K1-K3 has a wgmma kernel, a CUDA-core one (flash_generic.cu)
-    # and a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu); K2 and K3 a
-    # 3xTF32 one as well (flash_bwd_tf32.cu)
-    assert sorted(groups.values()) == ["K1 flash_fwd"] * 3 + ["K2 flash_bwd_dq"] * 4 + [
+    # each of K1-K3 has a wgmma kernel, a CUDA-core one (flash_generic.cu),
+    # a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu) and a 3xTF32 one
+    # (flash_fwd_tf32.cu, flash_bwd_tf32.cu)
+    assert sorted(groups.values()) == ["K1 flash_fwd"] * 4 + ["K2 flash_bwd_dq"] * 4 + [
         "K3 flash_bwd_dkv"] * 4
     # as the profiler shows them: mangled, inside their anonymous namespace
     for name, group in groups.items():

@@ -49,19 +49,19 @@ multiples of 8 or a cross-length k takes ``xla_attention``, as in the JAX
 package, and the raw kernel call refuses D = 12 and f64. K1-K3 at fp16
 inputs run the same wgmma kernels' fp16 forms (outputs in fp16 or f32),
 held to their plain versions with the bf16 limits and an error below the
-bf16 kernels' on the same inputs; f32 inputs (K1 at any D, K2 and K3 past
-D 128) and bf16 or fp16 past D 1024 run the CUDA-core family, held to the
+bf16 kernels' on the same inputs; f32 inputs past D 128 and bf16 or fp16
+past D 1024 run the CUDA-core family, held to the
 plain versions (f32 within a relative 2e-5), each on its own launch
 counter, with nothing stored past D; the fp16 libraries multiply on wgmma
 fed by TMA. bf16 and fp16 K1-K3 at 256 < D <= 1024 run the cluster kernels,
 held to the plain versions and to the CUDA-core kernels on the same inputs,
-bit-reproducible, and their entry points refuse what they do not take. K2
-and K3 at f32 inputs up to D 128 run the 3xTF32 wgmma kernels, held to the
-plain f32 backward within 2e-5 (also on inputs whose operands truncation
-to tf32 would cut by more than that) and to the CUDA-core pair,
-bit-reproducible in both output forms, on their own counters; their entry
-points refuse what they do not take, and every instance runs on wgmma and
-TMA.
+bit-reproducible, and their entry points refuse what they do not take. K1,
+K2 and K3 at f32 inputs up to D 128 run the 3xTF32 wgmma kernels, held to
+the plain f32 forward and backward within 2e-5 (also on inputs whose
+operands truncation to tf32 would cut by more than that) and to the
+CUDA-core kernels, bit-reproducible in both output forms, on their own
+counters; their entry points refuse what they do not take, and every
+instance runs on wgmma and TMA.
 """
 
 import os
@@ -221,24 +221,27 @@ def test_kernel_builds_for_sm90a(cuda):
 def test_kernel_raises_instead_of_falling_back(cuda, bad):
     q, k, v = _qkv(1, 128, 2, 2, 64)
     if bad in ("f32", "head_dim"):
-        # f32 inputs, and D = 1032 past the cluster kernels' 1024, run the
-        # CUDA-core family (its counter moves, the wgmma one does not); f64
-        # and D = 12, off the multiples of 8, are refused
+        # f32 inputs at D = 64 run the 3xTF32 K1, and D = 1032 past the
+        # cluster kernels' 1024 the CUDA-core family (their counter moves,
+        # the wgmma one does not); f64 and D = 12, off the multiples of 8,
+        # are refused
         if bad == "f32":
             q, k, v = q.float(), k.float(), v.float()
             refused, kind = tuple(x.double() for x in (q, k, v)), TypeError
+            counter = "FLASH_FWD_TF32_LAUNCHES"
         else:
             q, k, v = _qkv(1, 128, 2, 2, 1032)
             refused, kind = _qkv(1, 128, 2, 2, 12), ValueError
-        before = (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_FWD_GENERIC_LAUNCHES)
+            counter = "FLASH_FWD_GENERIC_LAUNCHES"
+        before = (tattn.FLASH_FWD_LAUNCHES, getattr(tattn, counter))
         o, lse = tattn.flash_forward(q, k, v)
-        assert (tattn.FLASH_FWD_LAUNCHES, tattn.FLASH_FWD_GENERIC_LAUNCHES) == (
+        assert (tattn.FLASH_FWD_LAUNCHES, getattr(tattn, counter)) == (
             before[0], before[1] + 1)
         o_ref, lse_ref = tattn.flash_attention_plain(q, k, v)
         assert o.dtype == q.dtype and _worst_row_rel(o, o_ref) <= O_ROW_REL
         with pytest.raises(kind):
             tattn.flash_forward(*refused)
-        assert tattn.FLASH_FWD_GENERIC_LAUNCHES == before[1] + 1
+        assert getattr(tattn, counter) == before[1] + 1
         return
     if bad == "noncontig":
         q = torch.randn(1, 2, 128, 64, device="cuda").to(torch.bfloat16).transpose(1, 2)
@@ -1472,6 +1475,112 @@ def test_tf32_kernels_run_on_wgmma_and_tma(cuda, kernel):
     # with wgmma on tiles loaded by TMA, never with mma.sync
     sass = _sass_by_kernel(_build.build("flash_bwd_tf32"))
     found = {k: v for k, v in sass.items() if kernel in k}
+    assert len(found) == 4, sorted(sass)
+    for name, text in found.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert "HMMA" not in text and "LDGSTS" not in text, name
+
+
+# -- the 3xTF32 K1 at f32 inputs (csrc/flash_fwd_tf32.cu) -----------------------
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES,
+                         ids=[f"d{s[4]}-t{s[1]}-g{s[2] // s[3]}-{'causal' if s[5] else 'full'}"
+                              for s in TF32_SHAPES])
+def test_tf32_forward_matches_plain_f32(cuda, shape):
+    # both output forms (f32 in both) within F32_REL of the plain f32
+    # forward, o and lse; one launch each on the 3xTF32 K1's counter and
+    # none on the CUDA-core family's; the two forms and two runs
+    # bit-identical, and within F32_REL of the CUDA-core K1 on the same
+    # inputs; stored through a wider buffer's view, nothing past D
+    b, t, h, h_kv, d, causal = shape
+    q, k, v, _ = _dtype_inputs(torch.float32, *shape, seed=35)
+    assert all(tattn.kernel_entry(torch.float32, d, f) == "hived_flash_tf32_fwd"
+               for f in (False, True))
+    o_ref, lse_ref = tattn.flash_attention_plain(q, k, v, causal=causal)
+    forms = []
+    for out_dtype in (None, torch.float32):
+        before = {n: getattr(tattn, n) for n in tattn._COUNTERS.values()}
+        o, lse = tattn.flash_forward(q, k, v, causal=causal, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        moved = {n: getattr(tattn, n) - before[n] for n in before
+                 if getattr(tattn, n) != before[n]}
+        assert moved == {"FLASH_FWD_TF32_LAUNCHES": 1}
+        assert o.dtype == torch.float32 and lse.shape == (b * h, t)
+        assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+        assert _grad_errs(o, o_ref)[0] <= F32_REL, _grad_errs(o, o_ref)
+        assert _grad_errs(lse, lse_ref)[0] <= F32_REL, _grad_errs(lse, lse_ref)
+        forms.append((o, lse))
+    assert all(torch.equal(x, y) for x, y in zip(*forms))
+    again = tattn.flash_forward(q, k, v, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(forms[0], again))
+    core_o, core_lse = _cuda_core_forward(q, k, v, causal, False)
+    assert _grad_errs(forms[0][0], core_o)[0] <= F32_REL
+    assert _grad_errs(forms[0][1], core_lse)[0] <= F32_REL
+    # o through a view into a buffer 64 columns wider: nothing stored past D
+    buf = torch.full((b, t, h, d + 64), SENTINEL, dtype=torch.float32, device="cuda")
+    lse2 = torch.empty_like(lse_ref)
+    symbol = "hived_flash_tf32_fwd"
+    tattn._launch(symbol, (q, k, v, buf[..., :d], lse2),
+                  tattn.launch_dims(symbol, (b, t, h, h_kv, d, int(causal)), q.dtype, False),
+                  (q, k, v, buf[..., :d]), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert bool((buf[..., d:] == SENTINEL).all())
+    assert torch.equal(buf[..., :d], forms[0][0]) and torch.equal(lse2, forms[0][1])
+
+
+def test_tf32_forward_rounds_its_operands_to_nearest(cuda):
+    # every input's low 13 bits set at or past half a tf32 ulp, where
+    # truncating an operand to tf32 and rounding it differ (D 64: the
+    # 1/sqrt(D) scale of q is a power of two and keeps those bits): the
+    # kernel still agrees with the plain f32 forward, while the same forward
+    # on the truncated inputs does not
+    shape = (1, 512, 4, 2, 64, True)
+    q, k, v, _ = _dtype_inputs(torch.float32, *shape, seed=36)
+
+    def round_up_bits(x):
+        bits = x.view(torch.int32)
+        return ((bits & ~0x1FFF) | 0x1800).view(torch.float32)
+
+    def truncated(x):
+        return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+    q, k, v = (round_up_bits(x) for x in (q, k, v))
+    o_ref, lse_ref = tattn.flash_attention_plain(q, k, v)
+    o, lse = tattn.flash_forward(q, k, v)
+    o_cut, _ = tattn.flash_attention_plain(*(truncated(x) for x in (q, k, v)))
+    assert _grad_errs(o, o_ref)[0] <= F32_REL
+    assert _grad_errs(lse, lse_ref)[0] <= F32_REL
+    assert _grad_errs(o_cut, o_ref)[0] > F32_REL
+
+
+def test_tf32_forward_refuses_what_it_does_not_take(cuda):
+    # 16-bit type codes, an output type other than f32 and D past 128 are
+    # refused by the entry point itself; a raw launch counts nothing
+    shape = (1, 128, 2, 2, 128, True)
+    q, k, v, _ = _dtype_inputs(torch.float32, *shape, seed=37)
+    stream = torch.cuda.current_stream().cuda_stream
+    o, lse = torch.empty_like(q), torch.empty((2, 128), dtype=torch.float32, device="cuda")
+    symbol = "hived_flash_tf32_fwd"
+    ptrs, strided = (q, k, v, o, lse), (q, k, v, o)
+    before = tattn.FLASH_FWD_TF32_LAUNCHES
+    for bad in ((1, 128, 2, 2, 136, 1, 2, 2), (1, 128, 2, 2, 128, 1, 0, 0),
+                (1, 128, 2, 2, 128, 1, 2, 0), (1, 128, 2, 2, 12, 1, 2, 2)):
+        with pytest.raises(RuntimeError) as info:
+            tattn._launch(symbol, ptrs, bad, strided, stream)
+        assert "CUDA error" in str(info.value)
+    tattn._launch(symbol, ptrs, (1, 128, 2, 2, 128, 1, 2, 2), strided, stream)
+    torch.cuda.synchronize()
+    assert tattn.FLASH_FWD_TF32_LAUNCHES == before
+    o_ref, lse_ref = tattn.flash_attention_plain(q, k, v)
+    assert _grad_errs(o, o_ref)[0] <= F32_REL and _grad_errs(lse, lse_ref)[0] <= F32_REL
+
+
+def test_tf32_forward_runs_on_wgmma_and_tma(cuda):
+    # every instance (padded width 64 or 128 x causal or not) multiplies
+    # with wgmma on tiles loaded by TMA, never with mma.sync
+    sass = _sass_by_kernel(_build.build("flash_fwd_tf32"))
+    found = {k: v for k, v in sass.items() if "tf32_fwd_kernel" in k}
     assert len(found) == 4, sorted(sass)
     for name, text in found.items():
         assert "HGMMA" in text and "UTMALDG" in text, name
