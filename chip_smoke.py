@@ -12,7 +12,8 @@ Phases, each of which must pass or the script exits non-zero:
     (``flash_generic.cu``), the cluster K1, and K2 and K3, past D 256
     (``flash_fwd_wide.cu``, ``flash_bwd_wide.cu``) and the 3xTF32 K1, and
     K2 and K3, at f32 inputs (``flash_fwd_tf32.cu``, ``flash_bwd_tf32.cu``)
-    with nvcc (sm_90a), all nine compilers at once,
+    and their cluster K2 and K3 past D 128 (``flash_bwd_tf32_wide.cu``)
+    with nvcc (sm_90a), all ten compilers at once,
     with each one's seconds, and print ptxas's register and spill lines and
     any warning that it serialized wgmma, for every instantiation (padded
     widths 64, 128, 256);
@@ -347,10 +348,12 @@ Phases, each of which must pass or the script exits non-zero:
 (x) K1-K3 at every input dtype and head dim the JAX kernels take. (1) The
     fp16 forms of the wgmma kernels and their f32 forms at the flagship
     shape, D 96, D 256, T 192 and not causal; at f32 inputs (the flagship
-    shape; D 64 with MQA, a ragged T and no mask; D 256) K1, K2 and K3 on
-    the 3xTF32 wgmma kernels (``csrc/flash_fwd_tf32.cu``,
-    ``csrc/flash_bwd_tf32.cu``) up to D 128, on the CUDA-core family
-    (``csrc/flash_generic.cu``) past it; the CUDA-core family and the
+    shape; D 64 with MQA, a ragged T and no mask; D 256; D 136 with MQA and
+    a ragged T; D 512; D 1024 not causal) K1, K2 and K3 on the 3xTF32 wgmma
+    kernels (``csrc/flash_fwd_tf32.cu``, ``csrc/flash_bwd_tf32.cu``) up to
+    D 128, past it K2 and K3 on their cluster form
+    (``csrc/flash_bwd_tf32_wide.cu``) and K1 on the CUDA-core family
+    (``csrc/flash_generic.cu``); the CUDA-core family and the
     cluster kernels at bf16, fp16 and f32 inputs at D 264 (an 8-column last
     panel, MQA,
     ragged T), 320 (not causal) and 512, where bf16's and fp16's K1-K3 run
@@ -361,9 +364,10 @@ Phases, each of which must pass or the script exits non-zero:
     own counter moved once a call, the f32 forms rounded once equal to the
     dtype's, sentinel columns past D untouched in a wider buffer, two runs
     bit-identical, (b)'s swapped V keys caught at the flagship fp16 and f32
-    cases, and at the f32 one K keys 0 and 1 swapped caught by K2's and
-    K3's check; the fp16 backward's error below the bf16 backward's on the same
-    draws in turns, at unit do and at a gradient's magnitude (do x 2^-20).
+    cases and the f32 ones past D 128, and at those K keys 0 and 1 swapped
+    caught by K2's and K3's check; the fp16 backward's error below the bf16
+    backward's on the same draws in turns, at unit do and at a gradient's
+    magnitude (do x 2^-20).
     (2) Each new kernel timed by CUDA events (the fp16 forms at the
     flagship shape, the 3xTF32 K1-K3 and the CUDA-core K1-K3 (by symbol) at
     f32 there, K1 and the cluster
@@ -383,15 +387,21 @@ Phases, each of which must pass or the script exits non-zero:
     or pair (by symbol), and SDPA's forward, or backward, on the math
     backend (GQA) and on the memory-efficient one (k and v expanded to H
     heads), held to the CUDA-core outputs within the f32 limit and faster
-    than them, K1 with its share of the bound;
+    than them, K1 with its share of the bound; at Gemma-2B's f32 shape (q
+    [8,2048,8,256], k/v [8,2048,1,256]) the 3xTF32 cluster K2 and K3 and
+    the CUDA-core K1-K3 timed the same way, and the cluster K2 + K3 in turns
+    with the CUDA-core pair and SDPA's two backwards, with the clusters the
+    card holds at once at every D of their range;
     K1-K3 on bf16 against fp16 inputs at the flagship shape in turns. (3)
     ``TransformerConfig(dtype=float16)``
     and ``float32`` with ``attn_impl="flash"`` at the flagship width and 2
-    layers: a forward (final-norm hidden states against xla, (e)'s limit)
-    and 3 ``make_train_step`` steps with remat dots (K1-K3 12/6/6 on the
-    fp16 counters, or on the 3xTF32 counters; the first loss against
-    xla's), and the f32 model's step in turns with K1, K2 and K3 on the
-    CUDA-core family (routes patched); the
+    layers, and ``float32`` at Gemma-2B's width (head dim 256, one kv head)
+    and 2 layers: a forward (final-norm hidden states against xla, (e)'s
+    limit) and 3 ``make_train_step`` steps with remat dots (K1-K3 12/6/6 on
+    the fp16 counters, or on the 3xTF32 counters; at Gemma's width K1 on
+    the CUDA-core counter and K2 and K3 on the 3xTF32 cluster counters; the
+    first loss against xla's), and each f32 model's step in turns with its
+    3xTF32 kernels routed to the CUDA-core family (routes patched); the
     ``eval`` CLI (2 windows) and 3 steps of the ``train`` CLI at ``--d-model
     2048 --n-heads 4 --n-kv-heads 2`` (D 512), 2 layers, flash against xla
     on the same weights (K1, K2 and K3 on the cluster kernels' counters,
@@ -399,10 +409,12 @@ Phases, each of which must pass or the script exits non-zero:
     ratios; one fp16
     ``ring_flash`` step on the world-1 NCCL mesh (the fp16 f32-output forms
     4/2/2, the loss the flash step's); the ring's hop functions at fp16 and
-    f32 and D 320 against the plain versions. (4) Fifteen rows of the
-    kernels line: the fp16 forms, their f32 forms, the cluster K1, K2 and
-    K3 (the D 512 train CLI's launches), the CUDA-core K1, K2 and K3 (the
-    f32 D 320 ring hops') and the 3xTF32 K1, K2 and K3 (the f32 model's).
+    f32 and D 320, and at f32 and D 1032 (past the clusters), against the
+    plain versions. (4) Seventeen rows of the kernels line: the fp16 forms,
+    their f32 forms, the cluster K1, K2 and K3 (the D 512 train CLI's
+    launches), the CUDA-core K1, K2 and K3 (the f32 ring hops', timed at
+    Gemma's f32 shape), the 3xTF32 K1, K2 and K3 (the f32 flagship model's)
+    and the 3xTF32 cluster K2 and K3 (the f32 Gemma-width model's).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -6712,9 +6724,9 @@ def phase_overlap(tp_local: dict) -> dict:
 # kernels take: the fp16 forms of the wgmma kernels, the cluster K1-K3
 # (csrc/flash_fwd_wide.cu, csrc/flash_bwd_wide.cu) for bf16 and fp16 at 256
 # < D <= 1024, the 3xTF32 K1-K3 (csrc/flash_fwd_tf32.cu,
-# csrc/flash_bwd_tf32.cu) for f32 inputs up to D 128, and the CUDA-core
-# family (csrc/flash_generic.cu) for f32 inputs past it and 16-bit ones past
-# 1024
+# csrc/flash_bwd_tf32.cu) for f32 inputs up to D 128, their cluster K2 and
+# K3 (csrc/flash_bwd_tf32_wide.cu) up to D 1024, and the CUDA-core family
+# (csrc/flash_generic.cu) for the rest of f32 and 16-bit inputs past 1024
 # f32 inputs: every output within this relative Frobenius distance of the
 # plain f32 version (an H100 read ~1e-7 before the phase was written; a TF32
 # pass, or the same inputs cast to bf16, read ~1e-3)
@@ -6732,9 +6744,12 @@ DT_FP16_CASES = (  # (tag, B, T, H, H_kv, D, causal)
     ("full", 2, 1024, 8, 2, 128, False),
 )
 # f32: the flagship shape; D 64 (the 3xTF32 kernels' padded width 64) with
-# MQA, a ragged T and no mask; D 256 (the CUDA-core family)
+# MQA, a ragged T and no mask; past D 128 (K2 and K3 on the 3xTF32 clusters,
+# K1 on the CUDA-core family) D 256, D 136 (an 8-column last panel) with MQA
+# and a ragged T, D 512 and D 1024 (clusters of 8) not causal
 DT_F32_CASES = (("flagship", 8, 2048, 16, 8, 128, True), ("d64-t200", 2, 200, 8, 1, 64, False),
-                ("d256", 2, 1024, 8, 2, 256, True))
+                ("d256", 2, 1024, 8, 2, 256, True), ("d136-t200", 2, 200, 8, 1, 136, True),
+                ("d512", 2, 1024, 4, 2, 512, True), ("d1024-full", 1, 512, 4, 2, 1024, False))
 # past 256 at every input dtype: 264 leaves an 8-column last panel (with MQA
 # and a ragged T), 320 not causal, 512 two whole panels
 DT_WIDE_CASES = (("d264", 2, 1000, 4, 1, 264, True), ("d320", 2, 1024, 4, 2, 320, False),
@@ -6743,6 +6758,9 @@ DT_WIDE_CASES = (("d264", 2, 1000, 4, 1, 264, True), ("d320", 2, 1024, 4, 2, 320
 _GENERIC = {"fwd": "hived_flash_generic_fwd", "dq": "hived_flash_generic_bwd_dq",
             "dkv": "hived_flash_generic_bwd_dkv"}
 DT_MODEL = dict(EVAL_MODEL, n_layers=2)  # the fp16 and f32 model paths: 2 of the 6 layers
+# the f32 model at Gemma-2B's width (head dim 256, one kv head), 2 of its 18
+# layers: K2 and K3 on the 3xTF32 clusters
+DT_GEMMA_MODEL = dict(GEMMA.model, n_layers=2)
 # the flagship's width at 4 heads: head dim 512, no public model's
 D512_MODEL = dict(EVAL_MODEL, n_heads=4, n_kv_heads=2, n_layers=2)
 D512_ARGS = [a for k, v in D512_MODEL.items() for a in (f"--{k.replace('_', '-')}", str(v))] + [
@@ -7167,11 +7185,12 @@ def _sdpa_call(qt, kt, vt, group: int, backend: str, dout=None):
 
 
 def _dt_tf32_turns(s: dict) -> dict:
-    """The 3xTF32 K2 + K3 at the f32 flagship shape ``s`` in turns with the
-    CUDA-core K2 + K3 (by symbol) and SDPA's backward on the math backend
-    (GQA, what ``library_ms`` times) and on the memory-efficient one (k and
-    v expanded to H heads; reported refused if it refuses): 3xTF32,
-    CUDA-core, math, efficient, efficient, math, CUDA-core, 3xTF32. The
+    """The 3xTF32 K2 + K3 at the f32 shape ``s`` (the cluster pair past D
+    128) in turns with the CUDA-core K2 + K3 (by symbol) and SDPA's
+    backward on the math backend (GQA, what ``library_ms`` times) and on
+    the memory-efficient one (k and v expanded to H heads; reported refused
+    if it refuses): 3xTF32, CUDA-core, math, efficient, efficient, math,
+    CUDA-core, 3xTF32. The
     3xTF32 outputs are held to the CUDA-core ones within DT_F32_REL, and
     the pair must beat the CUDA-core pair -> {name: mean ms}."""
     import torch
@@ -7213,12 +7232,30 @@ def _dt_tf32_turns(s: dict) -> dict:
           f"({fastest}) / 3xTF32 {mean[fastest] / mean['3xTF32']:.2f}; 3xTF32 against CUDA-core: "
           + ", ".join(f"{n} rel {e:.3e}" for n, e in errs.items()) + f" (<= {DT_F32_REL})")
     check(all(e <= DT_F32_REL for e in errs.values()),
-          "the 3xTF32 K2/K3 disagree with the CUDA-core ones at the f32 flagship shape")
+          f"the 3xTF32 K2/K3 disagree with the CUDA-core ones at the f32 shape {s}")
     check(mean["3xTF32"] < mean["CUDA-core"],
           "the 3xTF32 K2 + K3 are not faster than the CUDA-core pair")
     del x, res, launch, qt, kt, vt, dout, sdpa
     torch.cuda.empty_cache()
     return mean
+
+
+def _dt_tf32_wide_clusters() -> dict:
+    """The clusters of the 3xTF32 cluster K2 and K3 the card holds at once
+    at each cluster size their route takes (D 136 to 1024: 2 to 8 blocks),
+    none of which may be 0 -> {D: (K2's, K3's)}."""
+    from hivedscheduler_tpu_torch.ops import _build
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    query = _build.load("flash_bwd_tf32_wide").hived_flash_tf32_wide_clusters
+    query.argtypes, query.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    dims = [d for d in attn.TF32_WIDE_HEAD_DIMS if d % 128 == 0 or d == 136]
+    held = {d: (query(d, 0), query(d, 1)) for d in dims}
+    print("[x] 3xTF32 cluster K2, K3 clusters the card holds at once: " + "; ".join(
+        f"D {d} ({(d + 127) // 128} blocks) {k2}, {k3}" for d, (k2, k3) in held.items()))
+    check(all(min(n) > 0 for n in held.values()),
+          "a cluster size of the f32 K2/K3 route cannot be scheduled")
+    return held
 
 
 def _dt_tf32_fwd_turns(s: dict) -> dict:
@@ -7278,11 +7315,11 @@ def _dt_tf32_fwd_turns(s: dict) -> dict:
 
 
 def _f32_step_turns(step, p, opt, tokens) -> dict:
-    """make_train_step steps of the f32 model in turns with K1, K2 and K3
-    on the 3xTF32 kernels and on the CUDA-core family (``kernel_entry``
-    patched to route them there): 3xTF32, CUDA-core, CUDA-core, 3xTF32, one
-    step each by the host clock around a synchronised step -> {route:
-    [ms]}."""
+    """make_train_step steps of an f32 model in turns with its 3xTF32
+    kernels (K1-K3 up to D 128, the cluster K2 and K3 past it) and with
+    those routed to the CUDA-core family (``kernel_entry`` patched): 3xTF32,
+    CUDA-core, CUDA-core, 3xTF32, one step each by the host clock around a
+    synchronised step -> {route: [ms]}."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
@@ -7290,7 +7327,10 @@ def _f32_step_turns(step, p, opt, tokens) -> dict:
     real = attn.kernel_entry
 
     def core(dtype, d, out_f32, kernel="fwd"):
-        return real(dtype, d, out_f32, kernel).replace("hived_flash_tf32", "hived_flash_generic")
+        symbol = real(dtype, d, out_f32, kernel)
+        for family in ("hived_flash_tf32_wide", "hived_flash_tf32"):
+            symbol = symbol.replace(family, "hived_flash_generic")
+        return symbol
 
     readings = {"3xTF32": [], "CUDA-core": []}
     try:
@@ -7337,12 +7377,14 @@ def _dt_turns() -> dict:
     return ratios
 
 
-def _dt_model(dtype) -> dict:
-    """TransformerConfig(dtype=..., attn_impl="flash") at the flagship
-    width and 2 layers: a forward (final-norm hidden states against xla on
+def _dt_model(dtype, model: dict = DT_MODEL, width: str = "the flagship width") -> dict:
+    """TransformerConfig(dtype=..., attn_impl="flash") at ``model``'s width
+    and depth (2 layers): a forward (final-norm hidden states against xla on
     the same weights, K1 once a layer) and 3 make_train_step steps with
     --remat dots's policy (K1-K3 12/6/6; the first loss against xla's on the
-    same weights and batch) -> the steps' launches and first loss."""
+    same weights and batch); in f32 the step in turns with its 3xTF32
+    kernels routed to the CUDA-core family -> the steps' launches and first
+    loss."""
     import numpy as np
     import torch
 
@@ -7351,9 +7393,9 @@ def _dt_model(dtype) -> dict:
     from hivedscheduler_tpu_torch.parallel import data as data_lib
     from hivedscheduler_tpu_torch.parallel import train as port_train
 
-    layers = DT_MODEL["n_layers"]
+    layers = model["n_layers"]
     cfg = tm.TransformerConfig(max_seq_len=EVAL_SEQ, attn_impl="flash", remat="dots",
-                               dtype=dtype, **DT_MODEL)
+                               dtype=dtype, **model)
     cfg_x = dataclasses.replace(cfg, attn_impl="xla")
     d = cfg.head_dim
     params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -7368,7 +7410,7 @@ def _dt_model(dtype) -> dict:
     torch.cuda.synchronize()
     fro, row = rel_errs(h_f, h_x)
     want_fwd = _want(attn, dtype, d, {"fwd": layers})
-    print(f"[x] {str(dtype)[6:]} model at the flagship width, {layers} layers: final-norm hidden "
+    print(f"[x] {str(dtype)[6:]} model at {width}, {layers} layers: final-norm hidden "
           f"states ({h_f.dtype}) flash vs xla rel {fro:.3e} (<= {HIDDEN_REL}), worst token rel "
           f"{row:.3e}; forward launches {fwd} (want {want_fwd})")
     check(fwd == want_fwd, f"{dtype} forward launched {fwd}")
@@ -7390,8 +7432,8 @@ def _dt_model(dtype) -> dict:
             if dtype == torch.float32:
                 steps = _f32_step_turns(step, p, opt, batches[0])
                 ratio = statistics.mean(steps["CUDA-core"]) / statistics.mean(steps["3xTF32"])
-                print(f"[x] f32 make_train_step, {layers} layers, one step each in turns (ms): "
-                      f"K1-K3 3xTF32 " + ", ".join(f"{r:.1f}" for r in steps["3xTF32"])
+                print(f"[x] f32 make_train_step at {width}, {layers} layers, one step each in "
+                      f"turns (ms): 3xTF32 " + ", ".join(f"{r:.1f}" for r in steps["3xTF32"])
                       + "; CUDA-core " + ", ".join(f"{r:.1f}" for r in steps["CUDA-core"])
                       + f"; CUDA-core / 3xTF32 {ratio:.3f}")
         del step, p, opt
@@ -7399,8 +7441,8 @@ def _dt_model(dtype) -> dict:
     n = layers * TRAIN_STEPS
     want = _want(attn, dtype, d, {"fwd": 2 * n, "dq": n, "dkv": n})
     diff = abs(losses["flash"][0] - losses["xla"][0])
-    print(f"[x] {str(dtype)[6:]} make_train_step, remat dots, {TRAIN_STEPS} steps: losses "
-          f"{losses['flash']}; launches {launches} (want {want}); the first loss against xla's "
+    print(f"[x] {str(dtype)[6:]} make_train_step at {width}, remat dots, {TRAIN_STEPS} steps: "
+          f"losses {losses['flash']}; launches {launches} (want {want}); the first loss against xla's "
           f"{losses['xla'][0]:.6f} on the same weights and batch: |diff| {diff:.3e} (<= {LOSS_ATOL})")
     check(launches == want, f"{dtype} train steps launched {launches}")
     check(all(math.isfinite(x) for x in losses["flash"]) and diff <= LOSS_ATOL,
@@ -7457,12 +7499,13 @@ def _dt_clis() -> dict:
 
 def _dt_ring_hops() -> dict:
     """The ring's per-hop functions (``_flash_block``, ``_flash_block_grad``)
-    at fp16 and f32 inputs and D 320, diagonal and unmasked, one launch each
-    on its counter: each hop's f32 partials within DT_F32_REL of the plain
-    versions at f32 inputs (K1-K3 in 3xTF32 at D 128 and on the CUDA-core
-    family at D 320), and fp16's, from the
-    cluster K1-K3 on fp16 operands, within (b)'s and (f)'s limits -> the
-    hops' launches."""
+    at fp16 and f32 inputs and D 320, f32 at D 128 and f32 at D 1032,
+    diagonal and unmasked, one launch each on its counter: each hop's f32
+    partials within DT_F32_REL of the plain versions at f32 inputs (K1-K3
+    in 3xTF32 at D 128; at D 320 K2 and K3 on the 3xTF32 clusters and K1 on
+    the CUDA-core family; at D 1032 K1-K3 on the CUDA-core family), and
+    fp16's, from the cluster K1-K3 on fp16 operands, within (b)'s and (f)'s
+    limits -> the hops' launches."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
@@ -7470,7 +7513,7 @@ def _dt_ring_hops() -> dict:
 
     f32 = torch.float32
     total = {}
-    for dtype, d in ((torch.float16, 320), (f32, 128), (f32, 320)):
+    for dtype, d in ((torch.float16, 320), (f32, 128), (f32, 320), (f32, 1032)):
         q, k, v, do = _dt_inputs(dtype, 1, 1024, 4, 2, d, seed=140)
         for diag in (True, False):
             before = _all_launches(attn)
@@ -7540,8 +7583,9 @@ def _dt_ring_fp16(first_loss: float, batch) -> dict:
 
 def phase_dtypes() -> list:
     """(x): K1-K3 at every input dtype and head dim the JAX kernels take ->
-    the kernels line's fifteen rows: the fp16 forms, the cluster K1-K3,
-    the CUDA-core family and the 3xTF32 K1-K3."""
+    the kernels line's seventeen rows: the fp16 forms, the cluster K1-K3,
+    the CUDA-core family, the 3xTF32 K1-K3 and the 3xTF32 cluster K2 and
+    K3."""
     import torch
 
     t_phase = time.perf_counter()
@@ -7558,7 +7602,8 @@ def phase_dtypes() -> list:
         for i, case in enumerate(DT_FP16_CASES):
             errs[("fp16", case[0])] = _dt_case(torch.float16, case, seed=80 + i, plant=i == 0)
         for i, case in enumerate(DT_F32_CASES):
-            errs[("f32", case[0])] = _dt_case(torch.float32, case, seed=90 + i, plant=i == 0)
+            errs[("f32", case[0])] = _dt_case(torch.float32, case, seed=90 + i,
+                                              plant=i == 0 or case[5] > 128)
         for i, case in enumerate(DT_WIDE_CASES):
             for j, dtype in enumerate((torch.bfloat16, torch.float16, torch.float32)):
                 _dt_case(dtype, case, seed=100 + 3 * i + j)
@@ -7573,15 +7618,23 @@ def phase_dtypes() -> list:
     times["fp16"] = timed("fp16 times", _dt_times, "fp16 flagship", torch.float16, f,
                           forms=(False, True))
     timed("bf16/fp16 turns", _dt_turns)
-    times["f32"] = timed("f32 times", _dt_times, "f32 flagship", torch.float32, f, iters=3,
-                         extra=[(key, _GENERIC[key]) for key in ("fwd", "dq", "dkv")])
+    times["f32"] = timed("f32 times", _dt_times, "f32 flagship", torch.float32, f, iters=3)
     timed("f32 K1 turns", _dt_tf32_fwd_turns, f)
     timed("f32 K2 + K3 turns", _dt_tf32_turns, f)
+    # Gemma-2B's f32 shape: the cluster K2 and K3, and the CUDA-core K1-K3
+    # (K1 by its route, K2 and K3 by symbol)
+    gemma = GEMMA.shape
+    times["f32 gemma"] = timed("f32 Gemma times", _dt_times, "f32 Gemma-2B", torch.float32, gemma,
+                               iters=3, extra=[(key, _GENERIC[key]) for key in ("dq", "dkv")])
+    timed("f32 Gemma K2 + K3 turns", _dt_tf32_turns, gemma)
+    timed("f32 clusters", _dt_tf32_wide_clusters)
     times["d512"] = timed("d512 times", _dt_times, "bf16 D 512", torch.bfloat16, d512, iters=3)
     timed("D 512 K1 turns", _dt_wide_fwd_turns, d512)
     timed("D 512 turns", _dt_wide_turns, d512)
     fp16 = timed("fp16 model", _dt_model, torch.float16)
     f32_model = timed("f32 model", _dt_model, torch.float32)
+    gemma_model = timed("f32 Gemma model", _dt_model, torch.float32, DT_GEMMA_MODEL,
+                        "Gemma-2B's width")
     d512_launches = timed("D 512 CLIs", _dt_clis)
     ring = timed("fp16 ring", _dt_ring_fp16, fp16["first_loss"], fp16["batch"])
     hops = timed("ring hops", _dt_ring_hops)
@@ -7593,8 +7646,11 @@ def phase_dtypes() -> list:
     # the rows: fp16 forms at the flagship shape with the fp16 model's train
     # launches (the f32 forms: the fp16 ring step's); the cluster K1-K3 at
     # the D 512 CLI shape with the D 512 train CLI's launches; the CUDA-core
-    # K1-K3 at the f32 flagship shape (by symbol) with the f32 D 320 ring
-    # hops' launches; the 3xTF32 K1-K3 there with the f32 model's
+    # K1-K3 at Gemma-2B's f32 shape (K2 and K3 by symbol) with the f32 ring
+    # hops' launches (K1 at D 320 and 1032, K2 and K3 at 1032); the 3xTF32
+    # K1-K3 at the f32 flagship shape with the f32 model's; the 3xTF32
+    # cluster K2 and K3 at Gemma-2B's f32 shape with the f32 Gemma-width
+    # model's
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     lines = {"fwd": 98, "dq": 143, "dkv": 179}
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
@@ -7618,7 +7674,7 @@ def phase_dtypes() -> list:
                          source=source + "flash_generic.cu",
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=hops.get(attn._COUNTERS[_GENERIC[key]], 0),
-                         **times["f32"][(key, _GENERIC[key])]))
+                         **times["f32 gemma"][(key, False if key == "fwd" else _GENERIC[key])]))
     for key in ("fwd", "dq", "dkv"):
         counter = attn._COUNTERS[attn.kernel_entry(torch.float32, 128, False, key)]
         rows.append(dict(name=names[key] + "_tf32", route="cuda",
@@ -7627,6 +7683,13 @@ def phase_dtypes() -> list:
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=f32_model["launches"].get(counter, 0),
                          **times["f32"][(key, False)]))
+    for key in ("dq", "dkv"):
+        counter = attn._COUNTERS[attn.kernel_entry(torch.float32, gemma["d"], False, key)]
+        rows.append(dict(name=names[key] + "_tf32_wide", route="cuda",
+                         source=source + "flash_bwd_tf32_wide.cu",
+                         replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
+                         launches=gemma_model["launches"].get(counter, 0),
+                         **times["f32 gemma"][(key, False)]))
     return rows
 
 
@@ -7750,7 +7813,8 @@ def main() -> int:
     kernels += overlap["rows"]
     # and (x)'s: the fp16 forms (the fp16 model's steps, the fp16 ring's),
     # the cluster K1-K3 (the D 512 train CLI's), the CUDA-core K1-K3 (the
-    # f32 D 320 ring hops') and the 3xTF32 K1-K3 (the f32 model's steps)
+    # f32 ring hops'), the 3xTF32 K1-K3 (the f32 model's steps) and the
+    # 3xTF32 cluster K2 and K3 (the f32 Gemma-width model's steps)
     kernels += dtype_rows
     print(json.dumps({"kernels": kernels}))
     print(card)

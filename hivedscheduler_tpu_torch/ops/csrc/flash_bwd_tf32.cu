@@ -687,7 +687,7 @@ extern "C" int hived_flash_tf32_bwd_dq(
     int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb,
     int64_t o_st, int64_t o_sh, int64_t do_sb, int64_t do_st, int64_t do_sh, int64_t dq_sb,
     int64_t dq_st, int64_t dq_sh, void* stream) {
-  if (bad_args(B, T, H, H_kv, D, in_type, out_type)) {
+  if (bad_tf32_args(B, T, H, H_kv, D, in_type, out_type)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DqArgs a;
@@ -729,7 +729,7 @@ extern "C" int hived_flash_tf32_bwd_dkv(
     int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t do_sb,
     int64_t do_st, int64_t do_sh, int64_t dk_sb, int64_t dk_st, int64_t dk_sh, int64_t dv_sb,
     int64_t dv_st, int64_t dv_sh, void* stream) {
-  if (bad_args(B, T, H, H_kv, D, in_type, out_type)) {
+  if (bad_tf32_args(B, T, H, H_kv, D, in_type, out_type)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DkvArgs a;

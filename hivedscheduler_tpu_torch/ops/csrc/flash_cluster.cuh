@@ -1,24 +1,22 @@
-// What the cluster kernels past D 256 share: K1 (flash_fwd_wide.cu) and K2
-// and K3 (flash_bwd_wide.cu). Each splits its outputs into 128-column
-// panels, one block a panel, and runs a thread-block cluster of P = ceil(D /
-// 128) of them on one tile of work, so that the scores are formed once: each
-// block's partial scores over its panel go, through distributed shared
-// memory, to the block that owns them, which adds the P partials in rank
-// order. This header has the panel and group arithmetic, the TMA load of a
-// panel, the sends (st.async, whose bytes complete on the receiver's
-// mbarrier), the argument rule the entry points share and the cluster
-// launch.
+// What the cluster kernels share: K1 (flash_fwd_wide.cu) and K2 and K3
+// (flash_bwd_wide.cu) past D 256 at 16-bit inputs, and K2 and K3 past D 128
+// at f32 inputs (flash_bwd_tf32_wide.cu). Each splits its outputs into
+// 128-column panels, one block a panel, and runs a thread-block cluster of P
+// = ceil(D / 128) of them on one tile of work, so that the scores are formed
+// once: each block's partial scores over its panel go, through distributed
+// shared memory, to the block that owns them, which adds the P partials in
+// rank order. This header has the panel and group arithmetic, the TMA load
+// of a panel, the sends (st.async, whose bytes complete on the receiver's
+// mbarrier), the argument rule the 16-bit entry points share and the
+// cluster launch.
 
 #pragma once
 
 #include "flash_common.cuh"
+#include "flash_strides.cuh"
 #include "hopper.cuh"
 
 namespace hived {
-
-struct Strides {
-  int64_t b, t, h;
-};
 
 template <typename T>
 __device__ __forceinline__ T* at(T* base, const Strides& s, int b, int h) {
@@ -100,8 +98,8 @@ __device__ __forceinline__ void broadcast(unsigned char* local, const uint64_t* 
   }
 }
 
-// the shapes and types the entry points take: 256 < D <= 1024, D % 8 == 0,
-// bf16 or fp16 inputs, the output in the input type or f32
+// the shapes and types the 16-bit entry points take: 256 < D <= 1024, D % 8
+// == 0, bf16 or fp16 inputs, the output in the input type or f32
 inline bool bad_args(int B, int T, int H, int H_kv, int D, int in_type, int out_type) {
   return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || D <= 256 || D > kMaxD ||
          D % 8 != 0 || (in_type != kBf16 && in_type != kF16) ||

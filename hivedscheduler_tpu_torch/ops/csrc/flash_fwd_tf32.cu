@@ -407,7 +407,7 @@ extern "C" int hived_flash_tf32_fwd(const void* q, const void* k, const void* v,
                                     int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
                                     int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb,
                                     int64_t o_st, int64_t o_sh, void* stream) {
-  if (bad_args(B, T, H, H_kv, D, in_type, out_type)) {
+  if (bad_tf32_args(B, T, H, H_kv, D, in_type, out_type)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FwdArgs a;

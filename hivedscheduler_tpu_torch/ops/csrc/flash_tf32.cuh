@@ -1,6 +1,7 @@
 // The 3xTF32 building blocks of the f32-input wgmma kernels: K1
 // (flash_fwd_tf32.cu), K2 and K3 (flash_bwd_tf32.cu), for D a multiple of 8
-// up to 128 at the padded width Dp = 64 or 128.
+// up to 128 at the padded width Dp = 64 or 128, and K2 and K3 past D 128 on
+// thread-block clusters of 128-column panels (flash_bwd_tf32_wide.cu).
 //
 // 3xTF32. Every product a b is formed as big(a) big(b) + big(a) small(b) +
 // small(a) big(b) on wgmma ...f32.tf32.tf32 (k-steps of 8), accumulated in
@@ -22,13 +23,10 @@
 #pragma once
 
 #include "flash_common.cuh"
+#include "flash_strides.cuh"
 #include "hopper.cuh"
 
 namespace hived {
-
-struct Strides {
-  int64_t b, t, h;
-};
 
 // the generic family's type codes (flash_generic.cu): these kernels take f32
 // inputs and store f32 only
@@ -227,9 +225,9 @@ __device__ __forceinline__ void promote(float (&acc)[N], float (&part)[N]) {
   for (int i = 0; i < N; ++i) acc[i] += part[i];
 }
 
-// the shapes and types the 3xTF32 entry points take: f32 in and out, D a
-// multiple of 8 up to 128
-inline bool bad_args(int B, int T, int H, int H_kv, int D, int in_type, int out_type) {
+// the shapes and types the 3xTF32 entry points at D <= 128 take: f32 in and
+// out, D a multiple of 8 up to 128
+inline bool bad_tf32_args(int B, int T, int H, int H_kv, int D, int in_type, int out_type) {
   return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || D < 8 || D > 128 || D % 8 != 0 ||
          in_type != kF32Code || out_type != kF32Code;
 }

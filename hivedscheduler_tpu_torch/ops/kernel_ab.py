@@ -15,15 +15,19 @@ D=128, bf16, causal); ``--d``, ``--heads`` and ``--kv-heads`` change the
 head dim (any multiple of 8: past 256 K1-K3 run on the cluster kernels,
 past 1024 on the CUDA-core family) and the head counts (Gemma-2B's shape:
 ``--d 256 --heads 8 --kv-heads 1``), and ``--dtype`` the inputs' dtype
-(fp16: the wgmma kernels' fp16 forms; f32: K1-K3 in 3xTF32 up to D 128, on
-the CUDA-core family past it). Where the other tree lacks the entry point
+(fp16: the wgmma kernels' fp16 forms; f32: K1-K3 in 3xTF32 up to D 128,
+past it K2 and K3 in 3xTF32 on clusters up to D 1024 and K1 on the
+CUDA-core family). Where the other tree lacks the entry point
 this tree picks, it runs the one it routes the same call to: a tree
 without ``csrc/flash_fwd_wide.cu`` or ``csrc/flash_bwd_wide.cu`` ran K1,
 or K2 and K3, past D 256 on the CUDA-core family, so ``--d 512 --heads 4
 --kv-heads 2`` times those against the cluster kernels; a tree without
 ``csrc/flash_fwd_tf32.cu`` or ``csrc/flash_bwd_tf32.cu`` ran f32 K1, or K2
 and K3, there too, so ``--dtype f32 --kernels fwd`` (or ``dq,dkv``) times
-them against the 3xTF32 kernels. Both trees' K2 and K3 read the o and lse
+them against the 3xTF32 kernels, and a tree without
+``csrc/flash_bwd_tf32_wide.cu`` ran f32 K2 and K3 past D 128 there, so
+``--dtype f32 --d 256 --heads 8 --kv-heads 1 --kernels dq,dkv`` times those
+against the 3xTF32 cluster kernels. Both trees' K2 and K3 read the o and lse
 of this tree's K1. Each
 kernel is timed with CUDA events in the order other, this, this, other, so
 a drift of the card's clock falls on both alike. It prints each reading,
@@ -112,8 +116,9 @@ def entry_in(libs, symbol: str) -> str:
     3xTF32 kernel's CUDA-core counterpart, which takes the same arguments."""
     if libs is None or attn._KERNELS[symbol][0] in libs:
         return symbol
-    generic = symbol.replace("hived_flash_wide", "hived_flash_generic").replace(
-        "hived_flash_tf32", "hived_flash_generic")
+    generic = symbol
+    for family in ("hived_flash_tf32_wide", "hived_flash_wide", "hived_flash_tf32"):
+        generic = generic.replace(family, "hived_flash_generic")
     if generic == symbol or attn._KERNELS[generic][0] not in libs:
         raise RuntimeError(f"the other tree has no {symbol}")
     return generic

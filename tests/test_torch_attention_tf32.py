@@ -1,6 +1,7 @@
 """The arithmetic the 3xTF32 K1, K2 and K3 (``csrc/flash_fwd_tf32.cu``,
-``csrc/flash_bwd_tf32.cu``) rest on, emulated on the CPU and held to the
-port's plain f32 forward and backward and to the JAX package's
+``csrc/flash_bwd_tf32.cu``) and the 3xTF32 cluster K2 and K3 past D 128
+(``csrc/flash_bwd_tf32_wide.cu``) rest on, emulated on the CPU and held to
+the port's plain f32 forward and backward and to the JAX package's
 ``_flash_forward`` and ``_flash_backward`` (Pallas in interpret mode).
 
 The card kernels form every product (the forward's q k^T and p v, the
@@ -15,8 +16,14 @@ the card checks hold the kernels to (2e-5 relative Frobenius,
 ``chip_smoke.py``'s ``DT_F32_REL``) and that one TF32 pass (big big' alone)
 does not, at B 1, T 128, H 4 on H_kv 2, D 64 and 96, causal and not; the
 forward also at a ragged T 200, in K1's own order (32-key tiles, each
-tile's o^T = v^T p^T in a fresh part folded in as o corr + part).
+tile's o^T = v^T p^T in a fresh part folded in as o corr + part); the
+backward past D 128 in the cluster kernels' order (each 128-column panel's
+partial scores through the 3xTF32 product, the panels' partials added in
+rank order, each panel's outputs summed a tile at a time) at D 136, 256,
+320 and 512, causal and not, GQA (H_kv 2) and MQA (H_kv 1).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +42,11 @@ CASES = [pytest.param(d, causal, id=f"d{d}-{'causal' if causal else 'full'}")
 FWD_CASES = [pytest.param(t, d, causal, id=f"t{t}-d{d}-{'causal' if causal else 'full'}")
              for t in (128, 200) for d in (64, 96) for causal in (True, False)]
 KEYS = 32  # keys a K/V tile of the card's K1
+PANEL = 128  # output columns a block of the cluster K2 and K3 owns
+TILE = 32  # the cluster K2's keys a K/V tile, K3's q rows a q/do tile
+WIDE_CASES = [pytest.param(d, causal, h_kv, id=f"d{d}-{'causal' if causal else 'full'}-"
+                                                f"{'mqa' if h_kv == 1 else 'gqa'}")
+              for d in (136, 256, 320, 512) for causal in (True, False) for h_kv in (2, 1)]
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -85,6 +97,51 @@ def backward(q, k, v, o, lse, do, causal: bool, mm):
     return dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
 
 
+def cluster_backward(q, k, v, o, lse, do, causal: bool, mm):
+    """dq, dk, dv in the order of the card's cluster K2 and K3: qs = scale
+    q in f32; each 128-column panel's partial s = qs k^T and dp = do v^T
+    through ``mm``, the panels' partials added in rank order (from 0, as an
+    owner adds them); delta likewise from each panel's rowsum(do o); p =
+    exp(s - lse) (0 where causal masks), ds = p (dp - delta); each panel's
+    dq^T from 32-key tiles, and its dk^T and dv^T from 32-row q tiles of
+    every head of the kv head's group in turn, each tile's product through
+    ``mm`` in a fresh part added to the f32 sum; dq times the scale."""
+    b, t, h, d = q.shape
+    h_kv = k.shape[2]
+    g = h // h_kv
+    scale = 1.0 / d ** 0.5
+    qs = q * scale
+    qh, oh, doh = (x.permute(0, 2, 1, 3) for x in (qs, o, do))  # [b, h, t, d]
+    kh, vh = (x.permute(0, 2, 1, 3).repeat_interleave(g, dim=1) for x in (k, v))
+    panels = [slice(c, min(c + PANEL, d)) for c in range(0, d, PANEL)]
+    s = torch.zeros(b, h, t, t)
+    dp = torch.zeros(b, h, t, t)
+    delta = torch.zeros(b, h, t, 1)
+    for cols in panels:
+        s = s + mm(qh[..., cols], kh[..., cols].transpose(-1, -2))
+        dp = dp + mm(doh[..., cols], vh[..., cols].transpose(-1, -2))
+        delta = delta + (doh[..., cols] * oh[..., cols]).sum(-1, keepdim=True)
+    p = torch.exp(s - lse.reshape(b, h, t, 1))
+    if causal:
+        p = p.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), 0.0)
+    ds = p * (dp - delta)
+    dq = torch.zeros(b, h, t, d)
+    dk = torch.zeros(b, h_kv, t, d)
+    dv = torch.zeros(b, h_kv, t, d)
+    for cols in panels:
+        for k0 in range(0, t, TILE):
+            keys = slice(k0, k0 + TILE)
+            dq[..., cols] += mm(ds[..., keys], kh[:, :, keys, cols])
+        for head in range(g):
+            for r0 in range(0, t, TILE):
+                rows = slice(r0, r0 + TILE)
+                hs = slice(head, h, g)  # this head of every kv head's group
+                dk[..., cols] += mm(ds[:, hs, rows].transpose(-1, -2), qh[:, hs, rows, cols])
+                dv[..., cols] += mm(p[:, hs, rows].transpose(-1, -2), doh[:, hs, rows, cols])
+    dq = dq * scale
+    return dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
 def forward(q, k, v, causal: bool, mm):
     """o, lse [B*H, T] of the flash forward in the card K1's order, every
     product through ``mm``, the rest in f32: q scaled by 1/sqrt(D), then
@@ -124,11 +181,13 @@ def _rel(x, ref) -> float:
     return float((x - ref).norm() / ref.norm())
 
 
-def _inputs(d: int, causal: bool):
+@functools.lru_cache(maxsize=None)
+def _inputs(d: int, causal: bool, h_kv: int = 2):
     """q, k, v, do from a seed, and the forward's o and lse from JAX's
-    interpret-mode kernel (lse as the port's [B*H, T])."""
-    rng = np.random.default_rng(1000 + d + causal)
-    b, t, h, h_kv = 1, 128, 4, 2
+    interpret-mode kernel (lse as the port's [B*H, T]), with JAX's
+    interpret-mode dq, dk and dv."""
+    rng = np.random.default_rng(1000 + d + causal + 10 * (h_kv - 2))
+    b, t, h = 1, 128, 4
     q, do = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(2))
     k, v = (rng.standard_normal((b, t, h_kv, d)).astype(np.float32) for _ in range(2))
     with jax.default_device(jax.local_devices(backend="cpu")[0]):
@@ -231,3 +290,30 @@ def test_tf32_split_rounds_to_nearest_and_keeps_22_bits():
     tie = torch.tensor([0x3F801000, -0x407FF000], dtype=torch.int32).view(torch.float32)
     assert torch.equal(tf32(tie).view(torch.int32),
                        torch.tensor([0x3F802000, -0x407FE000], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("d, causal, h_kv", WIDE_CASES)
+def test_3xtf32_cluster_backward_is_within_the_f32_limit(d, causal, h_kv):
+    x, jax_grads = _inputs(d, causal, h_kv)
+    args = (x["q"], x["k"], x["v"], x["o"], x["lse"], x["do"], causal)
+    got = cluster_backward(*args, mm3)
+    plain = tattn.flash_backward_plain(*args)
+    for name, g, p, j in zip(("dq", "dk", "dv"), got, plain, jax_grads):
+        assert _rel(g, p) <= F32_REL, (name, _rel(g, p))
+        assert _rel(g, j) <= F32_REL, (name, _rel(g, j))
+    # the emulation with exact products is the plain version's function
+    exact = cluster_backward(*args, torch.matmul)
+    assert all(_rel(e, p) <= 1e-6 for e, p in zip(exact, plain))
+
+
+@pytest.mark.parametrize("d, causal, h_kv", WIDE_CASES)
+def test_one_tf32_pass_cluster_backward_is_outside_the_f32_limit(d, causal, h_kv):
+    # what the three passes buy past D 128: one pass is off by more than the
+    # limit against both references
+    x, jax_grads = _inputs(d, causal, h_kv)
+    args = (x["q"], x["k"], x["v"], x["o"], x["lse"], x["do"], causal)
+    one = cluster_backward(*args, mm1)
+    plain = tattn.flash_backward_plain(*args)
+    errs = [_rel(g, p) for g, p in zip(one, plain)]
+    assert min(errs) > F32_REL, errs
+    assert all(_rel(g, j) > F32_REL for g, j in zip(one, jax_grads))

@@ -105,8 +105,8 @@ def test_kernel_ab_refuses_without_a_card(tmp_path):
     from hivedscheduler_tpu_torch.ops import kernel_ab
 
     assert kernel_ab.libraries() == sorted(_build.LIBRARIES) == [
-        "flash_bwd", "flash_bwd_f16", "flash_bwd_tf32", "flash_bwd_wide", "flash_fwd",
-        "flash_fwd_f16", "flash_fwd_tf32", "flash_fwd_wide", "flash_generic"]
+        "flash_bwd", "flash_bwd_f16", "flash_bwd_tf32", "flash_bwd_tf32_wide", "flash_bwd_wide",
+        "flash_fwd", "flash_fwd_f16", "flash_fwd_tf32", "flash_fwd_wide", "flash_generic"]
     assert kernel_ab.main(["--other", str(tmp_path)]) != 0
     assert not os.listdir(tmp_path)  # nothing was built
 
@@ -153,6 +153,17 @@ def test_kernel_ab_times_the_other_trees_route():
             symbol = tattn.kernel_entry(torch.float32, 128, False, kernel)
             assert kernel_ab.entry_in(parent, symbol) == (
                 f"hived_flash_generic_{stem}" if "flash_bwd_tf32" in lacks else symbol)
+    # a tree without flash_bwd_tf32_wide.cu (this one's parent) ran f32 K2
+    # and K3 past D 128 on the CUDA-core family: --dtype f32 --d 256 times
+    # the cluster pair against that
+    parent = {n: None for n in _build.LIBRARIES if n != "flash_bwd_tf32_wide"}
+    for kernel, stem in (("dq", "bwd_dq"), ("dkv", "bwd_dkv")):
+        symbol = tattn.kernel_entry(torch.float32, 256, False, kernel)
+        assert symbol == f"hived_flash_tf32_wide_{stem}"
+        assert kernel_ab.entry_in(parent, symbol) == f"hived_flash_generic_{stem}"
+        assert kernel_ab.entry_in({**parent, "flash_bwd_tf32_wide": None}, symbol) == symbol
+        assert tattn._KERNELS[f"hived_flash_generic_{stem}"][1:] == tattn._KERNELS[symbol][1:]
+    assert kernel_ab.entry_in(parent, "hived_flash_tf32_bwd_dq") == "hived_flash_tf32_bwd_dq"
     with pytest.raises(RuntimeError) as info:
         kernel_ab.entry_in({"flash_generic": None}, "hived_flash_fwd")
     assert "hived_flash_fwd" in str(info.value)
@@ -179,6 +190,20 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     after = {n: _build.library_path(n) for n in ("flash_fwd", "flash_bwd")}
     # an edited header names new libraries for every source that includes it
     assert all(before[n] != after[n] for n in before)
+    # the 3xTF32 cluster K2 and K3 include both the cluster and the 3xTF32
+    # headers: an edit of either, or of hopper.cuh, names a new library
+    assert sorted(os.path.basename(p) for p in _build.sources("flash_bwd_tf32_wide")) == [
+        "flash_bwd_tf32_wide.cu", "flash_cluster.cuh", "flash_common.cuh", "flash_strides.cuh",
+        "flash_tf32.cuh", "hopper.cuh"]
+    for header in ("flash_cluster.cuh", "flash_tf32.cuh", "hopper.cuh", "flash_strides.cuh"):
+        names = ("flash_bwd_tf32_wide", "flash_bwd_wide", "flash_bwd_tf32", "flash_generic")
+        before = {n: _build.library_path(n) for n in names}
+        with open(csrc / header, "a") as f:
+            f.write("\n// edited\n")
+        rebuilt = [n for n in names if _build.library_path(n) != before[n]]
+        includes = [n for n in names
+                    if header in [os.path.basename(p) for p in _build.sources(n)]]
+        assert "flash_bwd_tf32_wide" in rebuilt and rebuilt == includes, (header, rebuilt)
 
 
 def test_build_all_runs_the_compilers_together(scratch_build, monkeypatch):
@@ -205,15 +230,17 @@ def test_tf32_libraries_rebuild_on_a_tf32_header_edit(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
-    names = ("flash_fwd_tf32", "flash_bwd_tf32", "flash_fwd", "flash_generic")
+    names = ("flash_fwd_tf32", "flash_bwd_tf32", "flash_bwd_tf32_wide", "flash_fwd",
+             "flash_generic", "flash_bwd_wide")
     for name in names[:2]:
         assert sorted(os.path.basename(p) for p in _build.sources(name)) == sorted([
-            f"{name}.cu", "flash_tf32.cuh", "flash_common.cuh", "hopper.cuh"])
+            f"{name}.cu", "flash_tf32.cuh", "flash_strides.cuh", "flash_common.cuh",
+            "hopper.cuh"])
     before = {n: _build.library_path(n) for n in names}
     with open(csrc / "flash_tf32.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {n: _build.library_path(n) for n in names}
-    assert [before[n] != after[n] for n in names] == [True, True, False, False]
+    assert [before[n] != after[n] for n in names] == [True, True, True, False, False, False]
 
 
 def test_both_libraries_rebuild_on_a_hopper_header_edit():
@@ -239,9 +266,10 @@ def test_profile_groups_follow_the_kernel_names():
     groups = {name: chip_smoke.profile_group(name) for name in names}
     # each of K1-K3 has a wgmma kernel, a CUDA-core one (flash_generic.cu),
     # a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu) and a 3xTF32 one
-    # (flash_fwd_tf32.cu, flash_bwd_tf32.cu)
-    assert sorted(groups.values()) == ["K1 flash_fwd"] * 4 + ["K2 flash_bwd_dq"] * 4 + [
-        "K3 flash_bwd_dkv"] * 4
+    # (flash_fwd_tf32.cu, flash_bwd_tf32.cu); K2 and K3 a 3xTF32 cluster one
+    # too (flash_bwd_tf32_wide.cu)
+    assert sorted(groups.values()) == ["K1 flash_fwd"] * 4 + ["K2 flash_bwd_dq"] * 5 + [
+        "K3 flash_bwd_dkv"] * 5
     # as the profiler shows them: mangled, inside their anonymous namespace
     for name, group in groups.items():
         mangled = f"_ZN45_GLOBAL__N__0123_12_x{len(name)}{name}ILi128ELb1EEEvNS_4ArgsE"

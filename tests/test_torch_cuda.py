@@ -61,7 +61,10 @@ the plain f32 forward and backward within 2e-5 (also on inputs whose
 operands truncation to tf32 would cut by more than that) and to the
 CUDA-core kernels, bit-reproducible in both output forms, on their own
 counters; their entry points refuse what they do not take, and every
-instance runs on wgmma and TMA.
+instance runs on wgmma and TMA. K2 and K3 at f32 inputs past D 128 up to
+1024 run the 3xTF32 cluster kernels, held the same way (D 136 with an
+8-column last panel, 256, 320, 512 and 1024, MQA and ragged T), storing
+nothing past D into a wider buffer.
 """
 
 import os
@@ -1582,6 +1585,127 @@ def test_tf32_forward_runs_on_wgmma_and_tma(cuda):
     sass = _sass_by_kernel(_build.build("flash_fwd_tf32"))
     found = {k: v for k, v in sass.items() if "tf32_fwd_kernel" in k}
     assert len(found) == 4, sorted(sass)
+    for name, text in found.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert "HMMA" not in text and "LDGSTS" not in text, name
+
+
+# -- the 3xTF32 cluster K2 and K3 past D 128 (csrc/flash_bwd_tf32_wide.cu) ------
+
+# (B, T, H, H_kv, D, causal): D 136 (an 8-column last panel) with MQA and a
+# ragged T; Gemma-2B's D 256 with MQA; D 320 not causal; D 512; D 1024 (the
+# route's largest, clusters of 8) with a ragged T
+TF32_WIDE_SHAPES = [
+    (2, 200, 4, 1, 136, True),
+    (1, 256, 8, 1, 256, True),
+    (1, 256, 4, 2, 320, False),
+    (1, 512, 4, 2, 512, True),
+    (1, 200, 4, 2, 1024, True),
+]
+
+
+@pytest.mark.parametrize("shape", TF32_WIDE_SHAPES,
+                         ids=[f"d{s[4]}-t{s[1]}-g{s[2] // s[3]}-{'causal' if s[5] else 'full'}"
+                              for s in TF32_WIDE_SHAPES])
+def test_tf32_wide_backward_matches_plain_f32(cuda, shape):
+    # both output forms (f32 in both) within F32_REL of the plain f32
+    # backward, delta too; one launch each on the cluster pair's counters and
+    # none on another's; the two forms and two runs bit-identical; dq, dk and
+    # dv stored through views into buffers 64 columns wider, nothing past D
+    b, t, h, h_kv, d, causal = shape
+    q, k, v, o, lse, do = _tf32_inputs(shape, seed=41)
+    assert all(tattn.kernel_entry(torch.float32, d, f, kernel).startswith("hived_flash_tf32_wide")
+               for f in (False, True) for kernel in ("dq", "dkv"))
+    ref = tattn.flash_backward_plain(q, k, v, o, lse, do, causal=causal)
+    forms = []
+    for grad_dtype in (None, torch.float32):
+        before = {n: getattr(tattn, n) for n in tattn._COUNTERS.values()}
+        got = tattn.flash_backward(q, k, v, o, lse, do, causal=causal, grad_dtype=grad_dtype)
+        torch.cuda.synchronize()
+        moved = {n: getattr(tattn, n) - before[n] for n in before
+                 if getattr(tattn, n) != before[n]}
+        assert moved == {"FLASH_BWD_DQ_TF32_WIDE_LAUNCHES": 1,
+                         "FLASH_BWD_DKV_TF32_WIDE_LAUNCHES": 1}
+        assert all(x.dtype == torch.float32 for x in got)
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            assert _grad_errs(x, r)[0] <= F32_REL, (name, _grad_errs(x, r))
+        forms.append(got)
+    assert all(torch.equal(x, y) for x, y in zip(*forms))
+    again = tattn.flash_backward(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(forms[0], again))
+    _, delta = tattn.flash_backward_dq_cuda(q, k, v, o, lse, do, causal)
+    want = (do * o).sum(-1).permute(0, 2, 1).reshape(b * h, t)
+    assert _grad_errs(delta, want)[0] <= F32_REL
+    bufs = [torch.full((*x.shape[:3], d + 64), SENTINEL, device="cuda") for x in (q, k, v)]
+    dq, dk, dv = (buf[..., :d] for buf in bufs)
+    delta2 = torch.empty_like(lse)
+    dims = (b, t, h, h_kv, d, int(causal))
+    stream = torch.cuda.current_stream().cuda_stream
+    for symbol, ptrs, strided in (
+            ("hived_flash_tf32_wide_bwd_dq", (q, k, v, o, do, lse, delta2, dq),
+             (q, k, v, o, do, dq)),
+            ("hived_flash_tf32_wide_bwd_dkv", (q, k, v, do, lse, delta2, dk, dv),
+             (q, k, v, do, dk, dv))):
+        tattn._launch(symbol, ptrs, tattn.launch_dims(symbol, dims, q.dtype, False), strided,
+                      stream)
+    torch.cuda.synchronize()
+    assert all(bool((buf[..., d:] == SENTINEL).all()) for buf in bufs)
+    assert all(torch.equal(x, y) for x, y in zip((dq, dk, dv), forms[0]))
+
+
+def test_tf32_wide_pair_matches_the_cuda_core_pair(cuda):
+    # the same inputs through the cluster pair and the CUDA-core pair, by
+    # symbol (f32 FMA): within F32_REL of each other; a raw launch counts
+    # nothing
+    shape = (2, 512, 4, 2, 384, True)
+    q, k, v, o, lse, do = _tf32_inputs(shape, seed=42)
+    before = (tattn.FLASH_BWD_DQ_TF32_WIDE_LAUNCHES, tattn.FLASH_BWD_DKV_TF32_WIDE_LAUNCHES)
+    dims = (*q.shape[:3], k.shape[2], q.shape[3], 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for symbol, ptrs, strided in (
+            ("hived_flash_tf32_wide_bwd_dq", (q, k, v, o, do, lse, delta, dq),
+             (q, k, v, o, do, dq)),
+            ("hived_flash_tf32_wide_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+             (q, k, v, do, dk, dv))):
+        tattn._launch(symbol, ptrs, tattn.launch_dims(symbol, dims, q.dtype, False), strided,
+                      stream)
+    core = _cuda_core_backward(q, k, v, o, lse, do, True, False)
+    torch.cuda.synchronize()
+    assert (tattn.FLASH_BWD_DQ_TF32_WIDE_LAUNCHES,
+            tattn.FLASH_BWD_DKV_TF32_WIDE_LAUNCHES) == before
+    for name, x, c in zip(("dq", "dk", "dv"), (dq, dk, dv), core):
+        assert _grad_errs(x, c)[0] <= F32_REL, name
+
+
+def test_tf32_wide_backward_refuses_what_it_does_not_take(cuda):
+    # D 128 (the 3xTF32 kernels' own), D 1032 (past a portable cluster of 8
+    # panels), 16-bit type codes and an output type other than f32 are
+    # refused by the entry point itself, not run on another kernel
+    shape = (1, 128, 2, 2, 256, True)
+    q, k, v, o, lse, do = _tf32_inputs(shape, seed=43)
+    stream = torch.cuda.current_stream().cuda_stream
+    delta, dq = torch.empty_like(lse), torch.empty_like(q)
+    symbol = "hived_flash_tf32_wide_bwd_dq"
+    ptrs, strided = (q, k, v, o, do, lse, delta, dq), (q, k, v, o, do, dq)
+    for bad in ((1, 128, 2, 2, 128, 1, 2, 2), (1, 128, 2, 2, 1032, 1, 2, 2),
+                (1, 128, 2, 2, 256, 1, 0, 0), (1, 128, 2, 2, 256, 1, 2, 0)):
+        with pytest.raises(RuntimeError) as info:
+            tattn._launch(symbol, ptrs, bad, strided, stream)
+        assert "CUDA error" in str(info.value)
+    tattn._launch(symbol, ptrs, (1, 128, 2, 2, 256, 1, 2, 2), strided, stream)
+    torch.cuda.synchronize()
+    assert _grad_errs(dq, tattn.flash_backward_plain(q, k, v, o, lse, do)[0])[0] <= F32_REL
+
+
+@pytest.mark.parametrize("kernel", ["tf32_wide_dq_kernel", "tf32_wide_dkv_kernel"])
+def test_tf32_wide_kernels_run_on_wgmma_and_tma(cuda, kernel):
+    # the one instance of each multiplies with wgmma on tiles loaded by TMA,
+    # never with mma.sync
+    sass = _sass_by_kernel(_build.build("flash_bwd_tf32_wide"))
+    found = {k: v for k, v in sass.items() if kernel in k}
+    assert len(found) == 1, sorted(sass)
     for name, text in found.items():
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert "HMMA" not in text and "LDGSTS" not in text, name
