@@ -12,8 +12,9 @@ Phases, each of which must pass or the script exits non-zero:
     (``flash_generic.cu``), the cluster K1, and K2 and K3, past D 256
     (``flash_fwd_wide.cu``, ``flash_bwd_wide.cu``) and the 3xTF32 K1, and
     K2 and K3, at f32 inputs (``flash_fwd_tf32.cu``, ``flash_bwd_tf32.cu``)
-    and their cluster K2 and K3 past D 128 (``flash_bwd_tf32_wide.cu``)
-    with nvcc (sm_90a), all ten compilers at once,
+    and their cluster K1, and K2 and K3, past D 128
+    (``flash_fwd_tf32_wide.cu``, ``flash_bwd_tf32_wide.cu``) with nvcc
+    (sm_90a), all eleven compilers at once,
     with each one's seconds, and print ptxas's register and spill lines and
     any warning that it serialized wgmma, for every instantiation (padded
     widths 64, 128, 256);
@@ -351,12 +352,10 @@ Phases, each of which must pass or the script exits non-zero:
     shape; D 64 with MQA, a ragged T and no mask; D 256; D 136 with MQA and
     a ragged T; D 512; D 1024 not causal) K1, K2 and K3 on the 3xTF32 wgmma
     kernels (``csrc/flash_fwd_tf32.cu``, ``csrc/flash_bwd_tf32.cu``) up to
-    D 128, past it K2 and K3 on their cluster form
-    (``csrc/flash_bwd_tf32_wide.cu``) and K1 on the CUDA-core family
-    (``csrc/flash_generic.cu``); the CUDA-core family and the
-    cluster kernels at bf16, fp16 and f32 inputs at D 264 (an 8-column last
-    panel, MQA,
-    ragged T), 320 (not causal) and 512, where bf16's and fp16's K1-K3 run
+    D 128 and on their cluster form past it (``csrc/flash_fwd_tf32_wide.cu``,
+    ``csrc/flash_bwd_tf32_wide.cu``); the cluster kernels at bf16, fp16 and
+    f32 inputs at D 264 (an 8-column last panel, MQA, ragged T), 320 (not
+    causal) and 512, where bf16's and fp16's K1-K3 run
     the cluster kernels (``csrc/flash_fwd_wide.cu``,
     ``csrc/flash_bwd_wide.cu``): each against its plain version
     (16-bit: (b)'s and (f)'s limits; f32: a relative 2e-5, which one TF32
@@ -388,20 +387,21 @@ Phases, each of which must pass or the script exits non-zero:
     backend (GQA) and on the memory-efficient one (k and v expanded to H
     heads), held to the CUDA-core outputs within the f32 limit and faster
     than them, K1 with its share of the bound; at Gemma-2B's f32 shape (q
-    [8,2048,8,256], k/v [8,2048,1,256]) the 3xTF32 cluster K2 and K3 and
-    the CUDA-core K1-K3 timed the same way, and the cluster K2 + K3 in turns
-    with the CUDA-core pair and SDPA's two backwards, with the clusters the
-    card holds at once at every D of their range;
+    [8,2048,8,256], k/v [8,2048,1,256]) the 3xTF32 cluster K1-K3 and the
+    CUDA-core K1-K3 (by symbol) timed the same way, and the cluster K1, and
+    K2 + K3, in turns with the CUDA-core K1, or pair, and SDPA's two
+    forwards, or backwards, with the clusters the card holds at once at
+    every D of their range;
     K1-K3 on bf16 against fp16 inputs at the flagship shape in turns. (3)
     ``TransformerConfig(dtype=float16)``
     and ``float32`` with ``attn_impl="flash"`` at the flagship width and 2
     layers, and ``float32`` at Gemma-2B's width (head dim 256, one kv head)
     and 2 layers: a forward (final-norm hidden states against xla, (e)'s
     limit) and 3 ``make_train_step`` steps with remat dots (K1-K3 12/6/6 on
-    the fp16 counters, or on the 3xTF32 counters; at Gemma's width K1 on
-    the CUDA-core counter and K2 and K3 on the 3xTF32 cluster counters; the
-    first loss against xla's), and each f32 model's step in turns with its
-    3xTF32 kernels routed to the CUDA-core family (routes patched); the
+    the fp16 counters, or on the 3xTF32 counters; at Gemma's width on the
+    3xTF32 cluster counters; the first loss against xla's), and each f32
+    model's step in turns with its 3xTF32 kernels routed to the CUDA-core
+    family (routes patched); the
     ``eval`` CLI (2 windows) and 3 steps of the ``train`` CLI at ``--d-model
     2048 --n-heads 4 --n-kv-heads 2`` (D 512), 2 layers, flash against xla
     on the same weights (K1, K2 and K3 on the cluster kernels' counters,
@@ -410,11 +410,12 @@ Phases, each of which must pass or the script exits non-zero:
     ``ring_flash`` step on the world-1 NCCL mesh (the fp16 f32-output forms
     4/2/2, the loss the flash step's); the ring's hop functions at fp16 and
     f32 and D 320, and at f32 and D 1032 (past the clusters), against the
-    plain versions. (4) Seventeen rows of the kernels line: the fp16 forms,
+    plain versions. (4) Eighteen rows of the kernels line: the fp16 forms,
     their f32 forms, the cluster K1, K2 and K3 (the D 512 train CLI's
-    launches), the CUDA-core K1, K2 and K3 (the f32 ring hops', timed at
-    Gemma's f32 shape), the 3xTF32 K1, K2 and K3 (the f32 flagship model's)
-    and the 3xTF32 cluster K2 and K3 (the f32 Gemma-width model's).
+    launches), the CUDA-core K1, K2 and K3 (the f32 D 1032 ring hops',
+    timed at Gemma's f32 shape), the 3xTF32 K1, K2 and K3 (the f32 flagship
+    model's) and the 3xTF32 cluster K1, K2 and K3 (the f32 Gemma-width
+    model's).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -6724,9 +6725,10 @@ def phase_overlap(tp_local: dict) -> dict:
 # kernels take: the fp16 forms of the wgmma kernels, the cluster K1-K3
 # (csrc/flash_fwd_wide.cu, csrc/flash_bwd_wide.cu) for bf16 and fp16 at 256
 # < D <= 1024, the 3xTF32 K1-K3 (csrc/flash_fwd_tf32.cu,
-# csrc/flash_bwd_tf32.cu) for f32 inputs up to D 128, their cluster K2 and
-# K3 (csrc/flash_bwd_tf32_wide.cu) up to D 1024, and the CUDA-core family
-# (csrc/flash_generic.cu) for the rest of f32 and 16-bit inputs past 1024
+# csrc/flash_bwd_tf32.cu) for f32 inputs up to D 128, their cluster K1, K2
+# and K3 (csrc/flash_fwd_tf32_wide.cu, csrc/flash_bwd_tf32_wide.cu) up to D
+# 1024, and the CUDA-core family (csrc/flash_generic.cu) for every input
+# dtype past 1024
 # f32 inputs: every output within this relative Frobenius distance of the
 # plain f32 version (an H100 read ~1e-7 before the phase was written; a TF32
 # pass, or the same inputs cast to bf16, read ~1e-3)
@@ -6744,9 +6746,9 @@ DT_FP16_CASES = (  # (tag, B, T, H, H_kv, D, causal)
     ("full", 2, 1024, 8, 2, 128, False),
 )
 # f32: the flagship shape; D 64 (the 3xTF32 kernels' padded width 64) with
-# MQA, a ragged T and no mask; past D 128 (K2 and K3 on the 3xTF32 clusters,
-# K1 on the CUDA-core family) D 256, D 136 (an 8-column last panel) with MQA
-# and a ragged T, D 512 and D 1024 (clusters of 8) not causal
+# MQA, a ragged T and no mask; past D 128 (K1-K3 on the 3xTF32 clusters)
+# D 256, D 136 (an 8-column last panel) with MQA and a ragged T, D 512 and
+# D 1024 (clusters of 8) not causal
 DT_F32_CASES = (("flagship", 8, 2048, 16, 8, 128, True), ("d64-t200", 2, 200, 8, 1, 64, False),
                 ("d256", 2, 1024, 8, 2, 256, True), ("d136-t200", 2, 200, 8, 1, 136, True),
                 ("d512", 2, 1024, 4, 2, 512, True), ("d1024-full", 1, 512, 4, 2, 1024, False))
@@ -6759,7 +6761,7 @@ _GENERIC = {"fwd": "hived_flash_generic_fwd", "dq": "hived_flash_generic_bwd_dq"
             "dkv": "hived_flash_generic_bwd_dkv"}
 DT_MODEL = dict(EVAL_MODEL, n_layers=2)  # the fp16 and f32 model paths: 2 of the 6 layers
 # the f32 model at Gemma-2B's width (head dim 256, one kv head), 2 of its 18
-# layers: K2 and K3 on the 3xTF32 clusters
+# layers: K1-K3 on the 3xTF32 clusters
 DT_GEMMA_MODEL = dict(GEMMA.model, n_layers=2)
 # the flagship's width at 4 heads: head dim 512, no public model's
 D512_MODEL = dict(EVAL_MODEL, n_heads=4, n_kv_heads=2, n_layers=2)
@@ -7241,31 +7243,36 @@ def _dt_tf32_turns(s: dict) -> dict:
 
 
 def _dt_tf32_wide_clusters() -> dict:
-    """The clusters of the 3xTF32 cluster K2 and K3 the card holds at once
-    at each cluster size their route takes (D 136 to 1024: 2 to 8 blocks),
-    none of which may be 0 -> {D: (K2's, K3's)}."""
+    """The clusters of the 3xTF32 cluster K1, K2 and K3 the card holds at
+    once at each cluster size their route takes (D 136 to 1024: 2 to 8
+    blocks; K1 runs 7 as 8), none of which may be 0 -> {D: (K1's, K2's,
+    K3's)}."""
     from hivedscheduler_tpu_torch.ops import _build
     from hivedscheduler_tpu_torch.ops import attention as attn
 
+    fwd = _build.load("flash_fwd_tf32_wide").hived_flash_tf32_wide_fwd_clusters
+    fwd.argtypes, fwd.restype = [ctypes.c_int], ctypes.c_int
     query = _build.load("flash_bwd_tf32_wide").hived_flash_tf32_wide_clusters
     query.argtypes, query.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     dims = [d for d in attn.TF32_WIDE_HEAD_DIMS if d % 128 == 0 or d == 136]
-    held = {d: (query(d, 0), query(d, 1)) for d in dims}
-    print("[x] 3xTF32 cluster K2, K3 clusters the card holds at once: " + "; ".join(
-        f"D {d} ({(d + 127) // 128} blocks) {k2}, {k3}" for d, (k2, k3) in held.items()))
+    held = {d: (fwd(d), query(d, 0), query(d, 1)) for d in dims}
+    print("[x] 3xTF32 cluster K1, K2, K3 clusters the card holds at once: " + "; ".join(
+        f"D {d} ({(d + 127) // 128} panels) {k1}, {k2}, {k3}"
+        for d, (k1, k2, k3) in held.items()))
     check(all(min(n) > 0 for n in held.values()),
-          "a cluster size of the f32 K2/K3 route cannot be scheduled")
+          "a cluster size of the f32 K1-K3 route cannot be scheduled")
     return held
 
 
 def _dt_tf32_fwd_turns(s: dict) -> dict:
-    """The 3xTF32 K1 at the f32 flagship shape ``s`` in turns with the
-    CUDA-core K1 (by symbol) and SDPA's forward on the math backend (GQA,
-    what ``library_ms`` times) and on the memory-efficient one (k and v
-    expanded to H heads; reported refused if it refuses): 3xTF32,
-    CUDA-core, math, efficient, efficient, math, CUDA-core, 3xTF32. The
-    3xTF32 o and lse are held to the CUDA-core ones within DT_F32_REL, and
-    K1 must beat the CUDA-core K1 -> {name: mean ms}."""
+    """The 3xTF32 K1 at the f32 shape ``s`` (its cluster form past D 128)
+    in turns with the CUDA-core K1 (by symbol) and SDPA's forward on the
+    math backend (GQA, what ``library_ms`` times) and on the
+    memory-efficient one (k and v expanded to H heads; reported refused if
+    it refuses): 3xTF32, CUDA-core, math, efficient, efficient, math,
+    CUDA-core, 3xTF32. The 3xTF32 o and lse are held to the CUDA-core ones
+    within DT_F32_REL, and K1 must beat the CUDA-core K1 -> {name: mean
+    ms}."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import kernel_ab
@@ -7307,7 +7314,7 @@ def _dt_tf32_fwd_turns(s: dict) -> dict:
           f"{mean[fastest] / mean['3xTF32']:.2f}; 3xTF32 against CUDA-core: "
           + ", ".join(f"{n} rel {e:.3e}" for n, e in errs.items()) + f" (<= {DT_F32_REL})")
     check(all(e <= DT_F32_REL for e in errs.values()),
-          "the 3xTF32 K1 disagrees with the CUDA-core K1 at the f32 flagship shape")
+          f"the 3xTF32 K1 disagrees with the CUDA-core K1 at the f32 shape {s}")
     check(mean["3xTF32"] < mean["CUDA-core"], "the 3xTF32 K1 is not faster than the CUDA-core K1")
     del x, res, launch, qt, kt, vt, sdpa
     torch.cuda.empty_cache()
@@ -7316,10 +7323,10 @@ def _dt_tf32_fwd_turns(s: dict) -> dict:
 
 def _f32_step_turns(step, p, opt, tokens) -> dict:
     """make_train_step steps of an f32 model in turns with its 3xTF32
-    kernels (K1-K3 up to D 128, the cluster K2 and K3 past it) and with
-    those routed to the CUDA-core family (``kernel_entry`` patched): 3xTF32,
-    CUDA-core, CUDA-core, 3xTF32, one step each by the host clock around a
-    synchronised step -> {route: [ms]}."""
+    kernels (K1-K3 up to D 128, the cluster K1, K2 and K3 past it) and with
+    all three routed to the CUDA-core family (``kernel_entry`` patched):
+    3xTF32, CUDA-core, CUDA-core, 3xTF32, one step each by the host clock
+    around a synchronised step -> {route: [ms]}."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
@@ -7502,10 +7509,9 @@ def _dt_ring_hops() -> dict:
     at fp16 and f32 inputs and D 320, f32 at D 128 and f32 at D 1032,
     diagonal and unmasked, one launch each on its counter: each hop's f32
     partials within DT_F32_REL of the plain versions at f32 inputs (K1-K3
-    in 3xTF32 at D 128; at D 320 K2 and K3 on the 3xTF32 clusters and K1 on
-    the CUDA-core family; at D 1032 K1-K3 on the CUDA-core family), and
-    fp16's, from the cluster K1-K3 on fp16 operands, within (b)'s and (f)'s
-    limits -> the hops' launches."""
+    in 3xTF32 at D 128; at D 320 on the 3xTF32 clusters; at D 1032 on the
+    CUDA-core family), and fp16's, from the cluster K1-K3 on fp16 operands,
+    within (b)'s and (f)'s limits -> the hops' launches."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
@@ -7583,9 +7589,8 @@ def _dt_ring_fp16(first_loss: float, batch) -> dict:
 
 def phase_dtypes() -> list:
     """(x): K1-K3 at every input dtype and head dim the JAX kernels take ->
-    the kernels line's seventeen rows: the fp16 forms, the cluster K1-K3,
-    the CUDA-core family, the 3xTF32 K1-K3 and the 3xTF32 cluster K2 and
-    K3."""
+    the kernels line's eighteen rows: the fp16 forms, the cluster K1-K3,
+    the CUDA-core family, the 3xTF32 K1-K3 and the 3xTF32 cluster K1-K3."""
     import torch
 
     t_phase = time.perf_counter()
@@ -7621,11 +7626,12 @@ def phase_dtypes() -> list:
     times["f32"] = timed("f32 times", _dt_times, "f32 flagship", torch.float32, f, iters=3)
     timed("f32 K1 turns", _dt_tf32_fwd_turns, f)
     timed("f32 K2 + K3 turns", _dt_tf32_turns, f)
-    # Gemma-2B's f32 shape: the cluster K2 and K3, and the CUDA-core K1-K3
-    # (K1 by its route, K2 and K3 by symbol)
+    # Gemma-2B's f32 shape: the cluster K1-K3, and the CUDA-core K1-K3 by
+    # symbol
     gemma = GEMMA.shape
     times["f32 gemma"] = timed("f32 Gemma times", _dt_times, "f32 Gemma-2B", torch.float32, gemma,
-                               iters=3, extra=[(key, _GENERIC[key]) for key in ("dq", "dkv")])
+                               iters=3, extra=list(_GENERIC.items()))
+    timed("f32 Gemma K1 turns", _dt_tf32_fwd_turns, gemma)
     timed("f32 Gemma K2 + K3 turns", _dt_tf32_turns, gemma)
     timed("f32 clusters", _dt_tf32_wide_clusters)
     times["d512"] = timed("d512 times", _dt_times, "bf16 D 512", torch.bfloat16, d512, iters=3)
@@ -7646,11 +7652,10 @@ def phase_dtypes() -> list:
     # the rows: fp16 forms at the flagship shape with the fp16 model's train
     # launches (the f32 forms: the fp16 ring step's); the cluster K1-K3 at
     # the D 512 CLI shape with the D 512 train CLI's launches; the CUDA-core
-    # K1-K3 at Gemma-2B's f32 shape (K2 and K3 by symbol) with the f32 ring
-    # hops' launches (K1 at D 320 and 1032, K2 and K3 at 1032); the 3xTF32
-    # K1-K3 at the f32 flagship shape with the f32 model's; the 3xTF32
-    # cluster K2 and K3 at Gemma-2B's f32 shape with the f32 Gemma-width
-    # model's
+    # K1-K3 at Gemma-2B's f32 shape (by symbol) with the f32 ring hops'
+    # launches (at D 1032); the 3xTF32 K1-K3 at the f32 flagship shape with
+    # the f32 model's; the 3xTF32 cluster K1-K3 at Gemma-2B's f32 shape with
+    # the f32 Gemma-width model's
     source = "hivedscheduler_tpu_torch/ops/csrc/"
     lines = {"fwd": 98, "dq": 143, "dkv": 179}
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
@@ -7674,7 +7679,7 @@ def phase_dtypes() -> list:
                          source=source + "flash_generic.cu",
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=hops.get(attn._COUNTERS[_GENERIC[key]], 0),
-                         **times["f32 gemma"][(key, False if key == "fwd" else _GENERIC[key])]))
+                         **times["f32 gemma"][(key, _GENERIC[key])]))
     for key in ("fwd", "dq", "dkv"):
         counter = attn._COUNTERS[attn.kernel_entry(torch.float32, 128, False, key)]
         rows.append(dict(name=names[key] + "_tf32", route="cuda",
@@ -7683,10 +7688,11 @@ def phase_dtypes() -> list:
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=f32_model["launches"].get(counter, 0),
                          **times["f32"][(key, False)]))
-    for key in ("dq", "dkv"):
+    for key in ("fwd", "dq", "dkv"):
         counter = attn._COUNTERS[attn.kernel_entry(torch.float32, gemma["d"], False, key)]
         rows.append(dict(name=names[key] + "_tf32_wide", route="cuda",
-                         source=source + "flash_bwd_tf32_wide.cu",
+                         source=source + ("flash_fwd_tf32_wide.cu" if key == "fwd" else
+                                          "flash_bwd_tf32_wide.cu"),
                          replaces=f"hivedscheduler_tpu/ops/attention.py:{lines[key]}",
                          launches=gemma_model["launches"].get(counter, 0),
                          **times["f32 gemma"][(key, False)]))
@@ -7813,8 +7819,8 @@ def main() -> int:
     kernels += overlap["rows"]
     # and (x)'s: the fp16 forms (the fp16 model's steps, the fp16 ring's),
     # the cluster K1-K3 (the D 512 train CLI's), the CUDA-core K1-K3 (the
-    # f32 ring hops'), the 3xTF32 K1-K3 (the f32 model's steps) and the
-    # 3xTF32 cluster K2 and K3 (the f32 Gemma-width model's steps)
+    # f32 D 1032 ring hops'), the 3xTF32 K1-K3 (the f32 model's steps) and
+    # the 3xTF32 cluster K1-K3 (the f32 Gemma-width model's steps)
     kernels += dtype_rows
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -36,11 +36,11 @@ NVCC_FLAGS = (
 # fp16 inputs (the fp16 sources include the bf16 ones, instantiated for fp16:
 # four compilers in parallel, not two of twice the work), the CUDA-core
 # family of all three, the cluster K1, and K2 and K3, past D 256, the 3xTF32
-# K1, and K2 and K3, at f32 inputs up to D 128, and the 3xTF32 cluster K2
-# and K3 past it: ten compilers at once
+# K1, and K2 and K3, at f32 inputs up to D 128, and the 3xTF32 cluster K1,
+# and K2 and K3, past it: eleven compilers at once
 LIBRARIES = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16", "flash_generic",
              "flash_fwd_wide", "flash_bwd_wide", "flash_fwd_tf32", "flash_bwd_tf32",
-             "flash_bwd_tf32_wide")
+             "flash_fwd_tf32_wide", "flash_bwd_tf32_wide")
 
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

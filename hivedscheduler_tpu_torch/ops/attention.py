@@ -50,12 +50,13 @@ f32                8-128           wgmma in 3xTF32
                                    (``csrc/flash_fwd_tf32.cu``,
                                    ``csrc/flash_bwd_tf32.cu``):
                                    ``hived_flash_tf32_*``
-f32, K2 and K3     136-1024        wgmma in 3xTF32 on thread-block clusters
-                                   (``csrc/flash_bwd_tf32_wide.cu``):
-                                   ``hived_flash_tf32_wide_bwd_*``
-f32, K1            136 and up      f32 on the CUDA cores
-f32, K2 and K3     1032 and up     (``csrc/flash_generic.cu``):
-bf16 or fp16       1032 and up     ``hived_flash_generic_*``
+f32                136-1024        wgmma in 3xTF32 on thread-block clusters
+                                   (``csrc/flash_fwd_tf32_wide.cu``,
+                                   ``csrc/flash_bwd_tf32_wide.cu``):
+                                   ``hived_flash_tf32_wide_*``
+f32                1032 and up     f32 on the CUDA cores
+bf16 or fp16       1032 and up     (``csrc/flash_generic.cu``):
+                                   ``hived_flash_generic_*``
 =================  ==============  ===========================================
 
 f64, integer dtypes and D % 8 != 0 raise; no route depends on a build or a
@@ -80,11 +81,11 @@ big small + small big of the operands' tf32 parts (big the operand rounded
 to tf32, small the rest rounded again), in f32 accumulators, so they keep
 f32 accuracy (about 2^-22 a product) where one TF32 pass would not
 (``csrc/flash_tf32.cuh``, ``csrc/flash_fwd_tf32.cu``,
-``csrc/flash_bwd_tf32.cu``); past D 128 K2 and K3 do the same on
+``csrc/flash_bwd_tf32.cu``); past D 128 K1, K2 and K3 do the same on
 clusters of 128-column panels, whose partial scores are summed through
 distributed shared memory as the 16-bit cluster kernels sum theirs
-(``csrc/flash_bwd_tf32_wide.cu``). The CUDA-core
-family computes what the TPU kernels compute in their own arithmetic:
+(``csrc/flash_fwd_tf32_wide.cu``, ``csrc/flash_bwd_tf32_wide.cu``). The
+CUDA-core family computes what the TPU kernels compute in their own arithmetic:
 every input widened to f32, every product an f32 FMA (no TF32), in
 64-row tiles and 128-column panels of the output, with the scores summed
 over D in 64-column chunks, so its shared memory does not grow with D. The
@@ -124,8 +125,8 @@ FLASH_BWD_DKV_F16_LAUNCHES = 0
 FLASH_FWD_F16_F32_LAUNCHES = 0
 FLASH_BWD_DQ_F16_F32_LAUNCHES = 0
 FLASH_BWD_DKV_F16_F32_LAUNCHES = 0
-# launches of the CUDA-core family (f32 inputs at any D; bf16 and fp16 past
-# D 1024), every output form
+# launches of the CUDA-core family (bf16, fp16 and f32 inputs past D 1024),
+# every output form
 FLASH_FWD_GENERIC_LAUNCHES = 0
 FLASH_BWD_DQ_GENERIC_LAUNCHES = 0
 FLASH_BWD_DKV_GENERIC_LAUNCHES = 0
@@ -134,7 +135,8 @@ FLASH_BWD_DKV_GENERIC_LAUNCHES = 0
 FLASH_FWD_TF32_LAUNCHES = 0
 FLASH_BWD_DQ_TF32_LAUNCHES = 0
 FLASH_BWD_DKV_TF32_LAUNCHES = 0
-# launches of the 3xTF32 cluster K2 and K3 (f32 inputs at 128 < D <= 1024)
+# launches of the 3xTF32 cluster K1, K2 and K3 (f32 inputs at 128 < D <= 1024)
+FLASH_FWD_TF32_WIDE_LAUNCHES = 0
 FLASH_BWD_DQ_TF32_WIDE_LAUNCHES = 0
 FLASH_BWD_DKV_TF32_WIDE_LAUNCHES = 0
 # launches of the cluster K1, K2 and K3 (bf16 and fp16 at 256 < D <= 1024),
@@ -161,9 +163,9 @@ WIDE_HEAD_DIMS = range(264, 1025, 8)
 # (csrc/flash_fwd_tf32.cu, csrc/flash_bwd_tf32.cu), each run at its padded
 # width 64 or 128
 TF32_HEAD_DIMS = range(8, 129, 8)
-# the head dims of the 3xTF32 cluster K2 and K3 at f32 inputs
-# (csrc/flash_bwd_tf32_wide.cu): 128-column panels, at most 8 blocks a
-# cluster; f32 K1 past 128 stays on the CUDA-core family
+# the head dims of the 3xTF32 cluster K1, K2 and K3 at f32 inputs
+# (csrc/flash_fwd_tf32_wide.cu, csrc/flash_bwd_tf32_wide.cu): 128-column
+# panels, at most 8 blocks a cluster
 TF32_WIDE_HEAD_DIMS = range(136, 1025, 8)
 # the output dtypes of the kernels' two forms (None: the inputs' dtype)
 KERNEL_OUT_DTYPES = (None, torch.float32)
@@ -287,13 +289,14 @@ _KERNELS = {
     "hived_flash_tf32_fwd": ("flash_fwd_tf32", 5, 8, 12),
     "hived_flash_tf32_bwd_dq": ("flash_bwd_tf32", 8, 8, 18),
     "hived_flash_tf32_bwd_dkv": ("flash_bwd_tf32", 8, 8, 18),
+    "hived_flash_tf32_wide_fwd": ("flash_fwd_tf32_wide", 5, 8, 12),
     "hived_flash_tf32_wide_bwd_dq": ("flash_bwd_tf32_wide", 8, 8, 18),
     "hived_flash_tf32_wide_bwd_dkv": ("flash_bwd_tf32_wide", 8, 8, 18),
 }
 _TYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # the libraries whose entry points take the type codes after the dims
 _TYPED_LIBRARIES = ("flash_generic", "flash_fwd_wide", "flash_bwd_wide", "flash_fwd_tf32",
-                    "flash_bwd_tf32", "flash_bwd_tf32_wide")
+                    "flash_bwd_tf32", "flash_fwd_tf32_wide", "flash_bwd_tf32_wide")
 # the launch counter of each entry point
 _COUNTERS = {
     "hived_flash_fwd": "FLASH_FWD_LAUNCHES",
@@ -317,6 +320,7 @@ _COUNTERS = {
     "hived_flash_tf32_fwd": "FLASH_FWD_TF32_LAUNCHES",
     "hived_flash_tf32_bwd_dq": "FLASH_BWD_DQ_TF32_LAUNCHES",
     "hived_flash_tf32_bwd_dkv": "FLASH_BWD_DKV_TF32_LAUNCHES",
+    "hived_flash_tf32_wide_fwd": "FLASH_FWD_TF32_WIDE_LAUNCHES",
     "hived_flash_tf32_wide_bwd_dq": "FLASH_BWD_DQ_TF32_WIDE_LAUNCHES",
     "hived_flash_tf32_wide_bwd_dkv": "FLASH_BWD_DKV_TF32_WIDE_LAUNCHES",
 }
@@ -329,11 +333,10 @@ def kernel_entry(dtype, d: int, out_f32: bool, kernel: str = "fwd") -> str:
     or the inputs' dtype: bf16 and fp16 at D <= 256 the wgmma kernels
     (``_f16`` for fp16, ``_f32`` for the f32 forms); bf16 and fp16 at 256 <
     D <= 1024 the cluster kernels; K1, K2 and K3 at f32 inputs and D <= 128
-    the 3xTF32 wgmma kernels, and K2 and K3 at f32 inputs and 128 < D <=
-    1024 their cluster form; f32 K1 past 128, f32 K2 and K3 past 1024 and
-    bf16 or fp16 past 1024 the CUDA-core family (the last four one symbol
-    for every input and output type). Raises on any other dtype and on D %
-    8 != 0."""
+    the 3xTF32 wgmma kernels, and at f32 inputs and 128 < D <= 1024 their
+    cluster form; every input dtype past 1024 the CUDA-core family (the last
+    three one symbol for every input and output type). Raises on any other
+    dtype and on D % 8 != 0."""
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash kernels take {KERNEL_DTYPES}, not {dtype}")
     if d not in KERNEL_HEAD_DIMS:
@@ -344,7 +347,7 @@ def kernel_entry(dtype, d: int, out_f32: bool, kernel: str = "fwd") -> str:
         return _STEMS[kernel].replace("hived_flash", "hived_flash_wide")
     if dtype == torch.float32 and d in TF32_HEAD_DIMS:
         return _STEMS[kernel].replace("hived_flash", "hived_flash_tf32")
-    if dtype == torch.float32 and kernel != "fwd" and d in TF32_WIDE_HEAD_DIMS:
+    if dtype == torch.float32 and d in TF32_WIDE_HEAD_DIMS:
         return _STEMS[kernel].replace("hived_flash", "hived_flash_tf32_wide")
     if dtype == torch.float32 or d not in WGMMA_HEAD_DIMS:
         return _STEMS[kernel].replace("hived_flash", "hived_flash_generic")
@@ -583,10 +586,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     otherwise. A CUDA tensor goes to the kernels, which tile any T
     themselves and take bf16, fp16 and f32 at every D % 8 == 0 (the wgmma
     kernels, the cluster kernels past D 256, the 3xTF32 K1, K2 and K3 for f32
-    up to D 128 and K2 and K3 up to D 1024, or the CUDA-core family for the
-    rest of f32 and 16-bit past D 1024: :func:`kernel_entry`), and raise on
-    what they do not
-    take (another dtype, layout, GQA): there is no fallback to the plain
+    up to D 128 and their cluster form up to D 1024, or the CUDA-core family
+    past D 1024: :func:`kernel_entry`), and raise on what they do not take
+    (another dtype, layout, GQA): there is no fallback to the plain
     versions or to the reference for them. The route is chosen from the
     shapes before any launch; a kernel that fails to build or launch raises. A
     DTensor input raises ``TypeError``: the op takes each rank's local

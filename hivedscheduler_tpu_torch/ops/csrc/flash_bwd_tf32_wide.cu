@@ -125,17 +125,6 @@ __device__ __forceinline__ int stage_of(int it, int S) { return S == 2 ? it & 1 
 
 __device__ __forceinline__ uint32_t round_of(int it, int S) { return (S == 2 ? it >> 1 : it) & 1; }
 
-// rows [row0, row0 + kR) of one head of an f32 map, panel columns [col0,
-// col0 + 128), as four [kR][32] column blocks; kR * 512 bytes on `bar`
-template <int kR>
-__device__ __forceinline__ void tma_panel(float* dst, const CUtensorMap* map, uint64_t* bar,
-                                          int col0, int head, int row0, int b) {
-#pragma unroll
-  for (int blk = 0; blk < kPanel / 32; ++blk) {
-    tma_load_4d(dst + blk * kR * 32, map, bar, col0 + 32 * blk, head, row0, b);
-  }
-}
-
 // split_planes (flash_tf32.cuh) of `mul` times the values: K3's q tiles,
 // split as scale * q
 __device__ __forceinline__ void split_scaled(float* big, float* small, int n, int idx, float mul) {
@@ -225,17 +214,6 @@ __device__ __forceinline__ void store_group(float* big, float* small, int m, int
                                             float4 v) {
   store_split2<kRows>(big, small, m, 8 * n + 2 * t4, v.x, v.y);
   store_split2<kRows>(big, small, m + 8, 8 * n + 2 * t4, v.z, v.w);
-}
-
-// v to the offset of `local` in every other block of the cluster, completing
-// on their barrier at `bar`'s offset
-__device__ __forceinline__ void send_others(const float4* local, const uint64_t* bar, float4 v,
-                                            int P, int rank) {
-  const uint32_t addr = smem_u32(local);
-  const uint32_t b = smem_u32(bar);
-  for (int dst = 0; dst < P; ++dst) {
-    if (dst != rank) st_async(map_rank(addr, dst), v, map_rank(b, dst));
-  }
 }
 
 struct Args {
@@ -345,17 +323,17 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     if (ptid == 0) {
       const int h_kv = h / a.group;
       mbar_expect_tx(qdo_full, 2 * kStationary);
-      tma_panel<kRows>(sQ, &a.tq, qdo_full, col0, h, q0, b);
-      tma_panel<kRows>(sDo, &a.tdo, qdo_full, col0, h, q0, b);
+      tma_tile<kPanel, kRows>(sQ, &a.tq, qdo_full, h, q0, b, col0);
+      tma_tile<kPanel, kRows>(sDo, &a.tdo, qdo_full, h, q0, b, col0);
       for (int j = 0; j < n_kv; ++j) {
         const int ks = j & 1;
         float* kb = reinterpret_cast<float*>(smem + L.k + ks * 2 * kPlane);
         if (j >= 2) mbar_wait(&k_empty[ks], ((j >> 1) - 1) & 1);
         mbar_expect_tx(&k_raw[ks], kPlane);
-        tma_panel<kCols>(kb, &a.tk, &k_raw[ks], col0, h_kv, j * kCols, b);
+        tma_tile<kPanel, kCols>(kb, &a.tk, &k_raw[ks], h_kv, j * kCols, b, col0);
         if (j >= 1) mbar_wait(v_empty, (j - 1) & 1);
         mbar_expect_tx(v_raw, kPlane);
-        tma_panel<kCols>(vb, &a.tv, v_raw, col0, h_kv, j * kCols, b);
+        tma_tile<kPanel, kCols>(vb, &a.tv, v_raw, h_kv, j * kCols, b, col0);
       }
     } else if (ptid >= 32) {
       for (int j = 0; j < n_kv; ++j) {
@@ -629,8 +607,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     if (ptid < 32) {
       if (ptid == 0) {
         mbar_expect_tx(kv_full, 2 * kStationary);
-        tma_panel<kRows>(sK, &a.tk, kv_full, col0, h_kv, k0, b);
-        tma_panel<kRows>(sV, &a.tv, kv_full, col0, h_kv, k0, b);
+        tma_tile<kPanel, kRows>(sK, &a.tk, kv_full, h_kv, k0, b, col0);
+        tma_tile<kPanel, kRows>(sV, &a.tv, kv_full, h_kv, k0, b, col0);
       }
       for (int it = 0; it < n_iter; ++it) {
         const int hq = h_kv * a.group + it / per_head;
@@ -640,7 +618,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         if (ptid == 0) {
           float* qb = reinterpret_cast<float*>(smem + L.q + qs * 2 * kPlane);
           mbar_expect_tx(&q_raw[qs], kPlane);
-          tma_panel<kCols>(qb, &a.tq, &q_raw[qs], col0, hq, r0, b);
+          tma_tile<kPanel, kCols>(qb, &a.tq, &q_raw[qs], hq, r0, b, col0);
         }
         const int64_t lrow = static_cast<int64_t>(b * a.H + hq) * T;
         const int row = r0 + ptid;
@@ -652,7 +630,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         if (ptid == 0) {
           float* db = reinterpret_cast<float*>(smem + L.dout + dst * 2 * kPlane);
           mbar_expect_tx(&d_raw[dst], kPlane);
-          tma_panel<kCols>(db, &a.tdo, &d_raw[dst], col0, hq, r0, b);
+          tma_tile<kPanel, kCols>(db, &a.tdo, &d_raw[dst], hq, r0, b, col0);
         }
       }
     } else {
@@ -811,13 +789,6 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
                          stream, attr_set);
 }
 
-// the shapes and types the entry points take: f32 in and out, 128 < D <=
-// 1024, D % 8 == 0
-bool bad_f32_wide_args(int B, int T, int H, int H_kv, int D, int in_type, int out_type) {
-  return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || D <= 128 || D > kMaxD ||
-         D % 8 != 0 || in_type != kF32Code || out_type != kF32Code;
-}
-
 // the four tensor maps (q and do boxes of q_rows rows, k and v of kv_rows;
 // s the element strides of q, k, v, do) and the arguments every launch shares
 int base_args(Args& a, const void* q, const void* k, const void* v, const void* dout, int B,
@@ -853,7 +824,7 @@ extern "C" int hived_flash_tf32_wide_bwd_dq(
     int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb,
     int64_t o_st, int64_t o_sh, int64_t do_sb, int64_t do_st, int64_t do_sh, int64_t dq_sb,
     int64_t dq_st, int64_t dq_sh, void* stream) {
-  if (bad_f32_wide_args(B, T, H, H_kv, D, in_type, out_type)) {
+  if (bad_f32_args(B, T, H, H_kv, D, in_type, out_type)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t s[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
@@ -882,7 +853,7 @@ extern "C" int hived_flash_tf32_wide_bwd_dkv(
     int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t do_sb,
     int64_t do_st, int64_t do_sh, int64_t dk_sb, int64_t dk_st, int64_t dk_sh, int64_t dv_sb,
     int64_t dv_st, int64_t dv_sh, void* stream) {
-  if (bad_f32_wide_args(B, T, H, H_kv, D, in_type, out_type)) {
+  if (bad_f32_args(B, T, H, H_kv, D, in_type, out_type)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t s[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,

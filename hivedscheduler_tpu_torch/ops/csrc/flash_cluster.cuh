@@ -1,14 +1,14 @@
 // What the cluster kernels share: K1 (flash_fwd_wide.cu) and K2 and K3
-// (flash_bwd_wide.cu) past D 256 at 16-bit inputs, and K2 and K3 past D 128
-// at f32 inputs (flash_bwd_tf32_wide.cu). Each splits its outputs into
-// 128-column panels, one block a panel, and runs a thread-block cluster of P
-// = ceil(D / 128) of them on one tile of work, so that the scores are formed
-// once: each block's partial scores over its panel go, through distributed
-// shared memory, to the block that owns them, which adds the P partials in
-// rank order. This header has the panel and group arithmetic, the TMA load
-// of a panel, the sends (st.async, whose bytes complete on the receiver's
-// mbarrier), the argument rule the 16-bit entry points share and the
-// cluster launch.
+// (flash_bwd_wide.cu) past D 256 at 16-bit inputs, and K1
+// (flash_fwd_tf32_wide.cu) and K2 and K3 (flash_bwd_tf32_wide.cu) past D 128
+// at f32 inputs. Each splits its outputs into 128-column panels, one block a
+// panel, and runs a thread-block cluster of P = ceil(D / 128) of them on one
+// tile of work, so that the scores are formed once: each block's partial
+// scores over its panel go, through distributed shared memory, to the block
+// that owns them, which adds the P partials in rank order. This header has
+// the panel and group arithmetic, the TMA load of a 16-bit panel, the sends
+// (st.async, whose bytes complete on the receiver's mbarrier), the argument
+// rules the 16-bit and the f32 entry points share and the cluster launch.
 
 #pragma once
 
@@ -85,17 +85,25 @@ __device__ __forceinline__ void send(float4* local, const uint64_t* bar, float4 
   }
 }
 
+// v to the offset of `local` in every other block of the cluster, completing
+// on their barrier at `bar`'s offset
+template <typename V>
+__device__ __forceinline__ void send_others(const V* local, const uint64_t* bar, V v, int P,
+                                            int rank) {
+  const uint32_t addr = smem_u32(local);
+  const uint32_t b = smem_u32(bar);
+  for (int dst = 0; dst < P; ++dst) {
+    if (dst != rank) st_async(map_rank(addr, dst), v, map_rank(b, dst));
+  }
+}
+
 // one value to the same offset in every block of the cluster: this block's
 // by a plain store, the others' completing on their barrier at `bar`'s offset
 template <typename V>
 __device__ __forceinline__ void broadcast(unsigned char* local, const uint64_t* bar, V v, int P,
                                           int rank) {
   *reinterpret_cast<V*>(local) = v;
-  const uint32_t addr = smem_u32(local);
-  const uint32_t b = smem_u32(bar);
-  for (int dst = 0; dst < P; ++dst) {
-    if (dst != rank) st_async(map_rank(addr, dst), v, map_rank(b, dst));
-  }
+  send_others(reinterpret_cast<const V*>(local), bar, v, P, rank);
 }
 
 // the shapes and types the 16-bit entry points take: 256 < D <= 1024, D % 8
@@ -104,6 +112,13 @@ inline bool bad_args(int B, int T, int H, int H_kv, int D, int in_type, int out_
   return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || D <= 256 || D > kMaxD ||
          D % 8 != 0 || (in_type != kBf16 && in_type != kF16) ||
          (out_type != in_type && out_type != kF32);
+}
+
+// the shapes and types the 3xTF32 entry points past D 128 take: f32 in and
+// out, 128 < D <= 1024, D % 8 == 0
+inline bool bad_f32_args(int B, int T, int H, int H_kv, int D, int in_type, int out_type) {
+  return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || D <= 128 || D > kMaxD ||
+         D % 8 != 0 || in_type != kF32 || out_type != kF32;
 }
 
 // the launch configuration of clusters of P blocks along x, with `smem` bytes

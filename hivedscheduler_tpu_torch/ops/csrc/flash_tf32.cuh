@@ -1,7 +1,8 @@
 // The 3xTF32 building blocks of the f32-input wgmma kernels: K1
 // (flash_fwd_tf32.cu), K2 and K3 (flash_bwd_tf32.cu), for D a multiple of 8
-// up to 128 at the padded width Dp = 64 or 128, and K2 and K3 past D 128 on
-// thread-block clusters of 128-column panels (flash_bwd_tf32_wide.cu).
+// up to 128 at the padded width Dp = 64 or 128, and K1 (flash_fwd_tf32_wide.cu)
+// and K2 and K3 (flash_bwd_tf32_wide.cu) past D 128 on thread-block clusters
+// of 128-column panels.
 //
 // 3xTF32. Every product a b is formed as big(a) big(b) + big(a) small(b) +
 // small(a) big(b) on wgmma ...f32.tf32.tf32 (k-steps of 8), accumulated in
@@ -63,14 +64,15 @@ inline int make_f32_map(CUtensorMap* map, const void* base, int B, int T, int he
 
 // ---------------------------------------------------------- device side
 
-// rows [row0, row0 + kRows) of one head of an f32 map, as the Dp / 32 column
+// rows [row0, row0 + kRows) of one head of an f32 map, columns [col0, col0 +
+// Dp) (the cluster kernels' 128-column panel at col0), as the Dp / 32 column
 // blocks of a tile; kRows * Dp * 4 bytes on `bar`
 template <int Dp, int kRows>
 __device__ __forceinline__ void tma_tile(float* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int head, int row0, int b) {
+                                         int head, int row0, int b, int col0 = 0) {
 #pragma unroll
   for (int blk = 0; blk < Dp / 32; ++blk) {
-    tma_load_4d(dst + blk * kRows * 32, map, bar, blk * 32, head, row0, b);
+    tma_load_4d(dst + blk * kRows * 32, map, bar, col0 + blk * 32, head, row0, b);
   }
 }
 

@@ -3,6 +3,7 @@ one process on one CUDA card.
 
     python -m hivedscheduler_tpu_torch.ops.kernel_ab --other DIR [--kernels fwd,dq,dkv]
         [--d D] [--heads H] [--kv-heads H_KV] [--dtype bf16|fp16|f32]
+    python -m hivedscheduler_tpu_torch.ops.kernel_ab --other DIR --sass
 
 ``DIR`` is the root of another copy of the repository, for example the
 parent commit unpacked with ``git archive``. Its
@@ -16,9 +17,8 @@ head dim (any multiple of 8: past 256 K1-K3 run on the cluster kernels,
 past 1024 on the CUDA-core family) and the head counts (Gemma-2B's shape:
 ``--d 256 --heads 8 --kv-heads 1``), and ``--dtype`` the inputs' dtype
 (fp16: the wgmma kernels' fp16 forms; f32: K1-K3 in 3xTF32 up to D 128,
-past it K2 and K3 in 3xTF32 on clusters up to D 1024 and K1 on the
-CUDA-core family). Where the other tree lacks the entry point
-this tree picks, it runs the one it routes the same call to: a tree
+past it on clusters up to D 1024). Where the other tree lacks the entry
+point this tree picks, it runs the one it routes the same call to: a tree
 without ``csrc/flash_fwd_wide.cu`` or ``csrc/flash_bwd_wide.cu`` ran K1,
 or K2 and K3, past D 256 on the CUDA-core family, so ``--d 512 --heads 4
 --kv-heads 2`` times those against the cluster kernels; a tree without
@@ -27,13 +27,19 @@ and K3, there too, so ``--dtype f32 --kernels fwd`` (or ``dq,dkv``) times
 them against the 3xTF32 kernels, and a tree without
 ``csrc/flash_bwd_tf32_wide.cu`` ran f32 K2 and K3 past D 128 there, so
 ``--dtype f32 --d 256 --heads 8 --kv-heads 1 --kernels dq,dkv`` times those
-against the 3xTF32 cluster kernels. Both trees' K2 and K3 read the o and lse
-of this tree's K1. Each
+against the 3xTF32 cluster kernels, and a tree without
+``csrc/flash_fwd_tf32_wide.cu`` ran f32 K1 past D 128 there, so ``--kernels
+fwd`` at that shape times it against the 3xTF32 cluster K1. Both trees' K2
+and K3 read the o and lse of this tree's K1. Each
 kernel is timed with CUDA events in the order other, this, this, other, so
 a drift of the card's clock falls on both alike. It prints each reading,
 the ratio of the means, and the largest difference between the two trees'
-outputs. Without a card it exits non-zero. :func:`inputs` and
-:func:`runner` time one tree's kernels at two shapes the same way
+outputs. With ``--sass`` it times nothing and compares the two trees'
+machine code instead: each library both trees build, function by function
+(``cuobjdump -sass``, each source's anonymous-namespace hash masked), and
+prints which functions differ. Without a card it exits non-zero.
+:func:`inputs` and :func:`runner` time one tree's kernels at two shapes the
+same way
 (``chip_smoke.py`` [q]: D = 96 against D = 128; [r]: D = 256 against the
 flagship's D = 128).
 """
@@ -43,6 +49,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -77,6 +84,39 @@ def build_other(root: str) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the other tree's {n}.cu:\n{log}")
     return {n: ctypes.CDLL(os.path.join(out, f"lib{n}_ab.so")) for n in procs}
+
+
+# the anonymous namespace of a source in a mangled name: a hash of the file
+# that changes with any edit, code or not
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_(\d+_\w+?_cu)_[0-9a-f]{8}")
+
+
+def sass_functions(text: str) -> dict:
+    """{mangled name, anonymous-namespace hash masked: its SASS} of
+    ``cuobjdump -sass`` output ``text``."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = _ANON.sub(r"_GLOBAL__N__\1", m.group(1))
+            out[name] = []
+        elif name:
+            out[name].append(line.strip())
+    return {n: "\n".join(body) for n, body in out.items()}
+
+
+def sass_diff(paths: dict) -> dict:
+    """{library: (functions in both trees, names whose SASS differs or is
+    in one tree only)} for ``paths`` = {library: (other's .so, this .so)}."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    result = {}
+    for lib, pair in sorted(paths.items()):
+        other, this = (sass_functions(subprocess.run(
+            [tool, "-sass", p], capture_output=True, text=True, check=True,
+            timeout=300).stdout) for p in pair)
+        differ = sorted(n for n in set(other) | set(this) if other.get(n) != this.get(n))
+        result[lib] = (len(set(other) & set(this)), differ)
+    return result
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -158,6 +198,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-heads", type=int, default=FLAGSHIP["h_kv"])
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
                     help="the inputs' dtype")
+    ap.add_argument("--sass", action="store_true",
+                    help="compare the two trees' machine code instead of timing")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
@@ -168,6 +210,14 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     trees = {"other": build_other(args.other),
              "this": {n: _build.load(n) for n in libraries()}}
+    if args.sass:
+        out = os.path.join(args.other, "hivedscheduler_tpu_torch", "_build")
+        paths = {n: (os.path.join(out, f"lib{n}_ab.so"), _build.library_path(n))
+                 for n in trees["other"]}
+        for lib, (same, differ) in sass_diff(paths).items():
+            print(f"SASS {lib}: {same} functions in both trees; differ: "
+                  + (", ".join(differ) if differ else "none"))
+        return 0
 
     f = FLAGSHIP
     x = inputs(f["b"], f["t"], args.heads, args.kv_heads, args.d, dtype=DTYPES[args.dtype])

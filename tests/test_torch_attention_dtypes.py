@@ -152,17 +152,16 @@ def test_kernel_entry_takes_the_wgmma_kernels_up_to_256(dtype, suffix, d):
     (torch.float16, 320), (torch.float16, 1024), (torch.bfloat16, 1032),
     (torch.float16, 1032), (torch.float32, 1032)])
 def test_kernel_entry_takes_the_cuda_core_family(dtype, d):
-    # f32 K1 past D 128 and f32 K2 and K3 past D 1024 (up to D 128 K1-K3 run
-    # on the 3xTF32 kernels, past it K2 and K3 on their cluster form up to
-    # 1024), and K1-K3 at 16-bit inputs past 1024 (the cluster kernels'
-    # limit); at 16-bit inputs past 256 up to 1024 all three, K1 too, take
-    # the cluster kernels; every one of them with the same arguments
+    # K1-K3 past D 1024 at every input dtype (the cluster kernels' limit);
+    # up to it, f32 K1-K3 run on the 3xTF32 kernels up to D 128 and on their
+    # cluster form past it, and at 16-bit inputs past 256 all three take the
+    # cluster kernels; every one of them with the same arguments
     code = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}[dtype]
-    core = dtype == torch.float32 or d > 1024
+    core = d > 1024
     for kernel, stem in STEMS.items():
         lib = "flash_fwd_wide" if kernel == "fwd" else "flash_bwd_wide"
         tf32 = dtype == torch.float32 and d <= 128
-        tf32_wide = dtype == torch.float32 and kernel != "fwd" and 128 < d <= 1024
+        tf32_wide = dtype == torch.float32 and 128 < d <= 1024
         for out_f32 in (False, True):
             symbol = tattn.kernel_entry(dtype, d, out_f32, kernel)
             generic = stem.replace("hived_flash", "hived_flash_generic")
@@ -172,7 +171,8 @@ def test_kernel_entry_takes_the_cuda_core_family(dtype, d):
                     "flash_fwd_tf32" if kernel == "fwd" else "flash_bwd_tf32")
             elif tf32_wide:
                 assert symbol == stem.replace("hived_flash", "hived_flash_tf32_wide")
-                assert tattn._KERNELS[symbol][0] == "flash_bwd_tf32_wide"
+                assert tattn._KERNELS[symbol][0] == (
+                    "flash_fwd_tf32_wide" if kernel == "fwd" else "flash_bwd_tf32_wide")
             else:
                 assert symbol == (generic if core else
                                   stem.replace("hived_flash", "hived_flash_wide"))
@@ -204,9 +204,8 @@ def test_kernel_entry_takes_the_wide_backward(dtype, d, out_f32):
         assert tattn.launch_dims(symbol, (1, 2, 3, 4, d, 1), dtype, out_f32) == (
             1, 2, 3, 4, d, 1, code, 2 if out_f32 else code)
     assert tattn.kernel_entry(dtype, d, out_f32, "fwd") == "hived_flash_wide_fwd"
-    # f32 at the same head dims: K1 on the CUDA-core family, K2 and K3 on
-    # the 3xTF32 cluster kernels
-    assert tattn.kernel_entry(torch.float32, d, out_f32, "fwd") == "hived_flash_generic_fwd"
+    # f32 at the same head dims: K1, K2 and K3 on the 3xTF32 cluster kernels
+    assert tattn.kernel_entry(torch.float32, d, out_f32, "fwd") == "hived_flash_tf32_wide_fwd"
     assert tattn.kernel_entry(torch.float32, d, out_f32, "dq") == "hived_flash_tf32_wide_bwd_dq"
     assert d in tattn.WIDE_HEAD_DIMS and d not in tattn.WGMMA_HEAD_DIMS
 
@@ -217,8 +216,8 @@ def test_kernel_entry_takes_the_tf32_backward_at_f32(d, out_f32):
     # K1, K2 and K3 at f32 inputs up to D 128: the 3xTF32 wgmma kernels
     # (K1 csrc/flash_fwd_tf32.cu, K2 and K3 csrc/flash_bwd_tf32.cu), with
     # the CUDA-core family's arguments (the type codes after the dims, f32
-    # in and out in both forms); past 128 K1 stays on the CUDA-core family
-    # and K2 and K3 take the 3xTF32 cluster kernels
+    # in and out in both forms); past 128 all three take the 3xTF32 cluster
+    # kernels
     f32 = torch.float32
     assert d in tattn.TF32_HEAD_DIMS
     for kernel, entry, counter in (
@@ -237,8 +236,7 @@ def test_kernel_entry_takes_the_tf32_backward_at_f32(d, out_f32):
         for wider in (136, 256):
             assert wider not in tattn.TF32_HEAD_DIMS
             assert tattn.kernel_entry(f32, wider, out_f32, kernel) == (
-                generic if kernel == "fwd"
-                else STEMS[kernel].replace("hived_flash", "hived_flash_tf32_wide"))
+                STEMS[kernel].replace("hived_flash", "hived_flash_tf32_wide"))
     # 16-bit inputs at the same head dims keep the wgmma kernels
     assert tattn.kernel_entry(torch.bfloat16, d, out_f32, "dq") == (
         "hived_flash_bwd_dq" + ("_f32" if out_f32 else ""))
@@ -249,28 +247,41 @@ def test_kernel_entry_takes_the_tf32_backward_at_f32(d, out_f32):
 @pytest.mark.parametrize("out_f32", [False, True], ids=["in-dtype", "f32-out"])
 @pytest.mark.parametrize("d", [136, 256, 264, 512, 896, 1024])
 def test_kernel_entry_takes_the_tf32_cluster_backward_past_128(d, out_f32):
-    # K2 and K3 at f32 inputs at 128 < D <= 1024: the 3xTF32 cluster
-    # kernels (csrc/flash_bwd_tf32_wide.cu), one symbol for both forms, with
-    # the CUDA-core family's arguments and counters of their own; K1 there,
-    # and K2 and K3 past 1024, stay on the CUDA-core family; 16-bit inputs
-    # keep their own kernels
+    # K1, K2 and K3 at f32 inputs at 128 < D <= 1024: the 3xTF32 cluster
+    # kernels (K1 csrc/flash_fwd_tf32_wide.cu, K2 and K3
+    # csrc/flash_bwd_tf32_wide.cu), one symbol for both forms, with the
+    # CUDA-core family's arguments and counters of their own; past 1024 all
+    # three stay on the CUDA-core family; 16-bit inputs keep their own kernels
     f32 = torch.float32
     assert d in tattn.TF32_WIDE_HEAD_DIMS and d not in tattn.TF32_HEAD_DIMS
     assert list(tattn.TF32_WIDE_HEAD_DIMS) == list(range(136, 1025, 8))
-    for kernel, counter in (("dq", "FLASH_BWD_DQ_TF32_WIDE_LAUNCHES"),
-                            ("dkv", "FLASH_BWD_DKV_TF32_WIDE_LAUNCHES")):
+    for kernel, entry, counter in (
+            ("fwd", ("flash_fwd_tf32_wide", 5, 8, 12), "FLASH_FWD_TF32_WIDE_LAUNCHES"),
+            ("dq", ("flash_bwd_tf32_wide", 8, 8, 18), "FLASH_BWD_DQ_TF32_WIDE_LAUNCHES"),
+            ("dkv", ("flash_bwd_tf32_wide", 8, 8, 18), "FLASH_BWD_DKV_TF32_WIDE_LAUNCHES")):
         symbol = tattn.kernel_entry(f32, d, out_f32, kernel)
         generic = STEMS[kernel].replace("hived_flash", "hived_flash_generic")
         assert symbol == STEMS[kernel].replace("hived_flash", "hived_flash_tf32_wide")
-        assert tattn._KERNELS[symbol] == ("flash_bwd_tf32_wide", 8, 8, 18)
+        assert tattn._KERNELS[symbol] == entry
         assert tattn._KERNELS[symbol][1:] == tattn._KERNELS[generic][1:]
         assert tattn.launch_dims(symbol, (1, 2, 3, 4, d, 1), f32, out_f32) == (
             1, 2, 3, 4, d, 1, 2, 2)
         assert tattn._COUNTERS[symbol] == counter
         assert tattn.kernel_entry(f32, 1032, out_f32, kernel) == generic
         assert tattn.kernel_entry(torch.bfloat16, d, out_f32, kernel) != symbol
-    assert "flash_bwd_tf32_wide" in tattn._TYPED_LIBRARIES
-    assert tattn.kernel_entry(f32, d, out_f32, "fwd") == "hived_flash_generic_fwd"
+        assert entry[0] in tattn._TYPED_LIBRARIES
+
+
+@pytest.mark.parametrize("out_f32", [False, True], ids=["in-dtype", "f32-out"])
+def test_kernel_entry_takes_the_tf32_cluster_forward_at_every_head_dim(out_f32):
+    # f32 K1 at every multiple of 8 past 128 up to 1024 goes to the 3xTF32
+    # cluster K1, in both output forms; at 1032, past a cluster of 8 panels,
+    # to the CUDA-core K1
+    f32 = torch.float32
+    for d in range(136, 1025, 8):
+        assert tattn.kernel_entry(f32, d, out_f32, "fwd") == "hived_flash_tf32_wide_fwd", d
+    assert tattn.kernel_entry(f32, 1032, out_f32, "fwd") == "hived_flash_generic_fwd"
+    assert tattn.kernel_entry(f32, 128, out_f32, "fwd") == "hived_flash_tf32_fwd"
 
 
 @pytest.mark.parametrize("dtype, d, error", [
@@ -291,6 +302,7 @@ def test_every_entry_point_has_its_own_launch_counter():
     assert tattn._COUNTERS["hived_flash_tf32_fwd"] == "FLASH_FWD_TF32_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_tf32_bwd_dq"] == "FLASH_BWD_DQ_TF32_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_tf32_bwd_dkv"] == "FLASH_BWD_DKV_TF32_LAUNCHES"
+    assert tattn._COUNTERS["hived_flash_tf32_wide_fwd"] == "FLASH_FWD_TF32_WIDE_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_tf32_wide_bwd_dq"] == "FLASH_BWD_DQ_TF32_WIDE_LAUNCHES"
     assert tattn._COUNTERS["hived_flash_tf32_wide_bwd_dkv"] == "FLASH_BWD_DKV_TF32_WIDE_LAUNCHES"
     for counter in tattn._COUNTERS.values():

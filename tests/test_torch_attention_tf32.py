@@ -1,6 +1,7 @@
 """The arithmetic the 3xTF32 K1, K2 and K3 (``csrc/flash_fwd_tf32.cu``,
-``csrc/flash_bwd_tf32.cu``) and the 3xTF32 cluster K2 and K3 past D 128
-(``csrc/flash_bwd_tf32_wide.cu``) rest on, emulated on the CPU and held to
+``csrc/flash_bwd_tf32.cu``) and the 3xTF32 cluster K1, K2 and K3 past D 128
+(``csrc/flash_fwd_tf32_wide.cu``, ``csrc/flash_bwd_tf32_wide.cu``) rest on,
+emulated on the CPU and held to
 the port's plain f32 forward and backward and to the JAX package's
 ``_flash_forward`` and ``_flash_backward`` (Pallas in interpret mode).
 
@@ -20,7 +21,10 @@ tile's o^T = v^T p^T in a fresh part folded in as o corr + part); the
 backward past D 128 in the cluster kernels' order (each 128-column panel's
 partial scores through the 3xTF32 product, the panels' partials added in
 rank order, each panel's outputs summed a tile at a time) at D 136, 256,
-320 and 512, causal and not, GQA (H_kv 2) and MQA (H_kv 1).
+320 and 512, causal and not, GQA (H_kv 2) and MQA (H_kv 1); and the forward
+past D 128 in the cluster K1's order (each panel's partial scores through
+the 3xTF32 product, added in rank order, then K1's 32-key tiles) at the same
+head dims, masks and groups, at T 128 and a ragged T 200.
 """
 
 import functools
@@ -47,6 +51,11 @@ TILE = 32  # the cluster K2's keys a K/V tile, K3's q rows a q/do tile
 WIDE_CASES = [pytest.param(d, causal, h_kv, id=f"d{d}-{'causal' if causal else 'full'}-"
                                                 f"{'mqa' if h_kv == 1 else 'gqa'}")
               for d in (136, 256, 320, 512) for causal in (True, False) for h_kv in (2, 1)]
+WIDE_FWD_CASES = [pytest.param(t, d, causal, h_kv,
+                               id=f"t{t}-d{d}-{'causal' if causal else 'full'}-"
+                                  f"{'mqa' if h_kv == 1 else 'gqa'}")
+                  for t in (128, 200) for d in (136, 256, 320, 512) for causal in (True, False)
+                  for h_kv in (2, 1)]
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -176,6 +185,45 @@ def forward(q, k, v, causal: bool, mm):
     return (o / l_safe).permute(0, 2, 1, 3), lse.reshape(b * h, t)
 
 
+def cluster_forward(q, k, v, causal: bool, mm):
+    """o, lse [B*H, T] in the order of the card's cluster K1: q scaled by
+    1/sqrt(D) in f32; for each 32-key tile each 128-column panel's partial
+    s = qs k^T through ``mm``, the panels' partials added in rank order
+    (from 0, as an owner adds them); then K1's online softmax step (causal
+    keys past the row at NEG_INF, m_safe, corr, p, l) and o = o corr + part,
+    the tile's part = (v^T p^T)^T through ``mm`` in a fresh accumulator
+    (each panel's columns of it, which no sum over panels touches); then the
+    l == 0 guard, o / l and lse = m_safe + log(l)."""
+    b, t, h, d = q.shape
+    g = h // k.shape[2]
+    qh = q.permute(0, 2, 1, 3) * (1.0 / d ** 0.5)  # [b, h, t, d]
+    kh, vh = (x.permute(0, 2, 1, 3).repeat_interleave(g, dim=1) for x in (k, v))
+    panels = [slice(c, min(c + PANEL, d)) for c in range(0, d, PANEL)]
+    m = torch.full((b, h, t, 1), tattn.NEG_INF)
+    l = torch.zeros((b, h, t, 1))
+    o = torch.zeros((b, h, t, d))
+    rows = torch.arange(t)[:, None]
+    for k0 in range(0, t, KEYS):
+        kt, vt = kh[:, :, k0:k0 + KEYS], vh[:, :, k0:k0 + KEYS]
+        s = torch.zeros(b, h, t, kt.shape[2])
+        for cols in panels:
+            s = s + mm(qh[..., cols], kt[..., cols].transpose(-1, -2))
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kt.shape[2])[None, :] > rows, tattn.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.clamp(m_new, min=tattn._CLAMP)
+        p = torch.exp(s - m_safe)
+        corr = torch.exp(torch.clamp(m, min=tattn._CLAMP) - m_safe)
+        l = l * corr + p.sum(-1, keepdim=True)
+        part = torch.cat([mm(vt[..., cols].transpose(-1, -2), p.transpose(-1, -2))
+                          for cols in panels], dim=2).transpose(-1, -2)
+        o = o * corr + part
+        m = m_new
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = torch.clamp(m, min=tattn._CLAMP) + torch.log(l_safe)
+    return (o / l_safe).permute(0, 2, 1, 3), lse.reshape(b * h, t)
+
+
 def _rel(x, ref) -> float:
     x, ref = torch.as_tensor(np.array(x)), torch.as_tensor(np.array(ref))
     return float((x - ref).norm() / ref.norm())
@@ -202,11 +250,12 @@ def _inputs(d: int, causal: bool, h_kv: int = 2):
     return x, [np.asarray(g) for g in g_ref]
 
 
-def _fwd_inputs(t: int, d: int, causal: bool):
+@functools.lru_cache(maxsize=None)
+def _fwd_inputs(t: int, d: int, causal: bool, h_kv: int = 2):
     """q, k, v from a seed, and o and lse from JAX's interpret-mode
     forward (lse as the port's [B*H, T]; blocks of 64, or 40 at T 200)."""
-    rng = np.random.default_rng(2000 + t + d + causal)
-    b, h, h_kv = 1, 4, 2
+    rng = np.random.default_rng(2000 + t + d + causal + 10 * (h_kv - 2))
+    b, h = 1, 4
     q = rng.standard_normal((b, t, h, d)).astype(np.float32)
     k, v = (rng.standard_normal((b, t, h_kv, d)).astype(np.float32) for _ in range(2))
     block = 64 if t % 64 == 0 else 40
@@ -317,3 +366,28 @@ def test_one_tf32_pass_cluster_backward_is_outside_the_f32_limit(d, causal, h_kv
     errs = [_rel(g, p) for g, p in zip(one, plain)]
     assert min(errs) > F32_REL, errs
     assert all(_rel(g, j) > F32_REL for g, j in zip(one, jax_grads))
+
+
+@pytest.mark.parametrize("t, d, causal, h_kv", WIDE_FWD_CASES)
+def test_3xtf32_cluster_forward_is_within_the_f32_limit(t, d, causal, h_kv):
+    x, jax_o, jax_lse = _fwd_inputs(t, d, causal, h_kv)
+    args = (x["q"], x["k"], x["v"], causal)
+    o, lse = cluster_forward(*args, mm3)
+    plain_o, plain_lse = tattn.flash_attention_plain(*args)
+    for got, plain, jax_ref in ((o, plain_o, jax_o), (lse, plain_lse, jax_lse)):
+        assert _rel(got, plain) <= F32_REL, _rel(got, plain)
+        assert _rel(got, jax_ref) <= F32_REL, _rel(got, jax_ref)
+    # the emulation with exact products is the plain version's function
+    exact = cluster_forward(*args, torch.matmul)
+    assert _rel(exact[0], plain_o) <= 1e-6 and _rel(exact[1], plain_lse) <= 1e-6
+
+
+@pytest.mark.parametrize("t, d, causal, h_kv", WIDE_FWD_CASES)
+def test_one_tf32_pass_cluster_forward_is_outside_the_f32_limit(t, d, causal, h_kv):
+    # what the three passes buy in the cluster K1: one pass is off by more
+    # than the limit against both references
+    x, jax_o, _ = _fwd_inputs(t, d, causal, h_kv)
+    args = (x["q"], x["k"], x["v"], causal)
+    o, _ = cluster_forward(*args, mm1)
+    assert _rel(o, tattn.flash_attention_plain(*args)[0]) > F32_REL
+    assert _rel(o, jax_o) > F32_REL

@@ -106,9 +106,30 @@ def test_kernel_ab_refuses_without_a_card(tmp_path):
 
     assert kernel_ab.libraries() == sorted(_build.LIBRARIES) == [
         "flash_bwd", "flash_bwd_f16", "flash_bwd_tf32", "flash_bwd_tf32_wide", "flash_bwd_wide",
-        "flash_fwd", "flash_fwd_f16", "flash_fwd_tf32", "flash_fwd_wide", "flash_generic"]
+        "flash_fwd", "flash_fwd_f16", "flash_fwd_tf32", "flash_fwd_tf32_wide", "flash_fwd_wide",
+        "flash_generic"]
     assert kernel_ab.main(["--other", str(tmp_path)]) != 0
     assert not os.listdir(tmp_path)  # nothing was built
+
+
+def test_kernel_ab_masks_the_anonymous_namespace():
+    # --sass compares two trees' kernels function by function: the hash in a
+    # source's anonymous namespace changes with any edit of the file, so it
+    # is masked, and the rest of the name and every instruction still count
+    from hivedscheduler_tpu_torch.ops import kernel_ab
+
+    def dump(tag, body):
+        return (f"\tcode for sm_90a\n\t\tFunction : _ZN55_GLOBAL__N__{tag}_22_flash_fwd_tf32_"
+                f"wide_cu_{tag[::-1]}20tf32_wide_fwd_kernelENS_7FwdArgsE\n"
+                f"        /*0000*/  {body} ;\n")
+
+    a = kernel_ab.sass_functions(dump("86c67ed1", "MOV R1, c[0x0][0x28]"))
+    b = kernel_ab.sass_functions(dump("0a1b2c3d", "MOV R1, c[0x0][0x28]"))
+    c = kernel_ab.sass_functions(dump("0a1b2c3d", "MOV R1, c[0x0][0x30]"))
+    assert a == b and len(a) == 1
+    (name,) = a
+    assert "20tf32_wide_fwd_kernel" in name and "86c67ed1" not in name
+    assert a.keys() == c.keys() and a != c
 
 
 def test_kernel_ab_times_the_other_trees_route():
@@ -164,6 +185,19 @@ def test_kernel_ab_times_the_other_trees_route():
         assert kernel_ab.entry_in({**parent, "flash_bwd_tf32_wide": None}, symbol) == symbol
         assert tattn._KERNELS[f"hived_flash_generic_{stem}"][1:] == tattn._KERNELS[symbol][1:]
     assert kernel_ab.entry_in(parent, "hived_flash_tf32_bwd_dq") == "hived_flash_tf32_bwd_dq"
+    # a tree without flash_fwd_tf32_wide.cu (this one's parent) ran f32 K1
+    # past D 128 on the CUDA-core family: --dtype f32 --d 256 --kernels fwd
+    # times the 3xTF32 cluster K1 against that, and its K2 and K3 against
+    # the parent's own cluster pair
+    parent = {n: None for n in _build.LIBRARIES if n != "flash_fwd_tf32_wide"}
+    symbol = tattn.kernel_entry(torch.float32, 256, False, "fwd")
+    assert symbol == "hived_flash_tf32_wide_fwd"
+    assert kernel_ab.entry_in(parent, symbol) == "hived_flash_generic_fwd"
+    assert kernel_ab.entry_in({**parent, "flash_fwd_tf32_wide": None}, symbol) == symbol
+    assert tattn._KERNELS["hived_flash_generic_fwd"][1:] == tattn._KERNELS[symbol][1:]
+    for kernel, stem in (("dq", "bwd_dq"), ("dkv", "bwd_dkv")):
+        symbol = tattn.kernel_entry(torch.float32, 256, False, kernel)
+        assert kernel_ab.entry_in(parent, symbol) == f"hived_flash_tf32_wide_{stem}"
     with pytest.raises(RuntimeError) as info:
         kernel_ab.entry_in({"flash_generic": None}, "hived_flash_fwd")
     assert "hived_flash_fwd" in str(info.value)
@@ -190,20 +224,23 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     after = {n: _build.library_path(n) for n in ("flash_fwd", "flash_bwd")}
     # an edited header names new libraries for every source that includes it
     assert all(before[n] != after[n] for n in before)
-    # the 3xTF32 cluster K2 and K3 include both the cluster and the 3xTF32
-    # headers: an edit of either, or of hopper.cuh, names a new library
-    assert sorted(os.path.basename(p) for p in _build.sources("flash_bwd_tf32_wide")) == [
-        "flash_bwd_tf32_wide.cu", "flash_cluster.cuh", "flash_common.cuh", "flash_strides.cuh",
-        "flash_tf32.cuh", "hopper.cuh"]
+    # the 3xTF32 cluster K1, and K2 and K3, include both the cluster and the
+    # 3xTF32 headers: an edit of either, or of hopper.cuh, names a new library
+    for wide in ("flash_fwd_tf32_wide", "flash_bwd_tf32_wide"):
+        assert sorted(os.path.basename(p) for p in _build.sources(wide)) == sorted([
+            f"{wide}.cu", "flash_cluster.cuh", "flash_common.cuh", "flash_strides.cuh",
+            "flash_tf32.cuh", "hopper.cuh"])
     for header in ("flash_cluster.cuh", "flash_tf32.cuh", "hopper.cuh", "flash_strides.cuh"):
-        names = ("flash_bwd_tf32_wide", "flash_bwd_wide", "flash_bwd_tf32", "flash_generic")
+        names = ("flash_fwd_tf32_wide", "flash_bwd_tf32_wide", "flash_bwd_wide", "flash_bwd_tf32",
+                 "flash_generic")
         before = {n: _build.library_path(n) for n in names}
         with open(csrc / header, "a") as f:
             f.write("\n// edited\n")
         rebuilt = [n for n in names if _build.library_path(n) != before[n]]
         includes = [n for n in names
                     if header in [os.path.basename(p) for p in _build.sources(n)]]
-        assert "flash_bwd_tf32_wide" in rebuilt and rebuilt == includes, (header, rebuilt)
+        assert rebuilt[:2] == ["flash_fwd_tf32_wide", "flash_bwd_tf32_wide"], (header, rebuilt)
+        assert rebuilt == includes, (header, rebuilt)
 
 
 def test_build_all_runs_the_compilers_together(scratch_build, monkeypatch):
@@ -230,8 +267,8 @@ def test_tf32_libraries_rebuild_on_a_tf32_header_edit(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
-    names = ("flash_fwd_tf32", "flash_bwd_tf32", "flash_bwd_tf32_wide", "flash_fwd",
-             "flash_generic", "flash_bwd_wide")
+    names = ("flash_fwd_tf32", "flash_bwd_tf32", "flash_bwd_tf32_wide", "flash_fwd_tf32_wide",
+             "flash_fwd", "flash_generic", "flash_bwd_wide")
     for name in names[:2]:
         assert sorted(os.path.basename(p) for p in _build.sources(name)) == sorted([
             f"{name}.cu", "flash_tf32.cuh", "flash_strides.cuh", "flash_common.cuh",
@@ -240,7 +277,7 @@ def test_tf32_libraries_rebuild_on_a_tf32_header_edit(tmp_path, monkeypatch):
     with open(csrc / "flash_tf32.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {n: _build.library_path(n) for n in names}
-    assert [before[n] != after[n] for n in names] == [True, True, True, False, False, False]
+    assert [before[n] != after[n] for n in names] == [True] * 4 + [False] * 3
 
 
 def test_both_libraries_rebuild_on_a_hopper_header_edit():
@@ -265,10 +302,10 @@ def test_profile_groups_follow_the_kernel_names():
                 names.update(_GLOBAL.findall(f.read()))
     groups = {name: chip_smoke.profile_group(name) for name in names}
     # each of K1-K3 has a wgmma kernel, a CUDA-core one (flash_generic.cu),
-    # a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu) and a 3xTF32 one
-    # (flash_fwd_tf32.cu, flash_bwd_tf32.cu); K2 and K3 a 3xTF32 cluster one
-    # too (flash_bwd_tf32_wide.cu)
-    assert sorted(groups.values()) == ["K1 flash_fwd"] * 4 + ["K2 flash_bwd_dq"] * 5 + [
+    # a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu), a 3xTF32 one
+    # (flash_fwd_tf32.cu, flash_bwd_tf32.cu) and a 3xTF32 cluster one
+    # (flash_fwd_tf32_wide.cu, flash_bwd_tf32_wide.cu)
+    assert sorted(groups.values()) == ["K1 flash_fwd"] * 5 + ["K2 flash_bwd_dq"] * 5 + [
         "K3 flash_bwd_dkv"] * 5
     # as the profiler shows them: mangled, inside their anonymous namespace
     for name, group in groups.items():

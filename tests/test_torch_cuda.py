@@ -49,8 +49,8 @@ multiples of 8 or a cross-length k takes ``xla_attention``, as in the JAX
 package, and the raw kernel call refuses D = 12 and f64. K1-K3 at fp16
 inputs run the same wgmma kernels' fp16 forms (outputs in fp16 or f32),
 held to their plain versions with the bf16 limits and an error below the
-bf16 kernels' on the same inputs; f32 inputs past D 128 and bf16 or fp16
-past D 1024 run the CUDA-core family, held to the
+bf16 kernels' on the same inputs; every input dtype past D 1024 runs the
+CUDA-core family, held to the
 plain versions (f32 within a relative 2e-5), each on its own launch
 counter, with nothing stored past D; the fp16 libraries multiply on wgmma
 fed by TMA. bf16 and fp16 K1-K3 at 256 < D <= 1024 run the cluster kernels,
@@ -64,7 +64,9 @@ counters; their entry points refuse what they do not take, and every
 instance runs on wgmma and TMA. K2 and K3 at f32 inputs past D 128 up to
 1024 run the 3xTF32 cluster kernels, held the same way (D 136 with an
 8-column last panel, 256, 320, 512 and 1024, MQA and ragged T), storing
-nothing past D into a wider buffer.
+nothing past D into a wider buffer; so does K1 there (D 136 to 1024, every
+cluster size from 2 to 8 blocks), also held to the CUDA-core K1, refusing
+what it does not take, on wgmma and TMA with no local-memory spill.
 """
 
 import os
@@ -1709,3 +1711,112 @@ def test_tf32_wide_kernels_run_on_wgmma_and_tma(cuda, kernel):
     for name, text in found.items():
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert "HMMA" not in text and "LDGSTS" not in text, name
+
+
+# -- the 3xTF32 cluster K1 past D 128 (csrc/flash_fwd_tf32_wide.cu) ------------
+
+# (B, T, H, H_kv, D, causal): clusters of 2 (D 136, an 8-column last panel,
+# with MQA and a ragged T; Gemma-2B's D 256 with MQA), 3 (384), 4 (512 not
+# causal, ragged T), 5 (640 not causal), 6 (768), 8 (896, whose 7 panels run
+# as 8, with MQA and a ragged T; 1024, the route's largest)
+TF32_WIDE_FWD_SHAPES = [
+    (2, 200, 4, 1, 136, True),
+    (1, 256, 8, 1, 256, True),
+    (1, 256, 4, 4, 384, True),
+    (1, 200, 4, 2, 512, False),
+    (1, 256, 4, 2, 640, False),
+    (1, 192, 8, 2, 768, True),
+    (1, 130, 4, 1, 896, True),
+    (1, 200, 4, 1, 1024, False),
+]
+
+
+@pytest.mark.parametrize("shape", TF32_WIDE_FWD_SHAPES,
+                         ids=[f"d{s[4]}-t{s[1]}-g{s[2] // s[3]}-{'causal' if s[5] else 'full'}"
+                              for s in TF32_WIDE_FWD_SHAPES])
+def test_tf32_wide_forward_matches_plain_f32(cuda, shape):
+    # both output forms (f32 in both) within F32_REL of the plain f32
+    # forward, o and lse; one launch each on the cluster K1's counter and
+    # none on another's; the two forms and two runs bit-identical; o stored
+    # through a view into a buffer 64 columns wider, nothing past D
+    b, t, h, h_kv, d, causal = shape
+    q, k, v, _ = _dtype_inputs(torch.float32, *shape, seed=45)
+    assert all(tattn.kernel_entry(torch.float32, d, f) == "hived_flash_tf32_wide_fwd"
+               for f in (False, True))
+    o_ref, lse_ref = tattn.flash_attention_plain(q, k, v, causal=causal)
+    forms = []
+    for out_dtype in (None, torch.float32):
+        before = {n: getattr(tattn, n) for n in tattn._COUNTERS.values()}
+        o, lse = tattn.flash_forward(q, k, v, causal=causal, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        moved = {n: getattr(tattn, n) - before[n] for n in before
+                 if getattr(tattn, n) != before[n]}
+        assert moved == {"FLASH_FWD_TF32_WIDE_LAUNCHES": 1}
+        assert o.dtype == torch.float32 and lse.shape == (b * h, t)
+        assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+        assert _grad_errs(o, o_ref)[0] <= F32_REL, _grad_errs(o, o_ref)
+        assert _grad_errs(lse, lse_ref)[0] <= F32_REL, _grad_errs(lse, lse_ref)
+        forms.append((o, lse))
+    assert all(torch.equal(x, y) for x, y in zip(*forms))
+    again = tattn.flash_forward(q, k, v, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(forms[0], again))
+    buf = torch.full((b, t, h, d + 64), SENTINEL, dtype=torch.float32, device="cuda")
+    lse2 = torch.empty_like(lse_ref)
+    symbol = "hived_flash_tf32_wide_fwd"
+    tattn._launch(symbol, (q, k, v, buf[..., :d], lse2),
+                  tattn.launch_dims(symbol, (b, t, h, h_kv, d, int(causal)), q.dtype, False),
+                  (q, k, v, buf[..., :d]), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert bool((buf[..., d:] == SENTINEL).all())
+    assert torch.equal(buf[..., :d], forms[0][0]) and torch.equal(lse2, forms[0][1])
+
+
+def test_tf32_wide_forward_matches_the_cuda_core_k1(cuda):
+    # the same inputs through the cluster K1 and the CUDA-core K1, by symbol
+    # (f32 FMA): within F32_REL of each other; a raw launch counts nothing
+    shape = (2, 512, 4, 2, 384, True)
+    q, k, v, _ = _dtype_inputs(torch.float32, *shape, seed=46)
+    before = tattn.FLASH_FWD_TF32_WIDE_LAUNCHES
+    o, lse = torch.empty_like(q), torch.empty((2 * 4, 512), dtype=torch.float32, device="cuda")
+    symbol = "hived_flash_tf32_wide_fwd"
+    tattn._launch(symbol, (q, k, v, o, lse),
+                  tattn.launch_dims(symbol, (2, 512, 4, 2, 384, 1), q.dtype, False),
+                  (q, k, v, o), torch.cuda.current_stream().cuda_stream)
+    core_o, core_lse = _cuda_core_forward(q, k, v, True, False)
+    torch.cuda.synchronize()
+    assert tattn.FLASH_FWD_TF32_WIDE_LAUNCHES == before
+    assert _grad_errs(o, core_o)[0] <= F32_REL and _grad_errs(lse, core_lse)[0] <= F32_REL
+
+
+def test_tf32_wide_forward_refuses_what_it_does_not_take(cuda):
+    # D 128 (the 3xTF32 K1's own), D 1032 (past a portable cluster of 8
+    # panels), 16-bit type codes and an output type other than f32 are
+    # refused by the entry point itself, not run on another kernel
+    shape = (1, 128, 2, 2, 256, True)
+    q, k, v, _ = _dtype_inputs(torch.float32, *shape, seed=47)
+    stream = torch.cuda.current_stream().cuda_stream
+    o, lse = torch.empty_like(q), torch.empty((2, 128), dtype=torch.float32, device="cuda")
+    symbol = "hived_flash_tf32_wide_fwd"
+    ptrs, strided = (q, k, v, o, lse), (q, k, v, o)
+    for bad in ((1, 128, 2, 2, 128, 1, 2, 2), (1, 128, 2, 2, 1032, 1, 2, 2),
+                (1, 128, 2, 2, 256, 1, 0, 0), (1, 128, 2, 2, 256, 1, 1, 2),
+                (1, 128, 2, 2, 256, 1, 2, 0)):
+        with pytest.raises(RuntimeError) as info:
+            tattn._launch(symbol, ptrs, bad, strided, stream)
+        assert "CUDA error" in str(info.value)
+    tattn._launch(symbol, ptrs, (1, 128, 2, 2, 256, 1, 2, 2), strided, stream)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = tattn.flash_attention_plain(q, k, v)
+    assert _grad_errs(o, o_ref)[0] <= F32_REL and _grad_errs(lse, lse_ref)[0] <= F32_REL
+
+
+def test_tf32_wide_forward_runs_on_wgmma_and_tma_without_spill(cuda):
+    # its one instance multiplies with wgmma on tiles loaded by TMA, never
+    # with mma.sync, and touches no local memory (no register spill)
+    sass = _sass_by_kernel(_build.build("flash_fwd_tf32_wide"))
+    found = {k: v for k, v in sass.items() if "tf32_wide_fwd_kernel" in k}
+    assert len(found) == 1, sorted(sass)
+    for name, text in found.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert "HMMA" not in text and "LDGSTS" not in text, name
+        assert not re.search(r"\b(LDL|STL)\b", text), name
