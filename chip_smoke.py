@@ -68,7 +68,7 @@ Phases, each of which must pass or the script exits non-zero:
     (bit-identical when A and A2 are, else within a relative 1e-3); resume
     again with the loader state dropped from the marker (fast-forward,
     which must pass) and with the loader restarted at position 0 (which
-    must fail the same check); SIGTERM a ``python -m
+    must fail the same check); beside those runs, SIGTERM a ``python -m
     hivedscheduler_tpu_torch.train`` process on the card (8 steps) after its
     step 2 and require exit 0 within the 60 s grace period with a committed
     marker at the step it stopped on, then a resumed incarnation that
@@ -194,7 +194,7 @@ Phases, each of which must pass or the script exits non-zero:
     real D, the plain version and ``scaled_dot_product_attention``; then
     Phi-3-mini's width (microsoft/Phi-3-mini-4k-instruct: vocab 32064,
     d_model 3072, 32 heads, MHA, d_ff 8192, random weights from seed 0)
-    through ``eval`` at all 32 layers (K1 32 launches a window; flash
+    through ``eval`` at 16 of its 32 layers (K1 16 launches a window; flash
     against xla, losses 1e-3, one window's hidden states 5e-2 with (e)'s
     planted fault), ``train`` at 6 layers with (h)'s flags (K1/K2/K3
     36/18/18; losses flash against xla within 1e-3, one step's gradients
@@ -202,14 +202,16 @@ Phases, each of which must pass or the script exits non-zero:
     peak memory), greedy ``generate`` at (j)'s shape and (k)'s serving
     trace (dense/paged, eager/graph, int8 KV: token-identical, decisive
     positions the full forward's argmax; TPOT p50).
-(r) head dims past 128: K1, K2, K3 and their f32 forms at D = 136, 192 and
-    256 (each run at the padded width 256), causal and not, with MQA and a
-    GQA group of 4 at a ragged T, held as in (q) with sentinel columns in a
-    256-wide buffer and the same two planted faults; K1-K3 at Gemma-2B's
-    training shape (B=8, T=2048, H=8, H_kv=1, D=256, causal: the flagship's
-    FLOPs) against their plain versions, run twice bit-identical, then timed
-    in turns against the flagship's D = 128 shape, beside their bound, the
-    plain version and ``scaled_dot_product_attention`` (its backend named);
+(r) head dims past 128: ptxas's registers and spill of K1's Dp = 256
+    instances (none may spill); K1, K2, K3 and their f32 forms at D = 136,
+    192 and 256 (each run at the padded width 256), causal and not, with
+    MQA and a GQA group of 4 at a ragged T, held as in (q) with sentinel
+    columns in a 256-wide buffer and the same two planted faults; K1-K3 at
+    Gemma-2B's training shape (B=8, T=2048, H=8, H_kv=1, D=256, causal:
+    the flagship's FLOPs) against their plain versions, run twice
+    bit-identical, then timed in turns against the flagship's D = 128
+    shape, beside their bound, the plain version and
+    ``scaled_dot_product_attention`` (its backend named);
     the f32 forms at one sp = 4 hop of Gemma's heads (q [1,2048,8,256]),
     against their plain versions and bf16 forms, timed in turns; then
     Gemma-2B's width (google/gemma-2b: vocab 256000, d_model 2048, 8 heads,
@@ -438,6 +440,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -552,7 +555,7 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f}s, one nvcc each, all at once ("
           + ", ".join(f"{n} {s:.1f} s" for n, s in _build.BUILD_SECONDS.items()) + ")")
     for name in _build.LIBRARIES:
-        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+        for line in _build.build_log(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill",
                                        "Performance Loss")):
                 print(f"[a] {name}: {line.strip()}")
@@ -1153,6 +1156,7 @@ def phase_checkpoint() -> dict:
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    preempt = None
     try:
         # the phase holds at most two flagship checkpoints on disk at once
         n_params = _flagship_params()
@@ -1166,8 +1170,10 @@ def phase_checkpoint() -> dict:
         torch.cuda.empty_cache()
         walls = {"round trip": time.perf_counter() - t_phase}
 
-        # resume against the uninterrupted run
+        # resume against the uninterrupted run, with the preemption's first
+        # incarnation, a process of its own, beside it
         t0 = time.perf_counter()
+        preempt = _start_preemption(tmp)
         a = _train_main(tmp, "A", "--steps", str(RESUME_STEPS), args=RESUME_ARGS)
         a2 = _train_main(tmp, "A2", "--steps", str(RESUME_STEPS), args=RESUME_ARGS)
         spread = max(abs(a[s] - a2[s]) / abs(a[s]) for s in a)
@@ -1256,11 +1262,13 @@ def phase_checkpoint() -> dict:
 
         # preemption: SIGTERM to a training process on the card
         t0 = time.perf_counter()
-        report["preempt"] = _preemption(tmp)
+        report["preempt"] = _finish_preemption(tmp, preempt)
         walls["preemption"] = time.perf_counter() - t0
         report["spread"], report["exact"] = spread, exact
         report["resume_err"] = err
     finally:
+        if preempt is not None and preempt["proc"].poll() is None:
+            _stop([preempt["proc"]])
         shutil.rmtree(tmp, ignore_errors=True)
     report["phase_s"] = time.perf_counter() - t_phase
     print(f"[i] phase wall time {report['phase_s']:.1f} s ("
@@ -1275,18 +1283,13 @@ def _flagship_params(m=EVAL_MODEL) -> int:
     return 2 * v * d + d + n * layer
 
 
-def _preemption(tmp: str) -> dict:
-    """SIGTERM to ``python -m hivedscheduler_tpu_torch.train`` once its
-    timeline shows step PREEMPT_AT: exit 0 within the grace period with a
-    committed marker at the step it stopped on; then a second incarnation
-    resumes and finishes."""
+def _start_preemption(tmp: str) -> dict:
+    """Start ``python -m hivedscheduler_tpu_torch.train`` and a thread that
+    sends it SIGTERM once its timeline shows step PREEMPT_AT and waits for
+    its exit, so that the in-process runs go on beside it (the thread
+    touches no CUDA state); :func:`_finish_preemption` joins them."""
     import signal
 
-    import torch
-
-    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
-
-    torch.cuda.empty_cache()
     ck = os.path.join(tmp, "preempt-ck")
     tl = os.path.join(tmp, "preempt.jsonl")
     cmd = [sys.executable, "-m", "hivedscheduler_tpu_torch.train"] + RESUME_ARGS + [
@@ -1294,39 +1297,66 @@ def _preemption(tmp: str) -> dict:
         "--checkpoint-every", "100", "--grace-secs", str(GRACE_SECS),
         "--timeline", tl, "--log-every", "100"]
     log_path = os.path.join(tmp, "preempt.log")
-    with open(log_path, "w") as log_f:
-        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT)
-        try:
-            deadline = time.monotonic() + 300
-            steps = []
-            while time.monotonic() < deadline and proc.poll() is None:
-                if os.path.exists(tl):
-                    with open(tl) as f:
-                        steps = [json.loads(l)["step"] for l in f if l.endswith("\n")]
-                if PREEMPT_AT in steps:
-                    break
-                time.sleep(0.05)
-            check(proc.poll() is None and PREEMPT_AT in steps,
-                  f"the training process reached steps {steps} and exit {proc.poll()}")
+    log_f = open(log_path, "w")
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT)
+    run = dict(ck=ck, tl=tl, log_path=log_path, log_f=log_f, proc=proc, steps=[],
+               signalled=False, rc=None, exit_s=None)
+
+    def watch():
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and proc.poll() is None:
+            if os.path.exists(tl):
+                with open(tl) as f:
+                    run["steps"] = [json.loads(l)["step"] for l in f if l.endswith("\n")]
+            if PREEMPT_AT in run["steps"]:
+                break
+            time.sleep(0.05)
+        if proc.poll() is None and PREEMPT_AT in run["steps"]:
             t_sig = time.monotonic()
             proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=GRACE_SECS + 30)
-            exit_s = time.monotonic() - t_sig
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    with open(tl) as f:
+            run["signalled"] = True
+            try:
+                run["rc"] = proc.wait(timeout=GRACE_SECS + 30)
+            except subprocess.TimeoutExpired:
+                pass
+            run["exit_s"] = time.monotonic() - t_sig
+
+    run["thread"] = threading.Thread(target=watch, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def _finish_preemption(tmp: str, run: dict) -> dict:
+    """After :func:`_start_preemption`: exit 0 within the grace period with
+    a committed marker at the step it stopped on; then a second incarnation
+    resumes and finishes."""
+    import torch
+
+    from hivedscheduler_tpu_torch.parallel import checkpoint as ckpt
+
+    proc = run["proc"]
+    try:
+        run["thread"].join(timeout=300 + GRACE_SECS + 30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        run["log_f"].close()
+    check(run["signalled"], f"the training process reached steps {run['steps']} and exit "
+          f"{proc.returncode} before SIGTERM")
+    rc, exit_s, ck = run["rc"], run["exit_s"], run["ck"]
+    with open(run["tl"]) as f:
         stopped = [json.loads(l)["step"] for l in f][-1]
     committed = ckpt.latest_step(ck)
-    print(f"[i] preemption: SIGTERM after step {PREEMPT_AT} -> exit {rc} in "
-          f"{exit_s:.2f} s (grace {GRACE_SECS:.0f} s), stopped after step "
+    print(f"[i] preemption (beside the resumes): SIGTERM after step {PREEMPT_AT} -> exit "
+          f"{rc} in {exit_s:.2f} s (grace {GRACE_SECS:.0f} s), stopped after step "
           f"{stopped}, committed step {committed}")
     if rc != 0:
-        with open(log_path) as f:
+        with open(run["log_path"]) as f:
             print(f.read()[-4000:])
     check(rc == 0 and exit_s <= GRACE_SECS, "SIGTERM did not lead to exit 0 within the grace period")
     check(committed == stopped < PREEMPT_STEPS, "no committed marker at the step it stopped on")
+    torch.cuda.empty_cache()
     rest = _train_main(tmp, "after-preempt", "--steps", str(PREEMPT_STEPS),
                        "--checkpoint-dir", ck, "--checkpoint-every", "100", args=RESUME_ARGS)
     print(f"[i] second incarnation resumed from step {committed} and ran steps "
@@ -3810,9 +3840,10 @@ def _spec_times(srv: dict, engine, checked: dict) -> None:
 # RMSNorm eps is 1e-6 in both packages (Phi-3: 1e-5; no flag sets it); the
 # config's sliding_window (2047) is absent from the repo's model (at seq 2048
 # it would change at most the last row's first key). Cut to size: eval runs
-# all 32 layers (15.3 GB of f32 weights), train 6 (0.877 B parameters x 16 B
-# of weights, gradients and AdamW moments = 14.0 GB; 32 layers would need
-# 3.82 B x 16 B = 61 GB before activations), generate and serve 6.
+# 16 of the 32 layers (8.0 GB of f32 weights; a cut of depth that keeps
+# the script within its time), train 6 (0.877 B parameters x 16 B of
+# weights, gradients and AdamW moments = 14.0 GB; 32 layers would need 3.82
+# B x 16 B = 61 GB before activations), generate and serve 6.
 #
 # (r) Gemma-2B's width, as google/gemma-2b's published config.json gives it:
 # vocab 256000, d_model 2048, 8 heads, 1 kv head (MQA), d_ff 16384, rope
@@ -3831,7 +3862,7 @@ class Width:
     tag: str  # the phase's tag in the output
     name: str
     model: dict  # vocab_size, d_model, n_heads, n_kv_heads, d_ff
-    eval_layers: int  # eval runs every layer
+    eval_layers: int  # eval
     layers: int  # train, generate and serve
 
     @property
@@ -3858,7 +3889,7 @@ class Width:
 
 PHI3 = Width("[q]", "Phi-3-mini", dict(vocab_size=32064, d_model=3072, n_heads=32,
                                        n_kv_heads=32, d_ff=8192),
-             eval_layers=32, layers=6)
+             eval_layers=16, layers=6)
 GEMMA = Width("[r]", "Gemma-2B", dict(vocab_size=256000, d_model=2048, n_heads=8,
                                       n_kv_heads=1, d_ff=16384),
               eval_layers=18, layers=6)
@@ -3882,10 +3913,11 @@ def _padded(d: int) -> int:
 
 def _work_factor(key: str, dp: int) -> float:
     """The work the kernel ``key`` does at the padded width ``dp``, over the
-    work of its products at that width: at 256 K1 computes s twice (3/2), K2
-    its two score products (5/3) and K3 its two (3/2), as flash_fwd.cu and
-    flash_bwd.cu say."""
-    if dp <= 128:
+    work of its products at that width: at 256 K2 computes its two score
+    products twice (5/3) and K3 its two (3/2), as flash_bwd.cu says; K1 forms
+    each score once at every width (flash_fwd.cu: at 256 each consumer owns
+    all of o's columns for its rows)."""
+    if dp <= 128 or key == "fwd":
         return 1.0
     return 5 / 3 if key == "dq" else 3 / 2
 
@@ -4379,11 +4411,36 @@ def _gemma_f32_hop() -> dict:
     return {key: dict(max_abs_err=checks[key], **timing[key]) for key in timing}
 
 
+def _d256_ptxas() -> None:
+    """ptxas's registers and spill of K1's Dp = 256 instances (bf16 and fp16
+    inputs, causal or not, 16-bit or f32 o), from the build's log, kept
+    beside each library: a block of two consumer warpgroups, each holding
+    o's 128 f32 accumulators beside s and p, must neither spill nor have its
+    wgmma serialized (C7512)."""
+    from hivedscheduler_tpu_torch.ops import _build
+
+    kernel = "flash_fwd_kernel_d256"
+    for lib in ("flash_fwd", "flash_fwd_f16"):
+        log = _build.build_log(lib)
+        check(bool(log), f"{lib}: no ptxas report beside its library")
+        found = {n: r for n, r in _build.ptxas_report(log).items() if kernel in n}
+        check(len(found) == 4, f"{lib}: {len(found)} Dp 256 K1 instances in the build log")
+        for name, (used, stores, loads, serial) in sorted(found.items()):
+            print(f"{GEMMA.tag} ptxas {lib} {name.split(kernel)[1][:24]}: {used} "
+                  f"registers, {stores} bytes spill stores, {loads} bytes spill loads, wgmma "
+                  f"serialized {serial}")
+            check(stores == 0 and loads == 0 and not serial,
+                  f"{lib}: the Dp 256 K1 spills or serializes its wgmma ({name})")
+
+
 def phase_gemma() -> tuple:
     """(r): K1-K3 and their f32 forms at the head dims past 128, then
     Gemma-2B's width (head dim 256, one kv head) through eval, train (with
     ring_flash, which runs the f32 forms), generate and serve. Returns the
     D = 256 rows of the kernels line: K1-K3, and their f32 forms."""
+    t0 = time.perf_counter()
+    _d256_ptxas()
+    print(f"{GEMMA.tag} ptxas check {time.perf_counter() - t0:.2f} s")
     max_err, timing, hop, eval_k1, launches, _, _ = _timed_parts(GEMMA.tag, [
         ("kernel checks", lambda: _width_kernel_check(GEMMA, WIDE_DIMS, WIDE_CASES, 120)),
         ("kernel times", lambda: _width_kernel_times(GEMMA, FLAGSHIP, "flagship")),

@@ -6,9 +6,10 @@ build takes seconds. Libraries go to ``hivedscheduler_tpu_torch/_build/``
 at first use, named with a hash of the source, of every header it includes
 from ``csrc/`` and of the flags, so an edited source or header never loads
 a stale library. The first use of any of :data:`LIBRARIES` builds every one
-of them that is missing, one ``nvcc`` each, all started together. A missing
-``nvcc`` or a failed build raises with the compiler's output; nothing falls
-back.
+of them that is missing, one ``nvcc`` each, all started together. ptxas's
+report (``-Xptxas -v``) of each build is kept beside its library, so a
+library built by an earlier process still has it. A missing ``nvcc`` or a
+failed build raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ LIBRARIES = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16", "flash_
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 # compiler output (ptxas register and shared-memory report) of each build
-# this process ran, by kernel name, and each build's wall seconds
+# this process ran, by library name, and each build's wall seconds
 BUILD_LOGS: Dict[str, str] = {}
 BUILD_SECONDS: Dict[str, float] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -92,11 +93,54 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
+def log_path(library: str) -> str:
+    """Where the compiler's output of the library at ``library`` is kept."""
+    return os.path.splitext(library)[0] + ".log"
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the current library of ``csrc/<name>.cu``:
+    this process's build, else the one kept beside the library, else ''."""
+    if name in BUILD_LOGS:
+        return BUILD_LOGS[name]
+    path = log_path(library_path(name))
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def ptxas_report(log: str) -> Dict[str, list]:
+    """{kernel: [registers, spill stores, spill loads, serialized]} from a
+    ``-Xptxas -v`` log, by mangled kernel name; serialized: ptxas's C7512
+    note that it serialized the kernel's wgmma for want of registers."""
+    out: Dict[str, list] = {}
+    name, serial = None, set()
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [None, None, None, False]
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[name][1:3] = int(m.group(1)), int(m.group(2))
+        elif name and "Used" in line and "registers" in line:
+            out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+        m = re.search(r"C7512\).*function '(\w+)'", line)
+        if m:
+            serial.add(m.group(1))
+    for n in serial & set(out):
+        out[n][3] = True
+    return out
+
+
 def build_all(names: Sequence[str]) -> List[str]:
-    """Compile every ``csrc/<name>.cu`` whose library is missing, all
-    compilers started together; returns the libraries' paths in order."""
+    """Compile every ``csrc/<name>.cu`` whose library, or the compiler's
+    output kept beside it, is missing, all compilers started together;
+    returns the libraries' paths in order."""
     paths = [library_path(n) for n in names]
-    todo = [(n, p) for n, p in zip(names, paths) if not os.path.exists(p)]
+    todo = [(n, p) for n, p in zip(names, paths)
+            if not (os.path.exists(p) and os.path.exists(log_path(p)))]
     if todo:
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -126,6 +170,8 @@ def build_all(names: Sequence[str]) -> List[str]:
                 failed.append(f"nvcc failed to build {name}.cu (exit "
                               f"{proc.returncode}):\n{BUILD_LOGS[name]}")
             else:
+                with open(log_path(path), "w") as f:
+                    f.write(BUILD_LOGS[name])
                 os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
         if failed:
             raise RuntimeError("\n".join(failed))

@@ -100,8 +100,11 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T, int h
 
 // Warp specialisation of K1, K2 and K3: a block of three warpgroups, warpgroup
 // 0 the producer (TMA), 1 and 2 the consumers (wgmma). setmaxnreg moves
-// registers from the one to the others within the SM's 65536:
-// 128 x 24 + 256 x 240 = 64512.
+// registers from the one to the others within the SM's 65536 at run time
+// (128 x 24 + 256 x 240 = 64512). ptxas reports the block's launch count,
+// 168 for 384 threads. It did not let a consumer of K1 at Dp = 256 hold more
+// at setmaxnreg 240 (nvcc 12.9, each placement tried, ops/regs_probe.py),
+// so that kernel runs the two consumer warpgroups alone (flash_fwd.cu).
 constexpr int kWsThreads = 384;
 constexpr int kWsConsumerThreads = 256;
 constexpr int kProducerRegs = 24;

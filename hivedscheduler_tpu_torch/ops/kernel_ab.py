@@ -2,7 +2,7 @@
 one process on one CUDA card.
 
     python -m hivedscheduler_tpu_torch.ops.kernel_ab --other DIR [--kernels fwd,dq,dkv]
-        [--d D] [--heads H] [--kv-heads H_KV] [--dtype bf16|fp16|f32]
+        [--d D] [--heads H] [--kv-heads H_KV] [--batch B] [--dtype bf16|fp16|f32] [--f32-out]
     python -m hivedscheduler_tpu_torch.ops.kernel_ab --other DIR --sass
 
 ``DIR`` is the root of another copy of the repository, for example the
@@ -12,13 +12,15 @@ flags into ``DIR/hivedscheduler_tpu_torch/_build/`` and called through the
 same C entry points (``attention._KERNELS``, the one
 ``attention.kernel_entry`` picks for the dtype and head dim) on the same
 inputs, by default at the flagship shape (B=8, T=2048, H=16, H_kv=8,
-D=128, bf16, causal); ``--d``, ``--heads`` and ``--kv-heads`` change the
-head dim (any multiple of 8: past 256 K1-K3 run on the cluster kernels,
-past 1024 on the CUDA-core family) and the head counts (Gemma-2B's shape:
-``--d 256 --heads 8 --kv-heads 1``), and ``--dtype`` the inputs' dtype
-(fp16: the wgmma kernels' fp16 forms; f32: K1-K3 in 3xTF32 up to D 128,
-past it on clusters up to D 1024). Where the other tree lacks the entry
-point this tree picks, it runs the one it routes the same call to: a tree
+D=128, bf16, causal); ``--d``, ``--heads``, ``--kv-heads`` and
+``--batch`` change the head dim (any multiple of 8: past 256 K1-K3 run on
+the cluster kernels, past 1024 on the CUDA-core family), the head counts
+and the batch (Gemma-2B's shape: ``--d 256 --heads 8 --kv-heads 1``; one sp
+= 4 ring hop of its heads adds ``--batch 1``), ``--dtype`` the inputs'
+dtype (fp16: the wgmma kernels' fp16 forms; f32: K1-K3 in 3xTF32 up to D
+128, past it on clusters up to D 1024), and ``--f32-out`` times the
+f32-output forms (the ring's per-hop calls). Where the other tree lacks the
+entry point this tree picks, it runs the one it routes the same call to: a tree
 without ``csrc/flash_fwd_wide.cu`` or ``csrc/flash_bwd_wide.cu`` ran K1,
 or K2 and K3, past D 256 on the CUDA-core family, so ``--d 512 --heads 4
 --kv-heads 2`` times those against the cluster kernels; a tree without
@@ -196,8 +198,10 @@ def main(argv=None) -> int:
     ap.add_argument("--d", type=int, default=FLAGSHIP["d"], help="head dim")
     ap.add_argument("--heads", type=int, default=FLAGSHIP["h"])
     ap.add_argument("--kv-heads", type=int, default=FLAGSHIP["h_kv"])
+    ap.add_argument("--batch", type=int, default=FLAGSHIP["b"])
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
                     help="the inputs' dtype")
+    ap.add_argument("--f32-out", action="store_true", help="the f32-output forms")
     ap.add_argument("--sass", action="store_true",
                     help="compare the two trees' machine code instead of timing")
     args = ap.parse_args(argv)
@@ -220,10 +224,10 @@ def main(argv=None) -> int:
         return 0
 
     f = FLAGSHIP
-    x = inputs(f["b"], f["t"], args.heads, args.kv_heads, args.d, dtype=DTYPES[args.dtype])
+    x = inputs(args.batch, f["t"], args.heads, args.kv_heads, args.d, dtype=DTYPES[args.dtype])
     for kernel in args.kernels.split(","):
         outs = {tree: {} for tree in trees}
-        fns = {tree: runner(trees[tree], x, outs[tree], kernel) for tree in trees}
+        fns = {tree: runner(trees[tree], x, outs[tree], kernel, args.f32_out) for tree in trees}
         readings = {tree: [] for tree in trees}
         for tree in ("other", "this", "this", "other"):
             readings[tree].append(time_ms(fns[tree]))
@@ -231,9 +235,11 @@ def main(argv=None) -> int:
         diff = max(float((outs["this"][key].float() - outs["other"][key].float()).abs().max())
                    for key in outs["this"])
         symbols = {tree: entry_in(trees[tree] if tree == "other" else None,
-                                  attn.kernel_entry(DTYPES[args.dtype], args.d, False, kernel))
+                                  attn.kernel_entry(DTYPES[args.dtype], args.d, args.f32_out,
+                                                    kernel))
                    for tree in trees}
-        print(f"{kernel} at D={args.d}, H={args.heads}, H_kv={args.kv_heads}, {args.dtype} "
+        print(f"{kernel} at B={args.batch}, D={args.d}, H={args.heads}, H_kv={args.kv_heads}, "
+              f"{args.dtype}{' (f32 out)' if args.f32_out else ''} "
               f"(other {symbols['other']}, this {symbols['this']}): other "
               f"{readings['other']} ms, this {readings['this']} ms; "
               f"other/this {mean['other'] / mean['this']:.3f}; max |this - other| "

@@ -1,0 +1,132 @@
+"""How many registers ptxas gives K1's Dp 256 consumers, by block shape.
+
+    python -m hivedscheduler_tpu_torch.ops.regs_probe
+
+K1 at Dp 256 (``flash_fwd_kernel_d256`` in ``csrc/flash_fwd.cu``) needs
+~200 registers a consumer thread: o's 128 f32 accumulators beside s and p.
+It ships as a block of 256 threads, its two consumer warpgroups alone. The
+other wgmma kernels run 384 threads, a producer warpgroup that gives up
+registers with ``setmaxnreg.dec`` and two consumer warpgroups that ask for
+more with ``setmaxnreg.inc`` (``regs_dec`` / ``regs_inc`` in
+``csrc/hopper.cuh``). This compiles ``csrc/flash_fwd.cu`` (copies of
+``csrc/`` under ``hivedscheduler_tpu_torch/_build/regs_probe/``) as it
+ships and with the Dp 256 kernel's block changed (:data:`VARIANTS`):
+
+- 288 threads: one idle warp more, no ``setmaxnreg``;
+- 384 threads, setmaxnreg 168 or 240 after the block's barrier and the
+  early return of a consumer whose rows are all past T (a third warpgroup
+  gives up its registers and leaves; the consumers still load the tiles);
+- 384 threads, setmaxnreg 240 in FlashAttention-3's order: the warpgroup
+  index made warp-uniform with ``__shfl_sync``, the third warpgroup alone
+  loading every tile and the consumers asking for registers before
+  anything else they do.
+
+The variants are for ptxas's allocation only: they are not launched. It
+prints nvcc's version and what ``-Xptxas -v`` reports for each instance of
+that kernel: the registers, the spill stores and loads, and whether ptxas
+serialized its wgmma for want of registers (its C7512 note). A consumer
+that holds more than the block's launch count (65536 / 384 -> 168) without
+spilling means ptxas allocates its code at the count setmaxnreg asks. It
+needs ``nvcc``, not a card.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+from hivedscheduler_tpu_torch.ops import _build
+
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin",
+         "-Xptxas", "-v")
+KERNEL = "flash_fwd_kernel_d256"
+THREADS = "constexpr int kD256Threads = 256;"
+LEAVE = "  const int c = threadIdx.x / 128;\n  if (c >= n_cons) return;  // every row of this consumer is past T\n"
+FIRST_LOADS = """    mbar_expect_tx(q_full, n_cons * L::kTile);
+    for (int half = 0; half < n_cons; ++half) {
+      tma_load_tile<D, 64>(sQ + half * 64 * D, &a.tq, q_full, h, q0 + 64 * half, b);
+    }
+    for (int j = 0; j < min(kStages, n_kv); ++j) load_kv(j);
+"""
+TICKET_LOAD = "      load_kv(j + kStages);\n"
+
+
+def _threads(n: int) -> tuple:
+    return (THREADS, f"constexpr int kD256Threads = {n};")
+
+
+def _late(regs: int) -> tuple:
+    """384 threads, setmaxnreg ``regs`` where the consumers' code starts."""
+    return (_threads(384),
+            (LEAVE, "  const int c = threadIdx.x / 128;\n"
+                    "  if (c == 2) {\n    regs_dec<kProducerRegs>();\n    return;\n  }\n"
+                    f"  if (c >= n_cons) return;\n  regs_inc<{regs}>();\n"))
+
+
+# FlashAttention-3's order: a warp-uniform warpgroup index, the third
+# warpgroup alone loading q and every K/V tile (no stage waits: the variant
+# is compiled, never run), and setmaxnreg the consumers' first instruction
+FA3_ORDER = (
+    _threads(384),
+    (FIRST_LOADS, ""),
+    (TICKET_LOAD, "      tickets[stage] = 0;\n"),
+    (LEAVE, "  const int c = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);\n"
+            "  if (c == 2) {\n    regs_dec<kProducerRegs>();\n"
+            "    if (threadIdx.x == 256) {\n" + FIRST_LOADS.replace("min(kStages, n_kv)", "n_kv")
+            + "    }\n    return;\n  }\n"
+            "  regs_inc<kConsumerRegs>();\n  if (c >= n_cons) return;\n"),
+)
+
+VARIANTS = {
+    "256 threads (as built)": (),
+    "288 threads": (_threads(288),),
+    "384 threads, setmaxnreg 168": _late(168),
+    "384 threads, setmaxnreg 240": _late(240),
+    "384 threads, setmaxnreg 240 in FA3's order": FA3_ORDER,
+}
+
+
+def compile_variant(label: str, changes: tuple) -> str:
+    """ptxas's report of ``csrc/flash_fwd.cu`` with ``changes`` made."""
+    root = os.path.join(_build.BUILD_DIR, "regs_probe", re.sub(r"\W+", "_", label))
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC, root)
+    path = os.path.join(root, "flash_fwd.cu")
+    with open(path) as f:
+        text = f.read()
+    for old, new in changes:
+        if text.count(old) != 1:
+            raise RuntimeError(f"csrc/flash_fwd.cu no longer holds {old!r} once")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    proc = subprocess.run([_build._nvcc(), *FLAGS, "-o", path + ".cubin", path],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({label}):\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def main() -> int:
+    version = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
+    print(version.stdout.strip().splitlines()[-2])
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        logs = dict(zip(VARIANTS, pool.map(compile_variant, VARIANTS, VARIANTS.values())))
+    for label, log in logs.items():
+        for line in log.splitlines():
+            if "setmaxnreg" in line:
+                print(f"{label}: {line.strip()}")
+        for name, (used, stores, loads, serial) in sorted(_build.ptxas_report(log).items()):
+            if KERNEL in name:
+                print(f"{label}: {name}: {used} registers, {stores} bytes spill stores, "
+                      f"{loads} bytes spill loads" + (", wgmma serialized (C7512)"
+                                                      if serial else ""))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

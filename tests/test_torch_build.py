@@ -71,6 +71,59 @@ def test_build_runs_one_compiler_per_missing_source(scratch_build, monkeypatch):
     assert _build.build("flash_fwd") == path
 
 
+def test_build_keeps_the_compiler_report_beside_the_library(scratch_build, monkeypatch):
+    fake = scratch_build / "nvcc"
+    calls = scratch_build / "calls"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    f'echo x >> {calls}\n'
+                    'echo "ptxas info: Used 128 registers"\ntouch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    path = _build.build("flash_fwd")
+    # a later process, which did not build it, still reads the report
+    monkeypatch.setattr(_build, "BUILD_LOGS", {})
+    assert "128 registers" in _build.build_log("flash_fwd")
+    assert _build.build_log("flash_bwd") == ""
+    # a library whose report is gone is built again
+    os.remove(_build.log_path(path))
+    assert _build.build("flash_fwd") == path
+    assert len(calls.read_text().split()) == 2
+    assert "128 registers" in _build.build_log("flash_fwd")
+
+
+def test_ptxas_report_reads_registers_spill_and_serialized_wgmma():
+    log = "\n".join([
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized due to insufficient register resources for the wgmma pipeline in the "
+        "function '_Z4slowv'",
+        "ptxas info    : Compiling entry function '_Z4fastv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z4fastv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 205 registers, used 16 barriers",
+        "ptxas info    : Compiling entry function '_Z4slowv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z4slowv",
+        "    600 bytes stack frame, 548 bytes spill stores, 308 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+    ])
+    assert _build.ptxas_report(log) == {"_Z4fastv": [205, 0, 0, False],
+                                        "_Z4slowv": [168, 548, 308, True]}
+
+
+def test_regs_probe_variants_apply_to_the_source():
+    # each variant edits text of csrc/flash_fwd.cu that must be there once
+    from hivedscheduler_tpu_torch.ops import regs_probe
+
+    with open(os.path.join(_build.CSRC, "flash_fwd.cu")) as f:
+        text = f.read()
+    assert regs_probe.VARIANTS["256 threads (as built)"] == ()
+    for label, changes in regs_probe.VARIANTS.items():
+        variant = text
+        for old, new in changes:
+            assert variant.count(old) == 1, (label, old)
+            variant = variant.replace(old, new)
+        assert (regs_probe.KERNEL in variant) and (variant != text or not changes), label
+
+
 def _run(cmd, cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
@@ -304,8 +357,9 @@ def test_profile_groups_follow_the_kernel_names():
     # each of K1-K3 has a wgmma kernel, a CUDA-core one (flash_generic.cu),
     # a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu), a 3xTF32 one
     # (flash_fwd_tf32.cu, flash_bwd_tf32.cu) and a 3xTF32 cluster one
-    # (flash_fwd_tf32_wide.cu, flash_bwd_tf32_wide.cu)
-    assert sorted(groups.values()) == ["K1 flash_fwd"] * 5 + ["K2 flash_bwd_dq"] * 5 + [
+    # (flash_fwd_tf32_wide.cu, flash_bwd_tf32_wide.cu); K1 also a wgmma one
+    # of its own at the padded width 256 (flash_fwd_kernel_d256)
+    assert sorted(groups.values()) == ["K1 flash_fwd"] * 6 + ["K2 flash_bwd_dq"] * 5 + [
         "K3 flash_bwd_dkv"] * 5
     # as the profiler shows them: mangled, inside their anonymous namespace
     for name, group in groups.items():

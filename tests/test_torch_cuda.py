@@ -140,9 +140,10 @@ PADDED_SHAPES = [
     (2, 130, 4, 4, 96, False),
     (2, 200, 8, 2, 112, True),
 ]
-# head dims past 128, run at the padded width 256 (K1 and K2 in 64-row
-# blocks whose consumers split the output's columns, K3 in column halves),
-# with MQA and ragged T
+# head dims past 128, run at the padded width 256 (K1 in 128-row blocks of
+# two consumers that each own all 256 columns of o for their rows, with a
+# T = 150 block whose second consumer has no row; K2 in 64-row blocks whose
+# consumers split dq's columns, K3 in column halves), with MQA and ragged T
 WIDE_SHAPES = [
     (2, 200, 8, 1, 136, True),
     (1, 200, 8, 1, 192, False),
@@ -178,6 +179,17 @@ def test_forward_is_bit_reproducible(cuda):
     first = tattn.flash_forward(q, k, v)
     second = tattn.flash_forward(q, k, v)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_forward_at_width_256_is_bit_reproducible(cuda, dtype):
+    # the Dp 256 K1's consumers load each other's tiles by tickets taken in
+    # no fixed order; what they compute does not depend on it
+    q, k, v = _qkv(2, 640, 8, 1, 256, seed=7, dtype=dtype)
+    for causal in (True, False):
+        first = tattn.flash_forward(q, k, v, causal=causal)
+        second = tattn.flash_forward(q, k, v, causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), causal
 
 
 def test_flash_attention_sends_ragged_t_to_the_kernel(cuda):
@@ -441,6 +453,19 @@ def test_kernels_run_on_wgmma_and_tma(cuda, library, kernel):
     for name, text in found.items():
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert "HMMA" not in text and "LDGSTS" not in text, name
+
+
+@pytest.mark.parametrize("library", ["flash_fwd", "flash_fwd_f16"])
+def test_width_256_forward_holds_o_in_registers(cuda, library):
+    # the Dp 256 K1 (causal or not x 16-bit or f32 o) keeps o's 128 f32
+    # accumulators a thread in registers: wgmma on TMA-fed tiles, and no
+    # local-memory load or store (a spill)
+    sass = _sass_by_kernel(_build.build(library))
+    found = {k: v for k, v in sass.items() if "flash_fwd_kernel_d256" in k}
+    assert len(found) == 4, sorted(sass)
+    for name, text in found.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert not re.search(r"\b(LDL|STL)\b", text), name
 
 
 def test_flagship_train_step_flash_matches_xla(cuda):
@@ -809,7 +834,8 @@ def test_world_1_nccl_mesh_step_equals_the_single_device_step(cuda):
 # one hop of a ring: its diagonal (causal) and an unmasked hop, GQA
 RING_HOP_SHAPES = [(1, 256, 4, 2, 128, True), (1, 256, 4, 2, 128, False),
                    (2, 192, 4, 1, 64, True), (1, 256, 4, 2, 96, True),
-                   (1, 256, 8, 1, 256, True), (1, 200, 8, 1, 192, False)]
+                   (1, 256, 8, 1, 256, True), (1, 200, 8, 1, 192, False),
+                   (1, 2048, 8, 1, 256, True)]  # one sp = 4 hop of Gemma-2B's heads
 # the share of an f32 form's outputs that a bf16 holds exactly (its exact
 # zeros and o's first causal row, at these shapes under 1%)
 F32_EXACT_BF16_MAX = 0.1
