@@ -3895,11 +3895,14 @@ GEMMA = Width("[r]", "Gemma-2B", dict(vocab_size=256000, d_model=2048, n_heads=8
               eval_layers=18, layers=6)
 # the head dims the kernels run at a padded width, each checked causal and
 # not at a ragged T: (q) 32 at 64; 80, 96 and 112 at 128, with GQA (a group
-# of 4); (r) 136, 192 and 256 at 256, with MQA and a GQA group of 4
+# of 4); (r) 136, 192 and 256 at 256, with MQA and a GQA group of 4, on
+# grids that take K3's small-grid route (fewer key-tile blocks than the
+# card's SMs) and, the last case, its Dp 256 kernel (8 x 18 = 144 blocks)
 PADDED_DIMS = (32, 80, 96, 112)
 PADDED_CASES = (dict(b=2, t=200, h=8, h_kv=2),)
 WIDE_DIMS = (136, 192, 256)
-WIDE_CASES = (dict(b=2, t=200, h=8, h_kv=1), dict(b=2, t=200, h=8, h_kv=2))
+WIDE_CASES = (dict(b=2, t=200, h=8, h_kv=1), dict(b=2, t=200, h=8, h_kv=2),
+              dict(b=4, t=1100, h=8, h_kv=2))
 SENTINEL = -7777.0  # the columns past D of a wider output buffer
 WIDTH_TIMED_WINDOWS = 4  # eval windows timed for each attention
 PAD_TURNS = 2  # rounds of (reference shape, width's, width's, reference) kernel timings
@@ -3911,15 +3914,19 @@ def _padded(d: int) -> int:
     return 64 if d <= 64 else 128 if d <= 128 else 256
 
 
-def _work_factor(key: str, dp: int) -> float:
-    """The work the kernel ``key`` does at the padded width ``dp``, over the
-    work of its products at that width: at 256 K2 computes its two score
-    products twice (5/3) and K3 its two (3/2), as flash_bwd.cu says; K1 forms
-    each score once at every width (flash_fwd.cu: at 256 each consumer owns
-    all of o's columns for its rows)."""
-    if dp <= 128 or key == "fwd":
+def _work_factor(key: str, s: dict) -> float:
+    """The work the kernel ``key`` does at shape ``s``, over the work of its
+    products at its padded width: 1, each score formed once (flash_fwd.cu,
+    flash_bwd.cu: at 256 each consumer owns all of its output's columns),
+    except K3 at 256 on a grid of fewer key-tile blocks than the card has
+    SMs, where it runs the column split and forms its two score products
+    twice (3/2)."""
+    import torch
+
+    if key != "dkv" or _padded(s["d"]) <= 128:
         return 1.0
-    return 5 / 3 if key == "dq" else 3 / 2
+    blocks = s["b"] * s["h_kv"] * -(-s["t"] // 64)
+    return 3 / 2 if blocks < torch.cuda.get_device_properties(0).multi_processor_count else 1.0
 
 
 def _spread_heads(x):
@@ -4181,7 +4188,7 @@ def _width_kernel_times(w: Width, ref: dict, ref_name: str) -> dict:
         bound = {name: _bound(key, sh) for name, sh in shapes.items()}
         med = {name: sorted(rd)[len(rd) // 2] for name, rd in readings[key].items()}
         real = bound["this"][2] / bound["ref"][2]
-        done = {name: _padded(sh["d"]) / sh["d"] * _work_factor(key, _padded(sh["d"]))
+        done = {name: _padded(sh["d"]) / sh["d"] * _work_factor(key, sh)
                 for name, sh in shapes.items()}
         print(f"{w.tag} {key} at the {w.name} shape [{s['b']},{s['t']},{s['h']}/{s['h_kv']},"
               f"{s['d']}] against the {ref_name} [{r['b']},{r['t']},{r['h']}/{r['h_kv']},"
@@ -4412,25 +4419,29 @@ def _gemma_f32_hop() -> dict:
 
 
 def _d256_ptxas() -> None:
-    """ptxas's registers and spill of K1's Dp = 256 instances (bf16 and fp16
-    inputs, causal or not, 16-bit or f32 o), from the build's log, kept
-    beside each library: a block of two consumer warpgroups, each holding
-    o's 128 f32 accumulators beside s and p, must neither spill nor have its
-    wgmma serialized (C7512)."""
+    """ptxas's registers and spill of K1's, K2's and K3's Dp = 256 kernels'
+    instances (bf16 and fp16 inputs, causal or not, 16-bit or f32 outputs;
+    four a library), from the build's log, kept beside each library: a block
+    of two consumer warpgroups, each holding a whole-width f32 accumulator
+    (K1's o, K2's dq, K3's dv or dk: 128 registers a thread) beside its score
+    tiles, must neither spill nor have its wgmma serialized (C7512)."""
     from hivedscheduler_tpu_torch.ops import _build
 
-    kernel = "flash_fwd_kernel_d256"
-    for lib in ("flash_fwd", "flash_fwd_f16"):
-        log = _build.build_log(lib)
-        check(bool(log), f"{lib}: no ptxas report beside its library")
-        found = {n: r for n, r in _build.ptxas_report(log).items() if kernel in n}
-        check(len(found) == 4, f"{lib}: {len(found)} Dp 256 K1 instances in the build log")
-        for name, (used, stores, loads, serial) in sorted(found.items()):
-            print(f"{GEMMA.tag} ptxas {lib} {name.split(kernel)[1][:24]}: {used} "
-                  f"registers, {stores} bytes spill stores, {loads} bytes spill loads, wgmma "
-                  f"serialized {serial}")
-            check(stores == 0 and loads == 0 and not serial,
-                  f"{lib}: the Dp 256 K1 spills or serializes its wgmma ({name})")
+    for key, kernel, libs in (("K1", "flash_fwd_kernel_d256", ("flash_fwd", "flash_fwd_f16")),
+                              ("K2", "flash_bwd_dq_kernel_d256", ("flash_bwd", "flash_bwd_f16")),
+                              ("K3", "flash_bwd_dkv_kernel_d256",
+                               ("flash_bwd", "flash_bwd_f16"))):
+        for lib in libs:
+            log = _build.build_log(lib)
+            check(bool(log), f"{lib}: no ptxas report beside its library")
+            found = {n: r for n, r in _build.ptxas_report(log).items() if kernel in n}
+            check(len(found) == 4, f"{lib}: {len(found)} Dp 256 {key} instances in the build log")
+            for name, (used, stores, loads, serial) in sorted(found.items()):
+                print(f"{GEMMA.tag} ptxas {lib} {kernel}{name.split(kernel)[1][:24]}: {used} "
+                      f"registers, {stores} bytes spill stores, {loads} bytes spill loads, "
+                      f"wgmma serialized {serial}")
+                check(stores == 0 and loads == 0 and not serial,
+                      f"{lib}: the Dp 256 {key} spills or serializes its wgmma ({name})")
 
 
 def phase_gemma() -> tuple:

@@ -65,10 +65,13 @@ launch failing, and a kernel that fails raises.
 The wgmma kernels run on TMA-fed shared tiles with a producer warpgroup and
 two consumer warpgroups (``csrc/hopper.cuh``), each D at its padded width,
 64, 128 or 256 (D = 96 runs the 128 template, 4/3 of the real work; D = 136
-the 256 one, 1.88). At 256 (Gemma's head dim) each kernel splits its
-outputs' columns in halves, so K1 computes its scores twice (3/2 of the
-real work), K2 its two score products (5/3) and K3 its two (3/2);
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` say why. In fp16 K2 and K3
+the 256 one, 1.88). At 256 (Gemma's head dim) K1, K2 and K3 are blocks of
+the two consumer warpgroups alone, without a producer, each consumer
+holding all 256 columns of its output, so each score is formed once; on a
+grid of fewer 64-key tiles than the card has SMs (one ring hop) K3 splits
+its outputs' columns over two blocks instead and forms its two score
+products twice (3/2 of the real work); ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` say why. In fp16 K2 and K3
 pack ds scaled by a power of two per row, so that a gradient's small ds
 does not fall into fp16's subnormals (``csrc/flash_bwd.cu``). Past D 256
 K1, K2 and K3 split their outputs into 128-column panels, one block each,

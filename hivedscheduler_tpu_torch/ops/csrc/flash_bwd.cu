@@ -23,7 +23,8 @@
 // Every output element is owned by one block, so a run is bit-reproducible.
 //
 // K2 (hopper.cuh has the building blocks): wgmma on TMA-fed shared tiles,
-// with a producer warpgroup and two consumer warpgroups, like K1.
+// with a producer warpgroup and two consumer warpgroups, like K1 (at Dp <=
+// 128; Dp = 256 below).
 // - One block of three warpgroups per (b*h, 128-row q tile), heaviest
 //   causal tiles first. The producer's one thread TMA-loads the q and do
 //   tiles once, then streams 64-key K/V tiles up to the causal diagonal
@@ -42,7 +43,8 @@
 //   NEG_INF makes exp underflow to 0. A consumer's rows past T get lse =
 //   +inf, so their p is 0; TMA loads rows past T as zeros.
 //
-// K3 (the same building blocks): key-stationary, as the TPU kernel is.
+// K3 (the same building blocks): key-stationary, as the TPU kernel is (at
+// Dp <= 128, and at Dp = 256 on small grids; Dp = 256 below).
 // - One block of three warpgroups per (b*h_kv, 64-key tile), key tile 0
 //   (which meets every q tile under the causal mask) first. The producer's
 //   thread TMA-loads the K and V tiles once, then streams 64-row q and do
@@ -88,23 +90,52 @@
 // stores only columns < D. The scale is the real D's.
 //
 // Dp = 256 (Gemma's head dim). A whole-width accumulator is 128 f32
-// registers a thread there, and K2's dq beside s and dp (192), or K3's dv
-// beside s^T and dk beside dp^T (160 each), is the load that serialized
-// every wgmma with spills (see K3's note below). So at Dp = 256 the outputs'
-// columns are split in halves of 128 and every consumer keeps 64 + 32 + 32
-// or 64 + 32 accumulator registers, as at Dp = 128:
-// - K2: a block takes 64 q rows (not 128), and its two consumers both
-//   compute s and dp over the whole D for those rows, consumer c
-//   accumulating dq's columns [128c, 128c + 128). Shared memory: q 32 + do
-//   32 + 2 x (32 + 32) KB = 192 KB. The score products run twice: 5/3 of
-//   the real work (s, dp, dq).
-// - K3: the grid takes the column half as its z index, so two blocks share
-//   a key tile: each computes s^T and dp^T over the whole D and keeps dk
-//   and dv for its half. Two q/do stages, not three, and one f32 p^T
-//   buffer, not two: 32 + 32 + 2 x (32 + 32) + 8 + 8 + 16 KB = 224 KB,
-//   under the 227 KB a block may have. The score products run twice: 3/2
-//   of the real work (s^T, dp^T, dv, dk).
-// Each output element is still owned by one block, with no atomics.
+// registers a thread there: K2's dq beside s and dp, K3's dv beside s^T and
+// dk beside dp^T. In a block with a producer warpgroup ptxas gives 168
+// registers a thread, too few (K1's Dp 256 kernel in flash_fwd.cu found the
+// same), so K2 and K3 at Dp = 256 (flash_bwd_dq_kernel_d256,
+// flash_bwd_dkv_kernel_d256) are blocks of the two consumer warpgroups
+// alone, 256 threads, where ptxas lets a consumer hold up to 255 (K2
+// 220-231, K3 233-240, no spill, no serialized wgmma:
+// `python -m hivedscheduler_tpu_torch.ops.regs_probe`). Each score is formed
+// once:
+// - K2: a block takes 128 q rows, consumer c rows [64c, 64c + 64) with all
+//   256 columns of dq (two m64n128k16 RS products a k-step, ds packed in
+//   registers, K the MN-major B operand). q and do are loaded once as two
+//   64-row halves, one a consumer, each laid out as a 64-row tile. K/V
+//   tiles are 64 keys, K in two stages and V in one (V is read only by dp):
+//   q 64 + do 64 + 2 x 32 + 32 KB = 224 KB; form (b) of step 0, 1.46x
+//   faster than form (a), 32-key tiles in two stages each (192 KB), whose
+//   m64n32k16 score products ran slower (ops/regs_probe.py has both). The
+//   consumers load their own tiles: thread 0 loads q, do and the first
+//   stages; after its last read of a stage (V after dp, K after the dq
+//   product) each consumer warp takes a ticket of the stage, and the warp
+//   that takes the last loads the stage's next tile there. They take
+//   turns at the tensor cores, a product each, through named barriers 3
+//   and 4, as K1's do. Each consumer computes and writes delta for its own
+//   rows and masks only its own last tile (its causal diagonal, or the
+//   tile that holds a ragged T); consumer 0 reads one tile fewer, causal,
+//   and takes the turns of the tile it skips; a consumer whose rows are all
+//   past T leaves at once.
+// - K3: one block per (b*h_kv, 64-key tile), consumers A and B split by
+//   product as at Dp <= 128, each with all 256 columns of dv or dk (two
+//   m64n128k16 SS products a k-step). Two q/do stages and one f32 p^T
+//   buffer: K 32 + V 32 + 2 x (32 + 32) + 8 + 8 + 16 KB = 224 KB, under the
+//   227 KB a block may have. The q/do stages stream through the group's
+//   heads loaded by warp tickets: the warp that takes a stage's last ticket
+//   (A after dv, B after dk) loads its next tile, lane 0 the TMA and all 32
+//   lanes the stage's lse and delta, each arriving on the stage's full
+//   barrier after its own stores.
+// - Small grids: K3's blocks are whole key tiles, B * H_kv * ceil(T / 64),
+//   32 at one sp = 4 ring hop of Gemma-2B's heads. Where that is fewer than
+//   the card's SMs, bwd_dkv runs the Dp = 256 instances of
+//   flash_bwd_dkv_kernel instead: two blocks a key tile (the grid's z), each
+//   forming s^T and dp^T over the whole D and keeping dk's and dv's columns
+//   for its half (3/2 of the real work), 1.6x faster there than one block a
+//   key tile. Their layout is the same 224 KB with a producer warpgroup.
+// Each output element is owned by one block, with no atomics; every
+// output element runs the same k-steps in the same order at Dp = 256 in
+// every form, so bf16 reruns and forms agree bit for bit.
 //
 // Output type: dq, dk and dv are stored in the input type
 // (hived_flash_bwd_dq, hived_flash_bwd_dkv and their _f16 forms) or in f32
@@ -152,16 +183,11 @@ __device__ __forceinline__ T* at(T* base, const Strides& s, int b, int h) {
 constexpr int kDqBlockN = 64;  // keys per K/V tile
 constexpr int kDqStages = 2;   // K/V ring depth
 
-// q rows per block at the padded width Dp: 128, the two consumer warpgroups
-// 64 each; at Dp = 256, 64, both consumers on the same rows
-constexpr int dq_block_m(int Dp) { return Dp > 128 ? 64 : 128; }
-
-// shared-memory layout, byte offsets from a 1024-aligned base
+// shared-memory layout at Dp = 64 and 128, byte offsets from a 1024-aligned
+// base: 128 q rows a block, the two consumer warpgroups 64 each
 template <int D>
 struct DqSmem {
-  static constexpr bool kSplitD = D > 128;          // consumers split dq's columns
-  static constexpr int kBlockM = dq_block_m(D);
-  static constexpr int kAccD = kSplitD ? D / 2 : D;  // dq columns a consumer owns
+  static constexpr int kBlockM = 128;
   static constexpr int kQTile = kBlockM * D * 2;     // q or do
   static constexpr int kKTile = kDqBlockN * D * 2;   // k or v
   static constexpr int kQ = 0;
@@ -264,10 +290,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int h = bh % a.H;
   const int q0 = q_tile * kBlockM;
   const int n_k_tiles = (T + kDqBlockN - 1) / kDqBlockN;
-  // consumer c's rows meet keys up to their diagonal, tile 2 q_tile + c (at
-  // Dp = 256 both consumers' rows: tile q_tile)
-  const int n_kv =
-      kCausal ? min(n_k_tiles, L::kSplitD ? q_tile + 1 : 2 * q_tile + 2) : n_k_tiles;
+  // consumer c's rows meet keys up to their diagonal, tile 2 q_tile + c
+  const int n_kv = kCausal ? min(n_k_tiles, 2 * q_tile + 2) : n_k_tiles;
 
   if (threadIdx.x == 0) {
     mbar_init(qdo_full, 1);
@@ -301,8 +325,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     return;
   }
 
-  // consumer c owns q rows [64c, 64c + 64) of the tile, all of dq's
-  // columns; at Dp = 256 the tile's 64 rows, dq's columns [128c, 128c + 128)
+  // consumer c owns q rows [64c, 64c + 64) of the tile, all of dq's columns
   regs_inc<kConsumerRegs>();
   const int c = wg - 1;
   const int tid = threadIdx.x % 128;
@@ -310,15 +333,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int lane = tid % 32;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int rows_c = L::kSplitD ? 0 : 64 * c;       // the consumer's first row in the tile
-  const int col_c = L::kSplitD ? L::kAccD * c : 0;  // its first dq column
-  const int r0 = rows_c + 16 * warp;                // the warp's first row in the tile
-  // the warp's 16 lse and delta values in shared memory (a consumer's own)
-  const int slot = L::kSplitD ? 64 * c + 16 * warp : r0;
-  const int row_a = q0 + r0 + g;  // rows of the accumulators' e = 0, 1
-  const int row_b = row_a + 8;    // and e = 2, 3
-  const int n_kv_c =
-      kCausal ? min(n_k_tiles, L::kSplitD ? q_tile + 1 : 2 * q_tile + 1 + c) : n_k_tiles;
+  const int rows_c = 64 * c;          // the consumer's first row in the tile
+  const int r0 = rows_c + 16 * warp;  // the warp's first row in the tile
+  const int slot = r0;                // the warp's 16 lse and delta values in shared memory
+  const int row_a = q0 + r0 + g;      // rows of the accumulators' e = 0, 1
+  const int row_b = row_a + 8;        // and e = 2, 3
+  const int n_kv_c = kCausal ? min(n_k_tiles, 2 * q_tile + 1 + c) : n_k_tiles;
   const int64_t lrow = static_cast<int64_t>(bh) * T;
 
   // delta = rowsum(do * o) for the warp's 16 rows, two lanes a row, each
@@ -356,8 +376,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     if ((lane & 1) == 0) {
       sDelta[slot + lane / 2] = sum;
       sLse[slot + lane / 2] = row < T ? a.lse[lrow + row] : CUDART_INF_F;
-      // at Dp = 256 both consumers sum the same rows; consumer 0 writes them
-      if (row < T && (!L::kSplitD || c == 0)) a.delta[lrow + row] = sum;
+      if (row < T) a.delta[lrow + row] = sum;
     }
   }
   __syncwarp();
@@ -373,12 +392,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const uint64_t dDo = desc_sw128(sDo + rows_c * 64, 16);
   const uint64_t dK = desc_sw128(sK, 16);
   const uint64_t dV = desc_sw128(sV, 16);
-  // MN-major K from its column block col_c / 64 on
-  const uint64_t dKn = desc_add(desc_sw128(sK, kDqBlockN * 128), (col_c / 64) * kDqBlockN * 128);
+  const uint64_t dKn = desc_sw128(sK, kDqBlockN * 128);
 
-  float acc[L::kAccD / 2];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < L::kAccD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   int e_a = kDsExpMax, e_b = kDsExpMax;  // fp16: the rows' ds exponents
 
   for (int j = 0; j < n_kv_c; ++j) {
@@ -434,7 +452,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDqBlockN / 16; ++kk) {
-      wgmma_rs<L::kAccD, In>(acc, ds[kk], desc_add(dKn, stage_off + kk * 2048), 1);
+      wgmma_rs<D, In>(acc, ds[kk], desc_add(dKn, stage_off + kk * 2048), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -446,19 +464,387 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const float inv_a = pow2i(-e_a);
     const float inv_b = pow2i(-e_b);
 #pragma unroll
-    for (int i = 0; i < L::kAccD / 2; ++i) acc[i] *= (i & 2) ? inv_b : inv_a;
+    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? inv_b : inv_a;
   }
   OutT* dqp = at(static_cast<OutT*>(a.dq), a.sdq, b, h);
 #pragma unroll
-  for (int n = 0; n < L::kAccD / 8; ++n) {
-    const bool live = col_c + n * 8 < a.D;  // padding columns past the real D: not stored
-    const int col = col_c + n * 8 + 2 * t4;
+  for (int n = 0; n < D / 8; ++n) {
+    const bool live = n * 8 < a.D;  // padding columns past the real D: not stored
+    const int col = n * 8 + 2 * t4;
     if (live && row_a < T) {
       store_out2(dqp + row_a * a.sdq.t + col, acc[4 * n] * a.scale, acc[4 * n + 1] * a.scale);
     }
     if (live && row_b < T) {
       store_out2(dqp + row_b * a.sdq.t + col, acc[4 * n + 2] * a.scale,
                  acc[4 * n + 3] * a.scale);
+    }
+  }
+}
+
+// ------------------------------------------------------- K2 at Dp = 256
+
+// the Dp = 256 kernels' block: two consumer warpgroups and no producer (the
+// header)
+constexpr int kD256Threads = 256;
+// keys a K/V tile of K2 at Dp = 256: form (b) of the header (32 is form (a))
+constexpr int kDq256Keys = 64;
+
+// K2's shared-memory layout at Dp = 256, byte offsets from a 1024-aligned
+// base: q and do as two 64-row halves each, one a consumer, each laid out as
+// a 64-row tile; kKeys-key K and V tiles, V in one stage at 64 keys (V is
+// read only by dp, released before the dq product)
+template <int kKeys>
+struct Dq256Smem {
+  static constexpr int kKStages = 2;
+  static constexpr int kVStages = kKeys == 64 ? 1 : kKStages;
+  static constexpr int kHalf = 64 * 256 * 2;      // a consumer's 64 rows of q or do
+  static constexpr int kKTile = kKeys * 256 * 2;  // a K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + 2 * kHalf;
+  static constexpr int kK = kDo + 2 * kHalf;
+  static constexpr int kV = kK + kKStages * kKTile;
+  static constexpr int kLse = kV + kVStages * kKTile;  // 64 f32 a consumer
+  static constexpr int kDelta = kLse + 128 * 4;        // 64 f32 a consumer
+  static constexpr int kBars = kDelta + 128 * 4;       // qdo_full, k_full[], v_full[]
+  static constexpr int kTickets = kBars + (1 + kKStages + kVStages) * 8;  // an int a stage
+  static constexpr int kBytes = kTickets + (kKStages + kVStages) * 4 + 1024;
+};
+
+// K2's ds of one kN-key tile in f32, in place of s, as ds_values (a copy
+// over kN, so that the Dp 64/128 instances keep their code)
+template <int kN, bool kMask, bool kCausal>
+__device__ __forceinline__ void ds_values_d256(float (&s)[kN / 2], const float (&dp)[kN / 2],
+                                               float scale_log2, float lb_a, float lb_b,
+                                               float dl_a, float dl_b, int k0, int row_a, int t4,
+                                               int T) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const bool top = (i & 2) == 0;
+      float p = exp2f(fmaf(s[8 * kk + i], scale_log2, top ? -lb_a : -lb_b));
+      if (kMask) {
+        const int col = k0 + 16 * kk + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int row = top ? row_a : row_a + 8;
+        if (col >= T || (kCausal && col > row)) p = 0.f;
+      }
+      s[8 * kk + i] = p * (dp[8 * kk + i] - (top ? dl_a : dl_b));
+    }
+  }
+}
+
+// ds_row_scales (flash_common.cuh) for an accumulator held as two halves of
+// 64 f32 (the output columns [0, 128) and [128, 256))
+template <int N>
+__device__ __forceinline__ void ds_row_scales_d256(const float (&ds)[N], float (&acc0)[64],
+                                                   float (&acc1)[64], int& e_a, int& e_b,
+                                                   float& sc_a, float& sc_b) {
+  float mx_a = 0.f, mx_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i & 2) {
+      mx_b = fmaxf(mx_b, fabsf(ds[i]));
+    } else {
+      mx_a = fmaxf(mx_a, fabsf(ds[i]));
+    }
+  }
+  const int na = min(e_a, ds_exponent(quad_max(mx_a)));
+  const int nb = min(e_b, ds_exponent(quad_max(mx_b)));
+  const float ra = pow2i(na - e_a);
+  const float rb = pow2i(nb - e_b);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    acc0[i] *= (i & 2) ? rb : ra;
+    acc1[i] *= (i & 2) ? rb : ra;
+  }
+  e_a = na;
+  e_b = nb;
+  sc_a = pow2i(na);
+  sc_b = pow2i(nb);
+}
+
+// K2 at Dp = 256 (the header has the design): 128 q rows a block, consumer c
+// rows [64c, 64c + 64) with all 256 columns of dq, kDq256Keys-key tiles
+template <bool kCausal, typename In, typename OutT>
+__global__ void __launch_bounds__(kD256Threads, 1)
+    flash_bwd_dq_kernel_d256(const __grid_constant__ DqArgs a) {
+  constexpr int D = 256;
+  constexpr int kN = kDq256Keys;
+  using L = Dq256Smem<kN>;
+  constexpr int kKStages = L::kKStages;
+  constexpr int kVStages = L::kVStages;
+  using Pair = typename std::conditional<kIsF16<In>, __half2, __nv_bfloat162>::type;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  In* sQ = reinterpret_cast<In*>(smem + L::kQ);
+  In* sDo = reinterpret_cast<In*>(smem + L::kDo);
+  In* sK = reinterpret_cast<In*>(smem + L::kK);
+  In* sV = reinterpret_cast<In*>(smem + L::kV);
+  float* sLse = reinterpret_cast<float*>(smem + L::kLse);
+  float* sDelta = reinterpret_cast<float*>(smem + L::kDelta);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* k_full = qdo_full + 1;
+  uint64_t* v_full = k_full + kKStages;
+  int* k_tickets = reinterpret_cast<int*>(smem + L::kTickets);
+  int* v_tickets = k_tickets + kKStages;
+
+  const int T = a.T;
+  const int n_q_tiles = (T + 127) / 128;
+  const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int q0 = q_tile * 128;
+  const int n_t = (T + kN - 1) / kN;  // key tiles of the sequence
+  // 2, or 1 when every row of consumer 1 is past T
+  const int n_cons = q0 + 64 < T ? 2 : 1;
+  // key tiles consumer c reads: causal, those up to its last row's diagonal
+  // tile, (q0 + 64c + 64) / kN tiles (tiles past it are never loaded);
+  // consumer 1's take in consumer 0's
+  const int n_kv0 = kCausal ? min(n_t, (q0 + 64) / kN) : n_t;
+  const int n_kv = kCausal ? min(n_t, (q0 + 64 * n_cons) / kN) : n_t;
+
+  const int h_kv = h / a.group;
+  // K or V tile j into its stage
+  auto load_k = [&](int j) {
+    const int stage = j % kKStages;
+    mbar_expect_tx(&k_full[stage], L::kKTile);
+    tma_load_tile<D, kN>(sK + stage * kN * D, &a.tk, &k_full[stage], h_kv, j * kN, b);
+  };
+  auto load_v = [&](int j) {
+    const int stage = j % kVStages;
+    mbar_expect_tx(&v_full[stage], L::kKTile);
+    tma_load_tile<D, kN>(sV + stage * kN * D, &a.tv, &v_full[stage], h_kv, j * kN, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kKStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      k_tickets[s] = 0;
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&v_full[s], 1);
+      v_tickets[s] = 0;
+    }
+    mbar_init_fence();
+    mbar_expect_tx(qdo_full, n_cons * 2 * L::kHalf);
+    for (int half = 0; half < n_cons; ++half) {
+      tma_load_tile<D, 64>(sQ + half * 64 * D, &a.tq, qdo_full, h, q0 + 64 * half, b);
+      tma_load_tile<D, 64>(sDo + half * 64 * D, &a.tdo, qdo_full, h, q0 + 64 * half, b);
+    }
+    for (int j = 0; j < min(kKStages, n_kv); ++j) load_k(j);
+    for (int j = 0; j < min(kVStages, n_kv); ++j) load_v(j);
+  }
+  __syncthreads();
+
+  const int c = threadIdx.x / 128;
+  if (c >= n_cons) return;  // every row of this consumer is past T
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int r0 = 16 * warp;        // the warp's first row in the consumer's half
+  const int slot = 64 * c + r0;    // the warp's 16 lse and delta values in shared memory
+  const int row_a = q0 + 64 * c + r0 + g;  // rows of the accumulators' e = 0, 1
+  const int row_b = row_a + 8;             // and e = 2, 3
+  const int n_c = c == 0 ? n_kv0 : n_kv;
+  const int64_t lrow = static_cast<int64_t>(bh) * T;
+  const In* sDoC = sDo + c * 64 * D;  // the consumer's half of do
+
+  // delta = rowsum(do * o) for the warp's 16 rows, as in K2 above (two
+  // lanes a row, the columns < the real D), written by the consumer that
+  // owns the rows
+  mbar_wait(qdo_full, 0);
+  {
+    const int r = r0 + lane / 2;
+    const int row = q0 + 64 * c + r;
+    const int c0 = (lane & 1) * (D / 2);
+    float sum = 0.f;
+    if (row < T) {
+      const In* orow = at(static_cast<const In*>(a.o), a.so, b, h) + row * a.so.t;
+#pragma unroll
+      for (int cc = 0; cc < D / 2; cc += 8) {
+        const int col = c0 + cc;
+        if (col >= a.D) break;
+        const In* drow = sDoC + (col / 64) * 64 * 64 + r * 64 + ((((col % 64) / 8) ^ (r & 7)) * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(drow);
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + col);
+        const Pair* d2 = reinterpret_cast<const Pair*>(&dv);
+        const Pair* o2 = reinterpret_cast<const Pair*>(&ov);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 df = to_float2(d2[e]);
+          const float2 of = to_float2(o2[e]);
+          sum += df.x * of.x + df.y * of.y;
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((lane & 1) == 0) {
+      sDelta[slot + lane / 2] = sum;
+      sLse[slot + lane / 2] = row < T ? a.lse[lrow + row] : CUDART_INF_F;
+      if (row < T) a.delta[lrow + row] = sum;
+    }
+  }
+  __syncwarp();
+  const float lb_a = sLse[slot + g] * kLog2e;
+  const float lb_b = sLse[slot + g + 8] * kLog2e;
+  const float dl_a = sDelta[slot + g];
+  const float dl_b = sDelta[slot + g + 8];
+  const float scale_log2 = a.scale * kLog2e;
+
+  // K-major descriptors of this consumer's q and do halves and of stage 0's
+  // K and V tiles; MN-major of stage 0's K tile (LBO: its 64-column blocks,
+  // kN rows x 128 bytes apart)
+  const uint64_t dQ = desc_sw128(sQ + c * 64 * D, 16);
+  const uint64_t dDo = desc_sw128(sDoC, 16);
+  const uint64_t dK = desc_sw128(sK, 16);
+  const uint64_t dV = desc_sw128(sV, 16);
+  const uint64_t dKn = desc_sw128(sK, kN * 128);
+
+  // dq's columns [0, 128) and [128, 256)
+  float dq0[64], dq1[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    dq0[i] = 0.f;
+    dq1[i] = 0.f;
+  }
+  int e_a = kDsExpMax, e_b = kDsExpMax;  // fp16: the rows' ds exponents
+
+  // Turns at the tensor cores, a product each, as K1's at Dp = 256
+  // (flash_fwd.cu): consumer c issues after its turn's barrier (3 + c) and
+  // then passes the turn; consumer 0 goes first, takes the turns of the
+  // tiles it skips, and consumer 1 does not pass its last, so no barrier
+  // ever holds two arrivals of one consumer.
+  const bool turns = n_cons == 2;
+  const int n_turns = 2 * n_kv;
+  if (turns && c == 1) named_arrive(3, 256);
+  int turn = 0;
+  for (int j = 0; j < n_c; ++j) {
+    const int ks = j % kKStages;
+    const int vs = j % kVStages;
+    const uint32_t k_off = ks * L::kKTile;
+    const uint32_t v_off = vs * L::kKTile;
+
+    // s = q k^T and dp = do v^T: k-step kk reads columns [16kk, 16kk + 16)
+    float s[kN / 2], dp[kN / 2];
+    mbar_wait(&k_full[ks], (j / kKStages) & 1);
+    mbar_wait(&v_full[vs], (j / kVStages) & 1);
+    if (turns) named_barrier(3 + c, 256);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qcol = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      const uint32_t kcol = k_off + (kk / 4) * kN * 128 + (kk % 4) * 32;
+      wgmma_ss<kN, In>(s, desc_add(dQ, qcol), desc_add(dK, kcol), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qcol = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      const uint32_t vcol = v_off + (kk / 4) * kN * 128 + (kk % 4) * 32;
+      wgmma_ss<kN, In>(dp, desc_add(dDo, qcol), desc_add(dV, vcol), kk > 0);
+    }
+    wgmma_commit();
+    if (turns && (c == 0 || turn + 1 < n_turns)) named_arrive(4 - c, 256);
+    ++turn;
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    // V's stage is free once every consumer warp is past its dp: each warp
+    // takes a ticket, and the warp that takes the last loads tile j +
+    // kVStages there (K's the same after the dq product below)
+    if (j + kVStages < n_kv && lane == 0 &&
+        atomicAdd(&v_tickets[vs], 1) % (4 * n_cons) == 4 * n_cons - 1) {
+      load_v(j + kVStages);
+    }
+
+    // ds = p (dp - delta) in f32 in place of s; masked only on the tiles
+    // that hold the consumer's causal diagonal (its last 64 / kN) or T
+    if ((kCausal && j >= n_c - 64 / kN) || (j + 1) * kN > T) {
+      ds_values_d256<kN, true, kCausal>(s, dp, scale_log2, lb_a, lb_b, dl_a, dl_b, j * kN, row_a,
+                                        t4, T);
+    } else {
+      ds_values_d256<kN, false, kCausal>(s, dp, scale_log2, lb_a, lb_b, dl_a, dl_b, 0, 0, 0, 0);
+    }
+    // packed to the input type as the A operand of ds k (fp16: each row
+    // scaled by its 2^E)
+    float sc_a = 1.f, sc_b = 1.f;
+    if constexpr (kIsF16<In>) ds_row_scales_d256(s, dq0, dq1, e_a, e_b, sc_a, sc_b);
+    uint32_t ds[kN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      if constexpr (kIsF16<In>) {
+        ds[kk][0] = pack_f32<In>(s[8 * kk] * sc_a, s[8 * kk + 1] * sc_a);
+        ds[kk][1] = pack_f32<In>(s[8 * kk + 2] * sc_b, s[8 * kk + 3] * sc_b);
+        ds[kk][2] = pack_f32<In>(s[8 * kk + 4] * sc_a, s[8 * kk + 5] * sc_a);
+        ds[kk][3] = pack_f32<In>(s[8 * kk + 6] * sc_b, s[8 * kk + 7] * sc_b);
+      } else {
+        ds[kk][0] = pack_f32<In>(s[8 * kk], s[8 * kk + 1]);
+        ds[kk][1] = pack_f32<In>(s[8 * kk + 2], s[8 * kk + 3]);
+        ds[kk][2] = pack_f32<In>(s[8 * kk + 4], s[8 * kk + 5]);
+        ds[kk][3] = pack_f32<In>(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    }
+
+    // dq += ds k: k-step kk reads keys [16kk, 16kk + 16) of K, 2048 bytes
+    // on, into dq0 from K's column blocks 0-1 and dq1 from blocks 2-3
+    if (turns) named_barrier(3 + c, 256);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      const uint64_t dk = desc_add(dKn, k_off + kk * 2048);
+      wgmma_rs<128, In>(dq0, ds[kk], dk, 1);
+      wgmma_rs<128, In>(dq1, ds[kk], desc_add(dk, 2 * kN * 128), 1);
+    }
+    wgmma_commit();
+    if (turns && (c == 0 || turn + 1 < n_turns)) named_arrive(4 - c, 256);
+    ++turn;
+    wgmma_wait<0>();
+    fence_regs(dq0);
+    fence_regs(dq1);
+    if (j + kKStages < n_kv && lane == 0 &&
+        atomicAdd(&k_tickets[ks], 1) % (4 * n_cons) == 4 * n_cons - 1) {
+      load_k(j + kKStages);
+    }
+  }
+  if (turns && c == 0) {
+    for (; turn < n_turns; ++turn) {  // the turns of the tiles it skips
+      named_barrier(3, 256);
+      named_arrive(4, 256);
+    }
+  }
+
+  if constexpr (kIsF16<In>) {  // undo the rows' ds scales
+    const float inv_a = pow2i(-e_a);
+    const float inv_b = pow2i(-e_b);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      dq0[i] *= (i & 2) ? inv_b : inv_a;
+      dq1[i] *= (i & 2) ? inv_b : inv_a;
+    }
+  }
+  OutT* dqp = at(static_cast<OutT*>(a.dq), a.sdq, b, h);
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    // columns at or past the real D are padding: the next head's dq lies
+    // there (dq0's columns are all below D: D > 128 here)
+    const int col = n * 8 + 2 * t4;
+    const bool live = 128 + n * 8 < a.D;
+    if (row_a < T) {
+      store_out2(dqp + row_a * a.sdq.t + col, dq0[4 * n] * a.scale, dq0[4 * n + 1] * a.scale);
+      if (live) {
+        store_out2(dqp + row_a * a.sdq.t + 128 + col, dq1[4 * n] * a.scale,
+                   dq1[4 * n + 1] * a.scale);
+      }
+    }
+    if (row_b < T) {
+      store_out2(dqp + row_b * a.sdq.t + col, dq0[4 * n + 2] * a.scale,
+                 dq0[4 * n + 3] * a.scale);
+      if (live) {
+        store_out2(dqp + row_b * a.sdq.t + 128 + col, dq1[4 * n + 2] * a.scale,
+                   dq1[4 * n + 3] * a.scale);
+      }
     }
   }
 }
@@ -853,15 +1239,359 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
+// ------------------------------------------------------- K3 at Dp = 256
+
+// K3's shared-memory layout at Dp = 256, byte offsets from a 1024-aligned
+// base: the column-split layout's 224 KB (the header), here serving all 256
+// columns; tickets in place of the stages' empty barriers
+struct Dkv256Smem {
+  static constexpr int kStages = 2;                          // q/do ring depth
+  static constexpr int kKTile = kDkvBlockN * 256 * 2;        // k or v
+  static constexpr int kQTile = kDkvBlockM * 256 * 2;        // q or do, one stage
+  static constexpr int kPTile = kDkvBlockN * kDkvBlockM * 2;  // p^T or ds^T, 16-bit
+  static constexpr int kPf = kDkvBlockN * kDkvBlockM * 4;     // p^T in f32, A to B
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKTile;
+  static constexpr int kQ = kV + kKTile;
+  static constexpr int kDo = kQ + kStages * kQTile;
+  static constexpr int kPb = kDo + kStages * kQTile;
+  static constexpr int kDs = kPb + kPTile;
+  static constexpr int kPfs = kDs + kPTile;
+  static constexpr int kLse = kPfs + kPf;  // per stage kDkvBlockM f32
+  static constexpr int kDelta = kLse + kStages * kDkvBlockM * 4;
+  // kv_full, full[], p_full, p_empty
+  static constexpr int kBars = kDelta + kStages * kDkvBlockM * 4;
+  static constexpr int kTickets = kBars + (1 + kStages + 2) * 8;  // an int a stage
+  static constexpr int kBytes = kTickets + kStages * 4 + 1024;
+};
+
+// K3 at Dp = 256 (the header has the design): one block per (b*h_kv,
+// 64-key tile), consumers A and B split by product, each with all 256
+// columns of its output
+template <bool kCausal, typename In, typename OutT>
+__global__ void __launch_bounds__(kD256Threads, 1)
+    flash_bwd_dkv_kernel_d256(const __grid_constant__ DkvArgs a) {
+  constexpr int D = 256;
+  using L = Dkv256Smem;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  In* sK = reinterpret_cast<In*>(smem + L::kK);
+  In* sV = reinterpret_cast<In*>(smem + L::kV);
+  In* sQ = reinterpret_cast<In*>(smem + L::kQ);
+  In* sDo = reinterpret_cast<In*>(smem + L::kDo);
+  unsigned char* sPb = smem + L::kPb;
+  unsigned char* sDs = smem + L::kDs;
+  float4* sPf = reinterpret_cast<float4*>(smem + L::kPfs);
+  float* sLb = reinterpret_cast<float*>(smem + L::kLse);
+  float* sDelta = reinterpret_cast<float*>(smem + L::kDelta);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* p_full = full + kStages;
+  uint64_t* p_empty = p_full + 1;
+  int* tickets = reinterpret_cast<int*>(smem + L::kTickets);
+
+  const int T = a.T;
+  const int h_kv_count = a.H / a.group;
+  const int b = blockIdx.x / h_kv_count;
+  const int h_kv = blockIdx.x % h_kv_count;
+  const int k0 = blockIdx.y * kDkvBlockN;  // y = 0, the heaviest tiles, is scheduled first
+  const int n_q_tiles = (T + kDkvBlockM - 1) / kDkvBlockM;
+  const int first = kCausal ? k0 / kDkvBlockM : 0;  // earlier q tiles see none of these keys
+  const int per_head = n_q_tiles - first;
+  const int n_iter = a.group * per_head;  // q tile `it % per_head` of head `it / per_head`
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the loading lane 0's expect_tx, each lane's lse/delta
+      tickets[s] = 0;
+    }
+    mbar_init(p_full, 128);   // consumer A's threads, p^T stored
+    mbar_init(p_empty, 128);  // consumer B's threads, p^T read
+    mbar_init_fence();
+    mbar_expect_tx(kv_full, 2 * L::kKTile);
+    tma_load_tile<D, kDkvBlockN>(sK, &a.tk, kv_full, h_kv, k0, b);
+    tma_load_tile<D, kDkvBlockN>(sV, &a.tv, kv_full, h_kv, k0, b);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;  // consumer A (0: p^T, dv) or B (1: dp^T, ds^T, dk)
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int key_a = k0 + 16 * warp + g;  // keys of the accumulators' e = 0, 1
+  const int key_b = key_a + 8;           // and e = 2, 3
+
+  // q/do tile `it` of the walk into its stage, by one whole warp: lane 0
+  // starts the TMA loads, the 32 lanes store the stage's lse (times log2 e)
+  // and delta (+inf and 0 for rows past T), and each lane arrives on the
+  // stage's full barrier after its own stores
+  auto load_stage = [&](int it) {
+    const int stage = it % kStages;
+    const int hq = h_kv * a.group + it / per_head;
+    const int q0 = (first + it % per_head) * kDkvBlockM;
+    if (lane == 0) {
+      mbar_expect_tx(&full[stage], 2 * L::kQTile);
+      tma_load_tile<D, kDkvBlockM>(sQ + stage * kDkvBlockM * D, &a.tq, &full[stage], hq, q0, b);
+      tma_load_tile<D, kDkvBlockM>(sDo + stage * kDkvBlockM * D, &a.tdo, &full[stage], hq, q0,
+                                   b);
+    }
+    const int64_t lrow = static_cast<int64_t>(b * a.H + hq) * T;
+#pragma unroll
+    for (int j = 0; j < kDkvBlockM / 32; ++j) {
+      const int r = lane + 32 * j;
+      const int row = q0 + r;
+      sLb[stage * kDkvBlockM + r] = row < T ? a.lse[lrow + row] * kLog2e : CUDART_INF_F;
+      sDelta[stage * kDkvBlockM + r] = row < T ? a.delta[lrow + row] : 0.f;
+    }
+    mbar_arrive(&full[stage]);
+  };
+  // the stage of tile `it` is free once every warp of both consumers is past
+  // its reads of it: each warp takes a ticket, and the warp that takes the
+  // last loads tile it + kStages there
+  auto release = [&](int it) {
+    if (it + kStages >= n_iter) return;
+    int ticket = 0;
+    if (lane == 0) ticket = atomicAdd(&tickets[it % kStages], 1);
+    if (__shfl_sync(0xffffffffu, ticket, 0) % 8 == 7) load_stage(it + kStages);
+  };
+  if (threadIdx.x < 32) {
+    for (int it = 0; it < min(kStages, n_iter); ++it) load_stage(it);
+  }
+
+  // the stage-0 descriptors: K-major q, do and the score operands, MN-major
+  // q and do (LBO: their 64-column blocks, 64 rows x 128 bytes apart)
+  const uint64_t dQ = desc_sw128(sQ, 16);
+  const uint64_t dDo = desc_sw128(sDo, 16);
+  const uint64_t dQn = desc_sw128(sQ, kDkvBlockM * 128);
+  const uint64_t dDon = desc_sw128(sDo, kDkvBlockM * 128);
+
+  if (wg == 0) {
+    // A: s^T = k q^T, p^T = exp(scale s^T - lse), handed to B in f32 and
+    // stored in the input type for dv += p^T do
+    const uint64_t dK = desc_sw128(sK, 16);
+    const uint64_t dP = desc_sw128(sPb, 16);
+    const float scale_log2 = a.scale * kLog2e;
+    float dv0[64], dv1[64];  // dv's columns [0, 128) and [128, 256)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      dv0[i] = 0.f;
+      dv1[i] = 0.f;
+    }
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int stage = it % kStages;
+      const int q0 = (first + it % per_head) * kDkvBlockM;
+      const uint32_t stage_off = stage * L::kQTile;
+      mbar_wait(&full[stage], (it / kStages) & 1);
+
+      float s[kDkvBlockM / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t kcol = (kk / 4) * kDkvBlockN * 128 + (kk % 4) * 32;
+        const uint32_t qcol = stage_off + (kk / 4) * kDkvBlockM * 128 + (kk % 4) * 32;
+        wgmma_ss<kDkvBlockM, In>(s, desc_add(dK, kcol), desc_add(dQ, qcol), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      // only the causal diagonal (the head's first q tile) and a ragged last tile
+      if ((kCausal && q0 == k0) || q0 + kDkvBlockM > T) mask_tile<kCausal>(s, key_a, q0, t4, T);
+      p_tile(s, sLb + stage * kDkvBlockM, scale_log2, t4);
+
+      // p^T in f32 to B, thread-major: B's thread t reads what A's thread t
+      // wrote, the same accumulator positions
+      if (it > 0) mbar_wait(p_empty, (it - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < kDkvBlockM / 8; ++j) {
+        sPf[j * 128 + tid] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      }
+      mbar_arrive(p_full);
+
+#pragma unroll
+      for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          store_pair(sPb, warp, g, t4, kk, r,
+                     pack_f32<In>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]));
+        }
+      }
+      // every thread's pairs visible to wgmma before any thread issues it
+      fence_async_shared();
+      named_barrier(1, 128);
+
+      // dv += p^T do: k-step kk reads q rows [16kk, 16kk + 16), +32 bytes
+      // along the p^T rows, +2048 bytes down the do tile; dv0 from do's
+      // column blocks 0-1, dv1 from blocks 2-3
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+        const uint64_t dpk = desc_add(dP, kk * 32);
+        const uint64_t ddo = desc_add(dDon, stage_off + kk * 2048);
+        wgmma_ss_mn<128, In>(dv0, dpk, ddo, 1);
+        wgmma_ss_mn<128, In>(dv1, dpk, desc_add(ddo, 2 * kDkvBlockM * 128), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv0);
+      fence_regs(dv1);
+      release(it);
+    }
+    OutT* dvp = at(static_cast<OutT*>(a.dv), a.sdv, b, h_kv);
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      // dv0's columns are all below D (D > 128 here); dv1's past D are padding
+      const int col = n * 8 + 2 * t4;
+      const bool live = 128 + n * 8 < a.D;
+      if (key_a < T) {
+        store_out2(dvp + key_a * a.sdv.t + col, dv0[4 * n], dv0[4 * n + 1]);
+        if (live) store_out2(dvp + key_a * a.sdv.t + 128 + col, dv1[4 * n], dv1[4 * n + 1]);
+      }
+      if (key_b < T) {
+        store_out2(dvp + key_b * a.sdv.t + col, dv0[4 * n + 2], dv0[4 * n + 3]);
+        if (live) {
+          store_out2(dvp + key_b * a.sdv.t + 128 + col, dv1[4 * n + 2], dv1[4 * n + 3]);
+        }
+      }
+    }
+    return;
+  }
+
+  // B: dp^T = v do^T, ds^T = p^T (dp^T - delta) in f32 with A's p^T, stored
+  // in the input type (fp16: each key's row scaled) for dk += ds^T q
+  const uint64_t dV = desc_sw128(sV, 16);
+  const uint64_t dDs = desc_sw128(sDs, 16);
+  float dk0[64], dk1[64];  // dk's columns [0, 128) and [128, 256)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    dk0[i] = 0.f;
+    dk1[i] = 0.f;
+  }
+  int e_a = kDsExpMax, e_b = kDsExpMax;  // fp16: the keys' ds exponents
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int stage = it % kStages;
+    const uint32_t stage_off = stage * L::kQTile;
+    mbar_wait(&full[stage], (it / kStages) & 1);
+
+    float dp[kDkvBlockM / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t kcol = (kk / 4) * kDkvBlockN * 128 + (kk % 4) * 32;
+      const uint32_t qcol = stage_off + (kk / 4) * kDkvBlockM * 128 + (kk % 4) * 32;
+      wgmma_ss<kDkvBlockM, In>(dp, desc_add(dV, kcol), desc_add(dDo, qcol), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // ds^T in f32 in place of dp^T, then packed (fp16: each key's row scaled)
+    mbar_wait(p_full, it & 1);
+    const float* dl = sDelta + stage * kDkvBlockM;
+#pragma unroll
+    for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+      const float4 p_lo = sPf[(2 * kk) * 128 + tid];
+      const float4 p_hi = sPf[(2 * kk + 1) * 128 + tid];
+      const float p[8] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
+      const float2 d_lo = *reinterpret_cast<const float2*>(dl + 16 * kk + 2 * t4);
+      const float2 d_hi = *reinterpret_cast<const float2*>(dl + 16 * kk + 8 + 2 * t4);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 d = (r & 2) ? d_hi : d_lo;
+        const int e = 8 * kk + 2 * r;
+        dp[e] = p[2 * r] * (dp[e] - d.x);
+        dp[e + 1] = p[2 * r + 1] * (dp[e + 1] - d.y);
+      }
+    }
+    mbar_arrive(p_empty);
+    float sc_a = 1.f, sc_b = 1.f;
+    if constexpr (kIsF16<In>) ds_row_scales_d256(dp, dk0, dk1, e_a, e_b, sc_a, sc_b);
+#pragma unroll
+    for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = 8 * kk + 2 * r;
+        if constexpr (kIsF16<In>) {
+          const float sc = (r & 1) ? sc_b : sc_a;  // bit 1 of e: key_b
+          store_pair(sDs, warp, g, t4, kk, r, pack_f32<In>(dp[e] * sc, dp[e + 1] * sc));
+        } else {
+          store_pair(sDs, warp, g, t4, kk, r, pack_f32<In>(dp[e], dp[e + 1]));
+        }
+      }
+    }
+    fence_async_shared();
+    named_barrier(2, 128);
+
+    // dk += ds^T q, as dv in A
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
+      const uint64_t dsk = desc_add(dDs, kk * 32);
+      const uint64_t dq = desc_add(dQn, stage_off + kk * 2048);
+      wgmma_ss_mn<128, In>(dk0, dsk, dq, 1);
+      wgmma_ss_mn<128, In>(dk1, dsk, desc_add(dq, 2 * kDkvBlockM * 128), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk0);
+    fence_regs(dk1);
+    release(it);
+  }
+  if constexpr (kIsF16<In>) {  // undo the keys' ds scales
+    const float inv_a = pow2i(-e_a);
+    const float inv_b = pow2i(-e_b);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      dk0[i] *= (i & 2) ? inv_b : inv_a;
+      dk1[i] *= (i & 2) ? inv_b : inv_a;
+    }
+  }
+  OutT* dkp = at(static_cast<OutT*>(a.dk), a.sdk, b, h_kv);
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const int col = n * 8 + 2 * t4;
+    const bool live = 128 + n * 8 < a.D;
+    if (key_a < T) {
+      store_out2(dkp + key_a * a.sdk.t + col, dk0[4 * n] * a.scale, dk0[4 * n + 1] * a.scale);
+      if (live) {
+        store_out2(dkp + key_a * a.sdk.t + 128 + col, dk1[4 * n] * a.scale,
+                   dk1[4 * n + 1] * a.scale);
+      }
+    }
+    if (key_b < T) {
+      store_out2(dkp + key_b * a.sdk.t + col, dk0[4 * n + 2] * a.scale,
+                 dk0[4 * n + 3] * a.scale);
+      if (live) {
+        store_out2(dkp + key_b * a.sdk.t + 128 + col, dk1[4 * n + 2] * a.scale,
+                   dk1[4 * n + 3] * a.scale);
+      }
+    }
+  }
+}
+
 template <int D, bool kCausal, typename In, typename OutT>
 cudaError_t launch_dq(const DqArgs& a, int B, cudaStream_t stream) {
-  constexpr int kSmem = DqSmem<D>::kBytes;
   static bool attr_set = false;
-  const cudaError_t err =
-      allow_smem(flash_bwd_dq_kernel<D, kCausal, In, OutT>, kSmem, attr_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + DqSmem<D>::kBlockM - 1) / DqSmem<D>::kBlockM, B * a.H);
-  flash_bwd_dq_kernel<D, kCausal, In, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
+  if constexpr (D == 256) {
+    constexpr int kSmem = Dq256Smem<kDq256Keys>::kBytes;
+    const cudaError_t err =
+        allow_smem(flash_bwd_dq_kernel_d256<kCausal, In, OutT>, kSmem, attr_set);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.T + 127) / 128, B * a.H);
+    flash_bwd_dq_kernel_d256<kCausal, In, OutT><<<grid, kD256Threads, kSmem, stream>>>(a);
+  } else {
+    constexpr int kSmem = DqSmem<D>::kBytes;
+    const cudaError_t err =
+        allow_smem(flash_bwd_dq_kernel<D, kCausal, In, OutT>, kSmem, attr_set);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.T + DqSmem<D>::kBlockM - 1) / DqSmem<D>::kBlockM, B * a.H);
+    flash_bwd_dq_kernel<D, kCausal, In, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -880,6 +1610,18 @@ cudaError_t launch_dkv(const DkvArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <bool kCausal, typename In, typename OutT>
+cudaError_t launch_dkv_d256(const DkvArgs& a, int B, cudaStream_t stream) {
+  constexpr int kSmem = Dkv256Smem::kBytes;
+  static bool attr_set = false;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dkv_kernel_d256<kCausal, In, OutT>, kSmem, attr_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * (a.H / a.group), (a.T + kDkvBlockN - 1) / kDkvBlockN);
+  flash_bwd_dkv_kernel_d256<kCausal, In, OutT><<<grid, kD256Threads, kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 bool bad_dims(int B, int T, int H, int H_kv, int D) {
   return B <= 0 || T <= 0 || H_kv <= 0 || H % H_kv != 0 || !head_dim_ok(D);
 }
@@ -894,11 +1636,14 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
   DqArgs a;
   const int Dp = padded_head_dim(D);
-  const int rows = dq_block_m(Dp);
+  // a box's rows: a q or do tile's and a K/V tile's, or at Dp = 256 a q or
+  // do half's and a kDq256Keys-key tile's
+  const int rows = Dp == 256 ? 64 : DqSmem<128>::kBlockM;
+  const int keys = Dp == 256 ? kDq256Keys : kDqBlockN;
   int err = make_tile_map<In>(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, rows);
   if (err == 0) err = make_tile_map<In>(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, rows);
-  if (err == 0) err = make_tile_map<In>(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDqBlockN);
-  if (err == 0) err = make_tile_map<In>(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDqBlockN);
+  if (err == 0) err = make_tile_map<In>(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, keys);
+  if (err == 0) err = make_tile_map<In>(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, keys);
   if (err != 0) return err;
   a.o = o;
   a.lse = static_cast<const float*>(lse);
@@ -963,8 +1708,20 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
     launched = causal ? launch_dkv<128, true, In, OutT>(a, B, s)
                       : launch_dkv<128, false, In, OutT>(a, B, s);
   } else {
-    launched = causal ? launch_dkv<256, true, In, OutT>(a, B, s)
-                      : launch_dkv<256, false, In, OutT>(a, B, s);
+    // the column-split K3 (two blocks a key tile) where a grid of whole key
+    // tiles would leave SMs idle, else the Dp = 256 kernel (the header)
+    int dev = 0, sms = 0;
+    cudaError_t got = cudaGetDevice(&dev);
+    if (got == cudaSuccess) got = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (got != cudaSuccess) return static_cast<int>(got);
+    const bool split = B * H_kv * ((T + kDkvBlockN - 1) / kDkvBlockN) < sms;
+    if (split) {
+      launched = causal ? launch_dkv<256, true, In, OutT>(a, B, s)
+                        : launch_dkv<256, false, In, OutT>(a, B, s);
+    } else {
+      launched = causal ? launch_dkv_d256<true, In, OutT>(a, B, s)
+                        : launch_dkv_d256<false, In, OutT>(a, B, s);
+    }
   }
   return static_cast<int>(launched);
 }

@@ -104,7 +104,8 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T, int h
 // (128 x 24 + 256 x 240 = 64512). ptxas reports the block's launch count,
 // 168 for 384 threads. It did not let a consumer of K1 at Dp = 256 hold more
 // at setmaxnreg 240 (nvcc 12.9, each placement tried, ops/regs_probe.py),
-// so that kernel runs the two consumer warpgroups alone (flash_fwd.cu).
+// so that kernel, and K2 and K3 at Dp = 256, run the two consumer warpgroups
+// alone (flash_fwd.cu, flash_bwd.cu).
 constexpr int kWsThreads = 384;
 constexpr int kWsConsumerThreads = 256;
 constexpr int kProducerRegs = 24;
@@ -261,6 +262,7 @@ __device__ __forceinline__ void regs_inc() {
 #define HIVED_D8(i)                                                                     \
   "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define HIVED_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HIVED_R32                                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -272,6 +274,12 @@ __device__ __forceinline__ void regs_inc() {
 
 // The wgmma instructions, one per (N, operand form, type): TY is the
 // operand type's PTX name (bf16 or f16), MN 1 for an MN-major b.
+#define HIVED_SS32(TY, MN)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                       \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." #TY "." #TY " " HIVED_R16 \
+               ", %16, %17, p, 1, 1, 0, " #MN ";\n}\n"                               \
+               : HIVED_D8(0), HIVED_D8(8)                                         \
+               : "l"(a), "l"(b), "r"(accumulate))
 #define HIVED_SS64(TY, MN)                                                        \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                       \
                "wgmma.mma_async.sync.aligned.m64n64k16.f32." #TY "." #TY " " HIVED_R32 \
@@ -305,8 +313,12 @@ __device__ __forceinline__ void regs_inc() {
 template <int N, typename In>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                                          int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
-  if constexpr (N == 64 && std::is_same<In, __half>::value) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
+  if constexpr (N == 32 && std::is_same<In, __half>::value) {
+    HIVED_SS32(f16, 0);
+  } else if constexpr (N == 32) {
+    HIVED_SS32(bf16, 0);
+  } else if constexpr (N == 64 && std::is_same<In, __half>::value) {
     HIVED_SS64(f16, 0);
   } else if constexpr (N == 64) {
     HIVED_SS64(bf16, 0);
@@ -353,11 +365,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+#undef HIVED_SS32
 #undef HIVED_SS64
 #undef HIVED_SS128
 #undef HIVED_RS64
 #undef HIVED_RS128
 #undef HIVED_D8
+#undef HIVED_R16
 #undef HIVED_R32
 #undef HIVED_R64
 

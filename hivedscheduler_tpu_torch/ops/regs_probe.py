@@ -1,6 +1,7 @@
-"""How many registers ptxas gives K1's Dp 256 consumers, by block shape.
+"""How many registers ptxas gives the Dp 256 kernels' consumers, by block
+shape and tile.
 
-    python -m hivedscheduler_tpu_torch.ops.regs_probe
+    python -m hivedscheduler_tpu_torch.ops.regs_probe [--kernel K1|K2|K3 ...]
 
 K1 at Dp 256 (``flash_fwd_kernel_d256`` in ``csrc/flash_fwd.cu``) needs
 ~200 registers a consumer thread: o's 128 f32 accumulators beside s and p.
@@ -21,17 +22,31 @@ ships and with the Dp 256 kernel's block changed (:data:`VARIANTS`):
   loading every tile and the consumers asking for registers before
   anything else they do.
 
+K2 and K3 at Dp 256 (``flash_bwd_dq_kernel_d256`` and
+``flash_bwd_dkv_kernel_d256`` in ``csrc/flash_bwd.cu``) run the same block
+of two consumer warpgroups alone, each consumer holding a whole-width f32
+accumulator (128 registers a thread: K2's dq, K3's dv or dk) beside its
+score tiles. ``--kernel K2`` compiles ``csrc/flash_bwd.cu`` and
+``csrc/flash_bwd_f16.cu`` in K2's forms (:data:`DQ_VARIANTS`): (b)
+64-key K/V tiles, K in two stages and V in one (as built: 192 accumulators
+a consumer), and (a) 32-key tiles (160 accumulators) in two stages or three;
+``--kernel K3`` the same two files as built
+(:data:`DKV_VARIANTS`: 64-key blocks streaming 64-row q/do tiles, 160
+accumulators a consumer).
+
 The variants are for ptxas's allocation only: they are not launched. It
 prints nvcc's version and what ``-Xptxas -v`` reports for each instance of
-that kernel: the registers, the spill stores and loads, and whether ptxas
-serialized its wgmma for want of registers (its C7512 note). A consumer
-that holds more than the block's launch count (65536 / 384 -> 168) without
-spilling means ptxas allocates its code at the count setmaxnreg asks. It
-needs ``nvcc``, not a card.
+the chosen kernels (all three by default; bf16 and fp16 inputs where both
+files are compiled, causal or not, 16-bit or f32 outputs): the registers,
+the spill stores and loads, and whether ptxas serialized its wgmma for want
+of registers (its C7512 note). A consumer that holds more than the block's
+launch count (65536 / 384 -> 168) without spilling means ptxas allocates its
+code at the count setmaxnreg asks. It needs ``nvcc``, not a card.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import re
 import shutil
@@ -89,39 +104,78 @@ VARIANTS = {
     "384 threads, setmaxnreg 240 in FA3's order": FA3_ORDER,
 }
 
+# K2 at Dp 256: its tile forms
+DQ_KEYS_32 = ("constexpr int kDq256Keys = 64;", "constexpr int kDq256Keys = 32;")
+DQ_VARIANTS = {
+    "(b) 64-key tiles, K in 2 stages, V in 1 (as built)": (),
+    "(a) 32-key tiles, 2 stages": (DQ_KEYS_32,),
+    "(a) 32-key tiles, 3 stages": (DQ_KEYS_32, ("  static constexpr int kKStages = 2;\n",
+                                                "  static constexpr int kKStages = 3;\n")),
+}
+DKV_VARIANTS = {"64-row q/do tiles, 2 stages (as built)": ()}
 
-def compile_variant(label: str, changes: tuple) -> str:
-    """ptxas's report of ``csrc/flash_fwd.cu`` with ``changes`` made."""
+# kernel: (the edited source, the files compiled, the kernel's name, variants)
+PROBES = {
+    "K1": ("flash_fwd.cu", ("flash_fwd.cu",), KERNEL, VARIANTS),
+    "K2": ("flash_bwd.cu", ("flash_bwd.cu", "flash_bwd_f16.cu"), "flash_bwd_dq_kernel_d256",
+           DQ_VARIANTS),
+    "K3": ("flash_bwd.cu", ("flash_bwd.cu", "flash_bwd_f16.cu"), "flash_bwd_dkv_kernel_d256",
+           DKV_VARIANTS),
+}
+
+
+def apply(text: str, changes: tuple, source: str) -> str:
+    """``text`` with each (old, new) of ``changes`` made; each old must be
+    there once."""
+    for old, new in changes:
+        if text.count(old) != 1:
+            raise RuntimeError(f"csrc/{source} no longer holds {old!r} once")
+        text = text.replace(old, new)
+    return text
+
+
+def compile_variant(label: str, changes: tuple, source: str = "flash_fwd.cu",
+                    files: tuple = ("flash_fwd.cu",)) -> str:
+    """ptxas's report of ``csrc/`` ``files`` with ``changes`` made to
+    ``csrc/<source>``."""
     root = os.path.join(_build.BUILD_DIR, "regs_probe", re.sub(r"\W+", "_", label))
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(_build.CSRC, root)
-    path = os.path.join(root, "flash_fwd.cu")
+    path = os.path.join(root, source)
     with open(path) as f:
-        text = f.read()
-    for old, new in changes:
-        if text.count(old) != 1:
-            raise RuntimeError(f"csrc/flash_fwd.cu no longer holds {old!r} once")
-        text = text.replace(old, new)
+        text = apply(f.read(), changes, source)
     with open(path, "w") as f:
         f.write(text)
-    proc = subprocess.run([_build._nvcc(), *FLAGS, "-o", path + ".cubin", path],
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({label}):\n{proc.stdout}{proc.stderr}")
-    return proc.stdout + proc.stderr
+    logs = []
+    for name in files:
+        src = os.path.join(root, name)
+        proc = subprocess.run([_build._nvcc(), *FLAGS, "-o", src + ".cubin", src],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({label}, {name}):\n{proc.stdout}{proc.stderr}")
+        logs.append(proc.stdout + proc.stderr)
+    return "\n".join(logs)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", action="append", choices=sorted(PROBES),
+                    help="the Dp 256 kernel to probe (repeatable; default all)")
+    args = ap.parse_args(argv)
     version = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
     print(version.stdout.strip().splitlines()[-2])
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        logs = dict(zip(VARIANTS, pool.map(compile_variant, VARIANTS, VARIANTS.values())))
-    for label, log in logs.items():
+    jobs = [(f"{key} {label}", changes, source, files, kernel)
+            for key in (args.kernel or sorted(PROBES))
+            for source, files, kernel, variants in [PROBES[key]]
+            for label, changes in variants.items()]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        logs = list(pool.map(lambda j: compile_variant(*j[:4]), jobs))
+    for (label, _, _, _, kernel), log in zip(jobs, logs):
         for line in log.splitlines():
             if "setmaxnreg" in line:
                 print(f"{label}: {line.strip()}")
         for name, (used, stores, loads, serial) in sorted(_build.ptxas_report(log).items()):
-            if KERNEL in name:
+            if kernel in name:
                 print(f"{label}: {name}: {used} registers, {stores} bytes spill stores, "
                       f"{loads} bytes spill loads" + (", wgmma serialized (C7512)"
                                                       if serial else ""))

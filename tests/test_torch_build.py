@@ -110,18 +110,22 @@ def test_ptxas_report_reads_registers_spill_and_serialized_wgmma():
 
 
 def test_regs_probe_variants_apply_to_the_source():
-    # each variant edits text of csrc/flash_fwd.cu that must be there once
+    # each variant edits text of its kernel's source (csrc/flash_fwd.cu for
+    # K1, csrc/flash_bwd.cu for K2 and K3 at Dp 256) that must be there once,
+    # and each probe's first variant is the kernel as built
     from hivedscheduler_tpu_torch.ops import regs_probe
 
-    with open(os.path.join(_build.CSRC, "flash_fwd.cu")) as f:
-        text = f.read()
     assert regs_probe.VARIANTS["256 threads (as built)"] == ()
-    for label, changes in regs_probe.VARIANTS.items():
-        variant = text
-        for old, new in changes:
-            assert variant.count(old) == 1, (label, old)
-            variant = variant.replace(old, new)
-        assert (regs_probe.KERNEL in variant) and (variant != text or not changes), label
+    assert regs_probe.PROBES["K1"][2:] == (regs_probe.KERNEL, regs_probe.VARIANTS)
+    for key, (source, files, kernel, variants) in regs_probe.PROBES.items():
+        with open(os.path.join(_build.CSRC, source)) as f:
+            text = f.read()
+        assert source in files and all(os.path.exists(os.path.join(_build.CSRC, n))
+                                       for n in files), key
+        assert next(iter(variants.values())) == (), key
+        for label, changes in variants.items():
+            variant = regs_probe.apply(text, changes, source)
+            assert (f" {kernel}(" in variant) and (variant != text or not changes), (key, label)
 
 
 def _run(cmd, cwd):
@@ -357,10 +361,11 @@ def test_profile_groups_follow_the_kernel_names():
     # each of K1-K3 has a wgmma kernel, a CUDA-core one (flash_generic.cu),
     # a cluster one (flash_fwd_wide.cu, flash_bwd_wide.cu), a 3xTF32 one
     # (flash_fwd_tf32.cu, flash_bwd_tf32.cu) and a 3xTF32 cluster one
-    # (flash_fwd_tf32_wide.cu, flash_bwd_tf32_wide.cu); K1 also a wgmma one
-    # of its own at the padded width 256 (flash_fwd_kernel_d256)
-    assert sorted(groups.values()) == ["K1 flash_fwd"] * 6 + ["K2 flash_bwd_dq"] * 5 + [
-        "K3 flash_bwd_dkv"] * 5
+    # (flash_fwd_tf32_wide.cu, flash_bwd_tf32_wide.cu); each also a wgmma one
+    # of its own at the padded width 256 (flash_fwd_kernel_d256,
+    # flash_bwd_dq_kernel_d256, flash_bwd_dkv_kernel_d256)
+    assert sorted(groups.values()) == ["K1 flash_fwd"] * 6 + ["K2 flash_bwd_dq"] * 6 + [
+        "K3 flash_bwd_dkv"] * 6
     # as the profiler shows them: mangled, inside their anonymous namespace
     for name, group in groups.items():
         mangled = f"_ZN45_GLOBAL__N__0123_12_x{len(name)}{name}ILi128ELb1EEEvNS_4ArgsE"

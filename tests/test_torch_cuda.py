@@ -140,16 +140,20 @@ PADDED_SHAPES = [
     (2, 130, 4, 4, 96, False),
     (2, 200, 8, 2, 112, True),
 ]
-# head dims past 128, run at the padded width 256 (K1 in 128-row blocks of
-# two consumers that each own all 256 columns of o for their rows, with a
-# T = 150 block whose second consumer has no row; K2 in 64-row blocks whose
-# consumers split dq's columns, K3 in column halves), with MQA and ragged T
+# head dims past 128, run at the padded width 256 (K1 and K2 in 128-row
+# blocks of two consumers that each own all 256 columns of o or dq for their
+# rows, with a T = 150 block whose second consumer has no row; K3 a block a
+# 64-key tile whose consumers own all 256 columns of dv or dk, on grids of at
+# least the card's SMs (the last two: 4 x 2 x 18 = 144 and 8 x 1 x 17 = 136
+# blocks), else in column halves), with MQA and ragged T
 WIDE_SHAPES = [
     (2, 200, 8, 1, 136, True),
     (1, 200, 8, 1, 192, False),
     (2, 200, 8, 1, 256, True),
     (2, 150, 8, 1, 256, True),
     (1, 320, 8, 2, 256, False),
+    (4, 1100, 8, 2, 256, True),
+    (8, 1050, 8, 1, 200, False),
 ]
 
 
@@ -350,6 +354,22 @@ def test_backward_is_bit_reproducible(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_backward_at_width_256_is_bit_reproducible(cuda, dtype):
+    # the Dp 256 K2's and K3's consumers load each other's tiles by tickets
+    # taken in no fixed order; what they compute does not depend on it (4 x
+    # 2 x 18 = 144 key-tile blocks: K3's Dp 256 kernel on an H100's 132 SMs)
+    q, k, v = _qkv(4, 1100, 8, 2, 256, seed=8, dtype=dtype)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(9),
+                     device="cuda").to(dtype)
+    for causal in (True, False):
+        o, lse = tattn.flash_forward(q, k, v, causal=causal)
+        for gd in (None, torch.float32):
+            first = tattn.flash_backward(q, k, v, o, lse, do, causal=causal, grad_dtype=gd)
+            second = tattn.flash_backward(q, k, v, o, lse, do, causal=causal, grad_dtype=gd)
+            assert all(torch.equal(a, b) for a, b in zip(first, second)), (causal, gd)
+
+
 SENTINEL = -7777.0
 
 
@@ -444,15 +464,30 @@ def _sass_by_kernel(library: str) -> dict:
 ])
 def test_kernels_run_on_wgmma_and_tma(cuda, library, kernel):
     # every instance (D 64/128/256 x causal/full x 16-bit/f32 outputs, of
-    # the bf16 or the fp16 library) multiplies with wgmma (HGMMA) on tiles
-    # loaded by TMA (UTMALDG), never
+    # the bf16 or the fp16 library; the names take in the Dp 256 kernels,
+    # and K3 keeps its column-split Dp 256 instances for small grids: 16)
+    # multiplies with wgmma (HGMMA) on tiles loaded by TMA (UTMALDG), never
     # with mma.sync (HMMA) or cp.async (LDGSTS)
     sass = _sass_by_kernel(_build.build(library))
     found = {k: v for k, v in sass.items() if kernel in k}
-    assert len(found) == 12, sorted(sass)
+    assert len(found) == (16 if "dkv" in kernel else 12), sorted(sass)
     for name, text in found.items():
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert "HMMA" not in text and "LDGSTS" not in text, name
+
+
+@pytest.mark.parametrize("library", ["flash_bwd", "flash_bwd_f16"])
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq_kernel_d256", "flash_bwd_dkv_kernel_d256"])
+def test_width_256_backward_holds_its_accumulators_in_registers(cuda, library, kernel):
+    # the Dp 256 K2 and K3 (causal or not x 16-bit or f32 outputs) keep
+    # dq's, or dv's and dk's, 128 f32 accumulators a thread in registers:
+    # wgmma on TMA-fed tiles, and no local-memory load or store (a spill)
+    sass = _sass_by_kernel(_build.build(library))
+    found = {k: v for k, v in sass.items() if kernel in k}
+    assert len(found) == 4, sorted(sass)
+    for name, text in found.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert not re.search(r"\b(LDL|STL)\b", text), name
 
 
 @pytest.mark.parametrize("library", ["flash_fwd", "flash_fwd_f16"])
