@@ -181,14 +181,18 @@ Phases, each of which must pass or the script exits non-zero:
     and acceptance lines; then tokens/s, TTFT and TPOT against the plain
     engine eager and with graph windows of 8, in turns.
 (q) head dims other than 64 and 128: K1, K2, K3 and their f32 forms at D =
-    32, 80, 96 and 112 (each run at its padded width, 64 or 128), causal
-    and not, with a GQA group of 4 at a ragged T, against their plain
-    versions with the limits of (b), (f) and (m), the f32 forms rounded
-    once equal to the bf16 kernels; every output stored through a view
-    into a 128-wide buffer whose other columns hold a sentinel, which must
-    stay; two planted faults caught: a kernel that reads the next head's
-    columns (neighbouring heads differ twofold) and one that stores past
-    D; K1-K3 at Phi-3-mini's shape (B=8, T=2048, H=H_kv=32, D=96, causal)
+    32, 72, 80, 96 and 112 (each run at its padded width: 64, or 128; K2
+    and K3 run 72-96 at 96), causal and not, with a GQA group of 4 at a
+    ragged T, against their plain versions with the limits of (b), (f) and
+    (m), the f32 forms rounded once equal to the bf16 kernels, and K2 and
+    K3 at fp16 inputs in both forms; the kernels K2 and K3 launch at D 72,
+    80, 96 and 112, bf16 and fp16, read from torch.profiler's kernel names
+    (the Dp 96 instances up to 96, Dp 128 at 112); every output stored
+    through a view into a 128-wide buffer whose other columns hold a
+    sentinel, which must stay; two planted faults caught: a kernel that
+    reads the next head's columns (neighbouring heads differ twofold) and
+    one that stores past D; K1-K3 at Phi-3-mini's shape (B=8, T=2048,
+    H=H_kv=32, D=96, causal; K3 on its turned grid of 256 (b, h_kv) pairs)
     against their plain versions, then timed in turns against the same
     kernels at D = 128 (``ops/kernel_ab.py``), beside their bound at the
     real D, the plain version and ``scaled_dot_product_attention``; then
@@ -435,6 +439,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -3835,7 +3840,8 @@ def _spec_times(srv: dict, engine, checked: dict) -> None:
 # (q) Phi-3-mini's width, as microsoft/Phi-3-mini-4k-instruct's published
 # config.json gives it: vocab 32064, d_model 3072, 32 heads, 32 kv heads
 # (MHA), d_ff 8192, rope theta 10000 (both packages' default): head dim 96,
-# which K1-K3 run at their padded width 128. SwiGLU, RMSNorm, RoPE, an
+# which K1 runs at its padded width 128 and K2 and K3 at theirs, 96 (three
+# 32-column panels a tile, csrc/hopper.cuh). SwiGLU, RMSNorm, RoPE, an
 # untied lm_head and no biases are the repo's own architecture. Departures:
 # RMSNorm eps is 1e-6 in both packages (Phi-3: 1e-5; no flag sets it); the
 # config's sliding_window (2047) is absent from the repo's model (at seq 2048
@@ -3894,11 +3900,12 @@ GEMMA = Width("[r]", "Gemma-2B", dict(vocab_size=256000, d_model=2048, n_heads=8
                                       n_kv_heads=1, d_ff=16384),
               eval_layers=18, layers=6)
 # the head dims the kernels run at a padded width, each checked causal and
-# not at a ragged T: (q) 32 at 64; 80, 96 and 112 at 128, with GQA (a group
-# of 4); (r) 136, 192 and 256 at 256, with MQA and a GQA group of 4, on
+# not at a ragged T: (q) 32 at 64; 72, 80 and 96 at 128 (K1) and 96 (K2,
+# K3), 112 at 128, with GQA (a group of 4); (r) 136, 192 and 256 at 256,
+# with MQA and a GQA group of 4, on
 # grids that take K3's small-grid route (fewer key-tile blocks than the
 # card's SMs) and, the last case, its Dp 256 kernel (8 x 18 = 144 blocks)
-PADDED_DIMS = (32, 80, 96, 112)
+PADDED_DIMS = (32, 72, 80, 96, 112)
 PADDED_CASES = (dict(b=2, t=200, h=8, h_kv=2),)
 WIDE_DIMS = (136, 192, 256)
 WIDE_CASES = (dict(b=2, t=200, h=8, h_kv=1), dict(b=2, t=200, h=8, h_kv=2),
@@ -3910,10 +3917,6 @@ PAD_TURNS = 2  # rounds of (reference shape, width's, width's, reference) kernel
 GEMMA_HOP = dict(b=1, t=2048, h=8, h_kv=1, d=256)
 
 
-def _padded(d: int) -> int:
-    return 64 if d <= 64 else 128 if d <= 128 else 256
-
-
 def _work_factor(key: str, s: dict) -> float:
     """The work the kernel ``key`` does at shape ``s``, over the work of its
     products at its padded width: 1, each score formed once (flash_fwd.cu,
@@ -3923,7 +3926,9 @@ def _work_factor(key: str, s: dict) -> float:
     twice (3/2)."""
     import torch
 
-    if key != "dkv" or _padded(s["d"]) <= 128:
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    if key != "dkv" or attn.padded_head_dim(s["d"], key) <= 128:
         return 1.0
     blocks = s["b"] * s["h_kv"] * -(-s["t"] // 64)
     return 3 / 2 if blocks < torch.cuda.get_device_properties(0).multi_processor_count else 1.0
@@ -3995,17 +4000,19 @@ def _launch_all(q, k, v, do, lse, o16, d_launch: int, causal: bool, f32: bool, o
 def _padded_case(tag: str, d: int, case: dict, causal: bool, seed: int, plant: bool) -> None:
     """K1-K3 and their f32 forms at head dim ``d`` against their plain
     versions (the limits of (b), (f) and (m)); the f32 outputs rounded once
-    to bf16 equal to the bf16 kernels'; every output stored through a view
-    into a buffer at least 128 wide (the padded width) whose other columns
-    must keep their sentinel (64 columns past D where D is the padded width
-    itself); with ``plant``, the two faults the padding invites: a kernel
-    that reads the next head's columns, and one that stores past D."""
+    to bf16 equal to the bf16 kernels'; K2 and K3 at fp16 inputs in both
+    forms the same way; every output stored through a view into a buffer at
+    least 128 wide (K1's padded width) whose other columns must keep their
+    sentinel (64 columns past D where D is the padded width itself); with
+    ``plant``, the two faults the padding invites: a kernel that reads the
+    next head's columns, and one that stores past D."""
     import torch
 
     from hivedscheduler_tpu_torch.ops import attention as attn
 
     f32 = torch.float32
-    b, t, h, h_kv, dp = case["b"], case["t"], case["h"], case["h_kv"], _padded(d)
+    b, t, h, h_kv = case["b"], case["t"], case["h"], case["h_kv"]
+    dp, dp_bwd = attn.padded_head_dim(d), attn.padded_head_dim(d, "dq")
     width = max(128, dp) if dp > d else d + 64
     q, k, v = (_spread_heads(x) for x in make_qkv(b, t, h, h_kv, d, seed=seed))
     do = _spread_heads(make_qkv(b, t, h, h_kv, d, seed=seed + 1)[0])
@@ -4031,7 +4038,8 @@ def _padded_case(tag: str, d: int, case: dict, causal: bool, seed: int, plant: b
         _launch_all(q, k, v, do, lse, o16, d, causal, dtype == f32, [w[1] for w in wide])
         kept &= all(bool((buf[..., d:] == SENTINEL).all()) for buf, _ in wide)
         equal &= all(torch.equal(view, x) for (_, view), x in zip(wide, (o, *grads)))
-    print(f"{tag} D={d} (run at {dp}) B={b} T={t} H={h} H_kv={h_kv} causal={causal}: "
+    print(f"{tag} D={d} (K1 run at {dp}, K2 and K3 at {dp_bwd}) B={b} T={t} H={h} "
+          f"H_kv={h_kv} causal={causal}: "
           + "; ".join(f"{form} " + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}"
                                             for n, fr, rw in e) for form, e in errs.items())
           + f"; max|lse err| {lse_err:.3e} (limits o {O_REL}/{O_ROW_REL}, gradients "
@@ -4047,6 +4055,24 @@ def _padded_case(tag: str, d: int, case: dict, causal: bool, seed: int, plant: b
     check(same, f"D={d}: the f32 forms, rounded to bf16, differ from the bf16 kernels")
     check(kept, f"D={d}: a kernel stored past the head dim")
     check(equal, f"D={d}: a kernel's output through a strided view differs")
+    # K2 and K3 at fp16 inputs (the same draws rounded), both forms
+    qh, kh, vh, doh = (x.to(torch.float16) for x in (q, k, v, do))
+    oh, lseh = attn.flash_forward(qh, kh, vh, causal=causal)
+    gh = attn.flash_backward(qh, kh, vh, oh, lseh, doh, causal=causal)
+    gh32 = attn.flash_backward(qh, kh, vh, oh, lseh, doh, causal=causal, grad_dtype=f32)
+    gh_ref = attn.flash_backward_plain(qh, kh, vh, oh, lseh, doh, causal=causal, grad_dtype=f32)
+    torch.cuda.synchronize()
+    errs16 = {form: [(n,) + rel_errs(x, r, floor=1e-3)
+                     for n, x, r in zip(("dq", "dk", "dv"), grads, gh_ref)]
+              for form, grads in (("fp16", gh), ("f32", gh32))}
+    same16 = all(torch.equal(x.to(torch.float16), y) for x, y in zip(gh32, gh))
+    print(f"{tag} D={d} fp16 K2/K3 (at {dp_bwd}) causal={causal}: "
+          + "; ".join(f"{form} " + ", ".join(f"{n} rel {fr:.3e} worst row {rw:.3e}"
+                                            for n, fr, rw in e) for form, e in errs16.items())
+          + f" (limits {GRAD_REL}/{GRAD_ROW_REL}); f32 forms rounded equal to fp16: {same16}")
+    check(all(fr <= GRAD_REL and rw <= GRAD_ROW_REL for e in errs16.values() for _, fr, rw in e),
+          f"D={d}: fp16 K2/K3 disagree with their plain version")
+    check(same16, f"D={d}: the fp16 K2/K3's f32 forms, rounded to fp16, differ from the fp16 ones")
     if not plant or dp == d:  # no padding columns to read or store
         return
     # planted fault 1: a kernel that reads the next head's columns, i.e. the
@@ -4188,7 +4214,7 @@ def _width_kernel_times(w: Width, ref: dict, ref_name: str) -> dict:
         bound = {name: _bound(key, sh) for name, sh in shapes.items()}
         med = {name: sorted(rd)[len(rd) // 2] for name, rd in readings[key].items()}
         real = bound["this"][2] / bound["ref"][2]
-        done = {name: _padded(sh["d"]) / sh["d"] * _work_factor(key, sh)
+        done = {name: attn.padded_head_dim(sh["d"], key) / sh["d"] * _work_factor(key, sh)
                 for name, sh in shapes.items()}
         print(f"{w.tag} {key} at the {w.name} shape [{s['b']},{s['t']},{s['h']}/{s['h_kv']},"
               f"{s['d']}] against the {ref_name} [{r['b']},{r['t']},{r['h']}/{r['h_kv']},"
@@ -4389,12 +4415,62 @@ def _timed_parts(tag: str, parts) -> list:
     return out
 
 
+# the head dims whose K2 and K3 routes (q) reads by kernel name: the Dp 96
+# kernels at 72, 80 and 96, the Dp 128 ones from 104 on
+BWD_ROUTE_DIMS = (72, 80, 96, 112)
+# a K2 or K3 wgmma kernel's padded width in its name, demangled or mangled
+_BWD_KERNEL = re.compile(r"flash_bwd_(dq|dkv)_kernel(?:<|ILi)(\d+)")
+
+
+def _bwd_kernel_routes() -> None:
+    """_bwd_kernel_names in a process of its own: in this one, after the
+    phases before (q), its torch.profiler runs recorded no kernel at all,
+    while a fresh process's record every one, as the card tests' do."""
+    code = "import chip_smoke; chip_smoke._bwd_kernel_names()"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    print(proc.stdout, end="")
+    check(proc.returncode == 0, f"the K2/K3 kernel-name check exited {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+
+
+def _bwd_kernel_names() -> None:
+    """The kernels that K2 and K3 launch at each D of BWD_ROUTE_DIMS, bf16
+    and fp16 inputs, both output forms, as torch.profiler names them: the
+    padded width of each must be ``attention.padded_head_dim``'s (96 up to
+    D 96, 128 at 112)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hivedscheduler_tpu_torch.ops import attention as attn
+
+    seen = {}
+    for d in BWD_ROUTE_DIMS:
+        for dtype in (torch.bfloat16, torch.float16):
+            q, k, v = (x.to(dtype) for x in make_qkv(2, 200, 8, 2, d, seed=150 + d))
+            do = make_qkv(2, 200, 8, 2, d, seed=151 + d)[0].to(dtype)
+            o, lse = attn.flash_forward(q, k, v)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for gd in (None, torch.float32):
+                    attn.flash_backward(q, k, v, o, lse, do, grad_dtype=gd)
+                torch.cuda.synchronize()
+            found = sorted({(m.group(1), int(m.group(2))) for e in prof.key_averages()
+                            for m in [_BWD_KERNEL.search(e.key)] if m})
+            seen[(d, str(dtype)[6:])] = found
+            want = [("dkv", attn.padded_head_dim(d, "dkv")), ("dq", attn.padded_head_dim(d, "dq"))]
+            check(found == want, f"D={d} {dtype}: K2 and K3 launched {found}, want {want}")
+    print(f"{PHI3.tag} K2 and K3 kernels by name (torch.profiler), (kernel, padded width) at "
+          + "; ".join(f"D={d} {dt}: {found}" for (d, dt), found in seen.items()))
+
+
 def phase_phi3() -> dict:
     """(q): K1-K3 and their f32 forms at the padded head dims up to 128,
     then Phi-3-mini's width (head dim 96) through eval, train, generate and
     serve. Returns the D = 96 rows of the kernels line."""
-    max_err, timing, eval_k1, launches, _, _ = _timed_parts(PHI3.tag, [
+    max_err, _, timing, eval_k1, launches, _, _ = _timed_parts(PHI3.tag, [
         ("kernel checks", lambda: _width_kernel_check(PHI3, PADDED_DIMS, PADDED_CASES, 90)),
+        ("kernel routes", _bwd_kernel_routes),
         ("kernel times", lambda: _width_kernel_times(PHI3, dict(PHI3.shape, d=128),
                                                      "same heads at D 128")),
         ("eval", lambda: _width_eval(PHI3)),

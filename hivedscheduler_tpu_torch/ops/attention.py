@@ -63,9 +63,11 @@ f64, integer dtypes and D % 8 != 0 raise; no route depends on a build or a
 launch failing, and a kernel that fails raises.
 
 The wgmma kernels run on TMA-fed shared tiles with a producer warpgroup and
-two consumer warpgroups (``csrc/hopper.cuh``), each D at its padded width,
-64, 128 or 256 (D = 96 runs the 128 template, 4/3 of the real work; D = 136
-the 256 one, 1.88). At 256 (Gemma's head dim) K1, K2 and K3 are blocks of
+two consumer warpgroups (``csrc/hopper.cuh``), each D at its padded width
+(:func:`padded_head_dim`), 64, 128 or 256, and for K2 and K3 also 96 (D =
+96 runs K1 at the 128 template, 4/3 of the real work, and K2 and K3 on
+tiles of three 32-column panels that stop at column 96; D = 136 runs the
+256 templates, 1.88). At 256 (Gemma's head dim) K1, K2 and K3 are blocks of
 the two consumer warpgroups alone, without a producer, each consumer
 holding all 256 columns of its output, so each score is formed once; on a
 grid of fewer 64-key tiles than the card has SMs (one ring hop) K3 splits
@@ -155,10 +157,23 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 # every positive multiple of 8, with no upper bound (a range, so that ``in``
 # is a test of the rule)
 KERNEL_HEAD_DIMS = range(8, sys.maxsize, 8)
-# the head dims of the wgmma kernels, each run at its padded width 64, 128
-# or 256 (csrc/flash_common.cuh); past them bf16 and fp16 run the cluster
-# kernels up to 1024, and the CUDA-core family past that
+# the head dims of the wgmma kernels, each run at its padded width
+# (padded_head_dim); past them bf16 and fp16 run the cluster kernels up to
+# 1024, and the CUDA-core family past that
 WGMMA_HEAD_DIMS = range(8, 257, 8)
+
+
+def padded_head_dim(d: int, kernel: str = "fwd") -> int:
+    """The padded width at which the 16-bit wgmma kernel ``kernel`` ("fwd",
+    "dq" or "dkv") runs head dim ``d`` of :data:`WGMMA_HEAD_DIMS`
+    (``csrc/flash_common.cuh``: ``padded_head_dim`` for K1,
+    ``bwd_padded_head_dim`` for K2 and K3); its products do this over ``d``
+    times the real work."""
+    if kernel != "fwd" and 64 < d <= 96:
+        return 96
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
 # the head dims of the cluster K1, K2 and K3 (csrc/flash_fwd_wide.cu,
 # csrc/flash_bwd_wide.cu): 128-column panels, at most 8 blocks a cluster
 WIDE_HEAD_DIMS = range(264, 1025, 8)

@@ -89,6 +89,34 @@
 // K2's delta reads o from global memory only below D, and every epilogue
 // stores only columns < D. The scale is the real D's.
 //
+// Dp = 96 (Phi-3-mini's head dim, and 72-88; bwd_padded_head_dim,
+// flash_common.cuh; K1 runs these D at 128). At the 128 template a quarter
+// of K2's and K3's tensor-core work multiplied zero columns: the K-major
+// products (s, dp; s^T, dp^T) ran 8 k-steps where 6 hold data, the MN-major
+// ones (dq, dv, dk) 128 output columns where 96 do. So the Dp 64/128
+// templates are also instantiated at 96, on tiles of three 32-column panels
+// with the 64-byte swizzle (hopper.cuh: one tensor map of 32-column boxes,
+// desc_sw64, m64n96k16): 6 k-steps and 96 columns, nothing past 96. The
+// blocks, tiles, stages, masks and each output element's order of arithmetic
+// are the Dp 128 instances' (zero k-steps add exact zeros; K2's delta keeps
+// its lanes' split, columns 0-63 and 64 up to D), so dq, dk and dv equal
+// theirs bit for bit. K2's block takes 96 KB of shared memory, K3's 144 KB,
+// and each consumer's dq, dv or dk is 48 f32 registers a thread, not 64. The
+// panel helpers (panel_cols, desc_tile, kstep_off, tile_chunk) fold to the
+// Dp 64/128/256 instances' former constants, whose SASS is unchanged
+// (`python -m hivedscheduler_tpu_torch.ops.kernel_ab --sass`).
+// K3 at Dp = 96 may also turn its grid: key tiles along x, (b, h_kv) pairs
+// along y, so that each pair's key tiles run side by side, heaviest first.
+// Its blocks stream the q and do tiles of their pair's heads. With the pairs
+// along x, the blocks that run at once hold about SMs / pairs key tiles of
+// each pair; under two, hardly any of them share what they stream: at
+// Phi-3-mini's 256 pairs the narrower products saved nothing there
+// (1.54-1.65 ms either way on an H100's 132 SMs), and turned the kernel took
+// 1.32-1.39 ms; at 128 pairs (batch 4) 0.77 against 0.68. At 64 pairs (GQA
+// 4) the turned grid, which gives up scheduling every heaviest tile first,
+// was 3% slower (and 2% at D 128). So bwd_dkv turns it where 2 B H_kv > SMs.
+// The Dp 64/128/256 grids keep their order.
+//
 // Dp = 256 (Gemma's head dim). A whole-width accumulator is 128 f32
 // registers a thread there: K2's dq beside s and dp, K3's dv beside s^T and
 // dk beside dp^T. In a block with a producer warpgroup ptxas gives 168
@@ -183,8 +211,8 @@ __device__ __forceinline__ T* at(T* base, const Strides& s, int b, int h) {
 constexpr int kDqBlockN = 64;  // keys per K/V tile
 constexpr int kDqStages = 2;   // K/V ring depth
 
-// shared-memory layout at Dp = 64 and 128, byte offsets from a 1024-aligned
-// base: 128 q rows a block, the two consumer warpgroups 64 each
+// shared-memory layout at Dp = 64, 96 and 128, byte offsets from a
+// 1024-aligned base: 128 q rows a block, the two consumer warpgroups 64 each
 template <int D>
 struct DqSmem {
   static constexpr int kBlockM = 128;
@@ -270,6 +298,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   using L = DqSmem<D>;
   using Pair = typename std::conditional<kIsF16<In>, __half2, __nv_bfloat162>::type;
   constexpr int kBlockM = L::kBlockM;
+  constexpr int P = panel_cols(D);  // a tile panel's columns (hopper.cuh)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   In* sQ = reinterpret_cast<In*>(smem + L::kQ);
@@ -342,24 +371,25 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int64_t lrow = static_cast<int64_t>(bh) * T;
 
   // delta = rowsum(do * o) for the warp's 16 rows, two lanes a row, each
-  // summing half of the padded width in f32: do from its swizzled tile (chunk
-  // c of row r at chunk c ^ (r % 8)), o from global memory, columns < the
-  // real D only (past it lies the next head's o; D % 8 == 0 keeps each
-  // 8-column chunk whole)
+  // summing half of the padded width in f32 (at Dp = 96 as at 128: columns
+  // 0-63 and 64 up to D, so delta keeps its last bits): do from its
+  // swizzled tile (tile_chunk), o from global memory, columns < the real D
+  // only (past it lies the next head's o; D % 8 == 0 keeps each 8-column
+  // chunk whole)
+  constexpr int kHalfCols = D == 96 ? 64 : D / 2;
   mbar_wait(qdo_full, 0);
   {
     const int r = r0 + lane / 2;
     const int row = q0 + r;
-    const int c0 = (lane & 1) * (D / 2);
+    const int c0 = (lane & 1) * kHalfCols;
     float sum = 0.f;
     if (row < T) {
       const In* orow = at(static_cast<const In*>(a.o), a.so, b, h) + row * a.so.t;
 #pragma unroll
-      for (int cc = 0; cc < D / 2; cc += 8) {
+      for (int cc = 0; cc < kHalfCols; cc += 8) {
         const int col = c0 + cc;
         if (col >= a.D) break;
-        const In* drow =
-            sDo + (col / 64) * kBlockM * 64 + r * 64 + ((((col % 64) / 8) ^ (r & 7)) * 8);
+        const In* drow = sDo + tile_chunk<D, kBlockM>(r, col);
         const uint4 dv = *reinterpret_cast<const uint4*>(drow);
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + col);
         const Pair* d2 = reinterpret_cast<const Pair*>(&dv);
@@ -387,12 +417,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const float scale_log2 = a.scale * kLog2e;
 
   // K-major descriptors of this consumer's q and do rows and of stage 0's K
-  // and V tiles; MN-major of stage 0's K tile (LBO: its 64-column blocks)
-  const uint64_t dQ = desc_sw128(sQ + rows_c * 64, 16);
-  const uint64_t dDo = desc_sw128(sDo + rows_c * 64, 16);
-  const uint64_t dK = desc_sw128(sK, 16);
-  const uint64_t dV = desc_sw128(sV, 16);
-  const uint64_t dKn = desc_sw128(sK, kDqBlockN * 128);
+  // and V tiles; MN-major of stage 0's K tile (LBO: its panels)
+  const uint64_t dQ = desc_tile<D>(sQ + rows_c * P, 16);
+  const uint64_t dDo = desc_tile<D>(sDo + rows_c * P, 16);
+  const uint64_t dK = desc_tile<D>(sK, 16);
+  const uint64_t dV = desc_tile<D>(sV, 16);
+  const uint64_t dKn = desc_tile<D>(sK, kDqBlockN * P * 2);
 
   float acc[D / 2];
 #pragma unroll
@@ -409,14 +439,14 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t qcol = (kk / 4) * kBlockM * 128 + (kk % 4) * 32;
-      const uint32_t kcol = stage_off + (kk / 4) * kDqBlockN * 128 + (kk % 4) * 32;
+      const uint32_t qcol = kstep_off<D>(kk, kBlockM);
+      const uint32_t kcol = stage_off + kstep_off<D>(kk, kDqBlockN);
       wgmma_ss<kDqBlockN, In>(s, desc_add(dQ, qcol), desc_add(dK, kcol), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t qcol = (kk / 4) * kBlockM * 128 + (kk % 4) * 32;
-      const uint32_t kcol = stage_off + (kk / 4) * kDqBlockN * 128 + (kk % 4) * 32;
+      const uint32_t qcol = kstep_off<D>(kk, kBlockM);
+      const uint32_t kcol = stage_off + kstep_off<D>(kk, kDqBlockN);
       wgmma_ss<kDqBlockN, In>(dp, desc_add(dDo, qcol), desc_add(dV, kcol), kk > 0);
     }
     wgmma_commit();
@@ -448,11 +478,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       ds_tile<false, kCausal>(ds, s, dp, scale_log2, lb_a, lb_b, dl_a, dl_b, 0, 0, 0, 0);
     }
 
-    // dq += ds k: k-step kk reads keys [16kk, 16kk + 16) of K, 2048 bytes on
+    // dq += ds k: k-step kk reads keys [16kk, 16kk + 16) of K, 16 rows of
+    // each panel on (2048 bytes, 1024 at Dp = 96)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDqBlockN / 16; ++kk) {
-      wgmma_rs<D, In>(acc, ds[kk], desc_add(dKn, stage_off + kk * 2048), 1);
+      wgmma_rs<D, In>(acc, ds[kk], desc_add(dKn, stage_off + kk * 16 * P * 2), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -860,6 +891,8 @@ struct DkvSmem {
   static constexpr bool kSplitD = D > 128;          // blocks split dk's and dv's columns
   static constexpr int kAccD = kSplitD ? D / 2 : D;  // dk, dv columns a block owns
   static constexpr int kStages = kSplitD ? 2 : 3;    // q/do ring depth
+  // bwd_dkv may turn the grid at Dp = 96: key tiles along x (the header)
+  static constexpr bool kMayTurn = D == 96;
   static constexpr int kPBufs = kSplitD ? 1 : 2;     // f32 p^T buffers, A to B
   static constexpr int kKTile = kDkvBlockN * D * 2;              // k or v
   static constexpr int kQTile = kDkvBlockM * D * 2;              // q or do, one stage
@@ -890,6 +923,7 @@ struct DkvArgs {
   int D;  // the real head dim; the kernel runs at its template's padded width
   Strides sdk, sdv;
   float scale;
+  int keys_first;  // Dp = 96: key tiles along x, (b, h_kv) pairs along y
 };
 
 // s^T = -inf (so p^T = 0) for the rows of a masked tile at or past T and,
@@ -946,6 +980,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   using L = DkvSmem<D>;
   constexpr int kStages = L::kStages;
   constexpr int kPBufs = L::kPBufs;
+  constexpr int P = panel_cols(D);  // a tile panel's columns (hopper.cuh)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   In* sK = reinterpret_cast<In*>(smem + L::kK);
@@ -965,9 +1000,19 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
   const int T = a.T;
   const int h_kv_count = a.H / a.group;
-  const int b = blockIdx.x / h_kv_count;
-  const int h_kv = blockIdx.x % h_kv_count;
-  const int k0 = blockIdx.y * kDkvBlockN;  // y = 0, the heaviest tiles, is scheduled first
+  // the block's (b, h_kv) pair and key tile (unsigned, as blockIdx): pairs
+  // along x and key tiles along y, y = 0 (the heaviest tiles) scheduled
+  // first, or turned (keys_first): each pair's tiles side by side
+  unsigned bkv = blockIdx.x, tile = blockIdx.y;
+  if constexpr (L::kMayTurn) {
+    if (a.keys_first) {
+      bkv = blockIdx.y;
+      tile = blockIdx.x;
+    }
+  }
+  const int b = bkv / h_kv_count;
+  const int h_kv = bkv % h_kv_count;
+  const int k0 = tile * kDkvBlockN;
   const int col0 = L::kSplitD ? blockIdx.z * L::kAccD : 0;  // the block's first dk, dv column
   const int n_q_tiles = (T + kDkvBlockM - 1) / kDkvBlockM;
   const int first = kCausal ? k0 / kDkvBlockM : 0;  // earlier q tiles see none of these keys
@@ -1038,18 +1083,18 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int key_b = key_a + 8;           // and e = 2, 3
 
   // the stage-0 descriptors: K-major q, do and the score operands, MN-major
-  // q and do (LBO: their 64-column blocks, 64 rows x 128 bytes apart) from
-  // the block's first column block of dk and dv on
-  const uint64_t dQ = desc_sw128(sQ, 16);
-  const uint64_t dDo = desc_sw128(sDo, 16);
-  const uint32_t col0_off = (col0 / 64) * kDkvBlockM * 128;
-  const uint64_t dQn = desc_add(desc_sw128(sQ, kDkvBlockM * 128), col0_off);
-  const uint64_t dDon = desc_add(desc_sw128(sDo, kDkvBlockM * 128), col0_off);
+  // q and do (LBO: their panels, 64 rows x 128 bytes apart, or 64 bytes at
+  // Dp = 96) from the block's first panel of dk and dv on
+  const uint64_t dQ = desc_tile<D>(sQ, 16);
+  const uint64_t dDo = desc_tile<D>(sDo, 16);
+  const uint32_t col0_off = (col0 / P) * kDkvBlockM * P * 2;
+  const uint64_t dQn = desc_add(desc_tile<D>(sQ, kDkvBlockM * P * 2), col0_off);
+  const uint64_t dDon = desc_add(desc_tile<D>(sDo, kDkvBlockM * P * 2), col0_off);
 
   if (wg == 1) {
     // A: s^T = k q^T, p^T = exp(scale s^T - lse), handed to B in f32 and
     // stored in the input type for dv += p^T do
-    const uint64_t dK = desc_sw128(sK, 16);
+    const uint64_t dK = desc_tile<D>(sK, 16);
     const uint64_t dP = desc_sw128(sPb, 16);
     const float scale_log2 = a.scale * kLog2e;
     float dv[L::kAccD / 2];
@@ -1067,8 +1112,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t kcol = (kk / 4) * kDkvBlockN * 128 + (kk % 4) * 32;
-        const uint32_t qcol = stage_off + (kk / 4) * kDkvBlockM * 128 + (kk % 4) * 32;
+        const uint32_t kcol = kstep_off<D>(kk, kDkvBlockN);
+        const uint32_t qcol = stage_off + kstep_off<D>(kk, kDkvBlockM);
         wgmma_ss<kDkvBlockM, In>(s, desc_add(dK, kcol), desc_add(dQ, qcol), kk > 0);
       }
       wgmma_commit();
@@ -1101,12 +1146,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       named_barrier(1, 128);
 
       // dv += p^T do: k-step kk reads q rows [16kk, 16kk + 16), +32 bytes
-      // along the p^T rows, +2048 bytes down the do tile
+      // along the p^T rows, 16 rows of each panel down the do tile (2048
+      // bytes, 1024 at Dp = 96)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
         wgmma_ss_mn<L::kAccD, In>(dv, desc_add(dP, kk * 32),
-                                  desc_add(dDon, stage_off + kk * 2048), 1);
+                                  desc_add(dDon, stage_off + kk * 16 * P * 2), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1128,7 +1174,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
   // B: dp^T = v do^T, ds^T = p^T (dp^T - delta) in f32 with A's p^T, stored
   // in the input type (fp16: each key's row scaled) for dk += ds^T q
-  const uint64_t dV = desc_sw128(sV, 16);
+  const uint64_t dV = desc_tile<D>(sV, 16);
   const uint64_t dDs = desc_sw128(sDs, 16);
   float dk[L::kAccD / 2];
 #pragma unroll
@@ -1145,8 +1191,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t kcol = (kk / 4) * kDkvBlockN * 128 + (kk % 4) * 32;
-      const uint32_t qcol = stage_off + (kk / 4) * kDkvBlockM * 128 + (kk % 4) * 32;
+      const uint32_t kcol = kstep_off<D>(kk, kDkvBlockN);
+      const uint32_t qcol = stage_off + kstep_off<D>(kk, kDkvBlockM);
       wgmma_ss<kDkvBlockM, In>(dp, desc_add(dV, kcol), desc_add(dDo, qcol), kk > 0);
     }
     wgmma_commit();
@@ -1210,8 +1256,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDkvBlockM / 16; ++kk) {
-      wgmma_ss_mn<L::kAccD, In>(dk, desc_add(dDs, kk * 32), desc_add(dQn, stage_off + kk * 2048),
-                                1);
+      wgmma_ss_mn<L::kAccD, In>(dk, desc_add(dDs, kk * 32),
+                                desc_add(dQn, stage_off + kk * 16 * P * 2), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1603,9 +1649,13 @@ cudaError_t launch_dkv(const DkvArgs& a, int B, cudaStream_t stream) {
       allow_smem(flash_bwd_dkv_kernel<D, kCausal, In, OutT>, kSmem, attr_set);
   if (err != cudaSuccess) return err;
   // key tiles along y, so that every tile 0 (the heaviest) is scheduled
-  // first; the column halves of dk and dv along z at Dp = 256
-  const dim3 grid(B * (a.H / a.group), (a.T + kDkvBlockN - 1) / kDkvBlockN,
-                  DkvSmem<D>::kSplitD ? 2 : 1);
+  // first, or turned at Dp = 96 (keys_first); the column halves of dk and
+  // dv along z at Dp = 256
+  const int n_tiles = (a.T + kDkvBlockN - 1) / kDkvBlockN;
+  const int n_kv = B * (a.H / a.group);
+  const dim3 grid = DkvSmem<D>::kMayTurn && a.keys_first
+                        ? dim3(n_tiles, n_kv)
+                        : dim3(n_kv, n_tiles, DkvSmem<D>::kSplitD ? 2 : 1);
   flash_bwd_dkv_kernel<D, kCausal, In, OutT><<<grid, kWsThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -1635,15 +1685,18 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
            int64_t dq_st, int64_t dq_sh, void* stream) {
   if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
   DqArgs a;
-  const int Dp = padded_head_dim(D);
+  const int Dp = bwd_padded_head_dim(D);
   // a box's rows: a q or do tile's and a K/V tile's, or at Dp = 256 a q or
-  // do half's and a kDq256Keys-key tile's
+  // do half's and a kDq256Keys-key tile's; its columns a panel's
   const int rows = Dp == 256 ? 64 : DqSmem<128>::kBlockM;
   const int keys = Dp == 256 ? kDq256Keys : kDqBlockN;
-  int err = make_tile_map<In>(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, rows);
-  if (err == 0) err = make_tile_map<In>(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, rows);
-  if (err == 0) err = make_tile_map<In>(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, keys);
-  if (err == 0) err = make_tile_map<In>(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, keys);
+  const int cols = panel_cols(Dp);
+  int err = make_tile_map<In>(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, rows, cols);
+  if (err == 0) {
+    err = make_tile_map<In>(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, rows, cols);
+  }
+  if (err == 0) err = make_tile_map<In>(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, keys, cols);
+  if (err == 0) err = make_tile_map<In>(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, keys, cols);
   if (err != 0) return err;
   a.o = o;
   a.lse = static_cast<const float*>(lse);
@@ -1661,6 +1714,9 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   if (Dp == 64) {
     launched = causal ? launch_dq<64, true, In, OutT>(a, B, s)
                       : launch_dq<64, false, In, OutT>(a, B, s);
+  } else if (Dp == 96) {
+    launched = causal ? launch_dq<96, true, In, OutT>(a, B, s)
+                      : launch_dq<96, false, In, OutT>(a, B, s);
   } else if (Dp == 128) {
     launched = causal ? launch_dq<128, true, In, OutT>(a, B, s)
                       : launch_dq<128, false, In, OutT>(a, B, s);
@@ -1680,12 +1736,18 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
             int64_t dv_sb, int64_t dv_st, int64_t dv_sh, void* stream) {
   if (bad_dims(B, T, H, H_kv, D)) return static_cast<int>(cudaErrorInvalidValue);
   DkvArgs a;
-  int err = make_tile_map<In>(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kDkvBlockM);
+  const int Dp = bwd_padded_head_dim(D);
+  const int cols = panel_cols(Dp);
+  int err = make_tile_map<In>(&a.tq, q, B, T, H, D, q_sb, q_st, q_sh, kDkvBlockM, cols);
   if (err == 0) {
-    err = make_tile_map<In>(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, kDkvBlockM);
+    err = make_tile_map<In>(&a.tdo, dout, B, T, H, D, do_sb, do_st, do_sh, kDkvBlockM, cols);
   }
-  if (err == 0) err = make_tile_map<In>(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDkvBlockN);
-  if (err == 0) err = make_tile_map<In>(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDkvBlockN);
+  if (err == 0) {
+    err = make_tile_map<In>(&a.tk, k, B, T, H_kv, D, k_sb, k_st, k_sh, kDkvBlockN, cols);
+  }
+  if (err == 0) {
+    err = make_tile_map<In>(&a.tv, v, B, T, H_kv, D, v_sb, v_st, v_sh, kDkvBlockN, cols);
+  }
   if (err != 0) return err;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
@@ -1698,22 +1760,30 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   a.sdk = {dk_sb, dk_st, dk_sh};
   a.sdv = {dv_sb, dv_st, dv_sh};
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
+  // the grid's shape against the card's SMs: at Dp = 96 a grid whose
+  // blocks running at once would hold fewer than two key tiles of a (b,
+  // h_kv) pair is turned, so that each pair's key tiles run side by side
+  // (the header); at Dp = 256 fewer key-tile blocks than SMs take the column
+  // split
+  int dev = 0, sms = 0;
+  cudaError_t got = cudaGetDevice(&dev);
+  if (got == cudaSuccess) got = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (got != cudaSuccess) return static_cast<int>(got);
+  a.keys_first = Dp == 96 && 2 * B * H_kv > sms;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t launched;
-  const int Dp = padded_head_dim(D);
   if (Dp == 64) {
     launched = causal ? launch_dkv<64, true, In, OutT>(a, B, s)
                       : launch_dkv<64, false, In, OutT>(a, B, s);
+  } else if (Dp == 96) {
+    launched = causal ? launch_dkv<96, true, In, OutT>(a, B, s)
+                      : launch_dkv<96, false, In, OutT>(a, B, s);
   } else if (Dp == 128) {
     launched = causal ? launch_dkv<128, true, In, OutT>(a, B, s)
                       : launch_dkv<128, false, In, OutT>(a, B, s);
   } else {
     // the column-split K3 (two blocks a key tile) where a grid of whole key
     // tiles would leave SMs idle, else the Dp = 256 kernel (the header)
-    int dev = 0, sms = 0;
-    cudaError_t got = cudaGetDevice(&dev);
-    if (got == cudaSuccess) got = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (got != cudaSuccess) return static_cast<int>(got);
     const bool split = B * H_kv * ((T + kDkvBlockN - 1) / kDkvBlockN) < sms;
     if (split) {
       launched = causal ? launch_dkv<256, true, In, OutT>(a, B, s)

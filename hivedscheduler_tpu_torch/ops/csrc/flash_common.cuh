@@ -39,9 +39,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 // only columns < D. A multiple of 8 keeps each 16-byte row chunk whole and
 // every global row 16-byte aligned, as a tensor map needs. At Dp = 256 one
 // 64-row accumulator of the whole width is 128 f32 registers a thread, so
-// each kernel has its own plan there (flash_fwd.cu, flash_bwd.cu).
+// each kernel has its own plan there (flash_fwd.cu, flash_bwd.cu). K2 and
+// K3 have a padded width of their own, 96, for 64 < D <= 96 (three 32-column
+// panels, hopper.cuh), so that no product runs the 128 template's zero
+// columns; K1 runs those D at 128.
 inline bool head_dim_ok(int D) { return D >= 8 && D <= 256 && D % 8 == 0; }
 inline int padded_head_dim(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
+inline int bwd_padded_head_dim(int D) {
+  return D <= 64 ? 64 : D <= 96 ? 96 : D <= 128 ? 128 : 256;
+}
 
 // two f32 values rounded to a pair of the input type, as one 32-bit wgmma
 // operand register

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels K1
 // (flash_fwd.cu), K2 and K3 (flash_bwd.cu), as raw PTX:
 // TMA tensor maps and bulk tensor loads that complete on mbarriers, wgmma
-// shared-memory descriptors for the 128-byte swizzled layout, and
+// shared-memory descriptors for the 128- and 64-byte swizzled layouts, and
 // wgmma.mma_async (bf16 or fp16 in, f32 accumulate) with its fences. The
 // element type In (bf16 or fp16) is a template parameter throughout: both
 // take the same instruction shapes, k-steps of 16 and swizzles, and differ
@@ -21,6 +21,16 @@
 //   in p^T do, Q in ds^T q): 8-row groups 1024 bytes apart (SBO), column
 //   blocks R * 128 bytes apart (LBO); a 16-row k-step is +2048 bytes, two
 //   whole swizzle atoms.
+// At the padded width 96 (K2 and K3 at 64 < D <= 96, flash_bwd.cu) a tile is
+// three 32-column panels of [R][32], rows 64 bytes, each panel 512-byte
+// aligned, which TMA writes with the 64-byte swizzle: chunk c (of 4) of row r
+// lands at chunk c ^ ((r / 2) % 4), and the pattern repeats every 8 rows (512
+// bytes). wgmma reads it through a SWIZZLE_64B descriptor: K-major with 8-row
+// groups 512 bytes apart (SBO), a k-step +32 bytes inside the row and +R * 64
+// bytes to the next panel; MN-major with SBO 512, the panels R * 64 bytes
+// apart (LBO) and a 16-row k-step +1024 bytes. So no product reads a column
+// past 96: the 128-byte layout would take 128 (the PTX ISA's canonical
+// layouts of wgmma; CUTLASS picks the same swizzle for a 96-wide tile).
 //
 // Accumulator layout of wgmma m64nNk16 for thread t of the warpgroup, warp
 // w = t / 32, lane l, g = l / 4, t4 = l % 4: d[4j + e] holds row 16w + g
@@ -70,15 +80,16 @@ inline EncodeTiled encode_tiled() {
 
 // Tensor map of a bf16 or fp16 (In) [B, T, heads, D] tensor with element
 // strides (sb, st, sh) and D contiguous, over the 4-D box space (D, heads,
-// T, B): a box is 64 columns of one head and `rows` rows of one batch,
-// 128-byte swizzled, so rows at or past T read as zeros and never come from
+// T, B): a box is `cols` columns of one head and `rows` rows of one batch,
+// 64 columns 128-byte swizzled or 32 columns 64-byte swizzled (the panels of
+// the padded width 96), so rows at or past T read as zeros and never come from
 // the next batch, and columns at or past D (the padding of a kernel run at a
 // wider template) read as zeros and never come from the next head. Either
 // way the box's full bytes complete on its barrier.
 // Returns 0 or the CUresult of the encoder.
 template <typename In>
 inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T, int heads, int D,
-                         int64_t sb, int64_t st, int64_t sh, int rows) {
+                         int64_t sb, int64_t st, int64_t sh, int rows, int cols = 64) {
   constexpr CUtensorMapDataType kType = std::is_same<In, __half>::value
                                             ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -88,11 +99,12 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T, int h
                               static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(st) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return static_cast<int>(encode(map, kType, 4, const_cast<void*>(base),
                                  dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                 cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
@@ -186,14 +198,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the columns of a panel of a shared tile of padded width D: 64 (128-byte
+// swizzle), or 32 at D = 96 (64-byte swizzle)
+__host__ __device__ constexpr int panel_cols(int D) { return D == 96 ? 32 : 64; }
+
 // rows [row0, row0 + kRows) of one head of a [B, T, heads, D] map, as the
-// D / 64 column blocks of a shared tile; kRows * D * 2 bytes on `bar`
+// D / panel_cols(D) panels of a shared tile; kRows * D * 2 bytes on `bar`
 template <int D, int kRows, typename In>
 __device__ __forceinline__ void tma_load_tile(In* dst, const CUtensorMap* map,
                                               uint64_t* bar, int head, int row0, int b) {
+  constexpr int kCols = panel_cols(D);
 #pragma unroll
-  for (int blk = 0; blk < D / 64; ++blk) {
-    tma_load_4d(dst + blk * kRows * 64, map, bar, blk * 64, head, row0, b);
+  for (int blk = 0; blk < D / kCols; ++blk) {
+    tma_load_4d(dst + blk * kRows * kCols, map, bar, blk * kCols, head, row0, b);
   }
 }
 
@@ -204,6 +221,44 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo) {
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma descriptor of a 64-byte swizzled shared operand (layout type 2)
+// starting at p: SBO 512 bytes between 8-row groups, `lbo` bytes between the
+// 32-column panels of an MN-major operand (a K-major one ignores it: pass 16)
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// the descriptor of a tile of padded width D (its panels' swizzle)
+template <int D>
+__device__ __forceinline__ uint64_t desc_tile(const void* p, uint32_t lbo) {
+  if constexpr (panel_cols(D) == 32) {
+    return desc_sw64(p, lbo);
+  } else {
+    return desc_sw128(p, lbo);
+  }
+}
+
+// bytes from a tile of `rows` rows at padded width D to K-major k-step kk
+// (columns [16kk, 16kk + 16)): its panel, then +32 bytes a k-step inside
+// the row
+template <int D>
+__device__ __forceinline__ uint32_t kstep_off(int kk, int rows) {
+  constexpr int kRowBytes = panel_cols(D) * 2;
+  constexpr int kSteps = kRowBytes / 32;  // k-steps a panel
+  return (kk / kSteps) * rows * kRowBytes + (kk % kSteps) * 32;
+}
+
+// element offset of the 8-column chunk that holds (row r, column col) in a
+// tile of kRows rows at padded width D, with its panel's swizzle
+template <int D, int kRows>
+__device__ __forceinline__ int tile_chunk(int r, int col) {
+  constexpr int P = panel_cols(D);
+  const int swz = P == 64 ? (r & 7) : ((r >> 1) & 3);
+  return (col / P) * kRows * P + r * P + ((((col % P) / 8) ^ swz) * 8);
 }
 
 // the descriptor moved `bytes` on (bytes a multiple of 16)
@@ -266,6 +321,10 @@ __device__ __forceinline__ void regs_inc() {
 #define HIVED_R32                                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HIVED_R48                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
 #define HIVED_R64                                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
@@ -286,6 +345,13 @@ __device__ __forceinline__ void regs_inc() {
                ", %32, %33, p, 1, 1, 0, " #MN ";\n}\n"                               \
                : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24)             \
                : "l"(a), "l"(b), "r"(accumulate))
+#define HIVED_SS96(TY, MN)                                                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n96k16.f32." #TY "." #TY " " HIVED_R48 \
+               ", %48, %49, p, 1, 1, 0, " #MN ";\n}\n"                                \
+               : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24), HIVED_D8(32), \
+                 HIVED_D8(40)                                                      \
+               : "l"(a), "l"(b), "r"(accumulate))
 #define HIVED_SS128(TY, MN)                                                         \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32." #TY "." #TY " " HIVED_R64 \
@@ -298,6 +364,13 @@ __device__ __forceinline__ void regs_inc() {
                "wgmma.mma_async.sync.aligned.m64n64k16.f32." #TY "." #TY " " HIVED_R32 \
                ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
                : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24)             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+#define HIVED_RS96(TY)                                                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n96k16.f32." #TY "." #TY " " HIVED_R48 \
+               ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"                       \
+               : HIVED_D8(0), HIVED_D8(8), HIVED_D8(16), HIVED_D8(24), HIVED_D8(32), \
+                 HIVED_D8(40)                                                      \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
 #define HIVED_RS128(TY)                                                             \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
@@ -335,11 +408,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 template <int N, typename In>
 __device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t a, uint64_t b,
                                             int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma_ss_mn: N is 64 or 128");
+  static_assert(N == 64 || N == 96 || N == 128, "wgmma_ss_mn: N is 64, 96 or 128");
   if constexpr (N == 64 && std::is_same<In, __half>::value) {
     HIVED_SS64(f16, 1);
   } else if constexpr (N == 64) {
     HIVED_SS64(bf16, 1);
+  } else if constexpr (N == 96 && std::is_same<In, __half>::value) {
+    HIVED_SS96(f16, 1);
+  } else if constexpr (N == 96) {
+    HIVED_SS96(bf16, 1);
   } else if constexpr (std::is_same<In, __half>::value) {
     HIVED_SS128(f16, 1);
   } else {
@@ -353,11 +430,15 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t a, uint6
 template <int N, typename In>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  static_assert(N == 64 || N == 96 || N == 128, "wgmma_rs: N is 64, 96 or 128");
   if constexpr (N == 64 && std::is_same<In, __half>::value) {
     HIVED_RS64(f16);
   } else if constexpr (N == 64) {
     HIVED_RS64(bf16);
+  } else if constexpr (N == 96 && std::is_same<In, __half>::value) {
+    HIVED_RS96(f16);
+  } else if constexpr (N == 96) {
+    HIVED_RS96(bf16);
   } else if constexpr (std::is_same<In, __half>::value) {
     HIVED_RS128(f16);
   } else {
@@ -367,12 +448,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 
 #undef HIVED_SS32
 #undef HIVED_SS64
+#undef HIVED_SS96
 #undef HIVED_SS128
 #undef HIVED_RS64
+#undef HIVED_RS96
 #undef HIVED_RS128
 #undef HIVED_D8
 #undef HIVED_R16
 #undef HIVED_R32
+#undef HIVED_R48
 #undef HIVED_R64
 
 // ------------------------------------------------------ thread-block clusters

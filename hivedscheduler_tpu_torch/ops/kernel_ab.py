@@ -3,6 +3,7 @@ one process on one CUDA card.
 
     python -m hivedscheduler_tpu_torch.ops.kernel_ab --other DIR [--kernels fwd,dq,dkv]
         [--d D] [--heads H] [--kv-heads H_KV] [--batch B] [--dtype bf16|fp16|f32] [--f32-out]
+        [--sdpa]
     python -m hivedscheduler_tpu_torch.ops.kernel_ab --other DIR --sass
 
 ``DIR`` is the root of another copy of the repository, for example the
@@ -36,7 +37,10 @@ and K3 read the o and lse of this tree's K1. Each
 kernel is timed with CUDA events in the order other, this, this, other, so
 a drift of the card's clock falls on both alike. It prints each reading,
 the ratio of the means, and the largest difference between the two trees'
-outputs. With ``--sass`` it times nothing and compares the two trees'
+outputs. With ``--sdpa`` it also times the pair, K2 then K3, of each
+tree against ``scaled_dot_product_attention``'s backward (causal, the
+backend PyTorch picks, named) on the same inputs, in the order other, this,
+SDPA, SDPA, this, other: a yardstick only. With ``--sass`` it times nothing and compares the two trees'
 machine code instead: each library both trees build, function by function
 (``cuobjdump -sass``, each source's anonymous-namespace hash masked), and
 prints which functions differ. Without a card it exits non-zero.
@@ -72,20 +76,24 @@ def libraries():
 
 def build_other(root: str) -> dict:
     """{library name: CDLL} of the other tree's sources (those of
-    :func:`libraries` it has), all compilers at once."""
+    :func:`libraries` it has), all compilers at once; a library newer than
+    every file of the other tree's ``csrc/`` is kept from an earlier run."""
     csrc = os.path.join(root, "hivedscheduler_tpu_torch", "ops", "csrc")
     out = os.path.join(root, "hivedscheduler_tpu_torch", "_build")
     os.makedirs(out, exist_ok=True)
+    newest = max(os.path.getmtime(os.path.join(csrc, f)) for f in os.listdir(csrc))
+    have = [n for n in libraries() if os.path.exists(os.path.join(csrc, f"{n}.cu"))]
     procs = {n: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o", os.path.join(out, f"lib{n}_ab.so"),
          os.path.join(csrc, f"{n}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-        for n in libraries() if os.path.exists(os.path.join(csrc, f"{n}.cu"))}
+        for n in have if not (os.path.exists(os.path.join(out, f"lib{n}_ab.so")) and
+                              os.path.getmtime(os.path.join(out, f"lib{n}_ab.so")) > newest)}
     for n, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the other tree's {n}.cu:\n{log}")
-    return {n: ctypes.CDLL(os.path.join(out, f"lib{n}_ab.so")) for n in procs}
+    return {n: ctypes.CDLL(os.path.join(out, f"lib{n}_ab.so")) for n in have}
 
 
 # the anonymous namespace of a source in a mangled name: a hash of the file
@@ -191,6 +199,21 @@ def runner(libs, x: dict, res: dict, kernel: str, out_f32: bool = False, symbol:
     return lambda: attn._launch(symbol, launch[0], dims, launch[1], stream, libs)
 
 
+def sdpa_backward(x: dict):
+    """(a call of ``scaled_dot_product_attention``'s backward on ``inputs``'
+    q, k, v and do, causal, the backend's name)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    gqa = x["k"].shape[2] != x["q"].shape[2]
+    q, k, v = (x[n].transpose(1, 2).contiguous().requires_grad_(True) for n in ("q", "k", "v"))
+    choice = int(torch._fused_sdp_choice(q, k, v, None, 0.0, True, enable_gqa=gqa))
+    backend = {int(b.value): n for n, b in SDPBackend.__members__.items()}.get(choice, str(choice))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=gqa)
+    dout = x["do"].transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True), backend
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
@@ -202,6 +225,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
                     help="the inputs' dtype")
     ap.add_argument("--f32-out", action="store_true", help="the f32-output forms")
+    ap.add_argument("--sdpa", action="store_true",
+                    help="also time K2 + K3 against scaled_dot_product_attention's backward")
     ap.add_argument("--sass", action="store_true",
                     help="compare the two trees' machine code instead of timing")
     args = ap.parse_args(argv)
@@ -244,6 +269,20 @@ def main(argv=None) -> int:
               f"{readings['other']} ms, this {readings['this']} ms; "
               f"other/this {mean['other'] / mean['this']:.3f}; max |this - other| "
               f"over its outputs {diff:.3e} ({card})")
+    if args.sdpa:
+        calls = {tree: [runner(trees[tree], x, {}, kernel, args.f32_out)
+                        for kernel in ("dq", "dkv")] for tree in trees}
+        fns = {tree: (lambda c=c: [f() for f in c]) for tree, c in calls.items()}
+        fns["sdpa"], backend = sdpa_backward(x)
+        readings = {name: [] for name in fns}
+        for name in ("other", "this", "sdpa", "sdpa", "this", "other"):
+            readings[name].append(time_ms(fns[name]))
+        mean = {name: sum(r) / len(r) for name, r in readings.items()}
+        print(f"K2 + K3 at B={args.batch}, D={args.d}, H={args.heads}, H_kv={args.kv_heads}, "
+              f"{args.dtype}: other {readings['other']} ms, this {readings['this']} ms, SDPA's "
+              f"backward ({backend}) {readings['sdpa']} ms; this/SDPA "
+              f"{mean['this'] / mean['sdpa']:.3f}, other/SDPA {mean['other'] / mean['sdpa']:.3f} "
+              f"({card})")
     return 0
 
 

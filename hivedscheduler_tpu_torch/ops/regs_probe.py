@@ -1,7 +1,7 @@
 """How many registers ptxas gives the Dp 256 kernels' consumers, by block
-shape and tile.
+shape and tile, and the Dp 96 K2's and K3's.
 
-    python -m hivedscheduler_tpu_torch.ops.regs_probe [--kernel K1|K2|K3 ...]
+    python -m hivedscheduler_tpu_torch.ops.regs_probe [--kernel K1|K2|K3|K2-96|K3-96 ...]
 
 K1 at Dp 256 (``flash_fwd_kernel_d256`` in ``csrc/flash_fwd.cu``) needs
 ~200 registers a consumer thread: o's 128 f32 accumulators beside s and p.
@@ -33,6 +33,12 @@ a consumer), and (a) 32-key tiles (160 accumulators) in two stages or three;
 ``--kernel K3`` the same two files as built
 (:data:`DKV_VARIANTS`: 64-key blocks streaming 64-row q/do tiles, 160
 accumulators a consumer).
+
+K2 and K3 at Dp 96 (``flash_bwd_dq_kernel<96>`` and
+``flash_bwd_dkv_kernel<96>``, the instances of the Dp 64/128 templates on
+tiles of three 32-column panels) keep the producer warpgroup; each
+consumer's dq, dv or dk is 48 f32 registers a thread, not 64.
+``--kernel K2-96`` and ``--kernel K3-96`` compile them as built.
 
 The variants are for ptxas's allocation only: they are not launched. It
 prints nvcc's version and what ``-Xptxas -v`` reports for each instance of
@@ -114,6 +120,10 @@ DQ_VARIANTS = {
 }
 DKV_VARIANTS = {"64-row q/do tiles, 2 stages (as built)": ()}
 
+# K2 and K3 at Dp 96
+DQ96_VARIANTS = {"64-key K/V tiles, 2 stages (as built)": ()}
+DKV96_VARIANTS = {"64-row q/do tiles, 3 stages (as built)": ()}
+
 # kernel: (the edited source, the files compiled, the kernel's name, variants)
 PROBES = {
     "K1": ("flash_fwd.cu", ("flash_fwd.cu",), KERNEL, VARIANTS),
@@ -121,7 +131,13 @@ PROBES = {
            DQ_VARIANTS),
     "K3": ("flash_bwd.cu", ("flash_bwd.cu", "flash_bwd_f16.cu"), "flash_bwd_dkv_kernel_d256",
            DKV_VARIANTS),
+    "K2-96": ("flash_bwd.cu", ("flash_bwd.cu", "flash_bwd_f16.cu"), "flash_bwd_dq_kernel",
+              DQ96_VARIANTS),
+    "K3-96": ("flash_bwd.cu", ("flash_bwd.cu", "flash_bwd_f16.cu"), "flash_bwd_dkv_kernel",
+              DKV96_VARIANTS),
 }
+# the instances of a probe's template that it reports (in the mangled name)
+INSTANCES = {"K2-96": "ILi96E", "K3-96": "ILi96E"}
 
 
 def apply(text: str, changes: tuple, source: str) -> str:
@@ -160,11 +176,11 @@ def compile_variant(label: str, changes: tuple, source: str = "flash_fwd.cu",
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", action="append", choices=sorted(PROBES),
-                    help="the Dp 256 kernel to probe (repeatable; default all)")
+                    help="the kernel to probe (repeatable; default all)")
     args = ap.parse_args(argv)
     version = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
     print(version.stdout.strip().splitlines()[-2])
-    jobs = [(f"{key} {label}", changes, source, files, kernel)
+    jobs = [(f"{key} {label}", changes, source, files, kernel + INSTANCES.get(key, ""))
             for key in (args.kernel or sorted(PROBES))
             for source, files, kernel, variants in [PROBES[key]]
             for label, changes in variants.items()]

@@ -42,8 +42,10 @@ A LoRA step on the card launches K1-K3, leaves the base bit-identical and
 its first loss equal to the dense step's; the speculative engine with the
 target as its own draft serves the plain engine's greedy streams wherever
 the target's top-1 margin is decisive. K1-K3 and their f32 forms hold at
-head dims other than 64 and 128 (32, 80, 96, 112, run at the padded width
-64 or 128; 136, 192 and Gemma's 256 with MQA and ragged T, run at 256), and
+head dims other than 64 and 128 (32, 72, 80, 96, 112, run at the padded
+width 64 or 128, K2 and K3 at 96 for 72-96, which torch.profiler's kernel
+names show, at bf16 and fp16 and with no spill; 136, 192 and Gemma's 256
+with MQA and ragged T, run at 256), and
 store nothing past D into a wider output buffer; a head dim off the
 multiples of 8 or a cross-length k takes ``xla_attention``, as in the JAX
 package, and the raw kernel call refuses D = 12 and f64. K1-K3 at fp16
@@ -132,9 +134,14 @@ EDGE_SHAPES = [
     (2, 320, 4, 2, 64, False),  # non-causal D=64, ragged 128-row tile
 ]
 # head dims other than 64 and 128, run at the padded width 64 (D=32) or 128
-# (D=80, 96: Phi-2's and Phi-3-mini's; 112), with GQA and ragged T
+# (D=72, 80, 96: Phi-2's and Phi-3-mini's; 112; K2 and K3 run 72-96 at 96),
+# with GQA and ragged T; 72 (b, h_kv) pairs, more than half an H100's 132
+# SMs, turn the Dp 96 K3's grid (csrc/flash_bwd.cu)
 PADDED_SHAPES = [
     (2, 200, 4, 2, 32, True),
+    (2, 200, 4, 1, 72, True),
+    (3, 200, 24, 24, 80, True),
+    (3, 256, 24, 24, 96, False),
     (2, 256, 4, 1, 80, False),
     (1, 192, 8, 2, 96, True),
     (2, 130, 4, 4, 96, False),
@@ -373,7 +380,7 @@ def test_backward_at_width_256_is_bit_reproducible(cuda, dtype):
 SENTINEL = -7777.0
 
 
-@pytest.mark.parametrize("d", [32, 96, 136, 256])
+@pytest.mark.parametrize("d", [32, 72, 96, 136, 256])
 @pytest.mark.parametrize("f32", [False, True])
 def test_kernels_store_no_column_past_d(cuda, d, f32):
     # every output is a view of its first d columns into a buffer as wide as
@@ -464,13 +471,13 @@ def _sass_by_kernel(library: str) -> dict:
 ])
 def test_kernels_run_on_wgmma_and_tma(cuda, library, kernel):
     # every instance (D 64/128/256 x causal/full x 16-bit/f32 outputs, of
-    # the bf16 or the fp16 library; the names take in the Dp 256 kernels,
-    # and K3 keeps its column-split Dp 256 instances for small grids: 16)
-    # multiplies with wgmma (HGMMA) on tiles loaded by TMA (UTMALDG), never
-    # with mma.sync (HMMA) or cp.async (LDGSTS)
+    # the bf16 or the fp16 library, and K2's and K3's Dp 96; the names take
+    # in the Dp 256 kernels, and K3 keeps its column-split Dp 256 instances
+    # for small grids: 20) multiplies with wgmma (HGMMA) on tiles loaded by
+    # TMA (UTMALDG), never with mma.sync (HMMA) or cp.async (LDGSTS)
     sass = _sass_by_kernel(_build.build(library))
     found = {k: v for k, v in sass.items() if kernel in k}
-    assert len(found) == (16 if "dkv" in kernel else 12), sorted(sass)
+    assert len(found) == (20 if "dkv" in kernel else 16 if "bwd" in kernel else 12), sorted(sass)
     for name, text in found.items():
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert "HMMA" not in text and "LDGSTS" not in text, name
@@ -488,6 +495,51 @@ def test_width_256_backward_holds_its_accumulators_in_registers(cuda, library, k
     for name, text in found.items():
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert not re.search(r"\b(LDL|STL)\b", text), name
+
+
+@pytest.mark.parametrize("library", ["flash_bwd", "flash_bwd_f16"])
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq_kernelILi96E", "flash_bwd_dkv_kernelILi96E"])
+def test_width_96_backward_runs_on_64_byte_panels_without_spill(cuda, library, kernel):
+    # the Dp 96 K2 and K3 (causal or not x 16-bit or f32 outputs): wgmma on
+    # TMA-fed tiles, no local-memory load or store (a spill), and ptxas did
+    # not serialize their wgmma (its C7512 note)
+    sass = _sass_by_kernel(_build.build(library))
+    found = {k: v for k, v in sass.items() if kernel in k}
+    assert len(found) == 4, sorted(sass)
+    for name, text in found.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert not re.search(r"\b(LDL|STL)\b", text), name
+    report = {n: r for n, r in _build.ptxas_report(_build.build_log(library)).items()
+              if kernel in n}
+    assert len(report) == 4 and not any(r[3] for r in report.values()), report
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("d", [72, 80, 96, 112])
+def test_backward_at_72_to_96_launches_its_own_kernels(cuda, dtype, d):
+    # by torch.profiler's kernel names: K2 and K3 at 64 < D <= 96 launch the
+    # Dp 96 instances, at 112 the Dp 128 ones, in both output forms; each
+    # form held to the plain version, the f32 one rounded equal to the other
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do = _dtype_inputs(dtype, 2, 200, 8, 2, d, True, seed=13)
+    o, lse = tattn.flash_forward(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        grads = tattn.flash_backward(q, k, v, o, lse, do)
+        grads32 = tattn.flash_backward(q, k, v, o, lse, do, grad_dtype=torch.float32)
+        torch.cuda.synchronize()
+    found = sorted({(m.group(1), int(m.group(2))) for e in prof.key_averages()
+                    for m in [re.search(r"flash_bwd_(dq|dkv)_kernel(?:<|ILi)(\d+)", e.key)] if m})
+    width = 96 if d <= 96 else 128
+    assert found == [("dkv", width), ("dq", width)]
+    assert tattn.padded_head_dim(d, "dq") == tattn.padded_head_dim(d, "dkv") == width
+    want = tattn.flash_backward_plain(q, k, v, o, lse, do, grad_dtype=torch.float32)
+    for gr in (grads, grads32):
+        for x, r, name in zip(gr, want, ("dq", "dk", "dv")):
+            fro, row = _grad_errs(x, r)
+            assert fro <= GRAD_REL and row <= GRAD_ROW_REL, (name, fro, row)
+    assert all(torch.equal(x.to(dtype), y) for x, y in zip(grads32, grads))
 
 
 @pytest.mark.parametrize("library", ["flash_fwd", "flash_fwd_f16"])
